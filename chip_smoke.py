@@ -1,0 +1,369 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one CUDA card (an H100): builds the four
+CUDA kernels of the serve path from `stratanet2_tpu_torch/ops/csrc/`, holds
+each against its plain PyTorch version at the serve step's shapes, drives the
+serve step at full width (B=20 clouds x N=10000 points, random weights from a
+seed) and checks its outputs.
+
+    python3 chip_smoke.py            # one card; exits non-zero on any failure
+
+Phases, in order, each failing loudly:
+  1. the card's name and power limit (nvidia-smi);
+  2. build: one nvcc per kernel source, started together;
+  3. capture: one serve step records every kernel call's inputs;
+  4. per kernel and call site: kernel vs plain on the captured inputs
+     (indices exactly, values within the stated atol; for the SA kernel the
+     picks of its built-in ball query are read back through probe launches),
+     CUDA-event times of kernel, plain and, where one PyTorch call computes
+     the same function, that call;
+  5. the counted serve step: launch counters zeroed just before, read just
+     after (2 per kernel), outputs finite, coverages in [0, 1];
+  6. step time (median of 30 synchronised steps) and points/s;
+  7. profile: `torch.profiler` traces 10 steps; each device kernel's time
+     per step, the port's kernels summed per wrapper (the pixel-max scatter
+     and decode kernels together, its key memset beside them), the rest of
+     the device time (plain PyTorch ops), and the idle share of the step,
+     1 - device busy time / the median step time of phase 6;
+  8. the same step at B=2 against the port run on the CPU, and at B=1
+     against its row of the B=2 step;
+  9. the `{"kernels": [...]}` line and the final `{"ok": true, ...}` line.
+
+float32 matmuls run in full float32: TF32 is switched off for cuBLAS and
+cuDNN below, so no product (and no distance) passes through TF32.
+
+`bound_ms` is the least time the card could take for the same work: the
+larger of the bytes a call must move (inputs read once, outputs written
+once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s (H100 SXM
+data sheet, non-tensor float32, 700 W). Operations count each add, multiply,
+compare, min or max as one; where the work depends on the data (the SA
+epilogue runs only for picks within the radius) this run's picks are
+counted. `ms`, `plain_ms`, `bound_ms` and `library_ms` of a kernel are per
+serve step: the sum over its two call sites.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+KERNELS = (  # wrapper, CUDA source, the TPU kernel it replaces
+    ("fps", "stratanet2_tpu_torch/ops/csrc/fps.cu",
+     "stratanet2_tpu/ops/pallas_kernels.py:134"),
+    ("sa_fused_eval", "stratanet2_tpu_torch/ops/csrc/sa_fused_eval.cu",
+     "stratanet2_tpu/ops/pallas_kernels.py:959"),
+    ("knn_interpolate", "stratanet2_tpu_torch/ops/csrc/knn_interpolate.cu",
+     "stratanet2_tpu/ops/pallas_kernels.py:302"),
+    ("pixel_max", "stratanet2_tpu_torch/ops/csrc/pixel_max.cu",
+     "stratanet2_tpu/ops/pallas_kernels.py:1289"),
+)
+SA_ATOL = 1e-4  # layer-2 dot: FMA contraction and summation order differ
+KNN_ATOL = 1e-5  # kernel and plain round alike (fma chains): expected 0
+CPU_ATOL = 1e-5  # CPU vs card: MKL vs cuBLAS float32 rounding; picks identical
+SEED = 0
+STEPS = 30  # timed serve steps; the median is reported
+PROFILE_STEPS = 10
+# device kernels of each wrapper, by name prefix (ops/csrc/*.cu)
+DEVICE_KERNELS = {"fps": ("fps_kernel",), "sa_fused_eval": ("sa_kernel",),
+                  "knn_interpolate": ("knn_kernel",), "pixel_max": ("pixel_max_",)}
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean CUDA-event time of fn over reps launches, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sa_probe_picks(torch, ck, xyz, centroids, radius, k):
+    """Read back the picks of the SA kernel's built-in grouped ball query.
+    The one-layer 32-channel instance runs with q[j, ch] = j + 1 for the
+    points of group (first + ch) and 0 elsewhere, identity affines and zero
+    cterm: output channel ch is then (pick + 1) of that group, or <= 0 where
+    it has no point within the radius."""
+    b, n, _ = xyz.shape
+    c = centroids.shape[1]
+    g = -(-n // k)
+    group = torch.arange(n, device=xyz.device) // g
+    ones, zeros = torch.ones(32, device=xyz.device), torch.zeros(32, device=xyz.device)
+    cterm = torch.zeros((b, c, 32), device=xyz.device)
+    idx = torch.zeros((b, c, k), dtype=torch.long, device=xyz.device)
+    mask = torch.zeros((b, c, k), dtype=torch.bool, device=xyz.device)
+    for first in range(0, k, 32):
+        chans = torch.arange(32, device=xyz.device) + first
+        hit = group[:, None] == chans[None, :]  # (n, 32)
+        q = torch.where(hit, torch.arange(1, n + 1, device=xyz.device, dtype=torch.float32)[:, None], 0.0)
+        q = q[None].expand(b, n, 32).contiguous()
+        out = ck.sa_fused_eval(q, xyz, centroids, cterm, ones, zeros,
+                               None, None, None, None, radius, k)
+        w = min(32, k - first)
+        idx[:, :, first:first + w] = (out[..., :w] - 1).clamp_min(0).long()
+        mask[:, :, first:first + w] = out[..., :w] >= 1
+    return idx, mask
+
+
+def compare_kernels(torch, ck, captured):
+    """Phase 4: every kernel against its plain version at each call site."""
+    from stratanet2_tpu_torch.ops.ballquery import ball_query_grouped
+
+    NEG = ck.NEG
+    rows = {}
+    for name, _src, _rep in KERNELS:
+        kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
+        calls = captured[name]
+        check(len(calls) == 2, f"{name}: expected 2 call sites in a serve step, saw {len(calls)}")
+        agg = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, max_abs_err=0.0,
+                   bytes=0.0, ops=0.0)
+        for site, args in enumerate(calls):
+            diff_sel = 0
+            lib_ms = None
+            if name == "fps":
+                xyz, s, start = args
+                got, want = kernel(*args), plain(*args)
+                diff_sel = int((got != want).sum())
+                err = float((got - want).abs().max())
+                r, n, _ = xyz.shape
+                nbytes, ops = r * n * 12 + r * 4 + r * s * 4, 10.0 * (s - 1) * r * n
+                shape = f"rows={r} N={n} S={s}"
+            elif name == "sa_fused_eval":
+                q, xyz, cent, cterm, a1, c1, w2, b2, a2, c2, radius, k = args
+                got, want = kernel(*args), plain(*args)
+                err = float((got - want).abs().max())
+                check(err <= SA_ATOL, f"sa_fused_eval site {site}: max |diff| {err} > {SA_ATOL}")
+                pidx, pmask = sa_probe_picks(torch, ck, xyz, cent, radius, k)
+                ridx, rmask = ball_query_grouped(cent, xyz, radius, k)
+                diff_sel = int(((pmask != rmask) | (rmask & (pidx != ridx))).sum())
+                b, n, ch1 = q.shape
+                c, ch2 = cent.shape[1], got.shape[2]
+                valid = float(rmask.sum())
+                edge_ops = 4 * ch1 + (2 * ch1 * ch2 + 4 * ch2 if w2 is not None else 0) + ch2
+                nbytes = 4 * (b * n * (ch1 + 3) + b * c * (3 + ch1) + b * c * ch2)
+                ops = 10.0 * b * c * n + valid * edge_ops
+                shape = f"B={b} N={n} C={c} K={k} C1={ch1} C2={ch2} valid_picks={int(valid)}"
+            elif name == "knn_interpolate":
+                x, ps, pt = args
+                (go, gi, gw), (wo, wi, ww) = kernel(*args), plain(*args)
+                diff_sel = int((gi != wi).sum())
+                err = max(float((go - wo).abs().max()), float((gw - ww).abs().max()))
+                check(err <= KNN_ATOL, f"knn site {site}: max |diff| {err} > {KNN_ATOL}")
+                b, s, f = x.shape
+                t = pt.shape[1]
+                nbytes = 4 * (b * s * (f + 3) + b * t * 3 + b * t * f + 2 * b * 3 * t)
+                ops = 11.0 * b * t * s + b * t * (5 * f + 12)
+                shape = f"B={b} S={s} T={t} F={f}"
+            else:  # pixel_max
+                pix, vals, n_pix = args
+                (gv, ga), (wv, wa) = kernel(*args), plain(*args)
+                diff_sel = int((ga != wa).sum())
+                err = float((gv - wv).abs().max())
+                check(err == 0.0, f"pixel_max site {site}: vmax differs by {err}")
+                b, n, c = vals.shape
+                nbytes = 4 * b * n + 4 * b * n * c + 8 * b * n_pix * c
+                ops = float(b * n * c)
+                index = pix.long()[..., None].expand(b, n, c)
+                init = torch.full((b, n_pix, c), NEG, device=vals.device)
+                lib_ms = cuda_ms(torch, lambda: init.scatter_reduce(1, index, vals, "amax"), 20)
+                lib = init.scatter_reduce(1, index, vals, "amax")
+                check(torch.equal(lib, gv), "scatter_reduce(amax) disagrees with pixel_max")
+                shape = f"B={b} N={n} P2={n_pix} C={c}"
+            check(diff_sel == 0, f"{name} site {site}: {diff_sel} selections differ")
+            k_ms = cuda_ms(torch, lambda: kernel(*args), 20)
+            p_ms = cuda_ms(torch, lambda: plain(*args), 2)
+            b_ms, _ = bound_ms(nbytes, ops)
+            print(json.dumps({
+                "kernel": name, "site": site, "shape": shape, "kernel_ms": k_ms,
+                "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                "max_abs_diff": err, "differing_selections": diff_sel,
+            }), flush=True)
+            agg["ms"] += k_ms
+            agg["plain_ms"] += p_ms
+            agg["bytes"] += nbytes
+            agg["ops"] += ops
+            agg["max_abs_err"] = max(agg["max_abs_err"], err)
+            if lib_ms is not None:
+                agg["library_ms"] = (agg["library_ms"] or 0.0) + lib_ms
+        agg["bound_ms"], agg["bound_by"] = bound_ms(agg.pop("bytes"), agg.pop("ops"))
+        rows[name] = agg
+    return rows
+
+
+def profile_step(torch, step, args, step_ms):
+    """Phase 7: device time per serve step, by kernel and by wrapper."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(PROFILE_STEPS):
+            step(*args)
+        torch.cuda.synchronize()
+    kernels = sorted(
+        ((e.self_device_time_total / 1e3 / PROFILE_STEPS, e.count / PROFILE_STEPS, e.key)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
+        reverse=True,
+    )
+    check(len(kernels) > 0, "the profiler saw no device kernel")
+    busy_ms = sum(ms for ms, _, _ in kernels)
+    port = {name: [0.0, 0.0] for name in DEVICE_KERNELS}
+    for ms, calls, key in kernels:
+        for name, prefixes in DEVICE_KERNELS.items():
+            if key.removeprefix("void ").startswith(prefixes):
+                port[name][0] += ms
+                port[name][1] += calls
+    for name, (ms, calls) in port.items():
+        check(calls > 0, f"the profiler saw no device kernel of {name}")
+    port_ms = sum(ms for ms, _ in port.values())
+    print(json.dumps({
+        "phase": "profile", "steps": PROFILE_STEPS, "step_ms": step_ms,
+        "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / step_ms,
+        "port_kernels": {name: {"ms": ms, "launches": calls} for name, (ms, calls) in port.items()},
+        "rest_ms": busy_ms - port_ms,
+        "rest_launches": sum(c for _, c, _ in kernels) - sum(c for _, c in port.values()),
+        "device_kernels": [{"kernel": key[:90], "ms": ms, "calls": calls}
+                           for ms, calls, key in kernels],
+    }), flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from stratanet2_tpu_torch.config import default_config
+    from stratanet2_tpu_torch.inference.predict import make_predict_step
+    from stratanet2_tpu_torch.ops import _build, cuda_kernels as ck
+    from stratanet2_tpu_torch.utils.synthetic import random_model, serve_batch
+
+    card = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    device = torch.device("cuda", 0)
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(json.dumps({"phase": "build", "s": time.perf_counter() - t0,
+                      "libraries": sorted(p.name for p in libs.values())}), flush=True)
+
+    cfg = default_config()
+    b, n = cfg.train.batch_size, cfg.model.subsample_size
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    cloud, xyz = serve_batch(b, n, gen, device)
+    model = random_model(cfg.model, SEED, device)
+    step = make_predict_step(cfg, device=device)
+
+    # phase 3: one serve step records each kernel call's inputs
+    captured = {name: [] for name, _, _ in KERNELS}
+    originals = {name: getattr(ck, name) for name in captured}
+
+    def recorder(name):
+        def record(*args):
+            captured[name].append(args)
+            return originals[name](*args)
+        return record
+
+    for name in captured:
+        setattr(ck, name, recorder(name))
+    try:
+        step(model, cloud, xyz)
+    finally:
+        for name, fn in originals.items():
+            setattr(ck, name, fn)
+    torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        rows = compare_kernels(torch, ck, captured)
+
+    # phase 5: the counted serve step
+    ck.reset_launches()
+    rasters, pred_pl = step(model, cloud, xyz)
+    torch.cuda.synchronize()
+    launches = ck.launch_counts()
+    print(json.dumps({"phase": "serve_step_launches", **launches}), flush=True)
+    for name, count in launches.items():
+        check(count == 2, f"{name} launched {count} times in the serve step, expected 2")
+    check(tuple(rasters.shape) == (b, 3, cfg.model.diam_pix, cfg.model.diam_pix),
+          f"rasters shape {tuple(rasters.shape)}")
+    check(tuple(pred_pl.shape) == (b, 4), f"pred_pl shape {tuple(pred_pl.shape)}")
+    filled = rasters[~torch.isnan(rasters)]
+    check(filled.numel() > 0, "every raster pixel is empty")
+    check(bool(torch.isfinite(pred_pl).all()), "pred_pl is not finite")
+    for what, t in (("rasters", filled), ("pred_pl", pred_pl)):
+        check(bool(((t >= 0) & (t <= 1)).all()), f"{what} outside [0, 1]")
+
+    # phase 6: step time, host clock around synchronised steps
+    times = []
+    for _ in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, cloud, xyz)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = sorted(times)[len(times) // 2]
+    print(json.dumps({"phase": "serve_step", "B": b, "N": n, "step_ms_median": step_ms,
+                      "step_ms_all": times, "points_per_s": b * n / (step_ms / 1e3),
+                      "card": card}), flush=True)
+
+    profile_step(torch, step, (model, cloud, xyz), step_ms)
+
+    # phase 8: B=2 on the card against the port on the CPU
+    r_gpu, p_gpu = step(model, cloud[:2], xyz[:2])
+    r_cpu, p_cpu = make_predict_step(cfg, device="cpu")(
+        copy.deepcopy(model).cpu(), cloud[:2].cpu(), xyz[:2].cpu()
+    )
+    r_gpu, p_gpu = r_gpu.cpu(), p_gpu.cpu()
+    check(torch.equal(torch.isnan(r_gpu), torch.isnan(r_cpu)), "raster NaN pattern differs from CPU")
+    r_err = float(torch.nan_to_num(r_gpu - r_cpu).abs().max())
+    p_err = float((p_gpu - p_cpu).abs().max())
+    print(json.dumps({"phase": "cpu_reference_B2", "rasters_max_abs_diff": r_err,
+                      "pred_pl_max_abs_diff": p_err, "atol": CPU_ATOL}), flush=True)
+    check(max(r_err, p_err) <= CPU_ATOL, f"card vs CPU differ by {max(r_err, p_err)}")
+    r_one, p_one = step(model, cloud[:1], xyz[:1])  # a partial batch of one plot
+    one_err = max(float(torch.nan_to_num(r_one.cpu()[0] - r_gpu[0]).abs().max()),
+                  float((p_one.cpu()[0] - p_gpu[0]).abs().max()))
+    check(torch.equal(torch.isnan(r_one.cpu()[0]), torch.isnan(r_gpu[0])) and one_err <= CPU_ATOL,
+          f"B=1 step differs from its row of the B=2 step by {one_err}")
+
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
+         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
+         "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
+         "library_ms": rows[name]["library_ms"]}
+        for name, src, rep in KERNELS
+    ]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,159 @@
+"""PointNet2 segmentation backbone, eval forward (counterpart of
+`stratanet2_tpu/models/pointnet2.py`, reference model/point_net2.py:70-153).
+
+  stage   here
+  -----   ----------------------------------------------------------------
+  SA1     FPS (partitioned at PROD) + fused SA interior [11 -> 16 -> 16], K=k1
+  SA2     FPS + fused SA interior [19 -> 32], K=k2
+  SA3     MLP [35 -> 64] on [x, pos], per-cloud max
+  FP3     broadcast of the global feature + skip + MLP [96 -> 64]
+  FP2/1   exact 3-NN interpolation + skip + MLP [80 -> 34] / [42 -> 34]
+  head    lin 34 -> 16, ReLU, lin 16 -> 5; softmax(4) * sigmoid(1)
+
+The SA interior takes the fused route on every device: layer 1 distributes
+over the edge concat [x_j, pos_j - pos_c], so q = x@W1x + pos@W1p + b1 (per
+point) and cterm = pos_c@W1p (per centroid) are two matmuls here, and
+`cuda_kernels.sa_fused_eval` does the grouped selection, the gather, both
+layers with eval BN folded, and the masked max. SA3, FP3, the MLPs and the
+head are plain torch.
+
+Inputs follow the JAX package: `cloud` (B, N, 8) features with x, y dropped,
+`xyz` (B, N, 3) centred positions in metres. The model has 14,997
+parameters; BN running statistics are buffers.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from stratanet2_tpu_torch.config import ModelConfig
+from stratanet2_tpu_torch.device import resolve_device
+from stratanet2_tpu_torch.models.nn import MLP, Linear
+from stratanet2_tpu_torch.ops import cuda_kernels
+from stratanet2_tpu_torch.ops.fps import farthest_point_sampling
+from stratanet2_tpu_torch.ops.knn import knn_interpolate
+
+STAGES = ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")
+
+
+def channel_plan(cfg: ModelConfig):
+    """Channels per MLP stage (model/point_net2.py:81-99)."""
+    f_in = cfg.n_input_feats - 2  # x and y dropped
+    mlp1 = [f_in + 3, 16, 16]
+    mlp2 = [mlp1[-1] + 3, 32]
+    mlp3 = [mlp2[-1] + 3, 64]
+    mlp3_fp = [mlp3[-1] + mlp2[-1], 64]
+    mlp2_fp = [mlp3_fp[-1] + mlp1[-1], 34]
+    mlp1_fp = [mlp2_fp[-1] + f_in, 34]
+    return dict(zip(STAGES, (mlp1, mlp2, mlp3, mlp3_fp, mlp2_fp, mlp1_fp)))
+
+
+def set_abstraction(
+    mlp: MLP,
+    x: torch.Tensor,
+    pos: torch.Tensor,
+    n_centroids: int,
+    radius: float,
+    k: int,
+    fps_parts: int,
+    fps_min_part_samples: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FPS -> grouped ball query -> shared MLP -> masked max over the k
+    slots (reference SAModule, model/point_net2.py:14-29), eval mode.
+    Returns (features (B, C, C_out), centroids (B, C, 3))."""
+    idx = farthest_point_sampling(
+        pos, n_centroids, parts=fps_parts, min_part_samples=fps_min_part_samples
+    )
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    centroids = pos[rows, idx.long()]
+    l1 = mlp.layers[0]
+    f = x.shape[-1]
+    w1 = l1.linear.w
+    q = x @ w1[:f] + pos @ w1[f:] + l1.linear.b
+    cterm = centroids @ w1[f:]
+    a1, c1 = l1.bn.folded()
+    if len(mlp.layers) == 2:
+        l2 = mlp.layers[1]
+        w2, b2 = l2.linear.w, l2.linear.b
+        a2, c2 = l2.bn.folded()
+    elif len(mlp.layers) == 1:
+        w2 = b2 = a2 = c2 = None
+    else:
+        raise ValueError("the fused SA interior takes one or two layers")
+    out = cuda_kernels.sa_fused_eval(
+        q.contiguous(), pos.contiguous(), centroids.contiguous(), cterm.contiguous(),
+        a1, c1, w2, b2, a2, c2, radius, k,
+    )
+    return out, centroids
+
+
+class PointNet2(nn.Module):
+    def __init__(self, cfg: ModelConfig = ModelConfig()):
+        super().__init__()
+        self.cfg = cfg
+        for name, channels in channel_plan(cfg).items():
+            setattr(self, name, MLP(channels))
+        self.lin1 = Linear(self.fp1.layers[-1].linear.w.shape[1], 16)
+        self.lin2 = Linear(16, cfg.n_class + 1)
+
+    def forward(
+        self, cloud: torch.Tensor, xyz: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Eval forward: (B, N, 8) features, (B, N, 3) positions ->
+        (coverages (B, N, 4), proba (B, N, 4))."""
+        if self.training:
+            raise NotImplementedError(
+                "only the eval forward is ported; call model.eval() first"
+            )
+        cfg = self.cfg
+        x0, pos0 = cloud.float(), xyz.float()
+        fps_kw = dict(
+            fps_parts=cfg.fps_parts, fps_min_part_samples=cfg.fps_min_part_samples
+        )
+        x1, pos1 = set_abstraction(
+            self.sa1, x0, pos0, cfg.n_centroids1, cfg.r1, cfg.k1, **fps_kw
+        )
+        x2, pos2 = set_abstraction(
+            self.sa2, x1, pos1, cfg.n_centroids2, cfg.r2, cfg.k2, **fps_kw
+        )
+
+        # global SA (model/point_net2.py:32-42): MLP on [x, pos], max over points
+        g = torch.amax(self.sa3(torch.cat([x2, pos2], dim=-1)), dim=1)
+        # FP3: k=1 interpolation from the single global point is a broadcast
+        h = self.fp3(torch.cat([g[:, None, :].expand(-1, x2.shape[1], -1), x2], dim=-1))
+        h = self.fp2(torch.cat([knn_interpolate(h, pos2, pos1), x1], dim=-1))
+        h = self.fp1(torch.cat([knn_interpolate(h, pos1, pos0), x0], dim=-1))
+
+        scores = self.lin2(torch.relu(self.lin1(h)))
+        proba = torch.softmax(scores[..., : cfg.n_class], dim=-1)
+        density = torch.sigmoid(scores[..., cfg.n_class :])
+        return proba * density, proba
+
+
+def count_params(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+@torch.no_grad()
+def init_pointnet2(
+    generator: torch.Generator,
+    cfg: ModelConfig = ModelConfig(),
+    device: Optional[Union[str, torch.device]] = None,
+) -> PointNet2:
+    """A model initialised as the JAX `init_pointnet2` does: every Linear
+    U(+-1/sqrt(fan_in)), BN scale 1 / bias 0 / mean 0 / var 1, and the fixed
+    head bias (model/point_net2.py:97-99). Draws come from the CPU
+    `generator`; the model is returned on `device` (default CUDA), in eval
+    mode."""
+    dev = resolve_device(device)
+    model = PointNet2(cfg)
+    for name in STAGES:
+        for layer in getattr(model, name).layers:
+            layer.linear.reset_parameters(generator)
+    model.lin1.reset_parameters(generator)
+    model.lin2.reset_parameters(generator)
+    model.lin2.b.copy_(torch.tensor(cfg.head_bias_init, dtype=torch.float32))
+    return model.to(dev).eval()

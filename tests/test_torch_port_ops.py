@@ -1,0 +1,337 @@
+"""The PyTorch port's ops (stratanet2_tpu_torch/ops) against the JAX package
+on the CPU. Inputs come from numpy with a seed and go to both sides.
+
+On the CPU every kernel wrapper runs its plain PyTorch version; the CUDA
+kernels themselves are held against those plain versions on the card by
+chip_smoke.py. Selections (FPS, grouped ball query, kNN, pixel argmax) must
+agree index for index; values agree to float32 rounding, with each
+tolerance stated where it is used.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stratanet2_tpu.models import nn as jnn
+from stratanet2_tpu.models.pointnet2 import _sa_module
+from stratanet2_tpu.ops import ball_query, projection as jproj
+from stratanet2_tpu.ops import farthest_point_sampling as jax_fps
+from stratanet2_tpu.ops import knn_interpolate as jax_knn
+from stratanet2_tpu.ops.fps import _fps_lax
+from stratanet2_tpu.ops.knn import _iterative_min_k
+from stratanet2_tpu.ops.pallas_kernels import pixel_max_pallas
+from stratanet2_tpu_torch.models.nn import MLP
+from stratanet2_tpu_torch.models.pointnet2 import set_abstraction
+from stratanet2_tpu_torch.ops import (
+    ball_query_grouped,
+    batched_raster_projection,
+    cuda_kernels as ck,
+    farthest_point_sampling,
+    knn_interpolate,
+    plotwise_coverages,
+    raster_projection,
+)
+from stratanet2_tpu_torch.ops import projection as tproj
+
+torch.set_num_threads(1)
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _cloud(rng, b, n, extent=5.0):
+    xyz = rng.uniform(-extent, extent, (b, n, 3)).astype(np.float32)
+    xyz[0, n // 2 : n // 2 + 4] = xyz[0, 3]  # duplicate points: exact ties
+    return xyz
+
+
+def _exact_fma_f32(a, b, c):
+    """a*b + c for float32 scalars in exact rational arithmetic, rounded
+    once to float32 (ties to even)."""
+    from fractions import Fraction
+
+    v = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    f = np.float32(float(v))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))]
+    err = [abs(Fraction(float(x)) - v) for x in cands]
+    best = [x for x, e in zip(cands, err) if e == min(err)]
+    return min(best, key=lambda x: int(x.view(np.int32)) & 1)
+
+
+class TestDistanceRounding:
+    """XLA's CPU path computes each 3-term sum of products as a chain of
+    fused multiply-adds; the port's distances (and its kernels, on the
+    card) round the same way, so the two packages agree bit for bit on every
+    distance a selection compares.
+
+    That parity rests on XLA's CPU backend contracting those sums into FMAs
+    on the host that runs the tests (its fp-contract default and the host's
+    FMA support). `test_xla_cpu_contracts_sums_into_fmas` checks that
+    premise on its own, so a change of XLA or host fails there, with that
+    message, and not only as an index mismatch of the port."""
+
+    def test_xla_cpu_contracts_sums_into_fmas(self, rng):
+        p = rng.uniform(-10, 10, (400, 3)).astype(np.float32)
+        got = np.asarray(jax.jit(lambda p: jnp.sum(p * p, -1))(jnp.asarray(p)))
+        fused = np.array([_exact_fma_f32(z, z, _exact_fma_f32(y, y, x * x)) for x, y, z in p],
+                         np.float32)
+        unfused = (p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1]) + p[:, 2] * p[:, 2]
+        assert (fused != unfused).any()  # the inputs tell the two roundings apart
+        assert np.array_equal(got, fused), (
+            "XLA's CPU backend no longer computes |p|^2 as fma(z, z, fma(y, y, x*x)) on "
+            "this host; the port's bit-parity tests against JAX assume it does"
+        )
+
+    def test_bitwise_equal_to_jax(self, rng):
+        from stratanet2_tpu_torch.ops.distance import expanded_d2, sq_norm3
+
+        p = rng.uniform(-10, 10, (2, 300, 3)).astype(np.float32)
+        c = p[:, :40]
+        last = 7
+
+        def jax_side(c, p):
+            cp = jax.lax.dot_general(c, jnp.swapaxes(p, 1, 2), (((2,), (1,)), ((0,), (0,))),
+                                     precision=jax.lax.Precision.HIGHEST)
+            d2 = (jnp.sum(c * c, -1, keepdims=True) - 2.0 * cp
+                  + jnp.sum(p * p, -1)[:, None, :])
+            diff = p - p[:, last : last + 1]
+            return jnp.sum(p * p, -1), jnp.maximum(d2, 0.0), jnp.sum(diff * diff, -1)
+
+        want_sq, want_d2, want_fps = map(np.asarray, jax.jit(jax_side)(c, p))
+        np.testing.assert_array_equal(sq_norm3(T(p)).numpy(), want_sq)
+        got_d2 = expanded_d2(T(c), sq_norm3(T(c)), T(p), sq_norm3(T(p)))
+        np.testing.assert_array_equal(got_d2.numpy(), want_d2)
+        np.testing.assert_array_equal(sq_norm3(T(p) - T(p)[:, last : last + 1]).numpy(),
+                                      want_fps)
+
+    def test_fma_is_correctly_rounded(self, rng):
+        """fma_f32 against exact rational arithmetic, including a sum that a
+        plain float64 fma would round onto a float32 midpoint and then the
+        wrong way: a*b + c = 1 + 2^-23 + 2^-24 - 2^-60 must give 1 + 2^-23."""
+        from stratanet2_tpu_torch.ops.distance import fma_f32
+
+        a = (rng.uniform(-1, 1, 3000) * 2.0 ** rng.integers(-20, 20, 3000)).astype(np.float32)
+        b = (rng.uniform(-1, 1, 3000) * 2.0 ** rng.integers(-20, 20, 3000)).astype(np.float32)
+        c = (rng.uniform(-1, 1, 3000) * 2.0 ** rng.integers(-20, 20, 3000)).astype(np.float32)
+        a = np.append(a, np.float32(2.0 ** -12 * (1 + 2.0 ** -18)))
+        b = np.append(b, np.float32(2.0 ** -12 * (1 - 2.0 ** -18)))
+        c = np.append(c, np.float32(1 + 2.0 ** -23))
+        got = fma_f32(T(a), T(b), T(c)).numpy()
+        want = np.array([_exact_fma_f32(*t) for t in zip(a, b, c)], np.float32)
+        np.testing.assert_array_equal(got, want)
+        assert got[-1] == np.float32(1 + 2.0 ** -23)
+
+
+class TestFPS:
+    def test_plain_matches_fps_lax(self, rng):
+        xyz = _cloud(rng, 2, 256)
+        start = np.array([0, 17], np.int32)
+        want = jax.vmap(lambda p, s: _fps_lax(p, 64, s))(jnp.asarray(xyz), jnp.asarray(start))
+        got = ck.fps(T(xyz), 64, T(start))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    @pytest.mark.parametrize("start", [0, [1500, 37]])
+    def test_partitioned_matches_jax(self, rng, start):
+        """N=2048, S=512, parts=2: 256 picks per part, so the partitioned
+        path engages on both sides (shared start residue, offset parts,
+        start swapped into slot 0)."""
+        xyz = _cloud(rng, 2, 2048, extent=10.0)
+        want = jax_fps(jnp.asarray(xyz), 512, start_idx=jnp.asarray(start, jnp.int32),
+                       use_pallas=False, parts=2)
+        got = farthest_point_sampling(T(xyz), 512, start_idx=torch.tensor(start), parts=2)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert got[:, 0].tolist() == np.broadcast_to(start, (2,)).tolist()
+
+
+class TestBallQueryGrouped:
+    @pytest.mark.parametrize(
+        "n,k,c,radius",
+        [
+            (256, 8, 64, 1.0),  # N divisible by K
+            (250, 8, 60, 1.5),  # ragged last group (g=32, 26 real)
+            (100, 16, 30, 2.0),  # g=7: group 14 has 2 real points, group 15 none
+        ],
+    )
+    def test_matches_jax(self, rng, n, k, c, radius):
+        pts = _cloud(rng, 2, n, extent=3.0)
+        cent = pts[:, rng.choice(n, c, replace=False)]
+        want_idx, want_mask = ball_query(jnp.asarray(cent), jnp.asarray(pts), radius, k,
+                                         method="grouped")
+        idx, mask = ball_query_grouped(T(cent), T(pts), radius, k)
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(want_mask))
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+        assert 0 < mask.float().mean() < 1  # both valid and masked slots occur
+
+
+def _jax_mlp(rng, channels):
+    """A JAX MLP with random BN affines and running statistics (so the
+    port's BN fold is exercised) and the same weights as a port MLP."""
+    p, s = jnn.init_mlp(jax.random.PRNGKey(int(rng.integers(1 << 30))), channels)
+    p = jax.tree_util.tree_map(np.asarray, p)
+    s = jax.tree_util.tree_map(np.asarray, s)
+    for lp, ls in zip(p["layers"], s["layers"]):
+        c = ls["mean"].shape[0]
+        lp["bn"]["scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        lp["bn"]["bias"] = rng.normal(0, 0.1, c).astype(np.float32)
+        ls["mean"] = rng.normal(0, 0.1, c).astype(np.float32)
+        ls["var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    mlp = MLP(channels)
+    with torch.no_grad():
+        for layer, lp, ls in zip(mlp.layers, p["layers"], s["layers"]):
+            layer.linear.w.copy_(T(lp["linear"]["w"]))
+            layer.linear.b.copy_(T(lp["linear"]["b"]))
+            layer.bn.scale.copy_(T(lp["bn"]["scale"]))
+            layer.bn.bias.copy_(T(lp["bn"]["bias"]))
+            layer.bn.mean.copy_(T(ls["mean"]))
+            layer.bn.var.copy_(T(ls["var"]))
+    return p, s, mlp
+
+
+class TestSetAbstraction:
+    @pytest.mark.parametrize(
+        "channels,n,c,k,radius,preproject",
+        [
+            ([11, 16, 16], 256, 64, 8, 2 ** 0.5, False),  # SA1: two layers, concat route
+            ([19, 32], 256, 64, 16, 8 ** 0.5, True),  # SA2: one layer, preprojected
+        ],
+    )
+    def test_plain_matches_jax_sa_module(self, rng, channels, n, c, k, radius, preproject):
+        """Port: fused route (q - cterm, folded BN). JAX: its XLA path
+        (`use_pallas=False`, grouped). The two differ by rounding only
+        (layer 1 distributed over the edge concat, BN folded into one
+        affine), hence atol 2e-5 on outputs in the unit range."""
+        p, s, mlp = _jax_mlp(rng, channels)
+        x = rng.uniform(0, 1, (2, n, channels[0] - 3)).astype(np.float32)
+        pos = _cloud(rng, 2, n, extent=3.0)
+        want, want_cent, _ = _sa_module(
+            p, s, jnp.asarray(x), jnp.asarray(pos), c, radius, k, train=False,
+            compute_dtype=jnp.float32, use_pallas=False, chunk=1024,
+            bq_method="grouped", preproject=preproject,
+        )
+        with torch.no_grad():
+            got, cent = set_abstraction(mlp, T(x), T(pos), c, radius, k,
+                                        fps_parts=1, fps_min_part_samples=256)
+        np.testing.assert_array_equal(cent.numpy(), np.asarray(want_cent))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-5)
+
+
+def _jax_knn_idx(ps, pt):
+    """The 3 indices `_knn_single` (stratanet2_tpu/ops/knn.py:71-96) selects
+    (it returns only the interpolated features)."""
+
+    def one(ps1, pt1):
+        tp = jax.lax.dot_general(pt1, ps1.T, (((1,), (0,)), ((), ())),
+                                 precision=jax.lax.Precision.HIGHEST)
+        d2 = jnp.sum(pt1 * pt1, -1, keepdims=True) - 2.0 * tp + jnp.sum(ps1 * ps1, -1)[None]
+        return _iterative_min_k(jnp.maximum(d2, 0.0), 3)[1]
+
+    return jax.jit(jax.vmap(one))(ps, pt)
+
+
+class TestKnnInterpolate:
+    def test_plain_matches_jax(self, rng):
+        """atol 1e-5: same selections and weights; the 3-term weighted sum
+        may round in another order."""
+        src = _cloud(rng, 2, 128)
+        tgt = rng.uniform(-5, 5, (2, 512, 3)).astype(np.float32)
+        tgt[0, :4] = src[0, 3]  # targets on a source that has duplicates
+        x = rng.normal(size=(2, 128, 34)).astype(np.float32)
+        want = jax_knn(jnp.asarray(x), jnp.asarray(src), jnp.asarray(tgt), k=3, use_pallas=False)
+        out, idx, w = ck.knn_interpolate(T(x), T(src), T(tgt))
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+        want_idx = np.asarray(_jax_knn_idx(jnp.asarray(src), jnp.asarray(tgt)))
+        np.testing.assert_array_equal(idx.numpy(), want_idx.transpose(0, 2, 1))
+        np.testing.assert_allclose(w.sum(1).numpy(), 1.0, rtol=1e-6)
+        got = knn_interpolate(T(x), T(src), T(tgt))
+        np.testing.assert_array_equal(got.numpy(), out.numpy())
+
+
+class TestPixelMax:
+    @pytest.mark.parametrize("n,lo,hi", [(700, -5, 405), (333, 0, 250)])
+    def test_plain_matches_pallas_interpret(self, rng, n, lo, hi):
+        """Against the Pallas kernel run in interpret mode, as
+        tests/test_ops.py runs it: quantised values make ties (lowest index
+        wins), ids outside [0, 400) match nothing, and empty pixels give
+        -3.4e38 / -1."""
+        pix = rng.integers(lo, hi, (3, n)).astype(np.int32)
+        vals = (rng.integers(0, 6, (3, n, 3)) / 6).astype(np.float32)
+        want_v, want_a = pixel_max_pallas(jnp.asarray(pix), jnp.asarray(vals), 400)
+        got_v, got_a = ck.pixel_max(T(pix), T(vals), 400)
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+        np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
+        assert (got_a.numpy() == -1).any()  # empty pixels occur
+
+
+class TestProjection:
+    def _inputs(self, rng, n=611):
+        cov = rng.uniform(size=(2, n, 4)).astype(np.float32)
+        xy = rng.uniform(-1, 1, size=(2, n, 2)).astype(np.float32)
+        xy[0, :8] = np.arange(-4, 4)[:, None] / 10.0  # on bin edges
+        return cov, xy
+
+    def test_pixel_ids_identical(self, rng):
+        _, xy = self._inputs(rng)
+        want_mm = jax.vmap(lambda a: jproj._pixel_bins_minmax(a, 20))(jnp.asarray(xy))
+        np.testing.assert_array_equal(tproj._pixel_bins_minmax(T(xy), 20).numpy(),
+                                      np.asarray(want_mm))
+        want_r = jproj._raster_bins(jnp.asarray(xy * 0.9), 20, 20)
+        np.testing.assert_array_equal(tproj._raster_bins(T(xy * 0.9), 20, 20).numpy(),
+                                      np.asarray(want_r))
+
+    def test_plotwise_matches_jax(self, rng):
+        cov, xy = self._inputs(rng)
+        want = jproj.plotwise_coverages(jnp.asarray(cov), jnp.asarray(xy), 20)
+        got = plotwise_coverages(T(cov), T(xy), 20)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-5)
+
+    def test_rasters_match_jax(self, rng):
+        """Per-pixel maxima are selections of the same values: exact, with
+        NaN exactly where no point falls."""
+        cov, xy = self._inputs(rng)
+        want = np.asarray(jproj.batched_raster_projection(jnp.asarray(xy * 0.9),
+                                                          jnp.asarray(cov), 20, 20))
+        got = batched_raster_projection(T(xy * 0.9), T(cov), 20, 20).numpy()
+        assert np.isnan(want).any()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(got, want)
+        one = raster_projection(T(xy[1] * 0.9), T(cov[1]), 20, 20).numpy()
+        np.testing.assert_array_equal(one, want[1])
+
+
+class TestWrappers:
+    def test_cpu_tensors_take_plain_versions(self, rng):
+        ck.reset_launches()
+        xyz = _cloud(rng, 2, 64)
+        start = np.zeros(2, np.int32)
+        np.testing.assert_array_equal(ck.fps(T(xyz), 8, T(start)).numpy(),
+                                      ck.fps_plain(T(xyz), 8, T(start)).numpy())
+        x = rng.normal(size=(2, 64, 5)).astype(np.float32)
+        out, _, _ = ck.knn_interpolate(T(x), T(xyz), T(xyz[:, :10]))
+        np.testing.assert_array_equal(out.numpy(),
+                                      ck.knn_interpolate_plain(T(x), T(xyz), T(xyz[:, :10]))[0].numpy())
+        pix = rng.integers(0, 9, (2, 64)).astype(np.int32)
+        v, a = ck.pixel_max(T(pix), T(x[..., :3]), 9)
+        pv, pa = ck.pixel_max_plain(T(pix), T(x[..., :3]), 9)
+        assert torch.equal(v, pv) and torch.equal(a, pa)
+        q = rng.normal(size=(2, 64, 32)).astype(np.float32)
+        ones, zeros = torch.ones(32), torch.zeros(32)
+        args = (T(q), T(xyz), T(xyz[:, :10]), torch.zeros(2, 10, 32), ones, zeros,
+                None, None, None, None, 2.0, 4)
+        assert torch.equal(ck.sa_fused_eval(*args), ck.sa_fused_eval_plain(*args))
+        assert ck.launch_counts() == dict.fromkeys(ck.LAUNCHES, 0)
+
+    @pytest.mark.parametrize("bad", ["dtype", "shape", "start"])
+    def test_bad_inputs_raise(self, rng, bad):
+        xyz = T(_cloud(rng, 2, 64))
+        start = torch.zeros(2, dtype=torch.int32)
+        if bad == "dtype":
+            xyz = xyz.double()
+        elif bad == "shape":
+            xyz = xyz[..., :2]
+        else:
+            start = start.long()
+        with pytest.raises(ValueError):
+            ck.fps(xyz, 8, start)
