@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one CUDA card (an H100): builds the four
-CUDA kernels of the serve path from `stratanet2_tpu_torch/ops/csrc/`, holds
-each against its plain PyTorch version at the serve step's shapes, drives the
-serve step at full width (B=20 clouds x N=10000 points, random weights from a
-seed) and checks its outputs.
+"""Smoke test of the PyTorch port on one CUDA card (an H100): builds the
+seven CUDA kernels of the serve and train paths from
+`stratanet2_tpu_torch/ops/csrc/`, holds each against its plain PyTorch
+version at the shapes its path gives it, drives the serve step and the train
+step at full width (B=20 clouds x N=10000 points, random weights from a
+seed) and checks their outputs.
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
 
 Phases, in order, each failing loudly:
   1. the card's name and power limit (nvidia-smi);
   2. build: one nvcc per kernel source, started together;
+  Serve step (fps, sa_fused_eval, knn_interpolate, pixel_max):
   3. capture: one serve step records every kernel call's inputs;
   4. per kernel and call site: kernel vs plain on the captured inputs
      (indices exactly, values within the stated atol; for the SA kernel the
@@ -17,7 +19,8 @@ Phases, in order, each failing loudly:
      CUDA-event times of kernel, plain and, where one PyTorch call computes
      the same function, that call;
   5. the counted serve step: launch counters zeroed just before, read just
-     after (2 per kernel), outputs finite, coverages in [0, 1];
+     after (2 per serve kernel, 0 for the train kernels), outputs finite,
+     coverages in [0, 1];
   6. step time (median of 30 synchronised steps) and points/s;
   7. profile: `torch.profiler` traces 10 steps; each device kernel's time
      per step, the port's kernels summed per wrapper (the pixel-max scatter
@@ -26,7 +29,23 @@ Phases, in order, each failing loudly:
      1 - device busy time / the median step time of phase 6;
   8. the same step at B=2 against the port run on the CPU, and at B=1
      against its row of the B=2 step;
-  9. the `{"kernels": [...]}` line and the final `{"ok": true, ...}` line.
+  Train step (forward, plot projection, 3-term loss, backward, Adam; a KDE
+  prior fitted on the batch's z; BN running statistics at init):
+  9. capture: one train step, on a copy of the model, records every call of
+     ball_query, knn_scatter and pixel_max_bwd;
+  10. per new kernel and call site: kernel vs plain (ball_query and
+     pixel_max_bwd exactly; knn_scatter, whose atomics add in no fixed
+     order, within the float32 error bound of a sum in any order), times as
+     in phase 4, library calls `index_add_` and `scatter_add_`;
+  11. the counted train step: fps 2, ball_query 2, knn_interpolate 2,
+     knn_scatter 3, pixel_max 1, pixel_max_bwd 1, sa_fused_eval 0; loss
+     parts and gradients finite, every parameter changed;
+  12. train step time (median of 30 synchronised steps) and points/s;
+  13. profile of the train step, as phase 7;
+  14. a B=2 train step on the card against the port on the CPU: loss parts,
+     every gradient, BN state and params after the step (tolerances below);
+  15. the `{"kernels": [...]}` line (all seven) and the final
+     `{"ok": true, ...}` line.
 
 float32 matmuls run in full float32: TF32 is switched off for cuBLAS and
 cuDNN below, so no product (and no distance) passes through TF32.
@@ -38,7 +57,8 @@ data sheet, non-tensor float32, 700 W). Operations count each add, multiply,
 compare, min or max as one; where the work depends on the data (the SA
 epilogue runs only for picks within the radius) this run's picks are
 counted. `ms`, `plain_ms`, `bound_ms` and `library_ms` of a kernel are per
-serve step: the sum over its two call sites.
+step: the sum over its call sites in the serve step (the four serve
+kernels) or in the train step (the three train kernels).
 """
 
 from __future__ import annotations
@@ -51,7 +71,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-KERNELS = (  # wrapper, CUDA source, the TPU kernel it replaces
+SERVE_KERNELS = (  # wrapper, CUDA source, the TPU kernel it replaces
     ("fps", "stratanet2_tpu_torch/ops/csrc/fps.cu",
      "stratanet2_tpu/ops/pallas_kernels.py:134"),
     ("sa_fused_eval", "stratanet2_tpu_torch/ops/csrc/sa_fused_eval.cu",
@@ -61,15 +81,44 @@ KERNELS = (  # wrapper, CUDA source, the TPU kernel it replaces
     ("pixel_max", "stratanet2_tpu_torch/ops/csrc/pixel_max.cu",
      "stratanet2_tpu/ops/pallas_kernels.py:1289"),
 )
+TRAIN_KERNELS = (
+    ("ball_query", "stratanet2_tpu_torch/ops/csrc/ball_query.cu",
+     "stratanet2_tpu/ops/pallas_kernels.py:753"),
+    ("knn_scatter", "stratanet2_tpu_torch/ops/csrc/knn_scatter.cu",
+     "stratanet2_tpu/ops/pallas_kernels.py:483"),
+    ("pixel_max_bwd", "stratanet2_tpu_torch/ops/csrc/pixel_max.cu",
+     "stratanet2_tpu/ops/pallas_kernels.py:1329"),
+)
+SERVE_LAUNCHES = {"fps": 2, "sa_fused_eval": 2, "knn_interpolate": 2, "pixel_max": 2,
+                  "ball_query": 0, "knn_scatter": 0, "pixel_max_bwd": 0}
+TRAIN_LAUNCHES = {"fps": 2, "sa_fused_eval": 0, "knn_interpolate": 2, "pixel_max": 1,
+                  "ball_query": 2, "knn_scatter": 3, "pixel_max_bwd": 1}
 SA_ATOL = 1e-4  # layer-2 dot: FMA contraction and summation order differ
 KNN_ATOL = 1e-5  # kernel and plain round alike (fma chains): expected 0
 CPU_ATOL = 1e-5  # CPU vs card: MKL vs cuBLAS float32 rounding; picks identical
+U32 = 2.0 ** -24  # unit roundoff of float32
+# B=2 train step, card vs CPU. Loss parts and BN running state: float32
+# rounding of means over 20000 points. Gradients, leaf by leaf relative to
+# the leaf's max |g|: reductions sum in another order on each side, BatchNorm
+# divides the difference by the batch std, and a ReLU input within rounding
+# of zero can switch on one side only, moving that row's share of every
+# gradient upstream (the CPU tests hold the port to JAX at N=2048 with the
+# same tolerance, for the same reason). Params after Adam's first step
+# (about -lr * sign(g + wd * p)): within 1e-7 plus one ulp where |g + wd * p|
+# exceeds the gradient tolerance, else within 2 * lr + 1e-7.
+TRAIN_LOSS_ATOL = 1e-5
+TRAIN_STATE_ATOL = 1e-5
+TRAIN_GRAD_RTOL = 5e-2
+STEPS_PER_EPOCH = 5  # ~90 training plots of a fold (5 folds of ~110 plots) at B=20
 SEED = 0
-STEPS = 30  # timed serve steps; the median is reported
+STEPS = 30  # timed steps; the median is reported
 PROFILE_STEPS = 10
 # device kernels of each wrapper, by name prefix (ops/csrc/*.cu)
 DEVICE_KERNELS = {"fps": ("fps_kernel",), "sa_fused_eval": ("sa_kernel",),
-                  "knn_interpolate": ("knn_kernel",), "pixel_max": ("pixel_max_",)}
+                  "knn_interpolate": ("knn_kernel",),
+                  "pixel_max": ("pixel_max_scatter", "pixel_max_decode"),
+                  "ball_query": ("ball_query_kernel",), "knn_scatter": ("knn_scatter_kernel",),
+                  "pixel_max_bwd": ("pixel_max_bwd_kernel",)}
 
 
 def fail(msg: str) -> None:
@@ -126,18 +175,69 @@ def sa_probe_picks(torch, ck, xyz, centroids, radius, k):
     return idx, mask
 
 
+def capture_calls(ck, names, run):
+    """Record the arguments of every call of the named wrappers while `run`
+    runs (the calls go through as usual)."""
+    captured = {name: [] for name in names}
+    originals = {name: getattr(ck, name) for name in names}
+
+    def recorder(name):
+        def record(*args):
+            captured[name].append(args)
+            return originals[name](*args)
+        return record
+
+    for name in names:
+        setattr(ck, name, recorder(name))
+    try:
+        run()
+    finally:
+        for name, fn in originals.items():
+            setattr(ck, name, fn)
+    return captured
+
+
+def report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err, diff_sel,
+                lib_ms, agg):
+    """Time kernel and plain at one call site, print its line, add it to agg."""
+    k_ms = cuda_ms(torch, lambda: kernel(*args), 20)
+    p_ms = cuda_ms(torch, lambda: plain(*args), 2)
+    b_ms, _ = bound_ms(nbytes, ops)
+    print(json.dumps({
+        "kernel": name, "site": site, "shape": shape, "kernel_ms": k_ms,
+        "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+        "max_abs_diff": err, "differing_selections": diff_sel,
+    }), flush=True)
+    agg["ms"] += k_ms
+    agg["plain_ms"] += p_ms
+    agg["bytes"] += nbytes
+    agg["ops"] += ops
+    agg["max_abs_err"] = max(agg["max_abs_err"], err)
+    if lib_ms is not None:
+        agg["library_ms"] = (agg["library_ms"] or 0.0) + lib_ms
+
+
+def new_agg():
+    return dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, max_abs_err=0.0,
+                bytes=0.0, ops=0.0)
+
+
+def finish_agg(agg):
+    agg["bound_ms"], agg["bound_by"] = bound_ms(agg.pop("bytes"), agg.pop("ops"))
+    return agg
+
+
 def compare_kernels(torch, ck, captured):
-    """Phase 4: every kernel against its plain version at each call site."""
+    """Phase 4: every serve kernel against its plain version at each call site."""
     from stratanet2_tpu_torch.ops.ballquery import ball_query_grouped
 
     NEG = ck.NEG
     rows = {}
-    for name, _src, _rep in KERNELS:
+    for name, _src, _rep in SERVE_KERNELS:
         kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
         calls = captured[name]
         check(len(calls) == 2, f"{name}: expected 2 call sites in a serve step, saw {len(calls)}")
-        agg = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, max_abs_err=0.0,
-                   bytes=0.0, ops=0.0)
+        agg = new_agg()
         for site, args in enumerate(calls):
             diff_sel = 0
             lib_ms = None
@@ -191,44 +291,108 @@ def compare_kernels(torch, ck, captured):
                 check(torch.equal(lib, gv), "scatter_reduce(amax) disagrees with pixel_max")
                 shape = f"B={b} N={n} P2={n_pix} C={c}"
             check(diff_sel == 0, f"{name} site {site}: {diff_sel} selections differ")
-            k_ms = cuda_ms(torch, lambda: kernel(*args), 20)
-            p_ms = cuda_ms(torch, lambda: plain(*args), 2)
-            b_ms, _ = bound_ms(nbytes, ops)
-            print(json.dumps({
-                "kernel": name, "site": site, "shape": shape, "kernel_ms": k_ms,
-                "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-                "max_abs_diff": err, "differing_selections": diff_sel,
-            }), flush=True)
-            agg["ms"] += k_ms
-            agg["plain_ms"] += p_ms
-            agg["bytes"] += nbytes
-            agg["ops"] += ops
-            agg["max_abs_err"] = max(agg["max_abs_err"], err)
-            if lib_ms is not None:
-                agg["library_ms"] = (agg["library_ms"] or 0.0) + lib_ms
-        agg["bound_ms"], agg["bound_by"] = bound_ms(agg.pop("bytes"), agg.pop("ops"))
-        rows[name] = agg
+            report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
+                        diff_sel, lib_ms, agg)
+        rows[name] = finish_agg(agg)
     return rows
 
 
-def profile_step(torch, step, args, step_ms):
-    """Phase 7: device time per serve step, by kernel and by wrapper."""
+def compare_train_kernels(torch, ck, captured):
+    """Phase 10: the three train kernels against their plain versions at
+    each call site of the train step."""
+    rows = {}
+    for name, _src, _rep in TRAIN_KERNELS:
+        kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
+        calls = captured[name]
+        want_sites = TRAIN_LAUNCHES[name]
+        check(len(calls) == want_sites,
+              f"{name}: expected {want_sites} call sites in a train step, saw {len(calls)}")
+        agg = new_agg()
+        for site, args in enumerate(calls):
+            diff_sel, lib_ms = 0, None
+            if name == "ball_query":
+                cent, pts, radius, k = args
+                (gi, gm), (wi, wm) = kernel(*args), plain(*args)
+                diff_sel = int(((gm != wm) | (wm & (gi != wi))).sum())
+                check(torch.equal(gi, wi) and torch.equal(gm, wm),
+                      f"ball_query site {site}: idx/mask differ from the plain version")
+                err = 0.0
+                b, c, _ = cent.shape
+                n = pts.shape[1]
+                nbytes, ops = 12.0 * b * (c + n) + 5.0 * b * c * k, 10.0 * b * c * n
+                shape = f"B={b} C={c} N={n} K={k} valid={int(wm.sum())}"
+            elif name == "knn_scatter":
+                idx, w, g, s = args
+                got, want = kernel(*args), plain(*args)
+                b, k, t = idx.shape
+                f = g.shape[2]
+                flat = (idx.long() + (torch.arange(b, device=g.device) * s)[:, None, None]).reshape(-1)
+                contrib = g[:, None].expand(b, k, t, f)
+                if w is not None:
+                    contrib = w[..., None] * contrib
+                contrib = contrib.reshape(-1, f)
+                # float32 error bound of a sum in any order, per element
+                absum = torch.zeros((b * s, f), dtype=torch.float64, device=g.device)
+                absum.index_add_(0, flat, contrib.abs().double())
+                cnt = torch.zeros(b * s, dtype=torch.float64, device=g.device)
+                cnt.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float64))
+                bound = (cnt[:, None] * U32 * absum + 2 * U32 * want.reshape(-1, f).abs().double())
+                diff = (got - want).abs().reshape(-1, f).double()
+                err = float(diff.max())
+                check(bool((diff <= bound).all()),
+                      f"knn_scatter site {site}: |kernel - plain| exceeds the float32 bound "
+                      f"(worst ratio {float((diff / bound.clamp_min(1e-45)).max())})")
+                lib_out = torch.zeros((b * s, f), device=g.device)
+                lib_ms = cuda_ms(torch, lambda: lib_out.zero_().index_add_(0, flat, contrib), 20)
+                lib_err = float((lib_out.reshape(b, s, f) - want).abs().max())
+                print(json.dumps({"kernel": name, "site": site, "library": "index_add_",
+                                  "library_max_abs_diff": lib_err,
+                                  "kernel_bound_ratio": float((diff / bound.clamp_min(1e-45)).max())}),
+                      flush=True)
+                nbytes = 4.0 * (b * k * t * (2 if w is not None else 1) + b * t * f + b * s * f)
+                ops = float(b * k * t * f * (2 if w is not None else 1))
+                shape = f"B={b} k={k} T={t} S={s} F={f} weights={w is not None}"
+            else:  # pixel_max_bwd
+                amax, g, n = args
+                got, want = kernel(*args), plain(*args)
+                check(torch.equal(got, want), f"pixel_max_bwd site {site}: differs from plain")
+                err = float((got - want).abs().max())
+                b, p2, c = g.shape
+                index = amax.clamp_min(0).long()
+                src = torch.where(amax >= 0, g, torch.zeros_like(g))
+                lib_ms = cuda_ms(torch, lambda: torch.zeros((b, n, c), device=g.device)
+                                 .scatter_add_(1, index, src), 20)
+                lib = torch.zeros((b, n, c), device=g.device).scatter_add_(1, index, src)
+                check(torch.equal(lib, got), "scatter_add_ disagrees with pixel_max_bwd")
+                nbytes, ops = 8.0 * b * p2 * c + 4.0 * b * n * c, 0.0
+                shape = f"B={b} P2={p2} C={c} N={n} winners={int((amax >= 0).sum())}"
+            report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
+                        diff_sel, lib_ms, agg)
+        rows[name] = finish_agg(agg)
+    return rows
+
+
+def profile_step(torch, step, args, step_ms, label, wrappers):
+    """Phases 7 and 13: device time per step, by kernel and by wrapper;
+    every wrapper in `wrappers` must show up."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         for _ in range(PROFILE_STEPS):
             step(*args)
         torch.cuda.synchronize()
-    kernels = sorted(
+    kernels = sorted(  # user annotations (Adam's "Optimizer.step") span kernels: skipped
         ((e.self_device_time_total / 1e3 / PROFILE_STEPS, e.count / PROFILE_STEPS, e.key)
          for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
+         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+         and not getattr(e, "is_user_annotation", False)),
         reverse=True,
     )
     check(len(kernels) > 0, "the profiler saw no device kernel")
     busy_ms = sum(ms for ms, _, _ in kernels)
-    port = {name: [0.0, 0.0] for name in DEVICE_KERNELS}
+    port = {name: [0.0, 0.0] for name in wrappers}
     for ms, calls, key in kernels:
-        for name, prefixes in DEVICE_KERNELS.items():
+        for name in wrappers:
+            prefixes = DEVICE_KERNELS[name]
             if key.removeprefix("void ").startswith(prefixes):
                 port[name][0] += ms
                 port[name][1] += calls
@@ -236,8 +400,10 @@ def profile_step(torch, step, args, step_ms):
         check(calls > 0, f"the profiler saw no device kernel of {name}")
     port_ms = sum(ms for ms, _ in port.values())
     print(json.dumps({
-        "phase": "profile", "steps": PROFILE_STEPS, "step_ms": step_ms,
+        "phase": label, "steps": PROFILE_STEPS, "step_ms": step_ms,
         "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / step_ms,
+        # blocking copies from pageable host memory drain the stream
+        "htod_copies": sum(c for _, c, key in kernels if key.startswith("Memcpy HtoD")),
         "port_kernels": {name: {"ms": ms, "launches": calls} for name, (ms, calls) in port.items()},
         "rest_ms": busy_ms - port_ms,
         "rest_launches": sum(c for _, c, _ in kernels) - sum(c for _, c in port.values()),
@@ -246,34 +412,30 @@ def profile_step(torch, step, args, step_ms):
     }), flush=True)
 
 
-def main() -> int:
-    import torch
+def timed_steps(torch, fn):
+    """Median and all host-clock times (ms) of STEPS synchronised calls."""
+    times = []
+    for _ in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], times
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
-    from stratanet2_tpu_torch.config import default_config
+def check_launches(launches, want, path):
+    print(json.dumps({"phase": f"{path}_launches", **launches}), flush=True)
+    for name, count in want.items():
+        check(launches[name] == count,
+              f"{name} launched {launches[name]} times in the {path}, expected {count}")
+
+
+def serve_phases(torch, ck, cfg, device, card):
+    """Phases 3-8. Returns the serve kernels' rows and the counted launches."""
     from stratanet2_tpu_torch.inference.predict import make_predict_step
-    from stratanet2_tpu_torch.ops import _build, cuda_kernels as ck
     from stratanet2_tpu_torch.utils.synthetic import random_model, serve_batch
 
-    card = subprocess.run(
-        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    print(card, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    device = torch.device("cuda", 0)
-
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    print(json.dumps({"phase": "build", "s": time.perf_counter() - t0,
-                      "libraries": sorted(p.name for p in libs.values())}), flush=True)
-
-    cfg = default_config()
     b, n = cfg.train.batch_size, cfg.model.subsample_size
     gen = torch.Generator(device=device).manual_seed(SEED)
     cloud, xyz = serve_batch(b, n, gen, device)
@@ -281,35 +443,19 @@ def main() -> int:
     step = make_predict_step(cfg, device=device)
 
     # phase 3: one serve step records each kernel call's inputs
-    captured = {name: [] for name, _, _ in KERNELS}
-    originals = {name: getattr(ck, name) for name in captured}
-
-    def recorder(name):
-        def record(*args):
-            captured[name].append(args)
-            return originals[name](*args)
-        return record
-
-    for name in captured:
-        setattr(ck, name, recorder(name))
-    try:
-        step(model, cloud, xyz)
-    finally:
-        for name, fn in originals.items():
-            setattr(ck, name, fn)
+    captured = capture_calls(ck, [name for name, _, _ in SERVE_KERNELS],
+                             lambda: step(model, cloud, xyz))
     torch.cuda.synchronize()
-
     with torch.inference_mode():
         rows = compare_kernels(torch, ck, captured)
+    del captured
 
     # phase 5: the counted serve step
     ck.reset_launches()
     rasters, pred_pl = step(model, cloud, xyz)
     torch.cuda.synchronize()
     launches = ck.launch_counts()
-    print(json.dumps({"phase": "serve_step_launches", **launches}), flush=True)
-    for name, count in launches.items():
-        check(count == 2, f"{name} launched {count} times in the serve step, expected 2")
+    check_launches(launches, SERVE_LAUNCHES, "serve_step")
     check(tuple(rasters.shape) == (b, 3, cfg.model.diam_pix, cfg.model.diam_pix),
           f"rasters shape {tuple(rasters.shape)}")
     check(tuple(pred_pl.shape) == (b, 4), f"pred_pl shape {tuple(pred_pl.shape)}")
@@ -320,19 +466,13 @@ def main() -> int:
         check(bool(((t >= 0) & (t <= 1)).all()), f"{what} outside [0, 1]")
 
     # phase 6: step time, host clock around synchronised steps
-    times = []
-    for _ in range(STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(model, cloud, xyz)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    step_ms = sorted(times)[len(times) // 2]
+    step_ms, times = timed_steps(torch, lambda: step(model, cloud, xyz))
     print(json.dumps({"phase": "serve_step", "B": b, "N": n, "step_ms_median": step_ms,
                       "step_ms_all": times, "points_per_s": b * n / (step_ms / 1e3),
                       "card": card}), flush=True)
 
-    profile_step(torch, step, (model, cloud, xyz), step_ms)
+    profile_step(torch, step, (model, cloud, xyz), step_ms, "profile",
+                 [name for name, count in SERVE_LAUNCHES.items() if count])
 
     # phase 8: B=2 on the card against the port on the CPU
     r_gpu, p_gpu = step(model, cloud[:2], xyz[:2])
@@ -351,14 +491,151 @@ def main() -> int:
                   float((p_one.cpu()[0] - p_gpu[0]).abs().max()))
     check(torch.equal(torch.isnan(r_one.cpu()[0]), torch.isnan(r_gpu[0])) and one_err <= CPU_ATOL,
           f"B=1 step differs from its row of the B=2 step by {one_err}")
+    return rows, launches
 
+
+def compare_train_with_cpu(torch, cfg, model, kde, cloud, xyz, gt):
+    """Phase 14: one train step at B=2 on the card and on the CPU from the
+    same weights and batch."""
+    from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
+
+    sides = {}
+    for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+        m = copy.deepcopy(model).to(dev)
+        start = {k: v.detach().cpu().clone() for k, v in m.named_parameters()}
+        opt, sched = make_optimizer(cfg, m, STEPS_PER_EPOCH)
+        comps = make_train_step(cfg, kde, device=dev)(
+            m, opt, sched, cloud[:2].to(dev), xyz[:2].to(dev), gt[:2].to(dev))
+        sides[side] = dict(
+            comps={k: float(v) for k, v in comps.items()},
+            grads={k: v.grad.detach().cpu() for k, v in m.named_parameters()},
+            params={k: v.detach().cpu() for k, v in m.named_parameters()},
+            state={k: v.detach().cpu() for k, v in m.named_buffers()},
+            start=start,
+        )
+    gpu, cpu = sides["card"], sides["cpu"]
+    loss_err = max(abs(gpu["comps"][k] - cpu["comps"][k]) for k in cpu["comps"])
+    state_err = max(float((gpu["state"][k] - v).abs().max()) for k, v in cpu["state"].items())
+    grad_rel, param_sure, param_all = 0.0, 0.0, 0.0
+    lr, wd = cfg.train.lr, cfg.train.wd
+    for k, g in cpu["grads"].items():
+        scale = float(g.abs().max())
+        check(scale > 0 and bool(torch.isfinite(gpu["grads"][k]).all()), f"gradient of {k}")
+        grad_rel = max(grad_rel, float((gpu["grads"][k] - g).abs().max()) / scale)
+        eff = (g + wd * cpu["start"][k]).abs()
+        sure = eff > TRAIN_GRAD_RTOL * scale
+        diff = (gpu["params"][k] - cpu["params"][k]).abs()
+        slack = diff - 1.2e-7 * cpu["params"][k].abs()
+        param_sure = max(param_sure, float(slack[sure].max()) if bool(sure.any()) else 0.0)
+        param_all = max(param_all, float(diff.max()))
+    print(json.dumps({"phase": "train_cpu_reference_B2", "loss_max_abs_diff": loss_err,
+                      "grad_max_rel_diff": grad_rel, "bn_state_max_abs_diff": state_err,
+                      "param_max_abs_diff_where_sure": param_sure,
+                      "param_max_abs_diff": param_all, "loss_atol": TRAIN_LOSS_ATOL,
+                      "grad_rtol": TRAIN_GRAD_RTOL, "state_atol": TRAIN_STATE_ATOL,
+                      "comps_card": gpu["comps"], "comps_cpu": cpu["comps"]}), flush=True)
+    check(loss_err <= TRAIN_LOSS_ATOL, f"train loss parts: card vs CPU differ by {loss_err}")
+    check(grad_rel <= TRAIN_GRAD_RTOL, f"gradients: card vs CPU differ by {grad_rel} of max")
+    check(state_err <= TRAIN_STATE_ATOL, f"BN state: card vs CPU differ by {state_err}")
+    check(param_sure <= 1e-7, f"params after the step differ by {param_sure} where sure")
+    check(param_all <= 2 * lr + 1e-7, f"params after the step differ by {param_all}")
+
+
+def train_phases(torch, ck, cfg, device, card):
+    """Phases 9-14. Returns the train kernels' rows and the counted launches."""
+    from stratanet2_tpu_torch.learning.kde import fit_kde_mixture
+    from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
+    from stratanet2_tpu_torch.utils.synthetic import random_model, train_batch
+
+    b, n = cfg.train.batch_size, cfg.model.subsample_size
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    cloud, xyz, gt = train_batch(b, n, gen, device)
+    kde = fit_kde_mixture((cloud[..., 2] * cfg.model.z_max).cpu().numpy())
+    model = random_model(cfg.model, SEED, device, running_stats=False)
+    step = make_train_step(cfg, kde, device=device)
+
+    def fresh():
+        m = copy.deepcopy(model)
+        opt, sched = make_optimizer(cfg, m, STEPS_PER_EPOCH)
+        return m, opt, sched
+
+    # phase 9: one train step on a copy records each new kernel's calls
+    m, opt, sched = fresh()
+    captured = capture_calls(ck, [name for name, _, _ in TRAIN_KERNELS],
+                             lambda: step(m, opt, sched, cloud, xyz, gt))
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        rows = compare_train_kernels(torch, ck, captured)
+    del captured, m, opt, sched
+
+    # phase 11: the counted train step
+    m, opt, sched = fresh()
+    before = {k: v.detach().clone() for k, v in m.named_parameters()}
+    ck.reset_launches()
+    comps = step(m, opt, sched, cloud, xyz, gt)
+    torch.cuda.synchronize()
+    launches = ck.launch_counts()
+    check_launches(launches, TRAIN_LAUNCHES, "train_step")
+    print(json.dumps({"phase": "train_step_losses", **{k: float(v) for k, v in comps.items()}}),
+          flush=True)
+    for name, value in comps.items():
+        check(bool(torch.isfinite(value)), f"train loss part {name} is not finite")
+    for name, prm in m.named_parameters():
+        check(prm.grad is not None and bool(torch.isfinite(prm.grad).all()),
+              f"gradient of {name} missing or not finite")
+        check(not torch.equal(prm.detach(), before[name]), f"{name} did not change")
+
+    # phase 12: train step time
+    step_ms, times = timed_steps(torch, lambda: step(m, opt, sched, cloud, xyz, gt))
+    print(json.dumps({"phase": "train_step", "B": b, "N": n, "step_ms_median": step_ms,
+                      "step_ms_all": times, "points_per_s": b * n / (step_ms / 1e3),
+                      "card": card}), flush=True)
+
+    profile_step(torch, step, (m, opt, sched, cloud, xyz, gt), step_ms, "train_profile",
+                 [name for name, count in TRAIN_LAUNCHES.items() if count])
+
+    compare_train_with_cpu(torch, cfg, model, kde, cloud, xyz, gt)
+    return rows, launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from stratanet2_tpu_torch.config import default_config
+    from stratanet2_tpu_torch.ops import _build, cuda_kernels as ck
+
+    card = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    device = torch.device("cuda", 0)
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(json.dumps({"phase": "build", "s": time.perf_counter() - t0,
+                      "libraries": sorted(p.name for p in libs.values())}), flush=True)
+
+    cfg = default_config()
+    serve_rows, serve_launches = serve_phases(torch, ck, cfg, device, card)
+    train_rows, train_launches = train_phases(torch, ck, cfg, device, card)
+
+    entries = [(k, serve_rows, serve_launches) for k in SERVE_KERNELS]
+    entries += [(k, train_rows, train_launches) for k in TRAIN_KERNELS]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
          "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
          "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
          "library_ms": rows[name]["library_ms"]}
-        for name, src, rep in KERNELS
+        for (name, src, rep), rows, launches in entries
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

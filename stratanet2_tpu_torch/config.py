@@ -1,6 +1,6 @@
 """Configuration for the port: a copy of the pieces of `stratanet2_tpu.config`
-that the serve step reads (ModelConfig and the serve batch size), with the
-same defaults.
+that the serve and train steps read (ModelConfig and the optimisation
+fields of TrainConfig), with the same defaults.
 
 The port keeps its own copy rather than importing the JAX package's module:
 the port must import nothing of `stratanet2_tpu`.
@@ -8,8 +8,9 @@ the port must import nothing of `stratanet2_tpu`.
 Fields of the JAX ModelConfig that select between TPU paths
 (`use_pallas`, `ball_query_method`, `compute_dtype`, `knn_chunk`) have no
 counterpart: the port has one path per device, the grouped ball query, and
-float32 compute. Neither have the fields only training reads (`drop`, the
-DEV/PROD `mode`): they come with the train slice.
+float32 compute. `drop` has none either: PROD trains with drop=0.0, where
+the JAX head's dropout is the identity, so the port's train step takes no
+random generator (dropout for drop > 0 is not ported yet).
 """
 
 from __future__ import annotations
@@ -68,11 +69,16 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The field of the JAX TrainConfig that serving reads: the batch of
-    plots the loader stacks (reference config.py:83-97). The optimisation
-    fields come with the train slice."""
+    """The fields of the JAX TrainConfig that the serve and train steps and
+    the optimizer read (reference config.py:83-97)."""
 
     batch_size: int = 20
+    lr: float = 1e-3
+    wd: float = 1e-3  # coupled L2 (torch Adam weight_decay)
+    lr_decay: float = 0.985  # staircase, every `step_size` epochs
+    step_size: int = 1
+    m: float = 0.10  # NLL loss weight (config.py:70)
+    e: float = 0.2 / 5  # entropy loss weight (config.py:71)
 
 
 @dataclass(frozen=True)

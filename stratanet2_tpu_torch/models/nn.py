@@ -1,23 +1,32 @@
 """Building blocks of the port's PointNet2 (counterpart of
-`stratanet2_tpu/models/nn.py`): Linear, eval-mode BatchNorm and the
+`stratanet2_tpu/models/nn.py`): Linear, BatchNorm and the
 Linear -> ReLU -> BatchNorm MLP of the reference (model/point_net2.py:45-53).
 
 Layout follows the JAX package: a Linear holds `w` as (in, out), so the
 converter maps leaves one to one and the fused SA route can split W1 by
 rows. BatchNorm keeps `scale`/`bias` as parameters and `mean`/`var` as
 buffers (eps 1e-5); eval normalises as (x - mean) * (rsqrt(var + eps) *
-scale) + bias, the JAX order. The masked batch statistics of training come
-with the train slice.
+scale) + bias, the JAX order.
+
+In train mode BatchNorm normalises with masked batch statistics over all
+leading axes, as `nn.batchnorm(train=True)` does (nn.py:49-115): shifted
+one-pass sums with the shift equal to the running mean before the update,
+the biased variance to normalise, the unbiased one (n / max(n - 1, 1)) into
+the running state, momentum 0.1. A mask broadcastable to x.shape[:-1] is
+broadcast before counting. The new running statistics are computed from
+the same forward and bound to the buffers as new tensors, so nothing that
+autograd saved is modified in place.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 class Linear(nn.Module):
@@ -51,8 +60,29 @@ class BatchNorm(nn.Module):
         a = self.scale * torch.rsqrt(self.var + BN_EPS)
         return a, self.bias - self.mean * a
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x - self.mean) * (torch.rsqrt(self.var + BN_EPS) * self.scale) + self.bias
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.training:
+            return (x - self.mean) * (torch.rsqrt(self.var + BN_EPS) * self.scale) + self.bias
+        shift = self.mean
+        xc = x - shift
+        dims = tuple(range(x.dim() - 1))
+        if mask is None:
+            n = x.new_full((), float(x.numel() // x.shape[-1]))
+            dsum, sqsum = xc.sum(dims), (xc * xc).sum(dims)
+        else:
+            m = mask.to(x.dtype)[..., None].expand(x.shape[:-1] + (1,))
+            n = m.sum()
+            dsum, sqsum = (xc * m).sum(dims), (xc * xc * m).sum(dims)
+        n = n.clamp_min(1.0)  # a count: no gradient flows through it
+        dmean = dsum / n
+        mean = dmean + shift
+        # torch.maximum, not clamp_min: half the gradient at 0, as jnp.maximum
+        var = torch.maximum(sqsum / n - dmean * dmean, x.new_zeros(()))
+        with torch.no_grad():
+            unbiased = var * n / (n - 1.0).clamp_min(1.0)
+            self.mean = (1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean
+            self.var = (1 - BN_MOMENTUM) * self.var + BN_MOMENTUM * unbiased
+        return (x - mean) * (torch.rsqrt(var + BN_EPS) * self.scale) + self.bias
 
 
 class Layer(nn.Module):
@@ -63,8 +93,8 @@ class Layer(nn.Module):
         self.linear = Linear(n_in, n_out)
         self.bn = BatchNorm(n_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(torch.relu(self.linear(x)))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.bn(torch.relu(self.linear(x)), mask)
 
 
 class MLP(nn.Module):
@@ -74,7 +104,9 @@ class MLP(nn.Module):
             Layer(channels[i - 1], channels[i]) for i in range(1, len(channels))
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`mask` (broadcastable to x.shape[:-1]) selects the rows that
+        enter the batch statistics in train mode."""
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, mask)
         return x

@@ -1,4 +1,4 @@
-"""PointNet2 segmentation backbone, eval forward (counterpart of
+"""PointNet2 segmentation backbone (counterpart of
 `stratanet2_tpu/models/pointnet2.py`, reference model/point_net2.py:70-153).
 
   stage   here
@@ -10,12 +10,23 @@
   FP2/1   exact 3-NN interpolation + skip + MLP [80 -> 34] / [42 -> 34]
   head    lin 34 -> 16, ReLU, lin 16 -> 5; softmax(4) * sigmoid(1)
 
-The SA interior takes the fused route on every device: layer 1 distributes
-over the edge concat [x_j, pos_j - pos_c], so q = x@W1x + pos@W1p + b1 (per
-point) and cterm = pos_c@W1p (per centroid) are two matmuls here, and
-`cuda_kernels.sa_fused_eval` does the grouped selection, the gather, both
-layers with eval BN folded, and the masked max. SA3, FP3, the MLPs and the
-head are plain torch.
+In eval mode the SA interior takes the fused route on every device: layer 1
+distributes over the edge concat [x_j, pos_j - pos_c], so q = x@W1x +
+pos@W1p + b1 (per point) and cterm = pos_c@W1p (per centroid) are two
+matmuls here, and `cuda_kernels.sa_fused_eval` does the grouped selection,
+the gather, both layers with eval BN folded, and the masked max.
+
+In train mode (`model.train()`) SA takes the unfused path of the JAX
+`_sa_module` (pointnet2.py:147-215), the one JAX runs whenever the fused
+train kernels are not eligible: the standalone grouped ball query
+(`cuda_kernels.ball_query`), a gather, the masked-BN MLP and the masked max
+over the K slots (`torch.amax`, which splits the gradient evenly among
+ties as `jnp.max` does). SA1 gathers [x, pos] and subtracts the zero-padded
+centroid offset; SA2 pre-projects q and gathers it with `gather_rows`,
+whose backward is the scatter kernel. Every BN normalises with masked batch
+statistics and updates its running state.
+
+SA3, FP3, the MLPs and the head are plain torch in both modes.
 
 Inputs follow the JAX package: `cloud` (B, N, 8) features with x, y dropped,
 `xyz` (B, N, 3) centred positions in metres. The model has 14,997
@@ -34,6 +45,7 @@ from stratanet2_tpu_torch.device import resolve_device
 from stratanet2_tpu_torch.models.nn import MLP, Linear
 from stratanet2_tpu_torch.ops import cuda_kernels
 from stratanet2_tpu_torch.ops.fps import farthest_point_sampling
+from stratanet2_tpu_torch.ops.gather import gather_rows
 from stratanet2_tpu_torch.ops.knn import knn_interpolate
 
 STAGES = ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")
@@ -51,6 +63,52 @@ def channel_plan(cfg: ModelConfig):
     return dict(zip(STAGES, (mlp1, mlp2, mlp3, mlp3_fp, mlp2_fp, mlp1_fp)))
 
 
+def _centroids(pos, n_centroids, fps_parts, fps_min_part_samples):
+    idx = farthest_point_sampling(
+        pos, n_centroids, parts=fps_parts, min_part_samples=fps_min_part_samples
+    )
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    return pos[rows, idx.long()]
+
+
+def set_abstraction_train(
+    mlp: MLP,
+    x: torch.Tensor,
+    pos: torch.Tensor,
+    n_centroids: int,
+    radius: float,
+    k: int,
+    fps_parts: int,
+    fps_min_part_samples: int,
+    preproject: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The train-mode SA stage: FPS -> standalone grouped ball query ->
+    gather -> masked-BN MLP -> masked max over the k slots. `preproject`
+    selects SA2's form (q = x@W1x + pos@W1p + b1 gathered, minus cterm)
+    over SA1's (gather [x, pos], subtract [0, pos_c]). Updates the MLP's BN
+    running state. Returns (features (B, C, C_out), centroids (B, C, 3))."""
+    centroids = _centroids(pos, n_centroids, fps_parts, fps_min_part_samples)
+    nbr_idx, nbr_mask = cuda_kernels.ball_query(
+        centroids.contiguous(), pos.contiguous(), radius, k
+    )  # (B, C, k)
+    f = x.shape[-1]
+    if preproject:
+        l1 = mlp.layers[0]
+        w1 = l1.linear.w
+        q = x @ w1[:f] + pos @ w1[f:] + l1.linear.b
+        cterm = centroids @ w1[f:]
+        h = torch.relu(gather_rows(q, nbr_idx) - cterm[:, :, None, :])
+        h = l1.bn(h, nbr_mask)
+        for layer in mlp.layers[1:]:
+            h = layer(h, nbr_mask)
+    else:
+        both = gather_rows(torch.cat([x, pos], dim=-1), nbr_idx)  # (B, C, k, F + 3)
+        offset = torch.nn.functional.pad(centroids, (f, 0))  # [0, pos_c]
+        h = mlp(both - offset[:, :, None, :], nbr_mask)
+    h = h.masked_fill(~nbr_mask[..., None], -1e30)
+    return torch.amax(h, dim=2), centroids
+
+
 def set_abstraction(
     mlp: MLP,
     x: torch.Tensor,
@@ -64,11 +122,7 @@ def set_abstraction(
     """FPS -> grouped ball query -> shared MLP -> masked max over the k
     slots (reference SAModule, model/point_net2.py:14-29), eval mode.
     Returns (features (B, C, C_out), centroids (B, C, 3))."""
-    idx = farthest_point_sampling(
-        pos, n_centroids, parts=fps_parts, min_part_samples=fps_min_part_samples
-    )
-    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
-    centroids = pos[rows, idx.long()]
+    centroids = _centroids(pos, n_centroids, fps_parts, fps_min_part_samples)
     l1 = mlp.layers[0]
     f = x.shape[-1]
     w1 = l1.linear.w
@@ -102,23 +156,30 @@ class PointNet2(nn.Module):
     def forward(
         self, cloud: torch.Tensor, xyz: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Eval forward: (B, N, 8) features, (B, N, 3) positions ->
-        (coverages (B, N, 4), proba (B, N, 4))."""
-        if self.training:
-            raise NotImplementedError(
-                "only the eval forward is ported; call model.eval() first"
-            )
+        """(B, N, 8) features, (B, N, 3) positions -> (coverages (B, N, 4),
+        proba (B, N, 4)). In train mode every BN normalises with batch
+        statistics and updates its running state."""
         cfg = self.cfg
         x0, pos0 = cloud.float(), xyz.float()
         fps_kw = dict(
             fps_parts=cfg.fps_parts, fps_min_part_samples=cfg.fps_min_part_samples
         )
-        x1, pos1 = set_abstraction(
-            self.sa1, x0, pos0, cfg.n_centroids1, cfg.r1, cfg.k1, **fps_kw
-        )
-        x2, pos2 = set_abstraction(
-            self.sa2, x1, pos1, cfg.n_centroids2, cfg.r2, cfg.k2, **fps_kw
-        )
+        if self.training:
+            x1, pos1 = set_abstraction_train(
+                self.sa1, x0, pos0, cfg.n_centroids1, cfg.r1, cfg.k1, **fps_kw,
+                preproject=False,
+            )
+            x2, pos2 = set_abstraction_train(
+                self.sa2, x1, pos1, cfg.n_centroids2, cfg.r2, cfg.k2, **fps_kw,
+                preproject=True,
+            )
+        else:
+            x1, pos1 = set_abstraction(
+                self.sa1, x0, pos0, cfg.n_centroids1, cfg.r1, cfg.k1, **fps_kw
+            )
+            x2, pos2 = set_abstraction(
+                self.sa2, x1, pos1, cfg.n_centroids2, cfg.r2, cfg.k2, **fps_kw
+            )
 
         # global SA (model/point_net2.py:32-42): MLP on [x, pos], max over points
         g = torch.amax(self.sa3(torch.cat([x2, pos2], dim=-1)), dim=1)

@@ -7,10 +7,11 @@ nearest point within the radius, ties to the lowest index; a group with no
 such point gives idx 0 and mask False. The data layer shuffles point order,
 so groups are random subsets and the K picks span the whole ball.
 
-This is the plain PyTorch version. On the card the selection runs inside the
-fused SA kernel (`ops/csrc/sa_fused_eval.cu`), which computes the same
-distances in the same order; the standalone kernel comes with the train
-slice.
+This is the plain PyTorch version. On the card the selection runs in the
+standalone kernel (`cuda_kernels.ball_query`, `ops/csrc/ball_query.cu`, the
+train path) and inside the fused SA eval kernel (`ops/csrc/
+sa_fused_eval.cu`, the serve path); both compute the same distances in the
+same order.
 """
 
 from __future__ import annotations

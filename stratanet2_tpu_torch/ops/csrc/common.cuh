@@ -3,6 +3,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 // Launch errors (too many threads, too much shared memory) are reported by
@@ -30,6 +31,27 @@ __device__ __forceinline__ float sq3_rn(float x, float y, float z) {
 // stratanet2_tpu/ops/ballquery.py:76-88 and knn.py:79-86.
 __device__ __forceinline__ float expanded_d2_rn(float a_sq, float ab, float b_sq) {
   return fmaxf(__fadd_rn(__fsub_rn(a_sq, __fmul_rn(2.0f, ab)), b_sq), 0.0f);
+}
+
+// The grouped ball query's pick in one group of `cnt` points staged in
+// shared memory (x, y, z, |p|^2 as separate arrays): the first point of
+// least expanded d2 (strict <, in index order). The caller tests dmin <= r^2;
+// an empty group leaves dmin = +inf. Shared by ball_query.cu and
+// sa_fused_eval.cu, so the standalone query and the fused SA interior pick
+// alike, and both as stratanet2_tpu/ops/ballquery.py:71-101 does.
+__device__ __forceinline__ void group_nearest(float cx, float cy, float cz, float cn,
+                                              const float* gx, const float* gy,
+                                              const float* gz, const float* gn, int cnt,
+                                              float& dmin, int& jmin) {
+  dmin = INFINITY;
+  jmin = 0;
+  for (int j = 0; j < cnt; ++j) {
+    const float d2 = expanded_d2_rn(cn, dot3_rn(cx, cy, cz, gx[j], gy[j], gz[j]), gn[j]);
+    if (d2 < dmin) {
+      dmin = d2;
+      jmin = j;
+    }
+  }
 }
 
 // Opt in to dynamic shared memory above the 48 KB default (once per size).

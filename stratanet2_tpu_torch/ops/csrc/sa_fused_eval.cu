@@ -23,7 +23,8 @@
 // reads spread over the banks. The centroid's cterm, the running max and
 // the layer-1 activations stay in registers; the folded BN affines and W2
 // (16x16) sit in shared memory. The d2 arithmetic uses _rn intrinsics in the
-// JAX rounding (common.cuh), so the picks equal the plain version's.
+// JAX rounding (common.cuh), so the picks equal the plain version's; the
+// per-group pick is common.cuh's group_nearest, shared with ball_query.cu.
 #include <math.h>
 
 #include "common.cuh"
@@ -83,15 +84,9 @@ sa_kernel(const float* __restrict__ q, const float* __restrict__ xyz,
     __syncthreads();
     if (!active) continue;
 
-    float dmin = INFINITY;
-    int jmin = 0;
-    for (int j = 0; j < cnt; ++j) {
-      const float d2 = expanded_d2_rn(cn, dot3_rn(cx, cy, cz, gx[j], gy[j], gz[j]), gn[j]);
-      if (d2 < dmin) {  // strict: the first least point of the group
-        dmin = d2;
-        jmin = j;
-      }
-    }
+    float dmin;
+    int jmin;
+    group_nearest(cx, cy, cz, cn, gx, gy, gz, gn, cnt, dmin, jmin);
     if (!(dmin <= r2)) continue;  // no point of this group within the radius
 
     const float* qs = gq + jmin * kRow;

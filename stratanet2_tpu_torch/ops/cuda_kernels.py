@@ -1,5 +1,5 @@
-"""The four CUDA kernels of the serve path, each beside its plain PyTorch
-version (counterpart of `stratanet2_tpu/ops/pallas_kernels.py`).
+"""The CUDA kernels of the serve and train paths, each beside its plain
+PyTorch version (counterpart of `stratanet2_tpu/ops/pallas_kernels.py`).
 
 | wrapper          | CUDA source             | replaces (pallas_kernels.py)         |
 |------------------|-------------------------|--------------------------------------|
@@ -7,6 +7,9 @@ version (counterpart of `stratanet2_tpu/ops/pallas_kernels.py`).
 | `sa_fused_eval`  | csrc/sa_fused_eval.cu   | `_sa_kernel` / `sa_fused_eval`       |
 | `knn_interpolate`| csrc/knn_interpolate.cu | `_knn_kernel` / `_knn_pallas_raw`    |
 | `pixel_max`      | csrc/pixel_max.cu       | `_pixel_max_kernel` / `pixel_max_pallas` (forward) |
+| `ball_query`     | csrc/ball_query.cu      | `_bq_kernel` / `ball_query_grouped_pallas` |
+| `knn_scatter`    | csrc/knn_scatter.cu     | `_knn_scatter_kernel` / `_knn_scatter_pallas`, `scatter_add_pallas` |
+| `pixel_max_bwd`  | csrc/pixel_max.cu       | `_pixel_max_bwd_kernel` / `_pixel_max_bwd` |
 
 Dispatch: a wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it runs the plain version. There is no fallback between the two
@@ -34,17 +37,28 @@ _KNN_CHUNK = 512  # targets per (B, chunk, S) distance tile of the plain kNN
 _SMEM_MAX = 227 * 1024  # opt-in dynamic shared memory of one H100 block
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ENTRIES = {
-    "fps": ("fps_launch", [_VP, _VP, _VP, _I, _I, _I, _VP]),
+_ENTRIES = {  # wrapper: (library = csrc/<library>.cu, C entry point, its arguments)
+    "fps": ("fps", "fps_launch", [_VP, _VP, _VP, _I, _I, _I, _VP]),
     "sa_fused_eval": (
-        "sa_fused_eval_launch",
+        "sa_fused_eval", "sa_fused_eval_launch",
         [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _F, _VP],
     ),
     "knn_interpolate": (
-        "knn_interpolate_launch",
+        "knn_interpolate", "knn_interpolate_launch",
         [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     ),
-    "pixel_max": ("pixel_max_launch", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]),
+    "pixel_max": (
+        "pixel_max", "pixel_max_launch", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]
+    ),
+    "ball_query": (
+        "ball_query", "ball_query_launch", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]
+    ),
+    "knn_scatter": (
+        "knn_scatter", "knn_scatter_launch", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP]
+    ),
+    "pixel_max_bwd": (
+        "pixel_max", "pixel_max_bwd_launch", [_VP, _VP, _VP, _I, _I, _I, _I, _VP]
+    ),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 # kernel launches per wrapper, counted where the launch succeeds
@@ -55,28 +69,30 @@ def _launch(name: str, device: torch.device, *args) -> None:
     """Call kernel `name`'s C entry point on `device`'s current stream.
     Tensors pass as their data pointers; the entry returns
     cudaGetLastError() after its launches, and a non-zero code raises."""
+    library, symbol, argtypes = _ENTRIES[name]
     fn = _fns.get(name)
     if fn is None:
-        lib = _build.load(name)
-        symbol, argtypes = _ENTRIES[name]
+        lib = _build.load(library)
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
         _fns[name] = fn
-    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]  # None: NULL
     with torch.cuda.device(device):
         rc = fn(*cargs, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        msg = _build.load(name).error_string(rc).decode()
+        msg = _build.load(library).error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
     LAUNCHES[name] += 1
 
 
-def _on_card(name: str, *tensors: torch.Tensor) -> bool:
+def _on_card(name: str, *tensors: Optional[torch.Tensor]) -> bool:
     """True for CUDA tensors (all contiguous, one device), False for CPU
-    tensors; raises on anything else."""
+    tensors; raises on anything else. None entries (absent optional
+    inputs) are skipped."""
+    tensors = tuple(t for t in tensors if t is not None)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
@@ -274,7 +290,7 @@ def knn_interpolate(x_src: torch.Tensor, pos_src: torch.Tensor, pos_tgt: torch.T
 
 
 # ---------------------------------------------------------------------------
-# per-pixel max (forward)
+# per-pixel max and its backward
 # ---------------------------------------------------------------------------
 
 
@@ -314,3 +330,108 @@ def pixel_max(pix: torch.Tensor, vals: torch.Tensor, n_pix: int):
     amax = torch.empty((b, n_pix, c), dtype=torch.int32, device=vals.device)
     _launch(name, vals.device, pix, vals, keys, vmax, amax, b, n, n_pix, c)
     return vmax, amax
+
+
+def pixel_max_bwd_plain(amax: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
+    """dv (B, n, C): each pixel's cotangent stored at its winning point,
+    zero elsewhere (an indexed store; winners are unique per channel)."""
+    b, _, c = g.shape
+    dv = torch.zeros((b, n, c), dtype=g.dtype, device=g.device)
+    hit = (amax >= 0) & (amax < n)
+    bi, _, ci = torch.nonzero(hit, as_tuple=True)
+    dv[bi, amax[hit].long(), ci] = g[hit]
+    return dv
+
+
+def pixel_max_bwd(amax: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
+    """Backward of `pixel_max` in its values: amax (B, P, C) int32 winners
+    (-1 where empty), g (B, P, C) float32 cotangents of vmax -> dv (B, n, C)
+    float32 with g[b, p, ch] at point amax[b, p, ch] of channel ch."""
+    name = "pixel_max_bwd"
+    b, p, c = g.shape
+    _expect(amax.shape == (b, p, c) and amax.dtype == torch.int32, name,
+            "amax must be (B, P, C) int32, the shape of g")
+    _expect(g.dtype == torch.float32, name, "g must be float32")
+    _expect(b >= 1 and p >= 1 and c >= 1 and n >= 1, name, "empty input")
+    if not _on_card(name, amax, g):
+        return pixel_max_bwd_plain(amax, g, n)
+    dv = torch.empty((b, n, c), dtype=torch.float32, device=g.device)
+    _launch(name, g.device, amax, g, dv, b, n, p, c)
+    return dv
+
+
+# ---------------------------------------------------------------------------
+# standalone grouped ball query
+# ---------------------------------------------------------------------------
+
+
+def ball_query_plain(centroids: torch.Tensor, points: torch.Tensor, radius: float, k: int):
+    """`ballquery.ball_query_grouped` with int32 indices."""
+    idx, mask = ball_query_grouped(centroids, points, radius, k)
+    return idx.int(), mask
+
+
+def ball_query(centroids: torch.Tensor, points: torch.Tensor, radius: float, k: int):
+    """Grouped fixed-K ball query: (B, C, 3) centroids, (B, N, 3) points ->
+    idx (B, C, k) int32 and mask (B, C, k) bool. Per centroid and group of
+    ceil(N/k) consecutive points, the nearest point within `radius` (ties
+    to the lowest index); idx 0 and mask False where a group has none."""
+    name = "ball_query"
+    b, c, _ = centroids.shape
+    n = points.shape[1]
+    _expect(centroids.shape == (b, c, 3) and points.shape == (b, n, 3), name,
+            "centroids must be (B, C, 3) and points (B, N, 3)")
+    for t in (centroids, points):
+        _expect(t.dtype == torch.float32, name, "positions must be float32")
+    _expect(k >= 1 and n >= 1, name, "need k >= 1 and N >= 1")
+    if not _on_card(name, centroids, points):
+        return ball_query_plain(centroids, points, radius, k)
+    g = -(-n // k)
+    _expect(16 * g <= _SMEM_MAX, name, f"group of {g} points exceeds the block's shared memory")
+    idx = torch.empty((b, c, k), dtype=torch.int32, device=points.device)
+    mask = torch.empty((b, c, k), dtype=torch.bool, device=points.device)
+    _launch(name, points.device, centroids, points, idx, mask, b, n, c, k, g,
+            radius_sq(radius))
+    return idx, mask
+
+
+# ---------------------------------------------------------------------------
+# weighted scatter-add: kNN backward, gather backward
+# ---------------------------------------------------------------------------
+
+
+def knn_scatter_plain(idx: torch.Tensor, w: Optional[torch.Tensor], g: torch.Tensor, s: int):
+    """dx[b, idx[b, j, t]] += w[b, j, t] * g[b, t]: the float32 products,
+    accumulated in float64 by `index_add_` over the flattened batch, then
+    rounded once to float32."""
+    b, k, t = idx.shape
+    f = g.shape[2]
+    contrib = g[:, None].expand(b, k, t, f)
+    if w is not None:
+        contrib = w[..., None] * contrib
+    flat = (idx.long() + (torch.arange(b, device=g.device) * s)[:, None, None]).reshape(-1)
+    out = torch.zeros((b * s, f), dtype=torch.float64, device=g.device)
+    out.index_add_(0, flat, contrib.reshape(-1, f).double())
+    return out.float().reshape(b, s, f)
+
+
+def knn_scatter(idx: torch.Tensor, w: Optional[torch.Tensor], g: torch.Tensor, s: int):
+    """Weighted scatter-add into S rows: idx (B, k, T) int32 in [0, S),
+    w (B, k, T) float32 or None (all ones), g (B, T, F) float32 -> dx
+    (B, S, F) with dx[b, idx[b, j, t]] += w[b, j, t] * g[b, t]. The backward
+    of `knn_interpolate` (k=3, its normalised weights) and of `gather_rows`
+    (k=1, no weights). On the card the sum order is not fixed (atomics)."""
+    name = "knn_scatter"
+    b, k, t = idx.shape
+    f = g.shape[2]
+    _expect(idx.dtype == torch.int32, name, "idx must be int32")
+    _expect(g.shape == (b, t, f) and g.dtype == torch.float32, name,
+            "g must be (B, T, F) float32")
+    _expect(w is None or (w.shape == idx.shape and w.dtype == torch.float32), name,
+            "w must be None or float32 of idx's shape")
+    _expect(s >= 1, name, "need S >= 1")
+    if not _on_card(name, idx, w, g):
+        return knn_scatter_plain(idx, w, g, s)
+    dx = torch.empty((b, s, f), dtype=torch.float32, device=g.device)
+    _launch(name, g.device, idx, w, g, dx, b, k, t, s, f)
+    return dx

@@ -31,7 +31,10 @@ def farthest_point_sampling(
     out[:, 0] == start_idx (scalar or per-cloud (B,))."""
     b, n, _ = xyz.shape
     xyz = xyz.float().contiguous()
-    start = torch.as_tensor(start_idx, dtype=torch.int32, device=xyz.device)
+    if isinstance(start_idx, torch.Tensor):
+        start = start_idx.to(device=xyz.device, dtype=torch.int32)
+    else:  # made on the device: a host-to-device copy would drain the stream
+        start = torch.full((b,), int(start_idx), dtype=torch.int32, device=xyz.device)
     start = torch.broadcast_to(start, (b,)).contiguous()
     p = int(parts)
     if not (p > 1 and n % p == 0 and n_samples % p == 0

@@ -12,7 +12,10 @@ The pixel ids repeat the JAX float32 floor/clip arithmetic operation by
 operation, so both packages bin every point alike. The per-pixel max is
 `cuda_kernels.pixel_max`: the CUDA kernel on the card, the dense masked max
 on the CPU. Only the [low, med, high] channels need it: bare soil derives
-from low.
+from low. `plotwise_coverages` is differentiable in the coverages, as the
+train step needs: each pixel's cotangent goes to its winning point through
+`cuda_kernels.pixel_max_bwd`, the one-winner backward of `pixel_max_pallas`
+(pallas_kernels.py:1389-1451). `batched_raster_projection` is forward-only.
 """
 
 from __future__ import annotations
@@ -39,6 +42,23 @@ def _raster_bins(xy_rescaled: torch.Tensor, diam_pix: int, diam_meters: int) -> 
     return b[..., 1] * diam_pix + b[..., 0]
 
 
+class _PixelMax(torch.autograd.Function):
+    """`cuda_kernels.pixel_max`, differentiable in the values."""
+
+    @staticmethod
+    def forward(ctx, pix, vals, n_pix):
+        vmax, amax = cuda_kernels.pixel_max(pix, vals, n_pix)
+        ctx.save_for_backward(amax)
+        ctx.n = vals.shape[1]
+        ctx.mark_non_differentiable(amax)
+        return vmax, amax
+
+    @staticmethod
+    def backward(ctx, g_vmax, _g_amax):
+        (amax,) = ctx.saved_tensors
+        return None, cuda_kernels.pixel_max_bwd(amax, g_vmax.contiguous(), ctx.n), None
+
+
 def _low_med_high(cov: torch.Tensor) -> torch.Tensor:
     return torch.stack([cov[..., 0], cov[..., 2], cov[..., 3]], dim=-1).contiguous()
 
@@ -49,7 +69,7 @@ def plotwise_coverages(
     """(B, N, 4) coverages [low, bare, med, high] and (B, N, 2) xy -> (B, 4)
     mean over occupied pixels of [max low, 1 - max low, max med, max high]."""
     pix = _pixel_bins_minmax(xy.float(), diam_pix).contiguous()
-    vmax, amax = cuda_kernels.pixel_max(
+    vmax, amax = _PixelMax.apply(
         pix, _low_med_high(coverages_pointwise.float()), diam_pix * diam_pix
     )
     occ = amax[..., 0] >= 0  # (B, P^2)

@@ -3,7 +3,8 @@
 `from_jax_params` takes the JAX `PointNet2Params` pytree as nested
 dicts/lists of arrays (`params`, `state`; e.g. after
 `jax.tree_util.tree_map(np.asarray, ...)`) and returns a loaded port model;
-`to_jax_params` is its inverse. The layouts agree leaf for leaf (Linear `w`
+`to_jax_params` is its inverse, and `grads_to_jax` gives the parameter
+gradients in the params layout. The layouts agree leaf for leaf (Linear `w`
 is (in, out) on both sides), so every leaf maps to one tensor of the same
 shape; a leaf that maps nowhere, a tensor left unset, or a shape that
 differs raises.
@@ -105,3 +106,15 @@ def to_jax_params(model: PointNet2) -> Tuple[Any, Any]:
         else:
             params[name] = value
     return _unflatten(params), _unflatten(state)
+
+
+def grads_to_jax(model: PointNet2) -> Any:
+    """The parameters' `.grad` as nested dicts/lists of float32 numpy
+    arrays, in the layout of the JAX params (a parameter without a gradient
+    raises)."""
+    grads = {}
+    for name, param in model.named_parameters():
+        if param.grad is None:
+            raise ValueError(f"{name} has no gradient")
+        grads[name] = param.grad.detach().cpu().numpy().copy()
+    return _unflatten(grads)

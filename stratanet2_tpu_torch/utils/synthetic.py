@@ -1,5 +1,5 @@
-"""Synthetic serve inputs and random models for `chip_smoke.py`: made on
-the device from a seed, with no data files."""
+"""Synthetic serve and train inputs and random models for `chip_smoke.py`:
+made on the device from a seed, with no data files."""
 
 from __future__ import annotations
 
@@ -25,10 +25,24 @@ def serve_batch(
     return torch.cat([xy / 10, z / ModelConfig.z_max, feats], -1), torch.cat([xy, z], -1)
 
 
+def train_batch(
+    b: int, n: int, generator: torch.Generator, device: torch.device
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`serve_batch` clouds and positions plus (B, 4) ground-truth plot
+    coverages [low, bare, med, high] in [0, 1] with bare = 1 - low."""
+    cloud, xyz = serve_batch(b, n, generator, device)
+    low, med, high = torch.rand((3, b), generator=generator, device=device)
+    return cloud, xyz, torch.stack([low, 1 - low, med, high], dim=1)
+
+
 @torch.no_grad()
-def random_model(cfg: ModelConfig, seed: int, device: torch.device) -> PointNet2:
-    """`init_pointnet2` weights from `seed`, with BN scale/bias and running
-    statistics drawn as well, so that the eval BN fold does real work."""
+def random_model(
+    cfg: ModelConfig, seed: int, device: torch.device, running_stats: bool = True
+) -> PointNet2:
+    """`init_pointnet2` weights from `seed`, with BN scale/bias drawn as
+    well and, if `running_stats`, the BN running statistics too (so that the
+    eval BN fold does real work); otherwise they stay at init (mean 0,
+    var 1), the state a first train step starts from."""
     gen = torch.Generator().manual_seed(seed)
     model = init_pointnet2(gen, cfg, device="cpu")
     for mod in model.modules():
@@ -36,6 +50,8 @@ def random_model(cfg: ModelConfig, seed: int, device: torch.device) -> PointNet2
             c = mod.mean.shape[0]
             mod.scale.copy_(torch.rand(c, generator=gen) + 0.5)
             mod.bias.copy_(torch.randn(c, generator=gen) * 0.1)
-            mod.mean.copy_(torch.randn(c, generator=gen) * 0.1)
-            mod.var.copy_(torch.rand(c, generator=gen) + 0.5)
+            mean, var = torch.randn(c, generator=gen) * 0.1, torch.rand(c, generator=gen) + 0.5
+            if running_stats:
+                mod.mean.copy_(mean)
+                mod.var.copy_(var)
     return model.to(device).eval()

@@ -29,6 +29,8 @@ from stratanet2_tpu.models import PointNet2Params, init_pointnet2 as jax_init, p
 from stratanet2_tpu.ops import ball_query, farthest_point_sampling as jax_fps
 from stratanet2_tpu_torch.config import ModelConfig, default_config
 from stratanet2_tpu_torch.inference.predict import make_predict_step
+from stratanet2_tpu_torch.learning.kde import KdeMixture
+from stratanet2_tpu_torch.learning.train import make_train_step
 from stratanet2_tpu_torch.models import count_params, init_pointnet2
 from stratanet2_tpu_torch.ops import ball_query_grouped, cuda_kernels as ck
 from stratanet2_tpu_torch.ops import farthest_point_sampling
@@ -99,8 +101,9 @@ def test_predict_step_matches_jax(case):
 
 
 def test_selections_match_jax(case):
-    """FPS and grouped ball-query indices of both SA stages, and the kNN
-    indices of FP2 and FP1, at the model's geometry."""
+    """FPS and grouped ball-query indices of both SA stages (the plain query
+    and the `ball_query` wrapper of the train path), and the kNN indices of
+    FP2 and FP1, at the model's geometry."""
     jcfg = case["jcfg"]
     pos0 = case["xyz"]
     stages = [(jcfg.n_centroids1, jcfg.r1, jcfg.k1), (jcfg.n_centroids2, jcfg.r2, jcfg.k2)]
@@ -120,6 +123,9 @@ def test_selections_match_jax(case):
                                            radius, k)
         np.testing.assert_array_equal(g_mask.numpy(), np.asarray(w_mask))
         np.testing.assert_array_equal(g_idx.numpy(), np.asarray(w_idx))
+        t_idx, t_mask = ck.ball_query(torch.from_numpy(cent), torch.from_numpy(pos), radius, k)
+        np.testing.assert_array_equal(t_mask.numpy(), np.asarray(w_mask))
+        np.testing.assert_array_equal(t_idx.numpy(), np.asarray(w_idx))  # the train path's query
         positions.append(cent)
     from test_torch_port_ops import _jax_knn_idx
 
@@ -214,12 +220,9 @@ def test_entry_points_need_a_card_unless_told_otherwise(monkeypatch):
         make_predict_step(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_pointnet2(torch.Generator().manual_seed(0), cfg.model)
+    kde = KdeMixture(np.linspace(0, 1, 8, dtype=np.float32), np.ones((3, 8), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg, kde)
     make_predict_step(cfg, device="cpu")  # the CPU when asked
+    make_train_step(cfg, kde, device="cpu")
 
-
-def test_forward_is_eval_only():
-    model = init_pointnet2(torch.Generator().manual_seed(0), ModelConfig(subsample_size=64),
-                           device="cpu")
-    model.train()
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 64, 8), torch.zeros(1, 64, 3))

@@ -5,7 +5,9 @@ On the CPU every kernel wrapper runs its plain PyTorch version; the CUDA
 kernels themselves are held against those plain versions on the card by
 chip_smoke.py. Selections (FPS, grouped ball query, kNN, pixel argmax) must
 agree index for index; values agree to float32 rounding, with each
-tolerance stated where it is used.
+tolerance stated where it is used. The backward ops of the train step (the
+scatter behind the kNN and gather gradients, the pixel-max backward) are
+held to `jax.vjp` of their JAX counterparts.
 """
 
 import jax
@@ -21,7 +23,12 @@ from stratanet2_tpu.ops import farthest_point_sampling as jax_fps
 from stratanet2_tpu.ops import knn_interpolate as jax_knn
 from stratanet2_tpu.ops.fps import _fps_lax
 from stratanet2_tpu.ops.knn import _iterative_min_k
-from stratanet2_tpu.ops.pallas_kernels import pixel_max_pallas
+from stratanet2_tpu.ops.pallas_kernels import (
+    _knn_scatter_pallas,
+    gather_rows as jax_gather_rows,
+    pixel_max_pallas,
+    scatter_add_pallas,
+)
 from stratanet2_tpu_torch.models.nn import MLP
 from stratanet2_tpu_torch.models.pointnet2 import set_abstraction
 from stratanet2_tpu_torch.ops import (
@@ -34,6 +41,7 @@ from stratanet2_tpu_torch.ops import (
     raster_projection,
 )
 from stratanet2_tpu_torch.ops import projection as tproj
+from stratanet2_tpu_torch.ops.gather import gather_rows
 
 torch.set_num_threads(1)
 
@@ -265,6 +273,104 @@ class TestPixelMax:
         assert (got_a.numpy() == -1).any()  # empty pixels occur
 
 
+class TestBackward:
+    """The scatter behind the kNN and gather gradients, and the pixel-max
+    backward, against the JAX package."""
+
+    @staticmethod
+    def _scatter_inputs(rng, k, weighted):
+        b, t, s, f = 2, 300, 77, (34 if k == 3 else 32)
+        idx = rng.integers(0, s, (b, k, t)).astype(np.int32)
+        idx[0, :, :5] = 3  # repeated destinations
+        w = rng.uniform(0, 1, (b, k, t)).astype(np.float32) if weighted else None
+        g = rng.normal(size=(b, t, f)).astype(np.float32)
+        exact = np.zeros((b, s, f), np.float64)
+        contrib = g[:, None] * (w[..., None] if weighted else np.float32(1))  # float32 products
+        for bi in range(b):
+            np.add.at(exact[bi], idx[bi].reshape(-1), contrib[bi].reshape(-1, f).astype(np.float64))
+        return idx, w, g, s, exact
+
+    @pytest.mark.parametrize("k,weighted", [(3, True), (1, False)])
+    def test_scatter_matches_float64_and_pallas(self, rng, k, weighted):
+        """k=3 with weights is the kNN backward, k=1 without weights the
+        gather backward (`scatter_add_pallas`). The plain version sums the
+        float32 products in float64, so it is the exact sum rounded once:
+        within one float32 ulp of float64 `np.add.at`. The Pallas kernel
+        (interpret mode) multiplies hi/lo-bf16 operands: within 1e-5 of the
+        largest |dx|."""
+        idx, w, g, s, exact = self._scatter_inputs(rng, k, weighted)
+        got = ck.knn_scatter(T(idx), None if w is None else T(w), T(g), s).numpy()
+        np.testing.assert_allclose(got, exact, rtol=2.0 ** -23, atol=0)
+        if weighted:
+            pallas = _knn_scatter_pallas(jnp.asarray(idx), jnp.asarray(w), jnp.asarray(g), s)
+        else:
+            pallas = scatter_add_pallas(jnp.asarray(idx[:, 0]), jnp.asarray(g), s)
+        np.testing.assert_allclose(got, np.asarray(pallas), rtol=0,
+                                   atol=1e-5 * np.abs(exact).max())
+
+    def test_gather_rows_matches_jax_vjp(self, rng):
+        """Forward: the same rows, exactly. Backward: JAX's VJP is the
+        interpret-mode Pallas scatter (hi/lo bf16), within 1e-5 of the
+        largest |dx|."""
+        x = rng.normal(size=(2, 90, 32)).astype(np.float32)
+        idx = rng.integers(0, 90, (2, 40, 16)).astype(np.int32)
+        g = rng.normal(size=(2, 40, 16, 32)).astype(np.float32)
+        want, vjp = jax.vjp(lambda a: jax_gather_rows(a, jnp.asarray(idx)), jnp.asarray(x))
+        (want_dx,) = vjp(jnp.asarray(g))
+        xt = T(x).requires_grad_()
+        got = gather_rows(xt, T(idx))
+        np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+        got.backward(T(g))
+        want_dx = np.asarray(want_dx)
+        np.testing.assert_allclose(xt.grad.numpy(), want_dx, rtol=0,
+                                   atol=1e-5 * np.abs(want_dx).max())
+
+    def test_knn_interpolate_grad_matches_jax_vjp(self, rng):
+        """JAX's CPU kNN gradient is XLA autodiff of the exact path; the
+        port scatters g times the normalised weights. The two round the
+        per-term products differently: within 1e-6 of the largest |dx|."""
+        src = _cloud(rng, 2, 128)
+        tgt = rng.uniform(-5, 5, (2, 512, 3)).astype(np.float32)
+        x = rng.normal(size=(2, 128, 34)).astype(np.float32)
+        g = rng.normal(size=(2, 512, 34)).astype(np.float32)
+        _, vjp = jax.vjp(lambda a: jax_knn(a, jnp.asarray(src), jnp.asarray(tgt), k=3,
+                                           use_pallas=False), jnp.asarray(x))
+        want = np.asarray(vjp(jnp.asarray(g))[0])
+        xt = T(x).requires_grad_()
+        knn_interpolate(xt, T(src), T(tgt)).backward(T(g))
+        np.testing.assert_allclose(xt.grad.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+    def test_pixel_max_backward_matches_pallas_vjp(self, rng):
+        """Each pixel's cotangent goes to its winning point, ties to the
+        lowest index, as `pixel_max_pallas`' VJP (interpret mode) sends it:
+        exactly equal, empty pixels and out-of-range ids included."""
+        pix = rng.integers(-5, 405, (3, 700)).astype(np.int32)
+        vals = (rng.integers(0, 6, (3, 700, 3)) / 6).astype(np.float32)
+        g = rng.normal(size=(3, 400, 3)).astype(np.float32)
+        _, vjp = jax.vjp(lambda v: pixel_max_pallas(jnp.asarray(pix), v, 400)[0], jnp.asarray(vals))
+        want = np.asarray(vjp(jnp.asarray(g))[0])
+        vt = T(vals).requires_grad_()
+        vmax, amax = tproj._PixelMax.apply(T(pix), vt, 400)
+        vmax.backward(T(g))
+        np.testing.assert_array_equal(vt.grad.numpy(), want)
+        np.testing.assert_array_equal(ck.pixel_max_bwd(amax, T(g), 700).numpy(), want)
+        assert (amax.numpy() == -1).any() and (want == 0).any()
+
+    def test_plotwise_grad_matches_jax(self, rng):
+        """The gradient of the plot coverages in the pointwise coverages
+        against JAX's dense CPU path (whose max splits ties; continuous
+        random coverages have none): within 1e-6 of the largest entry."""
+        cov = rng.uniform(size=(2, 611, 4)).astype(np.float32)
+        xy = rng.uniform(-1, 1, (2, 611, 2)).astype(np.float32)
+        gp = rng.normal(size=(2, 4)).astype(np.float32)
+        want = np.asarray(jax.grad(lambda c: jnp.sum(
+            jproj.plotwise_coverages(c, jnp.asarray(xy), 20) * gp))(jnp.asarray(cov)))
+        ct = T(cov).requires_grad_()
+        (plotwise_coverages(ct, T(xy), 20) * T(gp)).sum().backward()
+        np.testing.assert_allclose(ct.grad.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
+        assert (want[..., 1] == 0).all()  # bare soil derives from low
+
+
 class TestProjection:
     def _inputs(self, rng, n=611):
         cov = rng.uniform(size=(2, n, 4)).astype(np.float32)
@@ -321,6 +427,15 @@ class TestWrappers:
         args = (T(q), T(xyz), T(xyz[:, :10]), torch.zeros(2, 10, 32), ones, zeros,
                 None, None, None, None, 2.0, 4)
         assert torch.equal(ck.sa_fused_eval(*args), ck.sa_fused_eval_plain(*args))
+        cent = T(xyz[:, :10])
+        idx, mask = ck.ball_query(cent, T(xyz), 2.0, 4)
+        want_idx, want_mask = ball_query_grouped(cent, T(xyz), 2.0, 4)
+        assert idx.dtype == torch.int32 and torch.equal(idx.long(), want_idx)
+        assert torch.equal(mask, want_mask)
+        kidx = T(rng.integers(0, 64, (2, 3, 10)).astype(np.int32))
+        w, g = torch.rand(2, 3, 10), T(x[:, :10])
+        assert torch.equal(ck.knn_scatter(kidx, w, g, 64), ck.knn_scatter_plain(kidx, w, g, 64))
+        assert torch.equal(ck.pixel_max_bwd(a, v, 64), ck.pixel_max_bwd_plain(a, v, 64))
         assert ck.launch_counts() == dict.fromkeys(ck.LAUNCHES, 0)
 
     @pytest.mark.parametrize("bad", ["dtype", "shape", "start"])
