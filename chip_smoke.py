@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card (an H100): builds the
-seven CUDA kernels of the serve and train paths from
+eleven CUDA kernels of the serve and train paths from
 `stratanet2_tpu_torch/ops/csrc/`, holds each against its plain PyTorch
 version at the shapes its path gives it, drives the serve step and the train
 step at full width (B=20 clouds x N=10000 points, random weights from a
@@ -23,29 +23,44 @@ Phases, in order, each failing loudly:
      coverages in [0, 1];
   6. step time (median of 30 synchronised steps) and points/s;
   7. profile: `torch.profiler` traces 10 steps; each device kernel's time
-     per step, the port's kernels summed per wrapper (the pixel-max scatter
-     and decode kernels together, its key memset beside them), the rest of
+     per step, the port's kernels summed per wrapper, all eleven listed (the
+     pixel-max scatter and decode kernels together, its key memset beside
+     them; a wrapper shows kernels exactly when it launches), the rest of
      the device time (plain PyTorch ops), and the idle share of the step,
      1 - device busy time / the median step time of phase 6;
   8. the same step at B=2 against the port run on the CPU, and at B=1
      against its row of the B=2 step;
   Train step (forward, plot projection, 3-term loss, backward, Adam; a KDE
-  prior fitted on the batch's z; BN running statistics at init):
+  prior fitted on the batch's z; BN running statistics at init; SA1 and SA2
+  on the fused route through the four SA train kernels):
   9. capture: one train step, on a copy of the model, records every call of
-     ball_query, knn_scatter and pixel_max_bwd;
-  10. per new kernel and call site: kernel vs plain (ball_query and
-     pixel_max_bwd exactly; knn_scatter, whose atomics add in no fixed
-     order, within the float32 error bound of a sum in any order), times as
-     in phase 4, library calls `index_add_` and `scatter_add_`;
-  11. the counted train step: fps 2, ball_query 2, knn_interpolate 2,
-     knn_scatter 3, pixel_max 1, pixel_max_bwd 1, sa_fused_eval 0; loss
-     parts and gradients finite, every parameter changed;
-  12. train step time (median of 30 synchronised steps) and points/s;
-  13. profile of the train step, as phase 7;
-  14. a B=2 train step on the card against the port on the CPU: loss parts,
+     the seven train kernels;
+  10. fused vs unfused: SA1 and SA2 at the PROD shapes on the fused route
+     and on the unfused path from the same weights and inputs, with random
+     BN running means so that the statistics' shifts are nonzero (out, BN
+     state and every gradient, tolerances below); the fused stages' SA train
+     passes and the unfused SA2's gather backward (a knn_scatter site) are
+     captured as reference sites;
+  11. per train kernel and call site, the train step's and then phase 10's:
+     kernel vs plain (ball_query and pixel_max_bwd exactly; knn_scatter,
+     whose atomics add in no fixed order, within the float32 error bound of
+     a sum in any order; the SA train passes' winners and winning values
+     exactly, their per-channel sums over edges within the float32 bound at
+     the kernels' own summation depth, which must reject a result with one
+     block's partial row taken out or zeroed, and dq's scatter within the
+     bound of a sum in any order), times as in phase 4, library calls
+     `index_add_` and `scatter_add_`;
+  12. the counted train step: fps 2, ball_query 2, knn_interpolate 2,
+     knn_scatter 2, pixel_max 1, pixel_max_bwd 1, sa_fused_eval 0,
+     sa_train_stats 1, sa_train_main 2, sa_train_bwd1 1, sa_train_bwd2 2;
+     loss parts and gradients finite, every parameter changed;
+  13. train step time (median of 30 synchronised steps) and points/s;
+  14. profile of the train step, as phase 7;
+  15. a B=2 train step on the card against the port on the CPU: loss parts,
      every gradient, BN state and params after the step (tolerances below);
-  15. the `{"kernels": [...]}` line (all seven) and the final
-     `{"ok": true, ...}` line.
+  16. the `{"reference_sites": [...]}` line (phase 10's sites, apart from
+     the per-step rows), the `{"kernels": [...]}` line (all eleven) and the
+     final `{"ok": true, ...}` line.
 
 float32 matmuls run in full float32: TF32 is switched off for cuBLAS and
 cuDNN below, so no product (and no distance) passes through TF32.
@@ -56,9 +71,11 @@ once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s (H100 SXM
 data sheet, non-tensor float32, 700 W). Operations count each add, multiply,
 compare, min or max as one; where the work depends on the data (the SA
 epilogue runs only for picks within the radius) this run's picks are
-counted. `ms`, `plain_ms`, `bound_ms` and `library_ms` of a kernel are per
-step: the sum over its call sites in the serve step (the four serve
-kernels) or in the train step (the three train kernels).
+counted (and for the SA train passes, this run's valid edges).
+`ms`, `plain_ms`, `bound_ms` and `library_ms` of a kernel are per step: the
+sum over its call sites in the serve step (the four serve kernels) or in
+the train step (the seven train kernels); phase 10's sites are summed on
+the `reference_sites` line alone.
 """
 
 from __future__ import annotations
@@ -88,12 +105,40 @@ TRAIN_KERNELS = (
      "stratanet2_tpu/ops/pallas_kernels.py:483"),
     ("pixel_max_bwd", "stratanet2_tpu_torch/ops/csrc/pixel_max.cu",
      "stratanet2_tpu/ops/pallas_kernels.py:1329"),
+    ("sa_train_stats", "stratanet2_tpu_torch/ops/csrc/sa_train.cu",
+     "stratanet2_tpu/ops/pallas_kernels.py:1523"),
+    ("sa_train_main", "stratanet2_tpu_torch/ops/csrc/sa_train.cu",
+     "stratanet2_tpu/ops/pallas_kernels.py:1565"),
+    ("sa_train_bwd1", "stratanet2_tpu_torch/ops/csrc/sa_train.cu",
+     "stratanet2_tpu/ops/pallas_kernels.py:1645"),
+    ("sa_train_bwd2", "stratanet2_tpu_torch/ops/csrc/sa_train.cu",
+     "stratanet2_tpu/ops/pallas_kernels.py:1750"),
 )
+SA_TRAIN = ("sa_train_stats", "sa_train_main", "sa_train_bwd1", "sa_train_bwd2")
 SERVE_LAUNCHES = {"fps": 2, "sa_fused_eval": 2, "knn_interpolate": 2, "pixel_max": 2,
-                  "ball_query": 0, "knn_scatter": 0, "pixel_max_bwd": 0}
+                  "ball_query": 0, "knn_scatter": 0, "pixel_max_bwd": 0,
+                  **dict.fromkeys(SA_TRAIN, 0)}
 TRAIN_LAUNCHES = {"fps": 2, "sa_fused_eval": 0, "knn_interpolate": 2, "pixel_max": 1,
-                  "ball_query": 2, "knn_scatter": 3, "pixel_max_bwd": 1}
+                  "ball_query": 2, "knn_scatter": 2, "pixel_max_bwd": 1,
+                  "sa_train_stats": 1, "sa_train_main": 2, "sa_train_bwd1": 1,
+                  "sa_train_bwd2": 2}
+# call sites held against their plain versions outside the train step, all in
+# phase 10: the gather backward of the unfused SA2 stage, and the SA train
+# passes of the fused SA1 and SA2 stages with nonzero statistics shifts
+REFERENCE_SITES = {"knn_scatter": 1, "sa_train_stats": 1, "sa_train_main": 2,
+                   "sa_train_bwd1": 1, "sa_train_bwd2": 2}
+SHIFT_STD = 0.1  # phase 10's BN running means (the shifts), as the CPU stage tests draw them
 SA_ATOL = 1e-4  # layer-2 dot: FMA contraction and summation order differ
+# Fused vs unfused SA stage at PROD (phase 10): both sum the batch statistics
+# of ~1.6 M edges in float32 in other orders and BN divides by the batch std
+# (outputs within rtol 1e-3, atol 1e-4; BN state within TRAIN_STATE_ATOL).
+# Gradients, leaf by leaf relative to the leaf's max: a winner whose margin
+# is within rounding can be another slot on each side, moving that output's
+# whole cotangent to another point (x's gradient is per point), as a ReLU
+# flip does in the step. The inputs are fixed by the seed and both sides are
+# deterministic but for dq's atomics; measured at most 3.9e-3 on an H100
+# with phase 10's random running means (1.1e-3 with zero shifts).
+FUSED_OUT_RTOL, FUSED_OUT_ATOL, FUSED_GRAD_RTOL = 1e-3, 1e-4, 1e-2
 KNN_ATOL = 1e-5  # kernel and plain round alike (fma chains): expected 0
 CPU_ATOL = 1e-5  # CPU vs card: MKL vs cuBLAS float32 rounding; picks identical
 U32 = 2.0 ** -24  # unit roundoff of float32
@@ -118,7 +163,8 @@ DEVICE_KERNELS = {"fps": ("fps_kernel",), "sa_fused_eval": ("sa_kernel",),
                   "knn_interpolate": ("knn_kernel",),
                   "pixel_max": ("pixel_max_scatter", "pixel_max_decode"),
                   "ball_query": ("ball_query_kernel",), "knn_scatter": ("knn_scatter_kernel",),
-                  "pixel_max_bwd": ("pixel_max_bwd_kernel",)}
+                  "pixel_max_bwd": ("pixel_max_bwd_kernel",),
+                  **{name: (f"{name}_kernel",) for name in SA_TRAIN}}
 
 
 def fail(msg: str) -> None:
@@ -198,13 +244,13 @@ def capture_calls(ck, names, run):
 
 
 def report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err, diff_sel,
-                lib_ms, agg):
+                lib_ms, agg, reference=False):
     """Time kernel and plain at one call site, print its line, add it to agg."""
     k_ms = cuda_ms(torch, lambda: kernel(*args), 20)
     p_ms = cuda_ms(torch, lambda: plain(*args), 2)
     b_ms, _ = bound_ms(nbytes, ops)
     print(json.dumps({
-        "kernel": name, "site": site, "shape": shape, "kernel_ms": k_ms,
+        "kernel": name, "site": site, "reference": reference, "shape": shape, "kernel_ms": k_ms,
         "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
         "max_abs_diff": err, "differing_selections": diff_sel,
     }), flush=True)
@@ -297,17 +343,137 @@ def compare_kernels(torch, ck, captured):
     return rows
 
 
+def sum_bound(want, abs_sum, depth):
+    """The float32 error bound of a sum whose every term passes through at
+    most `depth` roundings, in any order: gamma_depth * sum|terms| + 2 *
+    2^-24 * |plain|, gamma_d = d u / (1 - d u) (the plain versions sum in
+    float64 and round once)."""
+    gamma = depth * U32 / (1 - depth * U32)
+    return gamma * abs_sum.double() + 2 * U32 * want.double().abs()
+
+
+def check_sum(torch, what, got, want, abs_sum, depth):
+    """|kernel - plain| within `sum_bound`. Returns (max |diff|, worst
+    diff/bound)."""
+    bound = sum_bound(want, abs_sum, depth)
+    diff = (got - want).abs().double()
+    ratio = float((diff / bound.clamp_min(1e-45)).max())
+    check(bool((diff <= bound).all()), f"{what}: |kernel - plain| exceeds the float32 bound "
+                                       f"of its sum (worst ratio {ratio})")
+    return float(diff.max()), ratio
+
+
+def sa_sum_depth(torch, ck, mask, ch1):
+    """The summation depth of an SA train pass's per-channel sums over edges
+    on the card (csrc/sa_train.cu): the longest chain of valid edges one
+    lane adds up (its group walks centroids with the grid's stride), then
+    the block's groups in order, then the grid's partial rows (torch, any
+    order). Also the (B, C) selection of the centroids that block 0 walks."""
+    b, c, _ = mask.shape
+    groups = ck.SA_THREADS // ch1
+    grid = ck.sa_grid(b, c, ch1)
+    walker = torch.arange(b * c, device=mask.device) % (grid * groups)
+    chain = torch.zeros(grid * groups, dtype=torch.long, device=mask.device)
+    chain.index_add_(0, walker, mask.sum(2).reshape(-1))
+    return int(chain.max()) + groups + grid, (walker // groups == 0).reshape(b, c)
+
+
+def compare_sa_train_site(torch, ck, name, site, args, got, want):
+    """One call site of an SA train pass: every per-edge value rounds alike
+    in kernel and plain version (`cuda_kernels.sa_train_edges`), so winners
+    and their values must be equal. The per-channel sums over edges
+    (statistics, S1/S2, db2, dW2) are held to the float32 bound of a sum at
+    the kernel's own summation depth (`sa_sum_depth`, ~1.2e3 at PROD, not
+    the ~1.4e6 edges), and the bound must reject the kernel's result with
+    block 0's partial row taken out and a result of zeros: a kernel that
+    drops a block or returns a zeroed S1 fails. dcterm (K slots a centroid)
+    and the dq scatter (the picks of a point) are held to the bound at
+    their own depth. Returns (shape, bytes, operations, max |diff|)."""
+    q, cterm, idx, mask, aff = args[:5]
+    w2 = args[5] if len(args) > 5 else None  # the stats pass takes no W2
+    b, n, ch1 = q.shape
+    c, k = idx.shape[1], idx.shape[2]
+    ch2 = w2.shape[1] if w2 is not None else ch1
+    e = ck.sa_train_edges(q, cterm, idx, mask, aff, w2, *args[6:])
+    m = e["m"]
+    valid = float(mask.sum())
+    depth, blk0 = sa_sum_depth(torch, ck, mask, ch1)
+    where = f"{name} site {site}"
+    errs, ratios = [], []
+
+    def held(what, g, w, abs_sum, part0=None, at=depth):
+        err, ratio = check_sum(torch, f"{where} {what}", g, w, abs_sum, at)
+        errs.append(err)
+        ratios.append(ratio)
+        if part0 is None:
+            return
+        for wrong, label in ((g.double() - part0, "block 0's partial row taken out"),
+                             (torch.zeros_like(w), "zeros")):
+            passes = bool(((wrong - w).abs() <= sum_bound(w, abs_sum, at)).all())
+            check(not passes, f"{where} {what}: the bound passes a result with {label}")
+
+    def terms(t):  # (B, C, K, ...) per-edge terms -> (sum |t|, block 0's sum)
+        t = t.double()
+        return t.abs().sum((0, 1, 2)), t[blk0].sum((0, 1))
+
+    nbytes = 4.0 * (b * n * ch1 + b * c * ch1 + b * c * k) + b * c * k + 4.0 * aff.numel()
+    nbytes += 4.0 * (w2.numel() if w2 is not None else 0)
+    fwd_ops = 2 * ch1 + (2 * ch1 + 2 * ch1 * ch2 + 2 * ch2 if w2 is not None else 0)
+    if name == "sa_train_stats":
+        hc = torch.where(m, e["h1"] - aff[ck.SA_AFF["shift1"], :ch1], 0.0)
+        held("sum", got[0], want[0], *terms(hc))
+        held("sum of squares", got[1], want[1], *terms(hc.double() * hc))
+        nbytes += 8.0 * ch1
+        ops = valid * ch1 * 6
+    elif name == "sa_train_main":
+        for what, g, w in zip(("vmax", "vmin", "amax", "amin"), got[2:], want[2:]):
+            check(torch.equal(g, w), f"{where}: {what} differs from the plain version "
+                                     f"({int((g != w).sum())} entries)")
+        hc = torch.where(m, e["h"] - aff[ck.SA_AFF["shift_l"], :ch2], 0.0)
+        held("sum", got[0], want[0], *terms(hc))
+        held("sum of squares", got[1], want[1], *terms(hc.double() * hc))
+        nbytes += 16.0 * b * c * ch2 + 8.0 * ch2
+        ops = valid * (fwd_ops + 6 * ch2)
+    elif name == "sa_train_bwd1":
+        dy1, du, y1 = e["dy1"].double(), e["du"].double(), e["y1"].double()
+        held("S1", got[0], want[0], *terms(dy1))
+        held("S2", got[1], want[1], *terms(dy1 * e["xhat1"]))
+        held("db2", got[2], want[2], *terms(du))
+        held("dW2", got[3], want[3], torch.einsum("bcki,bcko->io", y1.abs(), du.abs()),
+             torch.einsum("nki,nko->io", y1[blk0], du[blk0]))
+        nbytes += 8.0 * b * c * ch2 + 4.0 * (3 * ch1 + ch1 * ch2)
+        ops = valid * (fwd_ops + 10 * ch2 + 4 * ch1 * ch2 + 5 * ch1)
+    else:  # sa_train_bwd2
+        de0 = e["de0"]
+        flat = (idx.long() + (torch.arange(b, device=q.device) * n)[:, None, None]).reshape(-1)
+        absum = torch.zeros((b * n, ch1), dtype=torch.float64, device=q.device)
+        absum.index_add_(0, flat, de0.reshape(-1, ch1).abs().double())
+        cnt = torch.zeros(b * n, dtype=torch.float64, device=q.device)
+        cnt.index_add_(0, flat, m.reshape(-1).double())
+        held("dq", got[0].reshape(-1, ch1), want[0].reshape(-1, ch1), absum, at=cnt[:, None])
+        held("dcterm", got[1], want[1], de0.double().abs().sum(2), at=k)
+        nbytes += 8.0 * b * c * ch2 + 4.0 * (b * n * ch1 + b * c * ch1)
+        ops = valid * (fwd_ops + (11 * ch2 + 2 * ch1 * ch2 if w2 is not None else ch1) + 9 * ch1)
+    print(json.dumps({"kernel": name, "site": site, "sum_depth": depth,
+                      "sums_worst_bound_ratio": max(ratios)}), flush=True)
+    shape = f"B={b} N={n} C={c} K={k} C1={ch1} C2={ch2} valid_edges={int(valid)}"
+    return shape, nbytes, float(ops), max(errs)
+
+
 def compare_train_kernels(torch, ck, captured):
-    """Phase 10: the three train kernels against their plain versions at
-    each call site of the train step."""
-    rows = {}
+    """Phase 11: the train kernels against their plain versions at each
+    call site of the train step, then at phase 10's reference sites.
+    Returns the per-step rows (train-step sites only) and the rows of the
+    reference sites."""
+    rows, ref_rows = {}, {}
     for name, _src, _rep in TRAIN_KERNELS:
         kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
         calls = captured[name]
-        want_sites = TRAIN_LAUNCHES[name]
+        n_step = TRAIN_LAUNCHES[name]
+        want_sites = n_step + REFERENCE_SITES.get(name, 0)
         check(len(calls) == want_sites,
-              f"{name}: expected {want_sites} call sites in a train step, saw {len(calls)}")
-        agg = new_agg()
+              f"{name}: expected {want_sites} call sites, saw {len(calls)}")
+        agg, ref_agg = new_agg(), new_agg()
         for site, args in enumerate(calls):
             diff_sel, lib_ms = 0, None
             if name == "ball_query":
@@ -352,6 +518,10 @@ def compare_train_kernels(torch, ck, captured):
                 nbytes = 4.0 * (b * k * t * (2 if w is not None else 1) + b * t * f + b * s * f)
                 ops = float(b * k * t * f * (2 if w is not None else 1))
                 shape = f"B={b} k={k} T={t} S={s} F={f} weights={w is not None}"
+            elif name in SA_TRAIN:
+                got, want = kernel(*args), plain(*args)
+                shape, nbytes, ops, err = compare_sa_train_site(torch, ck, name, site, args,
+                                                                got, want)
             else:  # pixel_max_bwd
                 amax, g, n = args
                 got, want = kernel(*args), plain(*args)
@@ -366,15 +536,19 @@ def compare_train_kernels(torch, ck, captured):
                 check(torch.equal(lib, got), "scatter_add_ disagrees with pixel_max_bwd")
                 nbytes, ops = 8.0 * b * p2 * c + 4.0 * b * n * c, 0.0
                 shape = f"B={b} P2={p2} C={c} N={n} winners={int((amax >= 0).sum())}"
+            reference = site >= n_step
             report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
-                        diff_sel, lib_ms, agg)
+                        diff_sel, lib_ms, ref_agg if reference else agg, reference)
         rows[name] = finish_agg(agg)
-    return rows
+        if name in REFERENCE_SITES:
+            ref_rows[name] = finish_agg(ref_agg)
+    return rows, ref_rows
 
 
-def profile_step(torch, step, args, step_ms, label, wrappers):
-    """Phases 7 and 13: device time per step, by kernel and by wrapper;
-    every wrapper in `wrappers` must show up."""
+def profile_step(torch, step, args, step_ms, label, launches):
+    """Phases 7 and 14: device time per step, by kernel and by every
+    wrapper; a wrapper's device kernels must show up exactly when
+    `launches` expects it to launch in the step."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         for _ in range(PROFILE_STEPS):
@@ -389,15 +563,17 @@ def profile_step(torch, step, args, step_ms, label, wrappers):
     )
     check(len(kernels) > 0, "the profiler saw no device kernel")
     busy_ms = sum(ms for ms, _, _ in kernels)
-    port = {name: [0.0, 0.0] for name in wrappers}
+    port = {name: [0.0, 0.0] for name in launches}
     for ms, calls, key in kernels:
-        for name in wrappers:
+        for name in launches:
             prefixes = DEVICE_KERNELS[name]
             if key.removeprefix("void ").startswith(prefixes):
                 port[name][0] += ms
                 port[name][1] += calls
     for name, (ms, calls) in port.items():
-        check(calls > 0, f"the profiler saw no device kernel of {name}")
+        check((calls > 0) == (launches[name] > 0),
+              f"the profiler saw {calls} device kernels of {name} per step, "
+              f"expected {launches[name]} launches")
     port_ms = sum(ms for ms, _ in port.values())
     print(json.dumps({
         "phase": label, "steps": PROFILE_STEPS, "step_ms": step_ms,
@@ -471,8 +647,7 @@ def serve_phases(torch, ck, cfg, device, card):
                       "step_ms_all": times, "points_per_s": b * n / (step_ms / 1e3),
                       "card": card}), flush=True)
 
-    profile_step(torch, step, (model, cloud, xyz), step_ms, "profile",
-                 [name for name, count in SERVE_LAUNCHES.items() if count])
+    profile_step(torch, step, (model, cloud, xyz), step_ms, "profile", SERVE_LAUNCHES)
 
     # phase 8: B=2 on the card against the port on the CPU
     r_gpu, p_gpu = step(model, cloud[:2], xyz[:2])
@@ -495,7 +670,7 @@ def serve_phases(torch, ck, cfg, device, card):
 
 
 def compare_train_with_cpu(torch, cfg, model, kde, cloud, xyz, gt):
-    """Phase 14: one train step at B=2 on the card and on the CPU from the
+    """Phase 15: one train step at B=2 on the card and on the CPU from the
     same weights and batch."""
     from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
 
@@ -541,8 +716,73 @@ def compare_train_with_cpu(torch, cfg, model, kde, cloud, xyz, gt):
     check(param_all <= 2 * lr + 1e-7, f"params after the step differ by {param_all}")
 
 
+def compare_fused_with_unfused(torch, cfg, model, cloud, xyz):
+    """Phase 10: SA1 and SA2 at the PROD shapes on the fused route and on
+    the unfused path (`set_abstraction_train`, SA2 in its pre-projected
+    form, whose gather backward is a knn_scatter call), from the same
+    weights, inputs and random cotangent, and with random BN running means
+    (N(0, SHIFT_STD^2), another draw per layer): the statistics' shifts are
+    nonzero and differ between SA1's two layers, so a kernel that read the
+    wrong shift row, or none, fails here and at these reference sites in
+    phase 11. SA2's input is SA1's fused output. Centroids must be equal;
+    out, BN state and every gradient (and SA2's gradient in x) are held to
+    the tolerances above."""
+    from stratanet2_tpu_torch.models.pointnet2 import (
+        set_abstraction_train,
+        set_abstraction_train_fused,
+    )
+
+    mc = cfg.model
+    gen = torch.Generator(device=cloud.device).manual_seed(SEED + 2)
+    fps_kw = dict(fps_parts=mc.fps_parts, fps_min_part_samples=mc.fps_min_part_samples)
+    x, pos = cloud[..., 2:].contiguous(), xyz
+    stages = (("sa1", model.sa1, mc.n_centroids1, mc.r1, mc.k1, False),
+              ("sa2", model.sa2, mc.n_centroids2, mc.r2, mc.k2, True))
+    for stage, mlp, n_c, radius, k, preproject in stages:
+        sides, gy = {}, None
+        shifts = [SHIFT_STD * torch.randn(layer.bn.mean.shape, generator=gen, device=cloud.device)
+                  for layer in mlp.layers]
+        for route in ("fused", "unfused"):
+            net = copy.deepcopy(mlp).train()
+            for layer, shift in zip(net.layers, shifts):
+                layer.bn.mean = shift.clone()
+            xt = x.detach().clone().requires_grad_(preproject)
+            if route == "fused":
+                out, cent = set_abstraction_train_fused(net, xt, pos, n_c, radius, k, **fps_kw)
+                gy = torch.randn(out.shape, generator=gen, device=out.device)
+            else:
+                out, cent = set_abstraction_train(net, xt, pos, n_c, radius, k, **fps_kw,
+                                                  preproject=preproject)
+            (out * gy).sum().backward()
+            grads = {name: p.grad for name, p in net.named_parameters()}
+            if preproject:
+                grads["x"] = xt.grad
+            sides[route] = dict(out=out.detach(), cent=cent, grads=grads,
+                                state=dict(net.named_buffers()))
+        f, u = sides["fused"], sides["unfused"]
+        check(torch.equal(f["cent"], u["cent"]), f"{stage}: fused and unfused centroids differ")
+        out_diff = (f["out"] - u["out"]).abs()
+        out_err = float(out_diff.max())
+        out_ratio = float((out_diff / (FUSED_OUT_ATOL + FUSED_OUT_RTOL * u["out"].abs())).max())
+        state_err = max(float((f["state"][kk] - v).abs().max()) for kk, v in u["state"].items())
+        grad_rel = {kk: float((f["grads"][kk] - g).abs().max() / g.abs().max())
+                    for kk, g in u["grads"].items()}
+        print(json.dumps({"phase": "sa_fused_vs_unfused", "stage": stage,
+                          "shape": list(f["out"].shape), "out_max_abs_diff": out_err,
+                          "out_worst_tolerance_ratio": out_ratio,
+                          "bn_state_max_abs_diff": state_err, "grad_max_rel_diff": grad_rel,
+                          "out_rtol": FUSED_OUT_RTOL, "out_atol": FUSED_OUT_ATOL,
+                          "state_atol": TRAIN_STATE_ATOL, "grad_rtol": FUSED_GRAD_RTOL}),
+              flush=True)
+        check(out_ratio <= 1.0, f"{stage}: fused and unfused outputs differ by {out_err}")
+        check(state_err <= TRAIN_STATE_ATOL, f"{stage}: BN state differs by {state_err}")
+        check(max(grad_rel.values()) <= FUSED_GRAD_RTOL,
+              f"{stage}: gradients differ by {max(grad_rel.values())} of the leaf's max")
+        x, pos = f["out"], f["cent"]
+
+
 def train_phases(torch, ck, cfg, device, card):
-    """Phases 9-14. Returns the train kernels' rows and the counted launches."""
+    """Phases 9-15. Returns the train kernels' rows and the counted launches."""
     from stratanet2_tpu_torch.learning.kde import fit_kde_mixture
     from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
     from stratanet2_tpu_torch.utils.synthetic import random_model, train_batch
@@ -559,16 +799,24 @@ def train_phases(torch, ck, cfg, device, card):
         opt, sched = make_optimizer(cfg, m, STEPS_PER_EPOCH)
         return m, opt, sched
 
-    # phase 9: one train step on a copy records each new kernel's calls
+    # phase 9: one train step on a copy records each train kernel's calls
     m, opt, sched = fresh()
     captured = capture_calls(ck, [name for name, _, _ in TRAIN_KERNELS],
                              lambda: step(m, opt, sched, cloud, xyz, gt))
     torch.cuda.synchronize()
+    del m, opt, sched
+    # phase 10: fused vs unfused SA stages with nonzero shifts; its SA train
+    # passes and the unfused SA2's gather backward (the knn_scatter site
+    # that left the train step) are the reference sites
+    ref = capture_calls(ck, list(REFERENCE_SITES),
+                        lambda: compare_fused_with_unfused(torch, cfg, model, cloud, xyz))
+    for name, calls in ref.items():
+        captured[name] += calls
     with torch.no_grad():
-        rows = compare_train_kernels(torch, ck, captured)
-    del captured, m, opt, sched
+        rows, ref_rows = compare_train_kernels(torch, ck, captured)
+    del captured, ref
 
-    # phase 11: the counted train step
+    # phase 12: the counted train step
     m, opt, sched = fresh()
     before = {k: v.detach().clone() for k, v in m.named_parameters()}
     ck.reset_launches()
@@ -585,17 +833,17 @@ def train_phases(torch, ck, cfg, device, card):
               f"gradient of {name} missing or not finite")
         check(not torch.equal(prm.detach(), before[name]), f"{name} did not change")
 
-    # phase 12: train step time
+    # phase 13: train step time
     step_ms, times = timed_steps(torch, lambda: step(m, opt, sched, cloud, xyz, gt))
     print(json.dumps({"phase": "train_step", "B": b, "N": n, "step_ms_median": step_ms,
                       "step_ms_all": times, "points_per_s": b * n / (step_ms / 1e3),
                       "card": card}), flush=True)
 
     profile_step(torch, step, (m, opt, sched, cloud, xyz, gt), step_ms, "train_profile",
-                 [name for name, count in TRAIN_LAUNCHES.items() if count])
+                 TRAIN_LAUNCHES)
 
     compare_train_with_cpu(torch, cfg, model, kde, cloud, xyz, gt)
-    return rows, launches
+    return rows, ref_rows, launches
 
 
 def main() -> int:
@@ -625,8 +873,11 @@ def main() -> int:
 
     cfg = default_config()
     serve_rows, serve_launches = serve_phases(torch, ck, cfg, device, card)
-    train_rows, train_launches = train_phases(torch, ck, cfg, device, card)
+    train_rows, ref_rows, train_launches = train_phases(torch, ck, cfg, device, card)
 
+    print(json.dumps({"reference_sites": [
+        {"name": name, "sites": sites, **ref_rows[name]} for name, sites in REFERENCE_SITES.items()
+    ]}), flush=True)
     entries = [(k, serve_rows, serve_launches) for k in SERVE_KERNELS]
     entries += [(k, train_rows, train_launches) for k in TRAIN_KERNELS]
     print(json.dumps({"kernels": [

@@ -78,11 +78,16 @@ class BatchNorm(nn.Module):
         mean = dmean + shift
         # torch.maximum, not clamp_min: half the gradient at 0, as jnp.maximum
         var = torch.maximum(sqsum / n - dmean * dmean, x.new_zeros(()))
-        with torch.no_grad():
-            unbiased = var * n / (n - 1.0).clamp_min(1.0)
-            self.mean = (1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean
-            self.var = (1 - BN_MOMENTUM) * self.var + BN_MOMENTUM * unbiased
+        self.update_running_stats(mean, var, n)
         return (x - mean) * (torch.rsqrt(var + BN_EPS) * self.scale) + self.bias
+
+    @torch.no_grad()
+    def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor, n: torch.Tensor):
+        """Momentum update from a batch's mean and biased var over n rows;
+        the unbiased var var * n / max(n - 1, 1) is stored."""
+        unbiased = var * n / (n - 1.0).clamp_min(1.0)
+        self.mean = (1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean
+        self.var = (1 - BN_MOMENTUM) * self.var + BN_MOMENTUM * unbiased
 
 
 class Layer(nn.Module):

@@ -16,15 +16,24 @@ pos@W1p + b1 (per point) and cterm = pos_c@W1p (per centroid) are two
 matmuls here, and `cuda_kernels.sa_fused_eval` does the grouped selection,
 the gather, both layers with eval BN folded, and the masked max.
 
-In train mode (`model.train()`) SA takes the unfused path of the JAX
-`_sa_module` (pointnet2.py:147-215), the one JAX runs whenever the fused
-train kernels are not eligible: the standalone grouped ball query
-(`cuda_kernels.ball_query`), a gather, the masked-BN MLP and the masked max
-over the K slots (`torch.amax`, which splits the gradient evenly among
-ties as `jnp.max` does). SA1 gathers [x, pos] and subtracts the zero-padded
-centroid offset; SA2 pre-projects q and gathers it with `gather_rows`,
-whose backward is the scatter kernel. Every BN normalises with masked batch
-statistics and updates its running state.
+In train mode (`model.train()`) SA1 and SA2 take the fused train route of
+the JAX `_sa_train_fused_path` (pointnet2.py:218-270) on every device: the
+standalone grouped ball query (`cuda_kernels.ball_query`), q and cterm as
+two matmuls, and `ops/sa_train.sa_train_fused`, whose four edge passes
+compute the BN batch statistics, the max over the K slots and the
+gradients without writing an edge tensor; the BN running state is updated
+from the statistics it returns. Every `channel_plan` gives SA1 two layers
+and SA2 one, the counts the fused route takes.
+
+`set_abstraction_train` is the unfused path of the JAX `_sa_module`
+(pointnet2.py:147-215), the one JAX runs when the fused train kernels are
+not eligible (point-sharded runs, more than two layers); the forward does
+not take it. It is the reference the fused route is held to: a gather, the
+masked-BN MLP and the masked max over the K slots (`torch.amax`, which
+splits the gradient evenly among ties as `jnp.max` does). SA1's form
+gathers [x, pos] and subtracts the zero-padded centroid offset; SA2's
+pre-projects q and gathers it with `gather_rows`, whose backward is the
+scatter kernel.
 
 SA3, FP3, the MLPs and the head are plain torch in both modes.
 
@@ -47,6 +56,7 @@ from stratanet2_tpu_torch.ops import cuda_kernels
 from stratanet2_tpu_torch.ops.fps import farthest_point_sampling
 from stratanet2_tpu_torch.ops.gather import gather_rows
 from stratanet2_tpu_torch.ops.knn import knn_interpolate
+from stratanet2_tpu_torch.ops.sa_train import sa_train_fused
 
 STAGES = ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")
 
@@ -91,22 +101,61 @@ def set_abstraction_train(
     nbr_idx, nbr_mask = cuda_kernels.ball_query(
         centroids.contiguous(), pos.contiguous(), radius, k
     )  # (B, C, k)
-    f = x.shape[-1]
     if preproject:
-        l1 = mlp.layers[0]
-        w1 = l1.linear.w
-        q = x @ w1[:f] + pos @ w1[f:] + l1.linear.b
-        cterm = centroids @ w1[f:]
+        q, cterm = _layer1_terms(mlp, x, pos, centroids)
         h = torch.relu(gather_rows(q, nbr_idx) - cterm[:, :, None, :])
-        h = l1.bn(h, nbr_mask)
+        h = mlp.layers[0].bn(h, nbr_mask)
         for layer in mlp.layers[1:]:
             h = layer(h, nbr_mask)
     else:
         both = gather_rows(torch.cat([x, pos], dim=-1), nbr_idx)  # (B, C, k, F + 3)
-        offset = torch.nn.functional.pad(centroids, (f, 0))  # [0, pos_c]
+        offset = torch.nn.functional.pad(centroids, (x.shape[-1], 0))  # [0, pos_c]
         h = mlp(both - offset[:, :, None, :], nbr_mask)
     h = h.masked_fill(~nbr_mask[..., None], -1e30)
     return torch.amax(h, dim=2), centroids
+
+
+def _layer1_terms(mlp: MLP, x, pos, centroids):
+    """Layer 1 distributed over the edge concat [x_j, pos_j - pos_c]:
+    q = x@W1x + pos@W1p + b1 per point, cterm = pos_c@W1p per centroid."""
+    l1 = mlp.layers[0]
+    f = x.shape[-1]
+    w1 = l1.linear.w
+    return x @ w1[:f] + pos @ w1[f:] + l1.linear.b, centroids @ w1[f:]
+
+
+def set_abstraction_train_fused(
+    mlp: MLP,
+    x: torch.Tensor,
+    pos: torch.Tensor,
+    n_centroids: int,
+    radius: float,
+    k: int,
+    fps_parts: int,
+    fps_min_part_samples: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The train-mode SA stage on the fused route (one or two layers): FPS ->
+    standalone grouped ball query -> `sa_train_fused` on q and cterm, with
+    the running means as the statistics' shifts. Updates the MLP's BN
+    running state from the returned statistics over the M valid edges.
+    Returns (features (B, C, C_out), centroids)."""
+    centroids = _centroids(pos, n_centroids, fps_parts, fps_min_part_samples)
+    idx, mask = cuda_kernels.ball_query(centroids.contiguous(), pos.contiguous(), radius, k)
+    q, cterm = _layer1_terms(mlp, x, pos, centroids)
+    bns = [layer.bn for layer in mlp.layers]
+    if len(mlp.layers) == 2:
+        w2, b2 = mlp.layers[1].linear.w, mlp.layers[1].linear.b
+    elif len(mlp.layers) == 1:
+        w2 = b2 = None
+    else:
+        raise ValueError("the fused SA train route takes one or two layers")
+    out, stats, m_edges = sa_train_fused(
+        q, cterm, [bn.scale for bn in bns], [bn.bias for bn in bns], w2, b2, idx, mask,
+        bn_shifts=[bn.mean for bn in bns],
+    )
+    for bn, (mean, var) in zip(bns, stats):
+        bn.update_running_stats(mean, var, m_edges)
+    return out, centroids
 
 
 def set_abstraction(
@@ -123,12 +172,8 @@ def set_abstraction(
     slots (reference SAModule, model/point_net2.py:14-29), eval mode.
     Returns (features (B, C, C_out), centroids (B, C, 3))."""
     centroids = _centroids(pos, n_centroids, fps_parts, fps_min_part_samples)
-    l1 = mlp.layers[0]
-    f = x.shape[-1]
-    w1 = l1.linear.w
-    q = x @ w1[:f] + pos @ w1[f:] + l1.linear.b
-    cterm = centroids @ w1[f:]
-    a1, c1 = l1.bn.folded()
+    q, cterm = _layer1_terms(mlp, x, pos, centroids)
+    a1, c1 = mlp.layers[0].bn.folded()
     if len(mlp.layers) == 2:
         l2 = mlp.layers[1]
         w2, b2 = l2.linear.w, l2.linear.b
@@ -165,13 +210,11 @@ class PointNet2(nn.Module):
             fps_parts=cfg.fps_parts, fps_min_part_samples=cfg.fps_min_part_samples
         )
         if self.training:
-            x1, pos1 = set_abstraction_train(
-                self.sa1, x0, pos0, cfg.n_centroids1, cfg.r1, cfg.k1, **fps_kw,
-                preproject=False,
+            x1, pos1 = set_abstraction_train_fused(
+                self.sa1, x0, pos0, cfg.n_centroids1, cfg.r1, cfg.k1, **fps_kw
             )
-            x2, pos2 = set_abstraction_train(
-                self.sa2, x1, pos1, cfg.n_centroids2, cfg.r2, cfg.k2, **fps_kw,
-                preproject=True,
+            x2, pos2 = set_abstraction_train_fused(
+                self.sa2, x1, pos1, cfg.n_centroids2, cfg.r2, cfg.k2, **fps_kw
             )
         else:
             x1, pos1 = set_abstraction(

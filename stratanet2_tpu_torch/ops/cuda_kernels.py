@@ -10,6 +10,10 @@ PyTorch version (counterpart of `stratanet2_tpu/ops/pallas_kernels.py`).
 | `ball_query`     | csrc/ball_query.cu      | `_bq_kernel` / `ball_query_grouped_pallas` |
 | `knn_scatter`    | csrc/knn_scatter.cu     | `_knn_scatter_kernel` / `_knn_scatter_pallas`, `scatter_add_pallas` |
 | `pixel_max_bwd`  | csrc/pixel_max.cu       | `_pixel_max_bwd_kernel` / `_pixel_max_bwd` |
+| `sa_train_stats` | csrc/sa_train.cu        | `_sa_stats1_kernel` / `_sa_train_stats` |
+| `sa_train_main`  | csrc/sa_train.cu        | `_sa_train_main_kernel` / `_sa_train_main` |
+| `sa_train_bwd1`  | csrc/sa_train.cu        | `_sa_train_bwd1_kernel` / `_sa_train_bwd1` |
+| `sa_train_bwd2`  | csrc/sa_train.cu        | `_sa_train_bwd2_kernel` / `_sa_train_bwd2` |
 
 Dispatch: a wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it runs the plain version. There is no fallback between the two
@@ -17,7 +21,9 @@ and no switch. `LAUNCHES[name]` counts each wrapper's kernel launches.
 
 Every selection distance is rounded as the JAX CPU path rounds it (see
 `distance.py`): the plain versions and the kernels agree with it, and with
-each other, on every distance and so on every selected index.
+each other, on every distance and so on every selected index. The SA train
+passes likewise compute every per-edge value in the same rounding as their
+kernels (`sa_train_edges`), so winner slots agree exactly.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import ctypes
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from stratanet2_tpu_torch.ops import _build
 from stratanet2_tpu_torch.ops.ballquery import ball_query_grouped, radius_sq
@@ -58,6 +65,18 @@ _ENTRIES = {  # wrapper: (library = csrc/<library>.cu, C entry point, its argume
     ),
     "pixel_max_bwd": (
         "pixel_max", "pixel_max_bwd_launch", [_VP, _VP, _VP, _I, _I, _I, _I, _VP]
+    ),
+    "sa_train_stats": (
+        "sa_train", "sa_train_stats_launch", [_VP] * 6 + [_I] * 6 + [_VP]
+    ),
+    "sa_train_main": (
+        "sa_train", "sa_train_main_launch", [_VP] * 11 + [_I] * 7 + [_VP]
+    ),
+    "sa_train_bwd1": (
+        "sa_train", "sa_train_bwd1_launch", [_VP] * 9 + [_I] * 6 + [_VP]
+    ),
+    "sa_train_bwd2": (
+        "sa_train", "sa_train_bwd2_launch", [_VP] * 10 + [_I] * 7 + [_VP]
     ),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
@@ -435,3 +454,243 @@ def knn_scatter(idx: torch.Tensor, w: Optional[torch.Tensor], g: torch.Tensor, s
     dx = torch.empty((b, s, f), dtype=torch.float32, device=g.device)
     _launch(name, g.device, idx, w, g, dx, b, k, t, s, f)
     return dx
+
+
+# ---------------------------------------------------------------------------
+# fused set-abstraction interior, train mode: four edge passes
+# ---------------------------------------------------------------------------
+
+# Rows of the per-channel table `aff` (len(SA_AFF_ROWS), width) that the SA
+# train passes read (enum AffRow in csrc/sa_train.cu): BN1 folded into
+# h1*a1 + c1 and the layer-2 bias b2 (two layers); per BN ("2" the second
+# layer's, "1" the first's): gos = gamma/sigma, m = batch mean, inv_s =
+# 1/sigma, s1n = S1/M and s2n = S2/M, the backward's correction sums over M
+# valid edges; shift1 and shift_l, the shifts of the one-pass statistics of
+# BN1 (stats pass) and of the last BN (main pass).
+SA_AFF_ROWS = ("a1", "c1", "b2", "gos2", "m2", "inv_s2", "s1n2", "s2n2",
+               "m1", "inv_s1", "gos1", "s1n1", "s2n1", "shift1", "shift_l")
+SA_AFF = {name: row for row, name in enumerate(SA_AFF_ROWS)}
+SA_THREADS = 256  # threads a block of csrc/sa_train.cu
+SA_MAX_BLOCKS = 8 * 132  # its grid: at most 8 blocks of 256 threads on each of 132 SMs
+
+
+def sa_grid(b: int, c: int, ch1: int) -> int:
+    """Blocks of an SA train launch over b*c centroids, C1 lanes a centroid:
+    group g of block i walks centroids i*G + g + j*grid*G, G = SA_THREADS //
+    C1, and each block writes one partial row of its sums."""
+    return max(1, min(-(-b * c // (SA_THREADS // ch1)), SA_MAX_BLOCKS))
+
+
+def sa_aff(width: int, base: Optional[torch.Tensor] = None, **rows: torch.Tensor) -> torch.Tensor:
+    """The (len(SA_AFF_ROWS), width) float32 table: `base`'s rows (zeros
+    without one), with each named row replaced, zero-padded to `width`."""
+    if base is None:
+        ref = next(iter(rows.values()))
+        cur = [ref.new_zeros(width)] * len(SA_AFF_ROWS)
+    else:
+        cur = list(base.unbind(0))
+    for name, v in rows.items():
+        pad = width - v.shape[0]
+        cur[SA_AFF[name]] = F.pad(v.float(), (0, pad)) if pad else v.float()
+    return torch.stack(cur)
+
+
+def _sum64(t: torch.Tensor, dims=(0, 1, 2)) -> torch.Tensor:
+    """Sum over `dims` in float64, rounded once to float32."""
+    return t.double().sum(dims).float()
+
+
+def _fma_chain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., I) x (I, O) -> (..., O) as fma(x[I-1], w[I-1], ... fma(x[1], w[1],
+    x[0]*w[0])), each step rounded once: the order of the kernels' products."""
+    s = x[..., :1] * w[0]
+    for i in range(1, x.shape[-1]):
+        s = fma_f32(x[..., i : i + 1], w[i], s)
+    return s
+
+
+def sa_train_edges(q, cterm, idx, mask, aff, w2, awin=None, gt=None):
+    """Every per-edge value (B, C, K, ch) of the SA train passes, rounded as
+    csrc/sa_train.cu rounds it: e0 = q[idx] - cterm and h1 = relu(e0); with
+    W2, y1 = h1*a1 + c1 and u = y1 @ W2 + b2 (an fma chain); h, the last
+    layer's pre-BN output. Given the winner slots `awin` and cotangents `gt`
+    (B, C, C2): dy, the last BN's cotangent (gt at the winner slot); with W2,
+    du (BN2's backward through relu(u)) and dy1 = du @ W2^T (an fma chain);
+    xhat1 and de0 (BN1's backward through relu(e0)). `m` is the mask
+    (B, C, K, 1); backward values are zero on masked slots, which the kernels
+    skip."""
+    ch1 = q.shape[2]
+    m = mask[..., None]
+
+    def row(name, width):
+        return aff[SA_AFF[name], :width]
+
+    bidx = torch.arange(q.shape[0], device=q.device)[:, None, None]
+    e0 = q[bidx, idx.long()] - cterm[:, :, None, :]
+    h1 = torch.relu(e0)
+    out = dict(m=m, e0=e0, h1=h1, h=h1)
+    if w2 is not None:
+        ch2 = w2.shape[1]
+        y1 = h1 * row("a1", ch1) + row("c1", ch1)
+        u = _fma_chain(y1, w2) + row("b2", ch2)
+        out.update(y1=y1, u=u, h=torch.relu(u))
+    if awin is None:
+        return out
+
+    def bn_relu_bwd(dy, x, pre, n):  # gos * ((dy - s1n) - xhat * s2n), gated by pre > 0
+        xhat = (x - row(f"m{n}", x.shape[-1])) * row(f"inv_s{n}", x.shape[-1])
+        dx = row(f"gos{n}", x.shape[-1]) * ((dy - row(f"s1n{n}", x.shape[-1]))
+                                           - xhat * row(f"s2n{n}", x.shape[-1]))
+        return torch.where(m & (pre > 0), dx, torch.zeros_like(dx)), xhat
+
+    slot = torch.arange(idx.shape[2], device=q.device)[None, None, :, None]
+    dy = torch.where(m & (awin[:, :, None, :] == slot), gt[:, :, None, :], 0.0)
+    out["dy"] = dy
+    if w2 is not None:
+        du, _ = bn_relu_bwd(dy, out["h"], out["u"], 2)
+        dy1 = _fma_chain(du, w2.t())
+        out.update(du=du)
+    else:
+        dy1 = dy
+    de0, xhat1 = bn_relu_bwd(dy1, h1, e0, 1)
+    out.update(dy1=dy1, xhat1=xhat1, de0=de0)
+    return out
+
+
+def _sa_check(name, q, cterm, idx, mask, aff, w2, awin=None, gt=None):
+    b, n, ch1 = q.shape
+    c, k = idx.shape[1], idx.shape[2]
+    ch2 = w2.shape[1] if w2 is not None else ch1
+    _expect(cterm.shape == (b, c, ch1), name, "cterm must be (B, C, C1)")
+    _expect(idx.shape == mask.shape == (b, c, k) and idx.dtype == torch.int32
+            and mask.dtype == torch.bool, name, "idx/mask must be (B, C, K) int32/bool")
+    _expect(aff.dim() == 2 and aff.shape[0] == len(SA_AFF_ROWS)
+            and aff.shape[1] >= max(ch1, ch2), name,
+            "aff must be (len(SA_AFF_ROWS), width >= max(C1, C2))")
+    _expect(w2 is None or w2.shape == (ch1, ch2), name, "w2 must be (C1, C2)")
+    if awin is not None:
+        _expect(awin.shape == gt.shape == (b, c, ch2) and awin.dtype == torch.int32, name,
+                "awin/gt must be (B, C, C2) int32/float32")
+    for t in (q, cterm, aff, w2, gt):
+        _expect(t is None or t.dtype == torch.float32, name, "values must be float32")
+    return b, n, c, k, ch1, ch2
+
+
+def _sa_grid(name, aff, b, c, ch1, ch2, two, stats_only=False):
+    want = ((16, 16, True),) if stats_only else ((16, 16, True), (32, 32, False))
+    _expect((ch1, ch2, two) in want, name,
+            f"no kernel instance for C1={ch1}, C2={ch2}, two_layer={two}")
+    _expect(aff.shape[1] == ch1, name, "the kernel takes aff rows of width C1")
+    return sa_grid(b, c, ch1)
+
+
+def sa_train_stats_plain(q, cterm, idx, mask, aff):
+    e = sa_train_edges(q, cterm, idx, mask, aff, None)
+    hc = torch.where(e["m"], e["h1"] - aff[SA_AFF["shift1"], : q.shape[2]], 0.0)
+    return _sum64(hc), _sum64(hc.double() * hc)
+
+
+def sa_train_stats(q, cterm, idx, mask, aff):
+    """BN1's batch statistics over the valid edges: (sum(h1 - shift1),
+    sum((h1 - shift1)^2)), each (C1,), with h1 = relu(q[idx] - cterm). q
+    (B, N, C1), cterm (B, C, C1), idx/mask (B, C, K) int32/bool from
+    `ball_query`, aff from `sa_aff` (row shift1)."""
+    name = "sa_train_stats"
+    b, n, c, k, ch1, _ = _sa_check(name, q, cterm, idx, mask, aff, None)
+    if not _on_card(name, q, cterm, idx, mask, aff):
+        return sa_train_stats_plain(q, cterm, idx, mask, aff)
+    grid = _sa_grid(name, aff, b, c, ch1, ch1, True, stats_only=True)
+    partial = torch.empty((grid, 2, ch1), dtype=torch.float32, device=q.device)
+    _launch(name, q.device, q, cterm, idx, mask, aff, partial, grid, b, n, c, k, ch1)
+    s = partial.sum(0)
+    return s[0], s[1]
+
+
+def sa_train_main_plain(q, cterm, idx, mask, aff, w2):
+    e = sa_train_edges(q, cterm, idx, mask, aff, w2)
+    h, m = e["h"], e["m"]
+    hc = torch.where(m, h - aff[SA_AFF["shift_l"], : h.shape[-1]], 0.0)
+    e_hi = torch.where(m, h, NEG)
+    e_lo = torch.where(m, h, -NEG)
+    return (_sum64(hc), _sum64(hc.double() * hc),  # argmax/argmin: first extreme slot
+            torch.amax(e_hi, 2), torch.amin(e_lo, 2),
+            torch.argmax(e_hi, 2).int(), torch.argmin(e_lo, 2).int())
+
+
+def sa_train_main(q, cterm, idx, mask, aff, w2):
+    """The last layer's pre-BN h over the valid edges (h = relu(h1) with one
+    layer, relu((h1*a1 + c1) @ W2 + b2) with two): its statistics (sum(h -
+    shift_l), sum((h - shift_l)^2)), each (C2,), and per centroid and
+    channel the masked max and min over the K slots with the first winning
+    slot: vmax, vmin (B, C, C2) float32 (-3.4e38 / 3.4e38 with no valid
+    slot), amax, amin (B, C, C2) int32. w2 (C1, C2) or None; aff rows a1,
+    c1, b2 (two layers) and shift_l."""
+    name = "sa_train_main"
+    b, n, c, k, ch1, ch2 = _sa_check(name, q, cterm, idx, mask, aff, w2)
+    if not _on_card(name, q, cterm, idx, mask, aff, w2):
+        return sa_train_main_plain(q, cterm, idx, mask, aff, w2)
+    two = w2 is not None
+    grid = _sa_grid(name, aff, b, c, ch1, ch2, two)
+    partial = torch.empty((grid, 2, ch2), dtype=torch.float32, device=q.device)
+    vmax, vmin = (torch.empty((b, c, ch2), dtype=torch.float32, device=q.device) for _ in range(2))
+    amax, amin = (torch.empty((b, c, ch2), dtype=torch.int32, device=q.device) for _ in range(2))
+    _launch(name, q.device, q, cterm, idx, mask, aff, w2, partial, vmax, vmin, amax, amin,
+            grid, b, n, c, k, ch1, int(two))
+    s = partial.sum(0)
+    return s[0], s[1], vmax, vmin, amax, amin
+
+
+def sa_train_bwd1_plain(q, cterm, idx, mask, aff, w2, awin, gt):
+    e = sa_train_edges(q, cterm, idx, mask, aff, w2, awin, gt)
+    dy1, du = e["dy1"], e["du"]
+    dw2 = torch.einsum("bcki,bcko->io", e["y1"].double(), du.double()).float()
+    return _sum64(dy1), _sum64(dy1.double() * e["xhat1"]), _sum64(du), dw2
+
+
+def sa_train_bwd1(q, cterm, idx, mask, aff, w2, awin, gt):
+    """Two layers: BN2's backward at every valid edge, its cotangent `gt`
+    (B, C, C2) at each centroid's winner slot `awin` (B, C, C2) int32, then
+    over the valid edges S1_1 = sum dy1 and S2_1 = sum dy1 * xhat1 (C1,),
+    db2 = sum du (C2,) and dW2 = sum y1 du^T (C1, C2). aff rows a1, c1, b2,
+    gos2, m2, inv_s2, s1n2, s2n2, m1, inv_s1."""
+    name = "sa_train_bwd1"
+    _expect(w2 is not None, name, "runs with two layers only")
+    b, n, c, k, ch1, ch2 = _sa_check(name, q, cterm, idx, mask, aff, w2, awin, gt)
+    if not _on_card(name, q, cterm, idx, mask, aff, w2, awin, gt):
+        return sa_train_bwd1_plain(q, cterm, idx, mask, aff, w2, awin, gt)
+    grid = _sa_grid(name, aff, b, c, ch1, ch2, True)
+    partial = torch.empty((grid, 3 + ch1, ch2), dtype=torch.float32, device=q.device)
+    _launch(name, q.device, q, cterm, idx, mask, aff, w2, awin, gt, partial,
+            grid, b, n, c, k, ch1)
+    s = partial.sum(0)
+    return s[0], s[1], s[2], s[3:]
+
+
+def sa_train_bwd2_plain(q, cterm, idx, mask, aff, w2, awin, gt):
+    e = sa_train_edges(q, cterm, idx, mask, aff, w2, awin, gt)
+    de0 = e["de0"]
+    b, n, ch1 = q.shape
+    flat = (idx.long() + (torch.arange(b, device=q.device) * n)[:, None, None]).reshape(-1)
+    dq = torch.zeros((b * n, ch1), dtype=torch.float64, device=q.device)
+    dq.index_add_(0, flat, de0.reshape(-1, ch1).double())
+    return dq.float().reshape(b, n, ch1), -_sum64(de0, dims=2)
+
+
+def sa_train_bwd2(q, cterm, idx, mask, aff, w2, awin, gt):
+    """BN1's backward at every valid edge through relu(e0): de0, from dy1 =
+    BN2's backward @ W2^T with two layers (aff rows as `sa_train_bwd1`) or
+    gt at the winner slot with one; aff rows m1, inv_s1, gos1, s1n1, s2n1.
+    Returns dq (B, N, C1), the scatter of de0 onto the picked points (float
+    atomics on the card: sum order not fixed), and dcterm = -sum_k de0
+    (B, C, C1)."""
+    name = "sa_train_bwd2"
+    b, n, c, k, ch1, ch2 = _sa_check(name, q, cterm, idx, mask, aff, w2, awin, gt)
+    if not _on_card(name, q, cterm, idx, mask, aff, w2, awin, gt):
+        return sa_train_bwd2_plain(q, cterm, idx, mask, aff, w2, awin, gt)
+    two = w2 is not None
+    grid = _sa_grid(name, aff, b, c, ch1, ch2, two)
+    dq = torch.empty((b, n, ch1), dtype=torch.float32, device=q.device)
+    dcterm = torch.empty((b, c, ch1), dtype=torch.float32, device=q.device)
+    _launch(name, q.device, q, cterm, idx, mask, aff, w2, awin, gt, dq, dcterm,
+            grid, b, n, c, k, ch1, int(two))
+    return dq, dcterm
