@@ -17,7 +17,13 @@ Phases, in order, each failing loudly:
      (indices exactly, values within the stated atol; for the SA kernel the
      picks of its built-in ball query are read back through probe launches),
      CUDA-event times of kernel, plain and, where one PyTorch call computes
-     the same function, that call;
+     the same function, that call; then FPS's reference sites
+     (FPS_REFERENCE: tie-heavy integer-grid clouds at the two step shapes,
+     the serve batch unpartitioned at N=10000, and a grid cloud at the
+     kernel's largest N), each with 0 differing indices;
+  4b. `"phase": "fps_chain"`: FPS's latency floor, the time of a pick with
+     one point a thread (N=1024), against the per-pick time at the step
+     sites;
   5. the counted serve step: launch counters zeroed just before, read just
      after (2 per serve kernel, 0 for the train kernels), outputs finite,
      coverages in [0, 1];
@@ -41,7 +47,9 @@ Phases, in order, each failing loudly:
      state and every gradient, tolerances below); the fused stages' SA train
      passes and the unfused SA2's gather backward (a knn_scatter site) are
      captured as reference sites;
-  11. per train kernel and call site, the train step's and then phase 10's:
+  11. per train kernel and call site, the train step's, then phase 10's,
+     then the synthetic pixel-max backward site (out-of-range ids, empty
+     pixels):
      kernel vs plain (ball_query and pixel_max_bwd exactly; knn_scatter,
      whose atomics add in no fixed order, within the float32 error bound of
      a sum in any order; the SA train passes' winners and winning values
@@ -50,6 +58,9 @@ Phases, in order, each failing loudly:
      block's partial row taken out or zeroed, and dq's scatter within the
      bound of a sum in any order), times as in phase 4, library calls
      `index_add_` and `scatter_add_`;
+  11b. `"phase": "launch_path"`: host microseconds a call of the two stream
+     getters, of the device check and context, and of the parts of a
+     pixel_max_bwd call;
   12. the counted train step: fps 2, ball_query 2, knn_interpolate 2,
      knn_scatter 2, pixel_max 1, pixel_max_bwd 1, sa_fused_eval 0,
      sa_train_stats 1, sa_train_main 2, sa_train_bwd1 1, sa_train_bwd2 2;
@@ -58,9 +69,10 @@ Phases, in order, each failing loudly:
   14. profile of the train step, as phase 7;
   15. a B=2 train step on the card against the port on the CPU: loss parts,
      every gradient, BN state and params after the step (tolerances below);
-  16. the `{"reference_sites": [...]}` line (phase 10's sites, apart from
-     the per-step rows), the `{"kernels": [...]}` line (all eleven) and the
-     final `{"ok": true, ...}` line.
+  16. the `{"reference_sites": [...]}` line (phase 10's sites and the
+     synthetic FPS and pixel-max backward sites, apart from the per-step
+     rows), the `{"kernels": [...]}` line (all eleven) and the final
+     `{"ok": true, ...}` line.
 
 float32 matmuls run in full float32: TF32 is switched off for cuBLAS and
 cuDNN below, so no product (and no distance) passes through TF32.
@@ -122,11 +134,22 @@ TRAIN_LAUNCHES = {"fps": 2, "sa_fused_eval": 0, "knn_interpolate": 2, "pixel_max
                   "ball_query": 2, "knn_scatter": 2, "pixel_max_bwd": 1,
                   "sa_train_stats": 1, "sa_train_main": 2, "sa_train_bwd1": 1,
                   "sa_train_bwd2": 2}
-# call sites held against their plain versions outside the train step, all in
-# phase 10: the gather backward of the unfused SA2 stage, and the SA train
-# passes of the fused SA1 and SA2 stages with nonzero statistics shifts
-REFERENCE_SITES = {"knn_scatter": 1, "sa_train_stats": 1, "sa_train_main": 2,
-                   "sa_train_bwd1": 1, "sa_train_bwd2": 2}
+# FPS's reference sites (phase 4): (cloud, rows, N, S). "grid": integer
+# coordinates in [0, 16), so distances take a few hundred values and most
+# picks break ties, at the shapes of SA1's parts and of SA2; "serve": the
+# serve batch's clouds unpartitioned, N=10000; and a grid cloud at the
+# kernel's largest N (cuda_kernels.FPS_MAX_N, 16 points a thread)
+FPS_REFERENCE = (("grid", 40, 5000, 1250), ("grid", 20, 2500, 625),
+                 ("serve", 20, 10000, 2500), ("grid", 20, 16384, 1024))
+# call sites held against their plain versions outside the steps: phase 10's
+# (the gather backward of the unfused SA2 stage, the SA train passes of the
+# fused SA1 and SA2 stages with nonzero statistics shifts) and synthetic ones
+# (FPS_REFERENCE; the pixel-max backward with out-of-range ids and empty
+# pixels)
+PHASE10_SITES = {"knn_scatter": 1, "sa_train_stats": 1, "sa_train_main": 2,
+                 "sa_train_bwd1": 1, "sa_train_bwd2": 2}
+REFERENCE_SITES = {"fps": len(FPS_REFERENCE), "pixel_max_bwd": 1, **PHASE10_SITES}
+FPS_FLOOR_N = 1024  # one point for each thread of the FPS block
 SHIFT_STD = 0.1  # phase 10's BN running means (the shifts), as the CPU stage tests draw them
 SA_ATOL = 1e-4  # layer-2 dot: FMA contraction and summation order differ
 # Fused vs unfused SA stage at PROD (phase 10): both sum the batch statistics
@@ -158,6 +181,7 @@ STEPS_PER_EPOCH = 5  # ~90 training plots of a fold (5 folds of ~110 plots) at B
 SEED = 0
 STEPS = 30  # timed steps; the median is reported
 PROFILE_STEPS = 10
+LAUNCH_REPS = 2000  # calls a host cost of phase 11b is averaged over
 # device kernels of each wrapper, by name prefix (ops/csrc/*.cu)
 DEVICE_KERNELS = {"fps": ("fps_kernel",), "sa_fused_eval": ("sa_kernel",),
                   "knn_interpolate": ("knn_kernel",),
@@ -273,17 +297,56 @@ def finish_agg(agg):
     return agg
 
 
+def fps_reference_calls(torch, xyz, device):
+    """The arguments of FPS's reference sites (FPS_REFERENCE), starts drawn
+    from a seed; `xyz` is the serve batch's (B, N, 3)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    calls = []
+    for cloud, rows, n, s in FPS_REFERENCE:
+        if cloud == "serve":
+            pts = xyz.float().contiguous()
+            check(tuple(pts.shape) == (rows, n, 3), f"serve clouds {tuple(pts.shape)}")
+        else:
+            pts = torch.randint(0, 16, (rows, n, 3), generator=gen, device=device).float()
+        start = torch.randint(0, n, (rows,), generator=gen, device=device, dtype=torch.int32)
+        calls.append((pts, s, start))
+    return calls
+
+
+def fps_chain(torch, ck, step_calls, device):
+    """Phase 4b: FPS's latency floor. One point a thread (N=FPS_FLOOR_N, S=N)
+    leaves the pick's chain (winner load, reductions, the barrier) and a
+    one-point update; its time per pick, times the step's picks, is the
+    floor a kernel with this chain cannot go under."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    rows = step_calls[0][0].shape[0]
+    pts = torch.randint(0, 16, (rows, FPS_FLOOR_N, 3), generator=gen, device=device).float()
+    start = torch.zeros(rows, dtype=torch.int32, device=device)
+    args = (pts, FPS_FLOOR_N, start)
+    check(torch.equal(ck.fps(*args), ck.fps_plain(*args)), "fps_chain: kernel differs from plain")
+    per_pick_ms = cuda_ms(torch, lambda: ck.fps(*args), 20) / (FPS_FLOOR_N - 1)
+    picks = [a[1] - 1 for a in step_calls]
+    step_per_pick = [cuda_ms(torch, lambda a=a: ck.fps(*a), 20) / (a[1] - 1) for a in step_calls]
+    print(json.dumps({"phase": "fps_chain", "rows": rows, "N": FPS_FLOOR_N, "S": FPS_FLOOR_N,
+                      "per_pick_us": per_pick_ms * 1e3, "step_picks": picks,
+                      "step_floor_ms": per_pick_ms * sum(picks),
+                      "step_sites_per_pick_us": [t * 1e3 for t in step_per_pick]}), flush=True)
+
+
 def compare_kernels(torch, ck, captured):
-    """Phase 4: every serve kernel against its plain version at each call site."""
+    """Phase 4: every serve kernel against its plain version at each call
+    site of the serve step, then at its reference sites. Returns the
+    per-step rows and the rows of the reference sites."""
     from stratanet2_tpu_torch.ops.ballquery import ball_query_grouped
 
     NEG = ck.NEG
-    rows = {}
+    rows, ref_rows = {}, {}
     for name, _src, _rep in SERVE_KERNELS:
         kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
         calls = captured[name]
-        check(len(calls) == 2, f"{name}: expected 2 call sites in a serve step, saw {len(calls)}")
-        agg = new_agg()
+        want_sites = 2 + REFERENCE_SITES.get(name, 0)
+        check(len(calls) == want_sites, f"{name}: expected {want_sites} call sites, saw {len(calls)}")
+        agg, ref_agg = new_agg(), new_agg()
         for site, args in enumerate(calls):
             diff_sel = 0
             lib_ms = None
@@ -295,6 +358,8 @@ def compare_kernels(torch, ck, captured):
                 r, n, _ = xyz.shape
                 nbytes, ops = r * n * 12 + r * 4 + r * s * 4, 10.0 * (s - 1) * r * n
                 shape = f"rows={r} N={n} S={s}"
+                if site >= 2:
+                    shape += f" cloud={FPS_REFERENCE[site - 2][0]}"
             elif name == "sa_fused_eval":
                 q, xyz, cent, cterm, a1, c1, w2, b2, a2, c2, radius, k = args
                 got, want = kernel(*args), plain(*args)
@@ -337,10 +402,13 @@ def compare_kernels(torch, ck, captured):
                 check(torch.equal(lib, gv), "scatter_reduce(amax) disagrees with pixel_max")
                 shape = f"B={b} N={n} P2={n_pix} C={c}"
             check(diff_sel == 0, f"{name} site {site}: {diff_sel} selections differ")
+            reference = site >= 2
             report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
-                        diff_sel, lib_ms, agg)
+                        diff_sel, lib_ms, ref_agg if reference else agg, reference)
         rows[name] = finish_agg(agg)
-    return rows
+        if name in REFERENCE_SITES:
+            ref_rows[name] = finish_agg(ref_agg)
+    return rows, ref_rows
 
 
 def sum_bound(want, abs_sum, depth):
@@ -523,19 +591,25 @@ def compare_train_kernels(torch, ck, captured):
                 shape, nbytes, ops, err = compare_sa_train_site(torch, ck, name, site, args,
                                                                 got, want)
             else:  # pixel_max_bwd
-                amax, g, n = args
+                pix, amax, g = args
                 got, want = kernel(*args), plain(*args)
                 check(torch.equal(got, want), f"pixel_max_bwd site {site}: differs from plain")
                 err = float((got - want).abs().max())
                 b, p2, c = g.shape
+                n = pix.shape[1]
+                outside = (pix < 0) | (pix >= p2)
+                check(not bool(got[outside].any()),
+                      f"pixel_max_bwd site {site}: a point outside the pixels has a gradient")
                 index = amax.clamp_min(0).long()
                 src = torch.where(amax >= 0, g, torch.zeros_like(g))
                 lib_ms = cuda_ms(torch, lambda: torch.zeros((b, n, c), device=g.device)
                                  .scatter_add_(1, index, src), 20)
                 lib = torch.zeros((b, n, c), device=g.device).scatter_add_(1, index, src)
                 check(torch.equal(lib, got), "scatter_add_ disagrees with pixel_max_bwd")
-                nbytes, ops = 8.0 * b * p2 * c + 4.0 * b * n * c, 0.0
-                shape = f"B={b} P2={p2} C={c} N={n} winners={int((amax >= 0).sum())}"
+                nbytes, ops = 4.0 * b * n + 8.0 * b * p2 * c + 4.0 * b * n * c, 0.0
+                shape = (f"B={b} P2={p2} C={c} N={n} winners={int((amax >= 0).sum())} "
+                         f"ids_out_of_range={int(outside.sum())} "
+                         f"empty_pixels={int((amax[..., 0] < 0).sum())}")
             reference = site >= n_step
             report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
                         diff_sel, lib_ms, ref_agg if reference else agg, reference)
@@ -543,6 +617,67 @@ def compare_train_kernels(torch, ck, captured):
         if name in REFERENCE_SITES:
             ref_rows[name] = finish_agg(ref_agg)
     return rows, ref_rows
+
+
+def pixel_max_bwd_reference_call(torch, ck, device, b, n, n_pix):
+    """The synthetic pixel-max backward site: ids drawn over [-n_pix/8,
+    9 n_pix/8) (20% outside the pixels), the points of a band of n_pix/8
+    pixels moved outside too (30% in all, the band left empty), quantised
+    values (ties, lowest index wins), amax from the plain forward and
+    random cotangents."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    pix = torch.randint(-n_pix // 8, n_pix + n_pix // 8, (b, n), generator=gen, device=device,
+                        dtype=torch.int32)
+    pix[(pix >= n_pix // 4) & (pix < n_pix // 4 + n_pix // 8)] = -1
+    vals = torch.randint(0, 8, (b, n, 3), generator=gen, device=device).float() / 8
+    _, amax = ck.pixel_max_plain(pix, vals, n_pix)
+    g = torch.randn((b, n_pix, 3), generator=gen, device=device)
+    return pix, amax, g
+
+
+def launch_path(torch, ck, args):
+    """Phase 11b: host microseconds a call (mean of LAUNCH_REPS, no
+    synchronisation inside) of the two ways to get the current stream, of
+    the device check and the device context a launch no longer enters, and
+    of the parts of a pixel_max_bwd call: its device check, the output's
+    allocation, the C entry alone (ctypes and the kernel launch) and the
+    whole wrapper."""
+    dev = torch.device("cuda", 0)
+    pix, amax, g = args
+    ck.pixel_max_bwd(*args)
+    entry = ck._fns["pixel_max_bwd"]
+    dv = torch.empty((g.shape[0], pix.shape[1], g.shape[2]), device=dev)
+    cargs = (pix.data_ptr(), amax.data_ptr(), g.data_ptr(), dv.data_ptr(),
+             g.shape[0], pix.shape[1], g.shape[1], g.shape[2],
+             torch._C._cuda_getCurrentRawStream(0))
+
+    def swap(d):  # what a launch paid before: a device context around every call
+        with torch.cuda.device(d):
+            pass
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LAUNCH_REPS):
+            fn()
+        us = (time.perf_counter() - t0) / LAUNCH_REPS * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    print(json.dumps({
+        "phase": "launch_path", "reps": LAUNCH_REPS,
+        "current_stream_cuda_stream_us": host_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "raw_stream_us": host_us(lambda: torch._C._cuda_getCurrentRawStream(0)),
+        "current_device_us": host_us(torch.cuda.current_device),
+        "device_context_us": host_us(lambda: swap(dev)),
+        "pixel_max_bwd_on_card_us": host_us(lambda: ck._on_card("pixel_max_bwd", *args)),
+        "torch_empty_dv_us": host_us(lambda: torch.empty(dv.shape, dtype=torch.float32,
+                                                          device=dev)),
+        "new_empty_dv_us": host_us(lambda: g.new_empty(dv.shape)),
+        "pixel_max_bwd_c_entry_us": host_us(lambda: entry(*cargs)),
+        "pixel_max_bwd_call_us": host_us(lambda: ck.pixel_max_bwd(*args)),
+    }), flush=True)
 
 
 def profile_step(torch, step, args, step_ms, label, launches):
@@ -608,7 +743,8 @@ def check_launches(launches, want, path):
 
 
 def serve_phases(torch, ck, cfg, device, card):
-    """Phases 3-8. Returns the serve kernels' rows and the counted launches."""
+    """Phases 3-8. Returns the serve kernels' rows, the rows of their
+    reference sites and the counted launches."""
     from stratanet2_tpu_torch.inference.predict import make_predict_step
     from stratanet2_tpu_torch.utils.synthetic import random_model, serve_batch
 
@@ -622,9 +758,12 @@ def serve_phases(torch, ck, cfg, device, card):
     captured = capture_calls(ck, [name for name, _, _ in SERVE_KERNELS],
                              lambda: step(model, cloud, xyz))
     torch.cuda.synchronize()
+    step_fps = list(captured["fps"])
+    captured["fps"] += fps_reference_calls(torch, xyz, device)
     with torch.inference_mode():
-        rows = compare_kernels(torch, ck, captured)
-    del captured
+        rows, ref_rows = compare_kernels(torch, ck, captured)
+        fps_chain(torch, ck, step_fps, device)
+    del captured, step_fps
 
     # phase 5: the counted serve step
     ck.reset_launches()
@@ -666,7 +805,7 @@ def serve_phases(torch, ck, cfg, device, card):
                   float((p_one.cpu()[0] - p_gpu[0]).abs().max()))
     check(torch.equal(torch.isnan(r_one.cpu()[0]), torch.isnan(r_gpu[0])) and one_err <= CPU_ATOL,
           f"B=1 step differs from its row of the B=2 step by {one_err}")
-    return rows, launches
+    return rows, ref_rows, launches
 
 
 def compare_train_with_cpu(torch, cfg, model, kde, cloud, xyz, gt):
@@ -808,13 +947,17 @@ def train_phases(torch, ck, cfg, device, card):
     # phase 10: fused vs unfused SA stages with nonzero shifts; its SA train
     # passes and the unfused SA2's gather backward (the knn_scatter site
     # that left the train step) are the reference sites
-    ref = capture_calls(ck, list(REFERENCE_SITES),
+    ref = capture_calls(ck, list(PHASE10_SITES),
                         lambda: compare_fused_with_unfused(torch, cfg, model, cloud, xyz))
     for name, calls in ref.items():
         captured[name] += calls
+    step_bwd = captured["pixel_max_bwd"][0]
+    captured["pixel_max_bwd"].append(
+        pixel_max_bwd_reference_call(torch, ck, device, b, n, cfg.model.diam_pix ** 2))
     with torch.no_grad():
         rows, ref_rows = compare_train_kernels(torch, ck, captured)
-    del captured, ref
+        launch_path(torch, ck, step_bwd)
+    del captured, ref, step_bwd
 
     # phase 12: the counted train step
     m, opt, sched = fresh()
@@ -872,8 +1015,9 @@ def main() -> int:
                       "libraries": sorted(p.name for p in libs.values())}), flush=True)
 
     cfg = default_config()
-    serve_rows, serve_launches = serve_phases(torch, ck, cfg, device, card)
+    serve_rows, serve_ref_rows, serve_launches = serve_phases(torch, ck, cfg, device, card)
     train_rows, ref_rows, train_launches = train_phases(torch, ck, cfg, device, card)
+    ref_rows.update(serve_ref_rows)
 
     print(json.dumps({"reference_sites": [
         {"name": name, "sites": sites, **ref_rows[name]} for name, sites in REFERENCE_SITES.items()

@@ -3,9 +3,10 @@
 // Replaces: stratanet2_tpu/ops/pallas_kernels.py::_pixel_max_kernel
 // (pallas_call in _pixel_max_fwd_raw, wrapped by pixel_max_pallas) and, in
 // pixel_max_bwd_launch at the end of this file, _pixel_max_bwd_kernel
-// (pallas_call in _pixel_max_bwd). Semantics are the TPU kernel's: per (cloud, pixel, channel) the max
-// value and the lowest point index attaining it; -3.4e38 / -1 where no point
-// falls; ids outside [0, P^2) match no pixel.
+// (pallas_call in _pixel_max_bwd). Semantics of the forward are the TPU
+// kernel's: per (cloud, pixel, channel) the max value and the lowest point
+// index attaining it; -3.4e38 / -1 where no point falls; ids outside
+// [0, P^2) match no pixel.
 //
 // Bound on the H100: bytes, and few of them. A serve-step call reads
 // 20 x 10000 x (4 + 12) B and writes 20 x 400 x 3 x 8 B (~3.2 MB + 0.2 MB,
@@ -98,34 +99,69 @@ extern "C" int pixel_max_launch(const int* pix, const float* vals, unsigned long
   return cudaGetLastError();
 }
 
-// Backward of the per-pixel max: dv[b, amax[b, p, ch], ch] = g[b, p, ch]
-// wherever amax >= 0, zero elsewhere. Each point lies in at most one pixel,
-// so per channel no two pixels share a winner: plain stores, no atomics,
-// and the result is deterministic. The TPU kernel compares every pixel with
-// every point of a chunk (a dense (P^2, chunk) one-hot); here each pixel
-// stores straight to its winner.
+// Backward of the per-pixel max, one gather pass: replaces
+// stratanet2_tpu/ops/pallas_kernels.py::_pixel_max_bwd_kernel (pallas_call in
+// _pixel_max_bwd). dv[b, i, ch] = g[b, p, ch] where p = pix[b, i] lies in
+// [0, P^2) and amax[b, p, ch] == i, else 0. That is the scatter of each
+// pixel's cotangent to its winner: a point lies in exactly one pixel (or
+// none, when its id is out of range), so "point i is the winner of a pixel"
+// is "amax[pix[i]] == i", and empty pixels (amax = -1) have no point.
 //
-// Bound on the H100: bytes. It reads amax and g (B, P^2, C) and writes dv
-// (B, N, C) once (PROD train step: 2 x 96 KB in, 2.4 MB out, under 1 us at
-// 3.35 TB/s); the memset of dv is most of the writing.
-__global__ void pixel_max_bwd_kernel(const int* __restrict__ amax, const float* __restrict__ g,
-                                     float* __restrict__ dv, int n, int p2, int c, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int a = amax[i];
-  if (a < 0 || a >= n) return;  // empty pixel
-  const int b = i / (p2 * c);
-  const int ch = i % c;
-  dv[(static_cast<size_t>(b) * n + a) * c + ch] = g[i];
+// Bound on the H100: bytes. It reads pix (B, N) and amax, g (B, P^2, C) and
+// writes dv (B, N, C) once (PROD train step: 0.8 MB + 2 x 96 KB in, 2.4 MB
+// out, about 1 us at 3.35 TB/s).
+//
+// Design: the TPU kernel compares every pixel with every point of a chunk (a
+// dense (P^2, chunk) one-hot). Here one thread per element of dv: a block is
+// (C, 256 / C) threads, x the channel and y the point, so consecutive
+// threads write consecutive elements (coalesced) and no thread divides by C.
+// Each thread takes kBwdUnroll points of its cloud (blockIdx.y) and issues
+// their loads before any store: the pixel ids, then each pixel's winner and
+// cotangent together (g is read whether or not the point won; amax and g are
+// small and stay in L2). Every element of dv is written exactly once, so
+// there is no memset, no atomic and no scatter, and the launch entry makes
+// one kernel launch.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdUnroll = 4;
+
+__global__ void __launch_bounds__(kBwdThreads)
+pixel_max_bwd_kernel(const int* __restrict__ pix, const int* __restrict__ amax,
+                     const float* __restrict__ g, float* __restrict__ dv, int n, int p2, int c) {
+  const int ch = threadIdx.x;
+  const size_t b = blockIdx.y;
+  const int first = blockIdx.x * blockDim.y * kBwdUnroll + threadIdx.y;
+  const int* pb = pix + b * n;
+  const int* ab = amax + b * p2 * c;
+  const float* gb = g + b * p2 * c;
+  float* db = dv + b * n * c;
+  int p[kBwdUnroll], a[kBwdUnroll];
+  float v[kBwdUnroll];
+#pragma unroll
+  for (int u = 0; u < kBwdUnroll; ++u) {
+    const int i = first + u * blockDim.y;
+    p[u] = i < n ? pb[i] : -1;
+  }
+#pragma unroll
+  for (int u = 0; u < kBwdUnroll; ++u) {
+    const bool in = p[u] >= 0 && p[u] < p2;
+    a[u] = in ? ab[p[u] * c + ch] : -1;
+    v[u] = in ? gb[p[u] * c + ch] : 0.0f;
+  }
+#pragma unroll
+  for (int u = 0; u < kBwdUnroll; ++u) {
+    const int i = first + u * blockDim.y;
+    if (i < n) db[static_cast<size_t>(i) * c + ch] = a[u] == i ? v[u] : 0.0f;
+  }
 }
 
-// amax (b, p2, c) i32, g (b, p2, c) f32 -> dv (b, n, c) f32, zeroed here first.
-extern "C" int pixel_max_bwd_launch(const int* amax, const float* g, float* dv, int b, int n,
-                                    int p2, int c, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(dv, 0, sizeof(float) * b * static_cast<size_t>(n) * c, st);
-  if (err != cudaSuccess) return err;
-  const int total = b * p2 * c;
-  pixel_max_bwd_kernel<<<(total + 255) / 256, 256, 0, st>>>(amax, g, dv, n, p2, c, total);
+// pix (b, n) i32, amax (b, p2, c) i32 (pixel_max's argmax for these ids),
+// g (b, p2, c) f32 -> dv (b, n, c) f32; 1 <= c <= 256, b <= 65535.
+extern "C" int pixel_max_bwd_launch(const int* pix, const int* amax, const float* g, float* dv,
+                                    int b, int n, int p2, int c, void* stream) {
+  const dim3 block(c, kBwdThreads / c);
+  const int per_block = block.y * kBwdUnroll;
+  const dim3 grid((n + per_block - 1) / per_block, b);
+  pixel_max_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(pix, amax, g, dv,
+                                                                               n, p2, c);
   return cudaGetLastError();
 }

@@ -42,6 +42,7 @@ NEG = -3.4e38  # the empty-pixel / masked-edge value of the Pallas kernels
 _KNN_EPS = 1e-16
 _KNN_CHUNK = 512  # targets per (B, chunk, S) distance tile of the plain kNN
 _SMEM_MAX = 227 * 1024  # opt-in dynamic shared memory of one H100 block
+FPS_MAX_N = 16 * 1024  # csrc/fps.cu: at most 16 points for each of a block's 1024 threads
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRIES = {  # wrapper: (library = csrc/<library>.cu, C entry point, its arguments)
@@ -64,7 +65,7 @@ _ENTRIES = {  # wrapper: (library = csrc/<library>.cu, C entry point, its argume
         "knn_scatter", "knn_scatter_launch", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP]
     ),
     "pixel_max_bwd": (
-        "pixel_max", "pixel_max_bwd_launch", [_VP, _VP, _VP, _I, _I, _I, _I, _VP]
+        "pixel_max", "pixel_max_bwd_launch", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]
     ),
     "sa_train_stats": (
         "sa_train", "sa_train_stats_launch", [_VP] * 6 + [_I] * 6 + [_VP]
@@ -84,25 +85,38 @@ _fns: Dict[str, ctypes._CFuncPtr] = {}
 LAUNCHES: Dict[str, int] = dict.fromkeys(_ENTRIES, 0)
 
 
+def _bind(name: str) -> ctypes._CFuncPtr:
+    """Kernel `name`'s C entry point, its library built and loaded at first use."""
+    library, symbol, argtypes = _ENTRIES[name]
+    lib = _build.load(library)
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    _fns[name] = fn
+    return fn
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
     """Call kernel `name`'s C entry point on `device`'s current stream.
     Tensors pass as their data pointers; the entry returns
-    cudaGetLastError() after its launches, and a non-zero code raises."""
-    library, symbol, argtypes = _ENTRIES[name]
+    cudaGetLastError() after its launches, and a non-zero code raises.
+    The stream comes from PyTorch's raw getter (what Triton's launcher
+    calls) and the device is switched only when `device` is not current:
+    the host cost of a launch is most of a short kernel's time."""
     fn = _fns.get(name)
     if fn is None:
-        lib = _build.load(library)
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        lib.error_string.argtypes = [ctypes.c_int]
-        lib.error_string.restype = ctypes.c_char_p
-        _fns[name] = fn
+        fn = _bind(name)
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]  # None: NULL
-    with torch.cuda.device(device):
-        rc = fn(*cargs, torch.cuda.current_stream(device).cuda_stream)
+    index = device.index
+    if index == torch.cuda.current_device():
+        rc = fn(*cargs, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*cargs, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        msg = _build.load(library).error_string(rc).decode()
+        msg = _build.load(_ENTRIES[name][0]).error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
     LAUNCHES[name] += 1
 
@@ -111,11 +125,11 @@ def _on_card(name: str, *tensors: Optional[torch.Tensor]) -> bool:
     """True for CUDA tensors (all contiguous, one device), False for CPU
     tensors; raises on anything else. None entries (absent optional
     inputs) are skipped."""
-    tensors = tuple(t for t in tensors if t is not None)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: tensors on several devices {devices}")
-    dev = devices.pop()
+    tensors = [t for t in tensors if t is not None]
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on several devices ({dev}, {t.device})")
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
@@ -175,7 +189,7 @@ def fps(xyz: torch.Tensor, n_samples: int, start: torch.Tensor) -> torch.Tensor:
     if not _on_card(name, xyz, start):
         return fps_plain(xyz, n_samples, start)
     r, n, _ = xyz.shape
-    _expect(16 * n <= _SMEM_MAX, name, f"N={n} exceeds the block's shared memory")
+    _expect(n <= FPS_MAX_N, name, f"N={n} exceeds the kernel's limit of {FPS_MAX_N} points a row")
     out = torch.empty((r, n_samples), dtype=torch.int32, device=xyz.device)
     _launch(name, xyz.device, xyz, start, out, r, n, n_samples)
     return out
@@ -351,10 +365,13 @@ def pixel_max(pix: torch.Tensor, vals: torch.Tensor, n_pix: int):
     return vmax, amax
 
 
-def pixel_max_bwd_plain(amax: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
-    """dv (B, n, C): each pixel's cotangent stored at its winning point,
-    zero elsewhere (an indexed store; winners are unique per channel)."""
+def pixel_max_bwd_plain(pix: torch.Tensor, amax: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dv (B, N, C): each pixel's cotangent stored at its winning point,
+    zero elsewhere (an indexed store; winners are unique per channel). It
+    takes only N from pix, so it is an independent check of the kernel's
+    gather by pixel id."""
     b, _, c = g.shape
+    n = pix.shape[1]
     dv = torch.zeros((b, n, c), dtype=g.dtype, device=g.device)
     hit = (amax >= 0) & (amax < n)
     bi, _, ci = torch.nonzero(hit, as_tuple=True)
@@ -362,20 +379,27 @@ def pixel_max_bwd_plain(amax: torch.Tensor, g: torch.Tensor, n: int) -> torch.Te
     return dv
 
 
-def pixel_max_bwd(amax: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
-    """Backward of `pixel_max` in its values: amax (B, P, C) int32 winners
-    (-1 where empty), g (B, P, C) float32 cotangents of vmax -> dv (B, n, C)
-    float32 with g[b, p, ch] at point amax[b, p, ch] of channel ch."""
+def pixel_max_bwd(pix: torch.Tensor, amax: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Backward of `pixel_max` in its values: pix (B, N) int32 pixel ids and
+    amax (B, P, C) int32 winners (-1 where empty), both of the forward call,
+    g (B, P, C) float32 cotangents of vmax -> dv (B, N, C) float32 with
+    g[b, p, ch] at point amax[b, p, ch] of channel ch. The kernel gathers:
+    dv[b, i, ch] = g[b, p, ch] where p = pix[b, i] is in range and
+    amax[b, p, ch] == i, which is the same because a point lies in one pixel."""
     name = "pixel_max_bwd"
     b, p, c = g.shape
+    n = pix.shape[1] if pix.dim() == 2 else 0
+    _expect(pix.shape == (b, n) and pix.dtype == torch.int32, name,
+            "pix must be (B, N) int32")
     _expect(amax.shape == (b, p, c) and amax.dtype == torch.int32, name,
             "amax must be (B, P, C) int32, the shape of g")
     _expect(g.dtype == torch.float32, name, "g must be float32")
     _expect(b >= 1 and p >= 1 and c >= 1 and n >= 1, name, "empty input")
-    if not _on_card(name, amax, g):
-        return pixel_max_bwd_plain(amax, g, n)
-    dv = torch.empty((b, n, c), dtype=torch.float32, device=g.device)
-    _launch(name, g.device, amax, g, dv, b, n, p, c)
+    if not _on_card(name, pix, amax, g):
+        return pixel_max_bwd_plain(pix, amax, g)
+    _expect(b < 65536 and c <= 256, name, "the kernel takes at most 65535 clouds and 256 channels")
+    dv = g.new_empty((b, n, c))  # cheaper on the host than torch.empty(..., device=)
+    _launch(name, g.device, pix, amax, g, dv, b, n, p, c)
     return dv
 
 

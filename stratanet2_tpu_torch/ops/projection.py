@@ -48,15 +48,14 @@ class _PixelMax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pix, vals, n_pix):
         vmax, amax = cuda_kernels.pixel_max(pix, vals, n_pix)
-        ctx.save_for_backward(amax)
-        ctx.n = vals.shape[1]
+        ctx.save_for_backward(pix, amax)
         ctx.mark_non_differentiable(amax)
         return vmax, amax
 
     @staticmethod
     def backward(ctx, g_vmax, _g_amax):
-        (amax,) = ctx.saved_tensors
-        return None, cuda_kernels.pixel_max_bwd(amax, g_vmax.contiguous(), ctx.n), None
+        pix, amax = ctx.saved_tensors
+        return None, cuda_kernels.pixel_max_bwd(pix, amax, g_vmax.contiguous()), None
 
 
 def _low_med_high(cov: torch.Tensor) -> torch.Tensor:

@@ -133,7 +133,44 @@ class TestDistanceRounding:
         assert got[-1] == np.float32(1 + 2.0 ** -23)
 
 
+def _tie_cloud(rng, kind, b, n):
+    """Clouds where many picks meet exactly equal running minima: points on
+    an integer grid (equal distances everywhere, few distinct positions) or
+    every point repeated four times (a repeat's minimum is 0 once its twin
+    is picked, and with S = N every pick after the distinct points is a
+    tie among zeros)."""
+    if kind == "grid":
+        return rng.integers(0, 6, (b, n, 3)).astype(np.float32)
+    base = rng.uniform(-3, 3, (b, -(-n // 4), 3)).astype(np.float32)
+    return np.repeat(base, 4, axis=1)[:, :n].copy()
+
+
 class TestFPS:
+    @pytest.mark.parametrize("kind", ["grid", "dup"])
+    @pytest.mark.parametrize("n,s", [(77, 1), (77, 77), (1100, 1100)])
+    def test_plain_matches_fps_lax_on_ties(self, rng, kind, n, s):
+        """Index for index against `_fps_lax` on tie-heavy clouds: the first
+        maximum wins every tie. N is a multiple of neither 32 nor 1024 (the
+        kernel's warp and block); S=1 is the start alone, S=N every point."""
+        xyz = _tie_cloud(rng, kind, 2, n)
+        start = np.array([0, n - 1], np.int32)
+        want = jax.vmap(lambda p, st: _fps_lax(p, s, st))(jnp.asarray(xyz), jnp.asarray(start))
+        got = ck.fps(T(xyz), s, T(start))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        if s == n:  # the picks outran the distinct positions: ties among zero minima
+            assert len(np.unique(got.numpy()[0])) < n
+
+    @pytest.mark.parametrize("kind", ["grid", "dup"])
+    def test_partitioned_ties_match_jax(self, rng, kind):
+        """The partitioned path (N=2048, parts=2, S=N) on tie-heavy clouds,
+        through `farthest_point_sampling` on both sides."""
+        xyz = _tie_cloud(rng, kind, 2, 2048)
+        start = np.array([5, 1500], np.int32)
+        want = jax_fps(jnp.asarray(xyz), 2048, start_idx=jnp.asarray(start),
+                       use_pallas=False, parts=2)
+        got = farthest_point_sampling(T(xyz), 2048, start_idx=T(start), parts=2)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
     def test_plain_matches_fps_lax(self, rng):
         xyz = _cloud(rng, 2, 256)
         start = np.array([0, 17], np.int32)
@@ -353,8 +390,31 @@ class TestBackward:
         vmax, amax = tproj._PixelMax.apply(T(pix), vt, 400)
         vmax.backward(T(g))
         np.testing.assert_array_equal(vt.grad.numpy(), want)
-        np.testing.assert_array_equal(ck.pixel_max_bwd(amax, T(g), 700).numpy(), want)
+        np.testing.assert_array_equal(ck.pixel_max_bwd(T(pix), amax, T(g)).numpy(), want)
         assert (amax.numpy() == -1).any() and (want == 0).any()
+
+    def test_pixel_max_backward_zeroes_out_of_range_rows(self, rng):
+        """Two thirds of the ids outside [0, 400) and a band of empty pixels: dv
+        equals JAX's VJP, every row of an out-of-range point is zero, and
+        the kernel's gather, dv[i] = g[pix[i]] where amax[pix[i]] == i
+        (numpy here), equals the indexed store of the plain version."""
+        pix = rng.integers(-400, 800, (2, 900)).astype(np.int32)
+        pix[(pix >= 100) & (pix < 150)] = -3  # pixels 100..149 stay empty
+        vals = (rng.integers(0, 4, (2, 900, 3)) / 4).astype(np.float32)
+        g = rng.normal(size=(2, 400, 3)).astype(np.float32)
+        _, vjp = jax.vjp(lambda v: pixel_max_pallas(jnp.asarray(pix), v, 400)[0], jnp.asarray(vals))
+        want = np.asarray(vjp(jnp.asarray(g))[0])
+        _, amax = ck.pixel_max(T(pix), T(vals), 400)
+        got = ck.pixel_max_bwd(T(pix), amax, T(g)).numpy()
+        np.testing.assert_array_equal(got, want)
+        out = (pix < 0) | (pix >= 400)
+        assert out.mean() > 0.6 and (got[out] == 0).all()
+        assert (amax.numpy()[:, 100:150] == -1).all()
+        a = amax.numpy()
+        bi = np.arange(2)[:, None]
+        pc = np.clip(pix, 0, 399)
+        win = ~out[..., None] & (a[bi, pc] == np.arange(900)[None, :, None])
+        np.testing.assert_array_equal(np.where(win, g[bi, pc], 0.0), got)
 
     def test_plotwise_grad_matches_jax(self, rng):
         """The gradient of the plot coverages in the pointwise coverages
@@ -435,8 +495,17 @@ class TestWrappers:
         kidx = T(rng.integers(0, 64, (2, 3, 10)).astype(np.int32))
         w, g = torch.rand(2, 3, 10), T(x[:, :10])
         assert torch.equal(ck.knn_scatter(kidx, w, g, 64), ck.knn_scatter_plain(kidx, w, g, 64))
-        assert torch.equal(ck.pixel_max_bwd(a, v, 64), ck.pixel_max_bwd_plain(a, v, 64))
+        assert torch.equal(ck.pixel_max_bwd(T(pix), a, v), ck.pixel_max_bwd_plain(T(pix), a, v))
         assert ck.launch_counts() == dict.fromkeys(ck.LAUNCHES, 0)
+
+    def test_mixed_devices_raise(self, rng):
+        """Tensors on two devices, or on a device that is neither the CPU
+        nor CUDA, raise before anything runs."""
+        xyz = T(_cloud(rng, 2, 64))
+        with pytest.raises(ValueError, match="several devices"):
+            ck.fps(xyz, 8, torch.zeros(2, dtype=torch.int32, device="meta"))
+        with pytest.raises(ValueError, match="unsupported device"):
+            ck.fps(xyz.to("meta"), 8, torch.zeros(2, dtype=torch.int32, device="meta"))
 
     @pytest.mark.parametrize("bad", ["dtype", "shape", "start"])
     def test_bad_inputs_raise(self, rng, bad):
