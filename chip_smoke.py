@@ -9,7 +9,8 @@ seed) and checks their outputs.
     python3 chip_smoke.py            # one card; exits non-zero on any failure
 
 Phases, in order, each failing loudly:
-  1. the card's name and power limit (nvidia-smi);
+  1. the card's name and power limit (nvidia-smi), then its SM clock and
+     maximum SM clock (`"phase": "card"`);
   2. build: one nvcc per kernel source, started together;
   Serve step (fps, sa_fused_eval, knn_interpolate, pixel_max):
   3. capture: one serve step records every kernel call's inputs;
@@ -20,7 +21,11 @@ Phases, in order, each failing loudly:
      the same function, that call; then FPS's reference sites
      (FPS_REFERENCE: tie-heavy integer-grid clouds at the two step shapes,
      the serve batch unpartitioned at N=10000, and a grid cloud at the
-     kernel's largest N), each with 0 differing indices;
+     kernel's largest N), each with 0 differing indices, and the SA
+     kernel's selection reference sites (SEL_REFERENCE: tie-heavy grid
+     clouds at the SA1 and SA2 shapes, a ragged site with an empty last
+     group, a site at the kernel's largest group), each with 0 differing
+     picks and outputs within SA_ATOL;
   4b. `"phase": "fps_chain"`: FPS's latency floor, the time of a pick with
      one point a thread (N=1024), against the per-pick time at the step
      sites;
@@ -48,8 +53,9 @@ Phases, in order, each failing loudly:
      passes and the unfused SA2's gather backward (a knn_scatter site) are
      captured as reference sites;
   11. per train kernel and call site, the train step's, then phase 10's,
-     then the synthetic pixel-max backward site (out-of-range ids, empty
-     pixels):
+     then ball_query's SEL_REFERENCE sites (the clouds of phase 4's, drawn
+     anew; the largest group is the query's own), then the synthetic
+     pixel-max backward site (out-of-range ids, empty pixels):
      kernel vs plain (ball_query and pixel_max_bwd exactly; knn_scatter,
      whose atomics add in no fixed order, within the float32 error bound of
      a sum in any order; the SA train passes' winners and winning values
@@ -69,10 +75,17 @@ Phases, in order, each failing loudly:
   14. profile of the train step, as phase 7;
   15. a B=2 train step on the card against the port on the CPU: loss parts,
      every gradient, BN state and params after the step (tolerances below);
-  16. the `{"reference_sites": [...]}` line (phase 10's sites and the
-     synthetic FPS and pixel-max backward sites, apart from the per-step
-     rows), the `{"kernels": [...]}` line (all eleven) and the final
-     `{"ok": true, ...}` line.
+  16. `"phase": "selection_floor"`, for sa_fused_eval (serve step) and
+     ball_query (train step): the SASS instructions a centroid-point pair of
+     the selection loop (cuobjdump of the built library), the step's pairs
+     and the issue floor, pairs x instructions / (132 SMs x 128 lanes x the
+     maximum SM clock of phase 1), and each kernel's registers, stack and
+     spills (cuobjdump -res-usage), and the SM clocks sampled while the
+     ball query runs back to back for a second;
+  17. the `{"reference_sites": [...]}` line (phase 10's sites and the
+     synthetic FPS, selection and pixel-max backward sites, apart from the
+     per-step rows), the `{"kernels": [...]}` line (all eleven) and the
+     final `{"ok": true, ...}` line.
 
 float32 matmuls run in full float32: TF32 is switched off for cuBLAS and
 cuDNN below, so no product (and no distance) passes through TF32.
@@ -86,8 +99,11 @@ epilogue runs only for picks within the radius) this run's picks are
 counted (and for the SA train passes, this run's valid edges).
 `ms`, `plain_ms`, `bound_ms` and `library_ms` of a kernel are per step: the
 sum over its call sites in the serve step (the four serve kernels) or in
-the train step (the seven train kernels); phase 10's sites are summed on
-the `reference_sites` line alone.
+the train step (the seven train kernels); the reference sites are summed on
+the `reference_sites` line alone. The operations bound counts a fused
+multiply-add as one operation against a rate that counts it as two, so for
+the selection kernels it sits below what the card can issue: phase 16
+gives their issue floor beside it.
 """
 
 from __future__ import annotations
@@ -148,7 +164,21 @@ FPS_REFERENCE = (("grid", 40, 5000, 1250), ("grid", 20, 2500, 625),
 # pixels)
 PHASE10_SITES = {"knn_scatter": 1, "sa_train_stats": 1, "sa_train_main": 2,
                  "sa_train_bwd1": 1, "sa_train_bwd2": 2}
-REFERENCE_SITES = {"fps": len(FPS_REFERENCE), "pixel_max_bwd": 1, **PHASE10_SITES}
+# The grouped selection's reference sites (phase 4 for sa_fused_eval, phase
+# 11 for ball_query): (cloud, B, N, C, K, radius). "grid": integer
+# coordinates in [0, 16) with the centroids drawn from the points, so every
+# d2 is an exact integer, most picks break first-index ties among duplicated
+# points and many points lie at d2 = 2 or 8, one float32 ulp outside the
+# PROD radii sqrt(2) and sqrt(8) (r^2 rounds to 1.9999999 and 7.9999995): the
+# SA1 and SA2 shapes; a ragged site (N=1030, K=48: g=22, group 46 holds 18
+# points and group 47 none; C=300 leaves a partial tile) at radius 2, where
+# r^2 = 4 exactly and the points at d2 = 4 are inside; and a site at the
+# kernels' largest group ("max_g", B=2, K=4: cuda_kernels.BQ_MAX_G for the
+# query, sa_fused_eval_max_g for the SA kernel's instances)
+SEL_REFERENCE = (("grid", 20, 10000, 2500, 32, 2 ** 0.5), ("grid", 20, 2500, 625, 64, 8 ** 0.5),
+                 ("grid", 3, 1030, 300, 48, 2.0), ("max_g", 2, 0, 300, 4, 2.0))
+REFERENCE_SITES = {"fps": len(FPS_REFERENCE), "sa_fused_eval": len(SEL_REFERENCE),
+                   "ball_query": len(SEL_REFERENCE), "pixel_max_bwd": 1, **PHASE10_SITES}
 FPS_FLOOR_N = 1024  # one point for each thread of the FPS block
 SHIFT_STD = 0.1  # phase 10's BN running means (the shifts), as the CPU stage tests draw them
 SA_ATOL = 1e-4  # layer-2 dot: FMA contraction and summation order differ
@@ -289,11 +319,13 @@ def report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
 
 def new_agg():
     return dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, max_abs_err=0.0,
-                bytes=0.0, ops=0.0)
+                bytes=0.0, ops=0.0, pairs=0.0)
 
 
 def finish_agg(agg):
     agg["bound_ms"], agg["bound_by"] = bound_ms(agg.pop("bytes"), agg.pop("ops"))
+    if not agg["pairs"]:  # only the grouped selection counts its pairs
+        del agg["pairs"]
     return agg
 
 
@@ -311,6 +343,140 @@ def fps_reference_calls(torch, xyz, device):
         start = torch.randint(0, n, (rows,), generator=gen, device=device, dtype=torch.int32)
         calls.append((pts, s, start))
     return calls
+
+
+def selection_reference_calls(torch, ck, device):
+    """The arguments of the grouped selection's reference sites
+    (SEL_REFERENCE), drawn from a seed: ball_query's (centroids, points,
+    radius, k) and sa_fused_eval's (q, xyz, centroids, cterm, a1, c1, w2, b2,
+    a2, c2, radius, k). The SA kernel runs its SA1 instance (16 -> 16, two
+    layers) at K=32 and at the max_g site, its SA2 instance (32, one layer)
+    elsewhere; its picks are read back through the SA2 instance
+    (`sa_probe_picks`). Centroids are points of the cloud."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    def cloud(kind, b, n):
+        if kind == "grid":
+            return torch.randint(0, 16, (b, n, 3), generator=gen, device=device).float()
+        return torch.cat([rand(b, n, 2) * 20 - 10, rand(b, n, 1) * 3], -1)
+
+    bq, sa = [], []
+    for kind, b, n, c, k, radius in SEL_REFERENCE:
+        two = k == 32 or kind == "max_g"
+        ch = 16 if two else 32
+        n_bq, n_sa = (ck.BQ_MAX_G * k, ck.sa_fused_eval_max_g(ch, ch, two, k) * k) \
+            if kind == "max_g" else (n, n)
+        for n_site, calls in ((n_bq, bq), (n_sa, sa)):
+            pts = cloud(kind, b, n_site)
+            pick = torch.randperm(n_site, generator=gen, device=device)[:c]
+            cent = pts[:, pick].contiguous()
+            if calls is bq:
+                calls.append((cent, pts, radius, k))
+                continue
+            layer2 = ((torch.randn((ch, ch), generator=gen, device=device) * 0.25,
+                       rand(ch) - 0.5, rand(ch) + 0.5, rand(ch) - 0.5) if two else (None,) * 4)
+            calls.append((torch.randn((b, n_site, ch), generator=gen, device=device), pts, cent,
+                          torch.randn((b, c, ch), generator=gen, device=device), rand(ch) + 0.5,
+                          rand(ch) - 0.5, *layer2, radius, k))
+    return bq, sa
+
+
+def sass_per_pair(sass: str, r: int):
+    """SASS instructions a centroid-point pair in the selection loop of each
+    kernel in `sass` (cuobjdump -sass of a library): the innermost loop (the
+    shortest range closed by a backward branch) that holds both a 128-bit
+    shared-memory load (one staged point) and a float compare. Each point
+    feeds `r` centroids, so its length over (points x r) is per pair."""
+    import re
+    from collections import Counter
+
+    found, func, ins = {}, None, []
+
+    def close():
+        best = None
+        for i, (addr, text) in enumerate(ins):
+            m = re.search(r"BRA (0x[0-9a-f]+)", text)
+            if not m or int(m.group(1), 16) >= addr:
+                continue
+            body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+            points = sum("LDS.128" in t for t in body)
+            if points and any("FSETP" in t for t in body) and (best is None or len(body) < best[0]):
+                best = (len(body), points, body)
+        if func and best:
+            ops = Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0] for t in best[2])
+            found[func] = {"instructions": best[0], "points": best[1],
+                           "per_pair": best[0] / (best[1] * r), "opcodes": dict(ops.most_common())}
+
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            close()
+            func, ins = m.group(1), []
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2).strip()))
+    close()
+    return found
+
+
+def sm_clock_under_load(torch, ck, device):
+    """SM clocks (MHz) nvidia-smi samples every 100 ms while the ball query
+    runs back to back for a second at the SA1 shape of the step."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    pts = torch.rand((20, 10000, 3), generator=gen, device=device) * 20 - 10
+    cent = pts[:, :2500].contiguous()
+    for _ in range(20):
+        ck.ball_query(cent, pts, 2 ** 0.5, 32)
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--id=0", "--query-gpu=clocks.sm",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 1.0:
+        for _ in range(50):
+            ck.ball_query(cent, pts, 2 ** 0.5, 32)
+        torch.cuda.synchronize()
+    smi.terminate()
+    out = smi.communicate(timeout=30)[0]
+    return [float(v) for v in out.split()]
+
+
+def selection_floor(torch, ck, libs, clock_mhz, rows):
+    """The issue floor of the two kernels that run the grouped selection:
+    the pairs of a step (serve for sa_fused_eval, train for ball_query) times
+    the SASS instructions a pair of the selection loop, over 132 SMs x 128
+    lanes x the card's maximum SM clock (one instruction a lane a cycle).
+    Also each kernel's registers, stack and spills (cuobjdump -res-usage)."""
+    from pathlib import Path
+
+    from stratanet2_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    load_mhz = sm_clock_under_load(torch, ck, torch.device("cuda", 0))
+    for name in ("sa_fused_eval", "ball_query"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(libs[name])], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        loops = sass_per_pair(sass, ck.SEL_TILE // 32)
+        check(len(loops) > 0, f"{name}: no selection loop found in the SASS")
+        per_pair = max(v["per_pair"] for v in loops.values())
+        pairs = rows[name]["pairs"]
+        usage = subprocess.run([str(cuobjdump), "-res-usage", str(libs[name])], capture_output=True,
+                               text=True, check=True, timeout=120).stdout
+        res, func = {}, None
+        for line in usage.splitlines():  # "Function <name>:" then "REG:.. STACK:.. .."
+            if line.strip().startswith("Function "):
+                func = line.strip()[len("Function "):].rstrip(":")
+            elif "REG:" in line and func:
+                res[func] = line.strip()
+        print(json.dumps({"phase": "selection_floor", "kernel": name, "sass_loops": loops,
+                          "resource_usage": res,
+                          "pairs_per_step": pairs, "sm_clock_max_mhz": clock_mhz,
+                          "sm_clock_under_load_mhz": load_mhz,
+                          "issue_floor_ms": pairs * per_pair / (132 * 128 * clock_mhz * 1e6) * 1e3,
+                          "ms": rows[name]["ms"], "bound_ms": rows[name]["bound_ms"]}), flush=True)
 
 
 def fps_chain(torch, ck, step_calls, device):
@@ -375,6 +541,9 @@ def compare_kernels(torch, ck, captured):
                 nbytes = 4 * (b * n * (ch1 + 3) + b * c * (3 + ch1) + b * c * ch2)
                 ops = 10.0 * b * c * n + valid * edge_ops
                 shape = f"B={b} N={n} C={c} K={k} C1={ch1} C2={ch2} valid_picks={int(valid)}"
+                if site >= 2:
+                    shape += f" cloud={SEL_REFERENCE[site - 2][0]}"
+                (ref_agg if site >= 2 else agg)["pairs"] += float(b * c * n)
             elif name == "knn_interpolate":
                 x, ps, pt = args
                 (go, gi, gw), (wo, wi, ww) = kernel(*args), plain(*args)
@@ -555,6 +724,9 @@ def compare_train_kernels(torch, ck, captured):
                 n = pts.shape[1]
                 nbytes, ops = 12.0 * b * (c + n) + 5.0 * b * c * k, 10.0 * b * c * n
                 shape = f"B={b} C={c} N={n} K={k} valid={int(wm.sum())}"
+                if site >= n_step:
+                    shape += f" cloud={SEL_REFERENCE[site - n_step][0]}"
+                (ref_agg if site >= n_step else agg)["pairs"] += float(b * c * n)
             elif name == "knn_scatter":
                 idx, w, g, s = args
                 got, want = kernel(*args), plain(*args)
@@ -760,6 +932,7 @@ def serve_phases(torch, ck, cfg, device, card):
     torch.cuda.synchronize()
     step_fps = list(captured["fps"])
     captured["fps"] += fps_reference_calls(torch, xyz, device)
+    captured["sa_fused_eval"] += selection_reference_calls(torch, ck, device)[1]
     with torch.inference_mode():
         rows, ref_rows = compare_kernels(torch, ck, captured)
         fps_chain(torch, ck, step_fps, device)
@@ -951,6 +1124,7 @@ def train_phases(torch, ck, cfg, device, card):
                         lambda: compare_fused_with_unfused(torch, cfg, model, cloud, xyz))
     for name, calls in ref.items():
         captured[name] += calls
+    captured["ball_query"] += selection_reference_calls(torch, ck, device)[0]
     step_bwd = captured["pixel_max_bwd"][0]
     captured["pixel_max_bwd"].append(
         pixel_max_bwd_reference_call(torch, ck, device, b, n, cfg.model.diam_pix ** 2))
@@ -1001,11 +1175,15 @@ def main() -> int:
     from stratanet2_tpu_torch.config import default_config
     from stratanet2_tpu_torch.ops import _build, cuda_kernels as ck
 
-    card = subprocess.run(
-        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+    smi = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    ).stdout.strip().split(", ")
+    card = ", ".join(smi[:2])  # as --query-gpu=name,power.limit gives it
     print(card, flush=True)
+    clock_mhz = float(smi[3].split()[0])
+    print(json.dumps({"phase": "card", "clocks_sm": smi[2], "clocks_max_sm": smi[3]}), flush=True)
     kind = torch.cuda.get_device_name(0)
     device = torch.device("cuda", 0)
 
@@ -1018,6 +1196,7 @@ def main() -> int:
     serve_rows, serve_ref_rows, serve_launches = serve_phases(torch, ck, cfg, device, card)
     train_rows, ref_rows, train_launches = train_phases(torch, ck, cfg, device, card)
     ref_rows.update(serve_ref_rows)
+    selection_floor(torch, ck, libs, clock_mhz, {**serve_rows, **train_rows})
 
     print(json.dumps({"reference_sites": [
         {"name": name, "sites": sites, **ref_rows[name]} for name, sites in REFERENCE_SITES.items()

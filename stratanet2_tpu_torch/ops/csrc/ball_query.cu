@@ -13,61 +13,54 @@
 // distance dot, poisoned pad rows and (K, C) "kc" output layout are not
 // carried over: the output is (B, C, K), the layout of the plain version.
 //
-// Bound on the H100: arithmetic. Each centroid scores every point of its
-// cloud (~10 operations per pair: 5e8 pairs at SA1 of the PROD train step,
-// 3.1e7 at SA2), while the bytes are a few MB of positions and indices.
+// Bound on the H100: instruction issue. Each centroid scores every point of
+// its cloud, 20 x 2500 x 10000 = 5.0e8 pairs at SA1 of the PROD train step
+// and 20 x 625 x 2500 = 3.1e7 at SA2, while the bytes are a few MB of
+// positions and indices. The selection loop (common.cuh's group_nearest,
+// unrolled 8 points x 2 centroids) is 161 SASS instructions for 16 pairs,
+// 10.06 a pair (cuobjdump -sass on the card, chip_smoke.py's
+// "selection_floor" phase): 5 FP32 (FMUL, 2 FFMA for c.p, FFMA for
+// |c|^2 - 2 c.p, FADD of |p|^2), 3.75 compare/select (FMNMX clamp, FSETP,
+// FSEL, SEL, some predicated), 0.5 LDS.128 and 0.8 of loop control. At one
+// instruction a lane a cycle on 132 SMs x 128 lanes at 1980 MHz that is
+// 0.160 ms a train step, the issue floor.
 //
-// Design: one block per (cloud, tile of 128 centroids), one thread per
-// centroid. The block walks the K groups; each group's x, y, z, |p|^2 are
-// staged in shared memory (SA1: 313 x 16 B) and read by all threads as
-// broadcasts, so device memory is read once per block. The pick is
-// common.cuh's group_nearest, the loop the fused SA eval kernel runs too.
+// Design (the selection is common.cuh's select_tile, shared with
+// sa_fused_eval.cu): one block of 8 warps per (tile of 64 centroids, chunk of
+// 8 groups, cloud), since a (centroid, group) output depends on nothing
+// else; warp w of a block takes group 8 * chunk + w, stages it packed as
+// float4 in its own slice of shared memory (no block barrier) and scans it
+// with 2 centroids a lane, so one broadcast load of a point feeds two
+// independent chains. ptxas: 40 registers, no spills.
+//   SA1: grid (40 tiles x 4 chunks, 20) = 3200 blocks of 40 KB shared
+//        memory; 5 blocks (40 warps) an SM; 24.2 blocks a SM in all, so the
+//        last round leaves at most one block's imbalance (~4%).
+//   SA2: grid (10 x 8, 20) = 1600 blocks of 5 KB; 6 blocks (48 warps) an SM
+//        by registers; 12.1 blocks a SM.
+// Measured on an H100 (chip_smoke.py's train profile, device ms a step):
+// all K groups a block (grid (40, 20), the SA kernel's layout) 0.283 against
+// 0.250; 4 centroids a lane (tiles of 128: 9.59 instructions a pair) 0.250,
+// no gain; the staging's loads batched 4 points a lane 0.250 against 0.246
+// one at a time. None is kept (PERF.md).
 #include "common.cuh"
 
-constexpr int kThreads = 128;
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSelThreads)
 ball_query_kernel(const float* __restrict__ cent, const float* __restrict__ xyz,
                   int* __restrict__ idx, uint8_t* __restrict__ mask, int n, int c, int k,
                   int g, float r2) {
-  extern __shared__ float smem[];
-  float* gx = smem;
-  float* gy = gx + g;
-  float* gz = gy + g;
-  float* gn = gz + g;
-
+  extern __shared__ float4 stage[];
   const int b = blockIdx.y;
-  const int ci = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = ci < c;
-  const size_t row = static_cast<size_t>(b) * c + (active ? ci : 0);
-  const float cx = cent[row * 3], cy = cent[row * 3 + 1], cz = cent[row * 3 + 2];
-  const float cn = sq3_rn(cx, cy, cz);
-  int* ib = idx + row * k;
-  uint8_t* mb = mask + row * k;
-
-  const float* xb = xyz + static_cast<size_t>(b) * n * 3;
-  for (int grp = 0; grp < k; ++grp) {
-    const int first = grp * g;
-    const int cnt = max(0, min(g, n - first));  // ragged or empty last groups
-    __syncthreads();  // the previous group's tile is no longer read
-    for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
-      const float x = xb[3 * (first + j)];
-      const float y = xb[3 * (first + j) + 1];
-      const float z = xb[3 * (first + j) + 2];
-      gx[j] = x;
-      gy[j] = y;
-      gz[j] = z;
-      gn[j] = sq3_rn(x, y, z);
-    }
-    __syncthreads();
-    if (!active) continue;
-    float dmin;
-    int jmin;
-    group_nearest(cx, cy, cz, cn, gx, gy, gz, gn, cnt, dmin, jmin);
-    const bool ok = dmin <= r2;
-    ib[grp] = ok ? first + jmin : 0;
-    mb[grp] = ok ? 1 : 0;
-  }
+  const int tiles = (c + kSelTile - 1) / kSelTile;
+  const int c0 = (blockIdx.x % tiles) * kSelTile, grp0 = (blockIdx.x / tiles) * kSelWarps;
+  int* ib = idx + static_cast<size_t>(b) * c * k;
+  uint8_t* mb = mask + static_cast<size_t>(b) * c * k;
+  select_tile(cent + static_cast<size_t>(b) * c * 3, xyz + static_cast<size_t>(b) * n * 3, n, c,
+              c0, grp0, min(grp0 + kSelWarps, k), g, r2, stage,
+              [&](int ci, int grp, bool ok, int pick) {
+                const size_t o = static_cast<size_t>(ci) * k + grp;
+                ib[o] = ok ? pick : 0;
+                mb[o] = ok ? 1 : 0;
+              });
 }
 
 // cent (b, c, 3), xyz (b, n, 3) -> idx (b, c, k) i32, mask (b, c, k) u8
@@ -75,11 +68,11 @@ ball_query_kernel(const float* __restrict__ cent, const float* __restrict__ xyz,
 extern "C" int ball_query_launch(const float* cent, const float* xyz, int* idx,
                                  uint8_t* mask, int b, int n, int c, int k, int g,
                                  float r2, void* stream) {
-  const size_t smem = sizeof(float) * 4 * static_cast<size_t>(g);
+  const size_t smem = sizeof(float4) * kSelWarps * static_cast<size_t>(g);
   cudaError_t err = allow_smem(ball_query_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((c + kThreads - 1) / kThreads, b);
-  ball_query_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((c + kSelTile - 1) / kSelTile * ((k + kSelWarps - 1) / kSelWarps), b);
+  ball_query_kernel<<<grid, kSelThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       cent, xyz, idx, mask, n, c, k, g, r2);
   return cudaGetLastError();
 }

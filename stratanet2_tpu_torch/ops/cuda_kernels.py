@@ -43,6 +43,10 @@ _KNN_EPS = 1e-16
 _KNN_CHUNK = 512  # targets per (B, chunk, S) distance tile of the plain kNN
 _SMEM_MAX = 227 * 1024  # opt-in dynamic shared memory of one H100 block
 FPS_MAX_N = 16 * 1024  # csrc/fps.cu: at most 16 points for each of a block's 1024 threads
+# csrc/common.cuh's grouped selection: 8 warps a block each stage one group of
+# g points as float4, for a tile of 64 centroids
+SEL_WARPS, SEL_TILE = 8, 64
+BQ_MAX_G = _SMEM_MAX // (16 * SEL_WARPS)  # ball_query: the largest group
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRIES = {  # wrapper: (library = csrc/<library>.cu, C entry point, its arguments)
@@ -212,6 +216,14 @@ def sa_fused_eval_plain(q, xyz, centroids, cterm, a1, c1, w2, b2, a2, c2, radius
     return torch.amax(h, dim=2)
 
 
+def sa_fused_eval_max_g(ch1: int, ch2: int, two: bool, k: int) -> int:
+    """The largest group the SA eval kernel takes: its block holds
+    SEL_WARPS staged groups (16 B a point), the parameters padded to float4
+    and a (SEL_TILE, K) int32 table of picks in shared memory."""
+    n_prm = 2 * ch1 + (ch1 * ch2 + 3 * ch2 if two else 0)
+    return (_SMEM_MAX - 4 * (-(-n_prm // 4) * 4) - 4 * SEL_TILE * k) // (16 * SEL_WARPS)
+
+
 def sa_fused_eval(
     q: torch.Tensor,
     xyz: torch.Tensor,
@@ -249,10 +261,13 @@ def sa_fused_eval(
                                    radius, k)
     _expect((ch1, ch2, two) in ((16, 16, True), (32, 32, False)), name,
             f"no kernel instance for C1={ch1}, C2={ch2}, two_layer={two}")
+    _expect(q.data_ptr() % 16 == 0 and cterm.data_ptr() % 16 == 0, name,
+            "q and cterm must be 16-byte aligned (float4 rows)")
+    _expect(b < 65536, name, "the kernel takes at most 65535 clouds")
     g = -(-n // k)
-    n_prm = 2 * ch1 + (ch1 * ch2 + 3 * ch2 if two else 0)
-    _expect(4 * (n_prm + g * (ch1 + 5)) <= _SMEM_MAX, name,
-            f"group of {g} points exceeds the block's shared memory")
+    g_max = sa_fused_eval_max_g(ch1, ch2, two, k)
+    _expect(g <= g_max, name, f"group of {g} points exceeds the kernel's limit of {g_max} "
+                              f"at C1={ch1}, C2={ch2}, K={k}")
     prm = torch.cat([v.reshape(-1) for v in vecs])
     out = torch.empty((b, c, ch2), dtype=torch.float32, device=q.device)
     _launch(name, q.device, q, xyz, centroids, cterm, prm, out,
@@ -430,7 +445,8 @@ def ball_query(centroids: torch.Tensor, points: torch.Tensor, radius: float, k: 
     if not _on_card(name, centroids, points):
         return ball_query_plain(centroids, points, radius, k)
     g = -(-n // k)
-    _expect(16 * g <= _SMEM_MAX, name, f"group of {g} points exceeds the block's shared memory")
+    _expect(g <= BQ_MAX_G, name, f"group of {g} points exceeds the kernel's limit of {BQ_MAX_G}")
+    _expect(b < 65536, name, "the kernel takes at most 65535 clouds")
     idx = torch.empty((b, c, k), dtype=torch.int32, device=points.device)
     mask = torch.empty((b, c, k), dtype=torch.bool, device=points.device)
     _launch(name, points.device, centroids, points, idx, mask, b, n, c, k, g,

@@ -210,6 +210,40 @@ class TestBallQueryGrouped:
         np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
         assert 0 < mask.float().mean() < 1  # both valid and masked slots occur
 
+    @pytest.mark.parametrize("kind", ["grid", "dup"])
+    @pytest.mark.parametrize(
+        "n,k,c,radius",
+        [
+            (300, 8, 40, 2 ** 0.5),  # PROD SA1 radius: r^2 rounds to 1.9999999, d2 = 2 just outside
+            (300, 8, 40, 8 ** 0.5),  # PROD SA2 radius: r^2 rounds to 7.9999995
+            (300, 8, 40, 2.0),  # r^2 = 4 exactly: the points at d2 = 4 are inside
+            (103, 16, 30, 8 ** 0.5),  # g=7: group 14 has 5 real points, group 15 none
+        ],
+    )
+    def test_matches_jax_on_ties(self, rng, kind, n, k, c, radius):
+        """Tie-heavy and boundary clouds, the cases the selection kernels'
+        first-index rule and radius test decide: integer-grid points (every
+        d2 an exact integer, many at the radius) or every point repeated
+        four times; centroids are points of the cloud. Index for index."""
+        pts = _tie_cloud(rng, kind, 2, n)
+        cent = pts[:, rng.choice(n, c, replace=False)]
+        want_idx, want_mask = ball_query(jnp.asarray(cent), jnp.asarray(pts), radius, k,
+                                         method="grouped")
+        idx, mask = ball_query_grouped(T(cent), T(pts), radius, k)
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(want_mask))
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+        g = -(-n // k)
+        d2 = ((cent[:, :, None, :].astype(np.float64) - pts[:, None]) ** 2).sum(-1)
+        d2 = np.pad(d2, ((0, 0), (0, 0), (0, k * g - n)), constant_values=np.inf)
+        d2 = d2.reshape(2, c, k, g)
+        best = d2.min(-1, keepdims=True)
+        tied = ((d2 == best) & (best <= radius ** 2)).sum(-1) > 1
+        assert tied.any()  # some valid picks are first-index ties
+        if (k - 1) * g >= n:
+            assert not mask.numpy()[..., -1].any()  # the empty last group
+        if kind == "grid":  # points at d2 = 2, 8 or 4: on or one ulp past the radius
+            assert (d2 == round(radius ** 2)).any()
+
 
 def _jax_mlp(rng, channels):
     """A JAX MLP with random BN affines and running statistics (so the
@@ -251,6 +285,35 @@ class TestSetAbstraction:
         p, s, mlp = _jax_mlp(rng, channels)
         x = rng.uniform(0, 1, (2, n, channels[0] - 3)).astype(np.float32)
         pos = _cloud(rng, 2, n, extent=3.0)
+        want, want_cent, _ = _sa_module(
+            p, s, jnp.asarray(x), jnp.asarray(pos), c, radius, k, train=False,
+            compute_dtype=jnp.float32, use_pallas=False, chunk=1024,
+            bq_method="grouped", preproject=preproject,
+        )
+        with torch.no_grad():
+            got, cent = set_abstraction(mlp, T(x), T(pos), c, radius, k,
+                                        fps_parts=1, fps_min_part_samples=256)
+        np.testing.assert_array_equal(cent.numpy(), np.asarray(want_cent))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-5)
+
+    @pytest.mark.parametrize(
+        "channels,kind,n,c,k,radius,preproject",
+        [
+            ([11, 16, 16], "grid", 256, 64, 8, 2 ** 0.5, False),
+            ([19, 32], "grid", 256, 64, 16, 8 ** 0.5, True),
+            ([11, 16, 16], "dup", 103, 32, 16, 2.0, False),  # g=7, group 15 empty
+            ([19, 32], "dup", 103, 32, 16, 8 ** 0.5, True),
+        ],
+    )
+    def test_plain_matches_jax_sa_module_on_ties(self, rng, channels, kind, n, c, k, radius,
+                                                 preproject):
+        """`test_plain_matches_jax_sa_module` on tie-heavy and boundary
+        clouds (`_tie_cloud`: integer grids at the PROD radii, repeated
+        points, N not a multiple of K with an empty last group): the same
+        centroids and, within the same tolerance, the same outputs."""
+        p, s, mlp = _jax_mlp(rng, channels)
+        x = rng.uniform(0, 1, (2, n, channels[0] - 3)).astype(np.float32)
+        pos = _tie_cloud(rng, kind, 2, n)
         want, want_cent, _ = _sa_module(
             p, s, jnp.asarray(x), jnp.asarray(pos), c, radius, k, train=False,
             compute_dtype=jnp.float32, use_pallas=False, chunk=1024,
