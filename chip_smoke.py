@@ -25,7 +25,11 @@ Phases, in order, each failing loudly:
      kernel's selection reference sites (SEL_REFERENCE: tie-heavy grid
      clouds at the SA1 and SA2 shapes, a ragged site with an empty last
      group, a site at the kernel's largest group), each with 0 differing
-     picks and outputs within SA_ATOL;
+     picks and outputs within SA_ATOL, and kNN's reference sites
+     (KNN_REFERENCE: tie-heavy integer-grid clouds at the FP1 and FP2 shapes
+     with duplicated sources and targets on sources, a ragged site, three
+     sources, more sources than the kernel stages at once), each with 0
+     differing indices and outputs and weights within KNN_ATOL;
   4b. `"phase": "fps_chain"`: FPS's latency floor, the time of a pick with
      one point a thread (N=1024), against the per-pick time at the step
      sites;
@@ -62,8 +66,9 @@ Phases, in order, each failing loudly:
      exactly, their per-channel sums over edges within the float32 bound at
      the kernels' own summation depth, which must reject a result with one
      block's partial row taken out or zeroed, and dq's scatter within the
-     bound of a sum in any order), times as in phase 4, library calls
-     `index_add_` and `scatter_add_`;
+     bound of a sum in any order; that bound, and sa_train_bwd2's dcterm
+     bound, must reject a result of zeros), times as in phase 4, library
+     calls `index_add_` and `scatter_add_`;
   11b. `"phase": "launch_path"`: host microseconds a call of the two stream
      getters, of the device check and context, and of the parts of a
      pixel_max_bwd call;
@@ -75,13 +80,19 @@ Phases, in order, each failing loudly:
   14. profile of the train step, as phase 7;
   15. a B=2 train step on the card against the port on the CPU: loss parts,
      every gradient, BN state and params after the step (tolerances below);
-  16. `"phase": "selection_floor"`, for sa_fused_eval (serve step) and
-     ball_query (train step): the SASS instructions a centroid-point pair of
-     the selection loop (cuobjdump of the built library), the step's pairs
-     and the issue floor, pairs x instructions / (132 SMs x 128 lanes x the
-     maximum SM clock of phase 1), and each kernel's registers, stack and
-     spills (cuobjdump -res-usage), and the SM clocks sampled while the
-     ball query runs back to back for a second;
+  15b. `"phase": "serve_after_train"`: the serve step at B=2 on the model
+     fresh from the train steps (in train mode) equals the serve step on an
+     eval copy, moves no BN buffer and leaves the model in train mode;
+  16. `"phase": "selection_floor"`, for sa_fused_eval and knn_interpolate
+     (serve step) and ball_query (train step): the SASS instructions a pair
+     of the scan loop (cuobjdump of the built library; for kNN also on the
+     path of a pair that inserts nothing), the step's pairs and the issue
+     floor, pairs x instructions / (132 SMs x 128 lanes x the maximum SM
+     clock of phase 1), and each kernel's registers, stack and spills
+     (cuobjdump -res-usage), and the SM clocks sampled while the ball query
+     runs back to back for a second; then `"phase": "edge_loop"` for
+     sa_train_bwd2: the SASS instructions, SHFLs and FP32 instructions a warp
+     issues an edge in each instance's slot loop, and its registers;
   17. the `{"reference_sites": [...]}` line (phase 10's sites and the
      synthetic FPS, selection and pixel-max backward sites, apart from the
      per-step rows), the `{"kernels": [...]}` line (all eleven) and the
@@ -102,8 +113,8 @@ sum over its call sites in the serve step (the four serve kernels) or in
 the train step (the seven train kernels); the reference sites are summed on
 the `reference_sites` line alone. The operations bound counts a fused
 multiply-add as one operation against a rate that counts it as two, so for
-the selection kernels it sits below what the card can issue: phase 16
-gives their issue floor beside it.
+the scan kernels (the grouped selection, kNN) it sits below what the card
+can issue: phase 16 gives their issue floor beside it.
 """
 
 from __future__ import annotations
@@ -177,7 +188,18 @@ PHASE10_SITES = {"knn_scatter": 1, "sa_train_stats": 1, "sa_train_main": 2,
 # query, sa_fused_eval_max_g for the SA kernel's instances)
 SEL_REFERENCE = (("grid", 20, 10000, 2500, 32, 2 ** 0.5), ("grid", 20, 2500, 625, 64, 8 ** 0.5),
                  ("grid", 3, 1030, 300, 48, 2.0), ("max_g", 2, 0, 300, 4, 2.0))
+# kNN's reference sites (phase 4): (cloud, B, S, T, F). "grid": integer
+# coordinates in [0, 16) with an eighth of the sources duplicated and an
+# eighth of the targets put on sources, so most picks break ties, many at
+# d2 = 0 (the 1e-16 weight clamp), at the FP1 and FP2 shapes of the step;
+# "ragged": S and T that are multiples of no tile; "s3": three sources;
+# "chunked": more sources than the kernel stages at once
+# (csrc/knn_interpolate.cu, kChunk = 4096), so it walks them in chunks
+KNN_REFERENCE = (("grid", 20, 2500, 10000, 34), ("grid", 20, 625, 2500, 64),
+                 ("ragged", 3, 1001, 1337, 34), ("s3", 2, 3, 333, 64),
+                 ("chunked", 2, 10000, 3000, 34))
 REFERENCE_SITES = {"fps": len(FPS_REFERENCE), "sa_fused_eval": len(SEL_REFERENCE),
+                   "knn_interpolate": len(KNN_REFERENCE),
                    "ball_query": len(SEL_REFERENCE), "pixel_max_bwd": 1, **PHASE10_SITES}
 FPS_FLOOR_N = 1024  # one point for each thread of the FPS block
 SHIFT_STD = 0.1  # phase 10's BN running means (the shifts), as the CPU stage tests draw them
@@ -324,7 +346,7 @@ def new_agg():
 
 def finish_agg(agg):
     agg["bound_ms"], agg["bound_by"] = bound_ms(agg.pop("bytes"), agg.pop("ops"))
-    if not agg["pairs"]:  # only the grouped selection counts its pairs
+    if not agg["pairs"]:  # only the scans (grouped selection, kNN) count their pairs
         del agg["pairs"]
     return agg
 
@@ -342,6 +364,25 @@ def fps_reference_calls(torch, xyz, device):
             pts = torch.randint(0, 16, (rows, n, 3), generator=gen, device=device).float()
         start = torch.randint(0, n, (rows,), generator=gen, device=device, dtype=torch.int32)
         calls.append((pts, s, start))
+    return calls
+
+
+def knn_reference_calls(torch, device):
+    """The arguments (x_src, pos_src, pos_tgt) of kNN's reference sites
+    (KNN_REFERENCE), drawn from a seed."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    calls = []
+    for kind, b, s, t, f in KNN_REFERENCE:
+        if kind == "grid":
+            src = torch.randint(0, 16, (b, s, 3), generator=gen, device=device).float()
+            tgt = torch.randint(0, 16, (b, t, 3), generator=gen, device=device).float()
+            src[:, s // 2 : s // 2 + s // 8] = src[:, : s // 8]
+            tgt[:, : t // 8] = src[:, torch.randint(0, s, (t // 8,), generator=gen, device=device)]
+        else:
+            src = torch.rand((b, s, 3), generator=gen, device=device) * 20 - 10
+            tgt = torch.rand((b, t, 3), generator=gen, device=device) * 20 - 10
+        x = torch.randn((b, s, f), generator=gen, device=device)
+        calls.append((x, src.contiguous(), tgt.contiguous()))
     return calls
 
 
@@ -384,41 +425,102 @@ def selection_reference_calls(torch, ck, device):
     return bq, sa
 
 
-def sass_per_pair(sass: str, r: int):
-    """SASS instructions a centroid-point pair in the selection loop of each
-    kernel in `sass` (cuobjdump -sass of a library): the innermost loop (the
-    shortest range closed by a backward branch) that holds both a 128-bit
-    shared-memory load (one staged point) and a float compare. Each point
-    feeds `r` centroids, so its length over (points x r) is per pair."""
+def sass_functions(sass: str):
+    """{function: [(address, instruction text)]} of `cuobjdump -sass`."""
     import re
-    from collections import Counter
 
-    found, func, ins = {}, None, []
-
-    def close():
-        best = None
-        for i, (addr, text) in enumerate(ins):
-            m = re.search(r"BRA (0x[0-9a-f]+)", text)
-            if not m or int(m.group(1), 16) >= addr:
-                continue
-            body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
-            points = sum("LDS.128" in t for t in body)
-            if points and any("FSETP" in t for t in body) and (best is None or len(body) < best[0]):
-                best = (len(body), points, body)
-        if func and best:
-            ops = Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0] for t in best[2])
-            found[func] = {"instructions": best[0], "points": best[1],
-                           "per_pair": best[0] / (best[1] * r), "opcodes": dict(ops.most_common())}
-
+    funcs, func = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            close()
-            func, ins = m.group(1), []
+            func = m.group(1)
+            funcs[func] = []
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
-        if m:
-            ins.append((int(m.group(1), 16), m.group(2).strip()))
-    close()
+        if m and func:
+            funcs[func].append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs
+
+
+def innermost_loops(ins):
+    """The innermost loops of one function: ranges closed by a backward
+    branch that hold no other backward branch. An out-of-line block that
+    jumps back into a loop spans the loop's own back edge, so it is not
+    one."""
+    import re
+
+    back = []
+    for addr, text in ins:
+        m = re.search(r"BRA (0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            back.append((int(m.group(1), 16), addr))
+    return [[(a, t) for a, t in ins if head <= a <= tail] for head, tail in back
+            if not any(head <= h2 and t2 <= tail and (h2, t2) != (head, tail) for h2, t2 in back)]
+
+
+def opcode(text: str) -> str:
+    import re
+
+    return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
+
+
+def sass_per_pair(sass: str, r: int):
+    """SASS instructions a pair in the scan loop of each kernel in `sass`
+    (cuobjdump -sass of a library): of the innermost loops that hold both a
+    128-bit shared-memory load (one staged point) and a float compare, the
+    one with the most such loads (an unrolled main loop, not its
+    remainder). Each point feeds `r` targets, so its length over (points x
+    r) is per pair. `common_per_pair` leaves out what a forward branch
+    inside the loop can skip (kNN's top-3 insert): the path of a pair whose
+    compare fails."""
+    import re
+    from collections import Counter
+
+    found = {}
+    for func, ins in sass_functions(sass).items():
+        best = None
+        for body in innermost_loops(ins):
+            points = sum("LDS.128" in t for _, t in body)
+            if points and any("FSETP" in t for _, t in body) and (
+                    best is None or (points, -len(body)) > (best[1], -len(best[0]))):
+                best = (body, points)
+        if best is None:
+            continue
+        body, points = best
+        skipped = set()
+        for addr, text in body:
+            m = re.search(r"BRA (0x[0-9a-f]+)", text)
+            if m and text.startswith("@") and addr < int(m.group(1), 16) <= body[-1][0]:
+                skipped.update(a for a, _ in body if addr < a < int(m.group(1), 16))
+        ops = Counter(opcode(t) for _, t in body)
+        found[func] = {"instructions": len(body), "points": points,
+                       "per_pair": len(body) / (points * r),
+                       "common_per_pair": (len(body) - len(skipped)) / (points * r),
+                       "opcodes": dict(ops.most_common())}
+    return found
+
+
+def sass_edge_loops(sass: str, edges: int):
+    """The edge loop of each sa_train_bwd2 instance: its innermost loop that
+    holds the dq atomics (RED), with its SASS instructions, SHFLs and FP32
+    instructions, each over the `edges` one pass of the loop covers: what a
+    warp issues an edge."""
+    from collections import Counter
+
+    found = {}
+    for func, ins in sass_functions(sass).items():
+        if "sa_train_bwd2_kernel" not in func:
+            continue
+        loops = [b for b in innermost_loops(ins)
+                 if any(opcode(t) in ("RED", "REDG", "ATOM", "ATOMG") for _, t in b)]
+        if not loops:
+            found[func] = None
+            continue
+        body = max(loops, key=len)
+        ops = Counter(opcode(t) for _, t in body)
+        fp32 = sum(ops[o] for o in ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL"))
+        found[func] = {"instructions": len(body), "edges_a_pass": edges,
+                       "per_edge": len(body) / edges, "shfl_per_edge": ops["SHFL"] / edges,
+                       "fp32_per_edge": fp32 / edges, "opcodes": dict(ops.most_common())}
     return found
 
 
@@ -444,39 +546,60 @@ def sm_clock_under_load(torch, ck, device):
     return [float(v) for v in out.split()]
 
 
-def selection_floor(torch, ck, libs, clock_mhz, rows):
-    """The issue floor of the two kernels that run the grouped selection:
-    the pairs of a step (serve for sa_fused_eval, train for ball_query) times
-    the SASS instructions a pair of the selection loop, over 132 SMs x 128
-    lanes x the card's maximum SM clock (one instruction a lane a cycle).
-    Also each kernel's registers, stack and spills (cuobjdump -res-usage)."""
+# csrc/sa_train.cu: a pass of bwd2's slot loop is 8 edges a warp (kBatch x 32 / C)
+BWD2_EDGES_A_PASS = 8
+
+
+def scan_floor(torch, ck, libs, clock_mhz, rows):
+    """Phase 16. The issue floor of the kernels that scan every pair: the
+    pairs of a step (serve for sa_fused_eval and knn_interpolate, train for
+    ball_query) times the SASS instructions a pair of the scan loop, over
+    132 SMs x 128 lanes x the card's maximum SM clock (one instruction a
+    lane a cycle); for kNN on the path of a pair that inserts nothing
+    (`common_per_pair`), beside the whole loop's. Then sa_train_bwd2's edge
+    loop: SASS instructions and SHFLs an edge. Each kernel's registers,
+    stack and spills (cuobjdump -res-usage)."""
     from pathlib import Path
 
     from stratanet2_tpu_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    load_mhz = sm_clock_under_load(torch, ck, torch.device("cuda", 0))
-    for name in ("sa_fused_eval", "ball_query"):
-        sass = subprocess.run([str(cuobjdump), "-sass", str(libs[name])], capture_output=True,
+
+    def dump(name, what):
+        return subprocess.run([str(cuobjdump), what, str(libs[name])], capture_output=True,
                               text=True, check=True, timeout=120).stdout
-        loops = sass_per_pair(sass, ck.SEL_TILE // 32)
-        check(len(loops) > 0, f"{name}: no selection loop found in the SASS")
-        per_pair = max(v["per_pair"] for v in loops.values())
-        pairs = rows[name]["pairs"]
-        usage = subprocess.run([str(cuobjdump), "-res-usage", str(libs[name])], capture_output=True,
-                               text=True, check=True, timeout=120).stdout
+
+    def resources(name):
         res, func = {}, None
-        for line in usage.splitlines():  # "Function <name>:" then "REG:.. STACK:.. .."
+        for line in dump(name, "-res-usage").splitlines():  # "Function <name>:", "REG:.."
             if line.strip().startswith("Function "):
                 func = line.strip()[len("Function "):].rstrip(":")
             elif "REG:" in line and func:
                 res[func] = line.strip()
+        return res
+
+    load_mhz = sm_clock_under_load(torch, ck, torch.device("cuda", 0))
+    for name, r in (("sa_fused_eval", ck.SEL_TILE // 32), ("ball_query", ck.SEL_TILE // 32),
+                    ("knn_interpolate", 1)):
+        loops = sass_per_pair(dump(name, "-sass"), r)
+        check(len(loops) > 0, f"{name}: no scan loop found in the SASS")
+        per_pair = max(v["per_pair"] for v in loops.values())
+        common = max(v["common_per_pair"] for v in loops.values())
+        pairs = rows[name]["pairs"]
         print(json.dumps({"phase": "selection_floor", "kernel": name, "sass_loops": loops,
-                          "resource_usage": res,
+                          "resource_usage": resources(name),
                           "pairs_per_step": pairs, "sm_clock_max_mhz": clock_mhz,
                           "sm_clock_under_load_mhz": load_mhz,
-                          "issue_floor_ms": pairs * per_pair / (132 * 128 * clock_mhz * 1e6) * 1e3,
+                          "issue_floor_ms": pairs * common / (132 * 128 * clock_mhz * 1e6) * 1e3,
+                          "issue_floor_whole_loop_ms":
+                              pairs * per_pair / (132 * 128 * clock_mhz * 1e6) * 1e3,
                           "ms": rows[name]["ms"], "bound_ms": rows[name]["bound_ms"]}), flush=True)
+    loops = sass_edge_loops(dump("sa_train", "-sass"), BWD2_EDGES_A_PASS)
+    check(len(loops) == 2, f"sa_train_bwd2: {len(loops)} kernel instances in the SASS, expected 2")
+    print(json.dumps({"phase": "edge_loop", "kernel": "sa_train_bwd2", "edge_loops": loops,
+                      "resource_usage": resources("sa_train"),
+                      "ms": rows["sa_train_bwd2"]["ms"],
+                      "bound_ms": rows["sa_train_bwd2"]["bound_ms"]}), flush=True)
 
 
 def fps_chain(torch, ck, step_calls, device):
@@ -554,7 +677,10 @@ def compare_kernels(torch, ck, captured):
                 t = pt.shape[1]
                 nbytes = 4 * (b * s * (f + 3) + b * t * 3 + b * t * f + 2 * b * 3 * t)
                 ops = 11.0 * b * t * s + b * t * (5 * f + 12)
-                shape = f"B={b} S={s} T={t} F={f}"
+                shape = f"B={b} S={s} T={t} F={f} slices={ck.knn_slices(b, t)}"
+                if site >= 2:
+                    shape += f" cloud={KNN_REFERENCE[site - 2][0]}"
+                (ref_agg if site >= 2 else agg)["pairs"] += float(b * t * s)
             else:  # pixel_max
                 pix, vals, n_pix = args
                 (gv, ga), (wv, wa) = kernel(*args), plain(*args)
@@ -625,7 +751,9 @@ def compare_sa_train_site(torch, ck, name, site, args, got, want):
     block 0's partial row taken out and a result of zeros: a kernel that
     drops a block or returns a zeroed S1 fails. dcterm (K slots a centroid)
     and the dq scatter (the picks of a point) are held to the bound at
-    their own depth. Returns (shape, bytes, operations, max |diff|)."""
+    their own depth (sa_train_bwd2 sums no deeper: a chain over the picks
+    for dq, at most K terms for dcterm), which must reject a result of
+    zeros. Returns (shape, bytes, operations, max |diff|)."""
     q, cterm, idx, mask, aff = args[:5]
     w2 = args[5] if len(args) > 5 else None  # the stats pass takes no W2
     b, n, ch1 = q.shape
@@ -642,10 +770,10 @@ def compare_sa_train_site(torch, ck, name, site, args, got, want):
         err, ratio = check_sum(torch, f"{where} {what}", g, w, abs_sum, at)
         errs.append(err)
         ratios.append(ratio)
-        if part0 is None:
-            return
-        for wrong, label in ((g.double() - part0, "block 0's partial row taken out"),
-                             (torch.zeros_like(w), "zeros")):
+        wrongs = [(torch.zeros_like(w), "zeros")]
+        if part0 is not None:
+            wrongs.append((g.double() - part0, "block 0's partial row taken out"))
+        for wrong, label in wrongs:
             passes = bool(((wrong - w).abs() <= sum_bound(w, abs_sum, at)).all())
             check(not passes, f"{where} {what}: the bound passes a result with {label}")
 
@@ -933,6 +1061,7 @@ def serve_phases(torch, ck, cfg, device, card):
     step_fps = list(captured["fps"])
     captured["fps"] += fps_reference_calls(torch, xyz, device)
     captured["sa_fused_eval"] += selection_reference_calls(torch, ck, device)[1]
+    captured["knn_interpolate"] += knn_reference_calls(torch, device)
     with torch.inference_mode():
         rows, ref_rows = compare_kernels(torch, ck, captured)
         fps_chain(torch, ck, step_fps, device)
@@ -1028,6 +1157,33 @@ def compare_train_with_cpu(torch, cfg, model, kde, cloud, xyz, gt):
     check(param_all <= 2 * lr + 1e-7, f"params after the step differ by {param_all}")
 
 
+def serve_after_train(torch, cfg, model, cloud, xyz):
+    """Phase 15b: the serve step at B=2 on `model`, fresh from train steps
+    and in train mode, must give exactly what it gives on an eval copy,
+    change no BN running statistic and leave the model in train mode (the
+    serve step runs the model in eval mode, as JAX's train=False does)."""
+    from stratanet2_tpu_torch.inference.predict import make_predict_step
+
+    check(model.training, "the trained model is not in train mode")
+    step = make_predict_step(cfg, device=cloud.device)
+    state = {k: v.clone() for k, v in model.named_buffers()}
+    eval_copy = copy.deepcopy(model).eval()
+    r_got, p_got = step(model, cloud[:2], xyz[:2])
+    r_want, p_want = step(eval_copy, cloud[:2], xyz[:2])
+    torch.cuda.synchronize()
+    moved = [k for k, v in model.named_buffers() if not torch.equal(v, state[k])]
+    same_nan = torch.equal(torch.isnan(r_got), torch.isnan(r_want))
+    r_err = float(torch.nan_to_num(r_got - r_want).abs().max())
+    p_err = float((p_got - p_want).abs().max())
+    print(json.dumps({"phase": "serve_after_train", "B": 2, "rasters_max_abs_diff": r_err,
+                      "pred_pl_max_abs_diff": p_err, "bn_buffers_moved": moved,
+                      "training_after": model.training}), flush=True)
+    check(same_nan and r_err == 0.0 and p_err == 0.0,
+          f"serve step on the trained model differs from an eval copy by {max(r_err, p_err)}")
+    check(not moved, f"the serve step moved BN state: {moved}")
+    check(model.training, "the serve step left the model out of train mode")
+
+
 def compare_fused_with_unfused(torch, cfg, model, cloud, xyz):
     """Phase 10: SA1 and SA2 at the PROD shapes on the fused route and on
     the unfused path (`set_abstraction_train`, SA2 in its pre-projected
@@ -1094,7 +1250,7 @@ def compare_fused_with_unfused(torch, cfg, model, cloud, xyz):
 
 
 def train_phases(torch, ck, cfg, device, card):
-    """Phases 9-15. Returns the train kernels' rows and the counted launches."""
+    """Phases 9-15b. Returns the train kernels' rows and the counted launches."""
     from stratanet2_tpu_torch.learning.kde import fit_kde_mixture
     from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
     from stratanet2_tpu_torch.utils.synthetic import random_model, train_batch
@@ -1160,6 +1316,7 @@ def train_phases(torch, ck, cfg, device, card):
                  TRAIN_LAUNCHES)
 
     compare_train_with_cpu(torch, cfg, model, kde, cloud, xyz, gt)
+    serve_after_train(torch, cfg, m, cloud, xyz)
     return rows, ref_rows, launches
 
 
@@ -1196,7 +1353,7 @@ def main() -> int:
     serve_rows, serve_ref_rows, serve_launches = serve_phases(torch, ck, cfg, device, card)
     train_rows, ref_rows, train_launches = train_phases(torch, ck, cfg, device, card)
     ref_rows.update(serve_ref_rows)
-    selection_floor(torch, ck, libs, clock_mhz, {**serve_rows, **train_rows})
+    scan_floor(torch, ck, libs, clock_mhz, {**serve_rows, **train_rows})
 
     print(json.dumps({"reference_sites": [
         {"name": name, "sites": sites, **ref_rows[name]} for name, sites in REFERENCE_SITES.items()

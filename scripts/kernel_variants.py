@@ -1,0 +1,177 @@
+#!/usr/bin/env python3
+"""Time design variants of a PyTorch-port kernel on one CUDA card (an H100).
+
+Each SOURCE is a copy of `stratanet2_tpu_torch/ops/csrc/<library>.cu` with
+another design behind the same C entry point. The script builds every source
+at once with the port's nvcc flags (`ops/_build.py`), prints each kernel's
+registers and spills (`cuobjdump -res-usage`), then runs the entry point at
+the PROD step shapes (B=20 x N=10000: kNN's FP1 and FP2; sa_train_bwd2's SA1
+and SA2 on ball-query picks of a synthetic cloud) against the plain PyTorch
+version and prints one JSON line a source and site: the error against the
+plain version and the CUDA-event time of one launch (mean of 20, after a
+warm-up). kNN runs every slice count the entry takes (1, 2, 4, 8).
+
+    python3 scripts/kernel_variants.py knn_interpolate a.cu b.cu
+    python3 scripts/kernel_variants.py sa_train_bwd2 stratanet2_tpu_torch/ops/csrc/sa_train.cu x.cu
+
+Builds go to the git-ignored build/variants/. Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+SEED = 0
+REPS = 20
+
+
+def build(sources):
+    """{source: loaded library}; each source compiled by its own nvcc."""
+    from stratanet2_tpu_torch.ops import _build
+
+    out_dir = ROOT / "build" / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc, procs = _build._nvcc(), {}
+    for i, src in enumerate(sources):
+        lib = out_dir / f"{i}_{Path(src).stem}.so"
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(src)]
+        procs[src] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True))
+    cuobjdump = Path(nvcc).parent / "cuobjdump"
+    libs = {}
+    for src, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {src}:\n{log}")
+        usage = subprocess.run([str(cuobjdump), "-res-usage", str(lib)], capture_output=True,
+                               text=True, check=True).stdout
+        print(json.dumps({"source": str(src), "resource_usage": " ".join(usage.split())}),
+              flush=True)
+        libs[src] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def event_ms(torch, fn):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / REPS
+
+
+def plot_clouds(torch, gen, b, n, device):
+    """(B, N, 3) synthetic 20 m plots, z up to 3 m (utils/synthetic.py)."""
+    return torch.cat([torch.rand((b, n, 2), generator=gen, device=device) * 20 - 10,
+                      torch.rand((b, n, 1), generator=gen, device=device) * 3], -1)
+
+
+def run_knn(torch, ck, libs, gen, device):
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    for site, s, t, f in (("FP1", 2500, 10000, 34), ("FP2", 625, 2500, 64)):
+        b = 20
+        pt = plot_clouds(torch, gen, b, t, device)
+        ps = pt[:, torch.randperm(t, generator=gen, device=device)[:s]].contiguous()
+        x = torch.randn((b, s, f), generator=gen, device=device)
+        want_out, want_idx, want_w = ck.knn_interpolate_plain(x, ps, pt)
+        for src, lib in libs.items():
+            fn = lib.knn_interpolate_launch
+            fn.argtypes = [vp] * 6 + [i32] * 5 + [vp]
+            fn.restype = i32
+            for slices in (1, 2, 4, 8):
+                out = torch.empty((b, t, f), device=device)
+                idx = torch.empty((b, 3, t), dtype=torch.int32, device=device)
+                w = torch.empty((b, 3, t), device=device)
+                args = [x.data_ptr(), ps.data_ptr(), pt.data_ptr(), out.data_ptr(), idx.data_ptr(),
+                        w.data_ptr(), b, s, t, f, slices, stream]
+                rc = fn(*args)
+                torch.cuda.synchronize()
+                print(json.dumps({
+                    "source": str(src), "site": site, "slices": slices, "rc": rc,
+                    "differing_indices": int((idx != want_idx).sum()),
+                    "max_abs_diff": max(float((out - want_out).abs().max()),
+                                        float((w - want_w).abs().max())),
+                    "ms": event_ms(torch, lambda: fn(*args)),
+                }), flush=True)
+
+
+def run_bwd2(torch, ck, libs, gen, device):
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    pts = plot_clouds(torch, gen, 20, 10000, device)
+    for site, n, c, k, radius, ch in (("SA1", 10000, 2500, 32, 2 ** 0.5, 16),
+                                      ("SA2", 2500, 625, 64, 8 ** 0.5, 32)):
+        b, two = 20, ch == 16
+        xyz = pts[:, :n].contiguous()
+        idx, mask = ck.ball_query_plain(xyz[:, :c].contiguous(), xyz, radius, k)
+
+        def rnd(*shape, scale=1.0, shift=0.0, uniform=False):
+            draw = torch.rand if uniform else torch.randn
+            return draw(shape, generator=gen, device=device) * scale + shift
+
+        aff = ck.sa_aff(ch, a1=rnd(ch, uniform=True, shift=0.5), c1=rnd(ch, scale=0.1),
+                        b2=rnd(ch, scale=0.1), gos2=rnd(ch, uniform=True, shift=0.5),
+                        m2=rnd(ch, scale=0.1), inv_s2=rnd(ch, uniform=True, shift=0.5),
+                        s1n2=rnd(ch, scale=0.01), s2n2=rnd(ch, scale=0.01), m1=rnd(ch, scale=0.1),
+                        inv_s1=rnd(ch, uniform=True, shift=0.5),
+                        gos1=rnd(ch, uniform=True, shift=0.5), s1n1=rnd(ch, scale=0.01),
+                        s2n1=rnd(ch, scale=0.01), shift1=rnd(ch, scale=0.1),
+                        shift_l=rnd(ch, scale=0.1)).contiguous()
+        args = (rnd(b, n, ch), rnd(b, c, ch, scale=0.5), idx, mask, aff,
+                rnd(ch, ch, scale=0.25) if two else None,
+                torch.randint(0, k, (b, c, ch), generator=gen, device=device, dtype=torch.int32),
+                rnd(b, c, ch))
+        want_dq, want_dct = ck.sa_train_bwd2_plain(*args)
+        grid = ck.sa_grid(b, c, ch)
+        for src, lib in libs.items():
+            fn = lib.sa_train_bwd2_launch
+            fn.argtypes = [vp] * 10 + [i32] * 7 + [vp]
+            fn.restype = i32
+            dq = torch.empty((b, n, ch), device=device)
+            dct = torch.empty((b, c, ch), device=device)
+            cargs = [None if a is None else a.data_ptr() for a in args]
+            cargs += [dq.data_ptr(), dct.data_ptr(), grid, b, n, c, k, ch, int(two), stream]
+            rc = fn(*cargs)
+            torch.cuda.synchronize()
+            print(json.dumps({
+                "source": str(src), "site": site, "rc": rc,
+                "dq_rel_diff": float((dq - want_dq).abs().max() / want_dq.abs().max()),
+                "dcterm_rel_diff": float((dct - want_dct).abs().max() / want_dct.abs().max()),
+                "ms": event_ms(torch, lambda: fn(*cargs)),
+            }), flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if len(sys.argv) < 3 or sys.argv[1] not in ("knn_interpolate", "sa_train_bwd2"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device is available", file=sys.stderr)
+        return 2
+    from stratanet2_tpu_torch.ops import cuda_kernels as ck
+
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip(), flush=True)
+    libs = build(sys.argv[2:])
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    (run_knn if sys.argv[1] == "knn_interpolate" else run_bwd2)(torch, ck, libs, gen, device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,7 +25,9 @@ def make_predict_step(cfg: Config, device: Optional[Union[str, torch.device]] = 
     `cloud` is (B, N, 10) with the rescaled x, y in its first two columns,
     `xyz` (B, N, 3) centred positions in metres (arrays or tensors, any
     float type; computed in float32 on `device`, default CUDA). `model` must
-    already be on that device."""
+    already be on that device. The model runs in eval mode, as JAX's
+    `train=False` does (running BN statistics, the fused SA eval kernel),
+    and is left in the mode the caller had it in."""
     mcfg = cfg.model
     dev = resolve_device(device)
 
@@ -36,7 +38,12 @@ def make_predict_step(cfg: Config, device: Optional[Union[str, torch.device]] = 
             raise ValueError(f"model is on {param.device}, the step runs on {dev}")
         cloud = torch.as_tensor(cloud, device=dev).float()
         xyz = torch.as_tensor(xyz, device=dev).float()
-        cov, _proba = model(cloud[..., 2:], xyz)
+        was_training = model.training
+        model.eval()
+        try:
+            cov, _proba = model(cloud[..., 2:], xyz)
+        finally:
+            model.train(was_training)
         rasters = batched_raster_projection(
             cloud[..., :2], cov, mcfg.diam_pix, mcfg.diam_meters
         )

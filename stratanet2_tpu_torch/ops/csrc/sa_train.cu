@@ -26,12 +26,26 @@
 //
 // Design: lane = channel. A group of C1 lanes (a half-warp at SA1, C1 =
 // C2 = 16; a warp at SA2, C1 = 32) owns one centroid at a time and walks its
-// K slots in order; a slot with mask False is skipped by the whole group.
-// Each q row is one coalesced 64 or 128 B load. The 16x16 layer-2 product:
-// lane o holds column o of W2 and receives y1[i] from lane i by __shfl_sync;
-// the transposed product of the backward: lane i holds row i of W2 and
-// receives du[o] from lane o. Every per-edge value is computed with _rn
-// intrinsics in the order of the plain versions (cuda_kernels.sa_train_edges:
+// K slots in order. Each q row is one coalesced 64 or 128 B load. The 16x16
+// layer-2 product: lane o holds column o of W2 and needs y1[i] of lane i; the
+// transposed product of the backward: lane i holds row i of W2 and needs
+// du[o] of lane o.
+// - stats, main, bwd1: a slot with mask False is skipped by the whole group;
+//   the products move y1[i] (du[o]) by __shfl_sync, one a term.
+// - bwd2: the group takes kBatch slots at a time and computes every one (a
+//   masked slot's values are dropped), so the batch's q rows load together
+//   and the two halves of a warp never split on the mask; the products go
+//   through shared memory: each lane writes its channel of the batch's y1
+//   (then du) rows and reads each row back as C1/4 broadcast LDS.128, no
+//   shuffle. On the H100 (PERF.md; scripts/kernel_variants.py) it
+//   takes 0.151 ms at SA1 against 0.268 for the shuffle form, 0.046 at SA2
+//   against 0.052; an edge a lane (a lane computes all 16 channels of its
+//   edge, W2 and the table from the constant bank) measured 0.167 at SA1
+//   and 0.075 at SA2, 0.251 and 0.121 with the q rows staged through
+//   shared memory. Its slot loop issues 49 SASS a warp an edge at SA1 and
+//   39 at SA2, no SHFL; 128 registers at SA1 (2 blocks an SM), 64 at SA2.
+// Every per-edge value is computed with _rn intrinsics in the order of the
+// plain versions (cuda_kernels.sa_train_edges:
 // the products as fma chains in index order, no contraction elsewhere), so
 // kernel and plain agree bit for bit on every edge value and on every winner
 // slot; only the sums over edges differ, by the order of summation.
@@ -275,6 +289,15 @@ sa_train_bwd1_kernel(const float* __restrict__ q, const float* __restrict__ cter
 // dq[b, idx] += de0 (float atomics into dq, zeroed by the launch) and
 // dcterm = -sum over the K slots of de0. With two layers dy1 comes from
 // BN2's backward as in bwd1; with one, dy1 is gt at the winner slot.
+//
+// Lane = channel as in the other passes, but the group takes its centroid's
+// slots kBatch at a time, every slot of a batch computed (a masked slot's
+// values are discarded): the batch's q rows are loaded together, the group
+// never splits on the mask, and the batch gives kBatch independent chains.
+// Two layers: each lane writes its channel of the batch's y1 rows (then du
+// rows) to the group's rows in shared memory, and every lane reads a row
+// back as C/4 broadcast LDS.128, in place of C __shfl_sync a product.
+// kBatch 4 (SA1) and 8 (SA2) measured best of 2, 4, 8 and 4, 8, 16 (PERF.md).
 template <int C, bool TWO>
 __global__ void __launch_bounds__(kThreads)
 sa_train_bwd2_kernel(const float* __restrict__ q, const float* __restrict__ cterm,
@@ -284,9 +307,12 @@ sa_train_bwd2_kernel(const float* __restrict__ q, const float* __restrict__ cter
                      float* __restrict__ dq, float* __restrict__ dcterm, int n, int c, int k,
                      int total) {
   constexpr int kGroups = kThreads / C;
+  constexpr int kBatch = TWO ? 4 : 8;
+  __shared__ __align__(16) float rows[TWO ? kGroups * kBatch * C : 4];
   const int lane = threadIdx.x % C;
   const unsigned gm = group_mask<C>();
   const LaneParams<C, TWO> p(aff, w2, lane);
+  float* mine = rows + (TWO ? (threadIdx.x / C) * kBatch * C : 0);
   for (int cent = blockIdx.x * kGroups + threadIdx.x / C; cent < total;
        cent += gridDim.x * kGroups) {
     const size_t pb = static_cast<size_t>(cent / c) * n * C + lane;
@@ -297,23 +323,70 @@ sa_train_bwd2_kernel(const float* __restrict__ q, const float* __restrict__ cter
     const int* ib = idx + static_cast<size_t>(cent) * k;
     const bool* mb = mask + static_cast<size_t>(cent) * k;
     float dct = 0.f;
-    for (int s = 0; s < k; ++s) {
-      if (!mb[s]) continue;
-      const size_t qi = pb + static_cast<size_t>(ib[s]) * C;
-      const float e0 = __fsub_rn(q[qi], ct);
-      const float h1 = fmaxf(e0, 0.f);
-      float dy1;
-      if constexpr (TWO) {
-        const float u = layer2<C>(gm, __fadd_rn(__fmul_rn(h1, p.a1), p.c1), p.w2c, p.b2);
-        const float du = bn_relu_bwd(aw == s ? g : 0.f, fmaxf(u, 0.f), u, p.m2, p.inv_s2,
-                                     p.gos2, p.s1n2, p.s2n2);
-        dy1 = layer2_t<C>(gm, du, p.w2r);
-      } else {
-        dy1 = aw == s ? g : 0.f;
+    for (int s0 = 0; s0 < k; s0 += kBatch) {
+      bool ok[kBatch];
+      size_t qi[kBatch];
+      float e0[kBatch], dy1[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        ok[u] = s0 + u < k && mb[s0 + u];
+        qi[u] = pb + static_cast<size_t>(ok[u] ? ib[s0 + u] : 0) * C;
       }
-      const float de0 = bn_relu_bwd(dy1, h1, e0, p.m1, p.inv_s1, p.gos1, p.s1n1, p.s2n1);
-      dct = __fsub_rn(dct, de0);
-      if (de0 != 0.f) atomicAdd(dq + qi, de0);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) e0[u] = __fsub_rn(q[qi[u]], ct);
+      if constexpr (TWO) {
+        float du[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          mine[u * C + lane] = __fadd_rn(__fmul_rn(fmaxf(e0[u], 0.f), p.a1), p.c1);  // y1
+        __syncwarp(gm);
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {  // u = y1 @ W2[:, lane] + b2, the fma chain over i
+          const float4* r = reinterpret_cast<const float4*>(mine + u * C);
+          float acc = 0.f;
+#pragma unroll
+          for (int m = 0; m < C / 4; ++m) {
+            const float4 y = r[m];
+            acc = m == 0 ? __fmul_rn(y.x, p.w2c[0]) : __fmaf_rn(y.x, p.w2c[4 * m], acc);
+            acc = __fmaf_rn(y.y, p.w2c[4 * m + 1], acc);
+            acc = __fmaf_rn(y.z, p.w2c[4 * m + 2], acc);
+            acc = __fmaf_rn(y.w, p.w2c[4 * m + 3], acc);
+          }
+          const float uu = __fadd_rn(acc, p.b2);
+          du[u] = bn_relu_bwd(aw == s0 + u ? g : 0.f, fmaxf(uu, 0.f), uu, p.m2, p.inv_s2, p.gos2,
+                              p.s1n2, p.s2n2);
+        }
+        __syncwarp(gm);  // the y1 rows are read
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) mine[u * C + lane] = du[u];
+        __syncwarp(gm);
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {  // dy1 = du @ W2[lane, :]^T, the fma chain over o
+          const float4* r = reinterpret_cast<const float4*>(mine + u * C);
+          float acc = 0.f;
+#pragma unroll
+          for (int m = 0; m < C / 4; ++m) {
+            const float4 d = r[m];
+            acc = m == 0 ? __fmul_rn(p.w2r[0], d.x) : __fmaf_rn(p.w2r[4 * m], d.x, acc);
+            acc = __fmaf_rn(p.w2r[4 * m + 1], d.y, acc);
+            acc = __fmaf_rn(p.w2r[4 * m + 2], d.z, acc);
+            acc = __fmaf_rn(p.w2r[4 * m + 3], d.w, acc);
+          }
+          dy1[u] = acc;
+        }
+        __syncwarp(gm);  // the du rows are read before the next batch writes
+      } else {
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) dy1[u] = aw == s0 + u ? g : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (!ok[u]) continue;  // the same for the whole group
+        const float de0 = bn_relu_bwd(dy1[u], fmaxf(e0[u], 0.f), e0[u], p.m1, p.inv_s1, p.gos1,
+                                      p.s1n1, p.s2n1);
+        dct = __fsub_rn(dct, de0);
+        if (de0 != 0.f) atomicAdd(dq + qi[u], de0);
+      }
     }
     dcterm[o] = dct;
   }

@@ -41,6 +41,9 @@ from stratanet2_tpu_torch.ops.distance import expanded_d2, fma_f32, sq_norm3
 NEG = -3.4e38  # the empty-pixel / masked-edge value of the Pallas kernels
 _KNN_EPS = 1e-16
 _KNN_CHUNK = 512  # targets per (B, chunk, S) distance tile of the plain kNN
+# csrc/knn_interpolate.cu: 8 warps a block, one target a lane; knn_slices
+# wants enough warps to fill the 64 warp slots of each of 132 SMs once
+KNN_WARPS, KNN_MIN_WARPS = 8, 64 * 132
 _SMEM_MAX = 227 * 1024  # opt-in dynamic shared memory of one H100 block
 FPS_MAX_N = 16 * 1024  # csrc/fps.cu: at most 16 points for each of a block's 1024 threads
 # csrc/common.cuh's grouped selection: 8 warps a block each stage one group of
@@ -57,7 +60,7 @@ _ENTRIES = {  # wrapper: (library = csrc/<library>.cu, C entry point, its argume
     ),
     "knn_interpolate": (
         "knn_interpolate", "knn_interpolate_launch",
-        [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     ),
     "pixel_max": (
         "pixel_max", "pixel_max_launch", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]
@@ -315,6 +318,15 @@ def knn_interpolate_plain(x_src, pos_src, pos_tgt):
     )
 
 
+def knn_slices(b: int, t: int) -> int:
+    """Warps that split a target group's sources in csrc/knn_interpolate.cu:
+    the fewest (1, 2, 4, 8) whose B x ceil(T / 32) x slices warps reach
+    KNN_MIN_WARPS; 8 where none does. Fewer slices mean longer scans a warp,
+    whose top 3 then changes less often."""
+    groups = b * -(-t // 32)
+    return next((w for w in (1, 2, 4) if groups * w >= KNN_MIN_WARPS), KNN_WARPS)
+
+
 def knn_interpolate(x_src: torch.Tensor, pos_src: torch.Tensor, pos_tgt: torch.Tensor):
     """Exact 3-NN inverse-d^2 interpolation: x_src (B, S, F), pos_src
     (B, S, 3), pos_tgt (B, T, 3) -> out (B, T, F), idx (B, 3, T) int32 and
@@ -330,10 +342,12 @@ def knn_interpolate(x_src: torch.Tensor, pos_src: torch.Tensor, pos_tgt: torch.T
         _expect(x.dtype == torch.float32, name, "all inputs must be float32")
     if not _on_card(name, x_src, pos_src, pos_tgt):
         return knn_interpolate_plain(x_src, pos_src, pos_tgt)
+    _expect(b < 65536, name, "the kernel takes at most 65535 clouds")
     out = torch.empty((b, t, f), dtype=torch.float32, device=x_src.device)
     idx = torch.empty((b, 3, t), dtype=torch.int32, device=x_src.device)
     w = torch.empty((b, 3, t), dtype=torch.float32, device=x_src.device)
-    _launch(name, x_src.device, x_src, pos_src, pos_tgt, out, idx, w, b, s, t, f)
+    _launch(name, x_src.device, x_src, pos_src, pos_tgt, out, idx, w, b, s, t, f,
+            knn_slices(b, t))
     return out, idx, w
 
 

@@ -11,6 +11,7 @@ over the edge concat where JAX's CPU path does neither, which differs by
 rounding only. Every selected index must be equal.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -29,8 +30,8 @@ from stratanet2_tpu.models import PointNet2Params, init_pointnet2 as jax_init, p
 from stratanet2_tpu.ops import ball_query, farthest_point_sampling as jax_fps
 from stratanet2_tpu_torch.config import ModelConfig, default_config
 from stratanet2_tpu_torch.inference.predict import make_predict_step
-from stratanet2_tpu_torch.learning.kde import KdeMixture
-from stratanet2_tpu_torch.learning.train import make_train_step
+from stratanet2_tpu_torch.learning.kde import KdeMixture, fit_kde_mixture
+from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
 from stratanet2_tpu_torch.models import count_params, init_pointnet2
 from stratanet2_tpu_torch.ops import ball_query_grouped, cuda_kernels as ck
 from stratanet2_tpu_torch.ops import farthest_point_sampling
@@ -98,6 +99,32 @@ def test_predict_step_matches_jax(case):
     np.testing.assert_array_equal(np.isnan(rasters.numpy()), np.isnan(case["rasters"]))
     np.testing.assert_allclose(rasters.numpy(), case["rasters"], rtol=0, atol=2e-5)
     np.testing.assert_allclose(pred_pl.numpy(), case["pred_pl"], rtol=0, atol=2e-5)
+
+
+def test_predict_step_after_a_train_step_runs_in_eval_mode(case):
+    """A train step leaves the model in train mode; the predict step must
+    still run it in eval mode, as JAX's `train=False` does: its outputs
+    equal those of an eval copy bit for bit, it changes no BN running
+    statistic, and the model is in train mode again afterwards."""
+    cfg = replace(default_config(), model=case["pcfg"])
+    model = copy.deepcopy(case["port"])
+    cloud, xyz = case["cloud"], case["xyz"]
+    kde = fit_kde_mixture(xyz[..., 2].reshape(-1))
+    gt = np.array([[0.3, 0.7, 0.2, 0.5], [0.6, 0.4, 0.1, 0.8]], np.float32)
+    opt, sched = make_optimizer(cfg, model, steps_per_epoch=1)
+    make_train_step(cfg, kde, device="cpu")(model, opt, sched, cloud, xyz, gt)
+    assert model.training
+    state = {k: v.clone() for k, v in model.named_buffers()}
+    eval_copy = copy.deepcopy(model).eval()
+    step = make_predict_step(cfg, device="cpu")
+    rasters, pred_pl = step(model, cloud, xyz)
+    want_rasters, want_pred_pl = step(eval_copy, cloud, xyz)
+    np.testing.assert_array_equal(rasters.numpy(), want_rasters.numpy())
+    np.testing.assert_array_equal(pred_pl.numpy(), want_pred_pl.numpy())
+    for name, value in model.named_buffers():
+        assert torch.equal(value, state[name]), name
+        assert not value.is_inference(), name
+    assert model.training
 
 
 def test_selections_match_jax(case):

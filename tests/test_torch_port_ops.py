@@ -356,6 +356,45 @@ class TestKnnInterpolate:
         got = knn_interpolate(T(x), T(src), T(tgt))
         np.testing.assert_array_equal(got.numpy(), out.numpy())
 
+    @staticmethod
+    def _tie_clouds(rng, kind):
+        """(src (2, S, 3), tgt (2, T, 3)) where many d2 are equal or zero."""
+        if kind == "grid":  # integer coordinates: d2 takes few values
+            return (rng.integers(0, 4, (2, 200, 3)).astype(np.float32),
+                    rng.integers(0, 4, (2, 300, 3)).astype(np.float32))
+        if kind == "duplicated_sources":  # every source three times, shuffled
+            base = rng.uniform(-5, 5, (2, 40, 3)).astype(np.float32)
+            src = np.repeat(base, 3, axis=1)[:, rng.permutation(120)]
+            return src, rng.uniform(-5, 5, (2, 257, 3)).astype(np.float32)
+        if kind == "targets_on_sources":  # d2 = 0 (the 1e-16 clamp), some to duplicates
+            src = rng.uniform(-5, 5, (2, 96, 3)).astype(np.float32)
+            src[:, 50:60] = src[:, 10:20]
+            return src, np.concatenate([src, src[:, ::-1], src[:, 5:25]], 1)
+        if kind == "s3":
+            return (rng.uniform(-5, 5, (2, 3, 3)).astype(np.float32),
+                    rng.uniform(-5, 5, (2, 77, 3)).astype(np.float32))
+        # "ragged": S and T not multiples of 32, a few grid points among them
+        src = rng.uniform(-2, 2, (2, 37, 3)).astype(np.float32)
+        src[:, :9] = rng.integers(-1, 2, (2, 9, 3))
+        tgt = rng.uniform(-2, 2, (2, 45, 3)).astype(np.float32)
+        tgt[:, :15] = rng.integers(-1, 2, (2, 15, 3))
+        return src, tgt
+
+    @pytest.mark.parametrize(
+        "kind", ["grid", "duplicated_sources", "targets_on_sources", "s3", "ragged"])
+    def test_plain_matches_jax_on_ties(self, rng, kind):
+        """The plain version against `_knn_single` where many d2 tie, lowest
+        index first: indices equal, outputs within 1e-5 (see above)."""
+        src, tgt = self._tie_clouds(rng, kind)
+        x = rng.normal(size=(2, src.shape[1], 34)).astype(np.float32)
+        want = jax_knn(jnp.asarray(x), jnp.asarray(src), jnp.asarray(tgt), k=3, use_pallas=False)
+        want_idx = np.asarray(_jax_knn_idx(jnp.asarray(src), jnp.asarray(tgt)))
+        out, idx, w = ck.knn_interpolate(T(x), T(src), T(tgt))
+        np.testing.assert_array_equal(idx.numpy(), want_idx.transpose(0, 2, 1))
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+        assert np.isfinite(w.numpy()).all()
+        np.testing.assert_allclose(w.sum(1).numpy(), 1.0, rtol=1e-6)
+
 
 class TestPixelMax:
     @pytest.mark.parametrize("n,lo,hi", [(700, -5, 405), (333, 0, 250)])
