@@ -57,9 +57,12 @@ Phases, in order, each failing loudly:
      passes and the unfused SA2's gather backward (a knn_scatter site) are
      captured as reference sites;
   11. per train kernel and call site, the train step's, then phase 10's,
-     then ball_query's SEL_REFERENCE sites (the clouds of phase 4's, drawn
-     anew; the largest group is the query's own), then the synthetic
-     pixel-max backward site (out-of-range ids, empty pixels):
+     then the SA train passes' tie-heavy ragged sites (SA_TRAIN_REFERENCE:
+     integer-valued q and cterm, K = 31 and 61, masked slots inside
+     batches, centroids with no valid slot), then ball_query's
+     SEL_REFERENCE sites (the clouds of phase 4's, drawn anew; the largest
+     group is the query's own), then the synthetic pixel-max backward site
+     (out-of-range ids, empty pixels):
      kernel vs plain (ball_query and pixel_max_bwd exactly; knn_scatter,
      whose atomics add in no fixed order, within the float32 error bound of
      a sum in any order; the SA train passes' winners and winning values
@@ -90,12 +93,15 @@ Phases, in order, each failing loudly:
      floor, pairs x instructions / (132 SMs x 128 lanes x the maximum SM
      clock of phase 1), and each kernel's registers, stack and spills
      (cuobjdump -res-usage), and the SM clocks sampled while the ball query
-     runs back to back for a second; then `"phase": "edge_loop"` for
-     sa_train_bwd2: the SASS instructions, SHFLs and FP32 instructions a warp
-     issues an edge in each instance's slot loop, and its registers;
+     runs back to back for a second; then `"phase": "edge_loop"`, one line
+     for each instance of the SA train passes that take their slots in
+     batches (main at SA1 and SA2, bwd1, bwd2 at SA1 and SA2): the SASS
+     instructions, SHFLs and FP32 instructions a warp issues an edge in its
+     slot loop, its registers, the train step's slots and the issue floor,
+     slots x SASS an edge / (132 SMs x 4 schedulers x the maximum SM clock);
   17. the `{"reference_sites": [...]}` line (phase 10's sites and the
-     synthetic FPS, selection and pixel-max backward sites, apart from the
-     per-step rows), the `{"kernels": [...]}` line (all eleven) and the
+     synthetic FPS, selection, SA train and pixel-max backward sites, apart
+     from the per-step rows), the `{"kernels": [...]}` line (all eleven) and the
      final `{"ok": true, ...}` line.
 
 float32 matmuls run in full float32: TF32 is switched off for cuBLAS and
@@ -171,10 +177,25 @@ FPS_REFERENCE = (("grid", 40, 5000, 1250), ("grid", 20, 2500, 625),
 # call sites held against their plain versions outside the steps: phase 10's
 # (the gather backward of the unfused SA2 stage, the SA train passes of the
 # fused SA1 and SA2 stages with nonzero statistics shifts) and synthetic ones
-# (FPS_REFERENCE; the pixel-max backward with out-of-range ids and empty
-# pixels)
+# (FPS_REFERENCE; SA_TRAIN_REFERENCE; the pixel-max backward with
+# out-of-range ids and empty pixels)
 PHASE10_SITES = {"knn_scatter": 1, "sa_train_stats": 1, "sa_train_main": 2,
                  "sa_train_bwd1": 1, "sa_train_bwd2": 2}
+# The SA train passes' tie-heavy, ragged reference sites (phase 11): (B, N,
+# C, K, C1), the SA1 instance (16 -> 16, two layers; all four passes) and
+# the SA2 instance (32, one layer; main and bwd2). q rows drawn from 8
+# integer-valued rows and an integer cterm, so h ties across the slots of a
+# centroid and the first winning slot must be taken; K = 31 and 61 are
+# multiples of no slot batch tried (2, 4, 8, 16), so the last batch is cut;
+# 40% of the slots masked at random, so masked slots fall inside batches,
+# and every 5th centroid has no valid slot at all (vmax -3.4e38, amax 0);
+# B x C leaves the last block of groups partial
+SA_TRAIN_REFERENCE = ((4, 2000, 1203, 31, 16), (4, 1200, 301, 61, 32))
+SA_TRAIN_REF_SITES = {"sa_train_stats": 1, "sa_train_main": 2, "sa_train_bwd1": 1,
+                      "sa_train_bwd2": 2}
+# csrc/sa_train.cu's passes that take their slots in batches, by (kernel, C1)
+EDGE_LOOP_INSTANCES = (("sa_train_main", 16), ("sa_train_main", 32), ("sa_train_bwd1", 16),
+                       ("sa_train_bwd2", 16), ("sa_train_bwd2", 32))
 # The grouped selection's reference sites (phase 4 for sa_fused_eval, phase
 # 11 for ball_query): (cloud, B, N, C, K, radius). "grid": integer
 # coordinates in [0, 16) with the centroids drawn from the points, so every
@@ -200,7 +221,9 @@ KNN_REFERENCE = (("grid", 20, 2500, 10000, 34), ("grid", 20, 625, 2500, 64),
                  ("chunked", 2, 10000, 3000, 34))
 REFERENCE_SITES = {"fps": len(FPS_REFERENCE), "sa_fused_eval": len(SEL_REFERENCE),
                    "knn_interpolate": len(KNN_REFERENCE),
-                   "ball_query": len(SEL_REFERENCE), "pixel_max_bwd": 1, **PHASE10_SITES}
+                   "ball_query": len(SEL_REFERENCE), "pixel_max_bwd": 1,
+                   **{name: n + SA_TRAIN_REF_SITES.get(name, 0)
+                      for name, n in PHASE10_SITES.items()}}
 FPS_FLOOR_N = 1024  # one point for each thread of the FPS block
 SHIFT_STD = 0.1  # phase 10's BN running means (the shifts), as the CPU stage tests draw them
 SA_ATOL = 1e-4  # layer-2 dot: FMA contraction and summation order differ
@@ -341,13 +364,15 @@ def report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
 
 def new_agg():
     return dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, max_abs_err=0.0,
-                bytes=0.0, ops=0.0, pairs=0.0)
+                bytes=0.0, ops=0.0, pairs=0.0, sites=[])
 
 
 def finish_agg(agg):
     agg["bound_ms"], agg["bound_by"] = bound_ms(agg.pop("bytes"), agg.pop("ops"))
     if not agg["pairs"]:  # only the scans (grouped selection, kNN) count their pairs
         del agg["pairs"]
+    if not agg["sites"]:  # only the SA train passes' step sites: (C1, B x C, K) each
+        del agg["sites"]
     return agg
 
 
@@ -499,29 +524,45 @@ def sass_per_pair(sass: str, r: int):
     return found
 
 
-def sass_edge_loops(sass: str, edges: int):
-    """The edge loop of each sa_train_bwd2 instance: its innermost loop that
-    holds the dq atomics (RED), with its SASS instructions, SHFLs and FP32
-    instructions, each over the `edges` one pass of the loop covers: what a
-    warp issues an edge."""
+def sass_edge_loops(sass: str):
+    """The slot loop of each instance of the SA train passes that take their
+    slots in batches (csrc/sa_train.cu: main, bwd1, bwd2): the innermost
+    loop that holds the q rows' global loads (LDG), the longest if several,
+    with its SASS instructions, SHFLs and FP32 instructions, each over the
+    edges one pass of the loop covers, KB slots of each of a warp's 32 / C1
+    groups (C1 and KB are the instance's template arguments): what a warp
+    issues an edge. None for an instance with no such loop."""
+    import re
     from collections import Counter
 
     found = {}
     for func, ins in sass_functions(sass).items():
-        if "sa_train_bwd2_kernel" not in func:
+        m = re.search(r"(sa_train_(?:main|bwd1|bwd2))_kernelILi(\d+)E(?:Lb[01]E)?Li(\d+)E", func)
+        if not m:
             continue
-        loops = [b for b in innermost_loops(ins)
-                 if any(opcode(t) in ("RED", "REDG", "ATOM", "ATOMG") for _, t in b)]
+        name, ch, kb = m.group(1), int(m.group(2)), int(m.group(3))
+        loops = [b for b in innermost_loops(ins) if any(opcode(t) == "LDG" for _, t in b)]
         if not loops:
             found[func] = None
             continue
         body = max(loops, key=len)
+        edges = kb * 32 // ch
         ops = Counter(opcode(t) for _, t in body)
         fp32 = sum(ops[o] for o in ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL"))
-        found[func] = {"instructions": len(body), "edges_a_pass": edges,
-                       "per_edge": len(body) / edges, "shfl_per_edge": ops["SHFL"] / edges,
-                       "fp32_per_edge": fp32 / edges, "opcodes": dict(ops.most_common())}
+        found[func] = {"kernel": name, "C1": ch, "KB": kb, "instructions": len(body),
+                       "edges_a_pass": edges, "per_edge": len(body) / edges,
+                       "shfl_per_edge": ops["SHFL"] / edges, "fp32_per_edge": fp32 / edges,
+                       "opcodes": dict(ops.most_common())}
     return found
+
+
+def check_edge_loops(loops):
+    """Phase 16 fails unless the slot loop of every batched SA train
+    instance was found: main at SA1 and SA2, bwd1, bwd2 at SA1 and SA2."""
+    got = sorted((v["kernel"], v["C1"]) for v in loops.values() if v is not None)
+    check(got == sorted(EDGE_LOOP_INSTANCES) and None not in loops.values(),
+          f"sa_train: slot loops found for {got} (missing: "
+          f"{[f for f, v in loops.items() if v is None]}), expected {sorted(EDGE_LOOP_INSTANCES)}")
 
 
 def sm_clock_under_load(torch, ck, device):
@@ -546,19 +587,17 @@ def sm_clock_under_load(torch, ck, device):
     return [float(v) for v in out.split()]
 
 
-# csrc/sa_train.cu: a pass of bwd2's slot loop is 8 edges a warp (kBatch x 32 / C)
-BWD2_EDGES_A_PASS = 8
-
-
 def scan_floor(torch, ck, libs, clock_mhz, rows):
     """Phase 16. The issue floor of the kernels that scan every pair: the
     pairs of a step (serve for sa_fused_eval and knn_interpolate, train for
     ball_query) times the SASS instructions a pair of the scan loop, over
     132 SMs x 128 lanes x the card's maximum SM clock (one instruction a
     lane a cycle); for kNN on the path of a pair that inserts nothing
-    (`common_per_pair`), beside the whole loop's. Then sa_train_bwd2's edge
-    loop: SASS instructions and SHFLs an edge. Each kernel's registers,
-    stack and spills (cuobjdump -res-usage)."""
+    (`common_per_pair`), beside the whole loop's. Then the slot loop of
+    every batched SA train instance (`sass_edge_loops`): SASS instructions,
+    SHFLs and FP32 instructions an edge, and its issue floor over the train
+    step's slots. Each kernel's registers, stack and spills (cuobjdump
+    -res-usage)."""
     from pathlib import Path
 
     from stratanet2_tpu_torch.ops import _build
@@ -594,12 +633,18 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
                           "issue_floor_whole_loop_ms":
                               pairs * per_pair / (132 * 128 * clock_mhz * 1e6) * 1e3,
                           "ms": rows[name]["ms"], "bound_ms": rows[name]["bound_ms"]}), flush=True)
-    loops = sass_edge_loops(dump("sa_train", "-sass"), BWD2_EDGES_A_PASS)
-    check(len(loops) == 2, f"sa_train_bwd2: {len(loops)} kernel instances in the SASS, expected 2")
-    print(json.dumps({"phase": "edge_loop", "kernel": "sa_train_bwd2", "edge_loops": loops,
-                      "resource_usage": resources("sa_train"),
-                      "ms": rows["sa_train_bwd2"]["ms"],
-                      "bound_ms": rows["sa_train_bwd2"]["bound_ms"]}), flush=True)
+    loops = sass_edge_loops(dump("sa_train", "-sass"))
+    check_edge_loops(loops)
+    res = resources("sa_train")
+    for func, loop in loops.items():
+        row = rows[loop["kernel"]]
+        slots = sum(bc * -(-k // loop["KB"]) * loop["KB"]  # every slot of a batch is computed
+                    for ch, bc, k in row["sites"] if ch == loop["C1"])
+        print(json.dumps({"phase": "edge_loop", "function": func, **loop,
+                          "resource_usage": res.get(func), "slots_per_step": slots,
+                          "sm_clock_max_mhz": clock_mhz,
+                          "issue_floor_ms": slots * loop["per_edge"] / (132 * 4 * clock_mhz * 1e6) * 1e3,
+                          "kernel_ms": row["ms"], "kernel_bound_ms": row["bound_ms"]}), flush=True)
 
 
 def fps_chain(torch, ck, step_calls, device):
@@ -890,6 +935,9 @@ def compare_train_kernels(torch, ck, captured):
                 got, want = kernel(*args), plain(*args)
                 shape, nbytes, ops, err = compare_sa_train_site(torch, ck, name, site, args,
                                                                 got, want)
+                b, c, k = args[2].shape
+                if site < n_step:
+                    agg["sites"].append((args[0].shape[2], b * c, k))
             else:  # pixel_max_bwd
                 pix, amax, g = args
                 got, want = kernel(*args), plain(*args)
@@ -933,6 +981,43 @@ def pixel_max_bwd_reference_call(torch, ck, device, b, n, n_pix):
     _, amax = ck.pixel_max_plain(pix, vals, n_pix)
     g = torch.randn((b, n_pix, 3), generator=gen, device=device)
     return pix, amax, g
+
+
+def sa_train_reference_calls(torch, ck, device):
+    """The arguments of the SA train passes at the SA_TRAIN_REFERENCE sites,
+    drawn from a seed, as {pass: [args]}: the stats and bwd1 passes at the
+    two-layer site only. The per-channel BN terms (`sa_aff`; the scales a1,
+    gos and inv_s around 1) and W2 are drawn too; the backward passes take
+    the plain main pass's winners (amax) and random cotangents."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=device) * scale + shift
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=device).float()
+
+    calls = {name: [] for name in SA_TRAIN}
+    for b, n, c, k, ch in SA_TRAIN_REFERENCE:
+        two = ch == 16
+        q = ints(-2, 3, 8, ch)[torch.randint(0, 8, (b, n), generator=gen, device=device)]
+        cterm = ints(-1, 2, b, c, ch)
+        idx = torch.randint(0, n, (b, c, k), generator=gen, device=device, dtype=torch.int32)
+        mask = torch.rand((b, c, k), generator=gen, device=device) < 0.6
+        mask.view(b * c, k)[::5] = False
+        positive = ("a1", "gos2", "inv_s2", "inv_s1", "gos1")
+        aff = ck.sa_aff(ch, **{row: (draw(ch, scale=0.25, shift=1.0) if row in positive
+                                     else draw(ch, scale=0.1))
+                               for row in ck.SA_AFF_ROWS}).contiguous()
+        w2 = draw(ch, ch, scale=0.25) if two else None
+        amax = ck.sa_train_main_plain(q, cterm, idx, mask, aff, w2)[4]
+        bwd = (q, cterm, idx, mask, aff, w2, amax, draw(b, c, ch))
+        calls["sa_train_main"].append(bwd[:6])
+        calls["sa_train_bwd2"].append(bwd)
+        if two:
+            calls["sa_train_stats"].append(bwd[:5])
+            calls["sa_train_bwd1"].append(bwd)
+    return calls
 
 
 def launch_path(torch, ck, args):
@@ -1279,6 +1364,8 @@ def train_phases(torch, ck, cfg, device, card):
     ref = capture_calls(ck, list(PHASE10_SITES),
                         lambda: compare_fused_with_unfused(torch, cfg, model, cloud, xyz))
     for name, calls in ref.items():
+        captured[name] += calls
+    for name, calls in sa_train_reference_calls(torch, ck, device).items():
         captured[name] += calls
     captured["ball_query"] += selection_reference_calls(torch, ck, device)[0]
     step_bwd = captured["pixel_max_bwd"][0]

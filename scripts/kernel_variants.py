@@ -4,15 +4,20 @@
 Each SOURCE is a copy of `stratanet2_tpu_torch/ops/csrc/<library>.cu` with
 another design behind the same C entry point. The script builds every source
 at once with the port's nvcc flags (`ops/_build.py`), prints each kernel's
-registers and spills (`cuobjdump -res-usage`), then runs the entry point at
-the PROD step shapes (B=20 x N=10000: kNN's FP1 and FP2; sa_train_bwd2's SA1
-and SA2 on ball-query picks of a synthetic cloud) against the plain PyTorch
-version and prints one JSON line a source and site: the error against the
-plain version and the CUDA-event time of one launch (mean of 20, after a
-warm-up). kNN runs every slice count the entry takes (1, 2, 4, 8).
+registers and spills (`cuobjdump -res-usage`) and, for sa_train.cu, the SASS,
+SHFLs and FP32 instructions an edge of each batched slot loop (chip_smoke.py's
+`sass_edge_loops`), then runs the entry point at the PROD step shapes (B=20 x
+N=10000: kNN's FP1 and FP2; the SA train passes' SA1 and SA2, bwd1 SA1 only,
+on ball-query picks of a synthetic cloud) against the plain PyTorch version
+and prints one JSON line a source and site: the error against the plain
+version (for sa_train_main the winners that differ) and the CUDA-event time
+of one launch (mean of 20, after a warm-up). kNN runs every slice count the
+entry takes (1, 2, 4, 8).
 
     python3 scripts/kernel_variants.py knn_interpolate a.cu b.cu
-    python3 scripts/kernel_variants.py sa_train_bwd2 stratanet2_tpu_torch/ops/csrc/sa_train.cu x.cu
+    python3 scripts/kernel_variants.py sa_train_main stratanet2_tpu_torch/ops/csrc/sa_train.cu x.cu
+
+Kernels: knn_interpolate, sa_train_main, sa_train_bwd1, sa_train_bwd2.
 
 Builds go to the git-ignored build/variants/. Exits non-zero without a card.
 """
@@ -27,6 +32,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (its SASS parsers)
 
 SEED = 0
 REPS = 20
@@ -54,6 +61,14 @@ def build(sources):
                                text=True, check=True).stdout
         print(json.dumps({"source": str(src), "resource_usage": " ".join(usage.split())}),
               flush=True)
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+        loops = chip_smoke.sass_edge_loops(sass)  # empty but for sa_train.cu
+        if loops:
+            print(json.dumps({"source": str(src), "edge_loops": {
+                f: v and {key: v[key] for key in ("kernel", "C1", "KB", "per_edge", "shfl_per_edge",
+                                                  "fp32_per_edge")}
+                for f, v in loops.items()}}), flush=True)
         libs[src] = ctypes.CDLL(str(lib))
     return libs
 
@@ -106,13 +121,17 @@ def run_knn(torch, ck, libs, gen, device):
                 }), flush=True)
 
 
-def run_bwd2(torch, ck, libs, gen, device):
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    stream = torch._C._cuda_getCurrentRawStream(0)
+def sa_sites(torch, ck, gen, device, two_layer_only=False):
+    """The SA train passes' PROD sites, (site, b, n, c, k, ch, args) with
+    args = (q, cterm, idx, mask, aff, w2, awin, gt): SA1 (16 channels, two
+    layers, K=32) and SA2 (32, one layer, K=64) on ball-query picks of a
+    synthetic cloud, BN terms and W2 drawn from `gen`."""
     pts = plot_clouds(torch, gen, 20, 10000, device)
     for site, n, c, k, radius, ch in (("SA1", 10000, 2500, 32, 2 ** 0.5, 16),
                                       ("SA2", 2500, 625, 64, 8 ** 0.5, 32)):
         b, two = 20, ch == 16
+        if two_layer_only and not two:
+            continue
         xyz = pts[:, :n].contiguous()
         idx, mask = ck.ball_query_plain(xyz[:, :c].contiguous(), xyz, radius, k)
 
@@ -132,30 +151,97 @@ def run_bwd2(torch, ck, libs, gen, device):
                 rnd(ch, ch, scale=0.25) if two else None,
                 torch.randint(0, k, (b, c, ch), generator=gen, device=device, dtype=torch.int32),
                 rnd(b, c, ch))
+        yield site, b, n, c, k, ch, args
+
+
+def entry(lib, symbol, n_ptrs, n_ints):
+    """`symbol` of `lib` with n_ptrs pointers, n_ints ints and the stream."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ptrs(args):
+    return [None if a is None else a.data_ptr() for a in args]
+
+
+def rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def run_main(torch, ck, libs, gen, device):
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    for site, b, n, c, k, ch, args in sa_sites(torch, ck, gen, device):
+        two = ch == 16
+        fwd = args[:6]
+        want = ck.sa_train_main_plain(*fwd)
+        grid = ck.sa_grid(b, c, ch)
+        for src, lib in libs.items():
+            fn = entry(lib, "sa_train_main_launch", 11, 7)
+            partial = torch.empty((grid, 2, ch), device=device)
+            outs = [torch.empty((b, c, ch), device=device, dtype=dt)
+                    for dt in (torch.float32, torch.float32, torch.int32, torch.int32)]
+            cargs = ptrs(fwd) + ptrs([partial, *outs]) + [grid, b, n, c, k, ch, int(two), stream]
+            rc = fn(*cargs)
+            torch.cuda.synchronize()
+            sums = partial.sum(0)
+            print(json.dumps({
+                "source": str(src), "kernel": "sa_train_main", "site": site, "rc": rc,
+                "differing_winners": sum(int((g != w).sum()) for g, w in zip(outs, want[2:])),
+                "sum_rel_diff": rel(sums[0], want[0]), "sumsq_rel_diff": rel(sums[1], want[1]),
+                "ms": event_ms(torch, lambda: fn(*cargs)),
+            }), flush=True)
+
+
+def run_bwd1(torch, ck, libs, gen, device):
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    for site, b, n, c, k, ch, args in sa_sites(torch, ck, gen, device, two_layer_only=True):
+        want = ck.sa_train_bwd1_plain(*args)
+        grid = ck.sa_grid(b, c, ch)
+        for src, lib in libs.items():
+            fn = entry(lib, "sa_train_bwd1_launch", 9, 6)
+            partial = torch.empty((grid, 3 + ch, ch), device=device)
+            cargs = ptrs(args) + [partial.data_ptr(), grid, b, n, c, k, ch, stream]
+            rc = fn(*cargs)
+            torch.cuda.synchronize()
+            s = partial.sum(0)
+            print(json.dumps({
+                "source": str(src), "kernel": "sa_train_bwd1", "site": site, "rc": rc,
+                **{f"{what}_rel_diff": rel(g, w) for what, g, w in
+                   zip(("S1", "S2", "db2", "dW2"), (s[0], s[1], s[2], s[3:]), want)},
+                "ms": event_ms(torch, lambda: fn(*cargs)),
+            }), flush=True)
+
+
+def run_bwd2(torch, ck, libs, gen, device):
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    for site, b, n, c, k, ch, args in sa_sites(torch, ck, gen, device):
         want_dq, want_dct = ck.sa_train_bwd2_plain(*args)
         grid = ck.sa_grid(b, c, ch)
         for src, lib in libs.items():
-            fn = lib.sa_train_bwd2_launch
-            fn.argtypes = [vp] * 10 + [i32] * 7 + [vp]
-            fn.restype = i32
+            fn = entry(lib, "sa_train_bwd2_launch", 10, 7)
             dq = torch.empty((b, n, ch), device=device)
             dct = torch.empty((b, c, ch), device=device)
-            cargs = [None if a is None else a.data_ptr() for a in args]
-            cargs += [dq.data_ptr(), dct.data_ptr(), grid, b, n, c, k, ch, int(two), stream]
+            cargs = ptrs(args) + [dq.data_ptr(), dct.data_ptr(), grid, b, n, c, k, ch,
+                                  int(ch == 16), stream]
             rc = fn(*cargs)
             torch.cuda.synchronize()
             print(json.dumps({
-                "source": str(src), "site": site, "rc": rc,
-                "dq_rel_diff": float((dq - want_dq).abs().max() / want_dq.abs().max()),
-                "dcterm_rel_diff": float((dct - want_dct).abs().max() / want_dct.abs().max()),
+                "source": str(src), "kernel": "sa_train_bwd2", "site": site, "rc": rc,
+                "dq_rel_diff": rel(dq, want_dq), "dcterm_rel_diff": rel(dct, want_dct),
                 "ms": event_ms(torch, lambda: fn(*cargs)),
             }), flush=True)
+
+
+RUNS = {"knn_interpolate": run_knn, "sa_train_main": run_main, "sa_train_bwd1": run_bwd1,
+        "sa_train_bwd2": run_bwd2}
 
 
 def main() -> int:
     import torch
 
-    if len(sys.argv) < 3 or sys.argv[1] not in ("knn_interpolate", "sa_train_bwd2"):
+    if len(sys.argv) < 3 or sys.argv[1] not in RUNS:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -169,7 +255,7 @@ def main() -> int:
     print(smi.stdout.strip(), flush=True)
     libs = build(sys.argv[2:])
     gen = torch.Generator(device=device).manual_seed(SEED)
-    (run_knn if sys.argv[1] == "knn_interpolate" else run_bwd2)(torch, ck, libs, gen, device)
+    RUNS[sys.argv[1]](torch, ck, libs, gen, device)
     return 0
 
 

@@ -22,28 +22,63 @@
 // every valid edge costs 6*C1 operations in layer 1 and, with two layers,
 // 2*C1*C2 more for each 16x16 product (forward in every pass, transposed and
 // outer products in the backward). The random q rows (64 or 128 B) come from
-// L2: q is 12.8 MB at SA1 and 6.4 MB at SA2.
+// L2: q is 12.8 MB at SA1 and 6.4 MB at SA2. At the PROD train step
+// (chip_smoke.py's bound, float32 operations of the valid edges over 67
+// TFLOP/s) main is bound at 0.017 ms (SA1 + SA2), bwd1 at 0.039, bwd2 at
+// 0.034; what the card can issue is the lower limit that matters: phase 16
+// of chip_smoke.py (`edge_loop`) gives each slot loop's SASS a warp an edge
+// and the issue floor, the slots walked x SASS an edge / (132 SMs x 4
+// schedulers x the maximum SM clock).
 //
 // Design: lane = channel. A group of C1 lanes (a half-warp at SA1, C1 =
-// C2 = 16; a warp at SA2, C1 = 32) owns one centroid at a time and walks its
-// K slots in order. Each q row is one coalesced 64 or 128 B load. The 16x16
-// layer-2 product: lane o holds column o of W2 and needs y1[i] of lane i; the
-// transposed product of the backward: lane i holds row i of W2 and needs
-// du[o] of lane o.
-// - stats, main, bwd1: a slot with mask False is skipped by the whole group;
-//   the products move y1[i] (du[o]) by __shfl_sync, one a term.
-// - bwd2: the group takes kBatch slots at a time and computes every one (a
-//   masked slot's values are dropped), so the batch's q rows load together
-//   and the two halves of a warp never split on the mask; the products go
-//   through shared memory: each lane writes its channel of the batch's y1
-//   (then du) rows and reads each row back as C1/4 broadcast LDS.128, no
-//   shuffle. On the H100 (PERF.md; scripts/kernel_variants.py) it
-//   takes 0.151 ms at SA1 against 0.268 for the shuffle form, 0.046 at SA2
-//   against 0.052; an edge a lane (a lane computes all 16 channels of its
+// C2 = 16; a warp at SA2, C1 = 32) owns one centroid at a time. Each q row
+// is one coalesced 64 or 128 B load. The 16x16 layer-2 product: lane o holds
+// column o of W2 and needs y1[i] of every lane i; the transposed product of
+// the backward: lane i holds row i of W2 and needs du[o] of every lane o.
+// - stats walks the K slots one at a time and skips a slot with mask False.
+// - main, bwd1 and bwd2 take their centroid's slots KB at a time
+//   (`load_slots`): the batch's idx and mask, then its KB q rows, are loaded
+//   together, so KB rows are in flight and not one; every slot of a batch is
+//   computed, and a masked slot's values enter no sum, no max/min and no
+//   winner (they are selected away, not branched around), so the two halves
+//   of a warp never split on each other's masks. A tail batch (s0 + u >= K)
+//   is masked the same way: the kernels take any K.
+// - The products go through shared memory, no shuffle: each lane writes its
+//   channel of the batch's y1 rows (`stage_rows`) and reads a row back as
+//   C1/4 broadcast LDS.128 (`row_dot`); bwd1 reads the staged y1 row a second
+//   time for the dW2 outer product (`row_outer`), and bwd1 and bwd2 then
+//   stage the du rows for dy1 = du @ W2^T. The shuffle form it replaces
+//   issued one SHFL a term: 16 a lane an edge in main at SA1, 48 in bwd1.
+// - main at SA2, where a group is a whole warp, also stages the batch's idx
+//   and mask through shared memory (`load_slots_staged`): two loads a batch
+//   in place of 2*KB that all 32 lanes issue for one address. At SA1 (two
+//   groups a warp) and in bwd1 and bwd2 this staging measured slower.
+// KB, by kernel and instance (kMainKB1 ... kBwd2KB2 below), was chosen by
+// scripts/kernel_variants.py on the H100 (PERF.md §6 has every candidate's
+// time): main SA1 of 2, 4, 8; main SA2 of 8, 16, 32 (staged) and 4, 8, 16
+// (not); bwd1 of 2, 4, 8; bwd2 of 2, 4, 8 and 4, 8, 16 (PR 6).
+// Measured on the H100 (NVIDIA H100 80GB HBM3, 700 W; CUDA-event ms a
+// launch at the PROD train-step sites, scripts/kernel_variants.py; the
+// shuffle form each replaces in the same call in brackets; each design not
+// kept was timed beside the kept one in its own call, PERF.md §6):
+// - main: 0.0714 at SA1 (0.1067), 0.0361 at SA2 (0.0403); slot loops of 27.3
+//   and 26.9 SASS a warp an edge, 64 and 80 registers. Not kept: KB 2 and 8
+//   at SA1 (0.0777, 0.0718); unstaged KB 4, 8, 16 at SA2 (0.0424, 0.0405,
+//   0.0408), staged KB 8 and 32 (0.0379, 0.0365); staged at SA1 (0.0770);
+//   the next batch's idx and mask loaded ahead (0.0715, 0.0418); registers
+//   capped for 5 or 6 blocks an SM (48 or 40 registers: 0.0800, 0.0908).
+// - bwd1: 0.1304 (0.3002); 52.1 SASS a warp an edge, 127 registers (2
+//   blocks an SM). Not kept: KB 2 and 8 (0.1481; 0.1926 at 130 registers, 1
+//   block an SM); capped at 80 registers for 3 blocks (168 B of spills,
+//   0.2228); staged slots (0.1372); loads ahead (0.1315). Group rows padded
+//   against the two half-warps' 2-way bank conflict measured within noise in
+//   all three kernels (main 0.0696, bwd1 0.1302, bwd2 0.1508) and was not
+//   kept.
+// - bwd2 (PR 6): 0.151 at SA1 against 0.268 for the shuffle form, 0.046 at
+//   SA2 against 0.052; an edge a lane (a lane computes all 16 channels of its
 //   edge, W2 and the table from the constant bank) measured 0.167 at SA1
 //   and 0.075 at SA2, 0.251 and 0.121 with the q rows staged through
-//   shared memory. Its slot loop issues 49 SASS a warp an edge at SA1 and
-//   39 at SA2, no SHFL; 128 registers at SA1 (2 blocks an SM), 64 at SA2.
+//   shared memory. 128 registers at SA1 (2 blocks an SM), 64 at SA2.
 // Every per-edge value is computed with _rn intrinsics in the order of the
 // plain versions (cuda_kernels.sa_train_edges:
 // the products as fma chains in index order, no contraction elsewhere), so
@@ -52,7 +87,9 @@
 // Per-channel sums over edges (BN statistics, S1/S2, db2, dW2) are reduced
 // over the groups of a block in a fixed order and written as one partial row
 // per block; the wrapper sums the rows with torch, so two runs give the same
-// bits. dq is a scatter over points: float atomicAdd into a zeroed buffer,
+// bits. A masked slot adds an exact zero to a lane's chain, if anything, so
+// the chain's rounding depth is its valid edges (chip_smoke.sa_sum_depth).
+// dq is a scatter over points: float atomicAdd into a zeroed buffer,
 // sum order not fixed. 256 threads a block; the grid (given by the wrapper)
 // is at most 8 blocks of 256 threads on each of 132 SMs, each group walking
 // centroids with the grid's stride.
@@ -60,6 +97,9 @@
 
 constexpr int kThreads = 256;
 constexpr float kNeg = -3.4e38f;  // masked slots enter the max as this, the min as -this
+// Slots a group takes at once: main at SA1 and SA2, bwd1 (SA1 only), bwd2 at
+// SA1 and SA2 (see the head note).
+constexpr int kMainKB1 = 4, kMainKB2 = 16, kBwd1KB = 4, kBwd2KB1 = 4, kBwd2KB2 = 8;
 
 // Rows of the (kAffRows, width) per-channel table `aff`, in the order of
 // cuda_kernels.SA_AFF_ROWS.
@@ -78,23 +118,96 @@ __device__ __forceinline__ unsigned group_mask() {
   }
 }
 
-// u[o] = fma(y1[C-1], W2[C-1][o], ... fma(y1[1], W2[1][o], y1[0]*W2[0][o])) + b2[o]
-// for lane o; y1[i] comes from lane i of the group.
-template <int C>
-__device__ __forceinline__ float layer2(unsigned gm, float y1, const float (&w2c)[C], float b2) {
-  float s = __fmul_rn(__shfl_sync(gm, y1, 0, C), w2c[0]);
+// Slots s0 .. s0 + KB - 1 of one centroid (idx row ib, mask row mb, k
+// slots): ok[u], the slot lies inside k and its mask is True; qi[u], the
+// index of this lane's element of its q row (pb: the cloud's q plus the
+// lane; the cloud's point 0 where not ok, so every load is in bounds); e0[u]
+// = q - ct. The batch's idx and mask load first, then its q rows together.
+template <int C, int KB>
+__device__ __forceinline__ void load_slots(const float* __restrict__ q, size_t pb,
+                                           const int* __restrict__ ib,
+                                           const bool* __restrict__ mb, int s0, int k, float ct,
+                                           bool (&ok)[KB], size_t (&qi)[KB], float (&e0)[KB]) {
 #pragma unroll
-  for (int i = 1; i < C; ++i) s = __fmaf_rn(__shfl_sync(gm, y1, i, C), w2c[i], s);
-  return __fadd_rn(s, b2);
+  for (int u = 0; u < KB; ++u) {
+    ok[u] = s0 + u < k && mb[s0 + u];
+    qi[u] = pb + static_cast<size_t>(ok[u] ? ib[s0 + u] : 0) * C;
+  }
+#pragma unroll
+  for (int u = 0; u < KB; ++u) e0[u] = __fsub_rn(q[qi[u]], ct);
 }
 
-// dy1[i] = sum_o W2[i][o] du[o] as the same fma chain over o, for lane i.
-template <int C>
-__device__ __forceinline__ float layer2_t(unsigned gm, float du, const float (&w2r)[C]) {
-  float s = __fmul_rn(w2r[0], __shfl_sync(gm, du, 0, C));
+// load_slots for a group that is a whole warp: lanes u < KB load slot s0 + u's
+// idx (-1 where masked or past k) into the group's KB ints in shared memory
+// (`slots`) and every lane reads them back as int4, so a batch takes two
+// loads where load_slots takes 2*KB that every lane issues for one address.
+template <int C, int KB>
+__device__ __forceinline__ void load_slots_staged(const float* __restrict__ q, size_t pb,
+                                                  const int* __restrict__ ib,
+                                                  const bool* __restrict__ mb, int s0, int k,
+                                                  float ct, bool (&ok)[KB], size_t (&qi)[KB],
+                                                  float (&e0)[KB], int* slots, int lane) {
+  static_assert(C == 32 && KB % 4 == 0 && KB <= C, "a warp stages KB ints, read as int4");
+  if (lane < KB) {
+    const int s = s0 + lane;
+    slots[lane] = s < k && mb[s] ? ib[s] : -1;
+  }
+  __syncwarp();
 #pragma unroll
-  for (int o = 1; o < C; ++o) s = __fmaf_rn(w2r[o], __shfl_sync(gm, du, o, C), s);
-  return s;
+  for (int m = 0; m < KB / 4; ++m) {
+    const int4 t = reinterpret_cast<const int4*>(slots)[m];
+    const int id[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ok[4 * m + j] = id[j] >= 0;
+      qi[4 * m + j] = pb + static_cast<size_t>(id[j] >= 0 ? id[j] : 0) * C;
+    }
+  }
+  __syncwarp();  // read before the next batch writes
+#pragma unroll
+  for (int u = 0; u < KB; ++u) e0[u] = __fsub_rn(q[qi[u]], ct);
+}
+
+// Each lane writes its channel of the batch's KB rows (row u = v[u] over the
+// group's lanes) to the group's rows in shared memory; then the group syncs.
+template <int C, int KB>
+__device__ __forceinline__ void stage_rows(float* mine, const float (&v)[KB], int lane,
+                                           unsigned gm) {
+#pragma unroll
+  for (int u = 0; u < KB; ++u) mine[u * C + lane] = v[u];
+  __syncwarp(gm);
+}
+
+// sum_i row[i] * w[i] over a staged row of C floats, read as C/4 broadcast
+// LDS.128: the fma chain in index order (fmul for term 0, then __fmaf_rn),
+// as cuda_kernels._fma_chain rounds it.
+template <int C>
+__device__ __forceinline__ float row_dot(const float* row, const float (&w)[C]) {
+  const float4* r = reinterpret_cast<const float4*>(row);
+  float acc = 0.f;
+#pragma unroll
+  for (int m = 0; m < C / 4; ++m) {
+    const float4 y = r[m];
+    acc = m == 0 ? __fmul_rn(y.x, w[0]) : __fmaf_rn(y.x, w[4 * m], acc);
+    acc = __fmaf_rn(y.y, w[4 * m + 1], acc);
+    acc = __fmaf_rn(y.z, w[4 * m + 2], acc);
+    acc = __fmaf_rn(y.w, w[4 * m + 3], acc);
+  }
+  return acc;
+}
+
+// acc[i] = fma(row[i], d, acc[i]) for i < C over a staged row (LDS.128).
+template <int C>
+__device__ __forceinline__ void row_outer(const float* row, float d, float* acc) {
+  const float4* r = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int m = 0; m < C / 4; ++m) {
+    const float4 y = r[m];
+    acc[4 * m] = __fmaf_rn(y.x, d, acc[4 * m]);
+    acc[4 * m + 1] = __fmaf_rn(y.y, d, acc[4 * m + 1]);
+    acc[4 * m + 2] = __fmaf_rn(y.z, d, acc[4 * m + 2]);
+    acc[4 * m + 3] = __fmaf_rn(y.w, d, acc[4 * m + 3]);
+  }
 }
 
 // The BN backward at one edge, dx = gos * ((dy - s1n) - xhat * s2n) with
@@ -125,7 +238,8 @@ __device__ __forceinline__ void block_reduce(const float (&v)[V], float* out) {
 }
 
 // The per-channel parameters of one lane: BN1 fold, layer 2 and both BNs'
-// backward terms, loaded once per thread.
+// backward terms, loaded once per thread (a kernel's unused ones are dropped
+// by the compiler).
 template <int C, bool TWO>
 struct LaneParams {
   float a1, c1, b2, gos2, m2, inv_s2, s1n2, s2n2, m1, inv_s1, gos1, s1n1, s2n1;
@@ -189,7 +303,11 @@ sa_train_stats_kernel(const float* __restrict__ q, const float* __restrict__ cte
 // Statistics of the last layer's pre-BN h (shift shift_l) as partials
 // (grid, 2, C), and per centroid and channel the masked max and min of h
 // over the K slots with the first winning slot (strict > and <, slot order).
-template <int C, bool TWO>
+// Slots KB at a time, every one computed; with two layers the batch's y1
+// rows go through shared memory for u = y1 @ W2[:, lane] + b2. Where a group
+// is a whole warp (SA2) the batch's idx and mask go through shared memory
+// too (`load_slots_staged`).
+template <int C, bool TWO, int KB>
 __global__ void __launch_bounds__(kThreads)
 sa_train_main_kernel(const float* __restrict__ q, const float* __restrict__ cterm,
                      const int* __restrict__ idx, const bool* __restrict__ mask,
@@ -198,39 +316,61 @@ sa_train_main_kernel(const float* __restrict__ q, const float* __restrict__ cter
                      float* __restrict__ vmin_out, int* __restrict__ amax_out,
                      int* __restrict__ amin_out, int n, int c, int k, int total) {
   constexpr int kGroups = kThreads / C;
+  constexpr bool kStage = C == 32;
+  __shared__ __align__(16) float rows[TWO ? kGroups * KB * C : 4];
+  __shared__ __align__(16) int slot_rows[kStage ? kGroups * KB : 4];
   const int lane = threadIdx.x % C;
   const unsigned gm = group_mask<C>();
   const float shift = aff[kShiftL * C + lane];
   const LaneParams<C, TWO> p(aff, w2, lane);
+  float* mine = rows + (TWO ? (threadIdx.x / C) * KB * C : 0);
+  int* my_slots = slot_rows + (kStage ? (threadIdx.x / C) * KB : 0);
   float v[2] = {0.f, 0.f};
   for (int cent = blockIdx.x * kGroups + threadIdx.x / C; cent < total;
        cent += gridDim.x * kGroups) {
-    const float* qb = q + static_cast<size_t>(cent / c) * n * C + lane;
-    const float ct = cterm[static_cast<size_t>(cent) * C + lane];
+    const size_t pb = static_cast<size_t>(cent / c) * n * C + lane;
+    const size_t o = static_cast<size_t>(cent) * C + lane;
+    const float ct = cterm[o];
     const int* ib = idx + static_cast<size_t>(cent) * k;
     const bool* mb = mask + static_cast<size_t>(cent) * k;
     float vmax = kNeg, vmin = -kNeg;
     int amax = 0, amin = 0;
-    for (int s = 0; s < k; ++s) {
-      if (!mb[s]) continue;
-      const float h1 = fmaxf(__fsub_rn(qb[static_cast<size_t>(ib[s]) * C], ct), 0.f);
-      float h = h1;
+    for (int s0 = 0; s0 < k; s0 += KB) {
+      bool ok[KB];
+      size_t qi[KB];
+      float h[KB];
+      if constexpr (kStage) {
+        load_slots_staged<C, KB>(q, pb, ib, mb, s0, k, ct, ok, qi, h, my_slots, lane);
+      } else {
+        load_slots<C, KB>(q, pb, ib, mb, s0, k, ct, ok, qi, h);
+      }
+#pragma unroll
+      for (int u = 0; u < KB; ++u) h[u] = fmaxf(h[u], 0.f);  // h1
       if constexpr (TWO) {
-        h = fmaxf(layer2<C>(gm, __fadd_rn(__fmul_rn(h1, p.a1), p.c1), p.w2c, p.b2), 0.f);
+        float y1[KB];
+#pragma unroll
+        for (int u = 0; u < KB; ++u) y1[u] = __fadd_rn(__fmul_rn(h[u], p.a1), p.c1);
+        stage_rows<C, KB>(mine, y1, lane, gm);
+#pragma unroll
+        for (int u = 0; u < KB; ++u)
+          h[u] = fmaxf(__fadd_rn(row_dot<C>(mine + u * C, p.w2c), p.b2), 0.f);
+        __syncwarp(gm);  // the rows are read before the next batch writes
       }
-      const float hc = __fsub_rn(h, shift);
-      v[0] = __fadd_rn(v[0], hc);
-      v[1] = __fmaf_rn(hc, hc, v[1]);
-      if (h > vmax) {
-        vmax = h;
-        amax = s;
-      }
-      if (h < vmin) {
-        vmin = h;
-        amin = s;
+#pragma unroll
+      for (int u = 0; u < KB; ++u) {
+        const float hc = ok[u] ? __fsub_rn(h[u], shift) : 0.f;
+        v[0] = __fadd_rn(v[0], hc);
+        v[1] = __fmaf_rn(hc, hc, v[1]);
+        if (ok[u] && h[u] > vmax) {
+          vmax = h[u];
+          amax = s0 + u;
+        }
+        if (ok[u] && h[u] < vmin) {
+          vmin = h[u];
+          amin = s0 + u;
+        }
       }
     }
-    const size_t o = static_cast<size_t>(cent) * C + lane;
     vmax_out[o] = vmax;
     vmin_out[o] = vmin;
     amax_out[o] = amax;
@@ -243,7 +383,10 @@ sa_train_main_kernel(const float* __restrict__ q, const float* __restrict__ cter
 // gt at the centroid's winner slot, 0 elsewhere), then per-block partials
 // (grid, 3 + C, C) of S1_1 = sum dy1, S2_1 = sum dy1 * xhat1, db2 = sum du
 // and dW2[i][o] = sum y1[i] du[o] (rows 3 + i).
-template <int C>
+// Slots KB at a time, every one computed, a masked slot's du set to 0: the
+// staged y1 rows give u and the dW2 outer product, then the staged du rows
+// give dy1 = du @ W2[lane, :]^T.
+template <int C, int KB>
 __global__ void __launch_bounds__(kThreads)
 sa_train_bwd1_kernel(const float* __restrict__ q, const float* __restrict__ cterm,
                      const int* __restrict__ idx, const bool* __restrict__ mask,
@@ -251,35 +394,50 @@ sa_train_bwd1_kernel(const float* __restrict__ q, const float* __restrict__ cter
                      const int* __restrict__ awin, const float* __restrict__ gt,
                      float* __restrict__ partial, int n, int c, int k, int total) {
   constexpr int kGroups = kThreads / C;
+  __shared__ __align__(16) float rows[kGroups * KB * C];
   const int lane = threadIdx.x % C;
   const unsigned gm = group_mask<C>();
   const LaneParams<C, true> p(aff, w2, lane);
+  float* mine = rows + (threadIdx.x / C) * KB * C;
   float v[3 + C];
 #pragma unroll
   for (int j = 0; j < 3 + C; ++j) v[j] = 0.f;
   for (int cent = blockIdx.x * kGroups + threadIdx.x / C; cent < total;
        cent += gridDim.x * kGroups) {
-    const float* qb = q + static_cast<size_t>(cent / c) * n * C + lane;
+    const size_t pb = static_cast<size_t>(cent / c) * n * C + lane;
     const size_t o = static_cast<size_t>(cent) * C + lane;
     const float ct = cterm[o];
     const int aw = awin[o];
     const float g = gt[o];
     const int* ib = idx + static_cast<size_t>(cent) * k;
     const bool* mb = mask + static_cast<size_t>(cent) * k;
-    for (int s = 0; s < k; ++s) {
-      if (!mb[s]) continue;
-      const float h1 = fmaxf(__fsub_rn(qb[static_cast<size_t>(ib[s]) * C], ct), 0.f);
-      const float y1 = __fadd_rn(__fmul_rn(h1, p.a1), p.c1);
-      const float u = layer2<C>(gm, y1, p.w2c, p.b2);
-      const float du = bn_relu_bwd(aw == s ? g : 0.f, fmaxf(u, 0.f), u, p.m2, p.inv_s2, p.gos2,
-                                   p.s1n2, p.s2n2);
-      v[2] = __fadd_rn(v[2], du);
+    for (int s0 = 0; s0 < k; s0 += KB) {
+      bool ok[KB];
+      size_t qi[KB];
+      float e0[KB], y1[KB], du[KB];
+      load_slots<C, KB>(q, pb, ib, mb, s0, k, ct, ok, qi, e0);
 #pragma unroll
-      for (int i = 0; i < C; ++i) v[3 + i] = __fmaf_rn(__shfl_sync(gm, y1, i, C), du, v[3 + i]);
-      const float dy1 = layer2_t<C>(gm, du, p.w2r);
-      const float xhat1 = __fmul_rn(__fsub_rn(h1, p.m1), p.inv_s1);
-      v[0] = __fadd_rn(v[0], dy1);
-      v[1] = __fmaf_rn(dy1, xhat1, v[1]);
+      for (int u = 0; u < KB; ++u) y1[u] = __fadd_rn(__fmul_rn(fmaxf(e0[u], 0.f), p.a1), p.c1);
+      stage_rows<C, KB>(mine, y1, lane, gm);
+#pragma unroll
+      for (int u = 0; u < KB; ++u) {
+        const float uu = __fadd_rn(row_dot<C>(mine + u * C, p.w2c), p.b2);
+        const float d = bn_relu_bwd(aw == s0 + u ? g : 0.f, fmaxf(uu, 0.f), uu, p.m2, p.inv_s2,
+                                    p.gos2, p.s1n2, p.s2n2);
+        du[u] = ok[u] ? d : 0.f;
+        v[2] = __fadd_rn(v[2], du[u]);
+        row_outer<C>(mine + u * C, du[u], v + 3);  // dW2[i][lane] += y1[i] du
+      }
+      __syncwarp(gm);  // the y1 rows are read
+      stage_rows<C, KB>(mine, du, lane, gm);
+#pragma unroll
+      for (int u = 0; u < KB; ++u) {
+        const float dy1 = row_dot<C>(mine + u * C, p.w2r);  // 0 on a masked slot
+        const float xhat1 = __fmul_rn(__fsub_rn(fmaxf(e0[u], 0.f), p.m1), p.inv_s1);
+        v[0] = __fadd_rn(v[0], dy1);
+        v[1] = __fmaf_rn(dy1, xhat1, v[1]);
+      }
+      __syncwarp(gm);  // the du rows are read before the next batch writes
     }
   }
   block_reduce<C, 3 + C>(v, partial + static_cast<size_t>(blockIdx.x) * (3 + C) * C);
@@ -289,16 +447,9 @@ sa_train_bwd1_kernel(const float* __restrict__ q, const float* __restrict__ cter
 // dq[b, idx] += de0 (float atomics into dq, zeroed by the launch) and
 // dcterm = -sum over the K slots of de0. With two layers dy1 comes from
 // BN2's backward as in bwd1; with one, dy1 is gt at the winner slot.
-//
-// Lane = channel as in the other passes, but the group takes its centroid's
-// slots kBatch at a time, every slot of a batch computed (a masked slot's
-// values are discarded): the batch's q rows are loaded together, the group
-// never splits on the mask, and the batch gives kBatch independent chains.
-// Two layers: each lane writes its channel of the batch's y1 rows (then du
-// rows) to the group's rows in shared memory, and every lane reads a row
-// back as C/4 broadcast LDS.128, in place of C __shfl_sync a product.
-// kBatch 4 (SA1) and 8 (SA2) measured best of 2, 4, 8 and 4, 8, 16 (PERF.md).
-template <int C, bool TWO>
+// Slots KB at a time, every one computed, as in main and bwd1; with two
+// layers the y1 rows, then the du rows, go through shared memory.
+template <int C, bool TWO, int KB>
 __global__ void __launch_bounds__(kThreads)
 sa_train_bwd2_kernel(const float* __restrict__ q, const float* __restrict__ cterm,
                      const int* __restrict__ idx, const bool* __restrict__ mask,
@@ -307,12 +458,11 @@ sa_train_bwd2_kernel(const float* __restrict__ q, const float* __restrict__ cter
                      float* __restrict__ dq, float* __restrict__ dcterm, int n, int c, int k,
                      int total) {
   constexpr int kGroups = kThreads / C;
-  constexpr int kBatch = TWO ? 4 : 8;
-  __shared__ __align__(16) float rows[TWO ? kGroups * kBatch * C : 4];
+  __shared__ __align__(16) float rows[TWO ? kGroups * KB * C : 4];
   const int lane = threadIdx.x % C;
   const unsigned gm = group_mask<C>();
   const LaneParams<C, TWO> p(aff, w2, lane);
-  float* mine = rows + (TWO ? (threadIdx.x / C) * kBatch * C : 0);
+  float* mine = rows + (TWO ? (threadIdx.x / C) * KB * C : 0);
   for (int cent = blockIdx.x * kGroups + threadIdx.x / C; cent < total;
        cent += gridDim.x * kGroups) {
     const size_t pb = static_cast<size_t>(cent / c) * n * C + lane;
@@ -323,64 +473,33 @@ sa_train_bwd2_kernel(const float* __restrict__ q, const float* __restrict__ cter
     const int* ib = idx + static_cast<size_t>(cent) * k;
     const bool* mb = mask + static_cast<size_t>(cent) * k;
     float dct = 0.f;
-    for (int s0 = 0; s0 < k; s0 += kBatch) {
-      bool ok[kBatch];
-      size_t qi[kBatch];
-      float e0[kBatch], dy1[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        ok[u] = s0 + u < k && mb[s0 + u];
-        qi[u] = pb + static_cast<size_t>(ok[u] ? ib[s0 + u] : 0) * C;
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) e0[u] = __fsub_rn(q[qi[u]], ct);
+    for (int s0 = 0; s0 < k; s0 += KB) {
+      bool ok[KB];
+      size_t qi[KB];
+      float e0[KB], dy1[KB];
+      load_slots<C, KB>(q, pb, ib, mb, s0, k, ct, ok, qi, e0);
       if constexpr (TWO) {
-        float du[kBatch];
+        float du[KB];
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u)
-          mine[u * C + lane] = __fadd_rn(__fmul_rn(fmaxf(e0[u], 0.f), p.a1), p.c1);  // y1
-        __syncwarp(gm);
+        for (int u = 0; u < KB; ++u) du[u] = __fadd_rn(__fmul_rn(fmaxf(e0[u], 0.f), p.a1), p.c1);
+        stage_rows<C, KB>(mine, du, lane, gm);  // the y1 rows
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u) {  // u = y1 @ W2[:, lane] + b2, the fma chain over i
-          const float4* r = reinterpret_cast<const float4*>(mine + u * C);
-          float acc = 0.f;
-#pragma unroll
-          for (int m = 0; m < C / 4; ++m) {
-            const float4 y = r[m];
-            acc = m == 0 ? __fmul_rn(y.x, p.w2c[0]) : __fmaf_rn(y.x, p.w2c[4 * m], acc);
-            acc = __fmaf_rn(y.y, p.w2c[4 * m + 1], acc);
-            acc = __fmaf_rn(y.z, p.w2c[4 * m + 2], acc);
-            acc = __fmaf_rn(y.w, p.w2c[4 * m + 3], acc);
-          }
-          const float uu = __fadd_rn(acc, p.b2);
+        for (int u = 0; u < KB; ++u) {
+          const float uu = __fadd_rn(row_dot<C>(mine + u * C, p.w2c), p.b2);
           du[u] = bn_relu_bwd(aw == s0 + u ? g : 0.f, fmaxf(uu, 0.f), uu, p.m2, p.inv_s2, p.gos2,
                               p.s1n2, p.s2n2);
         }
         __syncwarp(gm);  // the y1 rows are read
+        stage_rows<C, KB>(mine, du, lane, gm);
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u) mine[u * C + lane] = du[u];
-        __syncwarp(gm);
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {  // dy1 = du @ W2[lane, :]^T, the fma chain over o
-          const float4* r = reinterpret_cast<const float4*>(mine + u * C);
-          float acc = 0.f;
-#pragma unroll
-          for (int m = 0; m < C / 4; ++m) {
-            const float4 d = r[m];
-            acc = m == 0 ? __fmul_rn(p.w2r[0], d.x) : __fmaf_rn(p.w2r[4 * m], d.x, acc);
-            acc = __fmaf_rn(p.w2r[4 * m + 1], d.y, acc);
-            acc = __fmaf_rn(p.w2r[4 * m + 2], d.z, acc);
-            acc = __fmaf_rn(p.w2r[4 * m + 3], d.w, acc);
-          }
-          dy1[u] = acc;
-        }
+        for (int u = 0; u < KB; ++u) dy1[u] = row_dot<C>(mine + u * C, p.w2r);
         __syncwarp(gm);  // the du rows are read before the next batch writes
       } else {
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u) dy1[u] = aw == s0 + u ? g : 0.f;
+        for (int u = 0; u < KB; ++u) dy1[u] = aw == s0 + u ? g : 0.f;
       }
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
+      for (int u = 0; u < KB; ++u) {
         if (!ok[u]) continue;  // the same for the whole group
         const float de0 = bn_relu_bwd(dy1[u], fmaxf(e0[u], 0.f), e0[u], p.m1, p.inv_s1, p.gos1,
                                       p.s1n1, p.s2n1);
@@ -418,10 +537,10 @@ extern "C" int sa_train_main_launch(const float* q, const float* cterm, const in
                                     int two_layer, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ch == 16 && two_layer) {
-    sa_train_main_kernel<16, true><<<grid, kThreads, 0, st>>>(
+    sa_train_main_kernel<16, true, kMainKB1><<<grid, kThreads, 0, st>>>(
         q, cterm, idx, mask, aff, w2, partial, vmax, vmin, amax, amin, n, c, k, b * c);
   } else if (ch == 32 && !two_layer) {
-    sa_train_main_kernel<32, false><<<grid, kThreads, 0, st>>>(
+    sa_train_main_kernel<32, false, kMainKB2><<<grid, kThreads, 0, st>>>(
         q, cterm, idx, mask, aff, w2, partial, vmax, vmin, amax, amin, n, c, k, b * c);
   } else {
     return cudaErrorInvalidValue;
@@ -435,8 +554,8 @@ extern "C" int sa_train_bwd1_launch(const float* q, const float* cterm, const in
                                     int b, int n, int c, int k, int ch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ch != 16) return cudaErrorInvalidValue;
-  sa_train_bwd1_kernel<16><<<grid, kThreads, 0, st>>>(q, cterm, idx, mask, aff, w2, awin, gt,
-                                                     partial, n, c, k, b * c);
+  sa_train_bwd1_kernel<16, kBwd1KB><<<grid, kThreads, 0, st>>>(q, cterm, idx, mask, aff, w2,
+                                                              awin, gt, partial, n, c, k, b * c);
   return cudaGetLastError();
 }
 
@@ -450,12 +569,11 @@ extern "C" int sa_train_bwd2_launch(const float* q, const float* cterm, const in
   cudaError_t err = cudaMemsetAsync(dq, 0, sizeof(float) * b * static_cast<size_t>(n) * ch, st);
   if (err != cudaSuccess) return err;
   if (two_layer) {
-    sa_train_bwd2_kernel<16, true><<<grid, kThreads, 0, st>>>(q, cterm, idx, mask, aff, w2, awin,
-                                                             gt, dq, dcterm, n, c, k, b * c);
+    sa_train_bwd2_kernel<16, true, kBwd2KB1><<<grid, kThreads, 0, st>>>(
+        q, cterm, idx, mask, aff, w2, awin, gt, dq, dcterm, n, c, k, b * c);
   } else {
-    sa_train_bwd2_kernel<32, false><<<grid, kThreads, 0, st>>>(q, cterm, idx, mask, aff, w2,
-                                                              awin, gt, dq, dcterm, n, c, k,
-                                                              b * c);
+    sa_train_bwd2_kernel<32, false, kBwd2KB2><<<grid, kThreads, 0, st>>>(
+        q, cterm, idx, mask, aff, w2, awin, gt, dq, dcterm, n, c, k, b * c);
   }
   return cudaGetLastError();
 }

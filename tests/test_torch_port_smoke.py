@@ -1,7 +1,9 @@
 """CPU checks of the parts of chip_smoke.py and of the kernel wrappers that
 need no card: the SASS parsers of phase 16 on a synthetic `cuobjdump -sass`
-listing, the kNN reference sites' inputs, and the kNN wrapper's split of
-sources across warps."""
+listing, the kNN and SA train reference sites' inputs, and the kNN
+wrapper's split of sources across warps."""
+
+import re
 
 import pytest
 import torch
@@ -9,10 +11,17 @@ import torch
 import chip_smoke as cs
 from stratanet2_tpu_torch.ops import cuda_kernels as ck
 
+MAIN1 = "_Z20sa_train_main_kernelILi16ELb1ELi4EEvPKfS1_PKiPKbS1_S1_PfS6_S6_PiS7_iiii"
+MAIN2 = "_Z20sa_train_main_kernelILi32ELb0ELi16EEvPKfS1_PKiPKbS1_S1_PfS6_S6_PiS7_iiii"
+BWD1 = "_Z20sa_train_bwd1_kernelILi16ELi4EEvPKfS1_PKiPKbS1_S1_S3_S1_Pfiiii"
+BWD2_1 = "_Z20sa_train_bwd2_kernelILi16ELb1ELi4EEvPKfS1_PKiPKbS1_S1_S3_S1_PfS6_iiii"
+BWD2_2 = "_Z20sa_train_bwd2_kernelILi32ELb0ELi8EEvPKfS1_PKiPKbS1_S1_S3_S1_PfS6_iiii"
 # a listing in cuobjdump's layout: a kNN-like scan loop (0x10-0x80) whose
-# forward branch at 0x40 skips an insert of two instructions, and two
-# bwd2-like edge loops, one with a shuffle
-SASS = """
+# forward branch at 0x40 skips an insert of two instructions; the stats
+# pass's one-slot loop (no batch: not an edge loop); and the slot loops of
+# the five batched SA train instances, main's at SA1 followed by a loop
+# without a global load (the block's reduction), bwd2's at SA1 with a shuffle
+SASS = f"""
         Function : _Z10knn_kernelPKfS0_S0_PfPiS1_iiii
         /*0000*/                   MOV R1, c[0x0][0x28] ;
         /*0010*/                   LDS.128 R4, [R2] ;
@@ -24,17 +33,49 @@ SASS = """
         /*0070*/                   IADD3 R2, R2, 0x10, RZ ;
         /*0080*/              @P1 BRA 0x10 ;
         /*0090*/                   EXIT ;
-        Function : _Z20sa_train_bwd2_kernelILi16ELb1EEvPKfS1_PKiPKbS1_S3_S1_PfS6_iiii
-        /*0000*/                   SHFL.IDX R1, R2, R3, 0x1f ;
-        /*0010*/                   FFMA R4, R4, R5, R6 ;
-        /*0020*/                   RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R4 ;
-        /*0030*/              @P0 BRA 0x0 ;
-        /*0040*/                   EXIT ;
-        Function : _Z20sa_train_bwd2_kernelILi32ELb0EEvPKfS1_PKiPKbS1_S3_S1_PfS6_iiii
-        /*0000*/                   FFMA R4, R4, R5, R6 ;
-        /*0010*/                   REDG.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R4 ;
+        Function : _Z21sa_train_stats_kernelILi16EEvPKfS1_PKiPKbS1_Pfiiii
+        /*0000*/                   LDG.E R2, [R4.64] ;
+        /*0010*/                   FADD R3, R3, R2 ;
         /*0020*/              @P0 BRA 0x0 ;
         /*0030*/                   EXIT ;
+        Function : {MAIN1}
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E.CONSTANT R2, [R4.64] ;
+        /*0020*/                   STS [R3], R2 ;
+        /*0030*/                   LDS.128 R8, [R3] ;
+        /*0040*/                   FFMA R4, R8, R5, R6 ;
+        /*0050*/              @P0 BRA 0x10 ;
+        /*0060*/                   STS [R3], RZ ;
+        /*0070*/                   LDS R4, [R3] ;
+        /*0080*/                   FADD R5, R5, R4 ;
+        /*0090*/                   STG.E [R6.64], R5 ;
+        /*00a0*/              @P1 BRA 0x70 ;
+        /*00b0*/                   EXIT ;
+        Function : {MAIN2}
+        /*0000*/                   LDG.E R2, [R4.64] ;
+        /*0010*/                   FMNMX R3, R2, RZ, !PT ;
+        /*0020*/              @P0 BRA 0x0 ;
+        /*0030*/                   EXIT ;
+        Function : {BWD1}
+        /*0000*/                   LDG.E R2, [R4.64] ;
+        /*0010*/                   LDS.128 R8, [R3] ;
+        /*0020*/                   FFMA R4, R8, R5, R6 ;
+        /*0030*/                   FMUL R4, R4, R5 ;
+        /*0040*/              @P0 BRA 0x0 ;
+        /*0050*/                   EXIT ;
+        Function : {BWD2_1}
+        /*0000*/                   SHFL.IDX R1, R2, R3, 0x1f ;
+        /*0010*/                   LDG.E R7, [R8.64] ;
+        /*0020*/                   FFMA R4, R4, R5, R6 ;
+        /*0030*/                   RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R4 ;
+        /*0040*/              @P0 BRA 0x0 ;
+        /*0050*/                   EXIT ;
+        Function : {BWD2_2}
+        /*0000*/                   LDG.E R7, [R8.64] ;
+        /*0010*/                   FFMA R4, R4, R5, R6 ;
+        /*0020*/                   REDG.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R4 ;
+        /*0030*/              @P0 BRA 0x0 ;
+        /*0040*/                   EXIT ;
 """
 
 
@@ -50,14 +91,47 @@ def test_sass_per_pair_counts_the_loop_with_and_without_the_insert(r):
 
 
 def test_sass_edge_loops_count_shuffles_an_edge():
-    loops = cs.sass_edge_loops(SASS, cs.BWD2_EDGES_A_PASS)
-    two = loops["_Z20sa_train_bwd2_kernelILi16ELb1EEvPKfS1_PKiPKbS1_S3_S1_PfS6_iiii"]
-    one = loops["_Z20sa_train_bwd2_kernelILi32ELb0EEvPKfS1_PKiPKbS1_S3_S1_PfS6_iiii"]
-    assert len(loops) == 2
-    assert two["per_edge"] == 4 / cs.BWD2_EDGES_A_PASS
-    assert two["shfl_per_edge"] == 1 / cs.BWD2_EDGES_A_PASS
-    assert two["fp32_per_edge"] == 1 / cs.BWD2_EDGES_A_PASS
-    assert (one["instructions"], one["shfl_per_edge"]) == (3, 0.0)
+    """Each batched SA train instance's slot loop (the innermost loop with a
+    global load), counted over its KB x 32 / C1 edges a pass."""
+    loops = cs.sass_edge_loops(SASS)
+    assert sorted(loops) == sorted([MAIN1, MAIN2, BWD1, BWD2_1, BWD2_2])
+    cs.check_edge_loops(loops)
+    want = {  # function: (kernel, C1, KB, instructions, SHFLs, FP32 instructions)
+        MAIN1: ("sa_train_main", 16, 4, 5, 0, 1), MAIN2: ("sa_train_main", 32, 16, 3, 0, 1),
+        BWD1: ("sa_train_bwd1", 16, 4, 5, 0, 2), BWD2_1: ("sa_train_bwd2", 16, 4, 5, 1, 1),
+        BWD2_2: ("sa_train_bwd2", 32, 8, 4, 0, 1),
+    }
+    for func, (kernel, ch, kb, n, shfl, fp32) in want.items():
+        loop = loops[func]
+        edges = kb * 32 // ch
+        assert (loop["kernel"], loop["C1"], loop["KB"], loop["edges_a_pass"]) == (kernel, ch, kb, edges)
+        assert loop["instructions"] == n
+        assert loop["per_edge"] == n / edges
+        assert loop["shfl_per_edge"] == shfl / edges
+        assert loop["fp32_per_edge"] == fp32 / edges
+
+
+def _drop_function(sass, func):
+    """`sass` without function `func`'s listing."""
+    return re.sub(rf"\s*Function : {func}\n(\s*/\*[0-9a-f]+\*/.*\n)*", "\n", sass)
+
+
+@pytest.mark.parametrize("func", [MAIN1, MAIN2, BWD1, BWD2_1, BWD2_2])
+def test_check_edge_loops_fails_without_a_slot_loop(func):
+    """Phase 16 fails when an instance's slot loop is not found: its loop has
+    no global load, or the instance is missing from the listing."""
+    head = SASS.index(f"Function : {func}")
+    tail = SASS.find("Function :", head + 1)
+    tail = len(SASS) if tail < 0 else tail
+    no_load = SASS[:head] + SASS[head:tail].replace("LDG", "LDS") + SASS[tail:]
+    loops = cs.sass_edge_loops(no_load)
+    assert loops[func] is None
+    with pytest.raises(SystemExit):
+        cs.check_edge_loops(loops)
+    loops = cs.sass_edge_loops(_drop_function(SASS, func))
+    assert func not in loops and len(loops) == 4
+    with pytest.raises(SystemExit):
+        cs.check_edge_loops(loops)
 
 
 def test_knn_reference_sites_are_tie_heavy_ragged_and_chunked():
@@ -78,6 +152,52 @@ def test_knn_reference_sites_are_tie_heavy_ragged_and_chunked():
     assert kinds["s3"][0] == 3
     assert all(v % 32 for v in kinds["ragged"])
     assert kinds["chunked"][0] > 4096  # csrc/knn_interpolate.cu stages 4096 sources at once
+
+
+@pytest.fixture(scope="module")
+def sa_reference_calls():
+    return cs.sa_train_reference_calls(torch, ck, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("site", range(len(cs.SA_TRAIN_REFERENCE)))
+def test_sa_train_reference_sites_are_tie_heavy_and_ragged(sa_reference_calls, site):
+    """The inputs of the SA train passes' reference sites have the
+    properties their comment in chip_smoke.py claims."""
+    b, n, c, k, ch = cs.SA_TRAIN_REFERENCE[site]
+    assert {name: len(v) for name, v in sa_reference_calls.items()} == cs.SA_TRAIN_REF_SITES
+    q, cterm, idx, mask, aff, w2 = sa_reference_calls["sa_train_main"][site]
+    assert (q.shape, cterm.shape, idx.shape) == ((b, n, ch), (b, c, ch), (b, c, k))
+    assert (w2 is not None) == (ch == 16)
+    assert torch.equal(q, q.round()) and torch.equal(cterm, cterm.round())
+    assert all(k % kb for kb in (2, 4, 8, 16))  # the last batch is cut for every KB tried
+    assert (b * c) % (ck.SA_THREADS // ch)  # the last block's groups are not all used
+    for kb in (2, 4, 8, 16):  # batches that hold masked and valid slots
+        m = mask[..., : k - k % kb].reshape(b, c, -1, kb)
+        assert float((m.any(-1) & ~m.all(-1)).float().mean()) > 0.3
+    empty = ~mask.any(2)
+    assert 0.15 < float(empty.float().mean()) < 0.25
+    _, _, vmax, _, amax, _ = ck.sa_train_main_plain(q, cterm, idx, mask, aff, w2)
+    assert bool((vmax[empty] == ck.NEG).all()) and bool((amax[empty] == 0).all())
+    e = ck.sa_train_edges(q, cterm, idx, mask, aff, w2)
+    h = torch.where(e["m"], e["h"], ck.NEG)
+    tied = ((h == vmax[:, :, None]) & e["m"]).sum(2) > 1  # the max is reached at two slots
+    assert float(tied[~empty].float().mean()) > 0.5
+    bwd = sa_reference_calls["sa_train_bwd2"][site]
+    assert torch.equal(bwd[6], amax) and bwd[7].shape == (b, c, ch)
+
+
+@pytest.mark.parametrize("name,site", [(name, site) for name, n in cs.SA_TRAIN_REF_SITES.items()
+                                       for site in range(n)])
+def test_sa_train_reference_sites_pass_the_smoke_checks(sa_reference_calls, name, site):
+    """At each SA train reference site, chip_smoke's comparison passes a
+    result equal to the plain version, and its float32 bound rejects a
+    result of zeros and, for the sums over edges, one with block 0's
+    partial row taken out: the checks are not vacuous there."""
+    args = sa_reference_calls[name][site]
+    want = getattr(ck, f"{name}_plain")(*args)
+    shape, nbytes, ops, err = cs.compare_sa_train_site(torch, ck, name, site, args, want, want)
+    assert err == 0.0 and nbytes > 0 and ops > 0
+    assert f"K={args[2].shape[2]}" in shape
 
 
 @pytest.mark.parametrize("b,t,slices", [(20, 10000, 2), (20, 2500, 8), (200, 10000, 1),
