@@ -18,7 +18,8 @@ Phases, in order, each failing loudly:
      (indices exactly, values within the stated atol; for the SA kernel the
      picks of its built-in ball query are read back through probe launches),
      CUDA-event times of kernel, plain and, where one PyTorch call computes
-     the same function, that call; then FPS's reference sites
+     the same function, that call (pixel_max also its device time a launch, its
+     kernel the only device operation of a call); then FPS's reference sites
      (FPS_REFERENCE: tie-heavy integer-grid clouds at the two step shapes,
      the serve batch unpartitioned at N=10000, and a grid cloud at the
      kernel's largest N), each with 0 differing indices, and the SA
@@ -29,7 +30,11 @@ Phases, in order, each failing loudly:
      (KNN_REFERENCE: tie-heavy integer-grid clouds at the FP1 and FP2 shapes
      with duplicated sources and targets on sources, a ragged site, three
      sources, more sources than the kernel stages at once), each with 0
-     differing indices and outputs and weights within KNN_ATOL;
+     differing indices and outputs and weights within KNN_ATOL, and
+     pixel_max's (PIXEL_MAX_REFERENCE: quantised values whose tied maxima
+     fall in different blocks of a cloud's cluster, ids outside the pixels,
+     empty pixels, P = 37, N a multiple of no share; a cloud so small that
+     the last blocks of its cluster get no point), equal exactly;
   4b. `"phase": "fps_chain"`: FPS's latency floor, the time of a pick with
      one point a thread (N=1024), against the per-pick time at the step
      sites;
@@ -38,9 +43,8 @@ Phases, in order, each failing loudly:
      coverages in [0, 1];
   6. step time (median of 30 synchronised steps) and points/s;
   7. profile: `torch.profiler` traces 10 steps; each device kernel's time
-     per step, the port's kernels summed per wrapper, all eleven listed (the
-     pixel-max scatter and decode kernels together, its key memset beside
-     them; a wrapper shows kernels exactly when it launches), the rest of
+     per step, the port's kernels summed per wrapper, all eleven listed (a
+     wrapper shows kernels exactly when it launches), the rest of
      the device time (plain PyTorch ops), and the idle share of the step,
      1 - device busy time / the median step time of phase 6;
   8. the same step at B=2 against the port run on the CPU, and at B=1
@@ -49,7 +53,8 @@ Phases, in order, each failing loudly:
   prior fitted on the batch's z; BN running statistics at init; SA1 and SA2
   on the fused route through the four SA train kernels):
   9. capture: one train step, on a copy of the model, records every call of
-     the seven train kernels;
+     the seven train kernels and of pixel_max, whose train-step site is held
+     exactly to its plain version and timed like a serve site;
   10. fused vs unfused: SA1 and SA2 at the PROD shapes on the fused route
      and on the unfused path from the same weights and inputs, with random
      BN running means so that the statistics' shifts are nonzero (out, BN
@@ -62,10 +67,15 @@ Phases, in order, each failing loudly:
      batches, centroids with no valid slot), then ball_query's
      SEL_REFERENCE sites (the clouds of phase 4's, drawn anew; the largest
      group is the query's own), then the synthetic pixel-max backward site
-     (out-of-range ids, empty pixels):
-     kernel vs plain (ball_query and pixel_max_bwd exactly; knn_scatter,
-     whose atomics add in no fixed order, within the float32 error bound of
-     a sum in any order; the SA train passes' winners and winning values
+     (out-of-range ids, empty pixels), then knn_scatter's synthetic sites
+     (KNN_SCATTER_REFERENCE: a hot destination taking 20% of the pairs, and
+     a ragged site with empty rows and ids outside [0, S)):
+     kernel vs plain (ball_query and pixel_max_bwd exactly; knn_scatter
+     launched twice and equal bit for bit, equal bit for bit to
+     `knn_scatter_ordered_plain` (its fixed order of sums), rows with no
+     contribution exactly 0, within the float32 error bound of a sum in any
+     order, with its device time a launch (its kernel the only device operation)
+     and its largest destination degree; the SA train passes' winners and winning values
      exactly, their per-channel sums over edges within the float32 bound at
      the kernels' own summation depth, which must reject a result with one
      block's partial row taken out or zeroed, and dq's scatter within the
@@ -73,8 +83,8 @@ Phases, in order, each failing loudly:
      bound, must reject a result of zeros), times as in phase 4, library
      calls `index_add_` and `scatter_add_`;
   11b. `"phase": "launch_path"`: host microseconds a call of the two stream
-     getters, of the device check and context, and of the parts of a
-     pixel_max_bwd call;
+     getters, of the device check and context, of the parts of a
+     pixel_max_bwd call and of a whole pixel_max call;
   12. the counted train step: fps 2, ball_query 2, knn_interpolate 2,
      knn_scatter 2, pixel_max 1, pixel_max_bwd 1, sa_fused_eval 0,
      sa_train_stats 1, sa_train_main 2, sa_train_bwd1 1, sa_train_bwd2 2;
@@ -99,8 +109,11 @@ Phases, in order, each failing loudly:
      instructions, SHFLs and FP32 instructions a warp issues an edge in its
      slot loop, its registers, the train step's slots and the issue floor,
      slots x SASS an edge / (132 SMs x 4 schedulers x the maximum SM clock);
+     then `"phase": "atomics"`: the global RED/ATOM instructions in the SASS
+     of knn_scatter_kernel and pixel_max_kernel (must be 0: both write each
+     output element once) and their registers, stack and spills;
   17. the `{"reference_sites": [...]}` line (phase 10's sites and the
-     synthetic FPS, selection, SA train and pixel-max backward sites, apart
+     synthetic FPS, selection, SA train, pixel-max and scatter sites, apart
      from the per-step rows), the `{"kernels": [...]}` line (all eleven) and the
      final `{"ok": true, ...}` line.
 
@@ -219,11 +232,27 @@ SEL_REFERENCE = (("grid", 20, 10000, 2500, 32, 2 ** 0.5), ("grid", 20, 2500, 625
 KNN_REFERENCE = (("grid", 20, 2500, 10000, 34), ("grid", 20, 625, 2500, 64),
                  ("ragged", 3, 1001, 1337, 34), ("s3", 2, 3, 333, 64),
                  ("chunked", 2, 10000, 3000, 34))
+# pixel_max's reference sites (phase 4): (kind, B, N, P), C = 3. "ties":
+# values quantised to 5 levels, so a pixel's maximum is reached by several
+# points, often in different blocks of the cloud's cluster; ids drawn over
+# [-P^2/8, 9 P^2/8) and a band of P^2/8 pixels left empty; N = 10007, a
+# multiple of no cluster size tried (2, 4, 8) nor of a block's threads;
+# P = 37. "tiny": five points a cloud, so the last blocks of a cluster of 4
+# or 8 get no point
+PIXEL_MAX_REFERENCE = (("ties", 4, 10007, 37), ("tiny", 3, 5, 37))
+# knn_scatter's synthetic reference sites (phase 11): (kind, B, k, T, S, F).
+# "hot": phase 10's gather shape, k = 1 and no weights, 20% of the pairs on
+# row 0 as masked ball-query slots put them there (~8000 a cloud, many
+# chunks), the rest uniform; "ragged": k = 3 with weights, S and T multiples
+# of no tile or round tried, a band of rows with no contribution, and 1% of
+# the indices outside [0, S) (-1 or S + 2)
+KNN_SCATTER_REFERENCE = (("hot", 4, 1, 40000, 2500, 32), ("ragged", 3, 3, 3001, 1001, 34))
 REFERENCE_SITES = {"fps": len(FPS_REFERENCE), "sa_fused_eval": len(SEL_REFERENCE),
-                   "knn_interpolate": len(KNN_REFERENCE),
+                   "knn_interpolate": len(KNN_REFERENCE), "pixel_max": len(PIXEL_MAX_REFERENCE),
                    "ball_query": len(SEL_REFERENCE), "pixel_max_bwd": 1,
                    **{name: n + SA_TRAIN_REF_SITES.get(name, 0)
                       for name, n in PHASE10_SITES.items()}}
+REFERENCE_SITES["knn_scatter"] += len(KNN_SCATTER_REFERENCE)
 FPS_FLOOR_N = 1024  # one point for each thread of the FPS block
 SHIFT_STD = 0.1  # phase 10's BN running means (the shifts), as the CPU stage tests draw them
 SA_ATOL = 1e-4  # layer-2 dot: FMA contraction and summation order differ
@@ -260,7 +289,7 @@ LAUNCH_REPS = 2000  # calls a host cost of phase 11b is averaged over
 # device kernels of each wrapper, by name prefix (ops/csrc/*.cu)
 DEVICE_KERNELS = {"fps": ("fps_kernel",), "sa_fused_eval": ("sa_kernel",),
                   "knn_interpolate": ("knn_kernel",),
-                  "pixel_max": ("pixel_max_scatter", "pixel_max_decode"),
+                  "pixel_max": ("pixel_max_kernel",),
                   "ball_query": ("ball_query_kernel",), "knn_scatter": ("knn_scatter_kernel",),
                   "pixel_max_bwd": ("pixel_max_bwd_kernel",),
                   **{name: (f"{name}_kernel",) for name in SA_TRAIN}}
@@ -286,6 +315,33 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_profile(torch, fn, prefixes, reps: int = 10):
+    """torch.profiler over reps calls of fn, after one warm-up: the device
+    time (ms) a launch of the kernels whose names start with `prefixes`
+    (over the launches the trace holds: it may miss some, or all, and is
+    then taken again, three times at most), those launches, and every
+    device operation (kernels, memsets, copies) it holds."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):  # a trace can come back empty: take another
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms, launches, ops = 0.0, 0, 0
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+                    and not getattr(e, "is_user_annotation", False)):
+                ops += e.count
+                if e.key.removeprefix("void ").startswith(prefixes):
+                    ms += e.self_device_time_total
+                    launches += e.count
+        if launches:
+            break
+    return ms / 1e3 / max(launches, 1), launches, ops
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -411,6 +467,42 @@ def knn_reference_calls(torch, device):
     return calls
 
 
+def pixel_max_reference_calls(torch, device):
+    """The arguments (pix, vals, n_pix) of pixel_max's reference sites
+    (PIXEL_MAX_REFERENCE), drawn from a seed."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    calls = []
+    for _kind, b, n, p in PIXEL_MAX_REFERENCE:
+        p2 = p * p
+        pix = torch.randint(-p2 // 8, p2 + p2 // 8, (b, n), generator=gen, device=device,
+                            dtype=torch.int32)
+        pix[(pix >= p2 // 4) & (pix < p2 // 4 + p2 // 8)] = -1
+        vals = torch.randint(-2, 3, (b, n, 3), generator=gen, device=device).float() / 2
+        calls.append((pix, vals, p2))
+    return calls
+
+
+def knn_scatter_reference_calls(torch, device):
+    """The arguments (idx, w, g, s) of knn_scatter's synthetic reference
+    sites (KNN_SCATTER_REFERENCE), drawn from a seed."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    calls = []
+    for kind, b, k, t, s, f in KNN_SCATTER_REFERENCE:
+        idx = torch.randint(0, s, (b, k, t), generator=gen, device=device, dtype=torch.int32)
+        g = torch.randn((b, t, f), generator=gen, device=device)
+        if kind == "hot":
+            idx[torch.rand((b, k, t), generator=gen, device=device) < 0.2] = 0
+            calls.append((idx, None, g, s))
+            continue
+        band = (idx >= s // 3) & (idx < s // 3 + s // 10)
+        idx[band] -= s // 3  # rows [s/3, s/3 + s/10) get no contribution
+        out = torch.rand((b, k, t), generator=gen, device=device) < 0.01
+        low = torch.rand((b, k, t), generator=gen, device=device) < 0.5
+        idx[out] = torch.where(low, -1, s + 2)[out].int()
+        calls.append((idx, torch.rand((b, k, t), generator=gen, device=device), g, s))
+    return calls
+
+
 def selection_reference_calls(torch, ck, device):
     """The arguments of the grouped selection's reference sites
     (SEL_REFERENCE), drawn from a seed: ball_query's (centroids, points,
@@ -464,6 +556,22 @@ def sass_functions(sass: str):
         if m and func:
             funcs[func].append((int(m.group(1), 16), m.group(2).strip()))
     return funcs
+
+
+GLOBAL_ATOMICS = ("RED", "REDG", "ATOM", "ATOMG")  # ATOMS, on shared memory, is not one
+
+
+def global_atomics(sass: str, kernel: str):
+    """{function: global atomic instructions (RED, ATOM, their G forms)} of
+    the functions of `sass` whose name holds `kernel`."""
+    return {func: sum(opcode(t) in GLOBAL_ATOMICS for _, t in ins)
+            for func, ins in sass_functions(sass).items() if kernel in func}
+
+
+def check_no_atomics(counts, kernel: str) -> None:
+    """Phase 16 fails unless `kernel` is in the listing with no global atomic."""
+    check(len(counts) > 0, f"{kernel}: not found in the SASS")
+    check(not any(counts.values()), f"{kernel}: global atomic instructions in the SASS: {counts}")
 
 
 def innermost_loops(ins):
@@ -596,8 +704,9 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
     (`common_per_pair`), beside the whole loop's. Then the slot loop of
     every batched SA train instance (`sass_edge_loops`): SASS instructions,
     SHFLs and FP32 instructions an edge, and its issue floor over the train
-    step's slots. Each kernel's registers, stack and spills (cuobjdump
-    -res-usage)."""
+    step's slots. Then the global atomics of knn_scatter_kernel and
+    pixel_max_kernel, which must have none. Each kernel's registers, stack
+    and spills (cuobjdump -res-usage)."""
     from pathlib import Path
 
     from stratanet2_tpu_torch.ops import _build
@@ -645,6 +754,13 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
                           "sm_clock_max_mhz": clock_mhz,
                           "issue_floor_ms": slots * loop["per_edge"] / (132 * 4 * clock_mhz * 1e6) * 1e3,
                           "kernel_ms": row["ms"], "kernel_bound_ms": row["bound_ms"]}), flush=True)
+    for name in ("knn_scatter", "pixel_max"):
+        kernel = DEVICE_KERNELS[name][0]
+        counts = global_atomics(dump(name, "-sass"), kernel)
+        res = resources(name)
+        print(json.dumps({"phase": "atomics", "kernel": kernel, "global_atomics": counts,
+                          "resource_usage": {f: res.get(f) for f in counts}}), flush=True)
+        check_no_atomics(counts, kernel)
 
 
 def fps_chain(torch, ck, step_calls, device):
@@ -665,6 +781,102 @@ def fps_chain(torch, ck, step_calls, device):
                       "per_pick_us": per_pick_ms * 1e3, "step_picks": picks,
                       "step_floor_ms": per_pick_ms * sum(picks),
                       "step_sites_per_pick_us": [t * 1e3 for t in step_per_pick]}), flush=True)
+
+
+def pixel_max_site(torch, ck, site, args):
+    """One pixel_max call site: vmax and amax equal to the plain version
+    exactly, the device time and device operations of a call (one kernel,
+    no memset), and `scatter_reduce` (amax, values only) as the library
+    call. Returns (shape, bytes, operations, max |diff|, differing argmax,
+    library ms)."""
+    pix, vals, n_pix = args
+    (gv, ga), (wv, wa) = ck.pixel_max(*args), ck.pixel_max_plain(*args)
+    diff_sel = int((ga != wa).sum())
+    err = float((gv - wv).abs().max())
+    check(err == 0.0, f"pixel_max site {site}: vmax differs by {err}")
+    b, n, c = vals.shape
+    nbytes = 4 * b * n + 4 * b * n * c + 8 * b * n_pix * c
+    inside = (pix >= 0) & (pix < n_pix)
+    index = torch.where(inside, pix, n_pix).long()[..., None].expand(b, n, c)
+    init = torch.full((b, n_pix + 1, c), ck.NEG, device=vals.device)  # a row for the outside
+    lib_ms = cuda_ms(torch, lambda: init.scatter_reduce(1, index, vals, "amax"), 20)
+    lib = init.scatter_reduce(1, index, vals, "amax")[:, :n_pix]
+    check(torch.equal(lib, gv), "scatter_reduce(amax) disagrees with pixel_max")
+    dev_ms, launches, dev_ops = device_profile(torch, lambda: ck.pixel_max(*args),
+                                               DEVICE_KERNELS["pixel_max"])
+    print(json.dumps({"kernel": "pixel_max", "site": site, "device_ms": dev_ms,
+                      "profiled_launches": launches, "profiled_device_ops": dev_ops,
+                      "cluster": ck.PIXEL_MAX_CLUSTER}), flush=True)
+    check(launches > 0 and dev_ops == launches,
+          f"pixel_max site {site}: {dev_ops} device operations for {launches} kernels")
+    shape = (f"B={b} N={n} P2={n_pix} C={c} ids_out_of_range={int((~inside).sum())} "
+             f"empty_pixels={int((wa[..., 0] < 0).sum())}")
+    return shape, nbytes, float(b * n * c), err, diff_sel, lib_ms
+
+
+def knn_scatter_site(torch, ck, site, args):
+    """One knn_scatter call site. The kernel is launched twice and the two
+    results must be equal bit for bit, and equal bit for bit to
+    `knn_scatter_ordered_plain`, the kernel's order of sums. Against the
+    plain version (float64 sums; ids outside [0, S) given weight 0 at row 0,
+    since it takes none) it must lie within the float32 error bound of a sum
+    in any order, and rows with no contribution must be exactly 0. Prints
+    the device time and device operations of a call (one kernel, no memset),
+    the largest destination degree and `index_add_`'s error. Returns (shape,
+    bytes, operations, max |diff|, library ms, the plain call)."""
+    idx, w, g, s = args
+    b, k, t = idx.shape
+    f = g.shape[2]
+    valid = (idx >= 0) & (idx < s)
+    check(w is not None or bool(valid.all()), f"knn_scatter site {site}: ids outside [0, S)")
+    pidx = torch.where(valid, idx, 0)
+    pw = None if w is None else torch.where(valid, w, 0.0)
+    got, again = ck.knn_scatter(*args), ck.knn_scatter(*args)
+    check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+          f"knn_scatter site {site}: two launches differ")
+    ordered = ck.knn_scatter_ordered_plain(*args)
+    differ = int((got.view(torch.int32) != ordered.view(torch.int32)).sum())
+    check(differ == 0, f"knn_scatter site {site}: {differ} elements differ from the ordered plain")
+    want = ck.knn_scatter_plain(pidx, pw, g, s)
+    flat = (pidx.long() + (torch.arange(b, device=g.device) * s)[:, None, None]).reshape(-1)
+    contrib = g[:, None].expand(b, k, t, f)
+    if pw is not None:
+        contrib = pw[..., None] * contrib
+    contrib = contrib.reshape(-1, f)
+    # float32 error bound of a sum in any order, per element
+    absum = torch.zeros((b * s, f), dtype=torch.float64, device=g.device)
+    absum.index_add_(0, flat, contrib.abs().double())
+    cnt = torch.zeros(b * s, dtype=torch.float64, device=g.device)
+    cnt.index_add_(0, flat, valid.reshape(-1).double())
+    bound = (cnt[:, None] * U32 * absum + 2 * U32 * want.reshape(-1, f).abs().double())
+    diff = (got - want).abs().reshape(-1, f).double()
+    err = float(diff.max())
+    ratio = float((diff / bound.clamp_min(1e-45)).max())
+    check(bool((diff <= bound).all()),
+          f"knn_scatter site {site}: |kernel - plain| exceeds the float32 bound (worst ratio {ratio})")
+    empty = cnt == 0
+    check(bool((got.reshape(-1, f)[empty] == 0).all()),
+          f"knn_scatter site {site}: a row with no contribution is not 0")
+    lib_out = torch.zeros((b * s, f), device=g.device)
+    lib_ms = cuda_ms(torch, lambda: lib_out.zero_().index_add_(0, flat, contrib), 20)
+    lib_err = float((lib_out.reshape(b, s, f) - want).abs().max())
+    dev_ms, launches, dev_ops = device_profile(torch, lambda: ck.knn_scatter(*args),
+                                               DEVICE_KERNELS["knn_scatter"])
+    print(json.dumps({"kernel": "knn_scatter", "site": site, "library": "index_add_",
+                      "library_max_abs_diff": lib_err, "kernel_bound_ratio": ratio,
+                      "device_ms": dev_ms, "profiled_launches": launches,
+                      "profiled_device_ops": dev_ops,
+                      "max_degree": int(cnt.max()), "empty_rows": int(empty.sum()),
+                      "ids_out_of_range": int((~valid).sum()),
+                      "rows_a_block": ck.knn_scatter_rows(b, s, f),
+                      "pairs_a_round": ck.KNN_SCATTER_PAIRS, "chunk": ck.KNN_SCATTER_CHUNK}),
+          flush=True)
+    check(launches > 0 and dev_ops == launches,
+          f"knn_scatter site {site}: {dev_ops} device operations for {launches} kernels")
+    nbytes = 4.0 * (b * k * t * (2 if w is not None else 1) + b * t * f + b * s * f)
+    ops = float(b * k * t * f * (2 if w is not None else 1))
+    shape = f"B={b} k={k} T={t} S={s} F={f} weights={w is not None}"
+    return shape, nbytes, ops, err, lib_ms, lambda *_: ck.knn_scatter_plain(pidx, pw, g, s)
 
 
 def compare_kernels(torch, ck, captured):
@@ -727,20 +939,9 @@ def compare_kernels(torch, ck, captured):
                     shape += f" cloud={KNN_REFERENCE[site - 2][0]}"
                 (ref_agg if site >= 2 else agg)["pairs"] += float(b * t * s)
             else:  # pixel_max
-                pix, vals, n_pix = args
-                (gv, ga), (wv, wa) = kernel(*args), plain(*args)
-                diff_sel = int((ga != wa).sum())
-                err = float((gv - wv).abs().max())
-                check(err == 0.0, f"pixel_max site {site}: vmax differs by {err}")
-                b, n, c = vals.shape
-                nbytes = 4 * b * n + 4 * b * n * c + 8 * b * n_pix * c
-                ops = float(b * n * c)
-                index = pix.long()[..., None].expand(b, n, c)
-                init = torch.full((b, n_pix, c), NEG, device=vals.device)
-                lib_ms = cuda_ms(torch, lambda: init.scatter_reduce(1, index, vals, "amax"), 20)
-                lib = init.scatter_reduce(1, index, vals, "amax")
-                check(torch.equal(lib, gv), "scatter_reduce(amax) disagrees with pixel_max")
-                shape = f"B={b} N={n} P2={n_pix} C={c}"
+                shape, nbytes, ops, err, diff_sel, lib_ms = pixel_max_site(torch, ck, site, args)
+                if site >= 2:
+                    shape += f" cloud={PIXEL_MAX_REFERENCE[site - 2][0]}"
             check(diff_sel == 0, f"{name} site {site}: {diff_sel} selections differ")
             reference = site >= 2
             report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
@@ -901,36 +1102,10 @@ def compare_train_kernels(torch, ck, captured):
                     shape += f" cloud={SEL_REFERENCE[site - n_step][0]}"
                 (ref_agg if site >= n_step else agg)["pairs"] += float(b * c * n)
             elif name == "knn_scatter":
-                idx, w, g, s = args
-                got, want = kernel(*args), plain(*args)
-                b, k, t = idx.shape
-                f = g.shape[2]
-                flat = (idx.long() + (torch.arange(b, device=g.device) * s)[:, None, None]).reshape(-1)
-                contrib = g[:, None].expand(b, k, t, f)
-                if w is not None:
-                    contrib = w[..., None] * contrib
-                contrib = contrib.reshape(-1, f)
-                # float32 error bound of a sum in any order, per element
-                absum = torch.zeros((b * s, f), dtype=torch.float64, device=g.device)
-                absum.index_add_(0, flat, contrib.abs().double())
-                cnt = torch.zeros(b * s, dtype=torch.float64, device=g.device)
-                cnt.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float64))
-                bound = (cnt[:, None] * U32 * absum + 2 * U32 * want.reshape(-1, f).abs().double())
-                diff = (got - want).abs().reshape(-1, f).double()
-                err = float(diff.max())
-                check(bool((diff <= bound).all()),
-                      f"knn_scatter site {site}: |kernel - plain| exceeds the float32 bound "
-                      f"(worst ratio {float((diff / bound.clamp_min(1e-45)).max())})")
-                lib_out = torch.zeros((b * s, f), device=g.device)
-                lib_ms = cuda_ms(torch, lambda: lib_out.zero_().index_add_(0, flat, contrib), 20)
-                lib_err = float((lib_out.reshape(b, s, f) - want).abs().max())
-                print(json.dumps({"kernel": name, "site": site, "library": "index_add_",
-                                  "library_max_abs_diff": lib_err,
-                                  "kernel_bound_ratio": float((diff / bound.clamp_min(1e-45)).max())}),
-                      flush=True)
-                nbytes = 4.0 * (b * k * t * (2 if w is not None else 1) + b * t * f + b * s * f)
-                ops = float(b * k * t * f * (2 if w is not None else 1))
-                shape = f"B={b} k={k} T={t} S={s} F={f} weights={w is not None}"
+                shape, nbytes, ops, err, lib_ms, plain = knn_scatter_site(torch, ck, site, args)
+                ref = site - n_step - PHASE10_SITES[name]
+                if ref >= 0:
+                    shape += f" cloud={KNN_SCATTER_REFERENCE[ref][0]}"
             elif name in SA_TRAIN:
                 got, want = kernel(*args), plain(*args)
                 shape, nbytes, ops, err = compare_sa_train_site(torch, ck, name, site, args,
@@ -1020,13 +1195,14 @@ def sa_train_reference_calls(torch, ck, device):
     return calls
 
 
-def launch_path(torch, ck, args):
+def launch_path(torch, ck, args, pm_args):
     """Phase 11b: host microseconds a call (mean of LAUNCH_REPS, no
     synchronisation inside) of the two ways to get the current stream, of
-    the device check and the device context a launch no longer enters, and
-    of the parts of a pixel_max_bwd call: its device check, the output's
+    the device check and the device context a launch no longer enters, of
+    the parts of a pixel_max_bwd call: its device check, the output's
     allocation, the C entry alone (ctypes and the kernel launch) and the
-    whole wrapper."""
+    whole wrapper, and of a whole pixel_max call (`pm_args`, the train
+    step's)."""
     dev = torch.device("cuda", 0)
     pix, amax, g = args
     ck.pixel_max_bwd(*args)
@@ -1062,6 +1238,7 @@ def launch_path(torch, ck, args):
         "new_empty_dv_us": host_us(lambda: g.new_empty(dv.shape)),
         "pixel_max_bwd_c_entry_us": host_us(lambda: entry(*cargs)),
         "pixel_max_bwd_call_us": host_us(lambda: ck.pixel_max_bwd(*args)),
+        "pixel_max_call_us": host_us(lambda: ck.pixel_max(*pm_args)),
     }), flush=True)
 
 
@@ -1147,6 +1324,7 @@ def serve_phases(torch, ck, cfg, device, card):
     captured["fps"] += fps_reference_calls(torch, xyz, device)
     captured["sa_fused_eval"] += selection_reference_calls(torch, ck, device)[1]
     captured["knn_interpolate"] += knn_reference_calls(torch, device)
+    captured["pixel_max"] += pixel_max_reference_calls(torch, device)
     with torch.inference_mode():
         rows, ref_rows = compare_kernels(torch, ck, captured)
         fps_chain(torch, ck, step_fps, device)
@@ -1354,7 +1532,7 @@ def train_phases(torch, ck, cfg, device, card):
 
     # phase 9: one train step on a copy records each train kernel's calls
     m, opt, sched = fresh()
-    captured = capture_calls(ck, [name for name, _, _ in TRAIN_KERNELS],
+    captured = capture_calls(ck, [name for name, _, _ in TRAIN_KERNELS] + ["pixel_max"],
                              lambda: step(m, opt, sched, cloud, xyz, gt))
     torch.cuda.synchronize()
     del m, opt, sched
@@ -1368,13 +1546,22 @@ def train_phases(torch, ck, cfg, device, card):
     for name, calls in sa_train_reference_calls(torch, ck, device).items():
         captured[name] += calls
     captured["ball_query"] += selection_reference_calls(torch, ck, device)[0]
+    captured["knn_scatter"] += knn_scatter_reference_calls(torch, device)
     step_bwd = captured["pixel_max_bwd"][0]
     captured["pixel_max_bwd"].append(
         pixel_max_bwd_reference_call(torch, ck, device, b, n, cfg.model.diam_pix ** 2))
+    step_pm = captured.pop("pixel_max")
+    check(len(step_pm) == TRAIN_LAUNCHES["pixel_max"],
+          f"pixel_max: expected {TRAIN_LAUNCHES['pixel_max']} train-step sites, saw {len(step_pm)}")
     with torch.no_grad():
         rows, ref_rows = compare_train_kernels(torch, ck, captured)
-        launch_path(torch, ck, step_bwd)
-    del captured, ref, step_bwd
+        for site, args in enumerate(step_pm):  # held and timed, outside the serve row
+            shape, nbytes, ops, err, diff_sel, lib_ms = pixel_max_site(torch, ck, site, args)
+            check(diff_sel == 0, f"pixel_max train-step site {site}: {diff_sel} argmax differ")
+            report_site(torch, "pixel_max", f"train_step {site}", shape, ck.pixel_max,
+                        ck.pixel_max_plain, args, nbytes, ops, err, diff_sel, lib_ms, new_agg())
+        launch_path(torch, ck, step_bwd, step_pm[0])
+    del captured, ref, step_bwd, step_pm
 
     # phase 12: the counted train step
     m, opt, sched = fresh()

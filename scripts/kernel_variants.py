@@ -2,7 +2,9 @@
 """Time design variants of a PyTorch-port kernel on one CUDA card (an H100).
 
 Each SOURCE is a copy of `stratanet2_tpu_torch/ops/csrc/<library>.cu` with
-another design behind the same C entry point. The script builds every source
+another design behind the same C entry point, or such a file followed by
+`@name=value,...`: a copy with those `constexpr int` constants set (written to
+the git-ignored build/variant_src/). The script builds every source
 at once with the port's nvcc flags (`ops/_build.py`), prints each kernel's
 registers and spills (`cuobjdump -res-usage`) and, for sa_train.cu, the SASS,
 SHFLs and FP32 instructions an edge of each batched slot loop (chip_smoke.py's
@@ -12,12 +14,22 @@ on ball-query picks of a synthetic cloud) against the plain PyTorch version
 and prints one JSON line a source and site: the error against the plain
 version (for sa_train_main the winners that differ) and the CUDA-event time
 of one launch (mean of 20, after a warm-up). kNN runs every slice count the
-entry takes (1, 2, 4, 8).
+entry takes (1, 2, 4, 8). knn_scatter runs at the train step's FP1 and FP2
+sites (kNN picks of synthetic plots) and at the k = 1 gather site (20% of the
+pairs on row 0); pixel_max at the serve step's site (1 m pixels of synthetic
+20 m plots). Both also print the device time and the device operations of a
+launch (torch.profiler), whether two launches agree bit for bit and, for a
+scatter whose source sets its round and chunk (kW, kL), whether it equals
+`knn_scatter_ordered_plain` bit for bit; a pixel_max source whose entry
+still takes a key scratch (the parent's design) gets one.
 
     python3 scripts/kernel_variants.py knn_interpolate a.cu b.cu
     python3 scripts/kernel_variants.py sa_train_main stratanet2_tpu_torch/ops/csrc/sa_train.cu x.cu
+    python3 scripts/kernel_variants.py knn_scatter stratanet2_tpu_torch/ops/csrc/knn_scatter.cu \
+        stratanet2_tpu_torch/ops/csrc/knn_scatter.cu@kTS=32,kL=128
 
-Kernels: knn_interpolate, sa_train_main, sa_train_bwd1, sa_train_bwd2.
+Kernels: knn_interpolate, sa_train_main, sa_train_bwd1, sa_train_bwd2, knn_scatter,
+pixel_max.
 
 Builds go to the git-ignored build/variants/. Exits non-zero without a card.
 """
@@ -26,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -39,6 +52,24 @@ SEED = 0
 REPS = 20
 
 
+def source_file(spec: str) -> Path:
+    """The file of a SOURCE: `path`, or `path@name=value,...`, a copy of
+    path with those `constexpr int` constants set."""
+    path, _, sets = spec.partition("@")
+    if not sets:
+        return Path(path)
+    text = Path(path).read_text()
+    for item in sets.split(","):
+        name, value = item.split("=")
+        text, n = re.subn(rf"(constexpr int {name} = )[^;]+;", rf"\g<1>{value};", text)
+        if n != 1:
+            raise SystemExit(f"{spec}: constant {name} not found once in {path}")
+    out = ROOT / "build" / "variant_src" / f"{Path(path).stem}_{sets.replace('=', '').replace(',', '_')}.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(text)
+    return out
+
+
 def build(sources):
     """{source: loaded library}; each source compiled by its own nvcc."""
     from stratanet2_tpu_torch.ops import _build
@@ -47,8 +78,9 @@ def build(sources):
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, procs = _build._nvcc(), {}
     for i, src in enumerate(sources):
-        lib = out_dir / f"{i}_{Path(src).stem}.so"
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(src)]
+        lib = out_dir / f"{i}_{Path(src.partition('@')[0]).stem}.so"
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
+               str(source_file(src))]
         procs[src] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                             text=True))
     cuobjdump = Path(nvcc).parent / "cuobjdump"
@@ -234,8 +266,98 @@ def run_bwd2(torch, ck, libs, gen, device):
             }), flush=True)
 
 
+def constants(src):
+    """{name: value} of the `constexpr int` constants of a SOURCE's file."""
+    return {m.group(1): int(m.group(2)) for m in
+            re.finditer(r"constexpr int (\w+) = (\d+);", source_file(src).read_text())}
+
+
+def device_cost(torch, fn, prefix):
+    """(device ms, device operations) a launch of fn (chip_smoke.device_profile)."""
+    ms, launches, ops = chip_smoke.device_profile(torch, fn, (prefix,))
+    return {"device_ms": ms, "device_ops_a_launch": ops / max(launches, 1)}
+
+
+def scatter_sites(torch, ck, gen, device_):
+    """knn_scatter's sites at PROD, (site, idx, w, g, s): FP1 and FP2, the
+    kNN picks and weights of synthetic plots (sources a random subset of the
+    targets), and the k = 1 gather of SA2's slots with 20% on row 0."""
+    for site, s, t, f in (("FP1", 2500, 10000, 34), ("FP2", 625, 2500, 64)):
+        pt = plot_clouds(torch, gen, 20, t, device_)
+        ps = pt[:, torch.randperm(t, generator=gen, device=device_)[:s]].contiguous()
+        _, idx, w = ck.knn_interpolate(torch.zeros((20, s, 1), device=device_), ps, pt)
+        yield site, idx, w, torch.randn((20, t, f), generator=gen, device=device_), s
+    idx = torch.randint(0, 2500, (20, 1, 40000), generator=gen, device=device_, dtype=torch.int32)
+    idx[torch.rand(idx.shape, generator=gen, device=device_) < 0.2] = 0
+    yield "gather", idx, None, torch.randn((20, 40000, 32), generator=gen, device=device_), 2500
+
+
+def run_knn_scatter(torch, ck, libs, gen, device_):
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    for site, idx, w, g, s in scatter_sites(torch, ck, gen, device_):
+        b, k, t = idx.shape
+        f = g.shape[2]
+        want = ck.knn_scatter_plain(idx, w, g, s)
+        cnt = torch.zeros(b * s, device=device_).index_add_(
+            0, (idx.long() + (torch.arange(b, device=device_) * s)[:, None, None]).reshape(-1),
+            torch.ones(idx.numel(), device=device_))
+        print(json.dumps({"site": site, "shape": [b, k, t, s, f],
+                          "max_degree": int(cnt.max())}), flush=True)
+        for src, lib in libs.items():
+            fn = entry(lib, "knn_scatter_launch", 4, 5)
+            consts = constants(src)
+            outs = [torch.full((b, s, f), float("nan"), device=device_) for _ in range(2)]
+            cargs = [[idx.data_ptr(), None if w is None else w.data_ptr(), g.data_ptr(),
+                      dx.data_ptr(), b, k, t, s, f, stream] for dx in outs]
+            rc = fn(*cargs[0])
+            fn(*cargs[1])
+            torch.cuda.synchronize()
+            ordered = None
+            if "kW" in consts and "kL" in consts:
+                o = ck.knn_scatter_ordered_plain(idx, w, g, s, consts["kW"], consts["kL"])
+                ordered = torch.equal(o.view(torch.int32), outs[0].view(torch.int32))
+            print(json.dumps({
+                "source": src, "kernel": "knn_scatter", "site": site, "rc": rc,
+                **{c: consts[c] for c in ("kTS", "kRowsMax", "kW", "kL", "kB") if c in consts},
+                "max_abs_diff": float((outs[0] - want).abs().max()),
+                "launches_equal": torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32)),
+                "equals_ordered_plain": ordered,
+                "ms": event_ms(torch, lambda: fn(*cargs[0])),
+                **device_cost(torch, lambda: fn(*cargs[0]), "knn_scatter"),
+            }), flush=True)
+
+
+def run_pixel_max(torch, ck, libs, gen, device_):
+    """The serve step's site: B=20 x N=10000 points of 20 m plots in 1 m
+    pixels (P = 20), three values a point."""
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    b, n, p, c = 20, 10000, 20, 3
+    xy = torch.rand((b, n, 2), generator=gen, device=device_) * p
+    pix = (xy[..., 0].long().clamp(0, p - 1) * p + xy[..., 1].long().clamp(0, p - 1)).int()
+    vals = torch.rand((b, n, c), generator=gen, device=device_)
+    want_v, want_a = ck.pixel_max_plain(pix, vals, p * p)
+    for src, lib in libs.items():
+        keys = re.search(r"pixel_max_launch\([^)]*keys", source_file(src).read_text()) is not None
+        fn = entry(lib, "pixel_max_launch", 5 if keys else 4, 4)
+        vmax = torch.empty((b, p * p, c), device=device_)
+        amax = torch.empty((b, p * p, c), dtype=torch.int32, device=device_)
+        scratch = [torch.empty((b, p * p, c), dtype=torch.int64, device=device_).data_ptr()] \
+            if keys else []
+        cargs = [pix.data_ptr(), vals.data_ptr(), *scratch, vmax.data_ptr(), amax.data_ptr(),
+                 b, n, p * p, c, stream]
+        rc = fn(*cargs)
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "source": src, "kernel": "pixel_max", "site": "serve", "rc": rc,
+            **{k: v for k, v in constants(src).items() if k in ("kCS", "kThreads", "kChunk")},
+            "equal": torch.equal(vmax, want_v) and torch.equal(amax, want_a),
+            "ms": event_ms(torch, lambda: fn(*cargs)),
+            **device_cost(torch, lambda: fn(*cargs), "pixel_max"),
+        }), flush=True)
+
+
 RUNS = {"knn_interpolate": run_knn, "sa_train_main": run_main, "sa_train_bwd1": run_bwd1,
-        "sa_train_bwd2": run_bwd2}
+        "sa_train_bwd2": run_bwd2, "knn_scatter": run_knn_scatter, "pixel_max": run_pixel_max}
 
 
 def main() -> int:

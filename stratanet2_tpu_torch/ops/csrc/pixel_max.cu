@@ -1,17 +1,17 @@
 // Per-pixel max and argmax of pointwise values over data-dependent pixel ids.
 //
-// Replaces: stratanet2_tpu/ops/pallas_kernels.py::_pixel_max_kernel
-// (pallas_call in _pixel_max_fwd_raw, wrapped by pixel_max_pallas) and, in
-// pixel_max_bwd_launch at the end of this file, _pixel_max_bwd_kernel
-// (pallas_call in _pixel_max_bwd). Semantics of the forward are the TPU
-// kernel's: per (cloud, pixel, channel) the max value and the lowest point
-// index attaining it; -3.4e38 / -1 where no point falls; ids outside
-// [0, P^2) match no pixel.
+// Replaces: stratanet2_tpu/ops/pallas_kernels.py::_pixel_max_kernel (:1289,
+// pallas_call :1368 in _pixel_max_fwd_raw, wrapped by pixel_max_pallas
+// :1390) and, in pixel_max_bwd_launch at the end of this file,
+// _pixel_max_bwd_kernel (:1329, pallas_call :1433 in _pixel_max_bwd).
+// Semantics of the forward are the TPU kernel's: per (cloud, pixel, channel)
+// the max value and the lowest point index attaining it; -3.4e38 / -1 where
+// no point falls; ids outside [0, P^2) match no pixel.
 //
 // Bound on the H100: bytes, and few of them. A serve-step call reads
 // 20 x 10000 x (4 + 12) B and writes 20 x 400 x 3 x 8 B (~3.2 MB + 0.2 MB,
 // about 1 us at 3.35 TB/s); there is one compare per value. What costs in
-// practice is contention on the few pixels' atomics and the launches.
+// practice is the launch and the host's share of it.
 //
 // Design: the TPU kernel compares every point with every pixel (a dense
 // (P^2, chunk) mask) because TPU scatters serialise. Hopper has shared-memory
@@ -19,14 +19,28 @@
 // an order-preserving uint32 and packed into a 64-bit key
 // (ord(v) << 32) | (0xFFFFFFFF - idx), so one atomicMax keeps the larger
 // value and, among equal values, the lower index: deterministic, whatever
-// the order of the atomics. One block per (cloud, chunk of points) reduces
-// into a P^2 x C table of keys in shared memory (400 x 3 x 8 B at the serve
-// geometry), then merges its occupied slots into a (B, P^2, C) key scratch
-// in device memory with global atomicMax; a second kernel decodes the keys.
+// the order of the atomics. One launch a call, one thread-block cluster of
+// kCS blocks a cloud (grid (kCS, B)): each block zeroes its own P^2 x C
+// table of keys in shared memory (400 x 3 x 8 B at the serve geometry),
+// reduces its contiguous share of the cloud's points into it, and after a
+// cluster barrier block r takes every kCS-th share of the slots, reads the
+// kCS peers' keys through distributed shared memory, keeps the largest,
+// decodes it and writes vmax and amax; a second cluster barrier keeps each
+// table alive until its peers have read it. No scratch in device memory,
+// no memset, no global atomic, no decode kernel. Measured
+// (scripts/kernel_variants.py at the serve step's site, B=20 x N=10000,
+// P^2 = 400, C = 3; device ms a call, NVIDIA H100 80GB HBM3 at 700 W): kCS =
+// 8 with 512 threads 0.0076; not kept: kCS = 4 0.0082, kCS = 2 0.0119, 256
+// threads 0.0087, 1024 threads 0.0122; the parent's scatter + decode kernels
+// 0.0109 beside its key memset (three device operations).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 2048;  // points per block
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 512;
+constexpr int kCS = 8;  // blocks a cluster, a cluster a cloud (8 is the portable most)
 
 __device__ __forceinline__ uint32_t order_key(float v) {
   const uint32_t u = __float_as_uint(v);
@@ -37,65 +51,52 @@ __device__ __forceinline__ float order_value(uint32_t o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
-__global__ void __launch_bounds__(kThreads)
-pixel_max_scatter(const int* __restrict__ pix, const float* __restrict__ vals,
-                  unsigned long long* __restrict__ keys, int n, int p2, int c) {
+__global__ void __cluster_dims__(kCS, 1, 1) __launch_bounds__(kThreads)
+pixel_max_kernel(const int* __restrict__ pix, const float* __restrict__ vals,
+                 float* __restrict__ vmax, int* __restrict__ amax, int n, int p2, int c) {
   extern __shared__ unsigned long long table[];
-  const int b = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const size_t b = blockIdx.y;
   const int slots = p2 * c;
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) table[i] = 0ull;
+  for (int i = threadIdx.x; i < slots; i += kThreads) table[i] = 0ull;
   __syncthreads();
-  const int begin = blockIdx.x * kChunk;
-  const int end = min(n, begin + kChunk);
-  for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
-    const int p = pix[static_cast<size_t>(b) * n + i];
+  const int share = (n + kCS - 1) / kCS;
+  const int end = min(n, (rank + 1) * share);
+  for (int i = rank * share + threadIdx.x; i < end; i += kThreads) {
+    const int p = pix[b * n + i];
     if (p < 0 || p >= p2) continue;
     const unsigned long long low = 0xFFFFFFFFull - static_cast<unsigned>(i);
     for (int ch = 0; ch < c; ++ch) {
-      const float v = vals[(static_cast<size_t>(b) * n + i) * c + ch];
+      const float v = vals[(b * n + i) * c + ch];
       atomicMax(&table[p * c + ch], (static_cast<unsigned long long>(order_key(v)) << 32) | low);
     }
   }
-  __syncthreads();
-  unsigned long long* kb = keys + static_cast<size_t>(b) * slots;
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
-    if (table[i]) atomicMax(&kb[i], table[i]);
+  cluster.sync();  // every peer's table is complete and visible
+  for (int i = rank * kThreads + threadIdx.x; i < slots; i += kCS * kThreads) {
+    unsigned long long key = 0ull;
+#pragma unroll
+    for (int q = 0; q < kCS; ++q) key = max(key, cluster.map_shared_rank(table, q)[i]);
+    if (key == 0ull) {  // every occupied slot has a non-zero index half
+      vmax[b * slots + i] = -3.4e38f;
+      amax[b * slots + i] = -1;
+    } else {
+      vmax[b * slots + i] = order_value(static_cast<uint32_t>(key >> 32));
+      amax[b * slots + i] = static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(key));
+    }
   }
+  cluster.sync();  // no table goes while a peer may still read it
 }
 
-__global__ void pixel_max_decode(const unsigned long long* __restrict__ keys,
-                                 float* __restrict__ vmax, int* __restrict__ amax,
-                                 int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const unsigned long long key = keys[i];
-  if (key == 0ull) {  // every occupied slot has a non-zero index half
-    vmax[i] = -3.4e38f;
-    amax[i] = -1;
-  } else {
-    vmax[i] = order_value(static_cast<uint32_t>(key >> 32));
-    amax[i] = static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(key & 0xFFFFFFFFull));
-  }
-}
-
-// pix (b, n) i32, vals (b, n, c) f32, keys (b, p2, c) u64 scratch ->
-// vmax (b, p2, c) f32, amax (b, p2, c) i32.
-extern "C" int pixel_max_launch(const int* pix, const float* vals, unsigned long long* keys,
-                                float* vmax, int* amax, int b, int n, int p2, int c,
-                                void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t total = static_cast<size_t>(b) * p2 * c;
-  cudaError_t err = cudaMemsetAsync(keys, 0, total * sizeof(unsigned long long), st);
-  if (err != cudaSuccess) return err;
+// pix (b, n) i32, vals (b, n, c) f32 -> vmax (b, p2, c) f32, amax (b, p2, c)
+// i32; 8 * p2 * c bytes of shared memory, b <= 65535.
+extern "C" int pixel_max_launch(const int* pix, const float* vals, float* vmax, int* amax,
+                                int b, int n, int p2, int c, void* stream) {
   const size_t smem = static_cast<size_t>(p2) * c * sizeof(unsigned long long);
-  err = allow_smem(pixel_max_scatter, smem);
+  cudaError_t err = allow_smem(pixel_max_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kChunk - 1) / kChunk, b);
-  pixel_max_scatter<<<grid, kThreads, smem, st>>>(pix, vals, keys, n, p2, c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  pixel_max_decode<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
-      keys, vmax, amax, static_cast<int>(total));
+  pixel_max_kernel<<<dim3(kCS, b), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      pix, vals, vmax, amax, n, p2, c);
   return cudaGetLastError();
 }
 

@@ -45,6 +45,12 @@ _KNN_CHUNK = 512  # targets per (B, chunk, S) distance tile of the plain kNN
 # wants enough warps to fill the 64 warp slots of each of 132 SMs once
 KNN_WARPS, KNN_MIN_WARPS = 8, 64 * 132
 _SMEM_MAX = 227 * 1024  # opt-in dynamic shared memory of one H100 block
+# csrc/knn_scatter.cu: pairs a round and contributions a chunk (kW, kL: they
+# set the order of its sums), and the widest F whose accumulators fit in
+# shared memory
+KNN_SCATTER_PAIRS, KNN_SCATTER_CHUNK = 8192, 64
+KNN_SCATTER_MAX_F = 128
+PIXEL_MAX_CLUSTER = 8  # csrc/pixel_max.cu: blocks of a cloud's cluster (kCS)
 FPS_MAX_N = 16 * 1024  # csrc/fps.cu: at most 16 points for each of a block's 1024 threads
 # csrc/common.cuh's grouped selection: 8 warps a block each stage one group of
 # g points as float4, for a tile of 64 centroids
@@ -62,9 +68,7 @@ _ENTRIES = {  # wrapper: (library = csrc/<library>.cu, C entry point, its argume
         "knn_interpolate", "knn_interpolate_launch",
         [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     ),
-    "pixel_max": (
-        "pixel_max", "pixel_max_launch", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]
-    ),
+    "pixel_max": ("pixel_max", "pixel_max_launch", [_VP] * 4 + [_I] * 4 + [_VP]),
     "ball_query": (
         "ball_query", "ball_query_launch", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]
     ),
@@ -387,10 +391,10 @@ def pixel_max(pix: torch.Tensor, vals: torch.Tensor, n_pix: int):
     if not _on_card(name, pix, vals):
         return pixel_max_plain(pix, vals, n_pix)
     _expect(8 * n_pix * c <= _SMEM_MAX, name, "pixel table exceeds shared memory")
-    keys = torch.empty((b, n_pix, c), dtype=torch.int64, device=vals.device)
-    vmax = torch.empty((b, n_pix, c), dtype=torch.float32, device=vals.device)
-    amax = torch.empty((b, n_pix, c), dtype=torch.int32, device=vals.device)
-    _launch(name, vals.device, pix, vals, keys, vmax, amax, b, n, n_pix, c)
+    _expect(b < 65536, name, "the kernel takes at most 65535 clouds")
+    vmax = vals.new_empty((b, n_pix, c))  # cheaper on the host than torch.empty(..., device=)
+    amax = pix.new_empty((b, n_pix, c))
+    _launch(name, vals.device, pix, vals, vmax, amax, b, n, n_pix, c)
     return vmax, amax
 
 
@@ -488,12 +492,73 @@ def knn_scatter_plain(idx: torch.Tensor, w: Optional[torch.Tensor], g: torch.Ten
     return out.float().reshape(b, s, f)
 
 
+def _run_ranks(keys: torch.Tensor):
+    """Each element's rank within its run of equal values in sorted `keys`,
+    and the runs' starts and lengths."""
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    starts = torch.nonzero(first).squeeze(1)
+    sizes = torch.diff(torch.cat([starts, starts.new_tensor([keys.numel()])]))
+    rank = torch.arange(keys.numel(), device=keys.device) - torch.repeat_interleave(starts, sizes)
+    return rank, starts, sizes
+
+
+def knn_scatter_ordered_plain(idx: torch.Tensor, w: Optional[torch.Tensor], g: torch.Tensor,
+                              s: int, pairs: int = KNN_SCATTER_PAIRS,
+                              chunk: int = KNN_SCATTER_CHUNK):
+    """`knn_scatter` in the kernel's order of float32 sums (csrc/knn_scatter.cu).
+    Pair p = j * T + t contributes w * g[t] (float32 product; g itself
+    without weights) to its row. The pairs are taken in rounds of `pairs`
+    consecutive p; a row's pairs of one round, in increasing p, are cut into
+    chunks of `chunk`; each chunk is summed in order from 0, and the row is
+    0 plus its chunks' sums, rounds in order and chunks in order within a
+    round. Every step is an `index_add_` whose indices are distinct, so it
+    rounds once per element, as the kernel's `__fadd_rn` does. Ids outside
+    [0, S) are skipped."""
+    b, k, t = idx.shape
+    f = g.shape[2]
+    kt = k * t
+    contrib = g[:, None].expand(b, k, t, f)
+    if w is not None:
+        contrib = w[..., None] * contrib
+    contrib = contrib.reshape(b * kt, f)
+    d = idx.reshape(b, kt).long()
+    keep = ((d >= 0) & (d < s)).reshape(-1)
+    rounds = -(-kt // pairs)
+    row = d + (torch.arange(b, device=g.device) * s)[:, None]
+    bucket = (row * rounds + torch.arange(kt, device=g.device) // pairs).reshape(-1)[keep]
+    bucket, order = torch.sort(bucket, stable=True)  # stable: increasing p within a bucket
+    src = torch.nonzero(keep).squeeze(1)[order]
+    rank, starts, sizes = _run_ranks(bucket)
+    chunks = -(-sizes // chunk)  # of each bucket
+    cid = torch.repeat_interleave(torch.cumsum(chunks, 0) - chunks, sizes) + rank // chunk
+    partial = torch.zeros((int(chunks.sum()), f), dtype=g.dtype, device=g.device)
+    for pos in range(min(chunk, int(sizes.max()) if sizes.numel() else 0)):
+        sel = rank % chunk == pos
+        partial.index_add_(0, cid[sel], contrib[src[sel]])
+    # a row's chunks are adjacent, rounds in order (the buckets are sorted)
+    chunk_row = torch.repeat_interleave(bucket[starts] // rounds, chunks)
+    ordinal, _, per_row = _run_ranks(chunk_row)
+    out = torch.zeros((b * s, f), dtype=g.dtype, device=g.device)
+    for o in range(int(per_row.max()) if per_row.numel() else 0):
+        sel = ordinal == o
+        out.index_add_(0, chunk_row[sel], partial[sel])
+    return out.reshape(b, s, f)
+
+
+def knn_scatter_rows(b: int, s: int, f: int) -> int:
+    """The rows a block of csrc/knn_scatter.cu owns at this shape, as its
+    launch chooses them (read from the built library)."""
+    return _build.load("knn_scatter").knn_scatter_rows(b, s, f)
+
+
 def knn_scatter(idx: torch.Tensor, w: Optional[torch.Tensor], g: torch.Tensor, s: int):
     """Weighted scatter-add into S rows: idx (B, k, T) int32 in [0, S),
     w (B, k, T) float32 or None (all ones), g (B, T, F) float32 -> dx
     (B, S, F) with dx[b, idx[b, j, t]] += w[b, j, t] * g[b, t]. The backward
     of `knn_interpolate` (k=3, its normalised weights) and of `gather_rows`
-    (k=1, no weights). On the card the sum order is not fixed (atomics)."""
+    (k=1, no weights). On the card each row is summed in one fixed order,
+    `knn_scatter_ordered_plain`'s, so the result is reproducible bit for bit."""
     name = "knn_scatter"
     b, k, t = idx.shape
     f = g.shape[2]
@@ -505,7 +570,10 @@ def knn_scatter(idx: torch.Tensor, w: Optional[torch.Tensor], g: torch.Tensor, s
     _expect(s >= 1, name, "need S >= 1")
     if not _on_card(name, idx, w, g):
         return knn_scatter_plain(idx, w, g, s)
-    dx = torch.empty((b, s, f), dtype=torch.float32, device=g.device)
+    _expect(b < 65536 and f <= KNN_SCATTER_MAX_F and t * f < 2 ** 31, name,
+            f"the kernel takes at most 65535 clouds, {KNN_SCATTER_MAX_F} channels and "
+            "T x F < 2^31")
+    dx = g.new_empty((b, s, f))
     _launch(name, g.device, idx, w, g, dx, b, k, t, s, f)
     return dx
 

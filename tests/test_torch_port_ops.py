@@ -447,6 +447,64 @@ class TestBackward:
         np.testing.assert_allclose(got, np.asarray(pallas), rtol=0,
                                    atol=1e-5 * np.abs(exact).max())
 
+    @staticmethod
+    def _ordered_loop(idx, w, g, s, pairs, chunk):
+        """The kernel's order of sums as a numpy loop of float32 adds: per
+        row, its pairs p = j * T + t in rounds of `pairs` consecutive p, a
+        round's pairs cut into chunks of `chunk`, each chunk summed in p
+        order from 0, the row 0 plus its chunks in order."""
+        b, k, t = idx.shape
+        out = np.zeros((b, s, g.shape[2]), np.float32)
+        for bi in range(b):
+            groups = {}
+            for p in range(k * t):
+                j, ti = divmod(p, t)
+                d = int(idx[bi, j, ti])
+                if 0 <= d < s:
+                    v = g[bi, ti] if w is None else np.float32(w[bi, j, ti]) * g[bi, ti]
+                    groups.setdefault((d, p // pairs), []).append(v.astype(np.float32))
+            for (d, _), terms in sorted(groups.items()):
+                for c0 in range(0, len(terms), chunk):
+                    part = np.zeros(g.shape[2], np.float32)
+                    for v in terms[c0:c0 + chunk]:
+                        part = (part + v).astype(np.float32)
+                    out[bi, d] = (out[bi, d] + part).astype(np.float32)
+        return out
+
+    @pytest.mark.parametrize("k,weighted,pairs,chunk", [(3, True, 256, 8), (1, False, 128, 4),
+                                                        (3, True, 8192, 64)])
+    def test_ordered_scatter_is_the_kernels_float32_order(self, rng, k, weighted, pairs, chunk):
+        """`knn_scatter_ordered_plain` sums as the kernel does, bit for bit:
+        several rounds of `pairs`, a row (row 3 of cloud 0) with more than
+        `chunk` pairs in a round, rows with none, ids outside [0, S)
+        skipped; and within the float32 error bound of a sum in any order of
+        `knn_scatter_plain` (float64 sums) on the ids in range."""
+        idx, w, g, s, _ = self._scatter_inputs(rng, k, weighted)
+        idx[0, :, 5:25] = 3  # row 3: 25 pairs of each j, more than a chunk
+        idx[1, 0, :7] = -1
+        idx[1, 0, 7:9] = s
+        idx[idx == 70] = 71  # row 70 gets nothing
+        got = ck.knn_scatter_ordered_plain(T(idx), None if w is None else T(w), T(g), s, pairs,
+                                           chunk).numpy()
+        want = self._ordered_loop(idx, w, g, s, pairs, chunk)
+        assert got.view(np.int32).tolist() == want.view(np.int32).tolist()
+        assert not got[:, 70].any()
+        valid = (idx >= 0) & (idx < s)
+        # ids out of range go to row 0 with weight 0 (the plain version takes none)
+        wz = np.where(valid, 1 if w is None else w, 0).astype(np.float32)
+        plain = ck.knn_scatter_plain(T(np.where(valid, idx, 0).astype(np.int32)), T(wz), T(g),
+                                     s).numpy()
+        terms = np.abs(g[:, None] * wz[..., None]).astype(np.float64)
+        absum = np.zeros(got.shape, np.float64)
+        cnt = np.zeros(got.shape[:2], np.float64)
+        for bi in range(idx.shape[0]):
+            rows = np.where(valid[bi], idx[bi], 0).reshape(-1)
+            np.add.at(absum[bi], rows, terms[bi].reshape(-1, g.shape[2]))
+            np.add.at(cnt[bi], rows, valid[bi].reshape(-1).astype(np.float64))
+        u = 2.0 ** -24
+        bound = cnt[..., None] * u * absum + 2 * u * np.abs(plain)
+        assert (np.abs(got.astype(np.float64) - plain) <= bound).all()
+
     def test_gather_rows_matches_jax_vjp(self, rng):
         """Forward: the same rows, exactly. Backward: JAX's VJP is the
         interpret-mode Pallas scatter (hi/lo bf16), within 1e-5 of the

@@ -1,7 +1,8 @@
 """CPU checks of the parts of chip_smoke.py and of the kernel wrappers that
-need no card: the SASS parsers of phase 16 on a synthetic `cuobjdump -sass`
-listing, the kNN and SA train reference sites' inputs, and the kNN
-wrapper's split of sources across warps."""
+need no card: the SASS parsers of phase 16 on synthetic `cuobjdump -sass`
+listings (scan and slot loops, global atomics), the kNN, SA train, scatter
+and pixel-max reference sites' inputs, the scatter's and pixel max's site
+checks, and the kNN wrapper's split of sources across warps."""
 
 import re
 
@@ -209,3 +210,165 @@ def test_knn_slices_fill_the_card(b, t, slices):
         assert b * -(-t // 32) * slices >= ck.KNN_MIN_WARPS
     if slices > 1:
         assert b * -(-t // 32) * (slices // 2) < ck.KNN_MIN_WARPS
+
+
+# phase 16's atomics check: the two kernels that write each output element
+# once, with shared-memory atomics only (ATOMS, not counted)
+ATOMIC_SASS = """
+        Function : _Z18knn_scatter_kernelILb1EEvPKiPKfS3_Pfiiiii
+        /*0000*/                   ATOMS.ADD RZ, [R2], R3 ;
+        /*0010*/                   LDG.E R4, [R6.64] ;
+        /*0020*/                   STG.E [R8.64], R4 ;
+        /*0030*/                   EXIT ;
+        Function : _Z16pixel_max_kernelPKiPKfPfPiiii
+        /*0000*/                   ATOMS.CAS.64 R4, [R2], R4, R6 ;
+        /*0010*/                   STG.E [R8.64], R4 ;
+        /*0020*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("kernel", ["knn_scatter_kernel", "pixel_max_kernel"])
+def test_atomics_check_passes_shared_atomics_and_fails_a_global_one(kernel):
+    """The listing's shared atomics pass; a global float RED, an ATOMG or a
+    REDG in the kernel fails phase 16, and so does a kernel missing from
+    the listing."""
+    counts = cs.global_atomics(ATOMIC_SASS, kernel)
+    assert list(counts.values()) == [0]
+    cs.check_no_atomics(counts, kernel)
+    for bad in ("RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R8.64], R4",
+                "@P0 ATOMG.E.MAX.STRONG.GPU PT, R5, [R8.64], R4",
+                "REDG.E.ADD.F32.FTZ.RN.STRONG.GPU [R8.64], R4"):
+        counts = cs.global_atomics(ATOMIC_SASS.replace("STG.E [R8.64], R4", bad), kernel)
+        assert list(counts.values()) == [1]
+        with pytest.raises(SystemExit):
+            cs.check_no_atomics(counts, kernel)
+    with pytest.raises(SystemExit):
+        cs.check_no_atomics(cs.global_atomics(ATOMIC_SASS, "sa_kernel"), "sa_kernel")
+
+
+def _degrees(idx, s):
+    """(B, S) contributions a row, ids outside [0, S) left out."""
+    valid = (idx >= 0) & (idx < s)
+    deg = torch.zeros((idx.shape[0], s + 1), dtype=torch.long)
+    deg.scatter_add_(1, torch.where(valid, idx, s).long().reshape(idx.shape[0], -1),
+                     torch.ones(idx[:, 0].numel() * idx.shape[1], dtype=torch.long)
+                     .reshape(idx.shape[0], -1))
+    return deg[:, :s]
+
+
+def test_knn_scatter_reference_sites_are_hot_and_ragged():
+    """The inputs of knn_scatter's synthetic sites have the properties their
+    comment in chip_smoke.py claims."""
+    calls = cs.knn_scatter_reference_calls(torch, torch.device("cpu"))
+    assert len(calls) == len(cs.KNN_SCATTER_REFERENCE)
+    for (kind, b, k, t, s, f), (idx, w, g, s_arg) in zip(cs.KNN_SCATTER_REFERENCE, calls):
+        assert (idx.shape, idx.dtype, g.shape, s_arg) == ((b, k, t), torch.int32, (b, t, f), s)
+        deg = _degrees(idx, s)
+        if kind == "hot":
+            assert w is None and bool(((idx >= 0) & (idx < s)).all())
+            assert (t, s, f) == (625 * 64, 2500, 32)  # phase 10's gather site, SA2's slots
+            assert 0.19 < float((idx == 0).float().mean()) < 0.21
+            # row 0 spans many chunks in every round
+            assert int(deg[:, 0].min()) * ck.KNN_SCATTER_PAIRS // (k * t) > 8 * ck.KNN_SCATTER_CHUNK
+        else:
+            assert w is not None and w.shape == idx.shape
+            assert all(s % rows and t % rows for rows in (32, 64, 128, 193, 256))
+            assert (k * t) % ck.KNN_SCATTER_PAIRS and (k * t) % 4096
+            assert int((deg == 0).sum(1).min()) >= s // 10  # a band of empty rows
+            outside = (idx < 0) | (idx >= s)
+            assert 0.005 < float(outside.float().mean()) < 0.02
+            assert bool((idx == -1).any()) and bool((idx >= s).any())
+
+
+def test_pixel_max_reference_sites_tie_across_cluster_blocks():
+    """The inputs of pixel_max's reference sites have the properties their
+    comment in chip_smoke.py claims, for every cluster size tried."""
+    calls = cs.pixel_max_reference_calls(torch, torch.device("cpu"))
+    assert len(calls) == len(cs.PIXEL_MAX_REFERENCE)
+    for (kind, b, n, p), (pix, vals, p2) in zip(cs.PIXEL_MAX_REFERENCE, calls):
+        assert (pix.shape, vals.shape, p2) == ((b, n), (b, n, 3), p * p) and p != 20
+        inside = (pix >= 0) & (pix < p2)
+        vmax, amax = ck.pixel_max_plain(pix, vals, p2)
+        assert bool((~inside).any()) and bool((amax[..., 0] < 0).any())
+        if kind == "tiny":
+            for size in (4, 8):  # the last block of the cluster gets no point
+                assert (size - 1) * -(-n // size) >= n
+            continue
+        assert torch.equal(vals * 2, (vals * 2).round())
+        assert all(n % m for m in (2, 4, 8, 256, 512, 1024))
+        index = torch.where(inside, pix, p2).long()[..., None].expand(b, n, 3)
+        top = torch.cat([vmax, torch.full((b, 1, 3), ck.NEG)], 1).gather(1, index)
+        at_max = inside[..., None] & (vals == top)
+        for size in (2, 4, 8):
+            block = torch.arange(n) // -(-n // size)
+            blocks = torch.zeros((b, p2 + 1, 3))
+            for r in range(size):
+                hit = torch.zeros((b, p2 + 1, 3)).scatter_reduce(
+                    1, index, (at_max & (block == r)[None, :, None]).float(), "amax")
+                blocks += hit
+            occupied = amax >= 0
+            assert float((blocks[:, :p2] >= 2)[occupied].float().mean()) > 0.2
+
+
+@pytest.fixture
+def smoke_on_cpu(monkeypatch):
+    """chip_smoke's site checks on the CPU: no timing, a profile that saw
+    ten launches and nothing else, and the kernel's order of sums standing
+    in for the scatter kernel."""
+    monkeypatch.setattr(cs, "cuda_ms", lambda *a, **k: 0.0)
+    monkeypatch.setattr(cs, "device_profile", lambda *a, **k: (0.0, 10, 10))
+    monkeypatch.setattr(ck, "knn_scatter", ck.knn_scatter_ordered_plain)
+    monkeypatch.setattr(ck, "knn_scatter_rows", lambda *a: 32)
+
+
+@pytest.fixture(scope="module")
+def scatter_calls():
+    return cs.knn_scatter_reference_calls(torch, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("site", range(len(cs.KNN_SCATTER_REFERENCE)))
+def test_knn_scatter_reference_sites_pass_the_smoke_checks(smoke_on_cpu, scatter_calls, site):
+    """A result in the kernel's order passes every check of the site: two
+    launches equal, equal to the ordered plain, within the any-order bound
+    of the plain version, empty rows 0."""
+    args = scatter_calls[site]
+    shape, nbytes, ops, err, _, plain = cs.knn_scatter_site(torch, ck, site, args)
+    assert nbytes > 0 and ops > 0 and err < 1e-3
+    assert plain().shape == (args[0].shape[0], args[3], args[2].shape[2])
+
+
+@pytest.mark.parametrize("site", range(len(cs.KNN_SCATTER_REFERENCE)))
+def test_knn_scatter_smoke_checks_reject_another_order_and_an_unstable_one(
+        smoke_on_cpu, scatter_calls, monkeypatch, site):
+    """A scatter that sums in rounds of half the kernel's pairs fails the
+    bit-for-bit check against the ordered plain; one whose two launches
+    differ fails the determinism check."""
+    args = scatter_calls[site]
+    half = ck.KNN_SCATTER_PAIRS // 2
+    monkeypatch.setattr(ck, "knn_scatter",
+                        lambda idx, w, g, s: ck.knn_scatter_ordered_plain(idx, w, g, s, half))
+    with pytest.raises(SystemExit, match="differ from the ordered plain"):
+        cs.knn_scatter_site(torch, ck, site, args)
+    calls = []
+
+    def unstable(idx, w, g, s):
+        calls.append(1)
+        return ck.knn_scatter_ordered_plain(idx, w, g, s, half if len(calls) % 2 else
+                                            ck.KNN_SCATTER_PAIRS)
+
+    monkeypatch.setattr(ck, "knn_scatter", unstable)
+    with pytest.raises(SystemExit, match="two launches differ"):
+        cs.knn_scatter_site(torch, ck, site, args)
+
+
+@pytest.mark.parametrize("site", range(len(cs.PIXEL_MAX_REFERENCE)))
+def test_pixel_max_reference_sites_pass_the_smoke_checks(smoke_on_cpu, monkeypatch, site):
+    """The plain version passes pixel_max's site checks; a call that shows
+    three device operations a launch (the parent's memset, scatter and
+    decode) fails them."""
+    args = cs.pixel_max_reference_calls(torch, torch.device("cpu"))[site]
+    shape, nbytes, ops, err, diff_sel, _ = cs.pixel_max_site(torch, ck, site, args)
+    assert err == 0.0 and diff_sel == 0 and nbytes > 0
+    monkeypatch.setattr(cs, "device_profile", lambda *a, **k: (0.0, 10, 30))
+    with pytest.raises(SystemExit, match="device operations"):
+        cs.pixel_max_site(torch, ck, site, args)
