@@ -96,6 +96,18 @@ Phases, in order, each failing loudly:
   15b. `"phase": "serve_after_train"`: the serve step at B=2 on the model
      fresh from the train steps (in train mode) equals the serve step on an
      eval copy, moves no BN buffer and leaves the model in train mode;
+  15c. `"phase": "loader_steps"`: 24 synthetic plots of 12000 points written
+     with the port's LAS writer, read and prepared (`load_las_file`,
+     `clean`, `pre_transform`), batched by `PlotLoader` (2 worker threads,
+     PROD subsample) for 3 train steps and 1 serve step on the card (launch
+     counters zeroed just before and read just after): every loss part
+     finite, every shape right; prints the min-z path (native or numpy),
+     the host ms a batch and the step ms. Each of those train batches opens
+     an epoch (24 plots make one batch of 20), so it is the cold latency of
+     a new pool. Then the steady state: one epoch of 12 batches from one
+     pool over the prepared plots repeated under new ids, the loader alone
+     and then with a train step after each batch (the wait for a batch
+     while the card trains);
   16. `"phase": "selection_floor"`, for sa_fused_eval and knn_interpolate
      (serve step) and ball_query (train step): the SASS instructions a pair
      of the scan loop (cuobjdump of the built library; for kNN also on the
@@ -104,8 +116,9 @@ Phases, in order, each failing loudly:
      clock of phase 1), and each kernel's registers, stack and spills
      (cuobjdump -res-usage), and the SM clocks sampled while the ball query
      runs back to back for a second; then `"phase": "edge_loop"`, one line
-     for each instance of the SA train passes that take their slots in
-     batches (main at SA1 and SA2, bwd1, bwd2 at SA1 and SA2): the SASS
+     for each instance of the SA train passes, all of which take their
+     slots in batches (stats, main at SA1 and SA2, bwd1, bwd2 at SA1 and
+     SA2): the SASS
      instructions, SHFLs and FP32 instructions a warp issues an edge in its
      slot loop, its registers, the train step's slots and the issue floor,
      slots x SASS an edge / (132 SMs x 4 schedulers x the maximum SM clock);
@@ -207,8 +220,8 @@ SA_TRAIN_REFERENCE = ((4, 2000, 1203, 31, 16), (4, 1200, 301, 61, 32))
 SA_TRAIN_REF_SITES = {"sa_train_stats": 1, "sa_train_main": 2, "sa_train_bwd1": 1,
                       "sa_train_bwd2": 2}
 # csrc/sa_train.cu's passes that take their slots in batches, by (kernel, C1)
-EDGE_LOOP_INSTANCES = (("sa_train_main", 16), ("sa_train_main", 32), ("sa_train_bwd1", 16),
-                       ("sa_train_bwd2", 16), ("sa_train_bwd2", 32))
+EDGE_LOOP_INSTANCES = (("sa_train_stats", 16), ("sa_train_main", 16), ("sa_train_main", 32),
+                       ("sa_train_bwd1", 16), ("sa_train_bwd2", 16), ("sa_train_bwd2", 32))
 # The grouped selection's reference sites (phase 4 for sa_fused_eval, phase
 # 11 for ball_query): (cloud, B, N, C, K, radius). "grid": integer
 # coordinates in [0, 16) with the centroids drawn from the points, so every
@@ -282,9 +295,17 @@ TRAIN_LOSS_ATOL = 1e-5
 TRAIN_STATE_ATOL = 1e-5
 TRAIN_GRAD_RTOL = 5e-2
 STEPS_PER_EPOCH = 5  # ~90 training plots of a fold (5 folds of ~110 plots) at B=20
+# phase 15c (loader_steps): LAS plots written, read and prepared on the host,
+# then batched by PlotLoader's worker threads for train and serve steps
+LOADER_PLOTS, LOADER_POINTS, LOADER_WORKERS = 24, 12000, 2
+LOADER_TRAIN_STEPS = 3
+LOADER_EPOCH_BATCHES = 12  # the steady-state epoch: batches from one pool
 SEED = 0
 STEPS = 30  # timed steps; the median is reported
 PROFILE_STEPS = 10
+# traces device_profile takes before it gives up on one that holds no kernel
+# (three empty traces in a row at one site were seen once on an H100)
+PROFILE_TRIES = 8
 LAUNCH_REPS = 2000  # calls a host cost of phase 11b is averaged over
 # device kernels of each wrapper, by name prefix (ops/csrc/*.cu)
 DEVICE_KERNELS = {"fps": ("fps_kernel",), "sa_fused_eval": ("sa_kernel",),
@@ -321,12 +342,14 @@ def device_profile(torch, fn, prefixes, reps: int = 10):
     """torch.profiler over reps calls of fn, after one warm-up: the device
     time (ms) a launch of the kernels whose names start with `prefixes`
     (over the launches the trace holds: it may miss some, or all, and is
-    then taken again, three times at most), those launches, and every
-    device operation (kernels, memsets, copies) it holds."""
+    then taken again, PROFILE_TRIES times at most), those launches, and
+    every device operation (kernels, memsets, copies) it holds."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):  # a trace can come back empty: take another
+    for attempt in range(PROFILE_TRIES):  # a trace can come back empty: take another
+        if attempt:
+            time.sleep(0.1)
         with torch.profiler.profile(activities=activities) as prof:
             for _ in range(reps):
                 fn()
@@ -632,32 +655,42 @@ def sass_per_pair(sass: str, r: int):
     return found
 
 
-def sass_edge_loops(sass: str):
-    """The slot loop of each instance of the SA train passes that take their
-    slots in batches (csrc/sa_train.cu: main, bwd1, bwd2): the innermost
-    loop that holds the q rows' global loads (LDG), the longest if several,
-    with its SASS instructions, SHFLs and FP32 instructions, each over the
-    edges one pass of the loop covers, KB slots of each of a warp's 32 / C1
-    groups (C1 and KB are the instance's template arguments): what a warp
-    issues an edge. None for an instance with no such loop."""
+def sass_edge_loops(sass: str, stats_lanes):
+    """The slot loop of each instance of the SA train passes (csrc/sa_train.cu,
+    all four take their slots in batches): the innermost loop that holds the
+    q rows' global loads (LDG), the longest if several, with its SASS
+    instructions, SHFLs and FP32 instructions, each over the edges one pass
+    of the loop covers, KB slots of each of a warp's 32 / L groups of L
+    lanes (C1 and KB are the template arguments in the kernel's name:
+    <C1, TWO?, KB> for main, bwd1 and bwd2, whose lanes are C1 channels;
+    <C1, KB> for stats, whose lanes `stats_lanes(C1)` gives, the library's
+    `sa_train_stats_lanes`): what a warp issues an edge. None for an
+    instance with no such loop."""
     import re
     from collections import Counter
 
     found = {}
     for func, ins in sass_functions(sass).items():
         m = re.search(r"(sa_train_(?:main|bwd1|bwd2))_kernelILi(\d+)E(?:Lb[01]E)?Li(\d+)E", func)
-        if not m:
+        s = re.search(r"(sa_train_stats)_kernelILi(\d+)ELi(\d+)E", func)
+        if m:
+            name, ch, kb = m.group(1), int(m.group(2)), int(m.group(3))
+            lanes = ch
+        elif s:
+            name, ch, kb = s.group(1), int(s.group(2)), int(s.group(3))
+            lanes = stats_lanes(ch)
+        else:
             continue
-        name, ch, kb = m.group(1), int(m.group(2)), int(m.group(3))
         loops = [b for b in innermost_loops(ins) if any(opcode(t) == "LDG" for _, t in b)]
         if not loops:
             found[func] = None
             continue
         body = max(loops, key=len)
-        edges = kb * 32 // ch
+        edges = kb * 32 // lanes
         ops = Counter(opcode(t) for _, t in body)
         fp32 = sum(ops[o] for o in ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL"))
-        found[func] = {"kernel": name, "C1": ch, "KB": kb, "instructions": len(body),
+        found[func] = {"kernel": name, "C1": ch, "lanes": lanes, "KB": kb,
+                       "instructions": len(body),
                        "edges_a_pass": edges, "per_edge": len(body) / edges,
                        "shfl_per_edge": ops["SHFL"] / edges, "fp32_per_edge": fp32 / edges,
                        "opcodes": dict(ops.most_common())}
@@ -665,8 +698,8 @@ def sass_edge_loops(sass: str):
 
 
 def check_edge_loops(loops):
-    """Phase 16 fails unless the slot loop of every batched SA train
-    instance was found: main at SA1 and SA2, bwd1, bwd2 at SA1 and SA2."""
+    """Phase 16 fails unless the slot loop of every SA train instance was
+    found: stats, main at SA1 and SA2, bwd1, bwd2 at SA1 and SA2."""
     got = sorted((v["kernel"], v["C1"]) for v in loops.values() if v is not None)
     check(got == sorted(EDGE_LOOP_INSTANCES) and None not in loops.values(),
           f"sa_train: slot loops found for {got} (missing: "
@@ -702,7 +735,7 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
     132 SMs x 128 lanes x the card's maximum SM clock (one instruction a
     lane a cycle); for kNN on the path of a pair that inserts nothing
     (`common_per_pair`), beside the whole loop's. Then the slot loop of
-    every batched SA train instance (`sass_edge_loops`): SASS instructions,
+    every SA train instance (`sass_edge_loops`): SASS instructions,
     SHFLs and FP32 instructions an edge, and its issue floor over the train
     step's slots. Then the global atomics of knn_scatter_kernel and
     pixel_max_kernel, which must have none. Each kernel's registers, stack
@@ -742,7 +775,7 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
                           "issue_floor_whole_loop_ms":
                               pairs * per_pair / (132 * 128 * clock_mhz * 1e6) * 1e3,
                           "ms": rows[name]["ms"], "bound_ms": rows[name]["bound_ms"]}), flush=True)
-    loops = sass_edge_loops(dump("sa_train", "-sass"))
+    loops = sass_edge_loops(dump("sa_train", "-sass"), ck.sa_train_stats_lanes)
     check_edge_loops(loops)
     res = resources("sa_train")
     for func, loop in loops.items():
@@ -972,15 +1005,23 @@ def check_sum(torch, what, got, want, abs_sum, depth):
     return float(diff.max()), ratio
 
 
-def sa_sum_depth(torch, ck, mask, ch1):
+def sa_lanes(ck, name, ch1):
+    """Lanes a centroid of SA train pass `name` at C1 = ch1: the stats
+    pass's from its library, C1 (a lane a channel) for main, bwd1 and bwd2."""
+    return ck.sa_train_stats_lanes(ch1) if name == "sa_train_stats" else ch1
+
+
+def sa_sum_depth(torch, ck, mask, lanes):
     """The summation depth of an SA train pass's per-channel sums over edges
-    on the card (csrc/sa_train.cu): the longest chain of valid edges one
-    lane adds up (its group walks centroids with the grid's stride), then
-    the block's groups in order, then the grid's partial rows (torch, any
-    order). Also the (B, C) selection of the centroids that block 0 walks."""
+    on the card (csrc/sa_train.cu), whose groups of `lanes` lanes
+    (`sa_lanes`) each take one centroid at a time: the longest
+    chain of valid edges one lane adds up (its group walks centroids with
+    the grid's stride), then the block's groups in order, then the grid's
+    partial rows (torch, any order). Also the (B, C) selection of the
+    centroids that block 0 walks."""
     b, c, _ = mask.shape
-    groups = ck.SA_THREADS // ch1
-    grid = ck.sa_grid(b, c, ch1)
+    groups = ck.SA_THREADS // lanes
+    grid = ck.sa_grid(b, c, lanes)
     walker = torch.arange(b * c, device=mask.device) % (grid * groups)
     chain = torch.zeros(grid * groups, dtype=torch.long, device=mask.device)
     chain.index_add_(0, walker, mask.sum(2).reshape(-1))
@@ -1008,7 +1049,7 @@ def compare_sa_train_site(torch, ck, name, site, args, got, want):
     e = ck.sa_train_edges(q, cterm, idx, mask, aff, w2, *args[6:])
     m = e["m"]
     valid = float(mask.sum())
-    depth, blk0 = sa_sum_depth(torch, ck, mask, ch1)
+    depth, blk0 = sa_sum_depth(torch, ck, mask, sa_lanes(ck, name, ch1))
     where = f"{name} site {site}"
     errs, ratios = [], []
 
@@ -1512,8 +1553,158 @@ def compare_fused_with_unfused(torch, cfg, model, cloud, xyz):
         x, pos = f["out"], f["cent"]
 
 
+def loader_steps(torch, ck, cfg, device, card):
+    """Phase 15c: the steps on batches made the way users make them.
+    LOADER_PLOTS synthetic plots of LOADER_POINTS points are written with the
+    port's LAS writer into a temporary directory, read and prepared
+    (`load_las_file` -> `clean` -> `pre_transform`; gt coverages drawn from
+    the seed, no CSV), then `PlotLoader` (LOADER_WORKERS threads, the PROD
+    subsample) gives LOADER_TRAIN_STEPS train batches (shuffled, one an
+    epoch) and one eval batch; each goes to the card with
+    `torch.from_numpy(...).to(device)` for a train step on a fresh model,
+    then a serve step. Launch counters are zeroed just before the steps and
+    read just after. Prints the min-z path taken, the host ms of each batch
+    (the loader's `next`) and the step ms beside them (a step's ms includes
+    its batch's copy to the card). Each of those batches is an epoch's first
+    (a new pool, nothing prefetched). The steady state: one epoch of
+    LOADER_EPOCH_BATCHES batches from one pool, over the prepared plots
+    repeated under new ids (each item draws its own subsample and
+    augmentation), the loader alone (`epoch_host_ms_a_batch`), then with a
+    train step after each batch (`fed_wait_ms`: the host's wait for the
+    next batch while the card trains; `fed_step_ms`)."""
+    import tempfile
+
+    import numpy as np
+
+    from stratanet2_tpu_torch.data import dataset, las, transforms
+    from stratanet2_tpu_torch.data.loader import PlotLoader
+    from stratanet2_tpu_torch.inference.predict import make_predict_step
+    from stratanet2_tpu_torch.learning.kde import fit_kde_mixture
+    from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
+    from stratanet2_tpu_torch.utils.synthetic import (
+        cloud_to_las_fields,
+        make_plot_cloud,
+        random_model,
+    )
+
+    rng = np.random.default_rng(SEED + 12)
+    ds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        names = []
+        for i in range(LOADER_PLOTS):
+            c = make_plot_cloud(rng, n=LOADER_POINTS, center=(1000 + 40 * i, 2000))
+            names.append(f"{tmp}/Plot_{i:03d}.las")
+            las.write_las(names[-1], cloud_to_las_fields(c))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i, name in enumerate(names):
+            cloud = dataset.clean(dataset.load_las_file(name), name)
+            cloud = transforms.pre_transform(cloud, cfg.data.znorm_radius_in_meters)
+            low, med, high = rng.uniform(0, 1, 3)
+            pid = f"Plot_{i:03d}"
+            ds[pid] = {"cloud": cloud, "coverages": np.array([low, 1 - low, med, high]),
+                       "plot_center": dataset.get_plot_center(cloud), "plot_id": pid,
+                       "N_points_in_cloud": cloud.shape[1], "index": i}
+        prepare_s = time.perf_counter() - t0
+
+    def batches(loader, count):
+        """`count` batches and the host ms of each, epoch after epoch."""
+        out = []
+        while len(out) < count:
+            it = iter(loader)
+            while len(out) < count:
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                if batch is None:
+                    break
+                out.append((batch, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    b, p = cfg.train.batch_size, cfg.model.diam_pix
+    train = batches(PlotLoader(ds, cfg, train=True, batch_size=b, seed=SEED,
+                               workers=LOADER_WORKERS), LOADER_TRAIN_STEPS)
+    (serve, serve_host_ms), = batches(PlotLoader(ds, cfg, batch_size=b, workers=LOADER_WORKERS), 1)
+
+    def to_card(batch, *keys):
+        return [torch.from_numpy(batch[k]).to(device) for k in keys]
+
+    kde = fit_kde_mixture(train[0][0]["cloud"][..., 2].astype(np.float64) * cfg.model.z_max)
+    model = random_model(cfg.model, SEED, device, running_stats=False)
+    opt, sched = make_optimizer(cfg, model, STEPS_PER_EPOCH)
+    step, predict = make_train_step(cfg, kde, device=device), make_predict_step(cfg, device=device)
+    ck.reset_launches()
+    train_ms, losses = [], []
+    for batch, _ in train:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comps = step(model, opt, sched, *to_card(batch, "cloud", "xyz", "coverages"))
+        torch.cuda.synchronize()
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in comps.items()})
+    t0 = time.perf_counter()
+    rasters, pred_pl = predict(model, *to_card(serve, "cloud", "xyz"))
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches = ck.launch_counts()
+    want = {name: LOADER_TRAIN_STEPS * TRAIN_LAUNCHES[name] + SERVE_LAUNCHES[name]
+            for name in TRAIN_LAUNCHES}
+    check_launches(launches, want, "loader_steps")
+
+    reps = -(-LOADER_EPOCH_BATCHES * b // len(ds))
+    epoch_ds = {f"{pid}_{r}": dict(item, plot_id=f"{pid}_{r}", index=r * len(ds) + item["index"])
+                for r in range(reps) for pid, item in ds.items()}
+
+    def epoch(work):
+        """The host ms of each `next` over one train epoch from one pool,
+        with `work(batch)` after each."""
+        waits, it = [], iter(PlotLoader(epoch_ds, cfg, train=True, batch_size=b, seed=SEED,
+                                        workers=LOADER_WORKERS))
+        while len(waits) < LOADER_EPOCH_BATCHES:
+            t0 = time.perf_counter()
+            batch = next(it)
+            waits.append((time.perf_counter() - t0) * 1e3)
+            work(batch)
+        return waits
+
+    def fed(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comps = step(model, opt, sched, *to_card(batch, "cloud", "xyz", "coverages"))
+        torch.cuda.synchronize()
+        fed_step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in comps.items()})
+
+    alone_ms = epoch(lambda batch: None)
+    fed_step_ms = []
+    fed_wait_ms = epoch(fed)
+    host_ms = [ms for _, ms in train] + [serve_host_ms]
+    print(json.dumps({"phase": "loader_steps", "plots": LOADER_PLOTS, "points": LOADER_POINTS,
+                      "workers": LOADER_WORKERS, "B": b, "N": cfg.model.subsample_size,
+                      "min_z_path": transforms.min_z_path(), "write_las_s": write_s,
+                      "prepare_s": prepare_s, "host_ms_a_batch": host_ms,
+                      "host_ms_a_batch_median": sorted(host_ms)[len(host_ms) // 2],
+                      "train_step_ms": train_ms, "serve_step_ms": serve_ms,
+                      "epoch_plots": len(epoch_ds), "epoch_host_ms_a_batch": alone_ms,
+                      "epoch_steady_ms_a_batch": sum(alone_ms[1:]) / (len(alone_ms) - 1),
+                      "fed_wait_ms": fed_wait_ms, "fed_step_ms": fed_step_ms,
+                      "loss_parts": losses, "card": card}), flush=True)
+    for i, parts in enumerate(losses):
+        for name, value in parts.items():
+            check(np.isfinite(value), f"loader_steps: train step {i}: loss part {name} is {value}")
+    for i, (batch, _) in enumerate(train + [(serve, 0.0)]):
+        check(batch["cloud"].shape == (b, cfg.model.subsample_size, 10)
+              and batch["xyz"].shape == (b, cfg.model.subsample_size, 3)
+              and batch["coverages"].shape == (b, 4),
+              f"loader_steps: batch {i} shapes {batch['cloud'].shape} {batch['xyz'].shape}")
+    check(tuple(rasters.shape) == (b, 3, p, p), f"loader_steps: rasters {tuple(rasters.shape)}")
+    check(tuple(pred_pl.shape) == (b, 4) and bool(torch.isfinite(pred_pl).all()),
+          f"loader_steps: pred_pl {tuple(pred_pl.shape)} not finite")
+    check(bool(((pred_pl >= 0) & (pred_pl <= 1)).all()), "loader_steps: pred_pl outside [0, 1]")
+
+
 def train_phases(torch, ck, cfg, device, card):
-    """Phases 9-15b. Returns the train kernels' rows and the counted launches."""
+    """Phases 9-15c. Returns the train kernels' rows and the counted launches."""
     from stratanet2_tpu_torch.learning.kde import fit_kde_mixture
     from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
     from stratanet2_tpu_torch.utils.synthetic import random_model, train_batch
@@ -1591,6 +1782,8 @@ def train_phases(torch, ck, cfg, device, card):
 
     compare_train_with_cpu(torch, cfg, model, kde, cloud, xyz, gt)
     serve_after_train(torch, cfg, m, cloud, xyz)
+    del m, opt, sched
+    loader_steps(torch, ck, cfg, device, card)
     return rows, ref_rows, launches
 
 

@@ -9,11 +9,12 @@ at once with the port's nvcc flags (`ops/_build.py`), prints each kernel's
 registers and spills (`cuobjdump -res-usage`) and, for sa_train.cu, the SASS,
 SHFLs and FP32 instructions an edge of each batched slot loop (chip_smoke.py's
 `sass_edge_loops`), then runs the entry point at the PROD step shapes (B=20 x
-N=10000: kNN's FP1 and FP2; the SA train passes' SA1 and SA2, bwd1 SA1 only,
-on ball-query picks of a synthetic cloud) against the plain PyTorch version
-and prints one JSON line a source and site: the error against the plain
-version (for sa_train_main the winners that differ) and the CUDA-event time
-of one launch (mean of 20, after a warm-up). kNN runs every slice count the
+N=10000: kNN's FP1 and FP2; the SA train passes' SA1 and SA2, stats and bwd1
+SA1 only, on ball-query picks of a synthetic cloud) against the plain PyTorch
+version and prints one JSON line a source and site: the error against the
+plain version (for sa_train_main the winners that differ) and the CUDA-event
+time of one launch (mean of 20, after a warm-up); for sa_train_stats also
+the device time a launch and whether two launches agree bit for bit. kNN runs every slice count the
 entry takes (1, 2, 4, 8). knn_scatter runs at the train step's FP1 and FP2
 sites (kNN picks of synthetic plots) and at the k = 1 gather site (20% of the
 pairs on row 0); pixel_max at the serve step's site (1 m pixels of synthetic
@@ -28,8 +29,8 @@ still takes a key scratch (the parent's design) gets one.
     python3 scripts/kernel_variants.py knn_scatter stratanet2_tpu_torch/ops/csrc/knn_scatter.cu \
         stratanet2_tpu_torch/ops/csrc/knn_scatter.cu@kTS=32,kL=128
 
-Kernels: knn_interpolate, sa_train_main, sa_train_bwd1, sa_train_bwd2, knn_scatter,
-pixel_max.
+Kernels: knn_interpolate, sa_train_stats, sa_train_main, sa_train_bwd1, sa_train_bwd2,
+knn_scatter, pixel_max.
 
 Builds go to the git-ignored build/variants/. Exits non-zero without a card.
 """
@@ -95,13 +96,13 @@ def build(sources):
               flush=True)
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                               text=True, check=True).stdout
-        loops = chip_smoke.sass_edge_loops(sass)  # empty but for sa_train.cu
-        if loops:
-            print(json.dumps({"source": str(src), "edge_loops": {
-                f: v and {key: v[key] for key in ("kernel", "C1", "KB", "per_edge", "shfl_per_edge",
-                                                  "fp32_per_edge")}
-                for f, v in loops.items()}}), flush=True)
         libs[src] = ctypes.CDLL(str(lib))
+        loops = chip_smoke.sass_edge_loops(sass, lambda ch: stats_lanes(libs[src], ch))
+        if loops:  # empty but for sa_train.cu
+            print(json.dumps({"source": str(src), "edge_loops": {
+                f: v and {key: v[key] for key in ("kernel", "C1", "lanes", "KB", "per_edge",
+                                                  "shfl_per_edge", "fp32_per_edge")}
+                for f, v in loops.items()}}), flush=True)
     return libs
 
 
@@ -200,6 +201,46 @@ def ptrs(args):
 
 def rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
+
+
+def stats_lanes(lib, ch):
+    """Lanes a centroid of a source's stats pass at ch channels: its
+    library's `sa_train_stats_lanes`, or ch (a lane a channel) where the
+    source exports none."""
+    fn = getattr(lib, "sa_train_stats_lanes", None)
+    return ch if fn is None else fn(ch)
+
+
+def run_stats(torch, ck, libs, gen, device):
+    """The stats pass at the train step's SA1 site: sums against the plain
+    version, whether two launches agree bit for bit, and CUDA-event and
+    device time a launch. The grid follows each source's lanes a centroid
+    (`stats_lanes`)."""
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    for site, b, n, c, k, ch, args in sa_sites(torch, ck, gen, device, two_layer_only=True):
+        fwd = args[:5]
+        want = ck.sa_train_stats_plain(*fwd)
+        for src, lib in libs.items():
+            consts = constants(src)
+            lanes = stats_lanes(lib, ch)
+            grid = ck.sa_grid(b, c, lanes)
+            fn = entry(lib, "sa_train_stats_launch", 6, 6)
+            parts = [torch.full((grid, 2, ch), float("nan"), device=device) for _ in range(2)]
+            cargs = [ptrs(fwd) + [p.data_ptr(), grid, b, n, c, k, ch, stream] for p in parts]
+            rc = fn(*cargs[0])
+            fn(*cargs[1])
+            torch.cuda.synchronize()
+            sums = parts[0].sum(0)
+            print(json.dumps({
+                "source": str(src), "kernel": "sa_train_stats", "site": site, "rc": rc,
+                **{name: consts[name] for name in ("kStatsV", "kStatsKB") if name in consts},
+                "lanes": lanes, "grid": grid, "sum_rel_diff": rel(sums[0], want[0]),
+                "sumsq_rel_diff": rel(sums[1], want[1]),
+                "launches_equal": torch.equal(parts[0].view(torch.int32),
+                                              parts[1].view(torch.int32)),
+                "ms": event_ms(torch, lambda: fn(*cargs[0])),
+                **device_cost(torch, lambda: fn(*cargs[0]), "sa_train_stats"),
+            }), flush=True)
 
 
 def run_main(torch, ck, libs, gen, device):
@@ -356,7 +397,7 @@ def run_pixel_max(torch, ck, libs, gen, device_):
         }), flush=True)
 
 
-RUNS = {"knn_interpolate": run_knn, "sa_train_main": run_main, "sa_train_bwd1": run_bwd1,
+RUNS = {"knn_interpolate": run_knn, "sa_train_stats": run_stats, "sa_train_main": run_main, "sa_train_bwd1": run_bwd1,
         "sa_train_bwd2": run_bwd2, "knn_scatter": run_knn_scatter, "pixel_max": run_pixel_max}
 
 

@@ -1,6 +1,8 @@
 """Configuration for the port: a copy of the pieces of `stratanet2_tpu.config`
-that the serve and train steps read (ModelConfig and the optimisation
-fields of TrainConfig), with the same defaults.
+that the port's modules read, with the same defaults: ModelConfig,
+TrainConfig, the host data layer's DataConfig fields, and Config's mode with
+the DEV profile (`as_dev`, `default_config(mode)`). The flag parser comes
+with the CLIs.
 
 The port keeps its own copy rather than importing the JAX package's module:
 the port must import nothing of `stratanet2_tpu`.
@@ -16,7 +18,7 @@ random generator (dropout for drop > 0 is not ported yet).
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Tuple
 
 FEATURE_NAMES: Tuple[str, ...] = (
@@ -69,23 +71,78 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The fields of the JAX TrainConfig that the serve and train steps and
-    the optimizer read (reference config.py:83-97)."""
+    """Optimization schedule (reference config.py:83-97)."""
 
-    batch_size: int = 20
-    lr: float = 1e-3
+    folds: int = 5
     wd: float = 1e-3  # coupled L2 (torch Adam weight_decay)
-    lr_decay: float = 0.985  # staircase, every `step_size` epochs
-    step_size: int = 1
+    batch_size: int = 20
+    n_epoch: int = 300
+    n_epoch_test: int = 10
+    epoch_to_start_early_stop: int = 250
+    use_early_stopping: bool = False
+    patience_in_epochs: int = 30
+    lr: float = 1e-3
+    step_size: int = 1  # epochs between LR decays (staircase)
+    lr_decay: float = 0.985
     m: float = 0.10  # NLL loss weight (config.py:70)
     e: float = 0.2 / 5  # entropy loss weight (config.py:71)
+    seed: int = 42
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Host data-pipeline parameters (reference utils/load_data.py,
+    data_loader/loader.py): the fields that `data/` reads."""
+
+    data_path: str = "data"
+    las_plots_folder_path: str = "data/placettes_dataset/las_classes"
+    plots_pickled_dataset_path: str = "data/placettes_dataset/prepared/plots_dataset.pkl"
+    gt_file_path: str = "data/placettes_dataset/placettes_metadata.csv"
+    corrected_gt_file_path: str = (
+        "data/placettes_dataset_correction/placettes_metadata_correction.csv"
+    )
+    las_parcels_folder_path: str = "data/parcelles_dataset_20m"
+    parcel_shapefile_path: str = "data/parcelles_dataset_20m/input/parcels.shp"
+    znorm_radius_in_meters: float = 1.5
+    prefetch_batches: int = 2
+    loader_workers: int = 2
+    # dtype of the cloud/xyz batches the loader hands over: "float32"
+    # (exact) or "float16" (half the bytes to the card; the features are
+    # [0, 1]-rescaled and xyz spans +-10 m, so ~1e-3 relative)
+    transfer_dtype: str = "float32"
 
 
 @dataclass(frozen=True)
 class Config:
+    mode: str = "PROD"  # DEV shrinks everything for smoke tests (config.py:5-12)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    # plots kept in the DEV subset (data/dataset.py)
+    plot_name_to_visualize_during_training: Tuple[str, ...] = (
+        "Releve_Lidar_F68",
+        "2021_POINT_OBS66",
+        "2021_POINT_OBS7",
+        "POINT_OBS106",
+    )
+
+    def as_dev(self) -> "Config":
+        """DEV profile: 2 epochs, eval every epoch (reference config.py:88-92)."""
+        return replace(
+            self,
+            mode="DEV",
+            train=replace(
+                self.train,
+                n_epoch=2,
+                n_epoch_test=1,
+                epoch_to_start_early_stop=1,
+                patience_in_epochs=1,
+            ),
+        )
 
 
-def default_config() -> Config:
-    return Config()
+def default_config(mode: str = "PROD") -> Config:
+    cfg = Config()
+    if mode.upper() == "DEV":
+        cfg = cfg.as_dev()
+    return cfg

@@ -17,8 +17,9 @@
 // and scatters, lane padding and (16, 128) parameter packing are not carried
 // over: Hopper gathers q rows with indexed loads and scatters dq with atomics.
 //
-// Bound on the H100: operations, not bytes. A pass reads q, cterm, idx and
-// mask once (SA1 of the PROD train step: 12.8 + 3.2 + 6.4 + 1.6 MB) while
+// Bound on the H100: operations, not bytes, but for stats (bytes, 0.0072
+// ms). A pass reads q, cterm, idx and mask once (SA1 of the PROD train
+// step: 12.8 + 3.2 + 6.4 + 1.6 MB) while
 // every valid edge costs 6*C1 operations in layer 1 and, with two layers,
 // 2*C1*C2 more for each 16x16 product (forward in every pass, transposed and
 // outer products in the backward). The random q rows (64 or 128 B) come from
@@ -30,12 +31,21 @@
 // and the issue floor, the slots walked x SASS an edge / (132 SMs x 4
 // schedulers x the maximum SM clock).
 //
-// Design: lane = channel. A group of C1 lanes (a half-warp at SA1, C1 =
-// C2 = 16; a warp at SA2, C1 = 32) owns one centroid at a time. Each q row
-// is one coalesced 64 or 128 B load. The 16x16 layer-2 product: lane o holds
-// column o of W2 and needs y1[i] of every lane i; the transposed product of
-// the backward: lane i holds row i of W2 and needs du[o] of every lane o.
-// - stats walks the K slots one at a time and skips a slot with mask False.
+// Design of main, bwd1 and bwd2: lane = channel. A group of C1 lanes (a
+// half-warp at SA1, C1 = C2 = 16; a warp at SA2, C1 = 32) owns one centroid
+// at a time. Each q row is one coalesced 64 or 128 B load. The 16x16 layer-2
+// product: lane o holds column o of W2 and needs y1[i] of every lane i; the
+// transposed product of the backward: lane i holds row i of W2 and needs
+// du[o] of every lane o.
+// - stats, which has no product: 4 lanes a centroid, each reading 4
+//   channels of the 64 B q row as one float4, so a warp takes 8 centroids
+//   and each LDG.128 brings 8 rows. Slots in batches of KB: the warp loads
+//   its 8 centroids' idx and mask for the batch together (consecutive rows:
+//   coalesced, the two loads in flight at once) into shared memory, each
+//   lane reads its centroid's KB points back and loads their KB rows
+//   together; a masked or past-K slot adds an exact 0. At PROD it gathers
+//   1.6 M rows (102 MB) from L2 in 0.0156 ms, ~6.6 TB/s: the L2 gather, not
+//   HBM (0.0072 ms) nor the issue floor (0.0074 ms), is what bounds it.
 // - main, bwd1 and bwd2 take their centroid's slots KB at a time
 //   (`load_slots`): the batch's idx and mask, then its KB q rows, are loaded
 //   together, so KB rows are in flight and not one; every slot of a batch is
@@ -61,6 +71,14 @@
 // launch at the PROD train-step sites, scripts/kernel_variants.py; the
 // shuffle form each replaces in the same call in brackets; each design not
 // kept was timed beside the kept one in its own call, PERF.md §6):
+// - stats (device ms a launch at SA1; the earlier form, one slot at a time
+//   0.0288 / 0.0289 in each call): kept, 4 lanes, staged, KB 16, 0.0156
+//   (event 0.0171), 4.84 SASS a warp an edge (2.5 FP32), 59 registers. Not
+//   kept: KB 4, 8, 32 (0.0201, 0.0170, 0.0163); the mask loaded before the
+//   idx it selects (KB 4, 8, 16, 32: 0.0187, 0.0188, 0.0186, 0.0203; 5.44
+//   to 4.79 SASS an edge); 4 lanes unstaged (0.0208, 0.0231, 0.0228,
+//   0.0211; ~5.5); lane = channel unstaged (0.0347, 0.0336, 0.0321, 0.0319;
+//   13-14) and staged (0.0363, 0.0299, 0.0284, 0.0269; 9-12).
 // - main: 0.0714 at SA1 (0.1067), 0.0361 at SA2 (0.0403); slot loops of 27.3
 //   and 26.9 SASS a warp an edge, 64 and 80 registers. Not kept: KB 2 and 8
 //   at SA1 (0.0777, 0.0718); unstaged KB 4, 8, 16 at SA2 (0.0424, 0.0405,
@@ -100,6 +118,11 @@ constexpr float kNeg = -3.4e38f;  // masked slots enter the max as this, the min
 // Slots a group takes at once: main at SA1 and SA2, bwd1 (SA1 only), bwd2 at
 // SA1 and SA2 (see the head note).
 constexpr int kMainKB1 = 4, kMainKB2 = 16, kBwd1KB = 4, kBwd2KB1 = 4, kBwd2KB2 = 8;
+// The stats pass (SA1 only): channels a lane (one float4 of the q row, so
+// C / kStatsV lanes a centroid; sa_train_stats_lanes gives them to the
+// wrapper) and slots a batch.
+constexpr int kStatsV = 4;
+constexpr int kStatsKB = 16;
 
 // Rows of the (kAffRows, width) per-channel table `aff`, in the order of
 // cuda_kernels.SA_AFF_ROWS.
@@ -271,33 +294,104 @@ struct LaneParams {
   }
 };
 
+// The 4 floats at p (16-byte aligned) as one float4 load.
+__device__ __forceinline__ void load4(const float* __restrict__ p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
 // BN1 batch statistics: per-block partials of sum(h1 - shift1) and
 // sum((h1 - shift1)^2) over the valid edges -> partial (grid, 2, C).
-template <int C>
+// L = C / kStatsV lanes a centroid, each taking 4 channels of its q rows as
+// one float4; a warp takes 32 / L consecutive centroids at once.
+// Slots KB at a time: the warp loads its centroids' batch of idx and mask
+// (coalesced, both loads in flight together) into shared memory as points,
+// -1 where masked, past k or past the last centroid; each lane reads its
+// centroid's KB points back and loads their KB q rows together. Every slot
+// is computed and a slot without a point adds an exact 0.
+template <int C, int KB>
 __global__ void __launch_bounds__(kThreads)
 sa_train_stats_kernel(const float* __restrict__ q, const float* __restrict__ cterm,
                       const int* __restrict__ idx, const bool* __restrict__ mask,
                       const float* __restrict__ aff, float* __restrict__ partial, int n, int c,
                       int k, int total) {
-  constexpr int kGroups = kThreads / C;
-  const int lane = threadIdx.x % C;
-  const float shift = aff[kShift1 * C + lane];
-  float v[2] = {0.f, 0.f};
-  for (int cent = blockIdx.x * kGroups + threadIdx.x / C; cent < total;
-       cent += gridDim.x * kGroups) {
-    const float* qb = q + static_cast<size_t>(cent / c) * n * C + lane;
-    const float ct = cterm[static_cast<size_t>(cent) * C + lane];
-    const int* ib = idx + static_cast<size_t>(cent) * k;
-    const bool* mb = mask + static_cast<size_t>(cent) * k;
-    for (int s = 0; s < k; ++s) {
-      if (!mb[s]) continue;
-      const float h1 = fmaxf(__fsub_rn(qb[static_cast<size_t>(ib[s]) * C], ct), 0.f);
-      const float hc = __fsub_rn(h1, shift);
-      v[0] = __fadd_rn(v[0], hc);
-      v[1] = __fmaf_rn(hc, hc, v[1]);
+  constexpr int V = kStatsV, L = C / V;
+  constexpr int kWarps = kThreads / 32, kCPW = 32 / L, kGroups = kThreads / L;
+  static_assert(V == 4 && C % V == 0 && 32 % L == 0,
+                "a lane reads a float4; a warp holds whole centroids");
+  __shared__ __align__(16) int slot_rows[kWarps * kCPW * KB];
+  __shared__ float red[2 * kGroups * C];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ch0 = (lane % L) * V;
+  int* my_slots = slot_rows + warp * kCPW * KB;
+  float shift[V], s1[V], s2[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    shift[v] = aff[kShift1 * C + ch0 + v];
+    s1[v] = 0.f;
+    s2[v] = 0.f;
+  }
+  // the warp's centroids base .. base + kCPW - 1: group g of block i walks
+  // centroids i * kGroups + g + j * grid * kGroups, as in the other passes
+  for (int base = (blockIdx.x * kWarps + warp) * kCPW; base < total;
+       base += gridDim.x * kGroups) {
+    const int cc = min(base + lane / L, total - 1);  // past the last: no point at all
+    float ct[V];
+    load4(cterm + static_cast<size_t>(cc) * C + ch0, ct);
+    const size_t pb = static_cast<size_t>(cc / c) * n * C + ch0;
+    for (int s0 = 0; s0 < k; s0 += KB) {
+#pragma unroll
+      for (int r = 0; r < (kCPW * KB + 31) / 32; ++r) {
+        const int e = lane + 32 * r;  // centroid base + e / KB, slot s0 + e % KB
+        if (e < kCPW * KB) {
+          const int ce = base + e / KB, s = s0 + e % KB;
+          int id = -1;
+          if (ce < total && s < k) {
+            const size_t o = static_cast<size_t>(ce) * k + s;
+            const int i = idx[o];
+            id = mask[o] ? i : -1;
+          }
+          my_slots[e] = id;
+        }
+      }
+      __syncwarp();
+      int id[KB];
+#pragma unroll
+      for (int u = 0; u < KB; ++u) id[u] = my_slots[(lane / L) * KB + u];
+      __syncwarp();  // read before the next batch writes
+      float x[KB][V];
+#pragma unroll
+      for (int u = 0; u < KB; ++u)
+        load4(q + pb + static_cast<size_t>(id[u] >= 0 ? id[u] : 0) * C, x[u]);
+#pragma unroll
+      for (int u = 0; u < KB; ++u) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float h1 = fmaxf(__fsub_rn(x[u][v], ct[v]), 0.f);
+          const float hc = id[u] >= 0 ? __fsub_rn(h1, shift[v]) : 0.f;
+          s1[v] = __fadd_rn(s1[v], hc);
+          s2[v] = __fmaf_rn(hc, hc, s2[v]);
+        }
+      }
     }
   }
-  block_reduce<C, 2>(v, partial + static_cast<size_t>(blockIdx.x) * 2 * C);
+  // the block's groups in order into one partial row
+  const int grp = threadIdx.x / L;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    red[grp * C + ch0 + v] = s1[v];
+    red[(kGroups + grp) * C + ch0 + v] = s2[v];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < 2 * C; t += kThreads) {
+    const int j = t / C, ch = t % C;
+    float s = 0.f;
+    for (int g = 0; g < kGroups; ++g) s = __fadd_rn(s, red[(j * kGroups + g) * C + ch]);
+    partial[static_cast<size_t>(blockIdx.x) * 2 * C + t] = s;
+  }
 }
 
 // Statistics of the last layer's pre-BN h (shift shift_l) as partials
@@ -519,14 +613,18 @@ sa_train_bwd2_kernel(const float* __restrict__ q, const float* __restrict__ cter
 // run only with two layers.
 // ---------------------------------------------------------------------------
 
+// Lanes a centroid of the stats pass at ch channels: the wrapper's grid and
+// the bound's summation depth follow them.
+extern "C" int sa_train_stats_lanes(int ch) { return ch / kStatsV; }
+
 extern "C" int sa_train_stats_launch(const float* q, const float* cterm, const int* idx,
                                      const bool* mask, const float* aff, float* partial,
                                      int grid, int b, int n, int c, int k, int ch,
                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ch != 16) return cudaErrorInvalidValue;
-  sa_train_stats_kernel<16><<<grid, kThreads, 0, st>>>(q, cterm, idx, mask, aff, partial, n, c,
-                                                      k, b * c);
+  sa_train_stats_kernel<16, kStatsKB>
+      <<<grid, kThreads, 0, st>>>(q, cterm, idx, mask, aff, partial, n, c, k, b * c);
   return cudaGetLastError();
 }
 

@@ -596,11 +596,19 @@ SA_THREADS = 256  # threads a block of csrc/sa_train.cu
 SA_MAX_BLOCKS = 8 * 132  # its grid: at most 8 blocks of 256 threads on each of 132 SMs
 
 
-def sa_grid(b: int, c: int, ch1: int) -> int:
-    """Blocks of an SA train launch over b*c centroids, C1 lanes a centroid:
-    group g of block i walks centroids i*G + g + j*grid*G, G = SA_THREADS //
-    C1, and each block writes one partial row of its sums."""
-    return max(1, min(-(-b * c // (SA_THREADS // ch1)), SA_MAX_BLOCKS))
+def sa_train_stats_lanes(ch1: int) -> int:
+    """Lanes a centroid of the stats pass at C1 = ch1, as csrc/sa_train.cu
+    sets them (read from the built library; main, bwd1 and bwd2 take C1
+    lanes a centroid, a lane a channel)."""
+    return _build.load("sa_train").sa_train_stats_lanes(ch1)
+
+
+def sa_grid(b: int, c: int, lanes: int) -> int:
+    """Blocks of an SA train launch over b*c centroids, `lanes` lanes a
+    centroid: group g of block i walks centroids i*G + g +
+    j*grid*G, G = SA_THREADS // lanes, and each block writes one partial row
+    of its sums."""
+    return max(1, min(-(-b * c // (SA_THREADS // lanes)), SA_MAX_BLOCKS))
 
 
 def sa_aff(width: int, base: Optional[torch.Tensor] = None, **rows: torch.Tensor) -> torch.Tensor:
@@ -703,7 +711,7 @@ def _sa_grid(name, aff, b, c, ch1, ch2, two, stats_only=False):
     _expect((ch1, ch2, two) in want, name,
             f"no kernel instance for C1={ch1}, C2={ch2}, two_layer={two}")
     _expect(aff.shape[1] == ch1, name, "the kernel takes aff rows of width C1")
-    return sa_grid(b, c, ch1)
+    return sa_grid(b, c, sa_train_stats_lanes(ch1) if stats_only else ch1)
 
 
 def sa_train_stats_plain(q, cterm, idx, mask, aff):
@@ -716,11 +724,16 @@ def sa_train_stats(q, cterm, idx, mask, aff):
     """BN1's batch statistics over the valid edges: (sum(h1 - shift1),
     sum((h1 - shift1)^2)), each (C1,), with h1 = relu(q[idx] - cterm). q
     (B, N, C1), cterm (B, C, C1), idx/mask (B, C, K) int32/bool from
-    `ball_query`, aff from `sa_aff` (row shift1)."""
+    `ball_query`, aff from `sa_aff` (row shift1). On the card q and cterm
+    must be 16-byte aligned (a lane reads 4 channels as one float4); each
+    block sums its edges in one fixed order into a partial row, and the rows
+    are summed here with torch, so two runs give the same bits."""
     name = "sa_train_stats"
     b, n, c, k, ch1, _ = _sa_check(name, q, cterm, idx, mask, aff, None)
     if not _on_card(name, q, cterm, idx, mask, aff):
         return sa_train_stats_plain(q, cterm, idx, mask, aff)
+    _expect(q.data_ptr() % 16 == 0 and cterm.data_ptr() % 16 == 0, name,
+            "q and cterm must be 16-byte aligned")
     grid = _sa_grid(name, aff, b, c, ch1, ch1, True, stats_only=True)
     partial = torch.empty((grid, 2, ch1), dtype=torch.float32, device=q.device)
     _launch(name, q.device, q, cterm, idx, mask, aff, partial, grid, b, n, c, k, ch1)

@@ -1,10 +1,13 @@
-"""Synthetic serve and train inputs and random models for `chip_smoke.py`:
-made on the device from a seed, with no data files."""
+"""Synthetic inputs for `chip_smoke.py` and the tests: serve and train
+batches and random models made on the device from a seed, with no data
+files; and LiDAR plot clouds for LAS files (`make_plot_cloud`,
+`cloud_to_las_fields`, copies of `stratanet2_tpu/utils/synthetic.py`'s)."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from stratanet2_tpu_torch.config import ModelConfig
@@ -55,3 +58,35 @@ def random_model(
                 mod.mean.copy_(mean)
                 mod.var.copy_(var)
     return model.to(device).eval()
+
+
+def make_plot_cloud(rng, n=400, center=(500.0, 6_500_000.0), radius=10.0):
+    """Feature-major (10, N) plot cloud with ground / medium / high strata."""
+    theta = rng.uniform(0, 2 * np.pi, n)
+    r = radius * np.sqrt(rng.uniform(0, 1, n))
+    x = center[0] + r * np.cos(theta)
+    y = center[1] + r * np.sin(theta)
+    kind = rng.choice(3, n, p=[0.5, 0.3, 0.2])
+    z = np.where(
+        kind == 0,
+        rng.uniform(0, 0.3, n),
+        np.where(kind == 1, rng.uniform(1, 5, n), rng.uniform(5, 20, n)),
+    )
+    colors = rng.uniform(0, 65535, (4, n))
+    intensity = rng.uniform(0, 32767, n)
+    return_num = rng.integers(1, 4, n).astype(np.float64)
+    num_returns = np.maximum(return_num, rng.integers(1, 4, n))
+    return np.asarray(
+        [x, y, z, colors[0], colors[1], colors[2], colors[3], intensity,
+         return_num, num_returns],
+        dtype=np.float32,
+    )
+
+
+def cloud_to_las_fields(c: np.ndarray) -> dict:
+    """Map a feature-major (10, N) cloud onto data.las.write_las fields."""
+    return {
+        "x": c[0], "y": c[1], "z": c[2], "red": c[3], "green": c[4],
+        "blue": c[5], "nir": c[6], "intensity": c[7],
+        "return_num": c[8], "num_returns": c[9],
+    }

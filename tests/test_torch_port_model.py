@@ -219,17 +219,20 @@ def test_init_follows_jax_init():
 
 def test_port_imports_without_jax():
     """The port and chip_smoke.py import with jax and the JAX package
-    blocked, in a fresh interpreter."""
+    blocked, in a fresh interpreter; and with pandas, matplotlib and sklearn
+    blocked too, which the card's machine does not have (the port imports
+    them only inside the functions that use them)."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'stratanet2_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'stratanet2_tpu', 'pandas', 'matplotlib', 'sklearn'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil, stratanet2_tpu_torch\n"
         "for m in pkgutil.walk_packages(stratanet2_tpu_torch.__path__, 'stratanet2_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None\n"
-        "          and (m.split('.')[0] in ('jax', 'jaxlib', 'stratanet2_tpu'))]\n"
+        "          and (m.split('.')[0] in ('jax', 'jaxlib', 'stratanet2_tpu', 'pandas',\n"
+        "                                    'matplotlib', 'sklearn'))]\n"
         "assert not loaded, loaded\n"
         "print('imported')\n"
     )

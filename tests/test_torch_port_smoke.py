@@ -5,6 +5,7 @@ and pixel-max reference sites' inputs, the scatter's and pixel max's site
 checks, and the kNN wrapper's split of sources across warps."""
 
 import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -17,11 +18,19 @@ MAIN2 = "_Z20sa_train_main_kernelILi32ELb0ELi16EEvPKfS1_PKiPKbS1_S1_PfS6_S6_PiS7
 BWD1 = "_Z20sa_train_bwd1_kernelILi16ELi4EEvPKfS1_PKiPKbS1_S1_S3_S1_Pfiiii"
 BWD2_1 = "_Z20sa_train_bwd2_kernelILi16ELb1ELi4EEvPKfS1_PKiPKbS1_S1_S3_S1_PfS6_iiii"
 BWD2_2 = "_Z20sa_train_bwd2_kernelILi32ELb0ELi8EEvPKfS1_PKiPKbS1_S1_S3_S1_PfS6_iiii"
+STATS = "_Z21sa_train_stats_kernelILi16ELi8EEvPKfS1_PKiPKbS1_Pfiiii"  # <C1, KB>
+
+
+def stats_lanes(ch):
+    """The stats pass's lanes a centroid as its library gives them (a float4
+    of the q row a lane)."""
+    return ch // 4
+
 # a listing in cuobjdump's layout: a kNN-like scan loop (0x10-0x80) whose
-# forward branch at 0x40 skips an insert of two instructions; the stats
-# pass's one-slot loop (no batch: not an edge loop); and the slot loops of
-# the five batched SA train instances, main's at SA1 followed by a loop
-# without a global load (the block's reduction), bwd2's at SA1 with a shuffle
+# forward branch at 0x40 skips an insert of two instructions; and the slot
+# loops of the six SA train instances: the stats pass's (4 lanes a centroid,
+# KB 8) and main's at SA1, each followed by a loop without a global load (the
+# block's reduction), bwd2's at SA1 with a shuffle
 SASS = f"""
         Function : _Z10knn_kernelPKfS0_S0_PfPiS1_iiii
         /*0000*/                   MOV R1, c[0x0][0x28] ;
@@ -34,11 +43,16 @@ SASS = f"""
         /*0070*/                   IADD3 R2, R2, 0x10, RZ ;
         /*0080*/              @P1 BRA 0x10 ;
         /*0090*/                   EXIT ;
-        Function : _Z21sa_train_stats_kernelILi16EEvPKfS1_PKiPKbS1_Pfiiii
-        /*0000*/                   LDG.E R2, [R4.64] ;
-        /*0010*/                   FADD R3, R3, R2 ;
-        /*0020*/              @P0 BRA 0x0 ;
-        /*0030*/                   EXIT ;
+        Function : {STATS}
+        /*0000*/                   LDG.E.128.CONSTANT R4, [R2.64] ;
+        /*0010*/                   FADD R8, R4, -R9 ;
+        /*0020*/                   FMNMX R8, R8, RZ, !PT ;
+        /*0030*/                   FFMA R10, R8, R8, R10 ;
+        /*0040*/              @P0 BRA 0x0 ;
+        /*0050*/                   LDS R4, [R3] ;
+        /*0060*/                   FADD R5, R5, R4 ;
+        /*0070*/              @P1 BRA 0x50 ;
+        /*0080*/                   EXIT ;
         Function : {MAIN1}
         /*0000*/                   MOV R1, c[0x0][0x28] ;
         /*0010*/                   LDG.E.CONSTANT R2, [R4.64] ;
@@ -92,20 +106,23 @@ def test_sass_per_pair_counts_the_loop_with_and_without_the_insert(r):
 
 
 def test_sass_edge_loops_count_shuffles_an_edge():
-    """Each batched SA train instance's slot loop (the innermost loop with a
-    global load), counted over its KB x 32 / C1 edges a pass."""
-    loops = cs.sass_edge_loops(SASS)
-    assert sorted(loops) == sorted([MAIN1, MAIN2, BWD1, BWD2_1, BWD2_2])
+    """Each SA train instance's slot loop (the innermost loop with a global
+    load), counted over its KB x 32 / L edges a pass (L lanes a centroid:
+    C1 for main, bwd1 and bwd2, the library's lanes for stats)."""
+    loops = cs.sass_edge_loops(SASS, stats_lanes)
+    assert sorted(loops) == sorted([STATS, MAIN1, MAIN2, BWD1, BWD2_1, BWD2_2])
     cs.check_edge_loops(loops)
-    want = {  # function: (kernel, C1, KB, instructions, SHFLs, FP32 instructions)
-        MAIN1: ("sa_train_main", 16, 4, 5, 0, 1), MAIN2: ("sa_train_main", 32, 16, 3, 0, 1),
-        BWD1: ("sa_train_bwd1", 16, 4, 5, 0, 2), BWD2_1: ("sa_train_bwd2", 16, 4, 5, 1, 1),
-        BWD2_2: ("sa_train_bwd2", 32, 8, 4, 0, 1),
+    want = {  # function: (kernel, C1, lanes, KB, instructions, SHFLs, FP32 instructions)
+        STATS: ("sa_train_stats", 16, 4, 8, 5, 0, 3),
+        MAIN1: ("sa_train_main", 16, 16, 4, 5, 0, 1), MAIN2: ("sa_train_main", 32, 32, 16, 3, 0, 1),
+        BWD1: ("sa_train_bwd1", 16, 16, 4, 5, 0, 2), BWD2_1: ("sa_train_bwd2", 16, 16, 4, 5, 1, 1),
+        BWD2_2: ("sa_train_bwd2", 32, 32, 8, 4, 0, 1),
     }
-    for func, (kernel, ch, kb, n, shfl, fp32) in want.items():
+    for func, (kernel, ch, lanes, kb, n, shfl, fp32) in want.items():
         loop = loops[func]
-        edges = kb * 32 // ch
-        assert (loop["kernel"], loop["C1"], loop["KB"], loop["edges_a_pass"]) == (kernel, ch, kb, edges)
+        edges = kb * 32 // lanes
+        assert (loop["kernel"], loop["C1"], loop["lanes"], loop["KB"], loop["edges_a_pass"]) == (
+            kernel, ch, lanes, kb, edges)
         assert loop["instructions"] == n
         assert loop["per_edge"] == n / edges
         assert loop["shfl_per_edge"] == shfl / edges
@@ -117,7 +134,7 @@ def _drop_function(sass, func):
     return re.sub(rf"\s*Function : {func}\n(\s*/\*[0-9a-f]+\*/.*\n)*", "\n", sass)
 
 
-@pytest.mark.parametrize("func", [MAIN1, MAIN2, BWD1, BWD2_1, BWD2_2])
+@pytest.mark.parametrize("func", [MAIN1, MAIN2, BWD1, BWD2_1, BWD2_2, STATS])
 def test_check_edge_loops_fails_without_a_slot_loop(func):
     """Phase 16 fails when an instance's slot loop is not found: its loop has
     no global load, or the instance is missing from the listing."""
@@ -125,12 +142,12 @@ def test_check_edge_loops_fails_without_a_slot_loop(func):
     tail = SASS.find("Function :", head + 1)
     tail = len(SASS) if tail < 0 else tail
     no_load = SASS[:head] + SASS[head:tail].replace("LDG", "LDS") + SASS[tail:]
-    loops = cs.sass_edge_loops(no_load)
+    loops = cs.sass_edge_loops(no_load, stats_lanes)
     assert loops[func] is None
     with pytest.raises(SystemExit):
         cs.check_edge_loops(loops)
-    loops = cs.sass_edge_loops(_drop_function(SASS, func))
-    assert func not in loops and len(loops) == 4
+    loops = cs.sass_edge_loops(_drop_function(SASS, func), stats_lanes)
+    assert func not in loops and len(loops) == 5
     with pytest.raises(SystemExit):
         cs.check_edge_loops(loops)
 
@@ -189,11 +206,14 @@ def test_sa_train_reference_sites_are_tie_heavy_and_ragged(sa_reference_calls, s
 
 @pytest.mark.parametrize("name,site", [(name, site) for name, n in cs.SA_TRAIN_REF_SITES.items()
                                        for site in range(n)])
-def test_sa_train_reference_sites_pass_the_smoke_checks(sa_reference_calls, name, site):
+def test_sa_train_reference_sites_pass_the_smoke_checks(sa_reference_calls, name, site,
+                                                        monkeypatch):
     """At each SA train reference site, chip_smoke's comparison passes a
     result equal to the plain version, and its float32 bound rejects a
     result of zeros and, for the sums over edges, one with block 0's
-    partial row taken out: the checks are not vacuous there."""
+    partial row taken out: the checks are not vacuous there. (The stats
+    pass's lanes, read from its library on the card, are given here.)"""
+    monkeypatch.setattr(ck, "sa_train_stats_lanes", stats_lanes)
     args = sa_reference_calls[name][site]
     want = getattr(ck, f"{name}_plain")(*args)
     shape, nbytes, ops, err = cs.compare_sa_train_site(torch, ck, name, site, args, want, want)
@@ -372,3 +392,80 @@ def test_pixel_max_reference_sites_pass_the_smoke_checks(smoke_on_cpu, monkeypat
     monkeypatch.setattr(cs, "device_profile", lambda *a, **k: (0.0, 10, 30))
     with pytest.raises(SystemExit, match="device operations"):
         cs.pixel_max_site(torch, ck, site, args)
+
+
+def test_loader_steps_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """Phase 15c's control flow at a tiny size on the CPU: LAS plots written,
+    read and prepared, PlotLoader batches to train and serve steps (the
+    kernel wrappers run their plain versions, so no launch is counted), then
+    the steady-state epoch from one pool, alone and feeding train steps."""
+    from dataclasses import replace
+
+    import json
+
+    from stratanet2_tpu_torch.config import default_config
+
+    monkeypatch.setattr(cs, "LOADER_PLOTS", 4)
+    monkeypatch.setattr(cs, "LOADER_POINTS", 300)
+    monkeypatch.setattr(cs, "LOADER_TRAIN_STEPS", 2)
+    monkeypatch.setattr(cs, "LOADER_EPOCH_BATCHES", 2)
+    monkeypatch.setattr(cs, "TRAIN_LAUNCHES", dict.fromkeys(cs.TRAIN_LAUNCHES, 0))
+    monkeypatch.setattr(cs, "SERVE_LAUNCHES", dict.fromkeys(cs.SERVE_LAUNCHES, 0))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    cfg = default_config()
+    cfg = replace(cfg, model=replace(cfg.model, subsample_size=256),
+                  train=replace(cfg.train, batch_size=3))
+    cs.loader_steps(torch, ck, cfg, torch.device("cpu"), "cpu")
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    phase = [x for x in lines if x.get("phase") == "loader_steps"]
+    assert len(phase) == 1
+    row = phase[0]
+    assert row["min_z_path"] in ("native", "numpy") and len(row["host_ms_a_batch"]) == 3
+    assert len(row["train_step_ms"]) == 2 and len(row["loss_parts"]) == 2 + 2
+    assert row["epoch_plots"] == 8 and len(row["epoch_host_ms_a_batch"]) == 2
+    assert row["epoch_steady_ms_a_batch"] == row["epoch_host_ms_a_batch"][1]
+    assert len(row["fed_wait_ms"]) == 2 and len(row["fed_step_ms"]) == 2
+    assert [x["phase"] for x in lines] == ["loader_steps_launches", "loader_steps"]
+
+
+def test_stats_lanes_mirror_the_cuda_source(monkeypatch):
+    """The stats pass's lanes come from its library alone (the wrapper's grid
+    and `sa_sum_depth` read them there); main, bwd1 and bwd2 take C1."""
+    src = (Path(ck.__file__).parent / "csrc" / "sa_train.cu").read_text()
+    assert re.search(r'extern "C" int sa_train_stats_lanes\(int ch\)', src)
+    asked = []
+    monkeypatch.setattr(ck, "sa_train_stats_lanes", lambda ch: asked.append(ch) or stats_lanes(ch))
+    assert [cs.sa_lanes(ck, n, c) for n, c in cs.EDGE_LOOP_INSTANCES] == [4, 16, 32, 16, 16, 32]
+    assert asked == [16]
+
+
+@pytest.mark.parametrize("b,c,k", [(4, 1203, 31), (20, 5000, 8)])
+@pytest.mark.parametrize("lanes", [4, 16, 32])  # stats at C1 = 16, SA1, SA2
+def test_sa_sum_depth_follows_the_kernels_walk(b, c, k, lanes):
+    """sa_sum_depth's chain, groups and grid, and its block-0 selection,
+    against the walk of csrc/sa_train.cu's loops written out: warp w of
+    block i takes the 32 / L centroids from (i * 8 + w) * 32 / L on, then
+    steps by grid x G (G = 256 / L groups a block); (20, 5000) fills the
+    grid's cap at 4 lanes."""
+    gen = torch.Generator().manual_seed(1)
+    mask = torch.rand((b, c, k), generator=gen) < 0.6
+    depth, blk0 = cs.sa_sum_depth(torch, ck, mask, lanes)
+    groups, warps, cpw = ck.SA_THREADS // lanes, ck.SA_THREADS // 32, 32 // lanes
+    grid = ck.sa_grid(b, c, lanes)
+    valid = mask.sum(2).reshape(-1).tolist()
+    total = b * c
+    chains, owner = {}, [-1] * total
+    for i in range(grid):
+        for w in range(warps):
+            base = (i * warps + w) * cpw
+            while base < total:
+                for g in range(cpw):
+                    if base + g < total:
+                        chains[i, w, g] = chains.get((i, w, g), 0) + valid[base + g]
+                        owner[base + g] = i
+                base += grid * groups
+    assert min(owner) == 0
+    assert depth == max(chains.values()) + groups + grid
+    assert blk0.reshape(-1).tolist() == [o == 0 for o in owner]
+    if (b, c, lanes) == (20, 5000, 4):
+        assert grid == ck.SA_MAX_BLOCKS
