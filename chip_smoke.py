@@ -108,6 +108,19 @@ Phases, in order, each failing loudly:
      pool over the prepared plots repeated under new ids, the loader alone
      and then with a train step after each batch (the wait for a batch
      while the card trains);
+  15d. `"phase": "train_full"`: the training loop (`learning/train.train_full`)
+     over 100 plots (15c's prepared plots repeated under new ids), fold 1 of
+     the port's KFold split (80 train, 20 val), the PROD model, the DEV
+     profile with early stopping: 2 epochs (checkpoints written, loss parts
+     finite, JAX's dict keys), a resume to 3 epochs from a copy of that
+     folder and one from an unbroken 3-epoch run's own epoch-2 checkpoints,
+     each against that unbroken run (RESUME_FROM_RUN_1, RESUME_OWN), the
+     same two resumes with Adam's state dropped outside those bounds, and
+     the best checkpoint reloaded into a fresh model and evaluated (equal to
+     the run's final eval); launch counters zeroed before and checked after each
+     run (train batches x the train step's, evals x EVAL_LAUNCHES); then its
+     seconds an epoch, points/s, ms a batch, eval and checkpoint seconds,
+     and the figures skipped for a missing module, each on a line of its own;
   16. `"phase": "selection_floor"`, for sa_fused_eval and knn_interpolate
      (serve step) and ball_query (train step): the SASS instructions a pair
      of the scan loop (cuobjdump of the built library; for kNN also on the
@@ -153,6 +166,7 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -300,6 +314,46 @@ STEPS_PER_EPOCH = 5  # ~90 training plots of a fold (5 folds of ~110 plots) at B
 LOADER_PLOTS, LOADER_POINTS, LOADER_WORKERS = 24, 12000, 2
 LOADER_TRAIN_STEPS = 3
 LOADER_EPOCH_BATCHES = 12  # the steady-state epoch: batches from one pool
+# phase 15d (train_full): the training loop over the prepared plots repeated
+# under new ids, fold 1 of the port's KFold split (80 train plots, 4
+# batches of 20; 20 val plots, 1 batch), the PROD model
+TRAIN_FULL_PLOTS = 100
+EVAL_LAUNCHES = {"fps": 2, "sa_fused_eval": 2, "knn_interpolate": 2, "pixel_max": 1,
+                 "ball_query": 0, "knn_scatter": 0, "pixel_max_bwd": 0,
+                 **dict.fromkeys(SA_TRAIN, 0)}
+# the keys of JAX's train_full dicts (train.py:250-256, 613-614; the eval's
+# evaluate.LOSS_KEYS and 629-630)
+JAX_TRAIN_KEYS = {"total_loss", "MAE_loss", "log_loss", "entropy_loss", "step",
+                  "points_per_sec", "epoch", "epoch_seconds"}
+JAX_EVAL_KEYS = {"total_loss", "MAE_loss", "log_loss", "MAE_veg_b", "MAE_veg_moy", "MAE_veg_h",
+                 "epoch", "step"}
+# Resumed vs unbroken runs (phase 15d). Not bit for bit: sa_train_bwd2
+# scatters dq with float atomics (csrc/sa_train.cu), so two runs of the same
+# steps differ in the last bits of SA2's input gradient from the first step
+# on, and Adam, which divides by the root of each second moment, turns a
+# gradient within rounding of 0 into an update of up to lr either way. Two
+# comparisons, each a (loss parts and plot predictions, params: every
+# element and the median, BN running state: relative to max(|value|, 1))
+# bound, and each with a control: the same resume from a `.resume` file
+# whose Adam state is dropped (count and moments zeroed), which must fall
+# outside the bound. Readings on an NVIDIA H100 80GB HBM3 at 700 W, the
+# resumes in six runs, the controls in one:
+# - RESUME_FROM_RUN_1: a run resumed at epoch 3 from another 2-epoch run
+#   against an unbroken 3-epoch run (12 steps apart). Resume: losses and
+#   predictions 1.8e-4..4.4e-4, params 1.5e-3..8.9e-3, median
+#   1.9e-5..4.7e-5, BN state 4.5e-3..0.030. Control: losses 6.9e-3,
+#   params 5.8e-3, median 1.04e-3, BN state 0.17. The losses' bound is 4.5x
+#   the resume's largest and 3.5x below the control, the median's 4.2x and
+#   5.2x, BN state's 3.3x and 1.7x; params' 2.2x holds no control out (the
+#   two runs' noise reaches the size of lr).
+# - RESUME_OWN: a run resumed at epoch 3 from the unbroken run's own
+#   epoch-2 checkpoints against that run (4 steps apart). Resume: losses
+#   2.4e-7..3.8e-6, params 2.2e-6..1.5e-4, median 2.2e-8..2.7e-7, BN state
+#   2.5e-6..5.5e-5 (four runs). Control: losses 7.5e-3, params 6.0e-3,
+#   median 1.08e-3, BN state 0.19: each bound 13-74x the resume's largest
+#   and 3-190x below the control.
+RESUME_FROM_RUN_1 = {"loss": 2e-3, "param_max": 2e-2, "param_median": 2e-4, "bn_rel": 0.1}
+RESUME_OWN = {"loss": 1e-4, "param_max": 2e-3, "param_median": 2e-5, "bn_rel": 1e-3}
 SEED = 0
 STEPS = 30  # timed steps; the median is reported
 PROFILE_STEPS = 10
@@ -1701,10 +1755,273 @@ def loader_steps(torch, ck, cfg, device, card):
     check(tuple(pred_pl.shape) == (b, 4) and bool(torch.isfinite(pred_pl).all()),
           f"loader_steps: pred_pl {tuple(pred_pl.shape)} not finite")
     check(bool(((pred_pl >= 0) & (pred_pl <= 1)).all()), "loader_steps: pred_pl outside [0, 1]")
+    return ds, (sum(fed_wait_ms) + sum(fed_step_ms)) / LOADER_EPOCH_BATCHES
+
+
+class _Warnings(logging.Handler):
+    """Keeps the messages of the warnings it gets."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
+    """Phase 15d: the training loop users run, `train_full`, on the card.
+    TRAIN_FULL_PLOTS plots: phase 15c's prepared plots repeated under new
+    ids, with coverages drawn from the seed; fold 1 of the port's KFold
+    split; the PROD model from `init_pointnet2` (seed), the KDE prior fitted
+    on the plots; the DEV train profile (eval every epoch) with early
+    stopping on and a patience of 3 epochs, so that no run stops before
+    epoch 3; `MetricSink` in a temporary experiment folder. Four runs,
+    launch counters zeroed before and checked after each (train batches x
+    TRAIN_LAUNCHES + evals x EVAL_LAUNCHES, + 1 pixel_max a val plot of the
+    last eval where matplotlib draws its figures):
+    1. 2 epochs: the best and the `.resume` checkpoints written, every loss
+       part finite, the train and eval dicts with JAX's keys;
+    2. `resume=True` with n_epoch=3 from a copy of run 1's folder: starts at
+       epoch 3;
+    3. an unbroken 3-epoch run, whose checkpoints after epoch 2 are copied
+       aside;
+    4. `resume=True` with n_epoch=3 from run 3's copied checkpoints;
+    5. and 6., the controls: runs 4 and 2 again, each from a `.resume`
+       file whose Adam state is dropped (`drop_adam_state`);
+    run 2 against run 3 within RESUME_FROM_RUN_1 and run 4 against run 3
+    within RESUME_OWN (epoch 3's train and eval losses, the final eval, its
+    plot predictions, params and BN state), and each control outside its
+    comparison's bound, so that the bound tells a resume that loses the
+    optimizer from one that keeps it; then the reload:
+    `load_checkpoint` of run 1's best file into a fresh model and
+    `evaluate`, equal to run 1's final eval bit for bit (the eval path has
+    no atomics). Prints the seconds an epoch, points/s, ms a batch (beside
+    phase 15c's fed ms a batch), the seconds of an eval and of a checkpoint
+    write (timed by `utils.profiling.Phase`), and the figures skipped for a
+    missing module."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+
+    from stratanet2_tpu_torch.data.dataset import get_index_sorted_plot_ids
+    from stratanet2_tpu_torch.learning.crossval import kfold_split
+    from stratanet2_tpu_torch.learning.evaluate import LOSS_KEYS, evaluate
+    from stratanet2_tpu_torch.learning.kde import fit_kde_mixture_from_dataset
+    from stratanet2_tpu_torch.learning.train import (
+        TRAIN_LOSS_KEYS,
+        make_eval_step,
+        save_train_state,
+        train_full,
+    )
+    from stratanet2_tpu_torch.utils import checkpoint as ckpt
+    from stratanet2_tpu_torch.utils.convert import from_jax_params
+    from stratanet2_tpu_torch.utils.experiment import MetricSink, setup_experiment_folder
+    from stratanet2_tpu_torch.utils.profiling import Phase
+
+    rng = np.random.default_rng(SEED + 15)
+    items = list(prepared.values())
+    ds = {}
+    for i in range(TRAIN_FULL_PLOTS):
+        pid = f"Plot_tf_{i:03d}"
+        low, med, high = rng.uniform(0, 1, 3)
+        ds[pid] = dict(items[i % len(items)], plot_id=pid, index=i,
+                       coverages=np.array([low, 1 - low, med, high]))
+    ids = get_index_sorted_plot_ids(ds)
+    train_idx, val_idx = kfold_split(len(ids), cfg.train.folds)[0]
+    train_ids, val_ids = ids[train_idx], ids[val_idx]
+    dev_cfg = cfg.as_dev()
+    run_cfg = replace(dev_cfg, train=replace(dev_cfg.train, use_early_stopping=True,
+                                             patience_in_epochs=3))
+    b = run_cfg.train.batch_size
+    batches = len(train_ids) // b
+    kde = fit_kde_mixture_from_dataset(ds, seed=SEED)
+    draws = importlib.util.find_spec("matplotlib") is not None
+    warned = _Warnings()
+    logging.getLogger("stratanet2_tpu_torch").addHandler(warned)
+
+    def counted(what, fn, train_batches, evals):
+        ck.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        want = {name: train_batches * TRAIN_LAUNCHES[name] + evals * EVAL_LAUNCHES[name]
+                for name in TRAIN_LAUNCHES}
+        want["pixel_max"] += len(val_ids) if draws else 0  # the last eval's figures
+        check_launches(ck.launch_counts(), want, f"train_full_{what}")
+        return out
+
+    def run(folder, n_epoch, resume=False):
+        sink = MetricSink(folder)
+        try:
+            cfg_n = replace(run_cfg, train=replace(run_cfg.train, n_epoch=n_epoch))
+            return train_full(ds, train_ids, val_ids, cfg_n, kde, folder, sink, fold_id=1,
+                              seed=SEED, resume=resume, device=device)
+        finally:
+            sink.close()
+
+    def run_keeping_epoch_2(folder, asides):
+        """`run(folder, 3)`, its checkpoints after epoch 2 copied to each
+        folder of `asides`."""
+        save = ckpt.save_checkpoint
+
+        def saving(path, *args, metadata=None, **kw):
+            save(path, *args, metadata=metadata, **kw)
+            if path.endswith(".resume") and metadata["epoch"] == 2:
+                for aside in asides:
+                    os.makedirs(aside)
+                    for name in os.listdir(folder):
+                        if ".pt" in name:
+                            shutil.copy(os.path.join(folder, name), aside)
+
+        ckpt.save_checkpoint = saving
+        try:
+            return run(folder, 3)
+        finally:
+            ckpt.save_checkpoint = save
+
+    def drop_adam_state(folder):
+        """The control's `.resume` file: Adam's count and moments zeroed
+        (a fresh Adam), the schedule's count kept."""
+        path = os.path.join(folder, ckpt.checkpoint_name(1) + ".resume")
+        payload = ckpt.load_checkpoint(path)
+        empty, (count, mu, nu), sched = payload["opt_state"]
+
+        def zeros(tree):
+            if isinstance(tree, dict):
+                return {k: zeros(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(zeros(v) for v in tree)
+            return np.zeros_like(tree)
+
+        payload["opt_state"] = (empty, (np.zeros_like(count), zeros(mu), zeros(nu)), sched)
+        ckpt.save_checkpoint(path, **payload)
+
+    def loss_diff(got, want, keys):
+        return max(abs(g[k] - w[k]) for g, w in zip(got, want) for k in keys)
+
+    def pred_diff(got, want):
+        check([g["pl_id"] for g in got] == [w["pl_id"] for w in want], "plot rows differ")
+        return max(abs(g[k] - w[k]) for g, w in zip(got, want) for k in w
+                   if k.startswith("pred_"))
+
+    def compare(got, want):
+        """Epoch 3 and the final eval of two 3-epoch runs (results of `run`)."""
+        (ts_g, tr_g, te_g, rows_g), (ts_w, tr_w, te_w, rows_w) = got, want
+        params_w = dict(ts_w.model.named_parameters())
+        dp = torch.cat([(p - params_w[k]).detach().abs().flatten().double()
+                        for k, p in ts_g.model.named_parameters()])
+        buffers_w = dict(ts_w.model.named_buffers())
+        bn = max(float(((v - buffers_w[k]).abs() / buffers_w[k].abs().clamp_min(1)).max())
+                 for k, v in ts_g.model.named_buffers())
+        return {"loss": max(loss_diff(tr_g[-1:], tr_w[-1:], TRAIN_LOSS_KEYS),
+                            loss_diff(te_g[-2:], te_w[-2:], LOSS_KEYS),
+                            pred_diff(rows_g, rows_w)),
+                "param_max": float(dp.max()), "param_median": float(dp.median()),
+                "bn_rel": bn}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = setup_experiment_folder(tmp, "learning", "DEV")
+        run1, run2, run3, run4, run5, run6 = (os.path.join(root, f"run_{i}")
+                                              for i in range(1, 7))
+        os.makedirs(run1)
+        out1 = counted("run_1", lambda: run(run1, 2), 2 * batches, 3)
+        best = os.path.join(run1, ckpt.checkpoint_name(1))
+        check(os.path.exists(best) and os.path.exists(best + ".resume"),
+              f"train_full: checkpoints missing in {sorted(os.listdir(run1))}")
+        shutil.copytree(run1, run2)
+        shutil.copytree(run1, run6)
+        out2 = counted("run_2_resumed", lambda: run(run2, 3, resume=True), batches, 2)
+        os.makedirs(run3)
+        out3 = counted("run_3_unbroken", lambda: run_keeping_epoch_2(run3, (run4, run5)),
+                       3 * batches, 4)
+        out4 = counted("run_4_resumed_own", lambda: run(run4, 3, resume=True), batches, 2)
+        drop_adam_state(run5)
+        drop_adam_state(run6)
+        out5 = counted("run_5_control_own", lambda: run(run5, 3, resume=True), batches, 2)
+        out6 = counted("run_6_control_from_run_1", lambda: run(run6, 3, resume=True),
+                       batches, 2)
+
+        payload = ckpt.load_checkpoint(best)
+        fresh = from_jax_params(payload["params"], payload["model_state"], run_cfg.model,
+                                device=device)
+        eval_step = make_eval_step(run_cfg, kde, device=device)
+        sink = MetricSink(run1)
+        prof = Phase("train_full")
+        try:
+            with prof.phase("eval"):
+                te_re, rows_re = counted("reload", lambda: evaluate(
+                    fresh, ds, val_ids, run_cfg, kde, eval_step, run1, sink, fold_id=1,
+                    epoch=2, last_epoch=True, device=device), 0, 1)
+        finally:
+            sink.close()
+        with prof.phase("checkpoint_write"):
+            save_train_state(os.path.join(tmp, "write.pt"), out1[0], {"epoch": 2})
+        eval_s, write_s = prof.totals["eval"], prof.totals["checkpoint_write"]
+    logging.getLogger("stratanet2_tpu_torch").removeHandler(warned)
+
+    runs = {"run_1": out1, "run_2_resumed": out2, "run_3_unbroken": out3,
+            "run_4_resumed_own": out4, "run_5_control_own": out5,
+            "run_6_control_from_run_1": out6}
+    resume = {"from_run_1": compare(out2, out3), "own": compare(out4, out3),
+              "control_from_run_1": compare(out6, out3), "control_own": compare(out5, out3),
+              "recomputed_epochs_1_2_loss": max(
+                  loss_diff(out1[1], out3[1][:2], TRAIN_LOSS_KEYS),
+                  loss_diff(out1[2][:2], out3[2][:2], LOSS_KEYS))}
+    reload = {"loss": loss_diff([te_re], out1[2][-1:], LOSS_KEYS),
+              "pred": pred_diff(rows_re, out1[3])}
+    train_rows = [d for out in runs.values() for d in out[1]]
+    epoch_s = [d["epoch_seconds"] for d in train_rows]
+    print(json.dumps({"phase": "train_full", "plots": len(ds), "train_plots": len(train_ids),
+                      "val_plots": len(val_ids), "B": b, "N": run_cfg.model.subsample_size,
+                      "epochs": {k: [d["epoch"] for d in out[1]] for k, out in runs.items()},
+                      "train_losses": {k: out[1] for k, out in runs.items()},
+                      "eval_losses": {k: out[2] for k, out in runs.items()},
+                      "resume_max_abs_diff": resume, "reload_max_abs_diff": reload,
+                      "card": card}), flush=True)
+    print(json.dumps({"phase": "train_full_epoch", "epoch_seconds": epoch_s,
+                      "points_per_sec": [d["points_per_sec"] for d in train_rows],
+                      "ms_a_batch": [t * 1e3 / batches for t in epoch_s],
+                      "loader_steps_fed_ms_a_batch": fed_ms, "card": card}), flush=True)
+    print(json.dumps({"phase": "train_full_eval", "eval_seconds": eval_s, "val_plots": len(val_ids),
+                      "card": card}), flush=True)
+    print(json.dumps({"phase": "train_full_checkpoint", "write_seconds": write_s,
+                      "card": card}), flush=True)
+    print(json.dumps({"phase": "train_full_figures_skipped", "matplotlib": draws,
+                      "warnings": sorted(set(warned.messages))}), flush=True)
+
+    want_epochs = {"run_1": [1, 2], "run_2_resumed": [3], "run_3_unbroken": [1, 2, 3],
+                   "run_4_resumed_own": [3], "run_5_control_own": [3],
+                   "run_6_control_from_run_1": [3]}
+    for name, out in runs.items():
+        ts, tr, te, _ = out
+        check([d["epoch"] for d in tr] == want_epochs[name], f"train_full {name}: epochs")
+        check(ts.step == batches * want_epochs[name][-1], f"train_full {name}: step {ts.step}")
+        for d in tr:
+            check(set(d) == JAX_TRAIN_KEYS, f"train_full {name}: train keys {sorted(d)}")
+            for k in TRAIN_LOSS_KEYS:
+                check(bool(np.isfinite(d[k])), f"train_full {name}: train {k} = {d[k]}")
+        for d in te:
+            check(set(d) == JAX_EVAL_KEYS, f"train_full {name}: eval keys {sorted(d)}")
+            for k in LOSS_KEYS:
+                check(bool(np.isfinite(d[k])), f"train_full {name}: eval {k} = {d[k]}")
+    check(set(te_re) == set(LOSS_KEYS), f"train_full: reloaded eval keys {sorted(te_re)}")
+    for what, bounds in (("from_run_1", RESUME_FROM_RUN_1), ("own", RESUME_OWN)):
+        check(all(resume[what][k] <= bound for k, bound in bounds.items()),
+              f"train_full: resumed run ({what}) off the unbroken one {resume[what]}")
+        control = resume[f"control_{what}"]
+        check(any(control[k] > bound for k, bound in bounds.items()),
+              f"train_full: a resume without Adam's state ({what}) within the bounds "
+              f"{bounds}: {control}")
+    check(reload["loss"] == 0 and reload["pred"] == 0,
+          f"train_full: reloaded eval off run 1's final eval {reload}")
 
 
 def train_phases(torch, ck, cfg, device, card):
-    """Phases 9-15c. Returns the train kernels' rows and the counted launches."""
+    """Phases 9-15d. Returns the train kernels' rows and the counted launches."""
     from stratanet2_tpu_torch.learning.kde import fit_kde_mixture
     from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
     from stratanet2_tpu_torch.utils.synthetic import random_model, train_batch
@@ -1783,7 +2100,8 @@ def train_phases(torch, ck, cfg, device, card):
     compare_train_with_cpu(torch, cfg, model, kde, cloud, xyz, gt)
     serve_after_train(torch, cfg, m, cloud, xyz)
     del m, opt, sched
-    loader_steps(torch, ck, cfg, device, card)
+    prepared, fed_ms = loader_steps(torch, ck, cfg, device, card)
+    train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms)
     return rows, ref_rows, launches
 
 

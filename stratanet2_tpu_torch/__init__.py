@@ -4,9 +4,10 @@ Hopper (H100).
 The JAX package `stratanet2_tpu` stays beside this one as the reference the
 port is tested against. This package imports `torch` and numpy — never `jax`
 nor anything of `stratanet2_tpu` — and keeps its own copies of what it needs
-(config, channel plan, binning arithmetic, the host data layer and metrics).
-pandas, matplotlib and sklearn are imported only inside the functions that
-read a ground-truth CSV or draw a confusion matrix.
+(config, channel plan, binning arithmetic, the host data layer, metrics and
+the run plumbing). pandas, matplotlib and sklearn are imported only inside
+the functions that use them (reading a ground-truth CSV, the analytics
+frames, figures).
 
 Every Pallas kernel on a ported path is a CUDA C++ kernel under `ops/csrc/`,
 compiled for sm_90a at first use (`ops/_build.py`). Each kernel's wrapper in

@@ -10,9 +10,9 @@ the port must import nothing of `stratanet2_tpu`.
 Fields of the JAX ModelConfig that select between TPU paths
 (`use_pallas`, `ball_query_method`, `compute_dtype`, `knn_chunk`) have no
 counterpart: the port has one path per device, the grouped ball query, and
-float32 compute. `drop` has none either: PROD trains with drop=0.0, where
-the JAX head's dropout is the identity, so the port's train step takes no
-random generator (dropout for drop > 0 is not ported yet).
+float32 compute. `drop` is the head's dropout rate: 0.0 in PROD, where the
+dropout is the identity; above 0 the train-mode forward draws its masks
+from a `torch.Generator` the caller passes.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ class ModelConfig:
     subsample_size: int = 10000
     diam_meters: int = 20
     diam_pix: int = 20
+    drop: float = 0.0
     ratio1: float = 0.25
     r1: float = math.sqrt(2.0)
     ratio2: float = 0.25
@@ -118,7 +119,11 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
-    # plots kept in the DEV subset (data/dataset.py)
+    plot_geotiff_file: bool = False
+    log_embeddings: bool = False
+    normalize_cm: str = "true"
+    log_confusion_matrix_frequency: int = 10
+    # plots kept in the DEV subset (data/dataset.py) and drawn at every eval
     plot_name_to_visualize_during_training: Tuple[str, ...] = (
         "Releve_Lidar_F68",
         "2021_POINT_OBS66",
@@ -138,6 +143,7 @@ class Config:
                 epoch_to_start_early_stop=1,
                 patience_in_epochs=1,
             ),
+            log_confusion_matrix_frequency=1,
         )
 
 

@@ -38,10 +38,16 @@ def absolute_loss(pred_pl: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.mean(absolute_loss_by_strata(pred_pl, gt))
 
 
+def entropy_terms(proba_pointwise: torch.Tensor) -> torch.Tensor:
+    """(..., 4) class probabilities -> (..., 2) p log p + (1 - p) log(1 - p)
+    on channels 2:; the entropy loss is minus their mean."""
+    p = proba_pointwise[..., 2:]
+    return p * torch.log(p + EPS) + (1 - p) * torch.log(1 - p + EPS)
+
+
 def entropy_loss(proba_pointwise: torch.Tensor) -> torch.Tensor:
     """(..., 4) class probabilities -> scalar binary entropy on channels 2:."""
-    p = proba_pointwise[..., 2:]
-    return -torch.mean(p * torch.log(p + EPS) + (1 - p) * torch.log(1 - p + EPS))
+    return -torch.mean(entropy_terms(proba_pointwise))
 
 
 def nll_loss(
@@ -53,6 +59,18 @@ def nll_loss(
     """KDE-mixture NLL of (..., 4) probabilities at (...) altitudes in
     metres, under the prior's (G,) grid and (3, G) pdfs. Returns (loss,
     (p_all (..., 3), pdf_all (..., 3)))."""
+    log_likelihood, aux = nll_terms(proba_pointwise, z_meters, kde_grid, kde_pdfs)
+    return -torch.mean(log_likelihood), aux
+
+
+def nll_terms(
+    proba_pointwise: torch.Tensor,
+    z_meters: torch.Tensor,
+    kde_grid: torch.Tensor,
+    kde_pdfs: torch.Tensor,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The (...) floored log-likelihoods whose mean `nll_loss` negates, and
+    (p_all, pdf_all)."""
     grid_n = kde_grid.shape[0]
     table = torch.cat([kde_pdfs.T, torch.roll(kde_pdfs.T, -1, dims=0)], dim=1)  # (G, 6)
     dz = kde_grid[1] - kde_grid[0]
@@ -65,7 +83,7 @@ def nll_loss(
     p_all = torch.stack([p_ground, proba_pointwise[..., 2], proba_pointwise[..., 3]], dim=-1)
     likelihood = torch.sum(p_all * pdf_all, dim=-1)
     likelihood = torch.maximum(likelihood, likelihood.new_full((), _LIKELIHOOD_FLOOR))
-    return -torch.mean(torch.log(likelihood)), (p_all, pdf_all)
+    return torch.log(likelihood), (p_all, pdf_all)
 
 
 def total_loss(

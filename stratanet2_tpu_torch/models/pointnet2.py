@@ -35,7 +35,10 @@ gathers [x, pos] and subtracts the zero-padded centroid offset; SA2's
 pre-projects q and gathers it with `gather_rows`, whose backward is the
 scatter kernel.
 
-SA3, FP3, the MLPs and the head are plain torch in both modes.
+SA3, FP3, the MLPs and the head are plain torch in both modes. In train
+mode with `cfg.drop` > 0 the head drops units of relu(lin1) at that rate
+(pointnet2.py:380, `nn.dropout`), drawing the mask from the generator the
+caller passes; without one it raises, as JAX does without a key.
 
 Inputs follow the JAX package: `cloud` (B, N, 8) features with x, y dropped,
 `xyz` (B, N, 3) centred positions in metres. The model has 14,997
@@ -199,11 +202,18 @@ class PointNet2(nn.Module):
         self.lin2 = Linear(16, cfg.n_class + 1)
 
     def forward(
-        self, cloud: torch.Tensor, xyz: torch.Tensor
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        self,
+        cloud: torch.Tensor,
+        xyz: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        return_embeddings: bool = False,
+    ):
         """(B, N, 8) features, (B, N, 3) positions -> (coverages (B, N, 4),
-        proba (B, N, 4)). In train mode every BN normalises with batch
-        statistics and updates its running state."""
+        proba (B, N, 4)), and the (B, 64) SA3 global feature as a third
+        output if `return_embeddings` (reference `last_G_tensor`). In train
+        mode every BN normalises with batch statistics and updates its
+        running state, and the head's dropout draws from `generator` (on
+        the inputs' device)."""
         cfg = self.cfg
         x0, pos0 = cloud.float(), xyz.float()
         fps_kw = dict(
@@ -231,10 +241,30 @@ class PointNet2(nn.Module):
         h = self.fp2(torch.cat([knn_interpolate(h, pos2, pos1), x1], dim=-1))
         h = self.fp1(torch.cat([knn_interpolate(h, pos1, pos0), x0], dim=-1))
 
-        scores = self.lin2(torch.relu(self.lin1(h)))
+        h = dropout(torch.relu(self.lin1(h)), cfg.drop, self.training, generator)
+        scores = self.lin2(h)
         proba = torch.softmax(scores[..., : cfg.n_class], dim=-1)
         density = torch.sigmoid(scores[..., cfg.n_class :])
+        if return_embeddings:
+            return proba * density, proba, g
         return proba * density, proba
+
+
+def dropout(
+    x: torch.Tensor, rate: float, train: bool, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """Inverted dropout (nn.py:148-158): each unit kept with probability
+    1 - rate and scaled by 1 / (1 - rate); the identity in eval mode or at
+    rate 0."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        # a training caller that forgot its generator would otherwise train
+        # with dropout silently off
+        raise ValueError(f"dropout(rate={rate}) in train mode needs a generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 def count_params(model: nn.Module) -> int:

@@ -2,7 +2,8 @@
 
 `from_jax_params` takes the JAX `PointNet2Params` pytree as nested
 dicts/lists of arrays (`params`, `state`; e.g. after
-`jax.tree_util.tree_map(np.asarray, ...)`) and returns a loaded port model;
+`jax.tree_util.tree_map(np.asarray, ...)`) and returns a loaded port model
+(`load_jax_params` loads them into a model that exists);
 `to_jax_params` is its inverse, and `grads_to_jax` gives the parameter
 gradients in the params layout. The layouts agree leaf for leaf (Linear `w`
 is (in, out) on both sides), so every leaf maps to one tensor of the same
@@ -50,10 +51,16 @@ def from_jax_params(
 ) -> PointNet2:
     """A PointNet2 with the JAX model's weights and BN state, on `device`
     (default CUDA), in eval mode."""
+    model = load_jax_params(PointNet2(cfg), params, state)
+    return model.to(resolve_device(device)).eval()
+
+
+def load_jax_params(model: PointNet2, params: Any, state: Any) -> PointNet2:
+    """Copy the JAX model's weights and BN state into `model`, in place (its
+    device and mode unchanged), and return it."""
     leaves = _flatten(params)
     for path, value in _flatten(state).items():
         leaves[_state_name(path)] = value
-    model = PointNet2(cfg)
     targets = model.state_dict()
     unmapped = sorted(set(leaves) - set(targets))
     unset = sorted(set(targets) - set(leaves))
@@ -72,7 +79,7 @@ def from_jax_params(
             )
         loaded[name] = value
     model.load_state_dict(loaded)
-    return model.to(resolve_device(device)).eval()
+    return model
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Any:

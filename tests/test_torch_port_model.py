@@ -31,7 +31,14 @@ from stratanet2_tpu.ops import ball_query, farthest_point_sampling as jax_fps
 from stratanet2_tpu_torch.config import ModelConfig, default_config
 from stratanet2_tpu_torch.inference.predict import make_predict_step
 from stratanet2_tpu_torch.learning.kde import KdeMixture, fit_kde_mixture
-from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
+from stratanet2_tpu_torch.learning.crossval import cross_validate
+from stratanet2_tpu_torch.learning.evaluate import evaluate
+from stratanet2_tpu_torch.learning.train import (
+    make_eval_step,
+    make_optimizer,
+    make_train_step,
+    train_full,
+)
 from stratanet2_tpu_torch.models import count_params, init_pointnet2
 from stratanet2_tpu_torch.ops import ball_query_grouped, cuda_kernels as ck
 from stratanet2_tpu_torch.ops import farthest_point_sampling
@@ -253,6 +260,16 @@ def test_entry_points_need_a_card_unless_told_otherwise(monkeypatch):
     kde = KdeMixture(np.linspace(0, 1, 8, dtype=np.float32), np.ones((3, 8), np.float32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_train_step(cfg, kde)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_eval_step(cfg, kde)
+    sink = object()  # never reached: the device is resolved first
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_full({}, [], [], cfg, kde, "unused", sink, fold_id=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate(None, {}, [], cfg, kde, None, "unused", sink)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cross_validate({}, cfg, kde, "unused", sink)
     make_predict_step(cfg, device="cpu")  # the CPU when asked
     make_train_step(cfg, kde, device="cpu")
+    make_eval_step(cfg, kde, device="cpu")
 
