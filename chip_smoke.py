@@ -2,9 +2,9 @@
 """Smoke test of the PyTorch port on one CUDA card (an H100): builds the
 eleven CUDA kernels of the serve and train paths from
 `stratanet2_tpu_torch/ops/csrc/`, holds each against its plain PyTorch
-version at the shapes its path gives it, drives the serve step and the train
-step at full width (B=20 clouds x N=10000 points, random weights from a
-seed) and checks their outputs.
+version at the shapes its path gives it, drives the serve step, the train
+step, the training loop and parcel predict at full width (B=20 clouds x
+N=10000 points, random weights from a seed) and checks their outputs.
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
 
@@ -80,15 +80,23 @@ Phases, in order, each failing loudly:
      the kernels' own summation depth, which must reject a result with one
      block's partial row taken out or zeroed, and dq's scatter within the
      bound of a sum in any order; that bound, and sa_train_bwd2's dcterm
-     bound, must reject a result of zeros), times as in phase 4, library
-     calls `index_add_` and `scatter_add_`;
+     bound, must reject a result of zeros; sa_train_bwd2 also called twice
+     and equal bit for bit, its edge buffer equal to the plain version's
+     de0 and its dq equal bit for bit to `sa_train_dq_ordered_plain` of that
+     buffer, with the device time of its edge and dq passes and the edge
+     buffer's traffic), times as in phase 4, library calls `index_add_`
+     (for sa_train_bwd2, of its dq part) and `scatter_add_`;
   11b. `"phase": "launch_path"`: host microseconds a call of the two stream
      getters, of the device check and context, of the parts of a
      pixel_max_bwd call and of a whole pixel_max call;
   12. the counted train step: fps 2, ball_query 2, knn_interpolate 2,
      knn_scatter 2, pixel_max 1, pixel_max_bwd 1, sa_fused_eval 0,
-     sa_train_stats 1, sa_train_main 2, sa_train_bwd1 1, sa_train_bwd2 2;
-     loss parts and gradients finite, every parameter changed;
+     sa_train_stats 1, sa_train_main 2, sa_train_bwd1 1, sa_train_bwd2 2 (a
+     launch: its edge and dq passes); loss parts and gradients finite,
+     every parameter changed;
+  12b. `"phase": "train_step_reproducible"`: two train steps from one
+     saved state (model, Adam, schedule, batch), params, BN state and loss
+     parts equal bit for bit;
   13. train step time (median of 30 synchronised steps) and points/s;
   14. profile of the train step, as phase 7;
   15. a B=2 train step on the card against the port on the CPU: loss parts,
@@ -114,13 +122,23 @@ Phases, in order, each failing loudly:
      profile with early stopping: 2 epochs (checkpoints written, loss parts
      finite, JAX's dict keys), a resume to 3 epochs from a copy of that
      folder and one from an unbroken 3-epoch run's own epoch-2 checkpoints,
-     each against that unbroken run (RESUME_FROM_RUN_1, RESUME_OWN), the
-     same two resumes with Adam's state dropped outside those bounds, and
+     each against that unbroken run (bit for bit: RESUME_BOUND), the
+     same two resumes with Adam's state dropped outside it, and
      the best checkpoint reloaded into a fresh model and evaluated (equal to
      the run's final eval); launch counters zeroed before and checked after each
      run (train batches x the train step's, evals x EVAL_LAUNCHES); then its
      seconds an epoch, points/s, ms a batch, eval and checkpoint seconds,
      and the figures skipped for a missing module, each on a line of its own;
+  15e. `"phase": "parcel"`: parcel predict at PROD width (`parcel_phase`):
+     a synthetic 100 m parcel's LAS (140 m with its buffer, ~627,000
+     points) written, tiled and extracted (`"phase": "parcel_prepare"`,
+     with the min-z path), `predict_parcel` with chains 8 and 1 for both
+     tasks (equal bit for bit, launches counted for every batch the card
+     ran), the shapefile update, plots/s end to end with its split (cold
+     and warm), the device busy share of the predict loop and the upload
+     from pageable against pinned memory; then `"phase":
+     "parcel_cpu_reference"`, 4 plots as one batch on the card against the
+     CPU (merged tif and PRED_* fields within CPU_ATOL);
   16. `"phase": "selection_floor"`, for sa_fused_eval and knn_interpolate
      (serve step) and ball_query (train step): the SASS instructions a pair
      of the scan loop (cuobjdump of the built library; for kNN also on the
@@ -136,8 +154,8 @@ Phases, in order, each failing loudly:
      slot loop, its registers, the train step's slots and the issue floor,
      slots x SASS an edge / (132 SMs x 4 schedulers x the maximum SM clock);
      then `"phase": "atomics"`: the global RED/ATOM instructions in the SASS
-     of knn_scatter_kernel and pixel_max_kernel (must be 0: both write each
-     output element once) and their registers, stack and spills;
+     of the kernels of ATOMIC_FREE (must be 0: each writes every output
+     element once) and their registers, stack and spills;
   17. the `{"reference_sites": [...]}` line (phase 10's sites and the
      synthetic FPS, selection, SA train, pixel-max and scatter sites, apart
      from the per-step rows), the `{"kernels": [...]}` line (all eleven) and the
@@ -227,12 +245,20 @@ PHASE10_SITES = {"knn_scatter": 1, "sa_train_stats": 1, "sa_train_main": 2,
 # integer-valued rows and an integer cterm, so h ties across the slots of a
 # centroid and the first winning slot must be taken; K = 31 and 61 are
 # multiples of no slot batch tried (2, 4, 8, 16), so the last batch is cut;
-# 40% of the slots masked at random, so masked slots fall inside batches,
-# and every 5th centroid has no valid slot at all (vmax -3.4e38, amax 0);
-# B x C leaves the last block of groups partial
+# slot j's ids drawn from group j (the ceil(N/K) points from j ceil(N/K)),
+# as the grouped selection picks them, ~10 valid picks a point (the SA2 site's
+# last group is empty and its slot always masked, as the selection masks
+# it); 40% of the slots masked at random, so masked slots fall inside
+# batches, and every 5th centroid has no valid slot at all (vmax -3.4e38,
+# amax 0); B x C leaves the last block of groups partial
 SA_TRAIN_REFERENCE = ((4, 2000, 1203, 31, 16), (4, 1200, 301, 61, 32))
 SA_TRAIN_REF_SITES = {"sa_train_stats": 1, "sa_train_main": 2, "sa_train_bwd1": 1,
                       "sa_train_bwd2": 2}
+# (kernel, library) of the kernels whose SASS must hold no global atomic
+# (phase 16): each writes every output element once, so two runs give the
+# same bits
+ATOMIC_FREE = (("knn_scatter_kernel", "knn_scatter"), ("pixel_max_kernel", "pixel_max"),
+               ("sa_train_bwd2_kernel", "sa_train"), ("sa_train_dq_kernel", "sa_train"))
 # csrc/sa_train.cu's passes that take their slots in batches, by (kernel, C1)
 EDGE_LOOP_INSTANCES = (("sa_train_stats", 16), ("sa_train_main", 16), ("sa_train_main", 32),
                        ("sa_train_bwd1", 16), ("sa_train_bwd2", 16), ("sa_train_bwd2", 32))
@@ -290,8 +316,8 @@ SA_ATOL = 1e-4  # layer-2 dot: FMA contraction and summation order differ
 # is within rounding can be another slot on each side, moving that output's
 # whole cotangent to another point (x's gradient is per point), as a ReLU
 # flip does in the step. The inputs are fixed by the seed and both sides are
-# deterministic but for dq's atomics; measured at most 3.9e-3 on an H100
-# with phase 10's random running means (1.1e-3 with zero shifts).
+# deterministic; measured at most 3.9e-3 on an H100 with phase 10's random
+# running means (1.1e-3 with zero shifts).
 FUSED_OUT_RTOL, FUSED_OUT_ATOL, FUSED_GRAD_RTOL = 1e-3, 1e-4, 1e-2
 KNN_ATOL = 1e-5  # kernel and plain round alike (fma chains): expected 0
 CPU_ATOL = 1e-5  # CPU vs card: MKL vs cuBLAS float32 rounding; picks identical
@@ -327,33 +353,29 @@ JAX_TRAIN_KEYS = {"total_loss", "MAE_loss", "log_loss", "entropy_loss", "step",
                   "points_per_sec", "epoch", "epoch_seconds"}
 JAX_EVAL_KEYS = {"total_loss", "MAE_loss", "log_loss", "MAE_veg_b", "MAE_veg_moy", "MAE_veg_h",
                  "epoch", "step"}
-# Resumed vs unbroken runs (phase 15d). Not bit for bit: sa_train_bwd2
-# scatters dq with float atomics (csrc/sa_train.cu), so two runs of the same
-# steps differ in the last bits of SA2's input gradient from the first step
-# on, and Adam, which divides by the root of each second moment, turns a
-# gradient within rounding of 0 into an update of up to lr either way. Two
-# comparisons, each a (loss parts and plot predictions, params: every
-# element and the median, BN running state: relative to max(|value|, 1))
-# bound, and each with a control: the same resume from a `.resume` file
-# whose Adam state is dropped (count and moments zeroed), which must fall
-# outside the bound. Readings on an NVIDIA H100 80GB HBM3 at 700 W, the
-# resumes in six runs, the controls in one:
-# - RESUME_FROM_RUN_1: a run resumed at epoch 3 from another 2-epoch run
-#   against an unbroken 3-epoch run (12 steps apart). Resume: losses and
-#   predictions 1.8e-4..4.4e-4, params 1.5e-3..8.9e-3, median
-#   1.9e-5..4.7e-5, BN state 4.5e-3..0.030. Control: losses 6.9e-3,
-#   params 5.8e-3, median 1.04e-3, BN state 0.17. The losses' bound is 4.5x
-#   the resume's largest and 3.5x below the control, the median's 4.2x and
-#   5.2x, BN state's 3.3x and 1.7x; params' 2.2x holds no control out (the
-#   two runs' noise reaches the size of lr).
-# - RESUME_OWN: a run resumed at epoch 3 from the unbroken run's own
-#   epoch-2 checkpoints against that run (4 steps apart). Resume: losses
-#   2.4e-7..3.8e-6, params 2.2e-6..1.5e-4, median 2.2e-8..2.7e-7, BN state
-#   2.5e-6..5.5e-5 (four runs). Control: losses 7.5e-3, params 6.0e-3,
-#   median 1.08e-3, BN state 0.19: each bound 13-74x the resume's largest
-#   and 3-190x below the control.
-RESUME_FROM_RUN_1 = {"loss": 2e-3, "param_max": 2e-2, "param_median": 2e-4, "bn_rel": 0.1}
-RESUME_OWN = {"loss": 1e-4, "param_max": 2e-3, "param_median": 2e-5, "bn_rel": 1e-3}
+# Resumed vs unbroken runs (phase 15d), each against the unbroken 3-epoch
+# run: one resumed at epoch 3 from another 2-epoch run's files (12 steps
+# apart) and one from the unbroken run's own epoch-2 files (4 steps apart).
+# Both bit for bit, as every sum of the train step has one order (phase
+# 12b): loss parts and plot predictions, params (every element and the
+# median) and BN running state (relative to max(|value|, 1)) all 0. Each has
+# a control, the same resume from a `.resume` file whose Adam state is
+# dropped (count and moments zeroed), which must fall outside: on an NVIDIA
+# H100 80GB HBM3 at 700 W the controls moved the losses by 7.0e-3, the
+# params by 5.8e-3 (median 1.04e-3) and BN state by 0.19.
+RESUME_BOUND = {"loss": 0.0, "param_max": 0.0, "param_median": 0.0, "bn_rel": 0.0}
+# phase 15e (parcel): a square parcel of PARCEL_SIZE m whose LAS covers it and
+# the 20 m buffer of tiling.LAS_PARCEL_BUFFER (140 m x 140 m), at
+# PARCEL_DENSITY points a square metre, so that a 10 m-radius plot holds about
+# 10,000 points (PROD's subsample), ~627,000 points in all; its lower-left
+# corner at PARCEL_ORIGIN, Lambert-93 metres. The card-vs-CPU check takes
+# PARCEL_CPU_PLOTS of its plots as one batch.
+PARCEL_SIZE, PARCEL_DENSITY = 100.0, 32.0
+PARCEL_ORIGIN = (650_000.0, 6_860_000.0)
+PARCEL_CPU_PLOTS = 4
+# warm runs of the chain-8 inference, the port's (batches from pageable
+# memory) and with a pinned, non-blocking upload, in turns
+PARCEL_UPLOADS = ("pageable", "pinned", "pinned", "pageable", "pageable", "pinned")
 SEED = 0
 STEPS = 30  # timed steps; the median is reported
 PROFILE_STEPS = 10
@@ -367,7 +389,8 @@ DEVICE_KERNELS = {"fps": ("fps_kernel",), "sa_fused_eval": ("sa_kernel",),
                   "pixel_max": ("pixel_max_kernel",),
                   "ball_query": ("ball_query_kernel",), "knn_scatter": ("knn_scatter_kernel",),
                   "pixel_max_bwd": ("pixel_max_bwd_kernel",),
-                  **{name: (f"{name}_kernel",) for name in SA_TRAIN}}
+                  **{name: (f"{name}_kernel",) for name in SA_TRAIN},
+                  "sa_train_bwd2": ("sa_train_bwd2_kernel", "sa_train_dq_kernel")}
 
 
 def fail(msg: str) -> None:
@@ -791,9 +814,9 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
     (`common_per_pair`), beside the whole loop's. Then the slot loop of
     every SA train instance (`sass_edge_loops`): SASS instructions,
     SHFLs and FP32 instructions an edge, and its issue floor over the train
-    step's slots. Then the global atomics of knn_scatter_kernel and
-    pixel_max_kernel, which must have none. Each kernel's registers, stack
-    and spills (cuobjdump -res-usage)."""
+    step's slots. Then the global atomics of the kernels of ATOMIC_FREE,
+    which must have none. Each kernel's registers, stack and spills
+    (cuobjdump -res-usage)."""
     from pathlib import Path
 
     from stratanet2_tpu_torch.ops import _build
@@ -841,10 +864,9 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
                           "sm_clock_max_mhz": clock_mhz,
                           "issue_floor_ms": slots * loop["per_edge"] / (132 * 4 * clock_mhz * 1e6) * 1e3,
                           "kernel_ms": row["ms"], "kernel_bound_ms": row["bound_ms"]}), flush=True)
-    for name in ("knn_scatter", "pixel_max"):
-        kernel = DEVICE_KERNELS[name][0]
-        counts = global_atomics(dump(name, "-sass"), kernel)
-        res = resources(name)
+    for kernel, library in ATOMIC_FREE:
+        counts = global_atomics(dump(library, "-sass"), kernel)
+        res = resources(library)
         print(json.dumps({"phase": "atomics", "kernel": kernel, "global_atomics": counts,
                           "resource_usage": {f: res.get(f) for f in counts}}), flush=True)
         check_no_atomics(counts, kernel)
@@ -1158,20 +1180,71 @@ def compare_sa_train_site(torch, ck, name, site, args, got, want):
         cnt.index_add_(0, flat, m.reshape(-1).double())
         held("dq", got[0].reshape(-1, ch1), want[0].reshape(-1, ch1), absum, at=cnt[:, None])
         held("dcterm", got[1], want[1], de0.double().abs().sum(2), at=k)
+        # what the function must move: awin and gt read, dq and dcterm
+        # written. Its edge buffer is a cost of the design, not of the
+        # function, and is reported beside the bound (bwd2_dq_checks).
+        # Operations a valid edge: the forward, BN2's backward and the
+        # transposed product with two layers, BN1's backward, dcterm's and
+        # dq's adds
         nbytes += 8.0 * b * c * ch2 + 4.0 * (b * n * ch1 + b * c * ch1)
-        ops = valid * (fwd_ops + (11 * ch2 + 2 * ch1 * ch2 if w2 is not None else ch1) + 9 * ch1)
+        ops = valid * (fwd_ops + (11 * ch2 + 2 * ch1 * ch2 if w2 is not None else ch1) + 10 * ch1)
     print(json.dumps({"kernel": name, "site": site, "sum_depth": depth,
                       "sums_worst_bound_ratio": max(ratios)}), flush=True)
     shape = f"B={b} N={n} C={c} K={k} C1={ch1} C2={ch2} valid_edges={int(valid)}"
     return shape, nbytes, float(ops), max(errs)
 
 
+def bwd2_dq_checks(torch, ck, site, args, got):
+    """sa_train_bwd2's dq at one call site: a second call, which also
+    returns the edge buffer of de0, must give dq and dcterm bit for bit;
+    the buffer must equal the plain version's per-edge de0 (0 on a masked
+    slot), and dq must equal bit for bit `sa_train_dq_ordered_plain` of that
+    buffer, the dq pass's order of sums. Prints the device time a launch of
+    the edge pass and of the dq pass and the edge buffer's bytes (written
+    once, its valid rows read once) with their time at the HBM rate: a cost
+    of the design that the bound of the function leaves out. Returns the
+    time of the library call for the dq part, `index_add_` of the buffer
+    into dq, and those figures."""
+    where = f"sa_train_bwd2 site {site}"
+    again = ck.sa_train_bwd2(*args, edges=True)
+    for what, g, a in zip(("dq", "dcterm"), got, again):
+        check(torch.equal(g.view(torch.int32), a.view(torch.int32)),
+              f"{where}: two calls differ in {what}")
+    de = again[2]
+    q, cterm, eidx, mask, aff, w2, awin, gt = args
+    b, c, k = eidx.shape
+    n, ch1 = q.shape[1], q.shape[2]
+    want_de = ck.sa_train_edges(q, cterm, eidx, mask, aff, w2, awin, gt)["de0"]
+    check(torch.equal(de, want_de.reshape(de.shape)), f"{where}: the edge buffer differs from "
+          f"the plain de0 ({int((de != want_de.reshape(de.shape)).sum())} elements)")
+    ordered = ck.sa_train_dq_ordered_plain(de, eidx, mask, n)
+    differ = int((got[0].view(torch.int32) != ordered.view(torch.int32)).sum())
+    check(differ == 0, f"{where}: dq differs from the ordered plain in {differ} elements")
+    flat = (eidx.long() + (torch.arange(b, device=q.device) * n)[:, None, None]).reshape(-1)
+    lib_out = torch.zeros((b * n, ch1), device=q.device)
+    lib_ms = cuda_ms(torch, lambda: lib_out.zero_().index_add_(0, flat, de.reshape(-1, ch1)),
+                     20)  # masked slots add their exact 0 to point 0
+    parts = {}
+    for part, kernel in (("edge_pass", "sa_train_bwd2_kernel"), ("dq_pass", "sa_train_dq_kernel")):
+        ms, launches, dev_ops = device_profile(torch, lambda: ck.sa_train_bwd2(*args), (kernel,))
+        check(launches > 0, f"{where}: the profiler saw no {kernel}")
+        parts[f"{part}_device_ms"] = ms
+    buffer_bytes = 4.0 * b * c * k * ch1 + 4.0 * float(mask.sum()) * ch1
+    parts.update(edge_buffer_bytes=buffer_bytes,
+                 edge_buffer_hbm_ms=buffer_bytes / HBM_BYTES_PER_S * 1e3)
+    print(json.dumps({"kernel": "sa_train_bwd2", "site": site, "library": "index_add_ (dq)",
+                      "profiled_device_ops": dev_ops, **parts}), flush=True)
+    return lib_ms, parts
+
+
 def compare_train_kernels(torch, ck, captured):
     """Phase 11: the train kernels against their plain versions at each
     call site of the train step, then at phase 10's reference sites.
     Returns the per-step rows (train-step sites only) and the rows of the
-    reference sites."""
+    reference sites. Prints sa_train_bwd2's edge and dq passes and edge
+    buffer summed over the train step's sites."""
     rows, ref_rows = {}, {}
+    bwd2_parts = {}
     for name, _src, _rep in TRAIN_KERNELS:
         kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
         calls = captured[name]
@@ -1203,6 +1276,11 @@ def compare_train_kernels(torch, ck, captured):
                     shape += f" cloud={KNN_SCATTER_REFERENCE[ref][0]}"
             elif name in SA_TRAIN:
                 got, want = kernel(*args), plain(*args)
+                if name == "sa_train_bwd2":
+                    lib_ms, parts = bwd2_dq_checks(torch, ck, site, args, got)
+                    if site < n_step:
+                        for key, v in parts.items():
+                            bwd2_parts[key] = bwd2_parts.get(key, 0.0) + v
                 shape, nbytes, ops, err = compare_sa_train_site(torch, ck, name, site, args,
                                                                 got, want)
                 b, c, k = args[2].shape
@@ -1234,6 +1312,7 @@ def compare_train_kernels(torch, ck, captured):
         rows[name] = finish_agg(agg)
         if name in REFERENCE_SITES:
             ref_rows[name] = finish_agg(ref_agg)
+    print(json.dumps({"kernel": "sa_train_bwd2", "train_step_parts": bwd2_parts}), flush=True)
     return rows, ref_rows
 
 
@@ -1272,8 +1351,12 @@ def sa_train_reference_calls(torch, ck, device):
         two = ch == 16
         q = ints(-2, 3, 8, ch)[torch.randint(0, 8, (b, n), generator=gen, device=device)]
         cterm = ints(-1, 2, b, c, ch)
-        idx = torch.randint(0, n, (b, c, k), generator=gen, device=device, dtype=torch.int32)
-        mask = torch.rand((b, c, k), generator=gen, device=device) < 0.6
+        g = -(-n // k)
+        lo = torch.arange(k, device=device) * g
+        size = (n - lo).clamp(0, g)  # the groups' points
+        pick = (torch.rand((b, c, k), generator=gen, device=device) * size).long()
+        idx = torch.where(size > 0, lo + pick, 0).int()
+        mask = (torch.rand((b, c, k), generator=gen, device=device) < 0.6) & (size > 0)
         mask.view(b * c, k)[::5] = False
         positive = ("a1", "gos2", "inv_s2", "inv_s1", "gos1")
         aff = ck.sa_aff(ch, **{row: (draw(ch, scale=0.25, shift=1.0) if row in positive
@@ -1789,15 +1872,14 @@ def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
     4. `resume=True` with n_epoch=3 from run 3's copied checkpoints;
     5. and 6., the controls: runs 4 and 2 again, each from a `.resume`
        file whose Adam state is dropped (`drop_adam_state`);
-    run 2 against run 3 within RESUME_FROM_RUN_1 and run 4 against run 3
-    within RESUME_OWN (epoch 3's train and eval losses, the final eval, its
-    plot predictions, params and BN state), and each control outside its
-    comparison's bound, so that the bound tells a resume that loses the
-    optimizer from one that keeps it; then the reload:
-    `load_checkpoint` of run 1's best file into a fresh model and
-    `evaluate`, equal to run 1's final eval bit for bit (the eval path has
-    no atomics). Prints the seconds an epoch, points/s, ms a batch (beside
-    phase 15c's fed ms a batch), the seconds of an eval and of a checkpoint
+    run 2 and run 4 against run 3 within RESUME_BOUND, bit for bit
+    (epoch 3's train and eval losses, the final eval, its plot predictions,
+    params and BN state), and each control outside it, so that the check
+    tells a resume that loses the optimizer from one that keeps it; then
+    the reload: `load_checkpoint` of run 1's best file into a fresh model
+    and `evaluate`, equal to run 1's final eval bit for bit. Prints the
+    seconds an epoch, points/s, ms a batch (beside phase 15c's fed ms a
+    batch), the seconds of an eval and of a checkpoint
     write (timed by `utils.profiling.Phase`), and the figures skipped for a
     missing module."""
     import importlib.util
@@ -2009,7 +2091,7 @@ def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
             for k in LOSS_KEYS:
                 check(bool(np.isfinite(d[k])), f"train_full {name}: eval {k} = {d[k]}")
     check(set(te_re) == set(LOSS_KEYS), f"train_full: reloaded eval keys {sorted(te_re)}")
-    for what, bounds in (("from_run_1", RESUME_FROM_RUN_1), ("own", RESUME_OWN)):
+    for what, bounds in (("from_run_1", RESUME_BOUND), ("own", RESUME_BOUND)):
         check(all(resume[what][k] <= bound for k, bound in bounds.items()),
               f"train_full: resumed run ({what}) off the unbroken one {resume[what]}")
         control = resume[f"control_{what}"]
@@ -2018,6 +2100,269 @@ def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
               f"{bounds}: {control}")
     check(reload["loss"] == 0 and reload["pred"] == 0,
           f"train_full: reloaded eval off run 1's final eval {reload}")
+
+
+def device_busy_ms(torch, fn):
+    """fn() once under torch.profiler: its result and the device time (ms)
+    of every device operation it ran (kernels, copies, memsets)."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False))
+    return out, busy / 1e3
+
+
+def parcel_phase(torch, ck, cfg, device, card):
+    """Phase 15e: parcel predict, what the system is for, at PROD width.
+    Prepare: a synthetic parcel's LAS (PARCEL_SIZE, PARCEL_DENSITY) written,
+    then read, tiled and its plots extracted (`inference/tiling.py`), timed.
+    Predict: `predict_parcel` with the random serve model, the inference
+    task with the default chain (8, its last chain shorter) and with chain
+    1, and the pseudo_labelling task with both: the merged tifs and the
+    pseudo-label sets of the two chains must be equal bit for bit; launch
+    counters zeroed before and checked after each run (batches x the serve
+    step's launches); the tif has the 6 bands, values in [0, 1], NaN outside the
+    parcel; then `update_shapefile_with_predictions` (PRED_* in [0, 1]).
+    Prints plots/s end to end and its split into prepare, predict (loader
+    and steps: `predict_parcel` less its merge) and merge + shapefile, for
+    the process's first parcel ("cold": the first merge imports scipy) and
+    for the median of the later chain-8 inference runs of the port
+    ("warm"); the device busy share of the predict loop (busy time from a
+    profiled chain-8 run over the warm loop time); and the warm runs with
+    the batches uploaded as the port does (pageable memory) and from pinned
+    memory without blocking, in the turns of PARCEL_UPLOADS. Card against
+    CPU: PARCEL_CPU_PLOTS plots as one batch (chain 1), merged tif and
+    PRED_* fields within CPU_ATOL, NaN in the same places."""
+    import os
+    import pickle
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+
+    from stratanet2_tpu_torch.data import las, transforms
+    from stratanet2_tpu_torch.data.dataset import get_index_sorted_plot_ids
+    from stratanet2_tpu_torch.inference import (
+        geotiff,
+        polygons,
+        predict,
+        rasters,
+        shapefile_io,
+        tiling,
+    )
+    from stratanet2_tpu_torch.utils.synthetic import (
+        cloud_to_las_fields,
+        make_parcel_cloud,
+        random_model,
+    )
+
+    rng = np.random.default_rng(SEED + 16)
+    x0, y0 = PARCEL_ORIGIN
+    size, buf = PARCEL_SIZE, tiling.LAS_PARCEL_BUFFER
+    ring = np.array([[x0, y0], [x0 + size, y0], [x0 + size, y0 + size], [x0, y0 + size]])
+    shape = polygons.Polygon([ring])
+    model = random_model(cfg.model, SEED, device)
+    b = cfg.train.batch_size
+    parcel_id = "PARCEL_000"
+
+    def bits(a):
+        return np.ascontiguousarray(a).view(np.uint32)
+
+    def write_input_shapefile(path):
+        shapefile_io.write_shapefile(path, shapefile_io.Shapefile(
+            fields=[shapefile_io.FieldSpec("ID", "C", 16)],
+            shape_records=[shapefile_io.ShapeRecord(shape, {"ID": parcel_id})]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        las_path = os.path.join(tmp, f"{parcel_id}.las")
+        t0 = time.perf_counter()
+        cloud = make_parcel_cloud(rng, (x0 - buf, y0 - buf), size + 2 * buf, PARCEL_DENSITY)
+        las.write_las(las_path, cloud_to_las_fields(cloud))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        centers, parcel_cloud = tiling.divide_parcel_las_and_get_disk_centers(cfg, las_path, shape)
+        plots = tiling.extract_plots_from_parcel(cfg, parcel_cloud, centers)
+        prepare_s = time.perf_counter() - t0
+        check(len(plots) > 0, "parcel: no plot extracted")
+        points = [p["N_points_in_cloud"] for p in plots.values()]
+        print(json.dumps({"phase": "parcel_prepare", "las_points": int(cloud.shape[1]),
+                          "las_write_seconds": write_s, "prepare_seconds": prepare_s,
+                          "centers": len(centers), "plots": len(plots),
+                          "points_a_plot": [min(points), float(np.median(points)), max(points)],
+                          "min_z_path": transforms.min_z_path(), "card": card}), flush=True)
+
+        shp_in = os.path.join(tmp, "input", "parcels.shp")
+        write_input_shapefile(shp_in)
+        runs = {}
+
+        def run(name, chain, task, data=plots, run_cfg=cfg, on=device, net=model):
+            """One predict_parcel: (output path, seconds, merge seconds),
+            launches checked."""
+            out_dir = os.path.join(tmp, name)
+            c = replace(run_cfg, data=replace(run_cfg.data, predict_chain=chain))
+            data = {k: dict(v) for k, v in data.items()}
+            n = len(predict.filter_dataset(data, task == "pseudo_labelling",
+                                           c.data.min_points_for_pseudo_labelling))
+            batches = -(-n // c.train.batch_size)
+            merge_s = []
+            real_merge = predict.merge_geotiff_rasters
+
+            def timed_merge(*args, **kw):
+                t = time.perf_counter()
+                try:
+                    return real_merge(*args, **kw)
+                finally:
+                    merge_s.append(time.perf_counter() - t)
+
+            predict.merge_geotiff_rasters = timed_merge
+            ck.reset_launches()
+            try:
+                if on.type == "cuda":
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                path = predict.predict_parcel(net, data, c, parcel_id, out_dir, task=task,
+                                              parcel_shape=shape, device=on)
+                if on.type == "cuda":
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t
+            finally:
+                predict.merge_geotiff_rasters = real_merge
+            want = {k: (batches * v if on.type == "cuda" else 0)
+                    for k, v in SERVE_LAUNCHES.items()}
+            check_launches(ck.launch_counts(), want, f"parcel_{name}")
+            check(path is not None and os.path.exists(path), f"parcel {name}: no output")
+            runs[name] = {"chain": chain, "task": task, "plots": n, "batches": batches,
+                          "seconds": seconds, "merge_seconds": sum(merge_s)}
+            return path, seconds, sum(merge_s)
+
+        tif8, s8, merge8 = run("inference_chain_8", 8, "inference")
+        tif1 = run("inference_chain_1", 1, "inference")[0]
+        pkl8 = run("pseudo_chain_8", 8, "pseudo_labelling")[0]
+        pkl1 = run("pseudo_chain_1", 1, "pseudo_labelling")[0]
+        t = time.perf_counter()
+        out_shp = predict.update_shapefile_with_predictions(shp_in, os.path.dirname(tif8))
+        shapefile_s = time.perf_counter() - t
+
+        got8, got1 = geotiff.read_geotiff(tif8), geotiff.read_geotiff(tif1)
+        check(got8.band_names == rasters.FINAL_RASTER_BANDNAMES, "parcel: tif bands")
+        check(np.array_equal(bits(got8.bands), bits(got1.bands)),
+              "parcel: the merged tifs of chain 8 and chain 1 differ")
+        filled = got8.bands[:5][~np.isnan(got8.bands[:5])]
+        check(filled.size > 0 and bool(((filled >= 0) & (filled <= 1)).all()),
+              "parcel: band values outside [0, 1]")
+        g = got8.geotransform
+        h, w = got8.bands.shape[1:]
+        outside = ~shape.contains_grid(g[0] + (np.arange(w) + 0.5) * g[1],
+                                       g[3] + (np.arange(h) + 0.5) * g[5])
+        check(bool(outside.any()) and bool(np.isnan(got8.bands[:, outside]).all()),
+              "parcel: pixels outside the parcel are not NaN")
+        with open(pkl8, "rb") as f8, open(pkl1, "rb") as f1:
+            lab8, lab1 = pickle.load(f8), pickle.load(f1)
+        check(list(lab8) == list(lab1) and len(lab8) == runs["pseudo_chain_8"]["plots"],
+              "parcel: pseudo-labelled plots differ")
+        check(all(np.array_equal(bits(lab8[k]["coverages"]), bits(lab1[k]["coverages"]))
+                  for k in lab8), "parcel: pseudo-labels of chain 8 and chain 1 differ")
+        check(not [f for d in (os.path.dirname(pkl8), os.path.dirname(pkl1))
+                   for f in os.listdir(d) if f.endswith(".tmp")], "parcel: a .tmp file left")
+        record = shapefile_io.read_shapefile(out_shp).shape_records[0].record
+        fields = {k: record[k] for k in ("PRED_BASSE", "PRED_INTER", "PRED_HAUTE", "PRED_ADM")}
+        check(all(0 <= v <= 1 for v in fields.values()), f"parcel: PRED fields {fields}")
+
+        # the device's busy time in a profiled chain-8 run, and the warm runs
+        # with the port's upload and with a pinned one, in turns
+        (_, busy_ms) = device_busy_ms(torch, lambda: run("inference_profiled", 8, "inference"))
+        real_step = predict.make_predict_step
+
+        def pinned_step(step_cfg, step_device=None):
+            """The serve step given its batches from pinned memory, copied
+            without blocking the host."""
+            step = real_step(step_cfg, step_device)
+
+            def pinned(net, *arrays):
+                return step(net, *(torch.as_tensor(a).pin_memory().to(device, non_blocking=True)
+                                   for a in arrays))
+
+            return pinned
+
+        upload = {"pageable": [], "pinned": []}
+        for i, kind in enumerate(PARCEL_UPLOADS):
+            if kind == "pinned":
+                predict.make_predict_step = pinned_step
+            try:
+                upload[kind].append(run(f"upload_{kind}_{i}", 8, "inference")[1:3])
+            finally:
+                predict.make_predict_step = real_step
+
+        # card against CPU: PARCEL_CPU_PLOTS plots as one batch
+        ids = get_index_sorted_plot_ids(plots)[:PARCEL_CPU_PLOTS]
+        corner = {k: plots[k] for k in ids}
+        one_batch = replace(cfg, train=replace(cfg.train, batch_size=len(corner)))
+        cpu_model = copy.deepcopy(model).cpu()
+        sides = {}
+        for side, on, net in (("card", device, model), ("cpu", torch.device("cpu"), cpu_model)):
+            path = run(f"corner_{side}", 1, "inference", corner, one_batch, on, net)[0]
+            shp_side = os.path.join(os.path.dirname(path), "input", "parcels.shp")
+            write_input_shapefile(shp_side)
+            rec = shapefile_io.read_shapefile(predict.update_shapefile_with_predictions(
+                shp_side, os.path.dirname(path))).shape_records[0].record
+            sides[side] = (geotiff.read_geotiff(path).bands,
+                           np.array([rec[k] for k in fields], np.float64))
+        (card_tif, card_pred), (cpu_tif, cpu_pred) = sides["card"], sides["cpu"]
+        check(card_tif.shape == cpu_tif.shape and np.array_equal(np.isnan(card_tif),
+                                                                   np.isnan(cpu_tif)),
+              "parcel corner: card and CPU tifs differ in shape or NaN pattern")
+        tif_err = float(np.nan_to_num(np.abs(card_tif - cpu_tif)).max())
+        pred_err = float(np.abs(card_pred - cpu_pred).max())
+
+    n = len(plots)
+    warm_loop = float(np.median([t - m for t, m in upload["pageable"]]))
+    warm_merge = float(np.median([m for _, m in upload["pageable"]]))
+    split = {"cold": {"prepare": prepare_s, "predict": s8 - merge8,
+                      "merge_and_shapefile": merge8 + shapefile_s},
+             "warm": {"prepare": prepare_s, "predict": warm_loop,
+                      "merge_and_shapefile": warm_merge + shapefile_s}}
+    print(json.dumps({"phase": "parcel", "plots": n, "B": b, "N": cfg.model.subsample_size,
+                      "runs": runs, "split_seconds": split,
+                      "plots_per_s": {k: n / sum(v.values()) for k, v in split.items()},
+                      "predict_plots_per_s": {k: n / v["predict"] for k, v in split.items()},
+                      "device_busy_ms": busy_ms, "device_busy_share": busy_ms / 1e3 / warm_loop,
+                      "upload_seconds": {k: [t for t, _ in v] for k, v in upload.items()},
+                      "pred_fields": fields, "min_z_path": transforms.min_z_path(),
+                      "card": card}), flush=True)
+    print(json.dumps({"phase": "parcel_cpu_reference", "plots": len(corner),
+                      "tif_max_abs_diff": tif_err, "pred_fields_max_abs_diff": pred_err,
+                      "atol": CPU_ATOL}), flush=True)
+    check(max(tif_err, pred_err) <= CPU_ATOL,
+          f"parcel corner: card and CPU differ by {max(tif_err, pred_err)}")
+
+
+def reproducible_steps(torch, cfg, step, model, opt, sched, batch):
+    """Phase 12b: two train steps from one saved state (the model's params
+    and BN state, Adam's moments and count, the schedule) on one batch must
+    give the same params, BN state and loss parts bit for bit: no operation
+    of the step sums in an order that changes from run to run."""
+    from stratanet2_tpu_torch.learning.train import make_optimizer
+
+    saved = [copy.deepcopy(x.state_dict()) for x in (model, opt, sched)]
+    runs = []
+    for _ in range(2):
+        m = copy.deepcopy(model)
+        o, s = make_optimizer(cfg, m, STEPS_PER_EPOCH)
+        for x, state in zip((m, o, s), saved):
+            x.load_state_dict(copy.deepcopy(state))
+        comps = step(m, o, s, *batch)
+        runs.append({**{f"loss:{k}": v.detach() for k, v in comps.items()},
+                     **{f"param:{k}": v.detach() for k, v in m.named_parameters()},
+                     **{f"state:{k}": v for k, v in m.named_buffers()}})
+    torch.cuda.synchronize()
+    differ = sorted(k for k, v in runs[0].items()
+                    if not torch.equal(v.view(torch.int32), runs[1][k].view(torch.int32)))
+    print(json.dumps({"phase": "train_step_reproducible", "tensors": len(runs[0]),
+                      "differ": differ}), flush=True)
+    check(not differ, f"two train steps from one state differ in {differ}")
 
 
 def train_phases(torch, ck, cfg, device, card):
@@ -2087,6 +2432,7 @@ def train_phases(torch, ck, cfg, device, card):
         check(prm.grad is not None and bool(torch.isfinite(prm.grad).all()),
               f"gradient of {name} missing or not finite")
         check(not torch.equal(prm.detach(), before[name]), f"{name} did not change")
+    reproducible_steps(torch, cfg, step, m, opt, sched, (cloud, xyz, gt))
 
     # phase 13: train step time
     step_ms, times = timed_steps(torch, lambda: step(m, opt, sched, cloud, xyz, gt))
@@ -2137,6 +2483,7 @@ def main() -> int:
     cfg = default_config()
     serve_rows, serve_ref_rows, serve_launches = serve_phases(torch, ck, cfg, device, card)
     train_rows, ref_rows, train_launches = train_phases(torch, ck, cfg, device, card)
+    parcel_phase(torch, ck, cfg, device, card)
     ref_rows.update(serve_ref_rows)
     scan_floor(torch, ck, libs, clock_mhz, {**serve_rows, **train_rows})
 

@@ -288,23 +288,37 @@ def run_bwd1(torch, ck, libs, gen, device):
 
 
 def run_bwd2(torch, ck, libs, gen, device):
+    """The edge pass and the dq pass of one `sa_train_bwd2_launch`: dq and
+    dcterm against the plain version, the edge buffer against the plain
+    de0, dq bit for bit against `sa_train_dq_ordered_plain` of the buffer
+    and two launches against each other, the CUDA-event ms of a launch and
+    the device ms of each pass."""
     stream = torch._C._cuda_getCurrentRawStream(0)
     for site, b, n, c, k, ch, args in sa_sites(torch, ck, gen, device):
         want_dq, want_dct = ck.sa_train_bwd2_plain(*args)
+        want_de = ck.sa_train_edges(*args)["de0"].reshape(b, c * k, ch)
         grid = ck.sa_grid(b, c, ch)
         for src, lib in libs.items():
-            fn = entry(lib, "sa_train_bwd2_launch", 10, 7)
+            fn = entry(lib, "sa_train_bwd2_launch", 11, 7)
+            de = torch.empty((b, c * k, ch), device=device)
             dq = torch.empty((b, n, ch), device=device)
             dct = torch.empty((b, c, ch), device=device)
-            cargs = ptrs(args) + [dq.data_ptr(), dct.data_ptr(), grid, b, n, c, k, ch,
-                                  int(ch == 16), stream]
+            cargs = ptrs(args) + [de.data_ptr(), dq.data_ptr(), dct.data_ptr(), grid, b, n, c,
+                                  k, ch, int(ch == 16), stream]
             rc = fn(*cargs)
             torch.cuda.synchronize()
-            print(json.dumps({
-                "source": str(src), "kernel": "sa_train_bwd2", "site": site, "rc": rc,
-                "dq_rel_diff": rel(dq, want_dq), "dcterm_rel_diff": rel(dct, want_dct),
-                "ms": event_ms(torch, lambda: fn(*cargs)),
-            }), flush=True)
+            first = dq.clone()
+            ordered = ck.sa_train_dq_ordered_plain(de, args[2], args[3], n)
+            row = {"source": str(src), "kernel": "sa_train_bwd2", "site": site, "rc": rc,
+                   "dq_rel_diff": rel(dq, want_dq), "dcterm_rel_diff": rel(dct, want_dct),
+                   "edge_buffer_equal": bool(torch.equal(de, want_de)),
+                   "dq_equal_ordered_plain": bool(torch.equal(dq, ordered)),
+                   "ms": event_ms(torch, lambda: fn(*cargs)),
+                   "two_launches_equal": bool(torch.equal(dq, first))}
+            for part, prefix in (("edge_pass", "sa_train_bwd2_kernel"),
+                                 ("dq_pass", "sa_train_dq_kernel")):
+                row[part] = device_cost(torch, lambda: fn(*cargs), prefix)
+            print(json.dumps(row), flush=True)
 
 
 def constants(src):

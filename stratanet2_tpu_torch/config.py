@@ -1,8 +1,8 @@
 """Configuration for the port: a copy of the pieces of `stratanet2_tpu.config`
 that the port's modules read, with the same defaults: ModelConfig,
-TrainConfig, the host data layer's DataConfig fields, and Config's mode with
-the DEV profile (`as_dev`, `default_config(mode)`). The flag parser comes
-with the CLIs.
+TrainConfig, the DataConfig fields of the host data layer and of parcel
+predict, and Config's mode with the DEV profile (`as_dev`,
+`default_config(mode)`). The flag parser comes with the CLIs.
 
 The port keeps its own copy rather than importing the JAX package's module:
 the port must import nothing of `stratanet2_tpu`.
@@ -93,7 +93,7 @@ class TrainConfig:
 @dataclass(frozen=True)
 class DataConfig:
     """Host data-pipeline parameters (reference utils/load_data.py,
-    data_loader/loader.py): the fields that `data/` reads."""
+    data_loader/loader.py): the fields that `data/` and `inference/` read."""
 
     data_path: str = "data"
     las_plots_folder_path: str = "data/placettes_dataset/las_classes"
@@ -105,12 +105,22 @@ class DataConfig:
     las_parcels_folder_path: str = "data/parcelles_dataset_20m"
     parcel_shapefile_path: str = "data/parcelles_dataset_20m/input/parcels.shp"
     znorm_radius_in_meters: float = 1.5
+    min_points_per_plot: int = 50  # parcel tiling keeps plots with at least this many
+    min_points_for_pseudo_labelling: int = 2000  # and pseudo-labels those with more
     prefetch_batches: int = 2
     loader_workers: int = 2
     # dtype of the cloud/xyz batches the loader hands over: "float32"
     # (exact) or "float16" (half the bytes to the card; the features are
     # [0, 1]-rescaled and xyz spans +-10 m, so ~1e-3 relative)
     transfer_dtype: str = "float32"
+    # parcel predict (inference/predict.py): batches whose outputs stay on
+    # the device and are read with one copy; the result is the same for any
+    # value, 1 reads each batch alone. The last chain is padded with
+    # all-invalid batches, which the device runs too.
+    predict_chain: int = 8
+    # also write each plot's GeoTIFF beside the merged parcel tif (the
+    # merge itself takes the tiles from memory)
+    keep_plot_tiffs: bool = False
 
 
 @dataclass(frozen=True)

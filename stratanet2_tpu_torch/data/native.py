@@ -8,8 +8,9 @@ the two never write one file). It is named by a hash of the sources, so an
 edited gridindex.cpp is rebuilt. If the toolchain or the build is
 unavailable, callers take the vectorized numpy path
 (`transforms.min_z_in_radius_numpy`; `transforms.min_z_path()` says which
-one runs) — same results, slower. `disk_query`'s caller, parcel tiling
-(`inference/tiling.py`, not ported yet), holds the scipy cKDTree path.
+one runs) — same results, slower. A compiler without OpenMP gets a serial
+build (`_build`). `disk_query`'s caller, parcel tiling
+(`inference/tiling.py`), holds the scipy cKDTree path.
 """
 
 from __future__ import annotations
@@ -44,20 +45,37 @@ def _lib_path() -> Path:
     return _BUILD_DIR / f"libgridindex-{h.hexdigest()[:16]}.so"
 
 
+# native/Makefile's CXXFLAGS without -fopenmp: the serial build, taken when
+# the OpenMP one fails (a compiler without OpenMP's runtime or its spec file).
+# gridindex.cpp includes <omp.h> only under _OPENMP and otherwise ignores its
+# `#pragma omp` lines, so it builds and gives the same results on one thread.
+SERIAL_CXXFLAGS = "-O3 -march=native -fPIC -shared -std=c++17"
+
+
 def _build(path: Path) -> bool:
+    """Build the library into `path`: `make` with native/Makefile's flags
+    (OpenMP), and if that fails once more with SERIAL_CXXFLAGS. Logs which
+    build was kept."""
     tmp = _BUILD_DIR / f"src.{os.getpid()}"
     try:
         tmp.mkdir(parents=True, exist_ok=True)
         for name in _SOURCES:
             shutil.copy2(_NATIVE_DIR / name, tmp / name)
-        subprocess.run(["make", "-C", str(tmp)], check=True, capture_output=True, text=True,
-                       timeout=120)
-        os.replace(tmp / "libgridindex.so", path)  # atomic: concurrent builds agree
-        return True
-    except (OSError, subprocess.SubprocessError) as err:
-        output = getattr(err, "stdout", None) or ""
-        output += getattr(err, "stderr", None) or ""
-        logger.warning("native gridindex build failed: %s %s", err, output[-2000:])
+        for kind, flags in (("OpenMP", []), ("serial", [f"CXXFLAGS={SERIAL_CXXFLAGS}"])):
+            try:
+                subprocess.run(["make", "-C", str(tmp), *flags], check=True, capture_output=True,
+                               text=True, timeout=120)
+            except subprocess.SubprocessError as err:
+                output = (getattr(err, "stdout", None) or "") + (getattr(err, "stderr", None) or "")
+                logger.warning("native gridindex %s build failed: %s %s", kind, err,
+                               output[-2000:])
+                continue
+            os.replace(tmp / "libgridindex.so", path)  # atomic: concurrent builds agree
+            logger.info("native gridindex: kept the %s build", kind)
+            return True
+        return False
+    except OSError as err:
+        logger.warning("native gridindex build failed: %s", err)
         return False
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

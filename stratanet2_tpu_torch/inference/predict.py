@@ -1,22 +1,53 @@
-"""Serve step (counterpart of `stratanet2_tpu/inference/predict.py::
-make_predict_step`): forward, raster projection and plotwise coverages of a
-batch of plot clouds. The parcel loop around it (`predict_parcel`) comes
-with a later slice.
+"""Parcel predict (counterpart of `stratanet2_tpu/inference/predict.py`,
+reference predict.py + inference/predict_utils.py).
+
+`make_predict_step` is the serve step: forward, raster projection and
+plotwise coverages of a batch of plot clouds, on the card through the four
+serve kernels. `predict_parcel` runs it over a parcel's plots as
+`PlotLoader` batches them, in chains of `DataConfig.predict_chain` batches
+whose outputs stay on the device and are read with one copy a chain (the
+JAX package scans a chain in one program; here a chain's batches are
+launched one after another as the loader makes them, and the chain sets
+how often the host waits for the card). Per-plot GeoTIFF tiles, their
+weighted mosaic and the shapefile update stay on the host. Both tasks:
+- inference: per-plot rasters -> weighted parcel mosaic -> shapefile fields
+  (predict.py:113-148);
+- pseudo_labelling: plot-level coverages written back into the parcel's
+  plots as labels for SSL pretraining (predict.py:104-111, min 2000 points
+  at predict_utils.py:62-71).
+The point-sharded step and the mesh arguments of the JAX module come with
+the parallel paths.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import logging
+import os
+import pickle
+from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from stratanet2_tpu_torch.config import Config
+from stratanet2_tpu_torch.data.loader import PlotLoader
 from stratanet2_tpu_torch.device import resolve_device
+from stratanet2_tpu_torch.inference.geotiff import GeoTiff, get_geotransform, write_geotiff
+from stratanet2_tpu_torch.inference.polygons import Polygon
+from stratanet2_tpu_torch.inference.rasters import (
+    SHP_FIELDS_NAME_DICT,
+    add_weights_band_to_rasters,
+    get_parcel_predicted_values,
+    merge_geotiff_rasters,
+)
+from stratanet2_tpu_torch.inference.shapefile_io import FieldSpec, read_shapefile, write_shapefile
 from stratanet2_tpu_torch.models.pointnet2 import PointNet2
 from stratanet2_tpu_torch.ops.projection import (
     batched_raster_projection,
     plotwise_coverages,
 )
+
+logger = logging.getLogger("stratanet2_tpu_torch")
 
 
 def make_predict_step(cfg: Config, device: Optional[Union[str, torch.device]] = None):
@@ -51,3 +82,187 @@ def make_predict_step(cfg: Config, device: Optional[Union[str, torch.device]] = 
         return rasters, pred_pl
 
     return step
+
+
+def filter_dataset(dataset: Dict, is_pseudo_labelling: bool, min_points: int = 2000) -> Dict:
+    """Min-points filter for pseudo-labelling (predict_utils.py:62-71)."""
+    if is_pseudo_labelling:
+        return {
+            pid: cd
+            for pid, cd in dataset.items()
+            if cd["N_points_in_cloud"] > min_points
+        }
+    return dataset
+
+
+def make_predict_program(cfg: Config, device: Optional[Union[str, torch.device]] = None):
+    """Return program(model, clouds, xyzs) -> (rasters (S, B, 3, P, P),
+    preds (S, B, 4)): `make_predict_step` over each batch of a chain,
+    clouds (S, B, N, F) and xyzs (S, B, N, 3) (stacked arrays, or sequences
+    of S batches). Each batch is uploaded and launched in turn; the stacked
+    outputs stay on `device` (default CUDA). The batches go to the card
+    from pageable memory: pinned memory and non-blocking copies measured no
+    faster on the H100, where the host loader sets the pace (PERF.md)."""
+    step = make_predict_step(cfg, device)
+
+    def program(model: PointNet2, clouds, xyzs):
+        outs = [step(model, c, x) for c, x in zip(clouds, xyzs)]
+        return torch.stack([r for r, _ in outs]), torch.stack([p for _, p in outs])
+
+    return program
+
+
+def _chain_batches(loader, chain: int, max_batches: Optional[int]):
+    """Group loader batches into chains of `chain`, the last one shorter
+    when the batches run out, stopping after `max_batches`. (The JAX package
+    pads the last chain with all-invalid batches so that every program call
+    has one shape; launches from the host need no such padding.)"""
+    group = []
+    for n_seen, batch in enumerate(loader, 1):
+        group.append(batch)
+        if len(group) == chain:
+            yield group
+            group = []
+        if max_batches is not None and n_seen >= max_batches:
+            break
+    if group:
+        yield group
+
+
+def _copy_to_host(out: torch.Tensor):
+    """Start one copy of `out` to the host: (host tensor, the event that
+    marks the copy done, or None off the card). On the card the copy goes
+    into pinned memory without blocking, behind the work already queued."""
+    if out.device.type != "cuda":
+        return out, None
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(out.device))
+    return host, done
+
+
+def predict_parcel(
+    model: PointNet2,
+    dataset: Dict,
+    cfg: Config,
+    parcel_id: str,
+    output_folder: str,
+    task: str = "inference",
+    parcel_shape: Optional[Polygon] = None,
+    max_batches: Optional[int] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Optional[str]:
+    """Run one parcel's plots through `model` (on `device`, default CUDA).
+    Returns the merged parcel tif's path for inference, or the
+    pseudo-labelled pkl's path for pseudo_labelling; None when no plot is
+    left to predict or no tile holds a prediction."""
+    is_pseudo = task == "pseudo_labelling"
+    dataset = filter_dataset(dataset, is_pseudo, cfg.data.min_points_for_pseudo_labelling)
+    if not dataset:
+        logger.warning("Parcel %s: no plots to predict", parcel_id)
+        return None
+    chain = max(1, int(cfg.data.predict_chain))
+    program = make_predict_program(cfg, device)
+    loader = PlotLoader(dataset, cfg, train=False)
+
+    # In-memory tiles: only the merged tif (the worklist's done-marker) is
+    # written, unless keep_plot_tiffs also asks for each plot's
+    # (the reference's intermediate tifs, predict.py:113-126).
+    tiff_folder = os.path.join(output_folder, parcel_id)
+    p = cfg.model.diam_pix
+    mem_tiles = []
+
+    def drain(metas, host, done):
+        """A chain's results into pseudo-labels or tiles, once its copy is done."""
+        if done is not None:
+            done.synchronize()
+        out_s = host.numpy()
+        rasters_s = out_s[..., : 3 * p * p].reshape(out_s.shape[:2] + (3, p, p))
+        preds_s = out_s[..., 3 * p * p :]  # pred_pl (S, B, 4)
+        for batch, rasters, pred_pl in zip(metas, rasters_s, preds_s):
+            for j in np.where(batch["valid"])[0]:
+                plot_id = batch["plot_id"][j]
+                if is_pseudo:
+                    dataset[plot_id]["coverages"] = pred_pl[j]
+                else:
+                    with_weights = add_weights_band_to_rasters(rasters[j], p)
+                    gt = get_geotransform(
+                        batch["plot_center"][j], cfg.model.diam_meters, p
+                    )
+                    mem_tiles.append(GeoTiff(bands=with_weights, geotransform=list(gt)))
+                    if cfg.data.keep_plot_tiffs:
+                        write_geotiff(
+                            os.path.join(tiff_folder, f"{plot_id}.tif"), with_weights, gt
+                        )
+
+    # A chain's outputs, (B, 3, P, P) rasters and (B, 4) preds a batch, go
+    # to the host in one copy queued behind its batches; the host drains the
+    # previous chain while the card runs this one, keeping only the batch
+    # fields the drain reads.
+    pending = None
+    for group in _chain_batches(loader, chain, max_batches):
+        rasters_s, preds_s = program(
+            model, [b["cloud"] for b in group], [b["xyz"] for b in group]
+        )
+        out = torch.cat([rasters_s.flatten(2), preds_s], dim=2)
+        metas = [{k: b[k] for k in ("valid", "plot_id", "plot_center")} for b in group]
+        if pending is not None:
+            drain(*pending)
+        pending = (metas, *_copy_to_host(out))
+    if pending is not None:
+        drain(*pending)
+
+    if is_pseudo:
+        # max_batches can leave plots unpredicted: keep only the plots that
+        # received pseudo-labels (the reference pickles them all,
+        # predict.py:128-134, and its SSL loader then fails on them)
+        labelled = {pid: cd for pid, cd in dataset.items() if "coverages" in cd}
+        if len(labelled) < len(dataset):
+            logger.info(
+                "Parcel %s: %d/%d plots pseudo-labelled (batch cap)",
+                parcel_id, len(labelled), len(dataset),
+            )
+        out_path = os.path.join(output_folder, parcel_id + ".pkl")
+        os.makedirs(output_folder, exist_ok=True)
+        # atomic: a crash mid-dump must not leave a truncated pkl that the
+        # idempotent worklist treats as done
+        tmp_path = out_path + ".tmp"
+        with open(tmp_path, "wb") as f:
+            pickle.dump(labelled, f)
+        os.replace(tmp_path, out_path)
+        return out_path
+
+    final_tif = os.path.join(output_folder, f"{parcel_id}.tif")
+    # every plot invalid: no tiles, and the merge says there is nothing to
+    # merge, as the reference's does (inference/geotiff_raster.py:203-207)
+    msg = merge_geotiff_rasters(final_tif, (), parcel_shape, tiles=mem_tiles)
+    logger.info(msg)
+    return final_tif if os.path.exists(final_tif) else None
+
+
+def update_shapefile_with_predictions(parcel_shapefile_path: str, output_folder: str) -> str:
+    """Copy the parcel shapefile, appending PRED_* float fields from parcel
+    tif band means (inference/predict_utils.py:149-177)."""
+    tifs = {
+        os.path.splitext(f)[0]: os.path.join(output_folder, f)
+        for f in os.listdir(output_folder)
+        if f.endswith(".tif")
+    }
+    if not tifs:
+        logger.error("No prediction tif file found in %s", output_folder)
+
+    shp = read_shapefile(parcel_shapefile_path)
+    for field in SHP_FIELDS_NAME_DICT:
+        shp.fields.append(FieldSpec(field, "F", length=20, decimals=10))
+    for sr in shp.shape_records:
+        parcel_id = str(sr.record.get("ID"))
+        preds = get_parcel_predicted_values(tifs.get(parcel_id))
+        sr.record.update(preds)
+
+    out_path = os.path.join(
+        output_folder,
+        os.path.splitext(os.path.basename(parcel_shapefile_path))[0],
+    )
+    write_shapefile(out_path, shp)
+    return out_path

@@ -128,8 +128,9 @@ def cross_validate(
 def mean_by_step(rows: List[Dict]) -> Dict[int, Dict[str, float]]:
     """`pd.DataFrame(rows).groupby("step").mean().to_dict("index")` on
     dicts: for each step, in ascending order, each column's mean over that
-    step's rows that have it (NaN where none has it), the columns in the
-    order they first appear."""
+    step's rows that have it with a value that is not NaN (NaN where none
+    has one: pandas skips NaN), the columns in the order they first
+    appear."""
     columns = list(dict.fromkeys(k for row in rows for k in row if k != "step"))
     out = {}
     for step in sorted({row["step"] for row in rows}):
@@ -137,6 +138,7 @@ def mean_by_step(rows: List[Dict]) -> Dict[int, Dict[str, float]]:
         out[step] = {}
         for col in columns:
             values = [float(row[col]) for row in group if col in row]
+            values = [v for v in values if not np.isnan(v)]
             out[step][col] = float(np.mean(values)) if values else float("nan")
     return out
 

@@ -130,6 +130,16 @@ __device__ __forceinline__ void select_tile(const float* __restrict__ cent_b,
   }
 }
 
+// Inclusive sum over the warp's lanes (all 32 must call it).
+__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(~0u, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
 // Opt in to dynamic shared memory above the 48 KB default (once per size).
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -80,16 +80,6 @@ static_assert(kRowsMax <= kThreads && kRowsMax <= 256, "a row a scan thread, 8 b
 static_assert(kW % kThreads == 0 && kW <= (1 << 16) && kPer <= 32, "a thread's pairs; 16-bit pair numbers");
 static_assert(32 % kB == 0, "a batch of 32 pairs splits into loads of kB");
 
-// inclusive sum over the warp's lanes
-__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(~0u, v, o);
-    if (lane >= o) v += u;
-  }
-  return v;
-}
-
 // exclusive sum over the block's threads, in thread order, and the total;
 // scratch holds kWarps ints and must not be in use by another scan
 __device__ __forceinline__ int block_excl_scan(int v, int lane, int warp, int* scratch,

@@ -15,7 +15,10 @@
 //   sa_train_bwd2_kernel  <- _sa_train_bwd2_kernel  (:1750, in _sa_train_bwd2)
 // The TPU kernels' block-grouped q layout, hi/lo-bf16 one-hot MXU gathers
 // and scatters, lane padding and (16, 128) parameter packing are not carried
-// over: Hopper gathers q rows with indexed loads and scatters dq with atomics.
+// over: Hopper gathers q rows with indexed loads, and bwd2's dq is summed
+// from an edge buffer by a pass of its own, sa_train_dq_kernel, in which
+// each block owns one group of points (the TPU kernel's one-hot scatter over
+// a group's rows relies on the same grouping).
 //
 // Bound on the H100: operations, not bytes, but for stats (bytes, 0.0072
 // ms). A pass reads q, cterm, idx and mask once (SA1 of the PROD train
@@ -97,6 +100,15 @@
 //   edge, W2 and the table from the constant bank) measured 0.167 at SA1
 //   and 0.075 at SA2, 0.251 and 0.121 with the q rows staged through
 //   shared memory. 128 registers at SA1 (2 blocks an SM), 64 at SA2.
+// - bwd2 with the edge buffer and the dq pass (device ms at SA1 / SA2): edge
+//   pass 0.1435 / 0.0506 (the earlier form, with float atomics into dq,
+//   0.188 the two), dq pass 0.1035 / 0.0594, of which the ids' loads, the
+//   counting sort and the stores take 0.0319 / 0.0176 (its sums cut).
+//   Not kept: one warp placing every centroid (0.1043 / 0.0631); kDqB 2
+//   and 8 (0.1028 / 0.0592, 0.1029 / 0.0590); a slot-major buffer
+//   (B, K, C, C1), a block's rows contiguous (dq 0.1067 / 0.0580, the edge
+//   pass 0.1540 / 0.0716). `sa_train_dq_ordered_plain` of the buffer equals
+//   dq bit for bit in each.
 // Every per-edge value is computed with _rn intrinsics in the order of the
 // plain versions (cuda_kernels.sa_train_edges:
 // the products as fma chains in index order, no contraction elsewhere), so
@@ -107,10 +119,12 @@
 // per block; the wrapper sums the rows with torch, so two runs give the same
 // bits. A masked slot adds an exact zero to a lane's chain, if anything, so
 // the chain's rounding depth is its valid edges (chip_smoke.sa_sum_depth).
-// dq is a scatter over points: float atomicAdd into a zeroed buffer,
-// sum order not fixed. 256 threads a block; the grid (given by the wrapper)
-// is at most 8 blocks of 256 threads on each of 132 SMs, each group walking
-// centroids with the grid's stride.
+// dq is a scatter over points: bwd2 writes each edge's de0 once to an edge
+// buffer and sa_train_dq_kernel sums it, each point's row in one fixed
+// order (cuda_kernels.sa_train_dq_ordered_plain), so no kernel here has a
+// float atomic and two runs give the same bits. 256 threads a block; the
+// grid (given by the wrapper) is at most 8 blocks of 256 threads on each of
+// 132 SMs, each group walking centroids with the grid's stride.
 #include "common.cuh"
 
 constexpr int kThreads = 256;
@@ -118,6 +132,7 @@ constexpr float kNeg = -3.4e38f;  // masked slots enter the max as this, the min
 // Slots a group takes at once: main at SA1 and SA2, bwd1 (SA1 only), bwd2 at
 // SA1 and SA2 (see the head note).
 constexpr int kMainKB1 = 4, kMainKB2 = 16, kBwd1KB = 4, kBwd2KB1 = 4, kBwd2KB2 = 8;
+constexpr int kDqB = 4;  // de0 rows a dq group loads at once
 // The stats pass (SA1 only): channels a lane (one float4 of the q row, so
 // C / kStatsV lanes a centroid; sa_train_stats_lanes gives them to the
 // wrapper) and slots a batch.
@@ -537,19 +552,21 @@ sa_train_bwd1_kernel(const float* __restrict__ q, const float* __restrict__ cter
   block_reduce<C, 3 + C>(v, partial + static_cast<size_t>(blockIdx.x) * (3 + C) * C);
 }
 
-// BN1's backward at every valid edge through layer 1's ReLU: de0, then
-// dq[b, idx] += de0 (float atomics into dq, zeroed by the launch) and
-// dcterm = -sum over the K slots of de0. With two layers dy1 comes from
-// BN2's backward as in bwd1; with one, dy1 is gt at the winner slot.
-// Slots KB at a time, every one computed, as in main and bwd1; with two
-// layers the y1 rows, then the du rows, go through shared memory.
+// BN1's backward at every valid edge through layer 1's ReLU: de0, written
+// to the edge buffer de (B, C, K, C1) (an exact 0 on a masked slot), and
+// dcterm = -sum over the K slots of de0. sa_train_dq_kernel then sums de
+// into dq, so this kernel writes every element once and has no atomic.
+// With two layers dy1 comes from BN2's backward as
+// in bwd1; with one, dy1 is gt at the winner slot. Slots KB at a time, every
+// one computed, as in main and bwd1; with two layers the y1 rows, then the
+// du rows, go through shared memory.
 template <int C, bool TWO, int KB>
 __global__ void __launch_bounds__(kThreads)
 sa_train_bwd2_kernel(const float* __restrict__ q, const float* __restrict__ cterm,
                      const int* __restrict__ idx, const bool* __restrict__ mask,
                      const float* __restrict__ aff, const float* __restrict__ w2,
                      const int* __restrict__ awin, const float* __restrict__ gt,
-                     float* __restrict__ dq, float* __restrict__ dcterm, int n, int c, int k,
+                     float* __restrict__ de, float* __restrict__ dcterm, int n, int c, int k,
                      int total) {
   constexpr int kGroups = kThreads / C;
   __shared__ __align__(16) float rows[TWO ? kGroups * KB * C : 4];
@@ -566,6 +583,7 @@ sa_train_bwd2_kernel(const float* __restrict__ q, const float* __restrict__ cter
     const float g = gt[o];
     const int* ib = idx + static_cast<size_t>(cent) * k;
     const bool* mb = mask + static_cast<size_t>(cent) * k;
+    float* eb = de + static_cast<size_t>(cent) * k * C + lane;  // this lane's channel of slot 0
     float dct = 0.f;
     for (int s0 = 0; s0 < k; s0 += KB) {
       bool ok[KB];
@@ -594,14 +612,118 @@ sa_train_bwd2_kernel(const float* __restrict__ q, const float* __restrict__ cter
       }
 #pragma unroll
       for (int u = 0; u < KB; ++u) {
-        if (!ok[u]) continue;  // the same for the whole group
-        const float de0 = bn_relu_bwd(dy1[u], fmaxf(e0[u], 0.f), e0[u], p.m1, p.inv_s1, p.gos1,
-                                      p.s1n1, p.s2n1);
-        dct = __fsub_rn(dct, de0);
-        if (de0 != 0.f) atomicAdd(dq + qi[u], de0);
+        const float d = bn_relu_bwd(dy1[u], fmaxf(e0[u], 0.f), e0[u], p.m1, p.inv_s1, p.gos1,
+                                    p.s1n1, p.s2n1);
+        const float de0 = ok[u] ? d : 0.f;
+        dct = __fsub_rn(dct, de0);  // - 0 leaves dct's bits as they are
+        if (s0 + u < k) eb[static_cast<size_t>(s0 + u) * C] = de0;  // a row of C1: coalesced
       }
     }
     dcterm[o] = dct;
+  }
+}
+
+// dq of bwd2 from its edge buffer de (B, C, K, C1), owner computes. Slot j
+// of the grouped selection only picks points of group j (g = ceil(N/K)
+// consecutive points, csrc/ball_query.cu), so block (j, b) owns group j of
+// cloud b, reads slot j of every centroid and is the only writer of its
+// points' rows. A counting sort by point, stable in c: warp w takes the
+// w-th span of the centroids, loads their slot-j ids (a masked slot, or an
+// id outside the group, is skipped) and counts them by point (shared int
+// atomics: a count has no order); a thread a point turns the warps' counts
+// into each warp's offset within the point's list, a scan of the totals
+// gives the lists' starts, and each warp places its span in increasing c
+// (rank among 32 at a time by __match_any_sync), so a list holds its
+// centroids in increasing c. A group of C1 lanes (lane = channel) then
+// takes a point and adds its list's de0 rows (one coalesced row each, kDqB
+// loads in flight) to 0 in that order with __fadd_rn, and stores the row
+// once, zeros included: one order of sums for any launch
+// (cuda_kernels.sa_train_dq_ordered_plain). It reads each valid edge's row
+// once, where a gather over all pairs re-reads the ids for each tile.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+sa_train_dq_kernel(const float* __restrict__ de, const int* __restrict__ idx,
+                   const bool* __restrict__ mask, float* __restrict__ dq, int n, int c, int k,
+                   int g) {
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ int dsm[];
+  const int j = blockIdx.x, b = blockIdx.y;
+  const int first = j * g;
+  const int gs = max(0, min(g, n - first));  // the group's points
+  int* key = dsm;                  // c: the centroid's point in the group, or -1
+  int* cur = key + c;              // kWarps x gs: a warp's counts, then its cursors
+  int* start = cur + kWarps * gs;  // gs + 1: where each point's list begins
+  int* list = start + gs + 1;      // c: the centroids, by point, in increasing c
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int span = (c + kWarps - 1) / kWarps;
+  const int c_lo = min(c, warp * span), c_hi = min(c, c_lo + span);
+  int* mine = cur + warp * gs;
+  for (int e = tid; e < kWarps * gs; e += kThreads) cur[e] = 0;
+  if (tid == 0) start[0] = 0;
+  __syncthreads();
+  const size_t e0 = static_cast<size_t>(b) * c * k + j;  // edge (b, 0, j)
+  for (int cc = c_lo + lane; cc < c_hi; cc += 32) {
+    const size_t e = e0 + static_cast<size_t>(cc) * k;
+    const int d = mask[e] ? idx[e] - first : -1;
+    const bool in = d >= 0 && d < gs;
+    key[cc] = in ? d : -1;
+    if (in) atomicAdd(mine + d, 1);
+  }
+  __syncthreads();
+  for (int p = tid; p < gs; p += kThreads) {
+    int run = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int x = cur[w * gs + p];
+      cur[w * gs + p] = run;
+      run += x;
+    }
+    start[p + 1] = run;
+  }
+  __syncthreads();
+  if (warp == 0) {  // start[p + 1] = the picks of points 0 .. p
+    int carry = 0;
+    for (int p0 = 0; p0 < gs; p0 += 32) {
+      const int v = p0 + lane < gs ? start[p0 + lane + 1] : 0;
+      const int incl = warp_incl_scan(v, lane) + carry;
+      if (p0 + lane < gs) start[p0 + lane + 1] = incl;
+      carry = __shfl_sync(~0u, incl, 31);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < kWarps * gs; e += kThreads) cur[e] += start[e % gs];
+  __syncthreads();
+  const unsigned lt = (1u << lane) - 1;
+  for (int c0 = c_lo; c0 < c_hi; c0 += 32) {
+    const int d = c0 + lane < c_hi ? key[c0 + lane] : -1;
+    const unsigned act = __ballot_sync(~0u, d >= 0);
+    if (d >= 0) {
+      const unsigned peers = __match_any_sync(act, d);
+      const int pos = mine[d] + __popc(peers & lt);
+      list[pos] = c0 + lane;
+      __syncwarp(act);  // every peer has read the cursor
+      if (!(peers & lt)) mine[d] = pos + __popc(peers);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  constexpr int kGroups = kThreads / C;
+  const int ch = tid % C;
+  const float* db = de + e0 * C + ch;  // channel ch of edge (b, 0, j)
+  const size_t stride = static_cast<size_t>(k) * C;  // the next centroid's
+  float* out = dq + (static_cast<size_t>(b) * n + first) * C + ch;
+  for (int p = tid / C; p < gs; p += kGroups) {
+    int r = start[p];
+    const int end = start[p + 1];
+    float acc = 0.f;
+    for (; r + kDqB <= end; r += kDqB) {
+      float v[kDqB];
+#pragma unroll
+      for (int u = 0; u < kDqB; ++u) v[u] = db[list[r + u] * stride];
+#pragma unroll
+      for (int u = 0; u < kDqB; ++u) acc = __fadd_rn(acc, v[u]);
+    }
+    for (; r < end; ++r) acc = __fadd_rn(acc, db[list[r] * stride]);
+    out[static_cast<size_t>(p) * C] = acc;
   }
 }
 
@@ -657,21 +779,33 @@ extern "C" int sa_train_bwd1_launch(const float* q, const float* cterm, const in
   return cudaGetLastError();
 }
 
+// The edge pass into de (b, c, k, ch), then the dq pass: grid (k, b), one
+// block a group of g = ceil(n / k) points, with the slot's keys and lists
+// (c ints each), the warps' counts (8 g) and the lists' starts (g + 1) in
+// shared memory; a c too large for it fails the launch.
 extern "C" int sa_train_bwd2_launch(const float* q, const float* cterm, const int* idx,
                                     const bool* mask, const float* aff, const float* w2,
-                                    const int* awin, const float* gt, float* dq, float* dcterm,
-                                    int grid, int b, int n, int c, int k, int ch, int two_layer,
-                                    void* stream) {
+                                    const int* awin, const float* gt, float* de, float* dq,
+                                    float* dcterm, int grid, int b, int n, int c, int k, int ch,
+                                    int two_layer, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!((ch == 16 && two_layer) || (ch == 32 && !two_layer))) return cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(dq, 0, sizeof(float) * b * static_cast<size_t>(n) * ch, st);
-  if (err != cudaSuccess) return err;
+  const int g = (n + k - 1) / k;
+  const size_t smem = sizeof(int) * (2 * static_cast<size_t>(c) + (kThreads / 32 + 1) * g + 1);
+  const dim3 dq_grid(k, b);
+  cudaError_t err;
   if (two_layer) {
+    err = allow_smem(sa_train_dq_kernel<16>, smem);
+    if (err != cudaSuccess) return err;
     sa_train_bwd2_kernel<16, true, kBwd2KB1><<<grid, kThreads, 0, st>>>(
-        q, cterm, idx, mask, aff, w2, awin, gt, dq, dcterm, n, c, k, b * c);
+        q, cterm, idx, mask, aff, w2, awin, gt, de, dcterm, n, c, k, b * c);
+    sa_train_dq_kernel<16><<<dq_grid, kThreads, smem, st>>>(de, idx, mask, dq, n, c, k, g);
   } else {
+    err = allow_smem(sa_train_dq_kernel<32>, smem);
+    if (err != cudaSuccess) return err;
     sa_train_bwd2_kernel<32, false, kBwd2KB2><<<grid, kThreads, 0, st>>>(
-        q, cterm, idx, mask, aff, w2, awin, gt, dq, dcterm, n, c, k, b * c);
+        q, cterm, idx, mask, aff, w2, awin, gt, de, dcterm, n, c, k, b * c);
+    sa_train_dq_kernel<32><<<dq_grid, kThreads, smem, st>>>(de, idx, mask, dq, n, c, k, g);
   }
   return cudaGetLastError();
 }

@@ -88,7 +88,7 @@ _ENTRIES = {  # wrapper: (library = csrc/<library>.cu, C entry point, its argume
         "sa_train", "sa_train_bwd1_launch", [_VP] * 9 + [_I] * 6 + [_VP]
     ),
     "sa_train_bwd2": (
-        "sa_train", "sa_train_bwd2_launch", [_VP] * 10 + [_I] * 7 + [_VP]
+        "sa_train", "sa_train_bwd2_launch", [_VP] * 11 + [_I] * 7 + [_VP]
     ),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
@@ -811,21 +811,42 @@ def sa_train_bwd2_plain(q, cterm, idx, mask, aff, w2, awin, gt):
     return dq.float().reshape(b, n, ch1), -_sum64(de0, dims=2)
 
 
-def sa_train_bwd2(q, cterm, idx, mask, aff, w2, awin, gt):
+def sa_train_dq_ordered_plain(de: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
+                              n: int) -> torch.Tensor:
+    """dq (B, N, C1) as csrc/sa_train.cu's dq pass sums the edge buffer de
+    (B, C x K, C1): each point's row is 0 plus the rows of the valid edges
+    that picked it, in increasing edge order c x K + j, each add rounded
+    once (`knn_scatter_ordered_plain` in one round of one chunk)."""
+    b, c, k = idx.shape
+    ids = torch.where(mask, idx, -1).reshape(b, 1, c * k)
+    return knn_scatter_ordered_plain(ids, None, de, n, pairs=c * k, chunk=c * k)
+
+
+def sa_train_bwd2(q, cterm, idx, mask, aff, w2, awin, gt, edges: bool = False):
     """BN1's backward at every valid edge through relu(e0): de0, from dy1 =
     BN2's backward @ W2^T with two layers (aff rows as `sa_train_bwd1`) or
     gt at the winner slot with one; aff rows m1, inv_s1, gos1, s1n1, s2n1.
-    Returns dq (B, N, C1), the scatter of de0 onto the picked points (float
-    atomics on the card: sum order not fixed), and dcterm = -sum_k de0
-    (B, C, C1)."""
+    Returns dq (B, N, C1), the scatter of de0 onto the picked points, and
+    dcterm = -sum_k de0 (B, C, C1); with `edges`, also the edge buffer of
+    de0 (B, C x K, C1), 0 on a masked slot. On the card one launch runs two
+    kernels: the edge pass writes that buffer and dcterm, and the dq pass
+    sums the buffer into dq in one fixed order
+    (`sa_train_dq_ordered_plain`), so two runs give the same bits. The dq
+    pass takes idx from the grouped selection (`ball_query`): slot j picks
+    only points of group j, the ceil(N/K) points from j x ceil(N/K)."""
     name = "sa_train_bwd2"
     b, n, c, k, ch1, ch2 = _sa_check(name, q, cterm, idx, mask, aff, w2, awin, gt)
     if not _on_card(name, q, cterm, idx, mask, aff, w2, awin, gt):
-        return sa_train_bwd2_plain(q, cterm, idx, mask, aff, w2, awin, gt)
+        dq, dcterm = sa_train_bwd2_plain(q, cterm, idx, mask, aff, w2, awin, gt)
+        if not edges:
+            return dq, dcterm
+        de0 = sa_train_edges(q, cterm, idx, mask, aff, w2, awin, gt)["de0"]
+        return dq, dcterm, de0.reshape(b, c * k, ch1)
     two = w2 is not None
     grid = _sa_grid(name, aff, b, c, ch1, ch2, two)
+    de = torch.empty((b, c * k, ch1), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, n, ch1), dtype=torch.float32, device=q.device)
     dcterm = torch.empty((b, c, ch1), dtype=torch.float32, device=q.device)
-    _launch(name, q.device, q, cterm, idx, mask, aff, w2, awin, gt, dq, dcterm,
+    _launch(name, q.device, q, cterm, idx, mask, aff, w2, awin, gt, de, dq, dcterm,
             grid, b, n, c, k, ch1, int(two))
-    return dq, dcterm
+    return (dq, dcterm, de) if edges else (dq, dcterm)

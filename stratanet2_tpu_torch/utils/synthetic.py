@@ -1,7 +1,8 @@
 """Synthetic inputs for `chip_smoke.py` and the tests: serve and train
 batches and random models made on the device from a seed, with no data
 files; and LiDAR plot clouds for LAS files (`make_plot_cloud`,
-`cloud_to_las_fields`, copies of `stratanet2_tpu/utils/synthetic.py`'s)."""
+`cloud_to_las_fields`, copies of `stratanet2_tpu/utils/synthetic.py`'s) and
+a parcel's (`make_parcel_cloud`)."""
 
 from __future__ import annotations
 
@@ -66,6 +67,23 @@ def make_plot_cloud(rng, n=400, center=(500.0, 6_500_000.0), radius=10.0):
     r = radius * np.sqrt(rng.uniform(0, 1, n))
     x = center[0] + r * np.cos(theta)
     y = center[1] + r * np.sin(theta)
+    return np.asarray([x, y, *_strata(rng, n)], dtype=np.float32)
+
+
+def make_parcel_cloud(rng, origin, width: float, density: float) -> np.ndarray:
+    """Feature-major (10, N) float64 cloud of a width x width m square whose
+    lower-left corner is `origin`, `density` points a square metre spread
+    uniformly, with `make_plot_cloud`'s strata and features. Float64: the
+    absolute coordinates of a parcel (Lambert-93 y ~ 6.8e6) need it."""
+    n = int(round(width * width * density))
+    x = origin[0] + rng.uniform(0, width, n)
+    y = origin[1] + rng.uniform(0, width, n)
+    return np.asarray([x, y, *_strata(rng, n)], dtype=np.float64)
+
+
+def _strata(rng, n: int):
+    """z (half ground, 0-0.3 m; 30% medium, 1-5 m; 20% high, 5-20 m),
+    colours, near infrared, intensity and the return numbers of n points."""
     kind = rng.choice(3, n, p=[0.5, 0.3, 0.2])
     z = np.where(
         kind == 0,
@@ -76,11 +94,7 @@ def make_plot_cloud(rng, n=400, center=(500.0, 6_500_000.0), radius=10.0):
     intensity = rng.uniform(0, 32767, n)
     return_num = rng.integers(1, 4, n).astype(np.float64)
     num_returns = np.maximum(return_num, rng.integers(1, 4, n))
-    return np.asarray(
-        [x, y, z, colors[0], colors[1], colors[2], colors[3], intensity,
-         return_num, num_returns],
-        dtype=np.float32,
-    )
+    return z, colors[0], colors[1], colors[2], colors[3], intensity, return_num, num_returns
 
 
 def cloud_to_las_fields(c: np.ndarray) -> dict:

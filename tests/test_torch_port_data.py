@@ -192,6 +192,63 @@ def test_min_z_takes_numpy_without_the_library(rng, monkeypatch):
                                   jtransforms.min_z_in_radius_numpy(xy, z, 1.5))
 
 
+def test_native_build_falls_back_to_a_serial_build(tmp_path, monkeypatch):
+    """When `make` fails (no OpenMP runtime or spec file), `_build` runs it
+    once more with native/Makefile's CXXFLAGS less -fopenmp and keeps that
+    library."""
+    import subprocess
+
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        if len(calls) == 1:
+            raise subprocess.CalledProcessError(2, cmd, "", "g++: fatal error: libgomp.spec")
+        (tmp_path / f"src.{os.getpid()}" / "libgridindex.so").write_bytes(b"serial")
+        return subprocess.CompletedProcess(cmd, 0)
+
+    monkeypatch.setattr(native, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native.subprocess, "run", fake_run)
+    out = tmp_path / "libgridindex-test.so"
+    assert native._build(out)
+    first, second = calls
+    assert first[:2] == ["make", "-C"] and len(first) == 3
+    assert second[:3] == first
+    assert second[3] == "CXXFLAGS=-O3 -march=native -fPIC -shared -std=c++17"
+    makefile = (native._NATIVE_DIR / "Makefile").read_text()
+    omp_flags = makefile.split("CXXFLAGS ?=")[1].splitlines()[0].split()
+    assert second[3].split("=", 1)[1].split() == [f for f in omp_flags if f != "-fopenmp"]
+    assert out.read_bytes() == b"serial"
+    assert not (tmp_path / f"src.{os.getpid()}").exists()
+    calls.clear()
+
+    def always_fails(cmd, **kw):
+        calls.append(cmd)
+        raise subprocess.CalledProcessError(2, cmd)
+
+    monkeypatch.setattr(native.subprocess, "run", always_fails)
+    assert not native._build(tmp_path / "none.so") and len(calls) == 2
+
+
+def test_serial_native_build_loads_and_matches_numpy(rng, tmp_path):
+    """The serial build of native/gridindex.cpp loads, with no OpenMP
+    symbol left undefined, and gives numpy's min z."""
+    import ctypes
+    import subprocess
+
+    for name in native._SOURCES:
+        (tmp_path / name).write_bytes((native._NATIVE_DIR / name).read_bytes())
+    subprocess.run(["make", "-C", str(tmp_path), f"CXXFLAGS={native.SERIAL_CXXFLAGS}"],
+                   check=True, capture_output=True, timeout=120)
+    lib = ctypes.CDLL(str(tmp_path / "libgridindex.so"))
+    dp = ctypes.POINTER(ctypes.c_double)
+    lib.minz_in_radius.argtypes = [dp, dp, ctypes.c_int64, ctypes.c_double, dp]
+    xy, z = rng.uniform(0, 20, (500, 2)), rng.uniform(0, 25, 500)
+    out = np.empty(500)
+    lib.minz_in_radius(native._dptr(xy), native._dptr(z), 500, 1.5, native._dptr(out))
+    np.testing.assert_array_equal(out, transforms.min_z_in_radius_numpy(xy, z, 1.5))
+
+
 def test_disk_query_matches_kdtree(rng):
     """The scipy path of the JAX package's caller (inference/tiling.py)."""
     from scipy.spatial import cKDTree

@@ -369,18 +369,30 @@ def test_kfold_split_equals_sklearn(n, folds):
 
 
 def test_mean_by_step_equals_pandas_groupby():
-    """The fold statistics' group-by-step mean, on rows of two schemas."""
+    """The fold statistics' group-by-step mean, on rows of two schemas; then
+    with NaN values, as from a fold whose loss went NaN: pandas skips them,
+    a step whose values are all NaN gives NaN, and so does a column absent
+    from a step's rows, in the same places on both sides."""
     rng = np.random.default_rng(4)
     rows = [{"total_loss": float(rng.uniform()), "step": s, "epoch": e,
              **({"MAE_veg_b": float(rng.uniform())} if s > 2 else {})}
             for s, e in [(4, 2), (2, 1), (4, 2), (6, 3), (2, 1), (4, 2)]]
-    want = pd.DataFrame(rows).groupby("step").mean().to_dict("index")
-    got = crossval.mean_by_step(rows)
-    assert list(got) == list(want)
-    for step in want:
-        assert list(got[step]) == list(want[step])
-        np.testing.assert_allclose(list(got[step].values()), list(want[step].values()),
-                                   rtol=1e-15)
+    nan = float("nan")
+    with_nan = rows + [{"total_loss": nan, "step": 2, "epoch": 1},
+                       {"total_loss": nan, "step": 8, "epoch": 4, "MAE_veg_b": nan},
+                       {"total_loss": nan, "step": 8, "epoch": 4, "MAE_veg_b": 0.5},
+                       {"total_loss": 1.0, "step": 10, "epoch": 5},
+                       {"total_loss": nan, "step": 10, "epoch": 5}]
+    for case in (rows, with_nan):
+        want = pd.DataFrame(case).groupby("step").mean().to_dict("index")
+        got = crossval.mean_by_step(case)
+        assert list(got) == list(want)
+        for step in want:
+            assert list(got[step]) == list(want[step])
+            np.testing.assert_allclose(list(got[step].values()), list(want[step].values()),
+                                       rtol=1e-15)  # NaN where pandas has NaN
+    assert np.isnan(got[8]["total_loss"]) and got[8]["MAE_veg_b"] == 0.5
+    assert got[10]["total_loss"] == 1.0 and np.isnan(got[10]["MAE_veg_b"])
     with pytest.raises(ValueError):
         crossval.kfold_split(3, 5)
 

@@ -226,21 +226,29 @@ def test_init_follows_jax_init():
 
 def test_port_imports_without_jax():
     """The port and chip_smoke.py import with jax and the JAX package
-    blocked, in a fresh interpreter; and with pandas, matplotlib and sklearn
-    blocked too, which the card's machine does not have (the port imports
-    them only inside the functions that use them)."""
+    blocked, in a fresh interpreter; and with pandas, matplotlib, sklearn
+    and scipy blocked too, which the card's machine may lack (the port
+    imports them only inside the functions that use them). The walk takes
+    every module, parcel predict's among them."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'stratanet2_tpu', 'pandas', 'matplotlib', 'sklearn'):\n"
+        "blocked = ('jax', 'jaxlib', 'stratanet2_tpu', 'pandas', 'matplotlib', 'sklearn',\n"
+        "           'scipy')\n"
+        "for m in blocked:\n"
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil, stratanet2_tpu_torch\n"
+        "walked = []\n"
         "for m in pkgutil.walk_packages(stratanet2_tpu_torch.__path__, 'stratanet2_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    walked.append(m.name)\n"
         "import chip_smoke\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None\n"
-        "          and (m.split('.')[0] in ('jax', 'jaxlib', 'stratanet2_tpu', 'pandas',\n"
-        "                                    'matplotlib', 'sklearn'))]\n"
+        "          and m.split('.')[0] in blocked]\n"
         "assert not loaded, loaded\n"
+        "want = {'stratanet2_tpu_torch.inference.' + m for m in\n"
+        "        ('polygons', 'shapefile_io', 'rasters', 'tiling', 'predict')}\n"
+        "want.add('stratanet2_tpu_torch.utils.worklist')\n"
+        "assert want <= set(walked), sorted(want - set(walked))\n"
         "print('imported')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

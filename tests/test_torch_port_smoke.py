@@ -82,13 +82,13 @@ SASS = f"""
         /*0000*/                   SHFL.IDX R1, R2, R3, 0x1f ;
         /*0010*/                   LDG.E R7, [R8.64] ;
         /*0020*/                   FFMA R4, R4, R5, R6 ;
-        /*0030*/                   RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R4 ;
+        /*0030*/                   STG.E [R2.64], R4 ;
         /*0040*/              @P0 BRA 0x0 ;
         /*0050*/                   EXIT ;
         Function : {BWD2_2}
         /*0000*/                   LDG.E R7, [R8.64] ;
         /*0010*/                   FFMA R4, R4, R5, R6 ;
-        /*0020*/                   REDG.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R4 ;
+        /*0020*/                   STG.E [R2.64], R4 ;
         /*0030*/              @P0 BRA 0x0 ;
         /*0040*/                   EXIT ;
 """
@@ -232,9 +232,10 @@ def test_knn_slices_fill_the_card(b, t, slices):
         assert b * -(-t // 32) * (slices // 2) < ck.KNN_MIN_WARPS
 
 
-# phase 16's atomics check: the two kernels that write each output element
-# once, with shared-memory atomics only (ATOMS, not counted)
-ATOMIC_SASS = """
+DQ_16 = "_Z18sa_train_dq_kernelILi16EEvPKfPKiPKbPfiiii"
+# phase 16's atomics check: the kernels that write each output element once,
+# with shared-memory atomics only (ATOMS, not counted)
+ATOMIC_SASS = f"""
         Function : _Z18knn_scatter_kernelILb1EEvPKiPKfS3_Pfiiiii
         /*0000*/                   ATOMS.ADD RZ, [R2], R3 ;
         /*0010*/                   LDG.E R4, [R6.64] ;
@@ -244,10 +245,18 @@ ATOMIC_SASS = """
         /*0000*/                   ATOMS.CAS.64 R4, [R2], R4, R6 ;
         /*0010*/                   STG.E [R8.64], R4 ;
         /*0020*/                   EXIT ;
+        Function : {BWD2_1}
+        /*0000*/                   LDG.E R4, [R6.64] ;
+        /*0010*/                   STG.E [R8.64], R4 ;
+        /*0020*/                   EXIT ;
+        Function : {DQ_16}
+        /*0000*/                   ATOMS.ADD RZ, [R2], R3 ;
+        /*0010*/                   STG.E [R8.64], R4 ;
+        /*0020*/                   EXIT ;
 """
 
 
-@pytest.mark.parametrize("kernel", ["knn_scatter_kernel", "pixel_max_kernel"])
+@pytest.mark.parametrize("kernel", [kernel for kernel, _ in cs.ATOMIC_FREE])
 def test_atomics_check_passes_shared_atomics_and_fails_a_global_one(kernel):
     """The listing's shared atomics pass; a global float RED, an ATOMG or a
     REDG in the kernel fails phase 16, and so does a kernel missing from
@@ -264,6 +273,18 @@ def test_atomics_check_passes_shared_atomics_and_fails_a_global_one(kernel):
             cs.check_no_atomics(counts, kernel)
     with pytest.raises(SystemExit):
         cs.check_no_atomics(cs.global_atomics(ATOMIC_SASS, "sa_kernel"), "sa_kernel")
+
+
+def test_atomic_free_kernels_are_the_wrappers_device_kernels():
+    """Phase 16's atomics check covers every device kernel of the scatter
+    wrappers and of sa_train_bwd2 (its edge and dq passes), each from the
+    library its wrapper loads."""
+    want = {(kernel, ck._ENTRIES[name][0]) for name in ("knn_scatter", "pixel_max",
+                                                         "sa_train_bwd2")
+            for kernel in cs.DEVICE_KERNELS[name]}
+    assert set(cs.ATOMIC_FREE) == want
+    src = (Path(ck.__file__).parent / "csrc" / "sa_train.cu").read_text()
+    assert "sa_train_dq_kernel<16><<<" in src and "sa_train_dq_kernel<32><<<" in src
 
 
 def _degrees(idx, s):
@@ -357,6 +378,19 @@ def test_knn_scatter_reference_sites_pass_the_smoke_checks(smoke_on_cpu, scatter
     assert plain().shape == (args[0].shape[0], args[3], args[2].shape[2])
 
 
+@pytest.mark.parametrize("bad", [-1, "S"])
+def test_knn_scatter_site_rejects_unweighted_ids_out_of_range(smoke_on_cpu, scatter_calls, bad):
+    """Without weights (the gather backward) an id outside [0, S) is a bug
+    of the caller, and the site check fails on it; with weights (the kNN
+    backward's reference site) such ids are skipped by design."""
+    idx, w, g, s = scatter_calls[0]
+    assert w is None
+    idx = idx.clone()
+    idx[0, 0, 5] = s if bad == "S" else bad
+    with pytest.raises(SystemExit, match="ids outside"):
+        cs.knn_scatter_site(torch, ck, 0, (idx, w, g, s))
+
+
 @pytest.mark.parametrize("site", range(len(cs.KNN_SCATTER_REFERENCE)))
 def test_knn_scatter_smoke_checks_reject_another_order_and_an_unstable_one(
         smoke_on_cpu, scatter_calls, monkeypatch, site):
@@ -379,6 +413,112 @@ def test_knn_scatter_smoke_checks_reject_another_order_and_an_unstable_one(
     monkeypatch.setattr(ck, "knn_scatter", unstable)
     with pytest.raises(SystemExit, match="two launches differ"):
         cs.knn_scatter_site(torch, ck, site, args)
+
+
+def card_route_bwd2(q, cterm, idx, mask, aff, w2, awin, gt, edges=False):
+    """sa_train_bwd2 as it runs on the card: the per-edge de0 (0 on a masked
+    slot) as an edge buffer, summed into dq in the dq pass's order."""
+    b, n, ch1 = q.shape
+    c, k = idx.shape[1:]
+    de = ck.sa_train_edges(q, cterm, idx, mask, aff, w2, awin, gt)["de0"].reshape(b, c * k, ch1)
+    out = (ck.sa_train_dq_ordered_plain(de, idx, mask, n), -ck._sum64(de.view(b, c, k, ch1), 2))
+    return (*out, de) if edges else out
+
+
+@pytest.mark.parametrize("site", range(cs.SA_TRAIN_REF_SITES["sa_train_bwd2"]))
+def test_bwd2_dq_checks_pass_the_card_route_and_reject_others(
+        smoke_on_cpu, sa_reference_calls, monkeypatch, site):
+    """At each sa_train_bwd2 reference site, chip_smoke's dq checks pass the
+    card's route (edge buffer + the dq pass's fixed order) and reject a dq
+    summed in decreasing edge order, a dq summed in float64 and rounded
+    once (within any-order bounds, not the kernel's order), an edge buffer
+    with a value on a masked slot, and two calls that differ."""
+    args = sa_reference_calls["sa_train_bwd2"][site]
+    monkeypatch.setattr(cs, "device_profile", lambda *a, **k: (0.0, 2, 4))
+    q, cterm, idx, mask = args[:4]
+    b, c, k = idx.shape
+    n, ch1 = q.shape[1:]
+    dq, dcterm, de = card_route_bwd2(*args, edges=True)  # computed once, then varied
+
+    def route(dq, de):
+        return lambda *a, edges=False: (dq, dcterm, de) if edges else (dq, dcterm)
+
+    monkeypatch.setattr(ck, "sa_train_bwd2", route(dq, de))
+    lib_ms, parts = cs.bwd2_dq_checks(torch, ck, site, args, (dq, dcterm))
+    assert lib_ms == 0.0 and parts["edge_buffer_bytes"] == 4.0 * ch1 * (
+        b * c * k + int(mask.sum()))
+    flip = de.view(b, c, k, ch1).flip(1).reshape(b, c * k, ch1)
+    reversed_order = ck.sa_train_dq_ordered_plain(flip, idx.flip(1), mask.flip(1), n)
+    float64_sum = ck.sa_train_bwd2_plain(*args)[0]
+    masked_value = torch.where(mask.reshape(b, c * k, 1), de, 1.0)
+    for wrong, match in (((reversed_order, de), "differs from the ordered plain"),
+                         ((float64_sum, de), "differs from the ordered plain"),
+                         ((dq, masked_value), "edge buffer differs")):
+        monkeypatch.setattr(ck, "sa_train_bwd2", route(*wrong))
+        with pytest.raises(SystemExit, match=match):
+            cs.bwd2_dq_checks(torch, ck, site, args, ck.sa_train_bwd2(*args))
+    monkeypatch.setattr(ck, "sa_train_bwd2", route(dq, de))
+    with pytest.raises(SystemExit, match="two calls differ in dq"):
+        cs.bwd2_dq_checks(torch, ck, site, args, (dq + 1.0, dcterm))
+
+
+@pytest.mark.parametrize("site", range(cs.SA_TRAIN_REF_SITES["sa_train_bwd2"]))
+def test_sa_train_dq_ordered_plain_sums_each_point_in_edge_order(sa_reference_calls, site):
+    """The dq pass's order, written out: each point's row is 0 plus its
+    valid edges' de0 rows in increasing edge order, one float32 add at a
+    time; it lies within float32 rounding of the float64 plain dq, and the
+    reference site's slots pick only their own group's points, as the dq
+    pass needs."""
+    q, cterm, idx, mask, aff, w2, awin, gt = sa_reference_calls["sa_train_bwd2"][site]
+    b, n, ch1 = q.shape
+    c, k = idx.shape[1:]
+    de = ck.sa_train_edges(q, cterm, idx, mask, aff, w2, awin, gt)["de0"].reshape(b, c * k, ch1)
+    got = ck.sa_train_dq_ordered_plain(de, idx, mask, n)
+    g = -(-n // k)
+    slot = torch.arange(k)[None, None, :]
+    assert bool(((idx // g == slot) | ~mask).all())
+    want = torch.zeros((b, n, ch1))
+    for bi in range(b):
+        for e in torch.nonzero(mask[bi].reshape(-1)).squeeze(1).tolist():
+            p = int(idx[bi].reshape(-1)[e])
+            want[bi, p] = want[bi, p] + de[bi, e]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    plain = ck.sa_train_bwd2_plain(q, cterm, idx, mask, aff, w2, awin, gt)[0]
+    torch.testing.assert_close(got, plain, rtol=0, atol=1e-4)
+
+
+def test_reproducible_steps_on_the_cpu(monkeypatch, capsys):
+    """Phase 12b at N=256 on the CPU: two train steps from one saved state
+    (after a first step, so Adam has moments) are equal bit for bit; a step
+    that draws noise of its own fails the check."""
+    import json
+
+    from dataclasses import replace
+
+    from stratanet2_tpu_torch.config import default_config
+    from stratanet2_tpu_torch.learning.kde import fit_kde_mixture
+    from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
+    from stratanet2_tpu_torch.utils.synthetic import random_model, train_batch
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    cfg = default_config()
+    cfg = replace(cfg, model=replace(cfg.model, subsample_size=256, k1=8, k2=16))
+    cloud, xyz, gt = train_batch(2, 256, torch.Generator().manual_seed(0), torch.device("cpu"))
+    kde = fit_kde_mixture((cloud[..., 2] * cfg.model.z_max).numpy())
+    model = random_model(cfg.model, 0, torch.device("cpu"), running_stats=False)
+    opt, sched = make_optimizer(cfg, model, cs.STEPS_PER_EPOCH)
+    step = make_train_step(cfg, kde, device="cpu")
+    step(model, opt, sched, cloud, xyz, gt)
+    cs.reproducible_steps(torch, cfg, step, model, opt, sched, (cloud, xyz, gt))
+    row = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert row["phase"] == "train_step_reproducible" and row["differ"] == []
+    assert row["tensors"] == 4 + len(list(model.parameters())) + len(list(model.buffers()))
+
+    def noisy(m, o, s, c, x, g):
+        return step(m, o, s, c + 1e-3 * torch.rand(c.shape), x, g)
+
+    with pytest.raises(SystemExit, match="differ in"):
+        cs.reproducible_steps(torch, cfg, noisy, model, opt, sched, (cloud, xyz, gt))
 
 
 @pytest.mark.parametrize("site", range(len(cs.PIXEL_MAX_REFERENCE)))
@@ -426,6 +566,48 @@ def test_loader_steps_phase_runs_on_the_cpu(monkeypatch, capsys):
     assert row["epoch_steady_ms_a_batch"] == row["epoch_host_ms_a_batch"][1]
     assert len(row["fed_wait_ms"]) == 2 and len(row["fed_step_ms"]) == 2
     assert [x["phase"] for x in lines] == ["loader_steps_launches", "loader_steps"]
+
+
+def test_parcel_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """Phase 15e's control flow at a tiny size on the CPU: a parcel LAS
+    written, tiled and extracted, predict_parcel with chains 8 and 1 for
+    both tasks (equal bit for bit), the shapefile update, the upload
+    variants and the card-vs-CPU corner (here CPU against CPU); the kernel
+    wrappers run their plain versions, so no launch is counted."""
+    from dataclasses import replace
+
+    import json
+
+    from stratanet2_tpu_torch.config import default_config
+
+    monkeypatch.setattr(cs, "PARCEL_SIZE", 20.0)
+    monkeypatch.setattr(cs, "PARCEL_DENSITY", 2.0)
+    monkeypatch.setattr(cs, "PARCEL_CPU_PLOTS", 2)
+    monkeypatch.setattr(cs, "SERVE_LAUNCHES", dict.fromkeys(cs.SERVE_LAUNCHES, 0))
+    monkeypatch.setattr(cs, "device_busy_ms", lambda torch, fn: (fn(), 0.0))
+    monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self: self)  # no card: no pinning
+    cfg = default_config()
+    cfg = replace(cfg, model=replace(cfg.model, subsample_size=256, k1=8, k2=16),
+                  train=replace(cfg.train, batch_size=3),
+                  data=replace(cfg.data, min_points_for_pseudo_labelling=400))
+    cs.parcel_phase(torch, ck, cfg, torch.device("cpu"), "cpu")
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    phases = [x["phase"] for x in lines]
+    assert phases[0] == "parcel_prepare" and phases[-2:] == ["parcel", "parcel_cpu_reference"]
+    prep, row, ref = lines[0], lines[-2], lines[-1]
+    assert prep["plots"] == row["plots"] > cs.PARCEL_CPU_PLOTS
+    assert prep["las_points"] == round((20.0 + 40.0) ** 2 * 2.0)
+    runs = row["runs"]
+    inference = runs["inference_chain_8"]
+    assert inference["batches"] == -(-row["plots"] // 3) == runs["inference_chain_1"]["batches"]
+    assert inference["batches"] % 8  # the last chain of 8 is short
+    assert 0 < runs["pseudo_chain_8"]["plots"] <= row["plots"]
+    assert len(row["upload_seconds"]["pinned"]) == len(row["upload_seconds"]["pageable"]) == 3
+    for split in ("cold", "warm"):
+        assert set(row["split_seconds"][split]) == {"prepare", "predict", "merge_and_shapefile"}
+        assert row["plots_per_s"][split] > 0
+    assert ref["tif_max_abs_diff"] == 0.0 and ref["pred_fields_max_abs_diff"] == 0.0
+    assert sum(p == "parcel_inference_chain_8_launches" for p in phases) == 1
 
 
 def test_stats_lanes_mirror_the_cuda_source(monkeypatch):
