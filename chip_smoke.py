@@ -3,8 +3,9 @@
 eleven CUDA kernels of the serve and train paths from
 `stratanet2_tpu_torch/ops/csrc/`, holds each against its plain PyTorch
 version at the shapes its path gives it, drives the serve step, the train
-step, the training loop and parcel predict at full width (B=20 clouds x
-N=10000 points, random weights from a seed) and checks their outputs.
+step, the training loop, parcel predict and the four CLIs at full width
+(B=20 clouds x N=10000 points, random weights from a seed) and checks their
+outputs.
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
 
@@ -119,16 +120,23 @@ Phases, in order, each failing loudly:
   15d. `"phase": "train_full"`: the training loop (`learning/train.train_full`)
      over 100 plots (15c's prepared plots repeated under new ids), fold 1 of
      the port's KFold split (80 train, 20 val), the PROD model, the DEV
-     profile with early stopping: 2 epochs (checkpoints written, loss parts
+     profile with early stopping, on the device-resident path that the
+     default (`device_resident="auto"`) takes there: 2 epochs (checkpoints written, loss parts
      finite, JAX's dict keys), a resume to 3 epochs from a copy of that
      folder and one from an unbroken 3-epoch run's own epoch-2 checkpoints,
      each against that unbroken run (bit for bit: RESUME_BOUND), the
      same two resumes with Adam's state dropped outside it, and
      the best checkpoint reloaded into a fresh model and evaluated (equal to
      the run's final eval); launch counters zeroed before and checked after each
-     run (train batches x the train step's, evals x EVAL_LAUNCHES); then its
-     seconds an epoch, points/s, ms a batch, eval and checkpoint seconds,
-     and the figures skipped for a missing module, each on a line of its own;
+     run (train batches x the train step's, eval batches x EVAL_LAUNCHES),
+     and one 2-epoch run on the host loader's path (`device_resident="false"`),
+     counted alike; then the seconds an epoch, points/s and ms a batch of
+     each path, eval and checkpoint seconds, and the figures skipped for a
+     missing module, each on a line of its own; then `"phase":
+     "train_full_paths"`, the two paths' epochs alone from one model (seconds
+     an epoch, ms a batch, the device busy share of an epoch, the card-resident
+     MB of the tables) and `"phase": "device_epoch_host_syncs"`, the host
+     calls that wait for the card in a device-resident epoch's loop;
   15e. `"phase": "parcel"`: parcel predict at PROD width (`parcel_phase`):
      a synthetic 100 m parcel's LAS (140 m with its buffer, ~627,000
      points) written, tiled and extracted (`"phase": "parcel_prepare"`,
@@ -139,6 +147,14 @@ Phases, in order, each failing loudly:
      from pageable against pinned memory; then `"phase":
      "parcel_cpu_reference"`, 4 plots as one batch on the card against the
      CPU (merged tif and PRED_* fields within CPU_ATOL);
+  15f. `"phase": "cli"`: the four CLIs in DEV mode at PROD width
+     (`cli_phase`) on a data tree written with the port's writers (30 plot
+     LAS of 12,000 points and their GT csv; a 60 m parcel's LAS and its
+     shapefile): main -> prepare -> predict inference (a subprocess
+     `python -m stratanet2_tpu_torch.cli.predict` without `--device`) ->
+     predict pseudo_labelling -> main_ssl -> main --PT_model_id, each with
+     its artifacts checked and its launches (every kernel of its path, none
+     off it), seconds and skipped figures on a line of its own;
   16. `"phase": "selection_floor"`, for sa_fused_eval and knn_interpolate
      (serve step) and ball_query (train step): the SASS instructions a pair
      of the scan loop (cuobjdump of the built library; for kNN also on the
@@ -376,6 +392,10 @@ PARCEL_CPU_PLOTS = 4
 # warm runs of the chain-8 inference, the port's (batches from pageable
 # memory) and with a pinned, non-blocking upload, in turns
 PARCEL_UPLOADS = ("pageable", "pinned", "pinned", "pageable", "pageable", "pinned")
+# phase 15f (cli): DEV's 30 plots (5 folds x 6) of about a PROD plot's
+# points, and a parcel of CLI_PARCEL_SIZE m at PARCEL_DENSITY
+CLI_PLOTS, CLI_POINTS = 30, 12000
+CLI_PARCEL_SIZE = 60.0
 SEED = 0
 STEPS = 30  # timed steps; the median is reported
 PROFILE_STEPS = 10
@@ -1899,6 +1919,7 @@ def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
         make_eval_step,
         save_train_state,
         train_full,
+        use_device_resident,
     )
     from stratanet2_tpu_torch.utils import checkpoint as ckpt
     from stratanet2_tpu_torch.utils.convert import from_jax_params
@@ -1922,6 +1943,8 @@ def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
     b = run_cfg.train.batch_size
     batches = len(train_ids) // b
     kde = fit_kde_mixture_from_dataset(ds, seed=SEED)
+    check(use_device_resident(ds, train_ids, val_ids, run_cfg),
+          "train_full: the default (auto) does not take the device-resident path at PROD")
     draws = importlib.util.find_spec("matplotlib") is not None
     warned = _Warnings()
     logging.getLogger("stratanet2_tpu_torch").addHandler(warned)
@@ -1936,10 +1959,11 @@ def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
         check_launches(ck.launch_counts(), want, f"train_full_{what}")
         return out
 
-    def run(folder, n_epoch, resume=False):
+    def run(folder, n_epoch, resume=False, device_resident="auto"):
         sink = MetricSink(folder)
         try:
-            cfg_n = replace(run_cfg, train=replace(run_cfg.train, n_epoch=n_epoch))
+            cfg_n = replace(run_cfg, train=replace(run_cfg.train, n_epoch=n_epoch),
+                            data=replace(run_cfg.data, device_resident=device_resident))
             return train_full(ds, train_ids, val_ids, cfg_n, kde, folder, sink, fold_id=1,
                               seed=SEED, resume=resume, device=device)
         finally:
@@ -2007,8 +2031,8 @@ def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
 
     with tempfile.TemporaryDirectory() as tmp:
         root = setup_experiment_folder(tmp, "learning", "DEV")
-        run1, run2, run3, run4, run5, run6 = (os.path.join(root, f"run_{i}")
-                                              for i in range(1, 7))
+        run1, run2, run3, run4, run5, run6, run7 = (os.path.join(root, f"run_{i}")
+                                                    for i in range(1, 8))
         os.makedirs(run1)
         out1 = counted("run_1", lambda: run(run1, 2), 2 * batches, 3)
         best = os.path.join(run1, ckpt.checkpoint_name(1))
@@ -2026,6 +2050,9 @@ def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
         out5 = counted("run_5_control_own", lambda: run(run5, 3, resume=True), batches, 2)
         out6 = counted("run_6_control_from_run_1", lambda: run(run6, 3, resume=True),
                        batches, 2)
+        os.makedirs(run7)
+        out7 = counted("run_7_host_path", lambda: run(run7, 2, device_resident="false"),
+                       2 * batches, 3)
 
         payload = ckpt.load_checkpoint(best)
         fresh = from_jax_params(payload["params"], payload["model_state"], run_cfg.model,
@@ -2047,7 +2074,7 @@ def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
 
     runs = {"run_1": out1, "run_2_resumed": out2, "run_3_unbroken": out3,
             "run_4_resumed_own": out4, "run_5_control_own": out5,
-            "run_6_control_from_run_1": out6}
+            "run_6_control_from_run_1": out6, "run_7_host_path": out7}
     resume = {"from_run_1": compare(out2, out3), "own": compare(out4, out3),
               "control_from_run_1": compare(out6, out3), "control_own": compare(out5, out3),
               "recomputed_epochs_1_2_loss": max(
@@ -2055,7 +2082,8 @@ def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
                   loss_diff(out1[2][:2], out3[2][:2], LOSS_KEYS))}
     reload = {"loss": loss_diff([te_re], out1[2][-1:], LOSS_KEYS),
               "pred": pred_diff(rows_re, out1[3])}
-    train_rows = [d for out in runs.values() for d in out[1]]
+    train_rows = [d for name, out in runs.items() for d in out[1] if name != "run_7_host_path"]
+    host_rows = out7[1]
     epoch_s = [d["epoch_seconds"] for d in train_rows]
     print(json.dumps({"phase": "train_full", "plots": len(ds), "train_plots": len(train_ids),
                       "val_plots": len(val_ids), "B": b, "N": run_cfg.model.subsample_size,
@@ -2064,10 +2092,16 @@ def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
                       "eval_losses": {k: out[2] for k, out in runs.items()},
                       "resume_max_abs_diff": resume, "reload_max_abs_diff": reload,
                       "card": card}), flush=True)
-    print(json.dumps({"phase": "train_full_epoch", "epoch_seconds": epoch_s,
+    print(json.dumps({"phase": "train_full_epoch", "path": "device_resident",
+                      "epoch_seconds": epoch_s,
                       "points_per_sec": [d["points_per_sec"] for d in train_rows],
                       "ms_a_batch": [t * 1e3 / batches for t in epoch_s],
                       "loader_steps_fed_ms_a_batch": fed_ms, "card": card}), flush=True)
+    host_s = [d["epoch_seconds"] for d in host_rows]
+    print(json.dumps({"phase": "train_full_epoch", "path": "host_loader", "epoch_seconds": host_s,
+                      "points_per_sec": [d["points_per_sec"] for d in host_rows],
+                      "ms_a_batch": [t * 1e3 / batches for t in host_s], "card": card}),
+          flush=True)
     print(json.dumps({"phase": "train_full_eval", "eval_seconds": eval_s, "val_plots": len(val_ids),
                       "card": card}), flush=True)
     print(json.dumps({"phase": "train_full_checkpoint", "write_seconds": write_s,
@@ -2077,7 +2111,7 @@ def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
 
     want_epochs = {"run_1": [1, 2], "run_2_resumed": [3], "run_3_unbroken": [1, 2, 3],
                    "run_4_resumed_own": [3], "run_5_control_own": [3],
-                   "run_6_control_from_run_1": [3]}
+                   "run_6_control_from_run_1": [3], "run_7_host_path": [1, 2]}
     for name, out in runs.items():
         ts, tr, te, _ = out
         check([d["epoch"] for d in tr] == want_epochs[name], f"train_full {name}: epochs")
@@ -2100,6 +2134,90 @@ def train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms):
               f"{bounds}: {control}")
     check(reload["loss"] == 0 and reload["pred"] == 0,
           f"train_full: reloaded eval off run 1's final eval {reload}")
+    epoch_paths(torch, run_cfg, ds, train_ids, val_ids, kde, device, card)
+
+
+# host calls that wait for the card (or copy from it), and kernel launches,
+# as torch.profiler names them
+SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+               "cudaMemcpy", "cudaMemcpyAsync", "aten::item", "aten::_local_scalar_dense",
+               "aten::nonzero")
+EPOCH_REPS = 3  # timed epochs of each path
+
+
+def epoch_paths(torch, cfg, ds, train_ids, val_ids, kde, device, card):
+    """Phase 15d's epochs measured alone, the device-resident path against
+    the host loader's, from one model: EPOCH_REPS epochs of each timed on
+    the host clock (each ends with its loss parts read), then one of each
+    under torch.profiler for the device's busy time (`device_busy_ms`), the
+    busy share of the median epoch, and, for the device-resident epoch's
+    loop (`make_device_epoch`'s function, without the read that ends it),
+    the count of each host call that may wait for the card (SYNC_EVENTS,
+    less those of a profile of nothing, which ends with the same
+    synchronize) and of the card's copies by direction. Prints the
+    card-resident MB of the train and val tables."""
+    import numpy as np
+
+    from stratanet2_tpu_torch.data import device_dataset as D
+    from stratanet2_tpu_torch.data.loader import PlotLoader
+    from stratanet2_tpu_torch.learning import train as T
+
+    b = cfg.train.batch_size
+    nb = len(train_ids) // b
+    step = T.make_train_step(cfg, kde, device=device)
+    ts = T.init_train_state(cfg, nb, seed=SEED, device=device)
+    dd = D.build_device_dataset(ds, list(train_ids), cfg.model, device)
+    dd_val = D.build_device_dataset(ds, list(val_ids), cfg.model, device)
+    table_mb = sum(t.numel() * t.element_size() for table in (dd, dd_val)
+                   for t in (table.feats, table.xyz, table.n, table.coverages)) / 1e6
+    epoch_fn = D.make_device_epoch(cfg, step)
+    paths = {
+        "device_resident": lambda e: T.train_one_epoch_device_resident(
+            epoch_fn, ts, dd, cfg, SEED, e),
+        "host_loader": lambda e: T.train_one_epoch(
+            step, ts, PlotLoader(ds, cfg, plot_ids=train_ids, train=True, seed=SEED),
+            T.epoch_generator(SEED, e, device)),
+    }
+    out = {}
+    for name, epoch in paths.items():
+        seconds = []
+        for e in range(1, EPOCH_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            epoch(e)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        _, busy = device_busy_ms(torch, lambda: epoch(EPOCH_REPS + 1))
+        median_ms = sorted(seconds)[len(seconds) // 2] * 1e3
+        out[name] = {"epoch_seconds": seconds, "ms_a_batch": median_ms / nb,
+                     "device_busy_ms": busy, "busy_share": busy / median_ms}
+        check(busy > 0, f"epoch_paths: no device time in the profiled {name} epoch")
+    idx = torch.from_numpy(D.epoch_index_table(len(train_ids), b, SEED, 9)).to(device)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def listing(fn):
+        """{event name: count} of fn() and the synchronize that ends it."""
+        with torch.profiler.profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {e.key: e.count for e in prof.key_averages()}
+
+    base = listing(lambda: None)  # what the profile itself adds
+    counts = listing(lambda: epoch_fn(ts.model, ts.optimizer, ts.scheduler, dd, idx,
+                                      T.epoch_generator(SEED, 9, device)))
+    syncs = {k: counts.get(k, 0) - base.get(k, 0) for k in SYNC_EVENTS}
+    # the copies the card ran, by direction (kineto's "Memcpy HtoD (...)" names)
+    syncs.update({k: v for k, v in counts.items() if k.startswith("Memcpy")})
+    launches = sum(v for k, v in counts.items() if k in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                                        "cuLaunchKernel", "cuLaunchKernelEx"))
+    print(json.dumps({"phase": "train_full_paths", "plots": len(train_ids), "B": b, "batches": nb,
+                      "N": cfg.model.subsample_size, "rows_a_plot": int(dd.feats.shape[1]),
+                      "card_resident_mb": table_mb, **out, "card": card}), flush=True)
+    print(json.dumps({"phase": "device_epoch_host_syncs", "batches": nb, **syncs,
+                      "kernel_launches": launches,
+                      "note": "less an empty profile's events; aten::item on the host's "
+                              "tensors waits for nothing"}), flush=True)
+    check(np.isfinite(out["device_resident"]["busy_share"]), "epoch_paths: busy share")
 
 
 def device_busy_ms(torch, fn):
@@ -2339,6 +2457,205 @@ def parcel_phase(torch, ck, cfg, device, card):
           f"parcel corner: card and CPU differ by {max(tif_err, pred_err)}")
 
 
+def cli_launches(stats_dir):
+    """The kernel launches a CLI logged at its end (`cli.log_kernel_launches`)
+    in its run folder's stats.txt."""
+    import os
+
+    with open(os.path.join(stats_dir, "stats.txt")) as f:
+        lines = [line for line in f if "Kernel launches: " in line]
+    check(len(lines) == 1, f"cli: {len(lines)} kernel-launch lines in {stats_dir}/stats.txt")
+    return json.loads(lines[0].split("Kernel launches: ", 1)[1])
+
+
+def cli_phase(torch, ck, card, flags=("--subsample_size", "10000"), device="cuda"):
+    """Phase 15f: the four CLIs (`stratanet2_tpu_torch/cli/`) in DEV mode at
+    PROD width (`--subsample_size 10000`) on a data tree written with the
+    port's writers: CLI_PLOTS plot LAS of CLI_POINTS points and their GT
+    csv, and a parcel (CLI_PARCEL_SIZE m, its LAS with the tiling buffer at
+    PARCEL_DENSITY) with its shapefile. In order: main -> prepare -> predict
+    inference -> predict pseudo_labelling -> main_ssl -> main --PT_model_id,
+    each in this process with `--device cuda` (launch counters zeroed just
+    before and read just after) except predict inference, which runs as
+    `python -m stratanet2_tpu_torch.cli.predict` in a subprocess without
+    `--device` (the default is the card; its counts are the line the CLI
+    logs in its stats.txt, which the in-process runs must log equal to the
+    counters). Each run's artifacts are checked, and its counts: every
+    kernel of its path launched (training: all eleven, the eval's
+    sa_fused_eval among them; predict: the four serve kernels), none off
+    it (prepare: none). Prints each CLI's seconds, its launches and the
+    warnings its stats.txt holds (the figures it skipped). `flags` and
+    `device` let a test run the phase small on the CPU (then the subprocess
+    is given the device too)."""
+    import os
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from stratanet2_tpu_torch.cli import main as cli_main
+    from stratanet2_tpu_torch.cli import main_ssl as cli_ssl
+    from stratanet2_tpu_torch.cli import predict as cli_predict
+    from stratanet2_tpu_torch.cli import prepare as cli_prepare
+    from stratanet2_tpu_torch.data import las
+    from stratanet2_tpu_torch.inference import geotiff, polygons, shapefile_io, tiling
+    from stratanet2_tpu_torch.utils.synthetic import (
+        cloud_to_las_fields,
+        make_parcel_cloud,
+        make_plot_cloud,
+    )
+
+    rng = np.random.default_rng(SEED + 17)
+    classes = (0, 10, 25, 33, 50, 75, 90, 100)
+    serve = {"fps", "sa_fused_eval", "knn_interpolate", "pixel_max"}
+    everything = set(TRAIN_LAUNCHES)
+    logger = logging.getLogger("stratanet2_tpu_torch")
+    with tempfile.TemporaryDirectory() as tmp:
+        las_dir = os.path.join(tmp, "placettes_dataset", "las_classes")
+        parcels = os.path.join(tmp, "parcelles_dataset_20m")
+        os.makedirs(las_dir)
+        os.makedirs(os.path.join(parcels, "input"))
+        gt_csv = os.path.join(tmp, "placettes_dataset", "placettes_metadata.csv")
+        t0 = time.perf_counter()
+        lines = ["nom,COUV_BASSE,COUV_INTER,COUV_HAUTE"]
+        for i in range(CLI_PLOTS):
+            name = f"Plot_{i:02d}"
+            c = make_plot_cloud(rng, n=CLI_POINTS, center=(1000 + 40 * i, 2000))
+            las.write_las(os.path.join(las_dir, f"{name}.las"), cloud_to_las_fields(c))
+            lines.append(",".join([name] + [str(int(v)) for v in rng.choice(classes, 3)]))
+        with open(gt_csv, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        x0, y0 = PARCEL_ORIGIN
+        size, buf = CLI_PARCEL_SIZE, tiling.LAS_PARCEL_BUFFER
+        parcel_id = "PARCEL_CLI"
+        cloud = make_parcel_cloud(rng, (x0 - buf, y0 - buf), size + 2 * buf, PARCEL_DENSITY)
+        las.write_las(os.path.join(parcels, "input", f"{parcel_id}.las"),
+                      cloud_to_las_fields(cloud))
+        ring = np.array([[x0, y0], [x0 + size, y0], [x0 + size, y0 + size], [x0, y0 + size]])
+        shp_in = os.path.join(parcels, "input", "parcels.shp")
+        shapefile_io.write_shapefile(shp_in, shapefile_io.Shapefile(
+            fields=[shapefile_io.FieldSpec("ID", "C", 16)],
+            shape_records=[shapefile_io.ShapeRecord(polygons.Polygon([ring]),
+                                                    {"ID": parcel_id})]))
+        write_s = time.perf_counter() - t0
+        experiments = os.path.join(tmp, "experiments")
+        args = ["--mode", "DEV", *flags, "--data_path", tmp, "--las_plots_folder_path", las_dir,
+                "--gt_file_path", gt_csv, "--corrected_gt_file_path", gt_csv,
+                "--plots_pickled_dataset_path",
+                os.path.join(tmp, "placettes_dataset", "prepared", "plots.pkl"),
+                "--las_parcels_folder_path", parcels, "--parcel_shapefile_path", shp_in,
+                "--experiments_path", experiments]
+        on_card = args + ["--device", device]
+
+        def newest(task):
+            folder = os.path.join(experiments, task, "DEV")
+            return os.path.join(folder, sorted(os.listdir(folder))[-1])
+
+        def warnings_of(stats_dir):
+            with open(os.path.join(stats_dir, "stats.txt")) as f:
+                return [line.split(":WARNING: ", 1)[1].strip() for line in f
+                        if ":WARNING: " in line]
+
+        def cli(name, fn, task, path):
+            """fn() in this process, counted; returns (its result, its run folder)."""
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = ck.launch_counts()
+            for handler in list(logger.handlers):  # the CLI's stdout and stats.txt
+                logger.removeHandler(handler)
+                handler.close()
+            stats_dir = out if isinstance(out, str) else newest(task)
+            if path:
+                check(cli_launches(stats_dir) == launches,
+                      f"cli {name}: logged launches differ from the counters {launches}")
+            report(name, seconds, launches, stats_dir, path)
+            return out, stats_dir
+
+        def report(name, seconds, launches, stats_dir, path):
+            print(json.dumps({"phase": "cli", "cli": name, "seconds": seconds,
+                              "launches": launches, "warnings": warnings_of(stats_dir),
+                              "card": card}), flush=True)
+            for kernel in everything:
+                if kernel in path:
+                    check(launches[kernel] > 0, f"cli {name}: {kernel} never launched")
+                else:
+                    check(launches[kernel] == 0, f"cli {name}: {kernel} launched off its path")
+
+        def check_training(name, stats_dir, fold_ckpt, summaries=("relabeled_summary", "summary")):
+            csvs = tuple(f"PCC_inference_all_placettes_{s}.csv" for s in summaries)
+            for f in (fold_ckpt, "metrics.jsonl") + csvs:
+                check(os.path.exists(os.path.join(stats_dir, f)), f"cli {name}: no {f}")
+            with open(os.path.join(stats_dir, "stats.txt")) as f:
+                check("Device-resident dataset" in f.read(),
+                      f"cli {name}: training did not take the device-resident path")
+
+        trained, train_dir = cli("main", lambda: cli_main.main(on_card), "learning", everything)
+        check_training("main", train_dir, "PCC_model_fold_n=1.pt")
+        model_id = os.path.basename(trained)
+
+        cli("prepare", lambda: cli_prepare.main(on_card), "prepare", set())
+        prepared = os.path.join(parcels, "prepared", f"{parcel_id}.pkl")
+        with open(prepared, "rb") as f:
+            n_plots = len(pickle.load(f))
+        check(n_plots > 0, "cli prepare: no plot in the prepared parcel")
+
+        # predict inference: a user's command line, without --device
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "stratanet2_tpu_torch.cli.predict", *args,
+             "--task", "inference", "--inference_model_id", model_id,
+             *(() if device == "cuda" else ("--device", device))],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"cli predict (subprocess): exit {proc.returncode}: {proc.stderr[-3000:]}")
+        check(ck.launch_counts() == dict.fromkeys(ck.LAUNCHES, 0), "cli: counters moved here")
+        stats_dir = newest("inference")
+        report("predict_inference_subprocess", seconds, cli_launches(stats_dir), stats_dir,
+               serve)
+        out_dir = os.path.join(parcels, "inference", model_id)
+        tif = geotiff.read_geotiff(os.path.join(out_dir, f"{parcel_id}.tif"))
+        check(tif.bands.shape[0] == 6, f"cli predict: tif bands {tif.bands.shape}")
+        filled = tif.bands[:5][np.isfinite(tif.bands[:5])]  # the 6th band: the weights
+        check(filled.size > 0 and bool(((filled >= 0) & (filled <= 1)).all()),
+              "cli predict: coverage bands outside [0, 1] or empty")
+        record = shapefile_io.read_shapefile(
+            os.path.join(out_dir, "parcels.shp")).shape_records[0].record
+        preds = {k: float(v) for k, v in record.items() if k.startswith("PRED_")}
+        check(len(preds) == 4 and all(0 <= v <= 1 for v in preds.values()),
+              f"cli predict: PRED_* fields {preds}")
+
+        cli("predict_pseudo_labelling", lambda: cli_predict.main(
+            on_card + ["--task", "pseudo_labelling", "--inference_model_id", model_id]),
+            "pseudo_labelling", serve)
+        with open(os.path.join(parcels, "pseudo_labelling", model_id, f"{parcel_id}.pkl"),
+                  "rb") as f:
+            labelled = pickle.load(f)
+        check(len(labelled) >= CLI_PLOTS, f"cli predict: {len(labelled)} plots pseudo-labelled")
+        for item in labelled.values():
+            cov = np.asarray(item["coverages"])
+            check(cov.shape == (4,) and bool(((cov >= 0) & (cov <= 1)).all()),
+                  f"cli predict: pseudo-label {cov}")
+
+        ssl_dir, _ = cli("main_ssl", lambda: cli_ssl.main(
+            on_card + ["--inference_model_id", model_id]), "pretraining", everything)
+        check_training("main_ssl", ssl_dir, "PCC_model_full.pt", ("pretraining_summary",))
+        _, warm_dir = cli("main_warm_start", lambda: cli_main.main(
+            on_card + ["--PT_model_id", os.path.basename(ssl_dir)]), "learning", everything)
+        check_training("main_warm_start", warm_dir, "PCC_model_fold_n=1.pt")
+        with open(os.path.join(warm_dir, "stats.txt")) as f:
+            check("Warm-starting from pretrained model" in f.read(),
+                  "cli main --PT_model_id: no warm start")
+    print(json.dumps({"phase": "cli_data", "plots": CLI_PLOTS, "points": CLI_POINTS,
+                      "parcel_las_points": int(cloud.shape[1]), "parcel_plots": n_plots,
+                      "write_seconds": write_s, "card": card}), flush=True)
+
+
 def reproducible_steps(torch, cfg, step, model, opt, sched, batch):
     """Phase 12b: two train steps from one saved state (the model's params
     and BN state, Adam's moments and count, the schedule) on one batch must
@@ -2484,6 +2801,7 @@ def main() -> int:
     serve_rows, serve_ref_rows, serve_launches = serve_phases(torch, ck, cfg, device, card)
     train_rows, ref_rows, train_launches = train_phases(torch, ck, cfg, device, card)
     parcel_phase(torch, ck, cfg, device, card)
+    cli_phase(torch, ck, card)
     ref_rows.update(serve_ref_rows)
     scan_floor(torch, ck, libs, clock_mhz, {**serve_rows, **train_rows})
 

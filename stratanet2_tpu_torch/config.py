@@ -2,7 +2,7 @@
 that the port's modules read, with the same defaults: ModelConfig,
 TrainConfig, the DataConfig fields of the host data layer and of parcel
 predict, and Config's mode with the DEV profile (`as_dev`,
-`default_config(mode)`). The flag parser comes with the CLIs.
+`default_config(mode)`), and the CLIs' flag parser (`parse_config`).
 
 The port keeps its own copy rather than importing the JAX package's module:
 the port must import nothing of `stratanet2_tpu`.
@@ -17,9 +17,10 @@ from a `torch.Generator` the caller passes.
 
 from __future__ import annotations
 
+import argparse
 import math
 from dataclasses import dataclass, field, replace
-from typing import Tuple
+from typing import Optional, Tuple
 
 FEATURE_NAMES: Tuple[str, ...] = (
     "x",
@@ -113,10 +114,16 @@ class DataConfig:
     # (exact) or "float16" (half the bytes to the card; the features are
     # [0, 1]-rescaled and xyz spans +-10 m, so ~1e-3 relative)
     transfer_dtype: str = "float32"
+    # upload a fold's plots to the card once and draw each batch's
+    # augmentation and subsample there (data/device_dataset.py): "auto"
+    # does so when the estimated footprint of the train and val plots is
+    # under device_resident_max_bytes (`learning/train.use_device_resident`),
+    # "true" / "false" force it
+    device_resident: str = "auto"
+    device_resident_max_bytes: int = 2_000_000_000
     # parcel predict (inference/predict.py): batches whose outputs stay on
     # the device and are read with one copy; the result is the same for any
-    # value, 1 reads each batch alone. The last chain is padded with
-    # all-invalid batches, which the device runs too.
+    # value, 1 reads each batch alone. The last chain may be shorter.
     predict_chain: int = 8
     # also write each plot's GeoTIFF beside the merged parcel tif (the
     # merge itself takes the tiles from memory)
@@ -129,6 +136,7 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    experiments_path: str = "experiments"
     plot_geotiff_file: bool = False
     log_embeddings: bool = False
     normalize_cm: str = "true"
@@ -162,3 +170,98 @@ def default_config(mode: str = "PROD") -> Config:
     if mode.upper() == "DEV":
         cfg = cfg.as_dev()
     return cfg
+
+
+def _add_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mode", default="PROD", type=str, help="DEV or PROD")
+    p.add_argument("--n_epoch", type=int)
+    p.add_argument("--n_epoch_test", type=int)
+    p.add_argument("--epoch_to_start_early_stop", type=int)
+    p.add_argument("--patience_in_epochs", type=int)
+    p.add_argument("--use_early_stopping", action="store_true", default=None)
+    p.add_argument("--lr", type=float)
+    p.add_argument("--lr_decay", type=float)
+    p.add_argument("--step_size", type=int)
+    p.add_argument("--wd", type=float)
+    p.add_argument("--batch_size", type=int)
+    p.add_argument("--folds", type=int)
+    p.add_argument("--m", type=float)
+    p.add_argument("--e", type=float)
+    p.add_argument("--subsample_size", type=int)
+    p.add_argument("--diam_pix", type=int)
+    p.add_argument("--diam_meters", type=int)
+    p.add_argument("--data_path", type=str)
+    p.add_argument("--las_plots_folder_path", type=str)
+    p.add_argument("--gt_file_path", type=str)
+    p.add_argument("--corrected_gt_file_path", type=str)
+    p.add_argument("--las_parcels_folder_path", type=str)
+    p.add_argument("--parcel_shapefile_path", type=str)
+    p.add_argument("--plots_pickled_dataset_path", type=str)
+    p.add_argument("--experiments_path", type=str)
+    p.add_argument("--PT_model_id", type=str, default="")
+    p.add_argument("--inference_model_id", type=str, default="")
+    p.add_argument("--plot_geotiff_file", action="store_true", default=None)
+    p.add_argument("--log_embeddings", action="store_true", default=None)
+    # accepted for the JAX package's command lines; the CLIs log that they
+    # ignore them (`log_ignored_flags`): the port has one kernel path per
+    # device, and point sharding is not ported
+    p.add_argument("--use_pallas", type=lambda s: s.lower() in ("1", "true"), default=None)
+    p.add_argument("--transfer_dtype", choices=["float32", "float16"])
+    p.add_argument(
+        "--device_resident",
+        choices=["auto", "true", "false"],
+        default=None,
+    )
+    p.add_argument("--predict_chain", type=int, default=None)
+    p.add_argument(
+        "--keep_plot_tiffs", action="store_const", const=True, default=None
+    )
+    p.add_argument("--min_points_for_pseudo_labelling", type=int, default=None)
+    p.add_argument("--point_sharded", action="store_true")
+    # namespace-only: the device the CLIs run on (`device.resolve_device`)
+    p.add_argument("--device", type=str, default="cuda", help="cuda or cpu")
+
+
+def parse_config(argv: Optional[list] = None) -> Tuple[Config, argparse.Namespace]:
+    """Build a Config from CLI flags, mirroring the reference's two-stage parse
+    (config.py:5-12): --mode first selects the profile, then overrides apply.
+    Flags that name no field of the port's Config (`--use_pallas`) stay in
+    the namespace only."""
+    p = argparse.ArgumentParser(description="stratanet2_tpu_torch")
+    _add_flags(p)
+    ns, _ = p.parse_known_args(argv)
+    cfg = default_config(ns.mode)
+
+    def _ov(dc, names):
+        kw = {n: getattr(ns, n) for n in names if getattr(ns, n) is not None}
+        return replace(dc, **kw) if kw else dc
+
+    cfg = replace(
+        cfg,
+        model=_ov(cfg.model, ["subsample_size", "diam_pix", "diam_meters"]),
+        train=_ov(
+            cfg.train,
+            [
+                "folds", "wd", "batch_size", "n_epoch", "n_epoch_test",
+                "epoch_to_start_early_stop", "use_early_stopping",
+                "patience_in_epochs", "lr", "step_size", "lr_decay", "m", "e",
+            ],
+        ),
+        data=_ov(
+            cfg.data,
+            [
+                "data_path", "las_plots_folder_path", "gt_file_path",
+                "corrected_gt_file_path", "las_parcels_folder_path",
+                "parcel_shapefile_path", "plots_pickled_dataset_path",
+                "transfer_dtype", "device_resident", "predict_chain",
+                "keep_plot_tiffs", "min_points_for_pseudo_labelling",
+            ],
+        ),
+    )
+    if ns.experiments_path:
+        cfg = replace(cfg, experiments_path=ns.experiments_path)
+    if ns.plot_geotiff_file is not None:
+        cfg = replace(cfg, plot_geotiff_file=ns.plot_geotiff_file)
+    if ns.log_embeddings is not None:
+        cfg = replace(cfg, log_embeddings=ns.log_embeddings)
+    return cfg, ns

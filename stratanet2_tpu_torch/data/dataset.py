@@ -1,6 +1,5 @@
 """Plot-dataset construction (reference utils/load_data.py), a copy of
-`stratanet2_tpu/data/dataset.py` without `load_pseudo_labelled_datasets`
-(it comes with SSL pretraining). pandas is imported where the ground-truth
+`stratanet2_tpu/data/dataset.py`. pandas is imported where the ground-truth
 CSV is read, not with the module.
 
 Builds the pickled `{plot_id: cloud_data}` dataset from a folder of plot LAS
@@ -169,6 +168,24 @@ def prepare_and_save_plots_dataset(cfg: Config, gt_file_path: Optional[str] = No
 def load_pickled_dataset(path: str) -> Dict:
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def load_pseudo_labelled_datasets(cfg: Config, inference_model_id: str) -> Dict:
+    """Merge per-parcel pseudo-labelled pickles for SSL pretraining
+    (utils/load_data.py:103-119); DEV keeps the first 30 plots of the first
+    pickle."""
+    input_folder = os.path.join(
+        cfg.data.las_parcels_folder_path, "pseudo_labelling", inference_model_id
+    )
+    full: Dict = {}
+    for p in _files_of_type(input_folder, ".pkl"):
+        with open(p, "rb") as f:
+            full.update(pickle.load(f))
+        if cfg.mode == "DEV":
+            items = list(full.items())[:30]
+            full = dict(items)
+            break
+    return full
 
 
 def get_index_sorted_plot_ids(dataset: Dict) -> np.ndarray:

@@ -13,6 +13,7 @@ draws it.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import numpy as np
@@ -91,10 +92,17 @@ def fit_kde_mixture_from_dataset(dataset: dict, seed: int = 0) -> KdeMixture:
 
 def plot_kde_mixture(kde: KdeMixture, save_path: str, x_lim: float = 25.0) -> None:
     """Diagnostic figure (kde_mixture.py:102-118); matplotlib is imported
-    here, not with the module."""
+    here, not with the module, and without it the figure is skipped with a
+    warning: a figure never stops training."""
     import os
 
-    import matplotlib
+    try:
+        import matplotlib
+    except ImportError as err:
+        logging.getLogger("stratanet2_tpu_torch").warning(
+            "KDE figure %s skipped: %s", save_path, err
+        )
+        return
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt

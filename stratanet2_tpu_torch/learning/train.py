@@ -6,16 +6,18 @@
   the learning-rate schedule.
 - `make_eval_step` (train.py:179-200): the eval-mode forward with the SA3
   global feature, plot coverages and the per-plot loss parts of
-  `_eval_per_item` (train.py:133-154).
+  `_eval_per_item` (train.py:133-154); `make_eval_core` (:157-176), its
+  per-plot outputs alone, for the device-resident eval.
 - `train_one_epoch` (train.py:203-255): the epoch over `PlotLoader`'s
   shuffled batches; the loss parts are summed on the device and read once,
-  at the end of the epoch.
+  at the end of the epoch. `train_one_epoch_device_resident` (:260-288):
+  the epoch over a fold on the card (`data/device_dataset.py`), read once.
 - `EarlyStopper` and `train_full` (train.py:300-340, 414-699): one fold with
   periodic evaluation, early stopping, the best checkpoint, a `.resume`
   checkpoint after every eval and `resume=True` to continue from it, and a
-  final eval on the best or last weights. The host-loader path; the
-  device-resident epoch and the mesh and point-sharded paths of the JAX
-  loop are not ported yet.
+  final eval on the best or last weights; on the device-resident path when
+  JAX's would take it (`use_device_resident`), else on the host loader's.
+  The mesh and point-sharded paths of the JAX loop are not ported yet.
 
 Optimizer parity: optax `add_decayed_weights(wd)` -> `scale_by_adam` adds
 wd * param to the gradient before the moments (coupled L2), which is
@@ -23,9 +25,12 @@ wd * param to the gradient before the moments (coupled L2), which is
 lr * lr_decay ** (u // (steps_per_epoch * step_size)) at the u-th update,
 counted from 0 before the update, as optax counts.
 
-Dropout (`ModelConfig.drop` > 0) draws from a `torch.Generator`: the one of
-epoch e is seeded from (seed + 1, e) alone, as JAX folds e into
-PRNGKey(seed + 1), so a resumed run draws the masks of an unbroken one.
+Dropout (`ModelConfig.drop` > 0), and on the device-resident path each
+batch's augmentation and subsample, draw from a `torch.Generator`: the one
+of epoch e is seeded from (seed + 1, e) alone, as JAX folds e into
+PRNGKey(seed + 1), so a resumed run draws what an unbroken one draws. The
+device-resident eval draws from a generator seeded from the fold's id, as
+JAX's draws from PRNGKey(fold_id), so every eval of a fold subsamples alike.
 torch cannot reproduce JAX's random streams: a model initialised here
 (without `pretrained_path`) draws its weights from
 `torch.Generator().manual_seed(seed)`.
@@ -34,6 +39,7 @@ torch cannot reproduce JAX's random streams: a model initialised here
 from __future__ import annotations
 
 import logging
+import math
 import os
 import time
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
@@ -218,6 +224,21 @@ def make_eval_step(
     return step
 
 
+def make_eval_core(
+    cfg: Config, kde: KdeMixture, device: Optional[Union[str, torch.device]] = None
+):
+    """Return core(model, cloud, xyz, gt) -> (pred_pl (B, 4), {loss part:
+    (B,)}): `make_eval_step`'s per-plot outputs alone, for the
+    device-resident eval (`data/device_dataset.make_device_eval`)."""
+    step = make_eval_step(cfg, kde, device)
+
+    def core(model: PointNet2, cloud, xyz, gt):
+        pred_pl, _cov, _proba, comps, _aux, _g = step(model, cloud, xyz, gt)
+        return pred_pl, comps
+
+    return core
+
+
 def epoch_generator(seed: int, epoch: int, device: torch.device) -> torch.Generator:
     """The dropout generator of `epoch`, seeded from (seed + 1, epoch) alone."""
     state = np.random.SeedSequence([seed + 1, epoch]).generate_state(1, np.uint64)[0]
@@ -246,10 +267,16 @@ def train_one_epoch(
         acc = comps if acc is None else {k: acc[k] + v for k, v in comps.items()}
         n += 1
         n_points += batch["cloud"].shape[0] * batch["cloud"].shape[1]
+    return _epoch_means(ts, acc, n, n_points, t0)
+
+
+def _epoch_means(ts: TrainState, acc, n: int, n_points: int, t0: float):
+    """The state after an epoch of n steps begun at t0, and the epoch's
+    mean loss parts from their sums on the card `acc` (one read), its step
+    and points/s. An empty epoch (fewer train plots than batch_size) gives
+    the train schema with zeroed parts, so that logging and the fold
+    statistics see the keys of a real epoch (not eval's LOSS_KEYS)."""
     if acc is None:
-        # empty epoch (fewer train plots than batch_size): the train schema
-        # with zeroed parts, so that logging and the fold statistics see
-        # the keys of a real epoch (not eval's LOSS_KEYS)
         sums = dict.fromkeys(TRAIN_LOSS_KEYS, 0.0)
     else:
         names = list(acc)
@@ -259,6 +286,28 @@ def train_one_epoch(
     means["step"] = ts.step
     means["points_per_sec"] = round(n_points / max(time.time() - t0, 1e-9), 1)
     return ts, means
+
+
+def train_one_epoch_device_resident(
+    epoch_fn,
+    ts: TrainState,
+    dd,
+    cfg: Config,
+    seed: int,
+    epoch: int,
+) -> Tuple[TrainState, Dict[str, float]]:
+    """One epoch over the fold on the card, `dd`
+    (`data/device_dataset.make_device_epoch`'s `epoch_fn`): the shuffled
+    index table of `epoch` goes up, the draws and dropout come from
+    `epoch_generator(seed, epoch)`, and the loss sums are read once."""
+    from stratanet2_tpu_torch.data.device_dataset import epoch_index_table
+
+    dev = dd.feats.device
+    idx = epoch_index_table(len(dd.plot_ids), cfg.train.batch_size, seed, epoch)
+    t0 = time.time()
+    sums = epoch_fn(ts.model, ts.optimizer, ts.scheduler, dd, torch.from_numpy(idx).to(dev),
+                    epoch_generator(seed, epoch, dev))
+    return _epoch_means(ts, sums, idx.shape[0], idx.size * cfg.model.subsample_size, t0)
 
 
 def print_epoch_losses(epoch: int, loss_dict: Dict[str, float], train: bool):
@@ -319,6 +368,35 @@ def save_train_state(path: str, ts: TrainState, metadata: Dict) -> None:
     ckpt.save_checkpoint(path, params, model_state, opt_state, metadata=metadata)
 
 
+def device_resident_bytes(dataset: Dict, train_ids, val_ids, cfg: Config) -> int:
+    """JAX's estimate of a fold's footprint on the device (train.py:465-492):
+    the train and val plots, each of the largest plot's rows plus its fake
+    ground points (pi/4 * diam_meters^2 + 16), at least the subsample, 16
+    channels of 4 bytes."""
+    fake_max = int(math.pi / 4 * cfg.model.diam_meters**2) + 16
+    all_ids = list(train_ids) + list(val_ids)
+    m_est = max(
+        cfg.model.subsample_size,
+        max(
+            (int(dataset[i].get("N_points_in_cloud", dataset[i]["cloud"].shape[1]))
+             for i in all_ids),
+            default=0,
+        ) + fake_max,
+    )
+    return len(all_ids) * m_est * 16 * 4
+
+
+def use_device_resident(dataset: Dict, train_ids, val_ids, cfg: Config) -> bool:
+    """Whether `train_full` takes the device-resident path: `DataConfig.
+    device_resident` "true" or "false", or for "auto" whether the estimate
+    is under `device_resident_max_bytes`, as JAX's choice."""
+    dr = cfg.data.device_resident
+    if dr == "auto":
+        return (device_resident_bytes(dataset, train_ids, val_ids, cfg)
+                < cfg.data.device_resident_max_bytes)
+    return dr == "true"
+
+
 def train_full(
     dataset: Dict,
     train_ids,
@@ -334,7 +412,10 @@ def train_full(
     device: Optional[Union[str, torch.device]] = None,
 ):
     """Full training loop for one fold (reference learning/train.py:82-177)
-    on `device` (default CUDA), fed by `PlotLoader`.
+    on `device` (default CUDA): the train and val plots uploaded to the card
+    once and each epoch's batches drawn there, where `use_device_resident`
+    says so, else fed by `PlotLoader`. Figures need the per-point outputs,
+    so the last eval takes `PlotLoader`'s batches on either path.
 
     Extends the reference with crash recovery: a `resume` checkpoint
     (params + BN state + optimizer state + epoch cursor + early-stopping
@@ -343,6 +424,7 @@ def train_full(
 
     Returns (train_state, train_loss_dicts, test_loss_dicts, cloud_info_list).
     """
+    from stratanet2_tpu_torch.data import device_dataset as D
     from stratanet2_tpu_torch.data.loader import PlotLoader
     from stratanet2_tpu_torch.learning.evaluate import evaluate
 
@@ -353,6 +435,19 @@ def train_full(
     eval_step = make_eval_step(cfg, kde, device=dev)
     ts = init_train_state(cfg, steps_per_epoch, seed=seed, pretrained_path=pretrained_path,
                           device=dev)
+    device_data = use_device_resident(dataset, train_ids, val_ids, cfg)
+    device_eval = None
+    if device_data:
+        dd = D.build_device_dataset(dataset, list(train_ids), cfg.model, dev)
+        epoch_fn = D.make_device_epoch(cfg, train_step)
+        logger.info(
+            "Device-resident dataset: %d plots x %d rows (%.1f MB)",
+            dd.feats.shape[0], dd.feats.shape[1],
+            (dd.feats.numel() + dd.xyz.numel()) * 4 / 1e6,
+        )
+        if len(val_ids):
+            dd_val = D.build_device_dataset(dataset, list(val_ids), cfg.model, dev)
+            device_eval = (D.make_device_eval(cfg, make_eval_core(cfg, kde, dev)), dd_val)
 
     stopper = EarlyStopper(cfg)
     ckpt_path = os.path.join(stats_path, ckpt.checkpoint_name(fold_id))
@@ -384,9 +479,14 @@ def train_full(
         sink.set_epoch(current_epoch)
         t0 = time.time()
         with sink.context(f"fold_{fold_id}_train"):
-            ts, train_losses = train_one_epoch(
-                train_step, ts, train_loader, epoch_generator(seed, current_epoch, dev)
-            )
+            if device_data:
+                ts, train_losses = train_one_epoch_device_resident(
+                    epoch_fn, ts, dd, cfg, seed, current_epoch
+                )
+            else:
+                ts, train_losses = train_one_epoch(
+                    train_step, ts, train_loader, epoch_generator(seed, current_epoch, dev)
+                )
             train_losses["epoch"] = current_epoch
             train_losses["epoch_seconds"] = time.time() - t0
             print_epoch_losses(current_epoch, train_losses, train=True)
@@ -399,7 +499,7 @@ def train_full(
             with sink.context(f"fold_{fold_id}_val"):
                 test_losses, _ = evaluate(
                     ts.model, dataset, val_ids, cfg, kde, eval_step, stats_path, sink,
-                    fold_id=fold_id, epoch=current_epoch, device=dev,
+                    fold_id=fold_id, epoch=current_epoch, device_eval=device_eval, device=dev,
                 )
                 test_losses["epoch"] = current_epoch
                 test_losses["step"] = ts.step

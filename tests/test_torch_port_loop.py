@@ -72,6 +72,7 @@ def port_config(jcfg):
                       drop=m.drop),
         train=replace(cfg.train, batch_size=t.batch_size, n_epoch=t.n_epoch,
                       n_epoch_test=t.n_epoch_test, use_early_stopping=t.use_early_stopping),
+        data=replace(cfg.data, device_resident=jcfg.data.device_resident),
     )
 
 
@@ -330,7 +331,7 @@ def test_cross_validate_dev_matches_jax(runs_early_stop, setup, tmp_path, monkey
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     jcfg = runs_early_stop["jcfg"]
     pcfg = replace(runs_early_stop["pcfg"], data=replace(
-        Config().data, gt_file_path=jcfg.data.gt_file_path))
+        runs_early_stop["pcfg"].data, gt_file_path=jcfg.data.gt_file_path))
     jdir, pdir = tmp_path / "jax", tmp_path / "port"
     jdir.mkdir()
     pdir.mkdir()

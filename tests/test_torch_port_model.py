@@ -229,7 +229,8 @@ def test_port_imports_without_jax():
     blocked, in a fresh interpreter; and with pandas, matplotlib, sklearn
     and scipy blocked too, which the card's machine may lack (the port
     imports them only inside the functions that use them). The walk takes
-    every module, parcel predict's among them."""
+    every module, parcel predict's, the CLIs' and the device-resident
+    dataset's among them."""
     code = (
         "import sys\n"
         "blocked = ('jax', 'jaxlib', 'stratanet2_tpu', 'pandas', 'matplotlib', 'sklearn',\n"
@@ -248,6 +249,9 @@ def test_port_imports_without_jax():
         "want = {'stratanet2_tpu_torch.inference.' + m for m in\n"
         "        ('polygons', 'shapefile_io', 'rasters', 'tiling', 'predict')}\n"
         "want.add('stratanet2_tpu_torch.utils.worklist')\n"
+    "want |= {'stratanet2_tpu_torch.cli.' + m for m in\n"
+    "         ('main', 'prepare', 'predict', 'main_ssl')}\n"
+    "want.add('stratanet2_tpu_torch.data.device_dataset')\n"
         "assert want <= set(walked), sorted(want - set(walked))\n"
         "print('imported')\n"
     )

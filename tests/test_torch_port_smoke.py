@@ -8,6 +8,7 @@ import re
 from pathlib import Path
 
 import pytest
+import numpy as np
 import torch
 
 import chip_smoke as cs
@@ -651,3 +652,69 @@ def test_sa_sum_depth_follows_the_kernels_walk(b, c, k, lanes):
     assert blk0.reshape(-1).tolist() == [o == 0 for o in owner]
     if (b, c, lanes) == (20, 5000, 4):
         assert grid == ck.SA_MAX_BLOCKS
+
+
+def test_epoch_paths_run_on_the_cpu(monkeypatch, capsys):
+    """Phase 15d's measurement of the two epoch paths at a tiny size on the
+    CPU: timed epochs of each, the profiled ones, the host-sync listing of
+    the device-resident loop and the tables' MB."""
+    from dataclasses import replace
+
+    import json
+
+    from stratanet2_tpu_torch.config import default_config
+    from stratanet2_tpu_torch.learning.kde import fit_kde_mixture_from_dataset
+    from synthetic import make_plot_dataset
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "device_busy_ms", lambda torch, fn: (fn(), 1.0))
+    monkeypatch.setattr(cs, "EPOCH_REPS", 2)
+    ds = make_plot_dataset(np.random.default_rng(0), n_plots=10, n_points=300)
+    cfg = default_config("DEV")
+    cfg = replace(cfg, model=replace(cfg.model, subsample_size=256, k1=8, k2=16),
+                  train=replace(cfg.train, batch_size=4))
+    ids = sorted(ds)
+    cs.epoch_paths(torch, cfg, ds, ids[:8], ids[8:], fit_kde_mixture_from_dataset(ds),
+                   torch.device("cpu"), "cpu")
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert [x["phase"] for x in lines] == ["train_full_paths", "device_epoch_host_syncs"]
+    paths, syncs = lines
+    for name in ("device_resident", "host_loader"):
+        assert len(paths[name]["epoch_seconds"]) == 2 and paths[name]["busy_share"] > 0
+    assert paths["batches"] == 2 and paths["card_resident_mb"] > 0
+    assert set(cs.SYNC_EVENTS) <= set(syncs)
+
+
+def test_cli_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """Phase 15f's control flow on the CPU at N=256 (batch 8, plots of 600
+    points, a sparser parcel, no figures): the six CLI runs, the subprocess
+    among them, with their artifacts, and each run's logged launches equal
+    to its counters (here all 0: the kernels' plain versions run, so the
+    check that a path's kernels launched is the one let through)."""
+    import json
+    import sys
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.setattr(cs, "CLI_POINTS", 600)
+    monkeypatch.setattr(cs, "PARCEL_DENSITY", 8.0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    check = cs.check
+    missed = []
+
+    def lenient(cond, msg):
+        if not cond and "never launched" in msg:
+            missed.append(msg)
+            return
+        check(cond, msg)
+
+    monkeypatch.setattr(cs, "check", lenient)
+    cs.cli_phase(torch, ck, "cpu", flags=("--subsample_size", "256", "--batch_size", "8"),
+                 device="cpu")
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    runs = [x["cli"] for x in lines if x.get("phase") == "cli"]
+    assert runs == ["main", "prepare", "predict_inference_subprocess",
+                    "predict_pseudo_labelling", "main_ssl", "main_warm_start"]
+    assert lines[-1]["phase"] == "cli_data" and lines[-1]["parcel_plots"] >= cs.CLI_PLOTS
+    skipped = [x["warnings"] for x in lines if x.get("cli") == "main"][0]
+    assert any("KDE figure" in w for w in skipped)  # matplotlib blocked: skipped, warned
+    assert len(missed) == 11 * 3 + 4 * 2  # every path kernel of the five device runs
