@@ -3,9 +3,9 @@
 eleven CUDA kernels of the serve and train paths from
 `stratanet2_tpu_torch/ops/csrc/`, holds each against its plain PyTorch
 version at the shapes its path gives it, drives the serve step, the train
-step, the training loop, parcel predict and the four CLIs at full width
-(B=20 clouds x N=10000 points, random weights from a seed) and checks their
-outputs.
+step, the training loop, parcel predict, the four CLIs and the parallel
+paths (two ranks sharing the card) at full width (B=20 clouds x N=10000
+points, random weights from a seed) and checks their outputs.
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
 
@@ -155,6 +155,26 @@ Phases, in order, each failing loudly:
      predict pseudo_labelling -> main_ssl -> main --PT_model_id, each with
      its artifacts checked and its launches (every kernel of its path, none
      off it), seconds and skipped figures on a line of its own;
+  15g. `"phase": "parallel"` (`parallel_phase`): two ranks sharing the card
+     over gloo (`parallel/launch.run_ranks`, the group's timeout
+     PAR_TIMEOUT; a rank that fails or hangs fails the phase): the
+     point-sharded serve step (1x2) at PROD held to its ranks on the CPU at
+     B=2 within CPU_ATOL and, at N=PAR_N_ALIGNED, to the single-process
+     serve step within SA_ATOL; the data-parallel serve step (2x1); the
+     point-sharded train step (1x2) at N=PAR_N_ALIGNED held to the
+     single-process step with SA unfused and the data-parallel train step
+     (2x1, 10 plots a rank) to the single-process fused step, within phase
+     10's TRAIN_* bounds, params and BN state equal bit for bit on the two
+     ranks, two point-sharded steps from one state bit for bit; each
+     path's launches per rank (the serve steps SERVE_LAUNCHES, the
+     point-sharded train step PS_TRAIN_LAUNCHES, the data-parallel one
+     TRAIN_LAUNCHES) and step ms (`"parallel_step"`, labelled two ranks
+     sharing the card); `train_full` for 2 epochs on each path
+     (`"parallel_train_full"`); `dryrun_multichip(2, "gloo", "cuda:0")`
+     (`"parallel_dryrun"`); and under torchrun (2 processes, `--device
+     cuda:0 --dist_backend gloo`, DEV at PROD width) main --point_sharded,
+     main, predict --point_sharded and predict, each with its artifacts and
+     every rank's launches (`"parallel_cli"`);
   16. `"phase": "selection_floor"`, for sa_fused_eval and knn_interpolate
      (serve step) and ball_query (train step): the SASS instructions a pair
      of the scan loop (cuobjdump of the built library; for kNN also on the
@@ -2394,10 +2414,10 @@ def parcel_phase(torch, ck, cfg, device, card):
         (_, busy_ms) = device_busy_ms(torch, lambda: run("inference_profiled", 8, "inference"))
         real_step = predict.make_predict_step
 
-        def pinned_step(step_cfg, step_device=None):
+        def pinned_step(step_cfg, step_device=None, step_mesh=None):
             """The serve step given its batches from pinned memory, copied
             without blocking the host."""
-            step = real_step(step_cfg, step_device)
+            step = real_step(step_cfg, step_device, step_mesh)
 
             def pinned(net, *arrays):
                 return step(net, *(torch.as_tensor(a).pin_memory().to(device, non_blocking=True)
@@ -2468,6 +2488,63 @@ def cli_launches(stats_dir):
     return json.loads(lines[0].split("Kernel launches: ", 1)[1])
 
 
+def write_cli_tree(tmp, flags=("--subsample_size", "10000")):
+    """The CLIs' data tree under `tmp`, written with the port's writers:
+    CLI_PLOTS plot LAS of CLI_POINTS points and their GT csv, and a parcel
+    (CLI_PARCEL_SIZE m, its LAS with the tiling buffer at PARCEL_DENSITY)
+    with its shapefile. Returns the DEV command line over it (`args`, with
+    `flags`) and its parts."""
+    import os
+
+    import numpy as np
+
+    from stratanet2_tpu_torch.data import las
+    from stratanet2_tpu_torch.inference import polygons, shapefile_io, tiling
+    from stratanet2_tpu_torch.utils.synthetic import (
+        cloud_to_las_fields,
+        make_parcel_cloud,
+        make_plot_cloud,
+    )
+
+    rng = np.random.default_rng(SEED + 17)
+    classes = (0, 10, 25, 33, 50, 75, 90, 100)
+    las_dir = os.path.join(tmp, "placettes_dataset", "las_classes")
+    parcels = os.path.join(tmp, "parcelles_dataset_20m")
+    os.makedirs(las_dir)
+    os.makedirs(os.path.join(parcels, "input"))
+    gt_csv = os.path.join(tmp, "placettes_dataset", "placettes_metadata.csv")
+    t0 = time.perf_counter()
+    lines = ["nom,COUV_BASSE,COUV_INTER,COUV_HAUTE"]
+    for i in range(CLI_PLOTS):
+        name = f"Plot_{i:02d}"
+        c = make_plot_cloud(rng, n=CLI_POINTS, center=(1000 + 40 * i, 2000))
+        las.write_las(os.path.join(las_dir, f"{name}.las"), cloud_to_las_fields(c))
+        lines.append(",".join([name] + [str(int(v)) for v in rng.choice(classes, 3)]))
+    with open(gt_csv, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    x0, y0 = PARCEL_ORIGIN
+    size, buf = CLI_PARCEL_SIZE, tiling.LAS_PARCEL_BUFFER
+    parcel_id = "PARCEL_CLI"
+    cloud = make_parcel_cloud(rng, (x0 - buf, y0 - buf), size + 2 * buf, PARCEL_DENSITY)
+    las.write_las(os.path.join(parcels, "input", f"{parcel_id}.las"),
+                  cloud_to_las_fields(cloud))
+    ring = np.array([[x0, y0], [x0 + size, y0], [x0 + size, y0 + size], [x0, y0 + size]])
+    shp_in = os.path.join(parcels, "input", "parcels.shp")
+    shapefile_io.write_shapefile(shp_in, shapefile_io.Shapefile(
+        fields=[shapefile_io.FieldSpec("ID", "C", 16)],
+        shape_records=[shapefile_io.ShapeRecord(polygons.Polygon([ring]),
+                                                {"ID": parcel_id})]))
+    experiments = os.path.join(tmp, "experiments")
+    args = ["--mode", "DEV", *flags, "--data_path", tmp, "--las_plots_folder_path", las_dir,
+            "--gt_file_path", gt_csv, "--corrected_gt_file_path", gt_csv,
+            "--plots_pickled_dataset_path",
+            os.path.join(tmp, "placettes_dataset", "prepared", "plots.pkl"),
+            "--las_parcels_folder_path", parcels, "--parcel_shapefile_path", shp_in,
+            "--experiments_path", experiments]
+    return dict(args=args, parcels=parcels, parcel_id=parcel_id, cloud=cloud,
+                write_s=time.perf_counter() - t0, experiments=experiments)
+
+
 def cli_phase(torch, ck, card, flags=("--subsample_size", "10000"), device="cuda"):
     """Phase 15f: the four CLIs (`stratanet2_tpu_torch/cli/`) in DEV mode at
     PROD width (`--subsample_size 10000`) on a data tree written with the
@@ -2497,54 +2574,15 @@ def cli_phase(torch, ck, card, flags=("--subsample_size", "10000"), device="cuda
     from stratanet2_tpu_torch.cli import main_ssl as cli_ssl
     from stratanet2_tpu_torch.cli import predict as cli_predict
     from stratanet2_tpu_torch.cli import prepare as cli_prepare
-    from stratanet2_tpu_torch.data import las
-    from stratanet2_tpu_torch.inference import geotiff, polygons, shapefile_io, tiling
-    from stratanet2_tpu_torch.utils.synthetic import (
-        cloud_to_las_fields,
-        make_parcel_cloud,
-        make_plot_cloud,
-    )
+    from stratanet2_tpu_torch.inference import geotiff, shapefile_io
 
-    rng = np.random.default_rng(SEED + 17)
-    classes = (0, 10, 25, 33, 50, 75, 90, 100)
     serve = {"fps", "sa_fused_eval", "knn_interpolate", "pixel_max"}
     everything = set(TRAIN_LAUNCHES)
     logger = logging.getLogger("stratanet2_tpu_torch")
     with tempfile.TemporaryDirectory() as tmp:
-        las_dir = os.path.join(tmp, "placettes_dataset", "las_classes")
-        parcels = os.path.join(tmp, "parcelles_dataset_20m")
-        os.makedirs(las_dir)
-        os.makedirs(os.path.join(parcels, "input"))
-        gt_csv = os.path.join(tmp, "placettes_dataset", "placettes_metadata.csv")
-        t0 = time.perf_counter()
-        lines = ["nom,COUV_BASSE,COUV_INTER,COUV_HAUTE"]
-        for i in range(CLI_PLOTS):
-            name = f"Plot_{i:02d}"
-            c = make_plot_cloud(rng, n=CLI_POINTS, center=(1000 + 40 * i, 2000))
-            las.write_las(os.path.join(las_dir, f"{name}.las"), cloud_to_las_fields(c))
-            lines.append(",".join([name] + [str(int(v)) for v in rng.choice(classes, 3)]))
-        with open(gt_csv, "w") as f:
-            f.write("\n".join(lines) + "\n")
-        x0, y0 = PARCEL_ORIGIN
-        size, buf = CLI_PARCEL_SIZE, tiling.LAS_PARCEL_BUFFER
-        parcel_id = "PARCEL_CLI"
-        cloud = make_parcel_cloud(rng, (x0 - buf, y0 - buf), size + 2 * buf, PARCEL_DENSITY)
-        las.write_las(os.path.join(parcels, "input", f"{parcel_id}.las"),
-                      cloud_to_las_fields(cloud))
-        ring = np.array([[x0, y0], [x0 + size, y0], [x0 + size, y0 + size], [x0, y0 + size]])
-        shp_in = os.path.join(parcels, "input", "parcels.shp")
-        shapefile_io.write_shapefile(shp_in, shapefile_io.Shapefile(
-            fields=[shapefile_io.FieldSpec("ID", "C", 16)],
-            shape_records=[shapefile_io.ShapeRecord(polygons.Polygon([ring]),
-                                                    {"ID": parcel_id})]))
-        write_s = time.perf_counter() - t0
-        experiments = os.path.join(tmp, "experiments")
-        args = ["--mode", "DEV", *flags, "--data_path", tmp, "--las_plots_folder_path", las_dir,
-                "--gt_file_path", gt_csv, "--corrected_gt_file_path", gt_csv,
-                "--plots_pickled_dataset_path",
-                os.path.join(tmp, "placettes_dataset", "prepared", "plots.pkl"),
-                "--las_parcels_folder_path", parcels, "--parcel_shapefile_path", shp_in,
-                "--experiments_path", experiments]
+        tree = write_cli_tree(tmp, flags)
+        args, parcels, parcel_id = tree["args"], tree["parcels"], tree["parcel_id"]
+        cloud, write_s, experiments = tree["cloud"], tree["write_s"], tree["experiments"]
         on_card = args + ["--device", device]
 
         def newest(task):
@@ -2654,6 +2692,554 @@ def cli_phase(torch, ck, card, flags=("--subsample_size", "10000"), device="cuda
     print(json.dumps({"phase": "cli_data", "plots": CLI_PLOTS, "points": CLI_POINTS,
                       "parcel_las_points": int(cloud.shape[1]), "parcel_plots": n_plots,
                       "write_seconds": write_s, "card": card}), flush=True)
+
+
+# phase 15g (parallel): two ranks over gloo on the one card (NCCL refuses
+# two ranks on one card). The point-sharded paths at PROD (N=10000: k1=32
+# groups of 313 points, which a 5000-point shard does not align with, so
+# they are JAX's own sharded functions, held to the same step on the CPU)
+# and at PAR_N_ALIGNED (N % k1 == 0, C1 = 2496: the sharded groups and the
+# local FPS are the unsharded step's with fps_parts 2, held to it on the
+# card); the data-parallel steps at PROD, 10 plots a rank, held to the
+# single-process step on the 20 plots.
+PAR_WORLD = 2
+PAR_N_ALIGNED = 9984
+PAR_STEPS = 10  # timed steps of each path; the median is reported
+PAR_TIMEOUT = 600.0  # the ranks' whole phase and the group's timeout, seconds
+PAR_PLOTS, PAR_POINTS = 50, 12000  # train_full: 40 train plots (2 batches), 10 val
+PS_TRAIN_LAUNCHES = {**dict.fromkeys(TRAIN_LAUNCHES, 0), "fps": 2, "ball_query": 2,
+                     "knn_interpolate": 2, "knn_scatter": 3, "pixel_max": 1,
+                     "pixel_max_bwd": 1}
+# each rank's CLI launches: the kernels that must launch on every rank, and
+# those that must not launch on any (rank 0 alone evaluates: the eval's
+# sa_fused_eval in training runs on rank 0)
+_SERVE_PATH = {k for k, v in SERVE_LAUNCHES.items() if v}
+PAR_CLI_PATHS = {
+    "main_point_sharded": ({k for k, v in PS_TRAIN_LAUNCHES.items() if v}, set(SA_TRAIN)),
+    "main_data_parallel": ({k for k, v in TRAIN_LAUNCHES.items() if v}, set()),
+    "predict_point_sharded": (_SERVE_PATH, set(SERVE_LAUNCHES) - _SERVE_PATH),
+    "predict_data_parallel": (_SERVE_PATH, set(SERVE_LAUNCHES) - _SERVE_PATH),
+}
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _step_state(model):
+    return [p for p in model.parameters()] + [b for b in model.buffers()]
+
+
+def unfused_train_step(cfg, kde, device):
+    """The single-process train step with SA on the unfused route (the
+    point-sharded step's, `set_abstraction_train`), the reference of the
+    point-sharded train step at PAR_N_ALIGNED."""
+    import torch
+
+    from stratanet2_tpu_torch.learning.losses import total_loss
+    from stratanet2_tpu_torch.models.pointnet2 import set_abstraction_train
+    from stratanet2_tpu_torch.ops.projection import plotwise_coverages
+
+    mcfg, tcfg = cfg.model, cfg.train
+    grid = torch.as_tensor(kde.grid, dtype=torch.float32, device=device)
+    pdfs = torch.as_tensor(kde.pdfs, dtype=torch.float32, device=device)
+    fk = (mcfg.fps_parts, mcfg.fps_min_part_samples)
+
+    def step(model, opt, sched, cloud, xyz, gt):
+        model.train()
+        x0 = cloud[..., 2:]
+        x1, pos1 = set_abstraction_train(model.sa1, x0, xyz, mcfg.n_centroids1, mcfg.r1,
+                                         mcfg.k1, *fk, preproject=False)
+        x2, pos2 = set_abstraction_train(model.sa2, x1, pos1, mcfg.n_centroids2, mcfg.r2,
+                                         mcfg.k2, *fk, preproject=True)
+        cov, proba = model.decode(x0, xyz, x1, pos1, x2, pos2)
+        pred = plotwise_coverages(cov, cloud[..., :2], mcfg.diam_pix)
+        loss, (comps, _) = total_loss(pred, gt, proba, cloud[..., 2] * mcfg.z_max, grid, pdfs,
+                                      tcfg.m, tcfg.e)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        sched.step()
+        return comps
+
+    return step
+
+
+# The stages JAX's point-sharded step computes replicated on the point ranks
+# (point_sharded.py:617-641): their BatchNorm sums every row once a rank, which
+# leaves the mean and the biased variance as they are but stores the unbiased
+# running variance with n_d / (n_d - 1), n_d = D n, for n / (n - 1) (nn.py:96-106;
+# the port does as JAX does, tests/test_torch_port_parallel_train.py). The
+# reference's running variances of these stages are re-derived with that count.
+REPLICATED_STAGES = ("sa2.", "sa3.", "fp3.", "fp2.")
+
+
+def counted_bn_rows(run):
+    """run() with every train-mode BatchNorm's row count recorded:
+    (its result, {module: n})."""
+    from stratanet2_tpu_torch.models.nn import BatchNorm
+
+    counts = {}
+    real = BatchNorm.update_running_stats
+
+    def recording(self, mean, var, n):
+        counts[self] = float(n)
+        return real(self, mean, var, n)
+
+    BatchNorm.update_running_stats = recording
+    try:
+        return run(), counts
+    finally:
+        BatchNorm.update_running_stats = real
+
+
+def replicated_count_state(model, counts, var0, world):
+    """`model`'s BN buffers, the running variances of REPLICATED_STAGES as
+    they would be with each of their rows counted `world` times (var0 the
+    running variance before the step, momentum 0.1)."""
+    state = {k: b.detach().cpu().clone() for k, b in model.named_buffers()}
+    for name, mod in model.named_modules():
+        if mod in counts and name.startswith(REPLICATED_STAGES):
+            n = counts[mod]
+            biased = (state[name + ".var"] - 0.9 * var0) / 0.1 * (n - 1) / n
+            state[name + ".var"] = 0.9 * var0 + 0.1 * biased * (world * n) / (world * n - 1)
+    return state
+
+
+def step_diffs(torch, cfg, got, want):
+    """Loss parts, BN state, gradients and params after one Adam step of
+    two train steps from one state (`compare_train_with_cpu`'s measures)."""
+    lr, wd = cfg.train.lr, cfg.train.wd
+    out = dict(loss=max(abs(float(got["comps"][k]) - float(want["comps"][k]))
+                        for k in want["comps"]),
+               state=max(float((got["state"][k] - v).abs().max())
+                         for k, v in want["state"].items()),
+               grad_rel=0.0, param_sure=0.0, param_all=0.0)
+    for k, g in want["grads"].items():
+        scale = float(g.abs().max())
+        check(scale > 0 and bool(torch.isfinite(got["grads"][k]).all()), f"gradient of {k}")
+        out["grad_rel"] = max(out["grad_rel"], float((got["grads"][k] - g).abs().max()) / scale)
+        sure = (g + wd * want["start"][k]).abs() > TRAIN_GRAD_RTOL * scale
+        diff = (got["params"][k] - want["params"][k]).abs()
+        slack = diff - 1.2e-7 * want["params"][k].abs()
+        if bool(sure.any()):
+            out["param_sure"] = max(out["param_sure"], float(slack[sure].max()))
+        out["param_all"] = max(out["param_all"], float(diff.max()))
+    return out
+
+
+def check_step_diffs(what, d, lr):
+    check(d["loss"] <= TRAIN_LOSS_ATOL, f"{what}: loss parts differ by {d['loss']}")
+    check(d["grad_rel"] <= TRAIN_GRAD_RTOL, f"{what}: gradients differ by {d['grad_rel']}")
+    check(d["state"] <= TRAIN_STATE_ATOL, f"{what}: BN state differs by {d['state']}")
+    check(d["param_sure"] <= 1e-7, f"{what}: params differ by {d['param_sure']} where sure")
+    check(d["param_all"] <= 2 * lr + 1e-7, f"{what}: params differ by {d['param_all']}")
+
+
+def _snapshot(model, comps, start):
+    return dict(comps={k: float(v) for k, v in comps.items()},
+                grads={k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()},
+                params={k: p.detach().cpu().clone() for k, p in model.named_parameters()},
+                state={k: b.detach().cpu().clone() for k, b in model.named_buffers()},
+                start=start)
+
+
+def _par_timed(torch, device, fn):
+    """Median and all host-clock ms of PAR_STEPS synchronised calls (both
+    ranks step together: each call holds collectives)."""
+    times = []
+    for _ in range(PAR_STEPS):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], times
+
+
+def _plots(n_plots, n_points, seed):
+    """A {plot_id: plot} dataset of synthetic plots in the pickled layout."""
+    import numpy as np
+
+    from stratanet2_tpu_torch.utils.synthetic import make_plot_cloud
+
+    rng = np.random.default_rng(seed)
+    ds = {}
+    for i in range(n_plots):
+        cloud = make_plot_cloud(rng, n=n_points, center=(1000.0 + 40 * i, 2000.0))
+        gt = rng.uniform(0, 1, 4)
+        gt[1] = 1.0 - gt[0]
+        pid = f"PAR_{i:03d}"
+        ds[pid] = {"cloud": cloud, "coverages": gt.astype(np.float32),
+                   "plot_center": np.array([(cloud[0].max() + cloud[0].min()) / 2,
+                                            (cloud[1].max() + cloud[1].min()) / 2], np.float32),
+                   "plot_id": pid, "N_points_in_cloud": cloud.shape[1], "index": i}
+    return ds
+
+
+def parallel_rank(payload, device):
+    """A rank of phase 15g (started by `parallel_phase` through
+    `parallel/launch.run_ranks`): the point-sharded and data-parallel
+    serve and train steps with their launches, references and times, and
+    `train_full` on both paths. Returns what the parent prints and checks."""
+    import copy
+    import os
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from stratanet2_tpu_torch.config import default_config
+    from stratanet2_tpu_torch.inference.predict import (
+        make_point_sharded_predict_step,
+        make_predict_step,
+    )
+    from stratanet2_tpu_torch.learning.kde import (
+        fit_kde_mixture,
+        fit_kde_mixture_from_dataset,
+    )
+    from stratanet2_tpu_torch.learning.train import (
+        make_optimizer,
+        make_train_step,
+        rank_generator,
+        train_full,
+    )
+    from stratanet2_tpu_torch.ops import cuda_kernels as ck
+    from stratanet2_tpu_torch.parallel import multihost
+    from stratanet2_tpu_torch.parallel.mesh import (
+        make_mesh,
+        make_mesh_2d,
+        shard_batch,
+        shard_points,
+    )
+    from stratanet2_tpu_torch.parallel.point_sharded import make_point_sharded_train_step
+    from stratanet2_tpu_torch.utils.experiment import MetricSink, NullSink
+    from stratanet2_tpu_torch.utils.synthetic import random_model, serve_batch, train_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = default_config()
+    b, n = payload.get("B", cfg.train.batch_size), payload.get("N", cfg.model.subsample_size)
+    n_al = payload.get("N_aligned", PAR_N_ALIGNED)
+    cfg = replace(cfg, model=replace(cfg.model, subsample_size=n),
+                  train=replace(cfg.train, batch_size=b))
+    c1 = int(n_al * cfg.model.ratio1)
+    cfg_al = replace(cfg, model=replace(
+        cfg.model, subsample_size=n_al,
+        fps_min_part_samples=min(cfg.model.fps_min_part_samples, c1 // PAR_WORLD)))
+    cpu = torch.device("cpu")
+    out = {"rank": multihost.rank(), "device": str(device)}
+    mesh_ps, mesh_dp = make_mesh_2d(1, PAR_WORLD), make_mesh()
+
+    def counted(fn):
+        ck.reset_launches()
+        res = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return res, ck.launch_counts()
+
+    # --- serve: point-sharded at PROD, at the aligned N, data-parallel ---
+    cloud, xyz = serve_batch(b, n, torch.Generator().manual_seed(SEED + 40), cpu)
+    cloud, xyz = cloud.to(device), xyz.to(device)
+    model = random_model(cfg.model, SEED, device)
+    ps_serve = make_point_sharded_predict_step(cfg, PAR_WORLD, device)
+    ps_serve(model, cloud, xyz)  # warm
+    (rasters, pred_pl), out["ps_serve_launches"] = counted(lambda: ps_serve(model, cloud, xyz))
+    out["ps_serve_finite"] = bool(torch.isfinite(pred_pl).all()) and tuple(pred_pl.shape) == (b, 4)
+    out["ps_serve_ms"] = _par_timed(torch, device, lambda: ps_serve(model, cloud, xyz))
+    r_dev, p_dev = ps_serve(model, cloud[:2], xyz[:2])
+    r_cpu, p_cpu = make_point_sharded_predict_step(cfg, PAR_WORLD, cpu)(
+        copy.deepcopy(model).to(cpu), cloud[:2].to(cpu), xyz[:2].to(cpu))
+    out["ps_serve_cpu_nan_equal"] = bool(torch.equal(torch.isnan(r_dev.cpu()),
+                                                     torch.isnan(r_cpu)))
+    out["ps_serve_cpu_diff"] = max(float(torch.nan_to_num(r_dev.cpu() - r_cpu).abs().max()),
+                                   float((p_dev.cpu() - p_cpu).abs().max()))
+    cl_al, xyz_al = cloud[:, :n_al].contiguous(), xyz[:, :n_al].contiguous()
+    model_al = random_model(cfg_al.model, SEED, device)  # the same weights, C1 of N_aligned
+    r_ps, p_ps = make_point_sharded_predict_step(cfg_al, PAR_WORLD, device)(
+        model_al, cl_al, xyz_al)
+    r_1, p_1 = make_predict_step(cfg_al, device)(model_al, cl_al, xyz_al)
+    out["ps_serve_aligned_nan_equal"] = bool(torch.equal(torch.isnan(r_ps), torch.isnan(r_1)))
+    out["ps_serve_aligned_diff"] = max(float(torch.nan_to_num(r_ps - r_1).abs().max()),
+                                       float((p_ps - p_1).abs().max()))
+    dp_serve = make_predict_step(cfg, device, mesh_dp)
+    (r_dp, p_dp), out["dp_serve_launches"] = counted(lambda: dp_serve(model, cloud, xyz))
+    r_one, p_one = make_predict_step(cfg, device)(model, cloud, xyz)
+    out["dp_serve_diff"] = max(float(torch.nan_to_num(r_dp - r_one).abs().max()),
+                               float((p_dp - p_one).abs().max()))
+    out["dp_serve_ms"] = _par_timed(torch, device, lambda: dp_serve(model, cloud, xyz))
+    del rasters, r_dev, r_ps, r_1, r_dp, r_one
+
+    # --- train: point-sharded at the aligned N, data-parallel at PROD ---
+    cloud, xyz, gt = train_batch(b, n, torch.Generator().manual_seed(SEED + 41), cpu)
+    cloud, xyz, gt = cloud.to(device), xyz.to(device), gt.to(device)
+    kde = fit_kde_mixture((cloud[..., 2] * cfg.model.z_max).cpu().numpy())
+    bases = {id(c): random_model(c.model, SEED, device, running_stats=False)
+             for c in (cfg, cfg_al)}
+    start = {k: p.detach().cpu().clone() for k, p in bases[id(cfg)].named_parameters()}
+
+    def run(step, mcfg_cfg, args, gen=None):
+        m = copy.deepcopy(bases[id(mcfg_cfg)])
+        opt, sched = make_optimizer(mcfg_cfg, m, STEPS_PER_EPOCH)
+        comps, launches = counted(lambda: step(m, opt, sched, *args, *(() if gen is None
+                                                                      else (gen,))))
+        return m, opt, sched, comps, launches
+
+    cl_al, xyz_al = cloud[:, :n_al].contiguous(), xyz[:, :n_al].contiguous()
+    ps_step = make_point_sharded_train_step(cfg_al, kde, mesh_ps, device)
+    local = (shard_points(mesh_ps, cl_al), shard_points(mesh_ps, xyz_al), gt)
+    m, opt, sched, comps, out["ps_train_launches"] = run(
+        ps_step, cfg_al, local, rank_generator(SEED, 1, mesh_ps, device))
+    ps = _snapshot(m, comps, start)
+    m2, _, _, _, _ = run(ps_step, cfg_al, local, rank_generator(SEED, 1, mesh_ps, device))
+    out["ps_train_reproducible"] = _digest(_step_state(m)) == _digest(_step_state(m2))
+    out["ps_train_digest"] = _digest(_step_state(m))
+    (ref_m, _, _, ref_comps, _), rows = counted_bn_rows(lambda: run(
+        unfused_train_step(cfg_al, kde, device), cfg_al, (cl_al, xyz_al, gt)))
+    ref = _snapshot(ref_m, ref_comps, start)
+    ref["state"] = replicated_count_state(ref_m, rows, 1.0, PAR_WORLD)
+    out["ps_train_vs_unfused"] = step_diffs(torch, cfg_al, ps, ref)
+    out["ps_train_comps"] = ps["comps"]
+    out["ps_train_ms"] = _par_timed(torch, device, lambda: ps_step(m, opt, sched, *local))
+    del m, m2, ref_m, ps
+
+    dp_step = make_train_step(cfg, kde, device, mesh_dp)
+    rows = tuple(shard_batch(mesh_dp, t) for t in (cloud, xyz, gt))
+    m, opt, sched, comps, out["dp_train_launches"] = run(dp_step, cfg, rows)
+    dp = _snapshot(m, comps, start)
+    out["dp_train_digest"] = _digest(_step_state(m))
+    ref_m, _, _, ref_comps, _ = run(make_train_step(cfg, kde, device), cfg, (cloud, xyz, gt))
+    out["dp_train_vs_single"] = step_diffs(torch, cfg, dp, _snapshot(ref_m, ref_comps, start))
+    out["dp_train_comps"] = dp["comps"]
+    out["dp_train_ms"] = _par_timed(torch, device, lambda: dp_step(m, opt, sched, *rows))
+    del m, ref_m, dp
+
+    # --- train_full: 2 epochs, data-parallel device-resident and point-sharded ---
+    ds = _plots(payload.get("plots", PAR_PLOTS), payload.get("points", PAR_POINTS), SEED + 42)
+    ids = sorted(ds)
+    n_val = len(ids) // 5
+    dev_cfg = cfg.as_dev()
+    dev_cfg = replace(dev_cfg, data=replace(dev_cfg.data, device_resident="true"),
+                      train=replace(dev_cfg.train, use_early_stopping=True, n_epoch=2))
+    kde_ds = fit_kde_mixture_from_dataset(ds)
+    out["train_full"] = {}
+    for name, mesh, point_sharded in (("data_parallel", mesh_dp, False),
+                                      ("point_sharded", None, True)):
+        stats = os.path.join(payload["stats_root"], name)
+        sink = MetricSink(stats) if multihost.is_writer() else NullSink()
+        t0 = time.perf_counter()
+        ck.reset_launches()
+        _, tr, te, _ = train_full(ds, ids[n_val:], ids[:n_val], dev_cfg, kde_ds, stats, sink,
+                                  fold_id=1, device=device, mesh=mesh,
+                                  point_sharded=point_sharded)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        sink.close()
+        timing = ("points_per_sec", "epoch_seconds")
+        out["train_full"][name] = dict(
+            seconds=time.perf_counter() - t0, launches=ck.launch_counts(),
+            train=[{k: v for k, v in d.items() if k not in timing} for d in tr],
+            test=te, epoch_seconds=[d["epoch_seconds"] for d in tr])
+    return out
+
+
+def parallel_phase(torch, ck, card, device="cuda:0", small=None):
+    """Phase 15g: the parallel paths on two ranks sharing the card over
+    gloo (NCCL refuses two ranks on one card), the group's timeout
+    PAR_TIMEOUT. `parallel_rank` on both ranks: the point-sharded serve step
+    (1x2) at PROD, launches per rank, held to the same step with its ranks
+    on the CPU at B=2 within CPU_ATOL, and at PAR_N_ALIGNED to the
+    single-process serve step within SA_ATOL; the data-parallel serve step
+    (2x1) to the single-process one; the point-sharded train step (1x2) at
+    PAR_N_ALIGNED to the single-process step with SA unfused, the
+    data-parallel train step (2x1, 10 plots a rank) at PROD to the
+    single-process fused step on the 20 plots, each within phase 10's
+    bounds (TRAIN_*: sums in another order), params and BN state equal bit
+    for bit on both ranks, two point-sharded steps from one state equal bit
+    for bit; each path's step time; `train_full` for 2 epochs on each
+    path (finite losses, the same decisions on both ranks, one set of
+    files). Then `dryrun_multichip(2, "gloo", device)`, and the CLIs under
+    torchrun (2 processes, `--device cuda:0 --dist_backend gloo`, DEV at
+    PROD width, the two mains at once, then the two predicts at once): main
+    --point_sharded, main, predict --point_sharded, predict, each with its
+    artifacts and every rank's launches (`Kernel launches by rank`).
+    `small` (sizes and CLI flags) lets a test run it on the CPU."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from stratanet2_tpu_torch.cli import prepare as cli_prepare
+    from stratanet2_tpu_torch.config import default_config
+    from stratanet2_tpu_torch.inference import geotiff
+    from stratanet2_tpu_torch.parallel.dryrun import dryrun_multichip
+    from stratanet2_tpu_torch.parallel.launch import run_ranks
+
+    small = small or {}
+    lr = default_config().train.lr
+    label = f"two ranks sharing one {card}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        stats_root = os.path.join(tmp, "train_full")
+        for name in ("data_parallel", "point_sharded"):
+            os.makedirs(os.path.join(stats_root, name))
+        t0 = time.perf_counter()
+        outs = run_ranks(PAR_WORLD, "chip_smoke:parallel_rank",
+                         dict(small.get("rank", {}), stats_root=stats_root), backend="gloo",
+                         device=device, timeout=PAR_TIMEOUT, workdir=os.path.join(tmp, "ranks"))
+        ranks_s = time.perf_counter() - t0
+        for r, out in enumerate(outs):
+            check(out["rank"] == r, f"parallel: rank {r} reported {out['rank']}")
+            for path, want in (("ps_serve", SERVE_LAUNCHES), ("dp_serve", SERVE_LAUNCHES),
+                               ("ps_train", PS_TRAIN_LAUNCHES), ("dp_train", TRAIN_LAUNCHES)):
+                check_launches(out[f"{path}_launches"], want, f"parallel_{path}_rank{r}")
+            check(out["ps_serve_finite"], "parallel: point-sharded serve outputs")
+            check(out["ps_serve_cpu_nan_equal"] and out["ps_serve_cpu_diff"] <= CPU_ATOL,
+                  f"parallel: point-sharded serve, card vs CPU ranks {out['ps_serve_cpu_diff']}")
+            check(out["ps_serve_aligned_nan_equal"] and out["ps_serve_aligned_diff"] <= SA_ATOL,
+                  f"parallel: point-sharded vs single serve {out['ps_serve_aligned_diff']}")
+            check(out["dp_serve_diff"] <= SA_ATOL,
+                  f"parallel: data-parallel vs single serve {out['dp_serve_diff']}")
+            check_step_diffs("parallel point-sharded train vs unfused",
+                             out["ps_train_vs_unfused"], lr)
+            check_step_diffs("parallel data-parallel train vs single",
+                             out["dp_train_vs_single"], lr)
+            check(out["ps_train_reproducible"], "parallel: two point-sharded steps differ")
+            for name in ("serve", "train"):
+                for path in ("ps", "dp"):
+                    med, times = out[f"{path}_{name}_ms"]
+                    print(json.dumps({"phase": "parallel_step", "rank": r, "path": path,
+                                      "step": name, "step_ms_median": med, "step_ms_all": times,
+                                      "label": label}), flush=True)
+        print(json.dumps({"phase": "parallel", "ranks_seconds": ranks_s, **{
+            k: outs[0][k] for k in ("ps_serve_cpu_diff", "ps_serve_aligned_diff",
+                                    "dp_serve_diff", "ps_train_vs_unfused",
+                                    "dp_train_vs_single", "ps_train_comps", "dp_train_comps")},
+            "cpu_atol": CPU_ATOL, "sa_atol": SA_ATOL, "card": card}), flush=True)
+        for key in ("ps_train_digest", "dp_train_digest"):
+            check(outs[0][key] == outs[1][key], f"parallel: {key} differs across ranks")
+        for name in ("data_parallel", "point_sharded"):
+            runs = [o["train_full"][name] for o in outs]
+            check(runs[0]["train"] == runs[1]["train"] and runs[0]["test"] == runs[1]["test"],
+                  f"parallel train_full {name}: the ranks' losses or decisions differ")
+            for d in runs[0]["train"] + runs[0]["test"]:
+                check(all(math.isfinite(d[k]) for k in ("total_loss", "MAE_loss", "log_loss")),
+                      f"parallel train_full {name}: a loss is not finite")
+            files = sorted(os.listdir(os.path.join(stats_root, name)))
+            for f in ("PCC_model_fold_n=1.pt", "PCC_model_fold_n=1.pt.resume", "metrics.jsonl"):
+                check(f in files, f"parallel train_full {name}: no {f}")
+            print(json.dumps({"phase": "parallel_train_full", "path": name,
+                              "seconds": [x["seconds"] for x in runs],
+                              "epoch_seconds": runs[0]["epoch_seconds"],
+                              "epochs": len(runs[0]["train"]), "evals": len(runs[0]["test"]),
+                              "launches": [x["launches"] for x in runs], "files": files,
+                              "label": label}), flush=True)
+
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(PAR_WORLD, "gloo", device)
+        print(json.dumps({"phase": "parallel_dryrun", "seconds": time.perf_counter() - t0,
+                          **dry}), flush=True)
+
+        tree = write_cli_tree(os.path.join(tmp, "cli"), small.get(
+            "flags", ("--subsample_size", "10000")))
+        args, parcels = tree["args"], tree["parcels"]
+
+        def torchrun(name, module, extra, experiments):
+            argv = [a if a != tree["experiments"] else experiments for a in args]
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", str(PAR_WORLD), "-m", f"stratanet2_tpu_torch.cli.{module}",
+                   *argv, *extra, "--device", device, "--dist_backend", "gloo"]
+            env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                       OMP_NUM_THREADS="1")
+            return name, time.perf_counter(), subprocess.Popen(
+                cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+
+        def finish(started):
+            done = {}
+            for name, t0, proc in started:
+                try:
+                    log, _ = proc.communicate(timeout=PAR_TIMEOUT)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    log, _ = proc.communicate()
+                    fail(f"parallel cli {name}: timed out\n{log[-3000:]}")
+                check(proc.returncode == 0,
+                      f"parallel cli {name}: exit {proc.returncode}\n{log[-3000:]}")
+                done[name] = time.perf_counter() - t0
+            return done
+
+        def run_dir(experiments, task):
+            folder = os.path.join(experiments, task, "DEV")
+            (only,) = os.listdir(folder)
+            return os.path.join(folder, only)
+
+        def by_rank(name, stats_dir, seconds):
+            with open(os.path.join(stats_dir, "stats.txt")) as f:
+                log = f.read()
+            line = [x for x in log.splitlines() if "Kernel launches by rank: " in x]
+            check(len(line) == 1 and log.count("Kernel launches: ") == 1,
+                  f"parallel cli {name}: launch lines in stats.txt")
+            every = json.loads(line[0].split("Kernel launches by rank: ", 1)[1])
+            must, never = PAR_CLI_PATHS[name]
+            check(len(every) == PAR_WORLD, f"parallel cli {name}: {len(every)} ranks logged")
+            for r, launches in enumerate(every):
+                for k in must:
+                    check(launches[k] > 0 or device == "cpu",
+                          f"parallel cli {name}: {k} never launched on rank {r}")
+                for k in never:
+                    check(launches[k] == 0, f"parallel cli {name}: {k} launched on rank {r}")
+            print(json.dumps({"phase": "parallel_cli", "cli": name, "seconds": seconds,
+                              "launches_by_rank": every, "label": label}), flush=True)
+            return log
+
+        exp = {k: os.path.join(tmp, "cli", f"experiments_{k}") for k in ("ps", "dp")}
+        secs = finish([torchrun("main_point_sharded", "main", ["--point_sharded"], exp["ps"]),
+                       torchrun("main_data_parallel", "main", [], exp["dp"])])
+        ids = {}
+        for k, name, marker in (("ps", "main_point_sharded", "Point-sharded training over 2"),
+                                ("dp", "main_data_parallel", "Using 2-device data-parallel")):
+            stats_dir = run_dir(exp[k], "learning")
+            log = by_rank(name, stats_dir, secs[name])
+            check(marker in log, f"parallel cli {name}: its path is not in stats.txt")
+            for f in ("PCC_model_fold_n=1.pt", "metrics.jsonl",
+                      "PCC_inference_all_placettes_relabeled_summary.csv"):
+                check(os.path.exists(os.path.join(stats_dir, f)), f"parallel cli {name}: no {f}")
+            ids[k] = os.path.basename(stats_dir)
+        cli_prepare.main(args + ["--device", device])
+        for handler in list(logging.getLogger("stratanet2_tpu_torch").handlers):
+            logging.getLogger("stratanet2_tpu_torch").removeHandler(handler)
+            handler.close()
+        shutil.copytree(parcels, parcels + "_dp")
+        dp_args = ["--las_parcels_folder_path", parcels + "_dp", "--parcel_shapefile_path",
+                   os.path.join(parcels + "_dp", "input", "parcels.shp")]
+        secs = finish([
+            torchrun("predict_point_sharded", "predict", ["--point_sharded", "--task",
+                     "inference", "--inference_model_id", ids["ps"]], exp["ps"]),
+            torchrun("predict_data_parallel", "predict", ["--task", "inference",
+                     "--inference_model_id", ids["dp"], *dp_args], exp["dp"])])
+        for k, name, folder, marker in (
+                ("ps", "predict_point_sharded", parcels, "POINT-sharded inference mesh"),
+                ("dp", "predict_data_parallel", parcels + "_dp", "data-parallel inference")):
+            log = by_rank(name, run_dir(exp[k], "inference"), secs[name])
+            check(marker in log, f"parallel cli {name}: its path is not in stats.txt")
+            tif = geotiff.read_geotiff(os.path.join(folder, "inference", ids[k],
+                                                    f"{tree['parcel_id']}.tif"))
+            filled = tif.bands[:5][np.isfinite(tif.bands[:5])]
+            check(tif.bands.shape[0] == 6 and filled.size > 0
+                  and bool(((filled >= 0) & (filled <= 1)).all()),
+                  f"parallel cli {name}: the parcel tif")
+            check(os.path.exists(os.path.join(folder, "inference", ids[k], "parcels.shp")),
+                  f"parallel cli {name}: no parcels.shp")
 
 
 def reproducible_steps(torch, cfg, step, model, opt, sched, batch):
@@ -2802,6 +3388,7 @@ def main() -> int:
     train_rows, ref_rows, train_launches = train_phases(torch, ck, cfg, device, card)
     parcel_phase(torch, ck, cfg, device, card)
     cli_phase(torch, ck, card)
+    parallel_phase(torch, ck, card)
     ref_rows.update(serve_ref_rows)
     scan_floor(torch, ck, libs, clock_mhz, {**serve_rows, **train_rows})
 

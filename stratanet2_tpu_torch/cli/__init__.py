@@ -1,7 +1,13 @@
 """The port's command-line entry points, copies of `stratanet2_tpu/cli/`:
 `main` (cross-validated training), `prepare` (parcel tiling), `predict`
 (parcel inference or pseudo-labelling) and `main_ssl` (SSL pretraining),
-with the JAX package's flags (`config.parse_config`) and `--device`."""
+with the JAX package's flags (`config.parse_config`), `--device` and
+`--dist_backend`.
+
+`main` and `predict` run as several ranks when launched so (torchrun, or
+the JAX package's JAX_NUM_PROCESSES environment): `start_ranks` joins the
+group, and rank 0 makes the run folder, writes every file and logs each
+rank's kernel launches."""
 
 from __future__ import annotations
 
@@ -14,13 +20,41 @@ def log_ignored_flags(ns: argparse.Namespace, logger: logging.Logger) -> None:
     """Log the JAX package's flags that the port accepts and ignores."""
     if ns.use_pallas is not None:
         logger.info("--use_pallas ignored: the port has one kernel path per device")
-    if ns.point_sharded:
-        logger.warning("--point_sharded ignored: point sharding is not ported")
+
+
+def start_ranks(ns: argparse.Namespace, task: str, experiments_path: str, mode: str):
+    """Join the process group the launcher describes (one process: none),
+    pick this rank's device and make the run folder on rank 0. Returns
+    (device, run folder, logger): rank 0's logger writes stats.txt, the
+    others' stdout alone."""
+    import torch
+
+    from stratanet2_tpu_torch.device import resolve_device
+    from stratanet2_tpu_torch.parallel import multihost
+    from stratanet2_tpu_torch.utils.experiment import create_logger, setup_experiment_folder
+
+    multihost.initialize(backend=ns.dist_backend)
+    device = resolve_device(multihost.rank_device(ns.device))
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)  # the object collectives of nccl run there
+    writer = multihost.is_writer()
+    stats_path = multihost.broadcast_object(
+        setup_experiment_folder(experiments_path, task, mode) if writer else None)
+    return device, stats_path, create_logger(stats_path if writer else None)
 
 
 def log_kernel_launches(logger: logging.Logger) -> None:
     """Log the kernel launches of this process (`ops/cuda_kernels.
-    launch_counts`; all 0 on the CPU, where the plain versions run)."""
-    from stratanet2_tpu_torch.ops import cuda_kernels
+    launch_counts`; all 0 on the CPU, where the plain versions run), and in
+    a group of several ranks every rank's, on rank 0."""
+    import torch.distributed as dist
 
-    logger.info("Kernel launches: %s", json.dumps(cuda_kernels.launch_counts()))
+    from stratanet2_tpu_torch.ops import cuda_kernels
+    from stratanet2_tpu_torch.parallel import multihost
+
+    counts = cuda_kernels.launch_counts()
+    logger.info("Kernel launches: %s", json.dumps(counts))
+    if multihost.world_size() > 1:
+        every = [None] * multihost.world_size()
+        dist.all_gather_object(every, counts)
+        logger.info("Kernel launches by rank: %s", json.dumps(every))

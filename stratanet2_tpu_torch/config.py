@@ -203,8 +203,7 @@ def _add_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--plot_geotiff_file", action="store_true", default=None)
     p.add_argument("--log_embeddings", action="store_true", default=None)
     # accepted for the JAX package's command lines; the CLIs log that they
-    # ignore them (`log_ignored_flags`): the port has one kernel path per
-    # device, and point sharding is not ported
+    # ignore it (`log_ignored_flags`): the port has one kernel path per device
     p.add_argument("--use_pallas", type=lambda s: s.lower() in ("1", "true"), default=None)
     p.add_argument("--transfer_dtype", choices=["float32", "float16"])
     p.add_argument(
@@ -218,8 +217,13 @@ def _add_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument("--min_points_for_pseudo_labelling", type=int, default=None)
     p.add_argument("--point_sharded", action="store_true")
-    # namespace-only: the device the CLIs run on (`device.resolve_device`)
-    p.add_argument("--device", type=str, default="cuda", help="cuda or cpu")
+    # namespace-only: the device the CLIs run on (`device.resolve_device`;
+    # a bare "cuda" is cuda:LOCAL_RANK in a group of several ranks) and the
+    # backend of that group (`parallel/multihost.initialize`)
+    p.add_argument("--device", type=str, default="cuda", help="cuda, cuda:<index> or cpu")
+    p.add_argument("--dist_backend", choices=["gloo", "nccl"], default=None,
+                   help="torch.distributed backend when launched as several ranks: nccl "
+                        "for ranks on distinct cards, gloo for the CPU or a shared card")
 
 
 def parse_config(argv: Optional[list] = None) -> Tuple[Config, argparse.Namespace]:

@@ -58,6 +58,7 @@ __all__ = [
     "augment_subsample",
     "make_device_sampler",
     "make_device_epoch",
+    "replicate_device_dataset",
     "make_device_eval",
     "eval_index_table",
     "epoch_index_table",
@@ -227,7 +228,21 @@ def make_device_sampler(mcfg: ModelConfig, train: bool):
     return sample
 
 
-def make_device_epoch(cfg: Config, train_step):
+def replicate_device_dataset(mesh, dd: DeviceDataset) -> DeviceDataset:
+    """The tables of rank 0 on every rank of `mesh` (device_dataset.py:191):
+    each rank builds its own from the same plots, and the broadcast makes
+    them equal bit for bit. `plot_ids` is host metadata and passes."""
+    from stratanet2_tpu_torch.parallel.mesh import replicate
+
+    replicate(mesh, [dd.feats, dd.xyz, dd.n, dd.coverages])
+    return dd
+
+
+def _rows(draws: Draws, lo: int, hi: int) -> Draws:
+    return Draws(*(None if f is None else f[lo:hi] for f in draws))
+
+
+def make_device_epoch(cfg: Config, train_step, mesh=None):
     """epoch(model, optimizer, scheduler, dd, idx_table, generator,
     draws=None) -> the loss parts summed over the epoch, on the card (None
     for an empty table).
@@ -235,16 +250,27 @@ def make_device_epoch(cfg: Config, train_step):
     One training epoch over the (nb, B) plot-index table on the card: each
     batch is sampled there (`draws`, by default `generator_draws(generator)`)
     and taken by `train_step` (`learning/train.make_train_step`), whose
-    dropout draws from `generator`. Nothing is read back inside the epoch."""
+    dropout draws from `generator`. Nothing is read back inside the epoch.
+
+    With a data-parallel `mesh` (device_dataset.py:241-300) every rank holds
+    the tables, is given the same index table and the same draws as one
+    process, and samples and steps on its column slice of each batch;
+    `train_step` is the mesh's data-parallel step."""
     sample = make_device_sampler(cfg.model, train=True)
+    if mesh is not None and cfg.train.batch_size % mesh.size:
+        raise ValueError(f"batch_size {cfg.train.batch_size} must divide over "
+                         f"{mesh.size} devices")
 
     def epoch(model, optimizer, scheduler, dd: DeviceDataset, idx_table: torch.Tensor,
               generator: torch.Generator, draws: Optional[DrawSource] = None):
         draws = draws or generator_draws(generator)
         b, m = idx_table.shape[1], dd.feats.shape[1]
+        lo, hi = 0, b
+        if mesh is not None:
+            lo, hi = mesh.batch_index * b // mesh.batch, (mesh.batch_index + 1) * b // mesh.batch
         sums = None
         for i in range(idx_table.shape[0]):
-            batch = sample(dd, idx_table[i], draws(i, b, m, True))
+            batch = sample(dd, idx_table[i, lo:hi], _rows(draws(i, b, m, True), lo, hi))
             comps = train_step(model, optimizer, scheduler, batch["cloud"], batch["xyz"],
                                batch["coverages"], generator)
             sums = comps if sums is None else {k: sums[k] + v for k, v in comps.items()}

@@ -27,6 +27,11 @@ class PlotLoader:
     Eval/inference mode: ordered, final partial batch padded by repeating the
     last item (padding flagged in `batch["valid"]` so metrics ignore it) —
     static shapes keep a single compiled executable.
+
+    `rows` (a slice of the batch) builds only those rows of every batch,
+    each as the whole batch's: a data-parallel rank loads its share alone
+    (each plot's augmentation draws from a generator of its own, seeded
+    from the epoch's shuffle).
     """
 
     def __init__(
@@ -38,6 +43,7 @@ class PlotLoader:
         batch_size: Optional[int] = None,
         seed: int = 0,
         workers: Optional[int] = None,
+        rows: Optional[slice] = None,
     ):
         self.dataset = dataset
         self.cfg = cfg
@@ -51,6 +57,7 @@ class PlotLoader:
         self.seed = seed
         self.epoch = 0
         self.workers = workers if workers is not None else cfg.data.loader_workers
+        self.rows = rows
 
     def __len__(self) -> int:
         n = len(self.plot_ids)
@@ -110,6 +117,9 @@ class PlotLoader:
 
         def make_batch(args):
             chunk, n_valid = args
+            if self.rows is not None:
+                start = self.rows.indices(len(chunk))[0]
+                chunk, n_valid = chunk[self.rows], n_valid - start
             items = [self._item(pid, item_rngs[pid]) for pid in chunk]
             return self._collate(items, n_valid)
 

@@ -15,8 +15,16 @@ weighted mosaic and the shapefile update stay on the host. Both tasks:
 - pseudo_labelling: plot-level coverages written back into the parcel's
   plots as labels for SSL pretraining (predict.py:104-111, min 2000 points
   at predict_utils.py:62-71).
-The point-sharded step and the mesh arguments of the JAX module come with
-the parallel paths.
+
+In a process group (predict.py:55-200): `make_predict_step(mesh=...)` runs
+each rank on its rows of every batch and all-gathers the outputs, with the
+model broadcast from rank 0 once per model (`_cached_replicator`);
+`make_point_sharded_predict_step` runs each rank on its shard of every
+cloud's points, all-gathers the coverages and projects them unsharded, as
+JAX's GSPMD does. Every rank then holds the whole batch's outputs, and
+`predict_parcel` writes on rank 0 alone. The loader pads a parcel's last
+batch to `batch_size` with invalid plots, as JAX's does, so every batch
+divides over a data-parallel mesh whose size divides `batch_size`.
 """
 
 from __future__ import annotations
@@ -46,11 +54,24 @@ from stratanet2_tpu_torch.ops.projection import (
     batched_raster_projection,
     plotwise_coverages,
 )
+from stratanet2_tpu_torch.parallel import multihost
+from stratanet2_tpu_torch.parallel.collectives import all_gather
+from stratanet2_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch, shard_points
 
 logger = logging.getLogger("stratanet2_tpu_torch")
 
 
-def make_predict_step(cfg: Config, device: Optional[Union[str, torch.device]] = None):
+def _check_model(model: PointNet2, dev: torch.device) -> None:
+    param = next(model.parameters())
+    if param.device.type != dev.type:
+        raise ValueError(f"model is on {param.device}, the step runs on {dev}")
+
+
+def make_predict_step(
+    cfg: Config,
+    device: Optional[Union[str, torch.device]] = None,
+    mesh: Optional[Mesh] = None,
+):
     """Return step(model, cloud, xyz) -> (rasters (B, 3, P, P), pred_pl (B, 4)).
 
     `cloud` is (B, N, 10) with the rescaled x, y in its first two columns,
@@ -58,15 +79,16 @@ def make_predict_step(cfg: Config, device: Optional[Union[str, torch.device]] = 
     float type; computed in float32 on `device`, default CUDA). `model` must
     already be on that device. The model runs in eval mode, as JAX's
     `train=False` does (running BN statistics, the fused SA eval kernel),
-    and is left in the mode the caller had it in."""
+    and is left in the mode the caller had it in.
+
+    With a data-parallel `mesh`, every rank passes the whole batch, steps
+    on its rows and returns the whole batch's outputs (predict.py:99-131)."""
     mcfg = cfg.model
     dev = resolve_device(device)
 
     @torch.inference_mode()
     def step(model: PointNet2, cloud, xyz):
-        param = next(model.parameters())
-        if param.device.type != dev.type:
-            raise ValueError(f"model is on {param.device}, the step runs on {dev}")
+        _check_model(model, dev)
         cloud = torch.as_tensor(cloud, device=dev).float()
         xyz = torch.as_tensor(xyz, device=dev).float()
         was_training = model.training
@@ -80,6 +102,77 @@ def make_predict_step(cfg: Config, device: Optional[Union[str, torch.device]] = 
         )
         pred_pl = plotwise_coverages(cov, cloud[..., :2], mcfg.diam_pix)
         return rasters, pred_pl
+
+    if mesh is None:
+        return step
+    replicator = _cached_replicator(mesh)
+
+    def sharded_step(model: PointNet2, cloud, xyz):
+        replicator(model)
+        rasters, pred_pl = step(model, shard_batch(mesh, cloud), shard_batch(mesh, xyz))
+        return tuple(all_gather(out, mesh.group).flatten(0, 1) for out in (rasters, pred_pl))
+
+    return sharded_step
+
+
+def _cached_replicator(mesh: Mesh):
+    """replicator(model): rank 0's parameters and buffers broadcast into
+    `model`, once per model (predict.py:133): keyed on the identity of its
+    tensors, held alive with the key, so that a new checkpoint (or a BN
+    update, which binds new buffers) is broadcast again."""
+    cache = {}
+
+    def replicator(model: PointNet2) -> PointNet2:
+        tensors = list(model.parameters()) + list(model.buffers())
+        key = tuple(id(t) for t in tensors)
+        if key not in cache:
+            cache.clear()
+            replicate(mesh, model)
+            cache[key] = tensors
+        return model
+
+    return replicator
+
+
+def make_point_sharded_predict_step(
+    cfg: Config, n_devices: int, device: Optional[Union[str, torch.device]] = None
+):
+    """Return step(model, cloud, xyz) -> (rasters, pred_pl), as
+    `make_predict_step`'s, with the point axis sharded over `n_devices`
+    ranks (predict.py:55-97): every rank passes the whole batch, runs the
+    sharded forward (`parallel/point_sharded.pointnet2_forward_point_sharded`)
+    on its shard of the points, the coverages are all-gathered and both
+    projections run on the whole clouds. Raises ValueError unless N, k1 and
+    n_centroids1 divide by `n_devices`; needs a process group of that many
+    ranks."""
+    from stratanet2_tpu_torch.parallel.mesh import make_mesh_2d
+    from stratanet2_tpu_torch.parallel.point_sharded import (
+        _gather_shards,
+        check_divisible,
+        pointnet2_forward_point_sharded,
+    )
+
+    mcfg = cfg.model
+    check_divisible(mcfg, n_devices)
+    dev = resolve_device(device)
+    mesh = make_mesh_2d(1, n_devices)
+    replicator = _cached_replicator(mesh)
+
+    @torch.inference_mode()
+    def project(model: PointNet2, cloud, xyz):
+        cov_l, _ = pointnet2_forward_point_sharded(
+            model, shard_points(mesh, cloud[..., 2:]), shard_points(mesh, xyz), mcfg, mesh
+        )
+        cov = _gather_shards(cov_l, mesh, axis=1)
+        rasters = batched_raster_projection(cloud[..., :2], cov, mcfg.diam_pix,
+                                            mcfg.diam_meters)
+        return rasters, plotwise_coverages(cov, cloud[..., :2], mcfg.diam_pix)
+
+    def step(model: PointNet2, cloud, xyz):
+        _check_model(model, dev)
+        replicator(model)
+        return project(model, torch.as_tensor(cloud, device=dev).float(),
+                       torch.as_tensor(xyz, device=dev).float())
 
     return step
 
@@ -95,15 +188,23 @@ def filter_dataset(dataset: Dict, is_pseudo_labelling: bool, min_points: int = 2
     return dataset
 
 
-def make_predict_program(cfg: Config, device: Optional[Union[str, torch.device]] = None):
+def make_predict_program(
+    cfg: Config,
+    device: Optional[Union[str, torch.device]] = None,
+    mesh: Optional[Mesh] = None,
+    step=None,
+):
     """Return program(model, clouds, xyzs) -> (rasters (S, B, 3, P, P),
-    preds (S, B, 4)): `make_predict_step` over each batch of a chain,
+    preds (S, B, 4)): `step` (default `make_predict_step(cfg, device,
+    mesh)`, predict.py:157-200: `mesh` is read only then) over each batch
+    of a chain,
     clouds (S, B, N, F) and xyzs (S, B, N, 3) (stacked arrays, or sequences
     of S batches). Each batch is uploaded and launched in turn; the stacked
     outputs stay on `device` (default CUDA). The batches go to the card
     from pageable memory: pinned memory and non-blocking copies measured no
     faster on the H100, where the host loader sets the pace (PERF.md)."""
-    step = make_predict_step(cfg, device)
+    if step is None:
+        step = make_predict_step(cfg, device, mesh)
 
     def program(model: PointNet2, clouds, xyzs):
         outs = [step(model, c, x) for c, x in zip(clouds, xyzs)]
@@ -152,18 +253,24 @@ def predict_parcel(
     parcel_shape: Optional[Polygon] = None,
     max_batches: Optional[int] = None,
     device: Optional[Union[str, torch.device]] = None,
+    program=None,
 ) -> Optional[str]:
-    """Run one parcel's plots through `model` (on `device`, default CUDA).
+    """Run one parcel's plots through `model` (on `device`, default CUDA),
+    by `program` (default `make_predict_program(cfg, device)`; a
+    data-parallel or point-sharded one in a process group, where every
+    rank runs this with the same arguments and rank 0 alone writes).
     Returns the merged parcel tif's path for inference, or the
     pseudo-labelled pkl's path for pseudo_labelling; None when no plot is
-    left to predict or no tile holds a prediction."""
+    left to predict or no tile holds a prediction, and on ranks other
+    than 0."""
     is_pseudo = task == "pseudo_labelling"
     dataset = filter_dataset(dataset, is_pseudo, cfg.data.min_points_for_pseudo_labelling)
     if not dataset:
         logger.warning("Parcel %s: no plots to predict", parcel_id)
         return None
     chain = max(1, int(cfg.data.predict_chain))
-    program = make_predict_program(cfg, device)
+    program = program or make_predict_program(cfg, device)
+    writer = multihost.is_writer()
     loader = PlotLoader(dataset, cfg, train=False)
 
     # In-memory tiles: only the merged tif (the worklist's done-marker) is
@@ -209,9 +316,12 @@ def predict_parcel(
         metas = [{k: b[k] for k in ("valid", "plot_id", "plot_center")} for b in group]
         if pending is not None:
             drain(*pending)
-        pending = (metas, *_copy_to_host(out))
+        if writer:
+            pending = (metas, *_copy_to_host(out))
     if pending is not None:
         drain(*pending)
+    if not writer:
+        return None
 
     if is_pseudo:
         # max_batches can leave plots unpredicted: keep only the plots that

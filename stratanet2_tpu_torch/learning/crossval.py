@@ -27,6 +27,7 @@ from stratanet2_tpu_torch.device import resolve_device
 from stratanet2_tpu_torch.learning import metrics as M
 from stratanet2_tpu_torch.learning.kde import KdeMixture
 from stratanet2_tpu_torch.learning.train import train_full
+from stratanet2_tpu_torch.parallel import multihost
 
 if TYPE_CHECKING:
     import pandas as pd
@@ -67,12 +68,19 @@ def cross_validate(
     sink,
     pretrained_path: Optional[str] = None,
     device: Optional[Union[str, torch.device]] = None,
-) -> pd.DataFrame:
+    mesh=None,
+    point_sharded: bool = False,
+) -> Optional[pd.DataFrame]:
     """K-fold cross-validation on `device` (default CUDA; main.py:66-99),
     then two analytics passes: with class-center-snapped GT (main.py:102-117)
-    and with the original GT (main.py:120-137). DEV runs one fold."""
+    and with the original GT (main.py:120-137). DEV runs one fold.
+
+    `mesh` and `point_sharded` go to every fold's `train_full`
+    (crossval.py:33-51). In a process group every rank trains; rank 0
+    alone logs and writes the analytics, and the others return None."""
     dev = resolve_device(device)
     plot_ids = get_index_sorted_plot_ids(dataset)
+    writer = multihost.is_writer()
 
     all_train, all_test = [], []
     cloud_info_by_fold: Dict[int, List[Dict]] = {}
@@ -80,11 +88,13 @@ def cross_validate(
         kfold_split(len(plot_ids), cfg.train.folds), start=1
     ):
         logger.info("Cross-validation FOLD = %d", fold_id)
-        sink.log_metric("Fold_ID", fold_id)
+        if writer:
+            sink.log_metric("Fold_ID", fold_id)
         _, train_losses, test_losses, cloud_infos = train_full(
             dataset, plot_ids[train_idx], plot_ids[val_idx],
             cfg, kde, stats_path, sink, fold_id=fold_id,
             pretrained_path=pretrained_path, seed=cfg.train.seed, device=dev,
+            mesh=mesh, point_sharded=point_sharded,
         )
         log_last_stats_of_fold(train_losses, test_losses, fold_id)
         all_train.append(train_losses)
@@ -92,6 +102,8 @@ def cross_validate(
         cloud_info_by_fold[fold_id] = cloud_infos
         if cfg.mode == "DEV" and fold_id >= 1:
             break
+    if not writer:
+        return None
 
     stats_for_all_folds(all_train, all_test, sink)
 

@@ -17,7 +17,14 @@
   checkpoint after every eval and `resume=True` to continue from it, and a
   final eval on the best or last weights; on the device-resident path when
   JAX's would take it (`use_device_resident`), else on the host loader's.
-  The mesh and point-sharded paths of the JAX loop are not ported yet.
+
+The parallel paths (train.py:203-258, 393-535): given a data-parallel mesh
+(`parallel/mesh.make_mesh`) each rank steps on its rows of every batch and
+the gradients are all-reduced; with `point_sharded` (and more than one
+rank, `point_sharded_eligible`) every rank steps on its shard of every
+cloud's points (`parallel/point_sharded.make_point_sharded_train_step`).
+Rank 0 is the one writer: it evaluates, decides early stopping and resume,
+writes checkpoints and metrics, and broadcasts each decision.
 
 Optimizer parity: optax `add_decayed_weights(wd)` -> `scale_by_adam` adds
 wd * param to the gradient before the moments (coupled L2), which is
@@ -28,7 +35,11 @@ counted from 0 before the update, as optax counts.
 Dropout (`ModelConfig.drop` > 0), and on the device-resident path each
 batch's augmentation and subsample, draw from a `torch.Generator`: the one
 of epoch e is seeded from (seed + 1, e) alone, as JAX folds e into
-PRNGKey(seed + 1), so a resumed run draws what an unbroken one draws. The
+PRNGKey(seed + 1), so a resumed run draws what an unbroken one draws. A
+rank of a mesh draws its dropout from one seeded from (seed + 1, e, its
+batch index, its point index), as JAX folds both mesh indices into the key
+(point_sharded.py:488-493); the device-resident draws stay the epoch's, so
+every rank samples what one process would. The
 device-resident eval draws from a generator seeded from the fold's id, as
 JAX's draws from PRNGKey(fold_id), so every eval of a fold subsamples alike.
 torch cannot reproduce JAX's random streams: a model initialised here
@@ -59,6 +70,9 @@ from stratanet2_tpu_torch.learning.losses import (
 )
 from stratanet2_tpu_torch.models.pointnet2 import PointNet2, count_params, init_pointnet2
 from stratanet2_tpu_torch.ops.projection import plotwise_coverages
+from stratanet2_tpu_torch.parallel import multihost
+from stratanet2_tpu_torch.parallel.collectives import mean_parts, reduce_gradients
+from stratanet2_tpu_torch.parallel.mesh import Mesh, replicate, shard_points
 from stratanet2_tpu_torch.utils import checkpoint as ckpt
 from stratanet2_tpu_torch.utils.convert import load_jax_params, to_jax_params
 
@@ -100,11 +114,12 @@ def init_train_state(
 ) -> TrainState:
     """A model (from `pretrained_path`, a checkpoint of either package, or
     initialised from `seed`) on `device` (default CUDA), its optimizer and
-    schedule, at step 0."""
+    schedule, at step 0. In a process group every rank calls it, and rank 0
+    alone reads the checkpoint."""
     dev = resolve_device(device)
     model = init_pointnet2(torch.Generator().manual_seed(seed), cfg.model, device=dev)
     if pretrained_path:
-        payload = ckpt.load_checkpoint(pretrained_path)
+        payload = multihost.from_writer(lambda: ckpt.load_checkpoint(pretrained_path))
         load_jax_params(model, payload["params"], payload["model_state"])
         logger.info("Loaded pretrained weights from %s", pretrained_path)
     logger.info("Total number of parameters: %d", count_params(model))
@@ -119,7 +134,10 @@ def _check_model_device(model: PointNet2, dev: torch.device) -> None:
 
 
 def make_train_step(
-    cfg: Config, kde: KdeMixture, device: Optional[Union[str, torch.device]] = None
+    cfg: Config,
+    kde: KdeMixture,
+    device: Optional[Union[str, torch.device]] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Return step(model, optimizer, scheduler, cloud, xyz, gt, generator=None)
     -> the loss components {total_loss, MAE_loss, log_loss, entropy_loss}
@@ -132,9 +150,21 @@ def make_train_step(
     leaves the parameter gradients in `.grad`, updates the BN running state,
     the parameters and the schedule. `model` and the optimizer (from
     `make_optimizer`) must already be on that device; `generator` (on that
-    device) feeds the head's dropout when `cfg.model.drop` > 0."""
+    device) feeds the head's dropout when `cfg.model.drop` > 0.
+
+    With a data-parallel `mesh` (batch x 1) the inputs are this rank's
+    rows of the global batch (`mesh.shard_batch`): every BatchNorm and the
+    fused SA route use the global batch's statistics, each rank's loss is
+    its share of the global loss, the gradients are summed over the ranks
+    before Adam and the returned parts are the global batch's. That is the
+    single-process step on the global batch, as JAX's data-parallel step
+    is, up to the order of the sums."""
     mcfg, tcfg = cfg.model, cfg.train
     dev = resolve_device(device)
+    if mesh is not None and (mesh.points != 1 or tcfg.batch_size % mesh.batch):
+        raise ValueError(f"a data-parallel step needs a (B x 1) mesh whose rows divide "
+                         f"batch_size {tcfg.batch_size}: {mesh}")
+    group = None if mesh is None else mesh.group
     kde_grid = torch.as_tensor(kde.grid, dtype=torch.float32, device=dev)
     kde_pdfs = torch.as_tensor(kde.pdfs, dtype=torch.float32, device=dev)
 
@@ -147,17 +177,21 @@ def make_train_step(
         xyz = torch.as_tensor(xyz, device=dev).float()
         gt = torch.as_tensor(gt, device=dev).float()
         model.train()
-        cov, proba = model(cloud[..., 2:], xyz, generator=generator)
+        cov, proba = model(cloud[..., 2:], xyz, generator=generator, group=group)
         pred_pl = plotwise_coverages(cov, cloud[..., :2], mcfg.diam_pix)
         z_m = cloud[..., 2] * mcfg.z_max
         loss, (comps, _aux) = total_loss(
             pred_pl, gt, proba, z_m, kde_grid, kde_pdfs, tcfg.m, tcfg.e
         )
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if mesh is None:
+            loss.backward()
+        else:
+            (loss / mesh.size).backward()
+            reduce_gradients(model, group)
         optimizer.step()
         scheduler.step()
-        return {name: value.detach() for name, value in comps.items()}
+        return mean_parts({name: value.detach() for name, value in comps.items()}, group)
 
     return step
 
@@ -245,13 +279,38 @@ def epoch_generator(seed: int, epoch: int, device: torch.device) -> torch.Genera
     return torch.Generator(device=device).manual_seed(int(state))
 
 
+def rank_generator(seed: int, epoch: int, mesh: Optional[Mesh],
+                   device: torch.device) -> torch.Generator:
+    """The dropout generator of this rank in `epoch`: seeded from (seed + 1,
+    epoch, its batch index, its point index) on a mesh, else
+    `epoch_generator`'s."""
+    if mesh is None:
+        return epoch_generator(seed, epoch, device)
+    state = np.random.SeedSequence(
+        [seed + 1, epoch, mesh.batch_index, mesh.point_index]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def shard_for(mesh: Optional[Mesh], x):
+    """This rank's point shard of an array of its rows, on a mesh with more
+    than one point rank."""
+    if mesh is None or mesh.points == 1 or np.ndim(x) <= 2:
+        return x
+    return shard_points(mesh, x)
+
+
 def train_one_epoch(
     train_step,
     ts: TrainState,
     loader,
     generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[TrainState, Dict[str, float]]:
     """One epoch over shuffled, drop_last batches (learning/train.py:29-79).
+    With a `mesh`, the loader yields this rank's rows of every batch
+    (`PlotLoader(rows=...)`, the `host_batch_slice` of its batch row) and
+    the step takes them and its point shard (`shard_for`), as JAX places a
+    batch with batch (and point) sharding.
 
     The loss parts are summed on the device and read once, at the end: a
     read a batch would make the host wait for every step."""
@@ -259,14 +318,15 @@ def train_one_epoch(
     n = 0
     n_points = 0
     t0 = time.time()
+    ranks = 1 if mesh is None else mesh.batch
     for batch in loader:
         comps = train_step(
-            ts.model, ts.optimizer, ts.scheduler,
-            batch["cloud"], batch["xyz"], batch["coverages"], generator,
+            ts.model, ts.optimizer, ts.scheduler, shard_for(mesh, batch["cloud"]),
+            shard_for(mesh, batch["xyz"]), shard_for(mesh, batch["coverages"]), generator,
         )
         acc = comps if acc is None else {k: acc[k] + v for k, v in comps.items()}
         n += 1
-        n_points += batch["cloud"].shape[0] * batch["cloud"].shape[1]
+        n_points += batch["cloud"].shape[0] * batch["cloud"].shape[1] * ranks
     return _epoch_means(ts, acc, n, n_points, t0)
 
 
@@ -295,18 +355,27 @@ def train_one_epoch_device_resident(
     cfg: Config,
     seed: int,
     epoch: int,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[TrainState, Dict[str, float]]:
     """One epoch over the fold on the card, `dd`
     (`data/device_dataset.make_device_epoch`'s `epoch_fn`): the shuffled
     index table of `epoch` goes up, the draws and dropout come from
-    `epoch_generator(seed, epoch)`, and the loss sums are read once."""
-    from stratanet2_tpu_torch.data.device_dataset import epoch_index_table
+    `epoch_generator(seed, epoch)` (on a `mesh`, every rank draws the
+    epoch's samples alike and its dropout from `rank_generator`), and the
+    loss sums are read once."""
+    from stratanet2_tpu_torch.data.device_dataset import epoch_index_table, generator_draws
 
     dev = dd.feats.device
     idx = epoch_index_table(len(dd.plot_ids), cfg.train.batch_size, seed, epoch)
     t0 = time.time()
-    sums = epoch_fn(ts.model, ts.optimizer, ts.scheduler, dd, torch.from_numpy(idx).to(dev),
-                    epoch_generator(seed, epoch, dev))
+    gen = epoch_generator(seed, epoch, dev)
+    if mesh is None:  # one generator feeds the draws and the dropout
+        sums = epoch_fn(ts.model, ts.optimizer, ts.scheduler, dd,
+                        torch.from_numpy(idx).to(dev), gen)
+    else:
+        sums = epoch_fn(ts.model, ts.optimizer, ts.scheduler, dd,
+                        torch.from_numpy(idx).to(dev), rank_generator(seed, epoch, mesh, dev),
+                        generator_draws(gen))
     return _epoch_means(ts, sums, idx.shape[0], idx.size * cfg.model.subsample_size, t0)
 
 
@@ -397,6 +466,23 @@ def use_device_resident(dataset: Dict, train_ids, val_ids, cfg: Config) -> bool:
     return dr == "true"
 
 
+def point_sharded_eligible(cfg: Config) -> Tuple[bool, str]:
+    """Whether point-sharded training can run in this process group:
+    (ok, the reason why not). The step shards N, k1 and C1 over all ranks
+    (`parallel/point_sharded.py`), so each must divide (train.py:393-411,
+    which counts `jax.devices()`)."""
+    n = multihost.world_size()
+    if n <= 1:
+        return False, "needs more than one device"
+    mcfg = cfg.model
+    if mcfg.subsample_size % n or mcfg.k1 % n or mcfg.n_centroids1 % n:
+        return False, (
+            f"needs subsample_size={mcfg.subsample_size}, k1={mcfg.k1}, "
+            f"n_centroids1={mcfg.n_centroids1} all divisible by {n} devices"
+        )
+    return True, ""
+
+
 def train_full(
     dataset: Dict,
     train_ids,
@@ -410,6 +496,8 @@ def train_full(
     seed: int = 0,
     resume: bool = False,
     device: Optional[Union[str, torch.device]] = None,
+    mesh: Optional[Mesh] = None,
+    point_sharded: bool = False,
 ):
     """Full training loop for one fold (reference learning/train.py:82-177)
     on `device` (default CUDA): the train and val plots uploaded to the card
@@ -422,30 +510,68 @@ def train_full(
     state) is written after every eval; `resume=True` continues a killed run
     from it, and does not retrain a fold that had already stopped early.
 
+    In a process group, every rank calls this with the same arguments:
+    `mesh` (a data-parallel mesh) splits each batch's rows over the ranks;
+    `point_sharded` splits each cloud's points over all ranks instead, and
+    falls back to the standard path with a warning when
+    `point_sharded_eligible` says no, as JAX's does. Only rank 0 evaluates
+    and writes; it broadcasts the resume, each eval's losses and the early
+    stop, so every rank returns the same lists.
+
     Returns (train_state, train_loss_dicts, test_loss_dicts, cloud_info_list).
     """
     from stratanet2_tpu_torch.data import device_dataset as D
     from stratanet2_tpu_torch.data.loader import PlotLoader
     from stratanet2_tpu_torch.learning.evaluate import evaluate
+    from stratanet2_tpu_torch.utils.experiment import NullSink
 
     dev = resolve_device(device)
-    train_loader = PlotLoader(dataset, cfg, plot_ids=train_ids, train=True, seed=seed)
+    writer = multihost.is_writer()
+    if not writer:
+        sink = NullSink()
+    if point_sharded:
+        ok, why = point_sharded_eligible(cfg)
+        if not ok:
+            logger.warning(
+                "point-sharded training unavailable (%s); using the standard path%s", why,
+                f" (data-parallel over {mesh.size} devices)" if mesh is not None else "",
+            )
+            point_sharded = False
+    device_data = (use_device_resident(dataset, train_ids, val_ids, cfg) and not point_sharded
+                   and (mesh is None or cfg.train.batch_size % mesh.size == 0))
+    if point_sharded:
+        from stratanet2_tpu_torch.parallel.mesh import make_mesh_2d
+        from stratanet2_tpu_torch.parallel.point_sharded import make_point_sharded_train_step
+
+        # the point-sharded step owns its (1, D) mesh; a data-parallel mesh
+        # the caller passed places nothing
+        mesh = make_mesh_2d(1, multihost.world_size())
+        train_step = make_point_sharded_train_step(cfg, kde, mesh, dev)
+        logger.info("Point-sharded training over %d devices", mesh.size)
+    else:
+        train_step = make_train_step(cfg, kde, device=dev, mesh=mesh)
+    # on the host path each rank loads its rows of every batch alone
+    train_loader = PlotLoader(
+        dataset, cfg, plot_ids=train_ids, train=True, seed=seed,
+        rows=None if mesh is None else multihost.host_batch_slice(
+            cfg.train.batch_size, mesh.batch_index, mesh.batch))
     steps_per_epoch = max(len(train_loader), 1)
-    train_step = make_train_step(cfg, kde, device=dev)
     eval_step = make_eval_step(cfg, kde, device=dev)
     ts = init_train_state(cfg, steps_per_epoch, seed=seed, pretrained_path=pretrained_path,
                           device=dev)
-    device_data = use_device_resident(dataset, train_ids, val_ids, cfg)
     device_eval = None
     if device_data:
         dd = D.build_device_dataset(dataset, list(train_ids), cfg.model, dev)
-        epoch_fn = D.make_device_epoch(cfg, train_step)
+        if mesh is not None:
+            dd = D.replicate_device_dataset(mesh, dd)
+        epoch_fn = D.make_device_epoch(cfg, train_step, mesh=mesh)
         logger.info(
-            "Device-resident dataset: %d plots x %d rows (%.1f MB)",
+            "Device-resident dataset: %d plots x %d rows (%.1f MB)%s",
             dd.feats.shape[0], dd.feats.shape[1],
             (dd.feats.numel() + dd.xyz.numel()) * 4 / 1e6,
+            f", data-parallel over {mesh.size} devices" if mesh is not None else "",
         )
-        if len(val_ids):
+        if len(val_ids) and writer:
             dd_val = D.build_device_dataset(dataset, list(val_ids), cfg.model, dev)
             device_eval = (D.make_device_eval(cfg, make_eval_core(cfg, kde, dev)), dd_val)
 
@@ -454,8 +580,9 @@ def train_full(
     resume_path = ckpt_path + ".resume"
 
     start_epoch = 1
-    if resume and os.path.exists(resume_path):
-        payload = ckpt.load_checkpoint(resume_path)
+    # rank 0 decides, reads the file and sends its payload to every rank
+    if multihost.broadcast_object(resume and os.path.exists(resume_path)):
+        payload = multihost.from_writer(lambda: ckpt.load_checkpoint(resume_path))
         load_jax_params(ts.model, payload["params"], payload["model_state"])
         ckpt.load_adam_state(ts.model, ts.optimizer, ts.scheduler, payload["opt_state"])
         ts = ts._replace(step=int(payload["metadata"].get("step", 0)))
@@ -471,6 +598,10 @@ def train_full(
             )
             start_epoch = cfg.train.n_epoch + 1
         logger.info("Resuming fold %d from epoch %d", fold_id, start_epoch)
+    if mesh is not None:
+        replicate(mesh, ts.model)
+        if not point_sharded:
+            logger.info("Data-parallel training over %d devices", mesh.size)
 
     all_train_losses: List[Dict] = []
     all_test_losses: List[Dict] = []
@@ -481,11 +612,12 @@ def train_full(
         with sink.context(f"fold_{fold_id}_train"):
             if device_data:
                 ts, train_losses = train_one_epoch_device_resident(
-                    epoch_fn, ts, dd, cfg, seed, current_epoch
+                    epoch_fn, ts, dd, cfg, seed, current_epoch, mesh
                 )
             else:
                 ts, train_losses = train_one_epoch(
-                    train_step, ts, train_loader, epoch_generator(seed, current_epoch, dev)
+                    train_step, ts, train_loader,
+                    rank_generator(seed, current_epoch, mesh, dev), mesh,
                 )
             train_losses["epoch"] = current_epoch
             train_losses["epoch_seconds"] = time.time() - t0
@@ -496,59 +628,76 @@ def train_full(
         if (current_epoch % cfg.train.n_epoch_test == 0) or (
             current_epoch > cfg.train.epoch_to_start_early_stop
         ):
-            with sink.context(f"fold_{fold_id}_val"):
-                test_losses, _ = evaluate(
-                    ts.model, dataset, val_ids, cfg, kde, eval_step, stats_path, sink,
-                    fold_id=fold_id, epoch=current_epoch, device_eval=device_eval, device=dev,
-                )
-                test_losses["epoch"] = current_epoch
-                test_losses["step"] = ts.step
-                print_epoch_losses(current_epoch, test_losses, train=False)
-                sink.log_metrics(test_losses, epoch=current_epoch, step=test_losses["step"])
-                all_test_losses.append(test_losses)
-
-                stop = False
-                if cfg.train.use_early_stopping:
-                    stop, improved = stopper.should_stop(
-                        test_losses["total_loss"], current_epoch
+            stop, test_losses = False, None
+            if writer:
+                with sink.context(f"fold_{fold_id}_val"):
+                    test_losses, stop = _eval_and_save(
+                        ts, dataset, val_ids, cfg, kde, eval_step, stats_path, sink, fold_id,
+                        current_epoch, device_eval, dev, stopper, ckpt_path, resume_path,
                     )
-                    if improved:
-                        save_train_state(ckpt_path, ts, {
-                            "best_metric_epoch": stopper.best_metric_epoch,
-                            "best_metric_value": stopper.best_metric_value,
-                            "fold_id": fold_id,
-                        })
-                # after this epoch's eval and should_stop, so the saved
-                # early-stopping state is never one eval stale
-                save_train_state(resume_path, ts, {
-                    "epoch": current_epoch,
-                    "step": ts.step,
-                    "fold_id": fold_id,
-                    "stopper": stopper.state_dict(),
-                })
-                if stop:
-                    logger.info("Early stopping at epoch %d", current_epoch)
-                    break
+            stop, test_losses = multihost.broadcast_object((stop, test_losses))
+            all_test_losses.append(test_losses)
+            if stop:
+                logger.info("Early stopping at epoch %d", current_epoch)
+                break
 
     # final eval with the best or the last weights (learning/train.py:154-176)
-    if cfg.train.use_early_stopping and os.path.exists(ckpt_path):
-        payload = ckpt.load_checkpoint(ckpt_path)
+    if multihost.broadcast_object(cfg.train.use_early_stopping and os.path.exists(ckpt_path)):
+        payload = multihost.from_writer(lambda: ckpt.load_checkpoint(ckpt_path))
         load_jax_params(ts.model, payload["params"], payload["model_state"])
         logger.info(
             "Loaded best model of epoch %d for final inference",
             payload["metadata"].get("best_metric_epoch", -1),
         )
-    else:
+    elif writer:
         save_train_state(ckpt_path, ts, {"fold_id": fold_id, "epoch": current_epoch})
 
-    with sink.context(f"fold_{fold_id}_val"):
-        test_losses, cloud_info_list = evaluate(
-            ts.model, dataset, val_ids, cfg, kde, eval_step, stats_path, sink,
-            fold_id=fold_id, epoch=current_epoch, last_epoch=True, device=dev,
-        )
-        test_losses["epoch"] = current_epoch
-        test_losses["step"] = ts.step
-        all_test_losses.append(dict(test_losses))
-        print_epoch_losses(current_epoch, test_losses, train=False)
+    test_losses = cloud_info_list = None
+    if writer:
+        with sink.context(f"fold_{fold_id}_val"):
+            test_losses, cloud_info_list = evaluate(
+                ts.model, dataset, val_ids, cfg, kde, eval_step, stats_path, sink,
+                fold_id=fold_id, epoch=current_epoch, last_epoch=True, device=dev,
+            )
+            test_losses["epoch"] = current_epoch
+            test_losses["step"] = ts.step
+            print_epoch_losses(current_epoch, test_losses, train=False)
+    test_losses, cloud_info_list = multihost.broadcast_object((test_losses, cloud_info_list))
+    all_test_losses.append(dict(test_losses))
 
     return ts, all_train_losses, all_test_losses, cloud_info_list
+
+
+def _eval_and_save(ts, dataset, val_ids, cfg, kde, eval_step, stats_path, sink, fold_id,
+                   epoch, device_eval, dev, stopper, ckpt_path, resume_path):
+    """An eval of `train_full`'s loop, its early-stopping decision and its
+    checkpoints: (test losses, stop)."""
+    from stratanet2_tpu_torch.learning.evaluate import evaluate
+
+    test_losses, _ = evaluate(
+        ts.model, dataset, val_ids, cfg, kde, eval_step, stats_path, sink,
+        fold_id=fold_id, epoch=epoch, device_eval=device_eval, device=dev,
+    )
+    test_losses["epoch"] = epoch
+    test_losses["step"] = ts.step
+    print_epoch_losses(epoch, test_losses, train=False)
+    sink.log_metrics(test_losses, epoch=epoch, step=test_losses["step"])
+
+    stop = False
+    if cfg.train.use_early_stopping:
+        stop, improved = stopper.should_stop(test_losses["total_loss"], epoch)
+        if improved:
+            save_train_state(ckpt_path, ts, {
+                "best_metric_epoch": stopper.best_metric_epoch,
+                "best_metric_value": stopper.best_metric_value,
+                "fold_id": fold_id,
+            })
+    # after this epoch's eval and should_stop, so the saved early-stopping
+    # state is never one eval stale
+    save_train_state(resume_path, ts, {
+        "epoch": epoch,
+        "step": ts.step,
+        "fold_id": fold_id,
+        "stopper": stopper.state_dict(),
+    })
+    return test_losses, stop

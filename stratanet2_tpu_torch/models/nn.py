@@ -16,6 +16,12 @@ the running state, momentum 0.1. A mask broadcastable to x.shape[:-1] is
 broadcast before counting. The new running statistics are computed from
 the same forward and bound to the buffers as new tensors, so nothing that
 autograd saved is modified in place.
+
+Given a process group, train-mode BatchNorm sums n and the two sums over
+its ranks before normalising (`parallel/collectives.sum_across`), as JAX's
+`nn.batchnorm(axis_names=...)` psums them (nn.py:96-99): every rank then
+normalises with the global batch statistics. Summing data that is
+replicated on some ranks scales the sums and the count alike.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from stratanet2_tpu_torch.parallel.collectives import sum_across
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -60,7 +68,8 @@ class BatchNorm(nn.Module):
         a = self.scale * torch.rsqrt(self.var + BN_EPS)
         return a, self.bias - self.mean * a
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
         if not self.training:
             return (x - self.mean) * (torch.rsqrt(self.var + BN_EPS) * self.scale) + self.bias
         shift = self.mean
@@ -73,6 +82,10 @@ class BatchNorm(nn.Module):
             m = mask.to(x.dtype)[..., None].expand(x.shape[:-1] + (1,))
             n = m.sum()
             dsum, sqsum = (xc * m).sum(dims), (xc * xc * m).sum(dims)
+        if group is not None:
+            c = dsum.shape[0]
+            sums = sum_across(torch.cat([n.reshape(1), dsum, sqsum]), group)
+            n, dsum, sqsum = sums[0], sums[1:c + 1], sums[c + 1:]
         n = n.clamp_min(1.0)  # a count: no gradient flows through it
         dmean = dsum / n
         mean = dmean + shift
@@ -98,8 +111,9 @@ class Layer(nn.Module):
         self.linear = Linear(n_in, n_out)
         self.bn = BatchNorm(n_out)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.bn(torch.relu(self.linear(x)), mask)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
+        return self.bn(torch.relu(self.linear(x)), mask, group)
 
 
 class MLP(nn.Module):
@@ -109,9 +123,11 @@ class MLP(nn.Module):
             Layer(channels[i - 1], channels[i]) for i in range(1, len(channels))
         )
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
         """`mask` (broadcastable to x.shape[:-1]) selects the rows that
-        enter the batch statistics in train mode."""
+        enter the batch statistics in train mode, summed over `group`'s
+        ranks where one is given."""
         for layer in self.layers:
-            x = layer(x, mask)
+            x = layer(x, mask, group)
         return x

@@ -35,6 +35,12 @@ gathers [x, pos] and subtracts the zero-padded centroid offset; SA2's
 pre-projects q and gathers it with `gather_rows`, whose backward is the
 scatter kernel.
 
+Given a process group (`group`, the data-parallel ranks of
+`learning/train.make_train_step`), every train-mode BatchNorm and the fused
+SA route normalise with the statistics of all the group's rows, so that a
+rank's forward is its rows of the single-process forward on the global
+batch.
+
 SA3, FP3, the MLPs and the head are plain torch in both modes. In train
 mode with `cfg.drop` > 0 the head drops units of relu(lin1) at that rate
 (pointnet2.py:380, `nn.dropout`), drawing the mask from the generator the
@@ -94,12 +100,14 @@ def set_abstraction_train(
     fps_parts: int,
     fps_min_part_samples: int,
     preproject: bool,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The train-mode SA stage: FPS -> standalone grouped ball query ->
     gather -> masked-BN MLP -> masked max over the k slots. `preproject`
     selects SA2's form (q = x@W1x + pos@W1p + b1 gathered, minus cterm)
     over SA1's (gather [x, pos], subtract [0, pos_c]). Updates the MLP's BN
-    running state. Returns (features (B, C, C_out), centroids (B, C, 3))."""
+    running state, from the statistics over `group`'s ranks where given.
+    Returns (features (B, C, C_out), centroids (B, C, 3))."""
     centroids = _centroids(pos, n_centroids, fps_parts, fps_min_part_samples)
     nbr_idx, nbr_mask = cuda_kernels.ball_query(
         centroids.contiguous(), pos.contiguous(), radius, k
@@ -107,13 +115,13 @@ def set_abstraction_train(
     if preproject:
         q, cterm = _layer1_terms(mlp, x, pos, centroids)
         h = torch.relu(gather_rows(q, nbr_idx) - cterm[:, :, None, :])
-        h = mlp.layers[0].bn(h, nbr_mask)
+        h = mlp.layers[0].bn(h, nbr_mask, group)
         for layer in mlp.layers[1:]:
-            h = layer(h, nbr_mask)
+            h = layer(h, nbr_mask, group)
     else:
         both = gather_rows(torch.cat([x, pos], dim=-1), nbr_idx)  # (B, C, k, F + 3)
         offset = torch.nn.functional.pad(centroids, (x.shape[-1], 0))  # [0, pos_c]
-        h = mlp(both - offset[:, :, None, :], nbr_mask)
+        h = mlp(both - offset[:, :, None, :], nbr_mask, group)
     h = h.masked_fill(~nbr_mask[..., None], -1e30)
     return torch.amax(h, dim=2), centroids
 
@@ -136,11 +144,13 @@ def set_abstraction_train_fused(
     k: int,
     fps_parts: int,
     fps_min_part_samples: int,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The train-mode SA stage on the fused route (one or two layers): FPS ->
     standalone grouped ball query -> `sa_train_fused` on q and cterm, with
     the running means as the statistics' shifts. Updates the MLP's BN
-    running state from the returned statistics over the M valid edges.
+    running state from the returned statistics over the M valid edges (of
+    every rank of `group`, where given).
     Returns (features (B, C, C_out), centroids)."""
     centroids = _centroids(pos, n_centroids, fps_parts, fps_min_part_samples)
     idx, mask = cuda_kernels.ball_query(centroids.contiguous(), pos.contiguous(), radius, k)
@@ -154,7 +164,7 @@ def set_abstraction_train_fused(
         raise ValueError("the fused SA train route takes one or two layers")
     out, stats, m_edges = sa_train_fused(
         q, cterm, [bn.scale for bn in bns], [bn.bias for bn in bns], w2, b2, idx, mask,
-        bn_shifts=[bn.mean for bn in bns],
+        bn_shifts=[bn.mean for bn in bns], group=group,
     )
     for bn, (mean, var) in zip(bns, stats):
         bn.update_running_stats(mean, var, m_edges)
@@ -175,6 +185,15 @@ def set_abstraction(
     slots (reference SAModule, model/point_net2.py:14-29), eval mode.
     Returns (features (B, C, C_out), centroids (B, C, 3))."""
     centroids = _centroids(pos, n_centroids, fps_parts, fps_min_part_samples)
+    return sa_eval_interior(mlp, x, pos, centroids, radius, k), centroids
+
+
+def sa_eval_interior(
+    mlp: MLP, x: torch.Tensor, pos: torch.Tensor, centroids: torch.Tensor, radius: float, k: int
+) -> torch.Tensor:
+    """The eval SA interior around given centroids, on the fused kernel:
+    (B, C, C_out), the max over each centroid's valid picks
+    (`cuda_kernels.NEG` where it has none among these points)."""
     q, cterm = _layer1_terms(mlp, x, pos, centroids)
     a1, c1 = mlp.layers[0].bn.folded()
     if len(mlp.layers) == 2:
@@ -185,11 +204,10 @@ def set_abstraction(
         w2 = b2 = a2 = c2 = None
     else:
         raise ValueError("the fused SA interior takes one or two layers")
-    out = cuda_kernels.sa_fused_eval(
+    return cuda_kernels.sa_fused_eval(
         q.contiguous(), pos.contiguous(), centroids.contiguous(), cterm.contiguous(),
         a1, c1, w2, b2, a2, c2, radius, k,
     )
-    return out, centroids
 
 
 class PointNet2(nn.Module):
@@ -207,13 +225,14 @@ class PointNet2(nn.Module):
         xyz: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         return_embeddings: bool = False,
+        group=None,
     ):
         """(B, N, 8) features, (B, N, 3) positions -> (coverages (B, N, 4),
         proba (B, N, 4)), and the (B, 64) SA3 global feature as a third
         output if `return_embeddings` (reference `last_G_tensor`). In train
-        mode every BN normalises with batch statistics and updates its
-        running state, and the head's dropout draws from `generator` (on
-        the inputs' device)."""
+        mode every BN normalises with batch statistics (summed over
+        `group`'s ranks where given) and updates its running state, and the
+        head's dropout draws from `generator` (on the inputs' device)."""
         cfg = self.cfg
         x0, pos0 = cloud.float(), xyz.float()
         fps_kw = dict(
@@ -221,10 +240,10 @@ class PointNet2(nn.Module):
         )
         if self.training:
             x1, pos1 = set_abstraction_train_fused(
-                self.sa1, x0, pos0, cfg.n_centroids1, cfg.r1, cfg.k1, **fps_kw
+                self.sa1, x0, pos0, cfg.n_centroids1, cfg.r1, cfg.k1, **fps_kw, group=group
             )
             x2, pos2 = set_abstraction_train_fused(
-                self.sa2, x1, pos1, cfg.n_centroids2, cfg.r2, cfg.k2, **fps_kw
+                self.sa2, x1, pos1, cfg.n_centroids2, cfg.r2, cfg.k2, **fps_kw, group=group
             )
         else:
             x1, pos1 = set_abstraction(
@@ -234,12 +253,21 @@ class PointNet2(nn.Module):
                 self.sa2, x1, pos1, cfg.n_centroids2, cfg.r2, cfg.k2, **fps_kw
             )
 
+        return self.decode(x0, pos0, x1, pos1, x2, pos2, generator, return_embeddings, group)
+
+    def decode(self, x0, pos0, x1, pos1, x2, pos2, generator=None, return_embeddings=False,
+               group=None):
+        """SA3 -> FP3 -> FP2 -> FP1 -> head from the SA outputs (features
+        x and positions pos of levels 0, 1 and 2). Level 0 may be a shard of
+        a cloud's points: FP1 and the head are pointwise."""
+        cfg = self.cfg
         # global SA (model/point_net2.py:32-42): MLP on [x, pos], max over points
-        g = torch.amax(self.sa3(torch.cat([x2, pos2], dim=-1)), dim=1)
+        g = torch.amax(self.sa3(torch.cat([x2, pos2], dim=-1), group=group), dim=1)
         # FP3: k=1 interpolation from the single global point is a broadcast
-        h = self.fp3(torch.cat([g[:, None, :].expand(-1, x2.shape[1], -1), x2], dim=-1))
-        h = self.fp2(torch.cat([knn_interpolate(h, pos2, pos1), x1], dim=-1))
-        h = self.fp1(torch.cat([knn_interpolate(h, pos1, pos0), x0], dim=-1))
+        h = self.fp3(torch.cat([g[:, None, :].expand(-1, x2.shape[1], -1), x2], dim=-1),
+                     group=group)
+        h = self.fp2(torch.cat([knn_interpolate(h, pos2, pos1), x1], dim=-1), group=group)
+        h = self.fp1(torch.cat([knn_interpolate(h, pos1, pos0), x0], dim=-1), group=group)
 
         h = dropout(torch.relu(self.lin1(h)), cfg.drop, self.training, generator)
         scores = self.lin2(h)

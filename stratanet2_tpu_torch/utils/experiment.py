@@ -41,17 +41,19 @@ def setup_experiment_folder(experiments_path: str, task: str, mode: str) -> str:
     raise FileExistsError(f"cannot create a unique run folder at {stats_path}")
 
 
-def create_logger(stats_path: str) -> logging.Logger:
-    """stdout + stats.txt logger (utils/utils.py:12-22)."""
+def create_logger(stats_path: Optional[str]) -> logging.Logger:
+    """stdout + stats.txt logger (utils/utils.py:12-22); stdout alone when
+    `stats_path` is None (a rank that writes no file)."""
     logger = logging.getLogger("stratanet2_tpu_torch")
     logger.setLevel(logging.INFO)
     logger.handlers.clear()
     fmt = logging.Formatter(
         "%(asctime)s:%(levelname)s: %(message)s", datefmt="%Y-%m-%d %H:%M:%S"
     )
-    fh = logging.FileHandler(os.path.join(stats_path, "stats.txt"))
-    sh = logging.StreamHandler(sys.stdout)
-    for h in (fh, sh):
+    handlers = [logging.StreamHandler(sys.stdout)]
+    if stats_path is not None:
+        handlers.insert(0, logging.FileHandler(os.path.join(stats_path, "stats.txt")))
+    for h in handlers:
         h.setFormatter(fmt)
         logger.addHandler(h)
     return logger
@@ -160,6 +162,28 @@ class MetricSink:
         if self._tb is not None:
             self._tb.close()
             self._tb = None
+
+
+class NullSink:
+    """A MetricSink that writes nothing: the sink of a rank other than 0,
+    which computes with the group but leaves every file to rank 0."""
+
+    epoch: int = 0
+
+    @contextmanager
+    def context(self, name: str):
+        yield self
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def log_metric(self, *args, **kwargs):
+        pass
+
+    log_metrics = log_histogram = log_parameters = log_image = log_table = log_metric
+
+    def close(self):
+        pass
 
 
 def _jsonable(v):

@@ -7,6 +7,9 @@ at its sizes (10 plots of 500 points, N=256, batch 4, DEV):
 - the pipeline of `tests/test_cli.py::TestPipeline` with the port's CLIs:
   train -> prepare -> predict inference -> predict pseudo_labelling -> SSL
   pretraining -> a warm-started cross-validation, with the same artifacts;
+  its training asks for `--point_sharded` in one process and gets JAX's
+  warning and the standard path;
+- the training CLI with `--point_sharded` on two gloo ranks;
 - on copies of the parcel folder: both packages' prepare CLIs write equal
   pickles bit for bit, and both packages' predict CLIs, from one checkpoint
   written by the port's training CLI, write parcel tifs and PRED_* fields
@@ -42,7 +45,9 @@ from stratanet2_tpu_torch.cli import prepare as cli_prepare
 from stratanet2_tpu_torch.data import native
 from stratanet2_tpu_torch.inference.geotiff import read_geotiff
 from stratanet2_tpu_torch.inference.shapefile_io import read_shapefile
+from stratanet2_tpu_torch.parallel.launch import run_ranks
 from test_cli import _common_args, data_tree  # noqa: F401 (the JAX CLI test's tree)
+from test_torch_port_parallel import no_figures
 
 torch.set_num_threads(1)
 
@@ -146,7 +151,7 @@ def experiments(data_tree, tmp_path_factory):  # noqa: F811
 
 @pytest.fixture(scope="module")
 def trained(data_tree, experiments):  # noqa: F811
-    return cli_main.main(args_for(data_tree, experiments))
+    return cli_main.main(args_for(data_tree, experiments) + ["--point_sharded"])
 
 
 @pytest.fixture(scope="module")
@@ -191,6 +196,35 @@ def test_training_artifacts(trained):
         log = f.read()
     assert "Device-resident dataset: 8 plots" in log  # JAX's "auto" choice at this size
     assert "--use_pallas ignored" in log
+    # one process: JAX's refusal of --point_sharded, then the standard path
+    assert ("--point_sharded unavailable (needs more than one device); falling back to "
+            "data-parallel") in log
+    assert "Point-sharded" not in log and "data-parallel mesh" not in log
+
+
+def test_main_point_sharded_on_two_ranks(data_tree, tmp_path, monkeypatch):  # noqa: F811
+    """`main --point_sharded --dist_backend gloo` on two ranks: one run
+    folder, made and written by rank 0 (its stats.txt, checkpoints and
+    summary CSVs), the point-sharded path taken, and each rank's launches
+    logged (all 0 on the CPU). The ranks run without matplotlib
+    (`no_figures`): the figures are `test_training_artifacts`' to check."""
+    exp = tmp_path / "experiments"
+    args = args_for(data_tree, exp) + ["--point_sharded", "--dist_backend", "gloo"]
+    no_figures(monkeypatch, tmp_path)
+    out = run_ranks(2, "stratanet2_tpu_torch.parallel.dryrun:run_cases",
+                    [("cli", "cli", dict(module="main", argv=args))], backend="gloo",
+                    device="cpu", timeout=240, workdir=str(tmp_path / "ranks"))
+    assert out[0]["cli"] == out[1]["cli"]
+    (run,) = os.listdir(exp / "learning" / "DEV")
+    stats = exp / "learning" / "DEV" / run
+    assert str(stats) == out[0]["cli"].rstrip("/")
+    for name in ("PCC_model_fold_n=1.pt", "PCC_model_fold_n=1.pt.resume", "metrics.jsonl",
+                 "PCC_inference_all_placettes_relabeled_summary.csv"):
+        assert os.path.exists(stats / name), name
+    log = (stats / "stats.txt").read_text()
+    assert "Point-sharded training over 2 devices" in log and "unavailable" not in log
+    assert 'Kernel launches by rank: [{"fps": 0' in log
+    assert log.count("Kernel launches: ") == 1
 
 
 def test_prepare_predict_ssl_artifacts(pipeline):

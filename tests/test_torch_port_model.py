@@ -252,6 +252,8 @@ def test_port_imports_without_jax():
     "want |= {'stratanet2_tpu_torch.cli.' + m for m in\n"
     "         ('main', 'prepare', 'predict', 'main_ssl')}\n"
     "want.add('stratanet2_tpu_torch.data.device_dataset')\n"
+    "want |= {'stratanet2_tpu_torch.parallel.' + m for m in\n"
+    "         ('multihost', 'mesh', 'collectives', 'point_sharded', 'launch', 'dryrun')}\n"
         "assert want <= set(walked), sorted(want - set(walked))\n"
         "print('imported')\n"
     )

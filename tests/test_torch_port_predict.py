@@ -542,8 +542,8 @@ def test_predict_parcel_runs_each_batch_once_and_reads_each_chain_once(models, t
     events = []
     real_step, real_copy = predict.make_predict_step, predict._copy_to_host
 
-    def counted_step(cfg, device=None):
-        step = real_step(cfg, device)
+    def counted_step(cfg, device=None, mesh=None):
+        step = real_step(cfg, device, mesh)
 
         def run(*args):
             events.append("step")
