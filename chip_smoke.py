@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card (an H100): builds the
-eleven CUDA kernels of the serve and train paths from
-`stratanet2_tpu_torch/ops/csrc/`, holds each against its plain PyTorch
-version at the shapes its path gives it, drives the serve step, the train
-step, the training loop, parcel predict, the four CLIs and the parallel
-paths (two ranks sharing the card) at full width (B=20 clouds x N=10000
-points, random weights from a seed) and checks their outputs.
+twelve CUDA kernels of the serve and train paths and of the nearest
+selection from `stratanet2_tpu_torch/ops/csrc/`, holds each against its
+plain PyTorch version at the shapes its path gives it, drives the serve
+step, the train step, the training loop, parcel predict, the four CLIs,
+the parallel paths (two ranks sharing the card) and the opt-in routes at
+full width (B=20 clouds x N=10000 points, random weights from a seed), and
+serves a reference checkpoint, and checks their outputs.
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
 
@@ -44,7 +45,7 @@ Phases, in order, each failing loudly:
      coverages in [0, 1];
   6. step time (median of 30 synchronised steps) and points/s;
   7. profile: `torch.profiler` traces 10 steps; each device kernel's time
-     per step, the port's kernels summed per wrapper, all eleven listed (a
+     per step, the port's kernels summed per wrapper, all twelve listed (a
      wrapper shows kernels exactly when it launches), the rest of
      the device time (plain PyTorch ops), and the idle share of the step,
      1 - device busy time / the median step time of phase 6;
@@ -176,7 +177,8 @@ Phases, in order, each failing loudly:
      main, predict --point_sharded and predict, each with its artifacts and
      every rank's launches (`"parallel_cli"`);
   16. `"phase": "selection_floor"`, for sa_fused_eval and knn_interpolate
-     (serve step) and ball_query (train step): the SASS instructions a pair
+     (serve step), ball_query (train step) and ball_query_nearest (the
+     nearest serve step): the SASS instructions a pair
      of the scan loop (cuobjdump of the built library; for kNN also on the
      path of a pair that inserts nothing), the step's pairs and the issue
      floor, pairs x instructions / (132 SMs x 128 lanes x the maximum SM
@@ -192,10 +194,45 @@ Phases, in order, each failing loudly:
      then `"phase": "atomics"`: the global RED/ATOM instructions in the SASS
      of the kernels of ATOMIC_FREE (must be 0: each writes every output
      element once) and their registers, stack and spills;
-  17. the `{"reference_sites": [...]}` line (phase 10's sites and the
-     synthetic FPS, selection, SA train, pixel-max and scatter sites, apart
-     from the per-step rows), the `{"kernels": [...]}` line (all eleven) and the
-     final `{"ok": true, ...}` line.
+  17. the opt-ins and a reference checkpoint (`optin_phase`, after 15g;
+     phase 16 then also reads the nearest kernel's scan loop):
+     17a. the nearest selection (`cuda_kernels.ball_query_nearest`) against
+     its plain version at the SA1 and SA2 sites of a nearest serve step and
+     train step (B=20: C=2500, N=10000, k=32; C=625, N=2500, k=64), then at
+     NEAREST_REFERENCE (tie-heavy integer grids at both shapes with
+     duplicated points, so zero distances; fewer in-radius points than k;
+     every point in radius at NEAREST_MAX_K): 0 differing idx and mask
+     entries at each, CUDA-event times of the kernel, the plain version and
+     the library call (a stable `torch.sort` of the precomputed scores and
+     a slice);
+     17b/17c. `"phase": "optin_steps"`, one line a route of OPTIN_ROUTES:
+     "nearest", "bf16_fused" (compute_dtype bfloat16) and "bf16_unfused"
+     (also use_pallas=False): the serve and train steps at PROD through
+     `make_predict_step` and `make_train_step`, launches counted and
+     checked against the route's (derived beside OPTIN_ROUTES; nearest:
+     fps 2, ball_query_nearest 2, knn_interpolate 2, pixel_max 2 serving,
+     no SA kernel), outputs finite and coverages in [0, 1], the step ms
+     (median of STEPS) and device busy ms, the serve step and the train
+     step's loss parts at B=2 against the CPU (serving within CPU_ATOL in
+     float32 and BF16_CPU_ATOL in bfloat16, the loss parts within
+     TRAIN_LOSS_ATOL), and the same weights and batches on a baseline route
+     timed alike with the serve step's gap to it (nearest: the default
+     route; bfloat16: its float32 route, the gap above BF16_CPU_ATOL);
+     then `"phase":
+     "bf16_matmul_probe"`, the two forms of a bfloat16 matmul with float32
+     sums at FP1's shape;
+     17d. `"phase": "reference_checkpoint"`: a reference-layout state_dict
+     from a seed saved as the reference saves it, loaded with
+     `load_reference_checkpoint` onto the card (every tensor placed), the
+     PROD serve step counted, and B=2 against the CPU load within CPU_ATOL;
+     17e. `"phase": "metascripts"`: the three metascripts' `main` on phase
+     15f's cross-validation result CSVs copied out of their DEV folder; the
+     quantification figure skipped with a warning without matplotlib;
+  18. the `{"reference_sites": [...]}` line (phase 10's sites and the
+     synthetic FPS, selection, SA train, pixel-max, scatter and nearest
+     sites, apart from the per-step rows), the `{"kernels": [...]}` line
+     (all twelve; the nearest kernel's row is the nearest serve step's) and
+     the final `{"ok": true, ...}` line.
 
 float32 matmuls run in full float32: TF32 is switched off for cuBLAS and
 cuDNN below, so no product (and no distance) passes through TF32.
@@ -208,9 +245,10 @@ compare, min or max as one; where the work depends on the data (the SA
 epilogue runs only for picks within the radius) this run's picks are
 counted (and for the SA train passes, this run's valid edges).
 `ms`, `plain_ms`, `bound_ms` and `library_ms` of a kernel are per step: the
-sum over its call sites in the serve step (the four serve kernels) or in
-the train step (the seven train kernels); the reference sites are summed on
-the `reference_sites` line alone. The operations bound counts a fused
+sum over its call sites in the serve step (the four serve kernels), in
+the train step (the seven train kernels) or in the nearest serve step
+(ball_query_nearest); the reference sites are summed on the
+`reference_sites` line alone. The operations bound counts a fused
 multiply-add as one operation against a rate that counts it as two, so for
 the scan kernels (the grouped selection, kNN) it sits below what the card
 can issue: phase 16 gives their issue floor beside it.
@@ -253,14 +291,42 @@ TRAIN_KERNELS = (
     ("sa_train_bwd2", "stratanet2_tpu_torch/ops/csrc/sa_train.cu",
      "stratanet2_tpu/ops/pallas_kernels.py:1750"),
 )
+# phase 17's kernel: the nearest selection, which JAX computes in XLA
+# (approx_min_k), not in a Pallas kernel
+NEAREST_KERNEL = ("ball_query_nearest", "stratanet2_tpu_torch/ops/csrc/ball_query_nearest.cu",
+                  "stratanet2_tpu/ops/ballquery.py:104")
 SA_TRAIN = ("sa_train_stats", "sa_train_main", "sa_train_bwd1", "sa_train_bwd2")
 SERVE_LAUNCHES = {"fps": 2, "sa_fused_eval": 2, "knn_interpolate": 2, "pixel_max": 2,
                   "ball_query": 0, "knn_scatter": 0, "pixel_max_bwd": 0,
-                  **dict.fromkeys(SA_TRAIN, 0)}
+                  **dict.fromkeys(SA_TRAIN, 0), "ball_query_nearest": 0}
 TRAIN_LAUNCHES = {"fps": 2, "sa_fused_eval": 0, "knn_interpolate": 2, "pixel_max": 1,
                   "ball_query": 2, "knn_scatter": 2, "pixel_max_bwd": 1,
                   "sa_train_stats": 1, "sa_train_main": 2, "sa_train_bwd1": 1,
-                  "sa_train_bwd2": 2}
+                  "sa_train_bwd2": 2, "ball_query_nearest": 0}
+# phase 17: the steps on the unfused SA route (`models/pointnet2.
+# set_abstraction_unfused`). Serve: FPS and the selection at SA1 and SA2, kNN
+# at FP2 and FP1, pixel max for the rasters and the plot coverages. Train:
+# the same forward with one pixel max (the plot coverages), and in the
+# backward the kNN scatter of FP2 and FP1 and the gather backward of SA2's
+# pre-projected q (SA1 gathers the input cloud, which takes no gradient), and
+# the pixel-max backward; no SA kernel. "nearest" selects with the new
+# kernel, use_pallas=False with the grouped query.
+NEAREST_SERVE_LAUNCHES = {**dict.fromkeys(TRAIN_LAUNCHES, 0), "fps": 2, "ball_query_nearest": 2,
+                          "knn_interpolate": 2, "pixel_max": 2}
+NEAREST_TRAIN_LAUNCHES = {**dict.fromkeys(TRAIN_LAUNCHES, 0), "fps": 2, "ball_query_nearest": 2,
+                          "knn_interpolate": 2, "knn_scatter": 3, "pixel_max": 1,
+                          "pixel_max_bwd": 1}
+UNFUSED_SERVE_LAUNCHES = {**NEAREST_SERVE_LAUNCHES, "ball_query_nearest": 0, "ball_query": 2}
+UNFUSED_TRAIN_LAUNCHES = {**NEAREST_TRAIN_LAUNCHES, "ball_query_nearest": 0, "ball_query": 2}
+# route: (ModelConfig opt-ins, serve launches, train launches); bfloat16 on
+# the fused route leaves the SA kernels as they are
+OPTIN_ROUTES = {
+    "nearest": (dict(ball_query_method="nearest"), NEAREST_SERVE_LAUNCHES,
+                NEAREST_TRAIN_LAUNCHES),
+    "bf16_fused": (dict(compute_dtype="bfloat16"), SERVE_LAUNCHES, TRAIN_LAUNCHES),
+    "bf16_unfused": (dict(compute_dtype="bfloat16", use_pallas=False), UNFUSED_SERVE_LAUNCHES,
+                     UNFUSED_TRAIN_LAUNCHES),
+}
 # FPS's reference sites (phase 4): (cloud, rows, N, S). "grid": integer
 # coordinates in [0, 16), so distances take a few hundred values and most
 # picks break ties, at the shapes of SA1's parts and of SA2; "serve": the
@@ -336,12 +402,24 @@ PIXEL_MAX_REFERENCE = (("ties", 4, 10007, 37), ("tiny", 3, 5, 37))
 # of no tile or round tried, a band of rows with no contribution, and 1% of
 # the indices outside [0, S) (-1 or S + 2)
 KNN_SCATTER_REFERENCE = (("hot", 4, 1, 40000, 2500, 32), ("ragged", 3, 3, 3001, 1001, 34))
+# The nearest selection's reference sites (phase 17a): (cloud, B, N, C, K,
+# radius). "grid": integer coordinates with an eighth of the points
+# duplicated and the centroids drawn from the points, so zero distances and
+# ties at the k-th distance abound (the picks break them by index): the SA1
+# shape in [0, 16)^3 at radius 2 (r^2 = 4 exactly, about 80 points in a
+# ball) and the SA2 shape in [0, 10)^3 at sqrt(8) (r^2 rounds below 8, about
+# 230 points in a ball); "few": fewer in-radius points than K (uniform in
+# [-10, 10]^3 at radius 1, about 1 a ball), most slots masked; "all": every
+# point within the radius, at the kernel's largest K (NEAREST_MAX_K)
+NEAREST_REFERENCE = (("grid", 20, 10000, 2500, 32, 2.0), ("grid", 20, 2500, 625, 64, 8 ** 0.5),
+                     ("few", 4, 3000, 500, 64, 1.0), ("all", 2, 2048, 256, 128, 1e3))
 REFERENCE_SITES = {"fps": len(FPS_REFERENCE), "sa_fused_eval": len(SEL_REFERENCE),
                    "knn_interpolate": len(KNN_REFERENCE), "pixel_max": len(PIXEL_MAX_REFERENCE),
                    "ball_query": len(SEL_REFERENCE), "pixel_max_bwd": 1,
                    **{name: n + SA_TRAIN_REF_SITES.get(name, 0)
                       for name, n in PHASE10_SITES.items()}}
 REFERENCE_SITES["knn_scatter"] += len(KNN_SCATTER_REFERENCE)
+REFERENCE_SITES["ball_query_nearest"] = len(NEAREST_REFERENCE)
 FPS_FLOOR_N = 1024  # one point for each thread of the FPS block
 SHIFT_STD = 0.1  # phase 10's BN running means (the shifts), as the CPU stage tests draw them
 SA_ATOL = 1e-4  # layer-2 dot: FMA contraction and summation order differ
@@ -382,7 +460,7 @@ LOADER_EPOCH_BATCHES = 12  # the steady-state epoch: batches from one pool
 TRAIN_FULL_PLOTS = 100
 EVAL_LAUNCHES = {"fps": 2, "sa_fused_eval": 2, "knn_interpolate": 2, "pixel_max": 1,
                  "ball_query": 0, "knn_scatter": 0, "pixel_max_bwd": 0,
-                 **dict.fromkeys(SA_TRAIN, 0)}
+                 **dict.fromkeys(SA_TRAIN, 0), "ball_query_nearest": 0}
 # the keys of JAX's train_full dicts (train.py:250-256, 613-614; the eval's
 # evaluate.LOSS_KEYS and 629-630)
 JAX_TRAIN_KEYS = {"total_loss", "MAE_loss", "log_loss", "entropy_loss", "step",
@@ -430,7 +508,8 @@ DEVICE_KERNELS = {"fps": ("fps_kernel",), "sa_fused_eval": ("sa_kernel",),
                   "ball_query": ("ball_query_kernel",), "knn_scatter": ("knn_scatter_kernel",),
                   "pixel_max_bwd": ("pixel_max_bwd_kernel",),
                   **{name: (f"{name}_kernel",) for name in SA_TRAIN},
-                  "sa_train_bwd2": ("sa_train_bwd2_kernel", "sa_train_dq_kernel")}
+                  "sa_train_bwd2": ("sa_train_bwd2_kernel", "sa_train_dq_kernel"),
+                  "ball_query_nearest": ("ball_query_nearest_kernel",)}
 
 
 def fail(msg: str) -> None:
@@ -878,7 +957,7 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
 
     load_mhz = sm_clock_under_load(torch, ck, torch.device("cuda", 0))
     for name, r in (("sa_fused_eval", ck.SEL_TILE // 32), ("ball_query", ck.SEL_TILE // 32),
-                    ("knn_interpolate", 1)):
+                    ("knn_interpolate", 1), ("ball_query_nearest", 1)):
         loops = sass_per_pair(dump(name, "-sass"), r)
         check(len(loops) > 0, f"{name}: no scan loop found in the SASS")
         per_pair = max(v["per_pair"] for v in loops.values())
@@ -1667,7 +1746,7 @@ def serve_after_train(torch, cfg, model, cloud, xyz):
 
 def compare_fused_with_unfused(torch, cfg, model, cloud, xyz):
     """Phase 10: SA1 and SA2 at the PROD shapes on the fused route and on
-    the unfused path (`set_abstraction_train`, SA2 in its pre-projected
+    the unfused path (`set_abstraction_unfused`, SA2 in its pre-projected
     form, whose gather backward is a knn_scatter call), from the same
     weights, inputs and random cotangent, and with random BN running means
     (N(0, SHIFT_STD^2), another draw per layer): the statistics' shifts are
@@ -1677,7 +1756,7 @@ def compare_fused_with_unfused(torch, cfg, model, cloud, xyz):
     out, BN state and every gradient (and SA2's gradient in x) are held to
     the tolerances above."""
     from stratanet2_tpu_torch.models.pointnet2 import (
-        set_abstraction_train,
+        set_abstraction_unfused,
         set_abstraction_train_fused,
     )
 
@@ -1700,7 +1779,7 @@ def compare_fused_with_unfused(torch, cfg, model, cloud, xyz):
                 out, cent = set_abstraction_train_fused(net, xt, pos, n_c, radius, k, **fps_kw)
                 gy = torch.randn(out.shape, generator=gen, device=out.device)
             else:
-                out, cent = set_abstraction_train(net, xt, pos, n_c, radius, k, **fps_kw,
+                out, cent = set_abstraction_unfused(net, xt, pos, n_c, radius, k, **fps_kw,
                                                   preproject=preproject)
             (out * gy).sum().backward()
             grads = {name: p.grad for name, p in net.named_parameters()}
@@ -2563,7 +2642,8 @@ def cli_phase(torch, ck, card, flags=("--subsample_size", "10000"), device="cuda
     it (prepare: none). Prints each CLI's seconds, its launches and the
     warnings its stats.txt holds (the figures it skipped). `flags` and
     `device` let a test run the phase small on the CPU (then the subprocess
-    is given the device too)."""
+    is given the device too). Returns the first training run's
+    cross-validation result CSVs, {file name: text}."""
     import os
     import pickle
     import tempfile
@@ -2577,7 +2657,7 @@ def cli_phase(torch, ck, card, flags=("--subsample_size", "10000"), device="cuda
     from stratanet2_tpu_torch.inference import geotiff, shapefile_io
 
     serve = {"fps", "sa_fused_eval", "knn_interpolate", "pixel_max"}
-    everything = set(TRAIN_LAUNCHES)
+    everything = set(TRAIN_LAUNCHES) - {"ball_query_nearest"}  # the default route's kernels
     logger = logging.getLogger("stratanet2_tpu_torch")
     with tempfile.TemporaryDirectory() as tmp:
         tree = write_cli_tree(tmp, flags)
@@ -2633,6 +2713,11 @@ def cli_phase(torch, ck, card, flags=("--subsample_size", "10000"), device="cuda
         trained, train_dir = cli("main", lambda: cli_main.main(on_card), "learning", everything)
         check_training("main", train_dir, "PCC_model_fold_n=1.pt")
         model_id = os.path.basename(trained)
+        results = {}  # the cross-validation result CSVs, for phase 17e
+        for name in sorted(os.listdir(train_dir)):
+            if "placettes" in name and name.endswith(".csv"):
+                with open(os.path.join(train_dir, name)) as f:
+                    results[name] = f.read()
 
         cli("prepare", lambda: cli_prepare.main(on_card), "prepare", set())
         prepared = os.path.join(parcels, "prepared", f"{parcel_id}.pkl")
@@ -2692,6 +2777,7 @@ def cli_phase(torch, ck, card, flags=("--subsample_size", "10000"), device="cuda
     print(json.dumps({"phase": "cli_data", "plots": CLI_PLOTS, "points": CLI_POINTS,
                       "parcel_las_points": int(cloud.shape[1]), "parcel_plots": n_plots,
                       "write_seconds": write_s, "card": card}), flush=True)
+    return results
 
 
 # phase 15g (parallel): two ranks over gloo on the one card (NCCL refuses
@@ -2733,41 +2819,6 @@ def _digest(tensors) -> str:
 
 def _step_state(model):
     return [p for p in model.parameters()] + [b for b in model.buffers()]
-
-
-def unfused_train_step(cfg, kde, device):
-    """The single-process train step with SA on the unfused route (the
-    point-sharded step's, `set_abstraction_train`), the reference of the
-    point-sharded train step at PAR_N_ALIGNED."""
-    import torch
-
-    from stratanet2_tpu_torch.learning.losses import total_loss
-    from stratanet2_tpu_torch.models.pointnet2 import set_abstraction_train
-    from stratanet2_tpu_torch.ops.projection import plotwise_coverages
-
-    mcfg, tcfg = cfg.model, cfg.train
-    grid = torch.as_tensor(kde.grid, dtype=torch.float32, device=device)
-    pdfs = torch.as_tensor(kde.pdfs, dtype=torch.float32, device=device)
-    fk = (mcfg.fps_parts, mcfg.fps_min_part_samples)
-
-    def step(model, opt, sched, cloud, xyz, gt):
-        model.train()
-        x0 = cloud[..., 2:]
-        x1, pos1 = set_abstraction_train(model.sa1, x0, xyz, mcfg.n_centroids1, mcfg.r1,
-                                         mcfg.k1, *fk, preproject=False)
-        x2, pos2 = set_abstraction_train(model.sa2, x1, pos1, mcfg.n_centroids2, mcfg.r2,
-                                         mcfg.k2, *fk, preproject=True)
-        cov, proba = model.decode(x0, xyz, x1, pos1, x2, pos2)
-        pred = plotwise_coverages(cov, cloud[..., :2], mcfg.diam_pix)
-        loss, (comps, _) = total_loss(pred, gt, proba, cloud[..., 2] * mcfg.z_max, grid, pdfs,
-                                      tcfg.m, tcfg.e)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        sched.step()
-        return comps
-
-    return step
 
 
 # The stages JAX's point-sharded step computes replicated on the point ranks
@@ -2981,8 +3032,11 @@ def parallel_rank(payload, device):
     cloud, xyz, gt = train_batch(b, n, torch.Generator().manual_seed(SEED + 41), cpu)
     cloud, xyz, gt = cloud.to(device), xyz.to(device), gt.to(device)
     kde = fit_kde_mixture((cloud[..., 2] * cfg.model.z_max).cpu().numpy())
+    # the point-sharded step's reference: the single-process step of the
+    # unfused route (use_pallas=False), which the sharded step runs
+    cfg_unf = replace(cfg_al, model=replace(cfg_al.model, use_pallas=False))
     bases = {id(c): random_model(c.model, SEED, device, running_stats=False)
-             for c in (cfg, cfg_al)}
+             for c in (cfg, cfg_al, cfg_unf)}
     start = {k: p.detach().cpu().clone() for k, p in bases[id(cfg)].named_parameters()}
 
     def run(step, mcfg_cfg, args, gen=None):
@@ -3002,7 +3056,7 @@ def parallel_rank(payload, device):
     out["ps_train_reproducible"] = _digest(_step_state(m)) == _digest(_step_state(m2))
     out["ps_train_digest"] = _digest(_step_state(m))
     (ref_m, _, _, ref_comps, _), rows = counted_bn_rows(lambda: run(
-        unfused_train_step(cfg_al, kde, device), cfg_al, (cl_al, xyz_al, gt)))
+        make_train_step(cfg_unf, kde, device), cfg_unf, (cl_al, xyz_al, gt)))
     ref = _snapshot(ref_m, ref_comps, start)
     ref["state"] = replicated_count_state(ref_m, rows, 1.0, PAR_WORLD)
     out["ps_train_vs_unfused"] = step_diffs(torch, cfg_al, ps, ref)
@@ -3354,6 +3408,436 @@ def train_phases(torch, ck, cfg, device, card):
     return rows, ref_rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the opt-ins and a reference checkpoint
+# ---------------------------------------------------------------------------
+
+# The serve step's card vs CPU at B=2 in bfloat16 (phase 17c): both round
+# the same float32 operands to bfloat16, but an operand that cuBLAS and MKL
+# sum into float32 values a rounding apart can round to bfloat16 values 2^-8
+# apart. Measured on an NVIDIA H100 80GB HBM3 at 700 W: 2.46e-5 on the fused
+# route, 4.04e-5 on the unfused one, against 1.44e-4 between bfloat16 and
+# float32 on either; the bound is twice the larger, and the run also checks
+# that it stays below its own bfloat16-vs-float32 gap, so that a step that
+# ignored the opt-in would fail. The train step's loss parts stay within
+# TRAIN_LOSS_ATOL (measured 1.2e-7 and 7.2e-7).
+BF16_CPU_ATOL = 8e-5
+BF16_PROBE_ROWS = 20 * 10000  # FP1's rows at PROD: the largest bfloat16 matmul of a step
+
+
+def nearest_reference_calls(torch, device):
+    """The arguments (centroids, points, radius, k) of the nearest
+    selection's reference sites (NEAREST_REFERENCE), drawn from a seed."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    calls = []
+    for kind, b, n, c, k, radius in NEAREST_REFERENCE:
+        if kind == "grid":
+            side = 16 if c == 2500 else 10
+            pts = torch.randint(0, side, (b, n, 3), generator=gen, device=device).float()
+            pts[:, n // 2 : n // 2 + n // 8] = pts[:, : n // 8]
+        else:
+            pts = torch.rand((b, n, 3), generator=gen, device=device) * 20 - 10
+        pick = torch.randperm(n, generator=gen, device=device)[:c]
+        calls.append((pts[:, pick].contiguous(), pts.contiguous(), radius, k))
+    return calls
+
+
+def nearest_site(torch, ck, args):
+    """The nearest selection's kernel against its plain version at one site:
+    (shape, bytes, operations, differing idx and mask entries, the library
+    call's ms, pairs). The library call is a stable `torch.sort` of the
+    precomputed chunked scores and a slice of its first k, the plain
+    version's selection alone."""
+    from stratanet2_tpu_torch.ops.ballquery import _BIG, _CHUNK, radius_sq
+    from stratanet2_tpu_torch.ops.distance import expanded_d2, sq_norm3
+
+    cent, pts, radius, k = args
+    (gi, gm), (wi, wm) = ck.ball_query_nearest(*args), ck.ball_query_nearest_plain(*args)
+    diff = int((gi != wi).sum()) + int((gm != wm).sum())
+    b, c, _ = cent.shape
+    n = pts.shape[1]
+    r2, pts_sq = radius_sq(radius), sq_norm3(pts)
+    scores = []
+    for c0 in range(0, c, _CHUNK):
+        cc = cent[:, c0 : c0 + _CHUNK]
+        d2 = expanded_d2(cc, sq_norm3(cc), pts, pts_sq)
+        scores.append(torch.where(d2 <= r2, d2, torch.full_like(d2, _BIG)))
+    del d2
+    lib_ms = cuda_ms(torch, lambda: [torch.sort(sc, dim=-1, stable=True)[1][..., :k]
+                                     for sc in scores], 2)
+    del scores
+    nbytes = 4 * (b * n * 3 + b * c * 3) + 5 * b * c * k  # idx int32 and mask bool written
+    shape = f"B={b} N={n} C={c} K={k} valid_picks={int(wm.sum())}"
+    return shape, nbytes, 10.0 * b * c * n, diff, lib_ms, float(b * c * n)
+
+
+def optin_setup(torch, cfg, device, overrides):
+    """The serve and train steps of the config with `overrides` (ModelConfig
+    opt-ins) at cfg's width, their models (random weights from SEED, BN
+    running statistics random for serve, at init for train) and batches
+    (phase 3's and phase 9's seeds)."""
+    from dataclasses import replace
+
+    from stratanet2_tpu_torch.inference.predict import make_predict_step
+    from stratanet2_tpu_torch.learning.kde import fit_kde_mixture
+    from stratanet2_tpu_torch.learning.train import make_train_step
+    from stratanet2_tpu_torch.utils.synthetic import random_model, serve_batch, train_batch
+
+    ocfg = replace(cfg, model=replace(cfg.model, **overrides))
+    b, n = cfg.train.batch_size, cfg.model.subsample_size
+    cloud, xyz = serve_batch(b, n, torch.Generator(device=device).manual_seed(SEED), device)
+    tcloud, txyz, gt = train_batch(b, n, torch.Generator(device=device).manual_seed(SEED + 1),
+                                   device)
+    kde = fit_kde_mixture((tcloud[..., 2] * cfg.model.z_max).cpu().numpy())
+    return dict(cfg=ocfg, serve=make_predict_step(ocfg, device=device),
+                model=random_model(ocfg.model, SEED, device), cloud=cloud, xyz=xyz,
+                train=make_train_step(ocfg, kde, device=device), kde=kde,
+                train_model=random_model(ocfg.model, SEED, device, running_stats=False),
+                batch=(tcloud, txyz, gt))
+
+
+def serve_vs_cpu(torch, cfg, model, cloud, xyz):
+    """The serve step at B=2 on the card and on the CPU from one model:
+    the larger max |diff| of the rasters and the plot coverages."""
+    from stratanet2_tpu_torch.inference.predict import make_predict_step
+
+    r_gpu, p_gpu = make_predict_step(cfg, device=cloud.device)(model, cloud[:2], xyz[:2])
+    r_cpu, p_cpu = make_predict_step(cfg, device="cpu")(
+        copy.deepcopy(model).cpu(), cloud[:2].cpu(), xyz[:2].cpu())
+    r_gpu, p_gpu = r_gpu.cpu(), p_gpu.cpu()
+    check(torch.equal(torch.isnan(r_gpu), torch.isnan(r_cpu)), "raster NaN pattern differs from CPU")
+    return max(float(torch.nan_to_num(r_gpu - r_cpu).abs().max()),
+               float((p_gpu - p_cpu).abs().max()))
+
+
+def train_loss_vs_cpu(torch, cfg, kde, model, batch):
+    """One train step at B=2 on the card and on the CPU from one model: the
+    max |diff| of the loss parts."""
+    from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
+
+    parts = []
+    for dev in (batch[0].device, "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        opt, sched = make_optimizer(cfg, m, STEPS_PER_EPOCH)
+        comps = make_train_step(cfg, kde, device=dev)(m, opt, sched,
+                                                      *(t[:2].to(dev) for t in batch))
+        parts.append({k: float(v) for k, v in comps.items()})
+    return max(abs(parts[0][k] - parts[1][k]) for k in parts[0])
+
+
+def check_serve_outputs(what, cfg, rasters, pred_pl, b):
+    check(tuple(rasters.shape) == (b, 3, cfg.model.diam_pix, cfg.model.diam_pix),
+          f"{what}: rasters shape {tuple(rasters.shape)}")
+    check(tuple(pred_pl.shape) == (b, 4), f"{what}: pred_pl shape {tuple(pred_pl.shape)}")
+    filled = rasters[~rasters.isnan()]
+    check(filled.numel() > 0 and bool(pred_pl.isfinite().all()), f"{what}: outputs not finite")
+    for name, t in (("rasters", filled), ("pred_pl", pred_pl)):
+        check(bool(((t >= 0) & (t <= 1)).all()), f"{what}: {name} outside [0, 1]")
+
+
+def optin_route(torch, ck, cfg, device, card, name, baseline=None):
+    """Phases 17b and 17c for one route of OPTIN_ROUTES: the counted serve
+    and train steps at cfg's width (launches checked against the route's,
+    outputs finite, coverages in [0, 1]), their step ms (median of STEPS)
+    and device busy ms (one step under the profiler), and each step at B=2
+    against the CPU. With `baseline` (the opt-ins of another route), the
+    same weights and batches on that route, timed alike, and the serve
+    step's gap to it; a bfloat16 route's gap to its float32 route must
+    exceed BF16_CPU_ATOL. Returns the counted serve launches."""
+    from stratanet2_tpu_torch.learning.train import make_optimizer
+
+    def timed(st):
+        """The serve and train steps' median ms and busy ms, on a copy of
+        the train model."""
+        m = copy.deepcopy(st["train_model"])
+        opt, sched = make_optimizer(st["cfg"], m, STEPS_PER_EPOCH)
+
+        def train():
+            return st["train"](m, opt, sched, *st["batch"])
+
+        def serve():
+            return st["serve"](st["model"], st["cloud"], st["xyz"])
+
+        out = {}
+        for what, fn in (("serve", serve), ("train", train)):
+            out[f"{what}_step_ms_median"], out[f"{what}_step_ms_all"] = timed_steps(torch, fn)
+            out[f"{what}_device_busy_ms"] = device_busy_ms(torch, fn)[1]
+        return out
+
+    overrides, serve_want, train_want = OPTIN_ROUTES[name]
+    st = optin_setup(torch, cfg, device, overrides)
+    ocfg, model, cloud, xyz = st["cfg"], st["model"], st["cloud"], st["xyz"]
+    b = cloud.shape[0]
+    ck.reset_launches()
+    rasters, pred_pl = st["serve"](model, cloud, xyz)
+    torch.cuda.synchronize()
+    serve_launches = ck.launch_counts()
+    check_launches(serve_launches, serve_want, f"{name}_serve_step")
+    check_serve_outputs(f"{name} serve step", ocfg, rasters, pred_pl, b)
+    m = copy.deepcopy(st["train_model"])
+    opt, sched = make_optimizer(ocfg, m, STEPS_PER_EPOCH)
+    ck.reset_launches()
+    comps = st["train"](m, opt, sched, *st["batch"])
+    torch.cuda.synchronize()
+    check_launches(ck.launch_counts(), train_want, f"{name}_train_step")
+    for part, value in comps.items():
+        check(bool(torch.isfinite(value)), f"{name} train loss part {part} is not finite")
+    row = {"phase": "optin_steps", "route": name, "opt_ins": overrides, "B": b,
+           "N": cfg.model.subsample_size, **timed(st),
+           "serve_cpu_B2_max_abs_diff": serve_vs_cpu(torch, ocfg, model, cloud, xyz),
+           "train_cpu_B2_loss_max_abs_diff": train_loss_vs_cpu(torch, ocfg, st["kde"],
+                                                               st["train_model"], st["batch"]),
+           "loss_parts": {k: float(v) for k, v in comps.items()}, "card": card}
+    if baseline is not None:
+        base = optin_setup(torch, cfg, device, baseline)
+        r0, p0 = base["serve"](base["model"], cloud, xyz)
+        row["baseline"] = {"opt_ins": baseline, **timed(base)}
+        row["vs_baseline_serve_max_abs_diff"] = max(
+            float(torch.nan_to_num(rasters - r0).abs().max()), float((pred_pl - p0).abs().max()))
+    print(json.dumps(row), flush=True)
+    bf16 = ocfg.model.compute_dtype == "bfloat16"
+    atol = BF16_CPU_ATOL if bf16 else CPU_ATOL
+    check(row["serve_cpu_B2_max_abs_diff"] <= atol,
+          f"{name}: serve step card vs CPU differ by {row['serve_cpu_B2_max_abs_diff']} > {atol}")
+    check(row["train_cpu_B2_loss_max_abs_diff"] <= TRAIN_LOSS_ATOL,
+          f"{name}: train loss parts card vs CPU differ by "
+          f"{row['train_cpu_B2_loss_max_abs_diff']} > {TRAIN_LOSS_ATOL}")
+    if bf16:
+        gap = row["vs_baseline_serve_max_abs_diff"]
+        check(gap > BF16_CPU_ATOL, f"{name}: bfloat16 moved the serve step by {gap} only, "
+              f"within the card-vs-CPU bound {BF16_CPU_ATOL}")
+    return serve_launches
+
+
+def nearest_phase(torch, ck, cfg, device):
+    """Phase 17a: the nearest selection's kernel against its plain version
+    at the sites one nearest serve step and one train step give it (SA1 and
+    SA2 each), then at NEAREST_REFERENCE; 0 differing idx and mask entries
+    at each. Returns the per-step row (the serve step's sites) and the
+    reference sites' row."""
+    from stratanet2_tpu_torch.learning.train import make_optimizer
+
+    st = optin_setup(torch, cfg, device, OPTIN_ROUTES["nearest"][0])
+    serve = capture_calls(ck, ["ball_query_nearest"],
+                          lambda: st["serve"](st["model"], st["cloud"], st["xyz"]))
+    m = copy.deepcopy(st["train_model"])
+    opt, sched = make_optimizer(st["cfg"], m, STEPS_PER_EPOCH)
+    train = capture_calls(ck, ["ball_query_nearest"],
+                          lambda: st["train"](m, opt, sched, *st["batch"]))
+    torch.cuda.synchronize()
+    del st, m, opt, sched
+    sites = [(f"serve_step {i}", a) for i, a in enumerate(serve["ball_query_nearest"])]
+    sites += [(f"train_step {i}", a) for i, a in enumerate(train["ball_query_nearest"])]
+    check(len(sites) == 4, f"ball_query_nearest: expected 4 step sites, saw {len(sites)}")
+    sites += [(f"{i} {NEAREST_REFERENCE[i][0]}", a)
+              for i, a in enumerate(nearest_reference_calls(torch, device))]
+    row, ref_row = new_agg(), new_agg()
+    with torch.no_grad():
+        for label, args in sites:
+            shape, nbytes, ops, diff, lib_ms, pairs = nearest_site(torch, ck, args)
+            check(diff == 0, f"ball_query_nearest site {label}: {diff} idx and mask entries differ")
+            reference = not label.startswith(("serve", "train"))
+            agg = ref_row if reference else row if label.startswith("serve") else new_agg()
+            agg["pairs"] += pairs
+            report_site(torch, "ball_query_nearest", label, shape, ck.ball_query_nearest,
+                        ck.ball_query_nearest_plain, args, nbytes, ops, 0.0, diff, lib_ms, agg,
+                        reference)
+    return finish_agg(row), finish_agg(ref_row)
+
+
+def bf16_matmul_probe(torch, device, card):
+    """Phase 17c's probe of the two forms of a bfloat16 matmul with float32
+    sums at FP1's shape (B x N rows, 42 -> 34): the float32 matmul of the
+    widened operands (the port's `models/nn.Linear`) and cuBLAS's bfloat16
+    GEMM with a float32 output (`torch.mm(..., out_dtype=torch.float32)`,
+    where this PyTorch has it): their times and max |diff|."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    x = torch.randn((BF16_PROBE_ROWS, 42), generator=gen, device=device).bfloat16()
+    w = torch.randn((42, 34), generator=gen, device=device).bfloat16()
+    widened = x.float() @ w.float()
+    row = {"phase": "bf16_matmul_probe", "rows": BF16_PROBE_ROWS, "kept": "widened float32",
+           "widened_ms": cuda_ms(torch, lambda: x.float() @ w.float(), 20), "card": card}
+    try:
+        gemm = torch.mm(x, w, out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as err:  # a PyTorch without the dtype overload
+        row["bf16_gemm"] = f"unavailable: {err}"
+    else:
+        row["bf16_gemm_ms"] = cuda_ms(torch, lambda: torch.mm(x, w, out_dtype=torch.float32), 20)
+        row["bf16_gemm_max_abs_diff"] = float((gemm - widened).abs().max())
+    print(json.dumps(row), flush=True)
+
+
+def reference_state_dict(seed: int, mcfg):
+    """A reference checkpoint's state_dict from a seed: the modules of the
+    reference's PointNet2 (model/point_net2.py:81-99) under torch_geometric
+    1.7.2's keys, torch Linear weights (out, in), BatchNorm weight, bias,
+    running statistics and num_batches_tracked, the head bias of the
+    reference's init."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f_in = mcfg.n_input_feats - 2
+    plans = {"sa1_module.conv.local_nn": [f_in + 3, 16, 16], "sa2_module.conv.local_nn": [19, 32],
+             "sa3_module.nn": [35, 64], "fp3_module.nn": [96, 64], "fp2_module.nn": [80, 34],
+             "fp1_module.nn": [34 + f_in, 34]}
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    sd = {}
+    for prefix, chans in plans.items():
+        for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
+            sd[f"{prefix}.{i}.0.weight"] = t(rng.normal(0, cin ** -0.5, (cout, cin)))
+            sd[f"{prefix}.{i}.0.bias"] = t(rng.normal(0, 0.1, cout))
+            sd[f"{prefix}.{i}.2.weight"] = t(rng.uniform(0.5, 1.5, cout))
+            sd[f"{prefix}.{i}.2.bias"] = t(rng.normal(0, 0.1, cout))
+            sd[f"{prefix}.{i}.2.running_mean"] = t(rng.normal(0.3, 0.3, cout))
+            sd[f"{prefix}.{i}.2.running_var"] = t(rng.uniform(0.2, 1.5, cout))
+            sd[f"{prefix}.{i}.2.num_batches_tracked"] = torch.tensor(7)
+    sd["lin1.weight"] = t(rng.normal(0, 34 ** -0.5, (16, 34)))
+    sd["lin1.bias"] = t(rng.normal(0, 0.1, 16))
+    sd["lin2.weight"] = t(rng.normal(0, 0.25, (mcfg.n_class + 1, 16)))
+    sd["lin2.bias"] = t(mcfg.head_bias_init)
+    return sd
+
+
+def reference_checkpoint_phase(torch, ck, cfg, device, card):
+    """Phase 17d: a reference checkpoint ({"state_dict": ...,
+    "best_metric_epoch": ...}, torch.save as the reference writes it) loaded
+    with `load_reference_checkpoint(path, cfg, device)` (the card): every
+    tensor of the state_dict placed on it (Linear weights transposed), the serve
+    step at cfg's width (launches counted), and at B=2 the card against the
+    CPU load within CPU_ATOL."""
+    import os
+    import tempfile
+
+    from stratanet2_tpu_torch.inference.predict import make_predict_step
+    from stratanet2_tpu_torch.utils.synthetic import serve_batch
+    from stratanet2_tpu_torch.utils.torch_import import load_reference_checkpoint
+
+    sd = reference_state_dict(SEED + 12, cfg.model)
+    stage = {"sa1_module.conv.local_nn": "sa1", "sa2_module.conv.local_nn": "sa2",
+             "sa3_module.nn": "sa3", "fp3_module.nn": "fp3", "fp2_module.nn": "fp2",
+             "fp1_module.nn": "fp1"}
+    block = {"0.weight": "linear.w", "0.bias": "linear.b", "2.weight": "bn.scale",
+             "2.bias": "bn.bias", "2.running_mean": "bn.mean", "2.running_var": "bn.var"}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "PCC_model_fold_n=1.pt")
+        torch.save({"state_dict": sd, "best_metric_epoch": 3, "best_metric_value": 0.1}, path)
+        model = load_reference_checkpoint(path, cfg.model, device)
+        cpu_model = load_reference_checkpoint(path, cfg.model, "cpu")
+    got = model.state_dict()
+    placed = set()
+    for key, value in sd.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        if key.startswith("lin"):
+            lin, leaf = key.split(".")
+            name, want = (f"{lin}.w", value.t()) if leaf == "weight" else (f"{lin}.b", value)
+        else:
+            prefix, i, layer, leaf = key.rsplit(".", 3)
+            suffix = f"{layer}.{leaf}"
+            name = f"{stage[prefix]}.layers.{i}.{block[suffix]}"
+            want = value.t() if suffix == "0.weight" else value
+        check(got[name].device == device and torch.equal(got[name].cpu(), want),
+              f"reference checkpoint: {key} not placed on {name}")
+        placed.add(name)
+    check(placed == set(got), f"reference checkpoint: unset {sorted(set(got) - placed)}")
+    b, n = cfg.train.batch_size, cfg.model.subsample_size
+    cloud, xyz = serve_batch(b, n, torch.Generator(device=device).manual_seed(SEED + 13), device)
+    step = make_predict_step(cfg, device=device)
+    ck.reset_launches()
+    rasters, pred_pl = step(model, cloud, xyz)
+    torch.cuda.synchronize()
+    check_launches(ck.launch_counts(), SERVE_LAUNCHES, "reference_checkpoint_serve_step")
+    check_serve_outputs("reference checkpoint serve step", cfg, rasters, pred_pl, b)
+    r_gpu, p_gpu = step(model, cloud[:2], xyz[:2])
+    r_cpu, p_cpu = make_predict_step(cfg, device="cpu")(cpu_model, cloud[:2].cpu(), xyz[:2].cpu())
+    check(torch.equal(torch.isnan(r_gpu.cpu()), torch.isnan(r_cpu)),
+          "reference checkpoint: raster NaN pattern differs from CPU")
+    err = max(float(torch.nan_to_num(r_gpu.cpu() - r_cpu).abs().max()),
+              float((p_gpu.cpu() - p_cpu).abs().max()))
+    print(json.dumps({"phase": "reference_checkpoint", "tensors": len(placed), "B": b,
+                      "cpu_B2_max_abs_diff": err, "atol": CPU_ATOL, "card": card}), flush=True)
+    check(err <= CPU_ATOL, f"reference checkpoint: card vs CPU differ by {err}")
+
+
+def metascripts_phase(results):
+    """Phase 17e: the three metascripts' `main` on phase 15f's
+    cross-validation result CSVs, copied out of their DEV folder (the
+    benchmark skips `/DEV/` paths): the benchmark CSV, the predictions
+    analysis and the quantification study, whose figure is skipped with a
+    warning where matplotlib is missing (and the confusion matrices where
+    matplotlib or sklearn is)."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from stratanet2_tpu_torch.metascripts import benchmark_all_models, predictions_analysis
+    from stratanet2_tpu_torch.metascripts import quantification_errors
+
+    check(any("summary" in name for name in results), f"no result CSV from phase 15f: {results}")
+    warnings = []
+
+    class Collect(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    logger = logging.getLogger("stratanet2_tpu_torch")
+    handler = Collect(logging.WARNING)
+    logger.addHandler(handler)
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            run = os.path.join(tmp, "experiments", "learning", "PROD", "cv")
+            os.makedirs(run)
+            for name, text in results.items():
+                with open(os.path.join(run, name), "w") as f:
+                    f.write(text)
+            csv = os.path.join(run, sorted(n for n in results if "summary" in n)[-1])
+            bench = benchmark_all_models.main([
+                "--results_files_lookup_expression",
+                os.path.join(tmp, "experiments", "**", "*placettes*.csv"),
+                "--benchmark_file_path", os.path.join(tmp, "benchmark.csv")])
+            check(os.path.exists(os.path.join(tmp, "benchmark.csv")), "metascripts: no benchmark")
+            analysis = predictions_analysis.main(
+                ["--results_file", csv, "--out_dir", os.path.join(tmp, "analysis")])
+            quant_dir = os.path.join(tmp, "quantification")
+            quantification_errors.main(["--results_file", csv, "--out_dir", quant_dir])
+            written = sorted(os.listdir(quant_dir))
+    finally:
+        logger.removeHandler(handler)
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    tables = ["expected_errors_under_gaussian_msrt_error.csv", "msrt_error_description.csv"]
+    check(written == sorted(tables + ["quantification_error_1.png"] * has_mpl),
+          f"metascripts: quantification_errors wrote {written}")
+    check(has_mpl or any("quantification figure" in w for w in warnings),
+          "metascripts: the quantification figure was not skipped with a warning")
+    print(json.dumps({"phase": "metascripts", "result_files": sorted(results),
+                      "benchmark_rows": len(bench), "analysis": analysis,
+                      "quantification_files": written, "warnings": warnings,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def optin_phase(torch, ck, cfg, device, card, results):
+    """Phase 17: 17a the nearest selection's kernel, 17b the nearest steps,
+    17c the bfloat16 steps on both routes and the matmul probe, 17d a
+    reference checkpoint, 17e the metascripts. Returns the nearest kernel's
+    per-step row, its reference sites' row and the counted launches of the
+    nearest serve step."""
+    t0 = time.perf_counter()
+    row, ref_row = nearest_phase(torch, ck, cfg, device)
+    launches = optin_route(torch, ck, cfg, device, card, "nearest", baseline={})
+    optin_route(torch, ck, cfg, device, card, "bf16_fused", baseline={})
+    optin_route(torch, ck, cfg, device, card, "bf16_unfused", baseline=dict(use_pallas=False))
+    bf16_matmul_probe(torch, device, card)
+    reference_checkpoint_phase(torch, ck, cfg, device, card)
+    metascripts_phase(results)
+    print(json.dumps({"phase": "optin_seconds", "seconds": time.perf_counter() - t0}), flush=True)
+    return row, ref_row, launches
+
+
 def main() -> int:
     import torch
 
@@ -3387,16 +3871,20 @@ def main() -> int:
     serve_rows, serve_ref_rows, serve_launches = serve_phases(torch, ck, cfg, device, card)
     train_rows, ref_rows, train_launches = train_phases(torch, ck, cfg, device, card)
     parcel_phase(torch, ck, cfg, device, card)
-    cli_phase(torch, ck, card)
+    results = cli_phase(torch, ck, card)
     parallel_phase(torch, ck, card)
+    optin_rows, optin_ref, optin_launches = optin_phase(torch, ck, cfg, device, card, results)
     ref_rows.update(serve_ref_rows)
-    scan_floor(torch, ck, libs, clock_mhz, {**serve_rows, **train_rows})
+    ref_rows["ball_query_nearest"] = optin_ref
+    scan_floor(torch, ck, libs, clock_mhz,
+               {**serve_rows, **train_rows, "ball_query_nearest": optin_rows})
 
     print(json.dumps({"reference_sites": [
         {"name": name, "sites": sites, **ref_rows[name]} for name, sites in REFERENCE_SITES.items()
     ]}), flush=True)
     entries = [(k, serve_rows, serve_launches) for k in SERVE_KERNELS]
     entries += [(k, train_rows, train_launches) for k in TRAIN_KERNELS]
+    entries.append((NEAREST_KERNEL, {"ball_query_nearest": optin_rows}, optin_launches))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],

@@ -16,10 +16,15 @@ import json
 import logging
 
 
-def log_ignored_flags(ns: argparse.Namespace, logger: logging.Logger) -> None:
-    """Log the JAX package's flags that the port accepts and ignores."""
-    if ns.use_pallas is not None:
-        logger.info("--use_pallas ignored: the port has one kernel path per device")
+def log_sa_route(mcfg, logger: logging.Logger) -> None:
+    """Log the route SA1 and SA2 take under the model config's opt-ins
+    (`models/pointnet2.fused_eligible`; point-sharded runs keep the grouped
+    selection in float32 whatever they say)."""
+    from stratanet2_tpu_torch.models.pointnet2 import fused_eligible
+
+    logger.info("SA route: %s (ball_query_method=%s, use_pallas=%s, compute_dtype=%s)",
+                "fused" if fused_eligible(mcfg) else "unfused", mcfg.ball_query_method,
+                mcfg.use_pallas, mcfg.compute_dtype)
 
 
 def start_ranks(ns: argparse.Namespace, task: str, experiments_path: str, mode: str):

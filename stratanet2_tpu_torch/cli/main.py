@@ -17,7 +17,7 @@ from __future__ import annotations
 import os
 import sys
 
-from stratanet2_tpu_torch.cli import log_ignored_flags, log_kernel_launches, start_ranks
+from stratanet2_tpu_torch.cli import log_sa_route, log_kernel_launches, start_ranks
 from stratanet2_tpu_torch.config import parse_config
 from stratanet2_tpu_torch.data.dataset import prepare_and_save_plots_dataset
 from stratanet2_tpu_torch.learning.crossval import cross_validate
@@ -36,7 +36,7 @@ def main(argv=None):
     sink = MetricSink(stats_path) if writer else NullSink()
     sink.log_parameters({"cfg": str(cfg)})
     logger.info("cfg: %s", cfg)
-    log_ignored_flags(ns, logger)
+    log_sa_route(cfg.model, logger)
 
     # rank 0 prepares and pickles the plots and sends them to every rank
     dataset = multihost.from_writer(

@@ -18,7 +18,7 @@ from __future__ import annotations
 import sys
 from dataclasses import replace
 
-from stratanet2_tpu_torch.cli import log_ignored_flags, log_kernel_launches
+from stratanet2_tpu_torch.cli import log_sa_route, log_kernel_launches
 from stratanet2_tpu_torch.config import parse_config
 from stratanet2_tpu_torch.data.dataset import (
     get_index_sorted_plot_ids,
@@ -62,7 +62,7 @@ def main(argv=None):
     stats_path = setup_experiment_folder(cfg.experiments_path, "pretraining", cfg.mode)
     logger = create_logger(stats_path)
     sink = MetricSink(stats_path)
-    log_ignored_flags(ns, logger)
+    log_sa_route(cfg.model, logger)
 
     logger.info("Loading pseudo-labelled data...")
     assert ns.inference_model_id, "--inference_model_id required (pseudo-label source)"

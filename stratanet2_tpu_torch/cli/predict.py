@@ -24,7 +24,7 @@ import os
 import pickle
 import sys
 
-from stratanet2_tpu_torch.cli import log_ignored_flags, log_kernel_launches, start_ranks
+from stratanet2_tpu_torch.cli import log_sa_route, log_kernel_launches, start_ranks
 from stratanet2_tpu_torch.config import parse_config
 from stratanet2_tpu_torch.inference.predict import (
     make_point_sharded_predict_step,
@@ -48,7 +48,7 @@ def main(argv=None):
     cfg, ns = parse_config(argv)
     device, stats_path, logger = start_ranks(ns, ns_local.task, cfg.experiments_path, cfg.mode)
     writer = multihost.is_writer()
-    log_ignored_flags(ns, logger)
+    log_sa_route(cfg.model, logger)
     is_pseudo = ns_local.task == "pseudo_labelling"
 
     model_id = ns.inference_model_id

@@ -14,7 +14,6 @@ import os
 import pickle
 import sys
 
-from stratanet2_tpu_torch.cli import log_ignored_flags
 from stratanet2_tpu_torch.config import parse_config
 from stratanet2_tpu_torch.inference.shapefile_io import read_shapefile
 from stratanet2_tpu_torch.inference.tiling import (
@@ -27,10 +26,9 @@ from stratanet2_tpu_torch.utils.worklist import get_unprocessed_files, stem
 
 
 def main(argv=None):
-    cfg, ns = parse_config(argv)
+    cfg, _ = parse_config(argv)
     stats_path = setup_experiment_folder(cfg.experiments_path, "prepare", cfg.mode)
     logger = create_logger(stats_path)
-    log_ignored_flags(ns, logger)
 
     input_folder = os.path.join(cfg.data.las_parcels_folder_path, "input")
     output_folder = os.path.join(cfg.data.las_parcels_folder_path, "prepared")

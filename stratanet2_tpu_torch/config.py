@@ -7,12 +7,14 @@ predict, and Config's mode with the DEV profile (`as_dev`,
 The port keeps its own copy rather than importing the JAX package's module:
 the port must import nothing of `stratanet2_tpu`.
 
-Fields of the JAX ModelConfig that select between TPU paths
-(`use_pallas`, `ball_query_method`, `compute_dtype`, `knn_chunk`) have no
-counterpart: the port has one path per device, the grouped ball query, and
-float32 compute. `drop` is the head's dropout rate: 0.0 in PROD, where the
-dropout is the identity; above 0 the train-mode forward draws its masks
-from a `torch.Generator` the caller passes.
+The opt-ins of the JAX ModelConfig keep its defaults and names:
+`ball_query_method` ("grouped" or "nearest"), `use_pallas` (with "grouped",
+SA1 and SA2 take the fused route; `models/pointnet2.fused_eligible`) and
+`compute_dtype` ("float32" or "bfloat16", the operands of the MLP matmuls;
+`models/nn.Linear`). `knn_chunk` has no counterpart: no kernel of the port
+tiles centroids or targets by it. `drop` is the head's dropout rate: 0.0 in
+PROD, where the dropout is the identity; above 0 the train-mode forward
+draws its masks from a `torch.Generator` the caller passes.
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ FEATURE_NAMES: Tuple[str, ...] = (
     "return_num",
     "num_returns",
 )
+
+
+BALL_QUERY_METHODS = ("grouped", "nearest")
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 @dataclass(frozen=True)
@@ -61,6 +67,20 @@ class ModelConfig:
     # selects at least fps_min_part_samples points
     fps_parts: int = 2
     fps_min_part_samples: int = 256
+    # "grouped": the nearest in-radius point of each of k groups of ceil(N/k)
+    # consecutive points; "nearest": the k nearest in-radius points, exact
+    # float32, ties to the lowest index (ops/ballquery.py)
+    ball_query_method: str = "grouped"
+    use_pallas: bool = True  # the fused SA route, where the selection is "grouped"
+    compute_dtype: str = "float32"  # the MLP matmuls' operands: "float32" or "bfloat16"
+
+    def __post_init__(self):
+        if self.ball_query_method not in BALL_QUERY_METHODS:
+            raise ValueError(f"ball_query_method must be one of {BALL_QUERY_METHODS}, "
+                             f"not {self.ball_query_method!r}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                             f"not {self.compute_dtype!r}")
 
     @property
     def n_centroids1(self) -> int:
@@ -202,8 +222,6 @@ def _add_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--inference_model_id", type=str, default="")
     p.add_argument("--plot_geotiff_file", action="store_true", default=None)
     p.add_argument("--log_embeddings", action="store_true", default=None)
-    # accepted for the JAX package's command lines; the CLIs log that they
-    # ignore it (`log_ignored_flags`): the port has one kernel path per device
     p.add_argument("--use_pallas", type=lambda s: s.lower() in ("1", "true"), default=None)
     p.add_argument("--transfer_dtype", choices=["float32", "float16"])
     p.add_argument(
@@ -228,9 +246,7 @@ def _add_flags(p: argparse.ArgumentParser) -> None:
 
 def parse_config(argv: Optional[list] = None) -> Tuple[Config, argparse.Namespace]:
     """Build a Config from CLI flags, mirroring the reference's two-stage parse
-    (config.py:5-12): --mode first selects the profile, then overrides apply.
-    Flags that name no field of the port's Config (`--use_pallas`) stay in
-    the namespace only."""
+    (config.py:5-12): --mode first selects the profile, then overrides apply."""
     p = argparse.ArgumentParser(description="stratanet2_tpu_torch")
     _add_flags(p)
     ns, _ = p.parse_known_args(argv)
@@ -242,7 +258,7 @@ def parse_config(argv: Optional[list] = None) -> Tuple[Config, argparse.Namespac
 
     cfg = replace(
         cfg,
-        model=_ov(cfg.model, ["subsample_size", "diam_pix", "diam_meters"]),
+        model=_ov(cfg.model, ["subsample_size", "diam_pix", "diam_meters", "use_pallas"]),
         train=_ov(
             cfg.train,
             [

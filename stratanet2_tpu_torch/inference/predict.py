@@ -49,7 +49,7 @@ from stratanet2_tpu_torch.inference.rasters import (
     merge_geotiff_rasters,
 )
 from stratanet2_tpu_torch.inference.shapefile_io import FieldSpec, read_shapefile, write_shapefile
-from stratanet2_tpu_torch.models.pointnet2 import PointNet2
+from stratanet2_tpu_torch.models.pointnet2 import PointNet2, check_opt_ins
 from stratanet2_tpu_torch.ops.projection import (
     batched_raster_projection,
     plotwise_coverages,
@@ -89,6 +89,7 @@ def make_predict_step(
     @torch.inference_mode()
     def step(model: PointNet2, cloud, xyz):
         _check_model(model, dev)
+        check_opt_ins(model, mcfg)
         cloud = torch.as_tensor(cloud, device=dev).float()
         xyz = torch.as_tensor(xyz, device=dev).float()
         was_training = model.training

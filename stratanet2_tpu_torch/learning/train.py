@@ -68,7 +68,12 @@ from stratanet2_tpu_torch.learning.losses import (
     nll_terms,
     total_loss,
 )
-from stratanet2_tpu_torch.models.pointnet2 import PointNet2, count_params, init_pointnet2
+from stratanet2_tpu_torch.models.pointnet2 import (
+    PointNet2,
+    check_opt_ins,
+    count_params,
+    init_pointnet2,
+)
 from stratanet2_tpu_torch.ops.projection import plotwise_coverages
 from stratanet2_tpu_torch.parallel import multihost
 from stratanet2_tpu_torch.parallel.collectives import mean_parts, reduce_gradients
@@ -173,6 +178,7 @@ def make_train_step(
         generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         _check_model_device(model, dev)
+        check_opt_ins(model, mcfg)
         cloud = torch.as_tensor(cloud, device=dev).float()
         xyz = torch.as_tensor(xyz, device=dev).float()
         gt = torch.as_tensor(gt, device=dev).float()
@@ -241,6 +247,7 @@ def make_eval_step(
     @torch.inference_mode()
     def step(model: PointNet2, cloud, xyz, gt):
         _check_model_device(model, dev)
+        check_opt_ins(model, mcfg)
         cloud = torch.as_tensor(cloud, device=dev).float()
         xyz = torch.as_tensor(xyz, device=dev).float()
         gt = torch.as_tensor(gt, device=dev).float()

@@ -17,6 +17,20 @@ broadcast before counting. The new running statistics are computed from
 the same forward and bound to the buffers as new tensors, so nothing that
 autograd saved is modified in place.
 
+A Linear computes in float32 or, given `dtype="bfloat16"` (the model's
+`compute_dtype`), as JAX's `nn.linear` does (nn.py:37-40): both operands
+rounded to bfloat16 and their product summed in float32, then the float32
+bias. Its gradients round as JAX's VJP of that dot does: dx = bf16(g @
+f32(w_bf16)^T) and dw = bf16(f32(x_bf16)^T @ g), each widened to float32,
+with the cotangent g itself left in float32; db is the float32 sum of g.
+Every tensor it returns is float32, and it uses no autocast. The products of
+two bfloat16 values are exact in float32, so the float32 matmul of the
+widened operands is that bfloat16 product, as long as float32 matmuls do
+not run in TF32 (PyTorch's default, `torch.backends.cuda.matmul.
+allow_tf32`). cuBLAS's bfloat16 GEMM with a float32 output computes the
+same sums in another order, faster on the card (PERF.md); the
+widened form is kept because the CPU has no kernel for it.
+
 Given a process group, train-mode BatchNorm sums n and the two sums over
 its ranks before normalising (`parallel/collectives.sum_across`), as JAX's
 `nn.batchnorm(axis_names=...)` psums them (nn.py:96-99): every rank then
@@ -37,13 +51,40 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 
+class _LinearBF16(torch.autograd.Function):
+    """x @ w + b with bfloat16 operands and float32 sums, and JAX's VJP."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        xb, wb = x.bfloat16(), w.bfloat16()
+        ctx.save_for_backward(xb, wb)
+        return xb.float() @ wb.float() + b
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = (g @ wb.float().t()).bfloat16().float()
+        if ctx.needs_input_grad[1]:
+            dw = (xb.reshape(-1, xb.shape[-1]).float().t()
+                  @ g.reshape(-1, g.shape[-1])).bfloat16().float()
+        if ctx.needs_input_grad[2]:
+            db = g.reshape(-1, g.shape[-1]).sum(0)
+        return dx, dw, db
+
+
 class Linear(nn.Module):
     def __init__(self, n_in: int, n_out: int):
         super().__init__()
         self.w = nn.Parameter(torch.empty(n_in, n_out))
         self.b = nn.Parameter(torch.empty(n_out))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: str = "float32") -> torch.Tensor:
+        """x @ w + b, with the matmul's operands in `dtype` ("float32" or
+        "bfloat16"); the result is float32 either way."""
+        if dtype == "bfloat16":
+            return _LinearBF16.apply(x, self.w, self.b)
         return x @ self.w + self.b
 
     @torch.no_grad()
@@ -112,8 +153,8 @@ class Layer(nn.Module):
         self.bn = BatchNorm(n_out)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                group=None) -> torch.Tensor:
-        return self.bn(torch.relu(self.linear(x)), mask, group)
+                group=None, dtype: str = "float32") -> torch.Tensor:
+        return self.bn(torch.relu(self.linear(x, dtype)), mask, group)
 
 
 class MLP(nn.Module):
@@ -124,10 +165,10 @@ class MLP(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                group=None) -> torch.Tensor:
+                group=None, dtype: str = "float32") -> torch.Tensor:
         """`mask` (broadcastable to x.shape[:-1]) selects the rows that
         enter the batch statistics in train mode, summed over `group`'s
-        ranks where one is given."""
+        ranks where one is given; `dtype` is each Linear's."""
         for layer in self.layers:
-            x = layer(x, mask, group)
+            x = layer(x, mask, group, dtype)
         return x

@@ -3,37 +3,50 @@
 
   stage   here
   -----   ----------------------------------------------------------------
-  SA1     FPS (partitioned at PROD) + fused SA interior [11 -> 16 -> 16], K=k1
-  SA2     FPS + fused SA interior [19 -> 32], K=k2
+  SA1     FPS (partitioned at PROD) + SA interior [11 -> 16 -> 16], K=k1
+  SA2     FPS + SA interior [19 -> 32], K=k2 (each fused or unfused, below)
   SA3     MLP [35 -> 64] on [x, pos], per-cloud max
   FP3     broadcast of the global feature + skip + MLP [96 -> 64]
   FP2/1   exact 3-NN interpolation + skip + MLP [80 -> 34] / [42 -> 34]
   head    lin 34 -> 16, ReLU, lin 16 -> 5; softmax(4) * sigmoid(1)
 
-In eval mode the SA interior takes the fused route on every device: layer 1
-distributes over the edge concat [x_j, pos_j - pos_c], so q = x@W1x +
-pos@W1p + b1 (per point) and cterm = pos_c@W1p (per centroid) are two
-matmuls here, and `cuda_kernels.sa_fused_eval` does the grouped selection,
-the gather, both layers with eval BN folded, and the masked max.
+The route of SA1 and SA2 follows the config's opt-ins as JAX's
+`fused_eligible` does (pointnet2.py:130-137, without its TPU and VMEM
+terms): `fused_eligible(cfg)` holds when `use_pallas`, the "grouped"
+selection and at most two layers (every `channel_plan` gives SA1 two and
+SA2 one).
 
-In train mode (`model.train()`) SA1 and SA2 take the fused train route of
-the JAX `_sa_train_fused_path` (pointnet2.py:218-270) on every device: the
-standalone grouped ball query (`cuda_kernels.ball_query`), q and cterm as
-two matmuls, and `ops/sa_train.sa_train_fused`, whose four edge passes
-compute the BN batch statistics, the max over the K slots and the
-gradients without writing an edge tensor; the BN running state is updated
-from the statistics it returns. Every `channel_plan` gives SA1 two layers
-and SA2 one, the counts the fused route takes.
+The fused route, in eval mode: layer 1 distributes over the edge concat
+[x_j, pos_j - pos_c], so q = x@W1x + pos@W1p + b1 (per point) and cterm =
+pos_c@W1p (per centroid) are two matmuls here, and
+`cuda_kernels.sa_fused_eval` does the grouped selection, the gather, both
+layers with eval BN folded, and the masked max. In train mode
+(`model.train()`) it is the fused train route of the JAX
+`_sa_train_fused_path` (pointnet2.py:218-270): the standalone grouped ball
+query (`cuda_kernels.ball_query`), q and cterm as two matmuls, and
+`ops/sa_train.sa_train_fused`, whose four edge passes compute the BN batch
+statistics, the max over the K slots and the gradients without writing an
+edge tensor; the BN running state is updated from the statistics it
+returns.
 
-`set_abstraction_train` is the unfused path of the JAX `_sa_module`
-(pointnet2.py:147-215), the one JAX runs when the fused train kernels are
-not eligible (point-sharded runs, more than two layers); the forward does
-not take it. It is the reference the fused route is held to: a gather, the
-masked-BN MLP and the masked max over the K slots (`torch.amax`, which
-splits the gradient evenly among ties as `jnp.max` does). SA1's form
-gathers [x, pos] and subtracts the zero-padded centroid offset; SA2's
-pre-projects q and gathers it with `gather_rows`, whose backward is the
-scatter kernel.
+The unfused route (`set_abstraction_unfused`) is JAX's XLA path of
+`_sa_module` (pointnet2.py:147-215), the one JAX runs when the fused
+kernels are not eligible: the selection the config names
+(`cuda_kernels.ball_query`, grouped, or `cuda_kernels.ball_query_nearest`),
+a gather, the masked-BN MLP (batch statistics in train mode, running ones
+in eval mode) and the masked max over the K slots with -1e30 at masked
+slots (`torch.amax`, which splits the gradient evenly among ties as
+`jnp.max` does). SA1's form gathers [x, pos] and subtracts the
+zero-padded centroid offset; SA2's pre-projects q and gathers it with
+`gather_rows`, whose backward is the scatter kernel. It is also the
+reference the fused train route is held to, and the point-sharded train
+step's SA2 stage.
+
+`compute_dtype="bfloat16"` reaches the Linear layers that JAX's
+`nn.linear` computes (`models/nn.Linear`): on the unfused route the SA
+MLP's (SA1's two layers; none of SA2's, whose only layer is pre-projected),
+and on both routes SA3, FP3, FP2, FP1, lin1 and lin2. The pre-projection
+matmuls, the fused SA kernels and every distance stay float32.
 
 Given a process group (`group`, the data-parallel ranks of
 `learning/train.make_train_step`), every train-mode BatchNorm and the fused
@@ -41,7 +54,9 @@ SA route normalise with the statistics of all the group's rows, so that a
 rank's forward is its rows of the single-process forward on the global
 batch.
 
-SA3, FP3, the MLPs and the head are plain torch in both modes. In train
+SA3, FP3, the MLPs and the head are plain torch in both modes. The
+point-sharded paths (`parallel/point_sharded.py`) keep the grouped
+selection and float32 whatever the config says, as JAX's do. In train
 mode with `cfg.drop` > 0 the head drops units of relu(lin1) at that rate
 (pointnet2.py:380, `nn.dropout`), drawing the mask from the generator the
 caller passes; without one it raises, as JAX does without a key.
@@ -90,7 +105,29 @@ def _centroids(pos, n_centroids, fps_parts, fps_min_part_samples):
     return pos[rows, idx.long()]
 
 
-def set_abstraction_train(
+def fused_eligible(cfg: ModelConfig, layers: int = 2) -> bool:
+    """Whether an SA stage of `layers` layers takes the fused route: JAX's
+    `fused_eligible` (pointnet2.py:130-137) without its TPU and VMEM terms."""
+    return cfg.use_pallas and cfg.ball_query_method == "grouped" and layers <= 2
+
+
+OPT_INS = ("ball_query_method", "use_pallas", "compute_dtype")
+
+
+def check_opt_ins(model: "PointNet2", cfg: ModelConfig) -> None:
+    """Raise unless `model` was built with `cfg`'s opt-ins: its forward
+    routes by its own config, so a step built for other opt-ins would run
+    another route silently."""
+    differ = [f"{name}={getattr(model.cfg, name)!r} (the step's {getattr(cfg, name)!r})"
+              for name in OPT_INS if getattr(model.cfg, name) != getattr(cfg, name)]
+    if differ:
+        raise ValueError(f"the model was built with other opt-ins: {', '.join(differ)}")
+
+
+SELECTIONS = {"grouped": "ball_query", "nearest": "ball_query_nearest"}  # cuda_kernels wrappers
+
+
+def set_abstraction_unfused(
     mlp: MLP,
     x: torch.Tensor,
     pos: torch.Tensor,
@@ -101,27 +138,31 @@ def set_abstraction_train(
     fps_min_part_samples: int,
     preproject: bool,
     group=None,
+    method: str = "grouped",
+    dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The train-mode SA stage: FPS -> standalone grouped ball query ->
-    gather -> masked-BN MLP -> masked max over the k slots. `preproject`
-    selects SA2's form (q = x@W1x + pos@W1p + b1 gathered, minus cterm)
-    over SA1's (gather [x, pos], subtract [0, pos_c]). Updates the MLP's BN
-    running state, from the statistics over `group`'s ranks where given.
+    """The SA stage on the unfused route: FPS -> the `method` ball query
+    ("grouped" or "nearest") -> gather -> masked-BN MLP -> masked max over
+    the k slots. `preproject` selects SA2's form (q = x@W1x + pos@W1p + b1
+    gathered, minus cterm) over SA1's (gather [x, pos], subtract [0,
+    pos_c]); the MLP's Linear layers after the gather compute in `dtype`.
+    In train mode the MLP's BN normalises with the batch statistics of the
+    valid slots (over `group`'s ranks where given) and updates its running
+    state; in eval mode it uses the running state.
     Returns (features (B, C, C_out), centroids (B, C, 3))."""
     centroids = _centroids(pos, n_centroids, fps_parts, fps_min_part_samples)
-    nbr_idx, nbr_mask = cuda_kernels.ball_query(
-        centroids.contiguous(), pos.contiguous(), radius, k
-    )  # (B, C, k)
+    select = getattr(cuda_kernels, SELECTIONS[method])
+    nbr_idx, nbr_mask = select(centroids.contiguous(), pos.contiguous(), radius, k)  # (B, C, k)
     if preproject:
         q, cterm = _layer1_terms(mlp, x, pos, centroids)
         h = torch.relu(gather_rows(q, nbr_idx) - cterm[:, :, None, :])
         h = mlp.layers[0].bn(h, nbr_mask, group)
         for layer in mlp.layers[1:]:
-            h = layer(h, nbr_mask, group)
+            h = layer(h, nbr_mask, group, dtype)
     else:
         both = gather_rows(torch.cat([x, pos], dim=-1), nbr_idx)  # (B, C, k, F + 3)
         offset = torch.nn.functional.pad(centroids, (x.shape[-1], 0))  # [0, pos_c]
-        h = mlp(both - offset[:, :, None, :], nbr_mask, group)
+        h = mlp(both - offset[:, :, None, :], nbr_mask, group, dtype)
     h = h.masked_fill(~nbr_mask[..., None], -1e30)
     return torch.amax(h, dim=2), centroids
 
@@ -238,39 +279,44 @@ class PointNet2(nn.Module):
         fps_kw = dict(
             fps_parts=cfg.fps_parts, fps_min_part_samples=cfg.fps_min_part_samples
         )
-        if self.training:
-            x1, pos1 = set_abstraction_train_fused(
-                self.sa1, x0, pos0, cfg.n_centroids1, cfg.r1, cfg.k1, **fps_kw, group=group
-            )
-            x2, pos2 = set_abstraction_train_fused(
-                self.sa2, x1, pos1, cfg.n_centroids2, cfg.r2, cfg.k2, **fps_kw, group=group
-            )
-        else:
-            x1, pos1 = set_abstraction(
-                self.sa1, x0, pos0, cfg.n_centroids1, cfg.r1, cfg.k1, **fps_kw
-            )
-            x2, pos2 = set_abstraction(
-                self.sa2, x1, pos1, cfg.n_centroids2, cfg.r2, cfg.k2, **fps_kw
-            )
+        x1, pos1 = self._sa(self.sa1, x0, pos0, cfg.n_centroids1, cfg.r1, cfg.k1, False,
+                            group, fps_kw)
+        x2, pos2 = self._sa(self.sa2, x1, pos1, cfg.n_centroids2, cfg.r2, cfg.k2, True,
+                            group, fps_kw)
+        return self.decode(x0, pos0, x1, pos1, x2, pos2, generator, return_embeddings, group,
+                           cfg.compute_dtype)
 
-        return self.decode(x0, pos0, x1, pos1, x2, pos2, generator, return_embeddings, group)
+    def _sa(self, mlp, x, pos, n_centroids, radius, k, preproject, group, fps_kw):
+        """One SA stage on the route `fused_eligible` names for it."""
+        cfg = self.cfg
+        if not fused_eligible(cfg, len(mlp.layers)):
+            return set_abstraction_unfused(
+                mlp, x, pos, n_centroids, radius, k, **fps_kw, preproject=preproject,
+                group=group, method=cfg.ball_query_method, dtype=cfg.compute_dtype)
+        if self.training:
+            return set_abstraction_train_fused(mlp, x, pos, n_centroids, radius, k, **fps_kw,
+                                               group=group)
+        return set_abstraction(mlp, x, pos, n_centroids, radius, k, **fps_kw)
 
     def decode(self, x0, pos0, x1, pos1, x2, pos2, generator=None, return_embeddings=False,
-               group=None):
+               group=None, dtype: str = "float32"):
         """SA3 -> FP3 -> FP2 -> FP1 -> head from the SA outputs (features
-        x and positions pos of levels 0, 1 and 2). Level 0 may be a shard of
-        a cloud's points: FP1 and the head are pointwise."""
+        x and positions pos of levels 0, 1 and 2), the Linear layers'
+        operands in `dtype`. Level 0 may be a shard of a cloud's points: FP1
+        and the head are pointwise."""
         cfg = self.cfg
         # global SA (model/point_net2.py:32-42): MLP on [x, pos], max over points
-        g = torch.amax(self.sa3(torch.cat([x2, pos2], dim=-1), group=group), dim=1)
+        g = torch.amax(self.sa3(torch.cat([x2, pos2], dim=-1), group=group, dtype=dtype), dim=1)
         # FP3: k=1 interpolation from the single global point is a broadcast
         h = self.fp3(torch.cat([g[:, None, :].expand(-1, x2.shape[1], -1), x2], dim=-1),
-                     group=group)
-        h = self.fp2(torch.cat([knn_interpolate(h, pos2, pos1), x1], dim=-1), group=group)
-        h = self.fp1(torch.cat([knn_interpolate(h, pos1, pos0), x0], dim=-1), group=group)
+                     group=group, dtype=dtype)
+        h = self.fp2(torch.cat([knn_interpolate(h, pos2, pos1), x1], dim=-1), group=group,
+                     dtype=dtype)
+        h = self.fp1(torch.cat([knn_interpolate(h, pos1, pos0), x0], dim=-1), group=group,
+                     dtype=dtype)
 
-        h = dropout(torch.relu(self.lin1(h)), cfg.drop, self.training, generator)
-        scores = self.lin2(h)
+        h = dropout(torch.relu(self.lin1(h, dtype)), cfg.drop, self.training, generator)
+        scores = self.lin2(h, dtype)
         proba = torch.softmax(scores[..., : cfg.n_class], dim=-1)
         density = torch.sigmoid(scores[..., cfg.n_class :])
         if return_embeddings:

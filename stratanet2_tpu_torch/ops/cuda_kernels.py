@@ -14,6 +14,7 @@ PyTorch version (counterpart of `stratanet2_tpu/ops/pallas_kernels.py`).
 | `sa_train_main`  | csrc/sa_train.cu        | `_sa_train_main_kernel` / `_sa_train_main` |
 | `sa_train_bwd1`  | csrc/sa_train.cu        | `_sa_train_bwd1_kernel` / `_sa_train_bwd1` |
 | `sa_train_bwd2`  | csrc/sa_train.cu        | `_sa_train_bwd2_kernel` / `_sa_train_bwd2` |
+| `ball_query_nearest` | csrc/ball_query_nearest.cu | no Pallas kernel: the XLA `approx_min_k` of `ballquery.py::_ball_query_single` |
 
 Dispatch: a wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it runs the plain version. There is no fallback between the two
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from stratanet2_tpu_torch.ops import _build
+from stratanet2_tpu_torch.ops import ballquery
 from stratanet2_tpu_torch.ops.ballquery import ball_query_grouped, radius_sq
 from stratanet2_tpu_torch.ops.distance import expanded_d2, fma_f32, sq_norm3
 
@@ -56,6 +58,7 @@ FPS_MAX_N = 16 * 1024  # csrc/fps.cu: at most 16 points for each of a block's 10
 # g points as float4, for a tile of 64 centroids
 SEL_WARPS, SEL_TILE = 8, 64
 BQ_MAX_G = _SMEM_MAX // (16 * SEL_WARPS)  # ball_query: the largest group
+NEAREST_MAX_K = 128  # csrc/ball_query_nearest.cu: the longest sorted list a warp keeps (kNearMaxK)
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRIES = {  # wrapper: (library = csrc/<library>.cu, C entry point, its arguments)
@@ -89,6 +92,9 @@ _ENTRIES = {  # wrapper: (library = csrc/<library>.cu, C entry point, its argume
     ),
     "sa_train_bwd2": (
         "sa_train", "sa_train_bwd2_launch", [_VP] * 11 + [_I] * 7 + [_VP]
+    ),
+    "ball_query_nearest": (
+        "ball_query_nearest", "ball_query_nearest_launch", [_VP] * 4 + [_I] * 4 + [_F, _VP]
     ),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
@@ -469,6 +475,40 @@ def ball_query(centroids: torch.Tensor, points: torch.Tensor, radius: float, k: 
     mask = torch.empty((b, c, k), dtype=torch.bool, device=points.device)
     _launch(name, points.device, centroids, points, idx, mask, b, n, c, k, g,
             radius_sq(radius))
+    return idx, mask
+
+
+# ---------------------------------------------------------------------------
+# nearest ball query
+# ---------------------------------------------------------------------------
+
+
+def ball_query_nearest_plain(centroids: torch.Tensor, points: torch.Tensor, radius: float,
+                             k: int):
+    """`ballquery.ball_query_nearest` with int32 indices."""
+    idx, mask = ballquery.ball_query_nearest(centroids, points, radius, k)
+    return idx.int(), mask
+
+
+def ball_query_nearest(centroids: torch.Tensor, points: torch.Tensor, radius: float, k: int):
+    """The k nearest points within `radius`: (B, C, 3) centroids, (B, N, 3)
+    points -> idx (B, C, k) int32 and mask (B, C, k) bool, ascending by
+    (d2, index); idx 0 and mask False past a centroid's in-radius count."""
+    name = "ball_query_nearest"
+    b, c, _ = centroids.shape
+    n = points.shape[1]
+    _expect(centroids.shape == (b, c, 3) and points.shape == (b, n, 3), name,
+            "centroids must be (B, C, 3) and points (B, N, 3)")
+    for t in (centroids, points):
+        _expect(t.dtype == torch.float32, name, "positions must be float32")
+    _expect(1 <= k <= n, name, "need 1 <= k <= N")
+    if not _on_card(name, centroids, points):
+        return ball_query_nearest_plain(centroids, points, radius, k)
+    _expect(k <= NEAREST_MAX_K, name, f"k={k} exceeds the kernel's limit of {NEAREST_MAX_K}")
+    _expect(b < 65536 and n < 2 ** 31, name, "the kernel takes at most 65535 clouds")
+    idx = torch.empty((b, c, k), dtype=torch.int32, device=points.device)
+    mask = torch.empty((b, c, k), dtype=torch.bool, device=points.device)
+    _launch(name, points.device, centroids, points, idx, mask, b, n, c, k, radius_sq(radius))
     return idx, mask
 
 

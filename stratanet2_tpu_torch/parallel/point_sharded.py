@@ -194,7 +194,7 @@ def pointnet2_forward_point_sharded(model, cloud: torch.Tensor, xyz: torch.Tenso
 
 def _forward_train(model, mcfg, x0, pos0, mesh: Mesh, generator):
     """Train forward of this rank's shard (point_sharded.py:426-497)."""
-    from stratanet2_tpu_torch.models.pointnet2 import set_abstraction_train
+    from stratanet2_tpu_torch.models.pointnet2 import set_abstraction_unfused
 
     cent1 = _sa1_centroids(pos0, mcfg.n_centroids1, mesh)
     nbr_idx, nbr_mask = cuda_kernels.ball_query(cent1.contiguous(), pos0.contiguous(), mcfg.r1,
@@ -204,7 +204,7 @@ def _forward_train(model, mcfg, x0, pos0, mesh: Mesh, generator):
     h = model.sa1(both - offset[:, :, None, :], nbr_mask, mesh.group)
     h = h.masked_fill(~nbr_mask[..., None], NEG_FILL)
     x1 = max_across(torch.amax(h, dim=2), mesh.point_group)  # (B, C1, F1) on every shard
-    x2, cent2 = set_abstraction_train(
+    x2, cent2 = set_abstraction_unfused(
         model.sa2, x1, cent1, mcfg.n_centroids2, mcfg.r2, mcfg.k2, mcfg.fps_parts,
         mcfg.fps_min_part_samples, preproject=True, group=mesh.group,
     )

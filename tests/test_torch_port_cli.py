@@ -99,12 +99,13 @@ ARGVS = {
               "--las_parcels_folder_path", "d/parcels", "--parcel_shapefile_path", "d/p.shp",
               "--plots_pickled_dataset_path", "d/plots.pkl", "--experiments_path", "exp"],
     "model_and_outputs": ["--subsample_size", "2048", "--diam_pix", "32", "--diam_meters",
-                          "16", "--plot_geotiff_file", "--log_embeddings"],
+                          "16", "--plot_geotiff_file", "--log_embeddings", "--use_pallas",
+                          "false"],
     "data_flags": ["--mode", "PROD", "--device_resident", "false", "--predict_chain", "1",
                    "--keep_plot_tiffs", "--min_points_for_pseudo_labelling", "500",
                    "--transfer_dtype", "float16"],
     "device_resident_true": ["--device_resident", "true"],
-    "namespace_only": ["--mode", "DEV", "--use_pallas", "false", "--point_sharded",
+    "namespace_only": ["--mode", "DEV", "--point_sharded",
                        "--PT_model_id", "pt", "--inference_model_id", "inf", "--device", "cpu",
                        "--task", "inference"],
 }
@@ -195,7 +196,9 @@ def test_training_artifacts(trained):
     with open(os.path.join(trained, "stats.txt")) as f:
         log = f.read()
     assert "Device-resident dataset: 8 plots" in log  # JAX's "auto" choice at this size
-    assert "--use_pallas ignored" in log
+    # --use_pallas false takes the unfused SA route, as JAX's flag does
+    assert ("SA route: unfused (ball_query_method=grouped, use_pallas=False, "
+            "compute_dtype=float32)") in log
     # one process: JAX's refusal of --point_sharded, then the standard path
     assert ("--point_sharded unavailable (needs more than one device); falling back to "
             "data-parallel") in log

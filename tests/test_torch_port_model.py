@@ -229,8 +229,8 @@ def test_port_imports_without_jax():
     blocked, in a fresh interpreter; and with pandas, matplotlib, sklearn
     and scipy blocked too, which the card's machine may lack (the port
     imports them only inside the functions that use them). The walk takes
-    every module, parcel predict's, the CLIs' and the device-resident
-    dataset's among them."""
+    every module, parcel predict's, the CLIs', the device-resident
+    dataset's, the checkpoint import's and the metascripts' among them."""
     code = (
         "import sys\n"
         "blocked = ('jax', 'jaxlib', 'stratanet2_tpu', 'pandas', 'matplotlib', 'sklearn',\n"
@@ -254,6 +254,9 @@ def test_port_imports_without_jax():
     "want.add('stratanet2_tpu_torch.data.device_dataset')\n"
     "want |= {'stratanet2_tpu_torch.parallel.' + m for m in\n"
     "         ('multihost', 'mesh', 'collectives', 'point_sharded', 'launch', 'dryrun')}\n"
+    "want.add('stratanet2_tpu_torch.utils.torch_import')\n"
+    "want |= {'stratanet2_tpu_torch.metascripts.' + m for m in\n"
+    "         ('benchmark_all_models', 'predictions_analysis', 'quantification_errors')}\n"
         "assert want <= set(walked), sorted(want - set(walked))\n"
         "print('imported')\n"
     )

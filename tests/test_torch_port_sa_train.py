@@ -29,7 +29,7 @@ from stratanet2_tpu.ops import farthest_point_sampling as jax_fps
 from stratanet2_tpu.ops.pallas_kernels import sa_train_fused as jax_sa_train_fused
 from stratanet2_tpu_torch.models.nn import MLP
 from stratanet2_tpu_torch.models.pointnet2 import (
-    set_abstraction_train,
+    set_abstraction_unfused,
     set_abstraction_train_fused,
 )
 from stratanet2_tpu_torch.ops import cuda_kernels as ck
@@ -300,7 +300,7 @@ def _port_stage(mlp, x, pos, gy, radius, k, fused, preproject=False):
     if fused:
         out, cent = set_abstraction_train_fused(mlp, xt, T(pos), 64, radius, k, 1, 256)
     else:
-        out, cent = set_abstraction_train(mlp, xt, T(pos), 64, radius, k, 1, 256,
+        out, cent = set_abstraction_unfused(mlp, xt, T(pos), 64, radius, k, 1, 256,
                                           preproject=preproject)
     (out * T(gy)).sum().backward()
     grads = {"x": xt.grad.numpy()}
@@ -348,7 +348,7 @@ def test_stage_matches_jax_sa_train_fused_path(channels, k, radius):
 
 @pytest.mark.parametrize("channels,k,radius", STAGES)
 def test_fused_stage_matches_unfused_stage(channels, k, radius):
-    """The port's fused stage against its unfused `set_abstraction_train`
+    """The port's fused stage against its unfused `set_abstraction_unfused`
     (SA1's form for two layers, SA2's pre-projected form for one) on the
     same weights, nonzero running means and inputs: equal centroids, out
     within rtol 1e-3, atol 5e-5, BN running state within 1e-6, every

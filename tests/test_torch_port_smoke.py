@@ -718,3 +718,162 @@ def test_cli_phase_runs_on_the_cpu(monkeypatch, capsys):
     skipped = [x["warnings"] for x in lines if x.get("cli") == "main"][0]
     assert any("KDE figure" in w for w in skipped)  # matplotlib blocked: skipped, warned
     assert len(missed) == 11 * 3 + 4 * 2  # every path kernel of the five device runs
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the opt-ins and a reference checkpoint
+# ---------------------------------------------------------------------------
+
+
+def _results_csvs():
+    """A cross-validation result CSV as phase 15f's training writes it:
+    plot ids, predictions and class-centre ground truths."""
+    import pandas as pd
+
+    from stratanet2_tpu_torch.learning import metrics as M
+
+    rng = np.random.default_rng(0)
+    df = pd.DataFrame({"pl_id": [f"p{i}" for i in range(30)],
+                       **{f"pred_{s}": rng.uniform(0, 1, 30) for s in M.STRATA},
+                       **{f"vt_{s}": M.closest_class_center(rng.uniform(0, 1, 30))
+                          for s in M.STRATA}})
+    return {"PCC_inference_all_placettes_summary.csv": df.to_csv(index=False)}
+
+
+@pytest.fixture
+def optin_on_cpu(monkeypatch):
+    """Phase 17 small on the CPU: N=256 (k 8/16), B=3, two timed steps, the
+    reference sites cut to small clouds, and every route's launches 0 (the
+    plain versions run)."""
+    import sys
+    from dataclasses import replace
+
+    from stratanet2_tpu_torch.config import default_config
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.setattr(cs, "cuda_ms", lambda *a, **k: 0.0)
+    monkeypatch.setattr(cs, "device_busy_ms", lambda torch, fn: (fn(), 0.0))
+    monkeypatch.setattr(cs, "STEPS", 2)
+    monkeypatch.setattr(cs, "BF16_PROBE_ROWS", 64)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "NEAREST_REFERENCE", (
+        ("grid", 2, 400, 100, 16, 2.0), ("few", 2, 300, 50, 16, 1.0), ("all", 1, 200, 40, 128, 1e3)))
+    zero = dict.fromkeys(cs.TRAIN_LAUNCHES, 0)
+    monkeypatch.setattr(cs, "SERVE_LAUNCHES", zero)
+    monkeypatch.setattr(cs, "OPTIN_ROUTES", {k: (v[0], zero, zero)
+                                             for k, v in cs.OPTIN_ROUTES.items()})
+    cfg = default_config()
+    return replace(cfg, model=replace(cfg.model, subsample_size=256, k1=8, k2=16),
+                   train=replace(cfg.train, batch_size=3))
+
+
+def test_optin_phase_runs_on_the_cpu(optin_on_cpu, capsys):
+    """Phase 17's control flow: the nearest kernel's four step sites and
+    its reference sites (0 differing picks), the three routes' steps with
+    their card-vs-CPU checks and baselines, the matmul probe, the reference
+    checkpoint and the metascripts with matplotlib blocked (figure
+    skipped, warned)."""
+    import json
+
+    row, ref_row, launches = cs.optin_phase(torch, ck, optin_on_cpu, torch.device("cpu"), "cpu",
+                                            _results_csvs())
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    sites = [x for x in lines if x.get("kernel") == "ball_query_nearest"]
+    assert [x["site"] for x in sites][:4] == ["serve_step 0", "serve_step 1", "train_step 0",
+                                              "train_step 1"]
+    assert len(sites) == 4 + 3 and all(x["differing_selections"] == 0 for x in sites)
+    assert [x["reference"] for x in sites] == [False] * 4 + [True] * 3
+    assert row["pairs"] == 3 * (64 * 256 + 16 * 64) and ref_row["pairs"] > 0
+    routes = [x for x in lines if x.get("phase") == "optin_steps"]
+    assert [x["route"] for x in routes] == ["nearest", "bf16_fused", "bf16_unfused"]
+    assert all(x["serve_cpu_B2_max_abs_diff"] == 0 and x["train_cpu_B2_loss_max_abs_diff"] == 0
+               for x in routes)
+    assert [x["baseline"]["opt_ins"] for x in routes] == [{}, {}, {"use_pallas": False}]
+    assert all(x["vs_baseline_serve_max_abs_diff"] > 0 for x in routes)
+    assert all(len(x["baseline"]["train_step_ms_all"]) == 2 for x in routes)
+    assert launches == dict.fromkeys(ck.LAUNCHES, 0)
+    probe = [x for x in lines if x.get("phase") == "bf16_matmul_probe"][0]
+    assert probe["kept"] == "widened float32"
+    ref = [x for x in lines if x.get("phase") == "reference_checkpoint"][0]
+    assert ref["tensors"] == 7 * 6 + 4 and ref["cpu_B2_max_abs_diff"] == 0  # 7 layers, the head
+    meta = [x for x in lines if x.get("phase") == "metascripts"][0]
+    assert meta["benchmark_rows"] == 1 and meta["analysis"]["n"] == 30
+    assert meta["quantification_files"] == ["expected_errors_under_gaussian_msrt_error.csv",
+                                            "msrt_error_description.csv"]
+    assert any("quantification figure" in w for w in meta["warnings"])
+
+
+@pytest.mark.parametrize("fault", ["reversed_order", "one_slot_masked"])
+def test_nearest_site_check_rejects_a_wrong_selection(monkeypatch, fault):
+    """nearest_site counts the entries where the kernel's idx or mask
+    differs from the plain version's: 0 for the plain version itself, more
+    for a selection in another order or with a slot masked."""
+    monkeypatch.setattr(cs, "cuda_ms", lambda *a, **k: 0.0)
+    args = cs.nearest_reference_calls(torch, torch.device("cpu"))[-1]
+    args = (args[0][:1, :20].contiguous(), args[1][:1, :300].contiguous(), args[2], 32)
+    monkeypatch.setattr(ck, "ball_query_nearest", ck.ball_query_nearest_plain)
+    assert cs.nearest_site(torch, ck, args)[3] == 0
+
+    def wrong(*a):
+        idx, mask = ck.ball_query_nearest_plain(*a)
+        if fault == "reversed_order":
+            return idx.flip(-1), mask
+        mask = mask.clone()
+        mask[0, 0, 5] = False
+        return idx, mask
+
+    monkeypatch.setattr(ck, "ball_query_nearest", wrong)
+    assert cs.nearest_site(torch, ck, args)[3] > 0
+
+
+def test_nearest_reference_sites_are_tie_heavy_few_and_full():
+    """The full-size reference sites, on one cloud and 100 centroids each:
+    the grid sites hold zero distances and ties at the k-th distance, the
+    "few" site masks most slots, the "all" site has every point within the
+    radius at the kernel's largest k."""
+    from stratanet2_tpu_torch.ops.ballquery import radius_sq
+    from stratanet2_tpu_torch.ops.distance import expanded_d2, sq_norm3
+
+    calls = cs.nearest_reference_calls(torch, torch.device("cpu"))
+    assert [c[3] for c in calls][-1] == ck.NEAREST_MAX_K
+    for (kind, b, n, c, k, radius), (cent, pts, r, kk) in zip(cs.NEAREST_REFERENCE, calls):
+        assert cent.shape == (b, c, 3) and pts.shape == (b, n, 3) and (r, kk) == (radius, k)
+        cc, pp = cent[:1, :100], pts[:1]
+        d2 = expanded_d2(cc, sq_norm3(cc), pp, sq_norm3(pp))
+        inside = d2 <= radius_sq(radius)
+        if kind == "grid":
+            assert float((d2 == 0).sum(-1).float().mean()) > 1.5  # duplicates: zero distances
+            kth = torch.sort(torch.where(inside, d2, float("inf")), -1)[0][..., k - 1]
+            ties = ((d2 == kth[..., None]).sum(-1) > 1) & (inside.sum(-1) > k)
+            assert float(ties.float().mean()) > 0.5
+        elif kind == "few":
+            assert float((inside.sum(-1) < k).float().mean()) == 1.0
+        else:
+            assert bool(inside.all())
+
+
+def test_reference_checkpoint_check_rejects_an_untransposed_load(optin_on_cpu, monkeypatch):
+    """Phase 17d fails when a Linear weight lands untransposed (square
+    layers keep their shape, so only the placement check sees it)."""
+    from stratanet2_tpu_torch.utils import torch_import
+
+    real = torch_import.params_from_torch_state_dict
+
+    def untransposed(sd, cfg, device=None):
+        model = real(sd, cfg, device)
+        with torch.no_grad():
+            model.sa1.layers[1].linear.w.copy_(model.sa1.layers[1].linear.w.t().clone())
+        return model
+
+    monkeypatch.setattr(torch_import, "params_from_torch_state_dict", untransposed)
+    with pytest.raises(SystemExit, match="sa1_module.conv.local_nn.1.0.weight"):
+        cs.reference_checkpoint_phase(torch, ck, optin_on_cpu, torch.device("cpu"), "cpu")
+
+
+def test_optin_route_rejects_launches_off_its_route(optin_on_cpu, monkeypatch):
+    """A route whose expected launches the step does not make fails (on the
+    CPU every count is 0, so a route that expects the nearest kernel)."""
+    want = {**dict.fromkeys(cs.TRAIN_LAUNCHES, 0), "ball_query_nearest": 2}
+    monkeypatch.setitem(cs.OPTIN_ROUTES, "nearest", (dict(ball_query_method="nearest"), want, want))
+    with pytest.raises(SystemExit, match="ball_query_nearest launched 0 times"):
+        cs.optin_route(torch, ck, optin_on_cpu, torch.device("cpu"), "cpu", "nearest")

@@ -43,7 +43,7 @@ from stratanet2_tpu_torch.learning import losses
 from stratanet2_tpu_torch.learning.kde import KdeMixture, fit_kde_mixture
 from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
 from stratanet2_tpu_torch.models.nn import MLP, BatchNorm
-from stratanet2_tpu_torch.models.pointnet2 import set_abstraction_train
+from stratanet2_tpu_torch.models.pointnet2 import set_abstraction_unfused
 from stratanet2_tpu_torch.ops import cuda_kernels as ck
 from stratanet2_tpu_torch.utils.convert import from_jax_params, grads_to_jax, to_jax_params
 
@@ -258,7 +258,7 @@ class TestSetAbstractionTrain:
         (_, (want, want_cent, want_s)), (gp, gx) = jax.value_and_grad(
             jax_fn, argnums=(0, 1), has_aux=True)(p, jnp.asarray(x))
         xt = T(x).requires_grad_(preproject)
-        out, cent = set_abstraction_train(mlp, xt, T(pos), c, radius, k, fps_parts=1,
+        out, cent = set_abstraction_unfused(mlp, xt, T(pos), c, radius, k, fps_parts=1,
                                           fps_min_part_samples=256, preproject=preproject)
         (out * T(gy)).sum().backward()
         np.testing.assert_array_equal(cent.numpy(), np.asarray(want_cent))
