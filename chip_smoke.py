@@ -180,7 +180,10 @@ Phases, in order, each failing loudly:
      (serve step), ball_query (train step) and ball_query_nearest (the
      nearest serve step): the SASS instructions a pair
      of the scan loop (cuobjdump of the built library; for kNN also on the
-     path of a pair that inserts nothing), the step's pairs and the issue
+     path of a pair that inserts nothing; the nearest kernel's loop found by
+     its global LDG.E.128 load), the step's pairs (for the nearest kernel the
+     pairs it scores, its centroids' 3 x 3 cells, beside all pairs and the
+     in-radius pairs) and the issue
      floor, pairs x instructions / (132 SMs x 128 lanes x the maximum SM
      clock of phase 1), and each kernel's registers, stack and spills
      (cuobjdump -res-usage), and the SM clocks sampled while the ball query
@@ -201,8 +204,16 @@ Phases, in order, each failing loudly:
      train step (B=20: C=2500, N=10000, k=32; C=625, N=2500, k=64), then at
      NEAREST_REFERENCE (tie-heavy integer grids at both shapes with
      duplicated points, so zero distances; fewer in-radius points than k;
-     every point in radius at NEAREST_MAX_K): 0 differing idx and mask
-     entries at each, CUDA-event times of the kernel, the plain version and
+     every point in radius at NEAREST_MAX_K, one cell; plots 1 km from the
+     origin; 90% of the points in 5% of the plot): 0 differing idx and mask
+     entries at each, over NEAREST_REPEATS further calls too (with the
+     same cell starts), the cell grid that the compared call's kernel built
+     (`cuda_kernels.ball_query_nearest_grid`) equal to
+     `ballquery.nearest_cells` on the CPU at each (`"phase":
+     "nearest_grid"`, with the pairs scored, within the radius and in
+     all), one call under
+     `torch.cuda.set_sync_debug_mode("error")` (`"nearest_sync_debug"`: no
+     host sync), CUDA-event times of the kernel, the plain version and
      the library call (a stable `torch.sort` of the precomputed scores and
      a slice);
      17b/17c. `"phase": "optin_steps"`, one line a route of OPTIN_ROUTES:
@@ -243,7 +254,9 @@ once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s (H100 SXM
 data sheet, non-tensor float32, 700 W). Operations count each add, multiply,
 compare, min or max as one; where the work depends on the data (the SA
 epilogue runs only for picks within the radius) this run's picks are
-counted (and for the SA train passes, this run's valid edges).
+counted (and for the SA train passes, this run's valid edges; for the
+nearest selection, 10 a pair within the radius, the pairs any exact
+method must score, counted by the plain version's scores).
 `ms`, `plain_ms`, `bound_ms` and `library_ms` of a kernel are per step: the
 sum over its call sites in the serve step (the four serve kernels), in
 the train step (the seven train kernels) or in the nearest serve step
@@ -410,9 +423,23 @@ KNN_SCATTER_REFERENCE = (("hot", 4, 1, 40000, 2500, 32), ("ragged", 3, 3, 3001, 
 # ball) and the SA2 shape in [0, 10)^3 at sqrt(8) (r^2 rounds below 8, about
 # 230 points in a ball); "few": fewer in-radius points than K (uniform in
 # [-10, 10]^3 at radius 1, about 1 a ball), most slots masked; "all": every
-# point within the radius, at the kernel's largest K (NEAREST_MAX_K)
+# point within the radius, at the kernel's largest K (NEAREST_MAX_K), one
+# cell of the kernel's grid; "shifted": serve-like plots (xy in [-10, 10]^2,
+# z in [0, 3]) moved to (1000, 1000, 0) m, where one ulp of |p|^2 is 0.125
+# m^2 and the expanded d2 admits points beyond r (the culling radius's
+# margin); "clustered": 90% of the points in a square of 5% of the plot, so
+# those centroids' cells hold most of the cloud (the culled scan near brute
+# force); both at the SA1 shape
 NEAREST_REFERENCE = (("grid", 20, 10000, 2500, 32, 2.0), ("grid", 20, 2500, 625, 64, 8 ** 0.5),
-                     ("few", 4, 3000, 500, 64, 1.0), ("all", 2, 2048, 256, 128, 1e3))
+                     ("few", 4, 3000, 500, 64, 1.0), ("all", 2, 2048, 256, 128, 1e3),
+                     ("shifted", 20, 10000, 2500, 32, 2 ** 0.5),
+                     ("clustered", 20, 10000, 2500, 32, 2 ** 0.5))
+NEAREST_SHIFT = 1000.0
+# further kernel calls a nearest site on the card, each held to the plain
+# picks and to the first call's cell starts: a race in the grid pass shows
+# as one call that differs
+NEAREST_REPEATS = 30
+NEAREST_CLUSTER = (0.9, 20 * 0.05 ** 0.5)  # share of the points, side of their square (m)
 REFERENCE_SITES = {"fps": len(FPS_REFERENCE), "sa_fused_eval": len(SEL_REFERENCE),
                    "knn_interpolate": len(KNN_REFERENCE), "pixel_max": len(PIXEL_MAX_REFERENCE),
                    "ball_query": len(SEL_REFERENCE), "pixel_max_bwd": 1,
@@ -509,7 +536,7 @@ DEVICE_KERNELS = {"fps": ("fps_kernel",), "sa_fused_eval": ("sa_kernel",),
                   "pixel_max_bwd": ("pixel_max_bwd_kernel",),
                   **{name: (f"{name}_kernel",) for name in SA_TRAIN},
                   "sa_train_bwd2": ("sa_train_bwd2_kernel", "sa_train_dq_kernel"),
-                  "ball_query_nearest": ("ball_query_nearest_kernel",)}
+                  "ball_query_nearest": ("ball_query_nearest_kernel", "nearest_grid_kernel")}
 
 
 def fail(msg: str) -> None:
@@ -815,10 +842,12 @@ def opcode(text: str) -> str:
     return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
 
 
-def sass_per_pair(sass: str, r: int):
+def sass_per_pair(sass: str, r: int, load: str = r"LDS\.128"):
     """SASS instructions a pair in the scan loop of each kernel in `sass`
     (cuobjdump -sass of a library): of the innermost loops that hold both a
-    128-bit shared-memory load (one staged point) and a float compare, the
+    128-bit load of one point (`load`, a regular expression: a shared-memory
+    LDS.128 of a staged point by default; the nearest kernel reads its
+    sorted points from global memory, LDG.E.128) and a float compare, the
     one with the most such loads (an unrolled main loop, not its
     remainder). Each point feeds `r` targets, so its length over (points x
     r) is per pair. `common_per_pair` leaves out what a forward branch
@@ -831,7 +860,7 @@ def sass_per_pair(sass: str, r: int):
     for func, ins in sass_functions(sass).items():
         best = None
         for body in innermost_loops(ins):
-            points = sum("LDS.128" in t for _, t in body)
+            points = sum(re.search(load, t) is not None for _, t in body)
             if points and any("FSETP" in t for _, t in body) and (
                     best is None or (points, -len(body)) > (best[1], -len(best[0]))):
                 best = (body, points)
@@ -956,15 +985,21 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
         return res
 
     load_mhz = sm_clock_under_load(torch, ck, torch.device("cuda", 0))
-    for name, r in (("sa_fused_eval", ck.SEL_TILE // 32), ("ball_query", ck.SEL_TILE // 32),
-                    ("knn_interpolate", 1), ("ball_query_nearest", 1)):
-        loops = sass_per_pair(dump(name, "-sass"), r)
+    for name, r, load in (("sa_fused_eval", ck.SEL_TILE // 32, r"LDS\.128"),
+                          ("ball_query", ck.SEL_TILE // 32, r"LDS\.128"),
+                          ("knn_interpolate", 1, r"LDS\.128"),
+                          ("ball_query_nearest", 1, r"LDG\.E\S*\.128")):
+        loops = sass_per_pair(dump(name, "-sass"), r, load)
         check(len(loops) > 0, f"{name}: no scan loop found in the SASS")
         per_pair = max(v["per_pair"] for v in loops.values())
         common = max(v["common_per_pair"] for v in loops.values())
-        pairs = rows[name]["pairs"]
+        # the pairs the kernel scores: all of them for the brute-force scans,
+        # the centroids' 3 x 3 cells for the nearest selection
+        pairs = rows[name].get("scored_pairs", rows[name]["pairs"])
+        culled = {key: rows[name][key] for key in ("pairs", "in_radius_pairs")
+                  if "scored_pairs" in rows[name]}
         print(json.dumps({"phase": "selection_floor", "kernel": name, "sass_loops": loops,
-                          "resource_usage": resources(name),
+                          "resource_usage": resources(name), **culled,
                           "pairs_per_step": pairs, "sm_clock_max_mhz": clock_mhz,
                           "sm_clock_under_load_mhz": load_mhz,
                           "issue_floor_ms": pairs * common / (132 * 128 * clock_mhz * 1e6) * 1e3,
@@ -3435,6 +3470,16 @@ def nearest_reference_calls(torch, device):
             side = 16 if c == 2500 else 10
             pts = torch.randint(0, side, (b, n, 3), generator=gen, device=device).float()
             pts[:, n // 2 : n // 2 + n // 8] = pts[:, : n // 8]
+        elif kind in ("shifted", "clustered"):
+            pts = torch.rand((b, n, 3), generator=gen, device=device) * torch.tensor(
+                [20.0, 20.0, 3.0], device=device) - torch.tensor([10.0, 10.0, 0.0], device=device)
+            if kind == "shifted":
+                pts[..., :2] += NEAREST_SHIFT
+            else:
+                share, side = NEAREST_CLUSTER
+                crowd = torch.rand((b, n), generator=gen, device=device) < share
+                square = (torch.rand((b, n, 2), generator=gen, device=device) - 0.5) * side
+                pts[..., :2] = torch.where(crowd[..., None], square, pts[..., :2])
         else:
             pts = torch.rand((b, n, 3), generator=gen, device=device) * 20 - 10
         pick = torch.randperm(n, generator=gen, device=device)[:c]
@@ -3445,30 +3490,74 @@ def nearest_reference_calls(torch, device):
 def nearest_site(torch, ck, args):
     """The nearest selection's kernel against its plain version at one site:
     (shape, bytes, operations, differing idx and mask entries, the library
-    call's ms, pairs). The library call is a stable `torch.sort` of the
-    precomputed chunked scores and a slice of its first k, the plain
-    version's selection alone."""
+    call's ms, all pairs, in-radius pairs, the cell grid that the kernel's
+    launch built for the compared picks). On the card the differing entries
+    also count NEAREST_REPEATS further calls' picks and cell starts. The library call is a stable
+    `torch.sort` of the precomputed chunked scores and a slice of its first
+    k, the plain version's selection alone. The operations are 10 a pair
+    within the radius (the pairs any exact method must score: distance,
+    compare, key), counted by the plain version's scores."""
     from stratanet2_tpu_torch.ops.ballquery import _BIG, _CHUNK, radius_sq
     from stratanet2_tpu_torch.ops.distance import expanded_d2, sq_norm3
 
     cent, pts, radius, k = args
-    (gi, gm), (wi, wm) = ck.ball_query_nearest(*args), ck.ball_query_nearest_plain(*args)
+    (gi, gm, grid), (wi, wm) = ck.ball_query_nearest_grid(*args), ck.ball_query_nearest_plain(*args)
     diff = int((gi != wi).sum()) + int((gm != wm).sum())
+    for _ in range(NEAREST_REPEATS if gi.is_cuda else 0):
+        ri, rm, again = ck.ball_query_nearest_grid(*args)
+        diff += int((ri != wi).sum()) + int((rm != wm).sum())
+        diff += int((again["starts"] != grid["starts"]).sum())
     b, c, _ = cent.shape
     n = pts.shape[1]
     r2, pts_sq = radius_sq(radius), sq_norm3(pts)
-    scores = []
+    scores, in_radius = [], 0
     for c0 in range(0, c, _CHUNK):
         cc = cent[:, c0 : c0 + _CHUNK]
         d2 = expanded_d2(cc, sq_norm3(cc), pts, pts_sq)
         scores.append(torch.where(d2 <= r2, d2, torch.full_like(d2, _BIG)))
+        in_radius += int((d2 <= r2).sum())
     del d2
     lib_ms = cuda_ms(torch, lambda: [torch.sort(sc, dim=-1, stable=True)[1][..., :k]
                                      for sc in scores], 2)
     del scores
     nbytes = 4 * (b * n * 3 + b * c * 3) + 5 * b * c * k  # idx int32 and mask bool written
-    shape = f"B={b} N={n} C={c} K={k} valid_picks={int(wm.sum())}"
-    return shape, nbytes, 10.0 * b * c * n, diff, lib_ms, float(b * c * n)
+    shape = f"B={b} N={n} C={c} K={k} valid_picks={int(wm.sum())} in_radius={in_radius}"
+    return (shape, nbytes, 10.0 * in_radius, diff, lib_ms, float(b * c * n), float(in_radius),
+            grid)
+
+
+def nearest_grid_check(torch, args, grid):
+    """The cell grid `grid` that one nearest call built (`ck.
+    ball_query_nearest_grid`) against `ballquery.nearest_cells` on the CPU:
+    the parameters, the cell starts, the points cell by cell (within a cell
+    as a set: the kernel's order there follows its atomics) with their
+    float4 [x, y, z, |p|^2], the centroids cell by cell. Returns (differing
+    entries, pairs the kernel scores: each centroid's 3 x 3 cells, the
+    differing entries by part)."""
+    from stratanet2_tpu_torch.ops.ballquery import nearest_cells
+    from stratanet2_tpu_torch.ops.distance import sq_norm3
+
+    cent, pts, radius, _ = (a.cpu() if hasattr(a, "cpu") else a for a in args)
+    got = {key: v.cpu() for key, v in grid.items()}
+    m = nearest_cells(cent, pts, radius)
+    b, n, _ = pts.shape
+    parts = {key: int((got[key] != getattr(m, key)).sum())
+             for key in ("xmin", "ymin", "inv_h", "rc2", "gx", "gy", "starts")}
+
+    def by_cell(order, cell, want):
+        """Entries where `order` is not `want` cell by cell."""
+        cg = cell.gather(1, order.clamp(0, cell.shape[1] - 1))
+        cw = cell.gather(1, want)
+        keys = (cg * cell.shape[1] + order).sort(dim=1).values
+        return int((cg != cw).sum()) + int((keys != cw * cell.shape[1] + want).sum())
+
+    parts["points"] = by_cell(got["sorted_idx"], m.point_cy * m.gx[:, None] + m.point_cx, m.order)
+    parts["centroids"] = by_cell(got["cent_order"], m.cent_cy * m.gx[:, None] + m.cent_cx,
+                                 m.cent_order)
+    p4 = torch.cat([pts, sq_norm3(pts)[..., None]], -1)
+    at = got["sorted_idx"].clamp(0, n - 1)[..., None].expand(b, n, 4)
+    parts["positions"] = int((got["sorted_pts"] != p4.gather(1, at)).any(-1).sum())
+    return sum(parts.values()), float(m.scored.sum()), parts
 
 
 def optin_setup(torch, cfg, device, overrides):
@@ -3633,16 +3722,43 @@ def nearest_phase(torch, ck, cfg, device):
               for i, a in enumerate(nearest_reference_calls(torch, device))]
     row, ref_row = new_agg(), new_agg()
     with torch.no_grad():
+        if device.type == "cuda":
+            nearest_sync_free(torch, ck, sites[0][1])
         for label, args in sites:
-            shape, nbytes, ops, diff, lib_ms, pairs = nearest_site(torch, ck, args)
+            shape, nbytes, ops, diff, lib_ms, pairs, in_radius, grid = nearest_site(torch, ck, args)
             check(diff == 0, f"ball_query_nearest site {label}: {diff} idx and mask entries differ")
+            grid_diff, scored, grid_parts = nearest_grid_check(torch, args, grid)
+            del grid
+            check(grid_diff == 0, f"ball_query_nearest site {label}: the card's cell grid differs "
+                  f"from nearest_cells in {grid_diff} entries: {grid_parts}")
             reference = not label.startswith(("serve", "train"))
             agg = ref_row if reference else row if label.startswith("serve") else new_agg()
             agg["pairs"] += pairs
+            agg["scored_pairs"] = agg.get("scored_pairs", 0.0) + scored
+            agg["in_radius_pairs"] = agg.get("in_radius_pairs", 0.0) + in_radius
+            print(json.dumps({"phase": "nearest_grid", "site": label, "grid_differing": grid_diff,
+                              "scored_pairs": scored, "in_radius_pairs": in_radius,
+                              "all_pairs": pairs}), flush=True)
             report_site(torch, "ball_query_nearest", label, shape, ck.ball_query_nearest,
                         ck.ball_query_nearest_plain, args, nbytes, ops, 0.0, diff, lib_ms, agg,
                         reference)
     return finish_agg(row), finish_agg(ref_row)
+
+
+def nearest_sync_free(torch, ck, args):
+    """One nearest call under `torch.cuda.set_sync_debug_mode("error")`: the
+    wrapper sizes its grid's workspace from shapes alone and reads nothing
+    back, so no host sync may happen (one raises)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ck.ball_query_nearest(*args)
+    except RuntimeError as err:
+        fail(f"ball_query_nearest synchronised with the host: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "nearest_sync_debug", "mode": "error", "raised": False}), flush=True)
 
 
 def bf16_matmul_probe(torch, device, card):

@@ -29,8 +29,17 @@ still takes a key scratch (the parent's design) gets one.
     python3 scripts/kernel_variants.py knn_scatter stratanet2_tpu_torch/ops/csrc/knn_scatter.cu \
         stratanet2_tpu_torch/ops/csrc/knn_scatter.cu@kTS=32,kL=128
 
+ball_query_nearest runs at the nearest serve step's SA1 and SA2 sites (FPS
+centroids of synthetic plots) and at SA1's shape on a clustered cloud. A
+SOURCE named twice runs once; a setting that changes nothing makes a second
+copy, to run them in turns:
+
+    python3 scripts/kernel_variants.py ball_query_nearest \
+        stratanet2_tpu_torch/ops/csrc/ball_query_nearest.cu \
+        stratanet2_tpu_torch/ops/csrc/ball_query_nearest.cu@kNearBuf=32
+
 Kernels: knn_interpolate, sa_train_stats, sa_train_main, sa_train_bwd1, sa_train_bwd2,
-knn_scatter, pixel_max.
+knn_scatter, pixel_max, ball_query_nearest.
 
 Builds go to the git-ignored build/variants/. Exits non-zero without a card.
 """
@@ -411,8 +420,70 @@ def run_pixel_max(torch, ck, libs, gen, device_):
         }), flush=True)
 
 
+def nearest_sites(torch, ck, gen, device_):
+    """The nearest serve step's sites, (site, centroids, points, radius, k):
+    SA1 (FPS's 2500 of a synthetic plot's 10000 points, r = sqrt(2), k = 32)
+    and SA2 (FPS's 625 of those 2500, r = sqrt(8), k = 64), B = 20; and SA1's
+    shape on a clustered cloud (90% of the points in 5% of the plot)."""
+    b = 20
+    start = torch.zeros(b, dtype=torch.int32, device=device_)
+    pts = plot_clouds(torch, gen, b, 10000, device_)
+
+    def fps(p, s):
+        pick = ck.fps(p, s, start).long()
+        return torch.gather(p, 1, pick[..., None].expand(b, s, 3)).contiguous()
+
+    c1 = fps(pts, 2500)
+    yield "SA1", c1, pts, 2 ** 0.5, 32
+    yield "SA2", fps(c1, 625), c1, 8 ** 0.5, 64
+    side = 20 * 0.05 ** 0.5
+    crowd = torch.rand((b, 10000), generator=gen, device=device_) < 0.9
+    square = (torch.rand((b, 10000, 2), generator=gen, device=device_) - 0.5) * side
+    clustered = pts.clone()
+    clustered[..., :2] = torch.where(crowd[..., None], square, pts[..., :2])
+    yield "SA1_clustered", fps(clustered, 2500), clustered, 2 ** 0.5, 32
+
+
+def run_ball_query_nearest(torch, ck, libs, gen, device_):
+    """Each source at the nearest serve step's sites, its workspace from
+    `cuda_kernels._nearest_workspace`: differing idx and mask entries
+    against the plain version, the CUDA-event ms of a call, and its device
+    ms (both kernels; the grid pass alone beside it)."""
+    from stratanet2_tpu_torch.ops.ballquery import radius_sq
+
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    for site, cent, pts, radius, k in nearest_sites(torch, ck, gen, device_):
+        b, c, _ = cent.shape
+        n = pts.shape[1]
+        want_idx, want_mask = ck.ball_query_nearest_plain(cent, pts, radius, k)
+        for src, lib in libs.items():
+            idx = torch.empty((b, c, k), dtype=torch.int32, device=device_)
+            mask = torch.empty((b, c, k), dtype=torch.bool, device=device_)
+            ws, g = ck._nearest_workspace(b, n, c, device_)
+            fn = entry(lib, "ball_query_nearest_launch", 5, 5)
+            fn.argtypes = fn.argtypes[:-1] + [ctypes.c_float, ctypes.c_void_p]
+            cargs = [cent.data_ptr(), pts.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+                     ws.data_ptr(), b, n, c, k, g, radius_sq(radius), stream]
+            rc = fn(*cargs)
+            torch.cuda.synchronize()
+            # device_profile gives the ms of one device kernel over 10 calls
+            ms, launches, _ = chip_smoke.device_profile(
+                torch, lambda: fn(*cargs), ("ball_query_nearest_kernel", "nearest_grid_kernel"))
+            grid_ms = chip_smoke.device_profile(torch, lambda: fn(*cargs), ("nearest_grid_kernel",))[0]
+            print(json.dumps({
+                "source": src, "kernel": "ball_query_nearest", "site": site, "rc": rc,
+                "shape": [b, n, c, k],
+                "differing": int((idx != want_idx).sum()) + int((mask != want_mask).sum()),
+                "ms": event_ms(torch, lambda: fn(*cargs)),
+                "device_ms": ms * launches / 10,
+                "grid_device_ms": grid_ms,
+                **{key: v for key, v in constants(src).items() if key in ("kNearWarps", "kNearBuf")},
+            }), flush=True)
+
+
 RUNS = {"knn_interpolate": run_knn, "sa_train_stats": run_stats, "sa_train_main": run_main, "sa_train_bwd1": run_bwd1,
-        "sa_train_bwd2": run_bwd2, "knn_scatter": run_knn_scatter, "pixel_max": run_pixel_max}
+        "sa_train_bwd2": run_bwd2, "knn_scatter": run_knn_scatter, "pixel_max": run_pixel_max,
+        "ball_query_nearest": run_ball_query_nearest}
 
 
 def main() -> int:

@@ -14,7 +14,7 @@ PyTorch version (counterpart of `stratanet2_tpu/ops/pallas_kernels.py`).
 | `sa_train_main`  | csrc/sa_train.cu        | `_sa_train_main_kernel` / `_sa_train_main` |
 | `sa_train_bwd1`  | csrc/sa_train.cu        | `_sa_train_bwd1_kernel` / `_sa_train_bwd1` |
 | `sa_train_bwd2`  | csrc/sa_train.cu        | `_sa_train_bwd2_kernel` / `_sa_train_bwd2` |
-| `ball_query_nearest` | csrc/ball_query_nearest.cu | no Pallas kernel: the XLA `approx_min_k` of `ballquery.py::_ball_query_single` |
+| `ball_query_nearest` | csrc/ball_query_nearest.cu (grid pass + query, one count) | no Pallas kernel: the XLA `approx_min_k` of `ballquery.py::_ball_query_single` |
 
 Dispatch: a wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it runs the plain version. There is no fallback between the two
@@ -30,6 +30,7 @@ kernels (`sa_train_edges`), so winner slots agree exactly.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional
 
 import torch
@@ -94,7 +95,7 @@ _ENTRIES = {  # wrapper: (library = csrc/<library>.cu, C entry point, its argume
         "sa_train", "sa_train_bwd2_launch", [_VP] * 11 + [_I] * 7 + [_VP]
     ),
     "ball_query_nearest": (
-        "ball_query_nearest", "ball_query_nearest_launch", [_VP] * 4 + [_I] * 4 + [_F, _VP]
+        "ball_query_nearest", "ball_query_nearest_launch", [_VP] * 5 + [_I] * 5 + [_F, _VP]
     ),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
@@ -494,6 +495,44 @@ def ball_query_nearest(centroids: torch.Tensor, points: torch.Tensor, radius: fl
     """The k nearest points within `radius`: (B, C, 3) centroids, (B, N, 3)
     points -> idx (B, C, k) int32 and mask (B, C, k) bool, ascending by
     (d2, index); idx 0 and mask False past a centroid's in-radius count."""
+    if not _nearest_on_card(centroids, points, k):
+        return ball_query_nearest_plain(centroids, points, radius, k)
+    idx, mask, _ = _nearest_launch(centroids, points, radius, k)
+    return idx, mask
+
+
+def ball_query_nearest_grid(centroids: torch.Tensor, points: torch.Tensor, radius: float,
+                            k: int):
+    """`ball_query_nearest`'s idx and mask and the cell grid that its kernel
+    built for them (one counted launch on the card; on the CPU the plain
+    picks and `ballquery.nearest_cells` in the kernel's layout). The grid is
+    a dict of xmin, ymin, inv_h, rc2 (B,) float32; gx, gy (B,) int64; starts
+    (B, g^2 + 1), sorted_idx (B, N) and cent_order (B, C) int64; sorted_pts
+    (B, N, 4) float32 [x, y, z, |p|^2]."""
+    if not _nearest_on_card(centroids, points, k):
+        b, n, _ = points.shape
+        m = ballquery.nearest_cells(centroids, points, radius)
+        pts = torch.gather(points, 1, m.order[..., None].expand(b, n, 3))
+        grid = dict(xmin=m.xmin, ymin=m.ymin, inv_h=m.inv_h, rc2=m.rc2, gx=m.gx, gy=m.gy,
+                    starts=m.starts, sorted_idx=m.order, cent_order=m.cent_order,
+                    sorted_pts=torch.cat([pts, sq_norm3(pts)[..., None]], -1))
+        return (*ball_query_nearest_plain(centroids, points, radius, k), grid)
+    idx, mask, ws = _nearest_launch(centroids, points, radius, k)
+    b, n, _ = points.shape
+    g, layout = _nearest_layout(b, n, centroids.shape[1])
+    parts = dict(zip(layout, torch.split(ws, [math.prod(s) for s in layout.values()])))
+    views = {key: parts[key].view(shape) for key, shape in layout.items()}
+    prm = views["params"]
+    fl = prm[:, :4].view(torch.float32)
+    grid = dict(xmin=fl[:, 0], ymin=fl[:, 1], inv_h=fl[:, 2], rc2=fl[:, 3],
+                gx=prm[:, 4].long(), gy=prm[:, 5].long(), starts=views["starts"].long(),
+                sorted_idx=views["sidx"].long(), cent_order=views["corder"].long(),
+                sorted_pts=views["spts"].view(torch.float32))
+    return idx, mask, grid
+
+
+def _nearest_on_card(centroids: torch.Tensor, points: torch.Tensor, k: int) -> bool:
+    """Checks the nearest selection's arguments; True for CUDA tensors."""
     name = "ball_query_nearest"
     b, c, _ = centroids.shape
     n = points.shape[1]
@@ -503,13 +542,42 @@ def ball_query_nearest(centroids: torch.Tensor, points: torch.Tensor, radius: fl
         _expect(t.dtype == torch.float32, name, "positions must be float32")
     _expect(1 <= k <= n, name, "need 1 <= k <= N")
     if not _on_card(name, centroids, points):
-        return ball_query_nearest_plain(centroids, points, radius, k)
+        return False
     _expect(k <= NEAREST_MAX_K, name, f"k={k} exceeds the kernel's limit of {NEAREST_MAX_K}")
     _expect(b < 65536 and n < 2 ** 31, name, "the kernel takes at most 65535 clouds")
+    return True
+
+
+def _nearest_launch(centroids: torch.Tensor, points: torch.Tensor, radius: float, k: int):
+    """One counted launch of the nearest kernel (grid pass and query): idx,
+    mask and the workspace (`_nearest_layout`)."""
+    b, c, _ = centroids.shape
+    n = points.shape[1]
     idx = torch.empty((b, c, k), dtype=torch.int32, device=points.device)
     mask = torch.empty((b, c, k), dtype=torch.bool, device=points.device)
-    _launch(name, points.device, centroids, points, idx, mask, b, n, c, k, radius_sq(radius))
-    return idx, mask
+    ws, g = _nearest_workspace(b, n, c, points.device)
+    _launch("ball_query_nearest", points.device, centroids, points, idx, mask, ws, b, n, c, k,
+            g, radius_sq(radius))
+    return idx, mask, ws
+
+
+def _nearest_layout(b: int, n: int, c: int):
+    """g = `ballquery.nearest_grid_side(N)`, from the shapes alone, and the
+    int32 parts of the nearest kernel's workspace in the order of
+    csrc/ball_query_nearest.cu's `carve`, by name and shape: spts (B, N, 4)
+    (float4 [x, y, z, |p|^2]), sidx (B, N), starts (B, g^2 + 1), corder
+    (B, C) and params (B, 6)."""
+    g = ballquery.nearest_grid_side(n)
+    return g, {"spts": (b, n, 4), "sidx": (b, n), "starts": (b, g * g + 1), "corder": (b, c),
+               "params": (b, 6)}
+
+
+def _nearest_workspace(b: int, n: int, c: int, device: torch.device):
+    """The nearest kernel's workspace (`_nearest_layout`) as one int32
+    tensor, and g."""
+    g, layout = _nearest_layout(b, n, c)
+    size = sum(math.prod(s) for s in layout.values())
+    return torch.empty(size, dtype=torch.int32, device=device), g
 
 
 # ---------------------------------------------------------------------------

@@ -106,6 +106,44 @@ def test_sass_per_pair_counts_the_loop_with_and_without_the_insert(r):
     assert loop["opcodes"]["BRA"] == 2
 
 
+# the nearest selection's library: the grid pass (32-bit global loads and a
+# compare) and the query's scan loop over sorted points in global memory,
+# whose `continue` at 0x50 skips the candidate path
+NEAREST_SASS = """
+        Function : _Z19nearest_grid_kernelPKfS0_P6float4PiS3_S3_S3_iiif
+        /*0000*/                   LDG.E R4, desc[UR4][R2.64] ;
+        /*0010*/                   FSETP.GT.AND P0, PT, R4, RZ, PT ;
+        /*0020*/              @P1 BRA 0x0 ;
+        /*0030*/                   EXIT ;
+        Function : _Z25ball_query_nearest_kernelILi1EEvPKfPK6float4PKiS6_S6_S6_PiPhiiiif
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0020*/                   FFMA R8, R4, R5, R6 ;
+        /*0030*/                   FSETP.GTU.AND P0, PT, R8, R9, PT ;
+        /*0040*/                   VOTE.ANY R10, PT, P0 ;
+        /*0050*/              @!P2 BRA 0x90 ;
+        /*0060*/                   LDG.E.CONSTANT R11, desc[UR4][R12.64] ;
+        /*0070*/                   STS.64 [R13], R10 ;
+        /*0080*/                   IADD3 R14, R14, 0x1, RZ ;
+        /*0090*/                   IADD3 R2, R2, 0x200, RZ ;
+        /*00a0*/              @P1 BRA 0x10 ;
+        /*00b0*/                   EXIT ;
+"""
+
+
+def test_sass_per_pair_finds_the_nearest_scan_loop_by_its_global_load():
+    """The nearest kernel reads its sorted points with LDG.E.128, not from
+    staged shared memory: its scan loop is found by that load (the grid
+    pass's 32-bit loads are not one point), and the pair that inserts
+    nothing skips the candidate path."""
+    assert cs.sass_per_pair(NEAREST_SASS, 1) == {}
+    loops = cs.sass_per_pair(NEAREST_SASS, 1, r"LDG\.E\S*\.128")
+    assert list(loops) == ["_Z25ball_query_nearest_kernelILi1EEvPKfPK6float4PKiS6_S6_S6_PiPhiiiif"]
+    loop = next(iter(loops.values()))
+    assert (loop["instructions"], loop["points"]) == (10, 1)
+    assert loop["common_per_pair"] == 7  # the candidate path's three are skipped
+
+
 def test_sass_edge_loops_count_shuffles_an_edge():
     """Each SA train instance's slot loop (the innermost loop with a global
     load), counted over its KB x 32 / L edges a pass (L lanes a centroid:
@@ -784,6 +822,12 @@ def test_optin_phase_runs_on_the_cpu(optin_on_cpu, capsys):
     assert len(sites) == 4 + 3 and all(x["differing_selections"] == 0 for x in sites)
     assert [x["reference"] for x in sites] == [False] * 4 + [True] * 3
     assert row["pairs"] == 3 * (64 * 256 + 16 * 64) and ref_row["pairs"] > 0
+    grids = [x for x in lines if x.get("phase") == "nearest_grid"]
+    assert [x["site"] for x in grids] == [x["site"] for x in sites]
+    assert all(x["grid_differing"] == 0 and 0 < x["in_radius_pairs"] <= x["scored_pairs"]
+               <= x["all_pairs"] for x in grids)
+    assert row["scored_pairs"] == sum(x["scored_pairs"] for x in grids[:2])
+    assert row["in_radius_pairs"] == sum(x["in_radius_pairs"] for x in grids[:2])
     routes = [x for x in lines if x.get("phase") == "optin_steps"]
     assert [x["route"] for x in routes] == ["nearest", "bf16_fused", "bf16_unfused"]
     assert all(x["serve_cpu_B2_max_abs_diff"] == 0 and x["train_cpu_B2_loss_max_abs_diff"] == 0
@@ -811,31 +855,79 @@ def test_nearest_site_check_rejects_a_wrong_selection(monkeypatch, fault):
     monkeypatch.setattr(cs, "cuda_ms", lambda *a, **k: 0.0)
     args = cs.nearest_reference_calls(torch, torch.device("cpu"))[-1]
     args = (args[0][:1, :20].contiguous(), args[1][:1, :300].contiguous(), args[2], 32)
-    monkeypatch.setattr(ck, "ball_query_nearest", ck.ball_query_nearest_plain)
+    monkeypatch.setattr(ck, "ball_query_nearest_grid",
+                        lambda *a: (*ck.ball_query_nearest_plain(*a), {}))
     assert cs.nearest_site(torch, ck, args)[3] == 0
 
     def wrong(*a):
         idx, mask = ck.ball_query_nearest_plain(*a)
         if fault == "reversed_order":
-            return idx.flip(-1), mask
+            return idx.flip(-1), mask, {}
         mask = mask.clone()
         mask[0, 0, 5] = False
-        return idx, mask
+        return idx, mask, {}
 
-    monkeypatch.setattr(ck, "ball_query_nearest", wrong)
+    monkeypatch.setattr(ck, "ball_query_nearest_grid", wrong)
     assert cs.nearest_site(torch, ck, args)[3] > 0
+
+
+@pytest.mark.parametrize("fault", [None, "permuted_in_cells", "starts", "across_cells",
+                                   "positions", "centroids", "inv_h"])
+def test_nearest_grid_check_passes_the_model_and_rejects_a_wrong_grid(fault):
+    """nearest_grid_check holds the card's grid to `nearest_cells`: the
+    model itself and the points permuted within their cells (the kernel's
+    atomics fix no order there) pass; a wrong cell start, two points of
+    different cells swapped, a wrong sorted position, centroids out of cell
+    order or another cell side fail. It also returns the pairs the kernel
+    scores, each centroid's 3 x 3 cells."""
+    from stratanet2_tpu_torch.ops.ballquery import nearest_cells
+
+    args = cs.nearest_reference_calls(torch, torch.device("cpu"))[0]
+    args = (args[0][:2, :200].contiguous(), args[1][:2, :2000].contiguous(), 2 ** 0.5, 32)
+    model = nearest_cells(*args[:3])
+
+    def faulty(*a):
+        got = {key: v.clone() for key, v in ck.ball_query_nearest_grid(*a)[2].items()}
+        if fault == "permuted_in_cells":  # reverse each cell's points
+            for i in range(got["starts"].shape[0]):
+                for lo, hi in zip(got["starts"][i, :-1].tolist(), got["starts"][i, 1:].tolist()):
+                    for key in ("sorted_idx", "sorted_pts"):
+                        got[key][i, lo:hi] = got[key][i, lo:hi].flip(0)
+        elif fault == "starts":
+            got["starts"][0, 5] += 1
+        elif fault == "across_cells":
+            first = int(got["starts"][0, 1])  # the first point of cell 1 and cell 0's last
+            for key in ("sorted_idx", "sorted_pts"):
+                got[key][0, [first - 1, first]] = got[key][0, [first, first - 1]]
+        elif fault == "positions":
+            got["sorted_pts"][1, 7, 3] += 1.0
+        elif fault == "centroids":
+            got["cent_order"][0] = got["cent_order"][0].flip(0)
+        elif fault == "inv_h":
+            got["inv_h"][1] = got["inv_h"][1] * 1.01
+        return got
+
+    diff, scored, parts = cs.nearest_grid_check(torch, args, faulty(*args))
+    assert sum(parts.values()) == diff
+    assert (diff == 0) == (fault in (None, "permuted_in_cells"))
+    assert scored == float(model.scored.sum()) and 0 < scored < 200 * 2000 * 2 * 0.1
 
 
 def test_nearest_reference_sites_are_tie_heavy_few_and_full():
     """The full-size reference sites, on one cloud and 100 centroids each:
     the grid sites hold zero distances and ties at the k-th distance, the
     "few" site masks most slots, the "all" site has every point within the
-    radius at the kernel's largest k."""
-    from stratanet2_tpu_torch.ops.ballquery import radius_sq
+    radius at the kernel's largest k (one cell of its grid); the "shifted"
+    site lies 1 km out, where the expanded d2 admits points beyond r and the
+    culling radius takes a margin; the "clustered" site crowds 90% of its
+    points into 5% of the plot, most of them in a few cells."""
+    from stratanet2_tpu_torch.ops.ballquery import nearest_cells, radius_sq
     from stratanet2_tpu_torch.ops.distance import expanded_d2, sq_norm3
 
     calls = cs.nearest_reference_calls(torch, torch.device("cpu"))
-    assert [c[3] for c in calls][-1] == ck.NEAREST_MAX_K
+    kinds = [site[0] for site in cs.NEAREST_REFERENCE]
+    assert calls[kinds.index("all")][3] == ck.NEAREST_MAX_K
+    assert {"grid", "few", "all", "shifted", "clustered"} == set(kinds)
     for (kind, b, n, c, k, radius), (cent, pts, r, kk) in zip(cs.NEAREST_REFERENCE, calls):
         assert cent.shape == (b, c, 3) and pts.shape == (b, n, 3) and (r, kk) == (radius, k)
         cc, pp = cent[:1, :100], pts[:1]
@@ -848,8 +940,18 @@ def test_nearest_reference_sites_are_tie_heavy_few_and_full():
             assert float(ties.float().mean()) > 0.5
         elif kind == "few":
             assert float((inside.sum(-1) < k).float().mean()) == 1.0
-        else:
+        elif kind == "all":
             assert bool(inside.all())
+            assert nearest_cells(cc, pp, radius).gx.tolist() == [1]
+        elif kind == "shifted":
+            assert float(pp[..., :2].min()) > 980 and float(pp[..., :2].max()) < 1020
+            true_d2 = ((cc[:, :, None] - pp[:, None]) ** 2).sum(-1)
+            assert bool((inside & (true_d2 > radius_sq(radius))).any())  # rounding admits them
+            assert float(nearest_cells(cc, pp, radius).rc2[0]) > 2 * radius_sq(radius)
+        else:
+            share, side = cs.NEAREST_CLUSTER
+            crowd = (pp[..., :2].abs() <= side / 2).all(-1).float().mean()
+            assert abs(float(crowd) - share) < 0.02
 
 
 def test_reference_checkpoint_check_rejects_an_untransposed_load(optin_on_cpu, monkeypatch):
