@@ -5,8 +5,10 @@ selection from `stratanet2_tpu_torch/ops/csrc/`, holds each against its
 plain PyTorch version at the shapes its path gives it, drives the serve
 step, the train step, the training loop, parcel predict, the four CLIs,
 the parallel paths (two ranks sharing the card) and the opt-in routes at
-full width (B=20 clouds x N=10000 points, random weights from a seed), and
-serves a reference checkpoint, and checks their outputs.
+full width (B=20 clouds x N=10000 points, random weights from a seed), the
+steps on dense plots (N=65536 at diam_pix 100) through the kernels' paths
+for long shapes, and serves a reference checkpoint, and checks their
+outputs.
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
 
@@ -23,11 +25,16 @@ Phases, in order, each failing loudly:
      the same function, that call (pixel_max also its device time a launch, its
      kernel the only device operation of a call); then FPS's reference sites
      (FPS_REFERENCE: tie-heavy integer-grid clouds at the two step shapes,
-     the serve batch unpartitioned at N=10000, and a grid cloud at the
-     kernel's largest N), each with 0 differing indices, and the SA
+     the serve batch unpartitioned at N=10000, a grid cloud at fps_kernel's
+     largest N, and the long rows: a grid cloud at the dense SA1 parts, an
+     odd row of 40,001 points, rows of 60,000 and 100,000 (clusters of 4
+     and 8 blocks) and a row of 200,000 past the cluster's shared memory),
+     each with 0 differing indices, and the SA
      kernel's selection reference sites (SEL_REFERENCE: tie-heavy grid
      clouds at the SA1 and SA2 shapes, a ragged site with an empty last
-     group, a site at the kernel's largest group), each with 0 differing
+     group, a site at the longest group staged whole, a grid cloud at the
+     dense SA1 shape and groups longer than two chunks with a ragged last
+     one), each with 0 differing
      picks and outputs within SA_ATOL, and kNN's reference sites
      (KNN_REFERENCE: tie-heavy integer-grid clouds at the FP1 and FP2 shapes
      with duplicated sources and targets on sources, a ragged site, three
@@ -36,7 +43,8 @@ Phases, in order, each failing loudly:
      pixel_max's (PIXEL_MAX_REFERENCE: quantised values whose tied maxima
      fall in different blocks of a cloud's cluster, ids outside the pixels,
      empty pixels, P = 37, N a multiple of no share; a cloud so small that
-     the last blocks of its cluster get no point), equal exactly;
+     the last blocks of its cluster get no point; the tables of several
+     pixel ranges at P = 100 and P = 300), equal exactly;
   4b. `"phase": "fps_chain"`: FPS's latency floor, the time of a pick with
      one point a thread (N=1024), against the per-pick time at the step
      sites;
@@ -68,8 +76,9 @@ Phases, in order, each failing loudly:
      integer-valued q and cterm, K = 31 and 61, masked slots inside
      batches, centroids with no valid slot), then ball_query's
      SEL_REFERENCE sites (the clouds of phase 4's, drawn anew; the largest
-     group is the query's own), then the synthetic pixel-max backward site
-     (out-of-range ids, empty pixels), then knn_scatter's synthetic sites
+     group is the query's own), then the synthetic pixel-max backward sites
+     (out-of-range ids, empty pixels; P = 20 and the dense P = 100), then
+     knn_scatter's synthetic sites
      (KNN_SCATTER_REFERENCE: a hot destination taking 20% of the pairs, and
      a ragged site with empty rows and ids outside [0, S)):
      kernel vs plain (ball_query and pixel_max_bwd exactly; knn_scatter
@@ -138,6 +147,25 @@ Phases, in order, each failing loudly:
      an epoch, ms a batch, the device busy share of an epoch, the card-resident
      MB of the tables) and `"phase": "device_epoch_host_syncs"`, the host
      calls that wait for the card in a device-resident epoch's loop;
+  15h. `"phase": "dense"` (`dense_phase`, run right after 15d): the serve
+     and train steps on
+     dense plots (DENSE: B=20 x N=65536, diam_pix 100, the default plan),
+     which cross every limit of the PROD kernels: SA1's FPS rows of 32,768
+     points (the cluster path), SA1's groups of 2,048 points (the chunked
+     selection, in the SA eval kernel serving and the ball query training),
+     the 240,000 B pixel table (two pixel ranges); launches counted by wrapper
+     (SERVE_LAUNCHES, TRAIN_LAUNCHES) and by path (DENSE_SERVE_PATHS,
+     DENSE_TRAIN_PATHS), outputs finite, coverages in [0, 1], loss parts
+     finite, every parameter changed; every path's call sites in the two
+     steps held to the plain versions (0 differing picks and entries) and
+     timed, the global FPS path and sa_train_bwd2's dq windows at their
+     reference sites (DQ_REFERENCE: SA1's shape at subsample_size 80,000),
+     FPS's time a pick on both; a whole train step at B=20 x 80,000
+     (`"phase": "dense_dq_train"`: launches by wrapper and by path, the dq
+     windows among them, outputs, the median of 3 steps); the median of DENSE_STEPS steps of each and one profiled step of
+     each, in which each path's kernel shows by name exactly when it
+     launched; sa_train_bwd2's edge buffer; B=1 on the card against the port
+     on the CPU (serve within CPU_ATOL, train within phase 15's bounds);
   15e. `"phase": "parcel"`: parcel predict at PROD width (`parcel_phase`):
      a synthetic 100 m parcel's LAS (140 m with its buffer, ~627,000
      points) written, tiled and extracted (`"phase": "parcel_prepare"`,
@@ -196,7 +224,8 @@ Phases, in order, each failing loudly:
      slots x SASS an edge / (132 SMs x 4 schedulers x the maximum SM clock);
      then `"phase": "atomics"`: the global RED/ATOM instructions in the SASS
      of the kernels of ATOMIC_FREE (must be 0: each writes every output
-     element once) and their registers, stack and spills;
+     element once) and their registers,
+     stack and spills;
   17. the opt-ins and a reference checkpoint (`optin_phase`, after 15g;
      phase 16 then also reads the nearest kernel's scan loop):
      17a. the nearest selection (`cuda_kernels.ball_query_nearest`) against
@@ -241,9 +270,15 @@ Phases, in order, each failing loudly:
      quantification figure skipped with a warning without matplotlib;
   18. the `{"reference_sites": [...]}` line (phase 10's sites and the
      synthetic FPS, selection, SA train, pixel-max, scatter and nearest
-     sites, apart from the per-step rows), the `{"kernels": [...]}` line
-     (all twelve; the nearest kernel's row is the nearest serve step's) and
-     the final `{"ok": true, ...}` line.
+     sites, apart from the per-step rows), the `{"dense_kernels": [...]}`
+     line (a row a long-shape path, and the pixel-max backward at the dense
+     table: its wrapper, kernel and source, launches in a dense serve and
+     train step, device ms in each from phase 15h's profiles, the CUDA-event
+     ms, plain ms, bound and max |kernel - plain| of its sites in the dense
+     serve step, or the train step for the ball query and the backward, or
+     at its reference site for the global FPS path; FPS's us a pick), the
+     `{"kernels": [...]}` line (all twelve; the nearest kernel's row is the
+     nearest serve step's) and the final `{"ok": true, ...}` line.
 
 float32 matmuls run in full float32: TF32 is switched off for cuBLAS and
 cuDNN below, so no product (and no distance) passes through TF32.
@@ -343,10 +378,21 @@ OPTIN_ROUTES = {
 # FPS's reference sites (phase 4): (cloud, rows, N, S). "grid": integer
 # coordinates in [0, 16), so distances take a few hundred values and most
 # picks break ties, at the shapes of SA1's parts and of SA2; "serve": the
-# serve batch's clouds unpartitioned, N=10000; and a grid cloud at the
-# kernel's largest N (cuda_kernels.FPS_MAX_N, 16 points a thread)
+# serve batch's clouds unpartitioned, N=10000; a grid cloud at fps_kernel's
+# largest N (cuda_kernels.FPS_MAX_N, 16 points a thread); then the long-row
+# paths (cuda_kernels.fps_path): a grid cloud at the dense phase's SA1 parts
+# (a cluster of 2 blocks a row), an odd row that no partition takes
+# (N=40001: 4 blocks of 10,001 points, 10 a thread), rows of 60,000 (4
+# blocks of 15,000, 15 a thread) and 100,000 (8 blocks of 12,500, 13 a
+# thread) and, last (the dense phase's global site), a row past the
+# cluster's shared memory (N=200000: 8 blocks, x, y, z and the running
+# minima in device memory), all "uniform": serve-like plots (xy in
+# [-10, 10]^2 m, z in [0, 3])
 FPS_REFERENCE = (("grid", 40, 5000, 1250), ("grid", 20, 2500, 625),
-                 ("serve", 20, 10000, 2500), ("grid", 20, 16384, 1024))
+                 ("serve", 20, 10000, 2500), ("grid", 20, 16384, 1024),
+                 ("grid", 20, 32768, 8192), ("uniform", 4, 40001, 10000),
+                 ("uniform", 4, 60000, 2048), ("uniform", 2, 100000, 2048),
+                 ("uniform", 1, 200000, 1024))
 # call sites held against their plain versions outside the steps: phase 10's
 # (the gather backward of the unfused SA2 stage, the SA train passes of the
 # fused SA1 and SA2 stages with nonzero statistics shifts) and synthetic ones
@@ -385,11 +431,17 @@ EDGE_LOOP_INSTANCES = (("sa_train_stats", 16), ("sa_train_main", 16), ("sa_train
 # PROD radii sqrt(2) and sqrt(8) (r^2 rounds to 1.9999999 and 7.9999995): the
 # SA1 and SA2 shapes; a ragged site (N=1030, K=48: g=22, group 46 holds 18
 # points and group 47 none; C=300 leaves a partial tile) at radius 2, where
-# r^2 = 4 exactly and the points at d2 = 4 are inside; and a site at the
-# kernels' largest group ("max_g", B=2, K=4: cuda_kernels.BQ_MAX_G for the
-# query, sa_fused_eval_max_g for the SA kernel's instances)
+# r^2 = 4 exactly and the points at d2 = 4 are inside; a site at the
+# kernels' longest group staged whole ("max_g", B=2, K=4: cuda_kernels.
+# BQ_MAX_G for the query, sa_fused_eval_max_g for the SA kernel's
+# instances); the dense phase's SA1 shape (B=2, N=65536, C=16384, K=32:
+# groups of 2048, streamed in chunks of 1816 and 1741); and "long" (B=2,
+# K=4, N set for each kernel instance): groups of 2 chunks + 5 points (the
+# third chunk 5 points) and a ragged last group 2 points shorter, at each
+# instance's own chunk
 SEL_REFERENCE = (("grid", 20, 10000, 2500, 32, 2 ** 0.5), ("grid", 20, 2500, 625, 64, 8 ** 0.5),
-                 ("grid", 3, 1030, 300, 48, 2.0), ("max_g", 2, 0, 300, 4, 2.0))
+                 ("grid", 3, 1030, 300, 48, 2.0), ("max_g", 2, 0, 300, 4, 2.0),
+                 ("grid", 2, 65536, 16384, 32, 2 ** 0.5), ("long", 2, 0, 300, 4, 2.0))
 # kNN's reference sites (phase 4): (cloud, B, S, T, F). "grid": integer
 # coordinates in [0, 16) with an eighth of the sources duplicated and an
 # eighth of the targets put on sources, so most picks break ties, many at
@@ -406,8 +458,14 @@ KNN_REFERENCE = (("grid", 20, 2500, 10000, 34), ("grid", 20, 625, 2500, 64),
 # [-P^2/8, 9 P^2/8) and a band of P^2/8 pixels left empty; N = 10007, a
 # multiple of no cluster size tried (2, 4, 8) nor of a block's threads;
 # P = 37. "tiny": five points a cloud, so the last blocks of a cluster of 4
-# or 8 get no point
-PIXEL_MAX_REFERENCE = (("ties", 4, 10007, 37), ("tiny", 3, 5, 37))
+# or 8 get no point. Then tables of several pixel ranges
+# (cuda_kernels.pixel_max_range): "ties" at P = 100, the dense phase's (two
+# ranges of 5000 pixels; ~6 points a pixel, tied maxima in different blocks
+# of a range's cluster and equal maxima on both sides of the ranges'
+# boundary), and "wide" at P = 300 (ten ranges of 9000 pixels, most of them
+# empty)
+PIXEL_MAX_REFERENCE = (("ties", 4, 10007, 37), ("tiny", 3, 5, 37),
+                       ("ties", 1, 80021, 100), ("wide", 1, 5003, 300))
 # knn_scatter's synthetic reference sites (phase 11): (kind, B, k, T, S, F).
 # "hot": phase 10's gather shape, k = 1 and no weights, 20% of the pairs on
 # row 0 as masked ball-query slots put them there (~8000 a cloud, many
@@ -442,11 +500,59 @@ NEAREST_REPEATS = 30
 NEAREST_CLUSTER = (0.9, 20 * 0.05 ** 0.5)  # share of the points, side of their square (m)
 REFERENCE_SITES = {"fps": len(FPS_REFERENCE), "sa_fused_eval": len(SEL_REFERENCE),
                    "knn_interpolate": len(KNN_REFERENCE), "pixel_max": len(PIXEL_MAX_REFERENCE),
-                   "ball_query": len(SEL_REFERENCE), "pixel_max_bwd": 1,
+                   "ball_query": len(SEL_REFERENCE), "pixel_max_bwd": 2,
                    **{name: n + SA_TRAIN_REF_SITES.get(name, 0)
                       for name, n in PHASE10_SITES.items()}}
 REFERENCE_SITES["knn_scatter"] += len(KNN_SCATTER_REFERENCE)
 REFERENCE_SITES["ball_query_nearest"] = len(NEAREST_REFERENCE)
+# Phase 15h (dense): plots of subsample_size 65,536 rasterised at diam_pix
+# 100 (UAV LiDAR: hundreds of points a square metre, tens of thousands in a
+# 10 m plot; 0.2 m pixels over its 20 m). At B=20 and the default plan (k1
+# 32, k2 64, fps_parts 2) every limit of the PROD kernels is crossed at
+# once: SA1's FPS rows of 32,768 points (40 rows of 8,192 picks: the
+# cluster), SA1's groups of 2,048 points (chunked), a pixel table of 10,000 x
+# 3 x 8 B = 240,000 B (two ranges); SA2's rows of 8,192 and groups of 256
+# stay on the PROD kernels.
+DENSE = {"subsample_size": 65536, "diam_pix": 100}
+DENSE_STEPS = 10  # timed steps of each; the median is reported
+# launches of the long-shape paths (cuda_kernels.PATH_LAUNCHES) in a dense
+# step, and of the pixel-max backward, whose table has no limit
+DENSE_SERVE_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_chunked": 0,
+                     "sa_fused_eval_chunked": 1, "pixel_max_ranges": 2,
+                     "sa_train_dq_chunked": 0}
+DENSE_TRAIN_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_chunked": 1,
+                     "sa_fused_eval_chunked": 0, "pixel_max_ranges": 1,
+                     "sa_train_dq_chunked": 0, "pixel_max_bwd": 1}
+# each path's device kernel, by name prefix: the chunked selections and the
+# dq windows by their template instance (the PROD instances take the other
+# launches); the pixel ranges run in pixel_max_kernel itself, whose device
+# ms hold every launch of the step (all of them ranged in the dense steps)
+DENSE_WRAPPERS = {"fps_cluster": "fps", "fps_global": "fps",
+                  "sa_fused_eval_chunked": "sa_fused_eval", "ball_query_chunked": "ball_query",
+                  "pixel_max_ranges": "pixel_max", "sa_train_dq_chunked": "sa_train_bwd2",
+                  "pixel_max_bwd": "pixel_max_bwd"}
+DENSE_KERNELS = {"fps_cluster": "fps_cluster_kernel", "fps_global": "fps_cluster_kernel<8, 0>",
+                 "sa_fused_eval_chunked": "sa_kernel<16, 16, true, true>",
+                 "ball_query_chunked": "ball_query_kernel<true>",
+                 "pixel_max_ranges": "pixel_max_kernel",
+                 "sa_train_dq_chunked": "sa_train_dq_kernel<16, true>",
+                 "pixel_max_bwd": "pixel_max_bwd_kernel"}
+# sa_train_bwd2's dq windows (cuda_kernels.sa_train_dq_chunks) at SA1's
+# shape of subsample_size 80,000, (B, N, C, K, C1): 4 (2 C + 9 ceil(N/K) +
+# 1) B = 250,004 B of lists and counts a block, past its 232,448 B, so the
+# dense steps (N = 65,536: 204,804 B) do not reach them; drawn as the SA
+# train reference sites are (`sa_train_site_args`), held and timed in the
+# dense phase as the dq path's reference site
+DQ_REFERENCE = (1, 80000, 20000, 32, 16)
+# ... and a whole train step there (phase 15h's last part): B=20 plots of
+# subsample_size 80,000 at diam_pix 100, the default plan, whose SA1 dq pass
+# takes windows (SA2's, at 20,000 points, does not); FPS rows of 40,000 (a
+# cluster of 4 blocks), SA1 groups of 2,500 (chunked), two pixel ranges
+DENSE_DQ_N = 80000
+DENSE_DQ_TRAIN_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_chunked": 1,
+                        "sa_fused_eval_chunked": 0, "pixel_max_ranges": 1,
+                        "sa_train_dq_chunked": 1}
+DENSE_DQ_STEPS = 3  # timed steps; the median is reported
 FPS_FLOOR_N = 1024  # one point for each thread of the FPS block
 SHIFT_STD = 0.1  # phase 10's BN running means (the shifts), as the CPU stage tests draw them
 SA_ATOL = 1e-4  # layer-2 dot: FMA contraction and summation order differ
@@ -529,7 +635,7 @@ PROFILE_STEPS = 10
 PROFILE_TRIES = 8
 LAUNCH_REPS = 2000  # calls a host cost of phase 11b is averaged over
 # device kernels of each wrapper, by name prefix (ops/csrc/*.cu)
-DEVICE_KERNELS = {"fps": ("fps_kernel",), "sa_fused_eval": ("sa_kernel",),
+DEVICE_KERNELS = {"fps": ("fps_kernel", "fps_cluster_kernel"), "sa_fused_eval": ("sa_kernel",),
                   "knn_interpolate": ("knn_kernel",),
                   "pixel_max": ("pixel_max_kernel",),
                   "ball_query": ("ball_query_kernel",), "knn_scatter": ("knn_scatter_kernel",),
@@ -548,9 +654,10 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
+def cuda_ms(torch, fn, reps: int, warmup: bool = True) -> float:
     """Mean CUDA-event time of fn over reps launches, after one warm-up."""
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -645,10 +752,13 @@ def capture_calls(ck, names, run):
 
 
 def report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err, diff_sel,
-                lib_ms, agg, reference=False):
-    """Time kernel and plain at one call site, print its line, add it to agg."""
+                lib_ms, agg, reference=False, plain_reps=2):
+    """Time kernel and plain at one call site, print its line, add it to agg.
+    The plain version is timed over `plain_reps` calls, after a warm-up
+    unless that is one call (a plain version of seconds has nothing left to
+    warm)."""
     k_ms = cuda_ms(torch, lambda: kernel(*args), 20)
-    p_ms = cuda_ms(torch, lambda: plain(*args), 2)
+    p_ms = cuda_ms(torch, lambda: plain(*args), plain_reps, warmup=plain_reps > 1)
     b_ms, _ = bound_ms(nbytes, ops)
     print(json.dumps({
         "kernel": name, "site": site, "reference": reference, "shape": shape, "kernel_ms": k_ms,
@@ -687,6 +797,9 @@ def fps_reference_calls(torch, xyz, device):
         if cloud == "serve":
             pts = xyz.float().contiguous()
             check(tuple(pts.shape) == (rows, n, 3), f"serve clouds {tuple(pts.shape)}")
+        elif cloud == "uniform":
+            u = torch.rand((rows, n, 3), generator=gen, device=device)
+            pts = torch.cat([u[..., :2] * 20 - 10, u[..., 2:] * 3], -1)
         else:
             pts = torch.randint(0, 16, (rows, n, 3), generator=gen, device=device).float()
         start = torch.randint(0, n, (rows,), generator=gen, device=device, dtype=torch.int32)
@@ -769,10 +882,15 @@ def selection_reference_calls(torch, ck, device):
 
     bq, sa = [], []
     for kind, b, n, c, k, radius in SEL_REFERENCE:
-        two = k == 32 or kind == "max_g"
+        two = k == 32 or kind in ("max_g", "long")
         ch = 16 if two else 32
-        n_bq, n_sa = (ck.BQ_MAX_G * k, ck.sa_fused_eval_max_g(ch, ch, two, k) * k) \
-            if kind == "max_g" else (n, n)
+        chunks = (ck.BQ_MAX_G, ck.sa_fused_eval_max_g(ch, ch, two, k))
+        if kind == "max_g":
+            n_bq, n_sa = (m * k for m in chunks)
+        elif kind == "long":  # groups of 2 chunks + 5, the last 2 points short
+            n_bq, n_sa = (k * (2 * m + 5) - 2 for m in chunks)
+        else:
+            n_bq = n_sa = n
         for n_site, calls in ((n_bq, bq), (n_sa, sa)):
             pts = cloud(kind, b, n_site)
             pick = torch.randperm(n_site, generator=gen, device=device)[:c]
@@ -1142,13 +1260,109 @@ def knn_scatter_site(torch, ck, site, args):
     return shape, nbytes, ops, err, lib_ms, lambda *_: ck.knn_scatter_plain(pidx, pw, g, s)
 
 
+def check_site(torch, ck, name, site, args):
+    """Kernel vs plain at one call site of fps, sa_fused_eval,
+    knn_interpolate, pixel_max, ball_query, pixel_max_bwd or sa_train_bwd2:
+    selections exactly (the SA kernel's picks read back through probe
+    launches), values within the kernel's atol (pixel_max and its backward
+    exactly; sa_train_bwd2 as phase 11 holds it, `bwd2_dq_checks` and
+    `compare_sa_train_site`). Returns (shape, bytes, operations, max |diff|,
+    differing selections, library ms, pairs scored)."""
+    from stratanet2_tpu_torch.ops.ballquery import ball_query_grouped
+
+    kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
+    diff_sel, lib_ms, pairs = 0, None, 0.0
+    if name == "fps":
+        xyz, s, start = args
+        got, want = kernel(*args), plain(*args)
+        diff_sel = int((got != want).sum())
+        err = float((got - want).abs().max())
+        r, n, _ = xyz.shape
+        nbytes, ops = r * n * 12 + r * 4 + r * s * 4, 10.0 * (s - 1) * r * n
+        shape = f"rows={r} N={n} S={s} path={ck.fps_path(n)[0]}"
+    elif name == "sa_fused_eval":
+        q, xyz, cent, cterm, a1, c1, w2, b2, a2, c2, radius, k = args
+        got, want = kernel(*args), plain(*args)
+        err = float((got - want).abs().max())
+        check(err <= SA_ATOL, f"sa_fused_eval site {site}: max |diff| {err} > {SA_ATOL}")
+        pidx, pmask = sa_probe_picks(torch, ck, xyz, cent, radius, k)
+        ridx, rmask = ball_query_grouped(cent, xyz, radius, k)
+        diff_sel = int(((pmask != rmask) | (rmask & (pidx != ridx))).sum())
+        b, n, ch1 = q.shape
+        c, ch2 = cent.shape[1], got.shape[2]
+        valid = float(rmask.sum())
+        edge_ops = 4 * ch1 + (2 * ch1 * ch2 + 4 * ch2 if w2 is not None else 0) + ch2
+        nbytes = 4 * (b * n * (ch1 + 3) + b * c * (3 + ch1) + b * c * ch2)
+        ops = 10.0 * b * c * n + valid * edge_ops
+        g = -(-n // k)
+        chunk = ck.sel_chunk(g, ck.sa_fused_eval_max_g(ch1, ch2, w2 is not None, k))
+        shape = (f"B={b} N={n} C={c} K={k} C1={ch1} C2={ch2} valid_picks={int(valid)} "
+                 f"g={g} chunk={chunk}")
+        pairs = float(b * c * n)
+    elif name == "knn_interpolate":
+        x, ps, pt = args
+        (go, gi, gw), (wo, wi, ww) = kernel(*args), plain(*args)
+        diff_sel = int((gi != wi).sum())
+        err = max(float((go - wo).abs().max()), float((gw - ww).abs().max()))
+        check(err <= KNN_ATOL, f"knn site {site}: max |diff| {err} > {KNN_ATOL}")
+        b, s, f = x.shape
+        t = pt.shape[1]
+        nbytes = 4 * (b * s * (f + 3) + b * t * 3 + b * t * f + 2 * b * 3 * t)
+        ops = 11.0 * b * t * s + b * t * (5 * f + 12)
+        shape = f"B={b} S={s} T={t} F={f} slices={ck.knn_slices(b, t)}"
+        pairs = float(b * t * s)
+    elif name == "pixel_max":
+        shape, nbytes, ops, err, diff_sel, lib_ms = pixel_max_site(torch, ck, site, args)
+    elif name == "ball_query":
+        cent, pts, radius, k = args
+        (gi, gm), (wi, wm) = kernel(*args), plain(*args)
+        diff_sel = int(((gm != wm) | (wm & (gi != wi))).sum())
+        check(torch.equal(gi, wi) and torch.equal(gm, wm),
+              f"ball_query site {site}: idx/mask differ from the plain version")
+        err = 0.0
+        b, c, _ = cent.shape
+        n = pts.shape[1]
+        nbytes, ops = 12.0 * b * (c + n) + 5.0 * b * c * k, 10.0 * b * c * n
+        g = -(-n // k)
+        shape = (f"B={b} C={c} N={n} K={k} valid={int(wm.sum())} g={g} "
+                 f"chunk={ck.sel_chunk(g, ck.BQ_MAX_G)}")
+        pairs = float(b * c * n)
+    elif name == "sa_train_bwd2":
+        got, want = kernel(*args), plain(*args)
+        lib_ms, _ = bwd2_dq_checks(torch, ck, site, args, got)
+        shape, nbytes, ops, err = compare_sa_train_site(torch, ck, name, site, args, got, want)
+        q, _, idx = args[:3]
+        shape += f" dq_windows={ck.sa_train_dq_chunks(q.shape[1], idx.shape[1], idx.shape[2])}"
+    else:  # pixel_max_bwd
+        pix, amax, g = args
+        got, want = kernel(*args), plain(*args)
+        check(torch.equal(got, want), f"pixel_max_bwd site {site}: differs from plain")
+        err = float((got - want).abs().max())
+        b, p2, c = g.shape
+        n = pix.shape[1]
+        outside = (pix < 0) | (pix >= p2)
+        check(not bool(got[outside].any()),
+              f"pixel_max_bwd site {site}: a point outside the pixels has a gradient")
+        index = amax.clamp_min(0).long()
+        src = torch.where(amax >= 0, g, torch.zeros_like(g))
+        lib_ms = cuda_ms(torch, lambda: torch.zeros((b, n, c), device=g.device)
+                         .scatter_add_(1, index, src), 20)
+        lib = torch.zeros((b, n, c), device=g.device).scatter_add_(1, index, src)
+        check(torch.equal(lib, got), "scatter_add_ disagrees with pixel_max_bwd")
+        nbytes, ops = 4.0 * b * n + 8.0 * b * p2 * c + 4.0 * b * n * c, 0.0
+        shape = (f"B={b} P2={p2} C={c} N={n} winners={int((amax >= 0).sum())} "
+                 f"ids_out_of_range={int(outside.sum())} "
+                 f"empty_pixels={int((amax[..., 0] < 0).sum())}")
+    check(diff_sel == 0, f"{name} site {site}: {diff_sel} selections differ")
+    return shape, nbytes, ops, err, diff_sel, lib_ms, pairs
+
+
 def compare_kernels(torch, ck, captured):
     """Phase 4: every serve kernel against its plain version at each call
     site of the serve step, then at its reference sites. Returns the
     per-step rows and the rows of the reference sites."""
-    from stratanet2_tpu_torch.ops.ballquery import ball_query_grouped
-
-    NEG = ck.NEG
+    references = {"fps": FPS_REFERENCE, "sa_fused_eval": SEL_REFERENCE,
+                  "knn_interpolate": KNN_REFERENCE, "pixel_max": PIXEL_MAX_REFERENCE}
     rows, ref_rows = {}, {}
     for name, _src, _rep in SERVE_KERNELS:
         kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
@@ -1157,56 +1371,12 @@ def compare_kernels(torch, ck, captured):
         check(len(calls) == want_sites, f"{name}: expected {want_sites} call sites, saw {len(calls)}")
         agg, ref_agg = new_agg(), new_agg()
         for site, args in enumerate(calls):
-            diff_sel = 0
-            lib_ms = None
-            if name == "fps":
-                xyz, s, start = args
-                got, want = kernel(*args), plain(*args)
-                diff_sel = int((got != want).sum())
-                err = float((got - want).abs().max())
-                r, n, _ = xyz.shape
-                nbytes, ops = r * n * 12 + r * 4 + r * s * 4, 10.0 * (s - 1) * r * n
-                shape = f"rows={r} N={n} S={s}"
-                if site >= 2:
-                    shape += f" cloud={FPS_REFERENCE[site - 2][0]}"
-            elif name == "sa_fused_eval":
-                q, xyz, cent, cterm, a1, c1, w2, b2, a2, c2, radius, k = args
-                got, want = kernel(*args), plain(*args)
-                err = float((got - want).abs().max())
-                check(err <= SA_ATOL, f"sa_fused_eval site {site}: max |diff| {err} > {SA_ATOL}")
-                pidx, pmask = sa_probe_picks(torch, ck, xyz, cent, radius, k)
-                ridx, rmask = ball_query_grouped(cent, xyz, radius, k)
-                diff_sel = int(((pmask != rmask) | (rmask & (pidx != ridx))).sum())
-                b, n, ch1 = q.shape
-                c, ch2 = cent.shape[1], got.shape[2]
-                valid = float(rmask.sum())
-                edge_ops = 4 * ch1 + (2 * ch1 * ch2 + 4 * ch2 if w2 is not None else 0) + ch2
-                nbytes = 4 * (b * n * (ch1 + 3) + b * c * (3 + ch1) + b * c * ch2)
-                ops = 10.0 * b * c * n + valid * edge_ops
-                shape = f"B={b} N={n} C={c} K={k} C1={ch1} C2={ch2} valid_picks={int(valid)}"
-                if site >= 2:
-                    shape += f" cloud={SEL_REFERENCE[site - 2][0]}"
-                (ref_agg if site >= 2 else agg)["pairs"] += float(b * c * n)
-            elif name == "knn_interpolate":
-                x, ps, pt = args
-                (go, gi, gw), (wo, wi, ww) = kernel(*args), plain(*args)
-                diff_sel = int((gi != wi).sum())
-                err = max(float((go - wo).abs().max()), float((gw - ww).abs().max()))
-                check(err <= KNN_ATOL, f"knn site {site}: max |diff| {err} > {KNN_ATOL}")
-                b, s, f = x.shape
-                t = pt.shape[1]
-                nbytes = 4 * (b * s * (f + 3) + b * t * 3 + b * t * f + 2 * b * 3 * t)
-                ops = 11.0 * b * t * s + b * t * (5 * f + 12)
-                shape = f"B={b} S={s} T={t} F={f} slices={ck.knn_slices(b, t)}"
-                if site >= 2:
-                    shape += f" cloud={KNN_REFERENCE[site - 2][0]}"
-                (ref_agg if site >= 2 else agg)["pairs"] += float(b * t * s)
-            else:  # pixel_max
-                shape, nbytes, ops, err, diff_sel, lib_ms = pixel_max_site(torch, ck, site, args)
-                if site >= 2:
-                    shape += f" cloud={PIXEL_MAX_REFERENCE[site - 2][0]}"
-            check(diff_sel == 0, f"{name} site {site}: {diff_sel} selections differ")
+            shape, nbytes, ops, err, diff_sel, lib_ms, pairs = check_site(torch, ck, name, site,
+                                                                          args)
             reference = site >= 2
+            if reference:
+                shape += f" cloud={references[name][site - 2][0]}"
+            (ref_agg if reference else agg)["pairs"] += pairs
             report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
                         diff_sel, lib_ms, ref_agg if reference else agg, reference)
         rows[name] = finish_agg(agg)
@@ -1409,20 +1579,12 @@ def compare_train_kernels(torch, ck, captured):
         agg, ref_agg = new_agg(), new_agg()
         for site, args in enumerate(calls):
             diff_sel, lib_ms = 0, None
-            if name == "ball_query":
-                cent, pts, radius, k = args
-                (gi, gm), (wi, wm) = kernel(*args), plain(*args)
-                diff_sel = int(((gm != wm) | (wm & (gi != wi))).sum())
-                check(torch.equal(gi, wi) and torch.equal(gm, wm),
-                      f"ball_query site {site}: idx/mask differ from the plain version")
-                err = 0.0
-                b, c, _ = cent.shape
-                n = pts.shape[1]
-                nbytes, ops = 12.0 * b * (c + n) + 5.0 * b * c * k, 10.0 * b * c * n
-                shape = f"B={b} C={c} N={n} K={k} valid={int(wm.sum())}"
-                if site >= n_step:
+            if name in ("ball_query", "pixel_max_bwd"):
+                shape, nbytes, ops, err, diff_sel, lib_ms, pairs = check_site(torch, ck, name,
+                                                                              site, args)
+                if name == "ball_query" and site >= n_step:
                     shape += f" cloud={SEL_REFERENCE[site - n_step][0]}"
-                (ref_agg if site >= n_step else agg)["pairs"] += float(b * c * n)
+                (ref_agg if site >= n_step else agg)["pairs"] += pairs
             elif name == "knn_scatter":
                 shape, nbytes, ops, err, lib_ms, plain = knn_scatter_site(torch, ck, site, args)
                 ref = site - n_step - PHASE10_SITES[name]
@@ -1440,26 +1602,6 @@ def compare_train_kernels(torch, ck, captured):
                 b, c, k = args[2].shape
                 if site < n_step:
                     agg["sites"].append((args[0].shape[2], b * c, k))
-            else:  # pixel_max_bwd
-                pix, amax, g = args
-                got, want = kernel(*args), plain(*args)
-                check(torch.equal(got, want), f"pixel_max_bwd site {site}: differs from plain")
-                err = float((got - want).abs().max())
-                b, p2, c = g.shape
-                n = pix.shape[1]
-                outside = (pix < 0) | (pix >= p2)
-                check(not bool(got[outside].any()),
-                      f"pixel_max_bwd site {site}: a point outside the pixels has a gradient")
-                index = amax.clamp_min(0).long()
-                src = torch.where(amax >= 0, g, torch.zeros_like(g))
-                lib_ms = cuda_ms(torch, lambda: torch.zeros((b, n, c), device=g.device)
-                                 .scatter_add_(1, index, src), 20)
-                lib = torch.zeros((b, n, c), device=g.device).scatter_add_(1, index, src)
-                check(torch.equal(lib, got), "scatter_add_ disagrees with pixel_max_bwd")
-                nbytes, ops = 4.0 * b * n + 8.0 * b * p2 * c + 4.0 * b * n * c, 0.0
-                shape = (f"B={b} P2={p2} C={c} N={n} winners={int((amax >= 0).sum())} "
-                         f"ids_out_of_range={int(outside.sum())} "
-                         f"empty_pixels={int((amax[..., 0] < 0).sum())}")
             reference = site >= n_step
             report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
                         diff_sel, lib_ms, ref_agg if reference else agg, reference)
@@ -1489,42 +1631,49 @@ def pixel_max_bwd_reference_call(torch, ck, device, b, n, n_pix):
 def sa_train_reference_calls(torch, ck, device):
     """The arguments of the SA train passes at the SA_TRAIN_REFERENCE sites,
     drawn from a seed, as {pass: [args]}: the stats and bwd1 passes at the
-    two-layer site only. The per-channel BN terms (`sa_aff`; the scales a1,
-    gos and inv_s around 1) and W2 are drawn too; the backward passes take
-    the plain main pass's winners (amax) and random cotangents."""
+    two-layer site only."""
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    calls = {name: [] for name in SA_TRAIN}
+    for site in SA_TRAIN_REFERENCE:
+        bwd = sa_train_site_args(torch, ck, gen, device, *site)
+        calls["sa_train_main"].append(bwd[:6])
+        calls["sa_train_bwd2"].append(bwd)
+        if bwd[5] is not None:  # two layers
+            calls["sa_train_stats"].append(bwd[:5])
+            calls["sa_train_bwd1"].append(bwd)
+    return calls
 
+
+def sa_train_site_args(torch, ck, gen, device, b, n, c, k, ch):
+    """One SA train reference site's arguments of sa_train_bwd2 (q, cterm,
+    idx, mask, aff, w2, awin, gt), drawn from `gen` as the comment of
+    SA_TRAIN_REFERENCE says (the main pass takes the first six, the stats
+    pass the first five). The per-channel BN terms (`sa_aff`; the scales
+    a1, gos and inv_s around 1) and W2 are drawn too; the backward passes
+    take the plain main pass's winners (awin) and random cotangents."""
     def draw(*shape, scale=1.0, shift=0.0):
         return torch.randn(shape, generator=gen, device=device) * scale + shift
 
     def ints(lo, hi, *shape):
         return torch.randint(lo, hi, shape, generator=gen, device=device).float()
 
-    calls = {name: [] for name in SA_TRAIN}
-    for b, n, c, k, ch in SA_TRAIN_REFERENCE:
-        two = ch == 16
-        q = ints(-2, 3, 8, ch)[torch.randint(0, 8, (b, n), generator=gen, device=device)]
-        cterm = ints(-1, 2, b, c, ch)
-        g = -(-n // k)
-        lo = torch.arange(k, device=device) * g
-        size = (n - lo).clamp(0, g)  # the groups' points
-        pick = (torch.rand((b, c, k), generator=gen, device=device) * size).long()
-        idx = torch.where(size > 0, lo + pick, 0).int()
-        mask = (torch.rand((b, c, k), generator=gen, device=device) < 0.6) & (size > 0)
-        mask.view(b * c, k)[::5] = False
-        positive = ("a1", "gos2", "inv_s2", "inv_s1", "gos1")
-        aff = ck.sa_aff(ch, **{row: (draw(ch, scale=0.25, shift=1.0) if row in positive
-                                     else draw(ch, scale=0.1))
-                               for row in ck.SA_AFF_ROWS}).contiguous()
-        w2 = draw(ch, ch, scale=0.25) if two else None
-        amax = ck.sa_train_main_plain(q, cterm, idx, mask, aff, w2)[4]
-        bwd = (q, cterm, idx, mask, aff, w2, amax, draw(b, c, ch))
-        calls["sa_train_main"].append(bwd[:6])
-        calls["sa_train_bwd2"].append(bwd)
-        if two:
-            calls["sa_train_stats"].append(bwd[:5])
-            calls["sa_train_bwd1"].append(bwd)
-    return calls
+    two = ch == 16
+    q = ints(-2, 3, 8, ch)[torch.randint(0, 8, (b, n), generator=gen, device=device)]
+    cterm = ints(-1, 2, b, c, ch)
+    g = -(-n // k)
+    lo = torch.arange(k, device=device) * g
+    size = (n - lo).clamp(0, g)  # the groups' points
+    pick = (torch.rand((b, c, k), generator=gen, device=device) * size).long()
+    idx = torch.where(size > 0, lo + pick, 0).int()
+    mask = (torch.rand((b, c, k), generator=gen, device=device) < 0.6) & (size > 0)
+    mask.view(b * c, k)[::5] = False
+    positive = ("a1", "gos2", "inv_s2", "inv_s1", "gos1")
+    aff = ck.sa_aff(ch, **{row: (draw(ch, scale=0.25, shift=1.0) if row in positive
+                                 else draw(ch, scale=0.1))
+                           for row in ck.SA_AFF_ROWS}).contiguous()
+    w2 = draw(ch, ch, scale=0.25) if two else None
+    awin = ck.sa_train_main_plain(q, cterm, idx, mask, aff, w2)[4]
+    return q, cterm, idx, mask, aff, w2, awin, draw(b, c, ch)
 
 
 def launch_path(torch, ck, args, pm_args):
@@ -1574,17 +1723,43 @@ def launch_path(torch, ck, args, pm_args):
     }), flush=True)
 
 
-def profile_step(torch, step, args, step_ms, label, launches):
+def profile_mismatches(kernels, launches):
+    """The wrappers whose device kernels show in `kernels` ((ms, calls,
+    name) a step) other than exactly when `launches` expects them to
+    launch, each as a message."""
+    out = []
+    for name, count in launches.items():
+        calls = sum(c for _, c, key in kernels
+                    if key.removeprefix("void ").startswith(DEVICE_KERNELS[name]))
+        if (calls > 0) != (count > 0):
+            out.append(f"the profiler saw {calls} device kernels of {name} per step, "
+                       f"expected {count} launches")
+    return out
+
+
+def profile_step(torch, step, args, step_ms, label, launches, steps=None, strict=True,
+                 warmup=0):
     """Phases 7 and 14: device time per step, by kernel and by every
-    wrapper; a wrapper's device kernels must show up exactly when
-    `launches` expects it to launch in the step."""
+    wrapper; with `strict`, a wrapper's device kernels must show up exactly
+    when `launches` expects it to launch in the step. With `warmup`, that
+    many steps run first under the profiler's warm-up (traced, then
+    dropped): late in a long run on an H100 the first tens of ms of a trace
+    lost their kernels' records. Returns the device kernels as (ms a step,
+    calls a step, name)."""
+    steps = PROFILE_STEPS if steps is None else steps
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(PROFILE_STEPS):
+    schedule = (torch.profiler.schedule(wait=0, warmup=warmup, active=steps, repeat=1)
+                if warmup else None)
+    with torch.profiler.profile(activities=activities, schedule=schedule) as prof:
+        for _ in range(warmup):
+            step(*args)
+            torch.cuda.synchronize()
+            prof.step()
+        for _ in range(steps):
             step(*args)
         torch.cuda.synchronize()
     kernels = sorted(  # user annotations (Adam's "Optimizer.step") span kernels: skipped
-        ((e.self_device_time_total / 1e3 / PROFILE_STEPS, e.count / PROFILE_STEPS, e.key)
+        ((e.self_device_time_total / 1e3 / steps, e.count / steps, e.key)
          for e in prof.key_averages()
          if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
          and not getattr(e, "is_user_annotation", False)),
@@ -1599,13 +1774,11 @@ def profile_step(torch, step, args, step_ms, label, launches):
             if key.removeprefix("void ").startswith(prefixes):
                 port[name][0] += ms
                 port[name][1] += calls
-    for name, (ms, calls) in port.items():
-        check((calls > 0) == (launches[name] > 0),
-              f"the profiler saw {calls} device kernels of {name} per step, "
-              f"expected {launches[name]} launches")
+    for msg in profile_mismatches(kernels, launches) if strict else ():
+        check(False, msg)
     port_ms = sum(ms for ms, _ in port.values())
     print(json.dumps({
-        "phase": label, "steps": PROFILE_STEPS, "step_ms": step_ms,
+        "phase": label, "steps": steps, "step_ms": step_ms,
         "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / step_ms,
         # blocking copies from pageable host memory drain the stream
         "htod_copies": sum(c for _, c, key in kernels if key.startswith("Memcpy HtoD")),
@@ -1615,12 +1788,14 @@ def profile_step(torch, step, args, step_ms, label, launches):
         "device_kernels": [{"kernel": key[:90], "ms": ms, "calls": calls}
                            for ms, calls, key in kernels],
     }), flush=True)
+    return kernels
 
 
-def timed_steps(torch, fn):
-    """Median and all host-clock times (ms) of STEPS synchronised calls."""
+def timed_steps(torch, fn, steps=None):
+    """Median and all host-clock times (ms) of `steps` (STEPS) synchronised
+    calls."""
     times = []
-    for _ in range(STEPS):
+    for _ in range(STEPS if steps is None else steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -1705,9 +1880,10 @@ def serve_phases(torch, ck, cfg, device, card):
     return rows, ref_rows, launches
 
 
-def compare_train_with_cpu(torch, cfg, model, kde, cloud, xyz, gt):
-    """Phase 15: one train step at B=2 on the card and on the CPU from the
-    same weights and batch."""
+def compare_train_with_cpu(torch, cfg, model, kde, cloud, xyz, gt,
+                           label="train_cpu_reference_B2"):
+    """Phase 15: one train step at B=2 (at most) on the card and on the CPU
+    from the same weights and batch."""
     from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
 
     sides = {}
@@ -1739,7 +1915,7 @@ def compare_train_with_cpu(torch, cfg, model, kde, cloud, xyz, gt):
         slack = diff - 1.2e-7 * cpu["params"][k].abs()
         param_sure = max(param_sure, float(slack[sure].max()) if bool(sure.any()) else 0.0)
         param_all = max(param_all, float(diff.max()))
-    print(json.dumps({"phase": "train_cpu_reference_B2", "loss_max_abs_diff": loss_err,
+    print(json.dumps({"phase": label, "loss_max_abs_diff": loss_err,
                       "grad_max_rel_diff": grad_rel, "bn_state_max_abs_diff": state_err,
                       "param_max_abs_diff_where_sure": param_sure,
                       "param_max_abs_diff": param_all, "loss_atol": TRAIN_LOSS_ATOL,
@@ -3393,8 +3569,9 @@ def train_phases(torch, ck, cfg, device, card):
     captured["ball_query"] += selection_reference_calls(torch, ck, device)[0]
     captured["knn_scatter"] += knn_scatter_reference_calls(torch, device)
     step_bwd = captured["pixel_max_bwd"][0]
-    captured["pixel_max_bwd"].append(
-        pixel_max_bwd_reference_call(torch, ck, device, b, n, cfg.model.diam_pix ** 2))
+    for n_pix in (cfg.model.diam_pix ** 2, DENSE["diam_pix"] ** 2):  # PROD's table, the dense one
+        captured["pixel_max_bwd"].append(
+            pixel_max_bwd_reference_call(torch, ck, device, b, n, n_pix))
     step_pm = captured.pop("pixel_max")
     check(len(step_pm) == TRAIN_LAUNCHES["pixel_max"],
           f"pixel_max: expected {TRAIN_LAUNCHES['pixel_max']} train-step sites, saw {len(step_pm)}")
@@ -3441,6 +3618,250 @@ def train_phases(torch, ck, cfg, device, card):
     prepared, fed_ms = loader_steps(torch, ck, cfg, device, card)
     train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms)
     return rows, ref_rows, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15h: dense plots
+# ---------------------------------------------------------------------------
+
+
+def dense_path_sites(ck, serve_calls, train_calls):
+    """The call sites of the long-shape paths in the dense steps, as
+    {path: [(step, wrapper, args)]}: the SA1 FPS rows (the cluster), SA1's
+    selection in the SA eval kernel (serve) and the ball query (train),
+    both chunked, and every pixel max (two pixel ranges); then the pixel-max
+    backward at the dense table, which has no table to outgrow. The global
+    FPS path and the dq windows, which the dense steps do not reach, get
+    their reference sites in `dense_phase`."""
+    def sa_max_g(a):  # (q, xyz, centroids, cterm, a1, c1, w2, b2, a2, c2, radius, k)
+        ch1, w2 = a[0].shape[2], a[6]
+        return ck.sa_fused_eval_max_g(ch1, ch1 if w2 is None else w2.shape[1], w2 is not None,
+                                      a[11])
+
+    sites = {path: [] for path in ck.PATHS if path not in ("fps_global", "sa_train_dq_chunked")}
+    for step, calls in (("serve", serve_calls), ("train", train_calls)):
+        for args in calls["fps"]:
+            if ck.fps_path(args[0].shape[1])[0] == "cluster":
+                sites["fps_cluster"].append((step, "fps", args))
+        for name, path, max_g in (("sa_fused_eval", "sa_fused_eval_chunked", sa_max_g),
+                                  ("ball_query", "ball_query_chunked", lambda a: ck.BQ_MAX_G)):
+            for args in calls[name]:  # xyz or points second, k last
+                g = -(-args[1].shape[1] // args[-1])
+                if ck.sel_chunk(g, max_g(args)) < g:
+                    sites[path].append((step, name, args))
+        for args in calls["pixel_max"]:
+            if ck.pixel_max_range(args[2], args[1].shape[2]) < args[2]:
+                sites["pixel_max_ranges"].append((step, "pixel_max", args))
+    sites["pixel_max_bwd"] = [("train", "pixel_max_bwd", a) for a in train_calls["pixel_max_bwd"]]
+    return sites
+
+
+def dense_phase(torch, ck, cfg, device, card, small=None):
+    """Phase 15h: the serve and train steps on dense plots (DENSE: B=20 x
+    N=65536 at diam_pix 100, the default plan), which cross every limit of
+    the PROD kernels at once: counted launches a step by wrapper
+    (SERVE_LAUNCHES, TRAIN_LAUNCHES) and by long-shape path
+    (DENSE_SERVE_PATHS, DENSE_TRAIN_PATHS), outputs finite, coverages in
+    [0, 1], loss parts finite and every parameter changed; each path's call
+    sites kernel vs plain (`check_site`, 0 differing picks and entries)
+    with their times; the global FPS path at FPS_REFERENCE's last site and
+    sa_train_bwd2's dq windows at DQ_REFERENCE; the median of DENSE_STEPS
+    steps and one profiled step of each, in which each path's kernel shows
+    by name exactly when it launched; sa_train_bwd2's edge buffer; and B=1 on
+    the card against the port on the CPU, serve within CPU_ATOL and train
+    within phase 15's bounds; then a train step past the dq pass's one
+    window (`dense_dq_step`). `small` ({"B": ..., "model": {ModelConfig
+    overrides}, "dq_N": ...}, the CPU test's) runs it at another size.
+    Returns the dense_kernels rows."""
+    from dataclasses import replace
+
+    from stratanet2_tpu_torch.learning.train import make_optimizer
+
+    t0 = time.perf_counter()
+    seconds = {}
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks go back to the card
+    dcfg = replace(cfg, model=replace(cfg.model, **(DENSE if small is None else small["model"])))
+    if small is not None:
+        dcfg = replace(dcfg, train=replace(dcfg.train, batch_size=small["B"]))
+    st = optin_setup(torch, dcfg, device, {})
+    b, n = dcfg.train.batch_size, dcfg.model.subsample_size
+    model, cloud, xyz, batch = st["model"], st["cloud"], st["xyz"], st["batch"]
+
+    def train_state():
+        m = copy.deepcopy(st["train_model"])
+        opt, sched = make_optimizer(dcfg, m, STEPS_PER_EPOCH)
+        return m, opt, sched
+
+    names = ["fps", "sa_fused_eval", "pixel_max", "ball_query", "pixel_max_bwd", "sa_train_bwd2"]
+    serve_calls = capture_calls(ck, names, lambda: st["serve"](model, cloud, xyz))
+    m, opt, sched = train_state()
+    train_calls = capture_calls(ck, names, lambda: st["train"](m, opt, sched, *batch))
+    torch.cuda.synchronize()
+
+    ck.reset_launches()
+    rasters, pred_pl = st["serve"](model, cloud, xyz)
+    torch.cuda.synchronize()
+    check_launches(ck.launch_counts(), SERVE_LAUNCHES, "dense_serve_step")
+    paths = {"serve": ck.path_launch_counts()}
+    check_launches(paths["serve"], DENSE_SERVE_PATHS, "dense_serve_step_paths")
+    check_serve_outputs("dense serve step", dcfg, rasters, pred_pl, b)
+    m, opt, sched = train_state()
+    before = {k: v.detach().clone() for k, v in m.named_parameters()}
+    ck.reset_launches()
+    comps = st["train"](m, opt, sched, *batch)
+    torch.cuda.synchronize()
+    check_launches(ck.launch_counts(), TRAIN_LAUNCHES, "dense_train_step")
+    paths["train"] = {**ck.path_launch_counts(),
+                      "pixel_max_bwd": ck.launch_counts()["pixel_max_bwd"]}
+    check_launches(paths["train"], DENSE_TRAIN_PATHS, "dense_train_step_paths")
+    for part, value in comps.items():
+        check(bool(torch.isfinite(value)), f"dense train loss part {part} is not finite")
+    for name, prm in m.named_parameters():
+        check(prm.grad is not None and bool(torch.isfinite(prm.grad).all()),
+              f"dense train step: gradient of {name} missing or not finite")
+        check(not torch.equal(prm.detach(), before[name]),
+              f"dense train step: {name} did not change")
+
+    seconds["steps"] = time.perf_counter() - t0
+    # each long-shape path against its plain version at the steps' sites,
+    # the global FPS path at its reference site
+    sites = dense_path_sites(ck, serve_calls, train_calls)
+    _, rows_g, n_g, s_g = FPS_REFERENCE[-1]
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    u = torch.rand((rows_g, n_g, 3), generator=gen, device=device)
+    sites["fps_global"] = [("reference", "fps", (torch.cat([u[..., :2] * 20 - 10, u[..., 2:] * 3],
+                                                          -1), s_g,
+                                                torch.zeros(rows_g, dtype=torch.int32,
+                                                            device=device)))]
+    sites["sa_train_dq_chunked"] = [("reference", "sa_train_bwd2",
+                                     sa_train_site_args(torch, ck, gen, device, *DQ_REFERENCE))]
+    rows = {}
+    with torch.no_grad():
+        for path, path_sites in sites.items():
+            check(len(path_sites) > 0, f"dense phase: no call site of {path}")
+            agg = new_agg()
+            # a row is a step's: the serve step's sites, or the train step's
+            # for the paths that only it runs (both run FPS and pixel_max:
+            # their train sites are held to the plain versions too)
+            counted = "train" if path in ("ball_query_chunked", "pixel_max_bwd") else "serve"
+            for i, (step, name, args) in enumerate(path_sites):
+                shape, nbytes, ops, err, diff_sel, lib_ms, pairs = check_site(
+                    torch, ck, name, f"dense {path} {i}", args)
+                print(json.dumps({"kernel": name, "site": f"dense {step} {path} {i}",
+                                  "shape": shape, "max_abs_diff": err,
+                                  "differing_selections": diff_sel}), flush=True)
+                if step not in (counted, "reference"):
+                    continue  # held to the plain version; its time is the other step's
+                agg["pairs"] += pairs
+                report_site(torch, name, f"dense {step} {path} {i}", shape, getattr(ck, name),
+                            getattr(ck, f"{name}_plain"), args, nbytes, ops, err, diff_sel,
+                            lib_ms, agg, reference=step == "reference", plain_reps=1)
+            rows[path] = finish_agg(agg)
+    fps_sites = [a for _, _, a in sites["fps_cluster"][:1] + sites["fps_global"]]
+    rows["fps_cluster"]["per_pick_us"], rows["fps_global"]["per_pick_us"] = (
+        cuda_ms(torch, lambda a=a: ck.fps(*a), 5) / (a[1] - 1) * 1e3 for a in fps_sites)
+    del serve_calls, sites
+
+    edges = [(4.0 * a[2].numel() * a[0].shape[2], 4.0 * float(a[3].sum()) * a[0].shape[2])
+             for a in train_calls["sa_train_bwd2"]]
+    del train_calls
+    seconds["sites"] = time.perf_counter() - t0 - sum(seconds.values())
+    serve_ms, serve_all = timed_steps(torch, lambda: st["serve"](model, cloud, xyz), DENSE_STEPS)
+    m, opt, sched = train_state()
+    train_ms, train_all = timed_steps(torch, lambda: st["train"](m, opt, sched, *batch),
+                                      DENSE_STEPS)
+    profiles, attempts = {}, {}
+    for step, fn, args, ms, launches in (
+            ("serve", st["serve"], (model, cloud, xyz), serve_ms, SERVE_LAUNCHES),
+            ("train", st["train"], (m, opt, sched, *batch), train_ms, TRAIN_LAUNCHES)):
+        # one step traced after one warm-up step; taken again, PROFILE_TRIES
+        # times at most, while a launched wrapper or path shows no kernel
+        for attempts[step] in range(1, PROFILE_TRIES + 1):
+            kernels = profile_step(torch, fn, args, ms, f"dense_{step}_profile", launches,
+                                   steps=1, strict=False, warmup=1)
+            missing = profile_mismatches(kernels, launches) + [
+                path for path, want in paths[step].items()
+                if want and not any(key.removeprefix("void ").startswith(DENSE_KERNELS[path])
+                                    for _, _, key in kernels)]
+            if not missing:
+                break
+        for msg in profile_mismatches(kernels, launches):
+            check(False, f"dense {step} step: {msg}")
+        profiles[step] = kernels
+    for path, row in rows.items():
+        row["launches"] = {step: paths[step].get(path, 0) for step in paths}
+        row["device_ms"] = {}
+        for step, kernels in profiles.items():  # a kernel shows by name exactly when launched
+            hit = [ms for ms, _, key in kernels
+                   if key.removeprefix("void ").startswith(DENSE_KERNELS[path])]
+            check(bool(hit) == (row["launches"][step] > 0),
+                  f"dense {step} profile: {len(hit)} kernels named {DENSE_KERNELS[path]}, "
+                  f"{row['launches'][step]} launches of {path}")
+            row["device_ms"][step] = sum(hit)
+    seconds["timing"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    serve_err = serve_vs_cpu(torch, dcfg, model, cloud[:1], xyz[:1])
+    seconds["serve_cpu_B1"] = time.perf_counter() - t0 - sum(seconds.values())
+    print(json.dumps({"phase": "dense", "B": b, "N": n, "diam_pix": dcfg.model.diam_pix,
+                      "serve_step_ms_median": serve_ms, "serve_step_ms_all": serve_all,
+                      "train_step_ms_median": train_ms, "train_step_ms_all": train_all,
+                      "points_per_s_serve": b * n / (serve_ms / 1e3),
+                      "points_per_s_train": b * n / (train_ms / 1e3),
+                      "device_busy_ms": {k: sum(ms for ms, _, _ in v)
+                                         for k, v in profiles.items()},
+                      "profile_attempts": attempts,
+                      "sa_train_bwd2_edge_buffer_bytes": sum(w + r for w, r in edges),
+                      "sa_train_bwd2_edge_buffer_allocated_bytes": sum(w for w, _ in edges),
+                      "serve_cpu_B1_max_abs_diff": serve_err, "atol": CPU_ATOL,
+                      "loss_parts": {k: float(v) for k, v in comps.items()},
+                      "seconds_so_far": seconds, "card": card}), flush=True)
+    check(serve_err <= CPU_ATOL, f"dense serve step at B=1: card vs CPU differ by {serve_err}")
+    compare_train_with_cpu(torch, dcfg, st["train_model"], st["kde"], *(t[:1] for t in batch),
+                           label="dense_train_cpu_reference_B1")
+    del st, model, cloud, xyz, batch, m, opt, sched
+    torch.cuda.empty_cache()  # the dense steps' blocks go back before the next phases
+    dense_dq_step(torch, ck, dcfg, device, card,
+                  DENSE_DQ_N if small is None else small["dq_N"])
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "dense_seconds", "seconds": time.perf_counter() - t0}), flush=True)
+    return rows
+
+
+def dense_dq_step(torch, ck, dcfg, device, card, n):
+    """Phase 15h's last part: the train step of dcfg at subsample_size n
+    (DENSE_DQ_N: past what sa_train_bwd2's dq pass holds in one window):
+    counted launches by wrapper (TRAIN_LAUNCHES) and by path
+    (DENSE_DQ_TRAIN_PATHS), loss parts and gradients finite, every
+    parameter changed, and the median of DENSE_DQ_STEPS steps."""
+    from dataclasses import replace
+
+    from stratanet2_tpu_torch.learning.train import make_optimizer
+
+    qcfg = replace(dcfg, model=replace(dcfg.model, subsample_size=n))
+    st = optin_setup(torch, qcfg, device, {})
+    m = copy.deepcopy(st["train_model"])
+    opt, sched = make_optimizer(qcfg, m, STEPS_PER_EPOCH)
+    before = {k: v.detach().clone() for k, v in m.named_parameters()}
+    ck.reset_launches()
+    comps = st["train"](m, opt, sched, *st["batch"])
+    torch.cuda.synchronize()
+    check_launches(ck.launch_counts(), TRAIN_LAUNCHES, "dense_dq_train_step")
+    check_launches(ck.path_launch_counts(), DENSE_DQ_TRAIN_PATHS, "dense_dq_train_step_paths")
+    for part, value in comps.items():
+        check(bool(torch.isfinite(value)), f"dense dq train loss part {part} is not finite")
+    for name, prm in m.named_parameters():
+        check(prm.grad is not None and bool(torch.isfinite(prm.grad).all()),
+              f"dense dq train step: gradient of {name} missing or not finite")
+        check(not torch.equal(prm.detach(), before[name]),
+              f"dense dq train step: {name} did not change")
+    ms, every = timed_steps(torch, lambda: st["train"](m, opt, sched, *st["batch"]),
+                            DENSE_DQ_STEPS)
+    b = qcfg.train.batch_size
+    print(json.dumps({"phase": "dense_dq_train", "B": b, "N": n,
+                      "diam_pix": qcfg.model.diam_pix, "train_step_ms_median": ms,
+                      "train_step_ms_all": every, "points_per_s_train": b * n / (ms / 1e3),
+                      "loss_parts": {k: float(v) for k, v in comps.items()}, "card": card}),
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3986,6 +4407,7 @@ def main() -> int:
     cfg = default_config()
     serve_rows, serve_ref_rows, serve_launches = serve_phases(torch, ck, cfg, device, card)
     train_rows, ref_rows, train_launches = train_phases(torch, ck, cfg, device, card)
+    dense_rows = dense_phase(torch, ck, cfg, device, card)
     parcel_phase(torch, ck, cfg, device, card)
     results = cli_phase(torch, ck, card)
     parallel_phase(torch, ck, card)
@@ -3997,6 +4419,12 @@ def main() -> int:
 
     print(json.dumps({"reference_sites": [
         {"name": name, "sites": sites, **ref_rows[name]} for name, sites in REFERENCE_SITES.items()
+    ]}), flush=True)
+    sources = {name: src for name, src, _ in SERVE_KERNELS + TRAIN_KERNELS}
+    print(json.dumps({"dense_kernels": [
+        {"path": path, "wrapper": DENSE_WRAPPERS[path], "route": "cuda",
+         "source": sources[DENSE_WRAPPERS[path]], "kernel": DENSE_KERNELS[path], **row}
+        for path, row in dense_rows.items()
     ]}), flush=True)
     entries = [(k, serve_rows, serve_launches) for k in SERVE_KERNELS]
     entries += [(k, train_rows, train_launches) for k in TRAIN_KERNELS]

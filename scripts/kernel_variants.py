@@ -38,8 +38,12 @@ copy, to run them in turns:
         stratanet2_tpu_torch/ops/csrc/ball_query_nearest.cu \
         stratanet2_tpu_torch/ops/csrc/ball_query_nearest.cu@kNearBuf=32
 
+fps runs the long rows' designs (see `run_fps`):
+
+    python3 scripts/kernel_variants.py fps scripts/variants/fps_one_block.cu
+
 Kernels: knn_interpolate, sa_train_stats, sa_train_main, sa_train_bwd1, sa_train_bwd2,
-knn_scatter, pixel_max, ball_query_nearest.
+knn_scatter, pixel_max, ball_query_nearest, fps.
 
 Builds go to the git-ignored build/variants/. Exits non-zero without a card.
 """
@@ -308,12 +312,16 @@ def run_bwd2(torch, ck, libs, gen, device):
         want_de = ck.sa_train_edges(*args)["de0"].reshape(b, c * k, ch)
         grid = ck.sa_grid(b, c, ch)
         for src, lib in libs.items():
-            fn = entry(lib, "sa_train_bwd2_launch", 11, 7)
+            # a source whose dq pass takes windows (gp, cc) gets the wrapper's
+            windows = re.search(r"sa_train_bwd2_launch\([^)]*int gp, int cc",
+                                source_file(src).read_text()) is not None
+            fn = entry(lib, "sa_train_bwd2_launch", 11, 9 if windows else 7)
             de = torch.empty((b, c * k, ch), device=device)
             dq = torch.empty((b, n, ch), device=device)
             dct = torch.empty((b, c, ch), device=device)
             cargs = ptrs(args) + [de.data_ptr(), dq.data_ptr(), dct.data_ptr(), grid, b, n, c,
-                                  k, ch, int(ch == 16), stream]
+                                  k, ch, int(ch == 16),
+                                  *(ck.sa_train_dq_chunks(n, c, k) if windows else ()), stream]
             rc = fn(*cargs)
             torch.cuda.synchronize()
             first = dq.clone()
@@ -401,14 +409,16 @@ def run_pixel_max(torch, ck, libs, gen, device_):
     vals = torch.rand((b, n, c), generator=gen, device=device_)
     want_v, want_a = ck.pixel_max_plain(pix, vals, p * p)
     for src, lib in libs.items():
-        keys = re.search(r"pixel_max_launch\([^)]*keys", source_file(src).read_text()) is not None
-        fn = entry(lib, "pixel_max_launch", 5 if keys else 4, 4)
+        text = source_file(src).read_text()
+        keys = re.search(r"pixel_max_launch\([^)]*keys", text) is not None
+        ranged = re.search(r"pixel_max_launch\([^)]*int per", text) is not None  # one range here
+        fn = entry(lib, "pixel_max_launch", 5 if keys else 4, 5 if ranged else 4)
         vmax = torch.empty((b, p * p, c), device=device_)
         amax = torch.empty((b, p * p, c), dtype=torch.int32, device=device_)
         scratch = [torch.empty((b, p * p, c), dtype=torch.int64, device=device_).data_ptr()] \
             if keys else []
         cargs = [pix.data_ptr(), vals.data_ptr(), *scratch, vmax.data_ptr(), amax.data_ptr(),
-                 b, n, p * p, c, stream]
+                 b, n, p * p, c, *([p * p] if ranged else []), stream]
         rc = fn(*cargs)
         torch.cuda.synchronize()
         print(json.dumps({
@@ -481,9 +491,54 @@ def run_ball_query_nearest(torch, ck, libs, gen, device_):
             }), flush=True)
 
 
+def run_fps(torch, ck, libs, gen, device_):
+    """FPS's long rows: each FPS entry a source's library exports, the
+    cluster path's `fps_cluster_launch` (cs from `cuda_kernels.fps_path`,
+    the running-minima scratch past its shared memory) and a variant's
+    `fps_stream_launch` (scripts/variants/fps_one_block.cu: one block a
+    row, the points past shared memory read from L2), in turns (cluster,
+    stream, stream, cluster), at the dense serve step's SA1 parts (40 rows
+    of 32,768 points, 8,192 picks) and at a row past the cluster's shared
+    memory (1 x 200,000, 1,024 picks), synthetic 20 m plots: differing
+    picks against the plain version and the CUDA-event ms of a launch
+    (mean of REPS) and us a pick."""
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    for site, rows, n, s in (("dense_SA1_parts", 40, 32768, 8192), ("global", 1, 200000, 1024)):
+        xyz = plot_clouds(torch, gen, rows, n, device_)
+        start = torch.randint(0, n, (rows,), generator=gen, device=device_, dtype=torch.int32)
+        want = ck.fps_plain(xyz, s, start)
+        _, cs = ck.fps_path(n)
+        md = torch.empty((rows, n), device=device_)
+        for src, lib in libs.items():
+            fns = {}
+            if hasattr(lib, "fps_cluster_launch"):
+                fn = entry(lib, "fps_cluster_launch", 4, 4)
+                glob = ck.fps_path(n)[0] == "global"
+                fns["cluster"] = (fn, lambda out, fn=fn, glob=glob: fn(
+                    xyz.data_ptr(), start.data_ptr(), out.data_ptr(),
+                    md.data_ptr() if glob else None, rows, n, s, cs, stream))
+            if hasattr(lib, "fps_stream_launch"):
+                fn = entry(lib, "fps_stream_launch", 4, 3)
+                fns["stream"] = (fn, lambda out, fn=fn: fn(
+                    xyz.data_ptr(), start.data_ptr(), out.data_ptr(), md.data_ptr(), rows, n, s,
+                    stream))
+            order = list(fns) + list(fns)[::-1]
+            for design in order:
+                out = torch.empty((rows, s), dtype=torch.int32, device=device_)
+                rc = fns[design][1](out)
+                torch.cuda.synchronize()
+                ms = event_ms(torch, lambda: fns[design][1](out))
+                print(json.dumps({
+                    "source": src, "kernel": "fps", "design": design, "site": site, "rc": rc,
+                    "shape": [rows, n, s], "cs": cs if design == "cluster" else 1,
+                    "differing": int((out != want).sum()), "ms": ms,
+                    "us_a_pick": ms / (s - 1) * 1e3,
+                }), flush=True)
+
+
 RUNS = {"knn_interpolate": run_knn, "sa_train_stats": run_stats, "sa_train_main": run_main, "sa_train_bwd1": run_bwd1,
         "sa_train_bwd2": run_bwd2, "knn_scatter": run_knn_scatter, "pixel_max": run_pixel_max,
-        "ball_query_nearest": run_ball_query_nearest}
+        "ball_query_nearest": run_ball_query_nearest, "fps": run_fps}
 
 
 def main() -> int:

@@ -34,10 +34,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from stratanet2_tpu_torch.ops.distance import expanded_d2, sq_norm3
+from stratanet2_tpu_torch.ops.distance import expanded_d2, sq_norm3, tile_rows
 
 _BIG = 1e30
-_CHUNK = 256  # centroids per (B, chunk, N) distance tile
+_CHUNK = 256  # centroids per (B, chunk, N) distance tile on the card
 
 
 def radius_sq(radius: float) -> float:
@@ -60,9 +60,10 @@ def ball_query_grouped(
     r2 = radius_sq(radius)
     pts_sq = sq_norm3(points)
     base = torch.arange(k, device=points.device) * g
+    chunk = tile_rows(points.device, b, n, _CHUNK)
     idxs, masks = [], []
-    for c0 in range(0, centroids.shape[1], _CHUNK):
-        c = centroids[:, c0 : c0 + _CHUNK].float()
+    for c0 in range(0, centroids.shape[1], chunk):
+        c = centroids[:, c0 : c0 + chunk].float()
         d2 = expanded_d2(c, sq_norm3(c), points, pts_sq)
         score = torch.where(d2 <= r2, d2, torch.full_like(d2, _BIG))
         if k * g != n:

@@ -37,6 +37,9 @@
 //        last round leaves at most one block's imbalance (~4%).
 //   SA2: grid (10 x 8, 20) = 1600 blocks of 5 KB; 6 blocks (48 warps) an SM
 //        by registers; 12.1 blocks a SM.
+//   A group longer than cuda_kernels.BQ_MAX_G = 1816 points (8 of them fill
+//   the 227 KB of a block) streams through its warp's slice in chunks of
+//   1816 (common.cuh's select_tile), one block an SM.
 // Measured on an H100 (chip_smoke.py's train profile, device ms a step):
 // all K groups a block (grid (40, 20), the SA kernel's layout) 0.283 against
 // 0.250; 4 centroids a lane (tiles of 128: 9.59 instructions a pair) 0.250,
@@ -44,35 +47,47 @@
 // one at a time. None is kept (PERF.md).
 #include "common.cuh"
 
+template <bool CHUNKED>
 __global__ void __launch_bounds__(kSelThreads)
 ball_query_kernel(const float* __restrict__ cent, const float* __restrict__ xyz,
                   int* __restrict__ idx, uint8_t* __restrict__ mask, int n, int c, int k,
-                  int g, float r2) {
+                  int g, int gc, float r2) {
   extern __shared__ float4 stage[];
   const int b = blockIdx.y;
   const int tiles = (c + kSelTile - 1) / kSelTile;
   const int c0 = (blockIdx.x % tiles) * kSelTile, grp0 = (blockIdx.x / tiles) * kSelWarps;
   int* ib = idx + static_cast<size_t>(b) * c * k;
   uint8_t* mb = mask + static_cast<size_t>(b) * c * k;
-  select_tile(cent + static_cast<size_t>(b) * c * 3, xyz + static_cast<size_t>(b) * n * 3, n, c,
-              c0, grp0, min(grp0 + kSelWarps, k), g, r2, stage,
-              [&](int ci, int grp, bool ok, int pick) {
-                const size_t o = static_cast<size_t>(ci) * k + grp;
-                ib[o] = ok ? pick : 0;
-                mb[o] = ok ? 1 : 0;
-              });
+  select_tile<CHUNKED>(cent + static_cast<size_t>(b) * c * 3,
+                       xyz + static_cast<size_t>(b) * n * 3, n, c, c0, grp0,
+                       min(grp0 + kSelWarps, k), g, gc, r2, stage,
+                       [&](int ci, int grp, bool ok, int pick) {
+                         const size_t o = static_cast<size_t>(ci) * k + grp;
+                         ib[o] = ok ? pick : 0;
+                         mb[o] = ok ? 1 : 0;
+                       });
 }
 
 // cent (b, c, 3), xyz (b, n, 3) -> idx (b, c, k) i32, mask (b, c, k) u8
-// (a torch.bool tensor); g = ceil(n / k).
+// (a torch.bool tensor); g = ceil(n / k), gc <= g the points a warp stages
+// at once (cuda_kernels.sel_chunk).
 extern "C" int ball_query_launch(const float* cent, const float* xyz, int* idx,
-                                 uint8_t* mask, int b, int n, int c, int k, int g,
+                                 uint8_t* mask, int b, int n, int c, int k, int g, int gc,
                                  float r2, void* stream) {
-  const size_t smem = sizeof(float4) * kSelWarps * static_cast<size_t>(g);
-  cudaError_t err = allow_smem(ball_query_kernel, smem);
-  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float4) * kSelWarps * static_cast<size_t>(gc);
   const dim3 grid((c + kSelTile - 1) / kSelTile * ((k + kSelWarps - 1) / kSelWarps), b);
-  ball_query_kernel<<<grid, kSelThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      cent, xyz, idx, mask, n, c, k, g, r2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (gc < g) {
+    err = allow_smem(ball_query_kernel<true>, smem);
+    if (err != cudaSuccess) return err;
+    ball_query_kernel<true><<<grid, kSelThreads, smem, st>>>(cent, xyz, idx, mask, n, c, k, g,
+                                                             gc, r2);
+  } else {
+    err = allow_smem(ball_query_kernel<false>, smem);
+    if (err != cudaSuccess) return err;
+    ball_query_kernel<false><<<grid, kSelThreads, smem, st>>>(cent, xyz, idx, mask, n, c, k, g,
+                                                              gc, r2);
+  }
   return cudaGetLastError();
 }

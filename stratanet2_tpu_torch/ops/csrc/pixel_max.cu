@@ -20,10 +20,11 @@
 // (ord(v) << 32) | (0xFFFFFFFF - idx), so one atomicMax keeps the larger
 // value and, among equal values, the lower index: deterministic, whatever
 // the order of the atomics. One launch a call, one thread-block cluster of
-// kCS blocks a cloud (grid (kCS, B)): each block zeroes its own P^2 x C
-// table of keys in shared memory (400 x 3 x 8 B at the serve geometry),
-// reduces its contiguous share of the cloud's points into it, and after a
-// cluster barrier block r takes every kCS-th share of the slots, reads the
+// kCS blocks a cloud (grid (kCS, 1, B); a table past shared memory takes
+// several pixel ranges, see pixel_max_kernel): each block zeroes its own
+// P^2 x C table of keys in shared memory (400 x 3 x 8 B at the serve
+// geometry), reduces its contiguous share of the cloud's points into it,
+// and after a cluster barrier block r takes every kCS-th share of the slots, reads the
 // kCS peers' keys through distributed shared memory, keeps the largest,
 // decodes it and writes vmax and amax; a second cluster barrier keeps each
 // table alive until its peers have read it. No scratch in device memory,
@@ -51,21 +52,36 @@ __device__ __forceinline__ float order_value(uint32_t o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
+// Cluster (range, cloud) of grid (kCS, ranges, b): the per-pixel max of the
+// pixels [lo, lo + cnt), lo = range x per, over the cloud's points. Each of
+// its kCS blocks reduces its contiguous share of the points into a table of
+// the range's pixels in shared memory, then the cluster merges the tables
+// through distributed shared memory. One range (per = p2, the whole table)
+// is every table that fits in a block (cuda_kernels.pixel_max_range: 8 p2 c
+// <= 227 KB, diam_pix <= 98 at C = 3, the PROD steps among them); a larger
+// table is cut into the fewest ranges that fit, each block reading its
+// whole share of the ids and keeping the points of its range, so the ids
+// are read once a range and the values once in all. No table leaves shared
+// memory at any size: no global atomic, memset or decode pass, and the
+// result is the same bits on every run.
 __global__ void __cluster_dims__(kCS, 1, 1) __launch_bounds__(kThreads)
 pixel_max_kernel(const int* __restrict__ pix, const float* __restrict__ vals,
-                 float* __restrict__ vmax, int* __restrict__ amax, int n, int p2, int c) {
+                 float* __restrict__ vmax, int* __restrict__ amax, int n, int p2, int c,
+                 int per) {
   extern __shared__ unsigned long long table[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const size_t b = blockIdx.y;
-  const int slots = p2 * c;
+  const size_t b = blockIdx.z;
+  const int lo = blockIdx.y * per, cnt = min(per, p2 - lo);
+  const int slots = cnt * c;
   for (int i = threadIdx.x; i < slots; i += kThreads) table[i] = 0ull;
   __syncthreads();
   const int share = (n + kCS - 1) / kCS;
   const int end = min(n, (rank + 1) * share);
   for (int i = rank * share + threadIdx.x; i < end; i += kThreads) {
-    const int p = pix[b * n + i];
-    if (p < 0 || p >= p2) continue;
+    const int id = pix[b * n + i];
+    if (id < lo || id >= lo + cnt) continue;
+    const int p = id - lo;
     const unsigned long long low = 0xFFFFFFFFull - static_cast<unsigned>(i);
     for (int ch = 0; ch < c; ++ch) {
       const float v = vals[(b * n + i) * c + ch];
@@ -73,30 +89,33 @@ pixel_max_kernel(const int* __restrict__ pix, const float* __restrict__ vals,
     }
   }
   cluster.sync();  // every peer's table is complete and visible
+  const size_t o0 = (b * p2 + lo) * c;  // the range's first output slot
   for (int i = rank * kThreads + threadIdx.x; i < slots; i += kCS * kThreads) {
     unsigned long long key = 0ull;
 #pragma unroll
     for (int q = 0; q < kCS; ++q) key = max(key, cluster.map_shared_rank(table, q)[i]);
     if (key == 0ull) {  // every occupied slot has a non-zero index half
-      vmax[b * slots + i] = -3.4e38f;
-      amax[b * slots + i] = -1;
+      vmax[o0 + i] = -3.4e38f;
+      amax[o0 + i] = -1;
     } else {
-      vmax[b * slots + i] = order_value(static_cast<uint32_t>(key >> 32));
-      amax[b * slots + i] = static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(key));
+      vmax[o0 + i] = order_value(static_cast<uint32_t>(key >> 32));
+      amax[o0 + i] = static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(key));
     }
   }
   cluster.sync();  // no table goes while a peer may still read it
 }
 
 // pix (b, n) i32, vals (b, n, c) f32 -> vmax (b, p2, c) f32, amax (b, p2, c)
-// i32; 8 * p2 * c bytes of shared memory, b <= 65535.
+// i32, in ranges of `per` pixels (the last may hold fewer); 8 * per * c
+// bytes of shared memory a block, b and the ranges <= 65535.
 extern "C" int pixel_max_launch(const int* pix, const float* vals, float* vmax, int* amax,
-                                int b, int n, int p2, int c, void* stream) {
-  const size_t smem = static_cast<size_t>(p2) * c * sizeof(unsigned long long);
+                                int b, int n, int p2, int c, int per, void* stream) {
+  const size_t smem = static_cast<size_t>(per) * c * sizeof(unsigned long long);
   cudaError_t err = allow_smem(pixel_max_kernel, smem);
   if (err != cudaSuccess) return err;
-  pixel_max_kernel<<<dim3(kCS, b), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      pix, vals, vmax, amax, n, p2, c);
+  const dim3 grid(kCS, (p2 + per - 1) / per, b);
+  pixel_max_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      pix, vals, vmax, amax, n, p2, c, per);
   return cudaGetLastError();
 }
 

@@ -46,6 +46,11 @@
 //        8 x 313 x 16 B, picks 64 x 32 x 4 B); 6.06 blocks a SM, so the
 //        last round is one block (~13%) longer on some SMs.
 //   SA2: grid (10, 20) = 200 blocks, 21 KB each; 1.5 blocks a SM.
+// A group longer than the staging slice that the shared memory left by the
+// parameters and the pick table allows (cuda_kernels.sa_fused_eval_max_g:
+// 1741 points at SA1's plan, K = 32) streams through it in chunks of that
+// length (common.cuh's select_tile): the dense plots of subsample_size
+// 65,536 (g = 2048), at one block an SM.
 #include <math.h>
 
 #include "common.cuh"
@@ -59,24 +64,25 @@ struct Prm {
   static constexpr int kPadded = (kSize + 3) / 4 * 4;
 };
 
-template <int C1, int C2, bool TWO>
+template <int C1, int C2, bool TWO, bool CHUNKED>
 __global__ void __launch_bounds__(kSelThreads)
 sa_kernel(const float* __restrict__ q, const float* __restrict__ xyz,
           const float* __restrict__ cent, const float* __restrict__ cterm,
           const float* __restrict__ prm, float* __restrict__ out, int n, int c,
-          int k, int g, float r2) {
+          int k, int g, int gc, float r2) {
   using P = Prm<C1, C2, TWO>;
   extern __shared__ float4 smem4[];
-  float4* stage = smem4;  // select: kSelWarps x g packed points
-  float* sp = reinterpret_cast<float*>(smem4 + kSelWarps * static_cast<size_t>(g));
+  float4* stage = smem4;  // select: kSelWarps x gc packed points
+  float* sp = reinterpret_cast<float*>(smem4 + kSelWarps * static_cast<size_t>(gc));
   int* picks = reinterpret_cast<int*>(sp + P::kPadded);  // (kSelTile, k)
 
   const int b = blockIdx.y, c0 = blockIdx.x * kSelTile;
   for (int i = threadIdx.x; i < P::kSize; i += kSelThreads) sp[i] = prm[i];
-  select_tile(cent + static_cast<size_t>(b) * c * 3, xyz + static_cast<size_t>(b) * n * 3, n, c,
-              c0, 0, k, g, r2, stage, [&](int ci, int grp, bool ok, int pick) {
-                picks[(ci - c0) * k + grp] = ok ? pick : -1;
-              });
+  select_tile<CHUNKED>(cent + static_cast<size_t>(b) * c * 3,
+                       xyz + static_cast<size_t>(b) * n * 3, n, c, c0, 0, k, g, gc, r2,
+                       stage, [&](int ci, int grp, bool ok, int pick) {
+                         picks[(ci - c0) * k + grp] = ok ? pick : -1;
+                       });
   __syncthreads();
 
   const int cl = threadIdx.x / kParts, part = threadIdx.x % kParts;
@@ -161,30 +167,39 @@ sa_kernel(const float* __restrict__ q, const float* __restrict__ xyz,
 template <int C1, int C2, bool TWO>
 static cudaError_t launch(const float* q, const float* xyz, const float* cent,
                           const float* cterm, const float* prm, float* out, int b,
-                          int n, int c, int k, int g, float r2, cudaStream_t stream) {
+                          int n, int c, int k, int g, int gc, float r2, cudaStream_t stream) {
   using P = Prm<C1, C2, TWO>;
-  const size_t smem = sizeof(float4) * kSelWarps * static_cast<size_t>(g) +
+  const size_t smem = sizeof(float4) * kSelWarps * static_cast<size_t>(gc) +
                       sizeof(float) * P::kPadded + sizeof(int) * kSelTile * static_cast<size_t>(k);
-  cudaError_t err = allow_smem(sa_kernel<C1, C2, TWO>, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((c + kSelTile - 1) / kSelTile, b);
-  sa_kernel<C1, C2, TWO><<<grid, kSelThreads, smem, stream>>>(q, xyz, cent, cterm, prm, out,
-                                                             n, c, k, g, r2);
+  cudaError_t err;
+  if (gc < g) {
+    err = allow_smem(sa_kernel<C1, C2, TWO, true>, smem);
+    if (err != cudaSuccess) return err;
+    sa_kernel<C1, C2, TWO, true><<<grid, kSelThreads, smem, stream>>>(q, xyz, cent, cterm, prm,
+                                                                     out, n, c, k, g, gc, r2);
+  } else {
+    err = allow_smem(sa_kernel<C1, C2, TWO, false>, smem);
+    if (err != cudaSuccess) return err;
+    sa_kernel<C1, C2, TWO, false><<<grid, kSelThreads, smem, stream>>>(q, xyz, cent, cterm, prm,
+                                                                      out, n, c, k, g, gc, r2);
+  }
   return cudaGetLastError();
 }
 
 // q (b, n, c1), xyz (b, n, 3), cent (b, c, 3), cterm (b, c, c1), prm packed
 // [a1, c1, (W2 (c1, c2), b2, a2, c2)] -> out (b, c, c2); q, cterm and out
-// 16-byte aligned. Instances: SA1 (16 -> 16, two layers) and SA2 (32, one
-// layer).
+// 16-byte aligned; g = ceil(n / k), gc <= g the points a warp stages at
+// once (cuda_kernels.sel_chunk). Instances: SA1 (16 -> 16, two layers) and
+// SA2 (32, one layer).
 extern "C" int sa_fused_eval_launch(const float* q, const float* xyz, const float* cent,
                                     const float* cterm, const float* prm, float* out,
-                                    int b, int n, int c, int k, int g, int c1, int c2,
+                                    int b, int n, int c, int k, int g, int gc, int c1, int c2,
                                     int two_layer, float r2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (c1 == 16 && c2 == 16 && two_layer)
-    return launch<16, 16, true>(q, xyz, cent, cterm, prm, out, b, n, c, k, g, r2, st);
+    return launch<16, 16, true>(q, xyz, cent, cterm, prm, out, b, n, c, k, g, gc, r2, st);
   if (c1 == 32 && c2 == 32 && !two_layer)
-    return launch<32, 32, false>(q, xyz, cent, cterm, prm, out, b, n, c, k, g, r2, st);
+    return launch<32, 32, false>(q, xyz, cent, cterm, prm, out, b, n, c, k, g, gc, r2, st);
   return cudaErrorInvalidValue;
 }

@@ -627,36 +627,46 @@ sa_train_bwd2_kernel(const float* __restrict__ q, const float* __restrict__ cter
 // of the grouped selection only picks points of group j (g = ceil(N/K)
 // consecutive points, csrc/ball_query.cu), so block (j, b) owns group j of
 // cloud b, reads slot j of every centroid and is the only writer of its
-// points' rows. A counting sort by point, stable in c: warp w takes the
-// w-th span of the centroids, loads their slot-j ids (a masked slot, or an
-// id outside the group, is skipped) and counts them by point (shared int
-// atomics: a count has no order); a thread a point turns the warps' counts
-// into each warp's offset within the point's list, a scan of the totals
-// gives the lists' starts, and each warp places its span in increasing c
-// (rank among 32 at a time by __match_any_sync), so a list holds its
-// centroids in increasing c. A group of C1 lanes (lane = channel) then
-// takes a point and adds its list's de0 rows (one coalesced row each, kDqB
-// loads in flight) to 0 in that order with __fadd_rn, and stores the row
-// once, zeros included: one order of sums for any launch
+// points' rows. dq_window takes the points [first, first + gs) of the group
+// and the centroids [cb, ce): a counting sort by point, stable in c: warp w
+// takes the w-th span of the centroids, loads their slot-j ids (a masked
+// slot, or an id outside the window, is skipped) and counts them by point
+// (shared int atomics: a count has no order); a thread a point turns the
+// warps' counts into each warp's offset within the point's list, a scan of
+// the totals gives the lists' starts, and each warp places its span in
+// increasing c (rank among 32 at a time by __match_any_sync), so a list
+// holds its centroids in increasing c. A group of C1 lanes (lane =
+// channel) then takes a point and adds its list's de0 rows (one coalesced
+// row each, kDqB loads in flight) with __fadd_rn, and stores the row once,
+// zeros included: one order of sums for any launch
 // (cuda_kernels.sa_train_dq_ordered_plain). It reads each valid edge's row
 // once, where a gather over all pairs re-reads the ids for each tile.
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-sa_train_dq_kernel(const float* __restrict__ de, const int* __restrict__ idx,
-                   const bool* __restrict__ mask, float* __restrict__ dq, int n, int c, int k,
-                   int g) {
+//
+// The window's keys and lists (ce - cb ints each), the warps' counts (8 gs)
+// and the lists' starts (gs + 1) live in shared memory. Without CHUNKED the
+// window is the whole group and every centroid, one pass with no window
+// loop (the instances of every PROD shape); with it (4 (2 c + 9 g + 1) bytes
+// past a block's shared memory, N > ~74,000 points a plot at SA1's plan)
+// the block walks its group in windows of gp points and, for each, the
+// centroids in windows of cc (cuda_kernels.sa_train_dq_chunks), in
+// increasing c. A point's sum then starts from the row that the previous
+// centroid window stored, by the same thread: the same adds in the same
+// order as one window, so the same bits.
+template <int C, bool CHUNKED>
+__device__ __forceinline__ void dq_window(const float* __restrict__ de,
+                                          const int* __restrict__ idx,
+                                          const bool* __restrict__ mask, float* __restrict__ dq,
+                                          int* dsm, int n, int c, int k, int j, int b, int first,
+                                          int gs, int cb, int ce) {
   constexpr int kWarps = kThreads / 32;
-  extern __shared__ int dsm[];
-  const int j = blockIdx.x, b = blockIdx.y;
-  const int first = j * g;
-  const int gs = max(0, min(g, n - first));  // the group's points
-  int* key = dsm;                  // c: the centroid's point in the group, or -1
-  int* cur = key + c;              // kWarps x gs: a warp's counts, then its cursors
+  const int nc = ce - cb;
+  int* key = dsm;                  // nc: the centroid's point in the window, or -1
+  int* cur = key + nc;             // kWarps x gs: a warp's counts, then its cursors
   int* start = cur + kWarps * gs;  // gs + 1: where each point's list begins
-  int* list = start + gs + 1;      // c: the centroids, by point, in increasing c
+  int* list = start + gs + 1;      // nc: the centroids, by point, in increasing c
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int span = (c + kWarps - 1) / kWarps;
-  const int c_lo = min(c, warp * span), c_hi = min(c, c_lo + span);
+  const int span = (nc + kWarps - 1) / kWarps;
+  const int c_lo = cb + min(nc, warp * span), c_hi = min(ce, c_lo + span);
   int* mine = cur + warp * gs;
   for (int e = tid; e < kWarps * gs; e += kThreads) cur[e] = 0;
   if (tid == 0) start[0] = 0;
@@ -666,7 +676,7 @@ sa_train_dq_kernel(const float* __restrict__ de, const int* __restrict__ idx,
     const size_t e = e0 + static_cast<size_t>(cc) * k;
     const int d = mask[e] ? idx[e] - first : -1;
     const bool in = d >= 0 && d < gs;
-    key[cc] = in ? d : -1;
+    key[cc - cb] = in ? d : -1;
     if (in) atomicAdd(mine + d, 1);
   }
   __syncthreads();
@@ -694,7 +704,7 @@ sa_train_dq_kernel(const float* __restrict__ de, const int* __restrict__ idx,
   __syncthreads();
   const unsigned lt = (1u << lane) - 1;
   for (int c0 = c_lo; c0 < c_hi; c0 += 32) {
-    const int d = c0 + lane < c_hi ? key[c0 + lane] : -1;
+    const int d = c0 + lane < c_hi ? key[c0 + lane - cb] : -1;
     const unsigned act = __ballot_sync(~0u, d >= 0);
     if (d >= 0) {
       const unsigned peers = __match_any_sync(act, d);
@@ -714,7 +724,7 @@ sa_train_dq_kernel(const float* __restrict__ de, const int* __restrict__ idx,
   for (int p = tid / C; p < gs; p += kGroups) {
     int r = start[p];
     const int end = start[p + 1];
-    float acc = 0.f;
+    float acc = CHUNKED && cb > 0 ? out[static_cast<size_t>(p) * C] : 0.f;
     for (; r + kDqB <= end; r += kDqB) {
       float v[kDqB];
 #pragma unroll
@@ -724,6 +734,26 @@ sa_train_dq_kernel(const float* __restrict__ de, const int* __restrict__ idx,
     }
     for (; r < end; ++r) acc = __fadd_rn(acc, db[list[r] * stride]);
     out[static_cast<size_t>(p) * C] = acc;
+  }
+  if (CHUNKED) __syncthreads();  // the next window reuses the shared memory
+}
+
+template <int C, bool CHUNKED>
+__global__ void __launch_bounds__(kThreads)
+sa_train_dq_kernel(const float* __restrict__ de, const int* __restrict__ idx,
+                   const bool* __restrict__ mask, float* __restrict__ dq, int n, int c, int k,
+                   int g, int gp, int cc) {
+  extern __shared__ int dsm[];
+  const int j = blockIdx.x, b = blockIdx.y;
+  const int first = j * g;
+  const int gs = max(0, min(g, n - first));  // the group's points
+  if constexpr (!CHUNKED) {
+    dq_window<C, false>(de, idx, mask, dq, dsm, n, c, k, j, b, first, gs, 0, c);
+  } else {
+    for (int p0 = 0; p0 < gs; p0 += gp)
+      for (int c0 = 0; c0 < c; c0 += cc)
+        dq_window<C, true>(de, idx, mask, dq, dsm, n, c, k, j, b, first + p0, min(gp, gs - p0),
+                           c0, min(c, c0 + cc));
   }
 }
 
@@ -780,32 +810,37 @@ extern "C" int sa_train_bwd1_launch(const float* q, const float* cterm, const in
 }
 
 // The edge pass into de (b, c, k, ch), then the dq pass: grid (k, b), one
-// block a group of g = ceil(n / k) points, with the slot's keys and lists
-// (c ints each), the warps' counts (8 g) and the lists' starts (g + 1) in
-// shared memory; a c too large for it fails the launch.
+// block a group of g = ceil(n / k) points, in windows of gp points and cc
+// centroids (gp = g and cc = c: one window, the PROD instances), with
+// 4 (2 cc + 9 gp + 1) bytes of shared memory.
+template <int C, bool TWO, int KB>
+cudaError_t launch_bwd2(const float* q, const float* cterm, const int* idx, const bool* mask,
+                        const float* aff, const float* w2, const int* awin, const float* gt,
+                        float* de, float* dq, float* dcterm, int grid, int b, int n, int c,
+                        int k, int gp, int cc, cudaStream_t st) {
+  const int g = (n + k - 1) / k;
+  const size_t smem = sizeof(int) * (2 * static_cast<size_t>(cc) + (kThreads / 32 + 1) * gp + 1);
+  const bool chunked = gp < g || cc < c;
+  auto dq_kernel = chunked ? sa_train_dq_kernel<C, true> : sa_train_dq_kernel<C, false>;
+  cudaError_t err = allow_smem(dq_kernel, smem);
+  if (err != cudaSuccess) return err;
+  sa_train_bwd2_kernel<C, TWO, KB><<<grid, kThreads, 0, st>>>(
+      q, cterm, idx, mask, aff, w2, awin, gt, de, dcterm, n, c, k, b * c);
+  dq_kernel<<<dim3(k, b), kThreads, smem, st>>>(de, idx, mask, dq, n, c, k, g, gp, cc);
+  return cudaGetLastError();
+}
+
 extern "C" int sa_train_bwd2_launch(const float* q, const float* cterm, const int* idx,
                                     const bool* mask, const float* aff, const float* w2,
                                     const int* awin, const float* gt, float* de, float* dq,
                                     float* dcterm, int grid, int b, int n, int c, int k, int ch,
-                                    int two_layer, void* stream) {
+                                    int two_layer, int gp, int cc, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!((ch == 16 && two_layer) || (ch == 32 && !two_layer))) return cudaErrorInvalidValue;
-  const int g = (n + k - 1) / k;
-  const size_t smem = sizeof(int) * (2 * static_cast<size_t>(c) + (kThreads / 32 + 1) * g + 1);
-  const dim3 dq_grid(k, b);
-  cudaError_t err;
-  if (two_layer) {
-    err = allow_smem(sa_train_dq_kernel<16>, smem);
-    if (err != cudaSuccess) return err;
-    sa_train_bwd2_kernel<16, true, kBwd2KB1><<<grid, kThreads, 0, st>>>(
-        q, cterm, idx, mask, aff, w2, awin, gt, de, dcterm, n, c, k, b * c);
-    sa_train_dq_kernel<16><<<dq_grid, kThreads, smem, st>>>(de, idx, mask, dq, n, c, k, g);
-  } else {
-    err = allow_smem(sa_train_dq_kernel<32>, smem);
-    if (err != cudaSuccess) return err;
-    sa_train_bwd2_kernel<32, false, kBwd2KB2><<<grid, kThreads, 0, st>>>(
-        q, cterm, idx, mask, aff, w2, awin, gt, de, dcterm, n, c, k, b * c);
-    sa_train_dq_kernel<32><<<dq_grid, kThreads, smem, st>>>(de, idx, mask, dq, n, c, k, g);
-  }
-  return cudaGetLastError();
+  if (ch == 16 && two_layer)
+    return launch_bwd2<16, true, kBwd2KB1>(q, cterm, idx, mask, aff, w2, awin, gt, de, dq,
+                                           dcterm, grid, b, n, c, k, gp, cc, st);
+  if (ch == 32 && !two_layer)
+    return launch_bwd2<32, false, kBwd2KB2>(q, cterm, idx, mask, aff, w2, awin, gt, de, dq,
+                                            dcterm, grid, b, n, c, k, gp, cc, st);
+  return cudaErrorInvalidValue;
 }

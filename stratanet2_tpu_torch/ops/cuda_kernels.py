@@ -20,6 +20,17 @@ Dispatch: a wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it runs the plain version. There is no fallback between the two
 and no switch. `LAUNCHES[name]` counts each wrapper's kernel launches.
 
+Five wrappers take another path for shapes past their PROD kernels' reach,
+chosen by shape alone (`fps_path`, `sel_chunk`, `pixel_max_range`,
+`sa_train_dq_chunks`), and count it in `PATH_LAUNCHES` too: FPS rows over
+16,384 points run a block cluster a row (`fps_cluster`, and past 131,072
+points `fps_global`, its running minima in device memory); a selection
+group longer than a warp's staging slice streams through it in chunks
+(`ball_query_chunked`, `sa_fused_eval_chunked`); a pixel table past shared
+memory is cut into pixel ranges, a cluster each (`pixel_max_ranges`);
+sa_train_bwd2's dq pass walks a group whose lists outgrow shared memory in
+windows (`sa_train_dq_chunked`). Every PROD shape keeps its kernels.
+
 Every selection distance is rounded as the JAX CPU path rounds it (see
 `distance.py`): the plain versions and the kernels agree with it, and with
 each other, on every distance and so on every selected index. The SA train
@@ -39,11 +50,11 @@ import torch.nn.functional as F
 from stratanet2_tpu_torch.ops import _build
 from stratanet2_tpu_torch.ops import ballquery
 from stratanet2_tpu_torch.ops.ballquery import ball_query_grouped, radius_sq
-from stratanet2_tpu_torch.ops.distance import expanded_d2, fma_f32, sq_norm3
+from stratanet2_tpu_torch.ops.distance import expanded_d2, fma_f32, sq_norm3, tile_rows
 
 NEG = -3.4e38  # the empty-pixel / masked-edge value of the Pallas kernels
 _KNN_EPS = 1e-16
-_KNN_CHUNK = 512  # targets per (B, chunk, S) distance tile of the plain kNN
+_KNN_CHUNK = 512  # targets per (B, chunk, S) distance tile of the plain kNN on the card
 # csrc/knn_interpolate.cu: 8 warps a block, one target a lane; knn_slices
 # wants enough warps to fill the 64 warp slots of each of 132 SMs once
 KNN_WARPS, KNN_MIN_WARPS = 8, 64 * 132
@@ -54,27 +65,30 @@ _SMEM_MAX = 227 * 1024  # opt-in dynamic shared memory of one H100 block
 KNN_SCATTER_PAIRS, KNN_SCATTER_CHUNK = 8192, 64
 KNN_SCATTER_MAX_F = 128
 PIXEL_MAX_CLUSTER = 8  # csrc/pixel_max.cu: blocks of a cloud's cluster (kCS)
-FPS_MAX_N = 16 * 1024  # csrc/fps.cu: at most 16 points for each of a block's 1024 threads
-# csrc/common.cuh's grouped selection: 8 warps a block each stage one group of
-# g points as float4, for a tile of 64 centroids
+PIXEL_MAX_TABLE = _SMEM_MAX // 8  # 64-bit keys (pixel x channel slots) a block's table holds
+FPS_MAX_N = 16 * 1024  # csrc/fps.cu's fps_kernel: at most 16 points for each of 1024 threads
+FPS_CLUSTER_MAX = 8  # fps_cluster_kernel: blocks a row at most (the portable cluster size)
+# csrc/common.cuh's grouped selection: 8 warps a block each stage up to one
+# group of g points as float4, for a tile of 64 centroids
 SEL_WARPS, SEL_TILE = 8, 64
-BQ_MAX_G = _SMEM_MAX // (16 * SEL_WARPS)  # ball_query: the largest group
+BQ_MAX_G = _SMEM_MAX // (16 * SEL_WARPS)  # ball_query: the longest group staged whole
+SA_DQ_INTS = _SMEM_MAX // 4  # csrc/sa_train.cu's dq pass: int32 lists and counts a block holds
 NEAREST_MAX_K = 128  # csrc/ball_query_nearest.cu: the longest sorted list a warp keeps (kNearMaxK)
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ENTRIES = {  # wrapper: (library = csrc/<library>.cu, C entry point, its arguments)
+_ENTRIES = {  # entry: (library = csrc/<library>.cu, C entry point, its arguments)
     "fps": ("fps", "fps_launch", [_VP, _VP, _VP, _I, _I, _I, _VP]),
     "sa_fused_eval": (
         "sa_fused_eval", "sa_fused_eval_launch",
-        [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _F, _VP],
+        [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _VP],
     ),
     "knn_interpolate": (
         "knn_interpolate", "knn_interpolate_launch",
         [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     ),
-    "pixel_max": ("pixel_max", "pixel_max_launch", [_VP] * 4 + [_I] * 4 + [_VP]),
+    "pixel_max": ("pixel_max", "pixel_max_launch", [_VP] * 4 + [_I] * 5 + [_VP]),
     "ball_query": (
-        "ball_query", "ball_query_launch", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]
+        "ball_query", "ball_query_launch", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _VP]
     ),
     "knn_scatter": (
         "knn_scatter", "knn_scatter_launch", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP]
@@ -92,40 +106,52 @@ _ENTRIES = {  # wrapper: (library = csrc/<library>.cu, C entry point, its argume
         "sa_train", "sa_train_bwd1_launch", [_VP] * 9 + [_I] * 6 + [_VP]
     ),
     "sa_train_bwd2": (
-        "sa_train", "sa_train_bwd2_launch", [_VP] * 11 + [_I] * 7 + [_VP]
+        "sa_train", "sa_train_bwd2_launch", [_VP] * 11 + [_I] * 9 + [_VP]
     ),
     "ball_query_nearest": (
         "ball_query_nearest", "ball_query_nearest_launch", [_VP] * 5 + [_I] * 5 + [_F, _VP]
     ),
+    # the long-shape paths' own entry points (see the module's docstring)
+    "fps_cluster": ("fps", "fps_cluster_launch", [_VP] * 4 + [_I] * 4 + [_VP]),
 }
+WRAPPERS = ("fps", "sa_fused_eval", "knn_interpolate", "pixel_max", "ball_query", "knn_scatter",
+            "pixel_max_bwd", "sa_train_stats", "sa_train_main", "sa_train_bwd1", "sa_train_bwd2",
+            "ball_query_nearest")
+PATHS = ("fps_cluster", "fps_global", "ball_query_chunked", "sa_fused_eval_chunked",
+         "pixel_max_ranges", "sa_train_dq_chunked")
 _fns: Dict[str, ctypes._CFuncPtr] = {}
-# kernel launches per wrapper, counted where the launch succeeds
-LAUNCHES: Dict[str, int] = dict.fromkeys(_ENTRIES, 0)
+# kernel launches per wrapper, and per long-shape path, counted where the
+# launch succeeds
+LAUNCHES: Dict[str, int] = dict.fromkeys(WRAPPERS, 0)
+PATH_LAUNCHES: Dict[str, int] = dict.fromkeys(PATHS, 0)
 
 
-def _bind(name: str) -> ctypes._CFuncPtr:
-    """Kernel `name`'s C entry point, its library built and loaded at first use."""
-    library, symbol, argtypes = _ENTRIES[name]
+def _bind(entry: str) -> ctypes._CFuncPtr:
+    """C entry point `entry`, its library built and loaded at first use."""
+    library, symbol, argtypes = _ENTRIES[entry]
     lib = _build.load(library)
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
-    _fns[name] = fn
+    _fns[entry] = fn
     return fn
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Call kernel `name`'s C entry point on `device`'s current stream.
+def _launch(name: str, device: torch.device, *args, entry: Optional[str] = None,
+            path: Optional[str] = None) -> None:
+    """Call wrapper `name`'s C entry point (or `entry`) on `device`'s
+    current stream, counting the launch for `name` and for `path`.
     Tensors pass as their data pointers; the entry returns
     cudaGetLastError() after its launches, and a non-zero code raises.
     The stream comes from PyTorch's raw getter (what Triton's launcher
     calls) and the device is switched only when `device` is not current:
     the host cost of a launch is most of a short kernel's time."""
-    fn = _fns.get(name)
+    entry = entry or name
+    fn = _fns.get(entry)
     if fn is None:
-        fn = _bind(name)
+        fn = _bind(entry)
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]  # None: NULL
     index = device.index
     if index == torch.cuda.current_device():
@@ -134,9 +160,11 @@ def _launch(name: str, device: torch.device, *args) -> None:
         with torch.cuda.device(index):
             rc = fn(*cargs, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        msg = _build.load(_ENTRIES[name][0]).error_string(rc).decode()
+        msg = _build.load(_ENTRIES[entry][0]).error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
     LAUNCHES[name] += 1
+    if path is not None:
+        PATH_LAUNCHES[path] += 1
 
 
 def _on_card(name: str, *tensors: Optional[torch.Tensor]) -> bool:
@@ -164,12 +192,17 @@ def _expect(cond: bool, name: str, what: str) -> None:
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, PATH_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def path_launch_counts() -> Dict[str, int]:
+    return dict(PATH_LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +228,21 @@ def fps_plain(xyz: torch.Tensor, n_samples: int, start: torch.Tensor) -> torch.T
     return out
 
 
+def fps_path(n: int):
+    """csrc/fps.cu's path for rows of n points, as (path, blocks a row):
+    ("block", 1), fps_kernel, up to FPS_MAX_N points; ("cluster", cs), a
+    cluster of cs blocks, the least power of two up to FPS_CLUSTER_MAX with
+    cs x FPS_MAX_N >= n, each block's slice in shared memory; past that
+    ("global", FPS_CLUSTER_MAX), the cluster with x, y, z read from device
+    memory and the running minima in a device-memory scratch."""
+    if n <= FPS_MAX_N:
+        return "block", 1
+    cs = 2
+    while cs < FPS_CLUSTER_MAX and cs * FPS_MAX_N < n:
+        cs *= 2
+    return ("cluster" if cs * FPS_MAX_N >= n else "global"), cs
+
+
 def fps(xyz: torch.Tensor, n_samples: int, start: torch.Tensor) -> torch.Tensor:
     """Farthest point sampling per row: (R, N, 3) float32 points, (R,) int32
     start indices -> (R, n_samples) int32 indices, out[:, 0] == start."""
@@ -207,9 +255,17 @@ def fps(xyz: torch.Tensor, n_samples: int, start: torch.Tensor) -> torch.Tensor:
     if not _on_card(name, xyz, start):
         return fps_plain(xyz, n_samples, start)
     r, n, _ = xyz.shape
-    _expect(n <= FPS_MAX_N, name, f"N={n} exceeds the kernel's limit of {FPS_MAX_N} points a row")
+    _expect(n < 2 ** 31, name, f"N={n}: indices are int32")
     out = torch.empty((r, n_samples), dtype=torch.int32, device=xyz.device)
-    _launch(name, xyz.device, xyz, start, out, r, n, n_samples)
+    path, cs = fps_path(n)
+    if path == "block":
+        _launch(name, xyz.device, xyz, start, out, r, n, n_samples)
+        return out
+    _expect(r * cs < 2 ** 31, name, f"{r} rows of {cs} blocks exceed the grid")
+    # the global path's running minima: a device-memory row of N floats a row
+    md = torch.empty((r, n), dtype=torch.float32, device=xyz.device) if path == "global" else None
+    _launch(name, xyz.device, xyz, start, out, md, r, n, n_samples, cs,
+            entry="fps_cluster", path=f"fps_{path}")
     return out
 
 
@@ -231,11 +287,19 @@ def sa_fused_eval_plain(q, xyz, centroids, cterm, a1, c1, w2, b2, a2, c2, radius
 
 
 def sa_fused_eval_max_g(ch1: int, ch2: int, two: bool, k: int) -> int:
-    """The largest group the SA eval kernel takes: its block holds
-    SEL_WARPS staged groups (16 B a point), the parameters padded to float4
+    """The longest group the SA eval kernel stages whole: its block holds
+    SEL_WARPS staging slices (16 B a point), the parameters padded to float4
     and a (SEL_TILE, K) int32 table of picks in shared memory."""
     n_prm = 2 * ch1 + (ch1 * ch2 + 3 * ch2 if two else 0)
     return (_SMEM_MAX - 4 * (-(-n_prm // 4) * 4) - 4 * SEL_TILE * k) // (16 * SEL_WARPS)
+
+
+def sel_chunk(g: int, max_g: int) -> int:
+    """Points a warp of csrc/common.cuh's select_tile stages at once for
+    groups of g points, when a warp's slice of shared memory holds max_g
+    (BQ_MAX_G, or sa_fused_eval_max_g of the instance): the whole group
+    when it fits (one pass), else chunks of max_g in index order."""
+    return min(g, max_g)
 
 
 def sa_fused_eval(
@@ -279,13 +343,13 @@ def sa_fused_eval(
             "q and cterm must be 16-byte aligned (float4 rows)")
     _expect(b < 65536, name, "the kernel takes at most 65535 clouds")
     g = -(-n // k)
-    g_max = sa_fused_eval_max_g(ch1, ch2, two, k)
-    _expect(g <= g_max, name, f"group of {g} points exceeds the kernel's limit of {g_max} "
-                              f"at C1={ch1}, C2={ch2}, K={k}")
+    gc = sel_chunk(g, sa_fused_eval_max_g(ch1, ch2, two, k))
+    _expect(gc >= 1, name, f"K={k} leaves no shared memory to stage points in")
     prm = torch.cat([v.reshape(-1) for v in vecs])
     out = torch.empty((b, c, ch2), dtype=torch.float32, device=q.device)
     _launch(name, q.device, q, xyz, centroids, cterm, prm, out,
-            b, n, c, k, g, ch1, ch2, int(two), radius_sq(radius))
+            b, n, c, k, g, gc, ch1, ch2, int(two), radius_sq(radius),
+            path="sa_fused_eval_chunked" if gc < g else None)
     return out
 
 
@@ -303,8 +367,9 @@ def knn_interpolate_plain(x_src, pos_src, pos_tgt):
     bidx = torch.arange(b, device=x_src.device)[:, None, None]
     src_sq = sq_norm3(pos_src)
     outs, idxs, ws = [], [], []
-    for t0 in range(0, pos_tgt.shape[1], _KNN_CHUNK):
-        t = pos_tgt[:, t0 : t0 + _KNN_CHUNK]
+    chunk = tile_rows(x_src.device, b, s, _KNN_CHUNK)
+    for t0 in range(0, pos_tgt.shape[1], chunk):
+        t = pos_tgt[:, t0 : t0 + chunk]
         d2 = expanded_d2(t, sq_norm3(t), pos_src, src_sq)  # (B, Tc, S)
         vals, ids = [], []
         for _ in range(3):
@@ -368,20 +433,33 @@ def knn_interpolate(x_src: torch.Tensor, pos_src: torch.Tensor, pos_tgt: torch.T
 
 
 def pixel_max_plain(pix: torch.Tensor, vals: torch.Tensor, n_pix: int):
-    """Dense masked max over an explicit (B, P, N) pixel-membership mask, as
-    the JAX CPU path of ops/projection.py does; argmax takes the first
-    maximum. Ids outside [0, n_pix) match no pixel."""
-    seg = torch.arange(n_pix, device=pix.device, dtype=pix.dtype)
-    member = pix[:, None, :] == seg[None, :, None]  # (B, P, N)
-    occ = torch.any(member, dim=-1, keepdim=True)
-    vmax, amax = [], []
-    for ch in range(vals.shape[-1]):
-        e = torch.where(member, vals[:, None, :, ch], torch.tensor(NEG, device=vals.device))
-        vmax.append(torch.amax(e, dim=-1))
-        amax.append(torch.argmax(e, dim=-1))
-    vmax = torch.where(occ, torch.stack(vmax, -1), torch.tensor(NEG, device=vals.device))
-    amax = torch.where(occ, torch.stack(amax, -1), -1).int()
-    return vmax, amax
+    """Per-pixel max and first argmax by two scatters over the points, O(N)
+    at any table (the JAX CPU path's dense (P, N) masked max costs P x N):
+    each pixel's max value, then the lowest index among its points that
+    reach it. Ids outside [0, n_pix) match no pixel."""
+    b, n, c = vals.shape
+    inside = (pix >= 0) & (pix < n_pix)
+    seg = torch.where(inside, pix, n_pix).long()[..., None].expand(b, n, c)  # row n_pix: outside
+    vmax = torch.full((b, n_pix + 1, c), NEG, dtype=vals.dtype, device=vals.device)
+    vmax = vmax.scatter_reduce(1, seg, vals, "amax")
+    ids = torch.arange(n, device=pix.device)[None, :, None].expand(b, n, c)
+    first = torch.where(vals == torch.gather(vmax, 1, seg), ids, n)
+    amax = torch.full((b, n_pix + 1, c), n, dtype=torch.long, device=pix.device)
+    amax = amax.scatter_reduce(1, seg, first, "amin")[:, :n_pix]
+    occ = amax < n
+    return (torch.where(occ, vmax[:, :n_pix], NEG),
+            torch.where(occ, amax, -1).int())
+
+
+def pixel_max_range(n_pix: int, c: int) -> int:
+    """Pixels of each range of csrc/pixel_max.cu's pixel_max_kernel (a
+    cluster a range and cloud) for a table of n_pix pixels x c channels of
+    64-bit keys: n_pix, one range, when the whole table fits in a block's
+    shared memory (8 n_pix c <= 232,448 B: diam_pix <= 98 at c = 3), else
+    the fewest ranges of at most PIXEL_MAX_TABLE // c pixels, cut evenly
+    (the last may hold fewer)."""
+    ranges = -(-n_pix // (PIXEL_MAX_TABLE // c))
+    return -(-n_pix // ranges)
 
 
 def pixel_max(pix: torch.Tensor, vals: torch.Tensor, n_pix: int):
@@ -397,11 +475,14 @@ def pixel_max(pix: torch.Tensor, vals: torch.Tensor, n_pix: int):
     _expect(b >= 1 and n >= 1 and c >= 1 and n_pix >= 1, name, "empty input")
     if not _on_card(name, pix, vals):
         return pixel_max_plain(pix, vals, n_pix)
-    _expect(8 * n_pix * c <= _SMEM_MAX, name, "pixel table exceeds shared memory")
+    _expect(c <= PIXEL_MAX_TABLE, name, f"{c} channels exceed a block's table")
     _expect(b < 65536, name, "the kernel takes at most 65535 clouds")
     vmax = vals.new_empty((b, n_pix, c))  # cheaper on the host than torch.empty(..., device=)
     amax = pix.new_empty((b, n_pix, c))
-    _launch(name, vals.device, pix, vals, vmax, amax, b, n, n_pix, c)
+    per = pixel_max_range(n_pix, c)
+    _expect(-(-n_pix // per) < 65536, name, f"{n_pix} pixels exceed the grid")
+    _launch(name, vals.device, pix, vals, vmax, amax, b, n, n_pix, c, per,
+            path="pixel_max_ranges" if per < n_pix else None)
     return vmax, amax
 
 
@@ -470,12 +551,12 @@ def ball_query(centroids: torch.Tensor, points: torch.Tensor, radius: float, k: 
     if not _on_card(name, centroids, points):
         return ball_query_plain(centroids, points, radius, k)
     g = -(-n // k)
-    _expect(g <= BQ_MAX_G, name, f"group of {g} points exceeds the kernel's limit of {BQ_MAX_G}")
+    gc = sel_chunk(g, BQ_MAX_G)
     _expect(b < 65536, name, "the kernel takes at most 65535 clouds")
     idx = torch.empty((b, c, k), dtype=torch.int32, device=points.device)
     mask = torch.empty((b, c, k), dtype=torch.bool, device=points.device)
-    _launch(name, points.device, centroids, points, idx, mask, b, n, c, k, g,
-            radius_sq(radius))
+    _launch(name, points.device, centroids, points, idx, mask, b, n, c, k, g, gc,
+            radius_sq(radius), path="ball_query_chunked" if gc < g else None)
     return idx, mask
 
 
@@ -930,6 +1011,20 @@ def sa_train_dq_ordered_plain(de: torch.Tensor, idx: torch.Tensor, mask: torch.T
     return knn_scatter_ordered_plain(ids, None, de, n, pairs=c * k, chunk=c * k)
 
 
+def sa_train_dq_chunks(n: int, c: int, k: int):
+    """(points, centroids) of a window of csrc/sa_train.cu's dq pass for
+    groups of g = ceil(n / k) points and c centroids: (g, c), one window,
+    when a block's shared memory holds the keys and lists (c ints each), the
+    eight warps' counts and the starts (9 g + 1 ints), as at every PROD
+    shape; else windows of at most half of it in counts and starts, and
+    the centroids in the rest."""
+    g = -(-n // k)
+    if 2 * c + 9 * g + 1 <= SA_DQ_INTS:
+        return g, c
+    gp = min(g, (SA_DQ_INTS // 2 - 1) // 9)
+    return gp, min(c, (SA_DQ_INTS - 9 * gp - 1) // 2)
+
+
 def sa_train_bwd2(q, cterm, idx, mask, aff, w2, awin, gt, edges: bool = False):
     """BN1's backward at every valid edge through relu(e0): de0, from dy1 =
     BN2's backward @ W2^T with two layers (aff rows as `sa_train_bwd1`) or
@@ -941,7 +1036,9 @@ def sa_train_bwd2(q, cterm, idx, mask, aff, w2, awin, gt, edges: bool = False):
     sums the buffer into dq in one fixed order
     (`sa_train_dq_ordered_plain`), so two runs give the same bits. The dq
     pass takes idx from the grouped selection (`ball_query`): slot j picks
-    only points of group j, the ceil(N/K) points from j x ceil(N/K)."""
+    only points of group j, the ceil(N/K) points from j x ceil(N/K); past
+    its shared memory it walks a group in windows (`sa_train_dq_chunks`),
+    in the same order of sums."""
     name = "sa_train_bwd2"
     b, n, c, k, ch1, ch2 = _sa_check(name, q, cterm, idx, mask, aff, w2, awin, gt)
     if not _on_card(name, q, cterm, idx, mask, aff, w2, awin, gt):
@@ -955,6 +1052,8 @@ def sa_train_bwd2(q, cterm, idx, mask, aff, w2, awin, gt, edges: bool = False):
     de = torch.empty((b, c * k, ch1), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, n, ch1), dtype=torch.float32, device=q.device)
     dcterm = torch.empty((b, c, ch1), dtype=torch.float32, device=q.device)
+    gp, cc = sa_train_dq_chunks(n, c, k)
     _launch(name, q.device, q, cterm, idx, mask, aff, w2, awin, gt, de, dq, dcterm,
-            grid, b, n, c, k, ch1, int(two))
+            grid, b, n, c, k, ch1, int(two), gp, cc,
+            path="sa_train_dq_chunked" if (gp, cc) != (-(-n // k), c) else None)
     return (dq, dcterm, de) if edges else (dq, dcterm)

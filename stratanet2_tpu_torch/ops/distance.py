@@ -54,3 +54,17 @@ def expanded_d2(
     ab = dot3(a[:, :, None, :], b[:, None, :, :])
     d2 = (a_sq[:, :, None] - 2.0 * ab) + b_sq[:, None, :]
     return torch.clamp_min(d2, 0.0)
+
+
+CPU_TILE = 1 << 19  # (B, rows, N) distance entries a tile of a plain selection on the CPU
+
+
+def tile_rows(device: torch.device, b: int, n: int, card_rows: int) -> int:
+    """Rows (centroids or targets) a distance tile of a plain selection
+    takes against n points in each of b clouds: on the CPU as many as fill
+    CPU_TILE entries, which the float64 fma chains then reuse from cache
+    (3.4-4.6x faster than 256-512 rows at N = 65,536); on the card
+    `card_rows`. Tiles cut rows only, so every distance and pick is the
+    same at any tile."""
+    return max(1, CPU_TILE // (b * n)) if device.type == "cpu" else card_rows
+

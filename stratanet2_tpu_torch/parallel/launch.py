@@ -122,7 +122,7 @@ def _rank_main(workdir: str, rank: int) -> int:
         traceback.print_exc()
         sys.stdout.flush()
         return 1
-    multihost.shutdown()
+    multihost.shutdown()  # exits; returns only without a group (one rank)
     return 0
 
 

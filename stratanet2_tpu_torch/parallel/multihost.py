@@ -19,6 +19,7 @@ from __future__ import annotations
 import datetime
 import logging
 import os
+import sys
 from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
@@ -87,9 +88,26 @@ def initialize(
 
 
 def shutdown() -> None:
-    """Leave the process group, if this process joined one."""
-    if dist.is_available() and dist.is_initialized():
-        dist.destroy_process_group()
+    """End a process that joined a group, once all of its work is done; a
+    process that joined none returns and exits as usual. Every rank waits
+    at a barrier, so that none tears the group down while a peer still runs
+    a collective in it; then it destroys the group, flushes the logs and
+    the standard streams and exits with status 0 through os._exit, without
+    the interpreter's teardown: a gloo rank could abort in the C++ teardown
+    at exit, after every file was written ("terminate called without an
+    active exception": `cli.predict` ranks under torchrun on the CPU, in
+    about one run of thirty with the barrier alone). So nothing registered
+    with atexit runs (multiprocessing's cleanup of daemon workers among
+    it): a caller writes and closes everything before it calls this, as
+    the entry points do at the end of `main`."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    dist.barrier()
+    dist.destroy_process_group()
+    logging.shutdown()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def rank() -> int:

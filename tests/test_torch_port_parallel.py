@@ -313,6 +313,45 @@ def test_point_sharded_eligible_in_one_process():
     assert not ok and why == "needs more than one device"
 
 
+def _fake_group(monkeypatch, calls):
+    monkeypatch.setattr(multihost.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(multihost.dist, "barrier", lambda *a, **k: calls.append("barrier"))
+    monkeypatch.setattr(multihost.dist, "destroy_process_group",
+                        lambda *a, **k: calls.append("destroy"))
+    monkeypatch.setattr(multihost.os, "_exit", lambda code: calls.append(("exit", code)))
+    monkeypatch.setattr(multihost.logging, "shutdown", lambda: calls.append("logging"))
+
+
+def test_shutdown_waits_at_a_barrier_before_leaving(monkeypatch):
+    """Every rank passes a barrier before it destroys the group, so that no
+    rank tears the group down while a peer still runs a collective in it;
+    a process that joined no group calls neither."""
+    calls = []
+    _fake_group(monkeypatch, calls)
+    multihost.shutdown()
+    assert calls.index("barrier") < calls.index("destroy")
+    calls.clear()
+    monkeypatch.setattr(multihost.dist, "is_initialized", lambda: False)
+    multihost.shutdown()
+    assert calls == []
+
+
+def test_shutdown_leaves_the_group_then_exits_without_teardown(monkeypatch, capsys):
+    """A process that joined a group passes the barrier, destroys the group,
+    flushes its logs and what it printed and ends through os._exit(0) (no
+    C++ teardown at exit); one that joined none returns, to exit as usual."""
+    calls = []
+    _fake_group(monkeypatch, calls)
+    print("written before the exit")
+    multihost.shutdown()
+    assert calls == ["barrier", "destroy", "logging", ("exit", 0)]
+    assert "written before the exit" in capsys.readouterr().out
+    calls.clear()
+    monkeypatch.setattr(multihost.dist, "is_initialized", lambda: False)
+    multihost.shutdown()
+    assert calls == []
+
+
 def test_initialize_reads_the_environment(monkeypatch):
     """One process: no-op without WORLD_SIZE / JAX_NUM_PROCESSES (or with
     1). Several: the backend must be named, the process id must be in

@@ -271,7 +271,7 @@ def test_knn_slices_fill_the_card(b, t, slices):
         assert b * -(-t // 32) * (slices // 2) < ck.KNN_MIN_WARPS
 
 
-DQ_16 = "_Z18sa_train_dq_kernelILi16EEvPKfPKiPKbPfiiii"
+DQ_16 = "_Z18sa_train_dq_kernelILi16ELb0EEvPKfPKiPKbPfiiiiii"
 # phase 16's atomics check: the kernels that write each output element once,
 # with shared-memory atomics only (ATOMS, not counted)
 ATOMIC_SASS = f"""
@@ -280,7 +280,7 @@ ATOMIC_SASS = f"""
         /*0010*/                   LDG.E R4, [R6.64] ;
         /*0020*/                   STG.E [R8.64], R4 ;
         /*0030*/                   EXIT ;
-        Function : _Z16pixel_max_kernelPKiPKfPfPiiii
+        Function : _Z16pixel_max_kernelPKiPKfPfPiiiii
         /*0000*/                   ATOMS.CAS.64 R4, [R2], R4, R6 ;
         /*0010*/                   STG.E [R8.64], R4 ;
         /*0020*/                   EXIT ;
@@ -323,7 +323,8 @@ def test_atomic_free_kernels_are_the_wrappers_device_kernels():
             for kernel in cs.DEVICE_KERNELS[name]}
     assert set(cs.ATOMIC_FREE) == want
     src = (Path(ck.__file__).parent / "csrc" / "sa_train.cu").read_text()
-    assert "sa_train_dq_kernel<16><<<" in src and "sa_train_dq_kernel<32><<<" in src
+    assert "launch_bwd2<16, true" in src and "launch_bwd2<32, false" in src
+    assert "sa_train_dq_kernel<C, true> : sa_train_dq_kernel<C, false>" in src
 
 
 def _degrees(idx, s):
@@ -362,7 +363,9 @@ def test_knn_scatter_reference_sites_are_hot_and_ragged():
 
 def test_pixel_max_reference_sites_tie_across_cluster_blocks():
     """The inputs of pixel_max's reference sites have the properties their
-    comment in chip_smoke.py claims, for every cluster size tried."""
+    comment in chip_smoke.py claims, for every cluster size tried; the
+    large tables' sites take several pixel ranges, the one at P = 100 with
+    equal maxima on both sides of its ranges' boundary."""
     calls = cs.pixel_max_reference_calls(torch, torch.device("cpu"))
     assert len(calls) == len(cs.PIXEL_MAX_REFERENCE)
     for (kind, b, n, p), (pix, vals, p2) in zip(cs.PIXEL_MAX_REFERENCE, calls):
@@ -370,10 +373,20 @@ def test_pixel_max_reference_sites_tie_across_cluster_blocks():
         inside = (pix >= 0) & (pix < p2)
         vmax, amax = ck.pixel_max_plain(pix, vals, p2)
         assert bool((~inside).any()) and bool((amax[..., 0] < 0).any())
+        per = ck.pixel_max_range(p2, 3)
+        assert (per < p2) == (p >= 100)
         if kind == "tiny":
             for size in (4, 8):  # the last block of the cluster gets no point
                 assert (size - 1) * -(-n // size) >= n
             continue
+        if kind == "wide":  # ten ranges, most pixels empty
+            assert -(-p2 // per) == 10 and float((amax[..., 0] < 0).float().mean()) > 0.9
+            continue
+        if per < p2:  # a maximum value on both sides of the first boundary
+            occupied = amax[0, :, 0] >= 0
+            left = set(vmax[0, :per, 0][occupied[:per]].tolist())
+            right = set(vmax[0, per:2 * per, 0][occupied[per:2 * per]].tolist())
+            assert max(left) == max(right)
         assert torch.equal(vals * 2, (vals * 2).round())
         assert all(n % m for m in (2, 4, 8, 256, 512, 1024))
         index = torch.where(inside, pix, p2).long()[..., None].expand(b, n, 3)
@@ -979,3 +992,92 @@ def test_optin_route_rejects_launches_off_its_route(optin_on_cpu, monkeypatch):
     monkeypatch.setitem(cs.OPTIN_ROUTES, "nearest", (dict(ball_query_method="nearest"), want, want))
     with pytest.raises(SystemExit, match="ball_query_nearest launched 0 times"):
         cs.optin_route(torch, ck, optin_on_cpu, torch.device("cpu"), "cpu", "nearest")
+
+
+def test_dense_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """Phase 15h's control flow on the CPU, with the kernels' limits cut so
+    that a small step crosses each of them as the dense step does: FPS rows
+    of 1,024 points past a block's 512 (SA1's parts: the cluster), SA1's
+    groups of 64 points past a slice of 16 (chunked; SA2's groups of 8 are
+    not), a 20 x 20 x 3 table past 64 slots (pixel ranges), the global FPS
+    site past 8 slices, the dq windows' site past 1,000 ints of lists and
+    counts, and a train step at N=2,560 past them. The plain versions run,
+    so the launch, path and profile
+    checks are the ones let through; every path's sites are held to the
+    plain version, and B=1 card vs CPU runs on both sides on the CPU."""
+    import json
+
+    from stratanet2_tpu_torch.config import default_config
+
+    monkeypatch.setattr(ck, "FPS_MAX_N", 512)
+    monkeypatch.setattr(ck, "BQ_MAX_G", 16)
+    monkeypatch.setattr(ck, "sa_fused_eval_max_g", lambda *a: 16)
+    monkeypatch.setattr(ck, "PIXEL_MAX_TABLE", 64)
+    monkeypatch.setattr(ck, "SA_DQ_INTS", 1000)
+    monkeypatch.setattr(cs, "DQ_REFERENCE", (1, 2000, 500, 32, 16))
+    # the dq pass's order of sums is the kernel's (the plain version sums in
+    # float64); bwd2_dq_checks's own tests hold it, here it is only called
+    dq_sites = []
+    monkeypatch.setattr(cs, "bwd2_dq_checks",
+                        lambda torch, ck, site, args, got: dq_sites.append(site) or (None, {}))
+    monkeypatch.setattr(cs, "cuda_ms", lambda *a, **k: 0.0)
+    monkeypatch.setattr(cs, "device_profile", lambda *a, **k: (0.0, 10, 10))
+    monkeypatch.setattr(cs, "DENSE_STEPS", 1)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "FPS_REFERENCE", cs.FPS_REFERENCE[:-1] + (("uniform", 1, 4097, 64),))
+    named = {"dense_serve_profile": cs.DENSE_SERVE_PATHS,
+             "dense_train_profile": cs.DENSE_TRAIN_PATHS}
+
+    def profile(torch, step, args, ms, label, launches, steps, strict, warmup):
+        return ([(0.5, 1.0, f"void {cs.DENSE_KERNELS[path]}<16>(float const*)")
+                 for path, count in named[label].items() if count]
+                + [(0.5, 1.0, f"void {cs.DEVICE_KERNELS[name][0]}(float const*)")
+                   for name, count in launches.items() if count])
+
+    monkeypatch.setattr(cs, "profile_step", profile)
+    trains = []
+    monkeypatch.setattr(cs, "compare_train_with_cpu", lambda *a, **k: trains.append((a, k)))
+    check, missed = cs.check, []
+
+    def lenient(cond, msg):
+        if not cond and ("launched" in msg or "launches of" in msg):
+            missed.append(msg)
+            return
+        check(cond, msg)
+
+    monkeypatch.setattr(cs, "check", lenient)
+    small = {"B": 2, "model": {"subsample_size": 2048, "diam_pix": 20}, "dq_N": 2560}
+    rows = cs.dense_phase(torch, ck, default_config(), torch.device("cpu"), "cpu", small=small)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert set(rows) == set(cs.DENSE_KERNELS) == set(cs.DENSE_WRAPPERS)
+    for path, row in rows.items():
+        assert row["max_abs_err"] == 0.0 and row["bound_ms"] > 0, path
+        assert row["launches"] == {"serve": 0, "train": 0}  # CPU: plain versions
+    held = [x for x in lines if str(x.get("site", "")).startswith("dense ") and "shape" in x]
+    assert held and all(x["differing_selections"] == 0 for x in held)
+    # every path's sites in both steps held to the plain version, and the
+    # global FPS path's reference site; each row timed at one step's sites
+    steps = {"serve": cs.DENSE_SERVE_PATHS, "train": cs.DENSE_TRAIN_PATHS}
+    assert sorted({tuple(x["site"].split()[1:3]) for x in held}) == sorted(
+        [(step, path) for path in cs.DENSE_KERNELS for step in steps if steps[step].get(path)]
+        + [("reference", "fps_global"), ("reference", "sa_train_dq_chunked")])
+    timed = {tuple(x["site"].split()[1:3]) for x in held if "kernel_ms" in x}
+    assert sorted(path for _, path in timed) == sorted(cs.DENSE_KERNELS)
+    assert dq_sites == ["dense sa_train_dq_chunked 0"]
+    (dense,) = [x for x in lines if x.get("phase") == "dense"]
+    assert dense["serve_cpu_B1_max_abs_diff"] == 0.0 and dense["N"] == 2048
+    assert (dense["sa_train_bwd2_edge_buffer_bytes"]
+            > dense["sa_train_bwd2_edge_buffer_allocated_bytes"] > 0)
+    (args, kwargs), = trains
+    assert kwargs["label"] == "dense_train_cpu_reference_B1" and args[4].shape[0] == 1
+    # the wrappers' and the paths' launch checks of both steps, and each
+    # path's kernel named in a profile where nothing launched
+    serve_on = sum(v > 0 for v in cs.SERVE_LAUNCHES.values())
+    train_on = sum(v > 0 for v in cs.TRAIN_LAUNCHES.values())
+    paths_on = sum(v > 0 for v in cs.DENSE_SERVE_PATHS.values()) + sum(
+        v > 0 for v in cs.DENSE_TRAIN_PATHS.values())
+    dq_on = train_on + sum(v > 0 for v in cs.DENSE_DQ_TRAIN_PATHS.values())
+    assert len(missed) == serve_on + train_on + 2 * paths_on + dq_on
+    (dq_step,) = [x for x in lines if x.get("phase") == "dense_dq_train"]
+    assert dq_step["N"] == 2560 and len(dq_step["train_step_ms_all"]) == cs.DENSE_DQ_STEPS
+    assert all(np.isfinite(v) for v in dq_step["loss_parts"].values())
