@@ -160,9 +160,13 @@ Phases, in order, each failing loudly:
      steps held to the plain versions (0 differing picks and entries) and
      timed, the global FPS path and sa_train_bwd2's dq windows at their
      reference sites (DQ_REFERENCE: SA1's shape at subsample_size 80,000),
-     FPS's time a pick on both; a whole train step at B=20 x 80,000
-     (`"phase": "dense_dq_train"`: launches by wrapper and by path, the dq
-     windows among them, outputs, the median of 3 steps); the median of DENSE_STEPS steps of each and one profiled step of
+     FPS's time a pick on both and the clusters the card holds at once at
+     each long-row shape (`"phase": "fps_cluster_resident"`); a whole
+     train step at B=20 x 80,000 (`"phase": "dense_dq_train"`: launches by
+     wrapper and by path, the dq windows among them, outputs, its FPS rows
+     and SA1 dq windows held to the plain versions and timed, the median of
+     3 steps, one profiled step, `"dense_dq_train_profile"`); the median of
+     DENSE_STEPS steps of each and one profiled step of
      each, in which each path's kernel shows by name exactly when it
      launched; sa_train_bwd2's edge buffer; B=1 on the card against the port
      on the CPU (serve within CPU_ATOL, train within phase 15's bounds);
@@ -276,7 +280,9 @@ Phases, in order, each failing loudly:
      train step, device ms in each from phase 15h's profiles, the CUDA-event
      ms, plain ms, bound and max |kernel - plain| of its sites in the dense
      serve step, or the train step for the ball query and the backward, or
-     at its reference site for the global FPS path; FPS's us a pick), the
+     at its reference site for the global FPS path; FPS's us a pick; the
+     cluster FPS and the dq windows also at the 80,000-point step's
+     sites, `step80k`), the
      `{"kernels": [...]}` line (all twelve; the nearest kernel's row is the
      nearest serve step's) and the final `{"ok": true, ...}` line.
 
@@ -419,7 +425,8 @@ SA_TRAIN_REF_SITES = {"sa_train_stats": 1, "sa_train_main": 2, "sa_train_bwd1": 
 # (phase 16): each writes every output element once, so two runs give the
 # same bits
 ATOMIC_FREE = (("knn_scatter_kernel", "knn_scatter"), ("pixel_max_kernel", "pixel_max"),
-               ("sa_train_bwd2_kernel", "sa_train"), ("sa_train_dq_kernel", "sa_train"))
+               ("sa_train_bwd2_kernel", "sa_train"), ("sa_train_dq_kernel", "sa_train"),
+               ("sa_train_dq_keys_kernel", "sa_train"))
 # csrc/sa_train.cu's passes that take their slots in batches, by (kernel, C1)
 EDGE_LOOP_INSTANCES = (("sa_train_stats", 16), ("sa_train_main", 16), ("sa_train_main", 32),
                        ("sa_train_bwd1", 16), ("sa_train_bwd2", 16), ("sa_train_bwd2", 32))
@@ -535,9 +542,10 @@ DENSE_KERNELS = {"fps_cluster": "fps_cluster_kernel", "fps_global": "fps_cluster
                  "sa_fused_eval_chunked": "sa_kernel<16, 16, true, true>",
                  "ball_query_chunked": "ball_query_kernel<true>",
                  "pixel_max_ranges": "pixel_max_kernel",
-                 "sa_train_dq_chunked": "sa_train_dq_kernel<16, true>",
+                 "sa_train_dq_chunked": ("sa_train_dq_kernel<16, true>",
+                                         "sa_train_dq_keys_kernel"),
                  "pixel_max_bwd": "pixel_max_bwd_kernel"}
-# sa_train_bwd2's dq windows (cuda_kernels.sa_train_dq_chunks) at SA1's
+# sa_train_bwd2's dq windows (cuda_kernels.sa_train_dq_plan) at SA1's
 # shape of subsample_size 80,000, (B, N, C, K, C1): 4 (2 C + 9 ceil(N/K) +
 # 1) B = 250,004 B of lists and counts a block, past its 232,448 B, so the
 # dense steps (N = 65,536: 204,804 B) do not reach them; drawn as the SA
@@ -641,7 +649,8 @@ DEVICE_KERNELS = {"fps": ("fps_kernel", "fps_cluster_kernel"), "sa_fused_eval": 
                   "ball_query": ("ball_query_kernel",), "knn_scatter": ("knn_scatter_kernel",),
                   "pixel_max_bwd": ("pixel_max_bwd_kernel",),
                   **{name: (f"{name}_kernel",) for name in SA_TRAIN},
-                  "sa_train_bwd2": ("sa_train_bwd2_kernel", "sa_train_dq_kernel"),
+                  "sa_train_bwd2": ("sa_train_bwd2_kernel", "sa_train_dq_kernel",
+                                    "sa_train_dq_keys_kernel"),
                   "ball_query_nearest": ("ball_query_nearest_kernel", "nearest_grid_kernel")}
 
 
@@ -681,7 +690,9 @@ def device_profile(torch, fn, prefixes, reps: int = 10):
         if attempt:
             time.sleep(0.1)
         with torch.profiler.profile(activities=activities) as prof:
-            for _ in range(reps):
+            # twice the calls each try: late in a long run a trace lost its
+            # first tens of ms, all of 10 calls of a few ms
+            for _ in range(reps << attempt):
                 fn()
             torch.cuda.synchronize()
         ms, launches, ops = 0.0, 0, 0
@@ -1279,7 +1290,9 @@ def check_site(torch, ck, name, site, args):
         err = float((got - want).abs().max())
         r, n, _ = xyz.shape
         nbytes, ops = r * n * 12 + r * 4 + r * s * 4, 10.0 * (s - 1) * r * n
-        shape = f"rows={r} N={n} S={s} path={ck.fps_path(n)[0]}"
+        path, cs = ck.fps_path(n, r, ck.fps_cluster_resident(n, xyz.device)
+                               if xyz.is_cuda and n > ck.FPS_MAX_N else None)
+        shape = f"rows={r} N={n} S={s} path={path} cs={cs}"
     elif name == "sa_fused_eval":
         q, xyz, cent, cterm, a1, c1, w2, b2, a2, c2, radius, k = args
         got, want = kernel(*args), plain(*args)
@@ -1332,7 +1345,7 @@ def check_site(torch, ck, name, site, args):
         lib_ms, _ = bwd2_dq_checks(torch, ck, site, args, got)
         shape, nbytes, ops, err = compare_sa_train_site(torch, ck, name, site, args, got, want)
         q, _, idx = args[:3]
-        shape += f" dq_windows={ck.sa_train_dq_chunks(q.shape[1], idx.shape[1], idx.shape[2])}"
+        shape += f" dq_windows={ck.sa_train_dq_plan(q.shape[0], q.shape[1], *idx.shape[1:])}"
     else:  # pixel_max_bwd
         pix, amax, g = args
         got, want = kernel(*args), plain(*args)
@@ -1548,11 +1561,16 @@ def bwd2_dq_checks(torch, ck, site, args, got):
     lib_out = torch.zeros((b * n, ch1), device=q.device)
     lib_ms = cuda_ms(torch, lambda: lib_out.zero_().index_add_(0, flat, de.reshape(-1, ch1)),
                      20)  # masked slots add their exact 0 to point 0
-    parts = {}
-    for part, kernel in (("edge_pass", "sa_train_bwd2_kernel"), ("dq_pass", "sa_train_dq_kernel")):
+    parts = dict(edge_pass_device_ms=0.0, dq_pass_device_ms=0.0)
+    # the dq pass: its keys kernel too where it takes windows
+    windowed = ck.sa_train_dq_plan(b, n, c, k) is not None
+    for part, kernel in (("edge_pass", "sa_train_bwd2_kernel"), ("dq_pass", "sa_train_dq_kernel"),
+                         ("dq_pass", "sa_train_dq_keys_kernel")):
+        if kernel == "sa_train_dq_keys_kernel" and not windowed:
+            continue
         ms, launches, dev_ops = device_profile(torch, lambda: ck.sa_train_bwd2(*args), (kernel,))
         check(launches > 0, f"{where}: the profiler saw no {kernel}")
-        parts[f"{part}_device_ms"] = ms
+        parts[f"{part}_device_ms"] += ms
     buffer_bytes = 4.0 * b * c * k * ch1 + 4.0 * float(mask.sum()) * ch1
     parts.update(edge_buffer_bytes=buffer_bytes,
                  edge_buffer_hbm_ms=buffer_bytes / HBM_BYTES_PER_S * 1e3)
@@ -3641,7 +3659,7 @@ def dense_path_sites(ck, serve_calls, train_calls):
     sites = {path: [] for path in ck.PATHS if path not in ("fps_global", "sa_train_dq_chunked")}
     for step, calls in (("serve", serve_calls), ("train", train_calls)):
         for args in calls["fps"]:
-            if ck.fps_path(args[0].shape[1])[0] == "cluster":
+            if ck.fps_path(args[0].shape[1], args[0].shape[0])[0] == "cluster":
                 sites["fps_cluster"].append((step, "fps", args))
         for name, path, max_g in (("sa_fused_eval", "sa_fused_eval_chunked", sa_max_g),
                                   ("ball_query", "ball_query_chunked", lambda a: ck.BQ_MAX_G)):
@@ -3654,6 +3672,23 @@ def dense_path_sites(ck, serve_calls, train_calls):
                 sites["pixel_max_ranges"].append((step, "pixel_max", args))
     sites["pixel_max_bwd"] = [("train", "pixel_max_bwd", a) for a in train_calls["pixel_max_bwd"]]
     return sites
+
+
+def fps_resident(torch, ck, device, shapes):
+    """At each long-row FPS shape (rows, N): the clusters of each size the
+    card holds at once (`cuda_kernels.fps_cluster_resident`), the table the
+    CPU tests take (FPS_RESIDENT) and the wrapper's cluster size; fails if
+    a cluster size would hold every row at once but the wrapper's does
+    not."""
+    for rows, n in shapes:
+        resident = ck.fps_cluster_resident(n, device)
+        path, cs = ck.fps_path(n, rows, resident)
+        print(json.dumps({"phase": "fps_cluster_resident", "rows": rows, "N": n, "path": path,
+                          "cs": cs, "resident": resident, "table": ck.FPS_RESIDENT,
+                          "one_wave": rows <= resident[cs]}), flush=True)
+        if path == "cluster" and any(rows <= resident[c] for c in range(2, ck.FPS_CLUSTER_MAX + 1)
+                                     if -(-n // c) <= ck.FPS_MAX_N):
+            check(rows <= resident[cs], f"fps rows={rows} N={n}: cs={cs} leaves rows waiting")
 
 
 def dense_phase(torch, ck, cfg, device, card, small=None):
@@ -3760,6 +3795,9 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
     fps_sites = [a for _, _, a in sites["fps_cluster"][:1] + sites["fps_global"]]
     rows["fps_cluster"]["per_pick_us"], rows["fps_global"]["per_pick_us"] = (
         cuda_ms(torch, lambda a=a: ck.fps(*a), 5) / (a[1] - 1) * 1e3 for a in fps_sites)
+    dq_n = DENSE_DQ_N if small is None else small["dq_N"]
+    fps_resident(torch, ck, device, [(a[0].shape[0], a[0].shape[1]) for a in fps_sites] +
+                 [(2 * b, -(-dq_n // 2))])
     del serve_calls, sites
 
     edges = [(4.0 * a[2].numel() * a[0].shape[2], 4.0 * float(a[3].sum()) * a[0].shape[2])
@@ -3820,8 +3858,8 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
                            label="dense_train_cpu_reference_B1")
     del st, model, cloud, xyz, batch, m, opt, sched
     torch.cuda.empty_cache()  # the dense steps' blocks go back before the next phases
-    dense_dq_step(torch, ck, dcfg, device, card,
-                  DENSE_DQ_N if small is None else small["dq_N"])
+    for path, row in dense_dq_step(torch, ck, dcfg, device, card, dq_n).items():
+        rows[path]["step80k"] = row
     torch.cuda.empty_cache()
     print(json.dumps({"phase": "dense_seconds", "seconds": time.perf_counter() - t0}), flush=True)
     return rows
@@ -3832,15 +3870,25 @@ def dense_dq_step(torch, ck, dcfg, device, card, n):
     (DENSE_DQ_N: past what sa_train_bwd2's dq pass holds in one window):
     counted launches by wrapper (TRAIN_LAUNCHES) and by path
     (DENSE_DQ_TRAIN_PATHS), loss parts and gradients finite, every
-    parameter changed, and the median of DENSE_DQ_STEPS steps."""
+    parameter changed; its cluster FPS rows and windowed dq sites held to
+    the plain versions (0 differing picks; dq bit for bit its ordered
+    plain, two calls equal) and timed; the median of DENSE_DQ_STEPS steps
+    and one profiled step (`"dense_dq_train_profile"`: device ms by
+    kernel). Returns the two paths' rows at this step's sites."""
     from dataclasses import replace
 
     from stratanet2_tpu_torch.learning.train import make_optimizer
 
     qcfg = replace(dcfg, model=replace(dcfg.model, subsample_size=n))
     st = optin_setup(torch, qcfg, device, {})
-    m = copy.deepcopy(st["train_model"])
-    opt, sched = make_optimizer(qcfg, m, STEPS_PER_EPOCH)
+
+    def fresh():
+        m = copy.deepcopy(st["train_model"])
+        return (m, *make_optimizer(qcfg, m, STEPS_PER_EPOCH))
+
+    calls = capture_calls(ck, ["fps", "sa_train_bwd2"],
+                          lambda: st["train"](*fresh(), *st["batch"]))
+    m, opt, sched = fresh()
     before = {k: v.detach().clone() for k, v in m.named_parameters()}
     ck.reset_launches()
     comps = st["train"](m, opt, sched, *st["batch"])
@@ -3854,14 +3902,41 @@ def dense_dq_step(torch, ck, dcfg, device, card, n):
               f"dense dq train step: gradient of {name} missing or not finite")
         check(not torch.equal(prm.detach(), before[name]),
               f"dense dq train step: {name} did not change")
+    sites = {"fps_cluster": ("fps", [a for a in calls["fps"]
+                                     if ck.fps_path(a[0].shape[1], a[0].shape[0])[0] == "cluster"]),
+             "sa_train_dq_chunked": ("sa_train_bwd2", [
+                 a for a in calls["sa_train_bwd2"]
+                 if ck.sa_train_dq_plan(a[0].shape[0], a[0].shape[1], *a[2].shape[1:])])}
+    del calls
+    rows = {}
+    with torch.no_grad():
+        for path, (name, path_sites) in sites.items():
+            check(len(path_sites) > 0, f"dense dq train step: no call site of {path}")
+            agg = new_agg()
+            for i, args in enumerate(path_sites):
+                shape, nbytes, ops, err, diff_sel, lib_ms, _ = check_site(
+                    torch, ck, name, f"dense_dq {path} {i}", args)
+                report_site(torch, name, f"dense_dq train {path} {i}", shape, getattr(ck, name),
+                            getattr(ck, f"{name}_plain"), args, nbytes, ops, err, diff_sel,
+                            lib_ms, agg, plain_reps=1)
+            rows[path] = finish_agg(agg)
+    fps_args = sites["fps_cluster"][1][0]
+    rows["fps_cluster"]["per_pick_us"] = (cuda_ms(torch, lambda: ck.fps(*fps_args), 5)
+                                          / (fps_args[1] - 1) * 1e3)
+    del sites, fps_args
     ms, every = timed_steps(torch, lambda: st["train"](m, opt, sched, *st["batch"]),
                             DENSE_DQ_STEPS)
+    kernels = profile_step(torch, st["train"], (m, opt, sched, *st["batch"]), ms,
+                           "dense_dq_train_profile", TRAIN_LAUNCHES, steps=1, strict=False,
+                           warmup=1)
     b = qcfg.train.batch_size
     print(json.dumps({"phase": "dense_dq_train", "B": b, "N": n,
                       "diam_pix": qcfg.model.diam_pix, "train_step_ms_median": ms,
                       "train_step_ms_all": every, "points_per_s_train": b * n / (ms / 1e3),
+                      "device_busy_ms": sum(k for k, _, _ in kernels),
                       "loss_parts": {k: float(v) for k, v in comps.items()}, "card": card}),
           flush=True)
+    return rows
 
 
 # ---------------------------------------------------------------------------

@@ -38,9 +38,14 @@ copy, to run them in turns:
         stratanet2_tpu_torch/ops/csrc/ball_query_nearest.cu \
         stratanet2_tpu_torch/ops/csrc/ball_query_nearest.cu@kNearBuf=32
 
-fps runs the long rows' designs (see `run_fps`):
+fps runs fps_kernel at the PROD rows and the long rows' designs (see
+`run_fps`), sa_train_bwd2 the windowed dq pass's (see `run_bwd2`); PR 16's
+designs are files of scripts/variants/ that include the package's source,
+so one library holds both designs:
 
-    python3 scripts/kernel_variants.py fps scripts/variants/fps_one_block.cu
+    python3 scripts/kernel_variants.py fps scripts/variants/fps_cluster_barrier.cu \
+        scripts/variants/fps_one_block.cu
+    python3 scripts/kernel_variants.py sa_train_bwd2 scripts/variants/sa_train_dq_windows.cu
 
 Kernels: knn_interpolate, sa_train_stats, sa_train_main, sa_train_bwd1, sa_train_bwd2,
 knn_scatter, pixel_max, ball_query_nearest, fps.
@@ -82,6 +87,15 @@ def source_file(spec: str) -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(text)
     return out
+
+
+def source_text(spec: str) -> str:
+    """A SOURCE's text with the package sources it includes
+    (`#include "<name>.cu"`, as the files of scripts/variants/ do) inlined."""
+    from stratanet2_tpu_torch.ops import _build
+
+    return re.sub(r'#include "(\w+\.cu)"', lambda m: (_build.CSRC / m.group(1)).read_text(),
+                  source_file(spec).read_text())
 
 
 def build(sources):
@@ -300,42 +314,108 @@ def run_bwd1(torch, ck, libs, gen, device):
             }), flush=True)
 
 
+def pr16_dq_chunks(n, c, k):
+    """PR 16's dq windows, (points, centroids) a window (its
+    cuda_kernels.sa_train_dq_chunks): the group and every centroid while
+    they fit, else windows of points within half of the block and the
+    centroids in the rest."""
+    g = -(-n // k)
+    ints = 227 * 1024 // 4
+    if 2 * c + 9 * g + 1 <= ints:
+        return g, c
+    gp = min(g, (ints // 2 - 1) // 9)
+    return gp, min(c, (ints - 9 * gp - 1) // 2)
+
+
+def dq_plans(ck, b, n, c, k):
+    """The windowed dq pass's plans to time at a shape, {label: (gp, lcap)}:
+    the wrapper's (`sa_train_dq_plan`) and one window a group fewer and
+    more (lcap by the same rule, where the counts fit); {"prod": None}
+    where the wrapper takes the PROD instance."""
+    plan = ck.sa_train_dq_plan(b, n, c, k)
+    if plan is None:
+        return {"prod": None}
+    g = -(-n // k)
+    w = -(-g // plan[0])
+    plans = {"plan": plan}
+    for label, ww in (("W-1", w - 1), ("W+1", w + 1)):
+        gp = -(-g // max(ww, 1))
+        if ww >= 1 and -(-g // gp) == ww and 9 * gp + 1 <= ck.SA_DQ_INTS // 4:
+            plans[label] = (gp, min(c, ck.SA_DQ_PAIR_INTS - 9 * gp - 1))
+    return plans
+
+
 def run_bwd2(torch, ck, libs, gen, device):
-    """The edge pass and the dq pass of one `sa_train_bwd2_launch`: dq and
-    dcterm against the plain version, the edge buffer against the plain
-    de0, dq bit for bit against `sa_train_dq_ordered_plain` of the buffer
-    and two launches against each other, the CUDA-event ms of a launch and
-    the device ms of each pass."""
+    """The edge pass and the dq pass of one bwd2 launch at the PROD sites,
+    at chip_smoke.DQ_REFERENCE (1 x 80,000, 20,000 centroids, K = 32) and at
+    the SA1 site of a train step of 20 x 80,000 (synthetic draws as
+    chip_smoke's SA train reference sites): dq and dcterm against the plain
+    version, the edge buffer against the plain de0, dq bit for bit against
+    `sa_train_dq_ordered_plain` of the buffer and two launches against each
+    other, the CUDA-event ms of a launch and the device ms of each pass
+    (the dq pass: every kernel named sa_train_dq*). Each source's entries:
+    `sa_train_bwd2_launch` with keys and lists (the package's: at each of
+    `dq_plans`), the same entry with PR 16's windows (gp, cc) (the parent's
+    file), and `sa_train_bwd2_pr16_launch` (scripts/variants/
+    sa_train_dq_windows.cu, PR 16's design); in turns A, B, B, A."""
     stream = torch._C._cuda_getCurrentRawStream(0)
-    for site, b, n, c, k, ch, args in sa_sites(torch, ck, gen, device):
+    sites = [(site, b, n, c, k, ch, args) for site, b, n, c, k, ch, args in
+             sa_sites(torch, ck, gen, device)]
+    for site, shape in (("DQ_REFERENCE", chip_smoke.DQ_REFERENCE),
+                        ("step80k_SA1", (20, chip_smoke.DENSE_DQ_N, chip_smoke.DENSE_DQ_N // 4, 32,
+                                         16))):
+        sites.append((site, *shape, chip_smoke.sa_train_site_args(torch, ck, gen, device, *shape)))
+    for site, b, n, c, k, ch, args in sites:
         want_dq, want_dct = ck.sa_train_bwd2_plain(*args)
         want_de = ck.sa_train_edges(*args)["de0"].reshape(b, c * k, ch)
         grid = ck.sa_grid(b, c, ch)
+        runs = {}
         for src, lib in libs.items():
-            # a source whose dq pass takes windows (gp, cc) gets the wrapper's
-            windows = re.search(r"sa_train_bwd2_launch\([^)]*int gp, int cc",
-                                source_file(src).read_text()) is not None
-            fn = entry(lib, "sa_train_bwd2_launch", 11, 9 if windows else 7)
+            text = source_text(src)
+            if re.search(r"sa_train_bwd2_launch\([^)]*int\* keys", text):
+                fn = entry(lib, "sa_train_bwd2_launch", 13, 9)
+                for label, plan in dq_plans(ck, b, n, c, k).items():
+                    keys = lists = None
+                    gp, lcap = (-(-n // k), c) if plan is None else plan
+                    if plan is not None:
+                        keys = torch.empty((b, k, c), dtype=torch.int32, device=device)
+                        lists = torch.empty((b, k, c), dtype=torch.int32, device=device)
+                    runs[(src, label)] = (fn, ptrs([keys, lists]), [gp, lcap], (keys, lists))
+            elif re.search(r"sa_train_bwd2_launch\([^)]*int gp, int cc", text):  # PR 16's file
+                runs[(src, "pr16")] = (entry(lib, "sa_train_bwd2_launch", 11, 9), [],
+                                       list(pr16_dq_chunks(n, c, k)), ())
+            if hasattr(lib, "sa_train_bwd2_pr16_launch"):
+                runs[(src, "pr16_variant")] = (entry(lib, "sa_train_bwd2_pr16_launch", 11, 9), [],
+                                               list(pr16_dq_chunks(n, c, k)), ())
+        order = list(runs) + list(runs)[::-1]
+        for key in order:
+            fn, scratch, plan_args, _ = runs[key]
             de = torch.empty((b, c * k, ch), device=device)
             dq = torch.empty((b, n, ch), device=device)
             dct = torch.empty((b, c, ch), device=device)
-            cargs = ptrs(args) + [de.data_ptr(), dq.data_ptr(), dct.data_ptr(), grid, b, n, c,
-                                  k, ch, int(ch == 16),
-                                  *(ck.sa_train_dq_chunks(n, c, k) if windows else ()), stream]
+            cargs = ptrs(args) + [de.data_ptr(), dq.data_ptr(), dct.data_ptr(), *scratch, grid,
+                                  b, n, c, k, ch, int(ch == 16), *plan_args, stream]
             rc = fn(*cargs)
             torch.cuda.synchronize()
             first = dq.clone()
             ordered = ck.sa_train_dq_ordered_plain(de, args[2], args[3], n)
-            row = {"source": str(src), "kernel": "sa_train_bwd2", "site": site, "rc": rc,
+            row = {"source": str(key[0]), "design": key[1], "kernel": "sa_train_bwd2",
+                   "site": site, "shape": [b, n, c, k, ch], "plan": plan_args, "rc": rc,
                    "dq_rel_diff": rel(dq, want_dq), "dcterm_rel_diff": rel(dct, want_dct),
                    "edge_buffer_equal": bool(torch.equal(de, want_de)),
                    "dq_equal_ordered_plain": bool(torch.equal(dq, ordered)),
                    "ms": event_ms(torch, lambda: fn(*cargs)),
                    "two_launches_equal": bool(torch.equal(dq, first))}
-            for part, prefix in (("edge_pass", "sa_train_bwd2_kernel"),
-                                 ("dq_pass", "sa_train_dq_kernel")):
-                row[part] = device_cost(torch, lambda: fn(*cargs), prefix)
+            # the dq pass a call: the keys kernel and the windowed kernel
+            # where the design takes windows of points, else one kernel
+            windowed = bool(scratch) and scratch[0] is not None
+            for part, prefix, kernels in (("edge_pass", "sa_train_bwd2_kernel", 1),
+                                          ("dq_pass", "sa_train_dq", 2 if windowed else 1)):
+                row[part] = device_cost(torch, lambda: fn(*cargs), prefix, kernels)
             print(json.dumps(row), flush=True)
+            del de, dq, dct, first, ordered
+        del want_dq, want_dct, want_de, args, runs
+        torch.cuda.empty_cache()
 
 
 def constants(src):
@@ -344,10 +424,12 @@ def constants(src):
             re.finditer(r"constexpr int (\w+) = (\d+);", source_file(src).read_text())}
 
 
-def device_cost(torch, fn, prefix):
-    """(device ms, device operations) a launch of fn (chip_smoke.device_profile)."""
+def device_cost(torch, fn, prefix, kernels=1):
+    """The device ms a call of fn of its `kernels` kernels named `prefix`
+    (chip_smoke.device_profile gives the ms a launch of one of them: their
+    mean), and the device operations a matching launch."""
     ms, launches, ops = chip_smoke.device_profile(torch, fn, (prefix,))
-    return {"device_ms": ms, "device_ops_a_launch": ops / max(launches, 1)}
+    return {"device_ms": ms * kernels, "device_ops_a_launch": ops / max(launches, 1)}
 
 
 def scatter_sites(torch, ck, gen, device_):
@@ -476,64 +558,103 @@ def run_ball_query_nearest(torch, ck, libs, gen, device_):
                      ws.data_ptr(), b, n, c, k, g, radius_sq(radius), stream]
             rc = fn(*cargs)
             torch.cuda.synchronize()
-            # device_profile gives the ms of one device kernel over 10 calls
-            ms, launches, _ = chip_smoke.device_profile(
-                torch, lambda: fn(*cargs), ("ball_query_nearest_kernel", "nearest_grid_kernel"))
+            # device_profile gives the ms a launch of the kernels it matches
+            query_ms = chip_smoke.device_profile(torch, lambda: fn(*cargs),
+                                                 ("ball_query_nearest_kernel",))[0]
             grid_ms = chip_smoke.device_profile(torch, lambda: fn(*cargs), ("nearest_grid_kernel",))[0]
             print(json.dumps({
                 "source": src, "kernel": "ball_query_nearest", "site": site, "rc": rc,
                 "shape": [b, n, c, k],
                 "differing": int((idx != want_idx).sum()) + int((mask != want_mask).sum()),
                 "ms": event_ms(torch, lambda: fn(*cargs)),
-                "device_ms": ms * launches / 10,
+                "device_ms": query_ms + grid_ms,
                 "grid_device_ms": grid_ms,
                 **{key: v for key, v in constants(src).items() if key in ("kNearWarps", "kNearBuf")},
             }), flush=True)
 
 
+def pr16_fps_cs(n):
+    """PR 16's cluster size for rows of n points: the least power of two
+    with cs x 16,384 >= n, at most 8."""
+    cs = 2
+    while cs < 8 and cs * 16384 < n:
+        cs *= 2
+    return cs
+
+
+FPS_SITES = (("PROD_SA1_parts", 40, 5000, 1250), ("PROD_SA2", 20, 2500, 625),
+             ("dense_SA1_parts", 40, 32768, 8192), ("step80k_SA1_parts", 40, 40000, 10000),
+             ("global", 1, 200000, 1024))
+
+
 def run_fps(torch, ck, libs, gen, device_):
-    """FPS's long rows: each FPS entry a source's library exports, the
-    cluster path's `fps_cluster_launch` (cs from `cuda_kernels.fps_path`,
-    the running-minima scratch past its shared memory) and a variant's
-    `fps_stream_launch` (scripts/variants/fps_one_block.cu: one block a
-    row, the points past shared memory read from L2), in turns (cluster,
-    stream, stream, cluster), at the dense serve step's SA1 parts (40 rows
-    of 32,768 points, 8,192 picks) and at a row past the cluster's shared
-    memory (1 x 200,000, 1,024 picks), synthetic 20 m plots: differing
-    picks against the plain version and the CUDA-event ms of a launch
-    (mean of REPS) and us a pick."""
+    """FPS at the PROD serve step's rows (`fps_launch`, fps_kernel), at the
+    dense serve step's SA1 parts (40 rows of 32,768 points, 8,192 picks),
+    the 80,000-point train step's (40 x 40,000, 10,000 picks) and a row past
+    the cluster's shared memory (1 x 200,000, 1,024 picks), synthetic 20 m
+    plots. Each FPS entry a source's library exports, in turns A, B, B, A:
+    `fps_launch` at the PROD rows; at the long rows the package's
+    `fps_cluster_launch` (its library also exports `fps_cluster_resident`)
+    at the wrapper's cs (`cuda_kernels.fps_path` on the card's resident
+    clusters, printed) and at every other cs that holds the slices, a
+    parent's `fps_cluster_launch` at PR 16's power-of-two cs,
+    `fps_barrier_launch` (scripts/variants/fps_cluster_barrier.cu, PR 16's
+    design) likewise, and `fps_stream_launch` (scripts/variants/
+    fps_one_block.cu: one block a row, the points past shared memory read
+    from L2): differing picks against the plain version, the CUDA-event ms
+    of a launch (mean of REPS) and us a pick."""
     stream = torch._C._cuda_getCurrentRawStream(0)
-    for site, rows, n, s in (("dense_SA1_parts", 40, 32768, 8192), ("global", 1, 200000, 1024)):
+    for site, rows, n, s in FPS_SITES:
         xyz = plot_clouds(torch, gen, rows, n, device_)
         start = torch.randint(0, n, (rows,), generator=gen, device=device_, dtype=torch.int32)
         want = ck.fps_plain(xyz, s, start)
-        _, cs = ck.fps_path(n)
         md = torch.empty((rows, n), device=device_)
+        glob = int(n > ck.FPS_CLUSTER_MAX * ck.FPS_MAX_N)
+        fns = {}
+
+        def add(label, fn, cs, scratch, ints=4):
+            fns[label] = (cs, lambda out: fn(xyz.data_ptr(), start.data_ptr(), out.data_ptr(),
+                                             *([md.data_ptr() if scratch else None] if ints == 4
+                                               else []), rows, n, s,
+                                             *([cs] if ints == 4 else []), stream))
+
         for src, lib in libs.items():
-            fns = {}
-            if hasattr(lib, "fps_cluster_launch"):
+            if n <= ck.FPS_MAX_N:
+                add((src, "block"), entry(lib, "fps_launch", 3, 3), 1, False, ints=3)
+                continue
+            if hasattr(lib, "fps_cluster_resident"):
+                res = entry(lib, "fps_cluster_resident", 0, 3)
+                res.argtypes = [ctypes.c_int] * 3
+                resident = {cs: res(n, cs, glob) for cs in range(2, ck.FPS_CLUSTER_MAX + 1)}
+                print(json.dumps({"source": str(src), "site": site, "resident_clusters": resident,
+                                  "table": ck.FPS_RESIDENT}), flush=True)
+                _, pick = ck.fps_path(n, rows, resident)
                 fn = entry(lib, "fps_cluster_launch", 4, 4)
-                glob = ck.fps_path(n)[0] == "global"
-                fns["cluster"] = (fn, lambda out, fn=fn, glob=glob: fn(
-                    xyz.data_ptr(), start.data_ptr(), out.data_ptr(),
-                    md.data_ptr() if glob else None, rows, n, s, cs, stream))
+                for cs in [pick] + [c for c in range(2, ck.FPS_CLUSTER_MAX + 1)
+                                    if c != pick and (glob or -(-n // c) <= ck.FPS_MAX_N)
+                                    and site != "global"]:
+                    add((src, "cluster" if cs == pick else f"cluster_cs{cs}"), fn, cs, glob)
+            elif hasattr(lib, "fps_cluster_launch"):  # PR 16's file
+                add((src, "cluster_pr16"), entry(lib, "fps_cluster_launch", 4, 4), pr16_fps_cs(n),
+                    glob)
+            if hasattr(lib, "fps_barrier_launch"):
+                add((src, "barrier"), entry(lib, "fps_barrier_launch", 4, 4), pr16_fps_cs(n), glob)
             if hasattr(lib, "fps_stream_launch"):
                 fn = entry(lib, "fps_stream_launch", 4, 3)
-                fns["stream"] = (fn, lambda out, fn=fn: fn(
+                fns[(src, "stream")] = (1, lambda out, fn=fn: fn(
                     xyz.data_ptr(), start.data_ptr(), out.data_ptr(), md.data_ptr(), rows, n, s,
                     stream))
-            order = list(fns) + list(fns)[::-1]
-            for design in order:
-                out = torch.empty((rows, s), dtype=torch.int32, device=device_)
-                rc = fns[design][1](out)
-                torch.cuda.synchronize()
-                ms = event_ms(torch, lambda: fns[design][1](out))
-                print(json.dumps({
-                    "source": src, "kernel": "fps", "design": design, "site": site, "rc": rc,
-                    "shape": [rows, n, s], "cs": cs if design == "cluster" else 1,
-                    "differing": int((out != want).sum()), "ms": ms,
-                    "us_a_pick": ms / (s - 1) * 1e3,
-                }), flush=True)
+        for key in list(fns) + list(fns)[::-1]:
+            cs, call = fns[key]
+            out = torch.empty((rows, s), dtype=torch.int32, device=device_)
+            rc = call(out)
+            torch.cuda.synchronize()
+            ms = event_ms(torch, lambda: call(out))
+            print(json.dumps({
+                "source": str(key[0]), "kernel": "fps", "design": key[1], "site": site, "rc": rc,
+                "shape": [rows, n, s], "cs": cs, "differing": int((out != want).sum()), "ms": ms,
+                "us_a_pick": ms / (s - 1) * 1e3,
+            }), flush=True)
 
 
 RUNS = {"knn_interpolate": run_knn, "sa_train_stats": run_stats, "sa_train_main": run_main, "sa_train_bwd1": run_bwd1,

@@ -177,10 +177,18 @@ __device__ __forceinline__ int warp_incl_scan(int v, int lane) {
   return v;
 }
 
-// Opt in to dynamic shared memory above the 48 KB default (once per size).
+// Opt in to dynamic shared memory when it and the kernel's static shared
+// memory pass the 48 KB default: without the opt-in such a launch can fail
+// (a cluster launch of fps_cluster_kernel at 4 points a thread, 48 KB of
+// dynamic and ~0.8 KB of static shared memory, did on an H100). No kernel
+// here holds 16 KB of static shared memory, so below 32 KB there is nothing
+// to ask.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes <= 32 * 1024) return cudaSuccess;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess || bytes + attr.sharedSizeBytes <= 48 * 1024) return err;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }

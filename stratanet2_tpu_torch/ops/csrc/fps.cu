@@ -167,60 +167,137 @@ extern "C" int fps_launch(const float* xyz, const int* start, int* out, int rows
 //
 // The same picks as fps_kernel (and _fps_lax), index for index. Block r of
 // a row's cluster owns the contiguous slice [r len, (r + 1) len) of its
-// points; the wrapper takes cs the least power of two (at most 8, the
-// portable cluster size) with cs * 16384 >= N, so len <= 16384 and the
-// slice is staged in the block's shared memory with its running minimum in
-// registers, as in fps_kernel (PTS points a thread). A row too long for 8
-// such slices (N > 131072) runs with PTS = 0: x, y, z are read from device
-// memory (the row stays in L2) and the running minimum lives in the
-// wrapper's scratch `md` (rows, N), each thread reading and writing only its
-// own points.
+// points, len = ceil(N / cs). While len <= 16384 (N <= 8 x 16384) the slice
+// is staged in the block's shared memory with its running minimum in
+// registers (PTS = ceil(len / 1024) points a thread); past that the cluster
+// has 8 blocks and PTS = 0: x, y, z are read from device memory (the row
+// stays in L2) and the running minimum lives in the wrapper's scratch `md`
+// (rows, N), each thread reading and writing only its own points.
 //
-// A pick: the point update and the warp argmax as in fps_kernel; lane 0 of
-// each warp writes its warp's (bits, index) and the winner's x, y, z to its
-// block's record slot of the step's parity; one cluster barrier
-// (barrier.cluster arrive.release / wait.acquire); then lane l of every warp
-// reads slot l of each of the CS blocks through distributed shared memory,
-// keeps the larger bits (the lower index on equal bits), and the warp
-// reduces its lanes with __reduce_max_sync / __reduce_min_sync, so every
-// thread of the cluster holds the winner and its coordinates without a
-// second barrier. Slices are contiguous and indices global, so the lowest
-// index among equal maxima is the row's first maximum. The parity makes one
-// barrier a pick enough: a warp rewrites its slot of parity p at step + 2,
-// after the barrier of step + 1, which no thread passes before every thread
-// of the cluster has read the slots of step.
-//
-// Bound on the H100: latency, as fps_kernel, plus the cluster barrier in
-// every pick's chain (an earlier design with one barrier.cluster a pick was
-// 2.3x slower than fps_kernel at N = 10000, PERF.md); chip_smoke.py's
-// dense phase gives its time a pick. One block a row with the points past
-// its shared memory read from L2 instead (scripts/variants/fps_one_block.cu,
-// timed by scripts/kernel_variants.py fps on an H100 at 700 W) took 3.66
-// against the cluster's 2.82 us a pick at 40 rows of 32,768 points and
-// 28.5 against 15.4 at one row of 200,000, so rows past 16,384 points take
-// the cluster. The cluster size is a template argument (__cluster_dims__,
-// an instance for each of CS = 2, 4, 8 and PTS), so the loop over the CS
-// blocks' records unrolls and a plain <<<>>> launch takes it.
-template <int CS, int PTS>
-__global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(kThreads, 1)
+// Bound on the H100: latency, as fps_kernel, plus the exchange between the
+// cluster's blocks in every pick's chain. PR 16's design put a cluster
+// barrier (barrier.cluster arrive.release / wait.acquire over all cs x 1024
+// threads) in every pick, after which every lane of every warp read cs x 3
+// records through distributed shared memory: 2.82 us a pick at 40 rows of
+// 32,768 points against fps_kernel's 1.41 at 16,384 points a block
+// (scripts/variants/fps_cluster_barrier.cu keeps it, and
+// scripts/kernel_variants.py fps times the two; PERF.md). This design takes
+// the barrier and the remote loads off the chain:
+// - A pick reduces within the block as fps_kernel does: the warp argmax by
+//   redux.sync, lane 0 of each warp writes (bits, index) to slot `warp` of
+//   the buffer of parity step & 1, one __syncthreads, then warp 0 reduces
+//   the 32 slots to the block's winner.
+// - Lane q < cs of warp 0 pushes the block's record (bits, global index, x,
+//   y, z: 20 bytes) into slot [parity][rank] of block q's shared memory with
+//   st.async, whose bytes complete the transaction count of block q's
+//   mbarrier of that parity (lane 0 first arrives on its own block's
+//   mbarrier, expecting cs records). Every thread then waits on its own
+//   block's mbarrier for the step's phase and reads the cs records from its
+//   own shared memory: a warp's lane q takes record q, and the warp reduces
+//   them with __reduce_max_sync / __reduce_min_sync, so every thread holds
+//   the winner and its coordinates. Slices are contiguous and indices
+//   global: the lowest index among equal maxima is the row's first maximum.
+// - No cluster barrier in the loop: one cluster.sync() before it (the
+//   mbarriers initialised and every block running) and one after it (no
+//   block leaves while a peer may still write into its shared memory). The
+//   parity double buffer is enough. A block's records of parity p are
+//   rewritten at step s + 2; a peer sends its record of step s + 2 only
+//   after its mbarrier of step s + 1 completed, so after every block sent
+//   its record of step s + 1; a block sends that record after its
+//   __syncthreads of step s + 1, so after all its warps have read the
+//   records of step s. By the same chain the bytes of step s + 2 never reach
+//   an mbarrier before its phase of step s has completed. The warp slots
+//   take fps_kernel's argument: a warp writes slot p again at step s + 2,
+//   after the __syncthreads of step s + 1, which no warp passes before every
+//   warp has read the slots of step s.
+// The cluster size is a launch attribute (cudaLaunchKernelEx), any cs in
+// [2, 8]; the wrapper (cuda_kernels.fps_path) takes it from the rows and N
+// and from how many clusters of cs blocks the card holds at once
+// (fps_cluster_resident, cudaOccupancyMaxActiveClusters; one block an SM):
+// first the fewest waves of clusters, then the fewest points a thread, then
+// the fewest blocks. Rows past what the card holds at once run in waves: a
+// cluster starts when an earlier one has finished and freed its SMs. On an
+// H100 (700 W; scripts/kernel_variants.py fps, PERF.md) the card holds 66,
+// 39, 30, 22, 17, 15 and 15 clusters of 2 to 8 such blocks. Against PR 16's
+// design: 1.84 against 2.83 us a pick at 40 rows of 32,768 points (2
+// blocks a row), 2.74 against 12.0 at 40 x 40,000 (5 blocks, two waves;
+// PR 16's 4) and 5.46 against 16.9 at 1 x 200,000 (8 blocks, PTS = 0).
+constexpr int kClusterMax = 8;                       // the portable cluster size
+constexpr unsigned kRecBytes = 5 * sizeof(unsigned);  // a block's record: bits, index, x, y, z
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The shared::cluster address of the same shared variable in block `rank`.
+__device__ __forceinline__ unsigned peer_u32(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Remote stores whose bytes complete the transaction count of `bar`, an
+// mbarrier of the block that owns `addr`.
+__device__ __forceinline__ void push_v4(unsigned addr, uint4 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+      ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void push_b32(unsigned addr, unsigned v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               ::"r"(addr), "r"(v), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Until the phase of parity `phase` of `bar` has completed; acquire at
+// cluster scope, so the peers' records it counted are visible.
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned phase) {
+  asm volatile(
+      "{\n\t.reg .pred done;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n\t"
+      "@!done bra WAIT;\n}" ::"r"(bar),
+      "r"(phase)
+      : "memory");
+}
+
+template <int PTS>
+__global__ void __launch_bounds__(kThreads, 1)
 fps_cluster_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
                    int* __restrict__ out, float* __restrict__ md, int n, int s, int len) {
   extern __shared__ float sxyz[];  // PTS > 0: the block's slice (PTS * kThreads, 3), zero past it
-  __shared__ unsigned rec_bits[2][kWarps];
-  __shared__ unsigned rec_idx[2][kWarps];
-  __shared__ float4 rec_pos[2][kWarps];
+  __shared__ unsigned win_bits[2][kWarps];
+  __shared__ unsigned win_idx[2][kWarps];
+  __shared__ uint4 rec[2][kClusterMax];      // block q's (bits, index, x, y), by parity
+  __shared__ unsigned rec_z[2][kClusterMax];  // ... and its z
+  __shared__ __align__(8) unsigned long long bar[2];
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const size_t row = blockIdx.x / CS;
+  const unsigned cs = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  const size_t row = blockIdx.x / cs;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int lo = min(n, rank * len), hi = min(n, lo + len);
+  const int lo = min(n, static_cast<int>(rank) * len), hi = min(n, lo + len);
   const float* x = xyz + row * n * 3;
   float* m = PTS > 0 ? nullptr : md + row * n;  // the row's running minima (PTS == 0)
   int* o = out + row * s;
 
+  if (tid == 0) {
+    bar_init(smem_u32(&bar[0]), 1);
+    bar_init(smem_u32(&bar[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   float mind[PTS > 0 ? PTS : 1];
   if constexpr (PTS > 0) {
     const float* xs = x + static_cast<size_t>(lo) * 3;
@@ -231,7 +308,7 @@ fps_cluster_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
   } else {
     for (int i = lo + tid; i < hi; i += kThreads) m[i] = INFINITY;
   }
-  cluster.sync();  // slices staged, and every block of the cluster is running
+  cluster.sync();  // slices staged, mbarriers initialised, every block of the cluster running
 
   int last = start[row];
   float lx = x[3 * static_cast<size_t>(last)], ly = x[3 * static_cast<size_t>(last) + 1],
@@ -272,86 +349,123 @@ fps_cluster_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
     const unsigned widx = __reduce_min_sync(0xffffffffu, bits == wbits ? idx : UINT_MAX);
     const int par = step & 1;
     if (lane == 0) {
-      float4 pos = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (widx != UINT_MAX) {
-        const float* p = PTS > 0 ? sxyz + 3 * static_cast<size_t>(widx - lo)
-                                 : x + 3 * static_cast<size_t>(widx);
-        pos = make_float4(p[0], p[1], p[2], 0.0f);
-      }
-      rec_bits[par][warp] = wbits;
-      rec_idx[par][warp] = widx;
-      rec_pos[par][warp] = pos;
+      win_bits[par][warp] = wbits;
+      win_idx[par][warp] = widx;
     }
-    cluster.sync();
-    unsigned cbits = 0u, cidx = UINT_MAX;
-    float4 cpos = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-    for (int q = 0; q < CS; ++q) {
-      const unsigned qb = cluster.map_shared_rank(&rec_bits[par][0], q)[lane];
-      const unsigned qi = cluster.map_shared_rank(&rec_idx[par][0], q)[lane];
-      const float4 qp = cluster.map_shared_rank(&rec_pos[par][0], q)[lane];
-      if (qb > cbits || (qb == cbits && qi < cidx)) {
-        cbits = qb;
-        cidx = qi;
-        cpos = qp;
+    __syncthreads();
+    const unsigned my_bar = smem_u32(&bar[par]);
+    if (warp == 0) {  // the block's winner, pushed to every block of the cluster
+      const unsigned sbits = win_bits[par][lane];
+      const unsigned sidx = win_idx[par][lane];
+      const unsigned bbits = __reduce_max_sync(0xffffffffu, sbits);
+      const unsigned bidx = __reduce_min_sync(0xffffffffu, sbits == bbits ? sidx : UINT_MAX);
+      if (lane < static_cast<int>(cs)) {
+        float px = 0.0f, py = 0.0f, pz = 0.0f;
+        if (bidx != UINT_MAX) {
+          const float* p = PTS > 0 ? sxyz + 3 * static_cast<size_t>(bidx - lo)
+                                   : x + 3 * static_cast<size_t>(bidx);
+          px = p[0];
+          py = p[1];
+          pz = p[2];
+        }
+        if (lane == 0) bar_arrive_expect(my_bar, cs * kRecBytes);
+        const unsigned peer_bar = peer_u32(my_bar, lane);
+        push_v4(peer_u32(smem_u32(&rec[par][rank]), lane),
+                make_uint4(bbits, bidx, __float_as_uint(px), __float_as_uint(py)), peer_bar);
+        push_b32(peer_u32(smem_u32(&rec_z[par][rank]), lane), __float_as_uint(pz), peer_bar);
       }
     }
-    const unsigned gbits = __reduce_max_sync(0xffffffffu, cbits);
-    const unsigned gidx = __reduce_min_sync(0xffffffffu, cbits == gbits ? cidx : UINT_MAX);
-    const int src = __ffs(__ballot_sync(0xffffffffu, cidx == gidx)) - 1;
+    bar_wait(my_bar, ((step - 1) >> 1) & 1);  // the phases of bar[par]: steps par, par + 2, ...
+    uint4 r = make_uint4(0u, UINT_MAX, 0u, 0u);
+    unsigned rz = 0u;
+    if (lane < static_cast<int>(cs)) {
+      r = rec[par][lane];
+      rz = rec_z[par][lane];
+    }
+    const unsigned gbits = __reduce_max_sync(0xffffffffu, r.x);
+    const unsigned gidx = __reduce_min_sync(0xffffffffu, r.x == gbits ? r.y : UINT_MAX);
+    const int src = __ffs(__ballot_sync(0xffffffffu, r.y == gidx)) - 1;
     last = static_cast<int>(gidx);
-    lx = __shfl_sync(0xffffffffu, cpos.x, src);
-    ly = __shfl_sync(0xffffffffu, cpos.y, src);
-    lz = __shfl_sync(0xffffffffu, cpos.z, src);
+    lx = __uint_as_float(__shfl_sync(0xffffffffu, r.z, src));
+    ly = __uint_as_float(__shfl_sync(0xffffffffu, r.w, src));
+    lz = __uint_as_float(__shfl_sync(0xffffffffu, rz, src));
     if (rank == 0 && tid == 0) o[step] = last;
   }
-  cluster.sync();  // no block leaves while a peer may still read its records
+  cluster.sync();  // no block leaves while a peer may still write into its records
 }
 
-template <int CS, int PTS>
+// The launch of fps_cluster_kernel<PTS> on rows x cs blocks in clusters of
+// cs, or, with `resident`, how many such clusters the card holds at once.
+template <int PTS>
 cudaError_t launch_cluster(const float* xyz, const int* start, int* out, float* md, int rows,
-                           int n, int s, cudaStream_t stream) {
+                           int n, int s, int cs, cudaStream_t stream, int* resident) {
   const size_t smem = sizeof(float) * 3 * PTS * kThreads;
-  cudaError_t err = allow_smem(fps_cluster_kernel<CS, PTS>, smem);
+  cudaError_t err = allow_smem(fps_cluster_kernel<PTS>, smem);
   if (err != cudaSuccess) return err;
-  fps_cluster_kernel<CS, PTS><<<static_cast<unsigned>(rows) * CS, kThreads, smem, stream>>>(
-      xyz, start, out, md, n, s, (n + CS - 1) / CS);
-  return cudaGetLastError();
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows) * cs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (resident != nullptr)
+    return cudaOccupancyMaxActiveClusters(resident, fps_cluster_kernel<PTS>, &cfg);
+  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel<PTS>, xyz, start, out, md, n, s,
+                           (n + cs - 1) / cs);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The slice's points a thread: len = ceil(n / CS) is in (8192, 16384] for
-// the wrapper's CS (9 to 16 points a thread); a shorter slice runs padded.
-template <int CS>
-cudaError_t launch_cs(const float* xyz, const int* start, int* out, int rows, int n, int s,
-                      cudaStream_t st) {
-  const int len = (n + CS - 1) / CS;
-  switch (max(9, (len + kThreads - 1) / kThreads)) {
-    case 9: return launch_cluster<CS, 9>(xyz, start, out, nullptr, rows, n, s, st);
-    case 10: return launch_cluster<CS, 10>(xyz, start, out, nullptr, rows, n, s, st);
-    case 11: return launch_cluster<CS, 11>(xyz, start, out, nullptr, rows, n, s, st);
-    case 12: return launch_cluster<CS, 12>(xyz, start, out, nullptr, rows, n, s, st);
-    case 13: return launch_cluster<CS, 13>(xyz, start, out, nullptr, rows, n, s, st);
-    case 14: return launch_cluster<CS, 14>(xyz, start, out, nullptr, rows, n, s, st);
-    case 15: return launch_cluster<CS, 15>(xyz, start, out, nullptr, rows, n, s, st);
-    case kMaxPts: return launch_cluster<CS, kMaxPts>(xyz, start, out, nullptr, rows, n, s, st);
+// The instance of `pts` points a thread (0: the running minima in md).
+static cudaError_t cluster_pts(const float* xyz, const int* start, int* out, float* md,
+                               int rows, int n, int s, int cs, int pts, cudaStream_t st,
+                               int* resident) {
+  if (cs < 2 || cs > kClusterMax) return cudaErrorInvalidValue;
+  switch (pts) {
+    case 0: return launch_cluster<0>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 1: return launch_cluster<1>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 2: return launch_cluster<2>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 3: return launch_cluster<3>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 4: return launch_cluster<4>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 5: return launch_cluster<5>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 6: return launch_cluster<6>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 7: return launch_cluster<7>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 8: return launch_cluster<8>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 9: return launch_cluster<9>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 10: return launch_cluster<10>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 11: return launch_cluster<11>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 12: return launch_cluster<12>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 13: return launch_cluster<13>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 14: return launch_cluster<14>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case 15: return launch_cluster<15>(xyz, start, out, md, rows, n, s, cs, st, resident);
+    case kMaxPts: return launch_cluster<kMaxPts>(xyz, start, out, md, rows, n, s, cs, st, resident);
     default: return cudaErrorInvalidValue;
   }
 }
+
+// Points a thread of a slice of ceil(n / cs) points in shared memory.
+static int slice_pts(int n, int cs) { return ((n + cs - 1) / cs + kThreads - 1) / kThreads; }
 
 // xyz (rows, n, 3) f32, start (rows,) i32 -> out (rows, s) i32, a cluster of
-// cs (2, 4 or 8, the portable most) blocks a row. md: null when
-// n <= cs * 16384 (the slices in shared memory), else (rows, n) f32 scratch
-// for the running minima (cs 8).
+// cs blocks (2 to 8) a row. md: null when ceil(n / cs) <= 16384 (the slices
+// in shared memory), else (rows, n) f32 scratch for the running minima.
 extern "C" int fps_cluster_launch(const float* xyz, const int* start, int* out, float* md,
                                   int rows, int n, int s, int cs, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (md != nullptr)
-    return cs == 8 ? launch_cluster<8, 0>(xyz, start, out, md, rows, n, s, st)
-                   : cudaErrorInvalidValue;
-  switch (cs) {
-    case 2: return launch_cs<2>(xyz, start, out, rows, n, s, st);
-    case 4: return launch_cs<4>(xyz, start, out, rows, n, s, st);
-    case 8: return launch_cs<8>(xyz, start, out, rows, n, s, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return cluster_pts(xyz, start, out, md, rows, n, s, cs, md != nullptr ? 0 : slice_pts(n, cs),
+                     static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// How many clusters of cs blocks the current card holds at once
+// (cudaOccupancyMaxActiveClusters) for the instance that rows of n points
+// take (with the running-minima scratch if `global`), or -(the CUDA error).
+extern "C" int fps_cluster_resident(int n, int cs, int global) {
+  int clusters = 0;
+  const cudaError_t err = cluster_pts(nullptr, nullptr, nullptr, nullptr, 1, n, 2, cs,
+                                      global ? 0 : slice_pts(n, cs), nullptr, &clusters);
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }

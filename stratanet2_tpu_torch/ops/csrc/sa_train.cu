@@ -17,8 +17,9 @@
 // and scatters, lane padding and (16, 128) parameter packing are not carried
 // over: Hopper gathers q rows with indexed loads, and bwd2's dq is summed
 // from an edge buffer by a pass of its own, sa_train_dq_kernel, in which
-// each block owns one group of points (the TPU kernel's one-hot scatter over
-// a group's rows relies on the same grouping).
+// each block owns one group of points, or past its shared memory a window
+// of one (the TPU kernel's one-hot scatter over a group's rows relies on the
+// same grouping).
 //
 // Bound on the H100: operations, not bytes, but for stats (bytes, 0.0072
 // ms). A pass reads q, cterm, idx and mask once (SA1 of the PROD train
@@ -625,61 +626,57 @@ sa_train_bwd2_kernel(const float* __restrict__ q, const float* __restrict__ cter
 
 // dq of bwd2 from its edge buffer de (B, C, K, C1), owner computes. Slot j
 // of the grouped selection only picks points of group j (g = ceil(N/K)
-// consecutive points, csrc/ball_query.cu), so block (j, b) owns group j of
-// cloud b, reads slot j of every centroid and is the only writer of its
-// points' rows. dq_window takes the points [first, first + gs) of the group
-// and the centroids [cb, ce): a counting sort by point, stable in c: warp w
-// takes the w-th span of the centroids, loads their slot-j ids (a masked
-// slot, or an id outside the window, is skipped) and counts them by point
-// (shared int atomics: a count has no order); a thread a point turns the
-// warps' counts into each warp's offset within the point's list, a scan of
-// the totals gives the lists' starts, and each warp places its span in
-// increasing c (rank among 32 at a time by __match_any_sync), so a list
-// holds its centroids in increasing c. A group of C1 lanes (lane =
-// channel) then takes a point and adds its list's de0 rows (one coalesced
-// row each, kDqB loads in flight) with __fadd_rn, and stores the row once,
-// zeros included: one order of sums for any launch
+// consecutive points, csrc/ball_query.cu), so the points of group j of
+// cloud b are summed from slot j of every centroid, and a block that owns
+// some of them is the only writer of their rows. A counting sort by point,
+// stable in c: warp w takes the w-th span of the centroids and counts their
+// slot-j picks by point (shared int atomics: a count has no order); a
+// thread a point turns the warps' counts into each warp's offset within the
+// point's list, a scan of the totals gives the lists' starts, and each warp
+// places its span in increasing c (rank among 32 at a time by
+// __match_any_sync), so a list holds its centroids in increasing c. A group
+// of C1 lanes (lane = channel) then takes a point and adds its list's de0
+// rows (one coalesced row each, kDqB loads in flight) with __fadd_rn from 0,
+// and stores the row once, zeros included: one order of sums for any launch
 // (cuda_kernels.sa_train_dq_ordered_plain). It reads each valid edge's row
 // once, where a gather over all pairs re-reads the ids for each tile.
 //
-// The window's keys and lists (ce - cb ints each), the warps' counts (8 gs)
-// and the lists' starts (gs + 1) live in shared memory. Without CHUNKED the
-// window is the whole group and every centroid, one pass with no window
-// loop (the instances of every PROD shape); with it (4 (2 c + 9 g + 1) bytes
-// past a block's shared memory, N > ~74,000 points a plot at SA1's plan)
-// the block walks its group in windows of gp points and, for each, the
-// centroids in windows of cc (cuda_kernels.sa_train_dq_chunks), in
-// increasing c. A point's sum then starts from the row that the previous
-// centroid window stored, by the same thread: the same adds in the same
-// order as one window, so the same bits.
-template <int C, bool CHUNKED>
-__device__ __forceinline__ void dq_window(const float* __restrict__ de,
-                                          const int* __restrict__ idx,
-                                          const bool* __restrict__ mask, float* __restrict__ dq,
-                                          int* dsm, int n, int c, int k, int j, int b, int first,
-                                          int gs, int cb, int ce) {
+// Two instances, chosen by the wrapper (cuda_kernels.sa_train_dq_plan):
+// - sa_train_dq_kernel<C, false>, every PROD shape: grid (K, B), block (j, b)
+//   takes group j whole. It loads slot j's ids (K apart in idx) once, as
+//   keys in shared memory beside the lists (C ints each), the warps' counts
+//   (8 g) and the starts (g + 1): 4 (2 C + 9 g + 1) bytes within 227 KB.
+// - sa_train_dq_kernel<C, true>, past that (N > ~74,000 a plot at SA1's
+//   plan): grid (K W, B), block (j W + w, b) takes window w of gp points of
+//   group j. Points of different windows share no sum, so the W windows of
+//   a group run side by side and each point's whole list is summed in one
+//   pass; the plan takes the most windows that keep the grid within one
+//   wave of two blocks on each of 132 SMs, and enough that the counts and
+//   starts fit in a quarter of a block's shared memory. Every window reads
+//   its group's C keys twice, so a second wave costs as much as the first:
+//   at 1 x 80,000 points (C 20,000, K 32) 7, 8 and 9 windows a group took
+//   0.0757, 0.0712 and 0.1227 ms of device time, PR 16's design 0.3404 (an
+//   H100 at 700 W, scripts/kernel_variants.py; PERF.md). A group summing 4
+//   or 8 points side by side (as many rows in flight for short lists)
+//   measured 6% and 36% slower there, 6-10% and 46-52% at 20 x 80,000.
+//   sa_train_dq_keys_kernel first writes keys (B, K, C), slot j of centroid
+//   c as an offset in group j (-1 if masked): a contiguous row of C ints a
+//   group, which the count and the placement each read again from L2 where
+//   the PROD instance keeps its keys. Shared memory holds the window's
+//   counts, starts and up to lcap list entries (a window's lists hold at
+//   most one entry a centroid); a window with more entries than that (only
+//   when lcap < C) places them in `lists` (B, K, C) instead, at the offset
+//   of the group's entries before the window, so no two windows overlap.
+//   PR 16's design, one block a group walking windows of points and of
+//   centroids in turn, each point's row reloaded between centroid windows,
+//   is scripts/variants/sa_train_dq_windows.cu.
+
+// From the warps' counts cur (kWarps x gs), each warp's cursor in every
+// point's list and the lists' starts (start[0] = 0, set by the caller):
+// start[p] is where point p's list begins. Ends with a block barrier.
+__device__ __forceinline__ void dq_starts(int* cur, int* start, int gs) {
   constexpr int kWarps = kThreads / 32;
-  const int nc = ce - cb;
-  int* key = dsm;                  // nc: the centroid's point in the window, or -1
-  int* cur = key + nc;             // kWarps x gs: a warp's counts, then its cursors
-  int* start = cur + kWarps * gs;  // gs + 1: where each point's list begins
-  int* list = start + gs + 1;      // nc: the centroids, by point, in increasing c
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int span = (nc + kWarps - 1) / kWarps;
-  const int c_lo = cb + min(nc, warp * span), c_hi = min(ce, c_lo + span);
-  int* mine = cur + warp * gs;
-  for (int e = tid; e < kWarps * gs; e += kThreads) cur[e] = 0;
-  if (tid == 0) start[0] = 0;
-  __syncthreads();
-  const size_t e0 = static_cast<size_t>(b) * c * k + j;  // edge (b, 0, j)
-  for (int cc = c_lo + lane; cc < c_hi; cc += 32) {
-    const size_t e = e0 + static_cast<size_t>(cc) * k;
-    const int d = mask[e] ? idx[e] - first : -1;
-    const bool in = d >= 0 && d < gs;
-    key[cc - cb] = in ? d : -1;
-    if (in) atomicAdd(mine + d, 1);
-  }
-  __syncthreads();
   for (int p = tid; p < gs; p += kThreads) {
     int run = 0;
     for (int w = 0; w < kWarps; ++w) {
@@ -702,9 +699,18 @@ __device__ __forceinline__ void dq_window(const float* __restrict__ de,
   __syncthreads();
   for (int e = tid; e < kWarps * gs; e += kThreads) cur[e] += start[e % gs];
   __syncthreads();
+}
+
+// The warp's centroids [c_lo, c_hi) placed in their points' lists in
+// increasing c, at its cursors `mine`; key(c) is centroid c's point in the
+// block's window, or -1.
+template <typename Key>
+__device__ __forceinline__ void dq_place(Key key, int* __restrict__ list, int* mine, int c_lo,
+                                         int c_hi) {
+  const int lane = threadIdx.x & 31;
   const unsigned lt = (1u << lane) - 1;
   for (int c0 = c_lo; c0 < c_hi; c0 += 32) {
-    const int d = c0 + lane < c_hi ? key[c0 + lane - cb] : -1;
+    const int d = c0 + lane < c_hi ? key(c0 + lane) : -1;
     const unsigned act = __ballot_sync(~0u, d >= 0);
     if (d >= 0) {
       const unsigned peers = __match_any_sync(act, d);
@@ -715,16 +721,20 @@ __device__ __forceinline__ void dq_window(const float* __restrict__ de,
     }
     __syncwarp();
   }
-  __syncthreads();
+}
+
+// Each of the gs points' rows: 0 plus its list's de0 rows in list order,
+// stored once. db: this lane's channel of edge (b, 0, j); out: of the first
+// point's row.
+template <int C>
+__device__ __forceinline__ void dq_sums(const float* __restrict__ db, size_t stride,
+                                        const int* __restrict__ list, const int* start,
+                                        float* __restrict__ out, int gs) {
   constexpr int kGroups = kThreads / C;
-  const int ch = tid % C;
-  const float* db = de + e0 * C + ch;  // channel ch of edge (b, 0, j)
-  const size_t stride = static_cast<size_t>(k) * C;  // the next centroid's
-  float* out = dq + (static_cast<size_t>(b) * n + first) * C + ch;
-  for (int p = tid / C; p < gs; p += kGroups) {
+  for (int p = threadIdx.x / C; p < gs; p += kGroups) {
     int r = start[p];
     const int end = start[p + 1];
-    float acc = CHUNKED && cb > 0 ? out[static_cast<size_t>(p) * C] : 0.f;
+    float acc = 0.f;
     for (; r + kDqB <= end; r += kDqB) {
       float v[kDqB];
 #pragma unroll
@@ -735,26 +745,130 @@ __device__ __forceinline__ void dq_window(const float* __restrict__ de,
     for (; r < end; ++r) acc = __fadd_rn(acc, db[list[r] * stride]);
     out[static_cast<size_t>(p) * C] = acc;
   }
-  if (CHUNKED) __syncthreads();  // the next window reuses the shared memory
 }
 
-template <int C, bool CHUNKED>
+// Group j of cloud b whole (the PROD instance): the gs points from `first`.
+template <int C>
+__device__ __forceinline__ void dq_group(const float* __restrict__ de,
+                                         const int* __restrict__ idx,
+                                         const bool* __restrict__ mask, float* __restrict__ dq,
+                                         int* dsm, int n, int c, int k, int j, int b, int first,
+                                         int gs) {
+  constexpr int kWarps = kThreads / 32;
+  int* key = dsm;                  // c: the centroid's point in the group, or -1
+  int* cur = key + c;              // kWarps x gs: a warp's counts, then its cursors
+  int* start = cur + kWarps * gs;  // gs + 1: where each point's list begins
+  int* list = start + gs + 1;      // c: the centroids, by point, in increasing c
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int span = (c + kWarps - 1) / kWarps;
+  const int c_lo = min(c, warp * span), c_hi = min(c, c_lo + span);
+  int* mine = cur + warp * gs;
+  for (int e = tid; e < kWarps * gs; e += kThreads) cur[e] = 0;
+  if (tid == 0) start[0] = 0;
+  __syncthreads();
+  const size_t e0 = static_cast<size_t>(b) * c * k + j;  // edge (b, 0, j)
+  for (int cc = c_lo + lane; cc < c_hi; cc += 32) {
+    const size_t e = e0 + static_cast<size_t>(cc) * k;
+    const int d = mask[e] ? idx[e] - first : -1;
+    const bool in = d >= 0 && d < gs;
+    key[cc] = in ? d : -1;
+    if (in) atomicAdd(mine + d, 1);
+  }
+  __syncthreads();
+  dq_starts(cur, start, gs);
+  dq_place([&](int cc) { return key[cc]; }, list, mine, c_lo, c_hi);
+  __syncthreads();
+  dq_sums<C>(de + e0 * C + tid % C, static_cast<size_t>(k) * C, list, start,
+             dq + (static_cast<size_t>(b) * n + first) * C + tid % C, gs);
+}
+
+// Window w of group j of cloud b (the windowed instance): the points
+// [lo, lo + gs) of the group, lo = w gp, its picks read from keys.
+template <int C>
+__device__ __forceinline__ void dq_window(const float* __restrict__ de,
+                                          const int* __restrict__ keys, int* __restrict__ lists,
+                                          float* __restrict__ dq, int* dsm, int n, int c, int k,
+                                          int g, int gp, int lcap, int j, int w, int b) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ int before;  // the group's list entries before the window
+  const int first = j * g, lo = w * gp;
+  const int gs = max(0, min(gp, min(g, n - first) - lo));
+  if (gs == 0) return;              // the whole block: a ragged last group's empty window
+  int* cur = dsm;                   // kWarps x gs: a warp's counts, then its cursors
+  int* start = cur + kWarps * gs;   // gs + 1: where each point's list begins
+  int* slist = start + gs + 1;      // lcap: the centroids, by point, in increasing c
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int span = (c + kWarps - 1) / kWarps;
+  const int c_lo = min(c, warp * span), c_hi = min(c, c_lo + span);
+  int* mine = cur + warp * gs;
+  const int* kb = keys + (static_cast<size_t>(b) * k + j) * c;  // slot j's picks, by centroid
+  for (int e = tid; e < kWarps * gs; e += kThreads) cur[e] = 0;
+  if (tid == 0) {
+    start[0] = 0;
+    before = 0;
+  }
+  __syncthreads();
+  int below = 0;
+  for (int cc = c_lo + lane; cc < c_hi; cc += 32) {
+    const int key = kb[cc];
+    if (key >= lo && key < lo + gs) atomicAdd(mine + key - lo, 1);
+    below += key >= 0 && key < lo;
+  }
+  below = __reduce_add_sync(~0u, below);
+  if (lane == 0 && below > 0) atomicAdd(&before, below);
+  __syncthreads();
+  dq_starts(cur, start, gs);
+  auto key = [&](int cc) {
+    const int d = kb[cc] - lo;  // a masked slot's -1 is below every window
+    return d >= 0 && d < gs ? d : -1;
+  };
+  const float* db = de + (static_cast<size_t>(b) * c * k + j) * C + tid % C;
+  const size_t stride = static_cast<size_t>(k) * C;
+  float* out = dq + (static_cast<size_t>(b) * n + first + lo) * C + tid % C;
+  if (start[gs] <= lcap) {
+    dq_place(key, slist, mine, c_lo, c_hi);
+    __syncthreads();
+    dq_sums<C>(db, stride, slist, start, out, gs);
+  } else {  // more entries than the block holds: the lists in device memory
+    int* list = lists + (static_cast<size_t>(b) * k + j) * c + before;
+    dq_place(key, list, mine, c_lo, c_hi);
+    __syncthreads();
+    dq_sums<C>(db, stride, list, start, out, gs);
+  }
+}
+
+template <int C, bool WINDOWED>
 __global__ void __launch_bounds__(kThreads)
 sa_train_dq_kernel(const float* __restrict__ de, const int* __restrict__ idx,
-                   const bool* __restrict__ mask, float* __restrict__ dq, int n, int c, int k,
-                   int g, int gp, int cc) {
+                   const bool* __restrict__ mask, const int* __restrict__ keys,
+                   int* __restrict__ lists, float* __restrict__ dq, int n, int c, int k, int g,
+                   int gp, int lcap) {
   extern __shared__ int dsm[];
-  const int j = blockIdx.x, b = blockIdx.y;
-  const int first = j * g;
-  const int gs = max(0, min(g, n - first));  // the group's points
-  if constexpr (!CHUNKED) {
-    dq_window<C, false>(de, idx, mask, dq, dsm, n, c, k, j, b, first, gs, 0, c);
+  const int b = blockIdx.y;
+  if constexpr (!WINDOWED) {
+    const int j = blockIdx.x, first = j * g;
+    dq_group<C>(de, idx, mask, dq, dsm, n, c, k, j, b, first, max(0, min(g, n - first)));
   } else {
-    for (int p0 = 0; p0 < gs; p0 += gp)
-      for (int c0 = 0; c0 < c; c0 += cc)
-        dq_window<C, true>(de, idx, mask, dq, dsm, n, c, k, j, b, first + p0, min(gp, gs - p0),
-                           c0, min(c, c0 + cc));
+    const int windows = (g + gp - 1) / gp;
+    dq_window<C>(de, keys, lists, dq, dsm, n, c, k, g, gp, lcap, blockIdx.x / windows,
+                 blockIdx.x % windows, b);
   }
+}
+
+// keys (B, K, C) of the windowed dq pass: slot j of centroid c as an offset
+// in group j (its g points from j g), -1 if masked. A block's warps take 8
+// slots of the same 32 centroids (lane = centroid): each warp writes 32
+// consecutive keys, and the block reads whole 32-byte sectors of idx.
+__global__ void __launch_bounds__(kThreads)
+sa_train_dq_keys_kernel(const int* __restrict__ idx, const bool* __restrict__ mask,
+                        int* __restrict__ keys, int c, int k, int g) {
+  const int cc = blockIdx.x * 32 + (threadIdx.x & 31);
+  const int j = blockIdx.y * (kThreads / 32) + (threadIdx.x >> 5);
+  const size_t b = blockIdx.z;
+  if (cc >= c || j >= k) return;
+  const size_t e = (b * c + cc) * k + j;
+  const int d = mask[e] ? idx[e] - j * g : -1;
+  keys[(b * k + j) * c + cc] = d >= 0 && d < g ? d : -1;
 }
 
 // ---------------------------------------------------------------------------
@@ -809,38 +923,51 @@ extern "C" int sa_train_bwd1_launch(const float* q, const float* cterm, const in
   return cudaGetLastError();
 }
 
-// The edge pass into de (b, c, k, ch), then the dq pass: grid (k, b), one
-// block a group of g = ceil(n / k) points, in windows of gp points and cc
-// centroids (gp = g and cc = c: one window, the PROD instances), with
-// 4 (2 cc + 9 gp + 1) bytes of shared memory.
+// The edge pass into de (b, c, k, ch), then the dq pass. keys null: one
+// block a group of g = ceil(n / k) points, grid (k, b), with
+// 4 (2 c + 9 g + 1) bytes of shared memory (the PROD instances). Else the
+// windowed dq pass, keys (b, k, c) and lists (b, k, c) its scratch (lists
+// null when lcap >= c): the keys kernel, then grid (k W, b), W =
+// ceil(g / gp), with 4 (9 gp + 1 + lcap) bytes.
 template <int C, bool TWO, int KB>
 cudaError_t launch_bwd2(const float* q, const float* cterm, const int* idx, const bool* mask,
                         const float* aff, const float* w2, const int* awin, const float* gt,
-                        float* de, float* dq, float* dcterm, int grid, int b, int n, int c,
-                        int k, int gp, int cc, cudaStream_t st) {
+                        float* de, float* dq, float* dcterm, int* keys, int* lists, int grid,
+                        int b, int n, int c, int k, int gp, int lcap, cudaStream_t st) {
   const int g = (n + k - 1) / k;
-  const size_t smem = sizeof(int) * (2 * static_cast<size_t>(cc) + (kThreads / 32 + 1) * gp + 1);
-  const bool chunked = gp < g || cc < c;
-  auto dq_kernel = chunked ? sa_train_dq_kernel<C, true> : sa_train_dq_kernel<C, false>;
+  const bool windowed = keys != nullptr;
+  const size_t smem =
+      sizeof(int) * (windowed ? (kThreads / 32 + 1) * static_cast<size_t>(gp) + 1 + lcap
+                              : 2 * static_cast<size_t>(c) + (kThreads / 32 + 1) * g + 1);
+  auto dq_kernel = windowed ? sa_train_dq_kernel<C, true> : sa_train_dq_kernel<C, false>;
   cudaError_t err = allow_smem(dq_kernel, smem);
   if (err != cudaSuccess) return err;
   sa_train_bwd2_kernel<C, TWO, KB><<<grid, kThreads, 0, st>>>(
       q, cterm, idx, mask, aff, w2, awin, gt, de, dcterm, n, c, k, b * c);
-  dq_kernel<<<dim3(k, b), kThreads, smem, st>>>(de, idx, mask, dq, n, c, k, g, gp, cc);
+  if (!windowed) {
+    dq_kernel<<<dim3(k, b), kThreads, smem, st>>>(de, idx, mask, nullptr, nullptr, dq, n, c, k,
+                                                  g, g, c);
+  } else {
+    sa_train_dq_keys_kernel<<<dim3((c + 31) / 32, (k + kThreads / 32 - 1) / (kThreads / 32), b),
+                              kThreads, 0, st>>>(idx, mask, keys, c, k, g);
+    dq_kernel<<<dim3(k * ((g + gp - 1) / gp), b), kThreads, smem, st>>>(
+        de, idx, mask, keys, lists, dq, n, c, k, g, gp, lcap);
+  }
   return cudaGetLastError();
 }
 
 extern "C" int sa_train_bwd2_launch(const float* q, const float* cterm, const int* idx,
                                     const bool* mask, const float* aff, const float* w2,
                                     const int* awin, const float* gt, float* de, float* dq,
-                                    float* dcterm, int grid, int b, int n, int c, int k, int ch,
-                                    int two_layer, int gp, int cc, void* stream) {
+                                    float* dcterm, int* keys, int* lists, int grid, int b, int n,
+                                    int c, int k, int ch, int two_layer, int gp, int lcap,
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ch == 16 && two_layer)
     return launch_bwd2<16, true, kBwd2KB1>(q, cterm, idx, mask, aff, w2, awin, gt, de, dq,
-                                           dcterm, grid, b, n, c, k, gp, cc, st);
+                                           dcterm, keys, lists, grid, b, n, c, k, gp, lcap, st);
   if (ch == 32 && !two_layer)
     return launch_bwd2<32, false, kBwd2KB2>(q, cterm, idx, mask, aff, w2, awin, gt, de, dq,
-                                            dcterm, grid, b, n, c, k, gp, cc, st);
+                                            dcterm, keys, lists, grid, b, n, c, k, gp, lcap, st);
   return cudaErrorInvalidValue;
 }

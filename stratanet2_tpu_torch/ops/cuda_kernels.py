@@ -21,15 +21,17 @@ CPU tensors it runs the plain version. There is no fallback between the two
 and no switch. `LAUNCHES[name]` counts each wrapper's kernel launches.
 
 Five wrappers take another path for shapes past their PROD kernels' reach,
-chosen by shape alone (`fps_path`, `sel_chunk`, `pixel_max_range`,
-`sa_train_dq_chunks`), and count it in `PATH_LAUNCHES` too: FPS rows over
-16,384 points run a block cluster a row (`fps_cluster`, and past 131,072
-points `fps_global`, its running minima in device memory); a selection
-group longer than a warp's staging slice streams through it in chunks
+chosen by shape (`fps_path`, `sel_chunk`, `pixel_max_range`,
+`sa_train_dq_plan`), and count it in `PATH_LAUNCHES` too: FPS rows over
+16,384 points run a block cluster a row (`fps_cluster`, its size from the
+rows and the clusters the card holds at once, and past 131,072 points
+`fps_global`, its running minima in device memory); a selection group
+longer than a warp's staging slice streams through it in chunks
 (`ball_query_chunked`, `sa_fused_eval_chunked`); a pixel table past shared
 memory is cut into pixel ranges, a cluster each (`pixel_max_ranges`);
-sa_train_bwd2's dq pass walks a group whose lists outgrow shared memory in
-windows (`sa_train_dq_chunked`). Every PROD shape keeps its kernels.
+sa_train_bwd2's dq pass splits a group whose lists outgrow shared memory
+into windows of points, a block each (`sa_train_dq_chunked`). Every PROD
+shape keeps its kernels.
 
 Every selection distance is rounded as the JAX CPU path rounds it (see
 `distance.py`): the plain versions and the kernels agree with it, and with
@@ -66,13 +68,24 @@ KNN_SCATTER_PAIRS, KNN_SCATTER_CHUNK = 8192, 64
 KNN_SCATTER_MAX_F = 128
 PIXEL_MAX_CLUSTER = 8  # csrc/pixel_max.cu: blocks of a cloud's cluster (kCS)
 PIXEL_MAX_TABLE = _SMEM_MAX // 8  # 64-bit keys (pixel x channel slots) a block's table holds
-FPS_MAX_N = 16 * 1024  # csrc/fps.cu's fps_kernel: at most 16 points for each of 1024 threads
+FPS_THREADS = 1024  # csrc/fps.cu: threads a block
+FPS_MAX_N = 16 * FPS_THREADS  # fps_kernel: at most 16 points for each of its threads
 FPS_CLUSTER_MAX = 8  # fps_cluster_kernel: blocks a row at most (the portable cluster size)
+# clusters of cs blocks of fps_cluster_kernel (1024 threads, one block an
+# SM) that an NVIDIA H100 80GB HBM3 holds at once, cs = 2 .. 8:
+# cudaOccupancyMaxActiveClusters on the card (chip_smoke.py's dense phase
+# prints the card's own, which the wrapper takes: `fps_cluster_resident`)
+FPS_RESIDENT = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 # csrc/common.cuh's grouped selection: 8 warps a block each stage up to one
 # group of g points as float4, for a tile of 64 centroids
 SEL_WARPS, SEL_TILE = 8, 64
 BQ_MAX_G = _SMEM_MAX // (16 * SEL_WARPS)  # ball_query: the longest group staged whole
 SA_DQ_INTS = _SMEM_MAX // 4  # csrc/sa_train.cu's dq pass: int32 lists and counts a block holds
+# its windowed instance: one wave of two blocks on each of 132 SMs, two
+# blocks' shared memory within an SM's 228 KB (1 KB of it reserved a block,
+# 16 ints for the block's static shared memory)
+SA_DQ_WAVE = 2 * 132
+SA_DQ_PAIR_INTS = (228 * 1024 // 2 - 1024) // 4 - 16
 NEAREST_MAX_K = 128  # csrc/ball_query_nearest.cu: the longest sorted list a warp keeps (kNearMaxK)
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -106,13 +119,14 @@ _ENTRIES = {  # entry: (library = csrc/<library>.cu, C entry point, its argument
         "sa_train", "sa_train_bwd1_launch", [_VP] * 9 + [_I] * 6 + [_VP]
     ),
     "sa_train_bwd2": (
-        "sa_train", "sa_train_bwd2_launch", [_VP] * 11 + [_I] * 9 + [_VP]
+        "sa_train", "sa_train_bwd2_launch", [_VP] * 13 + [_I] * 9 + [_VP]
     ),
     "ball_query_nearest": (
         "ball_query_nearest", "ball_query_nearest_launch", [_VP] * 5 + [_I] * 5 + [_F, _VP]
     ),
     # the long-shape paths' own entry points (see the module's docstring)
     "fps_cluster": ("fps", "fps_cluster_launch", [_VP] * 4 + [_I] * 4 + [_VP]),
+    "fps_resident": ("fps", "fps_cluster_resident", [_I] * 3),  # no launch: a query
 }
 WRAPPERS = ("fps", "sa_fused_eval", "knn_interpolate", "pixel_max", "ball_query", "knn_scatter",
             "pixel_max_bwd", "sa_train_stats", "sa_train_main", "sa_train_bwd1", "sa_train_bwd2",
@@ -228,19 +242,57 @@ def fps_plain(xyz: torch.Tensor, n_samples: int, start: torch.Tensor) -> torch.T
     return out
 
 
-def fps_path(n: int):
-    """csrc/fps.cu's path for rows of n points, as (path, blocks a row):
-    ("block", 1), fps_kernel, up to FPS_MAX_N points; ("cluster", cs), a
-    cluster of cs blocks, the least power of two up to FPS_CLUSTER_MAX with
-    cs x FPS_MAX_N >= n, each block's slice in shared memory; past that
-    ("global", FPS_CLUSTER_MAX), the cluster with x, y, z read from device
-    memory and the running minima in a device-memory scratch."""
+def fps_path(n: int, rows: int, resident: Optional[Dict[int, int]] = None):
+    """csrc/fps.cu's path for `rows` rows of n points, as (path, blocks a
+    row): ("block", 1), fps_kernel, up to FPS_MAX_N points; ("cluster",
+    cs), a cluster of cs blocks a row, each block's slice of ceil(n / cs)
+    <= FPS_MAX_N points in shared memory, up to FPS_CLUSTER_MAX x FPS_MAX_N
+    points; past that ("global", FPS_CLUSTER_MAX), the slices read from
+    device memory and the running minima in a device-memory scratch.
+    `resident` ({cs: clusters of cs blocks the card holds at once}, one
+    block an SM; FPS_RESIDENT, an H100's, by default) sets cs: the fewest
+    waves of clusters (ceil(rows / resident[cs])), then the fewest points a
+    thread, then the fewest blocks."""
     if n <= FPS_MAX_N:
         return "block", 1
-    cs = 2
-    while cs < FPS_CLUSTER_MAX and cs * FPS_MAX_N < n:
-        cs *= 2
-    return ("cluster" if cs * FPS_MAX_N >= n else "global"), cs
+    if n > FPS_CLUSTER_MAX * FPS_MAX_N:
+        return "global", FPS_CLUSTER_MAX
+    resident = FPS_RESIDENT if resident is None else resident
+
+    def cost(cs):
+        return -(-rows // max(resident[cs], 1)), _slice_pts(n, cs), cs
+
+    return "cluster", min(range(-(-n // FPS_MAX_N), FPS_CLUSTER_MAX + 1), key=cost)
+
+
+def _slice_pts(n: int, cs: int) -> int:
+    """Points a thread of fps_cluster_kernel's slices of ceil(n / cs) points."""
+    return -(-(-(-n // cs)) // FPS_THREADS)
+
+
+_fps_resident: Dict[tuple, int] = {}
+
+
+def fps_cluster_resident(n: int, device: torch.device) -> Dict[int, int]:
+    """{cs: clusters of cs blocks of the instance that rows of n points take
+    (each cs up to FPS_CLUSTER_MAX whose slices of ceil(n / cs) points fit
+    in shared memory, or all past them) that `device` holds at once}, asked of
+    the card once per instance (cudaOccupancyMaxActiveClusters, the
+    library's `fps_cluster_resident`)."""
+    fn = _fns.get("fps_resident") or _bind("fps_resident")
+    glob = int(n > FPS_CLUSTER_MAX * FPS_MAX_N)
+    out = {}
+    for cs in range(2 if glob else max(2, -(-n // FPS_MAX_N)), FPS_CLUSTER_MAX + 1):
+        key = (device.index, cs, 0 if glob else _slice_pts(n, cs))
+        if key not in _fps_resident:
+            with torch.cuda.device(device):
+                got = fn(n, cs, glob)
+            if got < 0:
+                msg = _build.load("fps").error_string(-got).decode()
+                raise RuntimeError(f"fps_cluster_resident(n={n}, cs={cs}): {msg} ({-got})")
+            _fps_resident[key] = got
+        out[cs] = _fps_resident[key]
+    return out
 
 
 def fps(xyz: torch.Tensor, n_samples: int, start: torch.Tensor) -> torch.Tensor:
@@ -257,7 +309,7 @@ def fps(xyz: torch.Tensor, n_samples: int, start: torch.Tensor) -> torch.Tensor:
     r, n, _ = xyz.shape
     _expect(n < 2 ** 31, name, f"N={n}: indices are int32")
     out = torch.empty((r, n_samples), dtype=torch.int32, device=xyz.device)
-    path, cs = fps_path(n)
+    path, cs = fps_path(n, r, None if n <= FPS_MAX_N else fps_cluster_resident(n, xyz.device))
     if path == "block":
         _launch(name, xyz.device, xyz, start, out, r, n, n_samples)
         return out
@@ -1011,18 +1063,27 @@ def sa_train_dq_ordered_plain(de: torch.Tensor, idx: torch.Tensor, mask: torch.T
     return knn_scatter_ordered_plain(ids, None, de, n, pairs=c * k, chunk=c * k)
 
 
-def sa_train_dq_chunks(n: int, c: int, k: int):
-    """(points, centroids) of a window of csrc/sa_train.cu's dq pass for
-    groups of g = ceil(n / k) points and c centroids: (g, c), one window,
-    when a block's shared memory holds the keys and lists (c ints each), the
-    eight warps' counts and the starts (9 g + 1 ints), as at every PROD
-    shape; else windows of at most half of it in counts and starts, and
-    the centroids in the rest."""
+def sa_train_dq_plan(b: int, n: int, c: int, k: int):
+    """csrc/sa_train.cu's dq pass for b clouds of n points, c centroids and
+    k slots (groups of g = ceil(n / k) points): None when a block holds a
+    group whole, its c centroids' keys and lists, the eight warps' counts
+    and the starts (2 c + 9 g + 1 ints), as at every PROD shape (the PROD
+    instance, grid (k, b)); else the windowed instance's (gp, lcap): W
+    windows of gp points a group, W the most that keep the grid within one
+    wave of two blocks an SM (k b W <= SA_DQ_WAVE; every window re-reads its
+    group's c keys, and a block of a second wave costs as much as one of
+    the first), at least 1, and raised until a window's counts and starts
+    (9 gp + 1 ints) take at most a quarter of a block's shared memory; lcap,
+    the list entries a block holds, at most c (a window's lists hold at
+    most one entry a centroid) and what leaves two blocks' shared memory
+    within an SM's (SA_DQ_PAIR_INTS)."""
     g = -(-n // k)
     if 2 * c + 9 * g + 1 <= SA_DQ_INTS:
-        return g, c
-    gp = min(g, (SA_DQ_INTS // 2 - 1) // 9)
-    return gp, min(c, (SA_DQ_INTS - 9 * gp - 1) // 2)
+        return None
+    gp_max = (SA_DQ_INTS // 4 - 1) // 9
+    w = max(1, SA_DQ_WAVE // (k * b), -(-g // gp_max))
+    gp = -(-g // w)
+    return gp, min(c, SA_DQ_PAIR_INTS - 9 * gp - 1)
 
 
 def sa_train_bwd2(q, cterm, idx, mask, aff, w2, awin, gt, edges: bool = False):
@@ -1037,8 +1098,8 @@ def sa_train_bwd2(q, cterm, idx, mask, aff, w2, awin, gt, edges: bool = False):
     (`sa_train_dq_ordered_plain`), so two runs give the same bits. The dq
     pass takes idx from the grouped selection (`ball_query`): slot j picks
     only points of group j, the ceil(N/K) points from j x ceil(N/K); past
-    its shared memory it walks a group in windows (`sa_train_dq_chunks`),
-    in the same order of sums."""
+    its shared memory a block takes a window of a group's points
+    (`sa_train_dq_plan`), in the same order of sums."""
     name = "sa_train_bwd2"
     b, n, c, k, ch1, ch2 = _sa_check(name, q, cterm, idx, mask, aff, w2, awin, gt)
     if not _on_card(name, q, cterm, idx, mask, aff, w2, awin, gt):
@@ -1052,8 +1113,15 @@ def sa_train_bwd2(q, cterm, idx, mask, aff, w2, awin, gt, edges: bool = False):
     de = torch.empty((b, c * k, ch1), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, n, ch1), dtype=torch.float32, device=q.device)
     dcterm = torch.empty((b, c, ch1), dtype=torch.float32, device=q.device)
-    gp, cc = sa_train_dq_chunks(n, c, k)
-    _launch(name, q.device, q, cterm, idx, mask, aff, w2, awin, gt, de, dq, dcterm,
-            grid, b, n, c, k, ch1, int(two), gp, cc,
-            path="sa_train_dq_chunked" if (gp, cc) != (-(-n // k), c) else None)
+    plan = sa_train_dq_plan(b, n, c, k)
+    keys = lists = None
+    gp, lcap = plan or (0, 0)  # read only by the windowed instance
+    if plan is not None:  # the windowed dq pass: its keys, and lists past its shared memory
+        _expect(b < 65536, name, "the windowed dq pass takes at most 65535 clouds")
+        keys = torch.empty((b, k, c), dtype=torch.int32, device=q.device)
+        if lcap < c:
+            lists = torch.empty((b, k, c), dtype=torch.int32, device=q.device)
+    _launch(name, q.device, q, cterm, idx, mask, aff, w2, awin, gt, de, dq, dcterm, keys, lists,
+            grid, b, n, c, k, ch1, int(two), gp, lcap,
+            path=None if plan is None else "sa_train_dq_chunked")
     return (dq, dcterm, de) if edges else (dq, dcterm)

@@ -63,24 +63,46 @@ def rng():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n,want", [
-    (2500, ("block", 1)),  # PROD SA2's row
-    (5000, ("block", 1)),  # PROD SA1's part (N=10000, fps_parts=2)
-    (10000, ("block", 1)),  # PROD SA1 unpartitioned
-    (16384, ("block", 1)),  # fps_kernel's last row: 16 points a thread
-    (16385, ("cluster", 2)),
-    (32768, ("cluster", 2)),  # SA1's part at subsample_size 65,536
-    (32769, ("cluster", 4)),
-    (40001, ("cluster", 4)),
-    (131072, ("cluster", 8)),  # the cluster's reach: 8 slices of 16,384
-    (131073, ("global", 8)),
-    (200000, ("global", 8)),
+@pytest.mark.parametrize("n,rows,want", [
+    (2500, 20, ("block", 1)),  # PROD SA2's rows
+    (5000, 40, ("block", 1)),  # PROD SA1's parts (N=10000, fps_parts=2)
+    (10000, 20, ("block", 1)),  # PROD SA1 unpartitioned
+    (16384, 20, ("block", 1)),  # fps_kernel's last row: 16 points a thread
+    (16385, 2, ("cluster", 6)),  # 3 points a thread: 7 and 8 blocks take as many
+    (32768, 40, ("cluster", 2)),  # the dense serve step's SA1 parts: 39 clusters of 3 at most
+    (32768, 20, ("cluster", 5)),  # 7 points a thread; 6 blocks would leave 3 rows waiting
+    (32769, 40, ("cluster", 5)),  # past 2 blocks' slices: two waves whatever cs, 5 the fewest points
+    (40000, 40, ("cluster", 5)),  # the 80,000-point train step's SA1 parts
+    (40001, 4, ("cluster", 8)),
+    (131072, 1, ("cluster", 8)),  # the cluster's reach: 8 slices of 16,384
+    (131073, 1, ("global", 8)),
+    (200000, 1, ("global", 8)),  # FPS_REFERENCE's global site
+    (32768, 80, ("cluster", 2)),  # B=40: two waves of 2-block clusters, three of 3
 ])
-def test_fps_path_by_row_length(n, want):
-    assert ck.fps_path(n) == want
+def test_fps_path_by_row_length(n, rows, want):
+    """fps_kernel up to 16,384 points a row; past it a cluster of cs blocks a
+    row whose slices fit in shared memory, cs chosen from the rows and the
+    card's resident clusters (FPS_RESIDENT, an H100's): the fewest waves of
+    clusters (all rows at once where some cs allows it), then the fewest
+    points a thread, then the fewest blocks."""
+    assert ck.fps_path(n, rows) == want
     path, cs = want
-    if path == "cluster":  # each slice fits in shared memory, with the fewest blocks
-        assert -(-n // cs) <= ck.FPS_MAX_N and (cs == 2 or -(-n // (cs // 2)) > ck.FPS_MAX_N)
+    res = ck.FPS_RESIDENT
+
+    def pts(c):
+        return -(-(-(-n // c)) // ck.FPS_THREADS)
+
+    def waves(c):
+        return -(-rows // res[c])
+
+    if path == "cluster":
+        fit = [c for c in range(2, ck.FPS_CLUSTER_MAX + 1) if -(-n // c) <= ck.FPS_MAX_N]
+        assert cs in fit and waves(cs) == min(map(waves, fit))
+        assert pts(cs) == min(pts(c) for c in fit if waves(c) == waves(cs))
+        assert (waves(cs) == 1) == (rows <= max(res[c] for c in fit))  # every row at once
+        assert pts(cs) <= 16 and (cs == min(fit) or pts(cs - 1) > pts(cs) or waves(cs - 1) > 1)
+    if path == "global":
+        assert rows <= res[cs]
 
 
 def _sa_smem(gc, ch1, ch2, two, k):
@@ -134,32 +156,107 @@ def test_pixel_max_path_by_table(n_pix, c, per):
         assert 8 * -(-n_pix // (ranges - 1)) * c > ck._SMEM_MAX
 
 
-def _dq_ints(gp, cc):
-    """csrc/sa_train.cu's dq pass: a window's keys and lists (cc ints each),
-    the eight warps' counts and the lists' starts (9 gp + 1 ints)."""
-    return 2 * cc + 9 * gp + 1
-
-
-@pytest.mark.parametrize("n,c,k,windowed", [
-    (10000, 2500, 32, False),  # PROD SA1
-    (2500, 625, 64, False),  # PROD SA2
-    (65536, 16384, 32, False),  # the dense phase's SA1
-    (74375, 18593, 32, False),  # 58,112 ints: the last SA1 shape that fits
-    (74376, 18594, 32, True),  # 58,114 ints: one point past
-    (80000, 20000, 32, True),  # chip_smoke.DQ_REFERENCE
-    (400000, 100000, 32, True),  # a window of points and one of centroids
+@pytest.mark.parametrize("b,n,c,k,plan", [
+    (20, 10000, 2500, 32, None),  # PROD SA1
+    (20, 2500, 625, 64, None),  # PROD SA2
+    (20, 65536, 16384, 32, None),  # the dense phase's SA1
+    (1, 74375, 18593, 32, None),  # 58,112 ints: the last SA1 shape that fits
+    (1, 74376, 18594, 32, (291, 18594)),  # 58,114 ints: one point past
+    (1, 80000, 20000, 32, (313, 20000)),  # chip_smoke.DQ_REFERENCE: 8 windows a group
+    (20, 80000, 20000, 32, (1250, 17661)),  # the 80,000-point train step's SA1 site
+    (1, 400000, 100000, 32, (1563, 14844)),  # lists past shared memory go to device memory
 ])
-def test_sa_train_dq_windows_by_shape(n, c, k, windowed):
-    """sa_train_bwd2's dq pass takes a group and all its centroids in one
-    window while the lists and counts fit in 232,448 B, else windows that
-    fit, as many points a window as half of it allows."""
+def test_sa_train_dq_windows_by_shape(b, n, c, k, plan):
+    """sa_train_bwd2's dq pass takes a group whole (the PROD instance) while
+    its keys, lists, counts and starts fit in 232,448 B; past that, windows
+    of gp points: the most that keep the grid within one wave of two blocks
+    on each of 132 SMs, at least one, and enough that counts and starts
+    take a quarter of a block at most; two blocks' shared memory within an
+    SM's 228 KB, and at most one list entry a centroid held in shared
+    memory."""
     g = -(-n // k)
-    gp, cc = ck.sa_train_dq_chunks(n, c, k)
-    assert ((gp, cc) != (g, c)) == windowed
-    assert (4 * _dq_ints(g, c) <= ck._SMEM_MAX) == (not windowed)
-    assert 4 * _dq_ints(gp, cc) <= ck._SMEM_MAX and 1 <= gp <= g and 1 <= cc <= c
-    if windowed and gp < g:  # the most points that half of the block holds
-        assert 4 * _dq_ints(gp + 1, 0) > ck._SMEM_MAX // 2
+    assert ck.sa_train_dq_plan(b, n, c, k) == plan
+    assert (4 * (2 * c + 9 * g + 1) <= ck._SMEM_MAX) == (plan is None)
+    if plan is not None:
+        gp, lcap = plan
+        w = -(-g // gp)
+        assert (w - 1) * gp < g <= w * gp
+        counts_w = -(-g // ((ck._SMEM_MAX // 16 - 1) // 9))  # the fewest windows counts allow
+        assert w == max(1, counts_w, 2 * 132 // (k * b))
+        assert w == counts_w or w * k * b <= 2 * 132 < (w + 1) * k * b
+        assert 4 * (9 * gp + 1) <= ck._SMEM_MAX // 4 and lcap <= c
+        assert 2 * (4 * (9 * gp + 1 + lcap) + 64 + 1024) <= 228 * 1024
+
+
+def _dq_windows_walk(de, idx, mask, n, gp, lcap):
+    """csrc/sa_train.cu's windowed dq pass in plain PyTorch, block by block:
+    the keys (slot j of centroid c as an offset in group j, -1 if masked),
+    then for window w of group j of cloud b the counting sort of its
+    points' picks, stable in c (the eight warps' spans in turn), the group's
+    entries before the window, the lists in shared memory while they hold at
+    most lcap entries and else at that offset of the device-memory lists,
+    and each point's row summed from 0 in list order, one float32 add at a
+    time. Returns dq and how many windows used the device-memory lists."""
+    b, c, k = idx.shape
+    ch = de.shape[2]
+    g = -(-n // k)
+    keys = torch.where(mask, idx - torch.arange(k) * g, -1)
+    keys = torch.where((keys >= 0) & (keys < g), keys, -1).permute(0, 2, 1)  # (B, K, C)
+    dq = torch.full((b, n, ch), float("nan"))
+    span = -(-c // 8)
+    spilled = 0
+    for bi in range(b):
+        for j in range(k):
+            taken = torch.zeros(c, dtype=torch.bool)  # device-memory list slots written
+            for lo in range(0, g, gp):
+                gs = max(0, min(gp, min(g, n - j * g) - lo))
+                if gs == 0:
+                    continue
+                kb = keys[bi, j]
+                before = int(((kb >= 0) & (kb < lo)).sum())
+                lists = [[] for _ in range(gs)]
+                for w0 in range(0, c, span):  # the warps' spans, each in increasing c
+                    for cc in range(w0, min(c, w0 + span)):
+                        d = int(kb[cc]) - lo
+                        if 0 <= d < gs:
+                            lists[d].append(cc)
+                total = sum(map(len, lists))
+                if total > lcap:  # the window's region of the group's device-memory lists
+                    spilled += 1
+                    assert before + total <= c and not taken[before:before + total].any()
+                    taken[before:before + total] = True
+                for p, lst in enumerate(lists):
+                    acc = torch.zeros(ch)
+                    for cc in lst:
+                        acc = acc + de[bi, cc * k + j]  # float32, rounded once an add
+                    dq[bi, j * g + lo + p] = acc
+    return dq, spilled
+
+
+@pytest.mark.parametrize("gp,lcap,hot", [(7, 1000, False), (50, 1000, False), (13, 6, True),
+                                         (250, 10, True)])
+def test_sa_train_dq_windows_walk_equals_ordered_plain(rng, gp, lcap, hot):
+    """The windowed dq pass, walked in plain PyTorch on a small shape (B=2,
+    N=2,000, C=500, K=8: groups of 250 points) with windows of gp points,
+    equals `sa_train_dq_ordered_plain` bit for bit: each point's row is 0
+    plus its valid edges in increasing c. With `hot`, 80% of slot j's picks
+    fall on the group's first 20 points, so windows outgrow lcap and place
+    their lists in device memory, in regions that never overlap."""
+    b, n, c, k, ch = 2, 2000, 500, 8, 16
+    g = n // k
+    off = rng.integers(0, 20 if hot else g, (b, c, k))
+    if hot:
+        off = np.where(rng.uniform(size=off.shape) < 0.8, off, rng.integers(0, g, off.shape))
+    idx = torch.from_numpy((off + np.arange(k) * g).astype(np.int32))
+    mask = torch.from_numpy(rng.uniform(size=(b, c, k)) < 0.7)
+    # values over many binades, so that another order of adds changes the bits
+    de = torch.from_numpy((rng.normal(size=(b, c * k, ch)) *
+                           10.0 ** rng.integers(-4, 5, (b, c * k, 1))).astype(np.float32))
+    de[~mask.reshape(b, c * k)] = 0.0
+    got, spilled = _dq_windows_walk(de, idx, mask, n, gp, lcap)
+    want = ck.sa_train_dq_ordered_plain(de, idx, mask, n)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (spilled > 0) == hot
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +268,7 @@ def test_sa_train_dq_windows_by_shape(n, c, k, windowed):
 def test_fps_long_rows_match_fps_lax(rng, n):
     """Rows past fps_kernel's 16,384 points (the cluster path on the card),
     index for index against `_fps_lax` on tie-heavy grid clouds."""
-    assert ck.fps_path(n)[0] == "cluster"
+    assert ck.fps_path(n, 2)[0] == "cluster"
     xyz = _grid(rng, 2, n)
     start = np.array([0, n - 1], np.int32)
     want = jax.vmap(lambda p, st: _fps_lax(p, 512, st))(jnp.asarray(xyz), jnp.asarray(start))
@@ -247,7 +344,7 @@ def test_dense_serve_forward_matches_jax(rng):
     statistics random: coverages, probabilities, rasters and plot coverages
     within the model tests' tolerance."""
     n = 16400
-    assert ck.fps_path(n)[0] == "cluster" and ck.pixel_max_range(100 * 100, 3) < 100 * 100
+    assert ck.fps_path(n, 1)[0] == "cluster" and ck.pixel_max_range(100 * 100, 3) < 100 * 100
     jcfg = JaxModelConfig(subsample_size=n, fps_parts=1, diam_pix=100, use_pallas=False)
     pcfg = ModelConfig(subsample_size=n, fps_parts=1, diam_pix=100)
     model = jax_init(jax.random.PRNGKey(16), jcfg)

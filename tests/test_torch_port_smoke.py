@@ -292,6 +292,10 @@ ATOMIC_SASS = f"""
         /*0000*/                   ATOMS.ADD RZ, [R2], R3 ;
         /*0010*/                   STG.E [R8.64], R4 ;
         /*0020*/                   EXIT ;
+        Function : _Z23sa_train_dq_keys_kernelPKiPKbPiiii
+        /*0000*/                   LDG.E R4, [R6.64] ;
+        /*0010*/                   STG.E [R8.64], R4 ;
+        /*0020*/                   EXIT ;
 """
 
 
@@ -1015,6 +1019,9 @@ def test_dense_phase_runs_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(ck, "PIXEL_MAX_TABLE", 64)
     monkeypatch.setattr(ck, "SA_DQ_INTS", 1000)
     monkeypatch.setattr(cs, "DQ_REFERENCE", (1, 2000, 500, 32, 16))
+    asked = []  # the card's resident clusters: the table's here
+    monkeypatch.setattr(ck, "fps_cluster_resident",
+                        lambda n, device: asked.append(n) or dict(ck.FPS_RESIDENT))
     # the dq pass's order of sums is the kernel's (the plain version sums in
     # float64); bwd2_dq_checks's own tests hold it, here it is only called
     dq_sites = []
@@ -1026,10 +1033,14 @@ def test_dense_phase_runs_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(cs, "FPS_REFERENCE", cs.FPS_REFERENCE[:-1] + (("uniform", 1, 4097, 64),))
     named = {"dense_serve_profile": cs.DENSE_SERVE_PATHS,
-             "dense_train_profile": cs.DENSE_TRAIN_PATHS}
+             "dense_train_profile": cs.DENSE_TRAIN_PATHS,
+             "dense_dq_train_profile": cs.DENSE_DQ_TRAIN_PATHS}
+
+    def first(prefixes):
+        return prefixes if isinstance(prefixes, str) else prefixes[0]
 
     def profile(torch, step, args, ms, label, launches, steps, strict, warmup):
-        return ([(0.5, 1.0, f"void {cs.DENSE_KERNELS[path]}<16>(float const*)")
+        return ([(0.5, 1.0, f"void {first(cs.DENSE_KERNELS[path])}<16>(float const*)")
                  for path, count in named[label].items() if count]
                 + [(0.5, 1.0, f"void {cs.DEVICE_KERNELS[name][0]}(float const*)")
                    for name, count in launches.items() if count])
@@ -1063,7 +1074,18 @@ def test_dense_phase_runs_on_the_cpu(monkeypatch, capsys):
         + [("reference", "fps_global"), ("reference", "sa_train_dq_chunked")])
     timed = {tuple(x["site"].split()[1:3]) for x in held if "kernel_ms" in x}
     assert sorted(path for _, path in timed) == sorted(cs.DENSE_KERNELS)
-    assert dq_sites == ["dense sa_train_dq_chunked 0"]
+    # the dq windows at their reference site and at the N=2,560 step's SA1
+    # site, and that step's FPS rows (SA1's parts, past 512 points) held and
+    # timed beside the dense steps' rows
+    assert dq_sites == ["dense sa_train_dq_chunked 0", "dense_dq sa_train_dq_chunked 0"]
+    step80k = [x for x in lines if str(x.get("site", "")).startswith("dense_dq train")]
+    assert {x["site"].split()[2] for x in step80k} == {"fps_cluster", "sa_train_dq_chunked"}
+    assert all(x["differing_selections"] == 0 and x["max_abs_diff"] == 0.0 for x in step80k)
+    assert rows["fps_cluster"]["step80k"]["bound_ms"] > 0
+    assert rows["sa_train_dq_chunked"]["step80k"]["bound_ms"] > 0
+    resident = [x for x in lines if x.get("phase") == "fps_cluster_resident"]
+    assert [(x["rows"], x["N"]) for x in resident] == [(4, 1024), (1, 4097), (4, 1280)]
+    assert all(x["one_wave"] for x in resident) and 1024 in asked
     (dense,) = [x for x in lines if x.get("phase") == "dense"]
     assert dense["serve_cpu_B1_max_abs_diff"] == 0.0 and dense["N"] == 2048
     assert (dense["sa_train_bwd2_edge_buffer_bytes"]
