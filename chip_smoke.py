@@ -32,10 +32,13 @@ Phases, in order, each failing loudly:
      each with 0 differing indices, and the SA
      kernel's selection reference sites (SEL_REFERENCE: tie-heavy grid
      clouds at the SA1 and SA2 shapes, a ragged site with an empty last
-     group, a site at the longest group staged whole, a grid cloud at the
-     dense SA1 shape and groups longer than two chunks with a ragged last
-     one), each with 0 differing
-     picks and outputs within SA_ATOL, and kNN's reference sites
+     group, a site at the longest group staged whole, then the cell grid's
+     sites: a grid cloud at the dense SA1 shape, groups longer than two
+     slices with a ragged last one, and at the dense SA1 shape plots 1 km
+     from the origin, 90% of the points in 5% of the plot and points sorted
+     by x), each with 0 differing picks and outputs within SA_ATOL, each
+     cell-grid site with its pairs scored against all pairs
+     (`"grid_work"`), and kNN's reference sites
      (KNN_REFERENCE: tie-heavy integer-grid clouds at the FP1 and FP2 shapes
      with duplicated sources and targets on sources, a ragged site, three
      sources, more sources than the kernel stages at once), each with 0
@@ -151,8 +154,10 @@ Phases, in order, each failing loudly:
      and train steps on
      dense plots (DENSE: B=20 x N=65536, diam_pix 100, the default plan),
      which cross every limit of the PROD kernels: SA1's FPS rows of 32,768
-     points (the cluster path), SA1's groups of 2,048 points (the chunked
-     selection, in the SA eval kernel serving and the ball query training),
+     points (the cluster path), SA1's groups of 2,048 points (the selection
+     on the cell grid, in the SA eval kernel serving and the ball query
+     training, each site's scored, in-radius and all pairs on its row, one
+     call of each under the sync debug mode, `"grid_sync_debug"`),
      the 240,000 B pixel table (two pixel ranges); launches counted by wrapper
      (SERVE_LAUNCHES, TRAIN_LAUNCHES) and by path (DENSE_SERVE_PATHS,
      DENSE_TRAIN_PATHS), outputs finite, coverages in [0, 1], loss parts
@@ -209,13 +214,15 @@ Phases, in order, each failing loudly:
      main, predict --point_sharded and predict, each with its artifacts and
      every rank's launches (`"parallel_cli"`);
   16. `"phase": "selection_floor"`, for sa_fused_eval and knn_interpolate
-     (serve step), ball_query (train step) and ball_query_nearest (the
-     nearest serve step): the SASS instructions a pair
+     (serve step), ball_query (train step), ball_query_nearest (the
+     nearest serve step) and the grouped selection's cell-grid query of
+     either library (`ball_query_grid`, `sa_fused_eval_grid`: the dense
+     steps' SA1 sites): the SASS instructions a pair
      of the scan loop (cuobjdump of the built library; for kNN also on the
-     path of a pair that inserts nothing; the nearest kernel's loop found by
-     its global LDG.E.128 load), the step's pairs (for the nearest kernel the
-     pairs it scores, its centroids' 3 x 3 cells, beside all pairs and the
-     in-radius pairs) and the issue
+     path of a pair that inserts nothing; the culled queries' loops found
+     by their global LDG.E.128 loads), the step's pairs (for the culled
+     queries the pairs they score, their centroids' 3 x 3 cells, beside all
+     pairs and the in-radius pairs) and the issue
      floor, pairs x instructions / (132 SMs x 128 lanes x the maximum SM
      clock of phase 1), and each kernel's registers, stack and spills
      (cuobjdump -res-usage), and the SM clocks sampled while the ball query
@@ -276,7 +283,7 @@ Phases, in order, each failing loudly:
      synthetic FPS, selection, SA train, pixel-max, scatter and nearest
      sites, apart from the per-step rows), the `{"dense_kernels": [...]}`
      line (a row a long-shape path, and the pixel-max backward at the dense
-     table: its wrapper, kernel and source, launches in a dense serve and
+     table: its wrapper, kernels and source, launches in a dense serve and
      train step, device ms in each from phase 15h's profiles, the CUDA-event
      ms, plain ms, bound and max |kernel - plain| of its sites in the dense
      serve step, or the train step for the ball query and the backward, or
@@ -305,7 +312,10 @@ the train step (the seven train kernels) or in the nearest serve step
 `reference_sites` line alone. The operations bound counts a fused
 multiply-add as one operation against a rate that counts it as two, so for
 the scan kernels (the grouped selection, kNN) it sits below what the card
-can issue: phase 16 gives their issue floor beside it.
+can issue: phase 16 gives their issue floor beside it. The grouped
+selection on the cell grid (the dense rows) counts 10 operations a pair
+within the radius, as the nearest selection does, with the bound of 10 a
+pair of all pairs beside it (`bound_all_pairs_ms`).
 """
 
 from __future__ import annotations
@@ -442,13 +452,23 @@ EDGE_LOOP_INSTANCES = (("sa_train_stats", 16), ("sa_train_main", 16), ("sa_train
 # kernels' longest group staged whole ("max_g", B=2, K=4: cuda_kernels.
 # BQ_MAX_G for the query, sa_fused_eval_max_g for the SA kernel's
 # instances); the dense phase's SA1 shape (B=2, N=65536, C=16384, K=32:
-# groups of 2048, streamed in chunks of 1816 and 1741); and "long" (B=2,
-# K=4, N set for each kernel instance): groups of 2 chunks + 5 points (the
-# third chunk 5 points) and a ragged last group 2 points shorter, at each
-# instance's own chunk
+# groups of 2048, past both slices: the cell grid); and "long" (B=2, K=4, N
+# set for each kernel instance): groups of twice the longest staged whole
+# + 5 points and a ragged last group 2 points shorter (the cell grid). Then
+# the cell grid's own sites at the dense SA1 shape, each centroid of which
+# scores only its 3 x 3 cells: "shifted", serve-like plots (xy in
+# [-10, 10]^2, z in [0, 3]) moved to (1000, 1000, 0) m, where the expanded
+# d2 admits points beyond r (the culling radius's margin); "clustered",
+# 90% of those points in a square of 5% of the plot (NEAREST_CLUSTER), so
+# the cells around most centroids hold most of the cloud; "sorted", such
+# plots' points sorted by x, so each group is a strip of the plot and a
+# centroid's cells hold a few groups' points each
 SEL_REFERENCE = (("grid", 20, 10000, 2500, 32, 2 ** 0.5), ("grid", 20, 2500, 625, 64, 8 ** 0.5),
                  ("grid", 3, 1030, 300, 48, 2.0), ("max_g", 2, 0, 300, 4, 2.0),
-                 ("grid", 2, 65536, 16384, 32, 2 ** 0.5), ("long", 2, 0, 300, 4, 2.0))
+                 ("grid", 2, 65536, 16384, 32, 2 ** 0.5), ("long", 2, 0, 300, 4, 2.0),
+                 ("shifted", 2, 65536, 16384, 32, 2 ** 0.5),
+                 ("clustered", 2, 65536, 16384, 32, 2 ** 0.5),
+                 ("sorted", 2, 65536, 16384, 32, 2 ** 0.5))
 # kNN's reference sites (phase 4): (cloud, B, S, T, F). "grid": integer
 # coordinates in [0, 16) with an eighth of the sources duplicated and an
 # eighth of the targets put on sources, so most picks break ties, many at
@@ -517,30 +537,32 @@ REFERENCE_SITES["ball_query_nearest"] = len(NEAREST_REFERENCE)
 # 10 m plot; 0.2 m pixels over its 20 m). At B=20 and the default plan (k1
 # 32, k2 64, fps_parts 2) every limit of the PROD kernels is crossed at
 # once: SA1's FPS rows of 32,768 points (40 rows of 8,192 picks: the
-# cluster), SA1's groups of 2,048 points (chunked), a pixel table of 10,000 x
+# cluster), SA1's groups of 2,048 points (the cell grid), a pixel table of 10,000 x
 # 3 x 8 B = 240,000 B (two ranges); SA2's rows of 8,192 and groups of 256
 # stay on the PROD kernels.
 DENSE = {"subsample_size": 65536, "diam_pix": 100}
 DENSE_STEPS = 10  # timed steps of each; the median is reported
 # launches of the long-shape paths (cuda_kernels.PATH_LAUNCHES) in a dense
 # step, and of the pixel-max backward, whose table has no limit
-DENSE_SERVE_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_chunked": 0,
-                     "sa_fused_eval_chunked": 1, "pixel_max_ranges": 2,
+DENSE_SERVE_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_grid": 0,
+                     "sa_fused_eval_grid": 1, "pixel_max_ranges": 2,
                      "sa_train_dq_chunked": 0}
-DENSE_TRAIN_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_chunked": 1,
-                     "sa_fused_eval_chunked": 0, "pixel_max_ranges": 1,
+DENSE_TRAIN_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_grid": 1,
+                     "sa_fused_eval_grid": 0, "pixel_max_ranges": 1,
                      "sa_train_dq_chunked": 0, "pixel_max_bwd": 1}
-# each path's device kernel, by name prefix: the chunked selections and the
-# dq windows by their template instance (the PROD instances take the other
-# launches); the pixel ranges run in pixel_max_kernel itself, whose device
-# ms hold every launch of the step (all of them ranged in the dense steps)
+# each path's device kernels, by name prefix: the grid selections' grid
+# pass, query and (SA) apply, and the dq windows by their template instance
+# (the PROD instances take the other launches); the pixel ranges run in
+# pixel_max_kernel itself, whose device ms hold every launch of the step
+# (all of them ranged in the dense steps)
 DENSE_WRAPPERS = {"fps_cluster": "fps", "fps_global": "fps",
-                  "sa_fused_eval_chunked": "sa_fused_eval", "ball_query_chunked": "ball_query",
+                  "sa_fused_eval_grid": "sa_fused_eval", "ball_query_grid": "ball_query",
                   "pixel_max_ranges": "pixel_max", "sa_train_dq_chunked": "sa_train_bwd2",
                   "pixel_max_bwd": "pixel_max_bwd"}
 DENSE_KERNELS = {"fps_cluster": "fps_cluster_kernel", "fps_global": "fps_cluster_kernel<8, 0>",
-                 "sa_fused_eval_chunked": "sa_kernel<16, 16, true, true>",
-                 "ball_query_chunked": "ball_query_kernel<true>",
+                 "sa_fused_eval_grid": ("sa_grid_kernel", "grouped_cull_kernel<true>",
+                                        "sa_apply_kernel<16, 16, true>"),
+                 "ball_query_grid": ("ball_query_grid_kernel", "grouped_cull_kernel<false>"),
                  "pixel_max_ranges": "pixel_max_kernel",
                  "sa_train_dq_chunked": ("sa_train_dq_kernel<16, true>",
                                          "sa_train_dq_keys_kernel"),
@@ -555,10 +577,10 @@ DQ_REFERENCE = (1, 80000, 20000, 32, 16)
 # ... and a whole train step there (phase 15h's last part): B=20 plots of
 # subsample_size 80,000 at diam_pix 100, the default plan, whose SA1 dq pass
 # takes windows (SA2's, at 20,000 points, does not); FPS rows of 40,000 (a
-# cluster of 4 blocks), SA1 groups of 2,500 (chunked), two pixel ranges
+# cluster of 5 blocks), SA1 groups of 2,500 (the cell grid), two pixel ranges
 DENSE_DQ_N = 80000
-DENSE_DQ_TRAIN_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_chunked": 1,
-                        "sa_fused_eval_chunked": 0, "pixel_max_ranges": 1,
+DENSE_DQ_TRAIN_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_grid": 1,
+                        "sa_fused_eval_grid": 0, "pixel_max_ranges": 1,
                         "sa_train_dq_chunked": 1}
 DENSE_DQ_STEPS = 3  # timed steps; the median is reported
 FPS_FLOOR_N = 1024  # one point for each thread of the FPS block
@@ -643,10 +665,14 @@ PROFILE_STEPS = 10
 PROFILE_TRIES = 8
 LAUNCH_REPS = 2000  # calls a host cost of phase 11b is averaged over
 # device kernels of each wrapper, by name prefix (ops/csrc/*.cu)
-DEVICE_KERNELS = {"fps": ("fps_kernel", "fps_cluster_kernel"), "sa_fused_eval": ("sa_kernel",),
+DEVICE_KERNELS = {"fps": ("fps_kernel", "fps_cluster_kernel"),
+                  "sa_fused_eval": ("sa_kernel", "sa_grid_kernel", "grouped_cull_kernel<true>",
+                                    "sa_apply_kernel"),
                   "knn_interpolate": ("knn_kernel",),
                   "pixel_max": ("pixel_max_kernel",),
-                  "ball_query": ("ball_query_kernel",), "knn_scatter": ("knn_scatter_kernel",),
+                  "ball_query": ("ball_query_kernel", "ball_query_grid_kernel",
+                                 "grouped_cull_kernel<false>"),
+                  "knn_scatter": ("knn_scatter_kernel",),
                   "pixel_max_bwd": ("pixel_max_bwd_kernel",),
                   **{name: (f"{name}_kernel",) for name in SA_TRAIN},
                   "sa_train_bwd2": ("sa_train_bwd2_kernel", "sa_train_dq_kernel",
@@ -889,7 +915,16 @@ def selection_reference_calls(torch, ck, device):
     def cloud(kind, b, n):
         if kind == "grid":
             return torch.randint(0, 16, (b, n, 3), generator=gen, device=device).float()
-        return torch.cat([rand(b, n, 2) * 20 - 10, rand(b, n, 1) * 3], -1)
+        pts = torch.cat([rand(b, n, 2) * 20 - 10, rand(b, n, 1) * 3], -1)
+        if kind == "shifted":
+            pts[..., :2] += NEAREST_SHIFT
+        elif kind == "clustered":
+            share, side = NEAREST_CLUSTER
+            pts[..., :2] = torch.where((rand(b, n) < share)[..., None], (rand(b, n, 2) - 0.5) * side,
+                                       pts[..., :2])
+        elif kind == "sorted":
+            pts = torch.gather(pts, 1, pts[..., 0].argsort(dim=1)[..., None].expand(b, n, 3))
+        return pts.contiguous()
 
     bq, sa = [], []
     for kind, b, n, c, k, radius in SEL_REFERENCE:
@@ -898,7 +933,7 @@ def selection_reference_calls(torch, ck, device):
         chunks = (ck.BQ_MAX_G, ck.sa_fused_eval_max_g(ch, ch, two, k))
         if kind == "max_g":
             n_bq, n_sa = (m * k for m in chunks)
-        elif kind == "long":  # groups of 2 chunks + 5, the last 2 points short
+        elif kind == "long":  # groups of 2 slices + 5, the last 2 points short
             n_bq, n_sa = (k * (2 * m + 5) - 2 for m in chunks)
         else:
             n_bq = n_sa = n
@@ -949,11 +984,9 @@ def check_no_atomics(counts, kernel: str) -> None:
     check(not any(counts.values()), f"{kernel}: global atomic instructions in the SASS: {counts}")
 
 
-def innermost_loops(ins):
-    """The innermost loops of one function: ranges closed by a backward
-    branch that hold no other backward branch. An out-of-line block that
-    jumps back into a loop spans the loop's own back edge, so it is not
-    one."""
+def loops_of(ins):
+    """The loops of one function: (head, tail) address ranges closed by a
+    backward branch."""
     import re
 
     back = []
@@ -961,6 +994,15 @@ def innermost_loops(ins):
         m = re.search(r"BRA (0x[0-9a-f]+)", text)
         if m and int(m.group(1), 16) < addr:
             back.append((int(m.group(1), 16), addr))
+    return back
+
+
+def innermost_loops(ins):
+    """The innermost loops of one function: ranges closed by a backward
+    branch that hold no other backward branch. An out-of-line block that
+    jumps back into a loop spans the loop's own back edge, so it is not
+    one."""
+    back = loops_of(ins)
     return [[(a, t) for a, t in ins if head <= a <= tail] for head, tail in back
             if not any(head <= h2 and t2 <= tail and (h2, t2) != (head, tail) for h2, t2 in back)]
 
@@ -971,31 +1013,42 @@ def opcode(text: str) -> str:
     return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
 
 
-def sass_per_pair(sass: str, r: int, load: str = r"LDS\.128"):
+def sass_per_pair(sass: str, r: int, load: str = r"LDS\.128", nested: bool = False):
     """SASS instructions a pair in the scan loop of each kernel in `sass`
     (cuobjdump -sass of a library): of the innermost loops that hold both a
     128-bit load of one point (`load`, a regular expression: a shared-memory
-    LDS.128 of a staged point by default; the nearest kernel reads its
+    LDS.128 of a staged point by default; the culled queries read their
     sorted points from global memory, LDG.E.128) and a float compare, the
     one with the most such loads (an unrolled main loop, not its
     remainder). Each point feeds `r` targets, so its length over (points x
     r) is per pair. `common_per_pair` leaves out what a forward branch
     inside the loop can skip (kNN's top-3 insert): the path of a pair whose
-    compare fails."""
+    compare fails. With `nested`, a loop may hold loops without such loads
+    (the grouped cell-grid query's compare-and-swap retries): the scan loop
+    is then the innermost of the loops with such loads, those nested loops
+    are left out of its counts and their instructions reported as
+    `nested`."""
     import re
     from collections import Counter
 
     found = {}
     for func, ins in sass_functions(sass).items():
-        best = None
-        for body in innermost_loops(ins):
-            points = sum(re.search(load, t) is not None for _, t in body)
-            if points and any("FSETP" in t for _, t in body) and (
-                    best is None or (points, -len(body)) > (best[1], -len(best[0]))):
-                best = (body, points)
-        if best is None:
+        back = loops_of(ins) if nested else []
+        bodies = ([[(a, t) for a, t in ins if head <= a <= tail] for head, tail in back]
+                  if nested else innermost_loops(ins))
+        scans = [(body, sum(re.search(load, t) is not None for _, t in body)) for body in bodies]
+        scans = [(body, points) for body, points in scans
+                 if points and any("FSETP" in t for _, t in body)]
+        # innermost among the loops that load points
+        scans = [(body, points) for body, points in scans
+                 if not any(o[0][0] >= body[0][0] and o[-1][0] <= body[-1][0] and len(o) < len(body)
+                            for o, _ in scans)]
+        if not scans:
             continue
-        body, points = best
+        body, points = max(scans, key=lambda bp: (bp[1], -len(bp[0])))
+        inner = {a for h2, t2 in back if body[0][0] <= h2 and t2 <= body[-1][0]
+                 and (h2, t2) != (body[0][0], body[-1][0]) for a, _ in body if h2 <= a <= t2}
+        body = [(a, t) for a, t in body if a not in inner]
         skipped = set()
         for addr, text in body:
             m = re.search(r"BRA (0x[0-9a-f]+)", text)
@@ -1006,6 +1059,8 @@ def sass_per_pair(sass: str, r: int, load: str = r"LDS\.128"):
                        "per_pair": len(body) / (points * r),
                        "common_per_pair": (len(body) - len(skipped)) / (points * r),
                        "opcodes": dict(ops.most_common())}
+        if nested:
+            found[func]["nested"] = len(inner)
     return found
 
 
@@ -1083,9 +1138,12 @@ def sm_clock_under_load(torch, ck, device):
 
 
 def scan_floor(torch, ck, libs, clock_mhz, rows):
-    """Phase 16. The issue floor of the kernels that scan every pair: the
-    pairs of a step (serve for sa_fused_eval and knn_interpolate, train for
-    ball_query) times the SASS instructions a pair of the scan loop, over
+    """Phase 16. The issue floor of the kernels that scan pairs: the pairs
+    of a step (serve for sa_fused_eval and knn_interpolate, train for
+    ball_query; the pairs it scores for the culled queries: the nearest
+    selection's serve step and the grouped cell-grid query's dense SA1
+    sites, `ball_query_grid` and `sa_fused_eval_grid`, whose `rows` are the
+    dense rows) times the SASS instructions a pair of the scan loop, over
     132 SMs x 128 lanes x the card's maximum SM clock (one instruction a
     lane a cycle); for kNN on the path of a pair that inserts nothing
     (`common_per_pair`), beside the whole loop's. Then the slot loop of
@@ -1114,21 +1172,31 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
         return res
 
     load_mhz = sm_clock_under_load(torch, ck, torch.device("cuda", 0))
-    for name, r, load in (("sa_fused_eval", ck.SEL_TILE // 32, r"LDS\.128"),
-                          ("ball_query", ck.SEL_TILE // 32, r"LDS\.128"),
-                          ("knn_interpolate", 1, r"LDS\.128"),
-                          ("ball_query_nearest", 1, r"LDG\.E\S*\.128")):
-        loops = sass_per_pair(dump(name, "-sass"), r, load)
+    ldg = r"LDG\.E\S*\.128"
+    # (row, library, kernel, targets a loaded point, its load, nested loops):
+    # the cell-grid query scores each point for ck.CULL_CENTS centroids and
+    # retries its slot folds in a nested compare-and-swap loop
+    for name, library, func, r, load, nested in (
+            ("sa_fused_eval", "sa_fused_eval", "sa_kernel", ck.SEL_TILE // 32, r"LDS\.128", False),
+            ("ball_query", "ball_query", "ball_query_kernel", ck.SEL_TILE // 32, r"LDS\.128", False),
+            ("knn_interpolate", "knn_interpolate", "knn_kernel", 1, r"LDS\.128", False),
+            ("ball_query_nearest", "ball_query_nearest", "ball_query_nearest_kernel", 1, ldg, False),
+            ("ball_query_grid", "ball_query", "grouped_cull_kernel", ck.CULL_CENTS, ldg, True),
+            ("sa_fused_eval_grid", "sa_fused_eval", "grouped_cull_kernel", ck.CULL_CENTS, ldg,
+             True)):
+        loops = {f: v for f, v in sass_per_pair(dump(library, "-sass"), r, load, nested).items()
+                 if func in f}
         check(len(loops) > 0, f"{name}: no scan loop found in the SASS")
         per_pair = max(v["per_pair"] for v in loops.values())
         common = max(v["common_per_pair"] for v in loops.values())
         # the pairs the kernel scores: all of them for the brute-force scans,
-        # the centroids' 3 x 3 cells for the nearest selection
+        # the centroids' 3 x 3 cells for the nearest selection and the
+        # grouped selection's grid path (its dense step's site)
         pairs = rows[name].get("scored_pairs", rows[name]["pairs"])
         culled = {key: rows[name][key] for key in ("pairs", "in_radius_pairs")
                   if "scored_pairs" in rows[name]}
         print(json.dumps({"phase": "selection_floor", "kernel": name, "sass_loops": loops,
-                          "resource_usage": resources(name), **culled,
+                          "resource_usage": resources(library), **culled,
                           "pairs_per_step": pairs, "sm_clock_max_mhz": clock_mhz,
                           "sm_clock_under_load_mhz": load_mhz,
                           "issue_floor_ms": pairs * common / (132 * 128 * clock_mhz * 1e6) * 1e3,
@@ -1271,14 +1339,36 @@ def knn_scatter_site(torch, ck, site, args):
     return shape, nbytes, ops, err, lib_ms, lambda *_: ck.knn_scatter_plain(pidx, pw, g, s)
 
 
-def check_site(torch, ck, name, site, args):
+def grid_work(cent, pts, radius):
+    """The cell-grid selection's work at one site: the pairs its query
+    scores (each centroid's 3 x 3 cells, `ballquery.nearest_cells`) and the
+    pairs within the radius (what any exact method must score), the latter
+    counted by the plain version's distances."""
+    from stratanet2_tpu_torch.ops.ballquery import _CHUNK, nearest_cells, radius_sq
+    from stratanet2_tpu_torch.ops.distance import expanded_d2, sq_norm3, tile_rows
+
+    scored = float(nearest_cells(cent, pts, radius).scored.sum())
+    r2, pts_sq = radius_sq(radius), sq_norm3(pts)
+    b, n, _ = pts.shape
+    chunk, in_radius = tile_rows(pts.device, b, n, _CHUNK), 0
+    for c0 in range(0, cent.shape[1], chunk):
+        cc = cent[:, c0 : c0 + chunk]
+        in_radius += int((expanded_d2(cc, sq_norm3(cc), pts, pts_sq) <= r2).sum())
+    return scored, float(in_radius)
+
+
+def check_site(torch, ck, name, site, args, work=None):
     """Kernel vs plain at one call site of fps, sa_fused_eval,
     knn_interpolate, pixel_max, ball_query, pixel_max_bwd or sa_train_bwd2:
     selections exactly (the SA kernel's picks read back through probe
     launches), values within the kernel's atol (pixel_max and its backward
     exactly; sa_train_bwd2 as phase 11 holds it, `bwd2_dq_checks` and
-    `compare_sa_train_site`). Returns (shape, bytes, operations, max |diff|,
-    differing selections, library ms, pairs scored)."""
+    `compare_sa_train_site`). A grouped selection on the cell grid prints
+    its `"grid_work"` line (`grid_work`: pairs scored against all pairs),
+    its operations are 10 a pair within the radius (as the nearest
+    selection's, `nearest_site`) and `work`, where given, takes its scored
+    and in-radius pairs. Returns (shape, bytes, operations, max |diff|,
+    differing selections, library ms, all pairs)."""
     from stratanet2_tpu_torch.ops.ballquery import ball_query_grouped
 
     kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
@@ -1306,12 +1396,13 @@ def check_site(torch, ck, name, site, args):
         valid = float(rmask.sum())
         edge_ops = 4 * ch1 + (2 * ch1 * ch2 + 4 * ch2 if w2 is not None else 0) + ch2
         nbytes = 4 * (b * n * (ch1 + 3) + b * c * (3 + ch1) + b * c * ch2)
-        ops = 10.0 * b * c * n + valid * edge_ops
         g = -(-n // k)
-        chunk = ck.sel_chunk(g, ck.sa_fused_eval_max_g(ch1, ch2, w2 is not None, k))
-        shape = (f"B={b} N={n} C={c} K={k} C1={ch1} C2={ch2} valid_picks={int(valid)} "
-                 f"g={g} chunk={chunk}")
+        path = ck.sel_path(g, ck.sa_fused_eval_max_g(ch1, ch2, w2 is not None, k))
         pairs = float(b * c * n)
+        ops = grid_site(name, site, cent, xyz, radius, pairs, path == "grid", work)
+        ops += valid * edge_ops
+        shape = (f"B={b} N={n} C={c} K={k} C1={ch1} C2={ch2} valid_picks={int(valid)} "
+                 f"g={g} path={path}")
     elif name == "knn_interpolate":
         x, ps, pt = args
         (go, gi, gw), (wo, wi, ww) = kernel(*args), plain(*args)
@@ -1335,11 +1426,12 @@ def check_site(torch, ck, name, site, args):
         err = 0.0
         b, c, _ = cent.shape
         n = pts.shape[1]
-        nbytes, ops = 12.0 * b * (c + n) + 5.0 * b * c * k, 10.0 * b * c * n
         g = -(-n // k)
-        shape = (f"B={b} C={c} N={n} K={k} valid={int(wm.sum())} g={g} "
-                 f"chunk={ck.sel_chunk(g, ck.BQ_MAX_G)}")
         pairs = float(b * c * n)
+        nbytes = 12.0 * b * (c + n) + 5.0 * b * c * k
+        path = ck.sel_path(g, ck.BQ_MAX_G)
+        ops = grid_site(name, site, cent, pts, radius, pairs, path == "grid", work)
+        shape = f"B={b} C={c} N={n} K={k} valid={int(wm.sum())} g={g} path={path}"
     elif name == "sa_train_bwd2":
         got, want = kernel(*args), plain(*args)
         lib_ms, _ = bwd2_dq_checks(torch, ck, site, args, got)
@@ -1368,6 +1460,24 @@ def check_site(torch, ck, name, site, args):
                  f"empty_pixels={int((amax[..., 0] < 0).sum())}")
     check(diff_sel == 0, f"{name} site {site}: {diff_sel} selections differ")
     return shape, nbytes, ops, err, diff_sel, lib_ms, pairs
+
+
+def grid_site(name, site, cent, pts, radius, pairs, grid, work):
+    """The grouped selection's operations at a site (`check_site`): 10 a
+    pair it scores whole, or on the cell grid (`grid`: groups past the
+    wrapper's slice, `cuda_kernels.sel_path`) 10 a pair within the radius,
+    with the site's `"grid_work"` line printed and `work` (a dict, or None)
+    given its scored and in-radius pairs."""
+    if not grid:
+        return 10.0 * pairs
+    scored, in_radius = grid_work(cent, pts, radius)
+    print(json.dumps({"phase": "grid_work", "kernel": name, "site": site,
+                      "scored_pairs": scored, "all_pairs": pairs, "scored_share": scored / pairs,
+                      "in_radius_pairs": in_radius}), flush=True)
+    if work is not None:
+        for key, v in (("scored_pairs", scored), ("in_radius_pairs", in_radius)):
+            work[key] = work.get(key, 0.0) + v
+    return 10.0 * in_radius
 
 
 def compare_kernels(torch, ck, captured):
@@ -3647,7 +3757,7 @@ def dense_path_sites(ck, serve_calls, train_calls):
     """The call sites of the long-shape paths in the dense steps, as
     {path: [(step, wrapper, args)]}: the SA1 FPS rows (the cluster), SA1's
     selection in the SA eval kernel (serve) and the ball query (train),
-    both chunked, and every pixel max (two pixel ranges); then the pixel-max
+    both on the cell grid, and every pixel max (two pixel ranges); then the pixel-max
     backward at the dense table, which has no table to outgrow. The global
     FPS path and the dq windows, which the dense steps do not reach, get
     their reference sites in `dense_phase`."""
@@ -3661,11 +3771,11 @@ def dense_path_sites(ck, serve_calls, train_calls):
         for args in calls["fps"]:
             if ck.fps_path(args[0].shape[1], args[0].shape[0])[0] == "cluster":
                 sites["fps_cluster"].append((step, "fps", args))
-        for name, path, max_g in (("sa_fused_eval", "sa_fused_eval_chunked", sa_max_g),
-                                  ("ball_query", "ball_query_chunked", lambda a: ck.BQ_MAX_G)):
+        for name, path, max_g in (("sa_fused_eval", "sa_fused_eval_grid", sa_max_g),
+                                  ("ball_query", "ball_query_grid", lambda a: ck.BQ_MAX_G)):
             for args in calls[name]:  # xyz or points second, k last
                 g = -(-args[1].shape[1] // args[-1])
-                if ck.sel_chunk(g, max_g(args)) < g:
+                if ck.sel_path(g, max_g(args)) == "grid":
                     sites[path].append((step, name, args))
         for args in calls["pixel_max"]:
             if ck.pixel_max_range(args[2], args[1].shape[2]) < args[2]:
@@ -3772,16 +3882,22 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
                                      sa_train_site_args(torch, ck, gen, device, *DQ_REFERENCE))]
     rows = {}
     with torch.no_grad():
+        if device.type == "cuda":  # the grid paths size their workspace from shapes alone
+            for path in ("ball_query_grid", "sa_fused_eval_grid"):
+                _, name, args = sites[path][0]
+                nearest_sync_free(torch, ck, args, name, "grid_sync_debug")
         for path, path_sites in sites.items():
             check(len(path_sites) > 0, f"dense phase: no call site of {path}")
             agg = new_agg()
             # a row is a step's: the serve step's sites, or the train step's
             # for the paths that only it runs (both run FPS and pixel_max:
             # their train sites are held to the plain versions too)
-            counted = "train" if path in ("ball_query_chunked", "pixel_max_bwd") else "serve"
+            counted = "train" if path in ("ball_query_grid", "pixel_max_bwd") else "serve"
+            work = {}
             for i, (step, name, args) in enumerate(path_sites):
                 shape, nbytes, ops, err, diff_sel, lib_ms, pairs = check_site(
-                    torch, ck, name, f"dense {path} {i}", args)
+                    torch, ck, name, f"dense {path} {i}", args,
+                    work if step in (counted, "reference") else None)
                 print(json.dumps({"kernel": name, "site": f"dense {step} {path} {i}",
                                   "shape": shape, "max_abs_diff": err,
                                   "differing_selections": diff_sel}), flush=True)
@@ -3792,6 +3908,9 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
                             getattr(ck, f"{name}_plain"), args, nbytes, ops, err, diff_sel,
                             lib_ms, agg, reference=step == "reference", plain_reps=1)
             rows[path] = finish_agg(agg)
+            if work:  # the grid selections: their work, and 10 operations a pair of all pairs
+                rows[path].update(work, bound_all_pairs_ms=10.0 * rows[path]["pairs"]
+                                  / FP32_OPS_PER_S * 1e3)
     fps_sites = [a for _, _, a in sites["fps_cluster"][:1] + sites["fps_global"]]
     rows["fps_cluster"]["per_pick_us"], rows["fps_global"]["per_pick_us"] = (
         cuda_ms(torch, lambda a=a: ck.fps(*a), 5) / (a[1] - 1) * 1e3 for a in fps_sites)
@@ -4241,20 +4360,22 @@ def nearest_phase(torch, ck, cfg, device):
     return finish_agg(row), finish_agg(ref_row)
 
 
-def nearest_sync_free(torch, ck, args):
-    """One nearest call under `torch.cuda.set_sync_debug_mode("error")`: the
-    wrapper sizes its grid's workspace from shapes alone and reads nothing
-    back, so no host sync may happen (one raises)."""
+def nearest_sync_free(torch, ck, args, name="ball_query_nearest", phase="nearest_sync_debug"):
+    """One call of wrapper `name` (the nearest selection, or a grouped
+    selection on the cell grid) under `torch.cuda.set_sync_debug_mode(
+    "error")`: the wrapper sizes its grid's workspace from shapes alone and
+    reads nothing back, so no host sync may happen (one raises)."""
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        ck.ball_query_nearest(*args)
+        getattr(ck, name)(*args)
     except RuntimeError as err:
-        fail(f"ball_query_nearest synchronised with the host: {err}")
+        fail(f"{name} synchronised with the host: {err}")
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    print(json.dumps({"phase": "nearest_sync_debug", "mode": "error", "raised": False}), flush=True)
+    print(json.dumps({"phase": phase, "wrapper": name, "mode": "error", "raised": False}),
+          flush=True)
 
 
 def bf16_matmul_probe(torch, device, card):
@@ -4490,7 +4611,8 @@ def main() -> int:
     ref_rows.update(serve_ref_rows)
     ref_rows["ball_query_nearest"] = optin_ref
     scan_floor(torch, ck, libs, clock_mhz,
-               {**serve_rows, **train_rows, "ball_query_nearest": optin_rows})
+               {**serve_rows, **train_rows, "ball_query_nearest": optin_rows,
+                **{path: dense_rows[path] for path in ("ball_query_grid", "sa_fused_eval_grid")}})
 
     print(json.dumps({"reference_sites": [
         {"name": name, "sites": sites, **ref_rows[name]} for name, sites in REFERENCE_SITES.items()

@@ -6,7 +6,8 @@ another design behind the same C entry point, or such a file followed by
 `@name=value,...`: a copy with those `constexpr int` constants set (written to
 the git-ignored build/variant_src/). The script builds every source
 at once with the port's nvcc flags (`ops/_build.py`), prints each kernel's
-registers and spills (`cuobjdump -res-usage`) and, for sa_train.cu, the SASS,
+registers and spills (`cuobjdump -res-usage`), a digest of its SASS
+(`sass_digest`) and, for sa_train.cu, the SASS,
 SHFLs and FP32 instructions an edge of each batched slot loop (chip_smoke.py's
 `sass_edge_loops`), then runs the entry point at the PROD step shapes (B=20 x
 N=10000: kNN's FP1 and FP2; the SA train passes' SA1 and SA2, stats and bwd1
@@ -47,8 +48,23 @@ so one library holds both designs:
         scripts/variants/fps_one_block.cu
     python3 scripts/kernel_variants.py sa_train_bwd2 scripts/variants/sa_train_dq_windows.cu
 
+selection runs the grouped selection (the standalone query and the SA
+eval kernel) at SEL_SITES: the dense plots' SA1 on uniform, clustered,
+shifted and x-sorted clouds and at a radius over the whole plot, and
+PROD's SA1; each design that a source exports in turns A, B, B, A (the
+package's whole-group and cell-grid entries, the earlier chunked design of
+scripts/variants/selection_chunked.cu, and a parent's entries, which take
+the staged points at once), outputs held bit for bit to the first design's,
+with the grid path's kernels' device ms and the pairs it scores. A
+constant set by a SOURCE may live in a header beside it (grouped_cull.cuh's
+kCullCents, kCullSlots):
+
+    python3 scripts/kernel_variants.py selection scripts/variants/selection_chunked.cu \
+        build/parent/stratanet2_tpu_torch/ops/csrc/ball_query.cu \
+        stratanet2_tpu_torch/ops/csrc/ball_query.cu@kCullCents=4,kCullSlots=896
+
 Kernels: knn_interpolate, sa_train_stats, sa_train_main, sa_train_bwd1, sa_train_bwd2,
-knn_scatter, pixel_max, ball_query_nearest, fps.
+knn_scatter, pixel_max, ball_query_nearest, fps, selection.
 
 Builds go to the git-ignored build/variants/. Exits non-zero without a card.
 """
@@ -56,6 +72,7 @@ Builds go to the git-ignored build/variants/. Exits non-zero without a card.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import re
 import subprocess
@@ -73,20 +90,31 @@ REPS = 20
 
 def source_file(spec: str) -> Path:
     """The file of a SOURCE: `path`, or `path@name=value,...`, a copy of
-    path with those `constexpr int` constants set."""
+    path with those `constexpr int` constants set, each found once in path
+    or in the headers (*.cuh) beside it, which are copied with it into a
+    folder of its own (build/variant_src/<stem>_<settings>_<path hash>/),
+    so that the copy includes the set headers."""
     path, _, sets = spec.partition("@")
     if not sets:
         return Path(path)
-    text = Path(path).read_text()
+    path = Path(path)
+    texts = {f.name: f.read_text() for f in [path, *sorted(path.parent.glob("*.cuh"))]}
     for item in sets.split(","):
         name, value = item.split("=")
-        text, n = re.subn(rf"(constexpr int {name} = )[^;]+;", rf"\g<1>{value};", text)
-        if n != 1:
-            raise SystemExit(f"{spec}: constant {name} not found once in {path}")
-    out = ROOT / "build" / "variant_src" / f"{Path(path).stem}_{sets.replace('=', '').replace(',', '_')}.cu"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(text)
-    return out
+        found = 0
+        for fname, text in texts.items():
+            texts[fname], n = re.subn(rf"(constexpr int {name} = )[^;]+;", rf"\g<1>{value};",
+                                      text)
+            found += n
+        if found != 1:
+            raise SystemExit(f"{spec}: constant {name} not found once in {path} and its headers")
+    where = hashlib.sha1(str(path.resolve()).encode()).hexdigest()[:8]  # two trees' copies apart
+    out_dir = (ROOT / "build" / "variant_src"
+               / f"{path.stem}_{sets.replace('=', '').replace(',', '_')}_{where}")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for fname, text in texts.items():
+        (out_dir / fname).write_text(text)
+    return out_dir / path.name
 
 
 def source_text(spec: str) -> str:
@@ -96,6 +124,17 @@ def source_text(spec: str) -> str:
 
     return re.sub(r'#include "(\w+\.cu)"', lambda m: (_build.CSRC / m.group(1)).read_text(),
                   source_file(spec).read_text())
+
+
+def sass_digest(ins, blank=False):
+    """A digest of one kernel's SASS text; with `blank`, the kernel
+    parameters' constant-bank offsets left out. Equal digests in two
+    sources' libraries are the same machine code (with `blank`: but for
+    where a changed parameter list puts its arguments)."""
+    text = "\n".join(t for _, t in ins)
+    if blank:
+        text = re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]", text)
+    return hashlib.sha1(text.encode()).hexdigest()[:12]
 
 
 def build(sources):
@@ -123,6 +162,9 @@ def build(sources):
               flush=True)
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                               text=True, check=True).stdout
+        print(json.dumps({"source": str(src), "sass_digest": {
+            func: [len(ins), sass_digest(ins), sass_digest(ins, blank=True)]
+            for func, ins in chip_smoke.sass_functions(sass).items()}}), flush=True)
         libs[src] = ctypes.CDLL(str(lib))
         loops = chip_smoke.sass_edge_loops(sass, lambda ch: stats_lanes(libs[src], ch))
         if loops:  # empty but for sa_train.cu
@@ -219,6 +261,13 @@ def entry(lib, symbol, n_ptrs, n_ints):
     fn = getattr(lib, symbol)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+def fentry(lib, symbol, n_ptrs, n_ints):
+    """`entry` with a float (the radius squared) before the stream."""
+    fn = entry(lib, symbol, n_ptrs, n_ints)
+    fn.argtypes = fn.argtypes[:-1] + [ctypes.c_float, ctypes.c_void_p]
     return fn
 
 
@@ -418,10 +467,17 @@ def run_bwd2(torch, ck, libs, gen, device):
         torch.cuda.empty_cache()
 
 
-def constants(src):
-    """{name: value} of the `constexpr int` constants of a SOURCE's file."""
-    return {m.group(1): int(m.group(2)) for m in
-            re.finditer(r"constexpr int (\w+) = (\d+);", source_file(src).read_text())}
+def constants(src, headers=False):
+    """{name: value} of the `constexpr int` constants of a SOURCE's file
+    (and, with `headers`, of the headers it includes: those beside it, else
+    the package's)."""
+    from stratanet2_tpu_torch.ops import _build
+
+    path = source_file(src)
+    near = sorted(path.parent.glob("*.cuh")) or sorted(_build.CSRC.glob("*.cuh"))
+    files = [path] + (near if headers else [])
+    return {m.group(1): int(m.group(2)) for f in files for m in
+            re.finditer(r"constexpr int (\w+) = (\d+);", f.read_text())}
 
 
 def device_cost(torch, fn, prefix, kernels=1):
@@ -538,7 +594,7 @@ def nearest_sites(torch, ck, gen, device_):
 
 def run_ball_query_nearest(torch, ck, libs, gen, device_):
     """Each source at the nearest serve step's sites, its workspace from
-    `cuda_kernels._nearest_workspace`: differing idx and mask entries
+    `cuda_kernels._cell_workspace`: differing idx and mask entries
     against the plain version, the CUDA-event ms of a call, and its device
     ms (both kernels; the grid pass alone beside it)."""
     from stratanet2_tpu_torch.ops.ballquery import radius_sq
@@ -551,7 +607,7 @@ def run_ball_query_nearest(torch, ck, libs, gen, device_):
         for src, lib in libs.items():
             idx = torch.empty((b, c, k), dtype=torch.int32, device=device_)
             mask = torch.empty((b, c, k), dtype=torch.bool, device=device_)
-            ws, g = ck._nearest_workspace(b, n, c, device_)
+            ws, g = ck._cell_workspace(b, n, c, device_)
             fn = entry(lib, "ball_query_nearest_launch", 5, 5)
             fn.argtypes = fn.argtypes[:-1] + [ctypes.c_float, ctypes.c_void_p]
             cargs = [cent.data_ptr(), pts.data_ptr(), idx.data_ptr(), mask.data_ptr(),
@@ -657,9 +713,174 @@ def run_fps(torch, ck, libs, gen, device_):
             }), flush=True)
 
 
+# The grouped selection's sites (`run_selection`): (site, cloud, B, N, C, K,
+# radius). The dense plots' SA1 (groups of 2,048: the cell grid), on uniform
+# 20 m plots and on the clouds that stress the culling: 90% of the points in
+# 5% of the plot ("clustered"), plots 1 km from the origin ("shifted": the
+# culling radius's margin widens the cells), points sorted by x ("sorted":
+# each group a strip of the plot), and a radius over the whole plot (one
+# cell: every point scored, every pair within the radius; B=2); then PROD's
+# SA1 (groups of 313, staged whole), where the grid path is timed beside
+# the PROD kernels without being taken.
+SEL_SITES = (("dense_SA1", "uniform", 20, 65536, 16384, 32, 2 ** 0.5),
+             ("dense_SA1_clustered", "clustered", 20, 65536, 16384, 32, 2 ** 0.5),
+             ("dense_SA1_shifted", "shifted", 20, 65536, 16384, 32, 2 ** 0.5),
+             ("dense_SA1_sorted", "sorted", 20, 65536, 16384, 32, 2 ** 0.5),
+             ("dense_SA1_one_cell", "uniform", 2, 65536, 16384, 32, 30.0),
+             ("PROD_SA1", "uniform", 20, 10000, 2500, 32, 2 ** 0.5))
+
+
+def sel_cloud(torch, gen, kind, b, n, device_):
+    """A (B, N, 3) cloud of SEL_SITES."""
+    pts = plot_clouds(torch, gen, b, n, device_)
+    if kind == "clustered":
+        side = 20 * 0.05 ** 0.5
+        crowd = torch.rand((b, n), generator=gen, device=device_) < 0.9
+        square = (torch.rand((b, n, 2), generator=gen, device=device_) - 0.5) * side
+        pts[..., :2] = torch.where(crowd[..., None], square, pts[..., :2])
+    elif kind == "shifted":
+        pts[..., :2] += 1000.0
+    elif kind == "sorted":
+        pts = torch.gather(pts, 1, pts[..., 0].argsort(dim=1)[..., None].expand(b, n, 3))
+    return pts.contiguous()
+
+
+def run_selection(torch, ck, libs, gen, device_):
+    """The grouped selection at SEL_SITES, the
+    standalone query (ball_query) and the SA eval kernel's SA1 instance (16
+    -> 16, two layers), each design a source's library exports, in turns A,
+    B, ..., B, A: the package's whole-group kernels where the groups fit
+    (PROD), its cell-grid path (`*_grid_launch`) at every site, the earlier
+    chunked design (`*_chunked_launch`, scripts/variants/selection_chunked.cu)
+    past the slices, and a parent's entries. First each library's grid
+    query scan loop (chip_smoke.sass_per_pair on its LDG.128 loads, the
+    fold's retry loop nested). Then a line a design and site: the CUDA-event
+    ms of a call (mean of REPS), the device ms of each kernel of the grid
+    path (torch.profiler), the pairs the grid scores (`ballquery.
+    nearest_cells`) against all pairs, and the entries that differ from the
+    first design's output (bit for bit) and, for the query, from the plain
+    version."""
+    from stratanet2_tpu_torch.ops.ballquery import nearest_cells, radius_sq
+
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    for src, lib in libs.items():
+        sass = subprocess.run([str(_nvcc_dir() / "cuobjdump"), "-sass", lib._name],
+                              capture_output=True, text=True, check=True).stdout
+        cents = constants(src, headers=True).get("kCullCents", 1)
+        loops = {f: dict(v, centroids_a_point=cents) for f, v in
+                 chip_smoke.sass_per_pair(sass, cents, r"LDG\.E\S*\.128", nested=True).items()
+                 if "grouped_cull" in f}
+        print(json.dumps({"source": str(src), "grid_query_loops": loops}), flush=True)
+    for site, kind, b, n, c, k, radius in SEL_SITES:
+        pts = sel_cloud(torch, gen, kind, b, n, device_)
+        cent = pts[:, torch.randperm(n, generator=gen, device=device_)[:c]].contiguous()
+        g, r2 = -(-n // k), radius_sq(radius)
+        ch, two = 16, True
+        q = torch.randn((b, n, ch), generator=gen, device=device_)
+        cterm = torch.randn((b, c, ch), generator=gen, device=device_)
+        prm = torch.cat([torch.rand(ch, generator=gen, device=device_) + 0.5,
+                         torch.rand(ch, generator=gen, device=device_) - 0.5,
+                         (torch.randn((ch, ch), generator=gen, device=device_) * 0.25).reshape(-1),
+                         torch.rand(ch, generator=gen, device=device_) - 0.5,
+                         torch.rand(ch, generator=gen, device=device_) + 0.5,
+                         torch.rand(ch, generator=gen, device=device_) - 0.5])
+        cells = nearest_cells(cent, pts, radius)
+        scored = float(cells.scored.sum())
+        del cells
+        want_idx, want_mask = ck.ball_query_plain(cent, pts, radius, k)
+        ws, gmax = ck._cell_workspace(b, n, c, device_)
+        picks = torch.empty((b, c, k), dtype=torch.int32, device=device_)
+        max_g = {"ball_query": ck.BQ_MAX_G, "sa": ck.sa_fused_eval_max_g(ch, ch, two, k)}
+        for kernel in ("ball_query", "sa"):
+            fns = {}
+            gc = min(g, max_g[kernel])
+            for src, lib in libs.items():
+                # a library without a grid entry is a parent tree's:
+                # its entry stages gc points at once, whole groups or chunks
+                prefix = "ball_query" if kernel == "ball_query" else "sa_fused_eval"
+                grid_entry = hasattr(lib, f"{prefix}_grid_launch")
+                if kernel == "ball_query" and hasattr(lib, "ball_query_launch"):
+                    def out():
+                        return (torch.empty((b, c, k), dtype=torch.int32, device=device_),
+                                torch.empty((b, c, k), dtype=torch.bool, device=device_))
+                    base = [cent, pts]
+                    if not grid_entry:
+                        fn = fentry(lib, "ball_query_launch", 4, 6)
+                        fns[(src, "parent")] = (out, lambda o, fn=fn: fn(
+                            *ptrs(base + list(o)), b, n, c, k, g, gc, r2, stream))
+                        continue
+                    if g <= max_g[kernel]:
+                        fn = fentry(lib, "ball_query_launch", 4, 5)
+                        fns[(src, "whole")] = (out, lambda o, fn=fn: fn(
+                            *ptrs(base + list(o)), b, n, c, k, g, r2, stream))
+                    elif hasattr(lib, "ball_query_chunked_launch"):
+                        fn = fentry(lib, "ball_query_chunked_launch", 4, 6)
+                        fns[(src, "chunked")] = (out, lambda o, fn=fn: fn(
+                            *ptrs(base + list(o)), b, n, c, k, g, gc, r2, stream))
+                    fn = fentry(lib, "ball_query_grid_launch", 5, 5)
+                    fns[(src, "grid")] = (out, lambda o, fn=fn: fn(
+                        *ptrs(base + list(o) + [ws]), b, n, c, k, gmax, r2, stream))
+                elif kernel == "sa" and hasattr(lib, "sa_fused_eval_launch"):
+                    def out():
+                        return (torch.empty((b, c, ch), device=device_),)
+                    base = [q, pts, cent, cterm, prm]
+                    if not grid_entry:
+                        fn = fentry(lib, "sa_fused_eval_launch", 6, 9)
+                        fns[(src, "parent")] = (out, lambda o, fn=fn: fn(
+                            *ptrs(base + list(o)), b, n, c, k, g, gc, ch, ch, int(two), r2,
+                            stream))
+                        continue
+                    if g <= max_g[kernel]:
+                        fn = fentry(lib, "sa_fused_eval_launch", 6, 8)
+                        fns[(src, "whole")] = (out, lambda o, fn=fn: fn(
+                            *ptrs(base + list(o)), b, n, c, k, g, ch, ch, int(two), r2, stream))
+                    elif hasattr(lib, "sa_fused_eval_chunked_launch"):
+                        fn = fentry(lib, "sa_fused_eval_chunked_launch", 6, 9)
+                        fns[(src, "chunked")] = (out, lambda o, fn=fn: fn(
+                            *ptrs(base + list(o)), b, n, c, k, g, gc, ch, ch, int(two), r2,
+                            stream))
+                    fn = fentry(lib, "sa_fused_eval_grid_launch", 8, 8)
+                    fns[(src, "grid")] = (out, lambda o, fn=fn: fn(
+                        *ptrs(base + list(o) + [ws, picks]), b, n, c, k, gmax, ch, ch, int(two),
+                        r2, stream))
+            first = None
+            for key in list(fns) + list(fns)[::-1]:
+                make, call = fns[key]
+                o = make()
+                rc = call(o)
+                torch.cuda.synchronize()
+                first = o if first is None else first
+                differing = sum(int((x != y).sum()) for x, y in zip(o, first))
+                if kernel == "ball_query":
+                    plain_diff = int((o[0] != want_idx).sum()) + int((o[1] != want_mask).sum())
+                else:
+                    plain_diff = None
+                row = {"source": str(key[0]), "kernel": kernel, "design": key[1], "site": site,
+                       "rc": rc, "shape": [b, n, c, k, g], "radius": radius,
+                       "differing_from_first": differing, "differing_from_plain": plain_diff,
+                       "ms": event_ms(torch, lambda: call(o)),
+                       "all_pairs": float(b * c * n), "grid_scored_pairs": scored,
+                       "grid_scored_share": scored / (b * c * n)}
+                if key[1] == "grid":
+                    parts = (("ball_query_grid_kernel", "grouped_cull_kernel")
+                             if kernel == "ball_query"
+                             else ("sa_grid_kernel", "grouped_cull_kernel", "sa_apply_kernel"))
+                    row["device_ms"] = {p: chip_smoke.device_profile(torch, lambda: call(o),
+                                                                     (p,))[0] for p in parts}
+                print(json.dumps(row), flush=True)
+        del q, cterm, ws, picks, want_idx, want_mask
+
+
+def _nvcc_dir():
+    from stratanet2_tpu_torch.ops import _build
+
+    return Path(_build._nvcc()).parent
+
+
 RUNS = {"knn_interpolate": run_knn, "sa_train_stats": run_stats, "sa_train_main": run_main, "sa_train_bwd1": run_bwd1,
         "sa_train_bwd2": run_bwd2, "knn_scatter": run_knn_scatter, "pixel_max": run_pixel_max,
-        "ball_query_nearest": run_ball_query_nearest, "fps": run_fps}
+        "ball_query_nearest": run_ball_query_nearest, "fps": run_fps,
+        "selection": run_selection}
 
 
 def main() -> int:

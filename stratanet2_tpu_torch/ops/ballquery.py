@@ -12,7 +12,10 @@ This is the plain PyTorch version. On the card the selection runs in the
 standalone kernel (`cuda_kernels.ball_query`, `ops/csrc/ball_query.cu`, the
 train path) and inside the fused SA eval kernel (`ops/csrc/
 sa_fused_eval.cu`, the serve path); both compute the same distances in the
-same order.
+same order. Groups longer than a kernel's staging slice (the dense plots)
+take the nearest selection's cell grid (`nearest_cells` below) there:
+each centroid scores only its 3 x 3 cells and folds each admitted point's
+(d2, index) key into its group's least, which is the same pick.
 
 The nearest selection takes, per centroid, the k in-radius points of least
 expanded d2, in ascending order of (d2, index); slots past the in-radius

@@ -37,57 +37,66 @@
 //        last round leaves at most one block's imbalance (~4%).
 //   SA2: grid (10 x 8, 20) = 1600 blocks of 5 KB; 6 blocks (48 warps) an SM
 //        by registers; 12.1 blocks a SM.
-//   A group longer than cuda_kernels.BQ_MAX_G = 1816 points (8 of them fill
-//   the 227 KB of a block) streams through its warp's slice in chunks of
-//   1816 (common.cuh's select_tile), one block an SM.
+// Groups longer than cuda_kernels.BQ_MAX_G = 1816 points (8 of them fill
+// the 227 KB of a block; the dense plots' SA1, g = 2048) take the cell
+// grid (`ball_query_grid_launch`, one count: ball_query_grid_kernel, the
+// grid pass of cell_grid.cuh, then grouped_cull_kernel<false> of
+// grouped_cull.cuh), which scores only each centroid's 3 x 3 cells and
+// picks the same points bit for bit (grouped_cull.cuh derives it). The
+// earlier design for them, the group streamed through its warp's slice in chunks
+// in index order, is scripts/variants/selection_chunked.cu.
 // Measured on an H100 (chip_smoke.py's train profile, device ms a step):
 // all K groups a block (grid (40, 20), the SA kernel's layout) 0.283 against
 // 0.250; 4 centroids a lane (tiles of 128: 9.59 instructions a pair) 0.250,
 // no gain; the staging's loads batched 4 points a lane 0.250 against 0.246
 // one at a time. None is kept (PERF.md).
-#include "common.cuh"
+#include "grouped_cull.cuh"
 
-template <bool CHUNKED>
 __global__ void __launch_bounds__(kSelThreads)
 ball_query_kernel(const float* __restrict__ cent, const float* __restrict__ xyz,
                   int* __restrict__ idx, uint8_t* __restrict__ mask, int n, int c, int k,
-                  int g, int gc, float r2) {
+                  int g, float r2) {
   extern __shared__ float4 stage[];
   const int b = blockIdx.y;
   const int tiles = (c + kSelTile - 1) / kSelTile;
   const int c0 = (blockIdx.x % tiles) * kSelTile, grp0 = (blockIdx.x / tiles) * kSelWarps;
   int* ib = idx + static_cast<size_t>(b) * c * k;
   uint8_t* mb = mask + static_cast<size_t>(b) * c * k;
-  select_tile<CHUNKED>(cent + static_cast<size_t>(b) * c * 3,
-                       xyz + static_cast<size_t>(b) * n * 3, n, c, c0, grp0,
-                       min(grp0 + kSelWarps, k), g, gc, r2, stage,
-                       [&](int ci, int grp, bool ok, int pick) {
-                         const size_t o = static_cast<size_t>(ci) * k + grp;
-                         ib[o] = ok ? pick : 0;
-                         mb[o] = ok ? 1 : 0;
-                       });
+  select_tile(cent + static_cast<size_t>(b) * c * 3, xyz + static_cast<size_t>(b) * n * 3, n, c,
+              c0, grp0, min(grp0 + kSelWarps, k), g, r2, stage,
+              [&](int ci, int grp, bool ok, int pick) {
+                const size_t o = static_cast<size_t>(ci) * k + grp;
+                ib[o] = ok ? pick : 0;
+                mb[o] = ok ? 1 : 0;
+              });
 }
 
+CELL_GRID_KERNEL(ball_query_grid_kernel)
+
 // cent (b, c, 3), xyz (b, n, 3) -> idx (b, c, k) i32, mask (b, c, k) u8
-// (a torch.bool tensor); g = ceil(n / k), gc <= g the points a warp stages
-// at once (cuda_kernels.sel_chunk).
+// (a torch.bool tensor); g = ceil(n / k) <= BQ_MAX_G, each group staged
+// whole.
 extern "C" int ball_query_launch(const float* cent, const float* xyz, int* idx,
-                                 uint8_t* mask, int b, int n, int c, int k, int g, int gc,
-                                 float r2, void* stream) {
-  const size_t smem = sizeof(float4) * kSelWarps * static_cast<size_t>(gc);
+                                 uint8_t* mask, int b, int n, int c, int k, int g, float r2,
+                                 void* stream) {
+  const size_t smem = sizeof(float4) * kSelWarps * static_cast<size_t>(g);
   const dim3 grid((c + kSelTile - 1) / kSelTile * ((k + kSelWarps - 1) / kSelWarps), b);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (gc < g) {
-    err = allow_smem(ball_query_kernel<true>, smem);
-    if (err != cudaSuccess) return err;
-    ball_query_kernel<true><<<grid, kSelThreads, smem, st>>>(cent, xyz, idx, mask, n, c, k, g,
-                                                             gc, r2);
-  } else {
-    err = allow_smem(ball_query_kernel<false>, smem);
-    if (err != cudaSuccess) return err;
-    ball_query_kernel<false><<<grid, kSelThreads, smem, st>>>(cent, xyz, idx, mask, n, c, k, g,
-                                                              gc, r2);
-  }
+  cudaError_t err = allow_smem(ball_query_kernel, smem);
+  if (err != cudaSuccess) return err;
+  ball_query_kernel<<<grid, kSelThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      cent, xyz, idx, mask, n, c, k, g, r2);
   return cudaGetLastError();
+}
+
+// The same on the cell grid, for any g: ws is the grid's workspace
+// (cell_grid.cuh's CellWs, cuda_kernels._cell_layout), gmax its cells a
+// side at most (1 <= gmax <= kGridMax).
+extern "C" int ball_query_grid_launch(const float* cent, const float* xyz, int* idx,
+                                      uint8_t* mask, int* ws, int b, int n, int c, int k,
+                                      int gmax, float r2, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const CellWs w = carve_cells(ws, b, n, c, gmax);
+  cudaError_t err = launch_cell_grid(ball_query_grid_kernel, cent, xyz, w, b, n, c, gmax, r2, s);
+  if (err != cudaSuccess) return err;
+  return launch_grouped_cull<false>(cent, w, idx, mask, b, n, c, k, gmax, r2, s);
 }

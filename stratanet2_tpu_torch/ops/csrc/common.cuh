@@ -56,12 +56,8 @@ __device__ __forceinline__ float expanded_d2_sel(float a_sq, float ab, float b_s
 // float4 [x, y, z, |p|^2] (one broadcast load a point), with __syncwarp
 // around it. Lane l holds the kSelR centroids l + 32 r of the tile in
 // registers, so each staged point feeds kSelR independent distance chains.
-// The slice holds gc points (the wrapper's cuda_kernels.sel_chunk: gc = g
-// when the block's shared memory holds kSelWarps whole groups, as at every
-// PROD shape). A longer group streams through the slice in chunks of gc
-// points in index order, carrying each centroid's (dmin, jmin) across
-// chunks with the same strict <, so the pick is still the group's first
-// point of least d2, as jnp.argmin over the group.
+// A slice holds a whole group (g points), as at every PROD shape: a longer
+// group takes the cell grid instead (grouped_cull.cuh).
 constexpr int kSelWarps = 8;
 constexpr int kSelThreads = 32 * kSelWarps;
 constexpr int kSelR = 2;
@@ -98,14 +94,12 @@ __device__ __forceinline__ void group_nearest(const float (&cx)[kSelR], const fl
 // grp, from the lane that owns ci: ok iff the group's least d2 is <= r2, pick
 // its point's index in the cloud. A ragged last group is searched over its
 // real points only; an empty one gives ok = false. `stage` holds
-// kSelWarps * gc float4: gc = g without CHUNKED (one pass a group, the
-// kernels' PROD instances, compiled as before chunking existed), gc < g
-// with it (chunks of gc points a group).
-template <bool CHUNKED, typename Emit>
+// kSelWarps * g float4.
+template <typename Emit>
 __device__ __forceinline__ void select_tile(const float* __restrict__ cent_b,
                                             const float* __restrict__ xb, int n, int c, int c0,
-                                            int grp0, int grp1, int g, int gc, float r2,
-                                            float4* stage, Emit emit) {
+                                            int grp0, int grp1, int g, float r2, float4* stage,
+                                            Emit emit) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float cx[kSelR], cy[kSelR], cz[kSelR], cn[kSelR];
 #pragma unroll
@@ -116,49 +110,20 @@ __device__ __forceinline__ void select_tile(const float* __restrict__ cent_b,
     cz[r] = cent_b[3 * ci + 2];
     cn[r] = sq3_rn(cx[r], cy[r], cz[r]);
   }
-  if (!CHUNKED) gc = g;
-  float4* mine = stage + static_cast<size_t>(warp) * gc;
+  float4* mine = stage + static_cast<size_t>(warp) * g;
   for (int grp = grp0 + warp; grp < grp1; grp += kSelWarps) {
     const int first = grp * g;
     const int cnt = max(0, min(g, n - first));
     float dmin[kSelR];
     int jmin[kSelR];
-    if constexpr (!CHUNKED) {
-      __syncwarp();  // the warp's previous group is no longer read
-      for (int j = lane; j < cnt; j += 32) {
-        const float* p = xb + 3 * static_cast<size_t>(first + j);
-        const float x = p[0], y = p[1], z = p[2];
-        mine[j] = make_float4(x, y, z, sq3_rn(x, y, z));
-      }
-      __syncwarp();
-      group_nearest(cx, cy, cz, cn, mine, cnt, dmin, jmin);
-    } else {
-#pragma unroll
-      for (int r = 0; r < kSelR; ++r) {
-        dmin[r] = INFINITY;  // an empty group: no chunk, ok = false
-        jmin[r] = 0;
-      }
-      for (int j0 = 0; j0 < cnt; j0 += gc) {
-        const int m = min(gc, cnt - j0);
-        __syncwarp();  // the warp's previous chunk is no longer read
-        for (int j = lane; j < m; j += 32) {
-          const float* p = xb + 3 * static_cast<size_t>(first + j0 + j);
-          const float x = p[0], y = p[1], z = p[2];
-          mine[j] = make_float4(x, y, z, sq3_rn(x, y, z));
-        }
-        __syncwarp();
-        float cmin[kSelR];
-        int cj[kSelR];
-        group_nearest(cx, cy, cz, cn, mine, m, cmin, cj);
-#pragma unroll
-        for (int r = 0; r < kSelR; ++r) {
-          if (cmin[r] < dmin[r]) {  // strict: an equal d2 of a later chunk loses
-            dmin[r] = cmin[r];
-            jmin[r] = j0 + cj[r];
-          }
-        }
-      }
+    __syncwarp();  // the warp's previous group is no longer read
+    for (int j = lane; j < cnt; j += 32) {
+      const float* p = xb + 3 * static_cast<size_t>(first + j);
+      const float x = p[0], y = p[1], z = p[2];
+      mine[j] = make_float4(x, y, z, sq3_rn(x, y, z));
     }
+    __syncwarp();
+    group_nearest(cx, cy, cz, cn, mine, cnt, dmin, jmin);
 #pragma unroll
     for (int r = 0; r < kSelR; ++r) {
       const int ci = c0 + lane + 32 * r;

@@ -48,12 +48,22 @@
 //   SA2: grid (10, 20) = 200 blocks, 21 KB each; 1.5 blocks a SM.
 // A group longer than the staging slice that the shared memory left by the
 // parameters and the pick table allows (cuda_kernels.sa_fused_eval_max_g:
-// 1741 points at SA1's plan, K = 32) streams through it in chunks of that
-// length (common.cuh's select_tile): the dense plots of subsample_size
-// 65,536 (g = 2048), at one block an SM.
+// 1741 points at SA1's plan, K = 32; the dense plots of subsample_size
+// 65,536 have g = 2048) takes the cell grid (`sa_fused_eval_grid_launch`,
+// one count, three kernels): sa_grid_kernel, the grid pass of
+// cell_grid.cuh; grouped_cull_kernel<true> of grouped_cull.cuh, which
+// scores only each centroid's 3 x 3 cells and writes a (b, c, k) int32
+// pick table to device memory, the same picks bit for bit; then
+// sa_apply_kernel, the apply phase below unchanged, on tiles of 64
+// centroids taken in cell order (corder), so the warps of a block read
+// neighbouring q rows, each row written back at its centroid's own index.
+// Equal picks give equal rows: the layers round alike and the max over
+// slots is exact in any order. The earlier design for those groups, streamed
+// through the staging slice in chunks, is
+// scripts/variants/selection_chunked.cu.
 #include <math.h>
 
-#include "common.cuh"
+#include "grouped_cull.cuh"
 
 constexpr float kNeg = -3.4e38f;
 constexpr int kParts = kSelThreads / kSelTile;  // threads a centroid in the apply phase
@@ -64,29 +74,17 @@ struct Prm {
   static constexpr int kPadded = (kSize + 3) / 4 * 4;
 };
 
-template <int C1, int C2, bool TWO, bool CHUNKED>
-__global__ void __launch_bounds__(kSelThreads)
-sa_kernel(const float* __restrict__ q, const float* __restrict__ xyz,
-          const float* __restrict__ cent, const float* __restrict__ cterm,
-          const float* __restrict__ prm, float* __restrict__ out, int n, int c,
-          int k, int g, int gc, float r2) {
-  using P = Prm<C1, C2, TWO>;
-  extern __shared__ float4 smem4[];
-  float4* stage = smem4;  // select: kSelWarps x gc packed points
-  float* sp = reinterpret_cast<float*>(smem4 + kSelWarps * static_cast<size_t>(gc));
-  int* picks = reinterpret_cast<int*>(sp + P::kPadded);  // (kSelTile, k)
-
-  const int b = blockIdx.y, c0 = blockIdx.x * kSelTile;
-  for (int i = threadIdx.x; i < P::kSize; i += kSelThreads) sp[i] = prm[i];
-  select_tile<CHUNKED>(cent + static_cast<size_t>(b) * c * 3,
-                       xyz + static_cast<size_t>(b) * n * 3, n, c, c0, 0, k, g, gc, r2,
-                       stage, [&](int ci, int grp, bool ok, int pick) {
-                         picks[(ci - c0) * k + grp] = ok ? pick : -1;
-                       });
-  __syncthreads();
-
-  const int cl = threadIdx.x / kParts, part = threadIdx.x % kParts;
-  const int ci = c0 + cl;
+// The apply phase of centroid ci (none when ci >= c) by its kParts threads
+// (adjacent lanes; this one is `part`): for each valid pick(s) (>= 0) of its
+// slots s = part, part + kParts, ..., the q row's layer 1 (and layer 2 with
+// TWO), the running max, the parts' maxima met by shuffles and the row
+// stored by part 0. sp holds the parameters (16-byte aligned). Every lane
+// of the warp must call it (the shuffles).
+template <int C1, int C2, bool TWO, typename Pick>
+__device__ __forceinline__ void sa_apply(const float* __restrict__ q,
+                                         const float* __restrict__ cterm, const float* sp,
+                                         float* __restrict__ out, int b, int n, int c, int k,
+                                         int ci, int part, Pick pick) {
   float acc[C2];
 #pragma unroll
   for (int o = 0; o < C2; ++o) acc[o] = kNeg;
@@ -106,7 +104,7 @@ sa_kernel(const float* __restrict__ q, const float* __restrict__ xyz,
     const float* c1 = sp + C1;
     const float4* qb = reinterpret_cast<const float4*>(q + static_cast<size_t>(b) * n * C1);
     for (int s = part; s < k; s += kParts) {
-      const int p = picks[cl * k + s];
+      const int p = pick(s);
       if (p < 0) continue;  // no point of this group within the radius
       float h[C1];
       const float4* qr = qb + static_cast<size_t>(p) * (C1 / 4);
@@ -165,41 +163,112 @@ sa_kernel(const float* __restrict__ q, const float* __restrict__ xyz,
 }
 
 template <int C1, int C2, bool TWO>
+__global__ void __launch_bounds__(kSelThreads)
+sa_kernel(const float* __restrict__ q, const float* __restrict__ xyz,
+          const float* __restrict__ cent, const float* __restrict__ cterm,
+          const float* __restrict__ prm, float* __restrict__ out, int n, int c,
+          int k, int g, float r2) {
+  using P = Prm<C1, C2, TWO>;
+  extern __shared__ float4 smem4[];
+  float4* stage = smem4;  // select: kSelWarps x g packed points
+  float* sp = reinterpret_cast<float*>(smem4 + kSelWarps * static_cast<size_t>(g));
+  int* picks = reinterpret_cast<int*>(sp + P::kPadded);  // (kSelTile, k)
+
+  const int b = blockIdx.y, c0 = blockIdx.x * kSelTile;
+  for (int i = threadIdx.x; i < P::kSize; i += kSelThreads) sp[i] = prm[i];
+  select_tile(cent + static_cast<size_t>(b) * c * 3, xyz + static_cast<size_t>(b) * n * 3, n, c,
+              c0, 0, k, g, r2, stage, [&](int ci, int grp, bool ok, int pick) {
+                picks[(ci - c0) * k + grp] = ok ? pick : -1;
+              });
+  __syncthreads();
+
+  const int cl = threadIdx.x / kParts, part = threadIdx.x % kParts;
+  sa_apply<C1, C2, TWO>(q, cterm, sp, out, b, n, c, k, c0 + cl, part,
+                        [&](int s) { return picks[cl * k + s]; });
+}
+
+CELL_GRID_KERNEL(sa_grid_kernel)
+
+// The apply phase on the pick table (b, c, k) of grouped_cull_kernel<true>:
+// tile blockIdx.x of 64 centroids in cell order.
+template <int C1, int C2, bool TWO>
+__global__ void __launch_bounds__(kSelThreads)
+sa_apply_kernel(const float* __restrict__ q, const float* __restrict__ cterm,
+                const float* __restrict__ prm, const int* __restrict__ picks,
+                const int* __restrict__ corder, float* __restrict__ out, int n, int c, int k) {
+  using P = Prm<C1, C2, TWO>;
+  __shared__ __align__(16) float sp[P::kPadded];
+  const int b = blockIdx.y;
+  for (int i = threadIdx.x; i < P::kSize; i += kSelThreads) sp[i] = prm[i];
+  __syncthreads();
+  const int slot = blockIdx.x * kSelTile + threadIdx.x / kParts, part = threadIdx.x % kParts;
+  const int ci = slot < c ? corder[static_cast<size_t>(b) * c + slot] : c;
+  const int* pk = picks + (static_cast<size_t>(b) * c + min(ci, c - 1)) * k;
+  sa_apply<C1, C2, TWO>(q, cterm, sp, out, b, n, c, k, ci, part,
+                        [&](int s) { return __ldg(pk + s); });
+}
+
+template <int C1, int C2, bool TWO>
 static cudaError_t launch(const float* q, const float* xyz, const float* cent,
                           const float* cterm, const float* prm, float* out, int b,
-                          int n, int c, int k, int g, int gc, float r2, cudaStream_t stream) {
+                          int n, int c, int k, int g, float r2, cudaStream_t stream) {
   using P = Prm<C1, C2, TWO>;
-  const size_t smem = sizeof(float4) * kSelWarps * static_cast<size_t>(gc) +
+  const size_t smem = sizeof(float4) * kSelWarps * static_cast<size_t>(g) +
                       sizeof(float) * P::kPadded + sizeof(int) * kSelTile * static_cast<size_t>(k);
   const dim3 grid((c + kSelTile - 1) / kSelTile, b);
-  cudaError_t err;
-  if (gc < g) {
-    err = allow_smem(sa_kernel<C1, C2, TWO, true>, smem);
-    if (err != cudaSuccess) return err;
-    sa_kernel<C1, C2, TWO, true><<<grid, kSelThreads, smem, stream>>>(q, xyz, cent, cterm, prm,
-                                                                     out, n, c, k, g, gc, r2);
-  } else {
-    err = allow_smem(sa_kernel<C1, C2, TWO, false>, smem);
-    if (err != cudaSuccess) return err;
-    sa_kernel<C1, C2, TWO, false><<<grid, kSelThreads, smem, stream>>>(q, xyz, cent, cterm, prm,
-                                                                      out, n, c, k, g, gc, r2);
-  }
+  cudaError_t err = allow_smem(sa_kernel<C1, C2, TWO>, smem);
+  if (err != cudaSuccess) return err;
+  sa_kernel<C1, C2, TWO><<<grid, kSelThreads, smem, stream>>>(q, xyz, cent, cterm, prm, out, n,
+                                                              c, k, g, r2);
+  return cudaGetLastError();
+}
+
+template <int C1, int C2, bool TWO>
+static cudaError_t launch_grid_path(const float* q, const float* xyz, const float* cent,
+                                    const float* cterm, const float* prm, float* out, int* ws,
+                                    int* picks, int b, int n, int c, int k, int gmax, float r2,
+                                    cudaStream_t stream) {
+  const CellWs w = carve_cells(ws, b, n, c, gmax);
+  cudaError_t err = launch_cell_grid(sa_grid_kernel, cent, xyz, w, b, n, c, gmax, r2, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_grouped_cull<true>(cent, w, picks, nullptr, b, n, c, k, gmax, r2, stream);
+  if (err != cudaSuccess) return err;
+  sa_apply_kernel<C1, C2, TWO><<<dim3((c + kSelTile - 1) / kSelTile, b), kSelThreads, 0,
+                                 stream>>>(q, cterm, prm, picks, w.corder, out, n, c, k);
   return cudaGetLastError();
 }
 
 // q (b, n, c1), xyz (b, n, 3), cent (b, c, 3), cterm (b, c, c1), prm packed
 // [a1, c1, (W2 (c1, c2), b2, a2, c2)] -> out (b, c, c2); q, cterm and out
-// 16-byte aligned; g = ceil(n / k), gc <= g the points a warp stages at
-// once (cuda_kernels.sel_chunk). Instances: SA1 (16 -> 16, two layers) and
-// SA2 (32, one layer).
+// 16-byte aligned; g = ceil(n / k) <= sa_fused_eval_max_g, each group
+// staged whole. Instances: SA1 (16 -> 16, two layers) and SA2 (32, one
+// layer).
 extern "C" int sa_fused_eval_launch(const float* q, const float* xyz, const float* cent,
                                     const float* cterm, const float* prm, float* out,
-                                    int b, int n, int c, int k, int g, int gc, int c1, int c2,
+                                    int b, int n, int c, int k, int g, int c1, int c2,
                                     int two_layer, float r2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (c1 == 16 && c2 == 16 && two_layer)
-    return launch<16, 16, true>(q, xyz, cent, cterm, prm, out, b, n, c, k, g, gc, r2, st);
+    return launch<16, 16, true>(q, xyz, cent, cterm, prm, out, b, n, c, k, g, r2, st);
   if (c1 == 32 && c2 == 32 && !two_layer)
-    return launch<32, 32, false>(q, xyz, cent, cterm, prm, out, b, n, c, k, g, gc, r2, st);
+    return launch<32, 32, false>(q, xyz, cent, cterm, prm, out, b, n, c, k, g, r2, st);
+  return cudaErrorInvalidValue;
+}
+
+// The same on the cell grid, for any g: ws is the grid's workspace
+// (cell_grid.cuh's CellWs, cuda_kernels._cell_layout), picks a (b, c, k)
+// int32 scratch, gmax the grid's cells a side at most.
+extern "C" int sa_fused_eval_grid_launch(const float* q, const float* xyz, const float* cent,
+                                         const float* cterm, const float* prm, float* out,
+                                         int* ws, int* picks, int b, int n, int c, int k,
+                                         int gmax, int c1, int c2, int two_layer, float r2,
+                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c1 == 16 && c2 == 16 && two_layer)
+    return launch_grid_path<16, 16, true>(q, xyz, cent, cterm, prm, out, ws, picks, b, n, c, k,
+                                          gmax, r2, st);
+  if (c1 == 32 && c2 == 32 && !two_layer)
+    return launch_grid_path<32, 32, false>(q, xyz, cent, cterm, prm, out, ws, picks, b, n, c, k,
+                                           gmax, r2, st);
   return cudaErrorInvalidValue;
 }

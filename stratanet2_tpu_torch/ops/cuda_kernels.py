@@ -4,10 +4,10 @@ PyTorch version (counterpart of `stratanet2_tpu/ops/pallas_kernels.py`).
 | wrapper          | CUDA source             | replaces (pallas_kernels.py)         |
 |------------------|-------------------------|--------------------------------------|
 | `fps`            | csrc/fps.cu             | `_fps_kernel` / `fps_pallas_batched` |
-| `sa_fused_eval`  | csrc/sa_fused_eval.cu   | `_sa_kernel` / `sa_fused_eval`       |
+| `sa_fused_eval`  | csrc/sa_fused_eval.cu (+ grouped_cull.cuh past PROD's groups) | `_sa_kernel` / `sa_fused_eval` |
 | `knn_interpolate`| csrc/knn_interpolate.cu | `_knn_kernel` / `_knn_pallas_raw`    |
 | `pixel_max`      | csrc/pixel_max.cu       | `_pixel_max_kernel` / `pixel_max_pallas` (forward) |
-| `ball_query`     | csrc/ball_query.cu      | `_bq_kernel` / `ball_query_grouped_pallas` |
+| `ball_query`     | csrc/ball_query.cu (+ grouped_cull.cuh past PROD's groups) | `_bq_kernel` / `ball_query_grouped_pallas` |
 | `knn_scatter`    | csrc/knn_scatter.cu     | `_knn_scatter_kernel` / `_knn_scatter_pallas`, `scatter_add_pallas` |
 | `pixel_max_bwd`  | csrc/pixel_max.cu       | `_pixel_max_bwd_kernel` / `_pixel_max_bwd` |
 | `sa_train_stats` | csrc/sa_train.cu        | `_sa_stats1_kernel` / `_sa_train_stats` |
@@ -21,13 +21,14 @@ CPU tensors it runs the plain version. There is no fallback between the two
 and no switch. `LAUNCHES[name]` counts each wrapper's kernel launches.
 
 Five wrappers take another path for shapes past their PROD kernels' reach,
-chosen by shape (`fps_path`, `sel_chunk`, `pixel_max_range`,
+chosen by shape (`fps_path`, `sel_path`, `pixel_max_range`,
 `sa_train_dq_plan`), and count it in `PATH_LAUNCHES` too: FPS rows over
 16,384 points run a block cluster a row (`fps_cluster`, its size from the
 rows and the clusters the card holds at once, and past 131,072 points
 `fps_global`, its running minima in device memory); a selection group
-longer than a warp's staging slice streams through it in chunks
-(`ball_query_chunked`, `sa_fused_eval_chunked`); a pixel table past shared
+longer than a warp's staging slice takes the cell grid of the nearest
+selection, each centroid scoring only its 3 x 3 cells, with the same picks
+(`ball_query_grid`, `sa_fused_eval_grid`); a pixel table past shared
 memory is cut into pixel ranges, a cluster each (`pixel_max_ranges`);
 sa_train_bwd2's dq pass splits a group whose lists outgrow shared memory
 into windows of points, a block each (`sa_train_dq_chunked`). Every PROD
@@ -80,6 +81,10 @@ FPS_RESIDENT = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 # group of g points as float4, for a tile of 64 centroids
 SEL_WARPS, SEL_TILE = 8, 64
 BQ_MAX_G = _SMEM_MAX // (16 * SEL_WARPS)  # ball_query: the longest group staged whole
+# csrc/grouped_cull.cuh: the centroids a warp of the cell-grid query scores
+# each loaded point for (kCullCents), and the groups a centroid's slot
+# table holds (kCullSlots); past them the query takes windows of groups
+CULL_CENTS, CULL_SLOTS = 2, 1792
 SA_DQ_INTS = _SMEM_MAX // 4  # csrc/sa_train.cu's dq pass: int32 lists and counts a block holds
 # its windowed instance: one wave of two blocks on each of 132 SMs, two
 # blocks' shared memory within an SM's 228 KB (1 KB of it reserved a block,
@@ -92,17 +97,14 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRIES = {  # entry: (library = csrc/<library>.cu, C entry point, its arguments)
     "fps": ("fps", "fps_launch", [_VP, _VP, _VP, _I, _I, _I, _VP]),
     "sa_fused_eval": (
-        "sa_fused_eval", "sa_fused_eval_launch",
-        [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _VP],
+        "sa_fused_eval", "sa_fused_eval_launch", [_VP] * 6 + [_I] * 8 + [_F, _VP],
     ),
     "knn_interpolate": (
         "knn_interpolate", "knn_interpolate_launch",
         [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     ),
     "pixel_max": ("pixel_max", "pixel_max_launch", [_VP] * 4 + [_I] * 5 + [_VP]),
-    "ball_query": (
-        "ball_query", "ball_query_launch", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _VP]
-    ),
+    "ball_query": ("ball_query", "ball_query_launch", [_VP] * 4 + [_I] * 5 + [_F, _VP]),
     "knn_scatter": (
         "knn_scatter", "knn_scatter_launch", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP]
     ),
@@ -125,13 +127,17 @@ _ENTRIES = {  # entry: (library = csrc/<library>.cu, C entry point, its argument
         "ball_query_nearest", "ball_query_nearest_launch", [_VP] * 5 + [_I] * 5 + [_F, _VP]
     ),
     # the long-shape paths' own entry points (see the module's docstring)
+    "sa_fused_eval_grid": (
+        "sa_fused_eval", "sa_fused_eval_grid_launch", [_VP] * 8 + [_I] * 8 + [_F, _VP]
+    ),
+    "ball_query_grid": ("ball_query", "ball_query_grid_launch", [_VP] * 5 + [_I] * 5 + [_F, _VP]),
     "fps_cluster": ("fps", "fps_cluster_launch", [_VP] * 4 + [_I] * 4 + [_VP]),
     "fps_resident": ("fps", "fps_cluster_resident", [_I] * 3),  # no launch: a query
 }
 WRAPPERS = ("fps", "sa_fused_eval", "knn_interpolate", "pixel_max", "ball_query", "knn_scatter",
             "pixel_max_bwd", "sa_train_stats", "sa_train_main", "sa_train_bwd1", "sa_train_bwd2",
             "ball_query_nearest")
-PATHS = ("fps_cluster", "fps_global", "ball_query_chunked", "sa_fused_eval_chunked",
+PATHS = ("fps_cluster", "fps_global", "ball_query_grid", "sa_fused_eval_grid",
          "pixel_max_ranges", "sa_train_dq_chunked")
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 # kernel launches per wrapper, and per long-shape path, counted where the
@@ -338,6 +344,25 @@ def sa_fused_eval_plain(q, xyz, centroids, cterm, a1, c1, w2, b2, a2, c2, radius
     return torch.amax(h, dim=2)
 
 
+def sa_apply_plain(q, cterm, a1, c1, w2, b2, a2, c2, picks, order):
+    """The SA eval kernel's apply phase on the cell-grid path, from its pick
+    table: picks (B, C, k) int32, the picked point of each group or -1 where
+    none is within the radius; the centroids taken in `order` (B, C) (the
+    grid's cell order) and each row written back at its centroid's own
+    index. Gather, layers and masked max as `sa_fused_eval_plain`."""
+    b, c, _ = picks.shape
+    bidx = torch.arange(b, device=q.device)[:, None]
+    p = picks[bidx, order].long()  # (B, C, k), in cell order
+    ct = cterm[bidx, order]
+    h = torch.relu(q[bidx[..., None], p.clamp_min(0)] - ct[:, :, None, :]) * a1 + c1
+    if w2 is not None:
+        h = torch.relu(h @ w2 + b2) * a2 + c2
+    h = torch.where((p >= 0)[..., None], h, torch.full_like(h, NEG))
+    out = torch.empty((b, c, h.shape[-1]), dtype=h.dtype, device=h.device)
+    out[bidx, order] = torch.amax(h, dim=2)
+    return out
+
+
 def sa_fused_eval_max_g(ch1: int, ch2: int, two: bool, k: int) -> int:
     """The longest group the SA eval kernel stages whole: its block holds
     SEL_WARPS staging slices (16 B a point), the parameters padded to float4
@@ -346,12 +371,13 @@ def sa_fused_eval_max_g(ch1: int, ch2: int, two: bool, k: int) -> int:
     return (_SMEM_MAX - 4 * (-(-n_prm // 4) * 4) - 4 * SEL_TILE * k) // (16 * SEL_WARPS)
 
 
-def sel_chunk(g: int, max_g: int) -> int:
-    """Points a warp of csrc/common.cuh's select_tile stages at once for
-    groups of g points, when a warp's slice of shared memory holds max_g
-    (BQ_MAX_G, or sa_fused_eval_max_g of the instance): the whole group
-    when it fits (one pass), else chunks of max_g in index order."""
-    return min(g, max_g)
+def sel_path(g: int, max_g: int) -> str:
+    """The grouped selection's path for groups of g points, when a warp's
+    staging slice of shared memory holds max_g (BQ_MAX_G, or
+    sa_fused_eval_max_g of the instance): "whole", csrc/common.cuh's
+    select_tile with each group staged whole (every PROD shape), or "grid",
+    csrc/grouped_cull.cuh on the cell grid."""
+    return "whole" if g <= max_g else "grid"
 
 
 def sa_fused_eval(
@@ -394,14 +420,19 @@ def sa_fused_eval(
     _expect(q.data_ptr() % 16 == 0 and cterm.data_ptr() % 16 == 0, name,
             "q and cterm must be 16-byte aligned (float4 rows)")
     _expect(b < 65536, name, "the kernel takes at most 65535 clouds")
+    _expect(n < 2 ** 31, name, f"N={n}: indices are int32")
     g = -(-n // k)
-    gc = sel_chunk(g, sa_fused_eval_max_g(ch1, ch2, two, k))
-    _expect(gc >= 1, name, f"K={k} leaves no shared memory to stage points in")
     prm = torch.cat([v.reshape(-1) for v in vecs])
     out = torch.empty((b, c, ch2), dtype=torch.float32, device=q.device)
-    _launch(name, q.device, q, xyz, centroids, cterm, prm, out,
-            b, n, c, k, g, gc, ch1, ch2, int(two), radius_sq(radius),
-            path="sa_fused_eval_chunked" if gc < g else None)
+    if sel_path(g, sa_fused_eval_max_g(ch1, ch2, two, k)) == "whole":
+        _launch(name, q.device, q, xyz, centroids, cterm, prm, out,
+                b, n, c, k, g, ch1, ch2, int(two), radius_sq(radius))
+        return out
+    ws, gmax = _cell_workspace(b, n, c, q.device)
+    picks = torch.empty((b, c, k), dtype=torch.int32, device=q.device)
+    _launch(name, q.device, q, xyz, centroids, cterm, prm, out, ws, picks,
+            b, n, c, k, gmax, ch1, ch2, int(two), radius_sq(radius),
+            entry="sa_fused_eval_grid", path="sa_fused_eval_grid")
     return out
 
 
@@ -603,12 +634,17 @@ def ball_query(centroids: torch.Tensor, points: torch.Tensor, radius: float, k: 
     if not _on_card(name, centroids, points):
         return ball_query_plain(centroids, points, radius, k)
     g = -(-n // k)
-    gc = sel_chunk(g, BQ_MAX_G)
     _expect(b < 65536, name, "the kernel takes at most 65535 clouds")
+    _expect(n < 2 ** 31, name, f"N={n}: indices are int32")
     idx = torch.empty((b, c, k), dtype=torch.int32, device=points.device)
     mask = torch.empty((b, c, k), dtype=torch.bool, device=points.device)
-    _launch(name, points.device, centroids, points, idx, mask, b, n, c, k, g, gc,
-            radius_sq(radius), path="ball_query_chunked" if gc < g else None)
+    if sel_path(g, BQ_MAX_G) == "whole":
+        _launch(name, points.device, centroids, points, idx, mask, b, n, c, k, g,
+                radius_sq(radius))
+        return idx, mask
+    ws, gmax = _cell_workspace(b, n, c, points.device)
+    _launch(name, points.device, centroids, points, idx, mask, ws, b, n, c, k, gmax,
+            radius_sq(radius), entry="ball_query_grid", path="ball_query_grid")
     return idx, mask
 
 
@@ -652,7 +688,7 @@ def ball_query_nearest_grid(centroids: torch.Tensor, points: torch.Tensor, radiu
         return (*ball_query_nearest_plain(centroids, points, radius, k), grid)
     idx, mask, ws = _nearest_launch(centroids, points, radius, k)
     b, n, _ = points.shape
-    g, layout = _nearest_layout(b, n, centroids.shape[1])
+    g, layout = _cell_layout(b, n, centroids.shape[1])
     parts = dict(zip(layout, torch.split(ws, [math.prod(s) for s in layout.values()])))
     views = {key: parts[key].view(shape) for key, shape in layout.items()}
     prm = views["params"]
@@ -683,32 +719,33 @@ def _nearest_on_card(centroids: torch.Tensor, points: torch.Tensor, k: int) -> b
 
 def _nearest_launch(centroids: torch.Tensor, points: torch.Tensor, radius: float, k: int):
     """One counted launch of the nearest kernel (grid pass and query): idx,
-    mask and the workspace (`_nearest_layout`)."""
+    mask and the workspace (`_cell_layout`)."""
     b, c, _ = centroids.shape
     n = points.shape[1]
     idx = torch.empty((b, c, k), dtype=torch.int32, device=points.device)
     mask = torch.empty((b, c, k), dtype=torch.bool, device=points.device)
-    ws, g = _nearest_workspace(b, n, c, points.device)
+    ws, g = _cell_workspace(b, n, c, points.device)
     _launch("ball_query_nearest", points.device, centroids, points, idx, mask, ws, b, n, c, k,
             g, radius_sq(radius))
     return idx, mask, ws
 
 
-def _nearest_layout(b: int, n: int, c: int):
+def _cell_layout(b: int, n: int, c: int):
     """g = `ballquery.nearest_grid_side(N)`, from the shapes alone, and the
-    int32 parts of the nearest kernel's workspace in the order of
-    csrc/ball_query_nearest.cu's `carve`, by name and shape: spts (B, N, 4)
-    (float4 [x, y, z, |p|^2]), sidx (B, N), starts (B, g^2 + 1), corder
-    (B, C) and params (B, 6)."""
+    int32 parts of the cell grid's workspace (the nearest kernel's and the
+    grouped selection's grid path) in the order of csrc/cell_grid.cuh's
+    `carve_cells`, by name and shape: spts (B, N, 4) (float4 [x, y, z,
+    |p|^2]), sidx (B, N), starts (B, g^2 + 1), corder (B, C) and params
+    (B, 6)."""
     g = ballquery.nearest_grid_side(n)
     return g, {"spts": (b, n, 4), "sidx": (b, n), "starts": (b, g * g + 1), "corder": (b, c),
                "params": (b, 6)}
 
 
-def _nearest_workspace(b: int, n: int, c: int, device: torch.device):
-    """The nearest kernel's workspace (`_nearest_layout`) as one int32
-    tensor, and g."""
-    g, layout = _nearest_layout(b, n, c)
+def _cell_workspace(b: int, n: int, c: int, device: torch.device):
+    """The cell grid's workspace (`_cell_layout`) as one int32 tensor, and
+    g."""
+    g, layout = _cell_layout(b, n, c)
     size = sum(math.prod(s) for s in layout.values())
     return torch.empty(size, dtype=torch.int32, device=device), g
 

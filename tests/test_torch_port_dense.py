@@ -4,7 +4,7 @@ the JAX package, and the wrappers' choice of path by shape.
 Users reach these shapes through `--subsample_size` and `--diam_pix`: FPS
 rows over 16,384 points (`cuda_kernels.fps_path`: a block cluster a row on
 the card), grouped-selection groups longer than a warp's staging slice
-(`cuda_kernels.sel_chunk`: chunks in index order) and pixel tables past a
+(`cuda_kernels.sel_path`: the cell grid) and pixel tables past a
 block's shared memory (`cuda_kernels.pixel_max_range`: pixel ranges). On the
 CPU each wrapper runs its plain version, which must match JAX at those
 shapes: FPS and selection picks exactly, projections and the dense forward
@@ -112,13 +112,13 @@ def _sa_smem(gc, ch1, ch2, two, k):
     return 16 * ck.SEL_WARPS * gc + 4 * (-(-n_prm // 4) * 4) + 4 * ck.SEL_TILE * k
 
 
-@pytest.mark.parametrize("g,want", [(313, 313), (1815, 1815), (1816, 1816), (1817, 1816),
-                                    (2048, 1816)])
+@pytest.mark.parametrize("g,want", [(313, "whole"), (1815, "whole"), (1816, "whole"),
+                                    (1817, "grid"), (2048, "grid")])
 def test_ball_query_chunk_by_group(g, want):
     """The standalone query stages a whole group up to BQ_MAX_G points (8
-    warps' slices fill 227 KB) and chunks past it; PROD's groups (313 at
-    SA1, 40 at SA2) are staged whole."""
-    assert ck.sel_chunk(g, ck.BQ_MAX_G) == want
+    warps' slices fill 227 KB) and takes the cell grid past it; PROD's
+    groups (313 at SA1, 40 at SA2) are staged whole."""
+    assert ck.sel_path(g, ck.BQ_MAX_G) == want
     assert 16 * ck.SEL_WARPS * ck.BQ_MAX_G <= ck._SMEM_MAX < 16 * ck.SEL_WARPS * (ck.BQ_MAX_G + 1)
 
 
@@ -126,13 +126,13 @@ def test_ball_query_chunk_by_group(g, want):
 @pytest.mark.parametrize("delta", [-1, 0, 1])
 def test_sa_fused_eval_chunk_by_group(ch1, ch2, two, k, prod_g, delta):
     """The SA eval kernel's slice is what its parameters and pick table
-    leave of 227 KB: a group one point longer is chunked, one shorter or
-    equal staged whole, and PROD's group is staged whole."""
+    leave of 227 KB: a group one point longer takes the cell grid, one
+    shorter or equal is staged whole, and PROD's group is staged whole."""
     max_g = ck.sa_fused_eval_max_g(ch1, ch2, two, k)
     assert _sa_smem(max_g, ch1, ch2, two, k) <= ck._SMEM_MAX < _sa_smem(max_g + 1, ch1, ch2, two, k)
     g = max_g + delta
-    assert ck.sel_chunk(g, max_g) == min(g, max_g)
-    assert ck.sel_chunk(prod_g, max_g) == prod_g
+    assert ck.sel_path(g, max_g) == ("grid" if delta > 0 else "whole")
+    assert ck.sel_path(prod_g, max_g) == "whole"
     assert max_g == {(16, 32): 1741, (32, 64): 1686}[ch1, k]
 
 
@@ -297,8 +297,8 @@ def test_grouped_selection_long_groups_matches_jax(rng, n):
     take the first of several points at the least d2. Index for index."""
     k, c = 32, 64
     g = -(-n // k)
-    assert ck.sel_chunk(g, ck.BQ_MAX_G) < g
-    assert ck.sel_chunk(g, ck.sa_fused_eval_max_g(16, 16, True, k)) < g
+    assert ck.sel_path(g, ck.BQ_MAX_G) == "grid"
+    assert ck.sel_path(g, ck.sa_fused_eval_max_g(16, 16, True, k)) == "grid"
     pts = _grid(rng, 1, n)
     cent = pts[:, rng.choice(n, c, replace=False)]
     want_idx, want_mask = ball_query(jnp.asarray(cent), jnp.asarray(pts), 2 ** 0.5, k,

@@ -144,6 +144,40 @@ def test_sass_per_pair_finds_the_nearest_scan_loop_by_its_global_load():
     assert loop["common_per_pair"] == 7  # the candidate path's three are skipped
 
 
+# the grouped cell-grid query: its scan loop (0x10-0xb0) holds a
+# compare-and-swap retry loop (0x60-0x80) behind the forward branch at 0x50
+CULL_SASS = """
+        Function : _Z19grouped_cull_kernelILb0EEvPKfPK6float4PKiS6_S6_S6_PiPhiiiiiif
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0020*/                   LDG.E.CONSTANT R8, desc[UR4][R12.64] ;
+        /*0030*/                   FFMA R9, R4, R5, R6 ;
+        /*0040*/                   FSETP.GTU.AND P0, PT, R9, R10, PT ;
+        /*0050*/              @P0 BRA 0xa0 ;
+        /*0060*/                   ATOMS.CAS.64 R14, [R11], R16, R18 ;
+        /*0070*/                   ISETP.NE.U32.AND P1, PT, R14, R16, PT ;
+        /*0080*/              @P1 BRA 0x60 ;
+        /*0090*/                   NOP ;
+        /*00a0*/                   IADD3 R2, R2, 0x200, RZ ;
+        /*00b0*/              @P2 BRA 0x10 ;
+        /*00c0*/                   EXIT ;
+"""
+
+
+def test_sass_per_pair_finds_the_cull_scan_loop_around_its_retries():
+    """The cell-grid query's scan loop is not innermost: its slot fold is a
+    compare-and-swap loop. Innermost loops alone find no scan loop; with
+    `nested` the loop that loads the points is found, the retry loop left
+    out of its counts (and reported), and the pair that folds nothing skips
+    the fold's path. Each point is scored for two centroids."""
+    ldg = r"LDG\.E\S*\.128"
+    assert cs.sass_per_pair(CULL_SASS, 2, ldg) == {}
+    (loop,) = cs.sass_per_pair(CULL_SASS, 2, ldg, nested=True).values()
+    assert (loop["instructions"], loop["points"], loop["nested"]) == (8, 1, 3)
+    assert loop["per_pair"] == 4.0 and loop["common_per_pair"] == 3.5
+    assert "ATOMS" not in loop["opcodes"]
+
+
 def test_sass_edge_loops_count_shuffles_an_edge():
     """Each SA train instance's slot loop (the innermost loop with a global
     load), counted over its KB x 32 / L edges a pass (L lanes a centroid:
@@ -1002,7 +1036,7 @@ def test_dense_phase_runs_on_the_cpu(monkeypatch, capsys):
     """Phase 15h's control flow on the CPU, with the kernels' limits cut so
     that a small step crosses each of them as the dense step does: FPS rows
     of 1,024 points past a block's 512 (SA1's parts: the cluster), SA1's
-    groups of 64 points past a slice of 16 (chunked; SA2's groups of 8 are
+    groups of 64 points past a slice of 16 (the cell grid; SA2's groups of 8 are
     not), a 20 x 20 x 3 table past 64 slots (pixel ranges), the global FPS
     site past 8 slices, the dq windows' site past 1,000 ints of lists and
     counts, and a train step at N=2,560 past them. The plain versions run,
