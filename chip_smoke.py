@@ -41,13 +41,19 @@ Phases, in order, each failing loudly:
      (`"grid_work"`), and kNN's reference sites
      (KNN_REFERENCE: tie-heavy integer-grid clouds at the FP1 and FP2 shapes
      with duplicated sources and targets on sources, a ragged site, three
-     sources, more sources than the kernel stages at once), each with 0
-     differing indices and outputs and weights within KNN_ATOL, and
+     sources, more sources than the kernel stages at once, run on knn_kernel;
+     then the cell grid's KNN_GRID_REFERENCE at the dense FP1 shape, B=2: an
+     integer grid with duplicated sources and targets on sources, plots 1 km
+     from the origin, clustered, with sources sorted by x, and targets off
+     every source, each with its `"grid_work"` line and weights bit for
+     bit), each with 0 differing indices and outputs and weights within
+     KNN_ATOL, and
      pixel_max's (PIXEL_MAX_REFERENCE: quantised values whose tied maxima
      fall in different blocks of a cloud's cluster, ids outside the pixels,
      empty pixels, P = 37, N a multiple of no share; a cloud so small that
-     the last blocks of its cluster get no point; the tables of several
-     pixel ranges at P = 100 and P = 300), equal exactly;
+     the last blocks of its cluster get no point; the tables past a block
+     pixel ranges at P = 100 and P = 300), equal
+     exactly;
   4b. `"phase": "fps_chain"`: FPS's latency floor, the time of a pick with
      one point a thread (N=1024), against the per-pick time at the step
      sites;
@@ -157,8 +163,10 @@ Phases, in order, each failing loudly:
      points (the cluster path), SA1's groups of 2,048 points (the selection
      on the cell grid, in the SA eval kernel serving and the ball query
      training, each site's scored, in-radius and all pairs on its row, one
-     call of each under the sync debug mode, `"grid_sync_debug"`),
-     the 240,000 B pixel table (two pixel ranges); launches counted by wrapper
+     call of each under the sync debug mode, `"grid_sync_debug"`), kNN at
+     FP1 from 16,384 sources and FP2 from 4,096 (the cell grid, each site's
+     sources scored a target on a `"grid_work"` line), the 240,000 B pixel
+     table (three pixel ranges); launches counted by wrapper
      (SERVE_LAUNCHES, TRAIN_LAUNCHES) and by path (DENSE_SERVE_PATHS,
      DENSE_TRAIN_PATHS), outputs finite, coverages in [0, 1], loss parts
      finite, every parameter changed; every path's call sites in the two
@@ -173,8 +181,9 @@ Phases, in order, each failing loudly:
      3 steps, one profiled step, `"dense_dq_train_profile"`); the median of
      DENSE_STEPS steps of each and one profiled step of
      each, in which each path's kernel shows by name exactly when it
-     launched; sa_train_bwd2's edge buffer; B=1 on the card against the port
-     on the CPU (serve within CPU_ATOL, train within phase 15's bounds);
+     launched; sa_train_bwd2's edge buffer (the card against the CPU is
+     phases 8 and 15's, at PROD: at the dense shapes the CPU's plain
+     versions took most of this phase);
   15e. `"phase": "parcel"`: parcel predict at PROD width (`parcel_phase`):
      a synthetic 100 m parcel's LAS (140 m with its buffer, ~627,000
      points) written, tiled and extracted (`"phase": "parcel_prepare"`,
@@ -320,6 +329,7 @@ pair of all pairs beside it (`bound_all_pairs_ms`).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import logging
@@ -475,22 +485,40 @@ SEL_REFERENCE = (("grid", 20, 10000, 2500, 32, 2 ** 0.5), ("grid", 20, 2500, 625
 # d2 = 0 (the 1e-16 weight clamp), at the FP1 and FP2 shapes of the step;
 # "ragged": S and T that are multiples of no tile; "s3": three sources;
 # "chunked": more sources than the kernel stages at once
-# (csrc/knn_interpolate.cu, kChunk = 4096), so it walks them in chunks
+# (csrc/knn_interpolate.cu, kChunk = 4096), so it walks them in chunks; all
+# on knn_kernel (`knn_whole`: the wrapper sends "chunked" to the cell grid)
 KNN_REFERENCE = (("grid", 20, 2500, 10000, 34), ("grid", 20, 625, 2500, 64),
                  ("ragged", 3, 1001, 1337, 34), ("s3", 2, 3, 333, 64),
                  ("chunked", 2, 10000, 3000, 34))
+# kNN's cell-grid reference sites (phase 4; cuda_kernels.knn_path "grid"),
+# at the dense plots' FP1 shape, B=2: "grid", integer coordinates in [0,
+# 16) with an eighth of the sources duplicated and an eighth of the targets
+# put on sources (four sources a lattice point: most picks break ties,
+# many at d2 = 0); then serve-like plots (xy in [-10, 10]^2, z in [0, 3])
+# whose sources are a random subset of the targets, as SA1's centroids are
+# points of the cloud: "shifted", moved to (1000, 1000, 0) m, where the
+# stop rule's rounding margin keeps the box growing; "clustered", 90% of
+# the points in a square of 5% of the plot (NEAREST_CLUSTER), so the
+# crowded cells hold most of the sources; "sorted", the sources sorted by
+# x, so the scan's cell order and the index order of ties differ most;
+# "far", the targets moved KNN_FAR m along x, off every source, so the box
+# grows over most of the grid
+KNN_GRID_REFERENCE = (("grid", 2, 16384, 65536, 34), ("shifted", 2, 16384, 65536, 34),
+                      ("clustered", 2, 16384, 65536, 34), ("sorted", 2, 16384, 65536, 34),
+                      ("far", 2, 16384, 65536, 34))
+KNN_FAR = 40.0
 # pixel_max's reference sites (phase 4): (kind, B, N, P), C = 3. "ties":
 # values quantised to 5 levels, so a pixel's maximum is reached by several
 # points, often in different blocks of the cloud's cluster; ids drawn over
 # [-P^2/8, 9 P^2/8) and a band of P^2/8 pixels left empty; N = 10007, a
 # multiple of no cluster size tried (2, 4, 8) nor of a block's threads;
 # P = 37. "tiny": five points a cloud, so the last blocks of a cluster of 4
-# or 8 get no point. Then tables of several pixel ranges
-# (cuda_kernels.pixel_max_range): "ties" at P = 100, the dense phase's (two
-# ranges of 5000 pixels; ~6 points a pixel, tied maxima in different blocks
-# of a range's cluster and equal maxima on both sides of the ranges'
-# boundary), and "wide" at P = 300 (ten ranges of 9000 pixels, most of them
-# empty)
+# or 8 get no point. Then tables past a block's shared memory, cut into
+# pixel ranges (cuda_kernels.pixel_max_range): "ties" at P = 100, the dense
+# phase's (three ranges of 3,334 pixels; ~8 points a pixel, tied maxima in
+# different blocks of a range's cluster and equal maxima on both sides of
+# the ranges' boundaries), and "wide" at P = 300 (19 ranges of 4,737
+# pixels, most of them empty)
 PIXEL_MAX_REFERENCE = (("ties", 4, 10007, 37), ("tiny", 3, 5, 37),
                        ("ties", 1, 80021, 100), ("wide", 1, 5003, 300))
 # knn_scatter's synthetic reference sites (phase 11): (kind, B, k, T, S, F).
@@ -526,7 +554,8 @@ NEAREST_SHIFT = 1000.0
 NEAREST_REPEATS = 30
 NEAREST_CLUSTER = (0.9, 20 * 0.05 ** 0.5)  # share of the points, side of their square (m)
 REFERENCE_SITES = {"fps": len(FPS_REFERENCE), "sa_fused_eval": len(SEL_REFERENCE),
-                   "knn_interpolate": len(KNN_REFERENCE), "pixel_max": len(PIXEL_MAX_REFERENCE),
+                   "knn_interpolate": len(KNN_REFERENCE) + len(KNN_GRID_REFERENCE),
+                   "pixel_max": len(PIXEL_MAX_REFERENCE),
                    "ball_query": len(SEL_REFERENCE), "pixel_max_bwd": 2,
                    **{name: n + SA_TRAIN_REF_SITES.get(name, 0)
                       for name, n in PHASE10_SITES.items()}}
@@ -537,32 +566,34 @@ REFERENCE_SITES["ball_query_nearest"] = len(NEAREST_REFERENCE)
 # 10 m plot; 0.2 m pixels over its 20 m). At B=20 and the default plan (k1
 # 32, k2 64, fps_parts 2) every limit of the PROD kernels is crossed at
 # once: SA1's FPS rows of 32,768 points (40 rows of 8,192 picks: the
-# cluster), SA1's groups of 2,048 points (the cell grid), a pixel table of 10,000 x
-# 3 x 8 B = 240,000 B (two ranges); SA2's rows of 8,192 and groups of 256
-# stay on the PROD kernels.
+# cluster), SA1's groups of 2,048 points (the cell grid), kNN at FP1 from
+# 16,384 sources and at FP2 from 4,096 (the cell grid), a pixel table of
+# 10,000 x 3 x 8 B = 240,000 B (three pixel ranges); SA2's rows of
+# 8,192 and groups of 256 stay on the PROD kernels.
 DENSE = {"subsample_size": 65536, "diam_pix": 100}
 DENSE_STEPS = 10  # timed steps of each; the median is reported
 # launches of the long-shape paths (cuda_kernels.PATH_LAUNCHES) in a dense
 # step, and of the pixel-max backward, whose table has no limit
 DENSE_SERVE_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_grid": 0,
-                     "sa_fused_eval_grid": 1, "pixel_max_ranges": 2,
+                     "sa_fused_eval_grid": 1, "knn_interpolate_grid": 2, "pixel_max_ranges": 2,
                      "sa_train_dq_chunked": 0}
 DENSE_TRAIN_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_grid": 1,
-                     "sa_fused_eval_grid": 0, "pixel_max_ranges": 1,
+                     "sa_fused_eval_grid": 0, "knn_interpolate_grid": 2, "pixel_max_ranges": 1,
                      "sa_train_dq_chunked": 0, "pixel_max_bwd": 1}
-# each path's device kernels, by name prefix: the grid selections' grid
-# pass, query and (SA) apply, and the dq windows by their template instance
-# (the PROD instances take the other launches); the pixel ranges run in
+# each path's device kernels, by name prefix: the grid paths' grid pass,
+# query and (SA) apply, and the dq windows by their template instance (the
+# PROD instances take the other launches); the pixel ranges run in
 # pixel_max_kernel itself, whose device ms hold every launch of the step
 # (all of them ranged in the dense steps)
 DENSE_WRAPPERS = {"fps_cluster": "fps", "fps_global": "fps",
                   "sa_fused_eval_grid": "sa_fused_eval", "ball_query_grid": "ball_query",
-                  "pixel_max_ranges": "pixel_max", "sa_train_dq_chunked": "sa_train_bwd2",
-                  "pixel_max_bwd": "pixel_max_bwd"}
+                  "knn_interpolate_grid": "knn_interpolate", "pixel_max_ranges": "pixel_max",
+                  "sa_train_dq_chunked": "sa_train_bwd2", "pixel_max_bwd": "pixel_max_bwd"}
 DENSE_KERNELS = {"fps_cluster": "fps_cluster_kernel", "fps_global": "fps_cluster_kernel<8, 0>",
                  "sa_fused_eval_grid": ("sa_grid_kernel", "grouped_cull_kernel<true>",
                                         "sa_apply_kernel<16, 16, true>"),
                  "ball_query_grid": ("ball_query_grid_kernel", "grouped_cull_kernel<false>"),
+                 "knn_interpolate_grid": ("knn_grid_kernel", "knn_cull_kernel"),
                  "pixel_max_ranges": "pixel_max_kernel",
                  "sa_train_dq_chunked": ("sa_train_dq_kernel<16, true>",
                                          "sa_train_dq_keys_kernel"),
@@ -577,11 +608,12 @@ DQ_REFERENCE = (1, 80000, 20000, 32, 16)
 # ... and a whole train step there (phase 15h's last part): B=20 plots of
 # subsample_size 80,000 at diam_pix 100, the default plan, whose SA1 dq pass
 # takes windows (SA2's, at 20,000 points, does not); FPS rows of 40,000 (a
-# cluster of 5 blocks), SA1 groups of 2,500 (the cell grid), two pixel ranges
+# cluster of 5 blocks), SA1 groups of 2,500 (the cell grid), kNN from 20,000
+# and 5,000 sources (the cell grid), three pixel ranges
 DENSE_DQ_N = 80000
 DENSE_DQ_TRAIN_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_grid": 1,
-                        "sa_fused_eval_grid": 0, "pixel_max_ranges": 1,
-                        "sa_train_dq_chunked": 1}
+                        "sa_fused_eval_grid": 0, "knn_interpolate_grid": 2,
+                        "pixel_max_ranges": 1, "sa_train_dq_chunked": 1}
 DENSE_DQ_STEPS = 3  # timed steps; the median is reported
 FPS_FLOOR_N = 1024  # one point for each thread of the FPS block
 SHIFT_STD = 0.1  # phase 10's BN running means (the shifts), as the CPU stage tests draw them
@@ -668,7 +700,7 @@ LAUNCH_REPS = 2000  # calls a host cost of phase 11b is averaged over
 DEVICE_KERNELS = {"fps": ("fps_kernel", "fps_cluster_kernel"),
                   "sa_fused_eval": ("sa_kernel", "sa_grid_kernel", "grouped_cull_kernel<true>",
                                     "sa_apply_kernel"),
-                  "knn_interpolate": ("knn_kernel",),
+                  "knn_interpolate": ("knn_kernel", "knn_grid_kernel", "knn_cull_kernel"),
                   "pixel_max": ("pixel_max_kernel",),
                   "ball_query": ("ball_query_kernel", "ball_query_grid_kernel",
                                  "grouped_cull_kernel<false>"),
@@ -846,21 +878,51 @@ def fps_reference_calls(torch, xyz, device):
 
 def knn_reference_calls(torch, device):
     """The arguments (x_src, pos_src, pos_tgt) of kNN's reference sites
-    (KNN_REFERENCE), drawn from a seed."""
+    (KNN_REFERENCE, then KNN_GRID_REFERENCE), drawn from a seed."""
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
     calls = []
-    for kind, b, s, t, f in KNN_REFERENCE:
+    for kind, b, s, t, f in KNN_REFERENCE + KNN_GRID_REFERENCE:
         if kind == "grid":
             src = torch.randint(0, 16, (b, s, 3), generator=gen, device=device).float()
             tgt = torch.randint(0, 16, (b, t, 3), generator=gen, device=device).float()
             src[:, s // 2 : s // 2 + s // 8] = src[:, : s // 8]
             tgt[:, : t // 8] = src[:, torch.randint(0, s, (t // 8,), generator=gen, device=device)]
+        elif kind in ("shifted", "clustered", "sorted", "far"):
+            tgt = torch.cat([rand(b, t, 2) * 20 - 10, rand(b, t, 1) * 3], -1)
+            if kind == "shifted":
+                tgt[..., :2] += NEAREST_SHIFT
+            elif kind == "clustered":
+                share, side = NEAREST_CLUSTER
+                tgt[..., :2] = torch.where((rand(b, t) < share)[..., None],
+                                           (rand(b, t, 2) - 0.5) * side, tgt[..., :2])
+            src = tgt[:, torch.randperm(t, generator=gen, device=device)[:s]]
+            if kind == "sorted":
+                src = torch.gather(src, 1, src[..., 0].argsort(dim=1)[..., None].expand(b, s, 3))
+            elif kind == "far":
+                tgt[..., 0] += KNN_FAR
         else:
-            src = torch.rand((b, s, 3), generator=gen, device=device) * 20 - 10
-            tgt = torch.rand((b, t, 3), generator=gen, device=device) * 20 - 10
+            src = rand(b, s, 3) * 20 - 10
+            tgt = rand(b, t, 3) * 20 - 10
         x = torch.randn((b, s, f), generator=gen, device=device)
         calls.append((x, src.contiguous(), tgt.contiguous()))
     return calls
+
+
+@contextlib.contextmanager
+def knn_whole(ck):
+    """`knn_interpolate` on knn_kernel at any number of sources, for the
+    reference site of its staging in chunks (KNN_REFERENCE's "chunked",
+    whose sources the wrapper would send to the cell grid)."""
+    saved = ck.KNN_GRID_MIN_S
+    ck.KNN_GRID_MIN_S = 2 ** 31
+    try:
+        yield
+    finally:
+        ck.KNN_GRID_MIN_S = saved
 
 
 def pixel_max_reference_calls(torch, device):
@@ -1141,12 +1203,13 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
     """Phase 16. The issue floor of the kernels that scan pairs: the pairs
     of a step (serve for sa_fused_eval and knn_interpolate, train for
     ball_query; the pairs it scores for the culled queries: the nearest
-    selection's serve step and the grouped cell-grid query's dense SA1
-    sites, `ball_query_grid` and `sa_fused_eval_grid`, whose `rows` are the
-    dense rows) times the SASS instructions a pair of the scan loop, over
-    132 SMs x 128 lanes x the card's maximum SM clock (one instruction a
-    lane a cycle); for kNN on the path of a pair that inserts nothing
-    (`common_per_pair`), beside the whole loop's. Then the slot loop of
+    selection's serve step, the grouped cell-grid query's dense SA1
+    sites, `ball_query_grid` and `sa_fused_eval_grid`, and kNN's cell-grid
+    query at the dense FP1 and FP2 sites, `knn_interpolate_grid`, whose
+    `rows` are the dense rows) times the SASS instructions a pair of the
+    scan loop, over 132 SMs x 128 lanes x the card's maximum SM clock (one
+    instruction a lane a cycle); for the kNN scans on the path of a pair
+    that inserts nothing (`common_per_pair`), beside the whole loop's. Then the slot loop of
     every SA train instance (`sass_edge_loops`): SASS instructions,
     SHFLs and FP32 instructions an edge, and its issue floor over the train
     step's slots. Then the global atomics of the kernels of ATOMIC_FREE,
@@ -1183,7 +1246,8 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
             ("ball_query_nearest", "ball_query_nearest", "ball_query_nearest_kernel", 1, ldg, False),
             ("ball_query_grid", "ball_query", "grouped_cull_kernel", ck.CULL_CENTS, ldg, True),
             ("sa_fused_eval_grid", "sa_fused_eval", "grouped_cull_kernel", ck.CULL_CENTS, ldg,
-             True)):
+             True),
+            ("knn_interpolate_grid", "knn_interpolate", "knn_cull_kernel", 1, ldg, False)):
         loops = {f: v for f, v in sass_per_pair(dump(library, "-sass"), r, load, nested).items()
                  if func in f}
         check(len(loops) > 0, f"{name}: no scan loop found in the SASS")
@@ -1191,10 +1255,11 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
         common = max(v["common_per_pair"] for v in loops.values())
         # the pairs the kernel scores: all of them for the brute-force scans,
         # the centroids' 3 x 3 cells for the nearest selection and the
-        # grouped selection's grid path (its dense step's site)
+        # grouped selection's grid path, the warps' boxes for kNN's (their
+        # dense step's sites)
         pairs = rows[name].get("scored_pairs", rows[name]["pairs"])
         culled = {key: rows[name][key] for key in ("pairs", "in_radius_pairs")
-                  if "scored_pairs" in rows[name]}
+                  if "scored_pairs" in rows[name] and key in rows[name]}
         print(json.dumps({"phase": "selection_floor", "kernel": name, "sass_loops": loops,
                           "resource_usage": resources(library), **culled,
                           "pairs_per_step": pairs, "sm_clock_max_mhz": clock_mhz,
@@ -1412,9 +1477,16 @@ def check_site(torch, ck, name, site, args, work=None):
         b, s, f = x.shape
         t = pt.shape[1]
         nbytes = 4 * (b * s * (f + 3) + b * t * 3 + b * t * f + 2 * b * 3 * t)
-        ops = 11.0 * b * t * s + b * t * (5 * f + 12)
-        shape = f"B={b} S={s} T={t} F={f} slices={ck.knn_slices(b, t)}"
         pairs = float(b * t * s)
+        path = ck.knn_path(s, t)
+        if path == "grid":  # the culled scan: its weights bit for bit, its pairs
+            check(torch.equal(gw, ww), f"knn site {site}: the grid's weights differ in bits")
+            scored = knn_grid_work(torch, ck, site, args, gi, pairs, work)
+            shape = f"B={b} S={s} T={t} F={f} path=grid"
+        else:
+            scored = pairs
+            shape = f"B={b} S={s} T={t} F={f} path=whole slices={ck.knn_slices(b, t)}"
+        ops = 11.0 * scored + b * t * (5 * f + 12)
     elif name == "pixel_max":
         shape, nbytes, ops, err, diff_sel, lib_ms = pixel_max_site(torch, ck, site, args)
     elif name == "ball_query":
@@ -1462,6 +1534,24 @@ def check_site(torch, ck, name, site, args, work=None):
     return shape, nbytes, ops, err, diff_sel, lib_ms, pairs
 
 
+def knn_grid_work(torch, ck, site, args, idx, pairs, work):
+    """kNN's cell grid at one site (`check_site`): the sources each
+    target's warp scanned (`cuda_kernels.knn_interpolate_grid`, another
+    launch, whose picks must equal the site's), printed on a `"grid_work"`
+    line against all pairs and added to `work` (a dict, or None). Returns
+    the pairs scored."""
+    _, gi, _, scored = ck.knn_interpolate_grid(*args)
+    check(torch.equal(gi, idx), f"knn site {site}: two grid launches pick differently")
+    total = float(scored.double().sum())
+    print(json.dumps({"phase": "grid_work", "kernel": "knn_interpolate", "site": site,
+                      "scored_pairs": total, "all_pairs": pairs, "scored_share": total / pairs,
+                      "sources_a_target": total / scored.numel(),
+                      "most_sources_a_target": int(scored.max())}), flush=True)
+    if work is not None:
+        work["scored_pairs"] = work.get("scored_pairs", 0.0) + total
+    return total
+
+
 def grid_site(name, site, cent, pts, radius, pairs, grid, work):
     """The grouped selection's operations at a site (`check_site`): 10 a
     pair it scores whole, or on the cell grid (`grid`: groups past the
@@ -1485,7 +1575,8 @@ def compare_kernels(torch, ck, captured):
     site of the serve step, then at its reference sites. Returns the
     per-step rows and the rows of the reference sites."""
     references = {"fps": FPS_REFERENCE, "sa_fused_eval": SEL_REFERENCE,
-                  "knn_interpolate": KNN_REFERENCE, "pixel_max": PIXEL_MAX_REFERENCE}
+                  "knn_interpolate": KNN_REFERENCE + KNN_GRID_REFERENCE,
+                  "pixel_max": PIXEL_MAX_REFERENCE}
     rows, ref_rows = {}, {}
     for name, _src, _rep in SERVE_KERNELS:
         kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
@@ -1494,14 +1585,16 @@ def compare_kernels(torch, ck, captured):
         check(len(calls) == want_sites, f"{name}: expected {want_sites} call sites, saw {len(calls)}")
         agg, ref_agg = new_agg(), new_agg()
         for site, args in enumerate(calls):
-            shape, nbytes, ops, err, diff_sel, lib_ms, pairs = check_site(torch, ck, name, site,
-                                                                          args)
             reference = site >= 2
-            if reference:
-                shape += f" cloud={references[name][site - 2][0]}"
-            (ref_agg if reference else agg)["pairs"] += pairs
-            report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
-                        diff_sel, lib_ms, ref_agg if reference else agg, reference)
+            kind = references[name][site - 2][0] if reference else None
+            with knn_whole(ck) if kind == "chunked" else contextlib.nullcontext():
+                shape, nbytes, ops, err, diff_sel, lib_ms, pairs = check_site(torch, ck, name,
+                                                                              site, args)
+                if reference:
+                    shape += f" cloud={kind}"
+                (ref_agg if reference else agg)["pairs"] += pairs
+                report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
+                            diff_sel, lib_ms, ref_agg if reference else agg, reference)
         rows[name] = finish_agg(agg)
         if name in REFERENCE_SITES:
             ref_rows[name] = finish_agg(ref_agg)
@@ -3757,10 +3850,11 @@ def dense_path_sites(ck, serve_calls, train_calls):
     """The call sites of the long-shape paths in the dense steps, as
     {path: [(step, wrapper, args)]}: the SA1 FPS rows (the cluster), SA1's
     selection in the SA eval kernel (serve) and the ball query (train),
-    both on the cell grid, and every pixel max (two pixel ranges); then the pixel-max
-    backward at the dense table, which has no table to outgrow. The global
-    FPS path and the dq windows, which the dense steps do not reach, get
-    their reference sites in `dense_phase`."""
+    both on the cell grid, kNN from many sources (FP1 and FP2: the cell
+    grid), and every pixel max (three pixel ranges); then
+    the pixel-max backward at the dense table, which has no table to
+    outgrow. The global FPS path and the dq windows, which the dense steps
+    do not reach, get their reference sites in `dense_phase`."""
     def sa_max_g(a):  # (q, xyz, centroids, cterm, a1, c1, w2, b2, a2, c2, radius, k)
         ch1, w2 = a[0].shape[2], a[6]
         return ck.sa_fused_eval_max_g(ch1, ch1 if w2 is None else w2.shape[1], w2 is not None,
@@ -3777,6 +3871,9 @@ def dense_path_sites(ck, serve_calls, train_calls):
                 g = -(-args[1].shape[1] // args[-1])
                 if ck.sel_path(g, max_g(args)) == "grid":
                     sites[path].append((step, name, args))
+        for args in calls["knn_interpolate"]:  # (x_src, pos_src, pos_tgt)
+            if ck.knn_path(args[1].shape[1], args[2].shape[1]) == "grid":
+                sites["knn_interpolate_grid"].append((step, "knn_interpolate", args))
         for args in calls["pixel_max"]:
             if ck.pixel_max_range(args[2], args[1].shape[2]) < args[2]:
                 sites["pixel_max_ranges"].append((step, "pixel_max", args))
@@ -3812,10 +3909,8 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
     with their times; the global FPS path at FPS_REFERENCE's last site and
     sa_train_bwd2's dq windows at DQ_REFERENCE; the median of DENSE_STEPS
     steps and one profiled step of each, in which each path's kernel shows
-    by name exactly when it launched; sa_train_bwd2's edge buffer; and B=1 on
-    the card against the port on the CPU, serve within CPU_ATOL and train
-    within phase 15's bounds; then a train step past the dq pass's one
-    window (`dense_dq_step`). `small` ({"B": ..., "model": {ModelConfig
+    by name exactly when it launched; sa_train_bwd2's edge buffer; then a
+    train step past the dq pass's one window (`dense_dq_step`). `small` ({"B": ..., "model": {ModelConfig
     overrides}, "dq_N": ...}, the CPU test's) runs it at another size.
     Returns the dense_kernels rows."""
     from dataclasses import replace
@@ -3837,7 +3932,8 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
         opt, sched = make_optimizer(dcfg, m, STEPS_PER_EPOCH)
         return m, opt, sched
 
-    names = ["fps", "sa_fused_eval", "pixel_max", "ball_query", "pixel_max_bwd", "sa_train_bwd2"]
+    names = ["fps", "sa_fused_eval", "knn_interpolate", "pixel_max", "ball_query",
+             "pixel_max_bwd", "sa_train_bwd2"]
     serve_calls = capture_calls(ck, names, lambda: st["serve"](model, cloud, xyz))
     m, opt, sched = train_state()
     train_calls = capture_calls(ck, names, lambda: st["train"](m, opt, sched, *batch))
@@ -3908,8 +4004,9 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
                             getattr(ck, f"{name}_plain"), args, nbytes, ops, err, diff_sel,
                             lib_ms, agg, reference=step == "reference", plain_reps=1)
             rows[path] = finish_agg(agg)
-            if work:  # the grid selections: their work, and 10 operations a pair of all pairs
-                rows[path].update(work, bound_all_pairs_ms=10.0 * rows[path]["pairs"]
+            if work:  # the grid paths: their work, and the operations of all pairs
+                a_pair = 11.0 if path == "knn_interpolate_grid" else 10.0
+                rows[path].update(work, bound_all_pairs_ms=a_pair * rows[path]["pairs"]
                                   / FP32_OPS_PER_S * 1e3)
     fps_sites = [a for _, _, a in sites["fps_cluster"][:1] + sites["fps_global"]]
     rows["fps_cluster"]["per_pick_us"], rows["fps_global"]["per_pick_us"] = (
@@ -3956,9 +4053,6 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
                   f"{row['launches'][step]} launches of {path}")
             row["device_ms"][step] = sum(hit)
     seconds["timing"] = time.perf_counter() - t0 - sum(seconds.values())
-
-    serve_err = serve_vs_cpu(torch, dcfg, model, cloud[:1], xyz[:1])
-    seconds["serve_cpu_B1"] = time.perf_counter() - t0 - sum(seconds.values())
     print(json.dumps({"phase": "dense", "B": b, "N": n, "diam_pix": dcfg.model.diam_pix,
                       "serve_step_ms_median": serve_ms, "serve_step_ms_all": serve_all,
                       "train_step_ms_median": train_ms, "train_step_ms_all": train_all,
@@ -3969,12 +4063,8 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
                       "profile_attempts": attempts,
                       "sa_train_bwd2_edge_buffer_bytes": sum(w + r for w, r in edges),
                       "sa_train_bwd2_edge_buffer_allocated_bytes": sum(w for w, _ in edges),
-                      "serve_cpu_B1_max_abs_diff": serve_err, "atol": CPU_ATOL,
                       "loss_parts": {k: float(v) for k, v in comps.items()},
                       "seconds_so_far": seconds, "card": card}), flush=True)
-    check(serve_err <= CPU_ATOL, f"dense serve step at B=1: card vs CPU differ by {serve_err}")
-    compare_train_with_cpu(torch, dcfg, st["train_model"], st["kde"], *(t[:1] for t in batch),
-                           label="dense_train_cpu_reference_B1")
     del st, model, cloud, xyz, batch, m, opt, sched
     torch.cuda.empty_cache()  # the dense steps' blocks go back before the next phases
     for path, row in dense_dq_step(torch, ck, dcfg, device, card, dq_n).items():
@@ -4600,19 +4690,32 @@ def main() -> int:
     print(json.dumps({"phase": "build", "s": time.perf_counter() - t0,
                       "libraries": sorted(p.name for p in libs.values())}), flush=True)
 
+    def timeline(after):  # seconds since the start, after each phase
+        print(json.dumps({"phase": "timeline", "after": after,
+                          "seconds": time.perf_counter() - t0}), flush=True)
+
     cfg = default_config()
     serve_rows, serve_ref_rows, serve_launches = serve_phases(torch, ck, cfg, device, card)
+    timeline("serve")
     train_rows, ref_rows, train_launches = train_phases(torch, ck, cfg, device, card)
+    timeline("train")
     dense_rows = dense_phase(torch, ck, cfg, device, card)
+    timeline("dense")
     parcel_phase(torch, ck, cfg, device, card)
+    timeline("parcel")
     results = cli_phase(torch, ck, card)
+    timeline("cli")
     parallel_phase(torch, ck, card)
+    timeline("parallel")
     optin_rows, optin_ref, optin_launches = optin_phase(torch, ck, cfg, device, card, results)
+    timeline("optin")
     ref_rows.update(serve_ref_rows)
     ref_rows["ball_query_nearest"] = optin_ref
     scan_floor(torch, ck, libs, clock_mhz,
                {**serve_rows, **train_rows, "ball_query_nearest": optin_rows,
-                **{path: dense_rows[path] for path in ("ball_query_grid", "sa_fused_eval_grid")}})
+                **{path: dense_rows[path] for path in ("ball_query_grid", "sa_fused_eval_grid",
+                                                       "knn_interpolate_grid")}})
+    timeline("selection_floor")
 
     print(json.dumps({"reference_sites": [
         {"name": name, "sites": sites, **ref_rows[name]} for name, sites in REFERENCE_SITES.items()

@@ -18,12 +18,13 @@ time of one launch (mean of 20, after a warm-up); for sa_train_stats also
 the device time a launch and whether two launches agree bit for bit. kNN runs every slice count the
 entry takes (1, 2, 4, 8). knn_scatter runs at the train step's FP1 and FP2
 sites (kNN picks of synthetic plots) and at the k = 1 gather site (20% of the
-pairs on row 0); pixel_max at the serve step's site (1 m pixels of synthetic
-20 m plots). Both also print the device time and the device operations of a
-launch (torch.profiler), whether two launches agree bit for bit and, for a
-scatter whose source sets its round and chunk (kW, kL), whether it equals
+pairs on row 0); pixel_max at PIXEL_MAX_SITES (the serve step's 1 m pixels
+of synthetic 20 m plots, the dense plots' table and diam_pix 300). Both also
+print the device time and the device operations of a launch
+(torch.profiler); the scatter whether two launches agree bit for bit and,
+for a source that sets its round and chunk (kW, kL), whether it equals
 `knn_scatter_ordered_plain` bit for bit; a pixel_max source whose entry
-still takes a key scratch (the parent's design) gets one.
+still takes a key scratch or a range size (a parent's design) gets one.
 
     python3 scripts/kernel_variants.py knn_interpolate a.cu b.cu
     python3 scripts/kernel_variants.py sa_train_main stratanet2_tpu_torch/ops/csrc/sa_train.cu x.cu
@@ -63,8 +64,25 @@ kCullCents, kCullSlots):
         build/parent/stratanet2_tpu_torch/ops/csrc/ball_query.cu \
         stratanet2_tpu_torch/ops/csrc/ball_query.cu@kCullCents=4,kCullSlots=896
 
-Kernels: knn_interpolate, sa_train_stats, sa_train_main, sa_train_bwd1, sa_train_bwd2,
-knn_scatter, pixel_max, ball_query_nearest, fps, selection.
+knn_grid times kNN's whole-cloud kernel against its cell grid (see
+`run_knn_grid`) over S, the crossover that sets cuda_kernels.KNN_GRID_MIN_S.
+pixel_max runs every design a source exports at the serve, dense and
+diam_pix 300 tables (see `run_pixel_max`: the package's ranges, the
+fewest that fit a block and other counts; 64-bit maxima through
+distributed shared memory, a counting sort and a block a slice of the
+pixels are files of scripts/variants/). sass builds the sources
+and prints their SASS digests only, to show which kernels a change left as
+they were:
+
+    python3 scripts/kernel_variants.py knn_grid stratanet2_tpu_torch/ops/csrc/knn_interpolate.cu
+    python3 scripts/kernel_variants.py pixel_max stratanet2_tpu_torch/ops/csrc/pixel_max.cu \
+        scripts/variants/pixel_max_dsmem.cu scripts/variants/pixel_max_owner_scan.cu \
+        scripts/variants/pixel_max_sort.cu
+    python3 scripts/kernel_variants.py sass build/parent/stratanet2_tpu_torch/ops/csrc/ball_query.cu \
+        stratanet2_tpu_torch/ops/csrc/ball_query.cu
+
+Kernels: knn_interpolate, knn_grid, sa_train_stats, sa_train_main, sa_train_bwd1,
+sa_train_bwd2, knn_scatter, pixel_max, ball_query_nearest, fps, selection, sass.
 
 Builds go to the git-ignored build/variants/. Exits non-zero without a card.
 """
@@ -221,6 +239,69 @@ def run_knn(torch, ck, libs, gen, device):
                                         float((w - want_w).abs().max())),
                     "ms": event_ms(torch, lambda: fn(*args)),
                 }), flush=True)
+
+
+# kNN's two paths (cuda_kernels.knn_path) over S: (S, T, F) at B = 20, T =
+# 4 S as SA1's centroids are a quarter of the points: below PROD's FP1, PROD's
+# FP1, the dense plots' FP2, between, and the dense plots' FP1
+KNN_GRID_SITES = ((1024, 4096, 64), (2500, 10000, 34), (4096, 16384, 64), (8192, 32768, 34),
+                  (16384, 65536, 34))
+
+
+def run_knn_grid(torch, ck, libs, gen, device):
+    """The crossover of kNN's whole-cloud kernel and its cell grid: at each
+    KNN_GRID_SITES shape, synthetic plots (sources a random subset of the
+    targets), each source's `knn_interpolate_launch` (knn_slices' slices)
+    and `knn_interpolate_grid_launch` in turns whole, grid, grid, whole: the
+    CUDA-event ms of a call (mean of REPS), indices differing from the plain
+    version, weights and outputs bit for bit its, the pairs the grid scored
+    and the device ms of its two kernels. First each library's grid query
+    scan loop (chip_smoke.sass_per_pair on its LDG.128 loads)."""
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    for src, lib in libs.items():
+        sass = subprocess.run([str(_nvcc_dir() / "cuobjdump"), "-sass", lib._name],
+                              capture_output=True, text=True, check=True).stdout
+        loops = {f: v for f, v in chip_smoke.sass_per_pair(sass, 1, r"LDG\.E\S*\.128").items()
+                 if "knn_cull_kernel" in f}
+        print(json.dumps({"source": str(src), "grid_query_loops": loops}), flush=True)
+    b = 20
+    for s, t, f in KNN_GRID_SITES:
+        pt = plot_clouds(torch, gen, b, t, device)
+        ps = pt[:, torch.randperm(t, generator=gen, device=device)[:s]].contiguous()
+        x = torch.randn((b, s, f), generator=gen, device=device)
+        want_out, want_idx, want_w = ck.knn_interpolate_plain(x, ps, pt)
+        ws, gmax = ck._cell_workspace(b, s, t, device)
+        scored = torch.empty((b, t), dtype=torch.int32, device=device)
+        for src, lib in libs.items():
+            whole = entry(lib, "knn_interpolate_launch", 6, 5)
+            grid = entry(lib, "knn_interpolate_grid_launch", 8, 5)
+            calls = {
+                "whole": lambda o, fn=whole: fn(*ptrs([x, ps, pt, *o]), b, s, t, f,
+                                                ck.knn_slices(b, t), stream),
+                "grid": lambda o, fn=grid: fn(*ptrs([x, ps, pt, *o, ws, scored]), b, s, t, f,
+                                              gmax, stream),
+            }
+            for design in ("whole", "grid", "grid", "whole"):
+                o = (torch.empty((b, t, f), device=device),
+                     torch.empty((b, 3, t), dtype=torch.int32, device=device),
+                     torch.empty((b, 3, t), device=device))
+                rc = calls[design](o)
+                torch.cuda.synchronize()
+                row = {"source": str(src), "kernel": "knn_interpolate", "design": design,
+                       "shape": [b, s, t, f], "rc": rc,
+                       "differing_indices": int((o[1] != want_idx).sum()),
+                       "weights_equal": torch.equal(o[2], want_w),
+                       "outputs_equal": torch.equal(o[0], want_out),
+                       "ms": event_ms(torch, lambda: calls[design](o)),
+                       "all_pairs": float(b) * s * t}
+                if design == "grid":
+                    row["scored_pairs"] = float(scored.double().sum())
+                    row["scored_share"] = row["scored_pairs"] / row["all_pairs"]
+                    row["device_ms"] = {k: chip_smoke.device_profile(
+                        torch, lambda: calls[design](o), (k,))[0]
+                        for k in ("knn_grid_kernel", "knn_cull_kernel")}
+                print(json.dumps(row), flush=True)
+        del pt, ps, x, want_out, want_idx, want_w, ws, scored
 
 
 def sa_sites(torch, ck, gen, device, two_layer_only=False):
@@ -537,35 +618,113 @@ def run_knn_scatter(torch, ck, libs, gen, device_):
             }), flush=True)
 
 
+# pixel_max's sites: (site, B, N, P), C = 3, points of 20 m plots in P x P
+# pixels: the serve step's (1 m pixels), the dense plots' (B=20 x N=65,536
+# at diam_pix 100: a table past one block) binned uniformly, as the plot
+# coverages bin them, and as the dense serve step's rasters bin them
+# ("dense_raster": projection._raster_bins of the rescaled plot at 20 m,
+# whose clamp puts a fifth of the points on pixel 0 and two fifths on the
+# first row and column), and diam_pix 300
+PIXEL_MAX_SITES = (("serve", 20, 10000, 20), ("dense", 20, 65536, 100),
+                   ("dense_raster", 20, 65536, 100), ("wide", 4, 65536, 300))
+
+
+SORT_PIXELS = 51200  # scripts/variants/pixel_max_sort.cu: pixels a range (4 B counters)
+
+
+def pixel_max_designs(lib, text, b, n, p2, c, per_fit):
+    """{design: (its entry, extra int arguments, scratch)} of the pixel-max
+    designs a library exports, at a table of p2 pixels. A file that defines
+    `pixel_max_launch` (the package's, a parent's): one range where the
+    table fits a block ("block"), else the package's ranges ("plan",
+    `cuda_kernels.pixel_max_range`), the fewest ranges that fit a block
+    ("fit", `per_fit`) and 3, 4, 6 or 8 ranges where their tables fit a
+    block; an older parent's entry that takes a key scratch ("keys") runs
+    once. The variants' entries (scripts/variants/): a block a slice of
+    the pixels reading every id,
+    with 64-bit keys ("slices") or in two 32-bit passes ("owner2"), and the
+    table spread over the cluster with 64-bit DSMEM maxima ("dsmem"), at
+    ranges whose 8 slices fit 8 blocks; the counting sort at ranges of
+    SORT_PIXELS ("sort", "order": its (b, ranges, n) scratch)."""
+    from stratanet2_tpu_torch.ops import cuda_kernels as ck
+
+    designs = {}
+    keys = re.search(r"pixel_max_launch\([^)]*keys", text) is not None
+    ranged = re.search(r"pixel_max_launch\([^)]*int per", text) is not None
+    fits = 8 * p2 * c <= 232448
+    if keys:
+        designs["keys"] = (entry(lib, "pixel_max_launch", 5, 4), [], "keys")
+    elif ranged:
+        fn = entry(lib, "pixel_max_launch", 4, 5)
+        plans = [("block", p2)] if fits else [
+            ("plan", ck.pixel_max_range(p2, c)), ("fit", per_fit),
+            *((f"ranges{r}", -(-p2 // r)) for r in (3, 4, 6, 8)
+              if 8 * -(-p2 // r) * c <= 232448)]  # a range's table within a block
+        for design, per in plans:
+            if per not in [v[1][0] for v in designs.values()]:
+                designs[design] = (fn, [per], None)
+    if not fits:
+        def even(cap):  # the fewest ranges of at most cap pixels, cut evenly
+            return -(-p2 // -(-p2 // cap))
+
+        spread = even(8 * (ck.PIXEL_MAX_TABLE // c))
+        slices = max(8, -(-p2 // (ck.PIXEL_MAX_TABLE // c)))
+        for design, symbol, arg, scratch in (
+                ("slices", "pixel_max_slice_launch", slices, None),
+                ("owner2", "pixel_max_owner2_launch", spread, None),
+                ("dsmem", "pixel_max_dsmem_launch", spread, None),
+                ("sort", "pixel_max_sort_launch", even(SORT_PIXELS), "order")):
+            if hasattr(lib, symbol):
+                designs[design] = (entry(lib, symbol, 5 if scratch else 4, 5), [arg], scratch)
+    return designs
+
+
 def run_pixel_max(torch, ck, libs, gen, device_):
-    """The serve step's site: B=20 x N=10000 points of 20 m plots in 1 m
-    pixels (P = 20), three values a point."""
+    """pixel_max at PIXEL_MAX_SITES, every design each source exports
+    (`pixel_max_designs`) in turns A, B, ..., B, A: equal to the plain
+    version exactly, the CUDA-event ms of a call and the device ms and
+    device operations of a launch (torch.profiler)."""
     stream = torch._C._cuda_getCurrentRawStream(0)
-    b, n, p, c = 20, 10000, 20, 3
-    xy = torch.rand((b, n, 2), generator=gen, device=device_) * p
-    pix = (xy[..., 0].long().clamp(0, p - 1) * p + xy[..., 1].long().clamp(0, p - 1)).int()
-    vals = torch.rand((b, n, c), generator=gen, device=device_)
-    want_v, want_a = ck.pixel_max_plain(pix, vals, p * p)
-    for src, lib in libs.items():
-        text = source_file(src).read_text()
-        keys = re.search(r"pixel_max_launch\([^)]*keys", text) is not None
-        ranged = re.search(r"pixel_max_launch\([^)]*int per", text) is not None  # one range here
-        fn = entry(lib, "pixel_max_launch", 5 if keys else 4, 5 if ranged else 4)
-        vmax = torch.empty((b, p * p, c), device=device_)
-        amax = torch.empty((b, p * p, c), dtype=torch.int32, device=device_)
-        scratch = [torch.empty((b, p * p, c), dtype=torch.int64, device=device_).data_ptr()] \
-            if keys else []
-        cargs = [pix.data_ptr(), vals.data_ptr(), *scratch, vmax.data_ptr(), amax.data_ptr(),
-                 b, n, p * p, c, *([p * p] if ranged else []), stream]
-        rc = fn(*cargs)
-        torch.cuda.synchronize()
-        print(json.dumps({
-            "source": src, "kernel": "pixel_max", "site": "serve", "rc": rc,
-            **{k: v for k, v in constants(src).items() if k in ("kCS", "kThreads", "kChunk")},
-            "equal": torch.equal(vmax, want_v) and torch.equal(amax, want_a),
-            "ms": event_ms(torch, lambda: fn(*cargs)),
-            **device_cost(torch, lambda: fn(*cargs), "pixel_max"),
-        }), flush=True)
+    from stratanet2_tpu_torch.ops.projection import _raster_bins
+
+    for site, b, n, p in PIXEL_MAX_SITES:
+        c = 3
+        xy = torch.rand((b, n, 2), generator=gen, device=device_) * p
+        pix = (xy[..., 0].long().clamp(0, p - 1) * p + xy[..., 1].long().clamp(0, p - 1)).int()
+        if site == "dense_raster":
+            pix = _raster_bins((xy / p * 2 - 1).contiguous(), p, 20).contiguous()
+        vals = torch.rand((b, n, c), generator=gen, device=device_)
+        want_v, want_a = ck.pixel_max_plain(pix, vals, p * p)
+        per_fit = -(-(p * p) // -(-(p * p) // (ck.PIXEL_MAX_TABLE // c)))  # the fewest that fit
+        runs = []
+        for src, lib in libs.items():
+            text = source_file(src).read_text()
+            for design, (fn, extra, scratch) in pixel_max_designs(lib, text, b, n, p * p, c,
+                                                                  per_fit).items():
+                runs.append((src, design, fn, extra, scratch))
+        for src, design, fn, extra, scratch in runs + runs[::-1]:
+            vmax = torch.empty((b, p * p, c), device=device_)
+            amax = torch.empty((b, p * p, c), dtype=torch.int32, device=device_)
+            if scratch == "keys":
+                work = [torch.empty((b, p * p, c), dtype=torch.int64, device=device_)]
+            elif scratch == "order":
+                work = [torch.empty((b, -(-(p * p) // extra[0]), n), dtype=torch.int32,
+                                    device=device_)]
+            else:
+                work = []
+            ptr_args = [pix, vals, *work, vmax, amax] if scratch == "keys" else \
+                [pix, vals, vmax, amax, *work]
+            cargs = [*ptrs(ptr_args), b, n, p * p, c, *extra, stream]
+            rc = fn(*cargs)
+            torch.cuda.synchronize()
+            print(json.dumps({
+                "source": src, "kernel": "pixel_max", "design": design, "site": site,
+                "shape": [b, n, p * p, c], "extra": extra, "rc": rc,
+                **{k: v for k, v in constants(src).items() if k in ("kCS", "kThreads")},
+                "equal": torch.equal(vmax, want_v) and torch.equal(amax, want_a),
+                "ms": event_ms(torch, lambda: fn(*cargs)),
+                **device_cost(torch, lambda: fn(*cargs), "pixel_max"),
+            }), flush=True)
 
 
 def nearest_sites(torch, ck, gen, device_):
@@ -877,7 +1036,7 @@ def _nvcc_dir():
     return Path(_build._nvcc()).parent
 
 
-RUNS = {"knn_interpolate": run_knn, "sa_train_stats": run_stats, "sa_train_main": run_main, "sa_train_bwd1": run_bwd1,
+RUNS = {"knn_interpolate": run_knn, "knn_grid": run_knn_grid, "sass": lambda *a: None, "sa_train_stats": run_stats, "sa_train_main": run_main, "sa_train_bwd1": run_bwd1,
         "sa_train_bwd2": run_bwd2, "knn_scatter": run_knn_scatter, "pixel_max": run_pixel_max,
         "ball_query_nearest": run_ball_query_nearest, "fps": run_fps,
         "selection": run_selection}

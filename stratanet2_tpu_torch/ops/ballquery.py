@@ -208,3 +208,140 @@ def nearest_cells(
         scored += torch.where(live, hi - lo, 0)
     return NearestCells(xmin, ymin, inv_h, rc2, gx, gy, pcx, pcy, ccx, ccy, starts, order,
                         cent_order, scored)
+
+
+# csrc/knn_interpolate.cu's stop rule on the cell grid: the rounding margin
+# of a distance in units of M = fl(max |t|^2 + max |s|^2) (kKnnMargin, 16u),
+# and the slack of a cell coordinate q a unit of |q| (kKnnSlack, 4u)
+KNN_MARGIN = 2.0 ** -20
+KNN_SLACK = 2.0 ** -22
+KNN_WARP = 32  # targets a warp of knn_cull_kernel
+
+
+class KnnCells(NamedTuple):
+    """The kNN kernel's cell grid of each cloud (ops/csrc/knn_interpolate.cu,
+    knn_grid_kernel: cell_grid.cuh with the cells from the sources' extent):
+    the sources are its points and the targets its centroids."""
+
+    xmin: torch.Tensor  # (B,) float32, and ymin: the sources' low corner
+    ymin: torch.Tensor
+    inv_h: torch.Tensor  # (B,) float32: 1 / the cell side
+    m: torch.Tensor  # (B,) float32: fl(max |t|^2 + max |s|^2), the margin's scale
+    gx: torch.Tensor  # (B,) int64 cells a row, and gy rows
+    gy: torch.Tensor
+    src_cx: torch.Tensor  # (B, S) int64 cell column, and src_cy its row
+    src_cy: torch.Tensor
+    qx: torch.Tensor  # (B, T) float32: a target's unclamped cell coordinates
+    qy: torch.Tensor
+    tgt_cx: torch.Tensor  # (B, T) int64 cell column, and tgt_cy its row
+    tgt_cy: torch.Tensor
+    starts: torch.Tensor  # (B, gmax^2 + 1) int64: first sorted source of each cell
+    order: torch.Tensor  # (B, S) int64: source indices by cell
+    cent_order: torch.Tensor  # (B, T) int64: target indices by cell
+
+
+def knn_cells(pos_src: torch.Tensor, pos_tgt: torch.Tensor) -> KnnCells:
+    """The grid knn_grid_kernel builds, in its float32 operations: per cloud
+    the sources' xy extent, inv_h = min(fl((gmax - 0.5) / max(ex, ey)),
+    FLT_MAX), gmax = `nearest_grid_side(S)`, M = fl(mc + mp) (mc, mp: max
+    |t|^2, max |s|^2 as sq3_rn), and every source's and target's cell."""
+    src, tgt = pos_src.float(), pos_tgt.float()
+    b, n, _ = src.shape
+    gmax = nearest_grid_side(n)
+    x, y = src[..., 0], src[..., 1]
+    xmin, ymin = x.amin(1), y.amin(1)
+    ex, ey = x.amax(1) - xmin, y.amax(1) - ymin
+    m = sq_norm3(tgt).amax(1) + sq_norm3(src).amax(1)
+    inv_h = torch.minimum(_f32(gmax - 0.5) / torch.maximum(ex, ey),
+                          _f32(torch.finfo(torch.float32).max))
+    g = torch.full_like(ex, gmax, dtype=torch.int64)
+    gx = _cell_coord(ex, inv_h, g) + 1
+    gy = _cell_coord(ey, inv_h, g) + 1
+    scx = _cell_coord(x - xmin[:, None], inv_h[:, None], gx[:, None])
+    scy = _cell_coord(y - ymin[:, None], inv_h[:, None], gy[:, None])
+    qx = (tgt[..., 0] - xmin[:, None]) * inv_h[:, None]
+    qy = (tgt[..., 1] - ymin[:, None]) * inv_h[:, None]
+    tcx = torch.where(qx > 0, torch.minimum(qx, (gx[:, None] - 1).float()).floor(), _f32(0.0))
+    tcy = torch.where(qy > 0, torch.minimum(qy, (gy[:, None] - 1).float()).floor(), _f32(0.0))
+    tcx, tcy = tcx.long(), tcy.long()
+    scell = scy * gx[:, None] + scx
+    counts = torch.zeros((b, gmax * gmax), dtype=torch.int64, device=src.device)
+    counts.scatter_add_(1, scell, torch.ones_like(scell))
+    starts = torch.nn.functional.pad(counts.cumsum(1), (1, 0))
+    order = torch.sort(scell, dim=1, stable=True).indices
+    cent_order = torch.sort(tcy * gx[:, None] + tcx, dim=1, stable=True).indices
+    return KnnCells(xmin, ymin, inv_h, m, gx, gy, scx, scy, qx, qy, tcx, tcy, starts, order,
+                    cent_order)
+
+
+def knn_grid_picks(pos_src: torch.Tensor, pos_tgt: torch.Tensor, margin: float = KNN_MARGIN,
+                   slack: float = KNN_SLACK):
+    """knn_cull_kernel's culled scan on the CPU: warps of KNN_WARP targets
+    in `knn_cells` order (the last padded with its last target), each
+    scanning a box of source cells ring by ring until every lane's third
+    least d2 (the expanded, clamped d2 of the plain version) is strictly
+    below the stop rule's bound, LB = L^2 (1 - margin) - M margin with L =
+    (gap - sl) / inv_h in float64, gap the target's cells to the box's inner
+    sides and sl = slack (max(|qx|, |qy|) + 65), or the box covers the grid.
+    Returns idx (B, 3, T) int64 and d2 (B, 3, T) float32, the (d2,
+    index)-least three of the sources its warp scanned, and scored (B, T),
+    the sources its warp scanned. `margin=0, slack=0` drops the rounding
+    margin (the tests show that loses picks far from the origin)."""
+    src, tgt = pos_src.float(), pos_tgt.float()
+    b, n, _ = src.shape
+    t = tgt.shape[1]
+    cells = knn_cells(src, tgt)
+    warps = -(-t // KNN_WARP)
+    lanes = torch.arange(warps * KNN_WARP, device=src.device).clamp(max=t - 1)
+    idxs, vals, scored = [], [], []
+    for i in range(b):
+        ti = cells.cent_order[i, lanes].view(warps, KNN_WARP)  # each lane's target
+        d2 = expanded_d2(tgt[i : i + 1, ti.reshape(-1)], sq_norm3(tgt[i : i + 1, ti.reshape(-1)]),
+                         src[i : i + 1], sq_norm3(src[i : i + 1]))[0].view(warps, KNN_WARP, n)
+        cx, cy = cells.tgt_cx[i, ti], cells.tgt_cy[i, ti]
+        c0, c1, r0, r1 = cx.amin(1), cx.amax(1), cy.amin(1), cy.amax(1)
+        gx, gy = int(cells.gx[i]), int(cells.gy[i])
+        scx, scy = cells.src_cx[i], cells.src_cy[i]
+        qx, qy = cells.qx[i, ti].double(), cells.qy[i, ti].double()
+        h = 1.0 / cells.inv_h[i].double()
+        lift = float(cells.m[i]) * margin
+        sl = (torch.maximum(qx.abs(), qy.abs()) + 65.0) * slack
+        running = torch.ones(warps, dtype=torch.bool, device=src.device)
+        while True:
+            inside = ((scx >= c0[:, None]) & (scx <= c1[:, None])
+                      & (scy >= r0[:, None]) & (scy <= r1[:, None]))  # (W, S)
+            covers = (c0 == 0) & (r0 == 0) & (c1 == gx - 1) & (r1 == gy - 1)
+            running &= ~covers
+            if not bool(running.any()):
+                break
+            masked = torch.where(inside[:, None, :], d2, torch.full_like(d2, float("inf")))
+            d3 = torch.topk(masked, 3, dim=-1, largest=False).values[..., 2].double()
+            gap = torch.full_like(qx, float("inf"))
+            for side, g in ((c0 > 0, qx - c0[:, None]), (c1 < gx - 1, (c1 + 1)[:, None] - qx),
+                            (r0 > 0, qy - r0[:, None]), (r1 < gy - 1, (r1 + 1)[:, None] - qy)):
+                gap = torch.where(side[:, None], torch.minimum(gap, g), gap)
+            lb = (gap - sl) * h
+            done = (gap > sl) & (d3 < lb * lb * (1.0 - margin) - lift)
+            running &= ~done.all(1)
+            grow = running.long()
+            c0, r0 = (c0 - grow).clamp(min=0), (r0 - grow).clamp(min=0)
+            c1 = torch.minimum(c1 + grow, c1.new_tensor(gx - 1))
+            r1 = torch.minimum(r1 + grow, r1.new_tensor(gy - 1))
+        masked = torch.where(inside[:, None, :], d2, torch.full_like(d2, float("inf")))
+        ids, ds = [], []
+        for _ in range(3):  # first minimum: ties to the lowest index
+            j = torch.argmin(masked, dim=-1, keepdim=True)
+            ds.append(torch.gather(masked, -1, j))
+            ids.append(j)
+            masked = masked.scatter(-1, j, float("inf"))
+        pick_i = torch.full((3, t), -1, dtype=torch.int64, device=src.device)
+        pick_d = torch.empty((3, t), dtype=torch.float32, device=src.device)
+        cnt = torch.empty(t, dtype=torch.int64, device=src.device)
+        flat = ti.reshape(-1)
+        pick_i[:, flat] = torch.cat(ids, -1).reshape(-1, 3).t()
+        pick_d[:, flat] = torch.cat(ds, -1).reshape(-1, 3).t()
+        cnt[flat] = inside.sum(1).repeat_interleave(KNN_WARP)
+        idxs.append(pick_i)
+        vals.append(pick_d)
+        scored.append(cnt)
+    return torch.stack(idxs), torch.stack(vals), torch.stack(scored)

@@ -1,27 +1,29 @@
-// The cell grid of a cloud, shared by the selections that cull by space:
-// the nearest selection (ball_query_nearest.cu) and the grouped selection's
+// The cell grid of a cloud, shared by the kernels that cull by space: the
+// nearest selection (ball_query_nearest.cu), the grouped selection's
 // long-group path (grouped_cull.cuh, for ball_query.cu and
-// sa_fused_eval.cu). Each library wraps `cell_grid_pass` in a grid kernel
-// of its own name, one block of kGridThreads threads a cloud, no host sync:
-// it reduces the cloud's xy extent, max |p|^2 over its points and max |c|^2
-// over its centroids; picks the culling radius r_c and the cell side h
-// (below); counts its points into cells with shared-memory atomics, scans
-// the counts into each cell's start, and scatters the points in cell order
-// as float4 [x, y, z, |p|^2] (|p|^2 as sq3_rn) beside their original
-// indices; then sorts the centroids by cell the same way, so that the warps
-// of a query block take neighbouring centroids and read neighbouring
-// ranges. The order inside a cell follows the atomics and is not fixed;
-// nothing downstream depends on it (both queries fold their candidates by
-// a set function). The grid has at most gmax x gmax cells, gmax = min(64,
-// isqrt(N)) from the shapes, so a wrapper sizes the workspace with
-// torch.empty and no value is read back.
+// sa_fused_eval.cu) and kNN interpolation on dense plots
+// (knn_interpolate.cu, whose "points" are the sources and "centroids" the
+// targets). Each library wraps `cell_grid_pass` in a grid kernel of its own
+// name, one block of kGridThreads threads a cloud, no host sync: it reduces
+// the cloud's xy extent, max |p|^2 over its points and max |c|^2 over its
+// centroids; picks the cell side h (below: from a culling radius r_c, or
+// for kNN from the extent alone); counts its points into cells with
+// shared-memory atomics, scans the counts into each cell's start, and
+// scatters the points in cell order as float4 [x, y, z, |p|^2] (|p|^2 as
+// sq3_rn) beside their original indices; then sorts the centroids by cell
+// the same way, so that the warps of a query block take neighbouring
+// centroids and read neighbouring ranges. The order inside a cell follows
+// the atomics and is not fixed; nothing downstream depends on it (the
+// queries fold their candidates by a set function). The grid has at most
+// gmax x gmax cells, gmax = min(64, isqrt(N)) from the shapes, so a wrapper
+// sizes the workspace with torch.empty and no value is read back.
 //
-// The invariant: EVERY POINT THAT THE PLAIN VERSION ADMITS IS SCORED. The
-// plain version admits p for c when E = max(fl(fl(a - 2 ab) + b), 0) <= r2,
-// with a = sq3_rn(c), b = sq3_rn(p), ab = dot3_rn(c, p), u = 2^-24. Its true
-// squared distance D = |c - p|^2 can exceed r2 by the rounding of that
-// cancellation, which grows with |c|^2 + |p|^2 (one ulp of |p|^2 is
-// 0.125 m^2 at 1 km from the origin):
+// The selections' invariant: EVERY POINT THAT THE PLAIN VERSION ADMITS IS
+// SCORED. The plain version admits p for c when E = max(fl(fl(a - 2 ab) +
+// b), 0) <= r2, with a = sq3_rn(c), b = sq3_rn(p), ab = dot3_rn(c, p), u =
+// 2^-24. Its true squared distance D = |c - p|^2 can exceed r2 by the
+// rounding of that cancellation, which grows with |c|^2 + |p|^2 (one ulp of
+// |p|^2 is 0.125 m^2 at 1 km from the origin):
 //   |a - |c|^2| <= g3 |c|^2 and |b - |p|^2| <= g3 |p|^2 (g3 = 3u / (1 - 3u),
 //   fma chains of nonnegative terms); |ab - c.p| <= g3 |c||p|;
 //   the fma rounds a - 2 ab once: error <= u (a + 2 |ab|) <= 2u (1 + g3) S,
@@ -46,13 +48,19 @@
 // ops/ballquery.py::nearest_cells mirrors the grid on the CPU in the same
 // operations; tests/test_torch_port_nearest_grid.py holds its culled picks
 // to the plain picks, and shows a pick lost with delta = 0.
+//
+// kNN has no radius (cell_grid_pass<true>, EXTENT_GRID_KERNEL): the cells
+// are inv_h = fl((gmax - 0.5) / max(ex, ey)) (capped at FLT_MAX for a cloud
+// of one xy), about N / gmax^2 sources a cell, and the grid's fourth
+// parameter holds M = fl(mc + mp), not rc2: the query's stop rule
+// (knn_interpolate.cu) bounds the rounding of a distance by M.
 #pragma once
 
 #include "common.cuh"
 
 constexpr int kGridThreads = 1024;
 constexpr int kGridMax = 64;     // cuda_kernels.NEAREST_GRID_MAX: cells a side at most
-constexpr int kGridParams = 6;   // ints a cloud: xmin, ymin, inv_h, rc2 (float bits), gx, gy
+constexpr int kGridParams = 6;   // ints a cloud: xmin, ymin, inv_h, rc2 or M (float bits), gx, gy
 
 // The cell coordinate of an offset d = fl(x - xmin) on an axis of g cells.
 __device__ __forceinline__ int cell_coord(float d, float inv_h, int g) {
@@ -99,7 +107,9 @@ __device__ __forceinline__ float warp_max(float v) {
 // The grid pass of one cloud (blockIdx.x), run by a whole block of
 // kGridThreads threads: the grid parameters, the points in cell order with
 // their indices and each cell's start (cells past gx * gy start at n), and
-// the centroids in cell order.
+// the centroids in cell order. kByExtent: the cells from the extent alone
+// and M in place of rc2 (kNN; r2 is not read).
+template <bool kByExtent = false>
 __device__ __forceinline__ void cell_grid_pass(const float* __restrict__ cent,
                                                const float* __restrict__ xyz,
                                                float4* __restrict__ spts,
@@ -143,11 +153,17 @@ __device__ __forceinline__ void cell_grid_pass(const float* __restrict__ cent,
     if (lane == 0) {
       const float xmin = v[0], ymin = v[2];
       const float ex = __fsub_rn(v[1], xmin), ey = __fsub_rn(v[3], ymin);
-      const float s = __fadd_rn(__fadd_rn(v[5], v[4]), r2);
-      const float rc2 = __fadd_rn(r2, __fmul_rn(s, 9.5367431640625e-07f /* 2^-20 */));
-      const float rc = __fsqrt_rn(rc2);
-      const float inv_h = fminf(__fdiv_rn(1.0f, __fmul_rn(rc, 1.0009765625f /* 1 + 2^-10 */)),
-                                __fdiv_rn(static_cast<float>(gmax) - 0.5f, fmaxf(ex, ey)));
+      float rc2, inv_h;
+      if constexpr (kByExtent) {
+        rc2 = __fadd_rn(v[5], v[4]);  // M
+        inv_h = fminf(__fdiv_rn(static_cast<float>(gmax) - 0.5f, fmaxf(ex, ey)), 3.4028235e38f);
+      } else {
+        const float s = __fadd_rn(__fadd_rn(v[5], v[4]), r2);
+        rc2 = __fadd_rn(r2, __fmul_rn(s, 9.5367431640625e-07f /* 2^-20 */));
+        const float rc = __fsqrt_rn(rc2);
+        inv_h = fminf(__fdiv_rn(1.0f, __fmul_rn(rc, 1.0009765625f /* 1 + 2^-10 */)),
+                      __fdiv_rn(static_cast<float>(gmax) - 0.5f, fmaxf(ex, ey)));
+      }
       const int gx = cell_coord(ex, inv_h, gmax) + 1, gy = cell_coord(ey, inv_h, gmax) + 1;
       prm[0] = xmin;
       prm[1] = ymin;
@@ -209,6 +225,15 @@ __device__ __forceinline__ void cell_grid_pass(const float* __restrict__ cent,
     cell_grid_pass(cent, xyz, spts, sidx, starts, corder, grid, n, c, gmax, r2);               \
   }
 
+// The same with the cells from the extent alone (cell_grid_pass<true>).
+#define EXTENT_GRID_KERNEL(name)                                                               \
+  __global__ void __launch_bounds__(kGridThreads)                                              \
+  name(const float* __restrict__ cent, const float* __restrict__ xyz,                          \
+       float4* __restrict__ spts, int* __restrict__ sidx, int* __restrict__ starts,            \
+       int* __restrict__ corder, int* __restrict__ grid, int n, int c, int gmax, float r2) {   \
+    cell_grid_pass<true>(cent, xyz, spts, sidx, starts, corder, grid, n, c, gmax, r2);         \
+  }
+
 // The workspace `ws`, ints (cuda_kernels._cell_layout names the same parts):
 // spts (b, n) float4, sidx (b, n), starts (b, gmax^2 + 1), corder (b, c),
 // grid (b, kGridParams).
@@ -228,7 +253,7 @@ static CellWs carve_cells(int* ws, int b, int n, int c, int gmax) {
   return w;
 }
 
-// Launch `kernel` (a CELL_GRID_KERNEL) on the b clouds of `w`.
+// Launch `kernel` (a CELL_GRID_KERNEL or EXTENT_GRID_KERNEL) on the b clouds of `w`.
 template <typename Kernel>
 static cudaError_t launch_cell_grid(Kernel kernel, const float* cent, const float* xyz,
                                     const CellWs& w, int b, int n, int c, int gmax, float r2,

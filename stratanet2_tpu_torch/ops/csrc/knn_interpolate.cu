@@ -67,9 +67,75 @@
 // first warp writes idx and w and a table of picks and weights; the block
 // then walks its tile's output rows, which are consecutive in `out`, as flat
 // values, so the source-row loads and the stores are coalesced.
+//
+// Dense plots: the cell grid (knn_interpolate_grid_launch; cuda_kernels.
+// knn_path "grid": S >= KNN_GRID_MIN_S sources, as FP1 of plots of 65,536
+// points, S = 16,384, T = 65,536: 2.15e10 pairs a step, 14 ms above; PROD
+// keeps knn_kernel). Exact 3-NN needs only the sources near each target, so
+// two kernels under one launch count: knn_grid_kernel, the grid pass of
+// cell_grid.cuh with the cells from the sources' extent (gmax = min(64,
+// isqrt(S)) a side: ~4 sources a cell at S = 16,384), the sources sorted by
+// cell and the targets in cell order; then knn_cull_kernel, a warp for 32
+// targets neighbouring in cell order (8 warps a block, no block barrier). The
+// warp scans a box of source cells ring by ring: first the bounding box of
+// its targets' cells, then each ring around it, every cell once (the rows of
+// a new ring whole, the old rows' two new cells). A source is scored by the
+// vote-then-insert loop above, with one change: sources come in cell order,
+// not index order, so the insert compares (d2, index) lexicographically
+// (lex_less) and the vote takes d2 <= the third best (a tie may enter by its
+// index). The warp's lists are then the least three of the sources scanned
+// in (d2, index) order, as a set function of them; scanning more sources
+// than needed never changes the result, and none is scored twice. After
+// each ring a lane may stop when its third best is strictly below a proven
+// lower bound on the computed d2 of every source outside the box; the warp
+// stops when all lanes may (__all_sync) or when the box covers the grid.
+//
+// The stop rule's bound, cell_grid.cuh's rounding argument run the other
+// way (u = 2^-24, q = fl(fl(x - xmin) inv_h) as the grid pass rounds it):
+// - Cells. Let the box hold columns [c0, c1]. A source in a column below c0
+//   (only if c0 > 0) has q_s < c0, and one above c1 (only if c1 < gx - 1)
+//   has q_s >= c1 + 1 (cell = floor(min(q, g - 1)) for q > 0, else 0; the
+//   target's cell lies in [c0, c1]). q carries two roundings: |q - Q| <=
+//   2.0001u |Q| for the exact Q = (x - xmin) inv_h, with |Q| < 64 for a
+//   source and |Q| <= |q| (1 + 3u) for the target. So such a source lies at
+//   |Q_s - Q_t| >= G_x - sl, G_x = min(q_t - c0, c1 + 1 - q_t) over the
+//   sides that are not the grid's edge, sl = 2^-22 (max(|q_tx|, |q_ty|) +
+//   65) (twice the rounding), and likewise in y; a source outside the box
+//   is outside in x or in y, so its true xy distance, and its true 3-D
+//   distance D^(1/2), is at least L = (G - sl) / inv_h, G = min(G_x, G_y).
+// - Distances. With a = sq3_rn(t), b = sq3_rn(s), ab = dot3_rn(t, s) and
+//   y = fl(a - 2 ab) + b: |y - D| <= (2 g3 + 2u (1 + g3)) S_ts <= 8.01u M_t,
+//   S_ts = |t|^2 + |s|^2 <= M_t = the cloud's max |t|^2 + max |s|^2
+//   (g3 = 3u / (1 - 3u)); E = max(fl(y), 0) >= (1 - u) y when y >= 0 and E
+//   = 0 > (1 - u) D - 8.01u M_t otherwise: E >= (1 - u) D - 8.01u M_t.
+//   The grid pass stores M = fl(mc + mp) (mc, mp the computed maxima of
+//   |t|^2, |s|^2: M_t <= M (1 + u) / (1 - g3)); the rule takes twice the
+//   margin, 16u M = M 2^-20.
+// - So in double precision, LB = L^2 (1 - 2^-20) - M 2^-20 <= E for every
+//   source outside the box (the double roundings of L^2 lose under 2^-50 of
+//   it, inside the 2^-20). A lane whose third best d2 is strictly below LB
+//   already holds its three least: every source outside has E > d2[2].
+// ops/ballquery.py::knn_cells mirrors the grid and the stop rule on the CPU
+// in the same operations; tests/test_torch_port_knn_grid.py holds its culled
+// picks to the plain picks and JAX's, and shows a pick lost at 1 km from the
+// origin when the margin and the slack are dropped.
+//
+// Bound on the H100: instruction issue over the pairs the boxes hold. On
+// uniform dense plots (z up to 3 m) the third neighbour lies ~0.4 m off,
+// about one cell of ~0.31 m, so a warp stops after two or three rings. The
+// output rows of a warp's targets are written from a table of its picks
+// (the targets are not consecutive in `out`): a flat walk over its 32 rows,
+// a feature a lane. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (scripts/kernel_variants.py knn_grid, B=20, T = 4 S; PERF.md §6 row 2a):
+// at the dense FP1 shape (S=16,384) 0.899 ms against knn_kernel's 12.93,
+// the grid pass 0.139 and the query 0.759, 2.34e8 pairs scored of 2.15e10
+// (1.09%, 179 sources a target), 12 SASS a pair that
+// inserts nothing (37 with the insert); the grid also wins at every S
+// measured, from 1,024 (0.074 against 0.097 ms) and PROD's FP1 (0.154
+// against 0.330), where knn_path (KNN_GRID_MIN_S) still keeps knn_kernel.
 #include <math.h>
 
-#include "common.cuh"
+#include "cell_grid.cuh"
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -269,5 +335,167 @@ extern "C" int knn_interpolate_launch(const float* xs, const float* ps, const fl
   const dim3 grid((t + tile - 1) / tile, b);
   knn_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(xs, ps, pt, out, idx,
                                                                           w, s, t, f, slices);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Dense plots: the cell grid (see the header)
+// ---------------------------------------------------------------------------
+
+EXTENT_GRID_KERNEL(knn_grid_kernel)
+
+constexpr double kKnnMargin = 0x1p-20;  // cuda_kernels.KNN_MARGIN: 16u, in units of M
+constexpr double kKnnSlack = 0x1p-22;   // cuda_kernels.KNN_SLACK: q's rounding a unit of |q|
+
+// Score the sorted sources [lo, hi) for the lane's target: a warp vote, then
+// the insert in (d2, index) order.
+__device__ __forceinline__ void knn_scan(const float4* __restrict__ sp, const int* __restrict__ si,
+                                         int lo, int hi, float tx, float ty, float tz, float tn,
+                                         Top3& top) {
+#pragma unroll 4
+  for (int j = lo; j < hi; ++j) {
+    const float4 p = __ldg(sp + j);
+    const float d = expanded_d2_sel(tn, dot3_rn(tx, ty, tz, p.x, p.y, p.z), p.w);
+    if (__any_sync(0xffffffffu, d <= top.d[2])) {  // warp-uniform; the insert is branch-free
+      const int id = __ldg(si + j);
+      const bool c2 = lex_less(d, id, top.d[2], top.i[2]);
+      const bool c1 = lex_less(d, id, top.d[1], top.i[1]);
+      const bool c0 = lex_less(d, id, top.d[0], top.i[0]);
+      top.d[2] = c1 ? top.d[1] : (c2 ? d : top.d[2]);
+      top.i[2] = c1 ? top.i[1] : (c2 ? id : top.i[2]);
+      top.d[1] = c0 ? top.d[0] : (c1 ? d : top.d[1]);
+      top.i[1] = c0 ? top.i[0] : (c1 ? id : top.i[1]);
+      top.d[0] = c0 ? d : top.d[0];
+      top.i[0] = c0 ? id : top.i[0];
+    }
+  }
+}
+
+// xs (b, s, f), pt (b, t, 3) and the grid of knn_grid_kernel (sources as its
+// points, targets as its centroids) -> out, idx, w as knn_kernel; `scored`
+// (b, t), or NULL: the sources each target's warp scanned. Grid (ceil(t /
+// kThreads), b).
+__global__ void __launch_bounds__(kThreads)
+knn_cull_kernel(const float* __restrict__ xs, const float* __restrict__ pt,
+                const float4* __restrict__ spts, const int* __restrict__ sidx,
+                const int* __restrict__ starts, const int* __restrict__ corder,
+                const int* __restrict__ grid, float* __restrict__ out, int* __restrict__ idx_out,
+                float* __restrict__ w_out, int* __restrict__ scored, int s, int t, int f,
+                int gmax) {
+  __shared__ int4 tab_i[kWarps][32];    // the picks and the target of each lane
+  __shared__ float4 tab_w[kWarps][32];  // w0, w1, w2, their sum
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  const int first = (blockIdx.x * kWarps + warp) * 32;
+  if (first >= t) return;  // no block barrier below: a warp past the end just leaves
+  const bool live = first + lane < t;  // past the last target: the last again, never written
+  const int ti = corder[static_cast<size_t>(b) * t + min(first + lane, t - 1)];
+  const float* tp = pt + (static_cast<size_t>(b) * t + ti) * 3;
+  const float tx = tp[0], ty = tp[1], tz = tp[2];
+  const float tn = sq3_rn(tx, ty, tz);
+  const int* gp = grid + static_cast<size_t>(b) * kGridParams;
+  const float inv_h = __int_as_float(gp[2]);
+  const int gx = gp[4], gy = gp[5];
+  const float qx = __fmul_rn(__fsub_rn(tx, __int_as_float(gp[0])), inv_h);
+  const float qy = __fmul_rn(__fsub_rn(ty, __int_as_float(gp[1])), inv_h);
+  const int cx = qx > 0.0f ? static_cast<int>(fminf(qx, static_cast<float>(gx - 1))) : 0;
+  const int cy = qy > 0.0f ? static_cast<int>(fminf(qy, static_cast<float>(gy - 1))) : 0;
+  // the box: the warp's targets' cells, then ring by ring
+  int c0 = __reduce_min_sync(0xffffffffu, cx), c1 = __reduce_max_sync(0xffffffffu, cx);
+  int r0 = __reduce_min_sync(0xffffffffu, cy), r1 = __reduce_max_sync(0xffffffffu, cy);
+  const int* st = starts + static_cast<size_t>(b) * (gmax * gmax + 1);
+  const float4* sp = spts + static_cast<size_t>(b) * s;
+  const int* si = sidx + static_cast<size_t>(b) * s;
+
+  Top3 top;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    top.d[q] = INFINITY;
+    top.i[q] = 0;
+  }
+  for (int row = r0; row <= r1; ++row)
+    knn_scan(sp, si, st[row * gx + c0], st[row * gx + c1 + 1], tx, ty, tz, tn, top);
+  const double h = 1.0 / static_cast<double>(inv_h);
+  const double margin = static_cast<double>(__int_as_float(gp[3])) * kKnnMargin;
+  const double slack = (fmax(fabs(static_cast<double>(qx)), fabs(static_cast<double>(qy))) + 65.0) *
+                       kKnnSlack;
+  while (c0 > 0 || r0 > 0 || c1 < gx - 1 || r1 < gy - 1) {  // the box does not cover the grid
+    double gap = INFINITY;  // cells from the target to the box's inner sides
+    if (c0 > 0) gap = fmin(gap, static_cast<double>(qx) - c0);
+    if (c1 < gx - 1) gap = fmin(gap, static_cast<double>(c1 + 1) - qx);
+    if (r0 > 0) gap = fmin(gap, static_cast<double>(qy) - r0);
+    if (r1 < gy - 1) gap = fmin(gap, static_cast<double>(r1 + 1) - qy);
+    const double lb = (gap - slack) * h;
+    const bool done =
+        gap > slack && static_cast<double>(top.d[2]) < lb * lb * (1.0 - kKnnMargin) - margin;
+    if (__all_sync(0xffffffffu, done)) break;
+    const int n0 = max(c0 - 1, 0), n1 = min(c1 + 1, gx - 1);
+    const int m0 = max(r0 - 1, 0), m1 = min(r1 + 1, gy - 1);
+    for (int row = m0; row <= m1; ++row) {
+      const int* sr = st + row * gx;
+      if (row < r0 || row > r1) {
+        knn_scan(sp, si, sr[n0], sr[n1 + 1], tx, ty, tz, tn, top);
+      } else {
+        if (n0 < c0) knn_scan(sp, si, sr[n0], sr[c0], tx, ty, tz, tn, top);
+        if (n1 > c1) knn_scan(sp, si, sr[c1 + 1], sr[n1 + 1], tx, ty, tz, tn, top);
+      }
+    }
+    c0 = n0;
+    c1 = n1;
+    r0 = m0;
+    r1 = m1;
+  }
+
+  const float w0 = __frcp_rn(fmaxf(top.d[0], 1e-16f));
+  const float w1 = __frcp_rn(fmaxf(top.d[1], 1e-16f));
+  const float w2 = __frcp_rn(fmaxf(top.d[2], 1e-16f));
+  const float wsum = __fadd_rn(__fadd_rn(w0, w1), w2);
+  if (live) {
+    const size_t o = static_cast<size_t>(b) * 3 * t + ti;
+    idx_out[o] = top.i[0];
+    idx_out[o + t] = top.i[1];
+    idx_out[o + 2 * t] = top.i[2];
+    w_out[o] = __fdiv_rn(w0, wsum);
+    w_out[o + t] = __fdiv_rn(w1, wsum);
+    w_out[o + 2 * t] = __fdiv_rn(w2, wsum);
+    if (scored != nullptr) {
+      int cnt = 0;
+      for (int row = r0; row <= r1; ++row) cnt += st[row * gx + c1 + 1] - st[row * gx + c0];
+      scored[static_cast<size_t>(b) * t + ti] = cnt;
+    }
+  }
+  tab_i[warp][lane] = make_int4(top.i[0], top.i[1], top.i[2], ti);
+  tab_w[warp][lane] = make_float4(w0, w1, w2, wsum);
+  __syncwarp();
+  // the warp's output rows, a flat walk: element e is feature e % f of its
+  // target e / f, each row's features on neighbouring lanes
+  const int n_el = min(32, t - first) * f;
+  const float* xb = xs + static_cast<size_t>(b) * s * f;
+  float* ob = out + static_cast<size_t>(b) * t * f;
+  for (int e = lane; e < n_el; e += 32) {
+    const int tl = e / f, ch = e - tl * f;
+    const int4 j = tab_i[warp][tl];
+    const float4 v = tab_w[warp][tl];
+    const float acc = __fmaf_rn(xb[static_cast<size_t>(j.z) * f + ch], v.z,
+                                __fmaf_rn(xb[static_cast<size_t>(j.y) * f + ch], v.y,
+                                          __fmul_rn(xb[static_cast<size_t>(j.x) * f + ch], v.x)));
+    ob[static_cast<size_t>(j.w) * f + ch] = __fdiv_rn(acc, v.w);
+  }
+}
+
+// xs (b, s, f), ps (b, s, 3), pt (b, t, 3) -> out (b, t, f), idx (b, 3, t),
+// w (b, 3, t) as knn_interpolate_launch, on the cell grid: the grid pass
+// (ws: cell_grid.cuh's workspace of b clouds of s points and t centroids,
+// gmax = min(64, isqrt(s))), then the query; `scored` (b, t) i32 or NULL.
+extern "C" int knn_interpolate_grid_launch(const float* xs, const float* ps, const float* pt,
+                                           float* out, int* idx, float* w, int* ws, int* scored,
+                                           int b, int s, int t, int f, int gmax, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const CellWs cw = carve_cells(ws, b, s, t, gmax);
+  cudaError_t err = launch_cell_grid(knn_grid_kernel, pt, ps, cw, b, s, t, gmax, 0.0f, st);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + kThreads - 1) / kThreads, b);
+  knn_cull_kernel<<<grid, kThreads, 0, st>>>(xs, pt, cw.spts, cw.sidx, cw.starts, cw.corder,
+                                             cw.grid, out, idx, w, scored, s, t, f, gmax);
   return cudaGetLastError();
 }

@@ -59,11 +59,27 @@ __device__ __forceinline__ float order_value(uint32_t o) {
 // through distributed shared memory. One range (per = p2, the whole table)
 // is every table that fits in a block (cuda_kernels.pixel_max_range: 8 p2 c
 // <= 227 KB, diam_pix <= 98 at C = 3, the PROD steps among them); a larger
-// table is cut into the fewest ranges that fit, each block reading its
-// whole share of the ids and keeping the points of its range, so the ids
-// are read once a range and the values once in all. No table leaves shared
-// memory at any size: no global atomic, memset or decode pass, and the
-// result is the same bits on every run.
+// table is cut into the fewest ranges whose tables leave two blocks on an
+// SM (113 KB each: three ranges at the dense plots' P = 100), each block
+// reading its whole share of the ids and keeping the points of its range,
+// so the ids are read once a range and the values once in all. No table
+// leaves shared memory at any size: no global atomic, memset or decode
+// pass, and the result is the same bits on every run.
+//
+// Tables past one block (PERF.md §6 row 6a; scripts/kernel_variants.py
+// pixel_max at B=20 x N=65,536, P = 100, uniform pixels and the dense serve
+// step's raster bins, NVIDIA H100 80GB HBM3 at 700 W): the fewest ranges
+// that fit (two, one block an SM: every cluster's 8 blocks hold 120 KB
+// tables) took 0.0754 / 0.0674 ms a launch, three ranges (two blocks an SM)
+// 0.0545 / 0.0491, four 0.070 / 0.060, eight 0.109 / 0.085. Not kept: the
+// table spread over the cluster with 64-bit maxima sent to their owner
+// blocks through distributed shared memory (scripts/variants/
+// pixel_max_dsmem.cu; 0.116 ms, and its outputs differed: ptxas makes the
+// reduction a compare-and-swap loop on the block's own slots and
+// ATOM.E.MAX.64 on a peer's), a counting sort of the points by pixel and a
+// segmented max (pixel_max_sort.cu; 0.099 ms, 2.65 at the raster bins,
+// whose pixel 0 holds a sixth of the points), and a block a slice of the
+// pixels reading every id (pixel_max_owner_scan.cu; 0.092 / 0.089).
 __global__ void __cluster_dims__(kCS, 1, 1) __launch_bounds__(kThreads)
 pixel_max_kernel(const int* __restrict__ pix, const float* __restrict__ vals,
                  float* __restrict__ vmax, int* __restrict__ amax, int n, int p2, int c,

@@ -5,7 +5,7 @@ PyTorch version (counterpart of `stratanet2_tpu/ops/pallas_kernels.py`).
 |------------------|-------------------------|--------------------------------------|
 | `fps`            | csrc/fps.cu             | `_fps_kernel` / `fps_pallas_batched` |
 | `sa_fused_eval`  | csrc/sa_fused_eval.cu (+ grouped_cull.cuh past PROD's groups) | `_sa_kernel` / `sa_fused_eval` |
-| `knn_interpolate`| csrc/knn_interpolate.cu | `_knn_kernel` / `_knn_pallas_raw`    |
+| `knn_interpolate`| csrc/knn_interpolate.cu (+ cell_grid.cuh on dense plots) | `_knn_kernel` / `_knn_pallas_raw` |
 | `pixel_max`      | csrc/pixel_max.cu       | `_pixel_max_kernel` / `pixel_max_pallas` (forward) |
 | `ball_query`     | csrc/ball_query.cu (+ grouped_cull.cuh past PROD's groups) | `_bq_kernel` / `ball_query_grouped_pallas` |
 | `knn_scatter`    | csrc/knn_scatter.cu     | `_knn_scatter_kernel` / `_knn_scatter_pallas`, `scatter_add_pallas` |
@@ -20,19 +20,22 @@ Dispatch: a wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it runs the plain version. There is no fallback between the two
 and no switch. `LAUNCHES[name]` counts each wrapper's kernel launches.
 
-Five wrappers take another path for shapes past their PROD kernels' reach,
-chosen by shape (`fps_path`, `sel_path`, `pixel_max_range`,
-`sa_train_dq_plan`), and count it in `PATH_LAUNCHES` too: FPS rows over
-16,384 points run a block cluster a row (`fps_cluster`, its size from the
-rows and the clusters the card holds at once, and past 131,072 points
-`fps_global`, its running minima in device memory); a selection group
-longer than a warp's staging slice takes the cell grid of the nearest
-selection, each centroid scoring only its 3 x 3 cells, with the same picks
-(`ball_query_grid`, `sa_fused_eval_grid`); a pixel table past shared
-memory is cut into pixel ranges, a cluster each (`pixel_max_ranges`);
-sa_train_bwd2's dq pass splits a group whose lists outgrow shared memory
-into windows of points, a block each (`sa_train_dq_chunked`). Every PROD
-shape keeps its kernels.
+Six wrappers take another path for shapes past their PROD kernels' reach
+(the dense plots), chosen by shape (`fps_path`, `sel_path`, `knn_path`,
+`pixel_max_range`, `sa_train_dq_plan`), and count it in `PATH_LAUNCHES` too:
+FPS rows over 16,384 points run a block cluster a row (`fps_cluster`, its
+size from the rows and the clusters the card holds at once, and past
+131,072 points `fps_global`, its running minima in device memory); a
+selection group longer than a warp's staging slice takes the cell grid of
+csrc/cell_grid.cuh, each centroid scoring only its 3 x 3 cells, with the
+same picks (`ball_query_grid`, `sa_fused_eval_grid`); kNN with many
+sources takes the same grid, each warp of targets scanning rings of cells
+until a proven bound stops it, with the same picks
+(`knn_interpolate_grid`); a pixel table past a block's shared memory is
+cut into pixel ranges, a cluster each, sized for two blocks an SM
+(`pixel_max_ranges`); sa_train_bwd2's dq pass splits a group whose
+lists outgrow shared memory into windows of points, a block each
+(`sa_train_dq_chunked`). Every PROD shape keeps its kernels.
 
 Every selection distance is rounded as the JAX CPU path rounds it (see
 `distance.py`): the plain versions and the kernels agree with it, and with
@@ -61,6 +64,8 @@ _KNN_CHUNK = 512  # targets per (B, chunk, S) distance tile of the plain kNN on 
 # csrc/knn_interpolate.cu: 8 warps a block, one target a lane; knn_slices
 # wants enough warps to fill the 64 warp slots of each of 132 SMs once
 KNN_WARPS, KNN_MIN_WARPS = 8, 64 * 132
+# knn_path: clouds of at least KNN_GRID_MIN_S sources take the cell grid
+KNN_GRID_MIN_S = 4096
 _SMEM_MAX = 227 * 1024  # opt-in dynamic shared memory of one H100 block
 # csrc/knn_scatter.cu: pairs a round and contributions a chunk (kW, kL: they
 # set the order of its sums), and the widest F whose accumulators fit in
@@ -69,6 +74,9 @@ KNN_SCATTER_PAIRS, KNN_SCATTER_CHUNK = 8192, 64
 KNN_SCATTER_MAX_F = 128
 PIXEL_MAX_CLUSTER = 8  # csrc/pixel_max.cu: blocks of a cloud's cluster (kCS)
 PIXEL_MAX_TABLE = _SMEM_MAX // 8  # 64-bit keys (pixel x channel slots) a block's table holds
+# ... and a range's table past one block: two blocks of pixel_max_kernel on
+# each SM (228 KB of shared memory an SM, 1 KB of it reserved a block)
+PIXEL_MAX_PAIR_TABLE = (228 * 1024 // 2 - 1024) // 8
 FPS_THREADS = 1024  # csrc/fps.cu: threads a block
 FPS_MAX_N = 16 * FPS_THREADS  # fps_kernel: at most 16 points for each of its threads
 FPS_CLUSTER_MAX = 8  # fps_cluster_kernel: blocks a row at most (the portable cluster size)
@@ -131,6 +139,9 @@ _ENTRIES = {  # entry: (library = csrc/<library>.cu, C entry point, its argument
         "sa_fused_eval", "sa_fused_eval_grid_launch", [_VP] * 8 + [_I] * 8 + [_F, _VP]
     ),
     "ball_query_grid": ("ball_query", "ball_query_grid_launch", [_VP] * 5 + [_I] * 5 + [_F, _VP]),
+    "knn_interpolate_grid": (
+        "knn_interpolate", "knn_interpolate_grid_launch", [_VP] * 8 + [_I] * 5 + [_VP]
+    ),
     "fps_cluster": ("fps", "fps_cluster_launch", [_VP] * 4 + [_I] * 4 + [_VP]),
     "fps_resident": ("fps", "fps_cluster_resident", [_I] * 3),  # no launch: a query
 }
@@ -138,7 +149,7 @@ WRAPPERS = ("fps", "sa_fused_eval", "knn_interpolate", "pixel_max", "ball_query"
             "pixel_max_bwd", "sa_train_stats", "sa_train_main", "sa_train_bwd1", "sa_train_bwd2",
             "ball_query_nearest")
 PATHS = ("fps_cluster", "fps_global", "ball_query_grid", "sa_fused_eval_grid",
-         "pixel_max_ranges", "sa_train_dq_chunked")
+         "knn_interpolate_grid", "pixel_max_ranges", "sa_train_dq_chunked")
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 # kernel launches per wrapper, and per long-shape path, counted where the
 # launch succeeds
@@ -486,13 +497,22 @@ def knn_slices(b: int, t: int) -> int:
     return next((w for w in (1, 2, 4) if groups * w >= KNN_MIN_WARPS), KNN_WARPS)
 
 
-def knn_interpolate(x_src: torch.Tensor, pos_src: torch.Tensor, pos_tgt: torch.Tensor):
-    """Exact 3-NN inverse-d^2 interpolation: x_src (B, S, F), pos_src
-    (B, S, 3), pos_tgt (B, T, 3) -> out (B, T, F), idx (B, 3, T) int32 and
-    normalised weights (B, 3, T) (kept for the backward of the train slice).
-    Ties go to the lowest source index."""
+def knn_path(s: int, t: int) -> str:
+    """csrc/knn_interpolate.cu's path for clouds of s sources and t targets:
+    "whole", knn_kernel scoring every pair (PROD's FP1, s = 2,500, and FP2,
+    625), or "grid", the cell grid (s >= KNN_GRID_MIN_S: the dense plots'
+    FP1 and FP2, s = 16,384 and 4,096), each warp of targets scanning rings
+    of source cells until the stop rule holds; the same picks. On an H100
+    the grid was faster at every s timed, from 1,024; the threshold keeps
+    PROD's shapes on knn_kernel. t does not enter: both paths' work grows
+    with it alike."""
+    return "grid" if s >= KNN_GRID_MIN_S else "whole"
+
+
+def _knn_check(x_src, pos_src, pos_tgt) -> bool:
+    """Checks knn_interpolate's arguments; True for CUDA tensors."""
     name = "knn_interpolate"
-    b, s, f = x_src.shape
+    b, s, _ = x_src.shape
     t = pos_tgt.shape[1]
     _expect(pos_src.shape == (b, s, 3) and pos_tgt.shape == (b, t, 3), name,
             "positions must be (B, S, 3) and (B, T, 3)")
@@ -500,13 +520,55 @@ def knn_interpolate(x_src: torch.Tensor, pos_src: torch.Tensor, pos_tgt: torch.T
     for x in (x_src, pos_src, pos_tgt):
         _expect(x.dtype == torch.float32, name, "all inputs must be float32")
     if not _on_card(name, x_src, pos_src, pos_tgt):
-        return knn_interpolate_plain(x_src, pos_src, pos_tgt)
+        return False
     _expect(b < 65536, name, "the kernel takes at most 65535 clouds")
+    _expect(s < 2 ** 31, name, f"S={s}: indices are int32")
+    return True
+
+
+def knn_interpolate(x_src: torch.Tensor, pos_src: torch.Tensor, pos_tgt: torch.Tensor):
+    """Exact 3-NN inverse-d^2 interpolation: x_src (B, S, F), pos_src
+    (B, S, 3), pos_tgt (B, T, 3) -> out (B, T, F), idx (B, 3, T) int32 and
+    normalised weights (B, 3, T) (kept for the backward of the train slice).
+    Ties go to the lowest source index. On the card `knn_path` chooses the
+    kernel by shape."""
+    if not _knn_check(x_src, pos_src, pos_tgt):
+        return knn_interpolate_plain(x_src, pos_src, pos_tgt)
+    b, s, f = x_src.shape
+    t = pos_tgt.shape[1]
+    if knn_path(s, t) == "grid":
+        return _knn_grid_launch(x_src, pos_src, pos_tgt, None)
     out = torch.empty((b, t, f), dtype=torch.float32, device=x_src.device)
     idx = torch.empty((b, 3, t), dtype=torch.int32, device=x_src.device)
     w = torch.empty((b, 3, t), dtype=torch.float32, device=x_src.device)
-    _launch(name, x_src.device, x_src, pos_src, pos_tgt, out, idx, w, b, s, t, f,
+    _launch("knn_interpolate", x_src.device, x_src, pos_src, pos_tgt, out, idx, w, b, s, t, f,
             knn_slices(b, t))
+    return out, idx, w
+
+
+def knn_interpolate_grid(x_src: torch.Tensor, pos_src: torch.Tensor, pos_tgt: torch.Tensor):
+    """`knn_interpolate` on the cell grid at any shape, and the sources each
+    target's warp scanned, scored (B, T) int32: one counted launch on the
+    card; on the CPU the plain version and `ballquery.knn_grid_picks`'s
+    count."""
+    if not _knn_check(x_src, pos_src, pos_tgt):
+        return (*knn_interpolate_plain(x_src, pos_src, pos_tgt),
+                ballquery.knn_grid_picks(pos_src, pos_tgt)[2].int())
+    b, t = pos_tgt.shape[:2]
+    scored = torch.empty((b, t), dtype=torch.int32, device=x_src.device)
+    return (*_knn_grid_launch(x_src, pos_src, pos_tgt, scored), scored)
+
+
+def _knn_grid_launch(x_src, pos_src, pos_tgt, scored):
+    """One counted launch of the kNN cell-grid path (grid pass and query)."""
+    b, s, f = x_src.shape
+    t = pos_tgt.shape[1]
+    out = torch.empty((b, t, f), dtype=torch.float32, device=x_src.device)
+    idx = torch.empty((b, 3, t), dtype=torch.int32, device=x_src.device)
+    w = torch.empty((b, 3, t), dtype=torch.float32, device=x_src.device)
+    ws, gmax = _cell_workspace(b, s, t, x_src.device)
+    _launch("knn_interpolate", x_src.device, x_src, pos_src, pos_tgt, out, idx, w, ws, scored,
+            b, s, t, f, gmax, entry="knn_interpolate_grid", path="knn_interpolate_grid")
     return out, idx, w
 
 
@@ -539,9 +601,13 @@ def pixel_max_range(n_pix: int, c: int) -> int:
     cluster a range and cloud) for a table of n_pix pixels x c channels of
     64-bit keys: n_pix, one range, when the whole table fits in a block's
     shared memory (8 n_pix c <= 232,448 B: diam_pix <= 98 at c = 3), else
-    the fewest ranges of at most PIXEL_MAX_TABLE // c pixels, cut evenly
-    (the last may hold fewer)."""
-    ranges = -(-n_pix // (PIXEL_MAX_TABLE // c))
+    the fewest ranges whose tables of at most PIXEL_MAX_PAIR_TABLE keys
+    leave two blocks on each SM (three at diam_pix 100 and c = 3; the
+    fewest that fit, one block an SM, took 1.4x as long on an H100), cut
+    evenly (the last may hold fewer)."""
+    if n_pix * c <= PIXEL_MAX_TABLE:
+        return n_pix
+    ranges = -(-n_pix // (PIXEL_MAX_PAIR_TABLE // c))
     return -(-n_pix // ranges)
 
 
@@ -732,8 +798,9 @@ def _nearest_launch(centroids: torch.Tensor, points: torch.Tensor, radius: float
 
 def _cell_layout(b: int, n: int, c: int):
     """g = `ballquery.nearest_grid_side(N)`, from the shapes alone, and the
-    int32 parts of the cell grid's workspace (the nearest kernel's and the
-    grouped selection's grid path) in the order of csrc/cell_grid.cuh's
+    int32 parts of the cell grid's workspace (the nearest kernel's, the
+    grouped selection's and kNN's grid paths; for kNN N counts the sources
+    and C the targets) in the order of csrc/cell_grid.cuh's
     `carve_cells`, by name and shape: spts (B, N, 4) (float4 [x, y, z,
     |p|^2]), sidx (B, N), starts (B, g^2 + 1), corder (B, C) and params
     (B, 6)."""

@@ -4,8 +4,10 @@ the JAX package, and the wrappers' choice of path by shape.
 Users reach these shapes through `--subsample_size` and `--diam_pix`: FPS
 rows over 16,384 points (`cuda_kernels.fps_path`: a block cluster a row on
 the card), grouped-selection groups longer than a warp's staging slice
-(`cuda_kernels.sel_path`: the cell grid) and pixel tables past a
-block's shared memory (`cuda_kernels.pixel_max_range`: pixel ranges). On the
+(`cuda_kernels.sel_path`: the cell grid), kNN from many sources
+(`cuda_kernels.knn_path`: the cell grid, tests/test_torch_port_knn_grid.py)
+and pixel tables past a block's shared memory (`cuda_kernels.
+pixel_max_range`: pixel ranges sized for two blocks an SM). On the
 CPU each wrapper runs its plain version, which must match JAX at those
 shapes: FPS and selection picks exactly, projections and the dense forward
 within the model tests' atol 2e-5 (values in [0, 1] that differ by rounding
@@ -140,20 +142,74 @@ def test_sa_fused_eval_chunk_by_group(ch1, ch2, two, k, prod_g, delta):
     (400, 3, 400),  # PROD: diam_pix 20
     (9604, 3, 9604),  # diam_pix 98
     (9685, 3, 9685),  # 232,440 B: the last table that fits
-    (9686, 3, 4843),  # 232,464 B: one pixel past
-    (10000, 3, 5000),  # diam_pix 100, the dense phase's
-    (90000, 3, 9000),  # diam_pix 300
+    (9686, 3, 3229),  # 232,464 B: one pixel past; two ranges of 116,232 B leave one block an SM
+    (10000, 3, 3334),  # diam_pix 100, the dense phase's: three ranges of 80,016 B
+    (90000, 3, 4737),  # diam_pix 300: 19 ranges
+    (10000, 1, 10000),  # one channel: 80,000 B, one range
 ])
 def test_pixel_max_path_by_table(n_pix, c, per):
     """A table of 8 n_pix c bytes of 64-bit keys is one pixel range (a
     cluster a cloud) while it fits in 232,448 B, else the fewest pixel
-    ranges that fit."""
+    ranges whose tables leave two blocks on an SM (228 KB of shared memory,
+    1 KB reserved a block)."""
     assert ck.pixel_max_range(n_pix, c) == per
     ranges = -(-n_pix // per)
     assert (8 * n_pix * c <= ck._SMEM_MAX) == (ranges == 1)
-    assert 8 * per * c <= ck._SMEM_MAX
     if ranges > 1:
-        assert 8 * -(-n_pix // (ranges - 1)) * c > ck._SMEM_MAX
+        assert 2 * (8 * per * c + 1024) <= 228 * 1024
+        assert 2 * (8 * -(-n_pix // (ranges - 1)) * c + 1024) > 228 * 1024
+
+
+def _pixel_max_ranges_model(pix, vals, n_pix):
+    """pixel_max_kernel over the ranges of `pixel_max_range` on the CPU:
+    per range and each of the cluster's 8 blocks' contiguous shares of the
+    points, the max of the (ord(v) << 32 | ~index) keys of its points in
+    the range, then the max over the 8 blocks' tables, decoded."""
+    b, n, c = vals.shape
+    per = ck.pixel_max_range(n_pix, c)
+    share = -(-n // ck.PIXEL_MAX_CLUSTER)
+    u = vals.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    order = torch.where(u >= 2 ** 31, (~u) & 0xFFFFFFFF, u | 2 ** 31)  # order_key
+    # the unsigned keys less 2^63, which orders them alike in int64
+    keys = ((order - 2 ** 31) << 32) | (0xFFFFFFFF - torch.arange(n)[None, :, None])
+    empty = torch.iinfo(torch.int64).min
+    vmax = torch.full((b, n_pix, c), ck.NEG)
+    amax = torch.full((b, n_pix, c), -1, dtype=torch.int32)
+    for lo in range(0, n_pix, per):
+        cnt = min(per, n_pix - lo)
+        merged = torch.full((b, cnt, c), empty, dtype=torch.int64)
+        for r in range(ck.PIXEL_MAX_CLUSTER):
+            mine = torch.zeros(n, dtype=torch.bool)
+            mine[r * share:(r + 1) * share] = True
+            inside = (pix >= lo) & (pix < lo + cnt) & mine
+            slot = torch.where(inside, pix - lo, cnt).long()[..., None].expand(b, n, c)
+            table = torch.full((b, cnt + 1, c), empty, dtype=torch.int64)
+            table = table.scatter_reduce(1, slot, keys.expand(b, n, c), "amax")[:, :cnt]
+            merged = torch.maximum(merged, table)
+        hi = (merged >> 32) + 2 ** 31
+        bits = torch.where(hi >= 2 ** 31, hi & 0x7FFFFFFF, (~hi) & 0xFFFFFFFF)  # order_value
+        vmax[:, lo:lo + cnt] = torch.where(merged == empty, ck.NEG, bits.int().view(torch.float32))
+        amax[:, lo:lo + cnt] = torch.where(
+            merged == empty, -1, 0xFFFFFFFF - (merged & 0xFFFFFFFF)).int()
+    return vmax, amax
+
+
+@pytest.mark.parametrize("p,n", [(100, 20011), (300, 30007)])
+def test_pixel_max_ranges_plan_matches_plain(rng, p, n):
+    """pixel_max_kernel's ranges (three at P = 100, 19 at 300) and its 8
+    blocks' shares with their keys give `pixel_max_plain`'s maxima and
+    first argmax exactly: quantised values tie across shares and on both
+    sides of the ranges' boundaries, some ids fall outside the table and a
+    band of pixels stays empty."""
+    n_pix = p * p
+    pix = rng.integers(-n_pix // 8, n_pix + n_pix // 8, (2, n)).astype(np.int32)
+    pix[(pix >= n_pix // 4) & (pix < n_pix // 4 + n_pix // 8)] = -1
+    vals = (rng.integers(-2, 3, (2, n, 3)) / 2).astype(np.float32)
+    want_v, want_a = ck.pixel_max_plain(T(pix), T(vals), n_pix)
+    got_v, got_a = _pixel_max_ranges_model(T(pix), T(vals), n_pix)
+    assert ck.pixel_max_range(n_pix, 3) < n_pix
+    np.testing.assert_array_equal(got_a.numpy(), want_a.numpy())
+    np.testing.assert_array_equal(got_v.numpy(), want_v.numpy())
 
 
 @pytest.mark.parametrize("b,n,c,k,plan", [
@@ -317,8 +373,8 @@ def _projection_inputs(rng, n):
 
 
 def test_plotwise_coverages_diam_pix_100_matches_jax(rng):
-    """A 10,000-pixel table (240,000 B of keys at three channels: two pixel
-    ranges on the card)."""
+    """A 10,000-pixel table (240,000 B of keys at three channels: three
+    pixel ranges on the card)."""
     assert ck.pixel_max_range(100 * 100, 3) < 100 * 100
     cov, xy = _projection_inputs(rng, 5000)
     want = jproj.plotwise_coverages(jnp.asarray(cov), jnp.asarray(xy), 100)
@@ -340,7 +396,7 @@ def test_batched_raster_projection_diam_pix_100_matches_jax(rng):
 def test_dense_serve_forward_matches_jax(rng):
     """One serve forward of the whole model at B=1, N=16,400 with
     fps_parts=1 (SA1's FPS row of 16,400 points, past fps_kernel's) and
-    diam_pix=100 (two pixel ranges), default channel plan, BN running
+    diam_pix=100 (three pixel ranges), default channel plan, BN running
     statistics random: coverages, probabilities, rasters and plot coverages
     within the model tests' tolerance."""
     n = 16400

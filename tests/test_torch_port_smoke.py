@@ -227,10 +227,12 @@ def test_check_edge_loops_fails_without_a_slot_loop(func):
 
 def test_knn_reference_sites_are_tie_heavy_ragged_and_chunked():
     """The inputs of kNN's reference sites have the properties their
-    comment in chip_smoke.py claims."""
+    comment in chip_smoke.py claims: KNN_REFERENCE's on knn_kernel, then
+    KNN_GRID_REFERENCE's on the cell grid at the dense FP1 shape."""
     calls = cs.knn_reference_calls(torch, torch.device("cpu"))
-    assert len(calls) == len(cs.KNN_REFERENCE)
-    for (kind, b, s, t, f), (x, src, tgt) in zip(cs.KNN_REFERENCE, calls):
+    sites = cs.KNN_REFERENCE + cs.KNN_GRID_REFERENCE
+    assert len(calls) == len(sites)
+    for (kind, b, s, t, f), (x, src, tgt) in zip(sites, calls):
         assert (x.shape, src.shape, tgt.shape) == ((b, s, f), (b, s, 3), (b, t, 3))
         assert x.dtype == src.dtype == tgt.dtype == torch.float32
         if kind == "grid":
@@ -239,10 +241,30 @@ def test_knn_reference_sites_are_tie_heavy_ragged_and_chunked():
             assert torch.equal(src[:, half : half + s // 8], src[:, : s // 8])
             on_src = (tgt[:, : t // 8, None] == src[:, None]).all(-1).any(-1)
             assert bool(on_src.all())
+        elif kind == "shifted":
+            assert float(src[..., :2].min()) > 980 and float(tgt[..., :2].min()) > 980
+        elif kind == "clustered":
+            share, side = cs.NEAREST_CLUSTER
+            crowd = (tgt[..., :2].abs() <= side / 2).all(-1).float().mean()
+            assert abs(float(crowd) - share) < 0.02
+        elif kind == "sorted":
+            assert bool((src[:, 1:, 0] >= src[:, :-1, 0]).all())
+        elif kind == "far":  # every target off the sources' extent by KNN_FAR - 20 m
+            assert float((tgt[..., 0].amin(1) - src[..., 0].amax(1)).min()) > cs.KNN_FAR - 20.5
     kinds = {kind: (s, t) for kind, _, s, t, _ in cs.KNN_REFERENCE}
     assert kinds["s3"][0] == 3
     assert all(v % 32 for v in kinds["ragged"])
     assert kinds["chunked"][0] > 4096  # csrc/knn_interpolate.cu stages 4096 sources at once
+    # KNN_REFERENCE runs on knn_kernel ("chunked" through knn_whole), the
+    # grid sites on the cell grid at the dense FP1 shape
+    assert all(ck.knn_path(s, t) == "whole" for kind, _, s, t, _ in cs.KNN_REFERENCE
+               if kind != "chunked")
+    assert ck.knn_path(*kinds["chunked"]) == "grid"
+    with cs.knn_whole(ck):
+        assert ck.knn_path(*kinds["chunked"]) == "whole"
+    assert ck.knn_path(*kinds["chunked"]) == "grid"
+    assert all(ck.knn_path(s, t) == "grid" and (s, t) == (16384, 65536)
+               for _, _, s, t, _ in cs.KNN_GRID_REFERENCE)
 
 
 @pytest.fixture(scope="module")
@@ -417,8 +439,8 @@ def test_pixel_max_reference_sites_tie_across_cluster_blocks():
             for size in (4, 8):  # the last block of the cluster gets no point
                 assert (size - 1) * -(-n // size) >= n
             continue
-        if kind == "wide":  # ten ranges, most pixels empty
-            assert -(-p2 // per) == 10 and float((amax[..., 0] < 0).float().mean()) > 0.9
+        if kind == "wide":  # 19 ranges, most pixels empty
+            assert -(-p2 // per) == 19 and float((amax[..., 0] < 0).float().mean()) > 0.9
             continue
         if per < p2:  # a maximum value on both sides of the first boundary
             occupied = amax[0, :, 0] >= 0
@@ -1037,12 +1059,12 @@ def test_dense_phase_runs_on_the_cpu(monkeypatch, capsys):
     that a small step crosses each of them as the dense step does: FPS rows
     of 1,024 points past a block's 512 (SA1's parts: the cluster), SA1's
     groups of 64 points past a slice of 16 (the cell grid; SA2's groups of 8 are
-    not), a 20 x 20 x 3 table past 64 slots (pixel ranges), the global FPS
+    not), kNN from 512 and 128 sources past 128 (the cell grid), a 20 x 20
+    x 3 table past 64 slots (pixel ranges of 16 pixels), the global FPS
     site past 8 slices, the dq windows' site past 1,000 ints of lists and
     counts, and a train step at N=2,560 past them. The plain versions run,
-    so the launch, path and profile
-    checks are the ones let through; every path's sites are held to the
-    plain version, and B=1 card vs CPU runs on both sides on the CPU."""
+    so the launch, path and profile checks are the ones let through; every
+    path's sites are held to the plain version."""
     import json
 
     from stratanet2_tpu_torch.config import default_config
@@ -1051,6 +1073,8 @@ def test_dense_phase_runs_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(ck, "BQ_MAX_G", 16)
     monkeypatch.setattr(ck, "sa_fused_eval_max_g", lambda *a: 16)
     monkeypatch.setattr(ck, "PIXEL_MAX_TABLE", 64)
+    monkeypatch.setattr(ck, "PIXEL_MAX_PAIR_TABLE", 48)
+    monkeypatch.setattr(ck, "KNN_GRID_MIN_S", 128)
     monkeypatch.setattr(ck, "SA_DQ_INTS", 1000)
     monkeypatch.setattr(cs, "DQ_REFERENCE", (1, 2000, 500, 32, 16))
     asked = []  # the card's resident clusters: the table's here
@@ -1080,8 +1104,6 @@ def test_dense_phase_runs_on_the_cpu(monkeypatch, capsys):
                    for name, count in launches.items() if count])
 
     monkeypatch.setattr(cs, "profile_step", profile)
-    trains = []
-    monkeypatch.setattr(cs, "compare_train_with_cpu", lambda *a, **k: trains.append((a, k)))
     check, missed = cs.check, []
 
     def lenient(cond, msg):
@@ -1121,11 +1143,19 @@ def test_dense_phase_runs_on_the_cpu(monkeypatch, capsys):
     assert [(x["rows"], x["N"]) for x in resident] == [(4, 1024), (1, 4097), (4, 1280)]
     assert all(x["one_wave"] for x in resident) and 1024 in asked
     (dense,) = [x for x in lines if x.get("phase") == "dense"]
-    assert dense["serve_cpu_B1_max_abs_diff"] == 0.0 and dense["N"] == 2048
+    assert dense["N"] == 2048
     assert (dense["sa_train_bwd2_edge_buffer_bytes"]
             > dense["sa_train_bwd2_edge_buffer_allocated_bytes"] > 0)
-    (args, kwargs), = trains
-    assert kwargs["label"] == "dense_train_cpu_reference_B1" and args[4].shape[0] == 1
+    # kNN's grid sites: FP1 and FP2 of both steps held, the serve step's
+    # timed, each with its pairs scored
+    knn_sites = [x for x in held if x["kernel"] == "knn_interpolate" and "kernel_ms" not in x]
+    assert len(knn_sites) == 4 and all("path=grid" in x["shape"] for x in knn_sites)
+    work = [x for x in lines if x.get("phase") == "grid_work"
+            and x["kernel"] == "knn_interpolate"]
+    assert len(work) == 4 and all(0 < x["scored_pairs"] <= x["all_pairs"] for x in work)
+    assert rows["knn_interpolate_grid"]["scored_pairs"] == sum(
+        x["scored_pairs"] for x in work if x["site"].startswith("dense knn_interpolate_grid")
+        and x["site"].split()[-1] in ("0", "1"))
     # the wrappers' and the paths' launch checks of both steps, and each
     # path's kernel named in a profile where nothing launched
     serve_on = sum(v > 0 for v in cs.SERVE_LAUNCHES.values())
