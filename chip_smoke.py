@@ -45,15 +45,22 @@ Phases, in order, each failing loudly:
      then the cell grid's KNN_GRID_REFERENCE at the dense FP1 shape, B=2: an
      integer grid with duplicated sources and targets on sources, plots 1 km
      from the origin, clustered, with sources sorted by x, and targets off
-     every source, each with its `"grid_work"` line and weights bit for
-     bit), each with 0 differing indices and outputs and weights within
+     every source, then B=1 and B=67, the grid pass's largest and smallest
+     cluster; each with its `"grid_work"` line and weights and outputs bit
+     for bit), each with 0 differing indices and outputs and weights within
      KNN_ATOL, and
      pixel_max's (PIXEL_MAX_REFERENCE: quantised values whose tied maxima
      fall in different blocks of a cloud's cluster, ids outside the pixels,
      empty pixels, P = 37, N a multiple of no share; a cloud so small that
      the last blocks of its cluster get no point; the tables past a block
      pixel ranges at P = 100 and P = 300), equal
-     exactly;
+     exactly; every site on the cell grid (here, in phases 11 and 15h)
+     reads back the grid its launch built (`recorded_cells`) and holds it
+     to the CPU mirror, parameters bit for bit, starts, points and
+     centroids cell by cell (`"grid_check"`, 0 differing); then
+     `"grid_cluster_sizes"`: kNN's grid path at every cluster size
+     `cuda_kernels.cell_grid_cluster` returns (1 to 8 blocks a cloud, the
+     fewest clouds that take each), held alike;
   4b. `"phase": "fps_chain"`: FPS's latency floor, the time of a pick with
      one point a thread (N=1024), against the per-pick time at the step
      sites;
@@ -228,8 +235,9 @@ Phases, in order, each failing loudly:
      either library (`ball_query_grid`, `sa_fused_eval_grid`: the dense
      steps' SA1 sites): the SASS instructions a pair
      of the scan loop (cuobjdump of the built library; for kNN also on the
-     path of a pair that inserts nothing; the culled queries' loops found
-     by their global LDG.E.128 loads), the step's pairs (for the culled
+     path of a pair that inserts nothing; the selections' culled queries'
+     loops found by their global LDG.E.128 loads, kNN's by the LDS.128 of
+     its staged tiles), the step's pairs (for the culled
      queries the pairs they score, their centroids' 3 x 3 cells, beside all
      pairs and the in-radius pairs) and the issue
      floor, pairs x instructions / (132 SMs x 128 lanes x the maximum SM
@@ -300,7 +308,10 @@ Phases, in order, each failing loudly:
      cluster FPS and the dq windows also at the 80,000-point step's
      sites, `step80k`), the
      `{"kernels": [...]}` line (all twelve; the nearest kernel's row is the
-     nearest serve step's) and the final `{"ok": true, ...}` line.
+     nearest serve step's, with its grid pass's and query's device ms apart,
+     `grid_pass_ms` and `query_ms`, as the dense rows of the grid paths
+     give theirs by step, `grid_pass_ms` and `device_ms_by_kernel`) and the
+     final `{"ok": true, ...}` line.
 
 float32 matmuls run in full float32: TF32 is switched off for cuBLAS and
 cuDNN below, so no product (and no distance) passes through TF32.
@@ -502,10 +513,17 @@ KNN_REFERENCE = (("grid", 20, 2500, 10000, 34), ("grid", 20, 625, 2500, 64),
 # crowded cells hold most of the sources; "sorted", the sources sorted by
 # x, so the scan's cell order and the index order of ties differ most;
 # "far", the targets moved KNN_FAR m along x, off every source, so the box
-# grows over most of the grid
+# grows over most of the grid; then serve-like plots at the cluster sizes
+# of the grid pass's ends (cuda_kernels.cell_grid_cluster on 132 SMs): "one",
+# a single cloud (8 blocks), and "many", 67 clouds (one block a cloud); the
+# B=2 sites take 8 blocks, the dense steps' B=20 6
 KNN_GRID_REFERENCE = (("grid", 2, 16384, 65536, 34), ("shifted", 2, 16384, 65536, 34),
                       ("clustered", 2, 16384, 65536, 34), ("sorted", 2, 16384, 65536, 34),
-                      ("far", 2, 16384, 65536, 34))
+                      ("far", 2, 16384, 65536, 34), ("one", 1, 16384, 65536, 34),
+                      ("many", 67, 16384, 65536, 34))
+# the grid pass at every cluster size cell_grid_cluster returns (phase 4):
+# kNN's grid path at (S, T, F) for the fewest clouds that take each size
+GRID_CLUSTER_SITE = (1024, 4096, 8)
 KNN_FAR = 40.0
 # pixel_max's reference sites (phase 4): (kind, B, N, P), C = 3. "ties":
 # values quantised to 5 levels, so a pixel's maximum is reached by several
@@ -598,6 +616,8 @@ DENSE_KERNELS = {"fps_cluster": "fps_cluster_kernel", "fps_global": "fps_cluster
                  "sa_train_dq_chunked": ("sa_train_dq_kernel<16, true>",
                                          "sa_train_dq_keys_kernel"),
                  "pixel_max_bwd": "pixel_max_bwd_kernel"}
+# the paths that run the cell grid's pass (the first of their DENSE_KERNELS)
+GRID_PATHS = ("sa_fused_eval_grid", "ball_query_grid", "knn_interpolate_grid")
 # sa_train_bwd2's dq windows (cuda_kernels.sa_train_dq_plan) at SA1's
 # shape of subsample_size 80,000, (B, N, C, K, C1): 4 (2 C + 9 ceil(N/K) +
 # 1) B = 250,004 B of lists and counts a block, past its 232,448 B, so the
@@ -891,7 +911,7 @@ def knn_reference_calls(torch, device):
             tgt = torch.randint(0, 16, (b, t, 3), generator=gen, device=device).float()
             src[:, s // 2 : s // 2 + s // 8] = src[:, : s // 8]
             tgt[:, : t // 8] = src[:, torch.randint(0, s, (t // 8,), generator=gen, device=device)]
-        elif kind in ("shifted", "clustered", "sorted", "far"):
+        elif kind in ("shifted", "clustered", "sorted", "far", "one", "many"):
             tgt = torch.cat([rand(b, t, 2) * 20 - 10, rand(b, t, 1) * 3], -1)
             if kind == "shifted":
                 tgt[..., :2] += NEAREST_SHIFT
@@ -1079,8 +1099,9 @@ def sass_per_pair(sass: str, r: int, load: str = r"LDS\.128", nested: bool = Fal
     """SASS instructions a pair in the scan loop of each kernel in `sass`
     (cuobjdump -sass of a library): of the innermost loops that hold both a
     128-bit load of one point (`load`, a regular expression: a shared-memory
-    LDS.128 of a staged point by default; the culled queries read their
-    sorted points from global memory, LDG.E.128) and a float compare, the
+    LDS.128 of a staged point by default; the selections' culled queries
+    read their sorted points from global memory, LDG.E.128) and a float
+    compare, the
     one with the most such loads (an unrolled main loop, not its
     remainder). Each point feeds `r` targets, so its length over (points x
     r) is per pair. `common_per_pair` leaves out what a forward branch
@@ -1247,7 +1268,8 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
             ("ball_query_grid", "ball_query", "grouped_cull_kernel", ck.CULL_CENTS, ldg, True),
             ("sa_fused_eval_grid", "sa_fused_eval", "grouped_cull_kernel", ck.CULL_CENTS, ldg,
              True),
-            ("knn_interpolate_grid", "knn_interpolate", "knn_cull_kernel", 1, ldg, False)):
+            ("knn_interpolate_grid", "knn_interpolate", "knn_cull_kernel", 1, r"LDS\.128",
+             False)):
         loops = {f: v for f, v in sass_per_pair(dump(library, "-sass"), r, load, nested).items()
                  if func in f}
         check(len(loops) > 0, f"{name}: no scan loop found in the SASS")
@@ -1450,7 +1472,9 @@ def check_site(torch, ck, name, site, args, work=None):
         shape = f"rows={r} N={n} S={s} path={path} cs={cs}"
     elif name == "sa_fused_eval":
         q, xyz, cent, cterm, a1, c1, w2, b2, a2, c2, radius, k = args
-        got, want = kernel(*args), plain(*args)
+        with recorded_cells(ck) as cells:
+            got = kernel(*args)
+        want = plain(*args)
         err = float((got - want).abs().max())
         check(err <= SA_ATOL, f"sa_fused_eval site {site}: max |diff| {err} > {SA_ATOL}")
         pidx, pmask = sa_probe_picks(torch, ck, xyz, cent, radius, k)
@@ -1465,6 +1489,8 @@ def check_site(torch, ck, name, site, args, work=None):
         path = ck.sel_path(g, ck.sa_fused_eval_max_g(ch1, ch2, w2 is not None, k))
         pairs = float(b * c * n)
         ops = grid_site(name, site, cent, xyz, radius, pairs, path == "grid", work)
+        if path == "grid":
+            checked_grids(torch, ck, name, site, cells, xyz, cent, radius)
         ops += valid * edge_ops
         shape = (f"B={b} N={n} C={c} K={k} C1={ch1} C2={ch2} valid_picks={int(valid)} "
                  f"g={g} path={path}")
@@ -1479,8 +1505,9 @@ def check_site(torch, ck, name, site, args, work=None):
         nbytes = 4 * (b * s * (f + 3) + b * t * 3 + b * t * f + 2 * b * 3 * t)
         pairs = float(b * t * s)
         path = ck.knn_path(s, t)
-        if path == "grid":  # the culled scan: its weights bit for bit, its pairs
-            check(torch.equal(gw, ww), f"knn site {site}: the grid's weights differ in bits")
+        if path == "grid":  # the culled scan: its weights and outputs bit for bit, its pairs
+            check(torch.equal(gw, ww) and torch.equal(go, wo),
+                  f"knn site {site}: the grid's weights or outputs differ in bits")
             scored = knn_grid_work(torch, ck, site, args, gi, pairs, work)
             shape = f"B={b} S={s} T={t} F={f} path=grid"
         else:
@@ -1491,7 +1518,9 @@ def check_site(torch, ck, name, site, args, work=None):
         shape, nbytes, ops, err, diff_sel, lib_ms = pixel_max_site(torch, ck, site, args)
     elif name == "ball_query":
         cent, pts, radius, k = args
-        (gi, gm), (wi, wm) = kernel(*args), plain(*args)
+        with recorded_cells(ck) as cells:
+            gi, gm = kernel(*args)
+        wi, wm = plain(*args)
         diff_sel = int(((gm != wm) | (wm & (gi != wi))).sum())
         check(torch.equal(gi, wi) and torch.equal(gm, wm),
               f"ball_query site {site}: idx/mask differ from the plain version")
@@ -1503,6 +1532,8 @@ def check_site(torch, ck, name, site, args, work=None):
         nbytes = 12.0 * b * (c + n) + 5.0 * b * c * k
         path = ck.sel_path(g, ck.BQ_MAX_G)
         ops = grid_site(name, site, cent, pts, radius, pairs, path == "grid", work)
+        if path == "grid":
+            checked_grids(torch, ck, name, site, cells, pts, cent, radius)
         shape = f"B={b} C={c} N={n} K={k} valid={int(wm.sum())} g={g} path={path}"
     elif name == "sa_train_bwd2":
         got, want = kernel(*args), plain(*args)
@@ -1537,11 +1568,14 @@ def check_site(torch, ck, name, site, args, work=None):
 def knn_grid_work(torch, ck, site, args, idx, pairs, work):
     """kNN's cell grid at one site (`check_site`): the sources each
     target's warp scanned (`cuda_kernels.knn_interpolate_grid`, another
-    launch, whose picks must equal the site's), printed on a `"grid_work"`
-    line against all pairs and added to `work` (a dict, or None). Returns
-    the pairs scored."""
-    _, gi, _, scored = ck.knn_interpolate_grid(*args)
+    launch, whose picks must equal the site's, and whose cell grid is held
+    to `ballquery.knn_cells`), printed on a `"grid_work"` line against all
+    pairs and added to `work` (a dict, or None). Returns the pairs
+    scored."""
+    with recorded_cells(ck) as cells:
+        _, gi, _, scored = ck.knn_interpolate_grid(*args)
     check(torch.equal(gi, idx), f"knn site {site}: two grid launches pick differently")
+    checked_grids(torch, ck, "knn_interpolate", site, cells, args[1], args[2])
     total = float(scored.double().sum())
     print(json.dumps({"phase": "grid_work", "kernel": "knn_interpolate", "site": site,
                       "scored_pairs": total, "all_pairs": pairs, "scored_share": total / pairs,
@@ -1570,6 +1604,40 @@ def grid_site(name, site, cent, pts, radius, pairs, grid, work):
     return 10.0 * in_radius
 
 
+def grid_cluster_sizes(torch, ck, device):
+    """Phase 4: the grid pass at every cluster size `cuda_kernels.
+    cell_grid_cluster` returns on this card, through kNN's grid path
+    (`knn_interpolate_grid`) on serve-like plots of GRID_CLUSTER_SITE for
+    the fewest clouds that take each size: idx equal to the plain
+    version's, weights and outputs bit for bit, and the cell grid equal to
+    `ballquery.knn_cells`, a `"grid_cluster_sizes"` line each."""
+    s, t, f = GRID_CLUSTER_SITE
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    first = {}
+    for b in range(1, sms + 2):
+        first.setdefault(ck.cell_grid_cluster(b, sms), b)
+    check(sorted(first) == list(range(1, ck.CELL_GRID_CLUSTER_MAX + 1)),
+          f"cell_grid_cluster takes sizes {sorted(first)} on {sms} SMs")
+    for cs, b in sorted(first.items()):
+        u = torch.rand((b, t, 3), generator=gen, device=device)
+        tgt = torch.cat([u[..., :2] * 20 - 10, u[..., 2:] * 3], -1)
+        src = tgt[:, torch.randperm(t, generator=gen, device=device)[:s]].contiguous()
+        x = torch.randn((b, s, f), generator=gen, device=device)
+        with recorded_cells(ck) as cells:
+            go, gi, gw, scored = ck.knn_interpolate_grid(x, src, tgt)
+        wo, wi, ww = ck.knn_interpolate_plain(x, src, tgt)
+        diff = int((gi != wi).sum())
+        print(json.dumps({"phase": "grid_cluster_sizes", "cs": cs, "B": b, "S": s, "T": t,
+                          "wrapper_cs": ck._grid_cs(b, device), "differing_indices": diff,
+                          "weights_equal": torch.equal(gw, ww), "outputs_equal": torch.equal(go, wo),
+                          "sources_a_target": float(scored.double().mean())}), flush=True)
+        check(ck._grid_cs(b, device) == cs, f"B={b}: the wrapper takes cs {ck._grid_cs(b, device)}")
+        check(diff == 0 and torch.equal(gw, ww) and torch.equal(go, wo),
+              f"grid cluster size {cs} (B={b}): {diff} indices differ, or weights or outputs")
+        checked_grids(torch, ck, "knn_interpolate", f"cluster size {cs}", cells, src, tgt)
+
+
 def compare_kernels(torch, ck, captured):
     """Phase 4: every serve kernel against its plain version at each call
     site of the serve step, then at its reference sites. Returns the
@@ -1593,8 +1661,12 @@ def compare_kernels(torch, ck, captured):
                 if reference:
                     shape += f" cloud={kind}"
                 (ref_agg if reference else agg)["pairs"] += pairs
+                # kNN's grid reference sites: a plain call of seconds (15 s at
+                # B=67) is timed once, as the dense phase times its sites
+                slow = name == "knn_interpolate" and site - 2 >= len(KNN_REFERENCE)
                 report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
-                            diff_sel, lib_ms, ref_agg if reference else agg, reference)
+                            diff_sel, lib_ms, ref_agg if reference else agg, reference,
+                            plain_reps=1 if slow else 2)
         rows[name] = finish_agg(agg)
         if name in REFERENCE_SITES:
             ref_rows[name] = finish_agg(ref_agg)
@@ -2055,6 +2127,7 @@ def serve_phases(torch, ck, cfg, device, card):
     captured["pixel_max"] += pixel_max_reference_calls(torch, device)
     with torch.inference_mode():
         rows, ref_rows = compare_kernels(torch, ck, captured)
+        grid_cluster_sizes(torch, ck, device)
         fps_chain(torch, ck, step_fps, device)
     del captured, step_fps
 
@@ -4052,6 +4125,12 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
                   f"dense {step} profile: {len(hit)} kernels named {DENSE_KERNELS[path]}, "
                   f"{row['launches'][step]} launches of {path}")
             row["device_ms"][step] = sum(hit)
+            if path in GRID_PATHS:  # the grid pass apart from the query (and the SA apply)
+                row.setdefault("device_ms_by_kernel", {})[step] = {
+                    k: sum(ms for ms, _, key in kernels if key.removeprefix("void ").startswith(k))
+                    for k in DENSE_KERNELS[path]}
+                row.setdefault("grid_pass_ms", {})[step] = \
+                    row["device_ms_by_kernel"][step][DENSE_KERNELS[path][0]]
     seconds["timing"] = time.perf_counter() - t0 - sum(seconds.values())
     print(json.dumps({"phase": "dense", "B": b, "N": n, "diam_pix": dcfg.model.diam_pix,
                       "serve_step_ms_median": serve_ms, "serve_step_ms_all": serve_all,
@@ -4231,38 +4310,94 @@ def nearest_site(torch, ck, args):
             grid)
 
 
-def nearest_grid_check(torch, args, grid):
-    """The cell grid `grid` that one nearest call built (`ck.
-    ball_query_nearest_grid`) against `ballquery.nearest_cells` on the CPU:
-    the parameters, the cell starts, the points cell by cell (within a cell
-    as a set: the kernel's order there follows its atomics) with their
+@contextlib.contextmanager
+def recorded_cells(ck):
+    """The cell-grid workspaces that the wrappers allocate while inside
+    (`cuda_kernels._cell_workspace`), as a list of (ws, B, N, C): each
+    launch's grid, read back with `cuda_kernels.cell_grid_view`."""
+    calls, original = [], ck._cell_workspace
+
+    def record(b, n, c, device):
+        ws, g = original(b, n, c, device)
+        calls.append((ws, b, n, c))
+        return ws, g
+
+    ck._cell_workspace = record
+    try:
+        yield calls
+    finally:
+        ck._cell_workspace = original
+
+
+def cell_grid_check(torch, grid, pts, cent, radius=None):
+    """The cell grid `grid` (`cuda_kernels.cell_grid_view`) that one launch's
+    grid pass built against the CPU mirror, `ballquery.nearest_cells` (the
+    radius form: the nearest and grouped selections) or, for radius None,
+    `ballquery.knn_cells` (kNN: pts the sources, cent the targets): the
+    parameters bit for bit, the cell starts, the points cell by cell (within
+    a cell as a set: the pass's order there follows its atomics) with their
     float4 [x, y, z, |p|^2], the centroids cell by cell. Returns (differing
-    entries, pairs the kernel scores: each centroid's 3 x 3 cells, the
-    differing entries by part)."""
-    from stratanet2_tpu_torch.ops.ballquery import nearest_cells
+    entries, the mirror, the differing entries by part)."""
+    from stratanet2_tpu_torch.ops.ballquery import knn_cells, nearest_cells
     from stratanet2_tpu_torch.ops.distance import sq_norm3
 
-    cent, pts, radius, _ = (a.cpu() if hasattr(a, "cpu") else a for a in args)
+    pts, cent = pts.cpu(), cent.cpu()
     got = {key: v.cpu() for key, v in grid.items()}
-    m = nearest_cells(cent, pts, radius)
+    if radius is None:
+        m = knn_cells(pts, cent)
+        want = dict(xmin=m.xmin, ymin=m.ymin, inv_h=m.inv_h, rc2=m.m, gx=m.gx, gy=m.gy)
+        pcell, ccell = m.src_cy * m.gx[:, None] + m.src_cx, m.tgt_cy * m.gx[:, None] + m.tgt_cx
+    else:
+        m = nearest_cells(cent, pts, radius)
+        want = dict(xmin=m.xmin, ymin=m.ymin, inv_h=m.inv_h, rc2=m.rc2, gx=m.gx, gy=m.gy)
+        pcell, ccell = m.point_cy * m.gx[:, None] + m.point_cx, m.cent_cy * m.gx[:, None] + m.cent_cx
     b, n, _ = pts.shape
-    parts = {key: int((got[key] != getattr(m, key)).sum())
-             for key in ("xmin", "ymin", "inv_h", "rc2", "gx", "gy", "starts")}
+    bits = {key: v.view(torch.int32) if v.dtype == torch.float32 else v for key, v in want.items()}
+    parts = {key: int((got[key].view(torch.int32) if got[key].dtype == torch.float32
+                       else got[key]).ne(bits[key]).sum()) for key in want}
+    parts["starts"] = int((got["starts"] != m.starts).sum())
 
-    def by_cell(order, cell, want):
-        """Entries where `order` is not `want` cell by cell."""
+    def by_cell(order, cell, want_order):
+        """Entries where `order` is not `want_order` cell by cell."""
         cg = cell.gather(1, order.clamp(0, cell.shape[1] - 1))
-        cw = cell.gather(1, want)
+        cw = cell.gather(1, want_order)
         keys = (cg * cell.shape[1] + order).sort(dim=1).values
-        return int((cg != cw).sum()) + int((keys != cw * cell.shape[1] + want).sum())
+        return int((cg != cw).sum()) + int((keys != cw * cell.shape[1] + want_order).sum())
 
-    parts["points"] = by_cell(got["sorted_idx"], m.point_cy * m.gx[:, None] + m.point_cx, m.order)
-    parts["centroids"] = by_cell(got["cent_order"], m.cent_cy * m.gx[:, None] + m.cent_cx,
-                                 m.cent_order)
+    parts["points"] = by_cell(got["sorted_idx"], pcell, m.order)
+    parts["centroids"] = by_cell(got["cent_order"], ccell, m.cent_order)
     p4 = torch.cat([pts, sq_norm3(pts)[..., None]], -1)
     at = got["sorted_idx"].clamp(0, n - 1)[..., None].expand(b, n, 4)
-    parts["positions"] = int((got["sorted_pts"] != p4.gather(1, at)).any(-1).sum())
-    return sum(parts.values()), float(m.scored.sum()), parts
+    parts["positions"] = int((got["sorted_pts"].view(torch.int32)
+                              != p4.gather(1, at).view(torch.int32)).any(-1).sum())
+    return sum(parts.values()), m, parts
+
+
+def checked_grids(torch, ck, name, site, cells, pts, cent, radius=None):
+    """Each grid recorded by `recorded_cells` at one call site of `name`
+    held to its mirror (`cell_grid_check`), with a `"grid_check"` line:
+    the site's clouds, the cluster size of its grid pass and the differing
+    entries (which must be 0). On the CPU the wrappers build no grid."""
+    if not pts.is_cuda:
+        return
+    check(len(cells) > 0, f"{name} site {site}: no cell grid was built")
+    for ws, b, n, c in cells:
+        diff, _, parts = cell_grid_check(torch, ck.cell_grid_view(ws, b, n, c), pts, cent, radius)
+        print(json.dumps({"phase": "grid_check", "kernel": name, "site": site, "B": b, "N": n,
+                          "C": c, "cs": ck._grid_cs(b, pts.device), "grid_differing": diff,
+                          "parts": parts}), flush=True)
+        check(diff == 0, f"{name} site {site}: the card's cell grid differs from the CPU "
+              f"mirror's in {diff} entries: {parts}")
+
+
+def nearest_grid_check(torch, args, grid):
+    """The cell grid `grid` that one nearest call built (`ck.
+    ball_query_nearest_grid`) against `ballquery.nearest_cells` on the CPU
+    (`cell_grid_check`). Returns (differing entries, pairs the kernel
+    scores: each centroid's 3 x 3 cells, the differing entries by part)."""
+    cent, pts, radius, _ = args
+    diff, m, parts = cell_grid_check(torch, grid, pts, cent, radius)
+    return diff, float(m.scored.sum()), parts
 
 
 def optin_setup(torch, cfg, device, overrides):
@@ -4447,6 +4582,11 @@ def nearest_phase(torch, ck, cfg, device):
             report_site(torch, "ball_query_nearest", label, shape, ck.ball_query_nearest,
                         ck.ball_query_nearest_plain, args, nbytes, ops, 0.0, diff, lib_ms, agg,
                         reference)
+            if label.startswith("serve") and device.type == "cuda":  # the two kernels apart
+                for key, prefix in (("grid_pass_ms", "nearest_grid_kernel"),
+                                    ("query_ms", "ball_query_nearest_kernel")):
+                    row[key] = row.get(key, 0.0) + device_profile(
+                        torch, lambda a=args: ck.ball_query_nearest(*a), (prefix,))[0]
     return finish_agg(row), finish_agg(ref_row)
 
 
@@ -4734,7 +4874,8 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
          "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
          "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
-         "library_ms": rows[name]["library_ms"]}
+         "library_ms": rows[name]["library_ms"],
+         "grid_pass_ms": rows[name].get("grid_pass_ms"), "query_ms": rows[name].get("query_ms")}
         for (name, src, rep), rows, launches in entries
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -64,8 +64,12 @@ kCullCents, kCullSlots):
         build/parent/stratanet2_tpu_torch/ops/csrc/ball_query.cu \
         stratanet2_tpu_torch/ops/csrc/ball_query.cu@kCullCents=4,kCullSlots=896
 
-knn_grid times kNN's whole-cloud kernel against its cell grid (see
-`run_knn_grid`) over S, the crossover that sets cuda_kernels.KNN_GRID_MIN_S.
+knn_grid times kNN's whole-cloud kernel against its cell grid's designs
+(see `run_knn_grid`: the package's, and PR 19's in
+scripts/variants/knn_cull_ldg.cu) over S, the crossover that sets
+cuda_kernels.KNN_GRID_MIN_S; cell_grid times the cell grid's pass alone,
+PR 19's one block a cloud against the cluster at every size (see
+`run_cell_grid`; scripts/variants/cell_grid_one_block.cu).
 pixel_max runs every design a source exports at the serve, dense and
 diam_pix 300 tables (see `run_pixel_max`: the package's ranges, the
 fewest that fit a block and other counts; 64-bit maxima through
@@ -74,15 +78,18 @@ pixels are files of scripts/variants/). sass builds the sources
 and prints their SASS digests only, to show which kernels a change left as
 they were:
 
-    python3 scripts/kernel_variants.py knn_grid stratanet2_tpu_torch/ops/csrc/knn_interpolate.cu
+    python3 scripts/kernel_variants.py knn_grid stratanet2_tpu_torch/ops/csrc/knn_interpolate.cu \
+        scripts/variants/knn_cull_ldg.cu
+    python3 scripts/kernel_variants.py cell_grid scripts/variants/cell_grid_one_block.cu
     python3 scripts/kernel_variants.py pixel_max stratanet2_tpu_torch/ops/csrc/pixel_max.cu \
         scripts/variants/pixel_max_dsmem.cu scripts/variants/pixel_max_owner_scan.cu \
         scripts/variants/pixel_max_sort.cu
     python3 scripts/kernel_variants.py sass build/parent/stratanet2_tpu_torch/ops/csrc/ball_query.cu \
         stratanet2_tpu_torch/ops/csrc/ball_query.cu
 
-Kernels: knn_interpolate, knn_grid, sa_train_stats, sa_train_main, sa_train_bwd1,
-sa_train_bwd2, knn_scatter, pixel_max, ball_query_nearest, fps, selection, sass.
+Kernels: knn_interpolate, knn_grid, cell_grid, sa_train_stats, sa_train_main,
+sa_train_bwd1, sa_train_bwd2, knn_scatter, pixel_max, ball_query_nearest, fps,
+selection, sass.
 
 Builds go to the git-ignored build/variants/. Exits non-zero without a card.
 """
@@ -136,12 +143,18 @@ def source_file(spec: str) -> Path:
 
 
 def source_text(spec: str) -> str:
-    """A SOURCE's text with the package sources it includes
-    (`#include "<name>.cu"`, as the files of scripts/variants/ do) inlined."""
+    """A SOURCE's text with the sources it includes (`#include "<name>.cu"`,
+    as the files of scripts/variants/ do: beside it, else the package's)
+    inlined."""
     from stratanet2_tpu_torch.ops import _build
 
-    return re.sub(r'#include "(\w+\.cu)"', lambda m: (_build.CSRC / m.group(1)).read_text(),
-                  source_file(spec).read_text())
+    path = source_file(spec)
+
+    def inline(m):
+        near = path.parent / m.group(1)
+        return source_text(str(near)) if near.exists() else (_build.CSRC / m.group(1)).read_text()
+
+    return re.sub(r'#include "(\w+\.cu)"', inline, path.read_text())
 
 
 def sass_digest(ins, blank=False):
@@ -246,23 +259,38 @@ def run_knn(torch, ck, libs, gen, device):
 # FP1, the dense plots' FP2, between, and the dense plots' FP1
 KNN_GRID_SITES = ((1024, 4096, 64), (2500, 10000, 34), (4096, 16384, 64), (8192, 32768, 34),
                   (16384, 65536, 34))
+# the grid path's designs a library may export: (entry, pointers, ints
+# without cs, the kernels of a launch by name prefix)
+KNN_GRID_DESIGNS = {
+    "grid": ("knn_interpolate_grid_launch", 8, 5, ("knn_grid_kernel", "knn_cull_kernel")),
+    # scripts/variants/knn_cull_ldg.cu: PR 19's query after the cluster pass,
+    # and PR 19's design whole (the one-block pass)
+    "grid_ldg": ("knn_interpolate_grid_ldg_launch", 8, 5,
+                 ("knn_grid_kernel", "knn_cull_ldg_kernel")),
+    "pr19": ("knn_interpolate_grid_pr19_launch", 8, 5,
+             ("one_block_extent_grid_kernel", "knn_cull_ldg_kernel")),
+}
 
 
 def run_knn_grid(torch, ck, libs, gen, device):
-    """The crossover of kNN's whole-cloud kernel and its cell grid: at each
+    """kNN's whole-cloud kernel against its cell grid's designs: at each
     KNN_GRID_SITES shape, synthetic plots (sources a random subset of the
     targets), each source's `knn_interpolate_launch` (knn_slices' slices)
-    and `knn_interpolate_grid_launch` in turns whole, grid, grid, whole: the
-    CUDA-event ms of a call (mean of REPS), indices differing from the plain
-    version, weights and outputs bit for bit its, the pairs the grid scored
-    and the device ms of its two kernels. First each library's grid query
-    scan loop (chip_smoke.sass_per_pair on its LDG.128 loads)."""
+    and each grid design it exports (KNN_GRID_DESIGNS: the package's
+    cluster grid pass and staged query; PR 19's query after the cluster
+    pass; PR 19's one-block pass and query) in turns A, B, ..., B, A: the
+    CUDA-event ms of a call (mean of REPS), indices differing from the
+    plain version, weights and outputs bit for bit its, the pairs the grid
+    scored and the device ms of the grid pass and the query apart. First
+    each library's grid query scan loops (chip_smoke.sass_per_pair: the
+    staged query's on its LDS.128, PR 19's on its LDG.128 loads)."""
     stream = torch._C._cuda_getCurrentRawStream(0)
     for src, lib in libs.items():
         sass = subprocess.run([str(_nvcc_dir() / "cuobjdump"), "-sass", lib._name],
                               capture_output=True, text=True, check=True).stdout
-        loops = {f: v for f, v in chip_smoke.sass_per_pair(sass, 1, r"LDG\.E\S*\.128").items()
-                 if "knn_cull_kernel" in f}
+        loops = {f: v for load in (r"LDS\.128", r"LDG\.E\S*\.128")
+                 for f, v in chip_smoke.sass_per_pair(sass, 1, load).items()
+                 if "knn_cull" in f and ("ldg" in f) == ("LDG" in load)}
         print(json.dumps({"source": str(src), "grid_query_loops": loops}), flush=True)
     b = 20
     for s, t, f in KNN_GRID_SITES:
@@ -272,36 +300,144 @@ def run_knn_grid(torch, ck, libs, gen, device):
         want_out, want_idx, want_w = ck.knn_interpolate_plain(x, ps, pt)
         ws, gmax = ck._cell_workspace(b, s, t, device)
         scored = torch.empty((b, t), dtype=torch.int32, device=device)
+        calls = {}
         for src, lib in libs.items():
             whole = entry(lib, "knn_interpolate_launch", 6, 5)
-            grid = entry(lib, "knn_interpolate_grid_launch", 8, 5)
-            calls = {
-                "whole": lambda o, fn=whole: fn(*ptrs([x, ps, pt, *o]), b, s, t, f,
-                                                ck.knn_slices(b, t), stream),
-                "grid": lambda o, fn=grid: fn(*ptrs([x, ps, pt, *o, ws, scored]), b, s, t, f,
-                                              gmax, stream),
-            }
-            for design in ("whole", "grid", "grid", "whole"):
-                o = (torch.empty((b, t, f), device=device),
-                     torch.empty((b, 3, t), dtype=torch.int32, device=device),
-                     torch.empty((b, 3, t), device=device))
-                rc = calls[design](o)
-                torch.cuda.synchronize()
-                row = {"source": str(src), "kernel": "knn_interpolate", "design": design,
-                       "shape": [b, s, t, f], "rc": rc,
-                       "differing_indices": int((o[1] != want_idx).sum()),
-                       "weights_equal": torch.equal(o[2], want_w),
-                       "outputs_equal": torch.equal(o[0], want_out),
-                       "ms": event_ms(torch, lambda: calls[design](o)),
-                       "all_pairs": float(b) * s * t}
-                if design == "grid":
-                    row["scored_pairs"] = float(scored.double().sum())
-                    row["scored_share"] = row["scored_pairs"] / row["all_pairs"]
-                    row["device_ms"] = {k: chip_smoke.device_profile(
-                        torch, lambda: calls[design](o), (k,))[0]
-                        for k in ("knn_grid_kernel", "knn_cull_kernel")}
-                print(json.dumps(row), flush=True)
+            calls[(src, "whole")] = (lambda o, fn=whole: fn(*ptrs([x, ps, pt, *o]), b, s, t, f,
+                                                             ck.knn_slices(b, t), stream), ())
+            for design, (symbol, n_ptrs, n_ints, kernels) in KNN_GRID_DESIGNS.items():
+                if hasattr(lib, symbol):
+                    fn = grid_call(src, lib, symbol, n_ptrs, n_ints, radius=False)
+                    calls[(src, design)] = (lambda o, fn=fn: fn(
+                        [x, ps, pt, *o, ws, scored], [b, s, t, f, gmax], None,
+                        ck.cell_grid_cluster(b), stream), kernels)
+        for key in list(calls) + list(calls)[::-1]:
+            call, kernels = calls[key]
+            o = (torch.empty((b, t, f), device=device),
+                 torch.empty((b, 3, t), dtype=torch.int32, device=device),
+                 torch.empty((b, 3, t), device=device))
+            rc = call(o)
+            torch.cuda.synchronize()
+            row = {"source": str(key[0]), "kernel": "knn_interpolate", "design": key[1],
+                   "shape": [b, s, t, f], "rc": rc, "cs": ck.cell_grid_cluster(b),
+                   "differing_indices": int((o[1] != want_idx).sum()),
+                   "weights_equal": torch.equal(o[2], want_w),
+                   "outputs_equal": torch.equal(o[0], want_out),
+                   "ms": event_ms(torch, lambda: call(o)),
+                   "all_pairs": float(b) * s * t}
+            if kernels:
+                row["scored_pairs"] = float(scored.double().sum())
+                row["scored_share"] = row["scored_pairs"] / row["all_pairs"]
+                row["device_ms"] = {k: chip_smoke.device_profile(torch, lambda: call(o), (k,))[0]
+                                    for k in kernels}
+            print(json.dumps(row), flush=True)
         del pt, ps, x, want_out, want_idx, want_w, ws, scored
+
+
+# the grid pass's sites (cell_grid mode): (site, B, N points or sources, C
+# centroids or targets, radius (None: kNN's extent form), the wrappers whose
+# grid kernel runs there): kNN's dense FP1 and FP2, the
+# grouped selection's dense SA1 (ball_query_grid_kernel in training,
+# sa_grid_kernel serving), the nearest route's PROD SA1 and SA2
+CELL_GRID_SITES = (("knn_dense_FP1", 20, 16384, 65536, None, ("knn_interpolate",)),
+                   ("knn_dense_FP2", 20, 4096, 16384, None, ("knn_interpolate",)),
+                   ("dense_SA1", 20, 65536, 16384, 2 ** 0.5, ("ball_query", "sa_fused_eval")),
+                   ("nearest_PROD_SA1", 20, 10000, 2500, 2 ** 0.5, ("ball_query_nearest",)),
+                   ("nearest_PROD_SA2", 20, 2500, 625, 8 ** 0.5, ("ball_query_nearest",)))
+GRID_KERNEL = {"knn_interpolate": "knn_grid_kernel", "ball_query": "ball_query_grid_kernel",
+               "sa_fused_eval": "sa_grid_kernel", "ball_query_nearest": "nearest_grid_kernel"}
+
+
+def run_cell_grid(torch, ck, libs, gen, device):
+    """The grid pass alone (a source that exports scripts/variants/
+    cell_grid_one_block.cu's entries): first the clusters of cs blocks the
+    card holds at once (cs 1-8, gmax 64). Then at CELL_GRID_SITES, plots
+    with centroids drawn from the points, PR 19's one block a cloud and the
+    package's cluster at the wrapper's cs in turns (one block, cluster,
+    cluster, one block), then the cluster at every other cs: the CUDA-event
+    ms of a pass (mean of REPS), its grid against the one-block pass's
+    (parameters and starts bit for bit) and against the CPU mirror
+    (chip_smoke.cell_grid_check: parameters, starts, points and centroids
+    cell by cell, 0 differing); then each wrapper whose path runs the grid
+    there (cuda_kernels, the package's build) with its grid kernel's device
+    ms (torch.profiler), the same pass under the library's own name."""
+    from stratanet2_tpu_torch.ops.ballquery import radius_sq
+
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    lib = next((lb for lb in libs.values() if hasattr(lb, "cell_grid_one_block_launch")), None)
+    if lib is None:
+        raise SystemExit("cell_grid: give scripts/variants/cell_grid_one_block.cu")
+    resident = entry(lib, "cell_grid_cluster_resident", 0, 2)
+    resident.argtypes = [ctypes.c_int, ctypes.c_int]
+    print(json.dumps({"cell_grid_cluster_resident": {cs: resident(cs, 64) for cs in range(1, 9)},
+                      "sms": torch.cuda.get_device_properties(device).multi_processor_count}),
+          flush=True)
+    one = entry(lib, "cell_grid_one_block_launch", 3, 4)
+    one.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                                 ctypes.c_void_p]
+    clu = entry(lib, "cell_grid_cluster_launch", 3, 4)
+    clu.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                                 ctypes.c_int, ctypes.c_void_p]
+    for site, b, n_p, n_c, radius, wrappers in CELL_GRID_SITES:
+        by_extent = radius is None
+        if by_extent:  # kNN: the targets (its centroids) are the cloud, the sources a subset
+            cen = plot_clouds(torch, gen, b, n_c, device)
+            pnt = cen[:, torch.randperm(n_c, generator=gen, device=device)[:n_p]].contiguous()
+        else:  # the selections: centroids drawn from the points
+            pnt = plot_clouds(torch, gen, b, n_p, device)
+            cen = pnt[:, torch.randperm(n_p, generator=gen, device=device)[:n_c]].contiguous()
+        r2 = 0.0 if by_extent else radius_sq(radius)
+        cs0 = ck.cell_grid_cluster(b)
+        runs = {}
+
+        def pass_of(cs):
+            ws, gmax = ck._cell_workspace(b, n_p, n_c, device)
+            if cs == 0:
+                return ws, lambda: one(cen.data_ptr(), pnt.data_ptr(), ws.data_ptr(), b, n_p, n_c,
+                                       gmax, r2, int(by_extent), stream)
+            return ws, lambda: clu(cen.data_ptr(), pnt.data_ptr(), ws.data_ptr(), b, n_p, n_c,
+                                   gmax, r2, int(by_extent), cs, stream)
+
+        order = [0, cs0, cs0, 0] + [cs for cs in range(1, 9) if cs != cs0]
+        for cs in order:
+            ws, fn = pass_of(cs)
+            rc = fn()
+            torch.cuda.synchronize()
+            grid = ck.cell_grid_view(ws, b, n_p, n_c)
+            runs.setdefault(cs, grid)
+            first = runs[0]
+            same = {key: torch.equal(grid[key], first[key]) for key in
+                    ("xmin", "ymin", "inv_h", "rc2", "gx", "gy", "starts")}
+            diff, _, parts = chip_smoke.cell_grid_check(torch, grid, pnt, cen,
+                                                        None if by_extent else radius)
+            print(json.dumps({"kernel": "cell_grid", "site": site, "shape": [b, n_p, n_c],
+                              "design": "one_block" if cs == 0 else "cluster", "cs": cs or None,
+                              "wrapper_cs": cs0, "rc": rc, "ms": event_ms(torch, fn),
+                              "equal_to_one_block": same, "mirror_differing": diff,
+                              "mirror_parts": parts}), flush=True)
+        for name in wrappers:
+            if name == "knn_interpolate":
+                x = torch.randn((b, n_p, 34), generator=gen, device=device)
+                args = (x, pnt, cen)
+            elif name == "sa_fused_eval":
+                ch = 16
+                args = (torch.randn((b, n_p, ch), generator=gen, device=device), pnt, cen,
+                        torch.randn((b, n_c, ch), generator=gen, device=device),
+                        torch.rand(ch, generator=gen, device=device) + 0.5,
+                        torch.rand(ch, generator=gen, device=device) - 0.5,
+                        torch.randn((ch, ch), generator=gen, device=device) * 0.25,
+                        torch.rand(ch, generator=gen, device=device) - 0.5,
+                        torch.rand(ch, generator=gen, device=device) + 0.5,
+                        torch.rand(ch, generator=gen, device=device) - 0.5, radius, 32)
+            else:
+                args = (cen, pnt, radius, 32)
+            fn = getattr(ck, name)
+            print(json.dumps({"kernel": "cell_grid", "site": site, "wrapper": name,
+                              "grid_kernel": GRID_KERNEL[name], "cs": cs0,
+                              "grid_device_ms": chip_smoke.device_profile(
+                                  torch, lambda: fn(*args), (GRID_KERNEL[name],))[0],
+                              "call_ms": event_ms(torch, lambda: fn(*args))}), flush=True)
+        del pnt, cen, runs
 
 
 def sa_sites(torch, ck, gen, device, two_layer_only=False):
@@ -354,6 +490,28 @@ def fentry(lib, symbol, n_ptrs, n_ints):
 
 def ptrs(args):
     return [None if a is None else a.data_ptr() for a in args]
+
+
+def takes_cs(src, symbol):
+    """Whether the C entry `symbol` of a SOURCE takes the grid pass's
+    cluster size (the package's grid entries since the cluster pass: `int
+    cs` before the stream; a parent tree's do not)."""
+    sig = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', source_text(src))
+    return sig is not None and re.search(r"\bint cs\b", sig[1]) is not None
+
+
+def grid_call(src, lib, symbol, n_ptrs, n_ints, radius=True):
+    """`symbol` of a grid entry as fn(pointers, ints, r2, cs, stream): the
+    float r2 where the entry takes one, cs dropped where it takes none."""
+    cs = takes_cs(src, symbol)
+    fn = entry(lib, symbol, n_ptrs, n_ints)
+    fn.argtypes = (fn.argtypes[:-1] + ([ctypes.c_float] if radius else [])
+                   + ([ctypes.c_int] if cs else []) + [ctypes.c_void_p])
+
+    def call(pointers, ints, r2, c, stream):
+        return fn(*ptrs(pointers), *ints, *([r2] if radius else []), *([c] if cs else []), stream)
+
+    return call
 
 
 def rel(got, want):
@@ -767,21 +925,22 @@ def run_ball_query_nearest(torch, ck, libs, gen, device_):
             idx = torch.empty((b, c, k), dtype=torch.int32, device=device_)
             mask = torch.empty((b, c, k), dtype=torch.bool, device=device_)
             ws, g = ck._cell_workspace(b, n, c, device_)
-            fn = entry(lib, "ball_query_nearest_launch", 5, 5)
-            fn.argtypes = fn.argtypes[:-1] + [ctypes.c_float, ctypes.c_void_p]
-            cargs = [cent.data_ptr(), pts.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-                     ws.data_ptr(), b, n, c, k, g, radius_sq(radius), stream]
-            rc = fn(*cargs)
+            call = grid_call(src, lib, "ball_query_nearest_launch", 5, 5)
+
+            def run():
+                return call([cent, pts, idx, mask, ws], [b, n, c, k, g], radius_sq(radius),
+                            ck.cell_grid_cluster(b), stream)
+
+            rc = run()
             torch.cuda.synchronize()
             # device_profile gives the ms a launch of the kernels it matches
-            query_ms = chip_smoke.device_profile(torch, lambda: fn(*cargs),
-                                                 ("ball_query_nearest_kernel",))[0]
-            grid_ms = chip_smoke.device_profile(torch, lambda: fn(*cargs), ("nearest_grid_kernel",))[0]
+            query_ms = chip_smoke.device_profile(torch, run, ("ball_query_nearest_kernel",))[0]
+            grid_ms = chip_smoke.device_profile(torch, run, ("nearest_grid_kernel",))[0]
             print(json.dumps({
                 "source": src, "kernel": "ball_query_nearest", "site": site, "rc": rc,
                 "shape": [b, n, c, k],
                 "differing": int((idx != want_idx).sum()) + int((mask != want_mask).sum()),
-                "ms": event_ms(torch, lambda: fn(*cargs)),
+                "ms": event_ms(torch, run),
                 "device_ms": query_ms + grid_ms,
                 "grid_device_ms": grid_ms,
                 **{key: v for key, v in constants(src).items() if key in ("kNearWarps", "kNearBuf")},
@@ -976,9 +1135,10 @@ def run_selection(torch, ck, libs, gen, device_):
                         fn = fentry(lib, "ball_query_chunked_launch", 4, 6)
                         fns[(src, "chunked")] = (out, lambda o, fn=fn: fn(
                             *ptrs(base + list(o)), b, n, c, k, g, gc, r2, stream))
-                    fn = fentry(lib, "ball_query_grid_launch", 5, 5)
+                    fn = grid_call(src, lib, "ball_query_grid_launch", 5, 5)
                     fns[(src, "grid")] = (out, lambda o, fn=fn: fn(
-                        *ptrs(base + list(o) + [ws]), b, n, c, k, gmax, r2, stream))
+                        base + list(o) + [ws], [b, n, c, k, gmax], r2, ck.cell_grid_cluster(b),
+                        stream))
                 elif kernel == "sa" and hasattr(lib, "sa_fused_eval_launch"):
                     def out():
                         return (torch.empty((b, c, ch), device=device_),)
@@ -998,10 +1158,10 @@ def run_selection(torch, ck, libs, gen, device_):
                         fns[(src, "chunked")] = (out, lambda o, fn=fn: fn(
                             *ptrs(base + list(o)), b, n, c, k, g, gc, ch, ch, int(two), r2,
                             stream))
-                    fn = fentry(lib, "sa_fused_eval_grid_launch", 8, 8)
+                    fn = grid_call(src, lib, "sa_fused_eval_grid_launch", 8, 8)
                     fns[(src, "grid")] = (out, lambda o, fn=fn: fn(
-                        *ptrs(base + list(o) + [ws, picks]), b, n, c, k, gmax, ch, ch, int(two),
-                        r2, stream))
+                        base + list(o) + [ws, picks], [b, n, c, k, gmax, ch, ch, int(two)], r2,
+                        ck.cell_grid_cluster(b), stream))
             first = None
             for key in list(fns) + list(fns)[::-1]:
                 make, call = fns[key]
@@ -1036,7 +1196,9 @@ def _nvcc_dir():
     return Path(_build._nvcc()).parent
 
 
-RUNS = {"knn_interpolate": run_knn, "knn_grid": run_knn_grid, "sass": lambda *a: None, "sa_train_stats": run_stats, "sa_train_main": run_main, "sa_train_bwd1": run_bwd1,
+RUNS = {"knn_interpolate": run_knn, "knn_grid": run_knn_grid, "cell_grid": run_cell_grid,
+        "sass": lambda *a: None, "sa_train_stats": run_stats, "sa_train_main": run_main,
+        "sa_train_bwd1": run_bwd1,
         "sa_train_bwd2": run_bwd2, "knn_scatter": run_knn_scatter, "pixel_max": run_pixel_max,
         "ball_query_nearest": run_ball_query_nearest, "fps": run_fps,
         "selection": run_selection}

@@ -90,13 +90,14 @@ extern "C" int ball_query_launch(const float* cent, const float* xyz, int* idx,
 
 // The same on the cell grid, for any g: ws is the grid's workspace
 // (cell_grid.cuh's CellWs, cuda_kernels._cell_layout), gmax its cells a
-// side at most (1 <= gmax <= kGridMax).
+// side at most (1 <= gmax <= kGridMax), cs the grid pass's blocks a cloud.
 extern "C" int ball_query_grid_launch(const float* cent, const float* xyz, int* idx,
                                       uint8_t* mask, int* ws, int b, int n, int c, int k,
-                                      int gmax, float r2, void* stream) {
+                                      int gmax, float r2, int cs, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const CellWs w = carve_cells(ws, b, n, c, gmax);
-  cudaError_t err = launch_cell_grid(ball_query_grid_kernel, cent, xyz, w, b, n, c, gmax, r2, s);
+  cudaError_t err =
+      launch_cell_grid(ball_query_grid_kernel, cent, xyz, w, b, n, c, gmax, r2, cs, s);
   if (err != cudaSuccess) return err;
   return launch_grouped_cull<false>(cent, w, idx, mask, b, n, c, k, gmax, r2, s);
 }

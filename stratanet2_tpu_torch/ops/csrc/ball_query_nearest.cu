@@ -26,8 +26,8 @@
 // only the 3 x 3 cells around its centroid's cell.
 //
 // Two launches, one count (cuda_kernels.ball_query_nearest):
-//   nearest_grid_kernel, the grid pass of cell_grid.cuh (one block of 1024
-//     threads a cloud): the cloud's points and centroids sorted into at
+//   nearest_grid_kernel, the grid pass of cell_grid.cuh (a cluster of cs
+//     blocks a cloud): the cloud's points and centroids sorted into at
 //     most gmax x gmax cells; the header derives the rounding margin of r_c
 //     that puts every point the plain version admits in the 3 x 3 cells
 //     around its centroid's.
@@ -212,13 +212,15 @@ static cudaError_t launch_query(const float* cent, const CellWs& w, int* idx, ui
 }
 
 // cent (b, c, 3), xyz (b, n, 3) -> idx (b, c, k) i32, mask (b, c, k) u8
-// (a torch.bool tensor); 1 <= k <= min(n, kNearMaxK), 1 <= gmax <= kGridMax.
+// (a torch.bool tensor); 1 <= k <= min(n, kNearMaxK), 1 <= gmax <= kGridMax;
+// the grid pass a cluster of cs blocks a cloud.
 extern "C" int ball_query_nearest_launch(const float* cent, const float* xyz, int* idx,
                                          uint8_t* mask, int* ws, int b, int n, int c, int k,
-                                         int gmax, float r2, void* stream) {
+                                         int gmax, float r2, int cs, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const CellWs w = carve_cells(ws, b, n, c, gmax);
-  cudaError_t err = launch_cell_grid(nearest_grid_kernel, cent, xyz, w, b, n, c, gmax, r2, s);
+  cudaError_t err =
+      launch_cell_grid(nearest_grid_kernel, cent, xyz, w, b, n, c, gmax, r2, cs, s);
   if (err != cudaSuccess) return err;
   if (k <= 32) return launch_query<1>(cent, w, idx, mask, b, n, c, k, gmax, r2, s);
   if (k <= 64) return launch_query<2>(cent, w, idx, mask, b, n, c, k, gmax, r2, s);

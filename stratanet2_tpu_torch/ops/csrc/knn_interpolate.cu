@@ -73,22 +73,30 @@
 // points, S = 16,384, T = 65,536: 2.15e10 pairs a step, 14 ms above; PROD
 // keeps knn_kernel). Exact 3-NN needs only the sources near each target, so
 // two kernels under one launch count: knn_grid_kernel, the grid pass of
-// cell_grid.cuh with the cells from the sources' extent (gmax = min(64,
-// isqrt(S)) a side: ~4 sources a cell at S = 16,384), the sources sorted by
-// cell and the targets in cell order; then knn_cull_kernel, a warp for 32
-// targets neighbouring in cell order (8 warps a block, no block barrier). The
-// warp scans a box of source cells ring by ring: first the bounding box of
-// its targets' cells, then each ring around it, every cell once (the rows of
-// a new ring whole, the old rows' two new cells). A source is scored by the
-// vote-then-insert loop above, with one change: sources come in cell order,
+// cell_grid.cuh (a cluster of cs blocks a cloud) with the cells from the
+// sources' extent (gmax = min(64, isqrt(S)) a side: ~4 sources a cell at S =
+// 16,384), the sources sorted by cell and the targets in cell order; then
+// knn_cull_kernel, a warp for 32 targets neighbouring in cell order (8 warps
+// a block, no block barrier). The warp scans a box of source cells ring by
+// ring: first the bounding box of its targets' cells, then each ring around
+// it, every cell once (the rows of a new ring whole, the old rows' two new
+// cells). The ring's row segments are flattened by a warp prefix sum and
+// staged 32 sources at a time in the warp's double buffer in shared memory
+// (knn_scan_added: a coalesced 16-byte load a lane, the next tile in flight
+// while the current one is scored). A source is scored by the
+// vote-then-insert loop above, with two changes: sources come in cell order,
 // not index order, so the insert compares (d2, index) lexicographically
 // (lex_less) and the vote takes d2 <= the third best (a tie may enter by its
-// index). The warp's lists are then the least three of the sources scanned
+// index); and one vote covers kVote = 2 sources, both then inserted (each
+// insert is branch-free and exact: a source that does not precede the third
+// entry changes nothing). The warp's lists are then the least three of the sources scanned
 // in (d2, index) order, as a set function of them; scanning more sources
 // than needed never changes the result, and none is scored twice. After
 // each ring a lane may stop when its third best is strictly below a proven
 // lower bound on the computed d2 of every source outside the box; the warp
 // stops when all lanes may (__all_sync) or when the box covers the grid.
+// PR 19's scan, each row segment read pair by pair from device memory
+// (__ldg into every lane), is scripts/variants/knn_cull_ldg.cu.
 //
 // The stop rule's bound, cell_grid.cuh's rounding argument run the other
 // way (u = 2^-24, q = fl(fl(x - xmin) inv_h) as the grid pass rounds it):
@@ -127,12 +135,18 @@
 // (the targets are not consecutive in `out`): a flat walk over its 32 rows,
 // a feature a lane. Measured on an NVIDIA H100 80GB HBM3 at 700 W
 // (scripts/kernel_variants.py knn_grid, B=20, T = 4 S; PERF.md §6 row 2a):
-// at the dense FP1 shape (S=16,384) 0.899 ms against knn_kernel's 12.93,
-// the grid pass 0.139 and the query 0.759, 2.34e8 pairs scored of 2.15e10
-// (1.09%, 179 sources a target), 12 SASS a pair that
-// inserts nothing (37 with the insert); the grid also wins at every S
-// measured, from 1,024 (0.074 against 0.097 ms) and PROD's FP1 (0.154
-// against 0.330), where knn_path (KNN_GRID_MIN_S) still keeps knn_kernel.
+// at the dense FP1 shape (S=16,384) 0.66 ms against knn_kernel's 12.9, the
+// grid pass 0.086 and the query 0.57; in turns with PR 19's design
+// (scripts/variants/knn_cull_ldg.cu; this query with a vote a source) 0.70
+// against 0.92, PR 19's grid pass 0.16 and query 0.75. 2.34e8 pairs
+// scored of 2.15e10 (1.09%, 179 sources a target); 9.9 SASS a pair that inserts
+// nothing (29.4 with the insert; PR 19: 12 and 37.25). Of the query ~0.34
+// ms is the scan and ~0.27 the output walk (a copy without the walk, timed
+// beside it); a vote a source measured 0.63, one for 4 sources 0.60, and
+// two or four times the blocks' registers, or the walk unrolled, moved
+// nothing. The grid wins at every S measured, from 1,024 (0.072 against
+// 0.097 ms) and PROD's FP1 (0.125 against 0.330), where knn_path
+// (KNN_GRID_MIN_S) still keeps knn_kernel.
 #include <math.h>
 
 #include "cell_grid.cuh"
@@ -347,26 +361,127 @@ EXTENT_GRID_KERNEL(knn_grid_kernel)
 constexpr double kKnnMargin = 0x1p-20;  // cuda_kernels.KNN_MARGIN: 16u, in units of M
 constexpr double kKnnSlack = 0x1p-22;   // cuda_kernels.KNN_SLACK: q's rounding a unit of |q|
 
-// Score the sorted sources [lo, hi) for the lane's target: a warp vote, then
-// the insert in (d2, index) order.
-__device__ __forceinline__ void knn_scan(const float4* __restrict__ sp, const int* __restrict__ si,
-                                         int lo, int hi, float tx, float ty, float tz, float tn,
-                                         Top3& top) {
+constexpr int kTile = 32;  // sources a staged tile of knn_cull_kernel: one a lane
+constexpr int kVote = 2;  // staged sources a warp vote of knn_cull_kernel covers
+
+// Insert (d, id) into top in (d2, index) order, branch-free: top is
+// unchanged unless (d, id) precedes its third entry, so a source that the
+// vote let through needlessly changes nothing.
+__device__ __forceinline__ void insert_sel(Top3& top, float d, int id) {
+  const bool c2 = lex_less(d, id, top.d[2], top.i[2]);
+  const bool c1 = lex_less(d, id, top.d[1], top.i[1]);
+  const bool c0 = lex_less(d, id, top.d[0], top.i[0]);
+  top.d[2] = c1 ? top.d[1] : (c2 ? d : top.d[2]);
+  top.i[2] = c1 ? top.i[1] : (c2 ? id : top.i[2]);
+  top.d[1] = c0 ? top.d[0] : (c1 ? d : top.d[1]);
+  top.i[1] = c0 ? top.i[0] : (c1 ? id : top.i[1]);
+  top.d[0] = c0 ? d : top.d[0];
+  top.i[0] = c0 ? id : top.i[0];
+}
+
+// The sorted sources that the box of cells [n0, n1] x [m0, m1] (columns x
+// rows) adds to the box [c0, c1] x [r0, r1] (no box: r0 > r1), scored for
+// the lane's target: a warp vote, then the insert in (d2, index) order.
+// Row m0 + k gives segments 2 k and 2 k + 1 (ranges of the sorted sources):
+// a row outside the old box whole and nothing, a row inside it its new left
+// cells and its new right cells. Each group of 32 segments is flattened by a
+// warp prefix sum over their lengths; its sources are staged 32 at a time,
+// a source a lane (coalesced 16-byte loads), into the warp's double buffer
+// of float4 [x, y, z, |s|^2] and index, the next tile loaded while the
+// current one is scored from shared memory (one broadcast LDS.128 a pair;
+// the index read on the insert path only). Tiles cross segment boundaries:
+// all are full but a group's last.
+__device__ __forceinline__ void knn_scan_added(const float4* __restrict__ sp,
+                                               const int* __restrict__ si,
+                                               const int* __restrict__ st, int gx, int n0, int n1,
+                                               int m0, int m1, int c0, int c1, int r0, int r1,
+                                               float tx, float ty, float tz, float tn, Top3& top,
+                                               float4 (*tile_p)[kTile], int (*tile_i)[kTile],
+                                               int lane) {
+  const int nseg = 2 * (m1 - m0 + 1);
+  for (int s0 = 0; s0 < nseg; s0 += 32) {
+    const int sg = s0 + lane;
+    int lo = 0, len = 0;
+    if (sg < nseg) {
+      const int row = m0 + (sg >> 1);
+      int a = n0, z = n1;  // the segment's columns [a, z]
+      if (row >= r0 && row <= r1) {
+        if (sg & 1)
+          a = c1 + 1;
+        else
+          z = c0 - 1;
+      } else if (sg & 1) {
+        z = a - 1;
+      }
+      if (a <= z) {
+        lo = __ldg(st + row * gx + a);
+        len = __ldg(st + row * gx + z + 1) - lo;
+      }
+    }
+    const int incl = warp_incl_scan(len, lane);
+    const int excl = incl - len;
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    // the sorted position of flat source f < total: in the last segment
+    // whose first flat source is at most f (empty segments share theirs
+    // with the next one, so never hold it)
+    auto locate = [&](int f) {
+      int k = 0;
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1)
+        if (__shfl_sync(0xffffffffu, excl, k + step) <= f) k += step;
+      return __shfl_sync(0xffffffffu, lo, k) + f - __shfl_sync(0xffffffffu, excl, k);
+    };
+    __syncwarp();  // the previous group's tiles are no longer read
+    int buf = 0;
+    {
+      const int j = locate(lane);
+      if (lane < total) {
+        tile_p[0][lane] = __ldg(sp + j);
+        tile_i[0][lane] = __ldg(si + j);
+      }
+    }
+    for (int f0 = 0; f0 < total; f0 += kTile) {
+      __syncwarp();  // tile f0 staged, and the other buffer no longer read
+      const int f = f0 + kTile + lane;
+      const int j = locate(f);
+      const bool more = f < total;
+      float4 np = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      int ni = 0;
+      if (more) {  // the next tile, in flight while this one is scored
+        np = __ldg(sp + j);
+        ni = __ldg(si + j);
+      }
+      const float4* tp = tile_p[buf];
+      const int* ti = tile_i[buf];
+      const int m = min(kTile, total - f0);
+      int k = 0;
 #pragma unroll 4
-  for (int j = lo; j < hi; ++j) {
-    const float4 p = __ldg(sp + j);
-    const float d = expanded_d2_sel(tn, dot3_rn(tx, ty, tz, p.x, p.y, p.z), p.w);
-    if (__any_sync(0xffffffffu, d <= top.d[2])) {  // warp-uniform; the insert is branch-free
-      const int id = __ldg(si + j);
-      const bool c2 = lex_less(d, id, top.d[2], top.i[2]);
-      const bool c1 = lex_less(d, id, top.d[1], top.i[1]);
-      const bool c0 = lex_less(d, id, top.d[0], top.i[0]);
-      top.d[2] = c1 ? top.d[1] : (c2 ? d : top.d[2]);
-      top.i[2] = c1 ? top.i[1] : (c2 ? id : top.i[2]);
-      top.d[1] = c0 ? top.d[0] : (c1 ? d : top.d[1]);
-      top.i[1] = c0 ? top.i[0] : (c1 ? id : top.i[1]);
-      top.d[0] = c0 ? d : top.d[0];
-      top.i[0] = c0 ? id : top.i[0];
+      for (; k + kVote <= m; k += kVote) {
+        float d[kVote];
+        bool hit = false;
+#pragma unroll
+        for (int v = 0; v < kVote; ++v) {
+          const float4 p = tp[k + v];
+          d[v] = expanded_d2_sel(tn, dot3_rn(tx, ty, tz, p.x, p.y, p.z), p.w);
+          hit |= d[v] <= top.d[2];
+        }
+        if (__any_sync(0xffffffffu, hit)) {  // warp-uniform; each insert branch-free
+#pragma unroll
+          for (int v = 0; v < kVote; ++v) insert_sel(top, d[v], ti[k + v]);
+        }
+      }
+      if constexpr (kVote > 1) {
+        for (; k < m; ++k) {  // the tile's last sources, a vote each
+          const float4 p = tp[k];
+          const float d = expanded_d2_sel(tn, dot3_rn(tx, ty, tz, p.x, p.y, p.z), p.w);
+          if (__any_sync(0xffffffffu, d <= top.d[2])) insert_sel(top, d, ti[k]);
+        }
+      }
+      buf ^= 1;
+      if (more) {
+        tile_p[buf][lane] = np;
+        tile_i[buf][lane] = ni;
+      }
     }
   }
 }
@@ -382,6 +497,8 @@ knn_cull_kernel(const float* __restrict__ xs, const float* __restrict__ pt,
                 const int* __restrict__ grid, float* __restrict__ out, int* __restrict__ idx_out,
                 float* __restrict__ w_out, int* __restrict__ scored, int s, int t, int f,
                 int gmax) {
+  __shared__ float4 tile_p[kWarps][2][kTile];  // each warp's staged sources, double-buffered
+  __shared__ int tile_i[kWarps][2][kTile];
   __shared__ int4 tab_i[kWarps][32];    // the picks and the target of each lane
   __shared__ float4 tab_w[kWarps][32];  // w0, w1, w2, their sum
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -413,8 +530,8 @@ knn_cull_kernel(const float* __restrict__ xs, const float* __restrict__ pt,
     top.d[q] = INFINITY;
     top.i[q] = 0;
   }
-  for (int row = r0; row <= r1; ++row)
-    knn_scan(sp, si, st[row * gx + c0], st[row * gx + c1 + 1], tx, ty, tz, tn, top);
+  knn_scan_added(sp, si, st, gx, c0, c1, r0, r1, 0, -1, 1, 0, tx, ty, tz, tn, top, tile_p[warp],
+                 tile_i[warp], lane);
   const double h = 1.0 / static_cast<double>(inv_h);
   const double margin = static_cast<double>(__int_as_float(gp[3])) * kKnnMargin;
   const double slack = (fmax(fabs(static_cast<double>(qx)), fabs(static_cast<double>(qy))) + 65.0) *
@@ -431,15 +548,8 @@ knn_cull_kernel(const float* __restrict__ xs, const float* __restrict__ pt,
     if (__all_sync(0xffffffffu, done)) break;
     const int n0 = max(c0 - 1, 0), n1 = min(c1 + 1, gx - 1);
     const int m0 = max(r0 - 1, 0), m1 = min(r1 + 1, gy - 1);
-    for (int row = m0; row <= m1; ++row) {
-      const int* sr = st + row * gx;
-      if (row < r0 || row > r1) {
-        knn_scan(sp, si, sr[n0], sr[n1 + 1], tx, ty, tz, tn, top);
-      } else {
-        if (n0 < c0) knn_scan(sp, si, sr[n0], sr[c0], tx, ty, tz, tn, top);
-        if (n1 > c1) knn_scan(sp, si, sr[c1 + 1], sr[n1 + 1], tx, ty, tz, tn, top);
-      }
-    }
+    knn_scan_added(sp, si, st, gx, n0, n1, m0, m1, c0, c1, r0, r1, tx, ty, tz, tn, top,
+                   tile_p[warp], tile_i[warp], lane);
     c0 = n0;
     c1 = n1;
     r0 = m0;
@@ -486,13 +596,15 @@ knn_cull_kernel(const float* __restrict__ xs, const float* __restrict__ pt,
 // xs (b, s, f), ps (b, s, 3), pt (b, t, 3) -> out (b, t, f), idx (b, 3, t),
 // w (b, 3, t) as knn_interpolate_launch, on the cell grid: the grid pass
 // (ws: cell_grid.cuh's workspace of b clouds of s points and t centroids,
-// gmax = min(64, isqrt(s))), then the query; `scored` (b, t) i32 or NULL.
+// gmax = min(64, isqrt(s)), a cluster of cs blocks a cloud), then the query;
+// `scored` (b, t) i32 or NULL.
 extern "C" int knn_interpolate_grid_launch(const float* xs, const float* ps, const float* pt,
                                            float* out, int* idx, float* w, int* ws, int* scored,
-                                           int b, int s, int t, int f, int gmax, void* stream) {
+                                           int b, int s, int t, int f, int gmax, int cs,
+                                           void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const CellWs cw = carve_cells(ws, b, s, t, gmax);
-  cudaError_t err = launch_cell_grid(knn_grid_kernel, pt, ps, cw, b, s, t, gmax, 0.0f, st);
+  cudaError_t err = launch_cell_grid(knn_grid_kernel, pt, ps, cw, b, s, t, gmax, 0.0f, cs, st);
   if (err != cudaSuccess) return err;
   const dim3 grid((t + kThreads - 1) / kThreads, b);
   knn_cull_kernel<<<grid, kThreads, 0, st>>>(xs, pt, cw.spts, cw.sidx, cw.starts, cw.corder,

@@ -227,9 +227,9 @@ template <int C1, int C2, bool TWO>
 static cudaError_t launch_grid_path(const float* q, const float* xyz, const float* cent,
                                     const float* cterm, const float* prm, float* out, int* ws,
                                     int* picks, int b, int n, int c, int k, int gmax, float r2,
-                                    cudaStream_t stream) {
+                                    int cs, cudaStream_t stream) {
   const CellWs w = carve_cells(ws, b, n, c, gmax);
-  cudaError_t err = launch_cell_grid(sa_grid_kernel, cent, xyz, w, b, n, c, gmax, r2, stream);
+  cudaError_t err = launch_cell_grid(sa_grid_kernel, cent, xyz, w, b, n, c, gmax, r2, cs, stream);
   if (err != cudaSuccess) return err;
   err = launch_grouped_cull<true>(cent, w, picks, nullptr, b, n, c, k, gmax, r2, stream);
   if (err != cudaSuccess) return err;
@@ -257,18 +257,19 @@ extern "C" int sa_fused_eval_launch(const float* q, const float* xyz, const floa
 
 // The same on the cell grid, for any g: ws is the grid's workspace
 // (cell_grid.cuh's CellWs, cuda_kernels._cell_layout), picks a (b, c, k)
-// int32 scratch, gmax the grid's cells a side at most.
+// int32 scratch, gmax the grid's cells a side at most, cs the grid pass's
+// blocks a cloud.
 extern "C" int sa_fused_eval_grid_launch(const float* q, const float* xyz, const float* cent,
                                          const float* cterm, const float* prm, float* out,
                                          int* ws, int* picks, int b, int n, int c, int k,
                                          int gmax, int c1, int c2, int two_layer, float r2,
-                                         void* stream) {
+                                         int cs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (c1 == 16 && c2 == 16 && two_layer)
     return launch_grid_path<16, 16, true>(q, xyz, cent, cterm, prm, out, ws, picks, b, n, c, k,
-                                          gmax, r2, st);
+                                          gmax, r2, cs, st);
   if (c1 == 32 && c2 == 32 && !two_layer)
     return launch_grid_path<32, 32, false>(q, xyz, cent, cterm, prm, out, ws, picks, b, n, c, k,
-                                           gmax, r2, st);
+                                           gmax, r2, cs, st);
   return cudaErrorInvalidValue;
 }

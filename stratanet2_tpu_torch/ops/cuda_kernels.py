@@ -35,7 +35,9 @@ until a proven bound stops it, with the same picks
 cut into pixel ranges, a cluster each, sized for two blocks an SM
 (`pixel_max_ranges`); sa_train_bwd2's dq pass splits a group whose
 lists outgrow shared memory into windows of points, a block each
-(`sa_train_dq_chunked`). Every PROD shape keeps its kernels.
+(`sa_train_dq_chunked`). Every PROD shape keeps its kernels. The cell
+grid's pass (also the nearest selection's) runs a cluster of
+`cell_grid_cluster(B, SMs)` blocks a cloud.
 
 Every selection distance is rounded as the JAX CPU path rounds it (see
 `distance.py`): the plain versions and the kernels agree with it, and with
@@ -100,6 +102,11 @@ SA_DQ_INTS = _SMEM_MAX // 4  # csrc/sa_train.cu's dq pass: int32 lists and count
 SA_DQ_WAVE = 2 * 132
 SA_DQ_PAIR_INTS = (228 * 1024 // 2 - 1024) // 4 - 16
 NEAREST_MAX_K = 128  # csrc/ball_query_nearest.cu: the longest sorted list a warp keeps (kNearMaxK)
+# csrc/cell_grid.cuh's grid pass: a cluster of at most CELL_GRID_CLUSTER_MAX
+# blocks a cloud (kGridClusterMax, the portable cluster size), on a card of
+# CARD_SMS SMs by default (an H100's; the wrappers ask the card)
+CELL_GRID_CLUSTER_MAX = 8
+CARD_SMS = 132
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRIES = {  # entry: (library = csrc/<library>.cu, C entry point, its arguments)
@@ -132,15 +139,17 @@ _ENTRIES = {  # entry: (library = csrc/<library>.cu, C entry point, its argument
         "sa_train", "sa_train_bwd2_launch", [_VP] * 13 + [_I] * 9 + [_VP]
     ),
     "ball_query_nearest": (
-        "ball_query_nearest", "ball_query_nearest_launch", [_VP] * 5 + [_I] * 5 + [_F, _VP]
+        "ball_query_nearest", "ball_query_nearest_launch", [_VP] * 5 + [_I] * 5 + [_F, _I, _VP]
     ),
     # the long-shape paths' own entry points (see the module's docstring)
     "sa_fused_eval_grid": (
-        "sa_fused_eval", "sa_fused_eval_grid_launch", [_VP] * 8 + [_I] * 8 + [_F, _VP]
+        "sa_fused_eval", "sa_fused_eval_grid_launch", [_VP] * 8 + [_I] * 8 + [_F, _I, _VP]
     ),
-    "ball_query_grid": ("ball_query", "ball_query_grid_launch", [_VP] * 5 + [_I] * 5 + [_F, _VP]),
+    "ball_query_grid": (
+        "ball_query", "ball_query_grid_launch", [_VP] * 5 + [_I] * 5 + [_F, _I, _VP]
+    ),
     "knn_interpolate_grid": (
-        "knn_interpolate", "knn_interpolate_grid_launch", [_VP] * 8 + [_I] * 5 + [_VP]
+        "knn_interpolate", "knn_interpolate_grid_launch", [_VP] * 8 + [_I] * 6 + [_VP]
     ),
     "fps_cluster": ("fps", "fps_cluster_launch", [_VP] * 4 + [_I] * 4 + [_VP]),
     "fps_resident": ("fps", "fps_cluster_resident", [_I] * 3),  # no launch: a query
@@ -442,7 +451,7 @@ def sa_fused_eval(
     ws, gmax = _cell_workspace(b, n, c, q.device)
     picks = torch.empty((b, c, k), dtype=torch.int32, device=q.device)
     _launch(name, q.device, q, xyz, centroids, cterm, prm, out, ws, picks,
-            b, n, c, k, gmax, ch1, ch2, int(two), radius_sq(radius),
+            b, n, c, k, gmax, ch1, ch2, int(two), radius_sq(radius), _grid_cs(b, q.device),
             entry="sa_fused_eval_grid", path="sa_fused_eval_grid")
     return out
 
@@ -568,7 +577,8 @@ def _knn_grid_launch(x_src, pos_src, pos_tgt, scored):
     w = torch.empty((b, 3, t), dtype=torch.float32, device=x_src.device)
     ws, gmax = _cell_workspace(b, s, t, x_src.device)
     _launch("knn_interpolate", x_src.device, x_src, pos_src, pos_tgt, out, idx, w, ws, scored,
-            b, s, t, f, gmax, entry="knn_interpolate_grid", path="knn_interpolate_grid")
+            b, s, t, f, gmax, _grid_cs(b, x_src.device), entry="knn_interpolate_grid",
+            path="knn_interpolate_grid")
     return out, idx, w
 
 
@@ -710,7 +720,8 @@ def ball_query(centroids: torch.Tensor, points: torch.Tensor, radius: float, k: 
         return idx, mask
     ws, gmax = _cell_workspace(b, n, c, points.device)
     _launch(name, points.device, centroids, points, idx, mask, ws, b, n, c, k, gmax,
-            radius_sq(radius), entry="ball_query_grid", path="ball_query_grid")
+            radius_sq(radius), _grid_cs(b, points.device), entry="ball_query_grid",
+            path="ball_query_grid")
     return idx, mask
 
 
@@ -753,17 +764,7 @@ def ball_query_nearest_grid(centroids: torch.Tensor, points: torch.Tensor, radiu
                     sorted_pts=torch.cat([pts, sq_norm3(pts)[..., None]], -1))
         return (*ball_query_nearest_plain(centroids, points, radius, k), grid)
     idx, mask, ws = _nearest_launch(centroids, points, radius, k)
-    b, n, _ = points.shape
-    g, layout = _cell_layout(b, n, centroids.shape[1])
-    parts = dict(zip(layout, torch.split(ws, [math.prod(s) for s in layout.values()])))
-    views = {key: parts[key].view(shape) for key, shape in layout.items()}
-    prm = views["params"]
-    fl = prm[:, :4].view(torch.float32)
-    grid = dict(xmin=fl[:, 0], ymin=fl[:, 1], inv_h=fl[:, 2], rc2=fl[:, 3],
-                gx=prm[:, 4].long(), gy=prm[:, 5].long(), starts=views["starts"].long(),
-                sorted_idx=views["sidx"].long(), cent_order=views["corder"].long(),
-                sorted_pts=views["spts"].view(torch.float32))
-    return idx, mask, grid
+    return idx, mask, cell_grid_view(ws, points.shape[0], points.shape[1], centroids.shape[1])
 
 
 def _nearest_on_card(centroids: torch.Tensor, points: torch.Tensor, k: int) -> bool:
@@ -792,7 +793,7 @@ def _nearest_launch(centroids: torch.Tensor, points: torch.Tensor, radius: float
     mask = torch.empty((b, c, k), dtype=torch.bool, device=points.device)
     ws, g = _cell_workspace(b, n, c, points.device)
     _launch("ball_query_nearest", points.device, centroids, points, idx, mask, ws, b, n, c, k,
-            g, radius_sq(radius))
+            g, radius_sq(radius), _grid_cs(b, points.device))
     return idx, mask, ws
 
 
@@ -815,6 +816,45 @@ def _cell_workspace(b: int, n: int, c: int, device: torch.device):
     g, layout = _cell_layout(b, n, c)
     size = sum(math.prod(s) for s in layout.values())
     return torch.empty(size, dtype=torch.int32, device=device), g
+
+
+def cell_grid_view(ws: torch.Tensor, b: int, n: int, c: int) -> Dict[str, torch.Tensor]:
+    """The cell grid that a grid pass wrote into the workspace `ws`
+    (`_cell_workspace`) of b clouds of n points (kNN: sources) and c
+    centroids (targets), as a dict of xmin, ymin, inv_h, rc2 (kNN: M) (B,)
+    float32; gx, gy (B,) int64; starts (B, g^2 + 1), sorted_idx (B, N) and
+    cent_order (B, C) int64; sorted_pts (B, N, 4) float32 [x, y, z,
+    |p|^2]."""
+    _, layout = _cell_layout(b, n, c)
+    parts = dict(zip(layout, torch.split(ws, [math.prod(s) for s in layout.values()])))
+    views = {key: parts[key].view(shape) for key, shape in layout.items()}
+    prm = views["params"]
+    fl = prm[:, :4].view(torch.float32)
+    return dict(xmin=fl[:, 0], ymin=fl[:, 1], inv_h=fl[:, 2], rc2=fl[:, 3],
+                gx=prm[:, 4].long(), gy=prm[:, 5].long(), starts=views["starts"].long(),
+                sorted_idx=views["sidx"].long(), cent_order=views["corder"].long(),
+                sorted_pts=views["spts"].view(torch.float32))
+
+
+def cell_grid_cluster(b: int, sms: int = CARD_SMS) -> int:
+    """Blocks a cloud of csrc/cell_grid.cuh's grid pass (a cluster, its
+    size a launch attribute) for b clouds on a card of `sms` SMs: the
+    largest cs up to CELL_GRID_CLUSTER_MAX whose b x cs blocks take one
+    wave, a block an SM (the kernel holds two an SM, so b clusters of cs
+    fit at once within the card's GPCs); 1 past sms / 2 clouds. On an H100:
+    8 up to B = 16 (B = 2: the grid reference sites), 6 at B = 20 (the
+    dense steps), 1 from B = 67."""
+    return max(1, min(CELL_GRID_CLUSTER_MAX, sms // max(b, 1)))
+
+
+_card_sms: Dict[int, int] = {}
+
+
+def _grid_cs(b: int, device: torch.device) -> int:
+    """`cell_grid_cluster` of b clouds on `device`'s SMs (asked once)."""
+    if device.index not in _card_sms:
+        _card_sms[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return cell_grid_cluster(b, _card_sms[device.index])
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,12 @@ picks and JAX's `_knn_single`'s, on clouds that test ties, the rounding
 margin far from the origin, crowded cells, an index order unlike the cell
 order and targets off every source. With the margin and the slack
 dropped, a plot 1 km from the origin loses picks: the margin is what keeps
-the culling exact there. Then the path rule by shape, the constants
-against the CUDA source, and the wrappers on the CPU at grid shapes.
+the culling exact there. The kernel stages each ring's sources in tiles of
+32 (its row segments flattened by a prefix sum): a model of that
+flattening scans each source of the box once, the same sources and the
+same picks as the row-by-row mirror. Then the path rule by shape, the
+constants against the CUDA source, and the wrappers on the CPU at grid
+shapes.
 
 Every cloud is made from a numpy seed; picks are compared exactly, as
 chip_smoke.py holds the kernel to the plain version."""
@@ -35,6 +39,7 @@ from stratanet2_tpu_torch.ops.ballquery import (
     knn_grid_picks,
     nearest_grid_side,
 )
+from stratanet2_tpu_torch.ops.distance import expanded_d2, sq_norm3
 
 torch.set_num_threads(1)
 
@@ -175,6 +180,117 @@ def test_knn_cells_sort_sources_and_targets_by_cell():
     idx, _, scored = knn_grid_picks(T_(one), T_(tgt[:, :300]))
     _, want_idx, _ = ck.knn_interpolate_plain(torch.zeros((B, S, 1)), T_(one), T_(tgt[:, :300]))
     assert torch.equal(idx, want_idx.long()) and bool((scored == S).all())
+
+
+def _ring_segments(st, gx, new, old):
+    """knn_scan_added's segments of the sorted sources that the box `new` =
+    (n0, n1, m0, m1) (columns, rows) adds to `old` = (c0, c1, r0, r1) (no
+    box: r0 > r1), as (lo, len): row m0 + k gives segments 2 k and 2 k + 1,
+    a row outside the old box whole and nothing, a row inside it its new
+    left cells and its new right cells."""
+    n0, n1, m0, m1 = new
+    c0, c1, r0, r1 = old
+    segs = []
+    for sg in range(2 * (m1 - m0 + 1)):
+        row = m0 + sg // 2
+        a, z = n0, n1
+        if r0 <= row <= r1:
+            a, z = (c1 + 1, n1) if sg & 1 else (n0, c0 - 1)
+        elif sg & 1:
+            z = a - 1
+        lo = int(st[row * gx + a]) if a <= z else 0
+        segs.append((lo, int(st[row * gx + z + 1]) - lo if a <= z else 0))
+    return segs
+
+
+def _tiles(segs):
+    """Each group of 32 segments flattened by a prefix sum of their lengths
+    and cut into tiles of 32 (a list of tiles a group): flat source f lies
+    in the last segment whose first flat source is at most f (the kernel's
+    binary search over the lanes), at sorted position lo + f - that
+    first."""
+    groups = []
+    for g0 in range(0, len(segs), 32):
+        lo, ln = (torch.tensor(v) for v in zip(*segs[g0 : g0 + 32]))
+        excl = ln.cumsum(0) - ln
+        f = torch.arange(int(ln.sum()))
+        k = torch.searchsorted(excl, f, right=True) - 1
+        groups.append(list((lo[k] + f - excl[k]).split(KNN_WARP)) if len(f) else [])
+    return groups
+
+
+def _tile_scan(src, tgt):
+    """knn_cull_kernel's scan with its sources staged in tiles: per warp of
+    KNN_WARP targets in cell order, the box, then ring after ring, each
+    ring's added sources in `_tiles`, until knn_grid_picks' stop rule holds
+    or the box covers the grid. Returns per cloud a list, a warp each, of
+    (its targets, the sorted positions it scored in scan order, its tiles'
+    lengths, a list a group, its final box)."""
+    cells = knn_cells(src, tgt)
+    b, t = tgt.shape[:2]
+    out = []
+    for i in range(b):
+        st, gx, gy = cells.starts[i], int(cells.gx[i]), int(cells.gy[i])
+        h = 1.0 / cells.inv_h[i].double()
+        lift = float(cells.m[i]) * KNN_MARGIN
+        d2_all = expanded_d2(tgt[i : i + 1], sq_norm3(tgt[i : i + 1]), src[i : i + 1],
+                             sq_norm3(src[i : i + 1]))[0]
+        warps = []
+        for w0 in range(0, t, KNN_WARP):
+            ti = cells.cent_order[i, torch.arange(w0, w0 + KNN_WARP).clamp(max=t - 1)]
+            cx, cy = cells.tgt_cx[i, ti], cells.tgt_cy[i, ti]
+            qx, qy = cells.qx[i, ti].double(), cells.qy[i, ti].double()
+            sl = (torch.maximum(qx.abs(), qy.abs()) + 65.0) * KNN_SLACK
+            box = (int(cx.min()), int(cx.max()), int(cy.min()), int(cy.max()))
+            rings = [_tiles(_ring_segments(st, gx, box, (0, -1, 1, 0)))]
+            while box != (0, gx - 1, 0, gy - 1):
+                c0, c1, r0, r1 = box
+                pos = torch.cat([x for ring in rings for group in ring for x in group]
+                                or [torch.zeros(0, dtype=torch.long)])
+                d3 = torch.sort(d2_all[ti][:, cells.order[i, pos]], -1).values
+                d3 = d3[:, 2].double() if d3.shape[1] >= 3 else torch.full_like(qx, float("inf"))
+                gap = torch.full_like(qx, float("inf"))
+                for side, g in ((c0 > 0, qx - c0), (c1 < gx - 1, c1 + 1 - qx),
+                                (r0 > 0, qy - r0), (r1 < gy - 1, r1 + 1 - qy)):
+                    if side:
+                        gap = torch.minimum(gap, g)
+                lb = (gap - sl) * h
+                if bool(((gap > sl) & (d3 < lb * lb * (1.0 - KNN_MARGIN) - lift)).all()):
+                    break
+                new = (max(c0 - 1, 0), min(c1 + 1, gx - 1), max(r0 - 1, 0), min(r1 + 1, gy - 1))
+                rings.append(_tiles(_ring_segments(st, gx, new, box)))
+                box = new
+            warps.append((ti, torch.cat([x for ring in rings for group in ring for x in group]),
+                          [[len(x) for x in group] for ring in rings for group in ring], box))
+        out.append((cells, warps))
+    return out
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_ring_tiles_scan_each_source_of_the_box_once(kind):
+    """The kernel's staging: each ring's row segments flattened into tiles
+    of 32 (full but a group's last) scan every source of the final box once
+    and no other, so each target's scored count is knn_grid_picks' (the
+    row-by-row mirror's) and the (d2, index)-least three of what the tiles
+    held are its picks, the plain version's."""
+    src, tgt = (T_(a) for a in _cloud(kind, KINDS.index(kind) + 20))
+    src, tgt = src[:1], tgt[:1, :512]  # one cloud, 16 warps
+    want_idx, _, want_scored = knn_grid_picks(src, tgt)
+    d2 = expanded_d2(tgt, sq_norm3(tgt), src, sq_norm3(src))[0]
+    for cells, warps in _tile_scan(src, tgt):
+        for ti, pos, lens, (c0, c1, r0, r1) in warps:
+            st, gx = cells.starts[0], int(cells.gx[0])
+            box = torch.cat([torch.arange(int(st[r * gx + c0]), int(st[r * gx + c1 + 1]))
+                             for r in range(r0, r1 + 1)])
+            assert torch.equal(pos.sort().values, box)  # each source of the box once
+            assert bool((want_scored[0, ti] == len(pos)).all())
+            for group in lens:  # tiles full but a group's last
+                assert all(n == KNN_WARP for n in group[:-1]) and all(n > 0 for n in group)
+            ids = cells.order[0, pos]
+            for target in ti.tolist():
+                order = sorted(range(ids.numel()), key=lambda j: (float(d2[target, ids[j]]),
+                                                                  int(ids[j])))
+                assert [int(ids[j]) for j in order[:3]] == want_idx[0, :, target].tolist()
 
 
 @pytest.mark.parametrize("s,t,path", [

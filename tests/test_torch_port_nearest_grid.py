@@ -6,17 +6,30 @@ clouds that test the culling radius's margin and the grid's edges. With the
 margin dropped (delta = 0), a cloud far from the origin loses picks: the
 margin is what keeps the culling exact there.
 
+The grid pass runs a cluster of `cuda_kernels.cell_grid_cluster(B, SMs)`
+blocks a cloud, each taking a slice of the points and of the centroids: a
+plain model of that partitioned pass (each slice's extent and maxima,
+per-rank histograms, bases and starts) gives the one-block pass's grid
+parameters bit for bit, its starts and its indices cell by cell, at every
+cluster size, on clouds with NaN coordinates, in one cell, with empty cells
+and of one xy.
+
 Every cloud is made from a numpy seed; the comparison is exact (idx and
 mask equal), as chip_smoke.py holds the kernel to the plain version."""
+
+import ctypes
+import re
 
 import numpy as np
 import pytest
 import torch
 
 from stratanet2_tpu_torch.ops import cuda_kernels as ck
+from stratanet2_tpu_torch.ops import _build
 from stratanet2_tpu_torch.ops.ballquery import (
     NEAREST_GRID_MAX,
     ball_query_nearest,
+    knn_cells,
     nearest_cells,
     nearest_grid_side,
     radius_sq,
@@ -195,3 +208,165 @@ def test_wrapper_grid_on_the_cpu_is_the_model():
     assert torch.equal(got["cent_order"], m.cent_order)
     want = torch.cat([pts, sq_norm3(pts)[..., None]], -1)
     assert torch.equal(got["sorted_pts"], torch.stack([want[i, m.order[i]] for i in range(B)]))
+
+
+@pytest.mark.parametrize("b,cs", [(1, 8), (2, 8), (20, 6), (40, 3), (132, 1), (200, 1)])
+def test_cell_grid_cluster_by_clouds(b, cs):
+    """The grid pass's blocks a cloud: the largest cluster up to 8 whose B x
+    cs blocks take one wave of an H100's 132 SMs, 1 past 132 clouds; every
+    size the wrapper can launch is a portable cluster size."""
+    assert ck.cell_grid_cluster(b) == ck.cell_grid_cluster(b, ck.CARD_SMS) == cs
+    assert b * cs <= ck.CARD_SMS or cs == 1
+    assert {ck.cell_grid_cluster(n) for n in range(1, 400)} == set(range(1, 9))
+    assert ck.cell_grid_cluster(b, 2 * ck.CARD_SMS) == min(8, max(1, 2 * ck.CARD_SMS // b))
+
+
+def test_grid_entries_take_the_cluster_size():
+    """The four grid entry points take cs before the stream, as the wrappers
+    pass it, and the cluster bound is the header's."""
+    grid = (_build.CSRC / "cell_grid.cuh").read_text()
+    assert int(re.search(r"constexpr int kGridClusterMax = (\d+);", grid)[1]) \
+        == ck.CELL_GRID_CLUSTER_MAX
+    for entry in ("ball_query_nearest", "ball_query_grid", "sa_fused_eval_grid",
+                  "knn_interpolate_grid"):
+        library, symbol, argtypes = ck._ENTRIES[entry]
+        src = (_build.CSRC / f"{library}.cu").read_text()
+        sig = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src)[1]
+        assert re.search(r"int cs,\s*void\* stream$", sig.strip())
+        assert len(argtypes) == sig.count(",") + 1 and argtypes[-2] is ctypes.c_int
+
+
+def _fmin(x, dim=0):
+    """fminf over `dim`: NaN ignored, +inf where every entry is NaN."""
+    return torch.where(torch.isnan(x), float("inf"), x).amin(dim)
+
+
+def _fmax(x, identity, dim=0):
+    return torch.where(torch.isnan(x), identity, x).amax(dim)
+
+
+def _slices(n, cs):
+    share = -(-n // cs)
+    return [(min(n, r * share), min(n, r * share + share)) for r in range(cs)]
+
+
+def _pass_params(pts, cent, gmax, r2, by_extent, cs):
+    """The grid parameters of one cloud as cell_grid.cuh computes them on cs
+    slices: each slice's x, y extent, max |p|^2 and max |c|^2 (fminf /
+    fmaxf: NaN ignored), the slices' combined, then the float32 operations
+    of the header (kByExtent: M and the extent's cells). Returns xmin,
+    ymin, inv_h, rc2 (or M) as float32 scalars and gx, gy."""
+    parts = []
+    for (p0, p1), (q0, q1) in zip(_slices(pts.shape[0], cs), _slices(cent.shape[0], cs)):
+        p, q = pts[p0:p1], cent[q0:q1]
+        parts.append(torch.stack([
+            _fmin(p[:, 0]) if len(p) else torch.tensor(float("inf")),
+            _fmax(p[:, 0], float("-inf")) if len(p) else torch.tensor(float("-inf")),
+            _fmin(p[:, 1]) if len(p) else torch.tensor(float("inf")),
+            _fmax(p[:, 1], float("-inf")) if len(p) else torch.tensor(float("-inf")),
+            _fmax(sq_norm3(p), 0.0) if len(p) else torch.tensor(0.0),
+            _fmax(sq_norm3(q), 0.0) if len(q) else torch.tensor(0.0)]))
+    v = torch.stack(parts)
+    xmin, xmax, ymin, ymax = _fmin(v[:, 0]), _fmax(v[:, 1], float("-inf")), _fmin(v[:, 2]), \
+        _fmax(v[:, 3], float("-inf"))
+    mp, mc = _fmax(v[:, 4], 0.0), _fmax(v[:, 5], 0.0)
+    ex, ey = xmax - xmin, ymax - ymin
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    by_side = f32(gmax - 0.5) / torch.fmax(ex, ey)
+    if by_extent:
+        rc2 = mc + mp
+        inv_h = torch.fmin(by_side, f32(torch.finfo(torch.float32).max))
+    else:
+        rc2 = f32(r2) + ((mc + mp) + f32(r2)) * f32(2.0 ** -20)
+        rc = torch.sqrt(rc2.double()).float()
+        inv_h = torch.fmin(f32(1.0) / (rc * f32(1.0 + 2.0 ** -10)), by_side)
+
+    def coord(d, g):
+        q = d * inv_h
+        return torch.where(q > 0, torch.fmin(q, torch.tensor(g - 1.0)).floor(), 0.0).long()
+
+    gx, gy = int(coord(ex, gmax)) + 1, int(coord(ey, gmax)) + 1
+    return (xmin, ymin, inv_h, rc2), gx, gy, coord
+
+
+def _partitioned_sort(cell, n_cells, cs, rng):
+    """The pass's counting sort of one cloud's cells on cs slices: per-rank
+    histograms, each cell's total and each rank's base in it (the lower
+    ranks' counts), the starts (the totals' exclusive sums), then each
+    slice scattered from start + base in an arbitrary arrival order (the
+    shared atomics'). Returns starts (n_cells + 1) and order."""
+    cell = cell.tolist()
+    counts = np.zeros((cs, n_cells), dtype=np.int64)
+    ranks = []
+    for r, (p0, p1) in enumerate(_slices(len(cell), cs)):
+        for j in range(p0, p1):
+            counts[r, cell[j]] += 1
+            ranks.append(r)
+    starts = np.concatenate([[0], counts.sum(0).cumsum()])
+    cursor = starts[None, :-1] + counts.cumsum(0) - counts
+    order = np.full(len(cell), -1)
+    for j in rng.permutation(len(cell)):
+        order[cursor[ranks[j], cell[j]]] = j
+        cursor[ranks[j], cell[j]] += 1
+    return torch.from_numpy(starts), torch.from_numpy(order)
+
+
+def _pass_cloud(kind, rng):
+    """(points, centroids) of one partitioned-pass cloud, N = 2048, C = 512."""
+    pts = _uniform(rng, 1, N)[0]
+    if kind == "nan":  # 5% of the coordinates NaN: fminf / fmaxf skip them
+        pts[rng.random((N, 3)) < 0.05] = np.nan
+    elif kind == "one_cell":  # every point in a square of 1 cm
+        pts[:, :2] = pts[:, :2] * 1e-3 + 3.0
+    elif kind == "empty_cells":  # two far corners, the cells between empty
+        pts[:, :2] = np.where(rng.random((N, 1)) < 0.5, -10.0, 10.0) + pts[:, :2] * 0.05
+    elif kind == "one_xy":  # one xy: inv_h capped (extent form), one cell
+        pts[:, :2] = pts[:1, :2]
+    pts = pts.astype(np.float32)
+    return torch.from_numpy(pts), torch.from_numpy(pts[rng.permutation(N)[:C]])
+
+
+@pytest.mark.parametrize("by_extent", [False, True], ids=["radius", "extent"])
+@pytest.mark.parametrize("kind", ["nan", "one_cell", "empty_cells", "one_xy"])
+def test_partitioned_pass_equals_the_one_block_pass(kind, by_extent):
+    """At every cluster size 1-8, the cluster pass's model gives the
+    one-block pass's (cs = 1) grid parameters bit for bit, its starts, and
+    its points and centroids cell by cell (each rank's slice contiguous in
+    a cell, in rank order); on finite clouds the one-block pass is the CPU
+    mirror's (`knn_cells`, `nearest_cells`), which chip_smoke.py holds the
+    card to."""
+    rng = np.random.default_rng(["nan", "one_cell", "empty_cells", "one_xy"].index(kind))
+    pts, cent = _pass_cloud(kind, rng)
+    gmax, r2 = nearest_grid_side(N), radius_sq(2 ** 0.5)
+    want, wgx, wgy, coord = _pass_params(pts, cent, gmax, r2, by_extent, 1)
+    if kind != "nan":
+        m = (knn_cells(pts[None], cent[None]) if by_extent
+             else nearest_cells(cent[None], pts[None], 2 ** 0.5))
+        mirror = (m.xmin, m.ymin, m.inv_h, m.m if by_extent else m.rc2)
+        for got, w in zip(want, mirror):
+            assert got.view(torch.int32) == w[0].view(torch.int32)
+        assert (wgx, wgy) == (int(m.gx[0]), int(m.gy[0]))
+    if kind in ("one_cell", "one_xy") and (kind == "one_xy" or not by_extent):
+        assert wgx * wgy == 1
+
+    def cells(xy):
+        return coord(xy[:, 1] - want[1], wgy) * wgx + coord(xy[:, 0] - want[0], wgx)
+
+    def by_cell(starts, order):
+        return [sorted(order[a:b].tolist()) for a, b in zip(starts[:-1], starts[1:])]
+
+    for what in (pts, cent):
+        cell = cells(what)
+        one_starts, one_order = _partitioned_sort(cell, gmax * gmax, 1, rng)
+        assert torch.equal(one_starts[1:], torch.bincount(cell, minlength=gmax * gmax).cumsum(0))
+        for cs in range(1, ck.CELL_GRID_CLUSTER_MAX + 1):
+            got, gx, gy, _ = _pass_params(pts, cent, gmax, r2, by_extent, cs)
+            for g, w in zip(got, want):
+                assert g.view(torch.int32) == w.view(torch.int32), (cs, g, w)
+            assert (gx, gy) == (wgx, wgy)
+            starts, order = _partitioned_sort(cell, gmax * gmax, cs, rng)
+            assert torch.equal(starts, one_starts)
+            assert by_cell(starts, order) == by_cell(one_starts, one_order)
+            rank = torch.arange(len(cell)) // -(-len(cell) // cs)
+            for a, b in zip(starts[:-1].tolist(), starts[1:].tolist()):
+                assert bool((rank[order[a:b]].diff() >= 0).all())

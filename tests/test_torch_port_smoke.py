@@ -986,6 +986,48 @@ def test_nearest_grid_check_passes_the_model_and_rejects_a_wrong_grid(fault):
     assert scored == float(model.scored.sum()) and 0 < scored < 200 * 2000 * 2 * 0.1
 
 
+@pytest.mark.parametrize("fault", [None, "permuted_in_cells", "starts", "across_cells",
+                                   "centroids", "m"])
+def test_cell_grid_check_holds_a_knn_grid_to_knn_cells(fault):
+    """cell_grid_check in kNN's form (no radius: `knn_cells`, the sources
+    as points and the targets as centroids) passes the mirror's own grid
+    in the kernel's layout and its sources permuted within their cells (the
+    pass's atomics fix no order there), and fails a wrong cell start, two
+    sources of different cells swapped, targets out of cell order or
+    another M in the grid's fourth parameter."""
+    from stratanet2_tpu_torch.ops.ballquery import knn_cells
+    from stratanet2_tpu_torch.ops.distance import sq_norm3
+
+    rng = np.random.default_rng(4)
+    tgt = torch.from_numpy(np.concatenate([rng.uniform(-10, 10, (2, 1200, 2)),
+                                           rng.uniform(0, 3, (2, 1200, 1))], -1).astype(np.float32))
+    src = tgt[:, torch.from_numpy(rng.permutation(1200)[:300])].contiguous()
+    m = knn_cells(src, tgt)
+    pts = torch.gather(src, 1, m.order[..., None].expand(2, 300, 3))
+    got = dict(xmin=m.xmin, ymin=m.ymin, inv_h=m.inv_h, rc2=m.m.clone(), gx=m.gx, gy=m.gy,
+               starts=m.starts.clone(), sorted_idx=m.order.clone(),
+               cent_order=m.cent_order.clone(),
+               sorted_pts=torch.cat([pts, sq_norm3(pts)[..., None]], -1))
+    if fault == "permuted_in_cells":
+        for i in range(2):
+            for lo, hi in zip(got["starts"][i, :-1].tolist(), got["starts"][i, 1:].tolist()):
+                for key in ("sorted_idx", "sorted_pts"):
+                    got[key][i, lo:hi] = got[key][i, lo:hi].flip(0)
+    elif fault == "starts":
+        got["starts"][1, 3] += 1
+    elif fault == "across_cells":
+        first = int(got["starts"][0, 1]) or int(got["starts"][0, 2])
+        for key in ("sorted_idx", "sorted_pts"):
+            got[key][0, [first - 1, first]] = got[key][0, [first, first - 1]]
+    elif fault == "centroids":
+        got["cent_order"][1] = got["cent_order"][1].flip(0)
+    elif fault == "m":
+        got["rc2"][0] = torch.nextafter(got["rc2"][0], torch.tensor(float("inf")))
+    diff, mirror, parts = cs.cell_grid_check(torch, got, src, tgt)
+    assert sum(parts.values()) == diff and torch.equal(mirror.starts, m.starts)
+    assert (diff == 0) == (fault in (None, "permuted_in_cells")), parts
+
+
 def test_nearest_reference_sites_are_tie_heavy_few_and_full():
     """The full-size reference sites, on one cloud and 100 centroids each:
     the grid sites hold zero distances and ties at the k-th distance, the
