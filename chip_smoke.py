@@ -26,10 +26,15 @@ Phases, in order, each failing loudly:
      kernel the only device operation of a call); then FPS's reference sites
      (FPS_REFERENCE: tie-heavy integer-grid clouds at the two step shapes,
      the serve batch unpartitioned at N=10000, a grid cloud at fps_kernel's
-     largest N, and the long rows: a grid cloud at the dense SA1 parts, an
-     odd row of 40,001 points, rows of 60,000 and 100,000 (clusters of 4
-     and 8 blocks) and a row of 200,000 past the cluster's shared memory),
-     each with 0 differing indices, and the SA
+     largest N, the pruning's hard clouds (duplicates, fewer distinct points
+     than picks; plots at Lambert-93 scale; 90% of the points in 5% of the
+     plot, on the cluster path), and the long rows: a grid cloud at the
+     dense SA1 parts, an odd row of 40,001 points, rows of 60,000 and
+     100,000 (clusters of 4 and 8 blocks) and a row of 200,000 past the
+     cluster's shared memory), each with 0 differing indices and a
+     `"fps_pruning"` line with the share of its warp updates that the
+     pruning skipped (`cuda_kernels.fps_skips`, one more launch, the same
+     picks), and the SA
      kernel's selection reference sites (SEL_REFERENCE: tie-heavy grid
      clouds at the SA1 and SA2 shapes, a ragged site with an empty last
      group, a site at the longest group staged whole, then the cell grid's
@@ -45,8 +50,8 @@ Phases, in order, each failing loudly:
      then the cell grid's KNN_GRID_REFERENCE at the dense FP1 shape, B=2: an
      integer grid with duplicated sources and targets on sources, plots 1 km
      from the origin, clustered, with sources sorted by x, and targets off
-     every source, then B=1 and B=67, the grid pass's largest and smallest
-     cluster; each with its `"grid_work"` line and weights and outputs bit
+     every source, then B=1 and B=67, the grid pass's clusters of 8 and of
+     its floor of 4 blocks; each with its `"grid_work"` line and weights and outputs bit
      for bit), each with 0 differing indices and outputs and weights within
      KNN_ATOL, and
      pixel_max's (PIXEL_MAX_REFERENCE: quantised values whose tied maxima
@@ -59,11 +64,11 @@ Phases, in order, each failing loudly:
      to the CPU mirror, parameters bit for bit, starts, points and
      centroids cell by cell (`"grid_check"`, 0 differing); then
      `"grid_cluster_sizes"`: kNN's grid path at every cluster size
-     `cuda_kernels.cell_grid_cluster` returns (1 to 8 blocks a cloud, the
-     fewest clouds that take each), held alike;
+     `cuda_kernels.cell_grid_cluster` returns (1 to 8 blocks a cloud, one
+     cloud of the fewest entries that take each), held alike;
   4b. `"phase": "fps_chain"`: FPS's latency floor, the time of a pick with
-     one point a thread (N=1024), against the per-pick time at the step
-     sites;
+     one point a thread (N=1024), against the per-pick time and the share
+     of warp updates skipped at the step sites;
   5. the counted serve step: launch counters zeroed just before, read just
      after (2 per serve kernel, 0 for the train kernels), outputs finite,
      coverages in [0, 1];
@@ -304,13 +309,16 @@ Phases, in order, each failing loudly:
      train step, device ms in each from phase 15h's profiles, the CUDA-event
      ms, plain ms, bound and max |kernel - plain| of its sites in the dense
      serve step, or the train step for the ball query and the backward, or
-     at its reference site for the global FPS path; FPS's us a pick; the
-     cluster FPS and the dq windows also at the 80,000-point step's
-     sites, `step80k`), the
+     at its reference site for the global FPS path; FPS's us a pick and
+     the share of warp updates its pruning skipped at each site,
+     `skipped_share`, and the dense serve step's fps_kernel rows (SA2's
+     parts), `block_rows`; the cluster FPS and the dq windows also at the
+     80,000-point step's sites, `step80k`), the
      `{"kernels": [...]}` line (all twelve; the nearest kernel's row is the
      nearest serve step's, with its grid pass's and query's device ms apart,
      `grid_pass_ms` and `query_ms`, as the dense rows of the grid paths
-     give theirs by step, `grid_pass_ms` and `device_ms_by_kernel`) and the
+     give theirs by step, `grid_pass_ms` and `device_ms_by_kernel`; FPS's
+     row with `per_pick_us` and `skipped_share` at each serve-step site) and the
      final `{"ok": true, ...}` line.
 
 float32 matmuls run in full float32: TF32 is switched off for cuBLAS and
@@ -416,7 +424,12 @@ OPTIN_ROUTES = {
 # coordinates in [0, 16), so distances take a few hundred values and most
 # picks break ties, at the shapes of SA1's parts and of SA2; "serve": the
 # serve batch's clouds unpartitioned, N=10000; a grid cloud at fps_kernel's
-# largest N (cuda_kernels.FPS_MAX_N, 16 points a thread); then the long-row
+# largest N (cuda_kernels.FPS_MAX_N, 16 points a thread); then the pruning's
+# hard clouds: "dup", N / 8 distinct points each repeated 8 times (fewer
+# distinct points than picks: the last picks are ties among zero minima),
+# "lambert", serve-like plots at Lambert-93 scale (FPS_LAMBERT93: an ulp of
+# 0.06-0.5 m in x and y) and "clustered", 90% of the points in 5% of the
+# plot (NEAREST_CLUSTER), the last on the cluster path; then the long-row
 # paths (cuda_kernels.fps_path): a grid cloud at the dense phase's SA1 parts
 # (a cluster of 2 blocks a row), an odd row that no partition takes
 # (N=40001: 4 blocks of 10,001 points, 10 a thread), rows of 60,000 (4
@@ -427,9 +440,12 @@ OPTIN_ROUTES = {
 # [-10, 10]^2 m, z in [0, 3])
 FPS_REFERENCE = (("grid", 40, 5000, 1250), ("grid", 20, 2500, 625),
                  ("serve", 20, 10000, 2500), ("grid", 20, 16384, 1024),
+                 ("dup", 20, 2500, 2500), ("lambert", 20, 5000, 1250),
+                 ("clustered", 4, 32768, 8192),
                  ("grid", 20, 32768, 8192), ("uniform", 4, 40001, 10000),
                  ("uniform", 4, 60000, 2048), ("uniform", 2, 100000, 2048),
                  ("uniform", 1, 200000, 1024))
+FPS_LAMBERT93 = (6.5e5, 6.86e6, 200.0)  # a plot's offset in Lambert-93 metres
 # call sites held against their plain versions outside the steps: phase 10's
 # (the gather backward of the unfused SA2 stage, the SA train passes of the
 # fused SA1 and SA2 stages with nonzero statistics shifts) and synthetic ones
@@ -513,17 +529,19 @@ KNN_REFERENCE = (("grid", 20, 2500, 10000, 34), ("grid", 20, 625, 2500, 64),
 # crowded cells hold most of the sources; "sorted", the sources sorted by
 # x, so the scan's cell order and the index order of ties differ most;
 # "far", the targets moved KNN_FAR m along x, off every source, so the box
-# grows over most of the grid; then serve-like plots at the cluster sizes
-# of the grid pass's ends (cuda_kernels.cell_grid_cluster on 132 SMs): "one",
-# a single cloud (8 blocks), and "many", 67 clouds (one block a cloud); the
-# B=2 sites take 8 blocks, the dense steps' B=20 6
+# grows over most of the grid; then serve-like plots at the two ends of the
+# grid pass's cluster rule (cuda_kernels.cell_grid_cluster on 132 SMs): "one",
+# a single cloud (8 blocks), and "many", 67 clouds (its floor of 4 blocks a
+# cloud, in two waves); the B=2 sites take 8 blocks, the dense steps' B=20 4
 KNN_GRID_REFERENCE = (("grid", 2, 16384, 65536, 34), ("shifted", 2, 16384, 65536, 34),
                       ("clustered", 2, 16384, 65536, 34), ("sorted", 2, 16384, 65536, 34),
                       ("far", 2, 16384, 65536, 34), ("one", 1, 16384, 65536, 34),
                       ("many", 67, 16384, 65536, 34))
 # the grid pass at every cluster size cell_grid_cluster returns (phase 4):
-# kNN's grid path at (S, T, F) for the fewest clouds that take each size
-GRID_CLUSTER_SITE = (1024, 4096, 8)
+# kNN's grid path on one cloud of S sources and T = 4 S targets, F = 8, at
+# the fewest entries S + T (a multiple of GRID_CLUSTER_STEP) that take each
+# size
+GRID_CLUSTER_STEP, GRID_CLUSTER_F = 1000, 8
 KNN_FAR = 40.0
 # pixel_max's reference sites (phase 4): (kind, B, N, P), C = 3. "ties":
 # values quantised to 5 levels, so a pixel's maximum is reached by several
@@ -854,6 +872,8 @@ def report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err,
         "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
         "max_abs_diff": err, "differing_selections": diff_sel,
     }), flush=True)
+    if name == "fps":  # FPS's time a pick at each site
+        agg.setdefault("per_pick_us", []).append(k_ms / max(args[1] - 1, 1) * 1e3)
     agg["ms"] += k_ms
     agg["plain_ms"] += p_ms
     agg["bytes"] += nbytes
@@ -886,9 +906,19 @@ def fps_reference_calls(torch, xyz, device):
         if cloud == "serve":
             pts = xyz.float().contiguous()
             check(tuple(pts.shape) == (rows, n, 3), f"serve clouds {tuple(pts.shape)}")
-        elif cloud == "uniform":
+        elif cloud in ("uniform", "lambert", "clustered"):
             u = torch.rand((rows, n, 3), generator=gen, device=device)
             pts = torch.cat([u[..., :2] * 20 - 10, u[..., 2:] * 3], -1)
+            if cloud == "lambert":
+                pts = pts + torch.tensor(FPS_LAMBERT93, device=device)
+            elif cloud == "clustered":
+                share, side = NEAREST_CLUSTER
+                k = int(share * n)
+                pts[:, :k, :2] = pts[:, :k, :2] * (side / 20) + 3.0
+                pts = pts[:, torch.randperm(n, generator=gen, device=device)].contiguous()
+        elif cloud == "dup":
+            base = torch.rand((rows, -(-n // 8), 3), generator=gen, device=device) * 6
+            pts = base.repeat_interleave(8, 1)[:, :n].contiguous()
         else:
             pts = torch.randint(0, 16, (rows, n, 3), generator=gen, device=device).float()
         start = torch.randint(0, n, (rows,), generator=gen, device=device, dtype=torch.int32)
@@ -1312,9 +1342,11 @@ def scan_floor(torch, ck, libs, clock_mhz, rows):
 
 def fps_chain(torch, ck, step_calls, device):
     """Phase 4b: FPS's latency floor. One point a thread (N=FPS_FLOOR_N, S=N)
-    leaves the pick's chain (winner load, reductions, the barrier) and a
-    one-point update; its time per pick, times the step's picks, is the
-    floor a kernel with this chain cannot go under."""
+    leaves the pick's chain (winner load, skip test, reductions, the
+    barrier) and a one-point update; its time per pick, times the step's
+    picks, is the floor a kernel with this chain cannot go under. Beside
+    it the step sites' time a pick and the share of their warp updates
+    that the pruning skipped (`cuda_kernels.fps_skips`)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     rows = step_calls[0][0].shape[0]
     pts = torch.randint(0, 16, (rows, FPS_FLOOR_N, 3), generator=gen, device=device).float()
@@ -1324,10 +1356,15 @@ def fps_chain(torch, ck, step_calls, device):
     per_pick_ms = cuda_ms(torch, lambda: ck.fps(*args), 20) / (FPS_FLOOR_N - 1)
     picks = [a[1] - 1 for a in step_calls]
     step_per_pick = [cuda_ms(torch, lambda a=a: ck.fps(*a), 20) / (a[1] - 1) for a in step_calls]
+    shares = []
+    for a in [args] + list(step_calls):
+        _, skipped, possible = ck.fps_skips(*a)
+        shares.append(skipped / possible if possible else None)
     print(json.dumps({"phase": "fps_chain", "rows": rows, "N": FPS_FLOOR_N, "S": FPS_FLOOR_N,
-                      "per_pick_us": per_pick_ms * 1e3, "step_picks": picks,
-                      "step_floor_ms": per_pick_ms * sum(picks),
-                      "step_sites_per_pick_us": [t * 1e3 for t in step_per_pick]}), flush=True)
+                      "per_pick_us": per_pick_ms * 1e3, "skipped_share": shares[0],
+                      "step_picks": picks, "step_floor_ms": per_pick_ms * sum(picks),
+                      "step_sites_per_pick_us": [t * 1e3 for t in step_per_pick],
+                      "step_sites_skipped_share": shares[1:]}), flush=True)
 
 
 def pixel_max_site(torch, ck, site, args):
@@ -1470,6 +1507,15 @@ def check_site(torch, ck, name, site, args, work=None):
         path, cs = ck.fps_path(n, r, ck.fps_cluster_resident(n, xyz.device)
                                if xyz.is_cuda and n > ck.FPS_MAX_N else None)
         shape = f"rows={r} N={n} S={s} path={path} cs={cs}"
+        # the pruning's work: one more launch, with its counter
+        again, skipped, possible = ck.fps_skips(*args)
+        check(torch.equal(again, got), f"fps site {site}: the counted launch picks differently")
+        share = skipped / possible if possible else None
+        print(json.dumps({"phase": "fps_pruning", "fps_site": site, "fps_shape": shape,
+                          "skipped_warp_updates": skipped, "possible_warp_updates": possible,
+                          "skipped_share": share}), flush=True)
+        if work is not None:
+            work.setdefault("skipped_share", []).append(share)
     elif name == "sa_fused_eval":
         q, xyz, cent, cterm, a1, c1, w2, b2, a2, c2, radius, k = args
         with recorded_cells(ck) as cells:
@@ -1607,34 +1653,39 @@ def grid_site(name, site, cent, pts, radius, pairs, grid, work):
 def grid_cluster_sizes(torch, ck, device):
     """Phase 4: the grid pass at every cluster size `cuda_kernels.
     cell_grid_cluster` returns on this card, through kNN's grid path
-    (`knn_interpolate_grid`) on serve-like plots of GRID_CLUSTER_SITE for
-    the fewest clouds that take each size: idx equal to the plain
-    version's, weights and outputs bit for bit, and the cell grid equal to
-    `ballquery.knn_cells`, a `"grid_cluster_sizes"` line each."""
-    s, t, f = GRID_CLUSTER_SITE
+    (`knn_interpolate_grid`) on one serve-like cloud of the fewest entries
+    (S sources, T = 4 S targets; GRID_CLUSTER_STEP apart) that take each
+    size: idx equal to the plain version's, weights and outputs bit for
+    bit, and the cell grid equal to `ballquery.knn_cells`, a
+    `"grid_cluster_sizes"` line each."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     gen = torch.Generator(device=device).manual_seed(SEED + 13)
-    first = {}
-    for b in range(1, sms + 2):
-        first.setdefault(ck.cell_grid_cluster(b, sms), b)
+    first, n = {}, GRID_CLUSTER_STEP
+    while len(first) < ck.CELL_GRID_CLUSTER_MAX and n <= 64 * GRID_CLUSTER_STEP:
+        first.setdefault(ck.cell_grid_cluster(1, n, sms), n)
+        n += GRID_CLUSTER_STEP
     check(sorted(first) == list(range(1, ck.CELL_GRID_CLUSTER_MAX + 1)),
-          f"cell_grid_cluster takes sizes {sorted(first)} on {sms} SMs")
-    for cs, b in sorted(first.items()):
-        u = torch.rand((b, t, 3), generator=gen, device=device)
+          f"cell_grid_cluster takes sizes {sorted(first)} for one cloud on {sms} SMs")
+    f = GRID_CLUSTER_F
+    for cs, n in sorted(first.items()):
+        s, t = n // 5, n - n // 5
+        u = torch.rand((1, t, 3), generator=gen, device=device)
         tgt = torch.cat([u[..., :2] * 20 - 10, u[..., 2:] * 3], -1)
         src = tgt[:, torch.randperm(t, generator=gen, device=device)[:s]].contiguous()
-        x = torch.randn((b, s, f), generator=gen, device=device)
+        x = torch.randn((1, s, f), generator=gen, device=device)
         with recorded_cells(ck) as cells:
             go, gi, gw, scored = ck.knn_interpolate_grid(x, src, tgt)
         wo, wi, ww = ck.knn_interpolate_plain(x, src, tgt)
         diff = int((gi != wi).sum())
-        print(json.dumps({"phase": "grid_cluster_sizes", "cs": cs, "B": b, "S": s, "T": t,
-                          "wrapper_cs": ck._grid_cs(b, device), "differing_indices": diff,
+        print(json.dumps({"phase": "grid_cluster_sizes", "cs": cs, "B": 1, "S": s, "T": t,
+                          "wrapper_cs": ck._grid_cs(1, s + t, device), "differing_indices": diff,
                           "weights_equal": torch.equal(gw, ww), "outputs_equal": torch.equal(go, wo),
                           "sources_a_target": float(scored.double().mean())}), flush=True)
-        check(ck._grid_cs(b, device) == cs, f"B={b}: the wrapper takes cs {ck._grid_cs(b, device)}")
+        check(ck._grid_cs(1, s + t, device) == cs,
+              f"S={s}, T={t}: the wrapper takes cs {ck._grid_cs(1, s + t, device)}")
         check(diff == 0 and torch.equal(gw, ww) and torch.equal(go, wo),
-              f"grid cluster size {cs} (B={b}): {diff} indices differ, or weights or outputs")
+              f"grid cluster size {cs} (S={s}, T={t}): {diff} indices differ, "
+              "or weights or outputs")
         checked_grids(torch, ck, "knn_interpolate", f"cluster size {cs}", cells, src, tgt)
 
 
@@ -1656,8 +1707,9 @@ def compare_kernels(torch, ck, captured):
             reference = site >= 2
             kind = references[name][site - 2][0] if reference else None
             with knn_whole(ck) if kind == "chunked" else contextlib.nullcontext():
-                shape, nbytes, ops, err, diff_sel, lib_ms, pairs = check_site(torch, ck, name,
-                                                                              site, args)
+                shape, nbytes, ops, err, diff_sel, lib_ms, pairs = check_site(
+                    torch, ck, name, site, args,
+                    (ref_agg if reference else agg) if name == "fps" else None)
                 if reference:
                     shape += f" cloud={kind}"
                 (ref_agg if reference else agg)["pairs"] += pairs
@@ -1873,8 +1925,9 @@ def compare_train_kernels(torch, ck, captured):
         for site, args in enumerate(calls):
             diff_sel, lib_ms = 0, None
             if name in ("ball_query", "pixel_max_bwd"):
-                shape, nbytes, ops, err, diff_sel, lib_ms, pairs = check_site(torch, ck, name,
-                                                                              site, args)
+                shape, nbytes, ops, err, diff_sel, lib_ms, pairs = check_site(
+                    torch, ck, name, site, args,
+                    (ref_agg if reference else agg) if name == "fps" else None)
                 if name == "ball_query" and site >= n_step:
                     shape += f" cloud={SEL_REFERENCE[site - n_step][0]}"
                 (ref_agg if site >= n_step else agg)["pairs"] += pairs
@@ -4077,6 +4130,8 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
                             getattr(ck, f"{name}_plain"), args, nbytes, ops, err, diff_sel,
                             lib_ms, agg, reference=step == "reference", plain_reps=1)
             rows[path] = finish_agg(agg)
+            if "skipped_share" in work:  # the FPS paths: the pruning's share at each site
+                rows[path]["skipped_share"] = work.pop("skipped_share")
             if work:  # the grid paths: their work, and the operations of all pairs
                 a_pair = 11.0 if path == "knn_interpolate_grid" else 10.0
                 rows[path].update(work, bound_all_pairs_ms=a_pair * rows[path]["pairs"]
@@ -4084,6 +4139,13 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
     fps_sites = [a for _, _, a in sites["fps_cluster"][:1] + sites["fps_global"]]
     rows["fps_cluster"]["per_pick_us"], rows["fps_global"]["per_pick_us"] = (
         cuda_ms(torch, lambda a=a: ck.fps(*a), 5) / (a[1] - 1) * 1e3 for a in fps_sites)
+    # the dense serve step's FPS rows on fps_kernel (SA2's parts): a pick and the share skipped
+    block = [a for a in serve_calls["fps"] if a[0].shape[1] <= ck.FPS_MAX_N]
+    rows["fps_cluster"]["block_rows"] = [
+        {"rows": a[0].shape[0], "N": a[0].shape[1], "S": a[1],
+         "per_pick_us": cuda_ms(torch, lambda a=a: ck.fps(*a), 5) / (a[1] - 1) * 1e3,
+         "skipped_share": (lambda t: t[1] / t[2] if t[2] else None)(ck.fps_skips(*a))}
+        for a in block]
     dq_n = DENSE_DQ_N if small is None else small["dq_N"]
     fps_resident(torch, ck, device, [(a[0].shape[0], a[0].shape[1]) for a in fps_sites] +
                  [(2 * b, -(-dq_n // 2))])
@@ -4203,7 +4265,7 @@ def dense_dq_step(torch, ck, dcfg, device, card, n):
             agg = new_agg()
             for i, args in enumerate(path_sites):
                 shape, nbytes, ops, err, diff_sel, lib_ms, _ = check_site(
-                    torch, ck, name, f"dense_dq {path} {i}", args)
+                    torch, ck, name, f"dense_dq {path} {i}", args, agg if name == "fps" else None)
                 report_site(torch, name, f"dense_dq train {path} {i}", shape, getattr(ck, name),
                             getattr(ck, f"{name}_plain"), args, nbytes, ops, err, diff_sel,
                             lib_ms, agg, plain_reps=1)
@@ -4384,7 +4446,7 @@ def checked_grids(torch, ck, name, site, cells, pts, cent, radius=None):
     for ws, b, n, c in cells:
         diff, _, parts = cell_grid_check(torch, ck.cell_grid_view(ws, b, n, c), pts, cent, radius)
         print(json.dumps({"phase": "grid_check", "kernel": name, "site": site, "B": b, "N": n,
-                          "C": c, "cs": ck._grid_cs(b, pts.device), "grid_differing": diff,
+                          "C": c, "cs": ck._grid_cs(b, n + c, pts.device), "grid_differing": diff,
                           "parts": parts}), flush=True)
         check(diff == 0, f"{name} site {site}: the card's cell grid differs from the CPU "
               f"mirror's in {diff} entries: {parts}")
@@ -4875,7 +4937,8 @@ def main() -> int:
          "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
          "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
          "library_ms": rows[name]["library_ms"],
-         "grid_pass_ms": rows[name].get("grid_pass_ms"), "query_ms": rows[name].get("query_ms")}
+         "grid_pass_ms": rows[name].get("grid_pass_ms"), "query_ms": rows[name].get("query_ms"),
+         **{key: rows[name][key] for key in ("per_pick_us", "skipped_share") if key in rows[name]}}
         for (name, src, rep), rows, launches in entries
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -40,13 +40,16 @@ copy, to run them in turns:
         stratanet2_tpu_torch/ops/csrc/ball_query_nearest.cu \
         stratanet2_tpu_torch/ops/csrc/ball_query_nearest.cu@kNearBuf=32
 
-fps runs fps_kernel at the PROD rows and the long rows' designs (see
-`run_fps`), sa_train_bwd2 the windowed dq pass's (see `run_bwd2`); PR 16's
+fps runs FPS's designs at every shape chip_smoke.py holds (see
+`run_fps`): the package's pruned kernels, the unpruned ones (in
+scripts/variants/fps_unpruned.cu), the cluster-barrier design and one block
+a row;
+sa_train_bwd2 the windowed dq pass's (see `run_bwd2`). The earlier
 designs are files of scripts/variants/ that include the package's source,
 so one library holds both designs:
 
-    python3 scripts/kernel_variants.py fps scripts/variants/fps_cluster_barrier.cu \
-        scripts/variants/fps_one_block.cu
+    python3 scripts/kernel_variants.py fps scripts/variants/fps_unpruned.cu \
+        scripts/variants/fps_cluster_barrier.cu scripts/variants/fps_one_block.cu
     python3 scripts/kernel_variants.py sa_train_bwd2 scripts/variants/sa_train_dq_windows.cu
 
 selection runs the grouped selection (the standalone query and the SA
@@ -310,7 +313,7 @@ def run_knn_grid(torch, ck, libs, gen, device):
                     fn = grid_call(src, lib, symbol, n_ptrs, n_ints, radius=False)
                     calls[(src, design)] = (lambda o, fn=fn: fn(
                         [x, ps, pt, *o, ws, scored], [b, s, t, f, gmax], None,
-                        ck.cell_grid_cluster(b), stream), kernels)
+                        ck.cell_grid_cluster(b, s + t), stream), kernels)
         for key in list(calls) + list(calls)[::-1]:
             call, kernels = calls[key]
             o = (torch.empty((b, t, f), device=device),
@@ -319,7 +322,7 @@ def run_knn_grid(torch, ck, libs, gen, device):
             rc = call(o)
             torch.cuda.synchronize()
             row = {"source": str(key[0]), "kernel": "knn_interpolate", "design": key[1],
-                   "shape": [b, s, t, f], "rc": rc, "cs": ck.cell_grid_cluster(b),
+                   "shape": [b, s, t, f], "rc": rc, "cs": ck.cell_grid_cluster(b, s + t),
                    "differing_indices": int((o[1] != want_idx).sum()),
                    "weights_equal": torch.equal(o[2], want_w),
                    "outputs_equal": torch.equal(o[0], want_out),
@@ -336,14 +339,25 @@ def run_knn_grid(torch, ck, libs, gen, device):
 
 # the grid pass's sites (cell_grid mode): (site, B, N points or sources, C
 # centroids or targets, radius (None: kNN's extent form), the wrappers whose
-# grid kernel runs there): kNN's dense FP1 and FP2, the
-# grouped selection's dense SA1 (ball_query_grid_kernel in training,
-# sa_grid_kernel serving), the nearest route's PROD SA1 and SA2
+# grid kernel runs there): kNN's dense FP1 and FP2, the grouped selection's
+# dense SA1 (ball_query_grid_kernel in training, sa_grid_kernel serving),
+# the nearest route's PROD SA1 and SA2, the 80,000-point train step's SA1
+# ball query and kNN FP1 and FP2, kNN's grid reference sites (B = 2, one
+# cloud, 67 clouds) and small clouds (1,024 sources, 4,096 targets) at
+# B = 1 and 20
 CELL_GRID_SITES = (("knn_dense_FP1", 20, 16384, 65536, None, ("knn_interpolate",)),
                    ("knn_dense_FP2", 20, 4096, 16384, None, ("knn_interpolate",)),
                    ("dense_SA1", 20, 65536, 16384, 2 ** 0.5, ("ball_query", "sa_fused_eval")),
                    ("nearest_PROD_SA1", 20, 10000, 2500, 2 ** 0.5, ("ball_query_nearest",)),
-                   ("nearest_PROD_SA2", 20, 2500, 625, 8 ** 0.5, ("ball_query_nearest",)))
+                   ("nearest_PROD_SA2", 20, 2500, 625, 8 ** 0.5, ("ball_query_nearest",)),
+                   ("step80k_SA1", 20, 80000, 20000, 2 ** 0.5, ("ball_query",)),
+                   ("step80k_knn_FP1", 20, 20000, 80000, None, ("knn_interpolate",)),
+                   ("step80k_knn_FP2", 20, 5000, 20000, None, ("knn_interpolate",)),
+                   ("knn_ref_B2", 2, 16384, 65536, None, ()),
+                   ("knn_ref_one", 1, 16384, 65536, None, ()),
+                   ("knn_ref_many", 67, 16384, 65536, None, ()),
+                   ("small_B1", 1, 1024, 4096, None, ()),
+                   ("small_B20", 20, 1024, 4096, None, ()))
 GRID_KERNEL = {"knn_interpolate": "knn_grid_kernel", "ball_query": "ball_query_grid_kernel",
                "sa_fused_eval": "sa_grid_kernel", "ball_query_nearest": "nearest_grid_kernel"}
 
@@ -353,12 +367,13 @@ def run_cell_grid(torch, ck, libs, gen, device):
     cell_grid_one_block.cu's entries): first the clusters of cs blocks the
     card holds at once (cs 1-8, gmax 64). Then at CELL_GRID_SITES, plots
     with centroids drawn from the points, PR 19's one block a cloud and the
-    package's cluster at the wrapper's cs in turns (one block, cluster,
-    cluster, one block), then the cluster at every other cs: the CUDA-event
-    ms of a pass (mean of REPS), its grid against the one-block pass's
-    (parameters and starts bit for bit) and against the CPU mirror
-    (chip_smoke.cell_grid_check: parameters, starts, points and centroids
-    cell by cell, 0 differing); then each wrapper whose path runs the grid
+    package's cluster at the wrapper's cs (`cuda_kernels.cell_grid_cluster`
+    of B and the entries a cloud) in turns (one block, cluster, cluster,
+    one block), then the cluster at every other cs: the CUDA-event ms of a
+    pass (mean of REPS), its grid against the one-block pass's (parameters
+    and starts bit for bit) and, the first pass at each cs, against the CPU
+    mirror (chip_smoke.cell_grid_check: parameters, starts, points and
+    centroids cell by cell, 0 differing); then each wrapper whose path runs the grid
     there (cuda_kernels, the package's build) with its grid kernel's device
     ms (torch.profiler), the same pass under the library's own name."""
     from stratanet2_tpu_torch.ops.ballquery import radius_sq
@@ -387,7 +402,7 @@ def run_cell_grid(torch, ck, libs, gen, device):
             pnt = plot_clouds(torch, gen, b, n_p, device)
             cen = pnt[:, torch.randperm(n_p, generator=gen, device=device)[:n_c]].contiguous()
         r2 = 0.0 if by_extent else radius_sq(radius)
-        cs0 = ck.cell_grid_cluster(b)
+        cs0 = ck.cell_grid_cluster(b, n_p + n_c)
         runs = {}
 
         def pass_of(cs):
@@ -404,12 +419,15 @@ def run_cell_grid(torch, ck, libs, gen, device):
             rc = fn()
             torch.cuda.synchronize()
             grid = ck.cell_grid_view(ws, b, n_p, n_c)
+            seen = cs in runs
             runs.setdefault(cs, grid)
             first = runs[0]
             same = {key: torch.equal(grid[key], first[key]) for key in
                     ("xmin", "ymin", "inv_h", "rc2", "gx", "gy", "starts")}
-            diff, _, parts = chip_smoke.cell_grid_check(torch, grid, pnt, cen,
-                                                        None if by_extent else radius)
+            diff, parts = None, None  # the mirror holds the first pass of each cs
+            if not seen:
+                diff, _, parts = chip_smoke.cell_grid_check(torch, grid, pnt, cen,
+                                                            None if by_extent else radius)
             print(json.dumps({"kernel": "cell_grid", "site": site, "shape": [b, n_p, n_c],
                               "design": "one_block" if cs == 0 else "cluster", "cs": cs or None,
                               "wrapper_cs": cs0, "rc": rc, "ms": event_ms(torch, fn),
@@ -929,7 +947,7 @@ def run_ball_query_nearest(torch, ck, libs, gen, device_):
 
             def run():
                 return call([cent, pts, idx, mask, ws], [b, n, c, k, g], radius_sq(radius),
-                            ck.cell_grid_cluster(b), stream)
+                            ck.cell_grid_cluster(b, n + c), stream)
 
             rc = run()
             torch.cuda.synchronize()
@@ -956,45 +974,76 @@ def pr16_fps_cs(n):
     return cs
 
 
-FPS_SITES = (("PROD_SA1_parts", 40, 5000, 1250), ("PROD_SA2", 20, 2500, 625),
-             ("dense_SA1_parts", 40, 32768, 8192), ("step80k_SA1_parts", 40, 40000, 10000),
+# FPS's sites (`run_fps`): (site, rows, N, S). One point a thread (the
+# pick's chain, chip_smoke's fps_chain), then every shape of
+# chip_smoke.FPS_REFERENCE (its serve and dense parts, fps_kernel's last
+# row, the cluster's shapes and the global path's row), with the dense
+# serve step's SA2 rows (40 x 8,192, 2,048 picks) and the 80,000-point
+# train step's SA1 rows (40 x 40,000, 10,000 picks).
+FPS_SITES = (("chain_floor", 40, 1024, 1024),
+             ("PROD_SA1_parts", 40, 5000, 1250), ("PROD_SA2", 20, 2500, 625),
+             ("PROD_unpartitioned", 20, 10000, 2500), ("block_last", 20, 16384, 1024),
+             ("dense_SA2_parts", 40, 8192, 2048), ("dense_SA1_parts", 40, 32768, 8192),
+             ("step80k_SA1_parts", 40, 40000, 10000), ("odd_40001", 4, 40001, 10000),
+             ("rows_60000", 4, 60000, 2048), ("rows_100000", 2, 100000, 2048),
              ("global", 1, 200000, 1024))
 
 
+def takes_stats(src, symbol):
+    """Whether the C entry `symbol` of a SOURCE takes FPS's pruning counter
+    (`unsigned long long* stats`; a parent tree's entries do not)."""
+    sig = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', source_text(src))
+    return sig is not None and "stats" in sig[1]
+
+
 def run_fps(torch, ck, libs, gen, device_):
-    """FPS at the PROD serve step's rows (`fps_launch`, fps_kernel), at the
-    dense serve step's SA1 parts (40 rows of 32,768 points, 8,192 picks),
-    the 80,000-point train step's (40 x 40,000, 10,000 picks) and a row past
-    the cluster's shared memory (1 x 200,000, 1,024 picks), synthetic 20 m
-    plots. Each FPS entry a source's library exports, in turns A, B, B, A:
-    `fps_launch` at the PROD rows; at the long rows the package's
+    """FPS at FPS_SITES on synthetic 20 m plots. Each design a source's
+    library exports, in turns A, B, B, A: the package's `fps_launch`
+    (fps_kernel, exact pruning) at rows of up to 16,384 points and its
     `fps_cluster_launch` (its library also exports `fps_cluster_resident`)
-    at the wrapper's cs (`cuda_kernels.fps_path` on the card's resident
-    clusters, printed) and at every other cs that holds the slices, a
-    parent's `fps_cluster_launch` at PR 16's power-of-two cs,
-    `fps_barrier_launch` (scripts/variants/fps_cluster_barrier.cu, PR 16's
-    design) likewise, and `fps_stream_launch` (scripts/variants/
-    fps_one_block.cu: one block a row, the points past shared memory read
-    from L2): differing picks against the plain version, the CUDA-event ms
-    of a launch (mean of REPS) and us a pick."""
+    past them, at the wrapper's cs (`cuda_kernels.fps_path` on the card's
+    resident clusters, printed) and at every other cs that holds the
+    slices; scripts/variants/fps_unpruned.cu's `fps_unpruned_launch` (the
+    unpruned fps_kernel) and `fps_unpruned_cluster_launch` (the unpruned
+    cluster) at the same cs; a parent's `fps_launch` / `fps_cluster_launch`
+    (no counter) likewise, or at the power-of-two cs (`pr16_fps_cs`) for a
+    file with no `fps_cluster_resident`; `fps_barrier_launch`
+    (scripts/variants/fps_cluster_barrier.cu, a cluster barrier a pick)
+    and `fps_stream_launch` (scripts/variants/fps_one_block.cu: one block a
+    row): differing picks
+    against the plain version, the CUDA-event ms of a launch (mean of
+    REPS), us a pick and, for a design with the counter, the share of its
+    warp updates skipped."""
     stream = torch._C._cuda_getCurrentRawStream(0)
     for site, rows, n, s in FPS_SITES:
         xyz = plot_clouds(torch, gen, rows, n, device_)
         start = torch.randint(0, n, (rows,), generator=gen, device=device_, dtype=torch.int32)
         want = ck.fps_plain(xyz, s, start)
         md = torch.empty((rows, n), device=device_)
+        stats = torch.zeros(2, dtype=torch.int64, device=device_)
         glob = int(n > ck.FPS_CLUSTER_MAX * ck.FPS_MAX_N)
         fns = {}
 
-        def add(label, fn, cs, scratch, ints=4):
-            fns[label] = (cs, lambda out: fn(xyz.data_ptr(), start.data_ptr(), out.data_ptr(),
-                                             *([md.data_ptr() if scratch else None] if ints == 4
-                                               else []), rows, n, s,
-                                             *([cs] if ints == 4 else []), stream))
+        def add(label, lib, src, symbol, cs, scratch):
+            """label -> (cs, call(out, counted)) for entry `symbol`: pointers
+            xyz, start, out (then md on a cluster entry that takes it, the
+            counter where the entry takes one), ints rows, n, s (then cs)."""
+            cluster = "cluster" in symbol or "barrier" in symbol
+            counter = takes_stats(src, symbol)
+            md_arg = cluster and "unpruned" not in symbol
+            n_ptrs = 3 + md_arg + counter
+            fn = entry(lib, symbol, n_ptrs, 3 + cluster)
+            fns[label] = (cs, counter, lambda out, counted=False: fn(
+                xyz.data_ptr(), start.data_ptr(), out.data_ptr(),
+                *([md.data_ptr() if scratch else None] if md_arg else []),
+                *([stats.data_ptr() if counted else None] if counter else []),
+                rows, n, s, *([cs] if cluster else []), stream))
 
         for src, lib in libs.items():
             if n <= ck.FPS_MAX_N:
-                add((src, "block"), entry(lib, "fps_launch", 3, 3), 1, False, ints=3)
+                for symbol in ("fps_launch", "fps_unpruned_launch"):
+                    if hasattr(lib, symbol):
+                        add((src, symbol.removesuffix("_launch")), lib, src, symbol, 1, False)
                 continue
             if hasattr(lib, "fps_cluster_resident"):
                 res = entry(lib, "fps_cluster_resident", 0, 3)
@@ -1003,32 +1052,38 @@ def run_fps(torch, ck, libs, gen, device_):
                 print(json.dumps({"source": str(src), "site": site, "resident_clusters": resident,
                                   "table": ck.FPS_RESIDENT}), flush=True)
                 _, pick = ck.fps_path(n, rows, resident)
-                fn = entry(lib, "fps_cluster_launch", 4, 4)
                 for cs in [pick] + [c for c in range(2, ck.FPS_CLUSTER_MAX + 1)
                                     if c != pick and (glob or -(-n // c) <= ck.FPS_MAX_N)
                                     and site != "global"]:
-                    add((src, "cluster" if cs == pick else f"cluster_cs{cs}"), fn, cs, glob)
+                    add((src, "cluster" if cs == pick else f"cluster_cs{cs}"), lib, src,
+                        "fps_cluster_launch", cs, glob)
+                    if hasattr(lib, "fps_unpruned_cluster_launch") and not glob and cs == pick:
+                        add((src, "unpruned_cluster"), lib, src, "fps_unpruned_cluster_launch",
+                            cs, False)
             elif hasattr(lib, "fps_cluster_launch"):  # PR 16's file
-                add((src, "cluster_pr16"), entry(lib, "fps_cluster_launch", 4, 4), pr16_fps_cs(n),
-                    glob)
+                add((src, "cluster_pr16"), lib, src, "fps_cluster_launch", pr16_fps_cs(n), glob)
             if hasattr(lib, "fps_barrier_launch"):
-                add((src, "barrier"), entry(lib, "fps_barrier_launch", 4, 4), pr16_fps_cs(n), glob)
+                add((src, "barrier"), lib, src, "fps_barrier_launch", pr16_fps_cs(n), glob)
             if hasattr(lib, "fps_stream_launch"):
                 fn = entry(lib, "fps_stream_launch", 4, 3)
-                fns[(src, "stream")] = (1, lambda out, fn=fn: fn(
+                fns[(src, "stream")] = (1, False, lambda out, counted=False, fn=fn: fn(
                     xyz.data_ptr(), start.data_ptr(), out.data_ptr(), md.data_ptr(), rows, n, s,
                     stream))
         for key in list(fns) + list(fns)[::-1]:
-            cs, call = fns[key]
+            cs, counter, call = fns[key]
             out = torch.empty((rows, s), dtype=torch.int32, device=device_)
-            rc = call(out)
+            stats.zero_()
+            rc = call(out, True)
             torch.cuda.synchronize()
+            skipped, possible = stats.tolist()
             ms = event_ms(torch, lambda: call(out))
             print(json.dumps({
                 "source": str(key[0]), "kernel": "fps", "design": key[1], "site": site, "rc": rc,
                 "shape": [rows, n, s], "cs": cs, "differing": int((out != want).sum()), "ms": ms,
                 "us_a_pick": ms / (s - 1) * 1e3,
+                "skipped_share": skipped / possible if counter and possible else None,
             }), flush=True)
+        del xyz, md, want
 
 
 # The grouped selection's sites (`run_selection`): (site, cloud, B, N, C, K,
@@ -1137,8 +1192,8 @@ def run_selection(torch, ck, libs, gen, device_):
                             *ptrs(base + list(o)), b, n, c, k, g, gc, r2, stream))
                     fn = grid_call(src, lib, "ball_query_grid_launch", 5, 5)
                     fns[(src, "grid")] = (out, lambda o, fn=fn: fn(
-                        base + list(o) + [ws], [b, n, c, k, gmax], r2, ck.cell_grid_cluster(b),
-                        stream))
+                        base + list(o) + [ws], [b, n, c, k, gmax], r2,
+                        ck.cell_grid_cluster(b, n + c), stream))
                 elif kernel == "sa" and hasattr(lib, "sa_fused_eval_launch"):
                     def out():
                         return (torch.empty((b, c, ch), device=device_),)
@@ -1161,7 +1216,7 @@ def run_selection(torch, ck, libs, gen, device_):
                     fn = grid_call(src, lib, "sa_fused_eval_grid_launch", 8, 8)
                     fns[(src, "grid")] = (out, lambda o, fn=fn: fn(
                         base + list(o) + [ws, picks], [b, n, c, k, gmax, ch, ch, int(two)], r2,
-                        ck.cell_grid_cluster(b), stream))
+                        ck.cell_grid_cluster(b, n + c), stream))
             first = None
             for key in list(fns) + list(fns)[::-1]:
                 make, call = fns[key]

@@ -18,9 +18,11 @@
 // with torch.empty and no value is read back.
 //
 // One cluster of cs blocks a cloud (cs, 1 to 8, a launch attribute:
-// cuda_kernels.cell_grid_cluster, the largest cs whose B x cs blocks take
-// one wave of the card's SMs). Block r of the cluster takes the r-th
-// contiguous slice of the points and of the centroids:
+// cuda_kernels.cell_grid_cluster, from B, the entries a cloud and the
+// card's SMs: slices of 1,000 entries or more, and clusters that fill at
+// most two thirds of the SMs, or 4 blocks a cloud if that is more). Block
+// r of the cluster takes the r-th contiguous slice of the points and of
+// the centroids:
 // 1. it reduces its slices' extent and maxima into shared memory; after a
 //    cluster barrier every block reads the cs partials through distributed
 //    shared memory and computes the same parameters (min and max are exact
@@ -44,13 +46,15 @@
 // Bound: the bytes, each coordinate read three times from a block's slice
 // (~20 MB at the dense FP1 kNN site, ~6 us at 3.35 TB/s). Measured on an
 // NVIDIA H100 80GB HBM3 at 700 W (scripts/kernel_variants.py cell_grid, the
-// one-block pass in turns; PERF.md §6): at the dense FP1 kNN site (B=20, 6
-// blocks a cloud) 0.073 ms against 0.155, at dense SA1 0.105 against 0.203;
-// 4 blocks a cloud measured faster there (0.055, 0.078), 8 no faster than 6.
-// Small clouds gain nothing: at the nearest route's PROD SA2 (B=20 x 2,500)
-// 0.023 against 0.013-0.015, the cluster's barriers and tables outweighing
-// the slices. Slice loops unrolled by 4, or one block an SM with no spill
-// (64 registers; 48 bytes of stack at two), measured no faster.
+// one-block pass in turns; PERF.md §6): at B=20, 4 blocks a cloud is the
+// fastest size at every site, from the dense FP1 kNN site (0.055 ms against
+// the one block's 0.155; 6 blocks 0.073) and dense SA1 (0.075 against 0.202)
+// down to the nearest route's PROD SA1 (0.024 against 0.037); at its SA2
+// (B=20 x 2,500 points, 625 centroids) 3 blocks take 0.0125 against the one
+// block's 0.0119, the cluster's barriers and tables outweighing slices of
+// ~1,000 entries (and one block of this pass 0.0146). Slice loops unrolled
+// by 4, or one block an SM with no spill (64 registers; 48 bytes of stack at
+// two), measured no faster.
 //
 // The selections' invariant: EVERY POINT THAT THE PLAIN VERSION ADMITS IS
 // SCORED. The plain version admits p for c when E = max(fl(fl(a - 2 ab) +

@@ -37,7 +37,7 @@ cut into pixel ranges, a cluster each, sized for two blocks an SM
 lists outgrow shared memory into windows of points, a block each
 (`sa_train_dq_chunked`). Every PROD shape keeps its kernels. The cell
 grid's pass (also the nearest selection's) runs a cluster of
-`cell_grid_cluster(B, SMs)` blocks a cloud.
+`cell_grid_cluster(B, entries a cloud, SMs)` blocks a cloud.
 
 Every selection distance is rounded as the JAX CPU path rounds it (see
 `distance.py`): the plain versions and the kernels agree with it, and with
@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -82,6 +82,7 @@ PIXEL_MAX_PAIR_TABLE = (228 * 1024 // 2 - 1024) // 8
 FPS_THREADS = 1024  # csrc/fps.cu: threads a block
 FPS_MAX_N = 16 * FPS_THREADS  # fps_kernel: at most 16 points for each of its threads
 FPS_CLUSTER_MAX = 8  # fps_cluster_kernel: blocks a row at most (the portable cluster size)
+FPS_SORT_SIDE = 64  # csrc/fps.cu: the side of the xy grid that orders a slice (kSortSide)
 # clusters of cs blocks of fps_cluster_kernel (1024 threads, one block an
 # SM) that an NVIDIA H100 80GB HBM3 holds at once, cs = 2 .. 8:
 # cudaOccupancyMaxActiveClusters on the card (chip_smoke.py's dense phase
@@ -107,10 +108,16 @@ NEAREST_MAX_K = 128  # csrc/ball_query_nearest.cu: the longest sorted list a war
 # CARD_SMS SMs by default (an H100's; the wrappers ask the card)
 CELL_GRID_CLUSTER_MAX = 8
 CARD_SMS = 132
+# cell_grid_cluster: the fewest entries (points and centroids) a block of
+# the grid pass takes, the share of the SMs its clusters fill, and the
+# blocks a cloud it keeps however many clouds share the card
+GRID_ENTRIES_A_BLOCK = 1000
+GRID_SM_SHARE = (2, 3)
+GRID_CLUSTER_FLOOR = 4
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRIES = {  # entry: (library = csrc/<library>.cu, C entry point, its arguments)
-    "fps": ("fps", "fps_launch", [_VP, _VP, _VP, _I, _I, _I, _VP]),
+    "fps": ("fps", "fps_launch", [_VP] * 4 + [_I] * 3 + [_VP]),
     "sa_fused_eval": (
         "sa_fused_eval", "sa_fused_eval_launch", [_VP] * 6 + [_I] * 8 + [_F, _VP],
     ),
@@ -151,7 +158,7 @@ _ENTRIES = {  # entry: (library = csrc/<library>.cu, C entry point, its argument
     "knn_interpolate_grid": (
         "knn_interpolate", "knn_interpolate_grid_launch", [_VP] * 8 + [_I] * 6 + [_VP]
     ),
-    "fps_cluster": ("fps", "fps_cluster_launch", [_VP] * 4 + [_I] * 4 + [_VP]),
+    "fps_cluster": ("fps", "fps_cluster_launch", [_VP] * 5 + [_I] * 4 + [_VP]),
     "fps_resident": ("fps", "fps_cluster_resident", [_I] * 3),  # no launch: a query
 }
 WRAPPERS = ("fps", "sa_fused_eval", "knn_interpolate", "pixel_max", "ball_query", "knn_scatter",
@@ -324,6 +331,32 @@ def fps_cluster_resident(n: int, device: torch.device) -> Dict[int, int]:
 def fps(xyz: torch.Tensor, n_samples: int, start: torch.Tensor) -> torch.Tensor:
     """Farthest point sampling per row: (R, N, 3) float32 points, (R,) int32
     start indices -> (R, n_samples) int32 indices, out[:, 0] == start."""
+    if not _fps_check(xyz, n_samples, start):
+        return fps_plain(xyz, n_samples, start)
+    return _fps_launch(xyz, n_samples, start, None)
+
+
+def fps_skips(xyz: torch.Tensor, n_samples: int, start: torch.Tensor):
+    """`fps`'s picks with its pruning's work: (picks, skipped, possible),
+    the warp updates that the launch skipped and the updates its picks
+    could have made, over the warps that hold points (csrc/fps.cu's stats;
+    0 and 0 on the global path, which does not prune). One counted launch
+    on the card; on the CPU the plain picks and `fps_pruned_mirror`'s
+    counts at the card's slices (`fps_path`)."""
+    if not _fps_check(xyz, n_samples, start):
+        path, cs = fps_path(xyz.shape[1], xyz.shape[0])
+        if path == "global":
+            return fps_plain(xyz, n_samples, start), 0, 0
+        mirror = fps_pruned_mirror(xyz, n_samples, start, cs)
+        return fps_plain(xyz, n_samples, start), mirror.skipped, mirror.possible
+    stats = torch.zeros(2, dtype=torch.int64, device=xyz.device)
+    out = _fps_launch(xyz, n_samples, start, stats)
+    skipped, possible = stats.tolist()
+    return out, skipped, possible
+
+
+def _fps_check(xyz: torch.Tensor, n_samples: int, start: torch.Tensor) -> bool:
+    """Checks fps's arguments; True for CUDA tensors."""
     name = "fps"
     _expect(xyz.dim() == 3 and xyz.shape[2] == 3, name, "xyz must be (R, N, 3)")
     _expect(xyz.dtype == torch.float32, name, "xyz must be float32")
@@ -331,20 +364,130 @@ def fps(xyz: torch.Tensor, n_samples: int, start: torch.Tensor) -> torch.Tensor:
             name, "start must be (R,) int32")
     _expect(1 <= n_samples <= xyz.shape[1], name, "need 1 <= n_samples <= N")
     if not _on_card(name, xyz, start):
-        return fps_plain(xyz, n_samples, start)
+        return False
+    _expect(xyz.shape[1] < 2 ** 31, name, f"N={xyz.shape[1]}: indices are int32")
+    return True
+
+
+def _fps_launch(xyz, n_samples, start, stats):
+    """One counted launch of csrc/fps.cu on the path `fps_path` takes; stats
+    None or a (2,) int64 tensor that takes the pruning's counts."""
+    name = "fps"
     r, n, _ = xyz.shape
-    _expect(n < 2 ** 31, name, f"N={n}: indices are int32")
     out = torch.empty((r, n_samples), dtype=torch.int32, device=xyz.device)
     path, cs = fps_path(n, r, None if n <= FPS_MAX_N else fps_cluster_resident(n, xyz.device))
     if path == "block":
-        _launch(name, xyz.device, xyz, start, out, r, n, n_samples)
+        _launch(name, xyz.device, xyz, start, out, stats, r, n, n_samples)
         return out
     _expect(r * cs < 2 ** 31, name, f"{r} rows of {cs} blocks exceed the grid")
     # the global path's running minima: a device-memory row of N floats a row
     md = torch.empty((r, n), dtype=torch.float32, device=xyz.device) if path == "global" else None
-    _launch(name, xyz.device, xyz, start, out, md, r, n, n_samples, cs,
+    _launch(name, xyz.device, xyz, start, out, md, stats, r, n, n_samples, cs,
             entry="fps_cluster", path=f"fps_{path}")
     return out
+
+
+class PrunedPicks(NamedTuple):
+    """`fps_pruned_mirror`'s result: the picks (R, S) int32, the warp
+    updates skipped and possible (over the warps that hold points), and the
+    running minima that a skipped update would have lowered (0 when the
+    skip test is exact)."""
+    picks: torch.Tensor
+    skipped: int
+    possible: int
+    moved: int
+
+
+def _hilbert_cell(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """csrc/fps.cu's `hilbert_cell`: the Hilbert index of integer cells (x, y)
+    of the FPS_SORT_SIDE^2 grid."""
+    d = torch.zeros_like(x)
+    s = FPS_SORT_SIDE // 2
+    while s > 0:
+        rx, ry = (x & s) > 0, (y & s) > 0
+        d += s * s * ((3 * rx.long()) ^ ry.long())
+        flip = ~ry & rx
+        x = torch.where(flip, FPS_SORT_SIDE - 1 - x, x)
+        y = torch.where(flip, FPS_SORT_SIDE - 1 - y, y)
+        x, y = torch.where(~ry, y, x), torch.where(~ry, x, y)
+        s //= 2
+    return d
+
+
+def fps_skip_bound(lo: torch.Tensor, hi: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """csrc/fps.cu's skip test's D for boxes [lo, hi] (..., 3) and winners l
+    (..., 3): the per-axis gap g = max(lo - l, l - hi, 0), each difference
+    rounded to float32, then sq_norm3(g) in the distance's fma order. No
+    point of a box is nearer: D <= its squared distance to l as the
+    kernels round it."""
+    return sq_norm3(torch.clamp_min(torch.maximum(lo - l, l - hi), 0.0))
+
+
+def fps_pruned_mirror(xyz: torch.Tensor, n_samples: int, start: torch.Tensor,
+                      slices: int = 1) -> PrunedPicks:
+    """csrc/fps.cu's pruned FPS in plain PyTorch, for rows cut into `slices`
+    contiguous slices of ceil(N / slices) points (1: fps_kernel; cs: the
+    cluster): each slice sorted by the Hilbert index of FPS_SORT_SIDE^2 xy
+    cells over its own extent (stable here; the kernel's order inside a
+    cell follows its atomics), 32 warps a slice of 32 PTS consecutive
+    sorted points, each warp's box and cached record (max running minimum,
+    least index holding it), and a pick's skip test D >= M
+    (`fps_skip_bound`). Every point's minimum is computed at every pick as
+    well, to count the minima that a skipped warp would have lowered
+    (`moved`)."""
+    r, n, _ = xyz.shape
+    dev = xyz.device
+    length = -(-n // slices)
+    pts = -(-length // FPS_THREADS)
+    wpts = 32 * pts  # points a warp
+    big = torch.iinfo(torch.int64).max
+    rows = torch.arange(r, device=dev)
+    # each slice's sort: a stable argsort of the Hilbert cell of its real points
+    pos = torch.arange(slices * length, device=dev).view(slices, length)
+    real = pos < n
+    p = xyz[:, pos.clamp(max=n - 1)]  # (R, slices, length, 3)
+    x, y = p[..., 0], p[..., 1]
+    inf = torch.tensor(float("inf"), device=dev)
+    x0 = torch.where(real, x, inf).amin(-1, keepdim=True)
+    x1 = torch.where(real, x, -inf).amax(-1, keepdim=True)
+    y0 = torch.where(real, y, inf).amin(-1, keepdim=True)
+    y1 = torch.where(real, y, -inf).amax(-1, keepdim=True)
+    ext = torch.maximum(x1 - x0, y1 - y0)
+    inv = torch.where(ext > 0, FPS_SORT_SIDE / ext, torch.zeros_like(ext))
+    cx = ((x - x0) * inv).clamp(0, FPS_SORT_SIDE - 1).long()
+    cy = ((y - y0) * inv).clamp(0, FPS_SORT_SIDE - 1).long()
+    key = torch.where(real, _hilbert_cell(cx, cy), FPS_SORT_SIDE ** 2)
+    order = torch.argsort(key, dim=-1, stable=True)  # (R, slices, length)
+    idx = pos.expand_as(order).gather(-1, order)
+    idx = F.pad(torch.where(idx < n, idx, -1), (0, 32 * wpts - length), value=-1)
+    idx = idx.view(r, slices * 32, wpts)
+    have = idx >= 0
+    p = torch.where(have[..., None], xyz[rows[:, None, None], idx.clamp(min=0)], 0.0)
+    box_lo = torch.where(have[..., None], p, inf).amin(2)  # (R, warps, 3)
+    box_hi = torch.where(have[..., None], p, -inf).amax(2)
+    wreal = have.any(2)
+    mind = torch.where(have, inf, 0.0)  # no point: 0, and its index never wins
+    ckey = torch.where(have, idx, big).amin(2)
+    cmax = torch.where(wreal, inf, 0.0)
+    out = torch.zeros((r, n_samples), dtype=torch.int32, device=dev)
+    out[:, 0] = start
+    last = start.long()
+    skipped = moved = 0
+    for i in range(1, n_samples):
+        lp = xyz[rows, last]  # (R, 3)
+        upd = fps_skip_bound(box_lo, box_hi, lp[:, None]) < cmax  # (R, warps)
+        full = torch.minimum(mind, sq_norm3(p - lp[:, None, None]))
+        moved += int(((full != mind) & have & ~upd[..., None]).sum())
+        skipped += int((~upd & wreal).sum())
+        mind = torch.where(upd[..., None], full, mind)
+        wmax = mind.amax(2)
+        wkey = torch.where((mind == wmax[..., None]) & have, idx, big).amin(2)
+        cmax = torch.where(upd, wmax, cmax)
+        ckey = torch.where(upd, wkey, ckey)
+        best = cmax.amax(1, keepdim=True)
+        last = torch.where(cmax == best, ckey, big).amin(1)
+        out[:, i] = last.int()
+    return PrunedPicks(out, skipped, int(wreal.sum()) * (n_samples - 1), moved)
 
 
 # ---------------------------------------------------------------------------
@@ -451,7 +594,8 @@ def sa_fused_eval(
     ws, gmax = _cell_workspace(b, n, c, q.device)
     picks = torch.empty((b, c, k), dtype=torch.int32, device=q.device)
     _launch(name, q.device, q, xyz, centroids, cterm, prm, out, ws, picks,
-            b, n, c, k, gmax, ch1, ch2, int(two), radius_sq(radius), _grid_cs(b, q.device),
+            b, n, c, k, gmax, ch1, ch2, int(two), radius_sq(radius),
+            _grid_cs(b, n + c, q.device),
             entry="sa_fused_eval_grid", path="sa_fused_eval_grid")
     return out
 
@@ -577,7 +721,7 @@ def _knn_grid_launch(x_src, pos_src, pos_tgt, scored):
     w = torch.empty((b, 3, t), dtype=torch.float32, device=x_src.device)
     ws, gmax = _cell_workspace(b, s, t, x_src.device)
     _launch("knn_interpolate", x_src.device, x_src, pos_src, pos_tgt, out, idx, w, ws, scored,
-            b, s, t, f, gmax, _grid_cs(b, x_src.device), entry="knn_interpolate_grid",
+            b, s, t, f, gmax, _grid_cs(b, s + t, x_src.device), entry="knn_interpolate_grid",
             path="knn_interpolate_grid")
     return out, idx, w
 
@@ -720,7 +864,7 @@ def ball_query(centroids: torch.Tensor, points: torch.Tensor, radius: float, k: 
         return idx, mask
     ws, gmax = _cell_workspace(b, n, c, points.device)
     _launch(name, points.device, centroids, points, idx, mask, ws, b, n, c, k, gmax,
-            radius_sq(radius), _grid_cs(b, points.device), entry="ball_query_grid",
+            radius_sq(radius), _grid_cs(b, n + c, points.device), entry="ball_query_grid",
             path="ball_query_grid")
     return idx, mask
 
@@ -793,7 +937,7 @@ def _nearest_launch(centroids: torch.Tensor, points: torch.Tensor, radius: float
     mask = torch.empty((b, c, k), dtype=torch.bool, device=points.device)
     ws, g = _cell_workspace(b, n, c, points.device)
     _launch("ball_query_nearest", points.device, centroids, points, idx, mask, ws, b, n, c, k,
-            g, radius_sq(radius), _grid_cs(b, points.device))
+            g, radius_sq(radius), _grid_cs(b, n + c, points.device))
     return idx, mask, ws
 
 
@@ -836,25 +980,34 @@ def cell_grid_view(ws: torch.Tensor, b: int, n: int, c: int) -> Dict[str, torch.
                 sorted_pts=views["spts"].view(torch.float32))
 
 
-def cell_grid_cluster(b: int, sms: int = CARD_SMS) -> int:
+def cell_grid_cluster(b: int, n: int, sms: int = CARD_SMS) -> int:
     """Blocks a cloud of csrc/cell_grid.cuh's grid pass (a cluster, its
-    size a launch attribute) for b clouds on a card of `sms` SMs: the
-    largest cs up to CELL_GRID_CLUSTER_MAX whose b x cs blocks take one
-    wave, a block an SM (the kernel holds two an SM, so b clusters of cs
-    fit at once within the card's GPCs); 1 past sms / 2 clouds. On an H100:
-    8 up to B = 16 (B = 2: the grid reference sites), 6 at B = 20 (the
-    dense steps), 1 from B = 67."""
-    return max(1, min(CELL_GRID_CLUSTER_MAX, sms // max(b, 1)))
+    size a launch attribute) for b clouds of n entries each (points and
+    centroids, or kNN's sources and targets: all that the pass sorts) on a
+    card of `sms` SMs: the most blocks up to CELL_GRID_CLUSTER_MAX such
+    that (1) each block's slice holds GRID_ENTRIES_A_BLOCK entries or more
+    (a shorter slice saves less than a block's share of the cluster's
+    barriers and histograms costs), and (2) the b clusters take at most
+    GRID_SM_SHARE of the SMs, or GRID_CLUSTER_FLOOR blocks a cloud if that
+    is more: past that share blocks double up on SMs while each still
+    reads cs histograms, and a cloud of a few blocks in two waves beats one
+    block a cloud. On an H100 (scripts/kernel_variants.py cell_grid, every
+    cs at each site; PERF.md): 4 at the dense steps' B=20 sites and the
+    nearest route's PROD SA1, 3 at its SA2 (3,125 entries a cloud), 8 at
+    B <= 11 with large clouds, 4 at B=67."""
+    spread = max(GRID_CLUSTER_FLOOR, sms * GRID_SM_SHARE[0] // (GRID_SM_SHARE[1] * max(b, 1)))
+    return max(1, min(CELL_GRID_CLUSTER_MAX, n // GRID_ENTRIES_A_BLOCK, spread))
 
 
 _card_sms: Dict[int, int] = {}
 
 
-def _grid_cs(b: int, device: torch.device) -> int:
-    """`cell_grid_cluster` of b clouds on `device`'s SMs (asked once)."""
+def _grid_cs(b: int, n: int, device: torch.device) -> int:
+    """`cell_grid_cluster` of b clouds of n entries on `device`'s SMs (asked
+    once)."""
     if device.index not in _card_sms:
         _card_sms[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
-    return cell_grid_cluster(b, _card_sms[device.index])
+    return cell_grid_cluster(b, n, _card_sms[device.index])
 
 
 # ---------------------------------------------------------------------------

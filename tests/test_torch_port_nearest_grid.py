@@ -6,7 +6,7 @@ clouds that test the culling radius's margin and the grid's edges. With the
 margin dropped (delta = 0), a cloud far from the origin loses picks: the
 margin is what keeps the culling exact there.
 
-The grid pass runs a cluster of `cuda_kernels.cell_grid_cluster(B, SMs)`
+The grid pass runs a cluster of `cuda_kernels.cell_grid_cluster(B, N + C, SMs)`
 blocks a cloud, each taking a slice of the points and of the centroids: a
 plain model of that partitioned pass (each slice's extent and maxima,
 per-rank histograms, bases and starts) gives the one-block pass's grid
@@ -210,15 +210,28 @@ def test_wrapper_grid_on_the_cpu_is_the_model():
     assert torch.equal(got["sorted_pts"], torch.stack([want[i, m.order[i]] for i in range(B)]))
 
 
-@pytest.mark.parametrize("b,cs", [(1, 8), (2, 8), (20, 6), (40, 3), (132, 1), (200, 1)])
-def test_cell_grid_cluster_by_clouds(b, cs):
-    """The grid pass's blocks a cloud: the largest cluster up to 8 whose B x
-    cs blocks take one wave of an H100's 132 SMs, 1 past 132 clouds; every
-    size the wrapper can launch is a portable cluster size."""
-    assert ck.cell_grid_cluster(b) == ck.cell_grid_cluster(b, ck.CARD_SMS) == cs
-    assert b * cs <= ck.CARD_SMS or cs == 1
-    assert {ck.cell_grid_cluster(n) for n in range(1, 400)} == set(range(1, 9))
-    assert ck.cell_grid_cluster(b, 2 * ck.CARD_SMS) == min(8, max(1, 2 * ck.CARD_SMS // b))
+@pytest.mark.parametrize("b,n,cs", [
+    (20, 16384 + 65536, 4),   # the dense steps' kNN FP1 and SA1 (measured best: 4)
+    (20, 20000 + 80000, 4),   # the 80,000-point train step's ball query and FP1
+    (20, 4096 + 16384, 4),    # dense FP2
+    (20, 10000 + 2500, 4),    # the nearest route's PROD SA1
+    (20, 2500 + 625, 3),      # ... and SA2: slices of no fewer than 1,000 entries
+    (2, 16384 + 65536, 8),    # kNN's grid reference sites
+    (1, 16384 + 65536, 8),
+    (67, 16384 + 65536, 4),   # many clouds: the floor of 4 blocks (two waves)
+    (1, 999, 1),              # a cloud too small to slice
+    (16, 16384 + 65536, 5),   # 88 // 16: two thirds of the SMs
+])
+def test_cell_grid_cluster_by_clouds(b, n, cs):
+    """The grid pass's blocks a cloud: the most up to 8 whose slices hold
+    1,000 entries or more and whose clusters fill at most two thirds of an
+    H100's 132 SMs, or 4 blocks if that is more; every size the wrapper can
+    launch is a portable cluster size, and one cloud takes each."""
+    assert ck.cell_grid_cluster(b, n) == ck.cell_grid_cluster(b, n, ck.CARD_SMS) == cs
+    assert {ck.cell_grid_cluster(1, m) for m in range(1, 20000, 250)} == set(range(1, 9))
+    assert {ck.cell_grid_cluster(k, n) for k in range(1, 400)} <= set(range(1, 9))
+    assert ck.cell_grid_cluster(b, n, 2 * ck.CARD_SMS) == max(1, min(
+        8, n // 1000, max(4, 2 * ck.CARD_SMS * 2 // (3 * b))))
 
 
 def test_grid_entries_take_the_cluster_size():
