@@ -30,11 +30,11 @@ Phases, in order, each failing loudly:
      than picks; plots at Lambert-93 scale; 90% of the points in 5% of the
      plot, on the cluster path), and the long rows: a grid cloud at the
      dense SA1 parts, an odd row of 40,001 points, rows of 60,000 and
-     100,000 (clusters of 4 and 8 blocks) and a row of 200,000 past the
-     cluster's shared memory), each with 0 differing indices and a
-     `"fps_pruning"` line with the share of its warp updates that the
-     pruning skipped (`cuda_kernels.fps_skips`, one more launch, the same
-     picks), and the SA
+     100,000 (clusters of 8 blocks of 512 and of 1024 threads) and a row of
+     200,000 past the cluster's shared memory), each with 0 differing
+     indices and a `"fps_pruning"` line with the share of its warp updates
+     that the pruning skipped (`cuda_kernels.fps_pruning`, one more launch,
+     the same picks), and the SA
      kernel's selection reference sites (SEL_REFERENCE: tie-heavy grid
      clouds at the SA1 and SA2 shapes, a ragged site with an empty last
      group, a site at the longest group staged whole, then the cell grid's
@@ -68,7 +68,10 @@ Phases, in order, each failing loudly:
      cloud of the fewest entries that take each), held alike;
   4b. `"phase": "fps_chain"`: FPS's latency floor, the time of a pick with
      one point a thread (N=1024), against the per-pick time and the share
-     of warp updates skipped at the step sites;
+     of warp updates skipped at the step sites; beside them the cluster's
+     time a pick at the dense SA1 parts (40 x 32,768, FPS_CHAIN_LONG) and,
+     at the 80,000-point step's 40 x 40,000, its instance (block size, cs),
+     its waves of clusters and its time a pick;
   5. the counted serve step: launch counters zeroed just before, read just
      after (2 per serve kernel, 0 for the train kernels), outputs finite,
      coverages in [0, 1];
@@ -185,8 +188,9 @@ Phases, in order, each failing loudly:
      steps held to the plain versions (0 differing picks and entries) and
      timed, the global FPS path and sa_train_bwd2's dq windows at their
      reference sites (DQ_REFERENCE: SA1's shape at subsample_size 80,000),
-     FPS's time a pick on both and the clusters the card holds at once at
-     each long-row shape (`"phase": "fps_cluster_resident"`); a whole
+     FPS's time a pick on both and the clusters of each block size the
+     card holds at once at each long-row shape (`"phase":
+     "fps_cluster_resident"`); a whole
      train step at B=20 x 80,000 (`"phase": "dense_dq_train"`: launches by
      wrapper and by path, the dq windows among them, outputs, its FPS rows
      and SA1 dq windows held to the plain versions and timed, the median of
@@ -431,10 +435,11 @@ OPTIN_ROUTES = {
 # 0.06-0.5 m in x and y) and "clustered", 90% of the points in 5% of the
 # plot (NEAREST_CLUSTER), the last on the cluster path; then the long-row
 # paths (cuda_kernels.fps_path): a grid cloud at the dense phase's SA1 parts
-# (a cluster of 2 blocks a row), an odd row that no partition takes
-# (N=40001: 4 blocks of 10,001 points, 10 a thread), rows of 60,000 (4
-# blocks of 15,000, 15 a thread) and 100,000 (8 blocks of 12,500, 13 a
-# thread) and, last (the dense phase's global site), a row past the
+# (20 rows: clusters of 8 blocks of 512 threads, 8 points a thread), an odd
+# row that no partition takes (N=40001: 8 blocks of 512, 5,001 points, 10 a
+# thread), rows of 60,000 (8 blocks of 512, 7,500 points, 15 a thread) and
+# 100,000 (8 blocks of 1024, 12,500 points, 13 a thread) and, last (the
+# dense phase's global site), a row past the
 # cluster's shared memory (N=200000: 8 blocks, x, y, z and the running
 # minima in device memory), all "uniform": serve-like plots (xy in
 # [-10, 10]^2 m, z in [0, 3])
@@ -625,7 +630,7 @@ DENSE_WRAPPERS = {"fps_cluster": "fps", "fps_global": "fps",
                   "sa_fused_eval_grid": "sa_fused_eval", "ball_query_grid": "ball_query",
                   "knn_interpolate_grid": "knn_interpolate", "pixel_max_ranges": "pixel_max",
                   "sa_train_dq_chunked": "sa_train_bwd2", "pixel_max_bwd": "pixel_max_bwd"}
-DENSE_KERNELS = {"fps_cluster": "fps_cluster_kernel", "fps_global": "fps_cluster_kernel<8, 0>",
+DENSE_KERNELS = {"fps_cluster": "fps_cluster_kernel", "fps_global": "fps_cluster_kernel<0, 1024>",
                  "sa_fused_eval_grid": ("sa_grid_kernel", "grouped_cull_kernel<true>",
                                         "sa_apply_kernel<16, 16, true>"),
                  "ball_query_grid": ("ball_query_grid_kernel", "grouped_cull_kernel<false>"),
@@ -646,7 +651,8 @@ DQ_REFERENCE = (1, 80000, 20000, 32, 16)
 # ... and a whole train step there (phase 15h's last part): B=20 plots of
 # subsample_size 80,000 at diam_pix 100, the default plan, whose SA1 dq pass
 # takes windows (SA2's, at 20,000 points, does not); FPS rows of 40,000 (a
-# cluster of 5 blocks), SA1 groups of 2,500 (the cell grid), kNN from 20,000
+# cluster of 5 blocks of 512 threads, one wave), SA1 groups of 2,500 (the
+# cell grid), kNN from 20,000
 # and 5,000 sources (the cell grid), three pixel ranges
 DENSE_DQ_N = 80000
 DENSE_DQ_TRAIN_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_grid": 1,
@@ -654,6 +660,9 @@ DENSE_DQ_TRAIN_PATHS = {"fps_cluster": 1, "fps_global": 0, "ball_query_grid": 1,
                         "pixel_max_ranges": 1, "sa_train_dq_chunked": 1}
 DENSE_DQ_STEPS = 3  # timed steps; the median is reported
 FPS_FLOOR_N = 1024  # one point for each thread of the FPS block
+# the cluster's rows at fps_chain: the dense serve step's SA1 parts and the
+# 80,000-point train step's, (rows, N, S)
+FPS_CHAIN_LONG = ((40, 32768, 8192), (40, 40000, 10000))
 SHIFT_STD = 0.1  # phase 10's BN running means (the shifts), as the CPU stage tests draw them
 SA_ATOL = 1e-4  # layer-2 dot: FMA contraction and summation order differ
 # Fused vs unfused SA stage at PROD (phase 10): both sum the batch statistics
@@ -1346,7 +1355,9 @@ def fps_chain(torch, ck, step_calls, device):
     barrier) and a one-point update; its time per pick, times the step's
     picks, is the floor a kernel with this chain cannot go under. Beside
     it the step sites' time a pick and the share of their warp updates
-    that the pruning skipped (`cuda_kernels.fps_skips`)."""
+    that the pruning skipped (`cuda_kernels.fps_pruning`), and the
+    cluster's rows of FPS_CHAIN_LONG: each one's instance, its waves of
+    clusters on this card and its time a pick."""
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     rows = step_calls[0][0].shape[0]
     pts = torch.randint(0, 16, (rows, FPS_FLOOR_N, 3), generator=gen, device=device).float()
@@ -1358,13 +1369,26 @@ def fps_chain(torch, ck, step_calls, device):
     step_per_pick = [cuda_ms(torch, lambda a=a: ck.fps(*a), 20) / (a[1] - 1) for a in step_calls]
     shares = []
     for a in [args] + list(step_calls):
-        _, skipped, possible = ck.fps_skips(*a)
+        _, skipped, possible = ck.fps_pruning(*a)
         shares.append(skipped / possible if possible else None)
+    long_rows = []
+    for r, n, s in FPS_CHAIN_LONG:  # the cluster's rows: its instance, waves and time a pick
+        u = torch.rand((r, n, 3), generator=gen, device=device)
+        a = (torch.cat([u[..., :2] * 20 - 10, u[..., 2:] * 3], -1), s,
+             torch.zeros(r, dtype=torch.int32, device=device))
+        resident = ck.fps_cluster_resident(n, device)
+        path, cs, threads = ck.fps_path(n, r, resident)
+        check(torch.equal(ck.fps(*a), ck.fps_plain(*a)), f"fps_chain {r}x{n}: kernel differs")
+        long_rows.append({"rows": r, "N": n, "S": s, "path": path, "cs": cs, "threads": threads,
+                          "waves": -(-r // resident[threads][cs]),
+                          "per_pick_us": cuda_ms(torch, lambda a=a: ck.fps(*a), 5) / (s - 1) * 1e3})
+        del u, a
     print(json.dumps({"phase": "fps_chain", "rows": rows, "N": FPS_FLOOR_N, "S": FPS_FLOOR_N,
                       "per_pick_us": per_pick_ms * 1e3, "skipped_share": shares[0],
                       "step_picks": picks, "step_floor_ms": per_pick_ms * sum(picks),
                       "step_sites_per_pick_us": [t * 1e3 for t in step_per_pick],
-                      "step_sites_skipped_share": shares[1:]}), flush=True)
+                      "step_sites_skipped_share": shares[1:], "cluster_rows": long_rows}),
+          flush=True)
 
 
 def pixel_max_site(torch, ck, site, args):
@@ -1504,11 +1528,11 @@ def check_site(torch, ck, name, site, args, work=None):
         err = float((got - want).abs().max())
         r, n, _ = xyz.shape
         nbytes, ops = r * n * 12 + r * 4 + r * s * 4, 10.0 * (s - 1) * r * n
-        path, cs = ck.fps_path(n, r, ck.fps_cluster_resident(n, xyz.device)
-                               if xyz.is_cuda and n > ck.FPS_MAX_N else None)
-        shape = f"rows={r} N={n} S={s} path={path} cs={cs}"
+        path, cs, threads = ck.fps_path(n, r, ck.fps_cluster_resident(n, xyz.device)
+                                        if xyz.is_cuda and n > ck.FPS_MAX_N else None)
+        shape = f"rows={r} N={n} S={s} path={path} cs={cs} threads={threads}"
         # the pruning's work: one more launch, with its counter
-        again, skipped, possible = ck.fps_skips(*args)
+        again, skipped, possible = ck.fps_pruning(*args)
         check(torch.equal(again, got), f"fps site {site}: the counted launch picks differently")
         share = skipped / possible if possible else None
         print(json.dumps({"phase": "fps_pruning", "fps_site": site, "fps_shape": shape,
@@ -4008,20 +4032,22 @@ def dense_path_sites(ck, serve_calls, train_calls):
 
 
 def fps_resident(torch, ck, device, shapes):
-    """At each long-row FPS shape (rows, N): the clusters of each size the
-    card holds at once (`cuda_kernels.fps_cluster_resident`), the table the
-    CPU tests take (FPS_RESIDENT) and the wrapper's cluster size; fails if
-    a cluster size would hold every row at once but the wrapper's does
-    not."""
+    """At each long-row FPS shape (rows, N): the clusters of each size and
+    block size the card holds at once (`cuda_kernels.fps_cluster_resident`),
+    the table the CPU tests take (FPS_RESIDENT) and the wrapper's instance;
+    fails if an instance would hold every row at once but the wrapper's
+    does not."""
     for rows, n in shapes:
         resident = ck.fps_cluster_resident(n, device)
-        path, cs = ck.fps_path(n, rows, resident)
+        path, cs, threads = ck.fps_path(n, rows, resident)
         print(json.dumps({"phase": "fps_cluster_resident", "rows": rows, "N": n, "path": path,
-                          "cs": cs, "resident": resident, "table": ck.FPS_RESIDENT,
-                          "one_wave": rows <= resident[cs]}), flush=True)
-        if path == "cluster" and any(rows <= resident[c] for c in range(2, ck.FPS_CLUSTER_MAX + 1)
-                                     if -(-n // c) <= ck.FPS_MAX_N):
-            check(rows <= resident[cs], f"fps rows={rows} N={n}: cs={cs} leaves rows waiting")
+                          "cs": cs, "threads": threads,
+                          "resident": {str(t): v for t, v in resident.items()},
+                          "table": {str(t): v for t, v in ck.FPS_RESIDENT.items()},
+                          "one_wave": rows <= resident[threads][cs]}), flush=True)
+        if path == "cluster" and any(rows <= k for v in resident.values() for k in v.values()):
+            check(rows <= resident[threads][cs],
+                  f"fps rows={rows} N={n}: {threads} threads x {cs} leaves rows waiting")
 
 
 def dense_phase(torch, ck, cfg, device, card, small=None):
@@ -4144,7 +4170,7 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
     rows["fps_cluster"]["block_rows"] = [
         {"rows": a[0].shape[0], "N": a[0].shape[1], "S": a[1],
          "per_pick_us": cuda_ms(torch, lambda a=a: ck.fps(*a), 5) / (a[1] - 1) * 1e3,
-         "skipped_share": (lambda t: t[1] / t[2] if t[2] else None)(ck.fps_skips(*a))}
+         "skipped_share": (lambda t: t[1] / t[2] if t[2] else None)(ck.fps_pruning(*a))}
         for a in block]
     dq_n = DENSE_DQ_N if small is None else small["dq_N"]
     fps_resident(torch, ck, device, [(a[0].shape[0], a[0].shape[1]) for a in fps_sites] +

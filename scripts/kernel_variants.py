@@ -41,15 +41,19 @@ copy, to run them in turns:
         stratanet2_tpu_torch/ops/csrc/ball_query_nearest.cu@kNearBuf=32
 
 fps runs FPS's designs at every shape chip_smoke.py holds (see
-`run_fps`): the package's pruned kernels, the unpruned ones (in
-scripts/variants/fps_unpruned.cu), the cluster-barrier design and one block
-a row;
+`run_fps`): the package's pruned kernels, the earlier ones with 1024-thread
+clusters only (scripts/variants/fps_pr21.cu), sub-boxes in the warp's
+update, a flat cluster exchange, one block a row with the row in L2, the
+unpruned ones (in scripts/variants/fps_unpruned.cu), the cluster-barrier
+design and one block a row from device memory;
 sa_train_bwd2 the windowed dq pass's (see `run_bwd2`). The earlier
 designs are files of scripts/variants/ that include the package's source,
 so one library holds both designs:
 
-    python3 scripts/kernel_variants.py fps scripts/variants/fps_unpruned.cu \
-        scripts/variants/fps_cluster_barrier.cu scripts/variants/fps_one_block.cu
+    python3 scripts/kernel_variants.py fps stratanet2_tpu_torch/ops/csrc/fps.cu \
+        scripts/variants/fps_pr21.cu scripts/variants/fps_sub_boxes.cu \
+        scripts/variants/fps_sub_boxes.cu@kSubBranch=1 scripts/variants/fps_flat_exchange.cu \
+        scripts/variants/fps_unpruned.cu scripts/variants/fps_cluster_barrier.cu
     python3 scripts/kernel_variants.py sa_train_bwd2 scripts/variants/sa_train_dq_windows.cu
 
 selection runs the grouped selection (the standalone query and the SA
@@ -989,11 +993,20 @@ FPS_SITES = (("chain_floor", 40, 1024, 1024),
              ("global", 1, 200000, 1024))
 
 
-def takes_stats(src, symbol):
-    """Whether the C entry `symbol` of a SOURCE takes FPS's pruning counter
-    (`unsigned long long* stats`; a parent tree's entries do not)."""
+def takes(src, symbol, arg):
+    """Whether the C entry `symbol` of a SOURCE takes the argument `arg`:
+    FPS's pruning counter (`unsigned long long* stats`; a parent tree's
+    entries take none), the cluster's block size (`int threads`; those of
+    scripts/variants/fps_pr21.cu take none), the running-minima scratch
+    (`float* md`; scripts/variants/fps_flat_exchange.cu's takes none)."""
     sig = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', source_text(src))
-    return sig is not None and "stats" in sig[1]
+    return sig is not None and arg in sig[1]
+
+
+# The entries of FPS's variants in scripts/variants/ that include the
+# package's source: their libraries' package entries are timed from the
+# package's own SOURCE, not again.
+FPS_VARIANT_ENTRIES = ("fps_sub_launch", "fps_flat_cluster_launch", "fps_row_launch")
 
 
 def run_fps(torch, ck, libs, gen, device_):
@@ -1001,65 +1014,110 @@ def run_fps(torch, ck, libs, gen, device_):
     library exports, in turns A, B, B, A: the package's `fps_launch`
     (fps_kernel, exact pruning) at rows of up to 16,384 points and its
     `fps_cluster_launch` (its library also exports `fps_cluster_resident`)
-    past them, at the wrapper's cs (`cuda_kernels.fps_path` on the card's
-    resident clusters, printed) and at every other cs that holds the
-    slices; scripts/variants/fps_unpruned.cu's `fps_unpruned_launch` (the
+    past them, at the wrapper's instance (`cuda_kernels.fps_path` on the
+    card's resident clusters of each block size, printed) and at every
+    other cs and block size that holds the slices; at the wrapper's
+    instance also the cluster of one block (cs = 1) and fps_kernel on each
+    row's first slice alone, whose time a pick against the row's is the
+    cluster exchange's share, and fps_kernel's on the slice against its
+    chain floor (one point a thread, FPS_SITES' first) the share of the
+    slice's points (`"exchange_split"` line);
+    scripts/variants/fps_unpruned.cu's `fps_unpruned_launch` (the
     unpruned fps_kernel) and `fps_unpruned_cluster_launch` (the unpruned
-    cluster) at the same cs; a parent's `fps_launch` / `fps_cluster_launch`
-    (no counter) likewise, or at the power-of-two cs (`pr16_fps_cs`) for a
-    file with no `fps_cluster_resident`; `fps_barrier_launch`
-    (scripts/variants/fps_cluster_barrier.cu, a cluster barrier a pick)
-    and `fps_stream_launch` (scripts/variants/fps_one_block.cu: one block a
-    row): differing picks
+    cluster) at the same cs; scripts/variants/fps_pr21.cu's or a parent's
+    `fps_launch` / `fps_cluster_launch` (no block size; a parent's without
+    a counter) likewise, or at the power-of-two cs (`pr16_fps_cs`) for a
+    file with no `fps_cluster_resident`; `fps_sub_launch`
+    (scripts/variants/fps_sub_boxes.cu, sub-boxes in fps_kernel's update)
+    up to 16,384 points, `fps_flat_cluster_launch`
+    (scripts/variants/fps_flat_exchange.cu) at the wrapper's instance and,
+    alone on the first slice, at cs = 1 (`"flat_split"` line),
+    `fps_row_launch` (scripts/variants/fps_row_l2.cu, one block a row, the
+    row in L2), `fps_barrier_launch` (scripts/variants/fps_cluster_barrier.cu,
+    a cluster barrier a pick) and `fps_stream_launch`
+    (scripts/variants/fps_one_block.cu: one block a row): differing picks
     against the plain version, the CUDA-event ms of a launch (mean of
     REPS), us a pick and, for a design with the counter, the share of its
-    warp updates skipped."""
+    warp updates skipped (and for the sub-boxes of its sub-box updates,
+    `sub_skipped_share`)."""
     stream = torch._C._cuda_getCurrentRawStream(0)
+    floor_us = {}  # each source's fps_kernel at one point a thread
     for site, rows, n, s in FPS_SITES:
         xyz = plot_clouds(torch, gen, rows, n, device_)
         start = torch.randint(0, n, (rows,), generator=gen, device=device_, dtype=torch.int32)
         want = ck.fps_plain(xyz, s, start)
         md = torch.empty((rows, n), device=device_)
-        stats = torch.zeros(2, dtype=torch.int64, device=device_)
+        stats = torch.zeros(4, dtype=torch.int64, device=device_)
         glob = int(n > ck.FPS_CLUSTER_MAX * ck.FPS_MAX_N)
         fns = {}
+        sliced = {}  # the first slice of every row alone, at the wrapper's instance
 
-        def add(label, lib, src, symbol, cs, scratch):
-            """label -> (cs, call(out, counted)) for entry `symbol`: pointers
-            xyz, start, out (then md on a cluster entry that takes it, the
-            counter where the entry takes one), ints rows, n, s (then cs)."""
+        def first_slice(cs):
+            if not sliced:
+                length = -(-n // cs)
+                part, pstart = xyz[:, :length].contiguous(), start % length
+                sliced.update(part=(part, pstart, ck.fps_plain(part, min(s, length), pstart)))
+            return sliced["part"]
+
+        def add(label, lib, src, symbol, cs, scratch, threads=None, part=None):
+            """label -> (cs, counter, call(out, counted), its picks) for
+            entry `symbol`: pointers xyz, start, out (then md where the
+            entry takes it, the counter where it takes one), ints rows, n,
+            s (then cs on a cluster entry, then the block size where the
+            entry takes one); `part` the (xyz, start, want) of a slice
+            instead."""
+            px, pstart, pwant = part or (xyz, start, want)
+            pn, ps = px.shape[1], pwant.shape[1]
             cluster = "cluster" in symbol or "barrier" in symbol
-            counter = takes_stats(src, symbol)
-            md_arg = cluster and "unpruned" not in symbol
+            counter = takes(src, symbol, "unsigned long long* stats")
+            md_arg = takes(src, symbol, "float* md")
+            sized = takes(src, symbol, "int threads")
             n_ptrs = 3 + md_arg + counter
-            fn = entry(lib, symbol, n_ptrs, 3 + cluster)
+            fn = entry(lib, symbol, n_ptrs, 3 + cluster + sized)
             fns[label] = (cs, counter, lambda out, counted=False: fn(
-                xyz.data_ptr(), start.data_ptr(), out.data_ptr(),
+                px.data_ptr(), pstart.data_ptr(), out.data_ptr(),
                 *([md.data_ptr() if scratch else None] if md_arg else []),
                 *([stats.data_ptr() if counted else None] if counter else []),
-                rows, n, s, *([cs] if cluster else []), stream))
+                rows, pn, ps, *([cs] if cluster else []),
+                *([threads or ck.FPS_THREADS] if sized else []), stream), pwant)
 
+        instance = None  # the wrapper's (cs, threads), from the package's library
         for src, lib in libs.items():
+            if any(hasattr(lib, e) for e in FPS_VARIANT_ENTRIES):
+                continue
             if n <= ck.FPS_MAX_N:
                 for symbol in ("fps_launch", "fps_unpruned_launch"):
                     if hasattr(lib, symbol):
                         add((src, symbol.removesuffix("_launch")), lib, src, symbol, 1, False)
                 continue
             if hasattr(lib, "fps_cluster_resident"):
-                res = entry(lib, "fps_cluster_resident", 0, 3)
-                res.argtypes = [ctypes.c_int] * 3
-                resident = {cs: res(n, cs, glob) for cs in range(2, ck.FPS_CLUSTER_MAX + 1)}
+                sized = takes(src, "fps_cluster_launch", "int threads")
+                res = entry(lib, "fps_cluster_resident", 0, 3 + sized)
+                res.argtypes = [ctypes.c_int] * (3 + sized)
+                blocks = ((ck.FPS_THREADS, ck.FPS_PAIR_THREADS) if sized and not glob
+                          else (ck.FPS_THREADS,))
+                resident = {t: {cs: res(n, cs, *([t] if sized else []), glob)
+                                for cs in (range(2, ck.FPS_CLUSTER_MAX + 1) if glob
+                                           else ck._fps_sizes(n, t))} for t in blocks}
                 print(json.dumps({"source": str(src), "site": site, "resident_clusters": resident,
                                   "table": ck.FPS_RESIDENT}), flush=True)
-                _, pick = ck.fps_path(n, rows, resident)
-                for cs in [pick] + [c for c in range(2, ck.FPS_CLUSTER_MAX + 1)
-                                    if c != pick and (glob or -(-n // c) <= ck.FPS_MAX_N)
-                                    and site != "global"]:
-                    add((src, "cluster" if cs == pick else f"cluster_cs{cs}"), lib, src,
-                        "fps_cluster_launch", cs, glob)
-                    if hasattr(lib, "fps_unpruned_cluster_launch") and not glob and cs == pick:
+                _, pick, pick_t = ck.fps_path(n, rows, resident)
+                options = [(pick_t, pick)] + [
+                    (t, cs) for t in blocks for cs in (range(2, ck.FPS_CLUSTER_MAX + 1) if glob
+                                                       else ck._fps_sizes(n, t))
+                    if (t, cs) != (pick_t, pick) and site != "global"]
+                for t, cs in options:
+                    label = "cluster" if (t, cs) == (pick_t, pick) else f"cluster{t}_cs{cs}"
+                    add((src, label), lib, src, "fps_cluster_launch", cs, glob, t)
+                    if hasattr(lib, "fps_unpruned_cluster_launch") and not glob and label == "cluster":
                         add((src, "unpruned_cluster"), lib, src, "fps_unpruned_cluster_launch",
                             cs, False)
+                if sized and not glob:  # the exchange's share: the row's first slice alone
+                    instance = (pick, pick_t)
+                    add((src, "slice_cluster_cs1"), lib, src, "fps_cluster_launch", 1, False,
+                        pick_t, first_slice(pick))
+                    add((src, "slice_block"), lib, src, "fps_launch", 1, False,
+                        part=first_slice(pick))
             elif hasattr(lib, "fps_cluster_launch"):  # PR 16's file
                 add((src, "cluster_pr16"), lib, src, "fps_cluster_launch", pr16_fps_cs(n), glob)
             if hasattr(lib, "fps_barrier_launch"):
@@ -1068,22 +1126,68 @@ def run_fps(torch, ck, libs, gen, device_):
                 fn = entry(lib, "fps_stream_launch", 4, 3)
                 fns[(src, "stream")] = (1, False, lambda out, counted=False, fn=fn: fn(
                     xyz.data_ptr(), start.data_ptr(), out.data_ptr(), md.data_ptr(), rows, n, s,
-                    stream))
+                    stream), want)
+        for src, lib in libs.items():  # the variants that include the package's source
+            if n <= ck.FPS_MAX_N:
+                if hasattr(lib, "fps_sub_launch"):
+                    add((src, "sub"), lib, src, "fps_sub_launch", 1, False)
+                continue
+            if hasattr(lib, "fps_flat_cluster_launch") and not glob and instance:
+                pick, pick_t = instance
+                add((src, "flat"), lib, src, "fps_flat_cluster_launch", pick, False, pick_t)
+                add((src, "slice_flat_cs1"), lib, src, "fps_flat_cluster_launch", 1, False,
+                    pick_t, first_slice(pick))
+            if hasattr(lib, "fps_row_launch") and not glob:  # one block a row, the row in L2
+                rpts = lib.fps_row_pts(n)
+                if rpts > 0:
+                    fn = entry(lib, "fps_row_launch", 5, 3)
+                    sorted_ = torch.empty((rows, rpts * ck.FPS_THREADS, 4), device=device_)
+                    fns[(src, "row_l2")] = (1, True, lambda out, counted=False, fn=fn, t=sorted_: fn(
+                        xyz.data_ptr(), start.data_ptr(), out.data_ptr(), t.data_ptr(),
+                        stats.data_ptr() if counted else None, rows, n, s, stream), want)
+        us = {}
         for key in list(fns) + list(fns)[::-1]:
-            cs, counter, call = fns[key]
-            out = torch.empty((rows, s), dtype=torch.int32, device=device_)
+            cs, counter, call, pwant = fns[key]
+            out = torch.empty_like(pwant)
             stats.zero_()
             rc = call(out, True)
             torch.cuda.synchronize()
-            skipped, possible = stats.tolist()
+            skipped, possible, sub_skipped, sub_possible = stats.tolist()
             ms = event_ms(torch, lambda: call(out))
+            us.setdefault(key, []).append(ms / (pwant.shape[1] - 1) * 1e3)
             print(json.dumps({
                 "source": str(key[0]), "kernel": "fps", "design": key[1], "site": site, "rc": rc,
-                "shape": [rows, n, s], "cs": cs, "differing": int((out != want).sum()), "ms": ms,
-                "us_a_pick": ms / (s - 1) * 1e3,
+                "shape": [rows, n, s] if pwant is want else [rows, *pwant.shape[1:], "slice"],
+                "cs": cs, "differing": int((out != pwant).sum()), "ms": ms,
+                "us_a_pick": us[key][-1],
                 "skipped_share": skipped / possible if counter and possible else None,
+                **({"sub_skipped_share": sub_skipped / sub_possible} if sub_possible else {}),
             }), flush=True)
-        del xyz, md, want
+
+        def mean(key):
+            return sum(us[key]) / len(us[key]) if key in us else None
+
+        for src in libs:
+            row, one, block = ((src, "cluster"), (src, "slice_cluster_cs1"), (src, "slice_block"))
+            if site == "chain_floor" and (src, "fps") in us:
+                floor_us[src] = mean((src, "fps"))
+            if one in us:
+                print(json.dumps({
+                    "source": str(src), "site": site, "exchange_split": True,
+                    "row_us_a_pick": mean(row), "slice_alone_cs1_us_a_pick": mean(one),
+                    "slice_block_us_a_pick": mean(block), "chain_floor_us_a_pick": floor_us.get(src),
+                    "cluster_exchange_us_a_pick": mean(row) - mean(one),
+                    "cs1_vs_block_us_a_pick": mean(one) - mean(block),
+                    "slice_points_us_a_pick": (mean(block) - floor_us[src]
+                                               if src in floor_us else None)}), flush=True)
+            if (src, "flat") in us:
+                print(json.dumps({
+                    "source": str(src), "site": site, "flat_split": True,
+                    "row_us_a_pick": mean((src, "flat")),
+                    "slice_alone_cs1_us_a_pick": mean((src, "slice_flat_cs1")),
+                    "cluster_exchange_us_a_pick": mean((src, "flat")) - mean((src, "slice_flat_cs1"))
+                }), flush=True)
+        del xyz, md, want, sliced
 
 
 # The grouped selection's sites (`run_selection`): (site, cloud, B, N, C, K,

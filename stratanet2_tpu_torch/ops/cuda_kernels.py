@@ -24,8 +24,9 @@ Six wrappers take another path for shapes past their PROD kernels' reach
 (the dense plots), chosen by shape (`fps_path`, `sel_path`, `knn_path`,
 `pixel_max_range`, `sa_train_dq_plan`), and count it in `PATH_LAUNCHES` too:
 FPS rows over 16,384 points run a block cluster a row (`fps_cluster`, its
-size from the rows and the clusters the card holds at once, and past
-131,072 points `fps_global`, its running minima in device memory); a
+size and its blocks' threads, 1024 or 512, from the rows and the clusters
+the card holds at once, and past 131,072 points `fps_global`, its running
+minima in device memory); a
 selection group longer than a warp's staging slice takes the cell grid of
 csrc/cell_grid.cuh, each centroid scoring only its 3 x 3 cells, with the
 same picks (`ball_query_grid`, `sa_fused_eval_grid`); kNN with many
@@ -79,15 +80,20 @@ PIXEL_MAX_TABLE = _SMEM_MAX // 8  # 64-bit keys (pixel x channel slots) a block'
 # ... and a range's table past one block: two blocks of pixel_max_kernel on
 # each SM (228 KB of shared memory an SM, 1 KB of it reserved a block)
 PIXEL_MAX_PAIR_TABLE = (228 * 1024 // 2 - 1024) // 8
-FPS_THREADS = 1024  # csrc/fps.cu: threads a block
-FPS_MAX_N = 16 * FPS_THREADS  # fps_kernel: at most 16 points for each of its threads
+FPS_THREADS = 1024  # csrc/fps.cu: threads a block (kThreads)
+FPS_PAIR_THREADS = 512  # ... of the cluster's blocks of two an SM (kPairThreads)
+FPS_MAX_PTS = 16  # points a thread at most (kMaxPts)
+FPS_MAX_N = FPS_MAX_PTS * FPS_THREADS  # fps_kernel: at most 16 points for each of its threads
 FPS_CLUSTER_MAX = 8  # fps_cluster_kernel: blocks a row at most (the portable cluster size)
 FPS_SORT_SIDE = 64  # csrc/fps.cu: the side of the xy grid that orders a slice (kSortSide)
-# clusters of cs blocks of fps_cluster_kernel (1024 threads, one block an
-# SM) that an NVIDIA H100 80GB HBM3 holds at once, cs = 2 .. 8:
-# cudaOccupancyMaxActiveClusters on the card (chip_smoke.py's dense phase
-# prints the card's own, which the wrapper takes: `fps_cluster_resident`)
-FPS_RESIDENT = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+# {threads: {cs: clusters}}: clusters of cs blocks of fps_cluster_kernel
+# (1024 threads, one block an SM, cs = 2 .. 8; 512, two an SM, cs = 3 .. 8,
+# the sizes whose slices rows past 16,384 points fill) that an NVIDIA H100
+# 80GB HBM3 holds at once: cudaOccupancyMaxActiveClusters on the card
+# (chip_smoke.py's dense phase prints the card's own, which the wrapper
+# takes: `fps_cluster_resident`)
+FPS_RESIDENT = {FPS_THREADS: {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15},
+                FPS_PAIR_THREADS: {3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30}}
 # csrc/common.cuh's grouped selection: 8 warps a block each stage up to one
 # group of g points as float4, for a tile of 64 centroids
 SEL_WARPS, SEL_TILE = 8, 64
@@ -158,8 +164,8 @@ _ENTRIES = {  # entry: (library = csrc/<library>.cu, C entry point, its argument
     "knn_interpolate_grid": (
         "knn_interpolate", "knn_interpolate_grid_launch", [_VP] * 8 + [_I] * 6 + [_VP]
     ),
-    "fps_cluster": ("fps", "fps_cluster_launch", [_VP] * 5 + [_I] * 4 + [_VP]),
-    "fps_resident": ("fps", "fps_cluster_resident", [_I] * 3),  # no launch: a query
+    "fps_cluster": ("fps", "fps_cluster_launch", [_VP] * 5 + [_I] * 5 + [_VP]),
+    "fps_resident": ("fps", "fps_cluster_resident", [_I] * 4),  # no launch: a query
 }
 WRAPPERS = ("fps", "sa_fused_eval", "knn_interpolate", "pixel_max", "ball_query", "knn_scatter",
             "pixel_max_bwd", "sa_train_stats", "sa_train_main", "sa_train_bwd1", "sa_train_bwd2",
@@ -275,56 +281,80 @@ def fps_plain(xyz: torch.Tensor, n_samples: int, start: torch.Tensor) -> torch.T
     return out
 
 
-def fps_path(n: int, rows: int, resident: Optional[Dict[int, int]] = None):
-    """csrc/fps.cu's path for `rows` rows of n points, as (path, blocks a
-    row): ("block", 1), fps_kernel, up to FPS_MAX_N points; ("cluster",
-    cs), a cluster of cs blocks a row, each block's slice of ceil(n / cs)
-    <= FPS_MAX_N points in shared memory, up to FPS_CLUSTER_MAX x FPS_MAX_N
-    points; past that ("global", FPS_CLUSTER_MAX), the slices read from
-    device memory and the running minima in a device-memory scratch.
-    `resident` ({cs: clusters of cs blocks the card holds at once}, one
-    block an SM; FPS_RESIDENT, an H100's, by default) sets cs: the fewest
-    waves of clusters (ceil(rows / resident[cs])), then the fewest points a
-    thread, then the fewest blocks."""
+class FpsPath(NamedTuple):
+    """`fps_path`'s choice for rows of n points: csrc/fps.cu's path, blocks
+    a row and threads a block."""
+    path: str
+    cs: int
+    threads: int = FPS_THREADS
+
+
+def fps_path(n: int, rows: int, resident: Optional[Dict[int, Dict[int, int]]] = None) -> FpsPath:
+    """csrc/fps.cu's path for `rows` rows of n points: ("block", 1), fps_kernel,
+    up to FPS_MAX_N points; ("cluster", cs, threads), a cluster of cs blocks
+    of FPS_THREADS (one an SM) or FPS_PAIR_THREADS (two an SM) a row, each
+    block's slice of ceil(n / cs) points in shared memory (at most
+    FPS_MAX_PTS a thread), up to FPS_CLUSTER_MAX x FPS_MAX_N points; past
+    that ("global", FPS_CLUSTER_MAX), the slices read from device memory
+    and the running minima in a device-memory scratch. `resident`
+    ({threads: {cs: clusters of cs blocks the card holds at once}};
+    FPS_RESIDENT, an H100's, by default) sets the instance: the fewest
+    waves of clusters (ceil(rows / resident)), then the 512-thread blocks
+    (faster a pick at every long-row site measured, two slices' picks side
+    by side on an SM: PERF.md), then the fewest points a thread, then the
+    fewest blocks."""
     if n <= FPS_MAX_N:
-        return "block", 1
+        return FpsPath("block", 1)
     if n > FPS_CLUSTER_MAX * FPS_MAX_N:
-        return "global", FPS_CLUSTER_MAX
+        return FpsPath("global", FPS_CLUSTER_MAX)
     resident = FPS_RESIDENT if resident is None else resident
 
-    def cost(cs):
-        return -(-rows // max(resident[cs], 1)), _slice_pts(n, cs), cs
+    def cost(option):
+        threads, cs = option
+        return (-(-rows // max(resident[threads][cs], 1)), threads != FPS_PAIR_THREADS,
+                _slice_pts(n, cs, threads), cs)
 
-    return "cluster", min(range(-(-n // FPS_MAX_N), FPS_CLUSTER_MAX + 1), key=cost)
+    threads, cs = min(((t, cs) for t in resident for cs in _fps_sizes(n, t)), key=cost)
+    return FpsPath("cluster", cs, threads)
 
 
-def _slice_pts(n: int, cs: int) -> int:
+def _fps_sizes(n: int, threads: int):
+    """The cluster sizes whose slices of n points fit blocks of `threads`
+    (FPS_MAX_N points a block of FPS_THREADS)."""
+    return range(max(2, -(-n * FPS_THREADS // (FPS_MAX_N * threads))), FPS_CLUSTER_MAX + 1)
+
+
+def _slice_pts(n: int, cs: int, threads: int = FPS_THREADS) -> int:
     """Points a thread of fps_cluster_kernel's slices of ceil(n / cs) points."""
-    return -(-(-(-n // cs)) // FPS_THREADS)
+    return -(-(-(-n // cs)) // threads)
 
 
 _fps_resident: Dict[tuple, int] = {}
 
 
-def fps_cluster_resident(n: int, device: torch.device) -> Dict[int, int]:
-    """{cs: clusters of cs blocks of the instance that rows of n points take
-    (each cs up to FPS_CLUSTER_MAX whose slices of ceil(n / cs) points fit
-    in shared memory, or all past them) that `device` holds at once}, asked of
-    the card once per instance (cudaOccupancyMaxActiveClusters, the
-    library's `fps_cluster_resident`)."""
+def fps_cluster_resident(n: int, device: torch.device) -> Dict[int, Dict[int, int]]:
+    """{threads: {cs: clusters of cs blocks of the instance that rows of n
+    points take that `device` holds at once}}, for each block size and each
+    cs up to FPS_CLUSTER_MAX whose slices of ceil(n / cs) points fit in
+    shared memory (past them, the global path's 1024-thread blocks at every
+    cs), asked of the card once per instance (cudaOccupancyMaxActiveClusters,
+    the library's `fps_cluster_resident`)."""
     fn = _fns.get("fps_resident") or _bind("fps_resident")
     glob = int(n > FPS_CLUSTER_MAX * FPS_MAX_N)
-    out = {}
-    for cs in range(2 if glob else max(2, -(-n // FPS_MAX_N)), FPS_CLUSTER_MAX + 1):
-        key = (device.index, cs, 0 if glob else _slice_pts(n, cs))
-        if key not in _fps_resident:
-            with torch.cuda.device(device):
-                got = fn(n, cs, glob)
-            if got < 0:
-                msg = _build.load("fps").error_string(-got).decode()
-                raise RuntimeError(f"fps_cluster_resident(n={n}, cs={cs}): {msg} ({-got})")
-            _fps_resident[key] = got
-        out[cs] = _fps_resident[key]
+    out: Dict[int, Dict[int, int]] = {}
+    for threads in (FPS_THREADS,) if glob else (FPS_THREADS, FPS_PAIR_THREADS):
+        sizes = range(2, FPS_CLUSTER_MAX + 1) if glob else _fps_sizes(n, threads)
+        for cs in sizes:
+            key = (device.index, cs, threads, 0 if glob else _slice_pts(n, cs, threads))
+            if key not in _fps_resident:
+                with torch.cuda.device(device):
+                    got = fn(n, cs, threads, glob)
+                if got < 0:
+                    msg = _build.load("fps").error_string(-got).decode()
+                    raise RuntimeError(
+                        f"fps_cluster_resident(n={n}, cs={cs}, threads={threads}): {msg} ({-got})")
+                _fps_resident[key] = got
+            out.setdefault(threads, {})[cs] = _fps_resident[key]
     return out
 
 
@@ -336,18 +366,18 @@ def fps(xyz: torch.Tensor, n_samples: int, start: torch.Tensor) -> torch.Tensor:
     return _fps_launch(xyz, n_samples, start, None)
 
 
-def fps_skips(xyz: torch.Tensor, n_samples: int, start: torch.Tensor):
+def fps_pruning(xyz: torch.Tensor, n_samples: int, start: torch.Tensor):
     """`fps`'s picks with its pruning's work: (picks, skipped, possible),
     the warp updates that the launch skipped and the updates its picks
     could have made, over the warps that hold points (csrc/fps.cu's stats;
     0 and 0 on the global path, which does not prune). One counted launch
     on the card; on the CPU the plain picks and `fps_pruned_mirror`'s
-    counts at the card's slices (`fps_path`)."""
+    counts at the card's slices and blocks (`fps_path`)."""
     if not _fps_check(xyz, n_samples, start):
-        path, cs = fps_path(xyz.shape[1], xyz.shape[0])
+        path, cs, threads = fps_path(xyz.shape[1], xyz.shape[0])
         if path == "global":
             return fps_plain(xyz, n_samples, start), 0, 0
-        mirror = fps_pruned_mirror(xyz, n_samples, start, cs)
+        mirror = fps_pruned_mirror(xyz, n_samples, start, cs, threads)
         return fps_plain(xyz, n_samples, start), mirror.skipped, mirror.possible
     stats = torch.zeros(2, dtype=torch.int64, device=xyz.device)
     out = _fps_launch(xyz, n_samples, start, stats)
@@ -375,14 +405,15 @@ def _fps_launch(xyz, n_samples, start, stats):
     name = "fps"
     r, n, _ = xyz.shape
     out = torch.empty((r, n_samples), dtype=torch.int32, device=xyz.device)
-    path, cs = fps_path(n, r, None if n <= FPS_MAX_N else fps_cluster_resident(n, xyz.device))
+    path, cs, threads = fps_path(n, r, None if n <= FPS_MAX_N
+                                 else fps_cluster_resident(n, xyz.device))
     if path == "block":
         _launch(name, xyz.device, xyz, start, out, stats, r, n, n_samples)
         return out
     _expect(r * cs < 2 ** 31, name, f"{r} rows of {cs} blocks exceed the grid")
     # the global path's running minima: a device-memory row of N floats a row
     md = torch.empty((r, n), dtype=torch.float32, device=xyz.device) if path == "global" else None
-    _launch(name, xyz.device, xyz, start, out, md, stats, r, n, n_samples, cs,
+    _launch(name, xyz.device, xyz, start, out, md, stats, r, n, n_samples, cs, threads,
             entry="fps_cluster", path=f"fps_{path}")
     return out
 
@@ -423,26 +454,19 @@ def fps_skip_bound(lo: torch.Tensor, hi: torch.Tensor, l: torch.Tensor) -> torch
     return sq_norm3(torch.clamp_min(torch.maximum(lo - l, l - hi), 0.0))
 
 
-def fps_pruned_mirror(xyz: torch.Tensor, n_samples: int, start: torch.Tensor,
-                      slices: int = 1) -> PrunedPicks:
-    """csrc/fps.cu's pruned FPS in plain PyTorch, for rows cut into `slices`
+def fps_warp_points(xyz: torch.Tensor, slices: int = 1, threads: int = FPS_THREADS):
+    """The points of csrc/fps.cu's warps, for rows cut into `slices`
     contiguous slices of ceil(N / slices) points (1: fps_kernel; cs: the
-    cluster): each slice sorted by the Hilbert index of FPS_SORT_SIDE^2 xy
-    cells over its own extent (stable here; the kernel's order inside a
-    cell follows its atomics), 32 warps a slice of 32 PTS consecutive
-    sorted points, each warp's box and cached record (max running minimum,
-    least index holding it), and a pick's skip test D >= M
-    (`fps_skip_bound`). Every point's minimum is computed at every pick as
-    well, to count the minima that a skipped warp would have lowered
-    (`moved`)."""
+    cluster) and blocks of `threads`: each slice sorted by the Hilbert index
+    of FPS_SORT_SIDE^2 xy cells over its own extent (stable here; the
+    kernel's order inside a cell follows its atomics), threads / 32 warps a
+    slice of 32 PTS consecutive sorted points. (R, slices x threads / 32,
+    32 PTS) int64 row indices in sorted order, -1 past a slice's points."""
     r, n, _ = xyz.shape
     dev = xyz.device
     length = -(-n // slices)
-    pts = -(-length // FPS_THREADS)
-    wpts = 32 * pts  # points a warp
-    big = torch.iinfo(torch.int64).max
-    rows = torch.arange(r, device=dev)
-    # each slice's sort: a stable argsort of the Hilbert cell of its real points
+    warps = threads // 32
+    wpts = 32 * -(-length // threads)  # points a warp
     pos = torch.arange(slices * length, device=dev).view(slices, length)
     real = pos < n
     p = xyz[:, pos.clamp(max=n - 1)]  # (R, slices, length, 3)
@@ -459,8 +483,24 @@ def fps_pruned_mirror(xyz: torch.Tensor, n_samples: int, start: torch.Tensor,
     key = torch.where(real, _hilbert_cell(cx, cy), FPS_SORT_SIDE ** 2)
     order = torch.argsort(key, dim=-1, stable=True)  # (R, slices, length)
     idx = pos.expand_as(order).gather(-1, order)
-    idx = F.pad(torch.where(idx < n, idx, -1), (0, 32 * wpts - length), value=-1)
-    idx = idx.view(r, slices * 32, wpts)
+    idx = F.pad(torch.where(idx < n, idx, -1), (0, warps * wpts - length), value=-1)
+    return idx.view(r, slices * warps, wpts)
+
+
+def fps_pruned_mirror(xyz: torch.Tensor, n_samples: int, start: torch.Tensor,
+                      slices: int = 1, threads: int = FPS_THREADS) -> PrunedPicks:
+    """csrc/fps.cu's pruned FPS in plain PyTorch, on the warps of
+    `fps_warp_points` (`slices` slices a row, blocks of `threads`): each
+    warp's box and cached record (max running minimum, least index holding
+    it), and a pick's skip test D >= M (`fps_skip_bound`). Every point's
+    minimum is computed at every pick as well, to count the minima that a
+    skipped warp would have lowered (`moved`)."""
+    r = xyz.shape[0]
+    dev = xyz.device
+    big = torch.iinfo(torch.int64).max
+    rows = torch.arange(r, device=dev)
+    inf = torch.tensor(float("inf"), device=dev)
+    idx = fps_warp_points(xyz, slices, threads)
     have = idx >= 0
     p = torch.where(have[..., None], xyz[rows[:, None, None], idx.clamp(min=0)], 0.0)
     box_lo = torch.where(have[..., None], p, inf).amin(2)  # (R, warps, 3)

@@ -66,45 +66,51 @@ def rng():
 
 
 @pytest.mark.parametrize("n,rows,want", [
-    (2500, 20, ("block", 1)),  # PROD SA2's rows
-    (5000, 40, ("block", 1)),  # PROD SA1's parts (N=10000, fps_parts=2)
-    (10000, 20, ("block", 1)),  # PROD SA1 unpartitioned
-    (16384, 20, ("block", 1)),  # fps_kernel's last row: 16 points a thread
-    (16385, 2, ("cluster", 6)),  # 3 points a thread: 7 and 8 blocks take as many
-    (32768, 40, ("cluster", 2)),  # the dense serve step's SA1 parts: 39 clusters of 3 at most
-    (32768, 20, ("cluster", 5)),  # 7 points a thread; 6 blocks would leave 3 rows waiting
-    (32769, 40, ("cluster", 5)),  # past 2 blocks' slices: two waves whatever cs, 5 the fewest points
-    (40000, 40, ("cluster", 5)),  # the 80,000-point train step's SA1 parts
-    (40001, 4, ("cluster", 8)),
-    (131072, 1, ("cluster", 8)),  # the cluster's reach: 8 slices of 16,384
-    (131073, 1, ("global", 8)),
-    (200000, 1, ("global", 8)),  # FPS_REFERENCE's global site
-    (32768, 80, ("cluster", 2)),  # B=40: two waves of 2-block clusters, three of 3
+    (2500, 20, ("block", 1, 1024)),  # PROD SA2's rows
+    (5000, 40, ("block", 1, 1024)),  # PROD SA1's parts (N=10000, fps_parts=2)
+    (10000, 20, ("block", 1, 1024)),  # PROD SA1 unpartitioned
+    (16384, 20, ("block", 1, 1024)),  # fps_kernel's last row: 16 points a thread
+    (16385, 2, ("cluster", 7, 512)),  # 5 points a thread in 7 blocks of 512 (8 take as many)
+    (32768, 40, ("cluster", 5, 512)),  # the dense serve step's SA1 parts: 47 clusters of 5
+    (32768, 20, ("cluster", 8, 512)),  # 8 points a thread, every size one wave
+    (32769, 40, ("cluster", 5, 512)),  # past 2 blocks' slices: 1024s take two waves, 512s one
+    (40000, 40, ("cluster", 5, 512)),  # the 80,000-point train step's SA1 parts
+    (40001, 4, ("cluster", 8, 512)),
+    (65537, 4, ("cluster", 8, 1024)),  # past 8 blocks of 512: 1024s, 9 points a thread
+    (131072, 1, ("cluster", 8, 1024)),  # the cluster's reach: 8 slices of 16,384
+    (131073, 1, ("global", 8, 1024)),
+    (200000, 1, ("global", 8, 1024)),  # FPS_REFERENCE's global site
+    (32768, 80, ("cluster", 5, 512)),  # B=40: two waves at best, 13 points a thread
 ])
 def test_fps_path_by_row_length(n, rows, want):
     """fps_kernel up to 16,384 points a row; past it a cluster of cs blocks a
-    row whose slices fit in shared memory, cs chosen from the rows and the
-    card's resident clusters (FPS_RESIDENT, an H100's): the fewest waves of
-    clusters (all rows at once where some cs allows it), then the fewest
-    points a thread, then the fewest blocks."""
+    row (of 1024 threads, one an SM, or 512, two an SM) whose slices fit in
+    shared memory, chosen from the rows and the card's resident clusters
+    (FPS_RESIDENT, an H100's): the fewest waves of clusters (all rows at
+    once where some instance allows it), then 512-thread blocks, then the
+    fewest points a thread, then the fewest blocks."""
     assert ck.fps_path(n, rows) == want
-    path, cs = want
+    path, cs, threads = want
     res = ck.FPS_RESIDENT
 
-    def pts(c):
-        return -(-(-(-n // c)) // ck.FPS_THREADS)
+    def pts(c, t):
+        return -(-(-(-n // c)) // t)
 
-    def waves(c):
-        return -(-rows // res[c])
+    def waves(c, t):
+        return -(-rows // res[t][c])
 
     if path == "cluster":
-        fit = [c for c in range(2, ck.FPS_CLUSTER_MAX + 1) if -(-n // c) <= ck.FPS_MAX_N]
-        assert cs in fit and waves(cs) == min(map(waves, fit))
-        assert pts(cs) == min(pts(c) for c in fit if waves(c) == waves(cs))
-        assert (waves(cs) == 1) == (rows <= max(res[c] for c in fit))  # every row at once
-        assert pts(cs) <= 16 and (cs == min(fit) or pts(cs - 1) > pts(cs) or waves(cs - 1) > 1)
+        fit = [(t, c) for t in res for c in range(2, ck.FPS_CLUSTER_MAX + 1)
+               if -(-n // c) <= 16 * t]
+        assert (threads, cs) in fit and waves(cs, threads) == min(waves(c, t) for t, c in fit)
+        same = [(t, c) for t, c in fit if waves(c, t) == waves(cs, threads)]
+        assert (threads == ck.FPS_PAIR_THREADS) == any(t == ck.FPS_PAIR_THREADS for t, _ in same)
+        assert pts(cs, threads) == min(pts(c, t) for t, c in same if t == threads)
+        # every row at once where some instance allows it
+        assert (waves(cs, threads) == 1) == (rows <= max(res[t][c] for t, c in fit))
+        assert pts(cs, threads) <= 16
     if path == "global":
-        assert rows <= res[cs]
+        assert threads == ck.FPS_THREADS and rows <= res[threads][cs]
 
 
 def _sa_smem(gc, ch1, ch2, two, k):
