@@ -16,8 +16,15 @@ Phases, in order, each failing loudly:
   1. the card's name and power limit (nvidia-smi), then its SM clock and
      maximum SM clock (`"phase": "card"`);
   2. build: one nvcc per kernel source, started together;
+  The steps run as CUDA graphs on the card (`learning/programs.py`): a
+  step's first call for a batch shape and set of tensors runs its body and
+  captures it, later calls replay it, and the launch counters add the
+  launches a graph holds at each replay; the phases that record kernel
+  inputs run the steps' eager bodies (`step.body`), since a capture
+  computes nothing, and phase 15i holds the replays to those bodies.
   Serve step (fps, sa_fused_eval, knn_interpolate, pixel_max):
-  3. capture: one serve step records every kernel call's inputs;
+  3. capture: one serve step's eager body records every kernel call's
+     inputs;
   4. per kernel and call site: kernel vs plain on the captured inputs
      (indices exactly, values within the stated atol; for the SA kernel the
      picks of its built-in ball query are read back through probe launches),
@@ -72,10 +79,11 @@ Phases, in order, each failing loudly:
      time a pick at the dense SA1 parts (40 x 32,768, FPS_CHAIN_LONG) and,
      at the 80,000-point step's 40 x 40,000, its instance (block size, cs),
      its waves of clusters and its time a pick;
-  5. the counted serve step: launch counters zeroed just before, read just
+  5. the counted serve step (its first call: the body, then the capture):
+     launch counters zeroed just before, read just
      after (2 per serve kernel, 0 for the train kernels), outputs finite,
      coverages in [0, 1];
-  6. step time (median of 30 synchronised steps) and points/s;
+  6. step time (median of 30 synchronised steps, replays) and points/s;
   7. profile: `torch.profiler` traces 10 steps; each device kernel's time
      per step, the port's kernels summed per wrapper, all twelve listed (a
      wrapper shows kernels exactly when it launches), the rest of
@@ -86,7 +94,8 @@ Phases, in order, each failing loudly:
   Train step (forward, plot projection, 3-term loss, backward, Adam; a KDE
   prior fitted on the batch's z; BN running statistics at init; SA1 and SA2
   on the fused route through the four SA train kernels):
-  9. capture: one train step, on a copy of the model, records every call of
+  9. capture: one train step's eager body, on a copy of the model, records
+     every call of
      the seven train kernels and of pixel_max, whose train-step site is held
      exactly to its plain version and timed like a serve site;
   10. fused vs unfused: SA1 and SA2 at the PROD shapes on the fused route
@@ -200,14 +209,26 @@ Phases, in order, each failing loudly:
      launched; sa_train_bwd2's edge buffer (the card against the CPU is
      phases 8 and 15's, at PROD: at the dense shapes the CPU's plain
      versions took most of this phase);
+  15i. `"phase": "graphs"` (`graphs_phase`, run after 15h): the replayed
+     steps against their eager bodies bit for bit: the serve step at PROD
+     (B=20), at B=2 and at the dense shape; `make_predict_program` over 3
+     batches (each batch's outputs its own); 3 train steps from one state
+     with the learning rate dropping before the third (params, BN buffers,
+     Adam's moments and count, loss parts); two device-resident epochs and
+     an eval (sums, state, the generators' states, predictions and loss
+     parts); captures, replays and launches counted through replay; then
+     the graph against the eager body in turns: serve and train step ms at
+     PROD and at the dense shape, the device-resident epoch's ms a batch
+     and busy share;
   15e. `"phase": "parcel"`: parcel predict at PROD width (`parcel_phase`):
      a synthetic 100 m parcel's LAS (140 m with its buffer, ~627,000
      points) written, tiled and extracted (`"phase": "parcel_prepare"`,
      with the min-z path), `predict_parcel` with chains 8 and 1 for both
      tasks (equal bit for bit, launches counted for every batch the card
-     ran), the shapefile update, plots/s end to end with its split (cold
-     and warm), the device busy share of the predict loop and the upload
-     from pageable against pinned memory; then `"phase":
+     ran), the shapefile update, plots/s end to end with its split (cold,
+     and warm with one program for every run), the device busy share of
+     the predict loop, and the warm runs by the serve step's graph, by its
+     eager body and from pinned memory, in turns; then `"phase":
      "parcel_cpu_reference"`, 4 plots as one batch on the card against the
      CPU (merged tif and PRED_* fields within CPU_ATOL);
   15f. `"phase": "cli"`: the four CLIs in DEV mode at PROD width
@@ -730,14 +751,22 @@ PARCEL_SIZE, PARCEL_DENSITY = 100.0, 32.0
 PARCEL_ORIGIN = (650_000.0, 6_860_000.0)
 PARCEL_CPU_PLOTS = 4
 # warm runs of the chain-8 inference, the port's (batches from pageable
-# memory) and with a pinned, non-blocking upload, in turns
-PARCEL_UPLOADS = ("pageable", "pinned", "pinned", "pageable", "pageable", "pinned")
+# memory, the serve step's graph replayed), the serve step's eager body, and
+# with a pinned, non-blocking upload, in turns
+PARCEL_UPLOADS = ("pageable", "eager", "pinned", "pinned", "eager", "pageable", "pageable",
+                  "eager", "pinned")
 # phase 15f (cli): DEV's 30 plots (5 folds x 6) of about a PROD plot's
 # points, and a parcel of CLI_PARCEL_SIZE m at PARCEL_DENSITY
 CLI_PLOTS, CLI_POINTS = 30, 12000
 CLI_PARCEL_SIZE = 60.0
 SEED = 0
 STEPS = 30  # timed steps; the median is reported
+# phase 15i: batches of make_predict_program, train steps from one state,
+# the device-resident epochs' plots (the last 2 batches' worth for the eval)
+# and points a plot, and the synchronised steps of each turn of its timing
+GRAPH_BATCHES, GRAPH_TRAIN_STEPS = 3, 3
+GRAPH_PLOTS = (160, 12000)
+GRAPH_STEPS = 10
 PROFILE_STEPS = 10
 # traces device_profile takes before it gives up on one that holds no kernel
 # (three empty traces in a row at one site were seen once on an H100)
@@ -2193,9 +2222,10 @@ def serve_phases(torch, ck, cfg, device, card):
     model = random_model(cfg.model, SEED, device)
     step = make_predict_step(cfg, device=device)
 
-    # phase 3: one serve step records each kernel call's inputs
+    # phase 3: one serve step, its eager body (a graph's capture computes
+    # nothing), records each kernel call's inputs
     captured = capture_calls(ck, [name for name, _, _ in SERVE_KERNELS],
-                             lambda: step(model, cloud, xyz))
+                             lambda: step.body(model, cloud, xyz))
     torch.cuda.synchronize()
     step_fps = list(captured["fps"])
     captured["fps"] += fps_reference_calls(torch, xyz, device)
@@ -2896,6 +2926,7 @@ def epoch_paths(torch, cfg, ds, train_ids, val_ids, kde, device, card):
                       "card_resident_mb": table_mb, **out, "card": card}), flush=True)
     print(json.dumps({"phase": "device_epoch_host_syncs", "batches": nb, **syncs,
                       "kernel_launches": launches,
+                      "graph_launches": counts.get("cudaGraphLaunch", 0),
                       "note": "less an empty profile's events; aten::item on the host's "
                               "tensors waits for nothing"}), flush=True)
     check(np.isfinite(out["device_resident"]["busy_share"]), "epoch_paths: busy share")
@@ -2929,10 +2960,13 @@ def parcel_phase(torch, ck, cfg, device, card):
     and steps: `predict_parcel` less its merge) and merge + shapefile, for
     the process's first parcel ("cold": the first merge imports scipy) and
     for the median of the later chain-8 inference runs of the port
-    ("warm"); the device busy share of the predict loop (busy time from a
-    profiled chain-8 run over the warm loop time); and the warm runs with
-    the batches uploaded as the port does (pageable memory) and from pinned
-    memory without blocking, in the turns of PARCEL_UPLOADS. Card against
+    ("warm": one program for every run, as the predict CLI makes one for
+    its parcels, its first run untimed); the device busy share of the
+    predict loop (busy time from a profiled chain-8 run over the warm loop
+    time); and the warm runs with the batches uploaded as the port does
+    (pageable memory), run by the serve step's eager body instead of its
+    graph, and from pinned memory without blocking, in the turns of
+    PARCEL_UPLOADS, each variant's program made once. Card against
     CPU: PARCEL_CPU_PLOTS plots as one batch (chain 1), merged tif and
     PRED_* fields within CPU_ATOL, NaN in the same places."""
     import os
@@ -2997,9 +3031,9 @@ def parcel_phase(torch, ck, cfg, device, card):
         write_input_shapefile(shp_in)
         runs = {}
 
-        def run(name, chain, task, data=plots, run_cfg=cfg, on=device, net=model):
-            """One predict_parcel: (output path, seconds, merge seconds),
-            launches checked."""
+        def run(name, chain, task, data=plots, run_cfg=cfg, on=device, net=model, program=None):
+            """One predict_parcel (by `program`, default a new one): (output
+            path, seconds, merge seconds), launches checked."""
             out_dir = os.path.join(tmp, name)
             c = replace(run_cfg, data=replace(run_cfg.data, predict_chain=chain))
             data = {k: dict(v) for k, v in data.items()}
@@ -3023,7 +3057,7 @@ def parcel_phase(torch, ck, cfg, device, card):
                     torch.cuda.synchronize()
                 t = time.perf_counter()
                 path = predict.predict_parcel(net, data, c, parcel_id, out_dir, task=task,
-                                              parcel_shape=shape, device=on)
+                                              parcel_shape=shape, device=on, program=program)
                 if on.type == "cuda":
                     torch.cuda.synchronize()
                 seconds = time.perf_counter() - t
@@ -3070,30 +3104,33 @@ def parcel_phase(torch, ck, cfg, device, card):
         fields = {k: record[k] for k in ("PRED_BASSE", "PRED_INTER", "PRED_HAUTE", "PRED_ADM")}
         check(all(0 <= v <= 1 for v in fields.values()), f"parcel: PRED fields {fields}")
 
-        # the device's busy time in a profiled chain-8 run, and the warm runs
-        # with the port's upload and with a pinned one, in turns
-        (_, busy_ms) = device_busy_ms(torch, lambda: run("inference_profiled", 8, "inference"))
-        real_step = predict.make_predict_step
-
-        def pinned_step(step_cfg, step_device=None, step_mesh=None):
-            """The serve step given its batches from pinned memory, copied
-            without blocking the host."""
-            step = real_step(step_cfg, step_device, step_mesh)
-
+        # each warm variant's program, made once and run once untimed: the
+        # port's, the serve step's eager body, and the port's given its
+        # batches from pinned memory, copied without blocking the host
+        def pinned_step(step):
             def pinned(net, *arrays):
                 return step(net, *(torch.as_tensor(a).pin_memory().to(device, non_blocking=True)
                                    for a in arrays))
 
             return pinned
 
-        upload = {"pageable": [], "pinned": []}
+        variants = {
+            "pageable": predict.make_predict_program(cfg, device),
+            "eager": predict.make_predict_program(
+                cfg, device, step=eager_serve(predict.make_predict_step(cfg, device))),
+            "pinned": predict.make_predict_program(
+                cfg, device, step=pinned_step(predict.make_predict_step(cfg, device))),
+        }
+        for kind, program in variants.items():
+            run(f"first_{kind}", 8, "inference", program=program)
+        # the device's busy time in a profiled chain-8 run, and the warm runs
+        # of each variant, in turns
+        (_, busy_ms) = device_busy_ms(torch, lambda: run("inference_profiled", 8, "inference",
+                                                         program=variants["pageable"]))
+        upload = {kind: [] for kind in variants}
         for i, kind in enumerate(PARCEL_UPLOADS):
-            if kind == "pinned":
-                predict.make_predict_step = pinned_step
-            try:
-                upload[kind].append(run(f"upload_{kind}_{i}", 8, "inference")[1:3])
-            finally:
-                predict.make_predict_step = real_step
+            upload[kind].append(run(f"upload_{kind}_{i}", 8, "inference",
+                                    program=variants[kind])[1:3])
 
         # card against CPU: PARCEL_CPU_PLOTS plots as one batch
         ids = get_index_sorted_plot_ids(plots)[:PARCEL_CPU_PLOTS]
@@ -3117,12 +3154,16 @@ def parcel_phase(torch, ck, cfg, device, card):
         pred_err = float(np.abs(card_pred - cpu_pred).max())
 
     n = len(plots)
-    warm_loop = float(np.median([t - m for t, m in upload["pageable"]]))
-    warm_merge = float(np.median([m for _, m in upload["pageable"]]))
+
+    def warm(kind):
+        return {"prepare": prepare_s,
+                "predict": float(np.median([t - m for t, m in upload[kind]])),
+                "merge_and_shapefile": float(np.median([m for _, m in upload[kind]])) + shapefile_s}
+
     split = {"cold": {"prepare": prepare_s, "predict": s8 - merge8,
                       "merge_and_shapefile": merge8 + shapefile_s},
-             "warm": {"prepare": prepare_s, "predict": warm_loop,
-                      "merge_and_shapefile": warm_merge + shapefile_s}}
+             "warm": warm("pageable"), "warm_eager_body": warm("eager")}
+    warm_loop = split["warm"]["predict"]
     print(json.dumps({"phase": "parcel", "plots": n, "B": b, "N": cfg.model.subsample_size,
                       "runs": runs, "split_seconds": split,
                       "plots_per_s": {k: n / sum(v.values()) for k, v in split.items()},
@@ -3637,8 +3678,10 @@ def parallel_rank(payload, device):
     m2, _, _, _, _ = run(ps_step, cfg_al, local, rank_generator(SEED, 1, mesh_ps, device))
     out["ps_train_reproducible"] = _digest(_step_state(m)) == _digest(_step_state(m2))
     out["ps_train_digest"] = _digest(_step_state(m))
+    # the eager body: the counting reads each n, which a graph's capture
+    # has not computed
     (ref_m, _, _, ref_comps, _), rows = counted_bn_rows(lambda: run(
-        make_train_step(cfg_unf, kde, device), cfg_unf, (cl_al, xyz_al, gt)))
+        eager_train(make_train_step(cfg_unf, kde, device)), cfg_unf, (cl_al, xyz_al, gt)))
     ref = _snapshot(ref_m, ref_comps, start)
     ref["state"] = replicated_count_state(ref_m, rows, 1.0, PAR_WORLD)
     out["ps_train_vs_unfused"] = step_diffs(torch, cfg_al, ps, ref)
@@ -3922,10 +3965,11 @@ def train_phases(torch, ck, cfg, device, card):
         opt, sched = make_optimizer(cfg, m, STEPS_PER_EPOCH)
         return m, opt, sched
 
-    # phase 9: one train step on a copy records each train kernel's calls
+    # phase 9: one train step's eager body on a copy records each train
+    # kernel's calls
     m, opt, sched = fresh()
     captured = capture_calls(ck, [name for name, _, _ in TRAIN_KERNELS] + ["pixel_max"],
-                             lambda: step(m, opt, sched, cloud, xyz, gt))
+                             lambda: step.body(m, opt, cloud, xyz, gt))
     torch.cuda.synchronize()
     del m, opt, sched
     # phase 10: fused vs unfused SA stages with nonzero shifts; its SA train
@@ -3989,6 +4033,264 @@ def train_phases(torch, ck, cfg, device, card):
     prepared, fed_ms = loader_steps(torch, ck, cfg, device, card)
     train_full_phase(torch, ck, cfg, device, card, prepared, fed_ms)
     return rows, ref_rows, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15i: the steps' CUDA graphs against their eager bodies
+# ---------------------------------------------------------------------------
+
+
+def _on_model(model, *arrays):
+    """The arrays as float32 tensors on the model's device, as a step takes
+    its inputs."""
+    import torch
+
+    dev = next(model.parameters()).device
+    return tuple(torch.as_tensor(a, device=dev).float() for a in arrays)
+
+
+def eager_serve(step):
+    """The serve step `step` run by its eager body (`step.body`): what it
+    runs without its CUDA graph."""
+    def run(model, cloud, xyz):
+        return step.body(model, *_on_model(model, cloud, xyz))
+
+    run.body = step.body
+    return run
+
+
+def eager_train(step):
+    """The train step `step` run by its eager body, then the schedule."""
+    def run(model, optimizer, scheduler, cloud, xyz, gt, generator=None):
+        comps = step.body(model, optimizer, *_on_model(model, cloud, xyz, gt), generator)
+        scheduler.step()
+        return comps
+
+    run.body = step.body
+    return run
+
+
+def same_bits(torch, a, b) -> bool:
+    """Tensors equal bit for bit (NaN payloads included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(ints), b.contiguous().view(ints)
+    return torch.equal(a, b)
+
+
+def _train_state(model, optimizer):
+    """Every tensor a train step writes: params, BN buffers, Adam's state."""
+    out = {f"param:{k}": p.detach().clone() for k, p in model.named_parameters()}
+    out.update({f"buffer:{k}": b.clone() for k, b in model.named_buffers()})
+    for k, p in model.named_parameters():
+        for key, value in optimizer.state[p].items():
+            out[f"adam:{k}:{key}"] = value.clone()
+    return out
+
+
+def _turns(torch, fns, reps):
+    """{name: [median host ms of `reps` synchronised calls, one a turn]} of
+    each fn in turns: a, b, b, a."""
+    names = list(fns)
+    out = {name: [] for name in names}
+    for name in names + names[::-1]:
+        out[name].append(timed_steps(torch, fns[name], reps)[0])
+    return out
+
+
+def graphs_phase(torch, ck, cfg, device, card, small=None):
+    """Phase 15i: the steps' CUDA graphs (`learning/programs.py`) against
+    their eager bodies, bit for bit, and their times in turns. The serve
+    step replayed at PROD (B=20), at B=2 and at the dense shape (DENSE)
+    against `step.body` on the same inputs; `make_predict_program` over
+    GRAPH_BATCHES different batches against as many eager steps (each
+    batch's outputs its own); GRAPH_TRAIN_STEPS train steps from one state
+    through the step (the first eager, then its capture and replays)
+    against as many eager bodies, with the schedule's period 2 so that the
+    learning rate drops before the third (params, BN buffers, Adam's
+    moments and count, loss parts, lr); two device-resident epochs and an
+    eval over GRAPH_PLOTS plots against their eager runs with the same
+    generators (the sums, the model and Adam after them, the generators'
+    states, the eval's predictions and loss parts). Captures and replays
+    counted, and the launch counters through replay (SERVE_LAUNCHES,
+    TRAIN_LAUNCHES, EVAL_LAUNCHES a step). Then, graph against eager body
+    in turns (a, b, b, a; GRAPH_STEPS synchronised steps a turn, the
+    median): serve and train step ms at PROD and at the dense shape, and
+    the device-resident epoch's ms a batch and device busy share. `small`
+    (the CPU test's) takes other sizes."""
+    from dataclasses import replace
+
+    from stratanet2_tpu_torch.data import device_dataset as D
+    from stratanet2_tpu_torch.inference.predict import make_predict_program
+    from stratanet2_tpu_torch.learning import train as T
+    from stratanet2_tpu_torch.learning.kde import fit_kde_mixture_from_dataset
+    from stratanet2_tpu_torch.utils.synthetic import serve_batch
+
+    t0 = time.perf_counter()
+    small = small or {}
+    dcfg = replace(cfg, model=replace(cfg.model, **small.get("dense", DENSE)))
+    st, dst = optin_setup(torch, cfg, device, {}), optin_setup(torch, dcfg, device, {})
+    b = cfg.train.batch_size
+    row = {"phase": "graphs", "card": card}
+
+    def counted(fn):
+        ck.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, ck.launch_counts(), ck.graph_counts()
+
+    def times(n, want):
+        return {k: n * v for k, v in want.items()}
+
+    # the serve step, replayed against its body
+    serve, model, cloud, xyz = st["serve"], st["model"], st["cloud"], st["xyz"]
+    sites = {"prod_B20": (serve, model, cloud, xyz), "prod_B2": (serve, model, cloud[:2], xyz[:2]),
+             "dense": (dst["serve"], dst["model"], dst["cloud"], dst["xyz"])}
+    row["serve"] = {}
+    for label, (step, m, c, x) in sites.items():
+        (_, first, made) = counted(lambda: step(m, c, x))  # the body, then its capture
+        (got, launches, graphs) = counted(lambda: step(m, c, x))
+        want = step.body(m, c, x)
+        differ = [name for name, g, w in zip(("rasters", "pred_pl"), got, want)
+                  if not same_bits(torch, g, w)]
+        row["serve"][label] = {"differ": differ, "first_call": made, "replay": graphs}
+        check(not differ, f"graphs: the replayed serve step at {label} differs in {differ}")
+        check(made == {"captures": 1, "replays": 0} and graphs == {"captures": 0, "replays": 1},
+              f"graphs: serve at {label}: captures and replays {made}, {graphs}")
+        check_launches(first, SERVE_LAUNCHES, f"graphs_serve_{label}_first")
+        check_launches(launches, SERVE_LAUNCHES, f"graphs_serve_{label}_replay")
+
+    # make_predict_program over different batches: each batch's outputs its own
+    gen = torch.Generator(device=device).manual_seed(SEED + 60)
+    batches = [serve_batch(b, cfg.model.subsample_size, gen, device) for _ in range(GRAPH_BATCHES)]
+    (rasters, preds), launches, graphs = counted(lambda: make_predict_program(
+        cfg, device, step=serve)(model, [c for c, _ in batches], [x for _, x in batches]))
+    differ = [i for i, (c, x) in enumerate(batches)
+              if not all(same_bits(torch, g, w) for g, w in zip((rasters[i], preds[i]),
+                                                                serve.body(model, c, x)))]
+    alike = [(i, j) for i in range(GRAPH_BATCHES) for j in range(i)
+             if same_bits(torch, preds[i], preds[j])]
+    row["predict_program"] = {"batches": GRAPH_BATCHES, "differ": differ, "alike": alike,
+                              "graphs": graphs}
+    check(not differ and not alike,
+          f"graphs: make_predict_program's batches differ from their steps {differ} "
+          f"or alike {alike}")
+    check(graphs == {"captures": 0, "replays": GRAPH_BATCHES},
+          f"graphs: the program's replays {graphs}")
+    check_launches(launches, times(GRAPH_BATCHES, SERVE_LAUNCHES), "graphs_predict_program")
+
+    # train steps from one state, replayed against eager bodies, the lr
+    # dropping before the third (a period of 2 updates)
+    gcfg = replace(cfg, train=replace(cfg.train, step_size=2))
+    sides = {}
+    for side in ("graph", "eager"):
+        m = copy.deepcopy(st["train_model"])
+        opt, sched = T.make_optimizer(gcfg, m, 1)
+        run = st["train"] if side == "graph" else eager_train(st["train"])
+        comps, launches, graphs = counted(
+            lambda: [run(m, opt, sched, *st["batch"]) for _ in range(GRAPH_TRAIN_STEPS)])
+        state = _train_state(m, opt)
+        state.update({f"loss:{i}:{k}": v for i, c in enumerate(comps) for k, v in c.items()})
+        state["lr"] = torch.as_tensor(opt.param_groups[0]["lr"]).clone()
+        sides[side] = (state, launches, graphs)
+        check_launches(launches, times(GRAPH_TRAIN_STEPS, TRAIN_LAUNCHES), f"graphs_train_{side}")
+    (got, _, graphs), (want, _, _) = sides["graph"], sides["eager"]
+    differ = sorted(k for k in want if not same_bits(torch, got[k], want[k]))
+    lr = float(want["lr"])
+    row["train"] = {"steps": GRAPH_TRAIN_STEPS, "tensors": len(want), "differ": differ,
+                    "graphs": graphs, "lr": lr, "lr0": cfg.train.lr}
+    check(not differ, f"graphs: replayed train steps differ from eager ones in {differ[:8]}")
+    check(graphs == {"captures": 1, "replays": GRAPH_TRAIN_STEPS - 1},
+          f"graphs: the train step's captures and replays {graphs}")
+    check(lr < cfg.train.lr, f"graphs: the lr {lr} did not drop within the train steps")
+
+    # two device-resident epochs and an eval, against their eager runs
+    n_plots, n_points = small.get("plots", GRAPH_PLOTS)
+    ds = _plots(n_plots, n_points, SEED + 61)
+    ids = sorted(ds)
+    train_ids, val_ids = ids[:-2 * b], ids[-2 * b:]
+    nb = len(train_ids) // b
+    kde = fit_kde_mixture_from_dataset(ds)
+    dd = D.build_device_dataset(ds, train_ids, cfg.model, device)
+    dd_val = D.build_device_dataset(ds, val_ids, cfg.model, device)
+    vidx = torch.from_numpy(D.eval_index_table(len(val_ids), b)[0]).to(device)
+    sides, epochs = {}, {}
+    for side in ("graph", "eager"):
+        m = copy.deepcopy(st["train_model"])
+        opt, sched = T.make_optimizer(cfg, m, nb)
+        step = T.make_train_step(cfg, kde, device=device)
+        epoch = D.make_device_epoch(cfg, step if side == "graph" else eager_train(step))
+        ev = D.make_device_eval(cfg, T.make_eval_core(cfg, kde, device))
+
+        def draws(g, side=side):
+            return {} if side == "graph" else {"draws": D.generator_draws(g)}
+
+        def run_epochs(epoch=epoch, ev=ev, m=m, opt=opt, sched=sched, draws=draws):
+            out = {}
+            for e in (1, 2):
+                g = T.epoch_generator(SEED, e, device)
+                idx = torch.from_numpy(D.epoch_index_table(len(train_ids), b, SEED, e)).to(device)
+                out.update({f"sums:{e}:{k}": v for k, v in
+                            epoch(m, opt, sched, dd, idx, g, **draws(g)).items()})
+                out[f"generator:{e}"] = g.get_state()
+            g = torch.Generator(device=device).manual_seed(1)
+            pred, parts = ev(m, dd_val, vidx, g, **draws(g))
+            out.update({"eval:pred_pl": pred, **{f"eval:{k}": v for k, v in parts.items()}})
+            return out
+
+        out, launches, graphs = counted(run_epochs)
+        out.update(_train_state(m, opt))
+        sides[side] = (out, graphs)
+        check_launches(launches, {k: 2 * nb * TRAIN_LAUNCHES[k] + vidx.shape[0] * v
+                                  for k, v in EVAL_LAUNCHES.items()}, f"graphs_epochs_{side}")
+        epochs[side] = (m, opt, sched, epoch)
+    (got, graphs), (want, _) = sides["graph"], sides["eager"]
+    differ = sorted(k for k in want if not same_bits(torch, got[k], want[k]))
+    row["device_epochs"] = {"plots": len(train_ids), "batches": nb, "val_batches": vidx.shape[0],
+                            "tensors": len(want), "differ": differ, "graphs": graphs}
+    check(not differ, f"graphs: replayed device epochs and eval differ in {differ[:8]}")
+    check(graphs == {"captures": 2, "replays": 2 * nb - 1 + vidx.shape[0] - 1},
+          f"graphs: the device epochs' captures and replays {graphs}")
+    seconds = {"checks": time.perf_counter() - t0}
+
+    # graph against eager body, in turns
+    reps = small.get("steps", GRAPH_STEPS)
+    ms = {}
+    for label, s in (("prod", st), ("dense", dst)):
+        serve_args = (s["model"], s["cloud"], s["xyz"])
+        ms[f"serve_{label}"] = _turns(torch, {
+            "graph": lambda s=s, a=serve_args: s["serve"](*a),
+            "eager": lambda s=s, a=serve_args: s["serve"].body(*a)}, reps)
+        tm = copy.deepcopy(s["train_model"])
+        train_args = (tm, *T.make_optimizer(s["cfg"], tm, STEPS_PER_EPOCH), *s["batch"])
+        s["train"](*train_args)  # the first call and the capture
+        ms[f"train_{label}"] = _turns(torch, {
+            "graph": lambda s=s, a=train_args: s["train"](*a),
+            "eager": lambda s=s, a=train_args: eager_train(s["train"])(*a)}, reps)
+    row["step_ms"] = ms
+    epoch_ms, busy = {"graph": [], "eager": []}, {"graph": [], "eager": []}
+    for side in ("graph", "eager", "eager", "graph"):
+        m, opt, sched, epoch = epochs[side]
+        g = T.epoch_generator(SEED, 3, device)
+        idx = torch.from_numpy(D.epoch_index_table(len(train_ids), b, SEED, 3)).to(device)
+        extra = {} if side == "graph" else {"draws": D.generator_draws(g)}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        epoch(m, opt, sched, dd, idx, g, **extra)
+        torch.cuda.synchronize()
+        epoch_ms[side].append((time.perf_counter() - t) * 1e3 / nb)
+        g = T.epoch_generator(SEED, 3, device)
+        extra = {} if side == "graph" else {"draws": D.generator_draws(g)}
+        _, busy_ms = device_busy_ms(torch, lambda: epoch(m, opt, sched, dd, idx, g, **extra))
+        busy[side].append(busy_ms / nb)
+    row["device_epoch"] = {"batches": nb, "ms_a_batch": epoch_ms, "busy_ms_a_batch": busy,
+                           "busy_share": {k: [bz / t for bz, t in zip(busy[k], epoch_ms[k])]
+                                          for k in busy}}
+    seconds["timing"] = time.perf_counter() - t0 - seconds["checks"]
+    row["seconds"] = seconds
+    print(json.dumps(row), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4086,9 +4388,9 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
 
     names = ["fps", "sa_fused_eval", "knn_interpolate", "pixel_max", "ball_query",
              "pixel_max_bwd", "sa_train_bwd2"]
-    serve_calls = capture_calls(ck, names, lambda: st["serve"](model, cloud, xyz))
+    serve_calls = capture_calls(ck, names, lambda: st["serve"].body(model, cloud, xyz))
     m, opt, sched = train_state()
-    train_calls = capture_calls(ck, names, lambda: st["train"](m, opt, sched, *batch))
+    train_calls = capture_calls(ck, names, lambda: st["train"].body(m, opt, *batch))
     torch.cuda.synchronize()
 
     ck.reset_launches()
@@ -4263,7 +4565,7 @@ def dense_dq_step(torch, ck, dcfg, device, card, n):
         return (m, *make_optimizer(qcfg, m, STEPS_PER_EPOCH))
 
     calls = capture_calls(ck, ["fps", "sa_train_bwd2"],
-                          lambda: st["train"](*fresh(), *st["batch"]))
+                          lambda: st["train"].body(*fresh()[:2], *st["batch"]))
     m, opt, sched = fresh()
     before = {k: v.detach().clone() for k, v in m.named_parameters()}
     ck.reset_launches()
@@ -4636,11 +4938,11 @@ def nearest_phase(torch, ck, cfg, device):
 
     st = optin_setup(torch, cfg, device, OPTIN_ROUTES["nearest"][0])
     serve = capture_calls(ck, ["ball_query_nearest"],
-                          lambda: st["serve"](st["model"], st["cloud"], st["xyz"]))
+                          lambda: st["serve"].body(st["model"], st["cloud"], st["xyz"]))
     m = copy.deepcopy(st["train_model"])
     opt, sched = make_optimizer(st["cfg"], m, STEPS_PER_EPOCH)
     train = capture_calls(ck, ["ball_query_nearest"],
-                          lambda: st["train"](m, opt, sched, *st["batch"]))
+                          lambda: st["train"].body(m, opt, *st["batch"]))
     torch.cuda.synchronize()
     del st, m, opt, sched
     sites = [(f"serve_step {i}", a) for i, a in enumerate(serve["ball_query_nearest"])]
@@ -4929,6 +5231,8 @@ def main() -> int:
     timeline("train")
     dense_rows = dense_phase(torch, ck, cfg, device, card)
     timeline("dense")
+    graphs_phase(torch, ck, cfg, device, card)
+    timeline("graphs")
     parcel_phase(torch, ck, cfg, device, card)
     timeline("parcel")
     results = cli_phase(torch, ck, card)

@@ -48,6 +48,13 @@ from stratanet2_tpu_torch.data.transforms import (
     rescale_cloud,
 )
 from stratanet2_tpu_torch.device import resolve_device
+from stratanet2_tpu_torch.learning.programs import (
+    StepProgram,
+    graphed,
+    mode_key,
+    model_tensors,
+    optimizer_tensors,
+)
 
 __all__ = [
     "DeviceDataset",
@@ -242,6 +249,10 @@ def _rows(draws: Draws, lo: int, hi: int) -> Draws:
     return Draws(*(None if f is None else f[lo:hi] for f in draws))
 
 
+def _tables(dd: DeviceDataset) -> Tuple[torch.Tensor, ...]:
+    return dd.feats, dd.xyz, dd.n, dd.coverages
+
+
 def make_device_epoch(cfg: Config, train_step, mesh=None):
     """epoch(model, optimizer, scheduler, dd, idx_table, generator,
     draws=None) -> the loss parts summed over the epoch, on the card (None
@@ -252,6 +263,16 @@ def make_device_epoch(cfg: Config, train_step, mesh=None):
     and taken by `train_step` (`learning/train.make_train_step`), whose
     dropout draws from `generator`. Nothing is read back inside the epoch.
 
+    On the card, with the default draws, a batch is one CUDA graph
+    (`learning/programs.py`, the counterpart of the `lax.scan` body of
+    device_dataset.py:241-295): its draws, its sample and the train step's
+    body (`train_step.body`), its loss parts added into sums that the
+    epoch zeroes once. It is captured at the first batch of each set of
+    model, optimizer and table tensors (that batch runs eagerly) and
+    replayed for each batch, the table's row copied into its static input,
+    the schedule stepped on the host after each replay. Draws given by the
+    caller (a Python source of tensors) and the mesh run eagerly.
+
     With a data-parallel `mesh` (device_dataset.py:241-300) every rank holds
     the tables, is given the same index table and the same draws as one
     process, and samples and steps on its column slice of each batch;
@@ -260,22 +281,57 @@ def make_device_epoch(cfg: Config, train_step, mesh=None):
     if mesh is not None and cfg.train.batch_size % mesh.size:
         raise ValueError(f"batch_size {cfg.train.batch_size} must divide over "
                          f"{mesh.size} devices")
+    sums: Dict[str, torch.Tensor] = {}  # the graph's loss sums, made by its first batch
+
+    def batch_body(model, optimizer, dd: DeviceDataset, row: torch.Tensor,
+                   generator: torch.Generator):
+        b, m = row.shape[0], dd.feats.shape[1]
+        batch = sample(dd, row, generator_draws(generator)(0, b, m, True))
+        comps = train_step.body(model, optimizer, batch["cloud"], batch["xyz"],
+                                batch["coverages"], generator)
+        for name, value in comps.items():
+            if name not in sums:
+                sums[name] = torch.zeros_like(value)
+            sums[name].add_(value)
+        return ()
+
+    program = StepProgram(batch_body)
+
+    def graphed_epoch(model, optimizer, scheduler, dd: DeviceDataset, idx_table: torch.Tensor,
+                      generator: torch.Generator):
+        for value in sums.values():
+            value.zero_()
+        for i in range(idx_table.shape[0]):
+            if i == 0:
+                program((model, optimizer, dd), (idx_table[0],),
+                        lambda: (*model_tensors(model), *optimizer_tensors(optimizer),
+                                 *_tables(dd), *sums.values()),
+                        mode_key(model, True), generator, params=tuple(model.parameters()))
+            else:
+                program.replay(program.current, (idx_table[i],), generator)
+            scheduler.step()
+        return {k: v.clone() for k, v in sums.items()}
 
     def epoch(model, optimizer, scheduler, dd: DeviceDataset, idx_table: torch.Tensor,
               generator: torch.Generator, draws: Optional[DrawSource] = None):
+        if idx_table.shape[0] == 0:
+            return None
+        if draws is None and graphed(idx_table.device, mesh):
+            return graphed_epoch(model, optimizer, scheduler, dd, idx_table, generator)
         draws = draws or generator_draws(generator)
         b, m = idx_table.shape[1], dd.feats.shape[1]
         lo, hi = 0, b
         if mesh is not None:
             lo, hi = mesh.batch_index * b // mesh.batch, (mesh.batch_index + 1) * b // mesh.batch
-        sums = None
+        out = None
         for i in range(idx_table.shape[0]):
             batch = sample(dd, idx_table[i, lo:hi], _rows(draws(i, b, m, True), lo, hi))
             comps = train_step(model, optimizer, scheduler, batch["cloud"], batch["xyz"],
                                batch["coverages"], generator)
-            sums = comps if sums is None else {k: sums[k] + v for k, v in comps.items()}
-        return sums
+            out = comps if out is None else {k: out[k] + v for k, v in comps.items()}
+        return out
 
+    epoch.program = program
     return epoch
 
 
@@ -287,11 +343,62 @@ def make_device_eval(cfg: Config, eval_core):
     batch subsampled without augmentation from `draws` (by default
     `generator_draws(generator)`; the caller fixes the generator a fold, so
     every eval of the fold sees the same subsample) and taken by
-    `eval_core` (`learning/train.make_eval_core`)."""
+    `eval_core` (`learning/train.make_eval_core`).
+
+    On the card, with the default draws, a batch is one CUDA graph
+    (device_dataset.py:303-332's scan body): its keys, its sample and
+    `eval_core.body`, whose outputs it writes into row i of the (nb, B,
+    ...) outputs, i a counter on the card that it advances (mod nb); captured at
+    the first batch of each set of model and table tensors and table shape,
+    and replayed for each batch."""
     sample = make_device_sampler(cfg.model, train=False)
+    # the graph's outputs: (nb, B, 4) predictions, {part: (nb, B)} and the
+    # row counter, made by its first batch
+    outs: Dict[str, object] = {}
+
+    @torch.inference_mode()
+    def batch_body(model, dd: DeviceDataset, nb: int, row: torch.Tensor,
+                   generator: torch.Generator):
+        b, m = row.shape[0], dd.feats.shape[1]
+        batch = sample(dd, row, generator_draws(generator)(0, b, m, False))
+        pred_pl, parts = eval_core.body(model, batch["cloud"], batch["xyz"], batch["coverages"])
+        if not outs:
+            outs.update(i=torch.zeros(1, dtype=torch.long, device=row.device),
+                        pred=pred_pl.new_empty((nb,) + pred_pl.shape),
+                        parts={k: v.new_empty((nb,) + v.shape) for k, v in parts.items()})
+        i = outs["i"]
+        outs["pred"].index_copy_(0, i, pred_pl[None])
+        for k, v in parts.items():
+            outs["parts"][k].index_copy_(0, i, v[None])
+        i.add_(1).remainder_(nb)  # wraps: a run of the body past row nb - 1 writes row 0
+        return ()
+
+    program = StepProgram(batch_body)
+
+    @torch.inference_mode()  # the outputs are inference tensors, written in place
+    def graphed_run(model, dd: DeviceDataset, idx_table: torch.Tensor,
+                    generator: torch.Generator):
+        nb = idx_table.shape[0]
+        if outs and outs["pred"].shape[:2] != tuple(idx_table.shape):
+            outs.clear()  # another table shape: new outputs, so a new capture
+        if outs:
+            outs["i"].zero_()
+
+        def held():
+            made = (outs["i"], outs["pred"], *outs["parts"].values()) if outs else ()
+            return (*model_tensors(model), *_tables(dd), *made)
+
+        for i in range(nb):
+            if i == 0:
+                program((model, dd, nb), (idx_table[0],), held, mode_key(model, False), generator)
+            else:
+                program.replay(program.current, (idx_table[i],), generator)
+        return outs["pred"].clone(), {k: v.clone() for k, v in outs["parts"].items()}
 
     def run(model, dd: DeviceDataset, idx_table: torch.Tensor, generator: torch.Generator,
             draws: Optional[DrawSource] = None):
+        if draws is None and graphed(idx_table.device) and idx_table.shape[0]:
+            return graphed_run(model, dd, idx_table, generator)
         draws = draws or generator_draws(generator)
         b, m = idx_table.shape[1], dd.feats.shape[1]
         preds, comps = [], []
@@ -302,6 +409,7 @@ def make_device_eval(cfg: Config, eval_core):
             comps.append(parts)
         return torch.stack(preds), {k: torch.stack([c[k] for c in comps]) for k in comps[0]}
 
+    run.program = program
     return run
 
 

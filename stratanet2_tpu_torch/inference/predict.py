@@ -6,9 +6,9 @@ plotwise coverages of a batch of plot clouds, on the card through the four
 serve kernels. `predict_parcel` runs it over a parcel's plots as
 `PlotLoader` batches them, in chains of `DataConfig.predict_chain` batches
 whose outputs stay on the device and are read with one copy a chain (the
-JAX package scans a chain in one program; here a chain's batches are
-launched one after another as the loader makes them, and the chain sets
-how often the host waits for the card). Per-plot GeoTIFF tiles, their
+JAX package scans a chain in one program; here each of a chain's batches
+replays the serve step's CUDA graph as the loader makes it, and the chain
+sets how often the host waits for the card). Per-plot GeoTIFF tiles, their
 weighted mosaic and the shapefile update stay on the host. Both tasks:
 - inference: per-plot rasters -> weighted parcel mosaic -> shapefile fields
   (predict.py:113-148);
@@ -49,6 +49,7 @@ from stratanet2_tpu_torch.inference.rasters import (
     merge_geotiff_rasters,
 )
 from stratanet2_tpu_torch.inference.shapefile_io import FieldSpec, read_shapefile, write_shapefile
+from stratanet2_tpu_torch.learning.programs import StepProgram, graphed, mode_key, model_tensors
 from stratanet2_tpu_torch.models.pointnet2 import PointNet2, check_opt_ins
 from stratanet2_tpu_torch.ops.projection import (
     batched_raster_projection,
@@ -81,17 +82,20 @@ def make_predict_step(
     `train=False` does (running BN statistics, the fused SA eval kernel),
     and is left in the mode the caller had it in.
 
+    On the card the step is a CUDA graph of the forward, the raster
+    projection and the plot coverages (`learning/programs.py`), captured at
+    the first call of each batch shape and set of model tensors (that call
+    runs eagerly) and replayed after that; `step.body` is its body on
+    float32 inputs on the device.
+
     With a data-parallel `mesh`, every rank passes the whole batch, steps
-    on its rows and returns the whole batch's outputs (predict.py:99-131)."""
+    on its rows, eagerly, and returns the whole batch's outputs
+    (predict.py:99-131)."""
     mcfg = cfg.model
     dev = resolve_device(device)
 
     @torch.inference_mode()
-    def step(model: PointNet2, cloud, xyz):
-        _check_model(model, dev)
-        check_opt_ins(model, mcfg)
-        cloud = torch.as_tensor(cloud, device=dev).float()
-        xyz = torch.as_tensor(xyz, device=dev).float()
+    def body(model: PointNet2, cloud, xyz):
         was_training = model.training
         model.eval()
         try:
@@ -104,13 +108,29 @@ def make_predict_step(
         pred_pl = plotwise_coverages(cov, cloud[..., :2], mcfg.diam_pix)
         return rasters, pred_pl
 
+    program = StepProgram(body) if graphed(dev) else None
+
+    def step(model: PointNet2, cloud, xyz):
+        _check_model(model, dev)
+        check_opt_ins(model, mcfg)
+        cloud = torch.as_tensor(cloud, device=dev).float()
+        xyz = torch.as_tensor(xyz, device=dev).float()
+        if program is None:
+            return body(model, cloud, xyz)
+        return program((model,), (cloud, xyz), lambda: model_tensors(model),
+                       mode_key(model, False))
+
+    step.body, step.program = body, program
     if mesh is None:
         return step
     replicator = _cached_replicator(mesh)
 
     def sharded_step(model: PointNet2, cloud, xyz):
+        _check_model(model, dev)
+        check_opt_ins(model, mcfg)
         replicator(model)
-        rasters, pred_pl = step(model, shard_batch(mesh, cloud), shard_batch(mesh, xyz))
+        rows = (torch.as_tensor(shard_batch(mesh, a), device=dev).float() for a in (cloud, xyz))
+        rasters, pred_pl = body(model, *rows)
         return tuple(all_gather(out, mesh.group).flatten(0, 1) for out in (rasters, pred_pl))
 
     return sharded_step
@@ -118,18 +138,23 @@ def make_predict_step(
 
 def _cached_replicator(mesh: Mesh):
     """replicator(model): rank 0's parameters and buffers broadcast into
-    `model`, once per model (predict.py:133): keyed on the identity of its
-    tensors, held alive with the key, so that a new checkpoint (or a BN
-    update, which binds new buffers) is broadcast again."""
+    `model`, once per model and state (predict.py:133): keyed on the
+    identity of its tensors, held alive with the key, and on their version
+    counters, so that a new model, and any write into its tensors since the
+    last broadcast through PyTorch's ops (a checkpoint loaded in place, a
+    BN update or an optimizer step of the mesh paths, which run eagerly),
+    is broadcast again."""
     cache = {}
+
+    def key_of(tensors):
+        return tuple((id(t), t._version) for t in tensors)
 
     def replicator(model: PointNet2) -> PointNet2:
         tensors = list(model.parameters()) + list(model.buffers())
-        key = tuple(id(t) for t in tensors)
-        if key not in cache:
+        if key_of(tensors) not in cache:
             cache.clear()
             replicate(mesh, model)
-            cache[key] = tensors
+            cache[key_of(tensors)] = tensors  # the versions after the broadcast's writes
         return model
 
     return replicator
@@ -200,7 +225,9 @@ def make_predict_program(
     mesh)`, predict.py:157-200: `mesh` is read only then) over each batch
     of a chain,
     clouds (S, B, N, F) and xyzs (S, B, N, 3) (stacked arrays, or sequences
-    of S batches). Each batch is uploaded and launched in turn; the stacked
+    of S batches). Each batch is uploaded and launched in turn (on the
+    card, a replay of the step's graph, whose outputs are copied out, so
+    that each batch's are its own); the stacked
     outputs stay on `device` (default CUDA). The batches go to the card
     from pageable memory: pinned memory and non-blocking copies measured no
     faster on the H100, where the host loader sets the pace (PERF.md)."""

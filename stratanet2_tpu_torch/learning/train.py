@@ -18,6 +18,14 @@
   final eval on the best or last weights; on the device-resident path when
   JAX's would take it (`use_device_resident`), else on the host loader's.
 
+On the card the steps are CUDA graphs (`learning/programs.py`, the
+counterpart of JAX's jitted steps and of `_PROGRAM_CACHE`): the train step,
+and on the device-resident path each batch of the epoch and of the eval
+(`data/device_dataset.py`), captured at a fold's first batch (a fold's new
+Adam makes new tensors, so one capture a fold) and replayed for every
+batch after it; the host loader's epoch replays the train step's graph.
+The CPU and the parallel paths run their steps eagerly.
+
 The parallel paths (train.py:203-258, 393-535): given a data-parallel mesh
 (`parallel/mesh.make_mesh`) each rank steps on its rows of every batch and
 the gradients are all-reduced; with `point_sharded` (and more than one
@@ -30,7 +38,9 @@ Optimizer parity: optax `add_decayed_weights(wd)` -> `scale_by_adam` adds
 wd * param to the gradient before the moments (coupled L2), which is
 `torch.optim.Adam(weight_decay=wd)`; the staircase `exponential_decay` is
 lr * lr_decay ** (u // (steps_per_epoch * step_size)) at the u-th update,
-counted from 0 before the update, as optax counts.
+counted from 0 before the update, as optax counts. On the card Adam is
+`capturable` (its count on the card, its learning rate a tensor the
+schedule fills), which rounds the bias corrections on the card.
 
 Dropout (`ModelConfig.drop` > 0), and on the device-resident path each
 batch's augmentation and subsample, draw from a `torch.Generator`: the one
@@ -68,6 +78,13 @@ from stratanet2_tpu_torch.learning.losses import (
     nll_terms,
     total_loss,
 )
+from stratanet2_tpu_torch.learning.programs import (
+    StepProgram,
+    graphed,
+    mode_key,
+    model_tensors,
+    optimizer_tensors,
+)
 from stratanet2_tpu_torch.models.pointnet2 import (
     PointNet2,
     check_opt_ins,
@@ -98,9 +115,23 @@ def make_optimizer(
 ) -> Tuple[torch.optim.Adam, torch.optim.lr_scheduler.LambdaLR]:
     """Adam over the model's parameters with coupled weight decay, and its
     staircase schedule. Call `scheduler.step()` after each
-    `optimizer.step()` (the train step does)."""
+    `optimizer.step()` (the train step does).
+
+    On the card Adam is `capturable`, its state on the card and its
+    learning rate a 0-d tensor there, which the schedule fills in place
+    (no host sync), so that a step replayed as a CUDA graph
+    (`learning/programs.py`) follows the staircase; on the CPU it takes a
+    float learning rate."""
     tc = cfg.train
-    optimizer = torch.optim.Adam(model.parameters(), lr=tc.lr, weight_decay=tc.wd)
+    dev = next(model.parameters()).device
+    if dev.type == "cuda":
+        optimizer = torch.optim.Adam(model.parameters(), lr=torch.tensor(tc.lr, device=dev),
+                                     weight_decay=tc.wd, capturable=True)
+        # the first step of each graph runs uncaptured by design (the
+        # warm-up), as do the mesh paths' steps: no warning for either
+        optimizer._warned_capturable_if_run_uncaptured = True
+    else:
+        optimizer = torch.optim.Adam(model.parameters(), lr=tc.lr, weight_decay=tc.wd)
     period = max(steps_per_epoch * tc.step_size, 1)
     # LambdaLR evaluates the factor at 0 on construction and at u after its
     # u-th step(), so the u-th update (from 0) runs at lr_decay ** (u // period)
@@ -157,13 +188,21 @@ def make_train_step(
     `make_optimizer`) must already be on that device; `generator` (on that
     device) feeds the head's dropout when `cfg.model.drop` > 0.
 
+    On the card the step is a CUDA graph (`learning/programs.py`): forward,
+    loss, backward and Adam captured at the first call of each batch shape
+    and set of model and optimizer tensors (that call runs eagerly),
+    replayed after that; the schedule steps on the host after each replay.
+    `step.body` is the step's body without the schedule, on float32 inputs
+    on the device.
+
     With a data-parallel `mesh` (batch x 1) the inputs are this rank's
     rows of the global batch (`mesh.shard_batch`): every BatchNorm and the
     fused SA route use the global batch's statistics, each rank's loss is
     its share of the global loss, the gradients are summed over the ranks
     before Adam and the returned parts are the global batch's. That is the
     single-process step on the global batch, as JAX's data-parallel step
-    is, up to the order of the sums."""
+    is, up to the order of the sums. A mesh's step runs eagerly: its
+    collectives run over gloo, which a graph cannot hold."""
     mcfg, tcfg = cfg.model, cfg.train
     dev = resolve_device(device)
     if mesh is not None and (mesh.points != 1 or tcfg.batch_size % mesh.batch):
@@ -173,15 +212,12 @@ def make_train_step(
     kde_grid = torch.as_tensor(kde.grid, dtype=torch.float32, device=dev)
     kde_pdfs = torch.as_tensor(kde.pdfs, dtype=torch.float32, device=dev)
 
-    def step(
-        model: PointNet2, optimizer, scheduler, cloud, xyz, gt,
-        generator: Optional[torch.Generator] = None,
-    ) -> Dict[str, torch.Tensor]:
-        _check_model_device(model, dev)
-        check_opt_ins(model, mcfg)
-        cloud = torch.as_tensor(cloud, device=dev).float()
-        xyz = torch.as_tensor(xyz, device=dev).float()
-        gt = torch.as_tensor(gt, device=dev).float()
+    def body(model: PointNet2, optimizer, cloud, xyz, gt,
+             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Forward, loss, backward and the Adam update on float32 inputs on
+        the device: what a graph of the step holds. The gradients are set
+        to None before the backward, so that at a capture it writes
+        gradients of the graph's own."""
         model.train()
         cov, proba = model(cloud[..., 2:], xyz, generator=generator, group=group)
         pred_pl = plotwise_coverages(cov, cloud[..., :2], mcfg.diam_pix)
@@ -196,9 +232,33 @@ def make_train_step(
             (loss / mesh.size).backward()
             reduce_gradients(model, group)
         optimizer.step()
-        scheduler.step()
         return mean_parts({name: value.detach() for name, value in comps.items()}, group)
 
+    program = StepProgram(body) if graphed(dev, group) else None
+
+    def step(
+        model: PointNet2, optimizer, scheduler, cloud, xyz, gt,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        _check_model_device(model, dev)
+        check_opt_ins(model, mcfg)
+        cloud = torch.as_tensor(cloud, device=dev).float()
+        xyz = torch.as_tensor(xyz, device=dev).float()
+        gt = torch.as_tensor(gt, device=dev).float()
+        if program is None:
+            comps = body(model, optimizer, cloud, xyz, gt, generator)
+        else:
+            comps = program(
+                (model, optimizer), (cloud, xyz, gt),
+                lambda: (*model_tensors(model), *optimizer_tensors(optimizer)),
+                mode_key(model, True), generator, params=tuple(model.parameters()),
+            )
+        scheduler.step()  # on the host, after the update: it fills the lr in place
+        return comps
+
+    # the eager body, for a device-resident epoch's graph and for checks;
+    # the program (None off the card or on a mesh)
+    step.body, step.program = body, program
     return step
 
 
@@ -245,12 +305,7 @@ def make_eval_step(
     per_item = _eval_per_item(cfg, kde_grid, kde_pdfs)
 
     @torch.inference_mode()
-    def step(model: PointNet2, cloud, xyz, gt):
-        _check_model_device(model, dev)
-        check_opt_ins(model, mcfg)
-        cloud = torch.as_tensor(cloud, device=dev).float()
-        xyz = torch.as_tensor(xyz, device=dev).float()
-        gt = torch.as_tensor(gt, device=dev).float()
+    def body(model: PointNet2, cloud, xyz, gt):
         was_training = model.training
         model.eval()
         try:
@@ -262,6 +317,14 @@ def make_eval_step(
         comps, aux = per_item(pred_pl, gt, proba, z_m)
         return pred_pl, cov, proba, comps, aux, g
 
+    def step(model: PointNet2, cloud, xyz, gt):
+        _check_model_device(model, dev)
+        check_opt_ins(model, mcfg)
+        return body(model, torch.as_tensor(cloud, device=dev).float(),
+                    torch.as_tensor(xyz, device=dev).float(),
+                    torch.as_tensor(gt, device=dev).float())
+
+    step.body = body  # on float32 inputs on the device
     return step
 
 
@@ -270,13 +333,20 @@ def make_eval_core(
 ):
     """Return core(model, cloud, xyz, gt) -> (pred_pl (B, 4), {loss part:
     (B,)}): `make_eval_step`'s per-plot outputs alone, for the
-    device-resident eval (`data/device_dataset.make_device_eval`)."""
+    device-resident eval (`data/device_dataset.make_device_eval`), and
+    `core.body`, the same on float32 inputs on the device (what the
+    eval's graph holds)."""
     step = make_eval_step(cfg, kde, device)
 
     def core(model: PointNet2, cloud, xyz, gt):
         pred_pl, _cov, _proba, comps, _aux, _g = step(model, cloud, xyz, gt)
         return pred_pl, comps
 
+    def body(model: PointNet2, cloud, xyz, gt):
+        pred_pl, _cov, _proba, comps, _aux, _g = step.body(model, cloud, xyz, gt)
+        return pred_pl, comps
+
+    core.body = body
     return core
 
 

@@ -14,8 +14,9 @@ one-pass sums with the shift equal to the running mean before the update,
 the biased variance to normalise, the unbiased one (n / max(n - 1, 1)) into
 the running state, momentum 0.1. A mask broadcastable to x.shape[:-1] is
 broadcast before counting. The new running statistics are computed from
-the same forward and bound to the buffers as new tensors, so nothing that
-autograd saved is modified in place.
+the same forward and written into the buffers in place, so that a step
+replayed as a CUDA graph keeps accumulating them: autograd saves no buffer
+(the shift is only subtracted and added, ops that save no input).
 
 A Linear computes in float32 or, given `dtype="bfloat16"` (the model's
 `compute_dtype`), as JAX's `nn.linear` does (nn.py:37-40): both operands
@@ -138,10 +139,13 @@ class BatchNorm(nn.Module):
     @torch.no_grad()
     def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor, n: torch.Tensor):
         """Momentum update from a batch's mean and biased var over n rows;
-        the unbiased var var * n / max(n - 1, 1) is stored."""
+        the unbiased var var * n / max(n - 1, 1) is stored. Written into the
+        buffers in place: a step captured into a CUDA graph
+        (`learning/programs.py`) reads and writes the buffers it was
+        captured with."""
         unbiased = var * n / (n - 1.0).clamp_min(1.0)
-        self.mean = (1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean
-        self.var = (1 - BN_MOMENTUM) * self.var + BN_MOMENTUM * unbiased
+        self.mean.copy_((1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean)
+        self.var.copy_((1 - BN_MOMENTUM) * self.var + BN_MOMENTUM * unbiased)
 
 
 class Layer(nn.Module):

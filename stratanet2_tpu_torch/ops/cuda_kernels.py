@@ -18,7 +18,10 @@ PyTorch version (counterpart of `stratanet2_tpu/ops/pallas_kernels.py`).
 
 Dispatch: a wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it runs the plain version. There is no fallback between the two
-and no switch. `LAUNCHES[name]` counts each wrapper's kernel launches.
+and no switch. `LAUNCHES[name]` counts each wrapper's kernel launches; a
+step replayed as a CUDA graph adds the launches its capture recorded at
+each replay (`captured_launches`, `replayed`), so the counts are the
+kernels the card ran.
 
 Six wrappers take another path for shapes past their PROD kernels' reach
 (the dense plots), chosen by shape (`fps_path`, `sel_path`, `knn_path`,
@@ -51,7 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -174,9 +177,12 @@ PATHS = ("fps_cluster", "fps_global", "ball_query_grid", "sa_fused_eval_grid",
          "knn_interpolate_grid", "pixel_max_ranges", "sa_train_dq_chunked")
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 # kernel launches per wrapper, and per long-shape path, counted where the
-# launch succeeds
+# launch succeeds; a launch recorded into a CUDA graph is counted at each
+# replay instead (`captured_launches`, `replayed`)
 LAUNCHES: Dict[str, int] = dict.fromkeys(WRAPPERS, 0)
 PATH_LAUNCHES: Dict[str, int] = dict.fromkeys(PATHS, 0)
+# graphs captured and replayed by the step programs (learning/programs.py)
+GRAPH_COUNTS: Dict[str, int] = {"captures": 0, "replays": 0}
 
 
 def _bind(entry: str) -> ctypes._CFuncPtr:
@@ -245,7 +251,7 @@ def _expect(cond: bool, name: str, what: str) -> None:
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, PATH_LAUNCHES):
+    for counts in (LAUNCHES, PATH_LAUNCHES, GRAPH_COUNTS):
         for name in counts:
             counts[name] = 0
 
@@ -256,6 +262,37 @@ def launch_counts() -> Dict[str, int]:
 
 def path_launch_counts() -> Dict[str, int]:
     return dict(PATH_LAUNCHES)
+
+
+def graph_counts() -> Dict[str, int]:
+    return dict(GRAPH_COUNTS)
+
+
+def launch_snapshot() -> Tuple[Dict[str, int], Dict[str, int]]:
+    """The launch counts now, for `captured_launches`."""
+    return dict(LAUNCHES), dict(PATH_LAUNCHES)
+
+
+def captured_launches(before: Tuple[Dict[str, int], Dict[str, int]]):
+    """The launches counted since `before` (a `launch_snapshot()` taken
+    just before a CUDA graph's capture), taken back out of the counts, since
+    a capture records kernels and runs none; counts the capture. Returns
+    them, by wrapper and by path, for `replayed`."""
+    held = tuple({name: counts[name] - was[name] for name in counts if counts[name] != was[name]}
+                 for counts, was in zip((LAUNCHES, PATH_LAUNCHES), before))
+    LAUNCHES.update(before[0])
+    PATH_LAUNCHES.update(before[1])
+    GRAPH_COUNTS["captures"] += 1
+    return held
+
+
+def replayed(held) -> None:
+    """Count a replay of a graph that holds the launches `held`
+    (`captured_launches`): the card ran each of them once more."""
+    for counts, launched in zip((LAUNCHES, PATH_LAUNCHES), held):
+        for name, n in launched.items():
+            counts[name] += n
+    GRAPH_COUNTS["replays"] += 1
 
 
 # ---------------------------------------------------------------------------

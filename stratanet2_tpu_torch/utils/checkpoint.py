@@ -136,22 +136,42 @@ def _host_tree(flat: Dict[str, torch.Tensor]):
 
 def load_adam_state(model: torch.nn.Module, optimizer, scheduler, opt_state) -> None:
     """Restore `adam_state`'s leaves (or JAX's optax chain state read by
-    `load_checkpoint`) into the optimizer and the schedule."""
+    `load_checkpoint`) into the optimizer and the schedule.
+
+    Where the optimizer already holds state, the values are copied into
+    its tensors, and a tensor learning rate is filled in place: a train
+    step captured into a CUDA graph (`learning/programs.py`) reads and
+    writes the tensors it was captured with. New state is made where there
+    is none, its count on the parameter's device for a `capturable` Adam
+    (the card's, `learning/train.make_optimizer`), else on the CPU."""
+    from torch.optim.lr_scheduler import _update_param_group_val
+
     _, (count, mu, nu), (sched_count,) = opt_state
     mu, nu = _flatten(mu), _flatten(nu)
     names = [name for name, _ in model.named_parameters()]
     if set(mu) != set(names) or set(nu) != set(names):
         raise ValueError("optimizer moments do not match the model's parameters")
+    capturable = all(group.get("capturable", False) for group in optimizer.param_groups)
     for name, param in model.named_parameters():
-        optimizer.state[param] = {
+        loaded = {
             "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": torch.tensor(np.asarray(mu[name], np.float32), device=param.device),
-            "exp_avg_sq": torch.tensor(np.asarray(nu[name], np.float32), device=param.device),
+            "exp_avg": torch.from_numpy(np.array(mu[name], np.float32)),
+            "exp_avg_sq": torch.from_numpy(np.array(nu[name], np.float32)),
         }
+        state = optimizer.state.get(param)
+        if state:
+            for key, value in loaded.items():
+                state[key].copy_(value)
+        else:
+            step_device = param.device if capturable else "cpu"
+            optimizer.state[param] = {
+                key: value.to(step_device if key == "step" else param.device)
+                for key, value in loaded.items()
+            }
     u = int(sched_count)
     scheduler.last_epoch = u
     scheduler._step_count = u + 1
     lrs = [base * fn(u) for base, fn in zip(scheduler.base_lrs, scheduler.lr_lambdas)]
     for group, lr in zip(optimizer.param_groups, lrs):
-        group["lr"] = lr
+        _update_param_group_val(group, "lr", lr)
     scheduler._last_lr = lrs

@@ -255,6 +255,7 @@ def test_port_imports_without_jax():
     "want |= {'stratanet2_tpu_torch.parallel.' + m for m in\n"
     "         ('multihost', 'mesh', 'collectives', 'point_sharded', 'launch', 'dryrun')}\n"
     "want.add('stratanet2_tpu_torch.utils.torch_import')\n"
+    "want.add('stratanet2_tpu_torch.learning.programs')\n"
     "want |= {'stratanet2_tpu_torch.metascripts.' + m for m in\n"
     "         ('benchmark_all_models', 'predictions_analysis', 'quantification_errors')}\n"
         "assert want <= set(walked), sorted(want - set(walked))\n"

@@ -714,8 +714,9 @@ def test_parcel_phase_runs_on_the_cpu(monkeypatch, capsys):
     assert inference["batches"] == -(-row["plots"] // 3) == runs["inference_chain_1"]["batches"]
     assert inference["batches"] % 8  # the last chain of 8 is short
     assert 0 < runs["pseudo_chain_8"]["plots"] <= row["plots"]
-    assert len(row["upload_seconds"]["pinned"]) == len(row["upload_seconds"]["pageable"]) == 3
-    for split in ("cold", "warm"):
+    assert {k: len(v) for k, v in row["upload_seconds"].items()} == {
+        "pageable": 3, "pinned": 3, "eager": 3}
+    for split in ("cold", "warm", "warm_eager_body"):
         assert set(row["split_seconds"][split]) == {"prepare", "predict", "merge_and_shapefile"}
         assert row["plots_per_s"][split] > 0
     assert ref["tif_max_abs_diff"] == 0.0 and ref["pred_fields_max_abs_diff"] == 0.0
@@ -1209,3 +1210,52 @@ def test_dense_phase_runs_on_the_cpu(monkeypatch, capsys):
     (dq_step,) = [x for x in lines if x.get("phase") == "dense_dq_train"]
     assert dq_step["N"] == 2560 and len(dq_step["train_step_ms_all"]) == cs.DENSE_DQ_STEPS
     assert all(np.isfinite(v) for v in dq_step["loss_parts"].values())
+
+
+def test_graphs_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """Phase 15i's control flow at a tiny size on the CPU, the steps built
+    with their programs as on the card and served by `StandInGraphs`
+    (tests/test_torch_port_graphs.py): every replayed output, state and
+    generator held to its eager body bit for bit, captures and replays
+    counted as on the card, then the timing in turns. The plain versions
+    run, so no launch is counted."""
+    import json
+    from dataclasses import replace
+
+    from stratanet2_tpu_torch.config import default_config
+    from stratanet2_tpu_torch.data import device_dataset as D
+    from stratanet2_tpu_torch.inference import predict
+    from stratanet2_tpu_torch.learning import programs, train
+    from test_torch_port_graphs import StandInGraphs
+
+    for module in (train, predict, D):
+        monkeypatch.setattr(module, "graphed", lambda device, group=None: group is None)
+    real_init = programs.StepProgram.__init__
+
+    def init(self, body, graphs=None):
+        real_init(self, body, StandInGraphs())
+        self.graphs.program = self
+
+    monkeypatch.setattr(programs.StepProgram, "__init__", init)
+    for name in ("SERVE_LAUNCHES", "TRAIN_LAUNCHES", "EVAL_LAUNCHES"):
+        monkeypatch.setattr(cs, name, dict.fromkeys(getattr(cs, name), 0))
+    monkeypatch.setattr(cs, "device_busy_ms", lambda torch, fn: (fn(), 1.0))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    cfg = default_config()
+    cfg = replace(cfg, model=replace(cfg.model, subsample_size=256, k1=8, k2=16),
+                  train=replace(cfg.train, batch_size=3))
+    small = {"dense": {"subsample_size": 512, "diam_pix": 20}, "plots": (12, 300), "steps": 1}
+    cs.graphs_phase(torch, ck, cfg, torch.device("cpu"), "cpu", small=small)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    row = [x for x in lines if x.get("phase") == "graphs"][0]
+    assert set(row["serve"]) == {"prod_B20", "prod_B2", "dense"}
+    assert all(not v["differ"] for v in row["serve"].values())
+    assert row["predict_program"]["graphs"] == {"captures": 0, "replays": 3}
+    assert row["train"]["graphs"] == {"captures": 1, "replays": 2} and not row["train"]["differ"]
+    assert row["train"]["lr"] < row["train"]["lr0"]
+    epochs = row["device_epochs"]
+    assert (epochs["batches"], epochs["val_batches"]) == (2, 2) and not epochs["differ"]
+    assert epochs["graphs"] == {"captures": 2, "replays": 4}
+    for name in ("serve_prod", "serve_dense", "train_prod", "train_dense"):
+        assert {k: len(v) for k, v in row["step_ms"][name].items()} == {"graph": 2, "eager": 2}
+    assert len(row["device_epoch"]["busy_share"]["graph"]) == 2
