@@ -7,8 +7,9 @@ step, the train step, the training loop, parcel predict, the four CLIs,
 the parallel paths (two ranks sharing the card) and the opt-in routes at
 full width (B=20 clouds x N=10000 points, random weights from a seed), the
 steps on dense plots (N=65536 at diam_pix 100) through the kernels' paths
-for long shapes, and serves a reference checkpoint, and checks their
-outputs.
+for long shapes, the reference training schedule (300-epoch folds in
+processes of their own, one killed and resumed), and serves a reference
+checkpoint, and checks their outputs.
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
 
@@ -220,6 +221,22 @@ Phases, in order, each failing loudly:
      the graph against the eager body in turns: serve and train step ms at
      PROD and at the dense shape, the device-resident epoch's ms a batch
      and busy share;
+  15j. the reference training schedule (`schedule_phase`, run after 15i):
+     `"phase": "learnability"`, `scripts/torch_learnability_check.py` at
+     its defaults in this process (val MAE must beat the mean baseline);
+     `"phase": "schedule_fold"`, a line a child process of
+     `scripts/torch_prod_schedule_run.py` at PROD (110 plots of 12,000
+     points, B=20 x 10,000, 300 epochs, early stopping on): fold 1 killed
+     by SIGTERM past epoch SCHEDULE_KILL_AFTER and resumed, fold 2, and an
+     unbroken fold 1 in a fresh root, each finished run with its epochs,
+     seconds (and their split), points/s, val MAE against its baseline
+     (must beat it), launches (the train step's a batch and the eval's an
+     eval batch, `schedule_launches`), graphs and peak MB; `"phase":
+     "schedule_resume"`, the resumed fold 1 against the unbroken one bit
+     for bit (`compare_runs`: both checkpoints' tensors and metadata, the
+     loss parts of every epoch and eval from the resume on); `"phase":
+     "schedule_host"`, the host's part of an epoch besides its batches;
+     `"phase": "schedule"`, the phase's seconds against SCHEDULE_BUDGET_S;
   15e. `"phase": "parcel"`: parcel predict at PROD width (`parcel_phase`):
      a synthetic 100 m parcel's LAS (140 m with its buffer, ~627,000
      points) written, tiled and extracted (`"phase": "parcel_prepare"`,
@@ -759,6 +776,14 @@ PARCEL_UPLOADS = ("pageable", "eager", "pinned", "pinned", "eager", "pageable", 
 # points, and a parcel of CLI_PARCEL_SIZE m at PARCEL_DENSITY
 CLI_PLOTS, CLI_POINTS = 30, 12000
 CLI_PARCEL_SIZE = 60.0
+# phase 15j (schedule): fold 1 killed once it has finished SCHEDULE_KILL_AFTER
+# epochs (two evals at PROD's n_epoch_test of 10), a child's longest run, the
+# phase's budget (reported beside its seconds) and the calls a host cost is
+# averaged over
+SCHEDULE_KILL_AFTER = 25
+SCHEDULE_TIMEOUT = 600.0
+SCHEDULE_BUDGET_S = 200
+SCHEDULE_HOST_REPS = 200
 SEED = 0
 STEPS = 30  # timed steps; the median is reported
 # phase 15i: batches of make_predict_program, train steps from one state,
@@ -4294,6 +4319,160 @@ def graphs_phase(torch, ck, cfg, device, card, small=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 15j: the reference training schedule
+# ---------------------------------------------------------------------------
+
+
+def _script(name):
+    """`scripts/<name>.py` of this checkout, loaded as a module."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def schedule_launches(run):
+    """The launches a schedule run's summary must show: the train step's for
+    every batch it ran, the eval's for every eval batch, and a pixel max a
+    val plot where its last eval drew the figures."""
+    want = {name: run["train_batches"] * TRAIN_LAUNCHES[name]
+            + run["eval_batches"] * EVAL_LAUNCHES[name] for name in TRAIN_LAUNCHES}
+    want["pixel_max"] += run["val_plots"] if run["figures"] else 0
+    return want
+
+
+def epoch_host_costs(torch, device, card, epoch_s, reps=SCHEDULE_HOST_REPS):
+    """Host microseconds a call of what a schedule's epoch does besides its
+    batches: the sink's train record (JSONL and its TensorBoard mirror),
+    `print_epoch_losses` (no handler, as in the schedule's children), the
+    shuffled index table's upload and the read of the epoch's sums; their
+    sum as a share of `epoch_s`, the median epoch."""
+    import tempfile
+
+    import numpy as np
+
+    from stratanet2_tpu_torch.data.device_dataset import epoch_index_table
+    from stratanet2_tpu_torch.learning.train import TRAIN_LOSS_KEYS, print_epoch_losses
+    from stratanet2_tpu_torch.utils.experiment import MetricSink
+
+    losses = {**dict.fromkeys(TRAIN_LOSS_KEYS, 0.25), "step": 4, "points_per_sec": 3.4e7,
+              "epoch": 1, "epoch_seconds": 0.025}
+    sums = {k: torch.full((), 0.5, device=device) for k in TRAIN_LOSS_KEYS}
+
+    def per_call(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sink = MetricSink(tmp)
+        try:
+            us = {"sink_record": per_call(lambda i: sink.log_metrics(losses, epoch=i, step=i))}
+        finally:
+            sink.close()
+    us["print_epoch_losses"] = per_call(lambda i: print_epoch_losses(i, losses, train=True))
+    us["table_upload"] = per_call(lambda i: torch.from_numpy(
+        epoch_index_table(88, 20, SEED, i)).to(device))
+    us["sums_read"] = per_call(lambda i: torch.stack([sums[k] for k in sums]).tolist())
+    total = sum(us.values())
+    print(json.dumps({"phase": "schedule_host", "us_a_call": us, "us_an_epoch": total,
+                      "median_epoch_seconds": epoch_s,
+                      "share_of_epoch": total * 1e-6 / epoch_s if epoch_s else None,
+                      "card": card}), flush=True)
+
+
+def schedule_phase(torch, ck, card, device="cuda", small=None):
+    """Phase 15j: the reference training schedule as users run it, through
+    the port's counterparts of the JAX side's tools, each child a process
+    of its own on the card.
+    1. `"learnability"`: `scripts/torch_learnability_check.py`'s run at its
+       defaults (60 plots built from their geometry, 60 epochs, subsample
+       4,096, batch 8), in this process: val MAE must beat the
+       predict-the-mean baseline;
+    2. `"schedule_fold"`, a line a child run: `scripts/
+       torch_prod_schedule_run.py`'s orchestration at PROD (110 plots of
+       12,000 points, B=20 x 10,000, 300 epochs, early stopping on): fold 1
+       killed by SIGTERM past epoch SCHEDULE_KILL_AFTER (two evals: a
+       `.resume` exists) and resumed in a new process, then fold 2; then an
+       unbroken fold 1 in a fresh root. Each finished run: 300 epochs or an
+       early stop past `epoch_to_start_early_stop`, val MAE below its
+       baseline, launches equal to `schedule_launches`, graphs captured on
+       the card; the killed run's kill landed mid-schedule;
+    3. `"schedule_resume"`: the resumed fold 1 against the unbroken one, bit
+       for bit (`compare_runs`: the best checkpoint's params and BN
+       buffers, the `.resume` checkpoint's, Adam's moments and counts among
+       them, both files' metadata, the loss parts of every epoch and eval
+       from the resume on);
+    4. `"schedule_host"`: what an epoch costs the host besides its batches
+       (`epoch_host_costs`), and `"schedule"`, the phase's seconds.
+    `small` cuts the sizes for a run on the CPU: {"learnability": kwargs of
+    `learnability`, "schedule": flags of the schedule script, "kill_after":
+    epochs}."""
+    import os
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    small = small or {}
+    learn = _script("torch_learnability_check")
+    sched = _script("torch_prod_schedule_run")
+    summary = learn.learnability(device=str(device), **small.get("learnability", {}))
+    print(json.dumps({"phase": "learnability", **{k: summary[k] for k in (
+        "val_MAE", "baseline_MAE", "train_MAE_first", "train_MAE_last", "epochs", "n_plots",
+        "seconds")}, "card": card}), flush=True)
+    check(summary["val_MAE"] < summary["baseline_MAE"],
+          f"learnability: val MAE {summary['val_MAE']} does not beat the mean baseline "
+          f"{summary['baseline_MAE']}")
+
+    kill_after = small.get("kill_after", SCHEDULE_KILL_AFTER)
+    with tempfile.TemporaryDirectory() as tmp:
+        root, ref = os.path.join(tmp, "schedule"), os.path.join(tmp, "unbroken")
+        ns = sched.parse_args(["--root", root, "--kill_after", str(kill_after),
+                               "--device", str(device), *small.get("schedule", ())])
+        runs = sched.orchestrate(ns, timeout=SCHEDULE_TIMEOUT)
+        os.makedirs(ref)
+        shutil.copy(os.path.join(root, "plots.pkl"), ref)
+        runs.append(dict(sched.run_child(ns, ref, 1, timeout=SCHEDULE_TIMEOUT), run="unbroken"))
+        cmp = sched.compare_runs(root, ref, 1)
+    early_stop = sched.fold_config(ns).train.epoch_to_start_early_stop
+    wants = [None if run["run"] == "killed" else schedule_launches(run) for run in runs]
+    for run, want in zip(runs, wants):
+        extra = {} if want is None else {"want_launches": want}
+        print(json.dumps({"phase": "schedule_fold", **run, **extra, "card": card}), flush=True)
+    resumed = runs[1]
+    print(json.dumps({"phase": "schedule_resume", **cmp,
+                      "killed_after_epoch": resumed["killed_after_epoch"], "card": card}),
+          flush=True)
+    for run, want in zip(runs, wants):
+        name = f"schedule_fold_{run['fold']}_{run['run']}"
+        if want is None:
+            check(kill_after <= run["killed_after_epoch"] < ns.n_epoch,
+                  f"{name}: the kill landed after epoch {run['killed_after_epoch']}")
+            continue
+        # 300 epochs, or an early stop (allowed from epoch_to_start_early_stop on)
+        check(run["last_epoch"] == ns.n_epoch or early_stop <= run["last_epoch"] < ns.n_epoch,
+              f"{name}: ended at epoch {run['last_epoch']} of {ns.n_epoch}")
+        check(run["final_val_MAE"] < run["mean_baseline_MAE"],
+              f"{name}: val MAE {run['final_val_MAE']} does not beat the mean baseline "
+              f"{run['mean_baseline_MAE']}")
+        check_launches(run["launches"], want, name)
+        if str(device).startswith("cuda"):
+            check(run["graphs"]["captures"] > 0 and run["graphs"]["replays"] > 0,
+                  f"{name}: its steps ran outside graphs {run['graphs']}")
+    check(sched.same_run(cmp),
+          f"schedule: the resumed fold 1 differs from the unbroken one {cmp}")
+    epoch_host_costs(torch, device, card, runs[2]["median_epoch_seconds"])
+    print(json.dumps({"phase": "schedule", "seconds": time.perf_counter() - t_phase,
+                      "budget_seconds": SCHEDULE_BUDGET_S, "card": card}), flush=True)
+
+# ---------------------------------------------------------------------------
 # phase 15h: dense plots
 # ---------------------------------------------------------------------------
 
@@ -5233,6 +5412,8 @@ def main() -> int:
     timeline("dense")
     graphs_phase(torch, ck, cfg, device, card)
     timeline("graphs")
+    schedule_phase(torch, ck, card)
+    timeline("schedule")
     parcel_phase(torch, ck, cfg, device, card)
     timeline("parcel")
     results = cli_phase(torch, ck, card)

@@ -1,8 +1,10 @@
 """Synthetic inputs for `chip_smoke.py` and the tests: serve and train
 batches and random models made on the device from a seed, with no data
 files; and LiDAR plot clouds for LAS files (`make_plot_cloud`,
-`cloud_to_las_fields`, copies of `stratanet2_tpu/utils/synthetic.py`'s) and
-a parcel's (`make_parcel_cloud`)."""
+`cloud_to_las_fields`, copies of `stratanet2_tpu/utils/synthetic.py`'s), a
+parcel's (`make_parcel_cloud`), and plots whose ground truth is built from
+their geometry (`make_learnable_plot`, a copy of
+`scripts/learnability_check.py`'s)."""
 
 from __future__ import annotations
 
@@ -104,3 +106,57 @@ def cloud_to_las_fields(c: np.ndarray) -> dict:
         "blue": c[5], "nir": c[6], "intensity": c[7],
         "return_num": c[8], "num_returns": c[9],
     }
+
+
+def make_learnable_plot(rng, n=3000, center=(0.0, 0.0), radius=10.0):
+    """Cloud whose per-stratum coverages are controlled area fractions.
+
+    The plot disk is divided into pixel cells; each stratum occupies a random
+    subset of cells with known fraction. GT = those fractions (the quantity
+    the raster max-projection measures). The same draws in the same order as
+    `scripts/learnability_check.py:24-71`, so one seed gives the same cloud
+    and ground truth bit for bit.
+    """
+    cov_low = rng.uniform(0.05, 0.95)
+    cov_med = rng.uniform(0.05, 0.95)
+    cov_high = rng.uniform(0.05, 0.95)
+
+    # pixel centers inside the disk
+    g = np.arange(-radius + 0.5, radius, 1.0)
+    xx, yy = np.meshgrid(g, g)
+    inside = xx**2 + yy**2 < radius**2
+    cells = np.stack([xx[inside], yy[inside]], 1)
+    n_cells = len(cells)
+
+    def stratum_points(cov, z_lo, z_hi, count):
+        k = max(1, int(round(cov * n_cells)))
+        chosen = cells[rng.choice(n_cells, k, replace=False)]
+        cell_of_pt = chosen[rng.integers(0, k, count)]
+        xy = cell_of_pt + rng.uniform(-0.5, 0.5, (count, 2))
+        z = rng.uniform(z_lo, z_hi, count)
+        return xy, z
+
+    # ground points everywhere (z ~ 0), strata points in their cells
+    counts = [n // 2, n // 6, n // 6, n - n // 2 - 2 * (n // 6)]
+    xs, zs = [], []
+    xy_g = cells[rng.integers(0, n_cells, counts[0])] + rng.uniform(-0.5, 0.5, (counts[0], 2))
+    xs.append(xy_g)
+    zs.append(rng.uniform(0, 0.05, counts[0]))
+    for cov, (lo, hi), cnt in [
+        (cov_low, (0.1, 0.4), counts[1]),
+        (cov_med, (1.2, 4.0), counts[2]),
+        (cov_high, (6.0, 18.0), counts[3]),
+    ]:
+        xy, z = stratum_points(cov, lo, hi, cnt)
+        xs.append(xy)
+        zs.append(z)
+    xy = np.concatenate(xs) + np.asarray(center)
+    z = np.concatenate(zs)
+    n_tot = len(z)
+    cloud = np.zeros((10, n_tot), np.float32)
+    cloud[0], cloud[1], cloud[2] = xy[:, 0], xy[:, 1], z
+    cloud[3:7] = rng.uniform(0, 65535, (4, n_tot))
+    cloud[7] = rng.uniform(0, 32767, n_tot)
+    cloud[8:] = 1.0
+    gt = np.array([cov_low, 1 - cov_low, cov_med, cov_high], np.float32)
+    return cloud, gt

@@ -1259,3 +1259,68 @@ def test_graphs_phase_runs_on_the_cpu(monkeypatch, capsys):
     for name in ("serve_prod", "serve_dense", "train_prod", "train_dense"):
         assert {k: len(v) for k, v in row["step_ms"][name].items()} == {"graph": 2, "eager": 2}
     assert len(row["device_epoch"]["busy_share"]["graph"]) == 2
+
+
+def test_schedule_phase_runs_on_the_cpu(monkeypatch, capsys, tmp_path):
+    """Phase 15j's control flow at a tiny size on the CPU (10 plots of 300
+    points, batch 2, subsample 256, 6 epochs with an eval each, fold 1
+    killed past epoch 2; matplotlib and scikit-learn hidden from the
+    children): its lines in order with their keys, the learnability check
+    and each fold's baseline check (too few epochs here to beat the
+    baseline, so those are the checks let through), the launch checks (the
+    plain versions run: all 0), the resume bit for bit, the host costs and
+    the phase's seconds; and `main` runs it between phases 15i and 15e, with
+    a timeline line after it."""
+    import inspect
+    import json
+
+    from test_torch_port_schedule import quiet
+
+    quiet(monkeypatch, tmp_path)
+    for name in ("TRAIN_LAUNCHES", "EVAL_LAUNCHES"):
+        monkeypatch.setattr(cs, name, dict.fromkeys(getattr(cs, name), 0))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "SCHEDULE_HOST_REPS", 5)
+    check, missed = cs.check, []
+
+    def lenient(cond, msg):
+        if not cond and "does not beat the mean baseline" in msg:
+            missed.append(msg)
+            return
+        check(cond, msg)
+
+    monkeypatch.setattr(cs, "check", lenient)
+    small = {"learnability": {"epochs": 4, "n_plots": 10, "subsample_size": 256},
+             "schedule": ["--plots", "10", "--points", "300", "--batch", "2", "--subsample",
+                          "256", "--n_epoch", "6", "--n_epoch_test", "1"],
+             "kill_after": 2}
+    cs.schedule_phase(torch, ck, "cpu", device="cpu", small=small)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    ours = [x for x in lines if x["phase"] in ("learnability", "schedule_fold", "schedule_resume",
+                                               "schedule_host", "schedule")]
+    assert [x["phase"] for x in ours] == ["learnability"] + ["schedule_fold"] * 4 + [
+        "schedule_resume", "schedule_host", "schedule"]
+    learn, killed, resumed, fold2, unbroken, resume, host, phase = ours
+    assert {"val_MAE", "baseline_MAE", "train_MAE_first", "train_MAE_last", "epochs",
+            "seconds"} <= set(learn) and learn["epochs"] == 4
+    assert [(x["fold"], x["run"]) for x in (killed, resumed, fold2, unbroken)] == [
+        (1, "killed"), (1, "resumed"), (2, "first"), (1, "unbroken")]
+    assert killed["exit_code"] == -15 and 2 <= killed["killed_after_epoch"] < 6
+    for run in (resumed, fold2, unbroken):
+        assert {"epochs_run", "wall_seconds", "median_epoch_seconds", "train_points_per_sec",
+                "final_val_MAE", "mean_baseline_MAE", "launches", "want_launches",
+                "peak_allocated_mb", "resumed_from_epoch", "killed_after_epoch"} <= set(run)
+        assert run["last_epoch"] == 6 and run["launches"] == run["want_launches"]
+    assert resumed["resumed_from_epoch"] > 1
+    assert resume["differing_tensors"] == 0 and resume["differing_losses"] == 0
+    assert resume["tensors"] > 100 and resume["killed_after_epoch"] == killed["killed_after_epoch"]
+    assert set(host["us_a_call"]) == {"sink_record", "print_epoch_losses", "table_upload",
+                                      "sums_read"}
+    assert phase["seconds"] > 0 and phase["budget_seconds"] == cs.SCHEDULE_BUDGET_S
+    # the learnability check and the three finished runs' baselines
+    assert len(missed) <= 4
+    # 15j runs after 15i and before 15e, with its timeline line
+    src = inspect.getsource(cs.main)
+    order = ['graphs_phase(', 'timeline("graphs")', 'schedule_phase(', 'timeline("schedule")',
+             'parcel_phase(']
+    assert [src.index(x) for x in order] == sorted(src.index(x) for x in order)
