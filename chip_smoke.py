@@ -8,8 +8,10 @@ the parallel paths (two ranks sharing the card) and the opt-in routes at
 full width (B=20 clouds x N=10000 points, random weights from a seed), the
 steps on dense plots (N=65536 at diam_pix 100) through the kernels' paths
 for long shapes, the reference training schedule (300-epoch folds in
-processes of their own, one killed and resumed), and serves a reference
-checkpoint, and checks their outputs.
+processes of their own, one killed and resumed), the SSL cycle
+(pseudo-labels, pretraining, a warm-started cross-validation, folds in one
+process) and the learnability sweep, and serves a reference checkpoint,
+and checks their outputs.
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
 
@@ -237,6 +239,25 @@ Phases, in order, each failing loudly:
      loss parts of every epoch and eval from the resume on); `"phase":
      "schedule_host"`, the host's part of an epoch besides its batches;
      `"phase": "schedule"`, the phase's seconds against SCHEDULE_BUDGET_S;
+  15k. the SSL cycle (`ssl_cycle_phase`, run after 15j):
+     `scripts/torch_ssl_cycle.py` in this process at the JAX side's v5e
+     geometry (60 plots of 12,000 points, 4 parcels, B=20 x 10,000, 2 folds
+     of 60 epochs, 40 SSL epochs; PROD): `"phase": "ssl_cycle_stage"`, a
+     line a stage (cold cross-validation, prepare, pseudo-labelling, SSL
+     pretraining, warm cross-validation through the port's CLIs) with its
+     launches (every kernel of its path, none off it), graphs and peak MB;
+     `"phase": "ssl_cycle_fold"`, a line a fold with its seconds, the card's
+     memory at its end (a later fold's within max(16 MB, 5% of the first's
+     peak) of the first's) and its captures (each fold captures anew);
+     `"phase": "ssl_cycle_fold_alone"`, fold 2 trained again alone in a
+     fresh process against the cross-validation's, bit for bit
+     (checkpoints, Adam state, every epoch's loss parts); `"phase":
+     "ssl_sweep"`, a line a run of `scripts/torch_learnability_sweep.py`
+     for seed 0 at both ball-query policies (the nearest one launches
+     `ball_query_nearest`); `"phase": "ssl_cycle"`, the cold and warm val
+     MAE against their baselines (warm must beat its own, cold the JAX
+     side's MAE at this geometry), and the phase's seconds against
+     SSL_CYCLE_BUDGET_S;
   15e. `"phase": "parcel"`: parcel predict at PROD width (`parcel_phase`):
      a synthetic 100 m parcel's LAS (140 m with its buffer, ~627,000
      points) written, tiled and extracted (`"phase": "parcel_prepare"`,
@@ -451,6 +472,11 @@ NEAREST_SERVE_LAUNCHES = {**dict.fromkeys(TRAIN_LAUNCHES, 0), "fps": 2, "ball_qu
 NEAREST_TRAIN_LAUNCHES = {**dict.fromkeys(TRAIN_LAUNCHES, 0), "fps": 2, "ball_query_nearest": 2,
                           "knn_interpolate": 2, "knn_scatter": 3, "pixel_max": 1,
                           "pixel_max_bwd": 1}
+# the kernels a training run launches, its evals' included: the eleven of
+# the default (fused) route, and the nearest route's
+FUSED_PATH = set(TRAIN_LAUNCHES) - {"ball_query_nearest"}
+NEAREST_PATH = ({k for k, v in NEAREST_SERVE_LAUNCHES.items() if v}
+                | {k for k, v in NEAREST_TRAIN_LAUNCHES.items() if v})
 UNFUSED_SERVE_LAUNCHES = {**NEAREST_SERVE_LAUNCHES, "ball_query_nearest": 0, "ball_query": 2}
 UNFUSED_TRAIN_LAUNCHES = {**NEAREST_TRAIN_LAUNCHES, "ball_query_nearest": 0, "ball_query": 2}
 # route: (ModelConfig opt-ins, serve launches, train launches); bfloat16 on
@@ -784,6 +810,26 @@ SCHEDULE_KILL_AFTER = 25
 SCHEDULE_TIMEOUT = 600.0
 SCHEDULE_BUDGET_S = 200
 SCHEDULE_HOST_REPS = 200
+# phase 15k (ssl_cycle): scripts/torch_ssl_cycle.py at the geometry of the
+# JAX side's v5e run (RESULTS.md:566-591: 60 plots of 12,000 points, 4
+# parcels, B=20 x 10,000, 2 folds of 60 epochs, 40 SSL epochs) at PROD
+# width; fold SSL_ALONE_FOLD of its cold cross-validation trained again
+# alone in a fresh process; then scripts/torch_learnability_sweep.py at the
+# learnability check's defaults (60 plots, 60 epochs) for SSL_SWEEP_SEEDS.
+# A fold's card memory at its end may differ from the first fold's by
+# SSL_MEMORY_SLACK_MB or SSL_MEMORY_SHARE of the first fold's peak, the
+# larger. The warm val MAE must beat its predict-the-mean baseline; the cold
+# one, after 60 Adam steps a fold (30 train plots, one batch an epoch),
+# must be no worse than the JAX side's at this geometry and data
+# (SSL_JAX_COLD_MAE, RESULTS.md:584), which is above that baseline too
+SSL_CYCLE_ARGS = ("--mode", "PROD", "--n_plots", "60", "--points", "12000", "--n_parcels", "4",
+                  "--subsample_size", "10000", "--batch_size", "20", "--folds", "2",
+                  "--epochs", "60", "--ssl_epochs", "40")
+SSL_ALONE_FOLD = 2
+SSL_SWEEP_SEEDS, SSL_SWEEP_EPOCHS = (0,), 60
+SSL_CYCLE_BUDGET_S = 180
+SSL_MEMORY_SLACK_MB, SSL_MEMORY_SHARE = 16.0, 0.05
+SSL_JAX_COLD_MAE = 0.2427
 SEED = 0
 STEPS = 30  # timed steps; the median is reported
 # phase 15i: batches of make_predict_program, train steps from one state,
@@ -3204,6 +3250,16 @@ def parcel_phase(torch, ck, cfg, device, card):
           f"parcel corner: card and CPU differ by {max(tif_err, pred_err)}")
 
 
+def check_path_launches(name, launches, path):
+    """Every kernel of `path` launched in a run's `launches` (by wrapper),
+    and none off it."""
+    for kernel, count in launches.items():
+        if kernel in path:
+            check(count > 0, f"{name}: {kernel} never launched")
+        else:
+            check(count == 0, f"{name}: {kernel} launched off its path")
+
+
 def cli_launches(stats_dir):
     """The kernel launches a CLI logged at its end (`cli.log_kernel_launches`)
     in its run folder's stats.txt."""
@@ -3305,7 +3361,6 @@ def cli_phase(torch, ck, card, flags=("--subsample_size", "10000"), device="cuda
     from stratanet2_tpu_torch.inference import geotiff, shapefile_io
 
     serve = {"fps", "sa_fused_eval", "knn_interpolate", "pixel_max"}
-    everything = set(TRAIN_LAUNCHES) - {"ball_query_nearest"}  # the default route's kernels
     logger = logging.getLogger("stratanet2_tpu_torch")
     with tempfile.TemporaryDirectory() as tmp:
         tree = write_cli_tree(tmp, flags)
@@ -3344,11 +3399,7 @@ def cli_phase(torch, ck, card, flags=("--subsample_size", "10000"), device="cuda
             print(json.dumps({"phase": "cli", "cli": name, "seconds": seconds,
                               "launches": launches, "warnings": warnings_of(stats_dir),
                               "card": card}), flush=True)
-            for kernel in everything:
-                if kernel in path:
-                    check(launches[kernel] > 0, f"cli {name}: {kernel} never launched")
-                else:
-                    check(launches[kernel] == 0, f"cli {name}: {kernel} launched off its path")
+            check_path_launches(f"cli {name}", launches, path)
 
         def check_training(name, stats_dir, fold_ckpt, summaries=("relabeled_summary", "summary")):
             csvs = tuple(f"PCC_inference_all_placettes_{s}.csv" for s in summaries)
@@ -3358,7 +3409,7 @@ def cli_phase(torch, ck, card, flags=("--subsample_size", "10000"), device="cuda
                 check("Device-resident dataset" in f.read(),
                       f"cli {name}: training did not take the device-resident path")
 
-        trained, train_dir = cli("main", lambda: cli_main.main(on_card), "learning", everything)
+        trained, train_dir = cli("main", lambda: cli_main.main(on_card), "learning", FUSED_PATH)
         check_training("main", train_dir, "PCC_model_fold_n=1.pt")
         model_id = os.path.basename(trained)
         results = {}  # the cross-validation result CSVs, for phase 17e
@@ -3414,10 +3465,10 @@ def cli_phase(torch, ck, card, flags=("--subsample_size", "10000"), device="cuda
                   f"cli predict: pseudo-label {cov}")
 
         ssl_dir, _ = cli("main_ssl", lambda: cli_ssl.main(
-            on_card + ["--inference_model_id", model_id]), "pretraining", everything)
+            on_card + ["--inference_model_id", model_id]), "pretraining", FUSED_PATH)
         check_training("main_ssl", ssl_dir, "PCC_model_full.pt", ("pretraining_summary",))
         _, warm_dir = cli("main_warm_start", lambda: cli_main.main(
-            on_card + ["--PT_model_id", os.path.basename(ssl_dir)]), "learning", everything)
+            on_card + ["--PT_model_id", os.path.basename(ssl_dir)]), "learning", FUSED_PATH)
         check_training("main_warm_start", warm_dir, "PCC_model_fold_n=1.pt")
         with open(os.path.join(warm_dir, "stats.txt")) as f:
             check("Warm-starting from pretrained model" in f.read(),
@@ -4473,6 +4524,121 @@ def schedule_phase(torch, ck, card, device="cuda", small=None):
                       "budget_seconds": SCHEDULE_BUDGET_S, "card": card}), flush=True)
 
 # ---------------------------------------------------------------------------
+# phase 15k: the SSL cycle and the learnability sweep
+# ---------------------------------------------------------------------------
+
+
+def fold_memory_drift(folds):
+    """The card memory allocated at each later fold's end against the first
+    fold's of one cross-validation: [(fold, drift MB, bound MB)], the bound
+    max(SSL_MEMORY_SLACK_MB, SSL_MEMORY_SHARE x the first fold's peak)."""
+    first = folds[0]
+    bound = max(SSL_MEMORY_SLACK_MB, SSL_MEMORY_SHARE * first["peak_allocated_mb"])
+    return [(f["fold"], f["allocated_mb"] - first["allocated_mb"], bound) for f in folds[1:]]
+
+
+def ssl_cycle_phase(torch, ck, card, device="cuda", small=None):
+    """Phase 15k: the SSL cycle and the learnability sweep as users run
+    them, through the port's counterparts of the JAX side's tools.
+    1. `"ssl_cycle_stage"`, a line a stage of `scripts/torch_ssl_cycle.py`
+       in this process at SSL_CYCLE_ARGS (cold cross-validation, prepare,
+       pseudo-labelling, SSL pretraining, warm cross-validation through the
+       port's CLIs) with its seconds, launches, graphs and peak MB; each
+       stage launches every kernel of its path and none off it (training:
+       the eleven of the fused route; pseudo-labelling: the four serve
+       kernels; prepare: none), pseudo-labelling labels at least one plot;
+    2. `"ssl_cycle_fold"`, a line a fold of either cross-validation: its
+       seconds, the card's allocated and reserved MB at its end, its peak
+       and its captures (each fold captures anew on the card); a later
+       fold's allocated MB within `fold_memory_drift`'s bound of the first
+       fold's;
+    3. `"ssl_cycle_fold_alone"`: fold SSL_ALONE_FOLD of the cold
+       cross-validation trained again alone in a fresh process
+       (`torch_ssl_cycle.run_fold_alone`) against the cross-validation's,
+       bit for bit (`compare_fold`: both checkpoints' params, BN buffers,
+       Adam state and metadata, every epoch's and eval's loss parts);
+    4. `"ssl_cycle"`: the cold and warm val MAE and their predict-the-mean
+       baselines (the warm one must beat its baseline, the cold one
+       SSL_JAX_COLD_MAE), the SSL run's val MAE on pseudo-labels and warm
+       minus cold (printed), the phase's seconds against
+       SSL_CYCLE_BUDGET_S; before it, `"ssl_sweep"`, a line a run of
+       `scripts/torch_learnability_sweep.py` for SSL_SWEEP_SEEDS at both
+       policies and SSL_SWEEP_EPOCHS (the grouped policy launches the
+       fused route's eleven, the nearest policy its own, with
+       `ball_query_nearest`), and `"ssl_sweep_summary"` a policy.
+    `small` cuts the sizes for a run on the CPU: {"cycle": the cycle's
+    flags, "sweep": keyword arguments of `sweep`}."""
+    import os
+    import tempfile
+
+    t_phase = time.perf_counter()
+    small = small or {}
+    cycle = _script("torch_ssl_cycle")
+    sched = _script("torch_prod_schedule_run")
+    sweep = _script("torch_learnability_sweep")
+    on_card = str(device).startswith("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "cycle")
+        argv = ["--root", root, "--device", str(device), *small.get("cycle", SSL_CYCLE_ARGS)]
+        result = cycle.main(argv)
+        alone_s = cycle.run_fold_alone(argv, SSL_ALONE_FOLD, timeout=SCHEDULE_TIMEOUT)
+        cmp = cycle.compare_fold(result, root, SSL_ALONE_FOLD)
+    stages, summary = result["stages"], result["summary"]
+    paths = {"cold_crossval": FUSED_PATH, "prepare": set(), "pseudo_label": _SERVE_PATH,
+             "ssl_pretrain": FUSED_PATH, "warm_crossval": FUSED_PATH}
+    for name in paths:
+        print(json.dumps({"phase": "ssl_cycle_stage", **stages[name], "card": card}), flush=True)
+    folds = {cv: [{k: v for k, v in f.items() if k not in ("train", "test")}
+                  for f in result["folds"] if f["of"] == cv]
+             for cv in ("cold_crossval", "warm_crossval")}
+    for rows in folds.values():
+        for row in rows:
+            print(json.dumps({"phase": "ssl_cycle_fold", **row, "card": card}), flush=True)
+    print(json.dumps({"phase": "ssl_cycle_fold_alone", **cmp, "process_seconds": alone_s,
+                      "card": card}), flush=True)
+
+    for name, path in paths.items():
+        check_path_launches(f"ssl_cycle {name}", stages[name]["launches"], path)
+    check(stages["pseudo_label"]["pseudo_labels"] > 0, "ssl_cycle: no plot pseudo-labelled")
+    n_folds = cycle.parse_args(argv).folds or 5  # the config's default
+    for cv, rows in folds.items():
+        check([row["fold"] for row in rows] == list(range(1, n_folds + 1)),
+              f"ssl_cycle {cv}: folds {[row['fold'] for row in rows]} of {n_folds}")
+        if on_card:
+            for row in rows:
+                check(row["captures"] > 0 and row["replays"] > 0,
+                      f"ssl_cycle {cv} fold {row['fold']}: no capture anew {row}")
+            for fold, drift, bound in fold_memory_drift(rows):
+                check(abs(drift) <= bound, f"ssl_cycle {cv}: card memory after fold {fold} "
+                      f"{drift:+.1f} MB from fold 1's, past {bound:.1f} MB")
+    check(sched.same_run(cmp), f"ssl_cycle: fold {SSL_ALONE_FOLD} of the cross-validation "
+          f"differs from the fold trained alone {cmp}")
+    cold, warm = summary["cold_val_MAE"], summary["warm_val_MAE"]
+    check(cold <= SSL_JAX_COLD_MAE, f"ssl_cycle: cold val MAE {cold} does not beat the JAX "
+          f"side's {SSL_JAX_COLD_MAE} at this geometry")
+    check(warm < summary["warm_baseline_MAE"], f"ssl_cycle: warm val MAE {warm} does not beat "
+          f"the mean baseline {summary['warm_baseline_MAE']}")
+
+    kwargs = {"epochs": SSL_SWEEP_EPOCHS, **small.get("sweep", {})}
+    records, summaries = sweep.sweep(SSL_SWEEP_SEEDS, device=str(device), **kwargs)
+    for rec in records:
+        print(json.dumps({"phase": "ssl_sweep", **rec, "card": card}), flush=True)
+    for row in summaries:
+        print(json.dumps({"phase": "ssl_sweep_summary", **row, "card": card}), flush=True)
+    check(sorted((r["seed"], r["policy"]) for r in records)
+          == sorted((seed, pol) for seed in SSL_SWEEP_SEEDS for pol in ("grouped", "nearest")),
+          f"ssl_sweep: runs {[(r['seed'], r['policy']) for r in records]}")
+    for rec in records:
+        path = FUSED_PATH if rec["policy"] == "grouped" else NEAREST_PATH
+        check_path_launches(f"ssl_sweep seed {rec['seed']} {rec['policy']}", rec["launches"], path)
+    print(json.dumps({"phase": "ssl_cycle", **{k: summary[k] for k in (
+        "cold_val_MAE", "cold_baseline_MAE", "warm_val_MAE", "warm_baseline_MAE",
+        "warm_minus_cold", "ssl_val_MAE", "pseudo_labels")},
+        "seconds": time.perf_counter() - t_phase, "budget_seconds": SSL_CYCLE_BUDGET_S,
+        "card": card}), flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 15h: dense plots
 # ---------------------------------------------------------------------------
 
@@ -5414,6 +5580,8 @@ def main() -> int:
     timeline("graphs")
     schedule_phase(torch, ck, card)
     timeline("schedule")
+    ssl_cycle_phase(torch, ck, card)
+    timeline("ssl_cycle")
     parcel_phase(torch, ck, cfg, device, card)
     timeline("parcel")
     results = cli_phase(torch, ck, card)

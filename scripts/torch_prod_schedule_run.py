@@ -388,27 +388,28 @@ def _leaves(tree, path: str = "") -> Iterator[Tuple[str, np.ndarray]]:
         yield path, np.asarray(tree)
 
 
-def compare_runs(resumed_root: str, unbroken_root: str, fold: int) -> Dict:
-    """A killed-and-resumed fold (`resumed_root`) against an unbroken run of
-    the same fold (`unbroken_root`), bit for bit: the best checkpoint's
-    params and BN buffers, the `.resume` checkpoint's params, BN buffers and
-    optimizer state (Adam's moments and counts, the schedule's count), both
-    files' metadata (the early-stopping state among it), and the loss parts
-    and step of every epoch and every eval the resumed run ran, against the
-    unbroken run's of the same epochs."""
-    from stratanet2_tpu_torch.learning.evaluate import LOSS_KEYS
-    from stratanet2_tpu_torch.learning.train import TRAIN_LOSS_KEYS
+def compare_checkpoints(got_dir: str, want_dir: str, fold: int) -> Dict:
+    """The fold's best and `.resume` checkpoints in `got_dir` against those
+    in `want_dir`, bit for bit: params, BN buffers and optimizer state
+    (Adam's moments and counts, the schedule's count) of each, and both
+    files' metadata (the early-stopping state among it). A run without an
+    eval before its last epoch writes no `.resume`: then neither dir may
+    hold one."""
     from stratanet2_tpu_torch.utils import checkpoint as ckpt
 
     name = ckpt.checkpoint_name(fold)
-    files = {"best": (name, ("params", "model_state")),
-             "resume": (name + ".resume", ("params", "model_state", "opt_state"))}
     tensors, differing, max_diff, metadata_equal = 0, [], 0.0, True
-    for label, (file, keys) in files.items():
-        got, want = (ckpt.load_checkpoint(os.path.join(r, f"fold{fold}", file))
-                     for r in (resumed_root, unbroken_root))
+    for label, file in (("best", name), ("resume", name + ".resume")):
+        paths = [os.path.join(d, file) for d in (got_dir, want_dir)]
+        held = [os.path.exists(p) for p in paths]
+        if label == "resume" and held == [False, False]:
+            continue
+        if not all(held):
+            differing.append(f"{label}: {file} missing from one run")
+            continue
+        got, want = (ckpt.load_checkpoint(p) for p in paths)
         metadata_equal &= got["metadata"] == want["metadata"]
-        for key in keys:
+        for key in ("params", "model_state", "opt_state"):
             lg, lw = list(_leaves(got[key])), list(_leaves(want[key]))
             if [p for p, _ in lg] != [p for p, _ in lw]:
                 raise ValueError(f"{label} {key}: the two checkpoints' trees differ")
@@ -419,22 +420,41 @@ def compare_runs(resumed_root: str, unbroken_root: str, fold: int) -> Dict:
                 if x.shape == y.shape and x.size:
                     max_diff = max(max_diff, float(np.abs(
                         x.astype(np.float64) - y.astype(np.float64)).max()))
+    return {"tensors": tensors, "differing_tensors": len(differing),
+            "differing": differing[:8], "max_abs_diff": max_diff,
+            "metadata_equal": bool(metadata_equal)}
 
+
+def loss_differences(got_train: List[Dict], want_train: List[Dict], got_test: List[Dict],
+                     want_test: List[Dict]) -> List[float]:
+    """|got - want| of every loss part and step of each pair of train dicts
+    and of eval dicts, in order."""
+    from stratanet2_tpu_torch.learning.evaluate import LOSS_KEYS
+    from stratanet2_tpu_torch.learning.train import TRAIN_LOSS_KEYS
+
+    pairs = ([(g, w, TRAIN_LOSS_KEYS) for g, w in zip(got_train, want_train)]
+             + [(g, w, LOSS_KEYS) for g, w in zip(got_test, want_test)])
+    return [abs(g[k] - w[k]) for g, w, keys in pairs for k in (*keys, "step")]
+
+
+def compare_runs(resumed_root: str, unbroken_root: str, fold: int) -> Dict:
+    """A killed-and-resumed fold (`resumed_root`) against an unbroken run of
+    the same fold (`unbroken_root`), bit for bit: both checkpoints
+    (`compare_checkpoints`), and the loss parts and step of every epoch and
+    every eval the resumed run ran, against the unbroken run's of the same
+    epochs."""
+    cmp = compare_checkpoints(os.path.join(resumed_root, f"fold{fold}"),
+                              os.path.join(unbroken_root, f"fold{fold}"), fold)
     (got,) = [r for r in _records(os.path.join(resumed_root, f"fold{fold}_losses.jsonl"))[0]
               if r["resumed"]][-1:]
     want = _records(os.path.join(unbroken_root, f"fold{fold}_losses.jsonl"))[0][-1]
     start = got["train"][0]["epoch"]
-    epochs_match = ([d["epoch"] for d in got["train"]]
-                    == [d["epoch"] for d in want["train"] if d["epoch"] >= start])
-    evals_want = want["test"][len(want["test"]) - len(got["test"]):]
-    epochs_match &= [d["epoch"] for d in got["test"]] == [d["epoch"] for d in evals_want]
-    pairs = list(zip(got["train"], [d for d in want["train"] if d["epoch"] >= start]))
-    pairs = ([(g, w, TRAIN_LOSS_KEYS) for g, w in pairs]
-             + [(g, w, LOSS_KEYS) for g, w in zip(got["test"], evals_want)])
-    diffs = [abs(g[k] - w[k]) for g, w, keys in pairs for k in (*keys, "step")]
-    return {"tensors": tensors, "differing_tensors": len(differing),
-            "differing": differing[:8], "max_abs_diff": max_diff,
-            "metadata_equal": bool(metadata_equal), "epochs_match": bool(epochs_match),
+    want_train = [d for d in want["train"] if d["epoch"] >= start]
+    want_test = want["test"][len(want["test"]) - len(got["test"]):]
+    epochs_match = ([d["epoch"] for d in got["train"]] == [d["epoch"] for d in want_train]
+                    and [d["epoch"] for d in got["test"]] == [d["epoch"] for d in want_test])
+    diffs = loss_differences(got["train"], want_train, got["test"], want_test)
+    return {**cmp, "epochs_match": bool(epochs_match),
             "train_epochs_compared": len(got["train"]), "evals_compared": len(got["test"]),
             "loss_values_compared": len(diffs),
             "differing_losses": sum(d != 0 for d in diffs),

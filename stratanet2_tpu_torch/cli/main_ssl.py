@@ -67,6 +67,11 @@ def main(argv=None):
     logger.info("Loading pseudo-labelled data...")
     assert ns.inference_model_id, "--inference_model_id required (pseudo-label source)"
     dataset = load_pseudo_labelled_datasets(cfg, ns.inference_model_id)
+    if not dataset:
+        raise SystemExit(
+            f"No pseudo-labelled plots of model {ns.inference_model_id} under "
+            f"{cfg.data.las_parcels_folder_path}/pseudo_labelling: nothing to pretrain on"
+        )
     n_plots = len(dataset)
     logger.info("Training on N=%d pseudo-labeled plots.", n_plots)
 

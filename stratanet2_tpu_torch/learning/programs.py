@@ -88,17 +88,24 @@ def mode_key(model: torch.nn.Module, training: bool) -> Tuple:
 
 class CudaGraphs:
     """Warm-up, capture and replay on the card. The warm-up and the capture
-    run on one side stream, which first waits for the current stream, and
+    run on a side stream, which first waits for the current stream, and
     the current stream waits for them; a replay runs on the current
-    stream."""
+    stream.
 
-    def __init__(self):
-        self._stream: Optional[torch.cuda.Stream] = None
+    The side stream is one a card for the whole process, shared by every
+    program, as `torch.cuda.graph`'s default capture stream is: cuBLAS
+    keeps a workspace (32 MiB on an H100) for each stream it has run on
+    until the process ends, so a stream of each program's own would leave
+    96 MB on the card after every fold (its epoch, eval and final-eval
+    programs)."""
+
+    _streams: Dict[int, torch.cuda.Stream] = {}  # card index -> the side stream
 
     def _side(self, device: torch.device) -> torch.cuda.Stream:
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device)
-        return self._stream
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        if index not in CudaGraphs._streams:
+            CudaGraphs._streams[index] = torch.cuda.Stream(index)
+        return CudaGraphs._streams[index]
 
     @contextlib.contextmanager
     def _on_side(self, device: torch.device):

@@ -479,3 +479,20 @@ def _eager_step(step):
 
     eager.body = step.body
     return eager
+
+
+def test_programs_share_one_side_stream_a_card(monkeypatch):
+    """Every program's warm-up and capture run on one side stream a card:
+    cuBLAS keeps a workspace for each stream it has run on until the
+    process ends, so a stream a program would grow the card's memory fold
+    after fold."""
+    made = []
+    monkeypatch.setattr(programs.CudaGraphs, "_streams", {})
+    monkeypatch.setattr(torch.cuda, "Stream", lambda index: made.append(index) or object())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    a, b = (programs.StepProgram(lambda: None).graphs for _ in range(2))
+    assert a is not b
+    cuda0 = torch.device("cuda", 0)
+    assert a._side(cuda0) is b._side(torch.device("cuda")) is a._side(cuda0)
+    assert b._side(torch.device("cuda", 1)) is not a._side(cuda0)
+    assert made == [0, 1]

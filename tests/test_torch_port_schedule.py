@@ -238,23 +238,29 @@ def test_fold_split_is_the_jax_scripts():
         assert sorted(set(train) | set(val)) == list(ids) and len(train) == 88
 
 
+PORT_SCRIPTS = ("torch_learnability_check", "torch_prod_schedule_run", "torch_ssl_cycle",
+                "torch_learnability_sweep")
+
+
 def test_scripts_import_without_jax(tmp_path):
-    """Both scripts, and every module their functions import, load with
-    jax and the JAX package blocked, in a fresh interpreter."""
+    """The port's four training-schedule scripts, and every module their
+    functions import, load with jax and the JAX package blocked, in a fresh
+    interpreter."""
     modules = sorted({
         node.module if isinstance(node, ast.ImportFrom) else alias.name
-        for name in ("torch_learnability_check.py", "torch_prod_schedule_run.py")
+        for name in (f"{script}.py" for script in PORT_SCRIPTS)
         for node in ast.walk(ast.parse((SCRIPTS / name).read_text()))
         if isinstance(node, (ast.Import, ast.ImportFrom)) and not getattr(node, "level", 0)
         for alias in node.names})
-    assert "stratanet2_tpu_torch.learning.train" in modules
+    assert {"stratanet2_tpu_torch.learning.train", "stratanet2_tpu_torch.cli",
+            "torch_learnability_check", "torch_prod_schedule_run"} <= set(modules)
     assert not [m for m in modules if re.match(r"(jax|stratanet2_tpu)(\.|$)", m)]
     code = (
         "import importlib, importlib.util, sys\n"
         "blocked = ('jax', 'jaxlib', 'stratanet2_tpu')\n"
         "for m in blocked:\n"
         "    sys.modules[m] = None\n"
-        "for name in ('torch_learnability_check', 'torch_prod_schedule_run'):\n"
+        f"for name in {PORT_SCRIPTS!r}:\n"
         f"    spec = importlib.util.spec_from_file_location(name, {str(SCRIPTS)!r} + f'/{{name}}.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"for m in {modules!r}:\n"

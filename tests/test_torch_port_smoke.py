@@ -1324,3 +1324,84 @@ def test_schedule_phase_runs_on_the_cpu(monkeypatch, capsys, tmp_path):
     order = ['graphs_phase(', 'timeline("graphs")', 'schedule_phase(', 'timeline("schedule")',
              'parcel_phase(']
     assert [src.index(x) for x in order] == sorted(src.index(x) for x in order)
+
+
+def test_ssl_cycle_phase_runs_on_the_cpu(monkeypatch, capsys, tmp_path):
+    """Phase 15k's control flow at `tests/test_ssl_cycle.py`'s sizes on the
+    CPU (10 plots of 1,200 points, a parcel, subsample 512, batch 4; PROD at
+    2 folds of 2 epochs, 2 SSL epochs; the sweep at 10 plots, 2 epochs,
+    subsample 256; matplotlib and scikit-learn hidden, also from the fold
+    trained alone): its lines in order with their keys, the fold trained
+    alone in a fresh process bit for bit the cross-validation's, and the
+    launch and MAE checks (the plain versions run and the runs are too
+    short to beat the baseline, so those are the checks let through); and
+    `main` runs it between phases 15j and 15e, with a timeline line."""
+    import inspect
+    import json
+
+    from test_torch_port_schedule import quiet
+
+    quiet(monkeypatch, tmp_path)
+    # the CPU's float32 sums depend on the threads: as many here as in the
+    # fold trained alone (quiet's OMP_NUM_THREADS)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    check, missed = cs.check, []
+
+    def lenient(cond, msg):
+        if not cond and ("never launched" in msg or "does not beat" in msg):
+            missed.append(msg)
+            return
+        check(cond, msg)
+
+    monkeypatch.setattr(cs, "check", lenient)
+    small = {"cycle": ["--mode", "PROD", "--n_plots", "10", "--n_parcels", "1", "--points",
+                       "1200", "--subsample_size", "512", "--batch_size", "4", "--folds", "2",
+                       "--epochs", "2", "--ssl_epochs", "2"],
+             "sweep": {"epochs": 2, "n_plots": 10, "subsample_size": 256}}
+    try:
+        cs.ssl_cycle_phase(torch, ck, "cpu", device="cpu", small=small)
+    finally:
+        torch.set_num_threads(threads)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    ours = [x for x in lines if x.get("phase", "").startswith(("ssl_cycle", "ssl_sweep"))]
+    assert [x["phase"] for x in ours] == (["ssl_cycle_stage"] * 5 + ["ssl_cycle_fold"] * 4 + [
+        "ssl_cycle_fold_alone"] + ["ssl_sweep"] * 2 + ["ssl_sweep_summary"] * 2 + ["ssl_cycle"])
+    stages, folds, alone = ours[:5], ours[5:9], ours[9]
+    assert [x["stage"] for x in stages] == ["cold_crossval", "prepare", "pseudo_label",
+                                            "ssl_pretrain", "warm_crossval"]
+    for x in stages:
+        assert set(x["launches"]) == set(ck.LAUNCHES) and x["wall_s"] > 0
+    assert stages[2]["pseudo_labels"] > 0
+    assert [(x["of"], x["fold"]) for x in folds] == [
+        ("cold_crossval", 1), ("cold_crossval", 2), ("warm_crossval", 1), ("warm_crossval", 2)]
+    for x in folds:
+        assert {"seconds", "allocated_mb", "reserved_mb", "peak_allocated_mb", "captures",
+                "replays", "val_MAE", "baseline_MAE"} <= set(x)
+    assert alone["fold"] == cs.SSL_ALONE_FOLD and alone["process_seconds"] > 0
+    assert alone["differing_tensors"] == 0 and alone["differing_losses"] == 0
+    assert alone["tensors"] > 100 and alone["loss_values_compared"] > 0
+    assert [x["policy"] for x in ours[10:12]] == ["grouped", "nearest"]
+    phase = ours[-1]
+    assert phase["seconds"] > 0 and phase["budget_seconds"] == cs.SSL_CYCLE_BUDGET_S
+    # the kernels of three training stages, of pseudo-labelling and of the
+    # two sweep runs; and at most the cold and warm MAE checks
+    never = [m for m in missed if "never launched" in m]
+    assert len(never) == 3 * 11 + 4 + 11 + len(cs.NEAREST_PATH)
+    assert len(missed) - len(never) <= 2
+    # 15k runs after 15j and before 15e, with its timeline line
+    src = inspect.getsource(cs.main)
+    order = ['schedule_phase(', 'timeline("schedule")', 'ssl_cycle_phase(',
+             'timeline("ssl_cycle")', 'parcel_phase(']
+    assert [src.index(x) for x in order] == sorted(src.index(x) for x in order)
+
+
+def test_fold_memory_drift_bound():
+    """A later fold's allocated MB against the first fold's, within the
+    larger of SSL_MEMORY_SLACK_MB and SSL_MEMORY_SHARE of its peak."""
+    folds = [{"fold": 1, "allocated_mb": 100.0, "peak_allocated_mb": 460.0},
+             {"fold": 2, "allocated_mb": 110.0}, {"fold": 3, "allocated_mb": 80.0}]
+    assert cs.fold_memory_drift(folds) == [(2, 10.0, 23.0), (3, -20.0, 23.0)]
+    folds[0]["peak_allocated_mb"] = 100.0
+    assert cs.fold_memory_drift(folds)[0][2] == cs.SSL_MEMORY_SLACK_MB
