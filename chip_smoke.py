@@ -258,6 +258,23 @@ Phases, in order, each failing loudly:
      MAE against their baselines (warm must beat its own, cold the JAX
      side's MAE at this geometry), and the phase's seconds against
      SSL_CYCLE_BUDGET_S;
+  15l. the capped-K studies and the parity eval (`cap_studies_phase`, run
+     after 15k): `"phase": "neighbor_cap_study"`, the port's eval forward
+     at PROD caps for both ball-query policies on the unfused route
+     against the reference oracle (cap 2000, on the host) on 2 clouds of
+     10,000 points, weight seed 100, each policy's launches its route's
+     and its plot coverages equal to the CPU's within CPU_ATOL;
+     `"phase": "cap_grad_study"`, the gradient of the train loss at caps
+     32 / 64 and 512 / 256 on one batch of 4 learnable plots at init, each
+     held to the CPU's (TRAIN_GRAD_RTOL of a leaf's max |g|, the loss
+     within TRAIN_LOSS_ATOL), the cosine and norm ratio; `"phase":
+     "cap_train_study"`, `train_full` capped against generous (20 plots,
+     8 epochs, train_n 2,048) with launches, val MAE and seconds; `"phase":
+     "parity_eval"`, `scripts/torch_parity_eval.py` on phase 15f's data
+     tree and a seeded reference-layout checkpoint (the eval route's
+     launches), and on 4 of its plots on the card against the CPU within
+     CPU_ATOL; `"phase": "cap_studies"`, the phase's seconds against
+     CAP_STUDIES_BUDGET_S;
   15e. `"phase": "parcel"`: parcel predict at PROD width (`parcel_phase`):
      a synthetic 100 m parcel's LAS (140 m with its buffer, ~627,000
      points) written, tiled and extracted (`"phase": "parcel_prepare"`,
@@ -413,6 +430,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import logging
 import subprocess
@@ -830,6 +848,23 @@ SSL_SWEEP_SEEDS, SSL_SWEEP_EPOCHS = (0,), 60
 SSL_CYCLE_BUDGET_S = 180
 SSL_MEMORY_SLACK_MB, SSL_MEMORY_SHARE = 16.0, 0.05
 SSL_JAX_COLD_MAE = 0.2427
+# phase 15l (cap_studies): scripts/torch_neighbor_cap_study.py on
+# CAP_NEIGHBOR clouds (n_clouds, N, weight seeds), the gradient study of
+# scripts/torch_cap_train_study.py on one batch at CAP_GRAD_ARGS and its
+# training study at CAP_TRAIN_ARGS (their full depth stays in the
+# scripts), scripts/torch_parity_eval.py on phase 15f's tree, and its first
+# PARITY_CPU_PLOTS plots again on the card and on the CPU
+CAP_NEIGHBOR = (2, 10000, 1)
+CAP_GRAD_ARGS = ("--n", "10000", "--batch", "4", "--seeds", "1", "--skip_pretrain")
+CAP_TRAIN_ARGS = ("--n_plots", "20", "--epochs", "8")
+PARITY_CPU_PLOTS = 4
+CAP_STUDIES_BUDGET_S = 90
+# the unfused route's eval forward (FPS and the selection at SA1 and SA2,
+# kNN at FP2 and FP1, a pixel max for the plot coverages) by policy
+CAP_EVAL_LAUNCHES = {
+    "grouped": {**UNFUSED_SERVE_LAUNCHES, "pixel_max": 1},
+    "nearest": {**NEAREST_SERVE_LAUNCHES, "pixel_max": 1},
+}
 SEED = 0
 STEPS = 30  # timed steps; the median is reported
 # phase 15i: batches of make_predict_program, train steps from one state,
@@ -4386,12 +4421,14 @@ def _script(name):
     return module
 
 
-def schedule_launches(run):
-    """The launches a schedule run's summary must show: the train step's for
-    every batch it ran, the eval's for every eval batch, and a pixel max a
-    val plot where its last eval drew the figures."""
-    want = {name: run["train_batches"] * TRAIN_LAUNCHES[name]
-            + run["eval_batches"] * EVAL_LAUNCHES[name] for name in TRAIN_LAUNCHES}
+def schedule_launches(run, train=None, evals=None):
+    """The launches a training run's summary must show: the train step's
+    (`train`, TRAIN_LAUNCHES by default) for every batch it ran, the eval's
+    (`evals`, EVAL_LAUNCHES by default) for every eval batch, and a pixel
+    max a val plot where its last eval drew the figures."""
+    train, evals = train or TRAIN_LAUNCHES, evals or EVAL_LAUNCHES
+    want = {name: run["train_batches"] * train[name] + run["eval_batches"] * evals[name]
+            for name in train}
     want["pixel_max"] += run["val_plots"] if run["figures"] else 0
     return want
 
@@ -4636,6 +4673,191 @@ def ssl_cycle_phase(torch, ck, card, device="cuda", small=None):
         "warm_minus_cold", "ssl_val_MAE", "pseudo_labels")},
         "seconds": time.perf_counter() - t_phase, "budget_seconds": SSL_CYCLE_BUDGET_S,
         "card": card}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 15l: the capped-K studies and the reference-checkpoint parity eval
+# ---------------------------------------------------------------------------
+
+
+def grad_diffs(card, cpu):
+    """The card's gradients against the CPU's ({name: array} each): the
+    largest |difference| over a leaf's max |g| of the CPU's."""
+    import numpy as np
+
+    return max(float(np.abs(card[k] - cpu[k]).max()) / max(float(np.abs(cpu[k]).max()), 1e-30)
+               for k in cpu)
+
+
+def parity_subtree(tree_args, root, plots):
+    """The first `plots` plot LAS of a parity tree (`write_cli_tree`'s
+    args) and their GT rows copied under `root`: the args over the copy,
+    in batches of `plots` (a plot's eval outputs do not depend on its
+    batch; the CPU then computes no padding plots)."""
+    import os
+    import shutil
+
+    args = list(tree_args)
+    las_dir = args[args.index("--las_plots_folder_path") + 1]
+    gt_csv = args[args.index("--gt_file_path") + 1]
+    names = sorted(f for f in os.listdir(las_dir) if f.endswith(".las"))[:plots]
+    sub_las = os.path.join(root, "las")
+    os.makedirs(sub_las)
+    for name in names:
+        shutil.copy(os.path.join(las_dir, name), sub_las)
+    keep = {os.path.splitext(n)[0] for n in names}
+    with open(gt_csv) as f:
+        rows = f.read().splitlines()
+    sub_gt = os.path.join(root, "gt.csv")
+    with open(sub_gt, "w") as f:
+        f.write("\n".join([rows[0]] + [r for r in rows[1:] if r.split(",")[0] in keep]) + "\n")
+    for flag, value in (("--las_plots_folder_path", sub_las), ("--gt_file_path", sub_gt),
+                        ("--corrected_gt_file_path", sub_gt),
+                        ("--plots_pickled_dataset_path", os.path.join(root, "plots.pkl"))):
+        args[args.index(flag) + 1] = value
+    return [*args, "--batch_size", str(plots)]
+
+
+def cap_studies_phase(torch, ck, card, device="cuda", small=None):
+    """Phase 15l: the capped-K studies and the parity eval through the
+    port's counterparts of the JAX side's scripts, at small depths (their
+    full depth stays in the scripts).
+    1. `"neighbor_cap_study"`: `torch_neighbor_cap_study.study` at
+       CAP_NEIGHBOR (2 clouds of 10,000 points, weight seed 100): each
+       policy's mean and max |plot coverage - oracle's| (the oracle, cap
+       2000, on the host), its launches (CAP_EVAL_LAUNCHES) and its plot
+       coverages against the port's on the CPU (within CPU_ATOL);
+    2. `"cap_grad_study"`: the gradient study at CAP_GRAD_ARGS (one batch
+       of 4 learnable plots of 10,000 points, the port's seed-0 init): the
+       cosine and norm ratio, each cap's gradient against the CPU's (every
+       leaf within TRAIN_GRAD_RTOL of its max |g|, the loss within
+       TRAIN_LOSS_ATOL) and the launches (the unfused train step's, twice);
+    3. `"cap_train_study"`: the training study at CAP_TRAIN_ARGS, both
+       configurations with their launches (`schedule_launches` of the
+       unfused route), val MAE and seconds;
+    4. `"parity_eval"`: `torch_parity_eval.main` on `write_cli_tree`'s data
+       (DEV, subsample 10,000) with the checkpoint of
+       `reference_state_dict(SEED + 26)` saved as the reference saves it:
+       the MAEs, the indicators, the eval route's launches; then its first
+       PARITY_CPU_PLOTS plots on the card and on the CPU, the MAEs within
+       CPU_ATOL;
+    5. `"cap_studies"`: the phase's seconds against CAP_STUDIES_BUDGET_S.
+    `small` cuts the sizes for a run on the CPU: {"neighbor": (n_clouds, N,
+    seeds), "grad": flags, "train": flags, "parity": write_cli_tree's
+    flags}."""
+    import os
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+
+    from stratanet2_tpu_torch.config import parse_config
+    from stratanet2_tpu_torch.utils.reference_oracle import make_reference_state_dict
+
+    t_phase = time.perf_counter()
+    small = small or {}
+    ncs = _script("torch_neighbor_cap_study")
+    cts = _script("torch_cap_train_study")
+    pe = _script("torch_parity_eval")
+    quiet = lambda line: None  # noqa: E731  (the phase prints its own lines)
+
+    # 1. the neighbour-cap study, card against the CPU
+    t0 = time.perf_counter()
+    n_clouds, n, seeds = small.get("neighbor", CAP_NEIGHBOR)
+    lines, summaries = ncs.study(n_clouds, n, seeds, str(device), on_line=quiet)
+    mcfg = ncs.study_config(n)
+    feats, xyz = ncs.synth(np.random.default_rng(0), -(-n_clouds // seeds), n, mcfg.z_max)
+    sd = make_reference_state_dict(seed=100)
+    policies = {}
+    for line in lines[:len(ncs.POLICIES)]:
+        policy = line["policy"]
+        pl_cpu = ncs.port_coverages(sd, replace(mcfg, ball_query_method=policy), feats, xyz,
+                                    "cpu")
+        policies[policy] = {
+            "mean_abs_dev": line["mean_abs_dev"], "max_abs_dev": line["max_abs_dev"],
+            "cpu_mean_abs_dev": float(np.abs(pl_cpu - line["pl_ref"]).mean()),
+            "card_vs_cpu_max_abs_diff": float(np.abs(line["pl"] - pl_cpu).max()),
+            "launches": line["launches"]}
+    print(json.dumps({"phase": "neighbor_cap_study", "n": n, "clouds": n_clouds,
+                      "weight_seeds": seeds, "policies": policies,
+                      "summaries": summaries, "atol": CPU_ATOL,
+                      "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+    for policy, row in policies.items():
+        check_launches(row["launches"], CAP_EVAL_LAUNCHES[policy],
+                       f"neighbor_cap_study_{policy}")
+        check(row["card_vs_cpu_max_abs_diff"] <= CPU_ATOL,
+              f"neighbor_cap_study {policy}: card vs CPU plot coverages differ by "
+              f"{row['card_vs_cpu_max_abs_diff']}")
+
+    # 2. the gradient study, card against the CPU, at the port's init
+    t0 = time.perf_counter()
+    ns = cts.parse_args([*small.get("grad", CAP_GRAD_ARGS), "--device", str(device)])
+    card_lines = cts.grad_study(ns, str(device), on_line=quiet)
+    card_s = time.perf_counter() - t0
+    cpu_lines = cts.grad_study(ns, "cpu", on_line=quiet)
+    got, want = card_lines[0], cpu_lines[0]
+    grad_rel = {k: grad_diffs(got["grads"][k], want["grads"][k]) for k in want["grads"]}
+    loss_diff = max(abs(a - b) for a, b in zip(got["loss"], want["loss"]))
+    print(json.dumps({"phase": "cap_grad_study", **cts.printable(got),
+                      "cpu_cosine": want["cosine"], "cpu_grad_norm_ratio": want["grad_norm_ratio"],
+                      "card_vs_cpu_grad_rel": grad_rel, "card_vs_cpu_loss_diff": loss_diff,
+                      "grad_rtol": TRAIN_GRAD_RTOL, "loss_atol": TRAIN_LOSS_ATOL,
+                      "launches": card_lines[-1]["launches"], "card_seconds": card_s,
+                      "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+    check_launches(card_lines[-1]["launches"],
+                   {k: 2 * v for k, v in UNFUSED_TRAIN_LAUNCHES.items()}, "cap_grad_study")
+    for name, rel in grad_rel.items():
+        check(rel <= TRAIN_GRAD_RTOL, f"cap_grad_study {name}: card vs CPU gradients differ "
+              f"by {rel} of a leaf's max |g|")
+    check(loss_diff <= TRAIN_LOSS_ATOL, f"cap_grad_study: card vs CPU losses differ by "
+          f"{loss_diff}")
+
+    # 3. the training study on the card
+    t0 = time.perf_counter()
+    ns = cts.parse_args([*small.get("train", CAP_TRAIN_ARGS), "--device", str(device)])
+    train_lines = cts.train_study(ns, str(device), on_line=quiet)
+    print(json.dumps({"phase": "cap_train_study", "runs": train_lines[:2],
+                      **train_lines[2], "seconds": time.perf_counter() - t0, "card": card}),
+          flush=True)
+    for line in train_lines[:2]:
+        check(np.isfinite(line["val_MAE"]), f"cap_train_study {line['config']}: val MAE "
+              f"{line['val_MAE']}")
+        want = schedule_launches(line, UNFUSED_TRAIN_LAUNCHES, CAP_EVAL_LAUNCHES["grouped"])
+        check_launches(line["launches"], want, f"cap_train_study_{line['config']}")
+
+    # 4. the parity eval on phase 15f's tree, and a few of its plots on the CPU
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = write_cli_tree(tmp, small.get("parity", ("--subsample_size", "10000")))
+        ckpt = os.path.join(tmp, "PCC_model_fold_n=1.pt")
+        torch.save({"state_dict": reference_state_dict(SEED + 26), "best_metric_epoch": 3,
+                    "best_metric_value": 0.1}, ckpt)
+        argv = ["--checkpoint", ckpt, *tree["args"]]
+        with contextlib.redirect_stdout(io.StringIO()):
+            full = pe.main([*argv, "--device", str(device)])
+            sub = parity_subtree(tree["args"], os.path.join(tmp, "sub"), PARITY_CPU_PLOTS)
+            sub_argv = ["--checkpoint", ckpt, *sub]
+            sub_card = pe.main([*sub_argv, "--device", str(device)])
+            sub_cpu = pe.main([*sub_argv, "--device", "cpu"])
+        cfg, _ = parse_config(tree["args"])
+    diff = max(abs(sub_card["means"][k] - sub_cpu["means"][k]) for k in pe.MEAN_KEYS)
+    figures = cts.figures_drawn()
+    batches = -(-full["plots"] // cfg.train.batch_size)
+    want = {k: batches * v for k, v in EVAL_LAUNCHES.items()}
+    want["pixel_max"] += full["plots"] if figures else 0
+    print(json.dumps({"phase": "parity_eval", "plots": full["plots"], "means": full["means"],
+                      "indicators": full["indicators"], "skipped": full["skipped"],
+                      "launches": full["launches"], "want_launches": want,
+                      "cpu_plots": sub_cpu["plots"], "card_vs_cpu_max_abs_diff": diff,
+                      "atol": CPU_ATOL, "seconds": time.perf_counter() - t0, "card": card}),
+          flush=True)
+    check(full["plots"] == CLI_PLOTS and sub_cpu["plots"] == PARITY_CPU_PLOTS,
+          f"parity_eval: {full['plots']} and {sub_cpu['plots']} plots evaluated")
+    check(all(np.isfinite(v) for v in full["means"].values()), f"parity_eval: {full['means']}")
+    check_launches(full["launches"], want, "parity_eval")
+    check(diff <= CPU_ATOL, f"parity_eval: card vs CPU MAEs differ by {diff}")
+    print(json.dumps({"phase": "cap_studies", "seconds": time.perf_counter() - t_phase,
+                      "budget_seconds": CAP_STUDIES_BUDGET_S, "card": card}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5365,38 +5587,20 @@ def bf16_matmul_probe(torch, device, card):
     print(json.dumps(row), flush=True)
 
 
-def reference_state_dict(seed: int, mcfg):
-    """A reference checkpoint's state_dict from a seed: the modules of the
-    reference's PointNet2 (model/point_net2.py:81-99) under torch_geometric
-    1.7.2's keys, torch Linear weights (out, in), BatchNorm weight, bias,
-    running statistics and num_batches_tracked, the head bias of the
-    reference's init."""
-    import numpy as np
+def reference_state_dict(seed: int):
+    """A reference checkpoint's state_dict from a seed, as the reference
+    saves it: `utils/reference_oracle.make_reference_state_dict`'s weights
+    (the modules of model/point_net2.py:81-99 under torch_geometric 1.7.2's
+    keys, torch Linear weights (out, in), BatchNorm weight, bias and
+    running statistics, the head bias of the reference's init) as tensors,
+    with each BatchNorm's num_batches_tracked."""
     import torch
 
-    rng = np.random.default_rng(seed)
-    f_in = mcfg.n_input_feats - 2
-    plans = {"sa1_module.conv.local_nn": [f_in + 3, 16, 16], "sa2_module.conv.local_nn": [19, 32],
-             "sa3_module.nn": [35, 64], "fp3_module.nn": [96, 64], "fp2_module.nn": [80, 34],
-             "fp1_module.nn": [34 + f_in, 34]}
+    from stratanet2_tpu_torch.utils.reference_oracle import make_reference_state_dict
 
-    def t(a):
-        return torch.from_numpy(np.asarray(a, np.float32))
-
-    sd = {}
-    for prefix, chans in plans.items():
-        for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
-            sd[f"{prefix}.{i}.0.weight"] = t(rng.normal(0, cin ** -0.5, (cout, cin)))
-            sd[f"{prefix}.{i}.0.bias"] = t(rng.normal(0, 0.1, cout))
-            sd[f"{prefix}.{i}.2.weight"] = t(rng.uniform(0.5, 1.5, cout))
-            sd[f"{prefix}.{i}.2.bias"] = t(rng.normal(0, 0.1, cout))
-            sd[f"{prefix}.{i}.2.running_mean"] = t(rng.normal(0.3, 0.3, cout))
-            sd[f"{prefix}.{i}.2.running_var"] = t(rng.uniform(0.2, 1.5, cout))
-            sd[f"{prefix}.{i}.2.num_batches_tracked"] = torch.tensor(7)
-    sd["lin1.weight"] = t(rng.normal(0, 34 ** -0.5, (16, 34)))
-    sd["lin1.bias"] = t(rng.normal(0, 0.1, 16))
-    sd["lin2.weight"] = t(rng.normal(0, 0.25, (mcfg.n_class + 1, 16)))
-    sd["lin2.bias"] = t(mcfg.head_bias_init)
+    sd = {k: torch.from_numpy(v) for k, v in make_reference_state_dict(seed).items()}
+    for key in [k for k in sd if k.endswith(".running_var")]:
+        sd[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(7)
     return sd
 
 
@@ -5414,7 +5618,7 @@ def reference_checkpoint_phase(torch, ck, cfg, device, card):
     from stratanet2_tpu_torch.utils.synthetic import serve_batch
     from stratanet2_tpu_torch.utils.torch_import import load_reference_checkpoint
 
-    sd = reference_state_dict(SEED + 12, cfg.model)
+    sd = reference_state_dict(SEED + 12)
     stage = {"sa1_module.conv.local_nn": "sa1", "sa2_module.conv.local_nn": "sa2",
              "sa3_module.nn": "sa3", "fp3_module.nn": "fp3", "fp2_module.nn": "fp2",
              "fp1_module.nn": "fp1"}
@@ -5582,6 +5786,8 @@ def main() -> int:
     timeline("schedule")
     ssl_cycle_phase(torch, ck, card)
     timeline("ssl_cycle")
+    cap_studies_phase(torch, ck, card)
+    timeline("cap_studies")
     parcel_phase(torch, ck, cfg, device, card)
     timeline("parcel")
     results = cli_phase(torch, ck, card)

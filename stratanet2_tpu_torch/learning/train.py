@@ -3,7 +3,8 @@
 
 - `make_train_step` (train.py:81-130): forward in train mode, in-graph plot
   projection, the 3-term loss, backward, one Adam update and one step of
-  the learning-rate schedule.
+  the learning-rate schedule; `make_train_loss`, the loss it
+  differentiates, for gradients without a step (the capped-K study).
 - `make_eval_step` (train.py:179-200): the eval-mode forward with the SA3
   global feature, plot coverages and the per-plot loss parts of
   `_eval_per_item` (train.py:133-154); `make_eval_core` (:157-176), its
@@ -169,6 +170,37 @@ def _check_model_device(model: PointNet2, dev: torch.device) -> None:
         raise ValueError(f"model is on {param.device}, the step runs on {dev}")
 
 
+def make_train_loss(
+    cfg: Config,
+    kde: KdeMixture,
+    device: Optional[Union[str, torch.device]] = None,
+    group=None,
+):
+    """Return loss_fn(model, cloud, xyz, gt, generator=None) -> (loss, its
+    parts {total_loss, MAE_loss, log_loss, entropy_loss}): the function the
+    train step differentiates (train.py:105-119), on float32 inputs on
+    `device` (default CUDA) laid out as `make_train_step` takes them. It puts
+    `model` in train mode, so its forward updates the BN running state;
+    `group` as in `make_train_step`'s mesh."""
+    mcfg, tcfg = cfg.model, cfg.train
+    dev = resolve_device(device)
+    kde_grid = torch.as_tensor(kde.grid, dtype=torch.float32, device=dev)
+    kde_pdfs = torch.as_tensor(kde.pdfs, dtype=torch.float32, device=dev)
+
+    def loss_fn(model: PointNet2, cloud, xyz, gt,
+                generator: Optional[torch.Generator] = None):
+        model.train()
+        cov, proba = model(cloud[..., 2:], xyz, generator=generator, group=group)
+        pred_pl = plotwise_coverages(cov, cloud[..., :2], mcfg.diam_pix)
+        z_m = cloud[..., 2] * mcfg.z_max
+        loss, (comps, _aux) = total_loss(
+            pred_pl, gt, proba, z_m, kde_grid, kde_pdfs, tcfg.m, tcfg.e
+        )
+        return loss, comps
+
+    return loss_fn
+
+
 def make_train_step(
     cfg: Config,
     kde: KdeMixture,
@@ -209,8 +241,7 @@ def make_train_step(
         raise ValueError(f"a data-parallel step needs a (B x 1) mesh whose rows divide "
                          f"batch_size {tcfg.batch_size}: {mesh}")
     group = None if mesh is None else mesh.group
-    kde_grid = torch.as_tensor(kde.grid, dtype=torch.float32, device=dev)
-    kde_pdfs = torch.as_tensor(kde.pdfs, dtype=torch.float32, device=dev)
+    loss_fn = make_train_loss(cfg, kde, dev, group)
 
     def body(model: PointNet2, optimizer, cloud, xyz, gt,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -218,13 +249,7 @@ def make_train_step(
         the device: what a graph of the step holds. The gradients are set
         to None before the backward, so that at a capture it writes
         gradients of the graph's own."""
-        model.train()
-        cov, proba = model(cloud[..., 2:], xyz, generator=generator, group=group)
-        pred_pl = plotwise_coverages(cov, cloud[..., :2], mcfg.diam_pix)
-        z_m = cloud[..., 2] * mcfg.z_max
-        loss, (comps, _aux) = total_loss(
-            pred_pl, gt, proba, z_m, kde_grid, kde_pdfs, tcfg.m, tcfg.e
-        )
+        loss, comps = loss_fn(model, cloud, xyz, gt, generator)
         optimizer.zero_grad(set_to_none=True)
         if mesh is None:
             loss.backward()

@@ -230,7 +230,8 @@ def test_port_imports_without_jax():
     and scipy blocked too, which the card's machine may lack (the port
     imports them only inside the functions that use them). The walk takes
     every module, parcel predict's, the CLIs', the device-resident
-    dataset's, the checkpoint import's and the metascripts' among them."""
+    dataset's, the checkpoint import's, the metascripts' and the reference
+    oracle's copy among them."""
     code = (
         "import sys\n"
         "blocked = ('jax', 'jaxlib', 'stratanet2_tpu', 'pandas', 'matplotlib', 'sklearn',\n"
@@ -255,6 +256,7 @@ def test_port_imports_without_jax():
     "want |= {'stratanet2_tpu_torch.parallel.' + m for m in\n"
     "         ('multihost', 'mesh', 'collectives', 'point_sharded', 'launch', 'dryrun')}\n"
     "want.add('stratanet2_tpu_torch.utils.torch_import')\n"
+    "want.add('stratanet2_tpu_torch.utils.reference_oracle')\n"
     "want.add('stratanet2_tpu_torch.learning.programs')\n"
     "want |= {'stratanet2_tpu_torch.metascripts.' + m for m in\n"
     "         ('benchmark_all_models', 'predictions_analysis', 'quantification_errors')}\n"

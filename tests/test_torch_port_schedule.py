@@ -239,13 +239,14 @@ def test_fold_split_is_the_jax_scripts():
 
 
 PORT_SCRIPTS = ("torch_learnability_check", "torch_prod_schedule_run", "torch_ssl_cycle",
-                "torch_learnability_sweep")
+                "torch_learnability_sweep", "torch_neighbor_cap_study", "torch_cap_train_study",
+                "torch_parity_eval")
 
 
 def test_scripts_import_without_jax(tmp_path):
-    """The port's four training-schedule scripts, and every module their
-    functions import, load with jax and the JAX package blocked, in a fresh
-    interpreter."""
+    """The port's four training-schedule scripts, its capped-K studies and
+    its parity evaluation, and every module their functions import, load
+    with jax and the JAX package blocked, in a fresh interpreter."""
     modules = sorted({
         node.module if isinstance(node, ast.ImportFrom) else alias.name
         for name in (f"{script}.py" for script in PORT_SCRIPTS)
@@ -253,7 +254,9 @@ def test_scripts_import_without_jax(tmp_path):
         if isinstance(node, (ast.Import, ast.ImportFrom)) and not getattr(node, "level", 0)
         for alias in node.names})
     assert {"stratanet2_tpu_torch.learning.train", "stratanet2_tpu_torch.cli",
-            "torch_learnability_check", "torch_prod_schedule_run"} <= set(modules)
+            "torch_learnability_check", "torch_prod_schedule_run",
+            "stratanet2_tpu_torch.utils.reference_oracle",
+            "stratanet2_tpu_torch.learning.evaluate"} <= set(modules)
     assert not [m for m in modules if re.match(r"(jax|stratanet2_tpu)(\.|$)", m)]
     code = (
         "import importlib, importlib.util, sys\n"

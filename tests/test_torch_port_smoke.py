@@ -1405,3 +1405,66 @@ def test_fold_memory_drift_bound():
     assert cs.fold_memory_drift(folds) == [(2, 10.0, 23.0), (3, -20.0, 23.0)]
     folds[0]["peak_allocated_mb"] = 100.0
     assert cs.fold_memory_drift(folds)[0][2] == cs.SSL_MEMORY_SLACK_MB
+
+
+def test_cap_studies_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """Phase 15l's control flow on the CPU at small sizes (the neighbour
+    study at N=1024 on 2 clouds; the gradient study at n=1024, B=2; the
+    training study at 10 plots, 1 epoch, train_n 256; the parity eval on
+    15f's tree of 30 plots of 600 points at subsample 256, batch 8;
+    matplotlib hidden): its lines in order with their keys, the card-vs-CPU
+    checks (both sides on the CPU here: equal), and the launch checks (the
+    plain versions run, so those are the checks let through, one a kernel
+    of each run's route); and `main` runs it between phases 15k and 15e,
+    with a timeline line."""
+    import inspect
+    import json
+    import re
+    import sys
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.setattr(cs, "CLI_POINTS", 600)
+    monkeypatch.setattr(cs, "PARCEL_DENSITY", 8.0)
+    check, missed = cs.check, []
+
+    def lenient(cond, msg):
+        if not cond and re.search(r"launched 0 times .*expected [1-9]", msg):
+            missed.append(msg)
+            return
+        check(cond, msg)
+
+    monkeypatch.setattr(cs, "check", lenient)
+    small = {"neighbor": (2, 1024, 1),
+             "grad": ("--n", "1024", "--batch", "2", "--seeds", "1", "--skip_pretrain"),
+             "train": ("--n_plots", "10", "--epochs", "1", "--train_n", "256"),
+             "parity": ("--subsample_size", "256", "--batch_size", "8")}
+    cs.cap_studies_phase(torch, ck, "cpu", device="cpu", small=small)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    ours = [x for x in lines if not x["phase"].endswith("_launches")]
+    assert [x["phase"] for x in ours] == ["neighbor_cap_study", "cap_grad_study",
+                                          "cap_train_study", "parity_eval", "cap_studies"]
+    neighbor, grad, train, parity, phase = ours
+    assert set(neighbor["policies"]) == {"grouped", "nearest"}
+    for row in neighbor["policies"].values():
+        assert row["card_vs_cpu_max_abs_diff"] == 0.0
+        assert row["cpu_mean_abs_dev"] == row["mean_abs_dev"] < 0.05
+    assert [s["summary"] for s in neighbor["summaries"]] == ["grouped", "nearest"]
+    assert grad["capped_k"] == [32, 64] and grad["exact_k"] == [128, 64]
+    assert grad["cosine"] == grad["cpu_cosine"] and grad["card_vs_cpu_loss_diff"] == 0.0
+    assert set(grad["card_vs_cpu_grad_rel"]) == {"capped", "generous"}
+    assert [r["config"] for r in train["runs"]] == ["capped", "generous"]
+    assert {"delta_val_MAE", "epochs", "n_plots"} <= set(train)
+    assert parity["plots"] == cs.CLI_PLOTS and parity["cpu_plots"] == cs.PARITY_CPU_PLOTS
+    assert parity["card_vs_cpu_max_abs_diff"] == 0.0 and parity["skipped"] is None
+    assert set(parity["indicators"]) == {"error_all", "acc_all", "error2_all", "acc2_all"}
+    assert phase["budget_seconds"] == cs.CAP_STUDIES_BUDGET_S and phase["seconds"] > 0
+    # the nonzero launches of each run's route: two eval forwards, a
+    # gradient pair, two training runs, the parity eval
+    want = sum(sum(1 for v in d.values() if v) for d in (
+        *cs.CAP_EVAL_LAUNCHES.values(), cs.UNFUSED_TRAIN_LAUNCHES, cs.UNFUSED_TRAIN_LAUNCHES,
+        cs.UNFUSED_TRAIN_LAUNCHES, cs.EVAL_LAUNCHES))
+    assert len(missed) == want == 30
+    src = inspect.getsource(cs.main)
+    order = ['ssl_cycle_phase(', 'timeline("ssl_cycle")', 'cap_studies_phase(',
+             'timeline("cap_studies")', 'parcel_phase(']
+    assert [src.index(x) for x in order] == sorted(src.index(x) for x in order)
