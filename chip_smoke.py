@@ -10,8 +10,9 @@ steps on dense plots (N=65536 at diam_pix 100) through the kernels' paths
 for long shapes, the reference training schedule (300-epoch folds in
 processes of their own, one killed and resumed), the SSL cycle
 (pseudo-labels, pretraining, a warm-started cross-validation, folds in one
-process) and the learnability sweep, and serves a reference checkpoint,
-and checks their outputs.
+process) and the learnability sweep, serves a reference checkpoint, runs
+the measurement and profiling tools small and serves `bench.py`'s geometry
+(128 clouds of 4,096 points), and checks their outputs.
 
     python3 chip_smoke.py            # one card; exits non-zero on any failure
 
@@ -275,6 +276,20 @@ Phases, in order, each failing loudly:
      launches), and on 4 of its plots on the card against the CPU within
      CPU_ATOL; `"phase": "cap_studies"`, the phase's seconds against
      CAP_STUDIES_BUDGET_S;
+  15m. the measurement and profiling tools (`tools_phase`, run after
+     15l): `"phase": "tools_b128"`, `bench.py`'s geometry (128 clouds of
+     4,096 points) through the eval forward, each of its kernel sites held
+     to its plain version (`"tools_site"` lines: SA1's FPS on 256 rows of
+     2,048 points, 0 differing picks), its launches as a replayed graph,
+     and the same clouds in batches of 16 equal to it within CPU_ATOL;
+     `"phase": "tools_fps_parts"`, a PROD train step at fps_parts 4
+     (SA1's FPS on 80 rows of 2,500 points), its FPS sites held to the
+     plain version and its launches; `"phase": "tools_trace"`,
+     `scripts/torch_trace_step.py`'s aggregation of 3 replayed serve
+     steps (every serve kernel named, the idle share); `"phase":
+     "tools_roofline"`, `scripts/torch_roofline.py`'s line a kernel at the
+     PROD sites; `"phase": "tools"`, the phase's seconds against
+     TOOLS_BUDGET_S;
   15e. `"phase": "parcel"`: parcel predict at PROD width (`parcel_phase`):
      a synthetic 100 m parcel's LAS (140 m with its buffer, ~627,000
      points) written, tiled and extracted (`"phase": "parcel_prepare"`,
@@ -430,6 +445,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import logging
@@ -437,8 +453,6 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 SERVE_KERNELS = (  # wrapper, CUDA source, the TPU kernel it replaces
     ("fps", "stratanet2_tpu_torch/ops/csrc/fps.cu",
      "stratanet2_tpu/ops/pallas_kernels.py:134"),
@@ -865,6 +879,16 @@ CAP_EVAL_LAUNCHES = {
     "grouped": {**UNFUSED_SERVE_LAUNCHES, "pixel_max": 1},
     "nearest": {**NEAREST_SERVE_LAUNCHES, "pixel_max": 1},
 }
+# phase 15m (tools): bench.py's geometry served by the port (TOOLS_SERVE: B
+# clouds of N points in one forward, and in batches of the third), a PROD
+# train step at TOOLS_FPS_PARTS parts (fps_min_part_samples 1),
+# scripts/torch_trace_step.py's aggregation over TOOLS_TRACE_STEPS replayed
+# serve steps and scripts/torch_roofline.py at the PROD sites
+TOOLS_SERVE = (128, 4096, 16)
+TOOLS_FPS_PARTS = 4
+TOOLS_TRACE_STEPS = 3
+TOOLS_BUDGET_S = 60
+TOOLS_FORWARD_LAUNCHES = {"fps": 2, "sa_fused_eval": 2, "knn_interpolate": 2}
 SEED = 0
 STEPS = 30  # timed steps; the median is reported
 # phase 15i: batches of make_predict_program, train steps from one state,
@@ -903,54 +927,38 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(torch, fn, reps: int, warmup: bool = True) -> float:
-    """Mean CUDA-event time of fn over reps launches, after one warm-up."""
-    if warmup:
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def device_profile(torch, fn, prefixes, reps: int = 10):
-    """torch.profiler over reps calls of fn, after one warm-up: the device
-    time (ms) a launch of the kernels whose names start with `prefixes`
-    (over the launches the trace holds: it may miss some, or all, and is
-    then taken again, PROFILE_TRIES times at most), those launches, and
-    every device operation (kernels, memsets, copies) it holds."""
+    """reps calls of fn traced, after one warm-up (`device_events`): the
+    device time (ms) a launch of the kernels whose names start with
+    `prefixes` (over the launches the trace holds: it may miss some, or
+    all, and is then taken again, PROFILE_TRIES times at most), those
+    launches, and every device operation (kernels, memsets, copies) it
+    holds."""
     fn()
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(PROFILE_TRIES):  # a trace can come back empty: take another
         if attempt:
             time.sleep(0.1)
-        with torch.profiler.profile(activities=activities) as prof:
-            # twice the calls each try: late in a long run a trace lost its
-            # first tens of ms, all of 10 calls of a few ms
-            for _ in range(reps << attempt):
-                fn()
-            torch.cuda.synchronize()
-        ms, launches, ops = 0.0, 0, 0
-        for e in prof.key_averages():
-            if (e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-                    and not getattr(e, "is_user_annotation", False)):
-                ops += e.count
-                if e.key.removeprefix("void ").startswith(prefixes):
-                    ms += e.self_device_time_total
-                    launches += e.count
-        if launches:
+        # twice the calls each try: late in a long run a trace lost its
+        # first tens of ms, all of 10 calls of a few ms
+        events = device_events(fn, reps << attempt)
+        mine = [ev for ev in events if ev["name"].removeprefix("void ").startswith(prefixes)]
+        if mine:
             break
-    return ms / 1e3 / max(launches, 1), launches, ops
+    return sum(ev["dur"] for ev in mine) / 1e3 / max(len(mine), 1), len(mine), len(events)
 
 
-def bound_ms(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def device_events(fn, calls: int = 1, warmup: int = 0):
+    """The device operations (kernels, copies, memsets) of `calls` calls of
+    fn on the card, as `scripts/torch_trace_step.py` traces and selects them
+    (`traced_events`: `utils/profiling.trace`, `load_trace`,
+    `is_device_op`), after `warmup` calls left out of the trace. Every
+    device time this script reports is taken through it or through the
+    trace script's `trace_table`."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as logdir:
+        return trace_step().traced_events(fn, calls, logdir, "cuda", warmup)
 
 
 def sa_probe_picks(torch, ck, xyz, centroids, radius, k):
@@ -980,37 +988,17 @@ def sa_probe_picks(torch, ck, xyz, centroids, radius, k):
     return idx, mask
 
 
-def capture_calls(ck, names, run):
-    """Record the arguments of every call of the named wrappers while `run`
-    runs (the calls go through as usual)."""
-    captured = {name: [] for name in names}
-    originals = {name: getattr(ck, name) for name in names}
-
-    def recorder(name):
-        def record(*args):
-            captured[name].append(args)
-            return originals[name](*args)
-        return record
-
-    for name in names:
-        setattr(ck, name, recorder(name))
-    try:
-        run()
-    finally:
-        for name, fn in originals.items():
-            setattr(ck, name, fn)
-    return captured
-
-
 def report_site(torch, name, site, shape, kernel, plain, args, nbytes, ops, err, diff_sel,
                 lib_ms, agg, reference=False, plain_reps=2):
     """Time kernel and plain at one call site, print its line, add it to agg.
     The plain version is timed over `plain_reps` calls, after a warm-up
     unless that is one call (a plain version of seconds has nothing left to
     warm)."""
-    k_ms = cuda_ms(torch, lambda: kernel(*args), 20)
-    p_ms = cuda_ms(torch, lambda: plain(*args), plain_reps, warmup=plain_reps > 1)
-    b_ms, _ = bound_ms(nbytes, ops)
+    from stratanet2_tpu_torch.utils.profiling import time_ms
+
+    k_ms = time_ms(lambda: kernel(*args), 20)
+    p_ms = time_ms(lambda: plain(*args), plain_reps, warmup=plain_reps > 1)
+    b_ms, _ = roofline().bound_ms(nbytes, ops)
     print(json.dumps({
         "kernel": name, "site": site, "reference": reference, "shape": shape, "kernel_ms": k_ms,
         "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
@@ -1033,7 +1021,7 @@ def new_agg():
 
 
 def finish_agg(agg):
-    agg["bound_ms"], agg["bound_by"] = bound_ms(agg.pop("bytes"), agg.pop("ops"))
+    agg["bound_ms"], agg["bound_by"] = roofline().bound_ms(agg.pop("bytes"), agg.pop("ops"))
     if not agg["pairs"]:  # only the scans (grouped selection, kNN) count their pairs
         del agg["pairs"]
     if not agg["sites"]:  # only the SA train passes' step sites: (C1, B x C, K) each
@@ -1493,15 +1481,17 @@ def fps_chain(torch, ck, step_calls, device):
     that the pruning skipped (`cuda_kernels.fps_pruning`), and the
     cluster's rows of FPS_CHAIN_LONG: each one's instance, its waves of
     clusters on this card and its time a pick."""
+    from stratanet2_tpu_torch.utils.profiling import time_ms
+
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     rows = step_calls[0][0].shape[0]
     pts = torch.randint(0, 16, (rows, FPS_FLOOR_N, 3), generator=gen, device=device).float()
     start = torch.zeros(rows, dtype=torch.int32, device=device)
     args = (pts, FPS_FLOOR_N, start)
     check(torch.equal(ck.fps(*args), ck.fps_plain(*args)), "fps_chain: kernel differs from plain")
-    per_pick_ms = cuda_ms(torch, lambda: ck.fps(*args), 20) / (FPS_FLOOR_N - 1)
+    per_pick_ms = time_ms(lambda: ck.fps(*args), 20) / (FPS_FLOOR_N - 1)
     picks = [a[1] - 1 for a in step_calls]
-    step_per_pick = [cuda_ms(torch, lambda a=a: ck.fps(*a), 20) / (a[1] - 1) for a in step_calls]
+    step_per_pick = [time_ms(lambda a=a: ck.fps(*a), 20) / (a[1] - 1) for a in step_calls]
     shares = []
     for a in [args] + list(step_calls):
         _, skipped, possible = ck.fps_pruning(*a)
@@ -1516,7 +1506,7 @@ def fps_chain(torch, ck, step_calls, device):
         check(torch.equal(ck.fps(*a), ck.fps_plain(*a)), f"fps_chain {r}x{n}: kernel differs")
         long_rows.append({"rows": r, "N": n, "S": s, "path": path, "cs": cs, "threads": threads,
                           "waves": -(-r // resident[threads][cs]),
-                          "per_pick_us": cuda_ms(torch, lambda a=a: ck.fps(*a), 5) / (s - 1) * 1e3})
+                          "per_pick_us": time_ms(lambda a=a: ck.fps(*a), 5) / (s - 1) * 1e3})
         del u, a
     print(json.dumps({"phase": "fps_chain", "rows": rows, "N": FPS_FLOOR_N, "S": FPS_FLOOR_N,
                       "per_pick_us": per_pick_ms * 1e3, "skipped_share": shares[0],
@@ -1532,17 +1522,18 @@ def pixel_max_site(torch, ck, site, args):
     no memset), and `scatter_reduce` (amax, values only) as the library
     call. Returns (shape, bytes, operations, max |diff|, differing argmax,
     library ms)."""
+    from stratanet2_tpu_torch.utils.profiling import time_ms
+
     pix, vals, n_pix = args
     (gv, ga), (wv, wa) = ck.pixel_max(*args), ck.pixel_max_plain(*args)
     diff_sel = int((ga != wa).sum())
     err = float((gv - wv).abs().max())
     check(err == 0.0, f"pixel_max site {site}: vmax differs by {err}")
     b, n, c = vals.shape
-    nbytes = 4 * b * n + 4 * b * n * c + 8 * b * n_pix * c
     inside = (pix >= 0) & (pix < n_pix)
     index = torch.where(inside, pix, n_pix).long()[..., None].expand(b, n, c)
     init = torch.full((b, n_pix + 1, c), ck.NEG, device=vals.device)  # a row for the outside
-    lib_ms = cuda_ms(torch, lambda: init.scatter_reduce(1, index, vals, "amax"), 20)
+    lib_ms = time_ms(lambda: init.scatter_reduce(1, index, vals, "amax"), 20)
     lib = init.scatter_reduce(1, index, vals, "amax")[:, :n_pix]
     check(torch.equal(lib, gv), "scatter_reduce(amax) disagrees with pixel_max")
     dev_ms, launches, dev_ops = device_profile(torch, lambda: ck.pixel_max(*args),
@@ -1554,7 +1545,7 @@ def pixel_max_site(torch, ck, site, args):
           f"pixel_max site {site}: {dev_ops} device operations for {launches} kernels")
     shape = (f"B={b} N={n} P2={n_pix} C={c} ids_out_of_range={int((~inside).sum())} "
              f"empty_pixels={int((wa[..., 0] < 0).sum())}")
-    return shape, nbytes, float(b * n * c), err, diff_sel, lib_ms
+    return (shape, *roofline().pixel_max_counts(b, n, c, n_pix), err, diff_sel, lib_ms)
 
 
 def knn_scatter_site(torch, ck, site, args):
@@ -1567,6 +1558,8 @@ def knn_scatter_site(torch, ck, site, args):
     the device time and device operations of a call (one kernel, no memset),
     the largest destination degree and `index_add_`'s error. Returns (shape,
     bytes, operations, max |diff|, library ms, the plain call)."""
+    from stratanet2_tpu_torch.utils.profiling import time_ms
+
     idx, w, g, s = args
     b, k, t = idx.shape
     f = g.shape[2]
@@ -1601,7 +1594,7 @@ def knn_scatter_site(torch, ck, site, args):
     check(bool((got.reshape(-1, f)[empty] == 0).all()),
           f"knn_scatter site {site}: a row with no contribution is not 0")
     lib_out = torch.zeros((b * s, f), device=g.device)
-    lib_ms = cuda_ms(torch, lambda: lib_out.zero_().index_add_(0, flat, contrib), 20)
+    lib_ms = time_ms(lambda: lib_out.zero_().index_add_(0, flat, contrib), 20)
     lib_err = float((lib_out.reshape(b, s, f) - want).abs().max())
     dev_ms, launches, dev_ops = device_profile(torch, lambda: ck.knn_scatter(*args),
                                                DEVICE_KERNELS["knn_scatter"])
@@ -1616,8 +1609,7 @@ def knn_scatter_site(torch, ck, site, args):
           flush=True)
     check(launches > 0 and dev_ops == launches,
           f"knn_scatter site {site}: {dev_ops} device operations for {launches} kernels")
-    nbytes = 4.0 * (b * k * t * (2 if w is not None else 1) + b * t * f + b * s * f)
-    ops = float(b * k * t * f * (2 if w is not None else 1))
+    nbytes, ops = roofline().knn_scatter_counts(b, k, t, s, f, w is not None)
     shape = f"B={b} k={k} T={t} S={s} F={f} weights={w is not None}"
     return shape, nbytes, ops, err, lib_ms, lambda *_: ck.knn_scatter_plain(pidx, pw, g, s)
 
@@ -1626,18 +1618,11 @@ def grid_work(cent, pts, radius):
     """The cell-grid selection's work at one site: the pairs its query
     scores (each centroid's 3 x 3 cells, `ballquery.nearest_cells`) and the
     pairs within the radius (what any exact method must score), the latter
-    counted by the plain version's distances."""
-    from stratanet2_tpu_torch.ops.ballquery import _CHUNK, nearest_cells, radius_sq
-    from stratanet2_tpu_torch.ops.distance import expanded_d2, sq_norm3, tile_rows
+    counted by the plain version's distances (`torch_roofline.in_radius_pairs`)."""
+    from stratanet2_tpu_torch.ops.ballquery import nearest_cells
 
     scored = float(nearest_cells(cent, pts, radius).scored.sum())
-    r2, pts_sq = radius_sq(radius), sq_norm3(pts)
-    b, n, _ = pts.shape
-    chunk, in_radius = tile_rows(pts.device, b, n, _CHUNK), 0
-    for c0 in range(0, cent.shape[1], chunk):
-        cc = cent[:, c0 : c0 + chunk]
-        in_radius += int((expanded_d2(cc, sq_norm3(cc), pts, pts_sq) <= r2).sum())
-    return scored, float(in_radius)
+    return scored, roofline().in_radius_pairs(cent, pts, radius)
 
 
 def check_site(torch, ck, name, site, args, work=None):
@@ -1648,21 +1633,23 @@ def check_site(torch, ck, name, site, args, work=None):
     exactly; sa_train_bwd2 as phase 11 holds it, `bwd2_dq_checks` and
     `compare_sa_train_site`). A grouped selection on the cell grid prints
     its `"grid_work"` line (`grid_work`: pairs scored against all pairs),
-    its operations are 10 a pair within the radius (as the nearest
+    its selection counts the pairs within the radius (as the nearest
     selection's, `nearest_site`) and `work`, where given, takes its scored
-    and in-radius pairs. Returns (shape, bytes, operations, max |diff|,
+    and in-radius pairs. The bytes and operations are `torch_roofline`'s
+    counts of the site. Returns (shape, bytes, operations, max |diff|,
     differing selections, library ms, all pairs)."""
     from stratanet2_tpu_torch.ops.ballquery import ball_query_grouped
+    from stratanet2_tpu_torch.utils.profiling import time_ms
 
     kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
-    diff_sel, lib_ms, pairs = 0, None, 0.0
+    rl, diff_sel, lib_ms, pairs = roofline(), 0, None, 0.0
     if name == "fps":
         xyz, s, start = args
         got, want = kernel(*args), plain(*args)
         diff_sel = int((got != want).sum())
         err = float((got - want).abs().max())
         r, n, _ = xyz.shape
-        nbytes, ops = r * n * 12 + r * 4 + r * s * 4, 10.0 * (s - 1) * r * n
+        nbytes, ops = rl.fps_counts(r, n, s)
         path, cs, threads = ck.fps_path(n, r, ck.fps_cluster_resident(n, xyz.device)
                                         if xyz.is_cuda and n > ck.FPS_MAX_N else None)
         shape = f"rows={r} N={n} S={s} path={path} cs={cs} threads={threads}"
@@ -1688,15 +1675,13 @@ def check_site(torch, ck, name, site, args, work=None):
         b, n, ch1 = q.shape
         c, ch2 = cent.shape[1], got.shape[2]
         valid = float(rmask.sum())
-        edge_ops = 4 * ch1 + (2 * ch1 * ch2 + 4 * ch2 if w2 is not None else 0) + ch2
-        nbytes = 4 * (b * n * (ch1 + 3) + b * c * (3 + ch1) + b * c * ch2)
         g = -(-n // k)
         path = ck.sel_path(g, ck.sa_fused_eval_max_g(ch1, ch2, w2 is not None, k))
         pairs = float(b * c * n)
-        ops = grid_site(name, site, cent, xyz, radius, pairs, path == "grid", work)
+        sel = grid_site(name, site, cent, xyz, radius, pairs, path == "grid", work)
         if path == "grid":
             checked_grids(torch, ck, name, site, cells, xyz, cent, radius)
-        ops += valid * edge_ops
+        nbytes, ops = rl.sa_fused_eval_counts(b, n, c, k, ch1, ch2, w2 is not None, valid, sel)
         shape = (f"B={b} N={n} C={c} K={k} C1={ch1} C2={ch2} valid_picks={int(valid)} "
                  f"g={g} path={path}")
     elif name == "knn_interpolate":
@@ -1707,7 +1692,6 @@ def check_site(torch, ck, name, site, args, work=None):
         check(err <= KNN_ATOL, f"knn site {site}: max |diff| {err} > {KNN_ATOL}")
         b, s, f = x.shape
         t = pt.shape[1]
-        nbytes = 4 * (b * s * (f + 3) + b * t * 3 + b * t * f + 2 * b * 3 * t)
         pairs = float(b * t * s)
         path = ck.knn_path(s, t)
         if path == "grid":  # the culled scan: its weights and outputs bit for bit, its pairs
@@ -1718,7 +1702,7 @@ def check_site(torch, ck, name, site, args, work=None):
         else:
             scored = pairs
             shape = f"B={b} S={s} T={t} F={f} path=whole slices={ck.knn_slices(b, t)}"
-        ops = 11.0 * scored + b * t * (5 * f + 12)
+        nbytes, ops = rl.knn_interpolate_counts(b, s, t, f, scored)
     elif name == "pixel_max":
         shape, nbytes, ops, err, diff_sel, lib_ms = pixel_max_site(torch, ck, site, args)
     elif name == "ball_query":
@@ -1734,11 +1718,11 @@ def check_site(torch, ck, name, site, args, work=None):
         n = pts.shape[1]
         g = -(-n // k)
         pairs = float(b * c * n)
-        nbytes = 12.0 * b * (c + n) + 5.0 * b * c * k
         path = ck.sel_path(g, ck.BQ_MAX_G)
-        ops = grid_site(name, site, cent, pts, radius, pairs, path == "grid", work)
+        sel = grid_site(name, site, cent, pts, radius, pairs, path == "grid", work)
         if path == "grid":
             checked_grids(torch, ck, name, site, cells, pts, cent, radius)
+        nbytes, ops = rl.ball_query_counts(b, c, n, k, sel)
         shape = f"B={b} C={c} N={n} K={k} valid={int(wm.sum())} g={g} path={path}"
     elif name == "sa_train_bwd2":
         got, want = kernel(*args), plain(*args)
@@ -1758,11 +1742,11 @@ def check_site(torch, ck, name, site, args, work=None):
               f"pixel_max_bwd site {site}: a point outside the pixels has a gradient")
         index = amax.clamp_min(0).long()
         src = torch.where(amax >= 0, g, torch.zeros_like(g))
-        lib_ms = cuda_ms(torch, lambda: torch.zeros((b, n, c), device=g.device)
+        lib_ms = time_ms(lambda: torch.zeros((b, n, c), device=g.device)
                          .scatter_add_(1, index, src), 20)
         lib = torch.zeros((b, n, c), device=g.device).scatter_add_(1, index, src)
         check(torch.equal(lib, got), "scatter_add_ disagrees with pixel_max_bwd")
-        nbytes, ops = 4.0 * b * n + 8.0 * b * p2 * c + 4.0 * b * n * c, 0.0
+        nbytes, ops = rl.pixel_max_bwd_counts(b, n, c, p2)
         shape = (f"B={b} P2={p2} C={c} N={n} winners={int((amax >= 0).sum())} "
                  f"ids_out_of_range={int(outside.sum())} "
                  f"empty_pixels={int((amax[..., 0] < 0).sum())}")
@@ -1792,13 +1776,13 @@ def knn_grid_work(torch, ck, site, args, idx, pairs, work):
 
 
 def grid_site(name, site, cent, pts, radius, pairs, grid, work):
-    """The grouped selection's operations at a site (`check_site`): 10 a
-    pair it scores whole, or on the cell grid (`grid`: groups past the
-    wrapper's slice, `cuda_kernels.sel_path`) 10 a pair within the radius,
-    with the site's `"grid_work"` line printed and `work` (a dict, or None)
+    """The pairs the grouped selection must score at a site (`check_site`):
+    all `pairs` whole, or on the cell grid (`grid`: groups past the
+    wrapper's slice, `cuda_kernels.sel_path`) those within the radius, with
+    the site's `"grid_work"` line printed and `work` (a dict, or None)
     given its scored and in-radius pairs."""
     if not grid:
-        return 10.0 * pairs
+        return pairs
     scored, in_radius = grid_work(cent, pts, radius)
     print(json.dumps({"phase": "grid_work", "kernel": name, "site": site,
                       "scored_pairs": scored, "all_pairs": pairs, "scored_share": scored / pairs,
@@ -1806,7 +1790,7 @@ def grid_site(name, site, cent, pts, radius, pairs, grid, work):
     if work is not None:
         for key, v in (("scored_pairs", scored), ("in_radius_pairs", in_radius)):
             work[key] = work.get(key, 0.0) + v
-    return 10.0 * in_radius
+    return in_radius
 
 
 def grid_cluster_sizes(torch, ck, device):
@@ -1939,7 +1923,8 @@ def compare_sa_train_site(torch, ck, name, site, args, got, want):
     and the dq scatter (the picks of a point) are held to the bound at
     their own depth (sa_train_bwd2 sums no deeper: a chain over the picks
     for dq, at most K terms for dcterm), which must reject a result of
-    zeros. Returns (shape, bytes, operations, max |diff|)."""
+    zeros. Returns (shape, bytes, operations, max |diff|), the bytes and
+    operations `torch_roofline`'s counts of the site."""
     q, cterm, idx, mask, aff = args[:5]
     w2 = args[5] if len(args) > 5 else None  # the stats pass takes no W2
     b, n, ch1 = q.shape
@@ -1967,15 +1952,12 @@ def compare_sa_train_site(torch, ck, name, site, args, got, want):
         t = t.double()
         return t.abs().sum((0, 1, 2)), t[blk0].sum((0, 1))
 
-    nbytes = 4.0 * (b * n * ch1 + b * c * ch1 + b * c * k) + b * c * k + 4.0 * aff.numel()
-    nbytes += 4.0 * (w2.numel() if w2 is not None else 0)
-    fwd_ops = 2 * ch1 + (2 * ch1 + 2 * ch1 * ch2 + 2 * ch2 if w2 is not None else 0)
+    rl, two, width = roofline(), w2 is not None, aff.shape[1]
     if name == "sa_train_stats":
         hc = torch.where(m, e["h1"] - aff[ck.SA_AFF["shift1"], :ch1], 0.0)
         held("sum", got[0], want[0], *terms(hc))
         held("sum of squares", got[1], want[1], *terms(hc.double() * hc))
-        nbytes += 8.0 * ch1
-        ops = valid * ch1 * 6
+        nbytes, ops = rl.sa_train_stats_counts(b, n, c, k, ch1, valid, width)
     elif name == "sa_train_main":
         for what, g, w in zip(("vmax", "vmin", "amax", "amin"), got[2:], want[2:]):
             check(torch.equal(g, w), f"{where}: {what} differs from the plain version "
@@ -1983,8 +1965,7 @@ def compare_sa_train_site(torch, ck, name, site, args, got, want):
         hc = torch.where(m, e["h"] - aff[ck.SA_AFF["shift_l"], :ch2], 0.0)
         held("sum", got[0], want[0], *terms(hc))
         held("sum of squares", got[1], want[1], *terms(hc.double() * hc))
-        nbytes += 16.0 * b * c * ch2 + 8.0 * ch2
-        ops = valid * (fwd_ops + 6 * ch2)
+        nbytes, ops = rl.sa_train_main_counts(b, n, c, k, ch1, ch2, two, valid, width)
     elif name == "sa_train_bwd1":
         dy1, du, y1 = e["dy1"].double(), e["du"].double(), e["y1"].double()
         held("S1", got[0], want[0], *terms(dy1))
@@ -1992,8 +1973,7 @@ def compare_sa_train_site(torch, ck, name, site, args, got, want):
         held("db2", got[2], want[2], *terms(du))
         held("dW2", got[3], want[3], torch.einsum("bcki,bcko->io", y1.abs(), du.abs()),
              torch.einsum("nki,nko->io", y1[blk0], du[blk0]))
-        nbytes += 8.0 * b * c * ch2 + 4.0 * (3 * ch1 + ch1 * ch2)
-        ops = valid * (fwd_ops + 10 * ch2 + 4 * ch1 * ch2 + 5 * ch1)
+        nbytes, ops = rl.sa_train_bwd1_counts(b, n, c, k, ch1, ch2, valid, width)
     else:  # sa_train_bwd2
         de0 = e["de0"]
         flat = (idx.long() + (torch.arange(b, device=q.device) * n)[:, None, None]).reshape(-1)
@@ -2003,14 +1983,9 @@ def compare_sa_train_site(torch, ck, name, site, args, got, want):
         cnt.index_add_(0, flat, m.reshape(-1).double())
         held("dq", got[0].reshape(-1, ch1), want[0].reshape(-1, ch1), absum, at=cnt[:, None])
         held("dcterm", got[1], want[1], de0.double().abs().sum(2), at=k)
-        # what the function must move: awin and gt read, dq and dcterm
-        # written. Its edge buffer is a cost of the design, not of the
-        # function, and is reported beside the bound (bwd2_dq_checks).
-        # Operations a valid edge: the forward, BN2's backward and the
-        # transposed product with two layers, BN1's backward, dcterm's and
-        # dq's adds
-        nbytes += 8.0 * b * c * ch2 + 4.0 * (b * n * ch1 + b * c * ch1)
-        ops = valid * (fwd_ops + (11 * ch2 + 2 * ch1 * ch2 if w2 is not None else ch1) + 10 * ch1)
+        # its edge buffer is a cost of the design, not of the function, and
+        # is reported beside the bound (bwd2_dq_checks)
+        nbytes, ops = rl.sa_train_bwd2_counts(b, n, c, k, ch1, ch2, two, valid, width)
     print(json.dumps({"kernel": name, "site": site, "sum_depth": depth,
                       "sums_worst_bound_ratio": max(ratios)}), flush=True)
     shape = f"B={b} N={n} C={c} K={k} C1={ch1} C2={ch2} valid_edges={int(valid)}"
@@ -2028,6 +2003,8 @@ def bwd2_dq_checks(torch, ck, site, args, got):
     of the design that the bound of the function leaves out. Returns the
     time of the library call for the dq part, `index_add_` of the buffer
     into dq, and those figures."""
+    from stratanet2_tpu_torch.utils.profiling import time_ms
+
     where = f"sa_train_bwd2 site {site}"
     again = ck.sa_train_bwd2(*args, edges=True)
     for what, g, a in zip(("dq", "dcterm"), got, again):
@@ -2045,7 +2022,7 @@ def bwd2_dq_checks(torch, ck, site, args, got):
     check(differ == 0, f"{where}: dq differs from the ordered plain in {differ} elements")
     flat = (eidx.long() + (torch.arange(b, device=q.device) * n)[:, None, None]).reshape(-1)
     lib_out = torch.zeros((b * n, ch1), device=q.device)
-    lib_ms = cuda_ms(torch, lambda: lib_out.zero_().index_add_(0, flat, de.reshape(-1, ch1)),
+    lib_ms = time_ms(lambda: lib_out.zero_().index_add_(0, flat, de.reshape(-1, ch1)),
                      20)  # masked slots add their exact 0 to point 0
     parts = dict(edge_pass_device_ms=0.0, dq_pass_device_ms=0.0)
     # the dq pass: its keys kernel too where it takes windows
@@ -2059,7 +2036,7 @@ def bwd2_dq_checks(torch, ck, site, args, got):
         parts[f"{part}_device_ms"] += ms
     buffer_bytes = 4.0 * b * c * k * ch1 + 4.0 * float(mask.sum()) * ch1
     parts.update(edge_buffer_bytes=buffer_bytes,
-                 edge_buffer_hbm_ms=buffer_bytes / HBM_BYTES_PER_S * 1e3)
+                 edge_buffer_hbm_ms=roofline().bound_ms(buffer_bytes, 0.0)[0])
     print(json.dumps({"kernel": "sa_train_bwd2", "site": site, "library": "index_add_ (dq)",
                       "profiled_device_ops": dev_ops, **parts}), flush=True)
     return lib_ms, parts
@@ -2245,33 +2222,20 @@ def profile_mismatches(kernels, launches):
 def profile_step(torch, step, args, step_ms, label, launches, steps=None, strict=True,
                  warmup=0):
     """Phases 7 and 14: device time per step, by kernel and by every
-    wrapper; with `strict`, a wrapper's device kernels must show up exactly
-    when `launches` expects it to launch in the step. With `warmup`, that
-    many steps run first under the profiler's warm-up (traced, then
-    dropped): late in a long run on an H100 the first tens of ms of a trace
-    lost their kernels' records. Returns the device kernels as (ms a step,
-    calls a step, name)."""
+    wrapper, from `torch_trace_step.trace_table` (the trace script's own
+    trace, device operations and grouping); with `strict`, a wrapper's
+    device kernels must show up exactly when `launches` expects it to launch
+    in the step. With `warmup`, that many steps run first under the
+    profiler's warm-up (left out of the trace): late in a long run on an
+    H100 the first tens of ms of a trace lost their kernels' records.
+    Returns the device kernels as (ms a step, calls a step, name)."""
+    import tempfile
+
     steps = PROFILE_STEPS if steps is None else steps
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    schedule = (torch.profiler.schedule(wait=0, warmup=warmup, active=steps, repeat=1)
-                if warmup else None)
-    with torch.profiler.profile(activities=activities, schedule=schedule) as prof:
-        for _ in range(warmup):
-            step(*args)
-            torch.cuda.synchronize()
-            prof.step()
-        for _ in range(steps):
-            step(*args)
-        torch.cuda.synchronize()
-    kernels = sorted(  # user annotations (Adam's "Optimizer.step") span kernels: skipped
-        ((e.self_device_time_total / 1e3 / steps, e.count / steps, e.key)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-         and not getattr(e, "is_user_annotation", False)),
-        reverse=True,
-    )
-    check(len(kernels) > 0, "the profiler saw no device kernel")
-    busy_ms = sum(ms for ms, _, _ in kernels)
+    with tempfile.TemporaryDirectory() as logdir:
+        table = trace_step().trace_table(lambda: step(*args), steps, logdir, "cuda", step_ms,
+                                         warmup)
+    kernels, busy_ms = table.rows, table.busy_ms
     port = {name: [0.0, 0.0] for name in launches}
     for ms, calls, key in kernels:
         for name in launches:
@@ -2284,7 +2248,7 @@ def profile_step(torch, step, args, step_ms, label, launches, steps=None, strict
     port_ms = sum(ms for ms, _ in port.values())
     print(json.dumps({
         "phase": label, "steps": steps, "step_ms": step_ms,
-        "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / step_ms,
+        "device_busy_ms": busy_ms, "idle_share": table.idle_share,
         # blocking copies from pageable host memory drain the stream
         "htod_copies": sum(c for _, c, key in kernels if key.startswith("Memcpy HtoD")),
         "port_kernels": {name: {"ms": ms, "launches": calls} for name, (ms, calls) in port.items()},
@@ -2320,6 +2284,7 @@ def serve_phases(torch, ck, cfg, device, card):
     """Phases 3-8. Returns the serve kernels' rows, the rows of their
     reference sites and the counted launches."""
     from stratanet2_tpu_torch.inference.predict import make_predict_step
+    from stratanet2_tpu_torch.utils.profiling import record_calls
     from stratanet2_tpu_torch.utils.synthetic import random_model, serve_batch
 
     b, n = cfg.train.batch_size, cfg.model.subsample_size
@@ -2330,8 +2295,8 @@ def serve_phases(torch, ck, cfg, device, card):
 
     # phase 3: one serve step, its eager body (a graph's capture computes
     # nothing), records each kernel call's inputs
-    captured = capture_calls(ck, [name for name, _, _ in SERVE_KERNELS],
-                             lambda: step.body(model, cloud, xyz))
+    captured = record_calls(ck, [name for name, _, _ in SERVE_KERNELS],
+                            lambda: step.body(model, cloud, xyz))
     torch.cuda.synchronize()
     step_fps = list(captured["fps"])
     captured["fps"] += fps_reference_calls(torch, xyz, device)
@@ -3039,16 +3004,11 @@ def epoch_paths(torch, cfg, ds, train_ids, val_ids, kde, device, card):
 
 
 def device_busy_ms(torch, fn):
-    """fn() once under torch.profiler: its result and the device time (ms)
-    of every device operation it ran (kernels, copies, memsets)."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False))
-    return out, busy / 1e3
+    """fn() once traced (`device_events`): its result and the device time
+    (ms) of every device operation it ran (kernels, copies, memsets)."""
+    out = []
+    events = device_events(lambda: out.append(fn()))
+    return out[0], sum(ev["dur"] for ev in events) / 1e3
 
 
 def parcel_phase(torch, ck, cfg, device, card):
@@ -4062,6 +4022,7 @@ def train_phases(torch, ck, cfg, device, card):
     """Phases 9-15d. Returns the train kernels' rows and the counted launches."""
     from stratanet2_tpu_torch.learning.kde import fit_kde_mixture
     from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
+    from stratanet2_tpu_torch.utils.profiling import record_calls
     from stratanet2_tpu_torch.utils.synthetic import random_model, train_batch
 
     b, n = cfg.train.batch_size, cfg.model.subsample_size
@@ -4079,15 +4040,15 @@ def train_phases(torch, ck, cfg, device, card):
     # phase 9: one train step's eager body on a copy records each train
     # kernel's calls
     m, opt, sched = fresh()
-    captured = capture_calls(ck, [name for name, _, _ in TRAIN_KERNELS] + ["pixel_max"],
-                             lambda: step.body(m, opt, cloud, xyz, gt))
+    captured = record_calls(ck, [name for name, _, _ in TRAIN_KERNELS] + ["pixel_max"],
+                            lambda: step.body(m, opt, cloud, xyz, gt))
     torch.cuda.synchronize()
     del m, opt, sched
     # phase 10: fused vs unfused SA stages with nonzero shifts; its SA train
     # passes and the unfused SA2's gather backward (the knn_scatter site
     # that left the train step) are the reference sites
-    ref = capture_calls(ck, list(PHASE10_SITES),
-                        lambda: compare_fused_with_unfused(torch, cfg, model, cloud, xyz))
+    ref = record_calls(ck, list(PHASE10_SITES),
+                       lambda: compare_fused_with_unfused(torch, cfg, model, cloud, xyz))
     for name, calls in ref.items():
         captured[name] += calls
     for name, calls in sa_train_reference_calls(torch, ck, device).items():
@@ -4419,6 +4380,21 @@ def _script(name):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+@functools.lru_cache(maxsize=None)
+def trace_step():
+    """`scripts/torch_trace_step.py`: the one way this script traces the
+    card and picks and groups its device operations."""
+    return _script("torch_trace_step")
+
+
+@functools.lru_cache(maxsize=None)
+def roofline():
+    """`scripts/torch_roofline.py`: the one source of the kernels' byte and
+    operation counts (a function a kernel), the card's peaks and the bound
+    that the kernels' lines and sites report."""
+    return _script("torch_roofline")
 
 
 def schedule_launches(run, train=None, evals=None):
@@ -4861,6 +4837,172 @@ def cap_studies_phase(torch, ck, card, device="cuda", small=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 15m: the measurement and profiling tools, bench.py's geometry
+# ---------------------------------------------------------------------------
+
+
+def tools_phase(torch, ck, card, device="cuda", small=None):
+    """Phase 15m: the port's counterparts of the JAX side's measurement
+    and profiling scripts, small, and the geometry of `bench.py`.
+    1. `"tools_b128"`: one eval forward (`torch_serve_bench`'s function:
+       the model without the projection) at TOOLS_SERVE's B=128 x N=4,096,
+       its eager body recorded; each kernel call site (fps, sa_fused_eval,
+       knn_interpolate, 2 each) held to its plain version by `check_site`
+       (0 differing picks, SA_ATOL, KNN_ATOL) and timed (a `"tools_site"`
+       line each, with its bound); the launches of the forward as a graph
+       (its first call and a replay: twice TOOLS_FORWARD_LAUNCHES); the
+       same clouds in batches of 16 equal to the B=128 forward cloud for
+       cloud within CPU_ATOL;
+    2. `"tools_fps_parts"`: the PROD train step at fps_parts
+       TOOLS_FPS_PARTS (`torch_fps_parts_steptime.parts_config`), its FPS
+       sites the rule's rows (`fps_rows`) and held to the plain version,
+       and its launches TRAIN_LAUNCHES;
+    3. `"tools_trace"`: `torch_trace_step.trace_table` over
+       TOOLS_TRACE_STEPS replayed PROD serve steps: every serve kernel
+       named among the device operations, the idle share in [0, 1);
+    4. `"tools_roofline"`: `torch_roofline.roofline` at the PROD sites, a
+       line a kernel (ms, bound ms and share; launches > 0);
+    5. `"tools"`: the phase's seconds against TOOLS_BUDGET_S.
+    `small` cuts the sizes for a run on the CPU: {"serve": (B, N, split),
+    "train": (B, N), "prod": (B, N)} (the trace's and the roofline's)."""
+    import tempfile
+    from dataclasses import replace
+
+    from stratanet2_tpu_torch.config import default_config
+    from stratanet2_tpu_torch.inference.predict import make_predict_step
+    from stratanet2_tpu_torch.learning.kde import fit_kde_mixture
+    from stratanet2_tpu_torch.learning.train import make_optimizer, make_train_step
+    from stratanet2_tpu_torch.utils.profiling import record_calls, time_ms
+    from stratanet2_tpu_torch.utils.synthetic import random_model, serve_batch, train_batch
+
+    t_phase = time.perf_counter()
+    small = small or {}
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sb = _script("torch_serve_bench")
+    fp = _script("torch_fps_parts_steptime")
+    ts = trace_step()
+    rl = roofline()
+    cfg = default_config()
+
+    def sized(c, b, n):
+        return replace(c, model=replace(c.model, subsample_size=n),
+                       train=replace(c.train, batch_size=b))
+
+    # 1. bench.py's geometry: B=128 x 4,096 in one forward
+    t0 = time.perf_counter()
+    b, n, split = small.get("serve", TOOLS_SERVE)
+    mcfg = sized(cfg, b, n).model
+    model = random_model(mcfg, SEED, device)
+    cloud, xyz = serve_batch(b, n, torch.Generator(device=device).manual_seed(SEED + 27), device)
+    feats = cloud[..., 2:].contiguous()
+    with torch.inference_mode():
+        captured = record_calls(ck, list(TOOLS_FORWARD_LAUNCHES),
+                                lambda: model(feats, xyz))
+        cov, proba = model(feats, xyz)
+        for name, calls in captured.items():
+            check(len(calls) == TOOLS_FORWARD_LAUNCHES[name],
+                  f"tools_b128: {len(calls)} {name} sites, expected {TOOLS_FORWARD_LAUNCHES[name]}")
+            for site, args in enumerate(calls):
+                shape, nbytes, ops, err, diff_sel, _, _ = check_site(torch, ck, name, site, args)
+                k_ms = time_ms(lambda: getattr(ck, name)(*args), 10) if on_card else None
+                print(json.dumps({"phase": "tools_site", "kernel": name, "site": site,
+                                  "shape": shape, "kernel_ms": k_ms,
+                                  "bound_ms": rl.bound_ms(nbytes, ops)[0], "max_abs_diff": err,
+                                  "differing_selections": diff_sel}), flush=True)
+        parts = [model(feats[i:i + split], xyz[i:i + split]) for i in range(0, b, split)]
+    batched = max(float((torch.cat([p[j] for p in parts]) - want).abs().max())
+                  for j, want in enumerate((cov, proba)))
+    forward = sb.forward_program(model)
+    ck.reset_launches()
+    forward(feats, xyz)  # the first call: its eager body, then the capture
+    forward(feats, xyz)  # a replay
+    if on_card:
+        torch.cuda.synchronize(device)
+    launches = ck.launch_counts()
+    check_launches(launches, {k: 2 * v for k, v in TOOLS_FORWARD_LAUNCHES.items()},
+                   "tools_b128_forward")
+    print(json.dumps({"phase": "tools_b128", "B": b, "N": n, "split": split,
+                      "batches_vs_whole_max_abs_diff": batched, "atol": CPU_ATOL,
+                      "finite": bool(torch.isfinite(cov).all()),
+                      "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+    check(tuple(cov.shape) == (b, n, 4) and bool(torch.isfinite(cov).all()),
+          f"tools_b128: coverages {tuple(cov.shape)}, finite {bool(torch.isfinite(cov).all())}")
+    check(batched <= CPU_ATOL, f"tools_b128: batches of {split} differ from the whole batch "
+          f"by {batched}")
+    del captured, cov, proba, parts
+
+    # 2. the PROD train step at fps_parts TOOLS_FPS_PARTS, fps_min_part_samples 1
+    t0 = time.perf_counter()
+    b, n = small.get("train", (cfg.train.batch_size, cfg.model.subsample_size))
+    pcfg = fp.parts_config(TOOLS_FPS_PARTS, b, n)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    tcloud, txyz, gt = train_batch(b, n, gen, device)
+    kde = fit_kde_mixture((tcloud[..., 2] * pcfg.model.z_max).cpu().numpy())
+    tmodel = random_model(pcfg.model, SEED, device, running_stats=False)
+    opt, sched = make_optimizer(pcfg, tmodel, STEPS_PER_EPOCH)
+    step = make_train_step(pcfg, kde, device=device)
+    m = copy.deepcopy(tmodel)  # the recorded body steps a copy
+    o, _ = make_optimizer(pcfg, m, STEPS_PER_EPOCH)
+    fps_calls = record_calls(ck, ["fps"], lambda: step.body(m, o, tcloud, txyz, gt))["fps"]
+    del m, o
+    want = [(rows, npts, picks) for _, rows, npts, picks in fp.fps_rows(pcfg)]
+    got = [(a[0].shape[0], a[0].shape[1], a[1]) for a in fps_calls]
+    check(got == want, f"tools_fps_parts: the step's FPS rows {got}, the rule's {want}")
+    for site, args in enumerate(fps_calls):  # 0 differing picks, or it fails
+        check_site(torch, ck, "fps", site, args)
+    ck.reset_launches()
+    step(tmodel, opt, sched, tcloud, txyz, gt)
+    if on_card:
+        torch.cuda.synchronize(device)
+    launches = ck.launch_counts()
+    check_launches(launches, TRAIN_LAUNCHES, "tools_fps_parts_train_step")
+    print(json.dumps({"phase": "tools_fps_parts", "fps_parts": TOOLS_FPS_PARTS, "B": b, "N": n,
+                      "fps_rows": [dict(zip(("parts", "rows", "points_a_row", "picks_a_row"), r))
+                                   for r in fp.fps_rows(pcfg)],
+                      "differing_picks": 0, "seconds": time.perf_counter() - t0, "card": card}),
+          flush=True)
+
+    # 3. the trace of replayed PROD serve steps, aggregated as torch_trace_step does
+    t0 = time.perf_counter()
+    b, n = small.get("prod", (cfg.train.batch_size, cfg.model.subsample_size))
+    scfg = sized(cfg, b, n)
+    smodel = random_model(scfg.model, SEED, device)
+    scloud, sxyz = serve_batch(b, n, torch.Generator(device=device).manual_seed(SEED), device)
+    serve = make_predict_step(scfg, device=device)
+    serve(smodel, scloud, sxyz)  # the warm-up and the capture
+    wall = ts.step_wall_ms(lambda: serve(smodel, scloud, sxyz), device)
+    with tempfile.TemporaryDirectory() as logdir:
+        table = ts.trace_table(lambda: serve(smodel, scloud, sxyz), TOOLS_TRACE_STEPS, logdir,
+                               device, wall)
+    named = {name: any(key.removeprefix("void ").startswith(DEVICE_KERNELS[name])
+                       for _, _, key in table.rows)
+             for name, _, _ in SERVE_KERNELS}
+    print(json.dumps({"phase": "tools_trace", "B": b, "N": n, "steps": TOOLS_TRACE_STEPS,
+                      "step_ms": wall, "device_busy_ms": table.busy_ms,
+                      "idle_share": table.idle_share, "kernels_named": named,
+                      "top": [{"op": key[:90], "ms": ms} for ms, _, key in table.rows[:10]],
+                      "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+    if on_card:
+        check(all(named.values()), f"tools_trace: serve kernels missing from the trace {named}")
+        check(0 <= table.idle_share < 1, f"tools_trace: idle share {table.idle_share}")
+
+    # 4. the roofline at the PROD sites
+    t0 = time.perf_counter()
+    for row in rl.roofline(scfg, device):
+        print(json.dumps({"phase": "tools_roofline", "row": row["row"], "kernel": row["kernel"],
+                          "step": row["step"], "launches": row["launches"], "ms": row["ms"],
+                          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                          "share": row["share"], "card": card}), flush=True)
+        check(row["launches"] > 0, f"tools_roofline: no {row['kernel']} site")
+        check(not on_card or row["ms"] > 0, f"tools_roofline: {row['kernel']} took {row['ms']}")
+    print(json.dumps({"phase": "tools_roofline_seconds", "seconds": time.perf_counter() - t0}),
+          flush=True)
+    print(json.dumps({"phase": "tools", "seconds": time.perf_counter() - t_phase,
+                      "budget_seconds": TOOLS_BUDGET_S, "card": card}), flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 15h: dense plots
 # ---------------------------------------------------------------------------
 
@@ -4937,6 +5079,7 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
     from dataclasses import replace
 
     from stratanet2_tpu_torch.learning.train import make_optimizer
+    from stratanet2_tpu_torch.utils.profiling import record_calls, time_ms
 
     t0 = time.perf_counter()
     seconds = {}
@@ -4955,9 +5098,9 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
 
     names = ["fps", "sa_fused_eval", "knn_interpolate", "pixel_max", "ball_query",
              "pixel_max_bwd", "sa_train_bwd2"]
-    serve_calls = capture_calls(ck, names, lambda: st["serve"].body(model, cloud, xyz))
+    serve_calls = record_calls(ck, names, lambda: st["serve"].body(model, cloud, xyz))
     m, opt, sched = train_state()
-    train_calls = capture_calls(ck, names, lambda: st["train"].body(m, opt, *batch))
+    train_calls = record_calls(ck, names, lambda: st["train"].body(m, opt, *batch))
     torch.cuda.synchronize()
 
     ck.reset_launches()
@@ -5029,16 +5172,16 @@ def dense_phase(torch, ck, cfg, device, card, small=None):
                 rows[path]["skipped_share"] = work.pop("skipped_share")
             if work:  # the grid paths: their work, and the operations of all pairs
                 a_pair = 11.0 if path == "knn_interpolate_grid" else 10.0
-                rows[path].update(work, bound_all_pairs_ms=a_pair * rows[path]["pairs"]
-                                  / FP32_OPS_PER_S * 1e3)
+                rows[path].update(work, bound_all_pairs_ms=roofline().bound_ms(
+                    0.0, a_pair * rows[path]["pairs"])[0])
     fps_sites = [a for _, _, a in sites["fps_cluster"][:1] + sites["fps_global"]]
     rows["fps_cluster"]["per_pick_us"], rows["fps_global"]["per_pick_us"] = (
-        cuda_ms(torch, lambda a=a: ck.fps(*a), 5) / (a[1] - 1) * 1e3 for a in fps_sites)
+        time_ms(lambda a=a: ck.fps(*a), 5) / (a[1] - 1) * 1e3 for a in fps_sites)
     # the dense serve step's FPS rows on fps_kernel (SA2's parts): a pick and the share skipped
     block = [a for a in serve_calls["fps"] if a[0].shape[1] <= ck.FPS_MAX_N]
     rows["fps_cluster"]["block_rows"] = [
         {"rows": a[0].shape[0], "N": a[0].shape[1], "S": a[1],
-         "per_pick_us": cuda_ms(torch, lambda a=a: ck.fps(*a), 5) / (a[1] - 1) * 1e3,
+         "per_pick_us": time_ms(lambda a=a: ck.fps(*a), 5) / (a[1] - 1) * 1e3,
          "skipped_share": (lambda t: t[1] / t[2] if t[2] else None)(ck.fps_pruning(*a))}
         for a in block]
     dq_n = DENSE_DQ_N if small is None else small["dq_N"]
@@ -5123,6 +5266,7 @@ def dense_dq_step(torch, ck, dcfg, device, card, n):
     from dataclasses import replace
 
     from stratanet2_tpu_torch.learning.train import make_optimizer
+    from stratanet2_tpu_torch.utils.profiling import record_calls, time_ms
 
     qcfg = replace(dcfg, model=replace(dcfg.model, subsample_size=n))
     st = optin_setup(torch, qcfg, device, {})
@@ -5131,8 +5275,8 @@ def dense_dq_step(torch, ck, dcfg, device, card, n):
         m = copy.deepcopy(st["train_model"])
         return (m, *make_optimizer(qcfg, m, STEPS_PER_EPOCH))
 
-    calls = capture_calls(ck, ["fps", "sa_train_bwd2"],
-                          lambda: st["train"].body(*fresh()[:2], *st["batch"]))
+    calls = record_calls(ck, ["fps", "sa_train_bwd2"],
+                         lambda: st["train"].body(*fresh()[:2], *st["batch"]))
     m, opt, sched = fresh()
     before = {k: v.detach().clone() for k, v in m.named_parameters()}
     ck.reset_launches()
@@ -5166,7 +5310,7 @@ def dense_dq_step(torch, ck, dcfg, device, card, n):
                             lib_ms, agg, plain_reps=1)
             rows[path] = finish_agg(agg)
     fps_args = sites["fps_cluster"][1][0]
-    rows["fps_cluster"]["per_pick_us"] = (cuda_ms(torch, lambda: ck.fps(*fps_args), 5)
+    rows["fps_cluster"]["per_pick_us"] = (time_ms(lambda: ck.fps(*fps_args), 5)
                                           / (fps_args[1] - 1) * 1e3)
     del sites, fps_args
     ms, every = timed_steps(torch, lambda: st["train"](m, opt, sched, *st["batch"]),
@@ -5237,9 +5381,11 @@ def nearest_site(torch, ck, args):
     `torch.sort` of the precomputed chunked scores and a slice of its first
     k, the plain version's selection alone. The operations are 10 a pair
     within the radius (the pairs any exact method must score: distance,
-    compare, key), counted by the plain version's scores."""
+    compare, key), counted by `torch_roofline.in_radius_pairs`, whose counts
+    give the bytes and operations."""
     from stratanet2_tpu_torch.ops.ballquery import _BIG, _CHUNK, radius_sq
     from stratanet2_tpu_torch.ops.distance import expanded_d2, sq_norm3
+    from stratanet2_tpu_torch.utils.profiling import time_ms
 
     cent, pts, radius, k = args
     (gi, gm, grid), (wi, wm) = ck.ball_query_nearest_grid(*args), ck.ball_query_nearest_plain(*args)
@@ -5251,20 +5397,20 @@ def nearest_site(torch, ck, args):
     b, c, _ = cent.shape
     n = pts.shape[1]
     r2, pts_sq = radius_sq(radius), sq_norm3(pts)
-    scores, in_radius = [], 0
+    scores = []
     for c0 in range(0, c, _CHUNK):
         cc = cent[:, c0 : c0 + _CHUNK]
         d2 = expanded_d2(cc, sq_norm3(cc), pts, pts_sq)
         scores.append(torch.where(d2 <= r2, d2, torch.full_like(d2, _BIG)))
-        in_radius += int((d2 <= r2).sum())
     del d2
-    lib_ms = cuda_ms(torch, lambda: [torch.sort(sc, dim=-1, stable=True)[1][..., :k]
+    lib_ms = time_ms(lambda: [torch.sort(sc, dim=-1, stable=True)[1][..., :k]
                                      for sc in scores], 2)
     del scores
-    nbytes = 4 * (b * n * 3 + b * c * 3) + 5 * b * c * k  # idx int32 and mask bool written
-    shape = f"B={b} N={n} C={c} K={k} valid_picks={int(wm.sum())} in_radius={in_radius}"
-    return (shape, nbytes, 10.0 * in_radius, diff, lib_ms, float(b * c * n), float(in_radius),
-            grid)
+    rl = roofline()
+    in_radius = rl.in_radius_pairs(cent, pts, radius)
+    nbytes, ops = rl.ball_query_nearest_counts(b, c, n, k, in_radius)
+    shape = f"B={b} N={n} C={c} K={k} valid_picks={int(wm.sum())} in_radius={int(in_radius)}"
+    return shape, nbytes, ops, diff, lib_ms, float(b * c * n), in_radius, grid
 
 
 @contextlib.contextmanager
@@ -5502,14 +5648,15 @@ def nearest_phase(torch, ck, cfg, device):
     at each. Returns the per-step row (the serve step's sites) and the
     reference sites' row."""
     from stratanet2_tpu_torch.learning.train import make_optimizer
+    from stratanet2_tpu_torch.utils.profiling import record_calls
 
     st = optin_setup(torch, cfg, device, OPTIN_ROUTES["nearest"][0])
-    serve = capture_calls(ck, ["ball_query_nearest"],
-                          lambda: st["serve"].body(st["model"], st["cloud"], st["xyz"]))
+    serve = record_calls(ck, ["ball_query_nearest"],
+                         lambda: st["serve"].body(st["model"], st["cloud"], st["xyz"]))
     m = copy.deepcopy(st["train_model"])
     opt, sched = make_optimizer(st["cfg"], m, STEPS_PER_EPOCH)
-    train = capture_calls(ck, ["ball_query_nearest"],
-                          lambda: st["train"].body(m, opt, *st["batch"]))
+    train = record_calls(ck, ["ball_query_nearest"],
+                         lambda: st["train"].body(m, opt, *st["batch"]))
     torch.cuda.synchronize()
     del st, m, opt, sched
     sites = [(f"serve_step {i}", a) for i, a in enumerate(serve["ball_query_nearest"])]
@@ -5571,18 +5718,20 @@ def bf16_matmul_probe(torch, device, card):
     widened operands (the port's `models/nn.Linear`) and cuBLAS's bfloat16
     GEMM with a float32 output (`torch.mm(..., out_dtype=torch.float32)`,
     where this PyTorch has it): their times and max |diff|."""
+    from stratanet2_tpu_torch.utils.profiling import time_ms
+
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
     x = torch.randn((BF16_PROBE_ROWS, 42), generator=gen, device=device).bfloat16()
     w = torch.randn((42, 34), generator=gen, device=device).bfloat16()
     widened = x.float() @ w.float()
     row = {"phase": "bf16_matmul_probe", "rows": BF16_PROBE_ROWS, "kept": "widened float32",
-           "widened_ms": cuda_ms(torch, lambda: x.float() @ w.float(), 20), "card": card}
+           "widened_ms": time_ms(lambda: x.float() @ w.float(), 20), "card": card}
     try:
         gemm = torch.mm(x, w, out_dtype=torch.float32)
     except (TypeError, RuntimeError) as err:  # a PyTorch without the dtype overload
         row["bf16_gemm"] = f"unavailable: {err}"
     else:
-        row["bf16_gemm_ms"] = cuda_ms(torch, lambda: torch.mm(x, w, out_dtype=torch.float32), 20)
+        row["bf16_gemm_ms"] = time_ms(lambda: torch.mm(x, w, out_dtype=torch.float32), 20)
         row["bf16_gemm_max_abs_diff"] = float((gemm - widened).abs().max())
     print(json.dumps(row), flush=True)
 
@@ -5752,15 +5901,17 @@ def main() -> int:
     from stratanet2_tpu_torch.config import default_config
     from stratanet2_tpu_torch.ops import _build, cuda_kernels as ck
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
-         "--format=csv,noheader"],
+    from stratanet2_tpu_torch.utils.profiling import card_name
+
+    card = card_name(torch.device("cuda", 0))  # as --query-gpu=name,power.limit gives it
+    print(card, flush=True)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().split(", ")
-    card = ", ".join(smi[:2])  # as --query-gpu=name,power.limit gives it
-    print(card, flush=True)
-    clock_mhz = float(smi[3].split()[0])
-    print(json.dumps({"phase": "card", "clocks_sm": smi[2], "clocks_max_sm": smi[3]}), flush=True)
+    clock_mhz = float(clocks[1].split()[0])
+    print(json.dumps({"phase": "card", "clocks_sm": clocks[0], "clocks_max_sm": clocks[1]}),
+          flush=True)
     kind = torch.cuda.get_device_name(0)
     device = torch.device("cuda", 0)
 
@@ -5788,6 +5939,8 @@ def main() -> int:
     timeline("ssl_cycle")
     cap_studies_phase(torch, ck, card)
     timeline("cap_studies")
+    tools_phase(torch, ck, card)
+    timeline("tools")
     parcel_phase(torch, ck, cfg, device, card)
     timeline("parcel")
     results = cli_phase(torch, ck, card)

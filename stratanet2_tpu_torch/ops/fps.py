@@ -20,6 +20,16 @@ import torch
 from stratanet2_tpu_torch.ops import cuda_kernels
 
 
+def fps_parts_taken(n: int, n_samples: int, parts: int = 1, min_part_samples: int = 256) -> int:
+    """The parts an N-point cloud's FPS of `n_samples` runs in: `parts`
+    when p | N, p | S and S/p >= min_part_samples (fps.py:67-93), else 1.
+    Its rows are then B p of N/p points, picking S/p each."""
+    p = int(parts)
+    if p > 1 and n % p == 0 and n_samples % p == 0 and n_samples // p >= min_part_samples:
+        return p
+    return 1
+
+
 def farthest_point_sampling(
     xyz: torch.Tensor,
     n_samples: int,
@@ -36,9 +46,8 @@ def farthest_point_sampling(
     else:  # made on the device: a host-to-device copy would drain the stream
         start = torch.full((b,), int(start_idx), dtype=torch.int32, device=xyz.device)
     start = torch.broadcast_to(start, (b,)).contiguous()
-    p = int(parts)
-    if not (p > 1 and n % p == 0 and n_samples % p == 0
-            and n_samples // p >= min_part_samples):
+    p = fps_parts_taken(n, n_samples, parts, min_part_samples)
+    if p == 1:
         return cuda_kernels.fps(xyz, n_samples, start)
     npart, m = n // p, n_samples // p
     sp = (start.repeat_interleave(p) % npart).int()

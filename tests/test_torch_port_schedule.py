@@ -240,13 +240,16 @@ def test_fold_split_is_the_jax_scripts():
 
 PORT_SCRIPTS = ("torch_learnability_check", "torch_prod_schedule_run", "torch_ssl_cycle",
                 "torch_learnability_sweep", "torch_neighbor_cap_study", "torch_cap_train_study",
-                "torch_parity_eval")
+                "torch_parity_eval", "torch_serve_bench", "torch_batch_sweep", "torch_sa_bench",
+                "torch_fps_parts_steptime", "torch_profile_train", "torch_profile_projection",
+                "torch_profile_parcel", "torch_trace_step", "torch_trace_raw", "torch_roofline")
 
 
 def test_scripts_import_without_jax(tmp_path):
-    """The port's four training-schedule scripts, its capped-K studies and
-    its parity evaluation, and every module their functions import, load
-    with jax and the JAX package blocked, in a fresh interpreter."""
+    """The port's four training-schedule scripts, its capped-K studies, its
+    parity evaluation and its ten measurement and profiling tools, and
+    every module their functions import, load with jax and the JAX package
+    blocked, in a fresh interpreter."""
     modules = sorted({
         node.module if isinstance(node, ast.ImportFrom) else alias.name
         for name in (f"{script}.py" for script in PORT_SCRIPTS)

@@ -13,6 +13,7 @@ import torch
 
 import chip_smoke as cs
 from stratanet2_tpu_torch.ops import cuda_kernels as ck
+from stratanet2_tpu_torch.utils import profiling
 
 MAIN1 = "_Z20sa_train_main_kernelILi16ELb1ELi4EEvPKfS1_PKiPKbS1_S1_PfS6_S6_PiS7_iiii"
 MAIN2 = "_Z20sa_train_main_kernelILi32ELb0ELi16EEvPKfS1_PKiPKbS1_S1_PfS6_S6_PiS7_iiii"
@@ -468,7 +469,7 @@ def smoke_on_cpu(monkeypatch):
     """chip_smoke's site checks on the CPU: no timing, a profile that saw
     ten launches and nothing else, and the kernel's order of sums standing
     in for the scatter kernel."""
-    monkeypatch.setattr(cs, "cuda_ms", lambda *a, **k: 0.0)
+    monkeypatch.setattr(profiling, "time_ms", lambda *a, **k: 0.0)
     monkeypatch.setattr(cs, "device_profile", lambda *a, **k: (0.0, 10, 10))
     monkeypatch.setattr(ck, "knn_scatter", ck.knn_scatter_ordered_plain)
     monkeypatch.setattr(ck, "knn_scatter_rows", lambda *a: 32)
@@ -863,7 +864,7 @@ def optin_on_cpu(monkeypatch):
     from stratanet2_tpu_torch.config import default_config
 
     monkeypatch.setitem(sys.modules, "matplotlib", None)
-    monkeypatch.setattr(cs, "cuda_ms", lambda *a, **k: 0.0)
+    monkeypatch.setattr(profiling, "time_ms", lambda *a, **k: 0.0)
     monkeypatch.setattr(cs, "device_busy_ms", lambda torch, fn: (fn(), 0.0))
     monkeypatch.setattr(cs, "STEPS", 2)
     monkeypatch.setattr(cs, "BF16_PROBE_ROWS", 64)
@@ -926,7 +927,7 @@ def test_nearest_site_check_rejects_a_wrong_selection(monkeypatch, fault):
     """nearest_site counts the entries where the kernel's idx or mask
     differs from the plain version's: 0 for the plain version itself, more
     for a selection in another order or with a slot masked."""
-    monkeypatch.setattr(cs, "cuda_ms", lambda *a, **k: 0.0)
+    monkeypatch.setattr(profiling, "time_ms", lambda *a, **k: 0.0)
     args = cs.nearest_reference_calls(torch, torch.device("cpu"))[-1]
     args = (args[0][:1, :20].contiguous(), args[1][:1, :300].contiguous(), args[2], 32)
     monkeypatch.setattr(ck, "ball_query_nearest_grid",
@@ -1128,7 +1129,7 @@ def test_dense_phase_runs_on_the_cpu(monkeypatch, capsys):
     dq_sites = []
     monkeypatch.setattr(cs, "bwd2_dq_checks",
                         lambda torch, ck, site, args, got: dq_sites.append(site) or (None, {}))
-    monkeypatch.setattr(cs, "cuda_ms", lambda *a, **k: 0.0)
+    monkeypatch.setattr(profiling, "time_ms", lambda *a, **k: 0.0)
     monkeypatch.setattr(cs, "device_profile", lambda *a, **k: (0.0, 10, 10))
     monkeypatch.setattr(cs, "DENSE_STEPS", 1)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
